@@ -16,14 +16,24 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    ``ops.kmeans_lloyd`` (1,000,000 × 128 f32, K = 1024, 10 iterations —
    SIFT1M's shapes), ``ops.simjoin_counts`` and ``ops.simjoin_pairs``
    (262,144 × 16 f32, ε for a mean of ~32 neighbours; once more with
-   ``hilbert_order=True``).  Every kernel must have launched.
-4. Check the results against the chunked ``ref.py`` oracles: matmul
-   allclose; k-means assignments exact outside the float64 tie band and
-   centroids allclose; ε-join counts and pair set exact outside the
-   float64 threshold band (the band sizes are printed).
+   ``hilbert_order=True``), ``ops.floyd_warshall`` (an 8192-node random
+   digraph, edge probability 0.05, integer weights 1..100; and 5000
+   nodes, padded to 5016 with b = 88) and ``ops.cholesky`` (an 8192-point
+   Gaussian-process covariance M·Mᵀ/n + I; and n = 6001, padded to
+   6016), both 8192 calls once more with ``fused=False``.  Every kernel
+   must have launched.
+4. Check the results against the ``ref.py`` oracles: matmul allclose;
+   k-means assignments exact outside the float64 tie band and centroids
+   allclose; ε-join counts and pair set exact outside the float64
+   threshold band (the band sizes are printed); Floyd–Warshall equal to
+   the dense k-loop (exact on integer weights); Cholesky within 1e-4 of
+   the float64 factor and of A (relative); fused equal to ``fused=False``
+   for both; every input unchanged.
 5. Time each kernel at the main path's shapes with CUDA events (median of
    a few runs), its plain version (one run) and, where one PyTorch call
    computes the same function, that call; compute each kernel's bound.
+   The phased kernels are timed per entry point: the launches of one
+   phase over all k-blocks of one call.
 6. Run the main path's calls once more, warm, under ``torch.profiler``:
    wall time, kernel (device) time and the device's busy share per call.
 
@@ -35,6 +45,7 @@ The script imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -54,6 +65,23 @@ REPLACES = {
     "sfc_kmeans_update": "src/repro/kernels/kmeans.py:271",
     "sfc_join_hits": "src/repro/kernels/simjoin.py:112",
     "sfc_join_emit": "src/repro/kernels/simjoin.py:289",
+    "sfc_tile_update": "src/repro/kernels/matmul.py:191",
+    "sfc_fw_diag": "src/repro/kernels/floyd_warshall.py:115",
+    "sfc_fw_row": "src/repro/kernels/floyd_warshall.py:115",
+    "sfc_fw_col": "src/repro/kernels/floyd_warshall.py:115",
+    "sfc_fw_trailing": "src/repro/kernels/floyd_warshall.py:115",
+    "sfc_chol_diag": "src/repro/kernels/cholesky.py:108",
+    "sfc_chol_panel": "src/repro/kernels/cholesky.py:108",
+    "sfc_chol_trailing": "src/repro/kernels/cholesky.py:108",
+}
+# the per-k oracle kernels the same entry points replace too (fused=False)
+ALSO_REPLACES = {
+    "sfc_fw_diag": "src/repro/kernels/floyd_warshall.py:95",
+    "sfc_fw_row": "src/repro/kernels/floyd_warshall.py:99",
+    "sfc_fw_col": "src/repro/kernels/floyd_warshall.py:104",
+    "sfc_fw_trailing": "src/repro/kernels/floyd_warshall.py:109",
+    "sfc_chol_diag": "src/repro/kernels/cholesky.py:98",
+    "sfc_chol_panel": "src/repro/kernels/cholesky.py:102",
 }
 SOURCES = {
     "sfc_matmul": "src/repro_torch/kernels/csrc/matmul.cu",
@@ -61,6 +89,14 @@ SOURCES = {
     "sfc_kmeans_update": "src/repro_torch/kernels/csrc/kmeans.cu",
     "sfc_join_hits": "src/repro_torch/kernels/csrc/simjoin.cu",
     "sfc_join_emit": "src/repro_torch/kernels/csrc/simjoin.cu",
+    "sfc_tile_update": "src/repro_torch/kernels/csrc/matmul.cu",
+    "sfc_fw_diag": "src/repro_torch/kernels/csrc/floyd_warshall.cu",
+    "sfc_fw_row": "src/repro_torch/kernels/csrc/floyd_warshall.cu",
+    "sfc_fw_col": "src/repro_torch/kernels/csrc/floyd_warshall.cu",
+    "sfc_fw_trailing": "src/repro_torch/kernels/csrc/floyd_warshall.cu",
+    "sfc_chol_diag": "src/repro_torch/kernels/csrc/cholesky.cu",
+    "sfc_chol_panel": "src/repro_torch/kernels/csrc/cholesky.cu",
+    "sfc_chol_trailing": "src/repro_torch/kernels/csrc/cholesky.cu",
 }
 BAND = 1e-4  # relative width of the float64 tie / threshold band
 # the main path's sizes
@@ -68,6 +104,9 @@ MATMUL_F32 = 8192  # M = N = K
 MATMUL_BF16 = (8000, 7000, 6000)  # M, N, K
 KMEANS = (1_000_000, 128, 1024, 10)  # N, D, K, iterations
 JOIN = (262_144, 16)  # N, D
+FW = (8192, 5000)  # nodes: the main call (b = 128) and a padded one (b = 88)
+FW_EDGE_P = 0.05  # edge probability of the random digraphs
+CHOL = (8192, 6001)  # n: the main call (b = 128) and a padded one (to 6016)
 
 
 def log(msg: str) -> None:
@@ -231,6 +270,116 @@ def emission(tri, row_hits, eps: float, npad: int, n_valid):
     )
 
 
+def fw_graph(rng, n: int, device, *, p: float = FW_EDGE_P, integer: bool = True):
+    """Distance matrix of a random digraph: each edge present with
+    probability ``p``, weights uniform on 1..100 (whole numbers with
+    ``integer``, so every path sum is exact in f32 and the dense oracle
+    must agree to the bit), +inf for a missing edge, 0 on the diagonal."""
+    import torch
+
+    present = rng.random((n, n), dtype=np.float32) < p
+    if integer:
+        w = rng.integers(1, 101, size=(n, n), dtype=np.int32).astype(np.float32)
+    else:
+        w = rng.uniform(1.0, 100.0, size=(n, n)).astype(np.float32)
+    d = np.where(present, w, np.float32(np.inf))
+    np.fill_diagonal(d, 0.0)
+    return torch.as_tensor(d, device=device)
+
+
+def gp_covariance(rng, n: int, device):
+    """A = M·Mᵀ/n + I, M standard normal (n × n): the exact covariance of a
+    Gaussian process with a linear kernel on n training points plus unit
+    noise.  Formed in float64 on the card, returned in f32."""
+    import torch
+
+    m = torch.as_tensor(rng.standard_normal((n, n), dtype=np.float32), device=device).double()
+    a = m @ m.T / n
+    a.diagonal().add_(1.0)
+    return a.float()
+
+
+def max_diff(a, b) -> float:
+    """Largest |a − b| where the two differ (0 where both are the same
+    +inf, inf where only one is)."""
+    import torch
+
+    d = torch.where(a == b, torch.zeros_like(a), (a - b).abs())
+    return float(d.max()) if d.numel() else 0.0
+
+
+# kernel vs plain Cholesky on the card: the factor's entries are O(1) and
+# both sides sum up to n f32 terms, in other orders
+CHOL_RTOL, CHOL_ATOL = 1e-4, 1e-5
+
+
+def compare_phased(rng, device) -> None:
+    """Floyd–Warshall, Cholesky (fused and per-k programs, b = 8, 88, 128)
+    and sfc_tile_update against their plain versions on the card; the two
+    entry points at n = 1000 (padded) against the same call on the CPU."""
+    import torch
+    from repro_torch.core import triangle_schedule_device
+    from repro_torch.kernels import launch, ops
+    from repro_torch.kernels.cholesky import cholesky_program, cholesky_reference_program
+    from repro_torch.kernels.floyd_warshall import fw_program, fw_reference_program
+    from repro_torch.kernels.matmul import tile_update_program
+
+    for n, b in [(64, 8), (528, 88), (1024, 128)]:
+        d = fw_graph(rng, n, device, integer=False)
+        outs = []
+        for build in (fw_program, fw_reference_program):
+            prog = build("hilbert", n // b, b, device=device)
+            got, want = launch(prog, d.clone()), prog.plain(prog, d.clone())
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"{prog.name} n={n} b={b}: kernel != plain "
+                                          f"(max diff {max_diff(got, want)})")
+            outs.append(got)
+        check(torch.equal(*outs), f"floyd_warshall n={n} b={b}: fused != per-k")
+        reach = float(torch.isfinite(outs[0]).float().mean())
+        a = gp_covariance(rng, n, device)
+        outs, errs = [], []
+        for build in (cholesky_program, cholesky_reference_program):
+            prog = build("hilbert", n // b, b, device=device)
+            got, want = launch(prog, a.clone()).tril(), prog.plain(prog, a.clone()).tril()
+            torch.cuda.synchronize()
+            errs.append(float((got - want).abs().max()))
+            check(bool(torch.allclose(got, want, rtol=CHOL_RTOL, atol=CHOL_ATOL)),
+                  f"{prog.name} n={n} b={b}: kernel vs plain max err {errs[-1]}")
+            outs.append(got)
+        check(torch.equal(*outs), f"cholesky n={n} b={b}: fused != per-k")
+        log(f"compare sfc_fw_* n={n} b={b}: fused and per-k array_equal to plain and to each other "
+            f"(reachable pairs {reach:.3f}); "
+            f"sfc_chol_* + sfc_tile_update: max_abs_err fused {errs[0]:.3e}, per-k {errs[1]:.3e} "
+            f"(rtol {CHOL_RTOL}, atol {CHOL_ATOL}), fused == per-k")
+
+    d = fw_graph(rng, 1000, device, integer=False)
+    got, want = ops.floyd_warshall(d), ops.floyd_warshall(d.cpu())
+    check(torch.equal(got.cpu(), want), "ops.floyd_warshall n=1000: card != CPU")
+    a = gp_covariance(rng, 1000, device)
+    got, want = ops.cholesky(a), ops.cholesky(a.cpu())
+    cerr = float((got.cpu() - want).abs().max())
+    check(bool(torch.allclose(got.cpu(), want, rtol=CHOL_RTOL, atol=CHOL_ATOL)),
+          f"ops.cholesky n=1000: card vs CPU max err {cerr}")
+    log(f"compare ops.floyd_warshall n=1000 (b=112, padded to 1008): card == CPU plain; "
+        f"ops.cholesky n=1000: max_abs_err {cerr:.3e}")
+
+    for M, Kp, bm, curve in [(384, 88, 128, "hilbert"), (768, 128, 256, "row")]:
+        o = torch.as_tensor(rng.standard_normal((M, M), dtype=np.float32), device=device)
+        a = torch.as_tensor(rng.standard_normal((M, Kp), dtype=np.float32), device=device)
+        b = torch.as_tensor(rng.standard_normal((M, Kp), dtype=np.float32), device=device)
+        sched = triangle_schedule_device(curve, M // bm, strict=False, device=device)
+        prog = tile_update_program(sched, o, a, b, bm=bm, bn=bm, alpha=-1.0)
+        got, want = launch(prog, o.clone(), a, b), prog.plain(prog, o.clone(), a, b)
+        torch.cuda.synchronize()
+        err, tol = float((got - want).abs().max()), 1e-4 * Kp ** 0.5
+        check(err <= tol, f"sfc_tile_update M={M} Kp={Kp} bm={bm}: max err {err} > {tol}")
+        upper = torch.ones(M // bm, M // bm, dtype=torch.bool, device=device).triu(1)
+        upper = upper.repeat_interleave(bm, 0).repeat_interleave(bm, 1)
+        check(torch.equal(got[upper], o[upper]), f"sfc_tile_update M={M}: a tile off the schedule changed")
+        log(f"compare sfc_tile_update M=N={M} Kp={Kp} bm={bm} {curve} triangle: max_abs_err={err:.3e} "
+            f"(tol {tol:.1e}), tiles off the schedule unchanged")
+
+
 # ---------------------------------------------------------------------------
 # phase 2: each kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -358,9 +507,15 @@ def main_path(rng, device, seed: int) -> dict:
     xk = torch.as_tensor(centres[labels] + rng.standard_normal((NK, DK), dtype=np.float32), device=device)
     NJ, DJ = JOIN
     xj, eps = join_data(rng, NJ, DJ, device)
+    NF, NFR = FW
+    NC, NCR = CHOL
+    fw_d, fw_dr = fw_graph(rng, NF, device), fw_graph(rng, NFR, device)
+    ch_a, ch_ar = gp_covariance(rng, NC, device), gp_covariance(rng, NCR, device)
+    saved = [t.clone() for t in (fw_d, fw_dr, ch_a, ch_ar)]
     torch.cuda.synchronize()
     log(f"data: {time.perf_counter() - t0:.1f} s (matmul {S}^3 f32 + {M16}x{N16}x{K16} bf16, "
-        f"k-means {NK}x{DK} K={K}, e-join {NJ}x{DJ} eps={eps:.5f})")
+        f"k-means {NK}x{DK} K={K}, e-join {NJ}x{DJ} eps={eps:.5f}, floyd_warshall {NF} and {NFR} "
+        f"nodes p={FW_EDGE_P}, cholesky {NC} and {NCR})")
 
     # --- phase 3: the main path through the public entry points ------------
     wall = {}
@@ -381,6 +536,12 @@ def main_path(rng, device, seed: int) -> dict:
     counts = run(f"ops.simjoin_counts {NJ}x{DJ}", lambda: ops.simjoin_counts(xj, eps))
     pairs = run(f"ops.simjoin_pairs {NJ}x{DJ}", lambda: ops.simjoin_pairs(xj, eps))
     pairs_h = run("ops.simjoin_pairs hilbert_order", lambda: ops.simjoin_pairs(xj, eps, hilbert_order=True))
+    fw = run(f"ops.floyd_warshall {NF}", lambda: ops.floyd_warshall(fw_d))
+    fw_r = run(f"ops.floyd_warshall {NFR}", lambda: ops.floyd_warshall(fw_dr))
+    ch = run(f"ops.cholesky {NC}", lambda: ops.cholesky(ch_a))
+    ch_r = run(f"ops.cholesky {NCR}", lambda: ops.cholesky(ch_ar))
+    fw_k = run(f"ops.floyd_warshall {NF} fused=False", lambda: ops.floyd_warshall(fw_d, fused=False))
+    ch_k = run(f"ops.cholesky {NC} fused=False", lambda: ops.cholesky(ch_a, fused=False))
     launches = LAUNCHES.counts()
     log("main path wall ms: " + json.dumps({k: round(v, 3) for k, v in wall.items()}))
     log("main path launches: " + json.dumps(launches))
@@ -424,10 +585,29 @@ def main_path(rng, device, seed: int) -> dict:
         f"differ in band: plain order {st['differ_in_band']}, hilbert_order {sth['differ_in_band']}")
     del oracle
 
+    for name, d, out in ((f"floyd_warshall {NF}", fw_d, fw), (f"floyd_warshall {NFR}", fw_dr, fw_r)):
+        check(out.shape == d.shape and out.dtype == torch.float32, f"{name}: shape or dtype")
+        check(torch.equal(out, ref.floyd_warshall(d)), f"{name}: differs from the dense k-loop")
+        log(f"check {name}: equal to the dense k-loop oracle; reachable pairs "
+            f"{float(torch.isfinite(out).float().mean()):.6f}, longest shortest path {float(out[torch.isfinite(out)].max()):.0f}")
+    check(torch.equal(fw, fw_k), f"floyd_warshall {NF}: fused != fused=False")
+    for name, a, L in ((f"cholesky {NC}", ch_a, ch), (f"cholesky {NCR}", ch_ar, ch_r)):
+        check(L.shape == a.shape and bool(torch.isfinite(L).all()), f"{name}: shape or non-finite")
+        stats = cholesky_errors(a, L)
+        lib = cholesky_errors(a, ref.cholesky(a))
+        check(stats["factor_rel"] <= 1e-4, f"{name}: max|L - L64| / max|L64| = {stats['factor_rel']} > 1e-4")
+        check(stats["residual_rel"] <= 1e-4, f"{name}: |LL^T - A|_F / |A|_F = {stats['residual_rel']} > 1e-4")
+        log(f"check {name}: " + json.dumps({"port": stats, "torch.linalg.cholesky f32": lib, "limits": 1e-4}))
+    check(torch.equal(ch, ch_k), f"cholesky {NC}: fused != fused=False")
+    for t, before in zip((fw_d, fw_dr, ch_a, ch_ar), saved):
+        check(torch.equal(t, before), "an input of floyd_warshall / cholesky changed")
+    log("check phased: fused == fused=False (floyd_warshall, cholesky), inputs unchanged")
+    del fw_r, fw_k, ch_r, ch_k, saved
+
     # --- phase 5: kernel timings at the main path's shapes ------------------
     rows = []
 
-    def entry(name, kern, plain, library, ops_, peak, nbytes, reps, err):
+    def entry(name, kern, plain, library, ops_, peak, nbytes, reps, err, extra=None):
         ms = cuda_ms(kern, reps)
         p_ms = cuda_ms(plain, 1, warmup=0)
         l_ms = cuda_ms(library, reps) if library is not None else None
@@ -436,6 +616,8 @@ def main_path(rng, device, seed: int) -> dict:
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms,
+            **({"also_replaces": ALSO_REPLACES[name]} if name in ALSO_REPLACES else {}),
+            **(extra or {}),
         })
         log(f"time {name}: {json.dumps(rows[-1])}")
 
@@ -518,14 +700,186 @@ def main_path(rng, device, seed: int) -> dict:
     entry("sfc_join_emit", lambda: launch(emit, xj), lambda: emit_p.plain(emit_p, xj), None,
           emit_ops, FP32_PEAK, 4 * (NJ * DJ + 4 * len(trid) + 2 * P), 5, eerr)
 
+    del r_k, r_p, e_k, e_p
+    time_phased(entry, device, fw_d, fw_dr, ch_a, ch_ar, ch)
+
     # --- phase 6: where the time goes in a warm second pass ------------------
     profile_calls({
         f"ops.matmul f32 {S}^3": lambda: ops.matmul(a32, b32),
         f"ops.kmeans_lloyd {NK}x{DK} K={K} x{ITERS}": lambda: ops.kmeans_lloyd(xk, K, iters=ITERS, seed=seed),
         f"ops.simjoin_counts {NJ}x{DJ}": lambda: ops.simjoin_counts(xj, eps),
         f"ops.simjoin_pairs {NJ}x{DJ}": lambda: ops.simjoin_pairs(xj, eps),
+        f"ops.floyd_warshall {NF}": lambda: ops.floyd_warshall(fw_d),
+        f"ops.floyd_warshall {NF} fused=False": lambda: ops.floyd_warshall(fw_d, fused=False),
+        f"ops.cholesky {NC}": lambda: ops.cholesky(ch_a),
+        f"ops.cholesky {NC} fused=False": lambda: ops.cholesky(ch_a, fused=False),
     })
     return {"kernels": rows}
+
+
+def cholesky_errors(a, L) -> dict:
+    """max|L − L₆₄| / max|L₆₄| and ‖L·Lᵀ − A‖_F / ‖A‖_F, in float64 on the
+    card, L₆₄ the float64 factor of the same (f32) A."""
+    import torch
+
+    a64 = a.double()
+    l64 = torch.linalg.cholesky(a64)
+    L = L.double()
+    out = {
+        "factor_rel": float((L - l64).abs().max() / l64.abs().max()),
+        "residual_rel": float(torch.linalg.matrix_norm(L @ L.T - a64) / torch.linalg.matrix_norm(a64)),
+    }
+    del a64, l64, L
+    return out
+
+
+def only_phase(prog, phase: int):
+    """The program restricted to one phase's barrier groups: the launches of
+    one entry point over all k-blocks of a call."""
+    groups = tuple(g for g in prog.params["groups"] if g[0] == phase)
+    return dataclasses.replace(prog, params={**prog.params, "groups": groups})
+
+
+def time_phased(entry, device, fw_d, fw_dr, ch_a, ch_ar, ch) -> None:
+    """Phase 5 of the Floyd–Warshall and Cholesky kernels at the main path's
+    shapes (n = 8192, b = 128, hilbert): the whole fused program against
+    its plain version once, then each entry point (its launches over all
+    k-blocks of one call, on a scratch copy: the kernels' work does not
+    depend on the values) with its plain version and bound; then
+    sfc_tile_update on the full 64 x 64 tile grid at Kp = 128, and the
+    entry points' own times."""
+    import torch
+    from repro_torch.core import tile_schedule_device
+    from repro_torch.kernels import launch, ops
+    from repro_torch.kernels.cholesky import ENTRY_POINTS as CHOL_ENTRY
+    from repro_torch.kernels.cholesky import cholesky_program
+    from repro_torch.kernels.floyd_warshall import ENTRY_POINTS as FW_ENTRY
+    from repro_torch.kernels.floyd_warshall import fw_program
+    from repro_torch.kernels.matmul import tile_update_program
+
+    n, b = fw_d.shape[0], 128
+    nt = n // b
+    per_sm = FP32_PEAK / 132  # one of the H100 SXM's 132 SMs
+    tile_bytes = 4 * b * b
+
+    def plain_once(prog, x):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = prog.plain(prog, x)
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t)
+
+    # Floyd-Warshall: (min, +) lane instructions at half the FP32 FLOP rate
+    prog = fw_program("hilbert", nt, b, device=device)
+    want, fw_plain_ms = plain_once(prog, fw_d.clone())
+    got = launch(prog, fw_d.clone())
+    fw_err = max_diff(got, want)
+    check(torch.equal(got, want), f"fused floyd_warshall {n} vs plain: max diff {fw_err}")
+    del got, want
+    work = fw_d.clone()
+    for phase, name in enumerate(FW_ENTRY):
+        sub = only_phase(prog, phase)
+        groups = sub.params["groups"]
+        ctas = sum(hi - lo for _p, _k, lo, hi in groups)
+        ops_ = 2.0 * ctas * b ** 3  # one add and one min per candidate
+        if phase == 3:  # trailing: its tiles plus row k and column k, read once
+            nbytes = sum(2 * (hi - lo) + 2 * (nt - 1) for _p, _k, lo, hi in groups) * tile_bytes
+        else:  # diag: tile in, tile + workspace out; panels: tiles + workspace
+            nbytes = sum(2 * (hi - lo) + 1 for _p, _k, lo, hi in groups) * tile_bytes
+        extra = {"bound_one_sm_ms": 1e3 * ops_ / (per_sm / 2)} if phase == 0 else None
+        entry(name, lambda: launch(sub, work), lambda: sub.plain(sub, work), None, ops_, FP32_PEAK / 2,
+              nbytes, 3, fw_err, extra)
+    del work
+
+    # Cholesky: FP32 FMAs (2 flops each)
+    prog = cholesky_program("hilbert", nt, b, device=device)
+    want, ch_plain_ms = plain_once(prog, ch_a.clone())
+    want = want.tril()
+    got = launch(prog, ch_a.clone()).tril()
+    ch_err = float((got - want).abs().max())
+    check(bool(torch.allclose(got, want, rtol=CHOL_RTOL, atol=CHOL_ATOL)),
+          f"fused cholesky {n} vs plain: max err {ch_err}")
+    check(torch.equal(got, ch), f"fused cholesky {n}: program != ops.cholesky")
+    del got, want
+    av, lv = ch_a.view(nt, b, nt, b), ch.view(nt, b, nt, b)
+    ar = torch.arange(nt, device=device)
+    diag_tiles = av[ar, :, ar, :].contiguous()
+    panel = [g for g in prog.params["groups"] if g[0] == 1]
+    rows = prog.schedule[torch.cat([torch.arange(lo, hi) for _p, _k, lo, hi in panel]).to(device)].long()
+    l_kk = lv[rows[:, 1], :, rows[:, 1], :].contiguous()
+    a_ik = av[rows[:, 2], :, rows[:, 3], :].contiguous()
+    libraries = {
+        0: lambda: torch.linalg.cholesky(diag_tiles),
+        1: lambda: torch.linalg.solve_triangular(l_kk.mT, a_ik, upper=True, left=False),
+        2: None,
+    }
+    work = ch_a.clone()
+    table = prog.schedule.cpu().numpy()
+    ci = prog.params["col_i"]
+    for phase, name in enumerate(CHOL_ENTRY):
+        sub = only_phase(prog, phase)
+        groups = sub.params["groups"]
+        ctas = sum(hi - lo for _p, _k, lo, hi in groups)
+        # diag: b^3/3 flops per tile; panel: b^3 per tile (b rows, b^2/2
+        # FMAs each); trailing: 2 b^3 per off-diagonal tile and b^3 per
+        # diagonal one, whose upper half no later step reads (tril zeroes it)
+        ops_ = ctas * b ** 3 * (1 / 3, 1.0, 2.0)[phase]
+        if phase == 2:
+            rows = np.concatenate([table[lo:hi, ci:ci + 2] for _p, _k, lo, hi in groups])
+            ops_ -= int((rows[:, 0] == rows[:, 1]).sum()) * b ** 3
+        if phase == 2:  # trailing tiles, plus column k's tiles below k, read once
+            nbytes = sum(2 * (hi - lo) + (nt - k - 1) for _p, k, lo, hi in groups) * tile_bytes
+        else:
+            nbytes = sum(2 * (hi - lo) + phase for _p, _k, lo, hi in groups) * tile_bytes
+        extra = {"bound_one_sm_ms": 1e3 * ops_ / per_sm} if phase == 0 else None
+        entry(name, lambda: launch(sub, work), lambda: sub.plain(sub, work), libraries[phase], ops_,
+              FP32_PEAK, nbytes, 3, ch_err, extra)
+    del work, diag_tiles, l_kk, a_ik
+
+    # sfc_tile_update on the full tile grid, against torch.addmm
+    kp = 128
+    rng = np.random.default_rng(12)
+    o = torch.as_tensor(rng.standard_normal((n, n), dtype=np.float32), device=device)
+    a = torch.as_tensor(rng.standard_normal((n, kp), dtype=np.float32), device=device)
+    bb = torch.as_tensor(rng.standard_normal((n, kp), dtype=np.float32), device=device)
+    tu = tile_update_program(tile_schedule_device("hilbert", (nt, nt), device=device), o, a, bb,
+                             bm=b, bn=b, alpha=-1.0)
+    got, want = launch(tu, o.clone(), a, bb), tu.plain(tu, o.clone(), a, bb)
+    tu_err, tu_tol = float((got - want).abs().max()), 1e-4 * kp ** 0.5
+    check(tu_err <= tu_tol, f"sfc_tile_update {n}^2 Kp={kp} vs plain: max err {tu_err} > {tu_tol}")
+    del got, want
+    entry("sfc_tile_update", lambda: launch(tu, o, a, bb), lambda: tu.plain(tu, o, a, bb),
+          lambda: torch.addmm(o, a, bb.T, alpha=-1.0), 2.0 * n * n * kp, FP32_PEAK,
+          4 * (2 * n * n + 2 * n * kp), 5, tu_err)
+    del o, a, bb
+
+    # the entry points end to end (each copies its input once)
+    fb, fpad = ops._block_and_pad(fw_dr.shape[0], 128, mult=8)
+    cb, cpad = ops._block_and_pad(ch_ar.shape[0], 128, mult=8)
+    apps = {
+        f"floyd_warshall {n}": {
+            "fused_ms": cuda_ms(lambda: ops.floyd_warshall(fw_d), 3),
+            "per_k_ms": cuda_ms(lambda: ops.floyd_warshall(fw_d, fused=False), 3),
+            "plain_ms": fw_plain_ms, "library_ms": None,
+            "bound_ms": 1e3 * 2.0 * n ** 3 / (FP32_PEAK / 2),
+        },
+        f"floyd_warshall {fw_dr.shape[0]} (b={fb}, padded to {fpad})": {
+            "fused_ms": cuda_ms(lambda: ops.floyd_warshall(fw_dr), 3),
+            "bound_ms": 1e3 * 2.0 * fpad ** 3 / (FP32_PEAK / 2),
+        },
+        f"cholesky {n}": {
+            "fused_ms": cuda_ms(lambda: ops.cholesky(ch_a), 3),
+            "per_k_ms": cuda_ms(lambda: ops.cholesky(ch_a, fused=False), 3),
+            "plain_ms": ch_plain_ms, "library_ms": cuda_ms(lambda: torch.linalg.cholesky(ch_a), 3),
+            "bound_ms": 1e3 * n ** 3 / 3 / FP32_PEAK,
+        },
+        f"cholesky {ch_ar.shape[0]} (b={cb}, padded to {cpad})": {
+            "fused_ms": cuda_ms(lambda: ops.cholesky(ch_ar), 3),
+            "library_ms": cuda_ms(lambda: torch.linalg.cholesky(ch_ar), 3),
+            "bound_ms": 1e3 * cpad ** 3 / 3 / FP32_PEAK,
+        },
+    }
+    log("apps: " + json.dumps(apps))
 
 
 def profile_calls(calls: dict) -> None:
@@ -545,7 +899,7 @@ def profile_calls(calls: dict) -> None:
         kernels = [e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
         dev = 1e-3 * sum(e.self_device_time_total for e in kernels)
-        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
         log("profile: " + json.dumps({
             "call": name, "wall_ms": wall,
             "device_ms": dev if kernels else "not measured",
@@ -588,6 +942,7 @@ def main() -> int:
             log("  " + line.strip())
     rng = np.random.default_rng(args.seed)
     compare_kernels(rng, device)
+    compare_phased(np.random.default_rng(args.seed + 1), device)
     if args.quick:
         return 0
     result = main_path(rng, device, args.seed)

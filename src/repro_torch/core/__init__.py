@@ -44,8 +44,11 @@ from .hilbert_nd import hilbert_decode_nd, hilbert_encode_nd, hilbert_path_nd
 from .peano import peano_decode, peano_encode, peano_path
 from .program import GpuProgram, curve_partition
 from .schedule import (
+    CHOLESKY_PHASES,
     CURVES,
+    FW_PHASES,
     KMEANS_PHASES,
+    PHASED_KINDS,
     SCHEDULE_KINDS,
     ScheduleChoice,
     as_choice,
@@ -54,6 +57,8 @@ from .schedule import (
     mark_first_visits,
     min_revisit_gap,
     miss_curve,
+    phase_barriers,
+    phase_groups,
     phased_schedule,
     phased_schedule_device,
     register_schedule_cache,

@@ -588,6 +588,34 @@ def phase_barriers(sched: np.ndarray, *, kind: str = "fw") -> np.ndarray:
     return s[:, 1] * nphases + s[:, 0]
 
 
+def phase_groups(curve, nt: int, *, kind: str = "fw") -> tuple[tuple[int, int, int, int], ...]:
+    """The barrier groups of :func:`phased_schedule`, in table order, as
+    ``(phase, k, begin, end)`` row ranges: one launch each on a GPU, whose
+    CTA ``x`` takes table row ``begin + x``.
+
+    Groups are maximal runs of one :func:`phase_barriers` id; the ids
+    must increase from group to group (every group ends before the next
+    begins), which is checked.  LRU-cached beside the device table, so a
+    call costs no host work after the first per ``(curve, nt, kind)``.
+    """
+    return _phase_groups(_curve_name(curve), int(nt), kind)
+
+
+@functools.lru_cache(maxsize=128)
+def _phase_groups(curve: str, nt: int, kind: str) -> tuple[tuple[int, int, int, int], ...]:
+    table = _phased_schedule_host(curve, nt, kind)
+    bar = phase_barriers(table, kind=kind)
+    if len(bar) == 0:
+        return ()
+    starts = np.flatnonzero(np.concatenate([[True], bar[1:] != bar[:-1]]))
+    if np.any(np.diff(bar[starts]) <= 0):
+        raise AssertionError(f"phased {kind} table: barrier groups out of order")
+    ends = np.concatenate([starts[1:], [len(bar)]])
+    return tuple(
+        (int(table[s, 0]), int(table[s, 1]), int(s), int(e)) for s, e in zip(starts, ends)
+    )
+
+
 def phased_schedule_device(curve, nt: int, *, kind: str = "fw", device="cuda"):
     """Device-resident upload of :func:`phased_schedule` (LRU-cached per
     device)."""
@@ -845,6 +873,7 @@ for _cache in (
     _device_schedule,
     _phased_schedule_host,
     _phased_schedule_dev,
+    _phase_groups,
     _kmeans_schedule_host,
     _kmeans_schedule_dev,
     _triangle_schedule_dev,

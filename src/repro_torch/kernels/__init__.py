@@ -12,9 +12,21 @@ kernels take their tile order from an int32 schedule table built by
 """
 from . import ops, ref
 from ._build import LAUNCHES
+from .cholesky import (
+    cholesky_blocked,
+    cholesky_blocked_reference,
+    cholesky_program,
+    cholesky_reference_program,
+)
+from .floyd_warshall import (
+    floyd_warshall_blocked,
+    floyd_warshall_blocked_reference,
+    fw_program,
+    fw_reference_program,
+)
 from .kmeans import kmeans_init, kmeans_lloyd_fused, kmeans_lloyd_program
 from .launch import launch
-from .matmul import matmul_swizzled
+from .matmul import matmul_swizzled, tile_update_program, tile_update_swizzled
 from .simjoin import (
     simjoin_counts_swizzled,
     simjoin_emit_program,
@@ -26,6 +38,14 @@ from .simjoin import (
 
 __all__ = [
     "LAUNCHES",
+    "cholesky_blocked",
+    "cholesky_blocked_reference",
+    "cholesky_program",
+    "cholesky_reference_program",
+    "floyd_warshall_blocked",
+    "floyd_warshall_blocked_reference",
+    "fw_program",
+    "fw_reference_program",
     "kmeans_init",
     "kmeans_lloyd_fused",
     "kmeans_lloyd_program",
@@ -39,4 +59,6 @@ __all__ = [
     "simjoin_hits_program",
     "simjoin_pairs_scheduled",
     "simjoin_tile_hits_swizzled",
+    "tile_update_program",
+    "tile_update_swizzled",
 ]

@@ -43,6 +43,16 @@ SIGNATURES = {
     "sfc_kmeans_update": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     "sfc_join_hits": (_P, _I, _P, _I, _I, _F, _I, _P, _P, _P),
     "sfc_join_emit": (_P, _I, _P, _I, _I, _F, _I, _P, _P),
+    "sfc_tile_update": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    # phased kernels: (matrix, [workspace,] table, table columns, column of
+    # i, first row, CTAs, k, n, b, stream)
+    "sfc_fw_diag": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "sfc_fw_row": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "sfc_fw_col": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "sfc_fw_trailing": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "sfc_chol_diag": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "sfc_chol_panel": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "sfc_chol_trailing": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

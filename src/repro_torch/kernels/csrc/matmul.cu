@@ -17,6 +17,19 @@
 //
 // CTA s reads (i, j) = sched[s]; a (bm, bn) tile wider than 128 is
 // covered by a loop of 128x128 sub-tiles inside the CTA.
+//
+// sfc_tile_update: O[i, j] += alpha * A_i . B_j^T over a scheduled subset
+// of (i, j) tiles, O updated in place.
+//
+// Replaces: src/repro/kernels/matmul.py::_accum_update_kernel (the TPU
+// kernel of tile_update_swizzled, the per-k Cholesky's trailing SYRK
+// update).  Each tile of the schedule is visited once, so the in-place
+// read-modify-write needs no ordering between CTAs.  Both operands are
+// row panels, A (M, Kp) and B (N, Kp), read by RowLoader as x . c^T is in
+// kmeans.cu; the epilogue is tile_gemm.cuh::tile_update, which the fused
+// Cholesky's trailing phase (cholesky.cu) runs too.
+// Bound on the H100: FP32 FLOP/s (2 M N Kp over the whole grid; TF32 is
+// off).  Same SIMT tile product and sub-tile loop as sfc_matmul.
 #include "tile_gemm.cuh"
 
 namespace {
@@ -68,7 +81,33 @@ int launch(const void* a, const void* b, void* c, const void* sched, int steps, 
   return (int)cudaGetLastError();
 }
 
+__global__ void __launch_bounds__(THREADS)
+tile_update_kernel(float* O, const float* A, const float* B, const int* __restrict__ sched, int M,
+                   int N, int Kp, int bm, int bn, float alpha) {
+  __shared__ __align__(16) float As[BK * TILE];
+  __shared__ __align__(16) float Bs[BK * TILE];
+  const int ti = sched[2 * (size_t)blockIdx.x];
+  const int tj = sched[2 * (size_t)blockIdx.x + 1];
+  for (int sr = 0; sr < bm; sr += TILE) {
+    const int row0 = ti * bm + sr;
+    const int rows = min(min(TILE, bm - sr), M - row0);
+    for (int sc = 0; sc < bn; sc += TILE) {
+      const int col0 = tj * bn + sc;
+      const int cols = min(min(TILE, bn - sc), N - col0);
+      tile_update(O + (size_t)row0 * N + col0, (size_t)N, A + (size_t)row0 * Kp, (size_t)Kp,
+                  B + (size_t)col0 * Kp, (size_t)Kp, rows, cols, Kp, alpha, As, Bs);
+    }
+  }
+}
+
 }  // namespace
+
+extern "C" int sfc_tile_update(void* o, const void* a, const void* b, const void* sched, int steps,
+                               int M, int N, int Kp, int bm, int bn, float alpha, void* stream) {
+  tile_update_kernel<<<steps, THREADS, 0, (cudaStream_t)stream>>>(
+      (float*)o, (const float*)a, (const float*)b, (const int*)sched, M, N, Kp, bm, bn, alpha);
+  return (int)cudaGetLastError();
+}
 
 // dtype codes: 0 = float32, 1 = bfloat16 (inputs share one dtype).
 extern "C" int sfc_matmul(const void* a, const void* b, void* c, const void* sched, int steps,

@@ -14,7 +14,16 @@
 //   RowLoader<T>: element (r, k) at p[r * ld + k]  (A of a GEMM, or the
 //                 rows of a point / centroid matrix for x . c^T)
 //   KLoader<T>:   element (k, c) at p[k * ld + c]  (B of a GEMM)
-// Both zero-fill outside (rows, K), so ragged tiles need no special case.
+// Both fill outside (rows, K) with their `fill` member, so ragged tiles
+// need no special case.  The fill must be the semiring's neutral element:
+// 0 for the ordinary product (the default), +inf for the (min, +) product,
+// where a zero-filled depth would offer the candidate 0 + 0 = 0 to every
+// output (blocks that are not multiples of BK = 16, e.g. b = 88, reach
+// past the tile edge).
+//
+// tile_product is a template over its semiring: PlusTimes (acc += a * b
+// with __fmaf_rn, from 0) or MinPlus (acc = min(acc, a + b) with
+// __fadd_rn, from +inf, the shortest-path product of Floyd-Warshall).
 #pragma once
 
 #include <cstddef>
@@ -39,6 +48,7 @@ struct RowLoader {
   size_t ld;      // elements between consecutive rows
   int rows;       // valid rows (<= TILE)
   int K;          // valid depth
+  float fill = 0.f;  // value outside (rows, K)
   // thread t loads rows t/2, depth (t%2)*8 .. +7 of the chunk at k0
   __device__ __forceinline__ void load(float (&r)[8], int k0) const {
     const int t = threadIdx.x;
@@ -47,7 +57,7 @@ struct RowLoader {
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
       const int k = kb + q;
-      r[q] = (row < rows && k < K) ? to_f32(p[(size_t)row * ld + k]) : 0.f;
+      r[q] = (row < rows && k < K) ? to_f32(p[(size_t)row * ld + k]) : fill;
     }
   }
   __device__ __forceinline__ void store(float* s, const float (&r)[8]) const {
@@ -65,6 +75,7 @@ struct KLoader {
   size_t ld;      // elements between consecutive depths
   int cols;       // valid columns (<= TILE)
   int K;          // valid depth
+  float fill = 0.f;  // value outside (K, cols)
   // thread t loads depth t/16, columns (t%16)*8 .. +7 of the chunk at k0
   __device__ __forceinline__ void load(float (&r)[8], int k0) const {
     const int t = threadIdx.x;
@@ -73,7 +84,7 @@ struct KLoader {
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
       const int c = cb + q;
-      r[q] = (c < cols && k < K) ? to_f32(p[(size_t)k * ld + c]) : 0.f;
+      r[q] = (c < cols && k < K) ? to_f32(p[(size_t)k * ld + c]) : fill;
     }
   }
   __device__ __forceinline__ void store(float* s, const float (&r)[8]) const {
@@ -85,11 +96,26 @@ struct KLoader {
   }
 };
 
-// acc[i][j] = sum_k A(tile_row(i), k) * B(k, tile_col(j)), k ascending.
+struct PlusTimes {  // acc = sum_k a * b, each term an explicit FMA
+  static __device__ __forceinline__ float zero() { return 0.f; }
+  static __device__ __forceinline__ float fold(float acc, float a, float b) {
+    return __fmaf_rn(a, b, acc);
+  }
+};
+
+struct MinPlus {  // acc = min_k (a + b): the (min, +) product
+  static __device__ __forceinline__ float zero() { return __int_as_float(0x7f800000); }
+  static __device__ __forceinline__ float fold(float acc, float a, float b) {
+    return fminf(acc, __fadd_rn(a, b));
+  }
+};
+
+// acc[i][j] = sum_k A(tile_row(i), k) * B(k, tile_col(j)), k ascending
+// (Ring::fold in place of the multiply-add for another semiring).
 // With WithNorms, threads 0..127 also return the squared norm of A-row
 // t in *norm and threads 128..255 that of B-column t-128 (both summed in
 // k order with __fmaf_rn).  As/Bs: BK*TILE floats of shared memory each.
-template <bool WithNorms, typename LA, typename LB>
+template <bool WithNorms, typename Ring = PlusTimes, typename LA, typename LB>
 __device__ __forceinline__ void tile_product(float (&acc)[8][8], const LA& la, const LB& lb,
                                              int K, float* As, float* Bs, float* norm) {
   const int tx = threadIdx.x & 15;
@@ -97,7 +123,7 @@ __device__ __forceinline__ void tile_product(float (&acc)[8][8], const LA& la, c
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < 8; ++j) acc[i][j] = Ring::zero();
   float nacc = 0.f;
   float ra[8], rb[8];
   la.load(ra, 0);
@@ -130,10 +156,38 @@ __device__ __forceinline__ void tile_product(float (&acc)[8][8], const LA& la, c
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = __fmaf_rn(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < 8; ++j) acc[i][j] = Ring::fold(acc[i][j], a[i], b[j]);
     }
   }
   if (WithNorms) *norm = nacc;
+}
+
+// O(r, c) <- O(r, c) + alpha * sum_k A(r, k) B(c, k) over one sub-tile of
+// at most TILE x TILE: both operands are row panels (RowLoader), as in
+// x . c^T.  The epilogue rounds the product and the sum apart, the order
+// of the JAX package's `o + alpha * dot(a, b^T)`.  sfc_tile_update and
+// the fused Cholesky's trailing phase both run exactly this code.
+__device__ __forceinline__ void tile_update(float* O, size_t ldo, const float* A, size_t lda,
+                                            const float* B, size_t ldb, int rows, int cols,
+                                            int K, float alpha, float* As, float* Bs) {
+  RowLoader<float> la{A, lda, rows, K};
+  RowLoader<float> lb{B, ldb, cols, K};
+  float acc[8][8];
+  tile_product<false>(acc, la, lb, K, As, Bs, nullptr);
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = tile_row(ty, i);
+    if (r >= rows) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = tile_col(tx, j);
+      if (c >= cols) continue;
+      float* o = O + (size_t)r * ldo + c;
+      *o = __fadd_rn(*o, __fmul_rn(alpha, acc[i][j]));
+    }
+  }
 }
 
 }  // namespace sfc

@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.core.program import GpuProgram
 
-__all__ = ["cta_chunks", "launch", "require", "shuffled_ctas"]
+__all__ = ["cta_chunks", "launch", "require", "require_block", "shuffled_ctas"]
 
 
 def launch(program: GpuProgram, *tensors: torch.Tensor):
@@ -51,6 +51,18 @@ def require(program: GpuProgram, t: torch.Tensor, what: str, *, dtypes, shape=No
         raise ValueError(f"{program.name}: {what} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{program.name}: {what} must be contiguous")
+
+
+def require_block(program: GpuProgram, b: int, *, limit: int = 128, mult: int = 8):
+    """A CUDA wrapper's block check for kernels that hold one (b, b) tile
+    per CTA: raise unless ``mult <= b <= limit`` and ``b % mult == 0``.
+    128 is the CTA tile of ``tile_gemm.cuh``; a 256² f32 tile alone
+    (256 KB) is above a block's 227 KB of shared memory."""
+    if not (mult <= b <= limit and b % mult == 0):
+        raise ValueError(
+            f"{program.name}: block b={b} is outside the CUDA kernels' limit "
+            f"({mult} <= b <= {limit}, b % {mult} == 0)"
+        )
 
 
 def shuffled_ctas(n: int, device, seed: int = 0) -> torch.Tensor:

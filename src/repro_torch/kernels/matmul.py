@@ -14,6 +14,10 @@ depth of one shared-memory chunk).  The JAX package's 256³ blocks were
 sized for 16 MiB of VMEM; a 256x256 f32 operand tile alone (256 KB) is
 above a block's 227 KB of shared memory.  Larger ``(bm, bn)`` are still
 accepted: the CTA loops over 128x128 sub-tiles.
+
+:func:`tile_update_swizzled` (``sfc_tile_update``, the counterpart of
+``_accum_update_kernel``) is the per-k Cholesky's trailing update:
+O[i, j] += α·A_i·B_jᵀ over a scheduled subset of tiles, O in place.
 """
 from __future__ import annotations
 
@@ -113,3 +117,104 @@ def matmul_swizzled(
     :func:`matmul_program`)."""
     program = matmul_program(schedule, a, b, bm=bm, bn=bn, bk=bk, out_dtype=out_dtype)
     return launch(program, a, b)
+
+
+# ---------------------------------------------------------------------------
+# O[i, j] += alpha * A_i . B_j^T over scheduled tiles (Cholesky's SYRK)
+# ---------------------------------------------------------------------------
+
+def update_tiles(o: torch.Tensor, a: torch.Tensor, b: torch.Tensor, alpha: float) -> torch.Tensor:
+    """Batched ``o + alpha * (a @ b^T)`` of (B, bm, bn) tiles and (B, bm,
+    K) / (B, bn, K) row panels: the product and the sum rounded apart, the
+    order of the JAX package's ``_accum_update_kernel``.  The plain tile
+    math of :func:`tile_update_swizzled` and of the fused Cholesky's
+    trailing phase."""
+    return o + alpha * torch.bmm(a, b.transpose(1, 2))
+
+
+def tile_update_chunk(n_ctas: int, bm: int, bn: int, K: int, device):
+    """The CTA chunks in which a plain tile update walks ``n_ctas`` CTAs
+    (shared with the fused Cholesky's plain trailing phase, so both batch
+    the same tiles together)."""
+    return cta_chunks(shuffled_ctas(n_ctas, device), (bm + bn) * max(K, 1))
+
+
+def _tile_update_cuda(program: GpuProgram, o: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
+    p = program.params
+    M, N = o.shape
+    Kp = a.shape[1]
+    require(program, o, "o", dtypes=(torch.float32,))
+    require(program, a, "a", dtypes=(torch.float32,), shape=(M, Kp))
+    require(program, b, "b", dtypes=(torch.float32,), shape=(N, Kp))
+    require(program, program.schedule, "schedule", dtypes=(torch.int32,))
+    if program.steps:
+        call(
+            "sfc_tile_update", o.data_ptr(), a.data_ptr(), b.data_ptr(),
+            program.schedule.data_ptr(), *program.grid, M, N, Kp, p["bm"], p["bn"],
+            p["alpha"], stream_of(o),
+        )
+    return o
+
+
+def _tile_update_plain(program: GpuProgram, o: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
+    p = program.params
+    bm, bn = p["bm"], p["bn"]
+    sched = program.schedule.long()
+    ar_m = torch.arange(bm, device=o.device)
+    ar_n = torch.arange(bn, device=o.device)
+    for chunk in tile_update_chunk(program.steps, bm, bn, a.shape[1], o.device):
+        ij = sched[chunk]
+        rows = ij[:, 0, None] * bm + ar_m  # (B, bm)
+        cols = ij[:, 1, None] * bn + ar_n  # (B, bn)
+        idx = rows[:, :, None], cols[:, None, :]
+        o[idx] = update_tiles(o[idx], a[rows], b[cols], p["alpha"]).to(o.dtype)
+    return o
+
+
+def tile_update_program(
+    schedule: torch.Tensor, o: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *,
+    bm: int, bn: int, alpha: float = -1.0,
+) -> GpuProgram:
+    """The ``sfc_tile_update`` declaration: one CTA per (i, j) row of
+    ``schedule``, O (M, N) += alpha · A (M, Kp) row panels · B (N, Kp) row
+    panels transposed.  M % bm == N % bn == 0; any Kp."""
+    M, Kp = a.shape
+    N, Kp2 = b.shape
+    if Kp != Kp2 or tuple(o.shape) != (M, N):
+        raise ValueError(
+            f"tile update shapes differ: o {tuple(o.shape)}, a {tuple(a.shape)}, b {tuple(b.shape)}"
+        )
+    if M % bm or N % bn:
+        raise ValueError(f"o {(M, N)} is not a multiple of blocks {(bm, bn)}")
+    if schedule.dim() != 2 or schedule.shape[1] != 2:
+        raise ValueError(f"schedule {tuple(schedule.shape)} is not an (i, j) table")
+    return GpuProgram(
+        name="sfc_tile_update",
+        schedule=schedule,
+        launcher=_tile_update_cuda,
+        plain=_tile_update_plain,
+        params={"bm": bm, "bn": bn, "alpha": float(alpha)},
+        columns=("i", "j"),
+    )
+
+
+def tile_update_swizzled(
+    schedule: torch.Tensor,
+    o: torch.Tensor,
+    a: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    bm: int,
+    bn: int,
+    alpha: float = -1.0,
+) -> torch.Tensor:
+    """O[i,j] += alpha * A[i] @ B[j]^T for (i, j) in schedule order.
+
+    A: (M, Kp) row panels, B: (N, Kp) row panels, O: (M, N); the schedule
+    may cover any subset of tiles (e.g. the FGF lower triangle for the
+    Cholesky trailing update, paper §7), each at most once.  O is updated
+    IN PLACE and returned (the JAX version donates O); on the card it must
+    be a contiguous f32 tensor.
+    """
+    program = tile_update_program(schedule, o, a, b, bm=bm, bn=bn, alpha=alpha)
+    return launch(program, o, a, b)

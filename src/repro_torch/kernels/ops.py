@@ -17,6 +17,13 @@ path).
 Port defaults for the H100, where the JAX package's VMEM-sized blocks do
 not carry over: matmul ``bm = bn = 128, bk = 16``; k-means ``bp = 128,
 bc = 128``; ε-join ``bp = 128`` (see each kernel module's docstring).
+Floyd–Warshall and Cholesky keep the JAX defaults (``b = 128``,
+``curve = "hilbert"``, ``fused = True``); their kernels take b ≤ 128.
+
+The kernels of the phased applications update their matrix in place, so
+``floyd_warshall`` and ``cholesky`` copy the caller's matrix exactly once
+(into the padded buffer) before any kernel runs.  There is no VMEM or
+shared-memory budget gate: the port's fused forms hold no n-sized state.
 
 Not in this slice (each raises :class:`NotImplementedError` naming the
 slice that brings it): ``matmul(schedule_ndim=3)``,
@@ -35,6 +42,9 @@ from repro_torch.core import (
 )
 
 from . import ref
+from .cholesky import cholesky_blocked, cholesky_blocked_reference
+from .floyd_warshall import _CHUNK as _FW_CHUNK
+from .floyd_warshall import floyd_warshall_blocked, floyd_warshall_blocked_reference
 from .kmeans import hilbert_point_order_cached, kmeans_init, kmeans_lloyd_fused
 from .matmul import matmul_swizzled
 from .simjoin import map_pairs_back, simjoin_counts_swizzled, simjoin_pairs_scheduled
@@ -73,6 +83,41 @@ def _pad2(x: torch.Tensor, r: int, c: int) -> torch.Tensor:
     if pr == 0 and pc == 0:
         return x
     return F.pad(x, (0, pc, 0, pr))
+
+
+def _block_and_pad(n: int, b: int, *, mult: int = 1) -> tuple[int, int]:
+    """Pick a legal tile size for an n×n blocked kernel: ``(block, n_pad)``.
+
+    Candidates are multiples of ``mult`` between roughly b/2 and
+    ``min(b, n)``; a divisor of n wins outright (``n_pad == n``, no
+    padding), otherwise the candidate minimising the padded size (larger
+    block on ties).  The JAX package's rule, unchanged.
+    """
+    b = max(min(b, n), mult)
+    b -= b % mult
+    lo = max(mult, b // 2 // mult * mult)
+    best = None
+    for bb in range(b, lo - 1, -mult):
+        padded = -(-n // bb) * bb
+        key = (padded, -bb)
+        if best is None or key < best[:2]:
+            best = (padded, -bb, bb)
+    return best[2], best[0]
+
+
+def _padded_copy(x: torch.Tensor, npad: int, off_diagonal: float, diagonal: float) -> torch.Tensor:
+    """The one copy of the caller's (n, n) matrix: an f32 (npad, npad)
+    buffer holding it, its border ``off_diagonal`` but for ``diagonal`` on
+    the border's diagonal.  The kernels update this buffer in place."""
+    n = x.shape[0]
+    out = torch.empty((npad, npad), dtype=torch.float32, device=x.device)
+    out[:n, :n] = x
+    if npad != n:
+        out[n:, :] = off_diagonal
+        out[:n, n:] = off_diagonal
+        border = torch.arange(n, npad, device=x.device)
+        out[border, border] = diagonal
+    return out
 
 
 def matmul(
@@ -247,4 +292,71 @@ def simjoin_pairs(
     return pairs
 
 
-__all__ = ["matmul", "kmeans_lloyd", "simjoin_counts", "simjoin_pairs", "ref"]
+def floyd_warshall(
+    d,
+    *,
+    b: int = 128,
+    curve: str = "hilbert",
+    fused: bool = True,
+    choice=None,
+    device=None,
+) -> torch.Tensor:
+    """All-pairs shortest paths over an (n, n) adjacency matrix (+inf for
+    non-edges); f32 result.
+
+    ``fused=True`` (default) runs the phased form, 4 launches per k-block
+    off one table; ``fused=False`` the per-k form (its own per-k tables,
+    the same kernels): equal arrays.  Any n is accepted: a block size is
+    auto-picked (a divisor of n that is a multiple of 8 near ``b``, else
+    the matrix is padded with unreachable +inf border nodes whose
+    diagonal is 0, and the result sliced back).  The caller's matrix is
+    copied once and never written.
+    """
+    _check_slice_options(choice=choice)
+    d = _to_device(d, device)
+    n = d.shape[0]
+    if d.dim() != 2 or d.shape[1] != n:
+        raise ValueError(f"floyd_warshall: d {tuple(d.shape)} is not square")
+    bb, npad = _block_and_pad(n, b, mult=_FW_CHUNK)
+    dp = _padded_copy(d, npad, float("inf"), 0.0)
+    fn = floyd_warshall_blocked if fused else floyd_warshall_blocked_reference
+    out = fn(dp, b=bb, curve=curve)
+    return out[:n, :n] if npad != n else out
+
+
+def cholesky(
+    a,
+    *,
+    b: int = 128,
+    curve: str = "hilbert",
+    fused: bool = True,
+    choice=None,
+    device=None,
+) -> torch.Tensor:
+    """Lower Cholesky factor of an (n, n) SPD matrix; f32 result.
+
+    ``fused=True`` (default) runs the phased form, 3 launches per k-block
+    off one table; ``fused=False`` the per-k form (the same diag and panel
+    kernels on per-k tables, each trailing update one ``sfc_tile_update``
+    launch on the zero-padded panel): equal on the card.  Any n is
+    accepted: a block size is auto-picked (a divisor of n that is a
+    multiple of 8 near ``b``, else the matrix is padded with an identity
+    border — chol([[A, 0], [0, I]]) = [[L, 0], [0, I]] — and the factor
+    sliced back).  The caller's matrix is copied once and never written.
+    """
+    _check_slice_options(choice=choice)
+    a = _to_device(a, device)
+    n = a.shape[0]
+    if a.dim() != 2 or a.shape[1] != n:
+        raise ValueError(f"cholesky: a {tuple(a.shape)} is not square")
+    bb, npad = _block_and_pad(n, b, mult=8)
+    ap = _padded_copy(a, npad, 0.0, 1.0)
+    fn = cholesky_blocked if fused else cholesky_blocked_reference
+    out = fn(ap, b=bb, curve=curve)
+    return out[:n, :n] if npad != n else out
+
+
+__all__ = [
+    "matmul", "kmeans_lloyd", "simjoin_counts", "simjoin_pairs", "floyd_warshall", "cholesky",
+    "ref",
+]

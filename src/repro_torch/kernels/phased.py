@@ -1,0 +1,70 @@
+"""What the phased applications (Floyd–Warshall, Cholesky) share.
+
+Both run one launch per ``(k, phase)`` barrier group of a table, one CTA
+per table row (``csrc/phased.cuh``): a program's ``params["groups"]``
+holds ``(phase, k, begin, end)`` row ranges, either
+:func:`repro_torch.core.phase_groups` of the phased table (the fused
+forms) or the groups of a per-k table built by :func:`per_k_table`; its
+``params["col_i"]`` is the table column of ``i`` (``j`` follows).  Both
+update one (n, n) f32 matrix in place.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.program import GpuProgram
+
+from .launch import require, require_block
+
+
+def phased_program(name, schedule, b, col_i, groups, launcher, plain, phases, columns) -> GpuProgram:
+    """A phased program whose barrier groups cover its table exactly once."""
+    steps = sum(hi - lo for _p, _k, lo, hi in groups)
+    if steps != schedule.shape[0]:
+        raise AssertionError(f"{name}: groups cover {steps} of {schedule.shape[0]} rows")
+    return GpuProgram(
+        name=name,
+        schedule=schedule,
+        launcher=launcher,
+        plain=plain,
+        params={"b": int(b), "col_i": col_i, "groups": groups},
+        phases=phases,
+        columns=columns,
+    )
+
+
+def per_k_table(parts, device) -> tuple[torch.Tensor, tuple[tuple[int, int, int, int], ...]]:
+    """Concatenate ``(phase, k, tiles)`` parts, each an int (rows, 2) array
+    of (i, j), into one int32 (i, j) table on ``device`` and its barrier
+    groups; empty parts are dropped."""
+    tables, groups, row = [], [], 0
+    for phase, k, part in parts:
+        if len(part):
+            tables.append(part)
+            groups.append((phase, k, row, row + len(part)))
+            row += len(part)
+    table = np.concatenate(tables) if tables else np.zeros((0, 2), dtype=np.int64)
+    return torch.as_tensor(table, dtype=torch.int32, device=device), tuple(groups)
+
+
+def require_matrix(program: GpuProgram, x: torch.Tensor, what: str) -> int:
+    """A phased CUDA launcher's checks (block limit, a square contiguous f32
+    matrix, an int32 table); returns n."""
+    require_block(program, program.params["b"])
+    n = x.shape[0]
+    require(program, x, what, dtypes=(torch.float32,), shape=(n, n))
+    require(program, program.schedule, "schedule", dtypes=(torch.int32,))
+    return n
+
+
+def check_square(x: torch.Tensor, b: int, what: str, mult: int = 1) -> int:
+    """A blocked function's input check: square, n % b == 0 (and b % mult
+    == 0), contiguous f32, since it is updated in place; returns n."""
+    n = x.shape[0]
+    if x.dim() != 2 or x.shape != (n, n) or n % b or b % mult:
+        rule = f" and b % {mult} == 0" if mult > 1 else ""
+        raise ValueError(f"{what} {tuple(x.shape)} must be square with n % b == 0{rule} (b={b})")
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise TypeError(f"{what} must be a contiguous float32 tensor (updated in place)")
+    return n

@@ -78,3 +78,17 @@ def simjoin_pairs(x: torch.Tensor, eps: float) -> torch.Tensor:
     if not parts:
         return torch.zeros((0, 2), dtype=torch.int32, device=x.device)
     return torch.cat(parts).to(torch.int32)
+
+
+def floyd_warshall(d: torch.Tensor) -> torch.Tensor:
+    """All-pairs shortest paths; d: (n, n) with +inf for non-edges.  The
+    plain k-loop, in f32 on the tensor's device (a new tensor)."""
+    dist = d.to(torch.float32, copy=True)
+    for k in range(dist.shape[0]):
+        torch.minimum(dist, dist[:, k, None] + dist[None, k, :], out=dist)
+    return dist
+
+
+def cholesky(a: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of an SPD matrix, in f32 (the library's)."""
+    return torch.linalg.cholesky(a.float())

@@ -118,7 +118,10 @@ def test_empty_inputs():
     lambda: tops.simjoin_counts(np.ones((8, 2), np.float32), 1.0, choice="auto", device="cpu"),
     lambda: tops.matmul(np.ones((4, 4), np.float32), np.ones((4, 4), np.float32),
                         choice="auto", device="cpu"),
-], ids=["schedule_ndim3", "unfused", "kmeans_mesh", "pairs_mesh", "counts_choice", "matmul_choice"])
+    lambda: tops.floyd_warshall(np.zeros((8, 8), np.float32), choice="auto", device="cpu"),
+    lambda: tops.cholesky(np.eye(8, dtype=np.float32), choice="auto", device="cpu"),
+], ids=["schedule_ndim3", "unfused", "kmeans_mesh", "pairs_mesh", "counts_choice", "matmul_choice",
+        "floyd_warshall_choice", "cholesky_choice"])
 def test_options_of_later_slices_raise(call):
     with pytest.raises(NotImplementedError, match="slice"):
         call()
@@ -141,8 +144,9 @@ def test_numpy_input_goes_to_cuda_and_raises_without_a_card():
 
 @pytest.mark.cuda
 def test_slice_on_cuda_matches_jax(monkeypatch):
-    """The four entry points on the card, through the CUDA kernels (every
-    launch count moves), against the JAX package on the CPU."""
+    """The matmul, k-means and ε-join entry points on the card, through
+    their CUDA kernels (each of their launch counts moves), against the JAX
+    package on the CPU."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     LAUNCHES.reset()
@@ -176,4 +180,7 @@ def test_slice_on_cuda_matches_jax(monkeypatch):
     c_t, a_t = tops.kmeans_lloyd(xk, k, iters=4, seed=seed, bp=64, bc=4)
     np.testing.assert_array_equal(a_t.cpu().numpy(), np.asarray(a_j))
     np.testing.assert_allclose(c_t.cpu().numpy(), np.asarray(c_j), rtol=1e-5, atol=1e-5)
-    assert all(n > 0 for n in LAUNCHES.counts().values()), LAUNCHES.counts()
+    counts = LAUNCHES.counts()
+    for name in ("sfc_matmul", "sfc_kmeans_assign", "sfc_kmeans_update", "sfc_join_hits",
+                 "sfc_join_emit"):
+        assert counts[name] > 0, counts

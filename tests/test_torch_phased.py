@@ -1,0 +1,274 @@
+"""Floyd–Warshall, Cholesky and the tile update of the port against the JAX
+package, on the CPU.
+
+The same seeded numpy inputs go through the JAX functions (Pallas kernels
+in interpret mode, as the JAX package's own tests run them) and through
+the port on CPU tensors, where ``launch`` runs each kernel's plain
+PyTorch version.
+
+Tolerances: Floyd–Warshall is compared with ``array_equal`` everywhere:
+each candidate is one rounded add and ``min`` does not round, so every
+blocked form with the same blocks gives the same array, and on integer
+weights (sums below 2^24) so does the dense k-loop oracle.  Cholesky and
+the tile update sum in another order than XLA: port vs JAX rtol 1e-5,
+atol 1e-4 (L entries reach ~20 on ``m mᵀ + n I`` at these sizes); vs the
+float64 ``numpy.linalg.cholesky`` rtol = atol = 2e-4, the JAX tests' own.
+The ``cuda``-marked case runs the entry points on the card against their
+plain versions and against JAX on the CPU; it skips without one.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+import repro.core as jcore  # noqa: E402
+from repro.kernels import cholesky as jch  # noqa: E402
+from repro.kernels import floyd_warshall as jfw  # noqa: E402
+from repro.kernels import matmul as jmm  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro_torch.core import phase_barriers, phase_groups, phased_schedule  # noqa: E402
+from repro_torch.kernels import LAUNCHES, launch, ops, ref  # noqa: E402
+from repro_torch.kernels import cholesky as tch  # noqa: E402
+from repro_torch.kernels import floyd_warshall as tfw  # noqa: E402
+from repro_torch.kernels import matmul as tmm  # noqa: E402
+
+SHAPES = [(16, 16), (48, 16), (96, 32)]
+CURVES = ["row", "hilbert"]
+CHOL_TOL = dict(rtol=1e-5, atol=1e-4)  # port vs JAX interpret, both f32
+F64_TOL = dict(rtol=2e-4, atol=2e-4)  # vs float64 numpy.linalg.cholesky
+
+
+def rand_digraph(rng, n: int, p: float = 0.2, integer: bool = False) -> np.ndarray:
+    """Edges with probability p, weights uniform in [1, 10) (whole numbers
+    with ``integer``), +inf for non-edges, a 0 diagonal."""
+    w = rng.integers(1, 10, size=(n, n)) if integer else rng.uniform(1, 10, size=(n, n))
+    d = np.where(rng.uniform(size=(n, n)) < p, w, np.inf).astype(np.float32)
+    np.fill_diagonal(d, 0.0)
+    return d
+
+
+def rand_spd(rng, n: int) -> np.ndarray:
+    m = rng.normal(size=(n, n)).astype(np.float32)
+    return m @ m.T + n * np.eye(n, dtype=np.float32)
+
+
+def port_fw(d: np.ndarray, form: str, **kw) -> np.ndarray:
+    fn = tfw.floyd_warshall_blocked if form == "fused" else tfw.floyd_warshall_blocked_reference
+    return fn(torch.as_tensor(d.copy()), **kw).numpy()
+
+
+def port_chol(a: np.ndarray, form: str, **kw) -> np.ndarray:
+    fn = tch.cholesky_blocked if form == "fused" else tch.cholesky_blocked_reference
+    return fn(torch.as_tensor(a.copy()), **kw).numpy()
+
+
+# ---------------------------------------------------------------------------
+# the blocked forms against the JAX package's
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("curve", CURVES)
+@pytest.mark.parametrize("n,b", SHAPES)
+@pytest.mark.parametrize("form", ["fused", "per_k"])
+def test_fw_blocked_matches_jax(form, n, b, curve):
+    d = rand_digraph(np.random.default_rng(n + b), n)
+    jfn = jfw.floyd_warshall_blocked if form == "fused" else jfw.floyd_warshall_blocked_reference
+    want = np.asarray(jfn(jnp.asarray(d), b=b, curve=curve, interpret=True))
+    got = port_fw(d, form, b=b, curve=curve)
+    np.testing.assert_array_equal(got, want)
+    assert np.isfinite(got).any()
+
+
+@pytest.mark.parametrize("curve", CURVES)
+@pytest.mark.parametrize("n,b", SHAPES)
+@pytest.mark.parametrize("form", ["fused", "per_k"])
+def test_cholesky_blocked_matches_jax(form, n, b, curve):
+    a = rand_spd(np.random.default_rng(n * b), n)
+    jfn = jch.cholesky_blocked if form == "fused" else jch.cholesky_blocked_reference
+    want = np.asarray(jfn(jnp.asarray(a), b=b, curve=curve, interpret=True))
+    got = port_chol(a, form, b=b, curve=curve)
+    np.testing.assert_allclose(got, want, **CHOL_TOL)
+    np.testing.assert_allclose(got, np.linalg.cholesky(a.astype(np.float64)), **F64_TOL)
+    assert np.array_equal(got, np.tril(got))
+
+
+@pytest.mark.parametrize("curve", CURVES)
+@pytest.mark.parametrize("app", ["fw", "cholesky"])
+def test_fused_and_per_k_forms_agree_to_the_bit(app, curve):
+    """Both forms run the same tile math on the same values (the JAX
+    package's ``test_phase_fused`` requirement, held by the plain
+    versions here and by the kernels on the card)."""
+    rng = np.random.default_rng(7)
+    for n, b in [(40, 8), (96, 32)]:
+        if app == "fw":
+            x, run = rand_digraph(rng, n, p=0.3), port_fw
+        else:
+            x, run = rand_spd(rng, n), port_chol
+        np.testing.assert_array_equal(run(x, "fused", b=b, curve=curve),
+                                      run(x, "per_k", b=b, curve=curve))
+
+
+@pytest.mark.parametrize("curve,alpha", [("hilbert", -1.0), ("row", 0.5)])
+def test_tile_update_matches_jax(curve, alpha):
+    """O[i, j] += α·A_i·B_jᵀ over an FGF lower-triangle schedule; tiles off
+    the schedule keep their values exactly."""
+    rng = np.random.default_rng(3)
+    M, Kp, bm = 96, 40, 32
+    o = rng.standard_normal((M, M)).astype(np.float32)
+    a = rng.standard_normal((M, Kp)).astype(np.float32)
+    b = rng.standard_normal((M, Kp)).astype(np.float32)
+    sched = np.asarray(jcore.triangle_schedule(curve, M // bm, strict=False), dtype=np.int32)
+    want = np.asarray(jmm.tile_update_swizzled(
+        jnp.asarray(sched), jnp.asarray(o), jnp.asarray(a), jnp.asarray(b),
+        bm=bm, bn=bm, alpha=alpha, interpret=True))
+    ot = torch.as_tensor(o.copy())
+    got = tmm.tile_update_swizzled(torch.as_tensor(sched), ot, torch.as_tensor(a),
+                                   torch.as_tensor(b), bm=bm, bn=bm, alpha=alpha)
+    assert got.data_ptr() == ot.data_ptr()  # in place
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    upper = np.triu(np.ones((M // bm, M // bm), bool), 1).repeat(bm, 0).repeat(bm, 1)
+    np.testing.assert_array_equal(got.numpy()[upper], o[upper])
+
+
+# ---------------------------------------------------------------------------
+# the entry points, ragged n, against JAX's and the dense oracles
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("n", [20, 52, 97])
+def test_ops_floyd_warshall_matches_jax_and_oracle(n, fused):
+    rng = np.random.default_rng(n)
+    d = rand_digraph(rng, n, p=0.15)
+    want = np.asarray(jops.floyd_warshall(jnp.asarray(d), fused=fused, interpret=True))
+    got = ops.floyd_warshall(d, fused=fused, device="cpu")
+    assert got.shape == (n, n) and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+    di = rand_digraph(rng, n, p=0.15, integer=True)
+    np.testing.assert_array_equal(ops.floyd_warshall(di, fused=fused, device="cpu").numpy(),
+                                  ref.floyd_warshall(torch.as_tensor(di)).numpy())
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("n", [20, 52, 97])
+def test_ops_cholesky_matches_jax_and_oracle(n, fused):
+    a = rand_spd(np.random.default_rng(n), n)
+    want = np.asarray(jops.cholesky(jnp.asarray(a), fused=fused, interpret=True))
+    got = ops.cholesky(a, fused=fused, device="cpu")
+    assert got.shape == (n, n) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, **CHOL_TOL)
+    np.testing.assert_allclose(got.numpy(), np.linalg.cholesky(a.astype(np.float64)), **F64_TOL)
+    np.testing.assert_allclose(got.numpy(), ref.cholesky(torch.as_tensor(a)).numpy(), **F64_TOL)
+
+
+@pytest.mark.parametrize("n", [48, 52])  # unpadded (b = 48) and padded
+@pytest.mark.parametrize("app", ["floyd_warshall", "cholesky"])
+def test_ops_leave_the_callers_matrix_unchanged(app, n):
+    """The kernels update in place; the entry point copies the caller's
+    f32 matrix once (``d.float()`` would hand back the caller's own
+    tensor)."""
+    rng = np.random.default_rng(n)
+    x = torch.as_tensor(rand_digraph(rng, n) if app == "floyd_warshall" else rand_spd(rng, n))
+    before = x.clone()
+    for fused in (True, False):
+        out = getattr(ops, app)(x, fused=fused)
+        assert torch.equal(x, before)
+        assert out.untyped_storage().data_ptr() != x.untyped_storage().data_ptr()
+
+
+# ---------------------------------------------------------------------------
+# launch tables, limits, the launch path
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("nt", [1, 5])
+@pytest.mark.parametrize("curve", CURVES)
+@pytest.mark.parametrize("kind", ["fw", "cholesky"])
+def test_launch_groups_cover_the_table_once_in_barrier_order(kind, curve, nt):
+    table = phased_schedule(curve, nt, kind=kind)
+    groups = phase_groups(curve, nt, kind=kind)
+    bar = phase_barriers(table, kind=kind)
+    assert groups[0][2] == 0 and groups[-1][3] == len(table)
+    for (p0, k0, _lo0, hi0), (p1, k1, lo1, _hi1) in zip(groups, groups[1:]):
+        assert hi0 == lo1  # contiguous, no row twice, none left out
+        assert (k0, p0) < (k1, p1)  # barrier order
+    for phase, k, lo, hi in groups:
+        assert hi > lo
+        assert (table[lo:hi, 0] == phase).all() and (table[lo:hi, 1] == k).all()
+        assert len(set(bar[lo:hi])) == 1
+    # the per-k form's own tables hold the same tiles in the same groups
+    build = tfw.fw_reference_program if kind == "fw" else tch.cholesky_reference_program
+    per_k = build(curve, nt, 8, device="cpu")
+    np.testing.assert_array_equal(per_k.schedule.numpy(), table[:, 2:4])
+    assert per_k.params["groups"] == groups
+    fused = (tfw.fw_program if kind == "fw" else tch.cholesky_program)(curve, nt, 8, device="cpu")
+    assert fused.params["groups"] == groups and fused.params["col_i"] == 2
+
+
+@pytest.mark.parametrize("b", [4, 12, 256])
+def test_cuda_launchers_refuse_blocks_outside_the_limit(b):
+    """8 ≤ b ≤ 128, b % 8 == 0: raised by the CUDA wrappers before any
+    operand check (the plain versions take any b)."""
+    d = torch.zeros((2 * b, 2 * b))
+    for prog in (tfw.fw_program("row", 2, b, device="cpu"),
+                 tch.cholesky_program("row", 2, b, device="cpu")):
+        with pytest.raises(ValueError, match="b <= 128"):
+            prog.launcher(prog, d)
+
+
+def test_blocked_functions_refuse_what_they_cannot_update_in_place():
+    with pytest.raises(TypeError, match="float32"):
+        tfw.floyd_warshall_blocked(torch.zeros((32, 32), dtype=torch.float64), b=16)
+    with pytest.raises(TypeError, match="float32"):
+        tch.cholesky_blocked(torch.eye(32, dtype=torch.float64), b=16)
+    with pytest.raises(TypeError, match="contiguous"):
+        tfw.floyd_warshall_blocked(torch.zeros((64, 32))[::2], b=16)
+    with pytest.raises(ValueError, match="n % b"):
+        tfw.floyd_warshall_blocked(torch.zeros((24, 24)), b=16)
+    with pytest.raises(ValueError, match="n % b"):
+        tch.cholesky_blocked(torch.eye(24), b=16)
+
+
+def test_cpu_runs_count_no_launches():
+    LAUNCHES.reset()
+    rng = np.random.default_rng(0)
+    ops.cholesky(rand_spd(rng, 24), b=8, fused=False, device="cpu")
+    ops.floyd_warshall(rand_digraph(rng, 24), b=8, device="cpu")
+    assert all(n == 0 for n in LAUNCHES.counts().values())
+    assert {"sfc_fw_trailing", "sfc_chol_trailing", "sfc_tile_update"} <= set(LAUNCHES.counts())
+
+
+@pytest.mark.cuda
+def test_phased_slice_on_cuda_matches_plain_and_jax():
+    """On the card: both entry points, fused and per-k, through the CUDA
+    kernels (every new launch count moves) against their plain versions
+    on the same CUDA inputs and against JAX on the CPU; fused equals
+    per-k to the bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(11)
+    LAUNCHES.reset()
+    for n in (97, 200):
+        d = rand_digraph(rng, n, p=0.1)
+        want = np.asarray(jops.floyd_warshall(jnp.asarray(d), b=64, interpret=True))
+        outs = [ops.floyd_warshall(d, b=64, fused=f) for f in (True, False)]
+        assert outs[0].device.type == "cuda"
+        assert torch.equal(outs[0], outs[1])
+        np.testing.assert_array_equal(outs[0].cpu().numpy(), want)
+        a = rand_spd(rng, n)
+        want = np.asarray(jops.cholesky(jnp.asarray(a), b=64, interpret=True))
+        outs = [ops.cholesky(a, b=64, fused=f) for f in (True, False)]
+        assert torch.equal(outs[0], outs[1])
+        np.testing.assert_allclose(outs[0].cpu().numpy(), want, **CHOL_TOL)
+    counts = LAUNCHES.counts()
+    for name in ("sfc_fw_diag", "sfc_fw_row", "sfc_fw_col", "sfc_fw_trailing", "sfc_chol_diag",
+                 "sfc_chol_panel", "sfc_chol_trailing", "sfc_tile_update"):
+        assert counts[name] > 0, counts
+    d = torch.as_tensor(rand_digraph(rng, 128, p=0.2), device=dev)
+    prog = tfw.fw_program("hilbert", 4, 32, device=dev)
+    assert torch.equal(launch(prog, d.clone()), prog.plain(prog, d.clone()))
+    a = torch.as_tensor(rand_spd(rng, 128), device=dev)
+    prog = tch.cholesky_program("hilbert", 4, 32, device=dev)
+    torch.testing.assert_close(launch(prog, a.clone()).tril(), prog.plain(prog, a.clone()).tril(),
+                               **CHOL_TOL)
