@@ -6,36 +6,54 @@
 Phases, each of which raises (and so exits non-zero) on a failed check:
 
 1. Print the card's name and power limit (nvidia-smi) and build every
-   CUDA kernel of the slice from ``src/repro_torch/kernels/csrc`` into
+   CUDA kernel of the port from ``src/repro_torch/kernels/csrc`` into
    ``build/repro_torch/``.
 2. Hold each kernel against its plain PyTorch version on the same CUDA
-   inputs, at a small ragged and a mid-size shape.
+   inputs, at a small ragged and a mid-size shape (the k-means update up
+   to D = 960, its column-chunked grid), and the reference paths against
+   the fused ones.
 3. Reset the launch counts, drive the main path through the public entry
-   points at the slice's realistic sizes, and read the counts:
-   ``ops.matmul`` (8192³ f32, TF32 off; 8000×7000×6000 bf16),
-   ``ops.kmeans_lloyd`` (1,000,000 × 128 f32, K = 1024, 10 iterations —
-   SIFT1M's shapes), ``ops.simjoin_counts`` and ``ops.simjoin_pairs``
-   (262,144 × 16 f32, ε for a mean of ~32 neighbours; once more with
-   ``hilbert_order=True``), ``ops.floyd_warshall`` (an 8192-node random
-   digraph, edge probability 0.05, integer weights 1..100; and 5000
-   nodes, padded to 5016 with b = 88) and ``ops.cholesky`` (an 8192-point
-   Gaussian-process covariance M·Mᵀ/n + I; and n = 6001, padded to
-   6016), both 8192 calls once more with ``fused=False``.  Every kernel
-   must have launched.
+   points at realistic sizes, and read the counts:
+   ``ops.matmul`` (8192³ f32, TF32 off; 8000×7000×6000 bf16; both once
+   more with ``schedule_ndim=3``), ``ops.kmeans_lloyd`` (1,000,000 × 128
+   f32, K = 1024, 10 iterations — SIFT1M's shapes; once more with
+   ``fused=False``; and GIST1M's 1,000,000 × 960, K = 1024, 3 iterations,
+   fused and not), ``ops.kmeans_assign`` (the 1,000,000 points and a
+   4,096-probe batch against the Lloyd run's centroids),
+   ``ops.simjoin_counts`` and ``ops.simjoin_pairs`` (262,144 × 16 f32, ε
+   for a mean of ~32 neighbours; once more with ``hilbert_order=True``),
+   ``ops.floyd_warshall`` (an 8192-node random digraph, edge probability
+   0.05, integer weights 1..100; and 5000 nodes, padded to 5016 with
+   b = 88) and ``ops.cholesky`` (an 8192-point Gaussian-process covariance
+   M·Mᵀ/n + I; and n = 6001, padded to 6016), both 8192 calls once more
+   with ``fused=False``; then the streaming services: ``StreamKMeans``
+   (262,144 SIFT-width points in 256 insert requests of 1,024, one per
+   tick, a 4,096-probe assign every 8 ticks; decay 1.0 and 0.9) and
+   ``StreamSimJoin`` (262,144 points uniform in the unit cube, ε = 0.0308
+   for ~32 neighbours, 256 inserts of 1,024, a 1,024-point query every 8
+   ticks; once more with ``max_residents=65,536``).  Every kernel must
+   have launched.
 4. Check the results against the ``ref.py`` oracles: matmul allclose;
    k-means assignments exact outside the float64 tie band and centroids
    allclose; ε-join counts and pair set exact outside the float64
    threshold band (the band sizes are printed); Floyd–Warshall equal to
    the dense k-loop (exact on integer weights); Cholesky within 1e-4 of
    the float64 factor and of A (relative); fused equal to ``fused=False``
-   for both; every input unchanged.
+   for the phased apps and for k-means; every input unchanged; the
+   streams: StreamKMeans with every point inserted in one tick, then 10
+   ticks, equal to the bit to ``ops.kmeans_lloyd``, its assign results
+   exact outside the tie band; StreamSimJoin's pairs equal to
+   ``ops.simjoin_pairs`` on the inserted points (restricted to the pairs
+   whose older point was still resident) and its query results equal to
+   brute force, outside the threshold band.
 5. Time each kernel at the main path's shapes with CUDA events (median of
    a few runs), its plain version (one run) and, where one PyTorch call
    computes the same function, that call; compute each kernel's bound.
    The phased kernels are timed per entry point: the launches of one
    phase over all k-blocks of one call.
 6. Run the main path's calls once more, warm, under ``torch.profiler``:
-   wall time, kernel (device) time and the device's busy share per call.
+   wall time, kernel (device) time and the device's busy share per call,
+   and one warm tick of each streaming service.
 
 The second-to-last line of output is one JSON object ``{"kernels": [...]}``,
 the last ``{"ok": true, "device": {...}}``.  ``--quick`` runs phases 1-2
@@ -73,9 +91,13 @@ REPLACES = {
     "sfc_chol_diag": "src/repro/kernels/cholesky.py:108",
     "sfc_chol_panel": "src/repro/kernels/cholesky.py:108",
     "sfc_chol_trailing": "src/repro/kernels/cholesky.py:108",
+    "sfc_kmeans_assign_tiles": "src/repro/kernels/kmeans.py:199",
+    "sfc_matmul3d": "src/repro/kernels/matmul.py:94",
 }
-# the per-k oracle kernels the same entry points replace too (fused=False)
+# the reference-path kernels the same entry points replace too
+# (fused=False: the per-k oracles; the k-means reference's update)
 ALSO_REPLACES = {
+    "sfc_kmeans_update": "src/repro/kernels/kmeans.py:436",
     "sfc_fw_diag": "src/repro/kernels/floyd_warshall.py:95",
     "sfc_fw_row": "src/repro/kernels/floyd_warshall.py:99",
     "sfc_fw_col": "src/repro/kernels/floyd_warshall.py:104",
@@ -97,8 +119,14 @@ SOURCES = {
     "sfc_chol_diag": "src/repro_torch/kernels/csrc/cholesky.cu",
     "sfc_chol_panel": "src/repro_torch/kernels/csrc/cholesky.cu",
     "sfc_chol_trailing": "src/repro_torch/kernels/csrc/cholesky.cu",
+    "sfc_kmeans_assign_tiles": "src/repro_torch/kernels/csrc/kmeans.cu",
+    "sfc_matmul3d": "src/repro_torch/kernels/csrc/matmul.cu",
 }
 BAND = 1e-4  # relative width of the float64 tie / threshold band
+# the join kernels' metric (|xi|² − 2 xi·xj) + |xj|² in f32 is off by at
+# most ~9·2⁻²⁴·(|xi|² + |xj|²) at D = 3; the stream's points in the unit
+# cube are not centred, so its query band adds that scale to BAND·ε²
+F32_METRIC = 1e-6
 # the main path's sizes
 MATMUL_F32 = 8192  # M = N = K
 MATMUL_BF16 = (8000, 7000, 6000)  # M, N, K
@@ -107,6 +135,15 @@ JOIN = (262_144, 16)  # N, D
 FW = (8192, 5000)  # nodes: the main call (b = 128) and a padded one (b = 88)
 FW_EDGE_P = 0.05  # edge probability of the random digraphs
 CHOL = (8192, 6001)  # n: the main call (b = 128) and a padded one (to 6016)
+KMEANS_GIST = (1_000_000, 960, 1024, 3)  # N, D, K, iterations: GIST1M's shapes
+# StreamKMeans: points, points per insert request, an assign every n ticks,
+# probes per assign (SIFT-width points, K of the Lloyd run)
+STREAM_KMEANS = (262_144, 1024, 8, 4096)
+STREAM_DECAYS = (1.0, 0.9)
+# StreamSimJoin: points uniform in the unit cube, D, eps (a mean of ~32
+# neighbours), points per insert request, a query every n ticks, probes per
+# query, max_residents of the second run
+STREAM_JOIN = (262_144, 3, 0.0308, 1024, 8, 1024, 65_536)
 
 
 def log(msg: str) -> None:
@@ -464,6 +501,100 @@ def compare_kernels(rng, device) -> None:
             f"hit-count mismatches={mism}, emit array_equal={same}, differ_in_band={stats['differ_in_band']}")
 
 
+def compare_reference(rng, device) -> None:
+    """The k-means reference path's kernels and the 3-D matmul against
+    their plain versions on the card: sfc_kmeans_assign_tiles (whose
+    merged result must also equal sfc_kmeans_assign's to the bit: the two
+    run the same device code), sfc_kmeans_update over its own table up to
+    D = 960 (the column-chunked grid), sfc_matmul3d in f32 and bf16; then
+    ops.kmeans_lloyd with fused=False equal to the fused call."""
+    import torch
+    from repro_torch.core import kmeans_schedule_device, tile_schedule_device
+    from repro_torch.kernels import launch, ops
+    from repro_torch.kernels.kmeans import (
+        kmeans_assign_program, kmeans_assign_swizzled, kmeans_lloyd_program, kmeans_update_program,
+    )
+    from repro_torch.kernels.matmul import matmul3d_csr_device, matmul3d_program
+
+    for (N, D, K, bp, bc) in [(300, 5, 7, 64, 4), (20000, 128, 1000, 128, 128)]:
+        x = torch.as_tensor(rng.standard_normal((N, D), dtype=np.float32), device=device)
+        c = x[torch.as_tensor(rng.choice(N, K, replace=False), device=device)].clone()
+        Np_, Kp = -(-N // bp) * bp, -(-K // bc) * bc
+        xp = torch.nn.functional.pad(x, (0, 0, 0, Np_ - N)).contiguous()
+        cp = torch.nn.functional.pad(c, (0, 0, 0, Kp - K)).contiguous()
+        pt, ct = Np_ // bp, Kp // bc
+        kv = K if Kp != K else None
+        prog = kmeans_assign_program(tile_schedule_device("fur", (pt, ct), device=device),
+                                     pt=pt, ct=ct, bp=bp, bc=bc, k_valid=kv)
+        cn = (cp * cp).sum(1)
+        (m_k, a_k), (m_p, a_p) = launch(prog, xp, cp, cn), prog.plain(prog, xp, cp, cn)
+        torch.cuda.synchronize()
+        terr = float((m_k - m_p).abs().max())
+        check(bool(torch.allclose(m_k, m_p, rtol=1e-5, atol=1e-3)),
+              f"sfc_kmeans_assign_tiles N={N}: tile minima differ (max err {terr})")
+        fused, _update = kmeans_lloyd_program(
+            kmeans_schedule_device("fur", pt, ct, device=device), pt=pt, ct=ct, bp=bp, bc=bc, D=D,
+            k_valid=kv, n_valid=N if Np_ != N else None,
+        )
+        m_f, a_f = launch(fused, xp, cp, cn)
+        m_r, a_r = kmeans_assign_swizzled(prog.schedule, xp, cp, bp=bp, bc=bc, k_valid=kv)
+        check(torch.equal(m_r, m_f) and torch.equal(a_r, a_f),
+              f"sfc_kmeans_assign_tiles N={N}: merged result != sfc_kmeans_assign")
+        band = argmin_band(xp[:N], c)
+        best = torch.argmin(m_p, dim=1, keepdim=True)
+        a_pm = torch.gather(a_p, 1, best).reshape(-1)
+        off = (a_r[:N] != a_pm[:N]) & ~band
+        check(not bool(off.any()), f"sfc_kmeans_assign_tiles N={N}: {int(off.sum())} argmins differ "
+                                   f"from the plain version outside the band")
+        log(f"compare sfc_kmeans_assign_tiles N={N} D={D} K={K} bp={bp} bc={bc}: tile minima "
+            f"max_abs_err={terr:.3e}; merged == sfc_kmeans_assign to the bit; argmin band points="
+            f"{int(band.sum())}, mismatches vs plain={int((a_r[:N] != a_pm[:N]).sum())}")
+
+    for (N, D, K) in [(20000, 960, 1000), (3000, 453, 300), (3000, 454, 300)]:
+        bp = 128
+        Np_ = -(-N // bp) * bp
+        x = torch.as_tensor(rng.standard_normal((Np_, D), dtype=np.float32), device=device)
+        a = torch.as_tensor(rng.integers(0, K, size=Np_).astype(np.int32), device=device)
+        host = np.stack([rng.permutation(Np_ // bp), np.ones(Np_ // bp)], 1).astype(np.int32)
+        prog = kmeans_update_program(torch.as_tensor(host, device=device), col_i=0, bp=bp, Kp=K, D=D,
+                                     n_valid=N, columns=("i", "first_visit"))
+        (s_k, n_k), (s_p, n_p) = launch(prog, x, a), prog.plain(prog, x, a)
+        torch.cuda.synchronize()
+        check(torch.equal(n_k, n_p), f"sfc_kmeans_update D={D}: counts differ")
+        serr = float((s_k - s_p).abs().max())
+        check(bool(torch.allclose(s_k, s_p, rtol=1e-5, atol=1e-3)), f"sfc_kmeans_update D={D}: sums err {serr}")
+        log(f"compare sfc_kmeans_update N={N} D={D} K={K}: grid {prog.grid} (column chunk "
+            f"{prog.params['dchunk']}, {prog.params['smem_bytes']} B shared memory per CTA), "
+            f"counts equal, sums max_abs_err={serr:.3e}")
+
+    for (M, N, K, bm, bk, curve, dtype) in [(200, 136, 40, 64, 16, "hilbert", torch.float32),
+                                            (1024, 1536, 1024, 128, 128, "hilbert", torch.float32),
+                                            (1024, 1536, 1024, 128, 128, "row", torch.float32),
+                                            (1000, 700, 608, 128, 128, "zorder", torch.bfloat16)]:
+        a = torch.as_tensor(rng.standard_normal((M, K), dtype=np.float32), device=device).to(dtype)
+        b = torch.as_tensor(rng.standard_normal((K, N), dtype=np.float32), device=device).to(dtype)
+        Mp, Np_, Kp = -(-M // bm) * bm, -(-N // bm) * bm, -(-K // bk) * bk
+        a = torch.nn.functional.pad(a, (0, Kp - K, 0, Mp - M)).contiguous()
+        b = torch.nn.functional.pad(b, (0, Np_ - N, 0, Kp - K)).contiguous()
+        ij, ks = matmul3d_csr_device(curve, (Mp // bm, Np_ // bm, Kp // bk), device=device)
+        prog = matmul3d_program(ij, ks, a, b, bm=bm, bn=bm, bk=bk)
+        got, want = launch(prog, a, b), prog.plain(prog, a, b)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        tol = 1e-2 * max(1.0, float(want.float().abs().max())) if dtype == torch.bfloat16 else 1e-4 * K ** 0.5
+        check(err <= tol, f"sfc_matmul3d {M}x{N}x{K} {dtype}: max err {err} > {tol}")
+        log(f"compare sfc_matmul3d {M}x{N}x{K} {str(dtype)[6:]} bm={bm} bk={bk} {curve}: "
+            f"max_abs_err={err:.3e} (tol {tol:.1e})")
+
+    for (N, D, K) in [(5000, 16, 50), (3000, 960, 40)]:
+        x = torch.as_tensor(rng.standard_normal((N, D), dtype=np.float32), device=device)
+        c_f, a_f = ops.kmeans_lloyd(x, K, iters=3)
+        c_r, a_r = ops.kmeans_lloyd(x, K, iters=3, fused=False)
+        check(torch.equal(c_f, c_r) and torch.equal(a_f, a_r),
+              f"ops.kmeans_lloyd N={N} D={D}: fused != fused=False")
+        log(f"compare ops.kmeans_lloyd N={N} D={D} K={K}: fused == fused=False to the bit")
+
+
 # ---------------------------------------------------------------------------
 # phases 3-5: the main path, its checks, and the kernel timings
 # ---------------------------------------------------------------------------
@@ -481,6 +612,127 @@ def lloyd_oracle(x, c0, iters: int):
         cnt = torch.bincount(a.long(), minlength=c.shape[0]).float()[:, None]
         c = torch.where(cnt > 0, sums / cnt.clamp(min=1.0), c)
     return c, a
+
+
+def drive_stream_kmeans(xs, probe_pool, k: int, decay: float, seed: int, device):
+    """StreamKMeans over ``xs`` (host f32): one insert request per tick and
+    an assign request every few ticks.  Returns the service, the assign
+    tickets with the centroids they saw (the state before their tick),
+    and the stream's metrics (the clock stops while those centroids are
+    copied out for the check)."""
+    import torch
+    from repro_torch.serve import StreamKMeans
+
+    n, per, every, m = STREAM_KMEANS
+    svc = StreamKMeans(k, decay=decay, seed=seed, device=device)
+    asks, n_req, busy = [], 0, 0.0
+    for t, i in enumerate(range(0, n, per)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svc.insert(xs[i:i + per])
+        n_req += 1
+        if t % every == every - 1:
+            busy += time.perf_counter() - t0
+            seen = svc.centroids()
+            probes = probe_pool[(len(asks) * m) % len(probe_pool):][:m]
+            t0 = time.perf_counter()
+            asks.append((svc.assign(probes), seen, probes))
+            n_req += 1
+        svc.tick()
+        busy += time.perf_counter() - t0
+    return svc, asks, {
+        "requests": n_req, "ticks": svc.stats.total_ticks, "wall_s": busy, "req_per_s": n_req / busy,
+        "p99_tick_ms": 1e3 * svc.stats.p99(), "mean_tick_ms": 1e3 * svc.stats.mean(),
+        "lloyd_dispatches": svc.stats.total("lloyd_dispatch"),
+        "assign_dispatches": svc.stats.total("assign_dispatch"),
+    }
+
+
+def drive_stream_join(pts, qpool, max_residents, device):
+    """StreamSimJoin over ``pts`` (host f32) with fixed bounds: one insert
+    request per tick and a query request every few ticks.  Returns the
+    service, the query tickets with their probes and the id range of the
+    residents they probed, and the stream's metrics."""
+    import torch
+    from repro_torch.serve import StreamSimJoin
+
+    n, d, eps, per, every, m, _ = STREAM_JOIN
+    svc = StreamSimJoin(eps, bounds=(np.zeros(d), np.ones(d)), max_residents=max_residents,
+                        device=device)
+    queries, n_req = [], 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t, i in enumerate(range(0, n, per)):
+        svc.insert(pts[i:i + per])
+        n_req += 1
+        if t % every == every - 1:
+            probes = qpool[(len(queries) * m) % len(qpool):][:m]
+            lo = max(0, i + per - max_residents) if max_residents else 0
+            queries.append((svc.query(probes), probes, lo, i + per))
+            n_req += 1
+        svc.tick()
+    wall = time.perf_counter() - t0
+    return svc, queries, {
+        "requests": n_req, "ticks": svc.stats.total_ticks, "wall_s": wall, "req_per_s": n_req / wall,
+        "p99_tick_ms": 1e3 * svc.stats.p99(), "mean_tick_ms": 1e3 * svc.stats.mean(),
+        "pairs": int(svc.stats.total("pairs_emitted")),
+        "tiles_scheduled": int(svc.stats.total("tiles_scheduled")),
+        "tiles_pruned": int(svc.stats.total("tiles_pruned")),
+        "halo_intervals": int(svc.stats.total("halo_intervals")),
+        "mean_probe_rows": svc.stats.total("probe_rows") / svc.stats.total_ticks,
+        "residents": svc.resident_count,
+    }
+
+
+def check_kmeans_asks(asks, k: int, device, what: str) -> dict:
+    """Each assign result against the f32 oracle on the centroids it saw,
+    exact outside the float64 tie band."""
+    import torch
+    from repro_torch.kernels import ref
+
+    band_pts = mism = 0
+    for ticket, seen, probes in asks:
+        check(ticket.done and seen is not None and ticket.result is not None, f"{what}: assign not served")
+        pt, ct = torch.as_tensor(probes, device=device), torch.as_tensor(seen, device=device)
+        _d, want = ref.kmeans_assign(pt, ct)
+        got = torch.as_tensor(ticket.result, device=device)
+        band = argmin_band(pt, ct)
+        check(not bool(((got != want) & ~band).any()), f"{what}: assignments differ outside the band")
+        band_pts += int(band.sum())
+        mism += int((got != want).sum())
+    return {"assigns": len(asks), "band_points": band_pts, "mismatches": mism}
+
+
+def check_join_queries(queries, pts_t, eps: float) -> dict:
+    """Each query's (probe, resident id) rows against float64 brute force
+    over the residents it probed, exact outside the threshold band
+    |d² − ε²| ≤ BAND·ε² + F32_METRIC·(|probe|² + |resident|²)."""
+    import torch
+
+    n = pts_t.shape[0]
+    band_rows = rows = 0
+    e2 = eps * eps
+    for ticket, probes, lo, hi in queries:
+        res = torch.as_tensor(ticket.result, device=pts_t.device)
+        got = torch.sort(res[:, 0] * n + res[:, 1]).values
+        want, band = [], []
+        pd = torch.as_tensor(probes, device=pts_t.device).double()
+        rd = pts_t[lo:hi].double()
+        rn = (rd * rd).sum(1)
+        for r0 in range(0, len(pd), 128):
+            q = pd[r0:r0 + 128]
+            d2 = torch.cdist(q, rd) ** 2
+            i, j = (d2 <= e2).nonzero(as_tuple=True)
+            want.append((i + r0) * n + j + lo)
+            width = BAND * e2 + F32_METRIC * ((q * q).sum(1)[:, None] + rn[None, :])
+            i, j = ((d2 - e2).abs() <= width).nonzero(as_tuple=True)
+            band.append((i + r0) * n + j + lo)
+        want, band = torch.sort(torch.cat(want)).values, torch.cat(band)
+        off = torch.cat([got[~torch.isin(got, want)], want[~torch.isin(want, got)]])
+        check(bool(torch.isin(off, band).all()), f"query: {len(off)} rows differ outside the band")
+        rows += len(got)
+        band_rows += len(band)
+    return {"queries": len(queries), "rows": rows, "band_rows": band_rows}
 
 
 def main_path(rng, device, seed: int) -> dict:
@@ -512,10 +764,26 @@ def main_path(rng, device, seed: int) -> dict:
     fw_d, fw_dr = fw_graph(rng, NF, device), fw_graph(rng, NFR, device)
     ch_a, ch_ar = gp_covariance(rng, NC, device), gp_covariance(rng, NCR, device)
     saved = [t.clone() for t in (fw_d, fw_dr, ch_a, ch_ar)]
+    probes = torch.as_tensor(centres[rng.integers(0, K, size=4096)]
+                             + rng.standard_normal((4096, DK), dtype=np.float32), device=device)
+    # GIST1M's shapes, made on the card from the seed (3.8 GB)
+    NG, DG, KG, ITERS_G = KMEANS_GIST
+    gen = torch.Generator(device=device).manual_seed(seed + 7)
+    labels_g = torch.randint(0, KG, (NG,), generator=gen, device=device)
+    labels_g[kmeans_init_indices(NG, KG, seed).to(device)] = torch.arange(KG, device=device)
+    xg = torch.randn((KG, DG), generator=gen, device=device).mul_(10.0)[labels_g]
+    xg.add_(torch.randn((NG, DG), generator=gen, device=device))
+    NS, PER, _every, MP = STREAM_KMEANS
+    xs_k = xk[:NS].cpu().numpy()
+    probe_pool = xk[NS:NS + 32 * MP].cpu().numpy()
+    NSJ, DSJ, EPS_S, PER_J, _qe, MQ, MAXR = STREAM_JOIN
+    xs_j = rng.uniform(0.0, 1.0, size=(NSJ, DSJ)).astype(np.float32)
+    q_pool = rng.uniform(0.0, 1.0, size=(32 * MQ, DSJ)).astype(np.float32)
     torch.cuda.synchronize()
     log(f"data: {time.perf_counter() - t0:.1f} s (matmul {S}^3 f32 + {M16}x{N16}x{K16} bf16, "
         f"k-means {NK}x{DK} K={K}, e-join {NJ}x{DJ} eps={eps:.5f}, floyd_warshall {NF} and {NFR} "
-        f"nodes p={FW_EDGE_P}, cholesky {NC} and {NCR})")
+        f"nodes p={FW_EDGE_P}, cholesky {NC} and {NCR}, k-means GIST {NG}x{DG} K={KG}, "
+        f"streams: k-means {NS}x{DK}, e-join {NSJ}x{DSJ} eps={EPS_S})")
 
     # --- phase 3: the main path through the public entry points ------------
     wall = {}
@@ -542,6 +810,24 @@ def main_path(rng, device, seed: int) -> dict:
     ch_r = run(f"ops.cholesky {NCR}", lambda: ops.cholesky(ch_ar))
     fw_k = run(f"ops.floyd_warshall {NF} fused=False", lambda: ops.floyd_warshall(fw_d, fused=False))
     ch_k = run(f"ops.cholesky {NC} fused=False", lambda: ops.cholesky(ch_a, fused=False))
+    d2_all, asg_all = run(f"ops.kmeans_assign {NK}x{DK} K={K}", lambda: ops.kmeans_assign(xk, cent))
+    d2_pr, asg_pr = run(f"ops.kmeans_assign 4096x{DK} K={K}", lambda: ops.kmeans_assign(probes, cent))
+    cent_r, asg_r = run(f"ops.kmeans_lloyd {NK}x{DK} K={K} x{ITERS} fused=False",
+                        lambda: ops.kmeans_lloyd(xk, K, iters=ITERS, seed=seed, fused=False))
+    cent_g, asg_g = run(f"ops.kmeans_lloyd {NG}x{DG} K={KG} x{ITERS_G}",
+                        lambda: ops.kmeans_lloyd(xg, KG, iters=ITERS_G, seed=seed))
+    cent_gr, asg_gr = run(f"ops.kmeans_lloyd {NG}x{DG} K={KG} x{ITERS_G} fused=False",
+                          lambda: ops.kmeans_lloyd(xg, KG, iters=ITERS_G, seed=seed, fused=False))
+    c3 = run(f"ops.matmul f32 {S}^3 schedule_ndim=3", lambda: ops.matmul(a32, b32, schedule_ndim=3))
+    c3_16 = run(f"ops.matmul bf16 {M16}x{N16}x{K16} schedule_ndim=3",
+                lambda: ops.matmul(a16, b16, schedule_ndim=3))
+    streams = {}
+    for decay in STREAM_DECAYS:
+        streams[f"StreamKMeans decay={decay}"] = run(
+            f"StreamKMeans decay={decay}", lambda: drive_stream_kmeans(xs_k, probe_pool, K, decay, seed, device))
+    for maxr in (None, MAXR):
+        streams[f"StreamSimJoin max_residents={maxr}"] = run(
+            f"StreamSimJoin max_residents={maxr}", lambda: drive_stream_join(xs_j, q_pool, maxr, device))
     launches = LAUNCHES.counts()
     log("main path wall ms: " + json.dumps({k: round(v, 3) for k, v in wall.items()}))
     log("main path launches: " + json.dumps(launches))
@@ -603,6 +889,94 @@ def main_path(rng, device, seed: int) -> dict:
         check(torch.equal(t, before), "an input of floyd_warshall / cholesky changed")
     log("check phased: fused == fused=False (floyd_warshall, cholesky), inputs unchanged")
     del fw_r, fw_k, ch_r, ch_k, saved
+
+    # the k-means reference path, ops.kmeans_assign and GIST1M's width
+    check(torch.equal(cent, cent_r) and torch.equal(asg, asg_r),
+          f"kmeans_lloyd {NK}x{DK}: fused != fused=False")
+    check(torch.equal(cent_g, cent_gr) and torch.equal(asg_g, asg_gr),
+          f"kmeans_lloyd {NG}x{DG}: fused != fused=False")
+    assign_stats = {}
+    for name, xq, d2q, aq in ((f"{NK} points", xk, d2_all, asg_all), ("4096 probes", probes, d2_pr, asg_pr)):
+        d_ref, a_ref = ref.kmeans_assign(xq, cent)
+        band_q = argmin_band(xq, cent)
+        check(aq.shape == (len(xq),) and bool(torch.isfinite(d2q).all()), f"kmeans_assign {name}: shape")
+        check(not bool(((aq != a_ref) & ~band_q).any()), f"kmeans_assign {name}: differs outside the band")
+        # the f32 metric |c|² − 2 x·c + |x|² cancels at the scale of |x|²
+        d2err = float((d2q - d_ref).abs().max() / (xq * xq).sum(1).max())
+        check(d2err <= 1e-5, f"kmeans_assign {name}: d2 err {d2err} of max |x|²")
+        assign_stats[name] = {"band_points": int(band_q.sum()), "mismatches": int((aq != a_ref).sum()),
+                              "d2_rel_err": d2err}
+    check(torch.equal(asg_all.cpu(), torch.as_tensor(labels, dtype=torch.int32)),
+          "kmeans_assign on the final centroids: clusters not recovered")
+    c0g = xg[kmeans_init_indices(NG, KG, seed).to(device)]
+    cg_ref, ag_ref = lloyd_oracle(xg, c0g, ITERS_G)
+    band_g = argmin_band(xg, cg_ref)
+    check(not bool(((asg_g != ag_ref) & ~band_g).any()), f"k-means {NG}x{DG}: differs outside the band")
+    gerr = float((cent_g - cg_ref).abs().max())
+    check(bool(torch.allclose(cent_g, cg_ref, rtol=1e-4, atol=1e-3)), f"k-means {NG}x{DG}: centroids err {gerr}")
+    check(torch.equal(asg_g, labels_g.int()), f"k-means {NG}x{DG}: clusters not recovered")
+    gist = {"band_points": int(band_g.sum()), "mismatches": int((asg_g != ag_ref).sum()),
+            "centroids_max_abs_err": gerr}
+    del cg_ref, ag_ref, c0g, band_g
+    log("check kmeans reference path: fused == fused=False to the bit at "
+        f"{NK}x{DK} and {NG}x{DG}; " + json.dumps({"kmeans_assign": assign_stats, f"{NG}x{DG}": gist}))
+
+    # the 3-D matmul, with the 2-D path's tolerances
+    r32 = ref.matmul(a32, b32)
+    err3 = float((c3 - r32).abs().max())
+    check(c3.shape == (S, S) and bool(torch.isfinite(c3).all()), "matmul 3d f32: shape or non-finite")
+    check(err3 <= 1e-2, f"matmul 3d f32 {S}^3: max err {err3} > 1e-2")
+    del r32
+    r16 = ref.matmul(a16, b16)
+    err3_16 = float((c3_16.float() - r16.float()).abs().max())
+    tol3_16 = 1e-2 * float(r16.float().abs().max())
+    check(c3_16.shape == (M16, N16) and c3_16.dtype == torch.bfloat16, "matmul 3d bf16: shape or dtype")
+    check(err3_16 <= tol3_16, f"matmul 3d bf16: max err {err3_16} > {tol3_16}")
+    del r16
+    log(f"check matmul schedule_ndim=3: f32 max_abs_err={err3:.3e} (tol 1e-2); bf16 max_abs_err={err3_16:.3e} "
+        f"(tol {tol3_16:.3e})")
+
+    # the streams: StreamKMeans to the bit against ops, StreamSimJoin's
+    # pairs and queries exact outside the band
+    stream_checks = {}
+    for decay in STREAM_DECAYS:
+        svc, asks, _m = streams[f"StreamKMeans decay={decay}"]
+        c_fin = torch.as_tensor(svc.centroids(), device=device)
+        check(c_fin.shape == (K, DK) and bool(torch.isfinite(c_fin).all()), f"StreamKMeans decay={decay}: centroids")
+        stream_checks[f"StreamKMeans decay={decay}"] = check_kmeans_asks(asks, K, device, f"StreamKMeans {decay}")
+    from repro_torch.serve import StreamKMeans
+
+    chk = StreamKMeans(K, seed=seed, device=device)
+    for i in range(0, NS, PER):
+        chk.insert(xs_k[i:i + PER])
+    for _ in range(ITERS):
+        chk.tick()
+    c_b, a_b = ops.kmeans_lloyd(torch.as_tensor(chk.points(), device=device), K, iters=ITERS, seed=seed)
+    check(torch.equal(torch.as_tensor(chk.centroids(), device=device), c_b)
+          and torch.equal(torch.as_tensor(chk.assignment(), device=device), a_b),
+          "StreamKMeans: all points in one tick, then ticks != ops.kmeans_lloyd")
+    stream_checks["StreamKMeans batch_identical"] = True
+    del chk, c_b, a_b
+    xs_jt = torch.as_tensor(xs_j, device=device)
+    oracle_j = ops.simjoin_pairs(xs_jt, EPS_S)
+    band_s = join_band(xs_jt, EPS_S)
+    for maxr in (None, MAXR):
+        svc, queries, _m = streams[f"StreamSimJoin max_residents={maxr}"]
+        check(np.array_equal(svc.points_by_id(), xs_j), "StreamSimJoin: points_by_id != the inserted points")
+        got = torch.as_tensor(svc.pairs(), device=device)
+        want = oracle_j.long()
+        if maxr is not None:
+            # a pair (a, b), b < a, is emitted iff b was still resident when
+            # a's insert request was admitted
+            lo = torch.clamp(want[:, 0] // PER_J * PER_J - maxr, min=0)
+            want = want[want[:, 1] >= lo]
+        st = check_pairs(got, want, band_s, NSJ, f"StreamSimJoin max_residents={maxr}")
+        stream_checks[f"StreamSimJoin max_residents={maxr}"] = {
+            **st, **check_join_queries(queries, xs_jt, EPS_S),
+        }
+    log("check streams: " + json.dumps({"band pairs": len(band_s), **stream_checks}))
+    del oracle_j, band_s
+    log("streams: " + json.dumps({name: v[2] for name, v in streams.items()}))
 
     # --- phase 5: kernel timings at the main path's shapes ------------------
     rows = []
@@ -670,8 +1044,11 @@ def main_path(rng, device, seed: int) -> dict:
     acc = torch.zeros(K, DK + 1, device=device)
     entry("sfc_kmeans_update", lambda: launch(update, xkp, a_k), lambda: update.plain(update, xkp, a_k),
           lambda: acc.zero_().index_add_(0, a_k[:NK].long(), x_aug), float(NK * DK), FP32_PEAK,
-          4 * (pt * 128 * DK + pt * 128 + K * DK + K), 10, uerr)
+          4 * (pt * 128 * DK + pt * 128 + K * DK + K), 10, uerr,
+          {"d960": time_update_d960(xg, asg_g, KG, device)})
     del x_aug, acc
+    time_assign_tiles(entry, xk, probes, cent, device)
+    time_matmul3d(entry, a32, b32, a16, b16, device)
 
     trid = triangle_schedule_device("hilbert", NJ // 128, strict=False, device=device)
     hits = simjoin_hits_program(trid, eps=eps, bp=128, npad=NJ, n_valid=None)
@@ -704,6 +1081,10 @@ def main_path(rng, device, seed: int) -> dict:
     time_phased(entry, device, fw_d, fw_dr, ch_a, ch_ar, ch)
 
     # --- phase 6: where the time goes in a warm second pass ------------------
+    # (the warm ticks: one more insert request and one probe request each)
+    svc_k, svc_j = streams["StreamKMeans decay=1.0"][0], streams["StreamSimJoin max_residents=None"][0]
+    more_k = xk[NS + 32 * MP:][:PER].cpu().numpy()
+    more_j = rng.uniform(0.0, 1.0, size=(PER_J, DSJ)).astype(np.float32)
     profile_calls({
         f"ops.matmul f32 {S}^3": lambda: ops.matmul(a32, b32),
         f"ops.kmeans_lloyd {NK}x{DK} K={K} x{ITERS}": lambda: ops.kmeans_lloyd(xk, K, iters=ITERS, seed=seed),
@@ -713,8 +1094,126 @@ def main_path(rng, device, seed: int) -> dict:
         f"ops.floyd_warshall {NF} fused=False": lambda: ops.floyd_warshall(fw_d, fused=False),
         f"ops.cholesky {NC}": lambda: ops.cholesky(ch_a),
         f"ops.cholesky {NC} fused=False": lambda: ops.cholesky(ch_a, fused=False),
+        f"ops.kmeans_assign {NK}x{DK} K={K}": lambda: ops.kmeans_assign(xk, cent),
+        f"ops.kmeans_assign 4096x{DK} K={K}": lambda: ops.kmeans_assign(probes, cent),
+        f"ops.kmeans_lloyd {NK}x{DK} K={K} x{ITERS} fused=False":
+            lambda: ops.kmeans_lloyd(xk, K, iters=ITERS, seed=seed, fused=False),
+        f"ops.kmeans_lloyd {NG}x{DG} K={KG} x{ITERS_G}": lambda: ops.kmeans_lloyd(xg, KG, iters=ITERS_G, seed=seed),
+        f"ops.kmeans_lloyd {NG}x{DG} K={KG} x{ITERS_G} fused=False":
+            lambda: ops.kmeans_lloyd(xg, KG, iters=ITERS_G, seed=seed, fused=False),
+        f"ops.matmul f32 {S}^3 schedule_ndim=3": lambda: ops.matmul(a32, b32, schedule_ndim=3),
+        f"StreamKMeans warm tick ({NS} residents + {PER}, one assign of {MP})":
+            lambda: (svc_k.insert(more_k), svc_k.assign(probe_pool[:MP]), svc_k.tick()),
+        f"StreamSimJoin warm tick ({NSJ} residents + {PER_J}, one query of {MQ})":
+            lambda: (svc_j.insert(more_j), svc_j.query(q_pool[:MQ]), svc_j.tick()),
     })
     return {"kernels": rows}
+
+
+def time_update_d960(xg, asg_g, k: int, device) -> dict:
+    """Row 6 at GIST1M's width: sfc_kmeans_update over its own (point
+    tile, first_visit) table (the reference path's update, three column
+    chunks of 320), its plain version, index_add_ and the bound."""
+    import torch
+    from repro_torch.core import kmeans_schedule_device
+    from repro_torch.kernels import launch
+    from repro_torch.kernels.kmeans import kmeans_update_program
+
+    n, d = xg.shape
+    pt = -(-n // 128)
+    xgp = torch.nn.functional.pad(xg, (0, 0, 0, pt * 128 - n)).contiguous()
+    ag = torch.nn.functional.pad(asg_g, (0, pt * 128 - n)).contiguous()
+    upd = kmeans_schedule_device("fur", pt, k // 128, device=device)[pt * (k // 128):, [1, 3]].contiguous()
+    prog = kmeans_update_program(upd, col_i=0, bp=128, Kp=k, D=d, n_valid=n, columns=("i", "first_visit"))
+    (s_k, n_k), (s_p, n_p) = launch(prog, xgp, ag), prog.plain(prog, xgp, ag)
+    check(torch.equal(n_k, n_p), f"sfc_kmeans_update D={d}: counts vs plain at full size")
+    err = float((s_k - s_p).abs().max())
+    check(bool(torch.allclose(s_k, s_p, rtol=1e-5, atol=1e-2)), f"sfc_kmeans_update D={d}: sums err {err}")
+    del s_k, s_p
+    x_aug = torch.cat([xg, torch.ones(n, 1, device=device)], dim=1)
+    acc = torch.zeros(k, d + 1, device=device)
+    b_ms, b_by = bound_ms(float(n * d), FP32_PEAK, 4 * (n * d + n + k * d + k))
+    out = {
+        "shape": [n, d, k], "grid": list(prog.grid), "smem_bytes": prog.params["smem_bytes"],
+        "ms": cuda_ms(lambda: launch(prog, xgp, ag), 10), "plain_ms": cuda_ms(lambda: prog.plain(prog, xgp, ag), 1, 0),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(lambda: acc.zero_().index_add_(0, asg_g.long(), x_aug), 10),
+        "max_abs_err": err,
+    }
+    del x_aug, acc, xgp
+    return out
+
+
+def time_assign_tiles(entry, xk, probes, cent, device) -> None:
+    """Row 4 at ops.kmeans_assign's main-path shapes: the 1,000,000 points
+    (pt x ct = 7813 x 8 CTAs) and a 4,096-probe batch (32 x 8)."""
+    import torch
+    from repro_torch.core import tile_schedule_device
+    from repro_torch.kernels import launch
+    from repro_torch.kernels.kmeans import kmeans_assign_program
+
+    def program(x):
+        pt = -(-x.shape[0] // 128)
+        xp = torch.nn.functional.pad(x, (0, 0, 0, pt * 128 - x.shape[0])).contiguous()
+        sched = tile_schedule_device("fur", (pt, k // 128), device=device)
+        return kmeans_assign_program(sched, pt=pt, ct=k // 128, bp=128, bc=128, k_valid=None), xp
+
+    k, d = cent.shape
+    cn = (cent * cent).sum(1)
+    prog, xp = program(xk)
+    (m_k, _a), (m_p, _b) = launch(prog, xp, cent, cn), prog.plain(prog, xp, cent, cn)
+    err = float((m_k - m_p).abs().max())
+    check(bool(torch.allclose(m_k, m_p, rtol=1e-5, atol=1e-3)), f"sfc_kmeans_assign_tiles vs plain: err {err}")
+    del m_k, m_p, _a, _b
+    pprog, pp = program(probes)
+    n_pt = prog.params["pt"]
+    p_ms = cuda_ms(lambda: launch(pprog, pp, cent, cn), 10)
+    p_bound, _by = bound_ms(2.0 * pp.shape[0] * k * d, FP32_PEAK, 4 * (pp.shape[0] * d + k * d + k + 2 * 8 * pp.shape[0]))
+    entry("sfc_kmeans_assign_tiles", lambda: launch(prog, xp, cent, cn), lambda: prog.plain(prog, xp, cent, cn),
+          lambda: torch.cdist(xp, cent).argmin(dim=1), 2.0 * n_pt * 128 * k * d, FP32_PEAK,
+          4 * (n_pt * 128 * d + k * d + k + 2 * n_pt * (k // 128) * 128), 5, err,
+          {"probes_4096": {"ms": p_ms, "bound_ms": p_bound, "ctas": pprog.steps,
+                           "library_ms": cuda_ms(lambda: torch.cdist(pp, cent).argmin(dim=1), 10)}})
+
+
+def time_matmul3d(entry, a32, b32, a16, b16, device) -> None:
+    """Row 2 at ops.matmul(schedule_ndim=3)'s main-path shapes: f32 8192³
+    over the 64³ hilbert table (against torch.matmul and against the 2-D
+    sfc_matmul on the same operands, in this run), and bf16 padded."""
+    import torch
+    from repro_torch.core import tile_schedule_device
+    from repro_torch.kernels import launch
+    from repro_torch.kernels.matmul import matmul3d_csr_device, matmul3d_program, matmul_program
+
+    s = a32.shape[0]
+    ij, ks = matmul3d_csr_device("hilbert", (s // 128, s // 128, s // 128), device=device)
+    prog = matmul3d_program(ij, ks, a32, b32, bm=128, bn=128, bk=128)
+    got, want = launch(prog, a32, b32), prog.plain(prog, a32, b32)
+    err, tol = float((got - want).abs().max()), 1e-4 * s ** 0.5
+    check(err <= tol, f"sfc_matmul3d {s}^3 f32 vs plain: max err {err} > {tol}")
+    del got, want
+    p2 = matmul_program(tile_schedule_device("fur", (s // 128, s // 128), device=device), a32, b32,
+                        bm=128, bn=128, bk=16)
+    sfc_2d = cuda_ms(lambda: launch(p2, a32, b32), 5)
+    m16, k16 = a16.shape
+    n16 = b16.shape[1]
+    a16p = torch.nn.functional.pad(a16, (0, (-k16) % 128, 0, (-m16) % 128)).contiguous()
+    b16p = torch.nn.functional.pad(b16, (0, (-n16) % 128, 0, (-k16) % 128)).contiguous()
+    shape16 = (a16p.shape[0] // 128, b16p.shape[1] // 128, a16p.shape[1] // 128)
+    ij16, ks16 = matmul3d_csr_device("hilbert", shape16, device=device)
+    p16 = matmul3d_program(ij16, ks16, a16p, b16p, bm=128, bn=128, bk=128)
+    g16, w16 = launch(p16, a16p, b16p), p16.plain(p16, a16p, b16p)
+    err16 = float((g16.float() - w16.float()).abs().max())
+    tol16 = 1e-2 * max(1.0, float(w16.float().abs().max()))
+    check(err16 <= tol16, f"sfc_matmul3d bf16 vs plain: max err {err16} > {tol16}")
+    del g16, w16
+    b16_ms, b16_by = bound_ms(2.0 * m16 * n16 * k16, BF16_PEAK, 2 * (m16 * k16 + k16 * n16 + m16 * n16))
+    entry("sfc_matmul3d", lambda: launch(prog, a32, b32), lambda: prog.plain(prog, a32, b32),
+          lambda: torch.matmul(a32, b32), 2.0 * s ** 3, FP32_PEAK, 3 * s * s * 4, 5, err,
+          {"table": [s // 128] * 3, "sfc_matmul_ms": sfc_2d,
+           "bf16": {"shape": [m16, n16, k16], "table": list(shape16), "ms": cuda_ms(lambda: launch(p16, a16p, b16p), 5),
+                    "library_ms": cuda_ms(lambda: torch.matmul(a16, b16), 5), "bound_ms": b16_ms,
+                    "bound_by": b16_by, "max_abs_err": err16, "tol": tol16}})
 
 
 def cholesky_errors(a, L) -> dict:
@@ -943,6 +1442,7 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     compare_kernels(rng, device)
     compare_phased(np.random.default_rng(args.seed + 1), device)
+    compare_reference(np.random.default_rng(args.seed + 2), device)
     if args.quick:
         return 0
     result = main_path(rng, device, args.seed)

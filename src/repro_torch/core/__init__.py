@@ -15,6 +15,8 @@ imports that package); only the device-facing parts differ:
   curve         SpaceFillingCurve abstraction + registry    (beyond-paper)
   curves_nd     table-driven curve algebras (harmonious,
                 cyclic) + verification oracles              (beyond-paper)
+  neighbors     curve-neighbour range calculus (halo
+                ranges of a key interval)                   (beyond-paper)
   schedule      tile-schedule factory + traffic models,
                 device tables as torch tensors per device   (GPU adaptation)
   program       GpuProgram declarations + curve-range
@@ -41,6 +43,7 @@ from .fgf_nd import curve_jump_path_nd, fgf_box_nd, fgf_path_nd, fgf_triangle_nd
 from .fur import fur_is_unit_step, fur_path
 from .hilbert import hilbert_decode, hilbert_encode, hilbert_path
 from .hilbert_nd import hilbert_decode_nd, hilbert_encode_nd, hilbert_path_nd
+from .neighbors import curve_range_boxes, halo_ranges, halo_ranges_oracle, neighbor_tile_mask
 from .peano import peano_decode, peano_encode, peano_path
 from .program import GpuProgram, curve_partition
 from .schedule import (

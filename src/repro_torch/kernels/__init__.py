@@ -24,7 +24,13 @@ from .floyd_warshall import (
     fw_program,
     fw_reference_program,
 )
-from .kmeans import kmeans_init, kmeans_lloyd_fused, kmeans_lloyd_program
+from .kmeans import (
+    kmeans_assign_swizzled,
+    kmeans_init,
+    kmeans_lloyd_fused,
+    kmeans_lloyd_program,
+    kmeans_lloyd_reference,
+)
 from .launch import launch
 from .matmul import matmul_swizzled, tile_update_program, tile_update_swizzled
 from .simjoin import (
@@ -46,9 +52,11 @@ __all__ = [
     "floyd_warshall_blocked_reference",
     "fw_program",
     "fw_reference_program",
+    "kmeans_assign_swizzled",
     "kmeans_init",
     "kmeans_lloyd_fused",
     "kmeans_lloyd_program",
+    "kmeans_lloyd_reference",
     "launch",
     "matmul_swizzled",
     "ops",

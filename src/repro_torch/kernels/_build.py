@@ -40,7 +40,9 @@ _F = ctypes.c_float
 SIGNATURES = {
     "sfc_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "sfc_kmeans_assign": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
-    "sfc_kmeans_update": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    "sfc_kmeans_update": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    "sfc_kmeans_assign_tiles": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    "sfc_matmul3d": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "sfc_join_hits": (_P, _I, _P, _I, _I, _F, _I, _P, _P, _P),
     "sfc_join_emit": (_P, _I, _P, _I, _I, _F, _I, _P, _P),
     "sfc_tile_update": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),

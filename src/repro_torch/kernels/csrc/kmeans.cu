@@ -1,4 +1,5 @@
-// One Lloyd iteration as two launches: sfc_kmeans_assign + sfc_kmeans_update.
+// One Lloyd iteration as two launches: sfc_kmeans_assign + sfc_kmeans_update;
+// the reference path's assignment as sfc_kmeans_assign_tiles.
 //
 // Replaces: src/repro/kernels/kmeans.py::_fused_lloyd_kernel (the TPU
 // kernel of kmeans_lloyd_fused / kmeans_lloyd_program).  That kernel
@@ -20,18 +21,43 @@
 //     with an argmin epilogue, so the (N, Kp) metric matrix never
 //     reaches device memory.
 //
-// (b) update: grid (point group g, 128-centroid range).  CTA (g, c)
-//     scans the point tiles of group g in schedule order and adds every
-//     valid point (row < n_valid, kmeans.py::_update_tile's row mask)
-//     assigned to its centroid range into a (128, D) shared-memory
-//     partial; warp w owns the centroids with (k % 8) == w, so no two
-//     threads ever add into one address and no atomics are needed.  Each
-//     partial is written once to psum[g] / pcnt[g]; the host folds them
-//     with one torch sum over g.  Every sum is taken in a fixed order, so
-//     the result is deterministic from run to run.
+// (b) update: grid (point group g, 128-centroid range, column chunk).
+//     CTA (g, c, z) scans the point tiles of group g in schedule order
+//     and adds columns [z dchunk, (z + 1) dchunk) of every valid point
+//     (row < n_valid, kmeans.py::_update_tile's row mask) assigned to its
+//     centroid range into a (128, dchunk) shared-memory partial; warp w
+//     owns the centroids with (k % 8) == w, so no two threads ever add
+//     into one address and no atomics are needed.  Each partial is
+//     written once to psum[g] / pcnt[g] (the counts by the z = 0 CTA
+//     only); the host folds them with one torch sum over g.  Every sum
+//     is taken in a fixed order, so the result is deterministic from run
+//     to run, and each output element is summed by one CTA over the same
+//     points in the same order whatever the chunking.
 //     Bound on the H100: bytes (x read once: N D 4 bytes).  Design: the
 //     whole (Kp, D) accumulator (512 KB at Kp=1024, D=128) cannot sit in
-//     one CTA's shared memory, hence the split by centroid range.
+//     one CTA's shared memory, hence the split by centroid range; a
+//     128 x D partial fits the 227 KB a CTA may have only up to D = 453,
+//     hence the split by columns (the wrapper sizes dchunk: D = 960,
+//     GIST1M's width, runs as three 320-column chunks of 160 KB).
+//
+// Replaces also: src/repro/kernels/kmeans.py::_update_kernel (the TPU
+// kernel of kmeans_update_swizzled, the reference path's update), which
+// launches (b) over its own (point tile, first_visit) table.
+//
+// (c) assign_tiles: src/repro/kernels/kmeans.py::_assign_kernel (the TPU
+//     kernel of kmeans_assign_swizzled: ops.kmeans_assign, the reference
+//     Lloyd path and the streaming service's assign command).  One CTA
+//     per row (i, j) of a 2-D (point tile, centroid tile) curve table;
+//     it writes the (min, first argmin) of point tile i over centroid
+//     tile j once, to its own (i, j) slot of the (pt, ct, bp) partials,
+//     and a torch argmin over ct merges them.  It runs the same device
+//     code as (a) over a centroid range, so every metric and every
+//     tie-break is the same: the reference path equals the fused one to
+//     the bit.
+//     Bound on the H100: FP32 FLOP/s (2 N Kp D), as (a).  Design: the
+//     (i, j) grid has pt ct CTAs where (a) has pt, so a streaming batch
+//     of 4,096 probes fills 256 CTAs at K = 1024 where (a) fills 32 of
+//     the 132 SMs.
 #include <cfloat>
 #include <climits>
 
@@ -40,6 +66,58 @@
 namespace {
 
 using namespace sfc;
+
+// Running (min, first argmin) of m = |c|^2 - 2 x.c for the rows [row0,
+// row0 + rows) of x over centroids [c_lo, c_hi), in 128-wide chunks from
+// c_lo; centroids at or past k_valid count as FLT_MAX.  Thread (tx, ty)
+// returns the result of its rows tile_row(ty, i) in best_v / best_a (the
+// 16 threads of a row agree).  Both assign kernels run exactly this.
+__device__ __forceinline__ void assign_rows(const float* __restrict__ x, const float* __restrict__ c,
+                                            const float* __restrict__ cn, size_t row0, int rows,
+                                            int D, int c_lo, int c_hi, int k_valid, float (&best_v)[8],
+                                            int (&best_a)[8], float* As, float* Bs) {
+  const int tx = threadIdx.x & 15;
+  RowLoader<float> la{x + row0 * D, (size_t)D, rows, D};
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    best_v[i] = __int_as_float(0x7f800000);  // +inf: loses to every real metric
+    best_a[i] = INT_MAX;
+  }
+  for (int c0 = c_lo; c0 < c_hi; c0 += TILE) {
+    RowLoader<float> lb{c + (size_t)c0 * D, (size_t)D, min(TILE, c_hi - c0), D};
+    float acc[8][8];
+    tile_product<false>(acc, la, lb, D, As, Bs, nullptr);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float v = __int_as_float(0x7f800000);
+      int a = INT_MAX;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {  // columns ascend with j
+        const int col = c0 + tile_col(tx, j);
+        if (col >= c_hi) continue;
+        float m = __fsub_rn(cn[col], __fmul_rn(2.f, acc[i][j]));
+        if (col >= k_valid) m = FLT_MAX;
+        if (m < v) {
+          v = m;
+          a = col;
+        }
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) {  // the 16 threads sharing a row
+        const float ov = __shfl_xor_sync(0xffffffffu, v, off);
+        const int oa = __shfl_xor_sync(0xffffffffu, a, off);
+        if (ov < v || (ov == v && oa < a)) {
+          v = ov;
+          a = oa;
+        }
+      }
+      if (v < best_v[i] || (v == best_v[i] && a < best_a[i])) {
+        best_v[i] = v;
+        best_a[i] = a;
+      }
+    }
+  }
+}
 
 __global__ void __launch_bounds__(THREADS)
 kmeans_assign_kernel(const float* __restrict__ x, const float* __restrict__ c,
@@ -54,48 +132,9 @@ kmeans_assign_kernel(const float* __restrict__ x, const float* __restrict__ c,
   for (int sr = 0; sr < bp; sr += TILE) {
     const size_t row0 = (size_t)ti * bp + sr;
     const int rows = min(TILE, bp - sr);
-    RowLoader<float> la{x + row0 * D, (size_t)D, rows, D};
     float best_v[8];
     int best_a[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      best_v[i] = __int_as_float(0x7f800000);  // +inf: loses to every real metric
-      best_a[i] = INT_MAX;
-    }
-    for (int c0 = 0; c0 < Kp; c0 += TILE) {
-      RowLoader<float> lb{c + (size_t)c0 * D, (size_t)D, min(TILE, Kp - c0), D};
-      float acc[8][8];
-      tile_product<false>(acc, la, lb, D, As, Bs, nullptr);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        float v = __int_as_float(0x7f800000);
-        int a = INT_MAX;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {  // columns ascend with j
-          const int col = c0 + tile_col(tx, j);
-          if (col >= Kp) continue;
-          float m = __fsub_rn(cn[col], __fmul_rn(2.f, acc[i][j]));
-          if (col >= k_valid) m = FLT_MAX;
-          if (m < v) {
-            v = m;
-            a = col;
-          }
-        }
-#pragma unroll
-        for (int off = 8; off > 0; off >>= 1) {  // the 16 threads sharing a row
-          const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-          const int oa = __shfl_xor_sync(0xffffffffu, a, off);
-          if (ov < v || (ov == v && oa < a)) {
-            v = ov;
-            a = oa;
-          }
-        }
-        if (v < best_v[i] || (v == best_v[i] && a < best_a[i])) {
-          best_v[i] = v;
-          best_a[i] = a;
-        }
-      }
-    }
+    assign_rows(x, c, cn, row0, rows, D, 0, Kp, k_valid, best_v, best_a, As, Bs);
     if (tx == 0) {
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
@@ -109,18 +148,55 @@ kmeans_assign_kernel(const float* __restrict__ x, const float* __restrict__ c,
   }
 }
 
+// CTA s: point tile i = sched[s][0] against centroid tile j = sched[s][1];
+// its partial lands at [(i ct + j) bp, +bp) of min_out / arg_out.
+__global__ void __launch_bounds__(THREADS)
+kmeans_assign_tiles_kernel(const float* __restrict__ x, const float* __restrict__ c,
+                           const float* __restrict__ cn, const int* __restrict__ sched, int bp,
+                           int bc, int ct, int Kp, int D, int k_valid, float* __restrict__ min_out,
+                           int* __restrict__ arg_out) {
+  __shared__ __align__(16) float As[BK * TILE];
+  __shared__ __align__(16) float Bs[BK * TILE];
+  const int ti = sched[2 * (size_t)blockIdx.x];
+  const int tj = sched[2 * (size_t)blockIdx.x + 1];
+  const int c_lo = tj * bc;
+  const int c_hi = min(Kp, c_lo + bc);
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  const size_t out0 = ((size_t)ti * ct + tj) * bp;
+  for (int sr = 0; sr < bp; sr += TILE) {
+    const size_t row0 = (size_t)ti * bp + sr;
+    const int rows = min(TILE, bp - sr);
+    float best_v[8];
+    int best_a[8];
+    assign_rows(x, c, cn, row0, rows, D, c_lo, c_hi, k_valid, best_v, best_a, As, Bs);
+    if (tx == 0) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = tile_row(ty, i);
+        if (r < rows) {
+          min_out[out0 + sr + r] = best_v[i];
+          arg_out[out0 + sr + r] = best_a[i];
+        }
+      }
+    }
+  }
+}
+
 __global__ void __launch_bounds__(THREADS)
 kmeans_update_kernel(const float* __restrict__ x, const int* __restrict__ arg,
                      const int* __restrict__ sched, int sched_cols, int col_i, int pt,
-                     int tiles_per_group, int bp, int n_valid, int Kp, int D,
+                     int tiles_per_group, int bp, int n_valid, int Kp, int D, int dchunk,
                      float* __restrict__ psum, float* __restrict__ pcnt) {
   extern __shared__ float sh[];
-  float* ssum = sh;                      // [TILE][D]
-  int* scnt = reinterpret_cast<int*>(sh + (size_t)TILE * D);  // [TILE]
+  float* ssum = sh;                      // [TILE][dchunk]
+  int* scnt = reinterpret_cast<int*>(sh + (size_t)TILE * dchunk);  // [TILE]
   const int g = blockIdx.x;
   const int k0 = blockIdx.y * TILE;
   const int kn = min(TILE, Kp - k0);
-  for (int idx = threadIdx.x; idx < TILE * D; idx += THREADS) ssum[idx] = 0.f;
+  const int d0 = blockIdx.z * dchunk;
+  const int dn = min(dchunk, D - d0);
+  for (int idx = threadIdx.x; idx < TILE * dchunk; idx += THREADS) ssum[idx] = 0.f;
   if (threadIdx.x < TILE) scnt[threadIdx.x] = 0;
   __syncthreads();
   const int warp = threadIdx.x >> 5;
@@ -140,17 +216,18 @@ kmeans_update_kernel(const float* __restrict__ x, const int* __restrict__ arg,
         const int src = __ffs(mask) - 1;
         mask &= mask - 1;
         const int k = __shfl_sync(0xffffffffu, kl, src);
-        const float* xr = x + (base + p0 + src) * D;
-        float* acc = ssum + (size_t)k * D;
-        for (int d = lane; d < D; d += 32) acc[d] += xr[d];
+        const float* xr = x + (base + p0 + src) * D + d0;
+        float* acc = ssum + (size_t)k * dchunk;
+        for (int d = lane; d < dn; d += 32) acc[d] += xr[d];
         if (lane == 0) scnt[k] += 1;
       }
     }
   }
   __syncthreads();
-  float* out = psum + ((size_t)g * Kp + k0) * D;
-  for (int idx = threadIdx.x; idx < kn * D; idx += THREADS) out[idx] = ssum[idx];
-  if (threadIdx.x < kn) pcnt[(size_t)g * Kp + k0 + threadIdx.x] = (float)scnt[threadIdx.x];
+  float* out = psum + ((size_t)g * Kp + k0) * D + d0;
+  for (int idx = threadIdx.x; idx < kn * dn; idx += THREADS)
+    out[(size_t)(idx / dn) * D + idx % dn] = ssum[(size_t)(idx / dn) * dchunk + idx % dn];
+  if (blockIdx.z == 0 && threadIdx.x < kn) pcnt[(size_t)g * Kp + k0 + threadIdx.x] = (float)scnt[threadIdx.x];
 }
 
 }  // namespace
@@ -165,16 +242,26 @@ extern "C" int sfc_kmeans_assign(const void* x, const void* c, const void* cn, c
 }
 
 extern "C" int sfc_kmeans_update(const void* x, const void* arg, const void* sched, int sched_cols,
-                                 int col_i, int pt, int groups, int ctiles, int tiles_per_group, int bp,
-                                 int n_valid, int Kp, int D, void* psum, void* pcnt,
-                                 void* stream) {
-  const size_t smem = (size_t)TILE * D * sizeof(float) + TILE * sizeof(int);
+                                 int col_i, int pt, int groups, int ctiles, int dchunks,
+                                 int tiles_per_group, int bp, int n_valid, int Kp, int D, int dchunk,
+                                 void* psum, void* pcnt, void* stream) {
+  const size_t smem = (size_t)TILE * dchunk * sizeof(float) + TILE * sizeof(int);
   cudaError_t err = cudaFuncSetAttribute(kmeans_update_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(groups, ctiles);
+  dim3 grid(groups, ctiles, dchunks);
   kmeans_update_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       (const float*)x, (const int*)arg, (const int*)sched, sched_cols, col_i, pt, tiles_per_group,
-      bp, n_valid, Kp, D, (float*)psum, (float*)pcnt);
+      bp, n_valid, Kp, D, dchunk, (float*)psum, (float*)pcnt);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sfc_kmeans_assign_tiles(const void* x, const void* c, const void* cn,
+                                       const void* sched, int steps, int bp, int bc, int ct, int Kp,
+                                       int D, int k_valid, void* min_out, void* arg_out,
+                                       void* stream) {
+  kmeans_assign_tiles_kernel<<<steps, THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)c, (const float*)cn, (const int*)sched, bp, bc, ct, Kp, D,
+      k_valid, (float*)min_out, (int*)arg_out);
   return (int)cudaGetLastError();
 }

@@ -110,20 +110,18 @@ struct MinPlus {  // acc = min_k (a + b): the (min, +) product
   }
 };
 
-// acc[i][j] = sum_k A(tile_row(i), k) * B(k, tile_col(j)), k ascending
-// (Ring::fold in place of the multiply-add for another semiring).
-// With WithNorms, threads 0..127 also return the squared norm of A-row
-// t in *norm and threads 128..255 that of B-column t-128 (both summed in
-// k order with __fmaf_rn).  As/Bs: BK*TILE floats of shared memory each.
+// acc[i][j] = Ring::fold over k ascending of A(tile_row(i), k) and
+// B(k, tile_col(j)), continuing from the caller's acc: a CTA that walks
+// several depth ranges in its own order (sfc_matmul3d's k tiles) calls
+// this once per range on one accumulator.  With WithNorms, threads
+// 0..127 also return the squared norm of A-row t in *norm and threads
+// 128..255 that of B-column t-128 (both summed in k order with
+// __fmaf_rn).  As/Bs: BK*TILE floats of shared memory each.
 template <bool WithNorms, typename Ring = PlusTimes, typename LA, typename LB>
-__device__ __forceinline__ void tile_product(float (&acc)[8][8], const LA& la, const LB& lb,
-                                             int K, float* As, float* Bs, float* norm) {
+__device__ __forceinline__ void tile_accumulate(float (&acc)[8][8], const LA& la, const LB& lb,
+                                                int K, float* As, float* Bs, float* norm) {
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = Ring::zero();
   float nacc = 0.f;
   float ra[8], rb[8];
   la.load(ra, 0);
@@ -160,6 +158,19 @@ __device__ __forceinline__ void tile_product(float (&acc)[8][8], const LA& la, c
     }
   }
   if (WithNorms) *norm = nacc;
+}
+
+// acc[i][j] = sum_k A(tile_row(i), k) * B(k, tile_col(j)), k ascending
+// (Ring::fold in place of the multiply-add for another semiring), from
+// the ring's zero.
+template <bool WithNorms, typename Ring = PlusTimes, typename LA, typename LB>
+__device__ __forceinline__ void tile_product(float (&acc)[8][8], const LA& la, const LB& lb,
+                                             int K, float* As, float* Bs, float* norm) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = Ring::zero();
+  tile_accumulate<WithNorms, Ring>(acc, la, lb, K, As, Bs, norm);
 }
 
 // O(r, c) <- O(r, c) + alpha * sum_k A(r, k) B(c, k) over one sub-tile of

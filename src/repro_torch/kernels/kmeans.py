@@ -11,14 +11,24 @@ runs in order:
   keeps the running (min, argmin) of m(x, c) = ||c||² − 2⟨x, c⟩ in
   registers with the smallest-index tie rule, and writes each point's
   assignment once.
-* ``sfc_kmeans_update`` — grid (point group × 128-centroid range); each
-  CTA folds its group's valid points into a per-CTA partial of its
-  centroid range, written once; one torch ``sum`` over the groups folds
-  the partials in a fixed order.  No atomics: the result is the same on
-  every run.
+* ``sfc_kmeans_update`` — grid (point group × 128-centroid range ×
+  column chunk); each CTA folds its group's valid points into a per-CTA
+  partial of its centroid range and columns, written once; one torch
+  ``sum`` over the groups folds the partials in a fixed order.  No
+  atomics: the result is the same on every run.  The column chunks keep
+  the 128-centroid partial inside a CTA's shared memory at any D.
 
 The centroid update ``where(cnt > 0, sums / max(cnt, 1), c)`` and the
 loop over iterations stay torch around the launches.
+
+The reference path (``fused=False``, the JAX package's
+``kmeans_lloyd_reference``) is two other programs per iteration:
+:func:`kmeans_assign_swizzled` (``sfc_kmeans_assign_tiles``, one CTA per
+(point tile, centroid tile) row of a 2-D curve table, merged by a torch
+argmin over centroid tiles) and :func:`kmeans_update_swizzled`
+(``sfc_kmeans_update`` over its own (point tile, first_visit) table).
+Both run the fused path's device code, so the two paths agree to the bit
+on the card.
 
 Port defaults for the H100 (set in ops.py): ``bp = 128`` points per
 tile (one 128x128 metric tile per centroid chunk) and ``bc = 128``.  The
@@ -27,6 +37,7 @@ a point tile's accumulators in registers.
 """
 from __future__ import annotations
 
+import collections
 import hashlib
 
 import numpy as np
@@ -43,8 +54,24 @@ _F32_MAX = float(np.finfo(np.float32).max)
 _UPDATE_BLOCK = 128
 # update CTAs to aim for: a few waves over the H100's 132 SMs
 _UPDATE_TARGET_CTAS = 1024
-# the update CTA's shared memory, 128 x D f32 + 128 counts, must fit in 227 KB
-_UPDATE_MAX_D = (227 * 1024 - 4 * _UPDATE_BLOCK) // (4 * _UPDATE_BLOCK)
+# shared memory a CTA may use on the H100 (227 KB, after opting in)
+_SMEM_LIMIT = 227 * 1024
+# the widest column chunk whose 128 x chunk f32 partial + 128 counts fit
+_UPDATE_MAX_CHUNK = (_SMEM_LIMIT - 4 * _UPDATE_BLOCK) // (4 * _UPDATE_BLOCK)
+
+
+def update_columns(D: int) -> tuple[int, int]:
+    """``(dchunk, chunks)`` of the update grid's column axis: the fewest
+    equal chunks of at most ``_UPDATE_MAX_CHUNK`` columns (one chunk of D
+    columns up to D = 453; D = 960 is three of 320)."""
+    chunks = max(1, -(-D // _UPDATE_MAX_CHUNK))
+    return -(-D // chunks), chunks
+
+
+def update_smem_bytes(dchunk: int) -> int:
+    """Dynamic shared memory of one update CTA: the 128 x dchunk f32
+    partial and 128 int32 counts (as ``sfc_kmeans_update`` sizes it)."""
+    return 4 * _UPDATE_BLOCK * dchunk + 4 * _UPDATE_BLOCK
 
 
 def _quantise_points(
@@ -89,6 +116,9 @@ def hilbert_point_order(
     return torch.argsort(hilbert_sort_key(q, nbits), stable=True)
 
 
+_CacheInfo = collections.namedtuple("CacheInfo", "hits misses maxsize currsize")
+
+
 class _OrderCache:
     """Tiny LRU for point-order permutations, keyed on a digest of the
     quantised grid (keying on the raw N·d·4 grid bytes would pin them in
@@ -114,6 +144,9 @@ class _OrderCache:
     def cache_clear(self):
         self._store.clear()
         self.hits = self.misses = 0
+
+    def cache_info(self):
+        return _CacheInfo(self.hits, self.misses, self.maxsize, len(self._store))
 
 
 # registered so core.schedule_cache_clear() drops it too
@@ -204,24 +237,20 @@ def _assign_plain(program: GpuProgram, x, c, cn):
 def _update_cuda(program: GpuProgram, x, arg):
     p = program.params
     bp, Kp = p["bp"], p["Kp"]
-    G, ctiles = program.grid
+    G, ctiles, dchunks = program.grid
     Np, D = x.shape
     sched = program.schedule
     require(program, x, "x", dtypes=(torch.float32,), shape=(program.steps * bp, D))
     require(program, arg, "assignment", dtypes=(torch.int32,), shape=(Np,))
     require(program, sched, "schedule", dtypes=(torch.int32,))
-    if D > _UPDATE_MAX_D:
-        raise ValueError(
-            f"sfc_kmeans_update: D={D} exceeds {_UPDATE_MAX_D} (the 128 x D "
-            f"shared-memory partial must fit in 227 KB)"
-        )
     psum = torch.empty((G, Kp, D), dtype=torch.float32, device=x.device)
     pcnt = torch.empty((G, Kp), dtype=torch.float32, device=x.device)
-    if program.steps and Kp:
+    if program.steps and Kp and D:
         call(
             "sfc_kmeans_update", x.data_ptr(), arg.data_ptr(), sched.data_ptr(),
-            sched.shape[1], 1, program.steps, G, ctiles, p["tiles_per_group"], bp,
-            p["n_valid"], Kp, D, psum.data_ptr(), pcnt.data_ptr(), stream_of(x),
+            sched.shape[1], p["col_i"], program.steps, G, ctiles, dchunks,
+            p["tiles_per_group"], bp, p["n_valid"], Kp, D, p["dchunk"],
+            psum.data_ptr(), pcnt.data_ptr(), stream_of(x),
         )
     else:
         psum.zero_()
@@ -230,29 +259,61 @@ def _update_cuda(program: GpuProgram, x, arg):
 
 
 def _update_plain(program: GpuProgram, x, arg):
-    """Per CTA (group g, centroid range): the one-hot sums and counts of
-    the group's valid points assigned into the range, written to its own
-    partial; the partials are folded by one sum over the groups."""
+    """Per CTA (group g, centroid range, column chunk): the one-hot sums
+    of the group's valid points assigned into the range, over the chunk's
+    columns, written to its own partial (the counts by the first column
+    chunk); the partials are folded by one sum over the groups."""
     p = program.params
-    bp, Kp, tpg = p["bp"], p["Kp"], p["tiles_per_group"]
-    G, ctiles = program.grid
+    bp, Kp, tpg, dchunk = p["bp"], p["Kp"], p["tiles_per_group"], p["dchunk"]
+    G, ctiles, dchunks = program.grid
     Np, D = x.shape
     xf = x.float()
     psum = torch.zeros((G, Kp, D), dtype=torch.float32, device=x.device)
     pcnt = torch.zeros((G, Kp), dtype=torch.float32, device=x.device)
-    tiles = program.schedule[:, 1].long()
+    tiles = program.schedule[:, p["col_i"]].long()
     in_tile = torch.arange(bp, device=x.device)
-    for cta in shuffled_ctas(G * ctiles, "cpu").tolist():
-        g, cb = divmod(cta, ctiles)
-        k0 = cb * _UPDATE_BLOCK
+    for cta in shuffled_ctas(G * ctiles * dchunks, "cpu").tolist():
+        g, rest = divmod(cta, ctiles * dchunks)
+        cb, z = divmod(rest, dchunks)
+        k0, d0 = cb * _UPDATE_BLOCK, z * dchunk
         kn = min(_UPDATE_BLOCK, Kp - k0)
         rows = (tiles[g * tpg:(g + 1) * tpg, None] * bp + in_tile).reshape(-1)
         a = arg[rows].long()
         onehot = (a[:, None] == torch.arange(k0, k0 + kn, device=x.device))
         onehot = (onehot & (rows < p["n_valid"])[:, None]).float()
-        psum[g, k0:k0 + kn] = onehot.T @ xf[rows]
-        pcnt[g, k0:k0 + kn] = onehot.sum(dim=0)
+        psum[g, k0:k0 + kn, d0:d0 + dchunk] = onehot.T @ xf[rows, d0:d0 + dchunk]
+        if z == 0:
+            pcnt[g, k0:k0 + kn] = onehot.sum(dim=0)
     return psum.sum(dim=0), pcnt.sum(dim=0)
+
+
+def kmeans_update_program(
+    rows: torch.Tensor, *, col_i: int, bp: int, Kp: int, D: int, n_valid: int | None,
+    columns: tuple[str, ...], phases: tuple[str, ...] = (),
+) -> GpuProgram:
+    """The ``sfc_kmeans_update`` declaration over a table whose column
+    ``col_i`` lists each point tile once, in the order the partials
+    accumulate it: grid (point groups, 128-centroid ranges, column
+    chunks), sized for a few waves of the card's SMs."""
+    pt = rows.shape[0]
+    ctiles = -(-Kp // _UPDATE_BLOCK)
+    dchunk, dchunks = update_columns(D)
+    tpg = max(1, -(-pt * ctiles * dchunks // _UPDATE_TARGET_CTAS))
+    groups = max(1, -(-pt // tpg))
+    return GpuProgram(
+        name="sfc_kmeans_update",
+        schedule=rows,
+        launcher=_update_cuda,
+        plain=_update_plain,
+        grid=(groups, ctiles, dchunks),
+        params={
+            "bp": bp, "Kp": Kp, "tiles_per_group": tpg, "col_i": col_i, "dchunk": dchunk,
+            "smem_bytes": update_smem_bytes(dchunk),
+            "n_valid": pt * bp if n_valid is None else int(n_valid),
+        },
+        phases=phases,
+        columns=columns,
+    )
 
 
 def kmeans_lloyd_program(
@@ -280,21 +341,8 @@ def kmeans_lloyd_program(
         phases=("assign",),
         columns=columns,
     )
-    ctiles = -(-Kp // _UPDATE_BLOCK)
-    tpg = max(1, -(-pt * ctiles // _UPDATE_TARGET_CTAS))
-    groups = max(1, -(-pt // tpg))
-    update = GpuProgram(
-        name="sfc_kmeans_update",
-        schedule=rows,
-        launcher=_update_cuda,
-        plain=_update_plain,
-        grid=(groups, ctiles),
-        params={
-            "bp": bp, "Kp": Kp, "tiles_per_group": tpg,
-            "n_valid": pt * bp if n_valid is None else int(n_valid),
-        },
-        phases=("update",),
-        columns=columns,
+    update = kmeans_update_program(
+        rows, col_i=1, bp=bp, Kp=Kp, D=D, n_valid=n_valid, columns=columns, phases=("update",),
     )
     return assign, update
 
@@ -337,3 +385,162 @@ def kmeans_lloyd_fused(
         c = torch.where(cw > 0, sums / torch.clamp(cw, min=1.0), c).contiguous()
     return c, assign
 
+
+# ---------------------------------------------------------------------------
+# The reference path: per-(point tile, centroid tile) assignment partials
+# merged in torch, then the update over its own table
+# ---------------------------------------------------------------------------
+
+def _assign_tiles_cuda(program: GpuProgram, x, c, cn):
+    p = program.params
+    bp, bc, ct, Kp = p["bp"], p["bc"], p["ct"], p["Kp"]
+    Np, D = x.shape
+    sched = program.schedule
+    require(program, x, "x", dtypes=(torch.float32,), shape=(p["pt"] * bp, D))
+    require(program, c, "c", dtypes=(torch.float32,), shape=(Kp, D))
+    require(program, cn, "cn", dtypes=(torch.float32,), shape=(Kp,))
+    require(program, sched, "schedule", dtypes=(torch.int32,))
+    tile_min = torch.empty((p["pt"], ct, bp), dtype=torch.float32, device=x.device)
+    tile_arg = torch.empty((p["pt"], ct, bp), dtype=torch.int32, device=x.device)
+    if program.steps:
+        call(
+            "sfc_kmeans_assign_tiles", x.data_ptr(), c.data_ptr(), cn.data_ptr(),
+            sched.data_ptr(), program.steps, bp, bc, ct, Kp, D, p["k_valid"],
+            tile_min.data_ptr(), tile_arg.data_ptr(), stream_of(x),
+        )
+    return tile_min, tile_arg
+
+
+def _assign_tiles_plain(program: GpuProgram, x, c, cn):
+    """Per CTA (i, j): the (bp, bc) metric tile of point tile i against
+    centroid tile j, k_valid masked with the largest finite f32, then its
+    min and first argmin, written to the (i, j) slot."""
+    p = program.params
+    bp, bc, ct = p["bp"], p["bc"], p["ct"]
+    D = x.shape[1]
+    xt = x.float().view(-1, bp, D)
+    ctl = c.float().view(ct, bc, D)
+    cnt = cn.view(ct, bc)
+    tile_min = torch.empty((p["pt"], ct, bp), dtype=torch.float32, device=x.device)
+    tile_arg = torch.empty((p["pt"], ct, bp), dtype=torch.int32, device=x.device)
+    col = torch.arange(p["Kp"], device=x.device).view(ct, bc)
+    ij = program.schedule.long()
+    order = shuffled_ctas(program.steps, x.device)
+    for chunk in cta_chunks(order, bp * bc):
+        ti, tj = ij[chunk, 0], ij[chunk, 1]
+        m = cnt[tj][:, None, :] - 2.0 * torch.bmm(xt[ti], ctl[tj].transpose(1, 2))
+        m = torch.where(col[tj][:, None, :] >= p["k_valid"], _F32_MAX, m)
+        vals, idx = torch.min(m, dim=-1)
+        tile_min[ti, tj] = vals
+        tile_arg[ti, tj] = (idx + tj[:, None] * bc).to(torch.int32)
+    return tile_min, tile_arg
+
+
+def kmeans_assign_program(
+    schedule: torch.Tensor, *, pt: int, ct: int, bp: int, bc: int, k_valid: int | None,
+) -> GpuProgram:
+    """The ``sfc_kmeans_assign_tiles`` declaration: one CTA per row (i, j)
+    of the int32[pt*ct, 2] curve table of (point tile, centroid tile)."""
+    if tuple(schedule.shape) != (pt * ct, 2):
+        raise ValueError(f"schedule {tuple(schedule.shape)} does not cover {pt}x{ct} tiles")
+    Kp = ct * bc
+    return GpuProgram(
+        name="sfc_kmeans_assign_tiles",
+        schedule=schedule,
+        launcher=_assign_tiles_cuda,
+        plain=_assign_tiles_plain,
+        params={"pt": pt, "ct": ct, "bp": bp, "bc": bc, "Kp": Kp,
+                "k_valid": Kp if k_valid is None else int(k_valid)},
+        columns=("i", "j"),
+    )
+
+
+def kmeans_assign_swizzled(
+    schedule: torch.Tensor,
+    x: torch.Tensor,
+    c: torch.Tensor,
+    *,
+    bp: int = 128,
+    bc: int = 128,
+    k_valid: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(metric_min f32[N], assignment int32[N]) per point.
+
+    x: (N, D), c: (K, D) with N % bp == 0, K % bc == 0 (ops.py pads;
+    ``k_valid`` is the true centroid count when K carries zero padding).
+    One launch writes the (pt, ct, bp) per-tile partials; a torch argmin
+    over the centroid tiles merges them (the first minimum wins, so the
+    smallest index wins among equal metrics).  Add ||x||² to the minimum
+    for true squared distances.
+    """
+    N, D = x.shape
+    K, D2 = c.shape
+    if D != D2 or N % bp or K % bc:
+        raise ValueError(f"x {tuple(x.shape)}, c {tuple(c.shape)} vs blocks {(bp, bc)}")
+    pt, ct = N // bp, K // bc
+    program = kmeans_assign_program(schedule, pt=pt, ct=ct, bp=bp, bc=bc, k_valid=k_valid)
+    x = x.to(torch.float32).contiguous()
+    c = c.to(torch.float32).contiguous()
+    cn = (c * c).sum(dim=1)
+    tile_min, tile_arg = launch(program, x, c, cn)
+    best = torch.argmin(tile_min, dim=1, keepdim=True)  # (pt, 1, bp)
+    min_m = torch.gather(tile_min, 1, best).reshape(N)
+    arg = torch.gather(tile_arg, 1, best).reshape(N)
+    return min_m, arg
+
+
+def kmeans_update_swizzled(
+    schedule: torch.Tensor,
+    x: torch.Tensor,
+    assign: torch.Tensor,
+    *,
+    bp: int,
+    Kp: int,
+    n_valid: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-centroid (sums f32[Kp, D], counts f32[1, Kp]) of an assignment.
+
+    schedule: int32[pt, 2] rows ``(point_tile, first_visit)`` — the
+    update-phase slice of :func:`repro_torch.core.kmeans_schedule`.  The
+    same ``sfc_kmeans_update`` launch as the fused path's update, over
+    this table (so the partials fold the same points in the same order).
+    """
+    Np, D = x.shape
+    if Np % bp or tuple(schedule.shape) != (Np // bp, 2):
+        raise ValueError(f"schedule {tuple(schedule.shape)} vs x {tuple(x.shape)}, bp={bp}")
+    program = kmeans_update_program(
+        schedule, col_i=0, bp=bp, Kp=Kp, D=D, n_valid=n_valid, columns=("i", "first_visit"),
+    )
+    sums, cnt = launch(program, x.to(torch.float32).contiguous(), assign)
+    return sums, cnt[None, :]
+
+
+def kmeans_lloyd_reference(
+    schedule2d: torch.Tensor,
+    update_schedule: torch.Tensor,
+    x: torch.Tensor,
+    c0: torch.Tensor,
+    *,
+    iters: int,
+    bp: int = 128,
+    bc: int = 128,
+    k_valid: int | None = None,
+    n_valid: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Multi-dispatch Lloyd (the ``fused=False`` path): per iteration one
+    :func:`kmeans_assign_swizzled` (a launch plus the torch merge) and one
+    :func:`kmeans_update_swizzled` in the fused schedule's update order,
+    with the fused path's glue, so the result equals
+    :func:`kmeans_lloyd_fused` to the bit on the card."""
+    Np, D = x.shape
+    Kp = c0.shape[0]
+    x = x.to(torch.float32).contiguous()
+    c = c0.to(torch.float32).contiguous()
+    assign = torch.zeros(Np, dtype=torch.int32, device=x.device)
+    for _ in range(iters):
+        _min_m, assign = kmeans_assign_swizzled(schedule2d, x, c, bp=bp, bc=bc, k_valid=k_valid)
+        sums, cnt = kmeans_update_swizzled(update_schedule, x, assign, bp=bp, Kp=Kp,
+                                           n_valid=n_valid)
+        cw = cnt[0][:, None]
+        c = torch.where(cw > 0, sums / torch.clamp(cw, min=1.0), c).contiguous()
+    return c, assign

@@ -18,11 +18,22 @@ accepted: the CTA loops over 128x128 sub-tiles.
 :func:`tile_update_swizzled` (``sfc_tile_update``, the counterpart of
 ``_accum_update_kernel``) is the per-k Cholesky's trailing update:
 O[i, j] += α·A_i·B_jᵀ over a scheduled subset of tiles, O in place.
+
+:func:`matmul_swizzled_3d` (``sfc_matmul3d``, the counterpart of
+``_matmul3d_kernel``) takes a 3-D (i, j, k) curve order.  The TPU kernel
+read-modify-writes an output block once per k tile; concurrent CTAs must
+not, so the table becomes a CSR (:func:`matmul3d_csr`): one CTA per
+(i, j), launched in first-visit order, which walks its own k tiles in
+the order the table visits them and writes its tile once.
 """
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
+from repro_torch.core import mark_first_visits, register_schedule_cache, tile_schedule_nd
 from repro_torch.core.program import GpuProgram
 
 from ._build import call, stream_of
@@ -218,3 +229,147 @@ def tile_update_swizzled(
     """
     program = tile_update_program(schedule, o, a, b, bm=bm, bn=bn, alpha=alpha)
     return launch(program, o, a, b)
+
+
+# ---------------------------------------------------------------------------
+# C = A @ B over a 3-D (i, j, k) curve: one CTA per (i, j), k in curve order
+# ---------------------------------------------------------------------------
+
+def matmul3d_csr(sched: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The CSR of a 3-D (i, j, k[, first_visit]) tile table by its (i, j)
+    projection: ``(ij int32[T, 2], ks int32[T, kt])`` — the output tiles
+    in the order the table first visits them, and each tile's k tiles in
+    the order the table visits them.  Every row of a CSR has the same
+    length because the table covers the whole (mt, nt, kt) grid once."""
+    s = np.asarray(sched, dtype=np.int64)[:, :3]
+    if len(s) == 0:
+        return np.zeros((0, 2), np.int32), np.zeros((0, 0), np.int32)
+    key = s[:, 0] * (int(s[:, 1].max()) + 1) + s[:, 1]
+    _uniq, first, inv = np.unique(key, return_index=True, return_inverse=True)
+    by_visit = np.argsort(first, kind="stable")  # groups in first-visit order
+    rank = np.empty_like(by_visit)
+    rank[by_visit] = np.arange(len(by_visit))
+    row_rank = rank[inv.reshape(-1)]
+    lengths = np.bincount(row_rank)
+    if not (lengths == lengths[0]).all():
+        raise ValueError("a 3-D matmul table must visit every (i, j) tile equally often")
+    order = np.argsort(row_rank, kind="stable")  # table order within a tile
+    ij = s[first[by_visit], :2]
+    ks = s[order, 2].reshape(len(by_visit), int(lengths[0]))
+    return np.ascontiguousarray(ij, np.int32), np.ascontiguousarray(ks, np.int32)
+
+
+def matmul3d_table(curve: str, shape: tuple[int, int, int]) -> np.ndarray:
+    """The JAX package's 3-D matmul table: the (mt, nt, kt) curve order with
+    a first-visit flag for the (i, j) projection."""
+    return mark_first_visits(tile_schedule_nd(curve, shape), (0, 1))
+
+
+@register_schedule_cache
+@functools.lru_cache(maxsize=32)
+def _csr_device(curve: str, shape: tuple[int, int, int], device: str):
+    ij, ks = matmul3d_csr(matmul3d_table(curve, shape))
+    return torch.as_tensor(ij, device=device), torch.as_tensor(ks, device=device)
+
+
+def matmul3d_csr_device(curve: str, shape: tuple[int, int, int], *, device="cuda"):
+    """:func:`matmul3d_csr` of the curve's (mt, nt, kt) table, uploaded
+    once per (curve, shape, device) and cached beside the other device
+    tables (dropped by ``schedule_cache_clear``).  Cached: do not mutate."""
+    return _csr_device(str(curve), tuple(int(v) for v in shape), str(torch.device(device)))
+
+
+def _matmul3d_cuda(program: GpuProgram, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    p = program.params
+    M, K = a.shape
+    N = b.shape[1]
+    ks = p["ks"]
+    require(program, a, "a", dtypes=tuple(_DTYPE_CODE))
+    require(program, b, "b", dtypes=(a.dtype,), shape=(K, N))
+    require(program, program.schedule, "schedule", dtypes=(torch.int32,))
+    require(program, ks, "k lists", dtypes=(torch.int32,), shape=(program.steps, p["kt"]))
+    if p["out_dtype"] not in _DTYPE_CODE:
+        raise TypeError(f"sfc_matmul3d: out_dtype {p['out_dtype']} not supported")
+    c = torch.empty((M, N), dtype=p["out_dtype"], device=a.device)
+    if program.steps == 0 or K == 0:
+        return c.zero_()
+    call(
+        "sfc_matmul3d", a.data_ptr(), b.data_ptr(), c.data_ptr(), program.schedule.data_ptr(),
+        ks.data_ptr(), program.steps, p["kt"], M, N, K, p["bm"], p["bn"], p["bk"],
+        _DTYPE_CODE[a.dtype], _DTYPE_CODE[p["out_dtype"]], stream_of(a),
+    )
+    return c
+
+
+def _matmul3d_plain(program: GpuProgram, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Tile walk: each CTA's f32 (bm, bn) accumulator gains its A(i, k) ·
+    B(k, j) tile products in its k list's order, then is cast and written
+    once; CTAs in a shuffled order, a chunk of CTAs per batched product."""
+    p = program.params
+    bm, bn, bk = p["bm"], p["bn"], p["bk"]
+    M, K = a.shape
+    N = b.shape[1]
+    af, bf = a.float(), b.float()
+    c = torch.empty((M, N), dtype=p["out_dtype"], device=a.device)
+    ij, ks = program.schedule.long(), p["ks"].long()
+    ar_m = torch.arange(bm, device=a.device)
+    ar_n = torch.arange(bn, device=a.device)
+    ar_k = torch.arange(bk, device=a.device)
+    order = shuffled_ctas(program.steps, a.device)
+    for chunk in cta_chunks(order, bm * bn + (bm + bn) * bk):
+        rows = ij[chunk, 0, None] * bm + ar_m  # (B, bm)
+        cols = ij[chunk, 1, None] * bn + ar_n  # (B, bn)
+        acc = torch.zeros((len(chunk), bm, bn), dtype=torch.float32, device=a.device)
+        for q in range(p["kt"]):
+            kk = ks[chunk, q, None] * bk + ar_k  # (B, bk)
+            acc = acc + torch.bmm(af[rows[:, :, None], kk[:, None, :]],
+                                  bf[kk[:, :, None], cols[:, None, :]])
+        c[rows[:, :, None], cols[:, None, :]] = acc.to(c.dtype)
+    return c
+
+
+def matmul3d_program(
+    ij: torch.Tensor, ks: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *,
+    bm: int, bn: int, bk: int, out_dtype=None,
+) -> GpuProgram:
+    """The ``sfc_matmul3d`` declaration over a :func:`matmul3d_csr`:
+    ``ij`` int32[mt*nt, 2] output tiles in first-visit order (one CTA
+    each), ``ks`` int32[mt*nt, kt] each tile's k tiles in visit order.
+    A: (M, K), B: (K, N); M % bm == N % bn == K % bk == 0."""
+    M, K = a.shape
+    K2, N = b.shape
+    if K != K2:
+        raise ValueError(f"inner dimensions differ: {tuple(a.shape)} @ {tuple(b.shape)}")
+    if M % bm or N % bn or K % bk:
+        raise ValueError(f"shape {(M, N, K)} is not a multiple of blocks {(bm, bn, bk)}")
+    mt, nt, kt = M // bm, N // bn, K // bk
+    if tuple(ij.shape) != (mt * nt, 2) or tuple(ks.shape) != (mt * nt, kt):
+        raise ValueError(
+            f"CSR {tuple(ij.shape)}, {tuple(ks.shape)} does not cover {mt}x{nt}x{kt} tiles"
+        )
+    return GpuProgram(
+        name="sfc_matmul3d",
+        schedule=ij,
+        launcher=_matmul3d_cuda,
+        plain=_matmul3d_plain,
+        params={"ks": ks, "kt": kt, "bm": bm, "bn": bn, "bk": bk,
+                "out_dtype": out_dtype or a.dtype},
+        columns=("i", "j"),
+    )
+
+
+def matmul_swizzled_3d(
+    ij: torch.Tensor,
+    ks: torch.Tensor,
+    a: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    bm: int,
+    bn: int,
+    bk: int,
+    out_dtype=None,
+) -> torch.Tensor:
+    """C = A @ B over a 3-D (i, j, k) tile order, given as the CSR of its
+    table (:func:`matmul3d_csr` / :func:`matmul3d_csr_device`)."""
+    program = matmul3d_program(ij, ks, a, b, bm=bm, bn=bn, bk=bk, out_dtype=out_dtype)
+    return launch(program, a, b)

@@ -15,19 +15,21 @@ tensors the kernels' plain PyTorch versions run instead (the CPU tests'
 path).
 
 Port defaults for the H100, where the JAX package's VMEM-sized blocks do
-not carry over: matmul ``bm = bn = 128, bk = 16``; k-means ``bp = 128,
-bc = 128``; ε-join ``bp = 128`` (see each kernel module's docstring).
+not carry over: matmul ``bm = bn = 128, bk = 16`` (``bk = 128`` with
+``schedule_ndim=3``, see :func:`matmul`); k-means ``bp = 128, bc = 128``;
+ε-join ``bp = 128`` (see each kernel module's docstring).
 Floyd–Warshall and Cholesky keep the JAX defaults (``b = 128``,
 ``curve = "hilbert"``, ``fused = True``); their kernels take b ≤ 128.
 
 The kernels of the phased applications update their matrix in place, so
 ``floyd_warshall`` and ``cholesky`` copy the caller's matrix exactly once
 (into the padded buffer) before any kernel runs.  There is no VMEM or
-shared-memory budget gate: the port's fused forms hold no n-sized state.
+shared-memory budget gate: no fused form of the port holds state its
+reference path does not (the k-means update tiles its columns, so it
+runs at any D), so a gate would have nothing to choose between.
 
 Not in this slice (each raises :class:`NotImplementedError` naming the
-slice that brings it): ``matmul(schedule_ndim=3)``,
-``kmeans_lloyd(fused=False)``, ``mesh=`` and ``choice=``.
+slice that brings it): ``mesh=`` and ``choice=``.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import (
+    get_curve,
     kmeans_schedule_device,
     tile_schedule_device,
     triangle_schedule_device,
@@ -45,8 +48,14 @@ from . import ref
 from .cholesky import cholesky_blocked, cholesky_blocked_reference
 from .floyd_warshall import _CHUNK as _FW_CHUNK
 from .floyd_warshall import floyd_warshall_blocked, floyd_warshall_blocked_reference
-from .kmeans import hilbert_point_order_cached, kmeans_init, kmeans_lloyd_fused
-from .matmul import matmul_swizzled
+from .kmeans import (
+    hilbert_point_order_cached,
+    kmeans_assign_swizzled,
+    kmeans_init,
+    kmeans_lloyd_fused,
+    kmeans_lloyd_reference,
+)
+from .matmul import matmul3d_csr_device, matmul_swizzled, matmul_swizzled_3d
 from .simjoin import map_pairs_back, simjoin_counts_swizzled, simjoin_pairs_scheduled
 
 DEFAULT_CURVE = "fur"  # overlay-grid Hilbert: native n×m, unit steps
@@ -127,7 +136,7 @@ def matmul(
     curve: str = DEFAULT_CURVE,
     bm: int = 128,
     bn: int = 128,
-    bk: int = 16,
+    bk: int | None = None,
     out_dtype=None,
     schedule_ndim: int = 2,
     choice=None,
@@ -135,14 +144,26 @@ def matmul(
 ) -> torch.Tensor:
     """C = A @ B with a curve-scheduled kernel (paper §1/§7).
 
-    The curve orders the (i, j) output tiles, one CTA each, and the K
-    reduction runs inside the CTA — each output tile is written exactly
-    once.  Ragged shapes are zero-padded to block multiples and the
-    result sliced back to (M, N).
+    ``schedule_ndim=2`` (default): the curve orders the (i, j) output
+    tiles, one CTA each, and the K reduction runs inside the CTA.
+    ``schedule_ndim=3``: the curve orders the whole (i, j, k) tile grid;
+    one CTA per (i, j), launched in first-visit order, adds its k tiles
+    in the order the curve visits them.  Curves without 3-D support
+    (``fur``, ``peano``) fall back to ``hilbert``.  Either way each output
+    tile is written exactly once.  Ragged shapes are zero-padded to block
+    multiples and the result sliced back to (M, N).
+
+    ``bk`` defaults to 16 (2-D: the depth of one shared-memory chunk) and
+    to 128 (3-D: the depth of one k tile of the curve, a 128³ cube per
+    table row like the output tile; 8192³ is then a 64³ table, built once
+    on the host, and a CTA restarts its operand pipeline once every 8
+    chunks rather than every chunk).
     """
-    if schedule_ndim != 2:
-        _not_in_slice("schedule_ndim=3", "matmul3d (_matmul3d_kernel)")
+    if schedule_ndim not in (2, 3):
+        raise ValueError(f"schedule_ndim must be 2 or 3, got {schedule_ndim}")
     _check_slice_options(choice=choice)
+    if bk is None:
+        bk = 128 if schedule_ndim == 3 else 16
     a = _to_device(a, device)
     b = _to_device(b, device, like=a)
     M, K = a.shape
@@ -153,9 +174,55 @@ def matmul(
     ap = _pad2(a, bm, bk).contiguous()
     bp = _pad2(b, bk, bn).contiguous()
     mt, nt = ap.shape[0] // bm, bp.shape[1] // bn
-    sched = tile_schedule_device(curve, (mt, nt), device=ap.device)
-    out = matmul_swizzled(sched, ap, bp, bm=bm, bn=bn, bk=bk, out_dtype=out_dtype)
+    if schedule_ndim == 3:
+        if not get_curve(curve).supports(3):  # raises on unknown names
+            curve = "hilbert"
+        ij, ks = matmul3d_csr_device(curve, (mt, nt, ap.shape[1] // bk), device=ap.device)
+        out = matmul_swizzled_3d(ij, ks, ap, bp, bm=bm, bn=bn, bk=bk, out_dtype=out_dtype)
+    else:
+        sched = tile_schedule_device(curve, (mt, nt), device=ap.device)
+        out = matmul_swizzled(sched, ap, bp, bm=bm, bn=bn, bk=bk, out_dtype=out_dtype)
     return out[:M, :N]
+
+
+def kmeans_assign(
+    x,
+    c,
+    *,
+    curve: str = DEFAULT_CURVE,
+    bp: int = 128,
+    bc: int = 128,
+    hilbert_order: bool = False,
+    device=None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(squared distance to the nearest centroid f32[N], assignment
+    int32[N]) per point.
+
+    One launch over a 2-D (point tile, centroid tile) curve table, then a
+    torch merge over the centroid tiles.  ``hilbert_order=True`` sorts the
+    points by the Hilbert key of their quantised features first (each
+    point tile then covers a compact region); results come back in the
+    original point order.
+    """
+    x = _to_device(x, device)
+    c = _to_device(c, device, like=x)
+    N, _D = x.shape
+    K = c.shape[0]
+    if hilbert_order:
+        perm = hilbert_point_order_cached(x)
+        inv = torch.argsort(perm)
+        d2, assign = kmeans_assign(x[perm], c, curve=curve, bp=bp, bc=bc)
+        return d2[inv], assign[inv]
+    bp, bc = min(bp, N), min(bc, K)
+    xp = _pad2(x, bp, 1).to(torch.float32)
+    # zero-pad the centroids; the kernel masks the pad columns
+    pc = (-K) % bc
+    cp = F.pad(c, (0, 0, 0, pc)) if pc else c
+    pt, ct = xp.shape[0] // bp, cp.shape[0] // bc
+    sched = tile_schedule_device(curve, (pt, ct), device=xp.device)
+    min_m, assign = kmeans_assign_swizzled(sched, xp, cp, bp=bp, bc=bc, k_valid=K if pc else None)
+    d2 = min_m + (xp * xp).sum(dim=1)
+    return d2[:N], assign[:N]
 
 
 def kmeans_lloyd(
@@ -175,14 +242,16 @@ def kmeans_lloyd(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full Lloyd k-means: (centroids f32[k, D], assignment int32[N]).
 
-    Each iteration is two kernel launches (assign, then update) off the
-    :func:`repro_torch.core.kmeans_schedule` table.  ``hilbert_order=True``
+    ``fused=True`` (default): each iteration is two kernel launches
+    (assign, then update) off the :func:`repro_torch.core.kmeans_schedule`
+    table.  ``fused=False``: the reference path, per iteration the
+    (point tile, centroid tile) assignment launch with its torch merge,
+    then the update launch over the kmeans table's update rows — equal to
+    the fused call to the bit on the card.  ``hilbert_order=True``
     sorts the points by their d-dimensional Hilbert key ONCE (cached on
     the quantised grid), runs all iterations in sorted order, and maps
     the assignment back through the inverse permutation at the end.
     """
-    if not fused:
-        _not_in_slice("fused=False", "k-means reference (_assign_kernel, _update_kernel)")
     _check_slice_options(mesh=mesh, choice=choice)
     x = _to_device(x, device)
     N, D = x.shape
@@ -199,11 +268,15 @@ def kmeans_lloyd(
     # zero-pad the centroids; the kernel masks the pad columns
     cp = F.pad(c0, (0, 0, 0, pc)) if pc else c0
     pt, ct = xp.shape[0] // bp, cp.shape[0] // bc
+    kw = dict(iters=iters, bp=bp, bc=bc, k_valid=k if pc else None, n_valid=n_valid)
     sched = kmeans_schedule_device(curve, pt, ct, device=xp.device)
-    c, assign = kmeans_lloyd_fused(
-        sched, xp, cp, iters=iters, bp=bp, bc=bc,
-        k_valid=k if pc else None, n_valid=n_valid,
-    )
+    if fused:
+        c, assign = kmeans_lloyd_fused(sched, xp, cp, **kw)
+    else:
+        # the update rows of the kmeans table, as (point tile, first_visit)
+        upd = sched[pt * ct:, [1, 3]].contiguous()
+        sched2d = tile_schedule_device(curve, (pt, ct), device=xp.device)
+        c, assign = kmeans_lloyd_reference(sched2d, upd, xp, cp, **kw)
     c, assign = c[:k], assign[:N]
     if inv is not None:
         assign = assign[inv]
@@ -357,6 +430,6 @@ def cholesky(
 
 
 __all__ = [
-    "matmul", "kmeans_lloyd", "simjoin_counts", "simjoin_pairs", "floyd_warshall", "cholesky",
-    "ref",
+    "matmul", "kmeans_assign", "kmeans_lloyd", "simjoin_counts", "simjoin_pairs",
+    "floyd_warshall", "cholesky", "ref",
 ]

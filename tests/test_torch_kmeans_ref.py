@@ -1,0 +1,320 @@
+"""The k-means reference path and the 3-D matmul of the port against the
+JAX package, on the CPU.
+
+Kernels: row 4 (``kmeans_assign_swizzled``, ``sfc_kmeans_assign_tiles``),
+row 6 (``kmeans_update_swizzled``, ``sfc_kmeans_update`` over its own
+table, tiled over columns at any D) and row 2 (``matmul_swizzled_3d``,
+``sfc_matmul3d`` over the CSR of the 3-D table).  Entry points:
+``ops.kmeans_assign``, ``ops.kmeans_lloyd(fused=False)`` and
+``ops.matmul(schedule_ndim=3)``.  The JAX side runs its Pallas kernels in
+interpret mode; the port runs its plain versions on CPU tensors.
+
+Tolerances: assignments exact on well-separated data (every point's two
+best float64 metrics differ by more than 1.0, so f32 summation order
+cannot flip an argmin), with JAX's ``c0`` passed across (torch cannot
+reproduce ``jax.random``); centroids, sums and metrics rtol = atol =
+1e-5; counts exact; matmul f32 rtol = atol = 1e-5 (K ≤ 300 terms of
+O(1)), bf16 within one bf16 ulp (rtol = atol = 1e-2); the CSR of a 3-D
+table array-equal.  The ``cuda``-marked case holds each new kernel
+against its plain version on the card, and the reference Lloyd against
+the fused one to the bit; it skips without a card.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+import repro.core as jcore  # noqa: E402
+from repro.kernels import kmeans as jkm  # noqa: E402
+from repro.kernels import matmul as jmm  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro_torch.core import tile_schedule_device  # noqa: E402
+from repro_torch.kernels import LAUNCHES, launch  # noqa: E402
+from repro_torch.kernels import kmeans as tkm  # noqa: E402
+from repro_torch.kernels import matmul as tmm  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from test_torch_kernels import assert_argmin_gap, clustered  # noqa: E402
+
+
+def assign_case(N: int, D: int, K: int, bp: int, bc: int, seed: int):
+    """Padded (xp, cp) with well-separated argmins, plus (k_valid, n_valid)."""
+    rng = np.random.default_rng(seed)
+    x = clustered(rng, N, D, K, np.arange(K))
+    c = x[:K].copy()
+    assert_argmin_gap(x, c)
+    Np, Kp = -(-N // bp) * bp, -(-K // bc) * bc
+    xp = np.pad(x, ((0, Np - N), (0, 0)))
+    cp = np.pad(c, ((0, Kp - K), (0, 0)))
+    return xp, cp, (K if Kp != K else None), (N if Np != N else None)
+
+
+def jax_c0(monkeypatch, module):
+    """Hand the port JAX's initial centroids (``jax.random`` cannot be
+    reproduced in torch)."""
+    monkeypatch.setattr(
+        module, "kmeans_init",
+        lambda xt, kk, s: torch.as_tensor(np.array(jkm.kmeans_init(jnp.asarray(xt.cpu().numpy()), kk, s)),
+                                          device=xt.device),
+    )
+
+
+# ---------------------------------------------------------------------------
+# row 4: per-(point tile, centroid tile) assignment + merge
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("curve", ["fur", "hilbert"])
+@pytest.mark.parametrize("N,D,K,bp,bc", [(300, 5, 7, 64, 4), (256, 3, 16, 32, 8), (130, 9, 40, 128, 128)])
+def test_assign_swizzled_vs_jax(curve, N, D, K, bp, bc):
+    xp, cp, kv, _nv = assign_case(N, D, K, bp, bc, N + K)
+    pt, ct = len(xp) // bp, len(cp) // bc
+    m_j, a_j = jkm.kmeans_assign_swizzled(
+        jcore.tile_schedule_device(curve, (pt, ct)), jnp.asarray(xp), jnp.asarray(cp),
+        bp=bp, bc=bc, k_valid=kv, interpret=True,
+    )
+    m_t, a_t = tkm.kmeans_assign_swizzled(
+        tile_schedule_device(curve, (pt, ct), device="cpu"), torch.as_tensor(xp),
+        torch.as_tensor(cp), bp=bp, bc=bc, k_valid=kv,
+    )
+    assert a_t.dtype == torch.int32 and a_t.shape == (len(xp),)
+    np.testing.assert_array_equal(a_t.numpy()[:N], np.asarray(a_j)[:N])
+    np.testing.assert_allclose(m_t.numpy(), np.asarray(m_j), rtol=1e-5, atol=1e-5)
+
+
+def test_assign_tiles_partials_and_tie_rule():
+    """Each (i, j) slot holds that centroid tile's own min and first
+    argmin; equal metrics resolve to the smallest centroid index, across
+    tiles too (the merge takes the first minimal tile)."""
+    x = torch.zeros((8, 2))
+    c = torch.tensor([[1.0, 0.0], [0.0, 1.0], [-1.0, 0.0], [0.0, -1.0]])  # all at distance 1
+    sched = tile_schedule_device("hilbert", (2, 2), device="cpu")
+    prog = tkm.kmeans_assign_program(sched, pt=2, ct=2, bp=4, bc=2, k_valid=None)
+    tile_min, tile_arg = launch(prog, x, c, (c * c).sum(1))
+    assert tile_min.shape == (2, 2, 4)
+    np.testing.assert_array_equal(tile_arg[:, 0].numpy(), 0)
+    np.testing.assert_array_equal(tile_arg[:, 1].numpy(), 2)
+    _m, arg = tkm.kmeans_assign_swizzled(sched, x, c, bp=4, bc=2)
+    np.testing.assert_array_equal(arg.numpy(), 0)
+
+
+# ---------------------------------------------------------------------------
+# row 6: the update over its own table, and the column tiling at any D
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("N,D,K,bp", [(300, 5, 7, 64), (200, 960, 12, 32)])
+def test_update_swizzled_vs_jax(N, D, K, bp):
+    """D = 960 (GIST1M's width) is the repaired case: its update grid runs
+    three column chunks of 320."""
+    rng = np.random.default_rng(D)
+    Np = -(-N // bp) * bp
+    x = np.pad(rng.standard_normal((N, D)).astype(np.float32), ((0, Np - N), (0, 0)))
+    a = rng.integers(0, K, size=Np).astype(np.int32)
+    host = jcore.kmeans_schedule("fur", Np // bp, 1)
+    upd = np.ascontiguousarray(host[host[:, 0] == 1][:, [1, 3]], dtype=np.int32)
+    nv = N if Np != N else None
+    s_j, c_j = jkm.kmeans_update_swizzled(jnp.asarray(upd), jnp.asarray(x), jnp.asarray(a), bp=bp,
+                                          Kp=K, n_valid=nv, interpret=True)
+    s_t, c_t = tkm.kmeans_update_swizzled(torch.as_tensor(upd), torch.as_tensor(x), torch.as_tensor(a),
+                                          bp=bp, Kp=K, n_valid=nv)
+    assert s_t.shape == (K, D) and c_t.shape == (1, K)
+    np.testing.assert_array_equal(c_t.numpy(), np.asarray(c_j))
+    np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("D,dchunk,chunks", [(3, 3, 1), (128, 128, 1), (453, 453, 1), (454, 227, 2),
+                                             (960, 320, 3), (2000, 400, 5)])
+def test_update_launch_math_fits_shared_memory(D, dchunk, chunks):
+    """The update grid's column axis: one chunk of D columns up to D = 453
+    (the grid, and so every sum, as before the column tiling), the fewest
+    equal chunks above; each CTA's partial within the card's 227 KB."""
+    assert tkm.update_columns(D) == (dchunk, chunks)
+    rows = torch.zeros((7813, 4), dtype=torch.int32)
+    prog = tkm.kmeans_update_program(rows, col_i=1, bp=128, Kp=1024, D=D, n_valid=1_000_000,
+                                     columns=("phase", "i", "j", "first_visit"))
+    assert prog.grid[1:] == (8, chunks) and prog.params["dchunk"] == dchunk
+    assert prog.params["smem_bytes"] == 4 * 128 * dchunk + 4 * 128 <= 227 * 1024
+    # about 1024 CTAs per launch whatever the chunking
+    assert 1000 <= prog.grid[0] * 8 * chunks <= 1050
+
+
+# ---------------------------------------------------------------------------
+# the entry points: kmeans_assign, kmeans_lloyd(fused=False)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("hilbert_order", [False, True])
+@pytest.mark.parametrize("N,K,bp,bc", [(500, 5, 64, 4), (200, 16, 128, 128)])
+def test_ops_kmeans_assign_vs_jax(hilbert_order, N, K, bp, bc):
+    rng = np.random.default_rng(N + K)
+    x = clustered(rng, N, 3, K, np.arange(K))
+    c = x[:K] + np.float32(0.25)
+    assert_argmin_gap(x, c)
+    d_j, a_j = jops.kmeans_assign(jnp.asarray(x), jnp.asarray(c), bp=bp, bc=bc,
+                                  hilbert_order=hilbert_order, interpret=True)
+    d_t, a_t = tops.kmeans_assign(x, c, bp=bp, bc=bc, hilbert_order=hilbert_order, device="cpu")
+    assert d_t.shape == (N,) and a_t.dtype == torch.int32
+    np.testing.assert_array_equal(a_t.numpy(), np.asarray(a_j))
+    np.testing.assert_allclose(d_t.numpy(), np.asarray(d_j), rtol=1e-5, atol=1e-3)
+    _d, a_ref = tops.ref.kmeans_assign(torch.as_tensor(x), torch.as_tensor(c))
+    np.testing.assert_array_equal(a_t.numpy(), a_ref.numpy())
+
+
+@pytest.mark.parametrize("hilbert_order", [False, True])
+def test_kmeans_lloyd_reference_vs_jax(hilbert_order, monkeypatch):
+    """Ragged N (500 points, bp = 64) and ragged K (5 centroids, bc = 4)."""
+    N, D, k, seed = 500, 3, 5, 1
+    rng = np.random.default_rng(11)
+    seed_ids = np.asarray(jax.random.choice(jax.random.PRNGKey(seed), N, shape=(k,), replace=False))
+    x = clustered(rng, N, D, k, seed_ids)
+    c_j, a_j = jops.kmeans_lloyd(jnp.asarray(x), k, iters=4, seed=seed, bp=64, bc=4, fused=False,
+                                 hilbert_order=hilbert_order, interpret=True)
+    jax_c0(monkeypatch, tops)
+    c_t, a_t = tops.kmeans_lloyd(x, k, iters=4, seed=seed, bp=64, bc=4, fused=False,
+                                 hilbert_order=hilbert_order, device="cpu")
+    np.testing.assert_array_equal(a_t.numpy(), np.asarray(a_j))
+    np.testing.assert_allclose(c_t.numpy(), np.asarray(c_j), rtol=1e-5, atol=1e-5)
+    c_f, a_f = tops.kmeans_lloyd(x, k, iters=4, seed=seed, bp=64, bc=4,
+                                 hilbert_order=hilbert_order, device="cpu")
+    np.testing.assert_array_equal(a_t.numpy(), a_f.numpy())
+    np.testing.assert_allclose(c_t.numpy(), c_f.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_kmeans_lloyd_at_gist_width(monkeypatch):
+    """D = 960 runs both paths (the card refused it before the update's
+    column tiling) and agrees with the JAX reference path."""
+    N, D, k, seed = 160, 960, 4, 2
+    rng = np.random.default_rng(5)
+    seed_ids = np.asarray(jax.random.choice(jax.random.PRNGKey(seed), N, shape=(k,), replace=False))
+    x = clustered(rng, N, D, k, seed_ids)
+    c_j, a_j = jops.kmeans_lloyd(jnp.asarray(x), k, iters=2, seed=seed, bp=32, bc=4, fused=False,
+                                 interpret=True)
+    jax_c0(monkeypatch, tops)
+    for fused in (True, False):
+        c_t, a_t = tops.kmeans_lloyd(x, k, iters=2, seed=seed, bp=32, bc=4, fused=fused, device="cpu")
+        np.testing.assert_array_equal(a_t.numpy(), np.asarray(a_j))
+        np.testing.assert_allclose(c_t.numpy(), np.asarray(c_j), rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# row 2: the 3-D matmul
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("curve", ["hilbert", "zorder", "row"])
+@pytest.mark.parametrize("shape", [(4, 4, 4), (3, 5, 2), (2, 3, 7), (1, 1, 5)])
+def test_matmul3d_csr_vs_jax_table(curve, shape):
+    """Output tiles in the JAX table's first-visit order; each tile's k
+    tiles in the order the table visits them (ragged grids included)."""
+    table = np.asarray(jcore.tile_schedule_device(curve, shape, first_visit_axes=(0, 1)))
+    np.testing.assert_array_equal(tmm.matmul3d_table(curve, shape), table)
+    ij, ks = tmm.matmul3d_csr(table)
+    np.testing.assert_array_equal(ij, table[table[:, 3] == 1][:, :2])
+    assert ks.shape == (shape[0] * shape[1], shape[2]) and ij.dtype == ks.dtype == np.int32
+    for (i, j), row in zip(ij, ks):
+        np.testing.assert_array_equal(row, table[(table[:, 0] == i) & (table[:, 1] == j)][:, 2])
+    ij_d, ks_d = tmm.matmul3d_csr_device(curve, shape, device="cpu")
+    np.testing.assert_array_equal(ij_d.numpy(), ij)
+    np.testing.assert_array_equal(ks_d.numpy(), ks)
+
+
+def test_matmul3d_csr_refuses_partial_tables():
+    with pytest.raises(ValueError, match="equally often"):
+        tmm.matmul3d_csr(np.array([[0, 0, 0], [0, 0, 1], [0, 1, 0]]))
+
+
+@pytest.mark.parametrize("curve", ["hilbert", "zorder"])
+def test_matmul_swizzled_3d_vs_jax(curve):
+    rng = np.random.default_rng(3)
+    M, N, K, bm, bn, bk = 96, 64, 80, 32, 32, 16
+    a = rng.standard_normal((M, K)).astype(np.float32)
+    b = rng.standard_normal((K, N)).astype(np.float32)
+    shape = (M // bm, N // bn, K // bk)
+    want = jmm.matmul_swizzled_3d(jcore.tile_schedule_device(curve, shape, first_visit_axes=(0, 1)),
+                                  jnp.asarray(a), jnp.asarray(b), bm=bm, bn=bn, bk=bk, interpret=True)
+    ij, ks = tmm.matmul3d_csr_device(curve, shape, device="cpu")
+    got = tmm.matmul_swizzled_3d(ij, ks, torch.as_tensor(a), torch.as_tensor(b), bm=bm, bn=bn, bk=bk)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("curve", ["hilbert", "fur", "row"])
+@pytest.mark.parametrize("M,N,K", [(100, 70, 50), (64, 130, 300)])
+def test_ops_matmul_3d_vs_jax(curve, M, N, K):
+    """``fur`` has no 3-D form and falls back to ``hilbert``, as in JAX."""
+    rng = np.random.default_rng(M * N + K)
+    a = rng.standard_normal((M, K)).astype(np.float32)
+    b = rng.standard_normal((K, N)).astype(np.float32)
+    want = jops.matmul(jnp.asarray(a), jnp.asarray(b), curve=curve, bm=32, bn=32, bk=16,
+                       schedule_ndim=3, interpret=True)
+    got = tops.matmul(a, b, curve=curve, bm=32, bn=32, bk=16, schedule_ndim=3, device="cpu")
+    assert got.shape == (M, N) and got.device.type == "cpu"
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_ops_matmul_3d_port_defaults_bf16():
+    """The port's 3-D default k tile (128) on a ragged bf16 product; the
+    f32 accumulator is cast once, as the JAX kernel casts its f32 buffer."""
+    rng = np.random.default_rng(8)
+    a = torch.as_tensor(rng.standard_normal((150, 270)).astype(np.float32)).bfloat16()
+    b = torch.as_tensor(rng.standard_normal((270, 90)).astype(np.float32)).bfloat16()
+    got = tops.matmul(a, b, schedule_ndim=3)
+    assert got.dtype == torch.bfloat16 and got.shape == (150, 90)
+    want = jops.matmul(jnp.asarray(a.float().numpy()).astype(jnp.bfloat16),
+                       jnp.asarray(b.float().numpy()).astype(jnp.bfloat16),
+                       bm=128, bn=128, bk=128, schedule_ndim=3, interpret=True)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               rtol=1e-2, atol=1e-2)
+    with pytest.raises(ValueError, match="schedule_ndim"):
+        tops.matmul(a, b, schedule_ndim=4)
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_reference_kernels_on_cuda(monkeypatch):
+    """Each new kernel against its plain version on the card (metrics and
+    sums allclose, argmins and counts exact), the reference Lloyd equal to
+    the fused one to the bit at D = 3 and D = 960, the 3-D matmul within
+    the 2-D path's tolerance, and each launch counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    LAUNCHES.reset()
+    xp, cp, kv, _nv = assign_case(300, 5, 7, 64, 4, 1)
+    xt, ct_ = torch.as_tensor(xp, device=dev), torch.as_tensor(cp, device=dev)
+    prog = tkm.kmeans_assign_program(tile_schedule_device("fur", (5, 2), device=dev), pt=5, ct=2,
+                                     bp=64, bc=4, k_valid=kv)
+    cn = (ct_ * ct_).sum(1)
+    (m_k, a_k), (m_p, a_p) = launch(prog, xt, ct_, cn), prog.plain(prog, xt, ct_, cn)
+    assert torch.equal(a_k, a_p)
+    torch.testing.assert_close(m_k, m_p, rtol=1e-5, atol=1e-4)
+    for D in (5, 960):
+        rng = np.random.default_rng(D)
+        x = torch.as_tensor(rng.standard_normal((512, D)).astype(np.float32), device=dev)
+        a = torch.as_tensor(rng.integers(0, 12, size=512).astype(np.int32), device=dev)
+        upd = torch.as_tensor(np.stack([np.arange(8), np.ones(8)], 1).astype(np.int32), device=dev)
+        prog = tkm.kmeans_update_program(upd, col_i=0, bp=64, Kp=12, D=D, n_valid=500,
+                                         columns=("i", "first_visit"))
+        (s_k, n_k), (s_p, n_p) = launch(prog, x, a), prog.plain(prog, x, a)
+        assert torch.equal(n_k, n_p)
+        torch.testing.assert_close(s_k, s_p, rtol=1e-5, atol=1e-4)
+    for N, D, k in ((500, 3, 5), (300, 960, 6)):
+        x = clustered(np.random.default_rng(N), N, D, k, np.arange(k))
+        c_f, a_f = tops.kmeans_lloyd(x, k, iters=3, bp=64, bc=4)
+        c_r, a_r = tops.kmeans_lloyd(x, k, iters=3, bp=64, bc=4, fused=False)
+        assert torch.equal(c_f, c_r) and torch.equal(a_f, a_r)
+    rng = np.random.default_rng(2)
+    a = rng.standard_normal((300, 530)).astype(np.float32)
+    b = rng.standard_normal((530, 200)).astype(np.float32)
+    got = tops.matmul(a, b, schedule_ndim=3)
+    assert got.device.type == "cuda"
+    np.testing.assert_allclose(got.cpu().numpy(), a @ b, rtol=1e-4, atol=1e-4 * 530 ** 0.5)
+    ij, ks = tmm.matmul3d_csr_device("hilbert", (3, 2, 5), device=dev)
+    at = torch.nn.functional.pad(torch.as_tensor(a, device=dev), (0, 110, 0, 84)).contiguous()
+    bt = torch.nn.functional.pad(torch.as_tensor(b, device=dev), (0, 56, 0, 110)).contiguous()
+    prog = tmm.matmul3d_program(ij, ks, at, bt, bm=128, bn=128, bk=128)
+    torch.testing.assert_close(launch(prog, at, bt), prog.plain(prog, at, bt), rtol=1e-5, atol=1e-3)
+    counts = LAUNCHES.counts()
+    for name in ("sfc_kmeans_assign_tiles", "sfc_kmeans_update", "sfc_matmul3d"):
+        assert counts[name] > 0, counts

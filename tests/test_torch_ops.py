@@ -111,8 +111,9 @@ def test_empty_inputs():
 
 @pytest.mark.parametrize("call", [
     lambda: tops.matmul(np.ones((4, 4), np.float32), np.ones((4, 4), np.float32),
-                        schedule_ndim=3, device="cpu"),
-    lambda: tops.kmeans_lloyd(np.ones((8, 2), np.float32), 2, fused=False, device="cpu"),
+                        schedule_ndim=3, choice="auto", device="cpu"),
+    lambda: tops.kmeans_lloyd(np.ones((8, 2), np.float32), 2, fused=False, mesh=object(),
+                              device="cpu"),
     lambda: tops.kmeans_lloyd(np.ones((8, 2), np.float32), 2, mesh=object(), device="cpu"),
     lambda: tops.simjoin_pairs(np.ones((8, 2), np.float32), 1.0, mesh=object(), device="cpu"),
     lambda: tops.simjoin_counts(np.ones((8, 2), np.float32), 1.0, choice="auto", device="cpu"),
