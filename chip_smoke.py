@@ -54,10 +54,24 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
 6. Run the main path's calls once more, warm, under ``torch.profiler``:
    wall time, kernel (device) time and the device's busy share per call,
    and one warm tick of each streaming service.
+7. LM serving (``serving_path``), TinyLlama-1.1B at full width with
+   seeded random weights: (a) the three flash kernels against their plain
+   versions at the serving shapes, f32 and bf16; (b) with the launch
+   counts reset, the bf16 ``ServeEngine`` (paged, flash, compiled
+   prefill, prefix sharing, Hilbert page layout; 8 slots, max_len 2048)
+   serves 32 requests (prompts of 64-1024 tokens, every other one behind
+   a shared 256-token prefix, 32-128 new tokens), and, counted apart,
+   ``forward`` of 2 x 2048 tokens with ``use_hilbert_kernels``; prints
+   tokens/s, time to first token, tick p99, pages and the busy share of
+   a warm decode tick; (c) the f32 gate: 8 requests served on f32
+   weights, each served token equal to the dense forward's argmax outside
+   the top-2 margin band, the flash decode step allclose to the page
+   gather; (d) each flash kernel's time, bound, plain version and a
+   PyTorch SDPA call.
 
 The second-to-last line of output is one JSON object ``{"kernels": [...]}``,
 the last ``{"ok": true, "device": {...}}``.  ``--quick`` runs phases 1-2
-only (a first check of a new kernel), and prints no result line.
+(and 7a) only (a first check of a new kernel), and prints no result line.
 The script imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
@@ -77,6 +91,7 @@ ROOT = Path(__file__).resolve().parent
 FP32_PEAK = 67e12  # H100 SXM, FLOP/s on the FP32 pipes (no tensor cores)
 BF16_PEAK = 989e12  # H100 SXM, dense bf16 tensor-core FLOP/s
 HBM_RATE = 3.35e12  # H100 SXM, bytes/s
+PEAK_SMS = 132  # H100 SXM, the SMs that FP32_PEAK is the sum of
 REPLACES = {
     "sfc_matmul": "src/repro/kernels/matmul.py:32",
     "sfc_kmeans_assign": "src/repro/kernels/kmeans.py:271",
@@ -93,6 +108,9 @@ REPLACES = {
     "sfc_chol_trailing": "src/repro/kernels/cholesky.py:108",
     "sfc_kmeans_assign_tiles": "src/repro/kernels/kmeans.py:199",
     "sfc_matmul3d": "src/repro/kernels/matmul.py:94",
+    "sfc_flash_attention": "src/repro/kernels/attention.py:138",
+    "sfc_flash_decode": "src/repro/kernels/attention.py:338",
+    "sfc_flash_prefill": "src/repro/kernels/attention.py:570",
 }
 # the reference-path kernels the same entry points replace too
 # (fused=False: the per-k oracles; the k-means reference's update)
@@ -121,6 +139,9 @@ SOURCES = {
     "sfc_chol_trailing": "src/repro_torch/kernels/csrc/cholesky.cu",
     "sfc_kmeans_assign_tiles": "src/repro_torch/kernels/csrc/kmeans.cu",
     "sfc_matmul3d": "src/repro_torch/kernels/csrc/matmul.cu",
+    "sfc_flash_attention": "src/repro_torch/kernels/csrc/attention.cu",
+    "sfc_flash_decode": "src/repro_torch/kernels/csrc/attention.cu",
+    "sfc_flash_prefill": "src/repro_torch/kernels/csrc/attention.cu",
 }
 BAND = 1e-4  # relative width of the float64 tie / threshold band
 # the join kernels' metric (|xi|² − 2 xi·xj) + |xj|² in f32 is off by at
@@ -144,6 +165,26 @@ STREAM_DECAYS = (1.0, 0.9)
 # neighbours), points per insert request, a query every n ticks, probes per
 # query, max_residents of the second run
 STREAM_JOIN = (262_144, 3, 0.0308, 1024, 8, 1024, 65_536)
+# the LM serving slice: TinyLlama-1.1B at full width, seeded random weights
+SERVE_ARCH = "tinyllama-1.1b"
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_PAGE = 8, 2048, 16
+SERVE_REQUESTS = 32
+SERVE_PROMPT = (64, 1024)  # prompt lengths
+SERVE_PREFIX = 256  # the shared system prefix of every other request
+SERVE_NEW = (32, 128)  # new tokens per request
+GATE_REQUESTS = 8  # requests of the f32 replay gate
+# the replay gate's band: a served token may differ from the dense
+# forward's argmax only where that forward's top-2 logit margin is at most
+# this (f32 logits of std ~0.25; the two paths differ by ~1e-5)
+GATE_BAND = 1e-3
+STEP_TOL = 1e-3  # f32 logits: flash vs xla decode step, kernel vs plain forward
+ATTN_ROW20 = (2, 32, 2048)  # B, H, S of the full-sequence forward
+# flash kernel vs plain version on the card: f32 sums in another order;
+# bf16 outputs round apart by up to an ulp (2^-8 to 2^-7 relative; the
+# largest difference read on the card was 1.95e-3, at outputs of up to
+# 3.8), so about two ulps at the outputs' scale
+ATTN_TOL = {"float32": dict(rtol=1e-4, atol=1e-4), "bfloat16": dict(rtol=8e-3, atol=4e-3)}
+SERVING_KERNELS = ("sfc_flash_attention", "sfc_flash_decode", "sfc_flash_prefill")
 
 
 def log(msg: str) -> None:
@@ -828,7 +869,7 @@ def main_path(rng, device, seed: int) -> dict:
     for maxr in (None, MAXR):
         streams[f"StreamSimJoin max_residents={maxr}"] = run(
             f"StreamSimJoin max_residents={maxr}", lambda: drive_stream_join(xs_j, q_pool, maxr, device))
-    launches = LAUNCHES.counts()
+    launches = {k: n for k, n in LAUNCHES.counts().items() if k not in SERVING_KERNELS}
     log("main path wall ms: " + json.dumps({k: round(v, 3) for k, v in wall.items()}))
     log("main path launches: " + json.dumps(launches))
     for name, n in launches.items():
@@ -1216,6 +1257,452 @@ def time_matmul3d(entry, a32, b32, a16, b16, device) -> None:
                     "bound_by": b16_by, "max_abs_err": err16, "tol": tol16}})
 
 
+# ---------------------------------------------------------------------------
+# the LM serving slice: TinyLlama-1.1B on the paged flash engine
+# ---------------------------------------------------------------------------
+
+def _serve_cfg(**overrides):
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config
+
+    return dc.replace(get_config(SERVE_ARCH), **overrides)
+
+
+def decode_inputs(rng, device, dtype):
+    """Row 21 at the serving shapes: 8 slots of 128 pages of 16, 4 kv
+    heads x 8 query heads x 64, ragged positions (0 and 2047 included),
+    the page table of a Hilbert-laid-out PagedKVCache; the trash page
+    holds garbage."""
+    import torch
+    from repro_torch.serve import PagedKVCache
+
+    B, MP, ps = SERVE_SLOTS, SERVE_MAX_LEN // SERVE_PAGE, SERVE_PAGE
+    cfg = _serve_cfg()
+    hkv, g, d = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, cfg.attn_head_dim
+    pos = rng.integers(0, SERVE_MAX_LEN, size=B).astype(np.int32)
+    pos[:2] = (0, SERVE_MAX_LEN - 1)
+    kv = PagedKVCache(B, MP, ps, layout="hilbert")
+    for b in range(B):
+        kv.ensure_pos(b, int(pos[b]))
+    P = kv.num_pages
+
+    def t(shape):
+        return torch.as_tensor(rng.standard_normal(shape, dtype=np.float32), device=device).to(dtype)
+
+    kp, vp = t((P, ps, hkv, d)), t((P, ps, hkv, d))
+    kp[0], vp[0] = 3e3, -3e3
+    return (torch.as_tensor(kv.page_table, device=device), torch.as_tensor(pos, device=device),
+            t((B, hkv, g, d)), kp, vp)
+
+
+def prefill_inputs(rng, device, dtype):
+    """Row 22 at the serving shapes: a cohort of 8 slots with 64-1024 new
+    tokens each at staggered resume positions (the padded width 1024 of
+    the engine's pow2-page bucket), pages from a Hilbert PagedKVCache."""
+    import torch
+    from repro_torch.serve import PagedKVCache
+
+    B, MP, ps = SERVE_SLOTS, SERVE_MAX_LEN // SERVE_PAGE, SERVE_PAGE
+    cfg = _serve_cfg()
+    hkv, g, d = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, cfg.attn_head_dim
+    T = SERVE_MAX_LEN // 2  # the engine's bucket for prompts of up to 1024 new tokens
+    lo = min(SERVE_PROMPT[0], T)
+    n_new = rng.integers(lo, T + 1, size=B).astype(np.int32)
+    n_new[:2] = (lo, T)
+    pos0 = rng.integers(0, SERVE_MAX_LEN - n_new + 1).astype(np.int32)
+    kv = PagedKVCache(B, MP, ps, layout="hilbert")
+    for b in range(B):
+        kv.ensure_pos(b, int(pos0[b] + n_new[b] - 1))
+    P = kv.num_pages
+
+    def t(shape):
+        return torch.as_tensor(rng.standard_normal(shape, dtype=np.float32), device=device).to(dtype)
+
+    return (torch.as_tensor(kv.page_table, device=device), torch.as_tensor(pos0, device=device),
+            t((B, T, hkv, g, d)), t((P, ps, hkv, d)), t((P, ps, hkv, d)), n_new)
+
+
+def attention_inputs(rng, device, dtype):
+    """Row 20 at the model's full-sequence shapes: B·H = 2·32 sequences of
+    2048 x 64, and per-sequence kv lengths for the kv_seqlen case."""
+    import torch
+
+    B, H, S = ATTN_ROW20
+    d = _serve_cfg().attn_head_dim
+
+    def t():
+        return torch.as_tensor(rng.standard_normal((B * H, S, d), dtype=np.float32), device=device).to(dtype)
+
+    seqlen = torch.as_tensor(rng.integers(1, S + 1, size=B * H).astype(np.int32), device=device)
+    return t(), t(), t(), seqlen
+
+
+def prefill_covered(n_new, T: int, ps: int, device):
+    """(B, T) bool: the rows of the q tiles a prefill schedule covers."""
+    import torch
+
+    rows = torch.zeros((len(n_new), T), dtype=torch.bool, device=device)
+    for b, n in enumerate(n_new):
+        rows[b, : -(-int(n) // ps) * ps] = True
+    return rows
+
+
+def flash_programs(device, dec, pre, att):
+    """The three programs over the inputs of :func:`decode_inputs`,
+    :func:`prefill_inputs` and :func:`attention_inputs`."""
+    from repro_torch.kernels import attention as katt
+
+    B, MP = dec[0].shape
+    scale = 1.0 / float(np.sqrt(dec[2].shape[-1]))
+    sd = katt.decode_page_schedule_device(B, MP, device=device)
+    p_dec = katt.flash_decode_program(sd, dec[2], sm_scale=scale)
+    ps = pre[3].shape[1]
+    sp = katt.prefill_page_schedule_device(pre[1].cpu().numpy(), pre[5], ps, pre[0].shape[1], device=device)
+    p_pre = katt.flash_prefill_program(sp, pre[2], page_size=ps, sm_scale=scale)
+    S = att[0].shape[1]
+    sa = katt.attention_schedule_device(S // 128, S // 128, causal=True, device=device)
+    p_att = katt.flash_attention_program(sa, att[0], causal=True, sm_scale=scale, bq=128, bkv=128,
+                                         kv_valid=None)
+    return p_dec, p_pre, p_att
+
+
+def compare_attention(rng, device) -> dict:
+    """Each flash kernel against its plain version on the card at the
+    serving shapes, in f32 and bf16; returns the largest errors."""
+    import torch
+    from repro_torch.kernels import launch
+
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = ATTN_TOL[str(dtype)[6:]]
+        dec, pre, att = (decode_inputs(rng, device, dtype), prefill_inputs(rng, device, dtype),
+                         attention_inputs(rng, device, dtype))
+        p_dec, p_pre, p_att = flash_programs(device, dec, pre, att)
+        got, want = launch(p_dec, *dec), p_dec.plain(p_dec, *dec)
+        torch.cuda.synchronize()
+        errs[("sfc_flash_decode", dtype)] = attn_err(got, want, tol, f"sfc_flash_decode {dtype}")
+        got, want = launch(p_pre, *pre[:5]), p_pre.plain(p_pre, *pre[:5])
+        torch.cuda.synchronize()
+        rows = prefill_covered(pre[5], pre[2].shape[1], SERVE_PAGE, device)
+        errs[("sfc_flash_prefill", dtype)] = attn_err(got[rows], want[rows], tol, f"sfc_flash_prefill {dtype}")
+        q, k, v, seqlen = att
+        got, want = launch(p_att, q, k, v), p_att.plain(p_att, q, k, v)
+        torch.cuda.synchronize()
+        e1 = attn_err(got, want, tol, f"sfc_flash_attention {dtype}")
+        got, want = launch(p_att, q, k, v, seqlen), p_att.plain(p_att, q, k, v, seqlen)
+        torch.cuda.synchronize()
+        e2 = attn_err(got, want, tol, f"sfc_flash_attention kv_seqlen {dtype}")
+        errs[("sfc_flash_attention", dtype)] = max(e1, e2)
+        B, hkv, g, d = dec[2].shape
+        log(f"compare flash {str(dtype)[6:]} (rtol {tol['rtol']}, atol {tol['atol']}): decode B={B} Hkv={hkv} "
+            f"g={g} D={d} ps={SERVE_PAGE} MP={dec[0].shape[1]} pos={dec[1].tolist()} max_abs_err="
+            f"{errs[('sfc_flash_decode', dtype)]:.3e}; prefill Tq={pre[2].shape[1]} n_new={pre[5].tolist()} "
+            f"pos0={pre[1].tolist()} max_abs_err={errs[('sfc_flash_prefill', dtype)]:.3e}; attention "
+            f"BH={q.shape[0]} S={q.shape[1]} causal max_abs_err={e1:.3e}, with kv_seqlen {e2:.3e}")
+        del dec, pre, att, got, want
+    return errs
+
+
+def attn_err(got, want, tol, what: str) -> float:
+    import torch
+
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+    err = float((got.float() - want.float()).abs().max())
+    check(bool(torch.allclose(got.float(), want.float(), **tol)), f"{what}: max err {err} (tol {tol})")
+    log(f"  {what}: max_abs_err {err:.3e}, max |plain| {float(want.float().abs().max()):.3e}")
+    return err
+
+
+def make_requests(rng, vocab: int):
+    """SERVE_REQUESTS prompts of 64-1024 tokens, every other one behind a
+    shared 256-token system prefix, with 32-128 new tokens each."""
+    lo, hi = SERVE_PROMPT
+    system = rng.integers(0, vocab, size=SERVE_PREFIX).tolist()
+    reqs = []
+    for i in range(SERVE_REQUESTS):
+        if i % 2:
+            n = int(rng.integers(max(lo, SERVE_PREFIX + 1), hi + 1))
+            prompt = system + rng.integers(0, vocab, size=n - SERVE_PREFIX).tolist()
+        else:
+            prompt = rng.integers(0, vocab, size=int(rng.integers(lo, hi + 1))).tolist()
+        reqs.append((prompt, int(rng.integers(SERVE_NEW[0], SERVE_NEW[1] + 1))))
+    return reqs
+
+
+def serve_engine(cfg, params):
+    from repro_torch.serve import ServeEngine
+
+    return ServeEngine(cfg, params, num_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                       page_size=SERVE_PAGE, paged=True, attn_impl="flash", prefill="compiled",
+                       prefix_sharing=True, page_layout="hilbert", stats_capacity=8192)
+
+
+def drive_engine(engine, requests) -> tuple[list, dict]:
+    """Submit every request at once and tick until all are served.
+    Prefill (admission) and decode are timed apart (synchronised), and
+    each request's time to first token from its submission."""
+    import torch
+
+    prefill = {"s": 0.0, "tokens": 0}
+    inner = engine._prefill_compiled
+
+    def timed_prefill(slots):
+        n = sum(len(engine.slot_req[s].prompt) - 1 - int(engine.pos[s]) for s in slots)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        inner(slots)
+        torch.cuda.synchronize()
+        prefill["s"] += time.perf_counter() - t
+        prefill["tokens"] += n
+
+    engine._prefill_compiled = timed_prefill
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [engine.submit(p, max_new=m) for p, m in requests]
+    ttft = {}
+    ticks = 0
+    while any(not r.done for r in reqs):
+        engine.step()
+        ticks += 1
+        now = time.perf_counter()
+        for r in reqs:
+            if r.out and r.rid not in ttft:
+                ttft[r.rid] = now - t0
+        check(ticks < 100_000, "the engine does not finish")
+    wall = time.perf_counter() - t0
+    engine._prefill_compiled = inner
+    decode_tokens = sum(len(r.out) for r in reqs)
+    decode_s = wall - prefill["s"]
+    t = np.array(sorted(ttft.values()))
+    kv = engine.kv_pages
+    return reqs, {
+        "requests": len(reqs), "ticks": ticks, "wall_s": wall,
+        "prefill_tokens": prefill["tokens"], "prefill_s": prefill["s"],
+        "prefill_tok_per_s": prefill["tokens"] / prefill["s"],
+        "decode_tokens": decode_tokens, "decode_s": decode_s, "decode_tok_per_s": decode_tokens / decode_s,
+        "ttft_p50_ms": 1e3 * float(np.percentile(t, 50)), "ttft_p99_ms": 1e3 * float(np.percentile(t, 99)),
+        "tick_p99_ms": 1e3 * engine.stats.p99(), "tick_mean_ms": 1e3 * engine.stats.mean(),
+        "pages_allocated": kv.stat_allocated, "pages_shared": kv.stat_shared, "pages_cow": kv.stat_cow,
+    }
+
+
+def warm_decode_tick(cfg, params, requests, device) -> dict:
+    """Device busy share of one warm decode tick (8 active slots, no
+    admission) under torch.profiler."""
+    engine = serve_engine(cfg, params)
+    for p, _m in requests[:SERVE_SLOTS]:
+        engine.submit(p, max_new=64)
+    for _ in range(4):
+        engine.step()
+    check(bool(engine.active.all()) and not engine._queue, "warm tick: not all slots decoding")
+    out = profile_calls({f"ServeEngine warm decode tick ({SERVE_SLOTS} slots, tinyllama-1.1b bf16)": engine.step})
+    return out[0]
+
+
+def replay_gate(cfg32, params32, reqs) -> dict:
+    """Every served token against the argmax of the port's dense forward
+    (plain attention, no kernel) over the request's prompt and served
+    tokens, outside the top-2 margin band."""
+    import torch
+    from repro_torch.models import forward
+
+    in_band = checked = 0
+    for r in reqs:
+        seq = r.prompt + r.out[:-1]
+        logits, _ = forward(params32, {"tokens": np.asarray([seq], np.int32)}, cfg32)
+        lg = logits[0, len(r.prompt) - 1:]
+        top2 = torch.topk(lg, 2, dim=-1).values
+        margin = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+        pick = lg.argmax(dim=-1).cpu().numpy()
+        served = np.asarray(r.out)
+        band = margin <= GATE_BAND
+        check(not bool(((pick != served) & ~band).any()),
+              f"replay rid {r.rid}: served tokens differ from the dense forward's argmax outside the band")
+        in_band += int(band.sum())
+        checked += len(served)
+    return {"positions": checked, "in_band": in_band, "band": GATE_BAND}
+
+
+def serving_path(rng, device, seed: int) -> list:
+    """(a) the three flash kernels against their plain versions; (b) the
+    bf16 serving run of TinyLlama-1.1B at full width and the model's
+    full-sequence forward through sfc_flash_attention, launches counted
+    per path; (c) the f32 correctness gate; (d) kernel timings."""
+    import dataclasses as dc
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import LAUNCHES, launch
+    from repro_torch.models import count_params, decode_step_paged, forward, init_params
+
+    errs = compare_attention(rng, device)
+
+    # --- (b) the serving run, bf16 -----------------------------------------
+    cfg = _serve_cfg()
+    t0 = time.perf_counter()
+    params = init_params(seed, cfg, device=device)
+    torch.cuda.synchronize()
+    log(f"serving model: {cfg.name} {cfg.num_layers} layers d={cfg.d_model} H={cfg.num_heads} "
+        f"Hkv={cfg.num_kv_heads} d_ff={cfg.d_ff} vocab={cfg.vocab_size} {cfg.dtype}, "
+        f"{count_params(params)} parameters, seeded random, {time.perf_counter() - t0:.1f} s to make")
+    requests = make_requests(rng, cfg.vocab_size)
+    # warm-up: one short request through a throwaway engine (allocator,
+    # cuBLAS handles); its launches are not counted
+    warm = serve_engine(cfg, params)
+    warm.submit(requests[0][0][:80], max_new=2)
+    warm.run_until_done()
+    del warm
+    LAUNCHES.reset()
+    reqs, metrics = drive_engine(serve_engine(cfg, params), requests)
+    serve_launches = LAUNCHES.counts()
+    for r in reqs:
+        check(len(r.out) == r.max_new and all(0 <= t < cfg.vocab_size for t in r.out), f"rid {r.rid}: output")
+    check(metrics["pages_shared"] > 0, "prefix sharing never engaged")
+    metrics["launches"] = {k: serve_launches[k] for k in SERVING_KERNELS}
+    log("serving: " + json.dumps(metrics))
+    for name in ("sfc_flash_decode", "sfc_flash_prefill"):
+        check(serve_launches[name] > 0, f"{name} was not launched by the serving run")
+    cfg_hk = dc.replace(cfg, use_hilbert_kernels=True)
+    toks = rng.integers(0, cfg.vocab_size, size=(ATTN_ROW20[0], ATTN_ROW20[2])).astype(np.int32)
+    LAUNCHES.reset()
+    t = time.perf_counter()
+    logits_hk, _ = forward(params, {"tokens": toks}, cfg_hk)
+    torch.cuda.synchronize()
+    fwd_ms = 1e3 * (time.perf_counter() - t)
+    fwd_launches = LAUNCHES.counts()
+    check(fwd_launches["sfc_flash_attention"] > 0, "sfc_flash_attention was not launched by forward")
+    check(logits_hk.shape == (ATTN_ROW20[0], ATTN_ROW20[2], cfg.vocab_size)
+          and bool(torch.isfinite(logits_hk).all()), "forward(use_hilbert_kernels): shape or non-finite")
+    logits_pl, _ = forward(params, {"tokens": toks}, cfg)
+    agree = float((logits_hk.argmax(-1) == logits_pl.argmax(-1)).float().mean())
+    fwd_diff = float((logits_hk - logits_pl).abs().max())
+    log(f"forward {ATTN_ROW20[0]}x{ATTN_ROW20[2]} bf16 use_hilbert_kernels: {fwd_ms:.1f} ms, "
+        f"sfc_flash_attention launches {fwd_launches['sfc_flash_attention']}; against the plain attention: "
+        f"argmax agreement {agree:.4f}, max |dlogit| {fwd_diff:.3e} (max |logit| {float(logits_pl.abs().max()):.3e})")
+    del logits_hk, logits_pl
+    busy = warm_decode_tick(cfg, params, requests, device)
+    del params
+
+    # --- (c) the correctness gate, f32 -------------------------------------
+    cfg32 = _serve_cfg(dtype="float32")
+    params32 = init_params(seed + 1, cfg32, device=device)
+    engine = serve_engine(cfg32, params32)
+    # two cohorts, so the second one shares the first one's prefix pages
+    half = GATE_REQUESTS // 2
+    gate_reqs = [engine.submit(p, max_new=m) for p, m in requests[:half]]
+    engine.step()
+    gate_reqs += [engine.submit(p, max_new=m) for p, m in requests[half:GATE_REQUESTS]]
+    snap = None
+    while any(not r.done for r in gate_reqs):
+        engine.step()
+        if snap is None and engine.active.all():
+            snap = (engine.next_token.copy(), engine.pos.copy(), engine.active.copy(),
+                    engine.kv_pages.page_table.copy(), {k: v.clone() for k, v in engine.cache["blocks"].items()})
+    gate = replay_gate(cfg32, params32, gate_reqs)
+    gate["pages_shared"], gate["pages_cow"] = engine.kv_pages.stat_shared, engine.kv_pages.stat_cow
+    check(snap is not None, "f32 gate: the engine never ran every slot at once")
+    nt, pos, act, pt, pools = snap
+    outs = {}
+    for impl in ("flash", "xla"):
+        cache = {"blocks": {k: v.clone() for k, v in pools.items()}}
+        outs[impl], _ = decode_step_paged(params32, nt[:, None], cache, pos, pt, cfg32, write_mask=act,
+                                          attn_impl=impl)
+    step_err = float((outs["flash"] - outs["xla"]).abs().max())
+    check(bool(torch.allclose(outs["flash"], outs["xla"], rtol=STEP_TOL, atol=STEP_TOL)),
+          f"decode_step_paged flash vs xla: max err {step_err}")
+    gate["decode_step_paged_flash_vs_xla_max_abs_err"] = step_err
+    toks32 = rng.integers(0, cfg32.vocab_size, size=(1, ATTN_ROW20[2])).astype(np.int32)
+    lk, _ = forward(params32, {"tokens": toks32}, dc.replace(cfg32, use_hilbert_kernels=True))
+    lp, _ = forward(params32, {"tokens": toks32}, cfg32)
+    fwd_err = float((lk - lp).abs().max())
+    check(bool(torch.allclose(lk, lp, rtol=STEP_TOL, atol=STEP_TOL)), f"f32 forward kernel vs plain: {fwd_err}")
+    gate["forward_flash_vs_plain_max_abs_err"] = fwd_err
+    log("check serving f32 gate: " + json.dumps(gate) + f" (tolerance rtol = atol = {STEP_TOL})")
+    del params32, engine, pools, snap, outs, lk, lp
+
+    # --- (d) timings at the serving shapes (bf16) --------------------------
+    rows = []
+    dec, pre, att = (decode_inputs(rng, device, torch.bfloat16), prefill_inputs(rng, device, torch.bfloat16),
+                     attention_inputs(rng, device, torch.bfloat16))
+    p_dec, p_pre, p_att = flash_programs(device, dec, pre, att)
+    launches = {**{k: serve_launches[k] for k in ("sfc_flash_decode", "sfc_flash_prefill")},
+                "sfc_flash_attention": fwd_launches["sfc_flash_attention"]}
+
+    def row(name, kern, plain, library, ops_, nbytes, err, extra):
+        b_ms, b_by = bound_ms(ops_, BF16_PEAK, nbytes)
+        rows.append({
+            "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+            "launches": launches[name], "max_abs_err": err, "ms": cuda_ms(kern, 10),
+            "plain_ms": cuda_ms(plain, 1, warmup=0), "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": cuda_ms(library, 10), "peak": "bf16 tensor cores (989 TFLOP/s), HBM 3.35 TB/s",
+            **extra,
+        })
+        log(f"time {name}: {json.dumps(rows[-1])}")
+
+    pt, pos, q, kp, vp = dec
+    B, hkv, g, d = q.shape
+    ps, MP = kp.shape[1], pt.shape[1]
+    # the function needs each slot's pos + 1 live kv rows and the page-table
+    # entries of its live pages
+    n_kv = int((pos.long() + 1).sum())
+    live_pages = int((pos.long() // ps + 1).sum())
+    kv_bytes = 2 * 2 * n_kv * hkv * d
+    mask = torch.arange(MP * ps, device=device)[None, None, None] <= pos.long()[:, None, None, None]
+
+    def sdpa_decode():
+        kk = kp[pt.long()].reshape(B, MP * ps, hkv, d).transpose(1, 2)
+        vv = vp[pt.long()].reshape(B, MP * ps, hkv, d).transpose(1, 2)
+        return F.scaled_dot_product_attention(q.reshape(B, hkv * g, 1, d), kk, vv, attn_mask=mask,
+                                              enable_gqa=True)
+
+    row("sfc_flash_decode", lambda: launch(p_dec, *dec), lambda: p_dec.plain(p_dec, *dec), sdpa_decode,
+        4.0 * g * hkv * d * n_kv, 2 * q.numel() * 2 + kv_bytes + 4 * (live_pages + B),
+        errs[("sfc_flash_decode", torch.bfloat16)],
+        {"shape": {"B": B, "Hkv": hkv, "g": g, "D": d, "page_size": ps, "max_pages": MP,
+                   "pos": pos.tolist()},
+         "ctas": int(p_dec.grid[0] * p_dec.grid[1]),
+         "sms": torch.cuda.get_device_properties(device).multi_processor_count})
+
+    pt2, pos0, q2, kp2, vp2, n_new = pre
+    T = q2.shape[1]
+    positions = pos0.long()[:, None] + torch.arange(T, device=device)[None]
+    need = torch.arange(T, device=device)[None] < torch.as_tensor(n_new, device=device)[:, None]
+    pref_ops = 4.0 * g * hkv * d * float(((positions + 1) * need).sum())
+    # each lane with new tokens needs its pos0 + n_new kv rows and the
+    # page-table entries of their pages
+    nn = torch.as_tensor(n_new, device=device).long()
+    ends = (pos0.long() + nn)[nn > 0]
+    kv_rows, pages_read = int(ends.sum()), int(((ends - 1) // ps + 1).sum())
+    pref_bytes = 2 * (2 * int(need.sum()) * hkv * g * d + 2 * kv_rows * hkv * d) + 4 * (pages_read + 2 * B)
+    pmask = (torch.arange(MP * ps, device=device)[None, None] <= positions[:, :, None])[:, None]
+
+    def sdpa_prefill():
+        kk = kp2[pt2.long()].reshape(B, MP * ps, hkv, d).transpose(1, 2)
+        vv = vp2[pt2.long()].reshape(B, MP * ps, hkv, d).transpose(1, 2)
+        qq = q2.reshape(B, T, hkv * g, d).transpose(1, 2)
+        return F.scaled_dot_product_attention(qq, kk, vv, attn_mask=pmask, enable_gqa=True)
+
+    row("sfc_flash_prefill", lambda: launch(p_pre, *pre[:5]), lambda: p_pre.plain(p_pre, *pre[:5]), sdpa_prefill,
+        pref_ops, pref_bytes, errs[("sfc_flash_prefill", torch.bfloat16)],
+        {"shape": {"B": B, "Tq": T, "n_new": [int(n) for n in n_new], "pos0": pos0.tolist(), "Hkv": hkv,
+                   "g": g, "D": d, "page_size": ps},
+         "ctas": int(p_pre.grid[0] * p_pre.grid[1]), "rows_per_cta": ps * g})
+
+    qa, ka, va, _seqlen = att
+    BH, S, d = qa.shape
+    Bq, H = ATTN_ROW20[0], ATTN_ROW20[1]
+    row("sfc_flash_attention", lambda: launch(p_att, qa, ka, va), lambda: p_att.plain(p_att, qa, ka, va),
+        lambda: F.scaled_dot_product_attention(qa.reshape(Bq, H, S, d), ka.reshape(Bq, H, S, d),
+                                               va.reshape(Bq, H, S, d), is_causal=True),
+        4.0 * BH * d * S * (S + 1) / 2, 4 * BH * S * d * 2, errs[("sfc_flash_attention", torch.bfloat16)],
+        {"shape": {"BH": BH, "S": S, "D": d, "bq": 128, "bkv": 128, "causal": True},
+         "ctas": int(p_att.grid[0] * p_att.grid[1]),
+         "f32_max_abs_err": errs[("sfc_flash_attention", torch.float32)]})
+    log("serving busy: " + json.dumps(busy))
+    return rows
+
+
 def cholesky_errors(a, L) -> dict:
     """max|L − L₆₄| / max|L₆₄| and ‖L·Lᵀ − A‖_F / ‖A‖_F, in float64 on the
     card, L₆₄ the float64 factor of the same (f32) A."""
@@ -1258,7 +1745,7 @@ def time_phased(entry, device, fw_d, fw_dr, ch_a, ch_ar, ch) -> None:
 
     n, b = fw_d.shape[0], 128
     nt = n // b
-    per_sm = FP32_PEAK / 132  # one of the H100 SXM's 132 SMs
+    per_sm = FP32_PEAK / PEAK_SMS  # one SM's share of the table's FP32 peak
     tile_bytes = 4 * b * b
 
     def plain_once(prog, x):
@@ -1381,13 +1868,15 @@ def time_phased(entry, device, fw_d, fw_dr, ch_a, ch_ar, ch) -> None:
     log("apps: " + json.dumps(apps))
 
 
-def profile_calls(calls: dict) -> None:
+def profile_calls(calls: dict) -> list:
     """Run each call once more under torch.profiler and print its wall
     time, the device time of the kernels it ran (one stream, so their sum
-    is the device's busy time), the busy share, and the top kernels."""
+    is the device's busy time), the busy share, and the top kernels;
+    returns the printed records."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    out = []
     for name, fn in calls.items():
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1399,12 +1888,14 @@ def profile_calls(calls: dict) -> None:
                    if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
         dev = 1e-3 * sum(e.self_device_time_total for e in kernels)
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-        log("profile: " + json.dumps({
+        out.append({
             "call": name, "wall_ms": wall,
             "device_ms": dev if kernels else "not measured",
             "busy_share": dev / wall if kernels else "not measured",
             "top": [[e.key[:60], 1e-3 * e.self_device_time_total, e.count] for e in top],
-        }))
+        })
+        log("profile: " + json.dumps(out[-1]))
+    return out
 
 
 def card_line() -> str:
@@ -1444,8 +1935,10 @@ def main() -> int:
     compare_phased(np.random.default_rng(args.seed + 1), device)
     compare_reference(np.random.default_rng(args.seed + 2), device)
     if args.quick:
+        compare_attention(np.random.default_rng(args.seed + 3), device)
         return 0
     result = main_path(rng, device, args.seed)
+    result["kernels"] += serving_path(np.random.default_rng(args.seed + 3), device, args.seed)
     log(json.dumps(result))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,11 @@ kernels take their tile order from an int32 schedule table built by
 """
 from . import ops, ref
 from ._build import LAUNCHES
+from .attention import (
+    flash_attention_decode,
+    flash_attention_prefill,
+    flash_attention_swizzled,
+)
 from .cholesky import (
     cholesky_blocked,
     cholesky_blocked_reference,
@@ -48,6 +53,9 @@ __all__ = [
     "cholesky_blocked_reference",
     "cholesky_program",
     "cholesky_reference_program",
+    "flash_attention_decode",
+    "flash_attention_prefill",
+    "flash_attention_swizzled",
     "floyd_warshall_blocked",
     "floyd_warshall_blocked_reference",
     "fw_program",

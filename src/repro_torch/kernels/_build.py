@@ -55,6 +55,11 @@ SIGNATURES = {
     "sfc_chol_diag": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "sfc_chol_panel": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "sfc_chol_trailing": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # flash kernels: (q, k, v, out, table, runs, runs, heads, ...shape, scale,
+    # dtype, stream)
+    "sfc_flash_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _F, _I, _P),
+    "sfc_flash_decode": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
+    "sfc_flash_prefill": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
 }
 
 

@@ -1,0 +1,682 @@
+"""Flash attention with FGF jump-over tile scheduling (paper §6.2), and
+its paged serving forms.
+
+Three kernels (``csrc/attention.cu``), the Hopper counterparts of the
+JAX package's three Pallas flash kernels:
+
+* ``sfc_flash_attention`` (:func:`flash_attention_swizzled`) — attention
+  over (BH, S, D) tensors with a jump-over (q_tile, kv_tile) schedule:
+  causal attention enumerates only the lower-triangular tiles, each q
+  tile's kv tiles in serpentine order.
+* ``sfc_flash_decode`` (:func:`flash_attention_decode`) — one decode step
+  of grouped (GQA) queries against a paged KV pool, pages read through
+  ``page_table[slot, lp]``.
+* ``sfc_flash_prefill`` (:func:`flash_attention_prefill`) — a cohort's
+  new prompt tokens, causal over each slot's paged prefix, one q tile of
+  ``page_size`` tokens per schedule run.
+
+The TPU grids run ``(heads, steps)`` in order and carry the online
+softmax state in VMEM from one schedule row to the next (``first`` /
+``last`` flags).  On the card each run of the table (the rows from a
+``first`` row to its ``last`` row: one q tile's kv walk) is a loop inside
+one CTA, so no state crosses CTAs: the host derives the runs from the
+table (:func:`schedule_runs`) and launches one CTA per (run, head).
+Every schedule keeps the JAX package's layout, and each device upload
+carries its runs beside it (:class:`PageSchedule`).
+
+All three mask with the finite :data:`DEFAULT_MASK_VALUE`, never -inf,
+so a fully masked row comes out finite (the mean of the values it
+visited), as on the TPU.  The decode kernel stops at a slot's last live
+page (``lp <= pos // page_size``): every later page is masked by
+position and adds exactly zero to a finite state, so the result is that
+of the full walk.
+
+Limits of the CUDA kernels: head widths ``Dk, Dv <= 128`` (``Dk`` a
+multiple of 4) and at most 256 query rows per CTA (``bq`` for
+``sfc_flash_attention``, ``g`` for decode, ``page_size * g`` for prefill).
+The plain versions take any shape.
+"""
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import register_schedule_cache
+from repro_torch.core.program import GpuProgram
+
+from ._build import call, stream_of
+from .launch import cta_chunks, launch, require, shuffled_ctas
+
+DEFAULT_MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the CUDA kernels' limits (csrc/attention.cu: MAX_D, MAX_ROWS)
+MAX_HEAD_DIM = 128
+MAX_ROWS = 256
+
+__all__ = [
+    "DEFAULT_MASK_VALUE",
+    "PageSchedule",
+    "attention_schedule_device",
+    "causal_schedule",
+    "decode_page_schedule",
+    "decode_page_schedule_device",
+    "flash_attention_decode",
+    "flash_attention_prefill",
+    "flash_attention_swizzled",
+    "full_schedule",
+    "prefill_page_schedule",
+    "prefill_page_schedule_device",
+    "schedule_runs",
+]
+
+
+# ---------------------------------------------------------------------------
+# schedules (numpy host tables, the JAX package's layouts)
+# ---------------------------------------------------------------------------
+
+def causal_schedule(qt: int, kt_per_q, *, serpentine: bool = True) -> np.ndarray:
+    """FGF jump-over schedule for causal attention tiles.
+
+    ``kt_per_q``: either an int function-like (q -> #kv tiles) or None for
+    the standard causal triangle (kv_tile <= q_tile).  Returns
+    int32[steps, 4] (q, kv, first, last).
+    """
+    rows = []
+    for q in range(qt):
+        hi = q + 1 if kt_per_q is None else int(kt_per_q(q))
+        kvs = list(range(hi))
+        if serpentine and (q % 2 == 1):
+            kvs.reverse()
+        for pos, kv in enumerate(kvs):
+            rows.append((q, kv, 1 if pos == 0 else 0, 1 if pos == len(kvs) - 1 else 0))
+    return np.asarray(rows, dtype=np.int32)
+
+
+def full_schedule(qt: int, kt: int, *, serpentine: bool = True) -> np.ndarray:
+    """Non-causal (encoder) schedule: full rectangle, serpentine kv."""
+    return causal_schedule(qt, lambda q: kt, serpentine=serpentine)
+
+
+def decode_page_schedule(
+    num_slots: int, max_pages: int, slot_order: tuple[int, ...] | None = None
+) -> np.ndarray:
+    """Schedule for the paged decode kernel: int32[steps, 4] rows of
+    (slot, logical_page, first, last).
+
+    Every slot visits its logical pages 0..max_pages-1 in order (one run
+    per slot; first/last flag its boundaries), so ONE static table serves
+    every ragged fill state.  Physical placement is the page table's job
+    (:mod:`repro_torch.serve.kv_pages` lays (slot, page) out along the
+    Hilbert map).
+    """
+    order = range(num_slots) if slot_order is None else slot_order
+    rows = []
+    for slot in order:
+        for lp in range(max_pages):
+            rows.append(
+                (slot, lp, 1 if lp == 0 else 0, 1 if lp == max_pages - 1 else 0)
+            )
+    return np.asarray(rows, dtype=np.int32)
+
+
+def prefill_page_schedule(
+    pos0,
+    n_new,
+    page_size: int,
+    max_pages: int,
+    bq: int | None = None,
+) -> np.ndarray:
+    """Schedule for the paged prefill kernel: int32[steps, 6] rows of
+    (slot, q_tile, logical_page, first, last, valid).
+
+    Each slot contributes ``ceil(n_new/bq)`` q tiles, and q tile ``t``
+    visits logical pages ``0..(last position in the tile) // page_size``
+    — the causal triangle at page granularity.  Slots with ``n_new == 0``
+    contribute nothing.  Steps are padded to the next power of two with
+    ``valid=0`` rows, which no kernel visits.
+    """
+    bq = page_size if bq is None else bq
+    rows = []
+    for slot, (p0, nn) in enumerate(zip(pos0, n_new)):
+        p0, nn = int(p0), int(nn)
+        if nn <= 0:
+            continue
+        n_qt = -(-nn // bq)
+        for qt in range(n_qt):
+            q_hi = p0 + min((qt + 1) * bq, nn) - 1  # last live q position
+            lp_hi = min(q_hi // page_size, max_pages - 1)
+            for lp in range(lp_hi + 1):
+                rows.append(
+                    (slot, qt, lp, 1 if lp == 0 else 0,
+                     1 if lp == lp_hi else 0, 1)
+                )
+    if not rows:
+        rows = [(0, 0, 0, 0, 0, 0)]
+    out = np.asarray(rows, dtype=np.int32)
+    steps = out.shape[0]
+    bucket = 1 << max(steps - 1, 0).bit_length()
+    if bucket != steps:
+        out = np.concatenate(
+            [out, np.zeros((bucket - steps, 6), dtype=np.int32)], axis=0
+        )
+    return out
+
+
+def schedule_runs(table: np.ndarray, first_col: int, last_col: int,
+                  valid_col: int | None = None) -> np.ndarray:
+    """The CTA runs of a flash schedule: int32[n_runs, 2] rows of (first
+    row, number of rows), one per ``first`` row in table order.
+
+    A run is the rows from a ``first`` row to the next ``last`` row: one q
+    tile's (or slot's) whole kv walk, whose online-softmax state the TPU
+    carried across grid steps and a CTA keeps to itself.  Rows with
+    ``valid == 0`` belong to no run.  Raises on a table whose flags do
+    not pair up.
+    """
+    t = np.asarray(table)
+    first = t[:, first_col] == 1
+    last = t[:, last_col] == 1
+    if valid_col is not None:
+        first &= t[:, valid_col] == 1
+        last &= t[:, valid_col] == 1
+    starts, ends = np.flatnonzero(first), np.flatnonzero(last)
+    if len(starts) != len(ends) or (ends < starts).any() or (starts[1:] <= ends[:-1]).any():
+        raise ValueError("schedule: first/last flags do not pair into runs")
+    return np.stack([starts, ends - starts + 1], axis=1).astype(np.int32).reshape(-1, 2)
+
+
+class PageSchedule(NamedTuple):
+    """A flash schedule on a device: the JAX layout's ``table`` and the
+    ``runs`` a launch takes from it (:func:`schedule_runs`).  Cached: do
+    not mutate."""
+
+    table: torch.Tensor
+    runs: torch.Tensor
+
+
+def _upload(table: np.ndarray, runs: np.ndarray, device: str) -> PageSchedule:
+    return PageSchedule(
+        torch.as_tensor(np.array(table), dtype=torch.int32, device=device),
+        torch.as_tensor(np.array(runs), dtype=torch.int32, device=device),
+    )
+
+
+@register_schedule_cache
+@functools.lru_cache(maxsize=64)
+def _attention_schedule_dev(qt: int, kt: int, causal: bool, serpentine: bool,
+                            device: str) -> PageSchedule:
+    sched = (causal_schedule(qt, None, serpentine=serpentine) if causal
+             else full_schedule(qt, kt, serpentine=serpentine))
+    return _upload(sched, schedule_runs(sched, 2, 3), device)
+
+
+def attention_schedule_device(qt: int, kt: int, *, causal: bool, serpentine: bool = True,
+                              device="cuda") -> PageSchedule:
+    """:func:`causal_schedule` (or :func:`full_schedule`) of a (qt, kt)
+    tile grid with its runs, uploaded once per (grid, mask, order,
+    device)."""
+    return _attention_schedule_dev(int(qt), int(kt), bool(causal), bool(serpentine),
+                                   str(torch.device(device)))
+
+
+@register_schedule_cache
+@functools.lru_cache(maxsize=64)
+def _decode_page_schedule_cached(
+    num_slots: int, max_pages: int, slot_order: tuple[int, ...] | None = None
+) -> np.ndarray:
+    return decode_page_schedule(num_slots, max_pages, slot_order)
+
+
+@register_schedule_cache
+@functools.lru_cache(maxsize=64)
+def _decode_page_schedule_dev(
+    num_slots: int, max_pages: int, slot_order: tuple[int, ...] | None, device: str,
+) -> PageSchedule:
+    sched = _decode_page_schedule_cached(num_slots, max_pages, slot_order)
+    return _upload(sched, schedule_runs(sched, 2, 3), device)
+
+
+def decode_page_schedule_device(
+    num_slots: int, max_pages: int, slot_order: tuple[int, ...] | None = None, *,
+    device="cuda",
+) -> PageSchedule:
+    """:func:`decode_page_schedule` on ``device``, LRU-cached per
+    (num_slots, max_pages, slot_order, device): the table is static over
+    every ragged fill state, so it is uploaded once, not once per tick."""
+    if slot_order is not None:
+        slot_order = tuple(int(s) for s in slot_order)
+    return _decode_page_schedule_dev(int(num_slots), int(max_pages), slot_order,
+                                     str(torch.device(device)))
+
+
+@register_schedule_cache
+@functools.lru_cache(maxsize=128)
+def _prefill_page_schedule_dev(
+    pos0: tuple, n_new: tuple, page_size: int, max_pages: int, bq: int, device: str,
+) -> PageSchedule:
+    sched = prefill_page_schedule(pos0, n_new, page_size, max_pages, bq)
+    return _upload(sched, schedule_runs(sched, 3, 4, valid_col=5), device)
+
+
+def prefill_page_schedule_device(
+    pos0, n_new, page_size: int, max_pages: int, bq: int | None = None, *,
+    device="cuda",
+) -> PageSchedule:
+    """:func:`prefill_page_schedule` on ``device`` (LRU per cohort shape
+    and device)."""
+    bq = page_size if bq is None else bq
+    return _prefill_page_schedule_dev(
+        tuple(int(p) for p in pos0), tuple(int(n) for n in n_new),
+        int(page_size), int(max_pages), int(bq), str(torch.device(device)),
+    )
+
+
+# ---------------------------------------------------------------------------
+# the plain online-softmax walk (the tile-walk twin of every kernel here)
+# ---------------------------------------------------------------------------
+
+def _online_walk(q, step, n_steps: int, lens, qlim, klim, scale: float):
+    """The JAX kernels' per-row-of-table math for a batch of CTAs.
+
+    q: (C, R, Dk) f32 query rows of C CTAs; ``step(s)`` gives the s-th kv
+    tile of every CTA's run: (k (C, T, Dk) f32, v (C, T, Dv) f32, kv
+    positions (C, T)).  ``lens`` (C,): steps in each run (a CTA past its
+    run keeps its state).  A score is kept where its kv position is
+    ``<= qlim`` (C, R) and ``< klim`` (C,), else set to
+    :data:`DEFAULT_MASK_VALUE`.  Returns acc / l, (C, R, Dv) f32.
+    """
+    acc = m = l = None
+    for s in range(n_steps):
+        k, v, kpos = step(s)
+        if acc is None:
+            C, R = q.shape[:2]
+            acc = torch.zeros((C, R, v.shape[-1]), dtype=torch.float32, device=q.device)
+            m = torch.full((C, R, 1), float("-inf"), dtype=torch.float32, device=q.device)
+            l = torch.zeros((C, R, 1), dtype=torch.float32, device=q.device)
+        scores = torch.bmm(q, k.transpose(1, 2)) * scale
+        keep = (kpos[:, None, :] <= qlim[:, :, None]) & (kpos[:, None, :] < klim[:, None, None])
+        scores = torch.where(keep, scores, DEFAULT_MASK_VALUE)
+        m_new = torch.maximum(m, scores.amax(dim=2, keepdim=True))
+        p = torch.exp(scores - m_new)
+        alpha = torch.exp(m - m_new)
+        l_new = alpha * l + p.sum(dim=2, keepdim=True)
+        acc_new = acc * alpha + torch.bmm(p, v)
+        live = (s < lens)[:, None, None]
+        acc = torch.where(live, acc_new, acc)
+        m = torch.where(live, m_new, m)
+        l = torch.where(live, l_new, l)
+    return acc / l
+
+
+def _run_rows(sched: torch.Tensor, runs: torch.Tensor, run_ids: torch.Tensor, s: int) -> torch.Tensor:
+    """The table row of step ``s`` of each run (clamped to the run's last
+    row for runs shorter than s + 1)."""
+    start, n = runs[run_ids, 0], runs[run_ids, 1]
+    return sched[start + torch.minimum(torch.full_like(n, s), n - 1)]
+
+
+_INT_MAX = torch.iinfo(torch.int32).max
+
+
+def _check_kernel_shape(program: GpuProgram, dk: int, dv: int, rows: int) -> None:
+    if dk > MAX_HEAD_DIM or dv > MAX_HEAD_DIM or dk % 4:
+        raise ValueError(
+            f"{program.name}: head widths Dk={dk}, Dv={dv} are outside the CUDA "
+            f"kernel's limit (Dk, Dv <= {MAX_HEAD_DIM}, Dk % 4 == 0)"
+        )
+    if rows > MAX_ROWS:
+        raise ValueError(
+            f"{program.name}: {rows} query rows per CTA exceed the CUDA kernel's "
+            f"limit of {MAX_ROWS}"
+        )
+
+
+# ---------------------------------------------------------------------------
+# row 20: (BH, S, D) attention over a jump-over tile schedule
+# ---------------------------------------------------------------------------
+
+def _attention_cuda(program: GpuProgram, q, k, v, seqlen=None):
+    p = program.params
+    BH, S, D = q.shape
+    require(program, q, "q", dtypes=tuple(_DTYPE_CODE))
+    require(program, k, "k", dtypes=(q.dtype,), shape=(BH, S, D))
+    require(program, v, "v", dtypes=(q.dtype,), shape=(BH, S, D))
+    require(program, program.schedule, "schedule", dtypes=(torch.int32,))
+    require(program, p["runs"], "runs", dtypes=(torch.int32,))
+    if seqlen is not None:
+        require(program, seqlen, "kv_seqlen", dtypes=(torch.int32,), shape=(BH,))
+    _check_kernel_shape(program, D, D, p["bq"])
+    o = torch.empty_like(q)
+    call(
+        "sfc_flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        program.schedule.data_ptr(), p["runs"].data_ptr(), *program.grid, S, D,
+        p["bq"], p["bkv"], int(p["causal"]), -1 if p["kv_valid"] is None else p["kv_valid"],
+        0 if seqlen is None else seqlen.data_ptr(), p["sm_scale"], _DTYPE_CODE[q.dtype],
+        stream_of(q),
+    )
+    return o
+
+
+def _attention_plain(program: GpuProgram, q, k, v, seqlen=None):
+    p = program.params
+    bq, bkv = p["bq"], p["bkv"]
+    BH, S, D = q.shape
+    qf, kf, vf = q.float(), k.float(), v.float()
+    sched, runs = program.schedule.long(), p["runs"].long()
+    n_runs = runs.shape[0]
+    o = torch.empty_like(q)
+    ar_q = torch.arange(bq, device=q.device)
+    ar_k = torch.arange(bkv, device=q.device)
+    klim_all = torch.full((BH,), _INT_MAX, dtype=torch.long, device=q.device)
+    if p["kv_valid"] is not None:
+        klim_all = torch.clamp(klim_all, max=p["kv_valid"])
+    if seqlen is not None:
+        klim_all = torch.minimum(klim_all, seqlen.long())
+    order = shuffled_ctas(n_runs * BH, q.device)
+    for chunk in cta_chunks(order, (bq + 2 * bkv) * D + bq * bkv):
+        run, bh = chunk // BH, chunk % BH
+        qt = sched[runs[run, 0], 0]
+        qrows = qt[:, None] * bq + ar_q  # (C, bq)
+        qlim = qrows if p["causal"] else torch.full_like(qrows, _INT_MAX)
+        lens = runs[run, 1]
+
+        def step(s, run=run, bh=bh):
+            kpos = _run_rows(sched, runs, run, s)[:, 1, None] * bkv + ar_k  # (C, bkv)
+            return kf[bh[:, None], kpos], vf[bh[:, None], kpos], kpos
+
+        out = _online_walk(qf[bh[:, None], qrows], step, int(lens.max()), lens, qlim,
+                           klim_all[bh], p["sm_scale"])
+        o[bh[:, None], qrows] = out.to(o.dtype)
+    return o
+
+
+def flash_attention_program(
+    schedule: PageSchedule, q: torch.Tensor, *, causal: bool, sm_scale: float,
+    bq: int, bkv: int, kv_valid: int | None,
+) -> GpuProgram:
+    """The ``sfc_flash_attention`` declaration: one CTA per (run, bh)."""
+    BH, S, _D = q.shape
+    if S % bq or S % bkv:
+        raise ValueError(f"S={S} is not a multiple of bq={bq} and bkv={bkv}")
+    table = schedule.table
+    if table.dim() != 2 or table.shape[1] != 4:
+        raise ValueError(f"schedule {tuple(table.shape)} is not a (q, kv, first, last) table")
+    return GpuProgram(
+        name="sfc_flash_attention",
+        schedule=table,
+        launcher=_attention_cuda,
+        plain=_attention_plain,
+        grid=(int(schedule.runs.shape[0]), BH),
+        params={"runs": schedule.runs, "causal": bool(causal), "sm_scale": float(sm_scale),
+                "bq": bq, "bkv": bkv, "kv_valid": kv_valid},
+        columns=("q_tile", "kv_tile", "first", "last"),
+    )
+
+
+def flash_attention_swizzled(
+    schedule: PageSchedule,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    sm_scale: float | None = None,
+    bq: int = 128,
+    bkv: int = 128,
+    kv_valid: int | None = None,
+    kv_seqlen: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Attention over (BH, S, D) tensors with a jump-over tile schedule
+    (:func:`attention_schedule_device`).
+
+    ``kv_valid``: true sequence length when S carries block padding; kv
+    positions >= kv_valid are masked.  ``kv_seqlen``: int32[BH]
+    per-sequence valid lengths; q rows at positions past their
+    sequence's length see an all-masked row (finite, but meaningless:
+    ``ops.attention`` zeroes them via ``q_seqlen``).  Returns (BH, S, D)
+    in q's dtype.
+    """
+    BH, S, D = q.shape
+    if tuple(k.shape) != (BH, S, D) or tuple(v.shape) != (BH, S, D):
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} differ")
+    if sm_scale is None:
+        sm_scale = 1.0 / float(np.sqrt(D))
+    program = flash_attention_program(schedule, q, causal=causal, sm_scale=sm_scale,
+                                      bq=bq, bkv=bkv, kv_valid=kv_valid)
+    if kv_seqlen is not None:
+        kv_seqlen = kv_seqlen.to(device=q.device, dtype=torch.int32).contiguous()
+    return launch(program, q.contiguous(), k.contiguous(), v.contiguous(), *(
+        () if kv_seqlen is None else (kv_seqlen,)))
+
+
+# ---------------------------------------------------------------------------
+# row 21: one decode step against a paged KV pool
+# ---------------------------------------------------------------------------
+
+def _decode_cuda(program: GpuProgram, page_table, pos, q, k_pages, v_pages):
+    p = program.params
+    B, Hkv, g, Dk = q.shape
+    P, ps = k_pages.shape[:2]
+    Dv = v_pages.shape[-1]
+    MP = page_table.shape[1]
+    require(program, q, "q", dtypes=tuple(_DTYPE_CODE))
+    require(program, k_pages, "k_pages", dtypes=(q.dtype,), shape=(P, ps, Hkv, Dk))
+    require(program, v_pages, "v_pages", dtypes=(q.dtype,), shape=(P, ps, Hkv, Dv))
+    require(program, page_table, "page_table", dtypes=(torch.int32,), shape=(B, MP))
+    require(program, pos, "pos", dtypes=(torch.int32,), shape=(B,))
+    require(program, program.schedule, "schedule", dtypes=(torch.int32,))
+    require(program, p["runs"], "runs", dtypes=(torch.int32,))
+    _check_kernel_shape(program, Dk, Dv, g)
+    o = torch.empty((B, Hkv, g, Dv), dtype=q.dtype, device=q.device)
+    call(
+        "sfc_flash_decode", q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), o.data_ptr(),
+        program.schedule.data_ptr(), p["runs"].data_ptr(), *program.grid,
+        page_table.data_ptr(), pos.data_ptr(), g, Dk, Dv, ps, MP, p["sm_scale"],
+        _DTYPE_CODE[q.dtype], stream_of(q),
+    )
+    return o
+
+
+def _decode_plain(program: GpuProgram, page_table, pos, q, k_pages, v_pages):
+    p = program.params
+    B, Hkv, g, Dk = q.shape
+    ps = k_pages.shape[1]
+    Dv = v_pages.shape[-1]
+    MP = page_table.shape[1]
+    sched, runs = program.schedule.long(), p["runs"].long()
+    pt, posl = page_table.long(), pos.long()
+    qf, kf, vf = q.float(), k_pages.float(), v_pages.float()
+    o = torch.empty((B, Hkv, g, Dv), dtype=q.dtype, device=q.device)
+    ar = torch.arange(ps, device=q.device)
+    n_runs = runs.shape[0]
+    order = shuffled_ctas(n_runs * Hkv, q.device)
+    for chunk in cta_chunks(order, g * Dk + ps * (Dk + Dv) * MP):
+        run, h = chunk // Hkv, chunk % Hkv
+        slot = sched[runs[run, 0], 0]
+        # the kernel's walk: the slot's pages up to its last live one
+        last = torch.where(posl[slot] >= 0, torch.clamp(posl[slot] // ps, max=MP - 1), MP - 1)
+        lens = torch.minimum(runs[run, 1], last + 1)
+        qlim = posl[slot][:, None].expand(-1, g)
+
+        def step(s, run=run, h=h, slot=slot):
+            lp = _run_rows(sched, runs, run, s)[:, 1]
+            phys = pt[slot, lp]
+            kpos = lp[:, None] * ps + ar
+            return kf[phys, :, h], vf[phys, :, h], kpos
+
+        out = _online_walk(qf[slot, h], step, int(lens.max()), lens, qlim,
+                           torch.full_like(slot, _INT_MAX), p["sm_scale"])
+        o[slot, h] = out.to(o.dtype)
+    return o
+
+
+def flash_decode_program(schedule: PageSchedule, q: torch.Tensor, *, sm_scale: float) -> GpuProgram:
+    """The ``sfc_flash_decode`` declaration: one CTA per (slot run, kv
+    head), serving the g query heads of its group."""
+    Hkv = q.shape[1]
+    table = schedule.table
+    if table.dim() != 2 or table.shape[1] != 4:
+        raise ValueError(f"schedule {tuple(table.shape)} is not a (slot, page, first, last) table")
+    return GpuProgram(
+        name="sfc_flash_decode",
+        schedule=table,
+        launcher=_decode_cuda,
+        plain=_decode_plain,
+        grid=(int(schedule.runs.shape[0]), Hkv),
+        params={"runs": schedule.runs, "sm_scale": float(sm_scale)},
+        columns=("slot", "logical_page", "first", "last"),
+    )
+
+
+def flash_attention_decode(
+    schedule: PageSchedule,
+    page_table: torch.Tensor,
+    pos: torch.Tensor,
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    *,
+    sm_scale: float | None = None,
+) -> torch.Tensor:
+    """One decode step of attention against a PAGED KV cache.
+
+    q: (B, Hkv, g, Dk) — the B slots' single-token queries, grouped GQA
+    layout.  k_pages/v_pages: (P, page_size, Hkv, Dk/Dv) physical pools;
+    page_table: int32[B, max_pages] logical→physical map; pos: int32[B]
+    per-slot positions (the entry at pos is live, later positions are
+    masked).  schedule: :func:`decode_page_schedule_device`.  Returns
+    (B, Hkv, g, Dv) in q's dtype.
+    """
+    B, Hkv, g, Dk = q.shape
+    if k_pages.shape[2:] != (Hkv, Dk) or v_pages.shape[:3] != k_pages.shape[:3]:
+        raise ValueError(f"pools {tuple(k_pages.shape)}/{tuple(v_pages.shape)} do not match q {tuple(q.shape)}")
+    if sm_scale is None:
+        sm_scale = 1.0 / float(np.sqrt(Dk))
+    program = flash_decode_program(schedule, q, sm_scale=sm_scale)
+    return launch(
+        program, page_table.to(torch.int32).contiguous(), pos.to(torch.int32).contiguous(),
+        q.contiguous(), k_pages, v_pages,
+    )
+
+
+# ---------------------------------------------------------------------------
+# row 22: batched causal prefill against a paged KV pool
+# ---------------------------------------------------------------------------
+
+def _prefill_cuda(program: GpuProgram, page_table, pos0, q, k_pages, v_pages):
+    p = program.params
+    B, Tq, Hkv, g, Dk = q.shape
+    P, ps = k_pages.shape[:2]
+    Dv = v_pages.shape[-1]
+    MP = page_table.shape[1]
+    require(program, q, "q", dtypes=tuple(_DTYPE_CODE))
+    require(program, k_pages, "k_pages", dtypes=(q.dtype,), shape=(P, ps, Hkv, Dk))
+    require(program, v_pages, "v_pages", dtypes=(q.dtype,), shape=(P, ps, Hkv, Dv))
+    require(program, page_table, "page_table", dtypes=(torch.int32,), shape=(B, MP))
+    require(program, pos0, "pos0", dtypes=(torch.int32,), shape=(B,))
+    require(program, program.schedule, "schedule", dtypes=(torch.int32,))
+    require(program, p["runs"], "runs", dtypes=(torch.int32,))
+    _check_kernel_shape(program, Dk, Dv, ps * g)
+    # rows that no run covers stay unwritten, as on the TPU
+    o = torch.empty((B, Tq, Hkv, g, Dv), dtype=q.dtype, device=q.device)
+    if program.grid[0]:
+        call(
+            "sfc_flash_prefill", q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), o.data_ptr(),
+            program.schedule.data_ptr(), p["runs"].data_ptr(), *program.grid,
+            page_table.data_ptr(), pos0.data_ptr(), Tq, g, Dk, Dv, ps, MP, p["sm_scale"],
+            _DTYPE_CODE[q.dtype], stream_of(q),
+        )
+    return o
+
+
+def _prefill_plain(program: GpuProgram, page_table, pos0, q, k_pages, v_pages):
+    """Tile walk of every run; rows no run covers are NaN (the kernel
+    leaves them unwritten), so a caller that reads them fails here too."""
+    p = program.params
+    B, Tq, Hkv, g, Dk = q.shape
+    ps = k_pages.shape[1]
+    Dv = v_pages.shape[-1]
+    bq = ps
+    sched, runs = program.schedule.long(), p["runs"].long()
+    pt, p0 = page_table.long(), pos0.long()
+    qf, kf, vf = q.float(), k_pages.float(), v_pages.float()
+    o = torch.full((B, Tq, Hkv, g, Dv), float("nan"), dtype=q.dtype, device=q.device)
+    ar_k = torch.arange(ps, device=q.device)
+    ar_r = torch.arange(bq * g, device=q.device)
+    n_runs = runs.shape[0]
+    order = shuffled_ctas(n_runs * Hkv, q.device)
+    for chunk in cta_chunks(order, bq * g * (Dk + Dv + ps) + ps * (Dk + Dv)):
+        run, h = chunk // Hkv, chunk % Hkv
+        head = sched[runs[run, 0]]
+        slot, qt = head[:, 0], head[:, 1]
+        toks = qt[:, None] * bq + torch.arange(bq, device=q.device)  # (C, bq)
+        # row r of the CTA's (bq * g, Dk) block: token r // g, head r % g
+        qlim = p0[slot][:, None] + qt[:, None] * bq + ar_r // g
+        lens = runs[run, 1]
+
+        def step(s, run=run, h=h, slot=slot):
+            lp = _run_rows(sched, runs, run, s)[:, 2]
+            phys = pt[slot, lp]
+            return kf[phys, :, h], vf[phys, :, h], lp[:, None] * ps + ar_k
+
+        qblk = qf[slot[:, None], toks, h[:, None]].reshape(len(chunk), bq * g, Dk)
+        out = _online_walk(qblk, step, int(lens.max()), lens, qlim,
+                           torch.full_like(slot, _INT_MAX), p["sm_scale"])
+        o[slot[:, None], toks, h[:, None]] = out.reshape(len(chunk), bq, g, Dv).to(o.dtype)
+    return o
+
+
+def flash_prefill_program(schedule: PageSchedule, q: torch.Tensor, *, page_size: int,
+                          sm_scale: float) -> GpuProgram:
+    """The ``sfc_flash_prefill`` declaration: one CTA per (run, kv head);
+    a run is one (slot, q tile) of ``page_size`` tokens."""
+    Tq, Hkv = q.shape[1], q.shape[2]
+    if Tq % page_size:
+        raise ValueError(f"Tq={Tq} is not a multiple of the page size {page_size}")
+    table = schedule.table
+    if table.dim() != 2 or table.shape[1] != 6:
+        raise ValueError(f"schedule {tuple(table.shape)} is not a prefill page table")
+    return GpuProgram(
+        name="sfc_flash_prefill",
+        schedule=table,
+        launcher=_prefill_cuda,
+        plain=_prefill_plain,
+        grid=(int(schedule.runs.shape[0]), Hkv),
+        params={"runs": schedule.runs, "sm_scale": float(sm_scale)},
+        columns=("slot", "q_tile", "logical_page", "first", "last", "valid"),
+    )
+
+
+def flash_attention_prefill(
+    schedule: PageSchedule,
+    page_table: torch.Tensor,
+    pos0: torch.Tensor,
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    *,
+    sm_scale: float | None = None,
+) -> torch.Tensor:
+    """Batched causal prefill attention against a PAGED KV cache.
+
+    q: (B, Tq, Hkv, g, Dk) — each slot's Tq new prompt tokens in grouped
+    GQA layout (token i at absolute position ``pos0[slot] + i``).  Tq
+    must be a multiple of the page size (q tiles align to kv pages).  The
+    cohort's new K/V must already be in the pools.  schedule:
+    :func:`prefill_page_schedule_device`.  Returns (B, Tq, Hkv, g, Dv);
+    rows that no run of the schedule covers are left unwritten.
+    """
+    B, Tq, Hkv, g, Dk = q.shape
+    if k_pages.shape[2:] != (Hkv, Dk) or v_pages.shape[:3] != k_pages.shape[:3]:
+        raise ValueError(f"pools {tuple(k_pages.shape)}/{tuple(v_pages.shape)} do not match q {tuple(q.shape)}")
+    if sm_scale is None:
+        sm_scale = 1.0 / float(np.sqrt(Dk))
+    program = flash_prefill_program(schedule, q, page_size=k_pages.shape[1], sm_scale=sm_scale)
+    return launch(
+        program, page_table.to(torch.int32).contiguous(), pos0.to(torch.int32).contiguous(),
+        q.contiguous(), k_pages, v_pages,
+    )

@@ -20,6 +20,9 @@ not carry over: matmul ``bm = bn = 128, bk = 16`` (``bk = 128`` with
 ε-join ``bp = 128`` (see each kernel module's docstring).
 Floyd–Warshall and Cholesky keep the JAX defaults (``b = 128``,
 ``curve = "hilbert"``, ``fused = True``); their kernels take b ≤ 128.
+Attention keeps the JAX defaults too (``bq = bkv = 128``, serpentine kv
+order); the flash kernels take head widths up to 128 and at most 256
+query rows per CTA (see :mod:`repro_torch.kernels.attention`).
 
 The kernels of the phased applications update their matrix in place, so
 ``floyd_warshall`` and ``cholesky`` copy the caller's matrix exactly once
@@ -33,6 +36,8 @@ slice that brings it): ``mesh=`` and ``choice=``.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -45,6 +50,14 @@ from repro_torch.core import (
 )
 
 from . import ref
+from .attention import (
+    attention_schedule_device,
+    decode_page_schedule_device,
+    flash_attention_decode,
+    flash_attention_prefill,
+    flash_attention_swizzled,
+    prefill_page_schedule_device,
+)
 from .cholesky import cholesky_blocked, cholesky_blocked_reference
 from .floyd_warshall import _CHUNK as _FW_CHUNK
 from .floyd_warshall import floyd_warshall_blocked, floyd_warshall_blocked_reference
@@ -183,6 +196,164 @@ def matmul(
         sched = tile_schedule_device(curve, (mt, nt), device=ap.device)
         out = matmul_swizzled(sched, ap, bp, bm=bm, bn=bn, bk=bk, out_dtype=out_dtype)
     return out[:M, :N]
+
+
+MASK_TYPES = ("none", "causal", "padding", "padding_causal")
+
+
+def attention(
+    q,
+    k,
+    v,
+    *,
+    causal: bool = True,
+    mask_type: str | None = None,
+    kv_seqlen=None,
+    q_seqlen=None,
+    sm_scale: float | None = None,
+    bq: int = 128,
+    bkv: int = 128,
+    serpentine: bool = True,
+    device=None,
+) -> torch.Tensor:
+    """Flash attention over (B, H, S, D) with FGF jump-over scheduling.
+
+    * ``mask_type`` — one of ``"none" | "causal" | "padding" |
+      "padding_causal"``; overrides the ``causal`` flag.  The padding
+      variants require ``kv_seqlen``.
+    * ``kv_seqlen`` — int32[B] per-sequence valid KV lengths.
+    * ``q_seqlen`` — int32[B] valid query lengths; rows past a sequence's
+      length are zeroed in the output.
+
+    GQA: k/v with fewer heads are expanded here.  Ragged S is zero-padded
+    to the tile lattice (the smaller block rounded to divide the larger)
+    and the kv tail masked in the kernel; padded q rows are sliced off.
+    """
+    q = _to_device(q, device)
+    k = _to_device(k, device, like=q)
+    v = _to_device(v, device, like=q)
+    B, H, S, D = q.shape
+    Hkv = k.shape[1]
+    if mask_type is not None:
+        if mask_type not in MASK_TYPES:
+            raise ValueError(f"mask_type {mask_type!r}; one of {MASK_TYPES}")
+        causal = mask_type in ("causal", "padding_causal")
+        if "padding" in mask_type and kv_seqlen is None:
+            raise ValueError(f"mask_type {mask_type!r} requires kv_seqlen")
+    if Hkv != H:
+        if H % Hkv:
+            raise ValueError(f"{H} query heads are not a multiple of {Hkv} kv heads")
+        k = k.repeat_interleave(H // Hkv, dim=1)
+        v = v.repeat_interleave(H // Hkv, dim=1)
+    bq = min(bq, S)
+    bkv = min(bkv, S)
+    if causal and bq != bkv:
+        raise ValueError("the causal schedule takes square tiles (bq == bkv)")
+    # make the smaller block divide the larger (round the larger down), so
+    # the common tile lattice is max(bq, bkv)
+    if bq % bkv and bkv % bq:
+        if bq > bkv:
+            bq = bq // bkv * bkv
+        else:
+            bkv = bkv // bq * bq
+    lcm = bq * bkv // math.gcd(bq, bkv)
+    Sp = -(-S // lcm) * lcm
+    if Sp != S:
+        pad = (0, 0, 0, Sp - S)
+        q, k, v = F.pad(q, pad), F.pad(k, pad), F.pad(v, pad)
+    sched = attention_schedule_device(Sp // bq, Sp // bkv, causal=causal, serpentine=serpentine,
+                                      device=q.device)
+    seq_bh = None
+    if kv_seqlen is not None:
+        seq_bh = _to_device(kv_seqlen, None, like=q).to(torch.int32).repeat_interleave(H)
+    out = flash_attention_swizzled(
+        sched,
+        q.reshape(B * H, Sp, D),
+        k.reshape(B * H, Sp, D),
+        v.reshape(B * H, Sp, D),
+        causal=causal,
+        sm_scale=sm_scale,
+        bq=bq,
+        bkv=bkv,
+        kv_valid=S if Sp != S else None,
+        kv_seqlen=seq_bh,
+    )
+    out = out.reshape(B, H, Sp, D)[:, :, :S]
+    if q_seqlen is not None:
+        qs = _to_device(q_seqlen, None, like=q).to(torch.int32)
+        rows = torch.arange(S, dtype=torch.int32, device=q.device)[None] < qs[:, None]
+        out = torch.where(rows[:, None, :, None], out, torch.zeros((), dtype=out.dtype, device=out.device))
+    return out
+
+
+def attention_decode(
+    q,
+    k_pages,
+    v_pages,
+    page_table,
+    pos,
+    *,
+    sm_scale: float | None = None,
+    slot_order: tuple[int, ...] | None = None,
+    device=None,
+) -> torch.Tensor:
+    """One serving decode step against a PAGED KV cache.
+
+    q: (B, Hkv, g, Dk) grouped single-token queries; k_pages/v_pages:
+    (P, page_size, Hkv, Dk/Dv) physical pools; ``page_table`` int32[B,
+    max_pages] and ``pos`` int32[B].  The decode table is cached per
+    (B, max_pages, slot_order, device).  Returns (B, Hkv, g, Dv).
+    """
+    q = _to_device(q, device)
+    k_pages = _to_device(k_pages, None, like=q)
+    v_pages = _to_device(v_pages, None, like=q)
+    page_table = _to_device(page_table, None, like=q)
+    pos = _to_device(pos, None, like=q)
+    sched = decode_page_schedule_device(
+        q.shape[0], page_table.shape[1],
+        tuple(slot_order) if slot_order is not None else None, device=q.device,
+    )
+    return flash_attention_decode(sched, page_table, pos, q, k_pages, v_pages, sm_scale=sm_scale)
+
+
+def attention_prefill(
+    q,
+    k_pages,
+    v_pages,
+    page_table,
+    pos0,
+    n_new=None,
+    *,
+    sm_scale: float | None = None,
+    schedule=None,
+    device=None,
+) -> torch.Tensor:
+    """Batched causal prefill against a PAGED KV cache: one launch attends
+    a whole cohort of prompts through the page table.
+
+    q: (B, Tq, Hkv, g, Dk) — Tq new prompt tokens per slot (token i at
+    absolute position ``pos0[slot] + i``).  ``pos0`` / ``n_new`` are the
+    cohort's host-side admission metadata from which the ragged page
+    schedule is built; or pass ``schedule=`` (a
+    :func:`~repro_torch.kernels.attention.prefill_page_schedule_device`
+    upload), as the engine does once per admission.  The new K/V must
+    already be in the pools.  Returns (B, Tq, Hkv, g, Dv); rows past a
+    slot's new-token count are padding (unwritten where no run covers
+    them: the models layer zeroes them).
+    """
+    q = _to_device(q, device)
+    k_pages = _to_device(k_pages, None, like=q)
+    v_pages = _to_device(v_pages, None, like=q)
+    page_table = _to_device(page_table, None, like=q)
+    if schedule is None:
+        if n_new is None:
+            raise ValueError("attention_prefill needs n_new or schedule=")
+        host = [x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x) for x in (pos0, n_new)]
+        schedule = prefill_page_schedule_device(*host, k_pages.shape[1], page_table.shape[1],
+                                                device=q.device)
+    pos0 = _to_device(pos0, None, like=q)
+    return flash_attention_prefill(schedule, page_table, pos0, q, k_pages, v_pages,
+                                   sm_scale=sm_scale)
 
 
 def kmeans_assign(
@@ -430,6 +601,6 @@ def cholesky(
 
 
 __all__ = [
-    "matmul", "kmeans_assign", "kmeans_lloyd", "simjoin_counts", "simjoin_pairs",
+    "matmul", "attention", "attention_decode", "attention_prefill", "kmeans_assign", "kmeans_lloyd", "simjoin_counts", "simjoin_pairs",
     "floyd_warshall", "cholesky", "ref",
 ]

@@ -33,6 +33,22 @@ def matmul(a: torch.Tensor, b: torch.Tensor, out_dtype=None) -> torch.Tensor:
     return torch.matmul(a.float(), b.float()).to(out_dtype)
 
 
+def attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+    sm_scale: float | None = None,
+) -> torch.Tensor:
+    """q/k/v: (BH, S, D); softmax attention in f32, cast to q's dtype."""
+    S, D = q.shape[1], q.shape[2]
+    if sm_scale is None:
+        sm_scale = 1.0 / float(np.sqrt(D))
+    scores = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * sm_scale
+    if causal:
+        mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        scores = scores.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
 def squared_distances(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     x = x.float()
     y = y.float()

@@ -1,0 +1,332 @@
+"""The port's flash-attention slice against the JAX package, on the CPU.
+
+Held to the bit: every schedule (host tables and the device uploads of
+both packages) and the runs a launch reads from each table.  Held to a
+tolerance: each kernel's plain version against the JAX Pallas kernel in
+interpret mode on the same seeded numpy inputs — f32 at rtol = atol =
+2e-5 (the same f32 online softmax, sums in another order), bf16 at
+2e-2 (one bf16 rounding of outputs of magnitude ~1) — and
+``ops.attention`` over all four mask types with GQA.  The ``cuda``-marked
+case holds each CUDA kernel against its plain version on the card; it
+skips without one.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import attention as jatt  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro_torch.core import schedule_cache_clear  # noqa: E402
+from repro_torch.kernels import LAUNCHES  # noqa: E402
+from repro_torch.kernels import attention as tatt  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+
+F32_TOL = dict(rtol=2e-5, atol=2e-5)
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+
+
+def _np(x):
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def _t(a, dtype=torch.float32):
+    return torch.as_tensor(np.asarray(a, np.float32)).to(dtype)
+
+
+def _close(got: torch.Tensor, want, dtype):
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    np.testing.assert_allclose(got.float().numpy(), _np(want), **tol)
+
+
+# ---------------------------------------------------------------------------
+# schedules and runs
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("qt,kt", [(1, 1), (3, 3), (5, 2), (8, 8)])
+@pytest.mark.parametrize("serpentine", [True, False])
+def test_attention_schedules_array_equal(qt, kt, serpentine):
+    np.testing.assert_array_equal(tatt.causal_schedule(qt, None, serpentine=serpentine),
+                                  jatt.causal_schedule(qt, None, serpentine=serpentine))
+    np.testing.assert_array_equal(tatt.full_schedule(qt, kt, serpentine=serpentine),
+                                  jatt.full_schedule(qt, kt, serpentine=serpentine))
+    for causal in (True, False):
+        dev = tatt.attention_schedule_device(qt, kt if not causal else qt, causal=causal,
+                                             serpentine=serpentine, device="cpu")
+        want = (jatt.causal_schedule(qt, None, serpentine=serpentine) if causal
+                else jatt.full_schedule(qt, kt, serpentine=serpentine))
+        assert dev.table.dtype == torch.int32
+        np.testing.assert_array_equal(dev.table.numpy(), want)
+
+
+@pytest.mark.parametrize("B,MP,order", [(1, 1, None), (3, 4, None), (4, 5, (2, 0, 3, 1))])
+def test_decode_schedules_array_equal(B, MP, order):
+    np.testing.assert_array_equal(tatt.decode_page_schedule(B, MP, order),
+                                  jatt.decode_page_schedule(B, MP, order))
+    schedule_cache_clear()
+    dev = tatt.decode_page_schedule_device(B, MP, order, device="cpu")
+    np.testing.assert_array_equal(dev.table.numpy(), np.asarray(jatt.decode_page_schedule_device(B, MP, order)))
+    # the LRU hands back the same upload
+    assert tatt.decode_page_schedule_device(B, MP, order, device="cpu").table is dev.table
+
+
+@pytest.mark.parametrize("pos0,n_new,ps,MP", [
+    ((0, 0), (5, 0), 4, 4),            # one inactive lane
+    ((3, 0, 9), (17, 4, 0), 4, 8),     # staggered resume positions
+    ((0,), (0,), 8, 2),                # nothing to prefill: one dummy row
+    ((6, 2, 0, 11), (9, 16, 1, 5), 8, 3),  # pages clamped at max_pages - 1
+])
+def test_prefill_schedules_array_equal(pos0, n_new, ps, MP):
+    want = jatt.prefill_page_schedule(pos0, n_new, ps, MP)
+    got = tatt.prefill_page_schedule(pos0, n_new, ps, MP)
+    np.testing.assert_array_equal(got, want)
+    steps = len(got)
+    assert steps & (steps - 1) == 0, "steps are padded to a power of two"
+    dev = tatt.prefill_page_schedule_device(pos0, n_new, ps, MP, device="cpu")
+    np.testing.assert_array_equal(dev.table.numpy(), np.asarray(jatt.prefill_page_schedule_device(pos0, n_new, ps, MP)))
+
+
+def _check_runs(table, runs, first_col, last_col, key_cols, valid_col=None):
+    """Every valid row lies in exactly one run; a run starts at a first
+    row, ends at a last row, and keeps one (q tile | slot | (slot, qt))."""
+    covered = np.zeros(len(table), dtype=int)
+    for start, n in runs:
+        rows = table[start:start + n]
+        assert rows[0, first_col] == 1 and rows[-1, last_col] == 1
+        assert (rows[1:, first_col] == 0).all() and (rows[:-1, last_col] == 0).all()
+        assert (rows[:, key_cols] == rows[0, key_cols]).all()
+        covered[start:start + n] += 1
+    valid = np.ones(len(table), bool) if valid_col is None else table[:, valid_col] == 1
+    np.testing.assert_array_equal(covered, valid.astype(int))
+
+
+def test_schedule_runs_are_the_launch_math():
+    for qt, serp in [(1, True), (6, True), (6, False)]:
+        t = tatt.causal_schedule(qt, None, serpentine=serp)
+        runs = tatt.schedule_runs(t, 2, 3)
+        assert len(runs) == qt
+        np.testing.assert_array_equal(runs[:, 1], np.arange(1, qt + 1))
+        _check_runs(t, runs, 2, 3, [0])
+        full = tatt.full_schedule(qt, 3, serpentine=serp)
+        fr = tatt.schedule_runs(full, 2, 3)
+        assert len(fr) == qt and (fr[:, 1] == 3).all()
+    d = tatt.decode_page_schedule(4, 5, (3, 1, 0, 2))
+    dr = tatt.schedule_runs(d, 2, 3)
+    np.testing.assert_array_equal(d[dr[:, 0], 0], [3, 1, 0, 2])
+    assert (dr[:, 1] == 5).all()
+    _check_runs(d, dr, 2, 3, [0])
+    p = tatt.prefill_page_schedule((3, 0, 9), (17, 4, 0), 4, 8)
+    pr = tatt.schedule_runs(p, 3, 4, valid_col=5)
+    # one run per (slot, q tile): ceil(17/4) + ceil(4/4) + 0
+    assert len(pr) == 5 + 1
+    _check_runs(p, pr, 3, 4, [0, 1], valid_col=5)
+    # each run of slot 0 walks pages 0 .. (last position of its tile) // 4
+    for start, n in pr:
+        slot, qt = p[start, 0], p[start, 1]
+        last_pos = (3, 0)[slot] + min((qt + 1) * 4, (17, 4)[slot]) - 1
+        assert n == min(last_pos // 4, 7) + 1
+    assert len(tatt.schedule_runs(tatt.prefill_page_schedule((0,), (0,), 4, 2), 3, 4, valid_col=5)) == 0
+    with pytest.raises(ValueError, match="pair"):
+        tatt.schedule_runs(np.array([[0, 0, 1, 0], [0, 1, 1, 1]], np.int32), 2, 3)
+
+
+# ---------------------------------------------------------------------------
+# plain versions against the Pallas kernels (interpret mode)
+# ---------------------------------------------------------------------------
+
+def _qkv(rng, shape):
+    return [rng.standard_normal(shape).astype(np.float32) for _ in range(3)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,S,bq,bkv", [(True, 64, 16, 16), (False, 48, 16, 8), (True, 40, 8, 8)])
+def test_flash_attention_plain_matches_pallas(dtype, causal, S, bq, bkv):
+    rng = np.random.default_rng(S + bq)
+    BH, D = 3, 32
+    q, k, v = _qkv(rng, (BH, S, D))
+    jd = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    sched = (jatt.causal_schedule(S // bq, None) if causal else jatt.full_schedule(S // bq, S // bkv))
+    kv_valid = S - 5
+    want = jatt.flash_attention_swizzled(
+        jnp.asarray(sched), *(jnp.asarray(a, jd) for a in (q, k, v)), causal=causal,
+        bq=bq, bkv=bkv, kv_valid=kv_valid, interpret=True)
+    tsched = tatt.attention_schedule_device(S // bq, S // bkv, causal=causal, device="cpu")
+    got = tatt.flash_attention_swizzled(tsched, _t(q, dtype), _t(k, dtype), _t(v, dtype), causal=causal,
+                                        bq=bq, bkv=bkv, kv_valid=kv_valid)
+    assert got.dtype == dtype and got.shape == (BH, S, D)
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_plain_kv_seqlen(causal):
+    rng = np.random.default_rng(3)
+    BH, S, D, b = 4, 32, 16, 8
+    q, k, v = _qkv(rng, (BH, S, D))
+    seqlen = np.array([32, 5, 17, 1], np.int32)
+    sched = jatt.causal_schedule(S // b, None) if causal else jatt.full_schedule(S // b, S // b)
+    want = jatt.flash_attention_swizzled(jnp.asarray(sched), q, k, v, causal=causal, bq=b, bkv=b,
+                                         kv_seqlen=jnp.asarray(seqlen), interpret=True)
+    got = tatt.flash_attention_swizzled(
+        tatt.attention_schedule_device(S // b, S // b, causal=causal, device="cpu"),
+        _t(q), _t(k), _t(v), causal=causal, bq=b, bkv=b, kv_seqlen=torch.as_tensor(seqlen))
+    assert torch.isfinite(got).all()
+    _close(got, want, torch.float32)
+
+
+def _paged_inputs(rng, B, Hkv, g, D, ps, MP, P, pos):
+    """Pools, a ragged page table (distinct pages per slot, unallocated
+    entries on the trash page 0) and queries; page 0 holds garbage."""
+    q = rng.standard_normal((B, Hkv, g, D)).astype(np.float32)
+    kp = rng.standard_normal((P, ps, Hkv, D)).astype(np.float32)
+    vp = rng.standard_normal((P, ps, Hkv, D)).astype(np.float32)
+    kp[0], vp[0] = 1e4, -1e4
+    pt = np.zeros((B, MP), np.int32)
+    free = list(rng.permutation(np.arange(1, P)))
+    for b in range(B):
+        for lp in range(pos[b] // ps + 1):
+            pt[b, lp] = free.pop()
+    return q, kp, vp, pt
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("order", [None, (2, 0, 3, 1)])
+def test_flash_decode_plain_matches_pallas(dtype, order):
+    rng = np.random.default_rng(7)
+    B, Hkv, g, D, ps, MP, P = 4, 2, 4, 32, 8, 5, 24
+    pos = np.array([0, 11, 39, 23], np.int32)
+    q, kp, vp, pt = _paged_inputs(rng, B, Hkv, g, D, ps, MP, P, pos)
+    jd = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    want = jatt.flash_attention_decode(
+        jnp.asarray(jatt.decode_page_schedule(B, MP, order)), jnp.asarray(pt), jnp.asarray(pos),
+        *(jnp.asarray(a, jd) for a in (q, kp, vp)), interpret=True)
+    got = tatt.flash_attention_decode(
+        tatt.decode_page_schedule_device(B, MP, order, device="cpu"), torch.as_tensor(pt),
+        torch.as_tensor(pos), _t(q, dtype), _t(kp, dtype), _t(vp, dtype))
+    assert got.dtype == dtype and got.shape == (B, Hkv, g, D)
+    _close(got, want, dtype)
+    # the trash page's contents never reach the output
+    kp2, vp2 = kp.copy(), vp.copy()
+    kp2[0], vp2[0] = -3e4, 7e3
+    again = tatt.flash_attention_decode(
+        tatt.decode_page_schedule_device(B, MP, order, device="cpu"), torch.as_tensor(pt),
+        torch.as_tensor(pos), _t(q, dtype), _t(kp2, dtype), _t(vp2, dtype))
+    assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_prefill_plain_matches_pallas(dtype):
+    rng = np.random.default_rng(11)
+    B, Hkv, g, D, ps, MP, P, Tq = 4, 2, 3, 16, 4, 8, 40, 16
+    pos0 = np.array([3, 0, 9, 0], np.int32)
+    n_new = np.array([13, 4, 0, 16], np.int32)  # slot 2 is an inactive lane
+    q = rng.standard_normal((B, Tq, Hkv, g, D)).astype(np.float32)
+    ends = pos0 + np.maximum(n_new, 1) - 1
+    _, kp, vp, pt = _paged_inputs(rng, B, Hkv, g, D, ps, MP, P, ends)
+    jd = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    sched = jatt.prefill_page_schedule(pos0, n_new, ps, MP)
+    want = _np(jatt.flash_attention_prefill(
+        jnp.asarray(sched), jnp.asarray(pt), jnp.asarray(pos0),
+        *(jnp.asarray(a, jd) for a in (q, kp, vp)), interpret=True))
+    got = tatt.flash_attention_prefill(
+        tatt.prefill_page_schedule_device(pos0, n_new, ps, MP, device="cpu"), torch.as_tensor(pt),
+        torch.as_tensor(pos0), _t(q, dtype), _t(kp, dtype), _t(vp, dtype)).float().numpy()
+    # rows of the q tiles the schedule covers; the rest stay unwritten
+    # (NaN in the plain version)
+    covered = np.zeros((B, Tq), bool)
+    for b in range(B):
+        covered[b, : -(-n_new[b] // ps) * ps] = True
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    np.testing.assert_allclose(got[covered], want[covered], **tol)
+    assert np.isnan(got[~covered]).all()
+    assert np.isfinite(got[covered]).all(), "pad rows of a covered tile stay finite"
+
+
+@pytest.mark.parametrize("mask_type", ["none", "causal", "padding", "padding_causal"])
+def test_ops_attention_mask_types_gqa(mask_type):
+    rng = np.random.default_rng(5)
+    B, H, Hkv, S, D = 2, 4, 2, 44, 16
+    q = rng.standard_normal((B, H, S, D)).astype(np.float32)
+    k = rng.standard_normal((B, Hkv, S, D)).astype(np.float32)
+    v = rng.standard_normal((B, Hkv, S, D)).astype(np.float32)
+    kv_len = np.array([17, 44], np.int32) if "padding" in mask_type else None
+    q_len = np.array([30, 44], np.int32)
+    kw = dict(mask_type=mask_type, bq=16, bkv=16, q_seqlen=q_len)
+    want = jops.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), interpret=True,
+                          kv_seqlen=None if kv_len is None else jnp.asarray(kv_len), **kw)
+    got = tops.attention(q, k, v, device="cpu", kv_seqlen=kv_len, **kw)
+    assert got.device.type == "cpu" and got.shape == (B, H, S, D)
+    _close(got, want, torch.float32)
+    assert (got[0, :, 30:] == 0).all()
+    with pytest.raises(ValueError, match="mask_type"):
+        tops.attention(q, k, v, device="cpu", mask_type="sliding")
+    with pytest.raises(ValueError, match="kv_seqlen"):
+        tops.attention(q, k, v, device="cpu", mask_type="padding")
+
+
+def test_ops_paged_entry_points_match_pallas():
+    rng = np.random.default_rng(2)
+    B, Hkv, g, D, ps, MP, P = 3, 2, 2, 16, 4, 6, 20
+    pos = np.array([5, 0, 22], np.int32)
+    q, kp, vp, pt = _paged_inputs(rng, B, Hkv, g, D, ps, MP, P, pos)
+    want = jops.attention_decode(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(pt),
+                                 jnp.asarray(pos), interpret=True)
+    got = tops.attention_decode(q, kp, vp, pt, pos, device="cpu")
+    _close(got, want, torch.float32)
+    qp = rng.standard_normal((B, 8, Hkv, g, D)).astype(np.float32)
+    pos0, n_new = np.array([2, 0, 15], np.int32), np.array([6, 8, 0], np.int32)
+    want = _np(jops.attention_prefill(jnp.asarray(qp), jnp.asarray(kp), jnp.asarray(vp),
+                                      jnp.asarray(pt), jnp.asarray(pos0), n_new, interpret=True))
+    got = tops.attention_prefill(qp, kp, vp, pt, pos0, n_new, device="cpu").numpy()
+    for b in range(2):
+        np.testing.assert_allclose(got[b, : n_new[b]], want[b, : n_new[b]], **F32_TOL)
+
+
+def test_plain_versions_count_no_launch():
+    LAUNCHES.reset()
+    rng = np.random.default_rng(0)
+    q, k, v = _qkv(rng, (2, 16, 8))
+    tatt.flash_attention_swizzled(tatt.attention_schedule_device(2, 2, causal=True, device="cpu"),
+                                  _t(q), _t(k), _t(v), bq=8, bkv=8)
+    counts = LAUNCHES.counts()
+    assert counts["sfc_flash_attention"] == 0 and "sfc_flash_decode" in counts
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_flash_kernels_match_plain_versions_on_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else BF16_TOL
+        q, k, v = (_t(a, dtype).to(dev) for a in _qkv(rng, (4, 256, 64)))
+        for causal in (True, False):
+            sched = tatt.attention_schedule_device(2, 2, causal=causal, device=dev)
+            prog = tatt.flash_attention_program(sched, q, causal=causal, sm_scale=0.125, bq=128,
+                                                bkv=128, kv_valid=250)
+            got, want = prog.launcher(prog, q, k, v), prog.plain(prog, q, k, v)
+            torch.testing.assert_close(got.float(), want.float(), **tol)
+        B, Hkv, g, D, ps, MP, P = 4, 2, 8, 64, 16, 6, 40
+        pos = np.array([0, 17, 95, 40], np.int32)
+        qd, kp, vp, pt = _paged_inputs(rng, B, Hkv, g, D, ps, MP, P, pos)
+        args = [torch.as_tensor(pt, device=dev), torch.as_tensor(pos, device=dev),
+                *(_t(a, dtype).to(dev) for a in (qd, kp, vp))]
+        prog = tatt.flash_decode_program(tatt.decode_page_schedule_device(B, MP, device=dev),
+                                         args[2], sm_scale=0.125)
+        torch.testing.assert_close(prog.launcher(prog, *args).float(), prog.plain(prog, *args).float(), **tol)
+        pos0, n_new = np.array([3, 0, 40, 0], np.int32), np.array([20, 16, 30, 0], np.int32)
+        qp = _t(rng.standard_normal((B, 32, Hkv, g, D)), dtype).to(dev)
+        sched = tatt.prefill_page_schedule_device(pos0, n_new, ps, MP, device=dev)
+        prog = tatt.flash_prefill_program(sched, qp, page_size=ps, sm_scale=0.125)
+        pargs = [args[0], torch.as_tensor(pos0, device=dev), qp, args[3], args[4]]
+        got, want = prog.launcher(prog, *pargs), prog.plain(prog, *pargs)
+        rows = torch.zeros((B, 32), dtype=torch.bool, device=dev)
+        for b in range(B):
+            rows[b, : -(-int(n_new[b]) // ps) * ps] = True
+        torch.testing.assert_close(got[rows].float(), want[rows].float(), **tol)
