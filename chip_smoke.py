@@ -11,7 +11,9 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
 2. Hold each kernel against its plain PyTorch version on the same CUDA
    inputs, at a small ragged and a mid-size shape (the k-means update up
    to D = 960, its column-chunked grid), and the reference paths against
-   the fused ones.
+   the fused ones; the sharded paths' kernels (rows 7, 9, 11) on every
+   shard, shards of pure padding and a halo table whose slots are not the
+   global tile ids included (``compare_sharded``).
 3. Reset the launch counts, drive the main path through the public entry
    points at realistic sizes, and read the counts:
    ``ops.matmul`` (8192³ f32, TF32 off; 8000×7000×6000 bf16; both once
@@ -68,6 +70,18 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    the top-2 margin band, the flash decode step allclose to the page
    gather; (d) each flash kernel's time, bound, plain version and a
    PyTorch SDPA call.
+8. The curve-range-sharded apps (``sharded_path``), SHARDS = 4 shards on
+   the one card (the code path of a mesh, not multi-GPU scaling): with the
+   launch counts reset, ``ops.kmeans_lloyd(mesh=)`` on phase 3's SIFT1M
+   data in the exact, tree and psum classes and exact on one shard, the
+   halo ε-join (``ops.simjoin_pairs(mesh=, hilbert_order=True)``) and the
+   replicated one on the stream's 262,144 points in the unit cube, and
+   the replicated one on phase 3's 262,144 × 16 set; exact S = 4 equal to
+   S = 1 to the bit, tree equal to itself, every class allclose to phase
+   3's centroids with assignments exact outside the band, every join
+   array-equal to the single-core join; collective counts and bytes per
+   shard, the halo plan's rows and host time, a warm profile of each
+   call, and the five sharded kernels' times, bounds and plain versions.
 
 The second-to-last line of output is one JSON object ``{"kernels": [...]}``,
 the last ``{"ok": true, "device": {...}}``.  ``--quick`` runs phases 1-2
@@ -111,6 +125,11 @@ REPLACES = {
     "sfc_flash_attention": "src/repro/kernels/attention.py:138",
     "sfc_flash_decode": "src/repro/kernels/attention.py:338",
     "sfc_flash_prefill": "src/repro/kernels/attention.py:570",
+    "sfc_kmeans_shard_assign": "src/repro/kernels/kmeans.py:556",
+    "sfc_kmeans_shard_update": "src/repro/kernels/kmeans.py:556",
+    "sfc_kmeans_fold": "src/repro/kernels/kmeans.py:556",
+    "sfc_join_hits_rows": "src/repro/kernels/simjoin.py:187",
+    "sfc_join_emit_halo": "src/repro/kernels/simjoin.py:301",
 }
 # the reference-path kernels the same entry points replace too
 # (fused=False: the per-k oracles; the k-means reference's update)
@@ -122,6 +141,8 @@ ALSO_REPLACES = {
     "sfc_fw_trailing": "src/repro/kernels/floyd_warshall.py:109",
     "sfc_chol_diag": "src/repro/kernels/cholesky.py:98",
     "sfc_chol_panel": "src/repro/kernels/cholesky.py:102",
+    # the exact fold over the gathered per-tile partials was a lax.scan
+    "sfc_kmeans_fold": "src/repro/kernels/sharded.py:204",
 }
 SOURCES = {
     "sfc_matmul": "src/repro_torch/kernels/csrc/matmul.cu",
@@ -142,6 +163,11 @@ SOURCES = {
     "sfc_flash_attention": "src/repro_torch/kernels/csrc/attention.cu",
     "sfc_flash_decode": "src/repro_torch/kernels/csrc/attention.cu",
     "sfc_flash_prefill": "src/repro_torch/kernels/csrc/attention.cu",
+    "sfc_kmeans_shard_assign": "src/repro_torch/kernels/csrc/kmeans.cu",
+    "sfc_kmeans_shard_update": "src/repro_torch/kernels/csrc/kmeans.cu",
+    "sfc_kmeans_fold": "src/repro_torch/kernels/csrc/kmeans.cu",
+    "sfc_join_hits_rows": "src/repro_torch/kernels/csrc/simjoin.cu",
+    "sfc_join_emit_halo": "src/repro_torch/kernels/csrc/simjoin.cu",
 }
 BAND = 1e-4  # relative width of the float64 tie / threshold band
 # the join kernels' metric (|xi|² − 2 xi·xj) + |xj|² in f32 is off by at
@@ -185,6 +211,10 @@ ATTN_ROW20 = (2, 32, 2048)  # B, H, S of the full-sequence forward
 # 3.8), so about two ulps at the outputs' scale
 ATTN_TOL = {"float32": dict(rtol=1e-4, atol=1e-4), "bfloat16": dict(rtol=8e-3, atol=4e-3)}
 SERVING_KERNELS = ("sfc_flash_attention", "sfc_flash_decode", "sfc_flash_prefill")
+# the sharded phase: shards of its meshes, all on the one card
+SHARDS = 4
+SHARDED_KERNELS = ("sfc_kmeans_shard_assign", "sfc_kmeans_shard_update", "sfc_kmeans_fold",
+                   "sfc_join_hits_rows", "sfc_join_emit_halo")
 
 
 def log(msg: str) -> None:
@@ -243,21 +273,24 @@ def join_data(rng, n: int, d: int, device):
     return xt, float(np.sqrt(eps2))
 
 
-def join_band(x, eps: float):
+def join_band(x, eps: float, metric: float = 0.0):
     """Encoded keys i*N + j (i > j) of the pairs whose float64 d² lies
-    within BAND·ε² of ε² — where f32 rounding may decide either way."""
+    within BAND·ε² of ε² — where f32 rounding may decide either way; with
+    ``metric`` (F32_METRIC, for points that are not centred) the width
+    grows by metric·(|xi|² + |xj|²), the f32 metric's own error."""
     import torch
 
     n = x.shape[0]
     xd = x.double()
     nd = (xd * xd).sum(1)
-    lo, hi = eps * eps * (1 - BAND), eps * eps * (1 + BAND)
+    e2 = eps * eps
     keys = []
     step = max(1, (1 << 25) // n)
     for r0 in range(0, n, step):
         r1 = min(n, r0 + step)
         d2 = nd[r0:r1, None] - 2.0 * xd[r0:r1] @ xd.T + nd[None, :]
-        i, j = ((d2 >= lo) & (d2 <= hi)).nonzero(as_tuple=True)
+        width = BAND * e2 + metric * (nd[r0:r1, None] + nd[None, :])
+        i, j = ((d2 - e2).abs() <= width).nonzero(as_tuple=True)
         i = i + r0
         keep = i > j
         keys.append(i[keep] * n + j[keep])
@@ -636,6 +669,128 @@ def compare_reference(rng, device) -> None:
         log(f"compare ops.kmeans_lloyd N={N} D={D} K={K}: fused == fused=False to the bit")
 
 
+def shard_case(rng, N: int, D: int, K: int, bp: int, bc: int, S: int, device) -> dict:
+    """Row 7's operands for S shards: clustered points (centres 10·N(0, 1),
+    unit noise) laid out as the sharded k-means lays them out, the
+    centres (zero-padded to Kp) as centroids, and each shard's limits."""
+    import torch
+    from repro_torch.core import kmeans_schedule_device
+    from repro_torch.kernels.kmeans import kmeans_shard_program
+
+    centres = 10.0 * rng.standard_normal((K, D), dtype=np.float32)
+    x = centres[rng.integers(0, K, size=N)] + rng.standard_normal((N, D), dtype=np.float32)
+    pt = -(-N // bp)
+    ptl = -(-pt // S)
+    Nl = ptl * bp
+    Kp = -(-K // bc) * bc
+    xp = torch.as_tensor(np.pad(x, ((0, Nl * S - N), (0, 0))), device=device)
+    cp = torch.as_tensor(np.pad(centres, ((0, Kp - K), (0, 0))), device=device)
+    lims = [torch.tensor([min(max(N - s * Nl, 0), Nl), K], dtype=torch.int32, device=device)
+            for s in range(S)]
+    prog = kmeans_shard_program(kmeans_schedule_device("fur", ptl, Kp // bc, device=device), pt=ptl,
+                                ct=Kp // bc, bp=bp, bc=bc, D=D)
+    return {"x": x, "xs": list(xp.split(Nl)), "cp": cp, "cn": (cp * cp).sum(1), "lims": lims,
+            "prog": prog, "pt": pt, "Kp": Kp, "centres": centres}
+
+
+def compare_sharded(rng, device) -> None:
+    """Rows 7, 9, 11 against their plain versions on the card.  Row 7 on
+    every shard of a small ragged case (8 shards over 5 tiles: three of
+    pure padding, n_valid_local = 0; K = 7 of Kp = 8) and a mid-size one
+    (4 shards, K = 1000 of 1024), its update held against the plain
+    update on the kernel's own assignments, and the fold of the gathered
+    partials against the plain fold (to the bit).  Rows 9 and 11 over a
+    4-column halo table whose slots are not the global tile ids (a
+    permuted buffer with an extra copy of one tile): the rows kernel equal
+    to sfc_join_hits' row counts on the global layout, the halo emission
+    equal to simjoin_pairs_scheduled's pairs (the same device code on the
+    same bits), and each against its plain version outside the band."""
+    import torch
+    from repro_torch.core import kmeans_schedule, triangle_schedule_device
+    from repro_torch.kernels import launch
+    from repro_torch.kernels.kmeans import (
+        kmeans_fold_program, shard_assign_cuda, shard_assign_plain, shard_update_cuda,
+        shard_update_plain,
+    )
+    from repro_torch.kernels.simjoin import (
+        emission_table, simjoin_emit_halo_program, simjoin_hits_program, simjoin_hits_rows_program,
+        simjoin_pairs_scheduled,
+    )
+
+    for (N, D, K, bp, bc, S) in [(300, 5, 7, 64, 4, 8), (20000, 128, 1000, 128, 128, 4)]:
+        case = shard_case(rng, N, D, K, bp, bc, S, device)
+        prog, cp, cn = case["prog"], case["cp"], case["cn"]
+        parts, mism, serr, band_pts, empty = [], 0, 0.0, 0, 0
+        for s, (xs, lim) in enumerate(zip(case["xs"], case["lims"])):
+            (m_k, a_k), (m_p, a_p) = shard_assign_cuda(prog, xs, cp, cn, lim), shard_assign_plain(prog, xs, cp, cn, lim)
+            (s_k, n_k), (s_p, n_p) = shard_update_cuda(prog, xs, a_k, lim), shard_update_plain(prog, xs, a_k, lim)
+            torch.cuda.synchronize()
+            nv = int(lim[0])
+            band = argmin_band(xs[:nv], cp[:K])
+            off = (a_k.reshape(-1)[:nv] != a_p.reshape(-1)[:nv]) & ~band
+            check(not bool(off.any()), f"sfc_kmeans_shard_assign N={N} shard {s}: argmins differ outside the band")
+            check(bool(torch.allclose(m_k, m_p, rtol=1e-5, atol=1e-3)), f"sfc_kmeans_shard_assign N={N}: minima differ")
+            check(nv == 0 or int(a_k.reshape(-1)[:nv].max()) < K, "a pad centroid was chosen")
+            check(torch.equal(n_k, n_p), f"sfc_kmeans_shard_update N={N} shard {s}: counts differ")
+            check(bool(torch.allclose(s_k, s_p, rtol=1e-5, atol=1e-3)), f"sfc_kmeans_shard_update N={N}: sums differ")
+            if nv == 0:
+                check(not bool(s_k.any()) and not bool(n_k.any()), "a shard of pure padding wrote non-zero partials")
+                empty += 1
+            mism += int((a_k.reshape(-1)[:nv] != a_p.reshape(-1)[:nv]).sum())
+            serr = max(serr, float((s_k - s_p).abs().max()))
+            band_pts += int(band.sum())
+            parts.append(s_k)
+        gathered = torch.cat(parts)
+        host = kmeans_schedule("fur", case["pt"], case["Kp"] // bc)
+        order = torch.as_tensor(np.ascontiguousarray(host[host[:, 0] == 1][:, 1:2]), device=device)
+        fold = kmeans_fold_program(order)
+        check(torch.equal(launch(fold, gathered), fold.plain(fold, gathered)), f"sfc_kmeans_fold N={N}: != plain")
+        log(f"compare sfc_kmeans_shard_assign/update + sfc_kmeans_fold N={N} D={D} K={K} (Kp {case['Kp']}) "
+            f"S={S} ({empty} shards of pure padding, zeros): argmin band points={band_pts}, mismatches={mism}, "
+            f"partial sums max_abs_err={serr:.3e}, counts equal; fold of {len(order)} tiles == plain to the bit")
+
+    for (N, D, bp) in [(1000, 16, 96), (16384, 16, 128)]:
+        x, eps = join_data(rng, N, D, device)
+        Np_ = -(-N // bp) * bp
+        t = Np_ // bp
+        xp = torch.nn.functional.pad(x, (0, 0, 0, Np_ - N)).contiguous()
+        nv = N if Np_ != N else None
+        tri = triangle_schedule_device("hilbert", t, strict=False, device=device)
+        rows2 = launch(simjoin_hits_rows_program(tri, eps=eps, bp=bp, npad=Np_, n_valid=nv), xp)
+        rows_full, _ = launch(simjoin_hits_program(tri, eps=eps, bp=bp, npad=Np_, n_valid=nv), xp)
+        check(torch.equal(rows2, rows_full), f"sfc_join_hits_rows N={N}: 2-column rows != sfc_join_hits rows")
+        # slot s holds global tile perm[s]; slot t an extra copy of tile perm[0]
+        perm = rng.permutation(t)
+        slot = np.empty(t, np.int64)
+        slot[perm] = np.arange(t)
+        buf = xp.view(t, bp, D)[torch.as_tensor(np.append(perm, perm[0]), device=device)].reshape(-1, D)
+        th = tri.cpu().numpy().astype(np.int64)
+        js = np.where(th[:, 1] == perm[0], t, slot[th[:, 1]])
+        table4 = torch.as_tensor(np.column_stack([slot[th[:, 0]], js, th]).astype(np.int32), device=device)
+        hp = simjoin_hits_rows_program(table4, eps=eps, bp=bp, npad=Np_, n_valid=nv, halo=True)
+        r_k, r_p = launch(hp, buf), hp.plain(hp, buf)
+        torch.cuda.synchronize()
+        check(torch.equal(r_k, rows2), f"sfc_join_hits_rows N={N}: halo rows != global rows")
+        band = join_band(x, eps)
+        herr = check_tile_counts(tri, (r_k,), (r_p,), band, N, bp, f"sfc_join_hits_rows N={N}")
+        emitted = []
+        for rows in (r_k, r_p):
+            table6, P, cap, p_pad = emission_table(table4, rows)
+            emitted.append((P, simjoin_emit_halo_program(table6, eps=eps, bp=bp, npad=Np_, cap=cap,
+                                                         p_pad=p_pad, n_valid=nv)))
+        (P, e_prog), (P_p, p_prog) = emitted
+        e_k, e_p = launch(e_prog, buf), p_prog.plain(p_prog, buf)
+        torch.cuda.synchronize()
+        check(not bool((e_k[P:] >= 0).any()), f"sfc_join_emit_halo N={N}: a write past the pass-1 total")
+        check(torch.equal(e_k[:P], simjoin_pairs_scheduled(tri, xp, eps=eps, bp=bp, n_valid=nv)),
+              f"sfc_join_emit_halo N={N}: != the single-core pairs")
+        stats = check_pairs(e_k[:P], e_p[:P_p], band, N, f"sfc_join_emit_halo N={N}")
+        log(f"compare sfc_join_hits_rows/emit_halo N={N} D={D} bp={bp} eps={eps:.4f}: 4-column table, "
+            f"{int((table4[:, :2] != table4[:, 2:]).any(1).sum())} of {len(th)} rows load by slots != ids; "
+            f"rows == sfc_join_hits rows on the global layout; pairs={P} == simjoin_pairs_scheduled; "
+            f"vs plain: max row-count diff {herr}, differ_in_band={stats['differ_in_band']}")
+
+
 # ---------------------------------------------------------------------------
 # phases 3-5: the main path, its checks, and the kernel timings
 # ---------------------------------------------------------------------------
@@ -869,7 +1024,8 @@ def main_path(rng, device, seed: int) -> dict:
     for maxr in (None, MAXR):
         streams[f"StreamSimJoin max_residents={maxr}"] = run(
             f"StreamSimJoin max_residents={maxr}", lambda: drive_stream_join(xs_j, q_pool, maxr, device))
-    launches = {k: n for k, n in LAUNCHES.counts().items() if k not in SERVING_KERNELS}
+    launches = {k: n for k, n in LAUNCHES.counts().items()
+                if k not in SERVING_KERNELS + SHARDED_KERNELS}
     log("main path wall ms: " + json.dumps({k: round(v, 3) for k, v in wall.items()}))
     log("main path launches: " + json.dumps(launches))
     for name, n in launches.items():
@@ -1105,9 +1261,10 @@ def main_path(rng, device, seed: int) -> dict:
     e_k = launch(emit, xj)
     e_p = emit_p.plain(emit_p, xj)
     # a band pair shifts every later row of the buffer, so the emitted
-    # outputs are compared as pair sets: the error is the number of pairs
-    # in their symmetric difference (each one inside the band)
-    eerr = float(check_pairs(e_k[:P], e_p[:P_p], band_j, NJ, "sfc_join_emit")["differ_in_band"])
+    # outputs are compared as pair sets: equal outside the band (else
+    # check_pairs fails), so the error is 0; the pairs in their symmetric
+    # difference (each one inside the band) are counted apart
+    differ = check_pairs(e_k[:P], e_p[:P_p], band_j, NJ, "sfc_join_emit")["differ_in_band"]
     # a CTA whose tile has no pair returns at once: only tiles with
     # total > 0 do the (2D + 3) operations per pair of their tile
     busy = emit.schedule[:, 3] > 0
@@ -1116,7 +1273,7 @@ def main_path(rng, device, seed: int) -> dict:
     emit_ops = (n_off * 128 * 128 + n_diag * 128 * 127 / 2) * (2 * DJ + 3)
     log(f"sfc_join_emit: {n_off + n_diag} of {len(trid)} tiles hold a pair ({n_diag} on the diagonal)")
     entry("sfc_join_emit", lambda: launch(emit, xj), lambda: emit_p.plain(emit_p, xj), None,
-          emit_ops, FP32_PEAK, 4 * (NJ * DJ + 4 * len(trid) + 2 * P), 5, eerr)
+          emit_ops, FP32_PEAK, 4 * (NJ * DJ + 4 * len(trid) + 2 * P), 5, 0.0, {"differ_in_band": differ})
 
     del r_k, r_p, e_k, e_p
     time_phased(entry, device, fw_d, fw_dr, ch_a, ch_ar, ch)
@@ -1148,7 +1305,10 @@ def main_path(rng, device, seed: int) -> dict:
         f"StreamSimJoin warm tick ({NSJ} residents + {PER_J}, one query of {MQ})":
             lambda: (svc_j.insert(more_j), svc_j.query(q_pool[:MQ]), svc_j.tick()),
     })
-    return {"kernels": rows}
+    # what the sharded phase holds its runs against
+    ctx = {"xk": xk, "K": K, "iters": ITERS, "cent": cent, "asg": asg, "band_a": band_a,
+           "xs_j": xs_jt, "eps_s": EPS_S, "xj": xj, "eps": eps, "pairs": pairs}
+    return {"kernels": rows}, ctx
 
 
 def time_update_d960(xg, asg_g, k: int, device) -> dict:
@@ -1703,6 +1863,233 @@ def serving_path(rng, device, seed: int) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the curve-range-sharded apps, SHARDS shards on the one card
+# ---------------------------------------------------------------------------
+
+def sharded_path(device, seed: int, ctx: dict) -> list:
+    """(b) sharded k-means on SIFT1M's shapes in the three reduction
+    classes (and exact once more on one shard), against phase 3's
+    single-core run; (c) the sharded ε-join, halo and replicated, on the
+    stream's 262,144 points in the unit cube and, replicated, on phase 3's
+    262,144 × 16 set, array-equal to the single-core join; (d) launches,
+    volumes, the host plan's time, a warm profile of each call and the
+    five kernels' timings at these shapes."""
+    import torch
+    from repro_torch.core import kmeans_schedule, kmeans_schedule_device, triangle_schedule
+    from repro_torch.kernels import LAUNCHES, launch, ops
+    from repro_torch.kernels import sharded as ksh
+    from repro_torch.kernels.kmeans import (
+        hilbert_point_order_cached, kmeans_fold_program, kmeans_shard_program, shard_assign_cuda,
+        shard_assign_plain, shard_update_cuda, shard_update_plain,
+    )
+    from repro_torch.kernels.simjoin import simjoin_hits_rows_program
+    from repro_torch.launch.mesh import make_app_mesh
+
+    t_phase = time.perf_counter()
+    xk, K, iters, cent, asg, band_a = (ctx[k] for k in ("xk", "K", "iters", "cent", "asg", "band_a"))
+    xs_j, eps_s, xj, eps, pairs = (ctx[k] for k in ("xs_j", "eps_s", "xj", "eps", "pairs"))
+    NK, DK = xk.shape
+    mesh = make_app_mesh(SHARDS, devices=[device] * SHARDS)
+    mesh1 = make_app_mesh(1, devices=[device])
+    single_h = ops.simjoin_pairs(xs_j, eps_s, hilbert_order=True)
+    wall, vols = {}, {}
+
+    def run(name, m, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with m.recording() as vol:
+            out = fn()
+            torch.cuda.synchronize()
+        wall[name] = 1e3 * (time.perf_counter() - t)
+        vols[name] = vol.as_dict()
+        return out
+
+    def lloyd(m, reduce):
+        return lambda: ops.kmeans_lloyd(xk, K, iters=iters, seed=seed, mesh=m, shard_reduce=reduce)
+
+    calls = {f"ops.kmeans_lloyd {NK}x{DK} K={K} x{iters} mesh={SHARDS} {r}": (mesh, lloyd(mesh, r))
+             for r in ("exact", "tree", "psum")}
+    calls[f"ops.kmeans_lloyd {NK}x{DK} K={K} x{iters} mesh=1 exact"] = (mesh1, lloyd(mesh1, "exact"))
+    NJ3 = xs_j.shape[0]
+    calls[f"ops.simjoin_pairs {NJ3}x{xs_j.shape[1]} hilbert_order mesh={SHARDS} halo"] = (
+        mesh, lambda: ops.simjoin_pairs(xs_j, eps_s, hilbert_order=True, mesh=mesh))
+    calls[f"simjoin_pairs_sharded {NJ3}x{xs_j.shape[1]} hilbert_order mesh={SHARDS} halo=False"] = (
+        mesh, lambda: ksh.simjoin_pairs_sharded(xs_j, eps_s, mesh=mesh, hilbert_order=True, halo=False))
+    calls[f"simjoin_pairs_sharded {xj.shape[0]}x{xj.shape[1]} mesh={SHARDS} halo=False"] = (
+        mesh, lambda: ksh.simjoin_pairs_sharded(xj, eps, mesh=mesh, halo=False))
+    LAUNCHES.reset()
+    outs = {name: run(name, m, fn) for name, (m, fn) in calls.items()}
+    launches = {k: LAUNCHES.counts()[k] for k in SHARDED_KERNELS}
+    log("sharded cold wall ms: " + json.dumps({k: round(v, 3) for k, v in wall.items()}))
+    log("sharded launches: " + json.dumps(launches))
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched by the sharded path")
+    tree_again = lloyd(mesh, "tree")()
+
+    # --- checks --------------------------------------------------------------
+    names = list(calls)
+    km = {r: outs[n] for r, n in zip(("exact", "tree", "psum", "exact S=1"), names[:4])}
+    check(torch.equal(km["exact"][0], km["exact S=1"][0]) and torch.equal(km["exact"][1], km["exact S=1"][1]),
+          f"sharded k-means exact: S={SHARDS} != S=1 to the bit")
+    check(torch.equal(km["tree"][0], tree_again[0]) and torch.equal(km["tree"][1], tree_again[1]),
+          "sharded k-means tree: two runs differ")
+    kstats = {}
+    for r, (c, a) in km.items():
+        check(c.shape == cent.shape and bool(torch.isfinite(c).all()), f"sharded k-means {r}: shape")
+        err = float((c - cent).abs().max())
+        check(bool(torch.allclose(c, cent, rtol=1e-4, atol=1e-3)), f"sharded k-means {r}: centroids err {err}")
+        check(not bool(((a != asg) & ~band_a).any()), f"sharded k-means {r}: assignments differ outside the band")
+        kstats[r] = {"centroids_max_abs_err_vs_single_core": err, "assign_mismatches": int((a != asg).sum()),
+                     "bit_equal_single_core": bool(torch.equal(c, cent))}
+    jn = names[4:]
+    for name, want in zip(jn, (single_h, single_h, pairs)):
+        check(torch.equal(outs[name], want), f"{name}: != the single-core ops.simjoin_pairs")
+    log("check sharded: exact S=4 == S=1 to the bit, tree bit-stable run to run, every class allclose to "
+        "the single-core centroids (rtol 1e-4, atol 1e-3), assignments exact outside the band; every join "
+        "array_equal to the single-core join; " + json.dumps(kstats))
+    coll = {r: {p: n // iters for p, n in vols[n_]["counts"].items()} for r, n_ in zip(km, names[:4])}
+    log("sharded volume: " + json.dumps({
+        "kmeans collectives per step": coll,
+        "kmeans bytes per shard": {r: vols[n_]["bytes_per_shard"] for r, n_ in zip(km, names[:4])},
+        "join bytes per shard": {n_: vols[n_] for n_ in jn},
+    }))
+
+    # the halo join's host plan at these sizes
+    xsorted = xs_j[hilbert_point_order_cached(xs_j)]
+    pt = NJ3 // 128
+    tri = triangle_schedule("hilbert", pt, strict=False)
+    t = time.perf_counter()
+    reach = ksh._tile_reach(xsorted, pt, 128, eps_s, True)
+    t_reach = 1e3 * (time.perf_counter() - t)
+    pruned = tri[reach[tri[:, 0], tri[:, 1]]]
+    t = time.perf_counter()
+    row_ids, plan, _tables, _slots, n_buf = ksh._halo_plan(pruned, -(-pt // SHARDS), SHARDS)
+    t_plan = 1e3 * (time.perf_counter() - t)
+    log("sharded halo plan: " + json.dumps({
+        "triangle_rows": len(tri), "pruned_rows": len(pruned), "rows_per_shard": [len(r) for r in row_ids],
+        "plan_(delta,m)": plan, "buffer_tiles_per_shard": n_buf, "resident_tiles": -(-pt // SHARDS),
+        "tile_reach_host_ms": t_reach, "halo_plan_host_ms": t_plan}))
+
+    # --- warm: wall, device time and busy share of each call ----------------
+    profile_calls({name + " (warm)": fn for name, (_m, fn) in calls.items()})
+
+    # --- the five kernels at these shapes -----------------------------------
+    rows = []
+
+    def entry(name, kern, plain, library, ops_, nbytes, reps, err, extra):
+        b_ms, b_by = bound_ms(ops_, FP32_PEAK, nbytes)
+        rows.append({
+            "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+            "launches": launches[name], "max_abs_err": err, "ms": cuda_ms(kern, reps),
+            "plain_ms": cuda_ms(plain, 1, warmup=0), "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": cuda_ms(library, reps) if library is not None else None,
+            **({"also_replaces": ALSO_REPLACES[name]} if name in ALSO_REPLACES else {}), **extra,
+        })
+        log(f"time {name}: {json.dumps(rows[-1])}")
+
+    # row 7 on the SHARDS shards of the exact run, at its final centroids
+    st = ksh._lloyd_setup(xk, K, curve="fur", seed=seed, bp=128, bc=128, hilbert_order=False, mesh=mesh)
+    ptl, bp, Kp = st["ptl"], st["bp"], st["cp"].shape[0]
+    prog = kmeans_shard_program(
+        kmeans_schedule_device("fur", ptl, st["ct"], device=device), pt=ptl, ct=st["ct"], bp=bp, bc=st["bc"], D=DK)
+    xs = mesh.shard(st["xp"])
+    lims = [t.reshape(2) for t in mesh.shard(torch.as_tensor(st["limits"], device=device))]
+    cp = torch.nn.functional.pad(km["exact"][0], (0, 0, 0, Kp - K)).contiguous()
+    cn = (cp * cp).sum(1)
+    got = [shard_assign_cuda(prog, xs[i], cp, cn, lims[i]) for i in range(SHARDS)]
+    want = [shard_assign_plain(prog, xs[i], cp, cn, lims[i]) for i in range(SHARDS)]
+    a_k = torch.cat([g[1].reshape(-1) for g in got])[:NK]
+    a_p = torch.cat([w[1].reshape(-1) for w in want])[:NK]
+    band = argmin_band(xk, km["exact"][0])
+    check(not bool(((a_k != a_p) & ~band).any()), "sfc_kmeans_shard_assign vs plain at full size")
+    aerr = max(float((g[0] - w[0]).abs().max()) for g, w in zip(got, want))
+    del want
+    args = [g[1] for g in got]
+    pt_all = st["pt"]
+    entry("sfc_kmeans_shard_assign", lambda: [shard_assign_cuda(prog, xs[i], cp, cn, lims[i]) for i in range(SHARDS)],
+          lambda: [shard_assign_plain(prog, xs[i], cp, cn, lims[i]) for i in range(SHARDS)], None,
+          2.0 * NK * Kp * DK, 4 * (NK * DK + Kp * DK + Kp + 2 * NK), 5, aerr,
+          {"shards": SHARDS, "tiles_per_shard": ptl, "ctas_per_launch": ptl, "argmin_band_points": int(band.sum()),
+           "argmin_mismatches": int((a_k != a_p).sum())})
+    got = [shard_update_cuda(prog, xs[i], args[i], lims[i]) for i in range(SHARDS)]
+    want = [shard_update_plain(prog, xs[i], args[i], lims[i]) for i in range(SHARDS)]
+    for (s_k, n_k), (s_p, n_p) in zip(got, want):
+        check(torch.equal(n_k, n_p), "sfc_kmeans_shard_update counts vs plain at full size")
+        check(bool(torch.allclose(s_k, s_p, rtol=1e-5, atol=1e-3)), "sfc_kmeans_shard_update sums vs plain")
+    uerr = max(float((g[0] - w[0]).abs().max()) for g, w in zip(got, want))
+    del want
+    gathered = torch.cat([g[0] for g in got])
+    del got
+    # the library call: one index_add_ of [x, 1] into a (pt·Kp, D+1) buffer
+    # at tile·Kp + arg — the same per-tile partials (sums and counts)
+    x_aug = torch.cat([st["xp"][:NK], torch.ones(NK, 1, device=device)], dim=1)
+    slot = (torch.arange(NK, device=device) // bp) * Kp + torch.cat([a.reshape(-1) for a in args])[:NK].long()
+    acc = torch.zeros(pt_all * Kp, DK + 1, device=device)
+    acc.index_add_(0, slot, x_aug)
+    lerr = float((acc.view(pt_all, Kp, DK + 1)[:, :, :DK] - gathered[:pt_all]).abs().max())
+    check(lerr <= 1e-3, f"index_add_ partials vs sfc_kmeans_shard_update: {lerr}")
+    entry("sfc_kmeans_shard_update", lambda: [shard_update_cuda(prog, xs[i], args[i], lims[i]) for i in range(SHARDS)],
+          lambda: [shard_update_plain(prog, xs[i], args[i], lims[i]) for i in range(SHARDS)],
+          lambda: acc.zero_().index_add_(0, slot, x_aug),
+          float(NK * DK), 4 * (NK * DK + NK + pt_all * Kp * (DK + 1)), 5, uerr,
+          {"grid_per_shard": list(prog.grid), "partials_bytes": 4 * ptl * SHARDS * Kp * (DK + 1),
+           "library_partials_max_abs_err": lerr})
+    del x_aug, slot, acc
+    host = kmeans_schedule("fur", pt_all, st["ct"])
+    fold = kmeans_fold_program(torch.as_tensor(np.ascontiguousarray(host[host[:, 0] == 1][:, 1:2]), device=device))
+    check(torch.equal(launch(fold, gathered), fold.plain(fold, gathered)), "sfc_kmeans_fold vs plain at full size")
+    entry("sfc_kmeans_fold", lambda: launch(fold, gathered), lambda: fold.plain(fold, gathered),
+          lambda: gathered[:pt_all].sum(0),
+          float((pt_all - 1) * Kp * DK), 4 * (pt_all * Kp * DK + Kp * DK), 5, 0.0,
+          {"tiles_folded": pt_all, "elements": Kp * DK})
+    del gathered
+
+    # rows 9 and 11 on the halo join's own plan: its tables and buffers
+    hj = ksh._HaloJoin(mesh, xsorted, xsorted, float(eps_s), bp=128, pt=pt, n_valid=None, tri=tri,
+                       sorted_keys=True, reach=reach)
+    hprogs = [simjoin_hits_rows_program(t, **hj.args, halo=True) for t in hj.scheds]
+    band_s = join_band(xsorted, float(eps_s), metric=F32_METRIC)
+    rk = hj.rows([launch(p_, b) for p_, b in zip(hprogs, hj.bufs)])
+    rp = hj.rows([p_.plain(p_, b) for p_, b in zip(hprogs, hj.bufs)])
+    pruned_t = torch.as_tensor(hj.pruned, device=device)
+    herr = check_tile_counts(pruned_t, (rk,), (rp,), band_s, NJ3, 128, "sfc_join_hits_rows")
+    # each side's emission from its own pass-1 totals, compared as pair sets
+    tot = rk.sum(1).cpu().numpy().astype(np.int64)
+    eprogs, src = hj.emission(tot)
+    pprogs, psrc = hj.emission(rp.sum(1).cpu().numpy().astype(np.int64))
+    pk = ksh._gather([launch(p_, b) for p_, b in zip(eprogs, hj.bufs)], device)[src.to(device)]
+    pp = ksh._gather([p_.plain(p_, b) for p_, b in zip(pprogs, hj.bufs)], device)[psrc.to(device)]
+    estats = check_pairs(pk, pp, band_s, NJ3, "sfc_join_emit_halo")
+    band_tiles = torch.unique((band_s // NJ3 // 128) * pt + band_s % NJ3 // 128)
+    log(f"sfc_join_emit_halo vs plain: {estats['pairs']} pairs, {len(band_s)} band pairs in {len(band_tiles)} "
+        f"tiles, {estats['differ_in_band']} pairs differ (all in the band)")
+    # the work the data needs: the pruned rows (not the zero padding rows)
+    on_diag = hj.pruned[:, 0] == hj.pruned[:, 1]
+    cand = int((~on_diag).sum()) * 128 * 128 + int(on_diag.sum()) * 128 * 127 / 2
+    hr = int(hj.sched.shape[0])
+    DJ3 = xs_j.shape[1]
+    buf_rows = sum(b.shape[0] for b in hj.bufs)
+    entry("sfc_join_hits_rows", lambda: [launch(p_, b) for p_, b in zip(hprogs, hj.bufs)],
+          lambda: [p_.plain(p_, b) for p_, b in zip(hprogs, hj.bufs)], None,
+          cand * (2 * DJ3 + 3), 4 * (buf_rows * DJ3 + 4 * hr + hr * 128), 5, float(herr),
+          {"table_rows": hr, "pruned_rows": len(hj.pruned), "triangle_rows": len(tri), "buffer_rows": buf_rows})
+    busy = tot > 0
+    n_off, n_diag = int((busy & ~on_diag).sum()), int((busy & on_diag).sum())
+    P = int(tot.sum())
+    # pairs are indices, compared as sets: equal outside the band (else
+    # check_pairs fails), so the error is 0; the band pairs in which the
+    # two differ are counted apart
+    entry("sfc_join_emit_halo", lambda: [launch(p_, b) for p_, b in zip(eprogs, hj.bufs)],
+          lambda: [p_.plain(p_, b) for p_, b in zip(eprogs, hj.bufs)], None,
+          (n_off * 128 * 128 + n_diag * 128 * 127 / 2) * (2 * DJ3 + 3),
+          4 * (buf_rows * DJ3 + 6 * hr + 2 * P), 5, 0.0,
+          {"tiles_with_pairs": n_off + n_diag, "pairs": P, "p_pad": eprogs[0].params["p_pad"],
+           "differ_in_band": estats["differ_in_band"], "band_pairs": len(band_s), "band_tiles": len(band_tiles)})
+    log(f"sharded phase: {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
 def cholesky_errors(a, L) -> dict:
     """max|L − L₆₄| / max|L₆₄| and ‖L·Lᵀ − A‖_F / ‖A‖_F, in float64 on the
     card, L₆₄ the float64 factor of the same (f32) A."""
@@ -1934,11 +2321,13 @@ def main() -> int:
     compare_kernels(rng, device)
     compare_phased(np.random.default_rng(args.seed + 1), device)
     compare_reference(np.random.default_rng(args.seed + 2), device)
+    compare_sharded(np.random.default_rng(args.seed + 4), device)
     if args.quick:
         compare_attention(np.random.default_rng(args.seed + 3), device)
         return 0
-    result = main_path(rng, device, args.seed)
+    result, ctx = main_path(rng, device, args.seed)
     result["kernels"] += serving_path(np.random.default_rng(args.seed + 3), device, args.seed)
+    result["kernels"] += sharded_path(device, args.seed, ctx)
     log(json.dumps(result))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

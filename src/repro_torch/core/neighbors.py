@@ -285,22 +285,21 @@ def neighbor_tile_mask(
     T = kr.shape[0]
     reach = np.eye(T, dtype=bool)
     live = kr[:, 0] <= kr[:, 1]
-    for t in range(T):
-        if not live[t]:
-            continue
+    ulo, uhi = kr[:, 0], kr[:, 1] + 1
+    for t in np.nonzero(live)[0]:
         ivs = halo_ranges(
             int(kr[t, 0]), int(kr[t, 1]) + 1, ndim=ndim, nbits=nbits,
             radius=radius, curve=curve,
         )
-        for u in range(T):
-            if u == t or not live[u] or reach[t, u]:
-                continue
-            ulo, uhi = int(kr[u, 0]), int(kr[u, 1]) + 1
-            if ulo < int(kr[t, 1]) + 1 and int(kr[t, 0]) < uhi:
-                reach[t, u] = reach[u, t] = True  # shared boundary keys
-                continue
-            for s, e in ivs:
-                if ulo < e and s < uhi:
-                    reach[t, u] = reach[u, t] = True
-                    break
+        # shared boundary keys, or [ulo, uhi) meets an interval: the
+        # intervals are sorted and disjoint, so the first one ending
+        # past ulo is the only candidate
+        hit = (ulo < uhi[t]) & (kr[t, 0] < uhi)
+        if len(ivs):
+            first = np.searchsorted(ivs[:, 1], ulo, side="right")
+            ok = first < len(ivs)
+            hit |= ok & (ivs[np.minimum(first, len(ivs) - 1), 0] < uhi)
+        hit &= live
+        reach[t] |= hit
+        reach[:, t] |= hit
     return reach

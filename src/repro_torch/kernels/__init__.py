@@ -6,11 +6,12 @@ version plus a :class:`repro_torch.core.GpuProgram` declaration whose
 launcher calls the CUDA kernel in ``csrc/<name>.cu``; launch.py is the
 single dispatcher every program goes through, _build.py compiles and
 binds the CUDA sources, ops.py holds the public entry points (padding,
-schedule choice, device), and ref.py the dense torch oracles.  All
+schedule choice, device), sharded.py the curve-range-sharded k-means and
+ε-join behind their ``mesh=``, and ref.py the dense torch oracles.  All
 kernels take their tile order from an int32 schedule table built by
 :mod:`repro_torch.core.schedule`, one row per CTA.
 """
-from . import ops, ref
+from . import ops, ref, sharded
 from ._build import LAUNCHES
 from .attention import (
     flash_attention_decode,
@@ -31,18 +32,22 @@ from .floyd_warshall import (
 )
 from .kmeans import (
     kmeans_assign_swizzled,
+    kmeans_fold_program,
     kmeans_init,
     kmeans_lloyd_fused,
     kmeans_lloyd_program,
     kmeans_lloyd_reference,
+    kmeans_shard_program,
 )
 from .launch import launch
 from .matmul import matmul_swizzled, tile_update_program, tile_update_swizzled
 from .simjoin import (
     simjoin_counts_swizzled,
+    simjoin_emit_halo_program,
     simjoin_emit_program,
     simjoin_emit_swizzled,
     simjoin_hits_program,
+    simjoin_hits_rows_program,
     simjoin_pairs_scheduled,
     simjoin_tile_hits_swizzled,
 )
@@ -61,18 +66,23 @@ __all__ = [
     "fw_program",
     "fw_reference_program",
     "kmeans_assign_swizzled",
+    "kmeans_fold_program",
     "kmeans_init",
     "kmeans_lloyd_fused",
     "kmeans_lloyd_program",
     "kmeans_lloyd_reference",
+    "kmeans_shard_program",
     "launch",
     "matmul_swizzled",
     "ops",
     "ref",
+    "sharded",
     "simjoin_counts_swizzled",
+    "simjoin_emit_halo_program",
     "simjoin_emit_program",
     "simjoin_emit_swizzled",
     "simjoin_hits_program",
+    "simjoin_hits_rows_program",
     "simjoin_pairs_scheduled",
     "simjoin_tile_hits_swizzled",
     "tile_update_program",

@@ -1,5 +1,7 @@
 // One Lloyd iteration as two launches: sfc_kmeans_assign + sfc_kmeans_update;
-// the reference path's assignment as sfc_kmeans_assign_tiles.
+// the reference path's assignment as sfc_kmeans_assign_tiles; one sharded
+// Lloyd step as sfc_kmeans_shard_assign + sfc_kmeans_shard_update, its
+// exact fold as sfc_kmeans_fold.
 //
 // Replaces: src/repro/kernels/kmeans.py::_fused_lloyd_kernel (the TPU
 // kernel of kmeans_lloyd_fused / kmeans_lloyd_program).  That kernel
@@ -58,6 +60,28 @@
 //     (i, j) grid has pt ct CTAs where (a) has pt, so a streaming batch
 //     of 4,096 probes fills 256 CTAs at K = 1024 where (a) fills 32 of
 //     the 132 SMs.
+//
+// (d) shard step: src/repro/kernels/kmeans.py::_shard_lloyd_kernel (the
+//     TPU kernel of kmeans_shard_program, one Lloyd step on one shard of
+//     the curve-range-sharded k-means).  It is (a) and (b) again, as two
+//     launches, with two differences the sharded fold needs:
+//     - the ragged masks are device operands, lim = (n_valid_local,
+//       k_valid), so one launch configuration serves every shard, as the
+//       TPU kernel's dynamic operand does;
+//     - the update writes each point tile's partial to that tile's own
+//       slot (sfc_kmeans_update's grid with one tile per group), so the
+//       partials can be folded across shards in the single-core tile
+//       order.  Every slot is written, zeros included: a shard of pure
+//       padding (more shards than tiles) holds zeros, not garbage.
+//     sfc_kmeans_fold then left-folds the gathered per-tile partials in
+//     the order of a device table, one thread per (k, d) element, so the
+//     sum is one fixed chain of f32 adds whatever the mesh size (the JAX
+//     package's lax.scan over the gathered partials, sharded.py).
+//     Bound on the H100: FP32 FLOP/s for the assign (2 N Kp D), bytes
+//     for the update (x read, pt Kp (D + 1) 4 bytes of partials written)
+//     and the fold (the partials read once).  Design: the partials are
+//     the price of an exact fold (4.1 GB at SIFT1M's 7,813 tiles and
+//     K = 1024); they cost HBM bandwidth, not SM time.
 #include <cfloat>
 #include <climits>
 
@@ -119,14 +143,13 @@ __device__ __forceinline__ void assign_rows(const float* __restrict__ x, const f
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-kmeans_assign_kernel(const float* __restrict__ x, const float* __restrict__ c,
-                     const float* __restrict__ cn, const int* __restrict__ sched, int sched_cols,
-                     int col_i, int bp, int Kp, int D, int k_valid, float* __restrict__ min_out,
-                     int* __restrict__ arg_out) {
-  __shared__ __align__(16) float As[BK * TILE];
-  __shared__ __align__(16) float Bs[BK * TILE];
-  const int ti = sched[(size_t)blockIdx.x * sched_cols + col_i];
+// Point tile ti's (min, first argmin) over all Kp centroids, written once
+// per point to min_out / arg_out.  Both one-CTA-per-point-tile assign
+// kernels run exactly this.
+__device__ __forceinline__ void assign_tile(const float* __restrict__ x, const float* __restrict__ c,
+                                            const float* __restrict__ cn, int ti, int bp, int Kp,
+                                            int D, int k_valid, float* __restrict__ min_out,
+                                            int* __restrict__ arg_out, float* As, float* Bs) {
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
   for (int sr = 0; sr < bp; sr += TILE) {
@@ -146,6 +169,32 @@ kmeans_assign_kernel(const float* __restrict__ x, const float* __restrict__ c,
       }
     }
   }
+}
+
+__global__ void __launch_bounds__(THREADS)
+kmeans_assign_kernel(const float* __restrict__ x, const float* __restrict__ c,
+                     const float* __restrict__ cn, const int* __restrict__ sched, int sched_cols,
+                     int col_i, int bp, int Kp, int D, int k_valid, float* __restrict__ min_out,
+                     int* __restrict__ arg_out) {
+  __shared__ __align__(16) float As[BK * TILE];
+  __shared__ __align__(16) float Bs[BK * TILE];
+  const int ti = sched[(size_t)blockIdx.x * sched_cols + col_i];
+  assign_tile(x, c, cn, ti, bp, Kp, D, k_valid, min_out, arg_out, As, Bs);
+}
+
+// The shard step's assign: as kmeans_assign_kernel, with k_valid read from
+// the device limits lim = (n_valid_local, k_valid), so one launch
+// configuration serves every shard.
+__global__ void __launch_bounds__(THREADS)
+kmeans_shard_assign_kernel(const float* __restrict__ x, const float* __restrict__ c,
+                           const float* __restrict__ cn, const int* __restrict__ sched,
+                           int sched_cols, int col_i, int bp, int Kp, int D,
+                           const int* __restrict__ lim, float* __restrict__ min_out,
+                           int* __restrict__ arg_out) {
+  __shared__ __align__(16) float As[BK * TILE];
+  __shared__ __align__(16) float Bs[BK * TILE];
+  const int ti = sched[(size_t)blockIdx.x * sched_cols + col_i];
+  assign_tile(x, c, cn, ti, bp, Kp, D, lim[1], min_out, arg_out, As, Bs);
 }
 
 // CTA s: point tile i = sched[s][0] against centroid tile j = sched[s][1];
@@ -183,15 +232,20 @@ kmeans_assign_tiles_kernel(const float* __restrict__ x, const float* __restrict_
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-kmeans_update_kernel(const float* __restrict__ x, const int* __restrict__ arg,
-                     const int* __restrict__ sched, int sched_cols, int col_i, int pt,
-                     int tiles_per_group, int bp, int n_valid, int Kp, int D, int dchunk,
-                     float* __restrict__ psum, float* __restrict__ pcnt) {
+// The (128-centroid range blockIdx.y, column chunk blockIdx.z) block of
+// the partial over the point tiles of schedule rows [r_lo, r_hi), written
+// once to psum_g (Kp, D) / pcnt_g (Kp) (the counts by the z = 0 CTA).
+// Rows at or past n_valid add nothing; a CTA with no row to add writes
+// zeros.  Both update kernels run exactly this.
+__device__ __forceinline__ void update_partial(const float* __restrict__ x,
+                                               const int* __restrict__ arg,
+                                               const int* __restrict__ sched, int sched_cols,
+                                               int col_i, int r_lo, int r_hi, int bp, int n_valid,
+                                               int Kp, int D, int dchunk, float* __restrict__ psum_g,
+                                               float* __restrict__ pcnt_g) {
   extern __shared__ float sh[];
   float* ssum = sh;                      // [TILE][dchunk]
   int* scnt = reinterpret_cast<int*>(sh + (size_t)TILE * dchunk);  // [TILE]
-  const int g = blockIdx.x;
   const int k0 = blockIdx.y * TILE;
   const int kn = min(TILE, Kp - k0);
   const int d0 = blockIdx.z * dchunk;
@@ -201,8 +255,6 @@ kmeans_update_kernel(const float* __restrict__ x, const int* __restrict__ arg,
   __syncthreads();
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int r_lo = g * tiles_per_group;
-  const int r_hi = min(pt, r_lo + tiles_per_group);
   for (int r = r_lo; r < r_hi; ++r) {
     const size_t base = (size_t)sched[(size_t)r * sched_cols + col_i] * bp;
     for (int p0 = 0; p0 < bp; p0 += 32) {
@@ -224,10 +276,48 @@ kmeans_update_kernel(const float* __restrict__ x, const int* __restrict__ arg,
     }
   }
   __syncthreads();
-  float* out = psum + ((size_t)g * Kp + k0) * D + d0;
+  float* out = psum_g + (size_t)k0 * D + d0;
   for (int idx = threadIdx.x; idx < kn * dn; idx += THREADS)
     out[(size_t)(idx / dn) * D + idx % dn] = ssum[(size_t)(idx / dn) * dchunk + idx % dn];
-  if (blockIdx.z == 0 && threadIdx.x < kn) pcnt[(size_t)g * Kp + k0 + threadIdx.x] = (float)scnt[threadIdx.x];
+  if (blockIdx.z == 0 && threadIdx.x < kn) pcnt_g[k0 + threadIdx.x] = (float)scnt[threadIdx.x];
+}
+
+__global__ void __launch_bounds__(THREADS)
+kmeans_update_kernel(const float* __restrict__ x, const int* __restrict__ arg,
+                     const int* __restrict__ sched, int sched_cols, int col_i, int pt,
+                     int tiles_per_group, int bp, int n_valid, int Kp, int D, int dchunk,
+                     float* __restrict__ psum, float* __restrict__ pcnt) {
+  const int g = blockIdx.x;
+  const int r_lo = g * tiles_per_group;
+  update_partial(x, arg, sched, sched_cols, col_i, r_lo, min(pt, r_lo + tiles_per_group), bp,
+                 n_valid, Kp, D, dchunk, psum + (size_t)g * Kp * D, pcnt + (size_t)g * Kp);
+}
+
+// The shard step's update: CTA (r, c, z) folds schedule row r's point tile
+// ti alone into the partial slot of ti itself (not of the row), masked by
+// the device n_valid_local = lim[0].  A shard of pure padding
+// (n_valid_local = 0) writes zeros to every slot.
+__global__ void __launch_bounds__(THREADS)
+kmeans_shard_update_kernel(const float* __restrict__ x, const int* __restrict__ arg,
+                           const int* __restrict__ sched, int sched_cols, int col_i, int bp,
+                           const int* __restrict__ lim, int Kp, int D, int dchunk,
+                           float* __restrict__ psum, float* __restrict__ pcnt) {
+  const int r = blockIdx.x;
+  const size_t ti = sched[(size_t)r * sched_cols + col_i];
+  update_partial(x, arg, sched, sched_cols, col_i, r, r + 1, bp, lim[0], Kp, D, dchunk,
+                 psum + ti * Kp * D, pcnt + ti * Kp);
+}
+
+// out[e] = parts[order[0]][e] + parts[order[1]][e] + ..., a left fold in
+// the order of the table, one thread per element of the (Kp, D) partial.
+__global__ void __launch_bounds__(256)
+kmeans_fold_kernel(const float* __restrict__ parts, const int* __restrict__ order, int n,
+                   size_t elems, float* __restrict__ out) {
+  const size_t e = (size_t)blockIdx.x * 256 + threadIdx.x;
+  if (e >= elems) return;
+  float acc = n ? parts[(size_t)order[0] * elems + e] : 0.f;
+  for (int t = 1; t < n; ++t) acc = __fadd_rn(acc, parts[(size_t)order[t] * elems + e]);
+  out[e] = acc;
 }
 
 }  // namespace
@@ -263,5 +353,40 @@ extern "C" int sfc_kmeans_assign_tiles(const void* x, const void* c, const void*
   kmeans_assign_tiles_kernel<<<steps, THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)x, (const float*)c, (const float*)cn, (const int*)sched, bp, bc, ct, Kp, D,
       k_valid, (float*)min_out, (int*)arg_out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sfc_kmeans_shard_assign(const void* x, const void* c, const void* cn,
+                                       const void* sched, int steps, int sched_cols, int col_i,
+                                       int bp, int Kp, int D, const void* lim, void* min_out,
+                                       void* arg_out, void* stream) {
+  kmeans_shard_assign_kernel<<<steps, THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)c, (const float*)cn, (const int*)sched, sched_cols, col_i, bp,
+      Kp, D, (const int*)lim, (float*)min_out, (int*)arg_out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sfc_kmeans_shard_update(const void* x, const void* arg, const void* sched,
+                                       int sched_cols, int col_i, int pt, int ctiles, int dchunks,
+                                       int bp, const void* lim, int Kp, int D, int dchunk,
+                                       void* psum, void* pcnt, void* stream) {
+  const size_t smem = (size_t)TILE * dchunk * sizeof(float) + TILE * sizeof(int);
+  cudaError_t err = cudaFuncSetAttribute(kmeans_shard_update_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(pt, ctiles, dchunks);
+  kmeans_shard_update_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      (const float*)x, (const int*)arg, (const int*)sched, sched_cols, col_i, bp, (const int*)lim,
+      Kp, D, dchunk, (float*)psum, (float*)pcnt);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sfc_kmeans_fold(const void* parts, const void* order, int n, int Kp, int D, void* out,
+                               void* stream) {
+  const size_t elems = (size_t)Kp * D;
+  const unsigned blocks = (unsigned)((elems + 255) / 256);
+  kmeans_fold_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>((const float*)parts,
+                                                               (const int*)order, n, elems,
+                                                               (float*)out);
   return (int)cudaGetLastError();
 }

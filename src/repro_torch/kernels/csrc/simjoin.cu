@@ -1,8 +1,10 @@
-// The e-similarity join's two passes: sfc_join_hits and sfc_join_emit.
+// The e-similarity join's two passes: sfc_join_hits and sfc_join_emit; the
+// sharded join's sfc_join_hits_rows and sfc_join_emit_halo.
 //
 // Replaces: src/repro/kernels/simjoin.py::_join_kernel (pass 1) and
 // ::_emit_kernel (pass 2), both driven by the FGF-Hilbert lower-triangle
-// tile schedule.
+// tile schedule; ::_join_rows_kernel and ::_emit_halo_kernel, the two
+// passes of the curve-range-sharded join (kernels/sharded.py).
 //
 // Both kernels call ONE device function, hit_tile(), in this one
 // translation unit, so pass 1's per-tile totals and pass 2's emitted
@@ -28,6 +30,20 @@
 // a cap-row window: each CTA owns rows [offset, offset + total) and writes
 // only those, in row-major in-tile order, exactly the JAX order.
 //
+// sfc_join_hits_rows: pass 1 of the sharded join, row counts only (the
+// pair emission's prefix-sum input; no column counts and no shared-memory
+// atomics).  Its table has 2 columns (i, j) when every shard holds the
+// whole point set, or 4 (i_slot, j_slot, i, j) over a shard's resident +
+// halo buffer: the slots say where the tiles lie in the buffer, the global
+// ids decide the diagonal strictness and the n_valid mask.  hit_tile()
+// takes the two pairs apart for that, and the single-core kernels pass
+// the same pair twice.
+//
+// sfc_join_emit_halo: pass 2 over the resident + halo buffer, rows (i_slot,
+// j_slot, i, j, offset, total) with the offset local to the shard's own
+// (p_pad, 2) pair buffer.  The same emit_tile() as sfc_join_emit; a padding
+// row (total = 0) returns at once.
+//
 // Bound on the H100: FP32 FLOP/s at D = 16 (about 2D + 3 operations per
 // candidate pair; the outputs are small).  Design: the SIMT 128x128 tile
 // product of tile_gemm.cuh with a threshold epilogue; bp <= 128, one
@@ -38,14 +54,17 @@ namespace {
 
 using namespace sfc;
 
-// hit[i] bit j: pair (tile_row(ty, i), tile_col(tx, j)) of tile (ti, tj).
-__device__ __forceinline__ void hit_tile(const float* __restrict__ x, int D, int ti, int tj, int bp,
-                                         float eps2, int n_valid, float* As, float* Bs,
-                                         float* norms, unsigned char (&hit)[8]) {
+// hit[i] bit j: pair (tile_row(ty, i), tile_col(tx, j)) of the tile pair
+// whose points lie in tiles (li, lj) of x and whose global tile ids are
+// (ti, tj): the diagonal strictness and the n_valid mask are defined on
+// global point indices, so a halo buffer loads by slot and masks by id.
+__device__ __forceinline__ void hit_tile(const float* __restrict__ x, int D, int li, int lj, int ti,
+                                         int tj, int bp, float eps2, int n_valid, float* As,
+                                         float* Bs, float* norms, unsigned char (&hit)[8]) {
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
-  RowLoader<float> la{x + (size_t)ti * bp * D, (size_t)D, bp, D};
-  RowLoader<float> lb{x + (size_t)tj * bp * D, (size_t)D, bp, D};
+  RowLoader<float> la{x + (size_t)li * bp * D, (size_t)D, bp, D};
+  RowLoader<float> lb{x + (size_t)lj * bp * D, (size_t)D, bp, D};
   float acc[8][8];
   float nrm;
   tile_product<true>(acc, la, lb, D, As, Bs, &nrm);
@@ -81,7 +100,7 @@ join_hits_kernel(const float* __restrict__ x, int D, const int* __restrict__ sch
   const int ty = threadIdx.x >> 4;
   if (threadIdx.x < TILE) colcnt[threadIdx.x] = 0;
   unsigned char hit[8];
-  hit_tile(x, D, ti, tj, bp, eps2, n_valid, As, Bs, norms, hit);
+  hit_tile(x, D, ti, tj, ti, tj, bp, eps2, n_valid, As, Bs, norms, hit);
   int* rows_out = row_hits + (size_t)blockIdx.x * bp;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -102,22 +121,23 @@ join_hits_kernel(const float* __restrict__ x, int D, const int* __restrict__ sch
   if (threadIdx.x < bp) col_hits[(size_t)blockIdx.x * bp + threadIdx.x] = colcnt[threadIdx.x];
 }
 
-__global__ void __launch_bounds__(THREADS)
-join_emit_kernel(const float* __restrict__ x, int D, const int* __restrict__ table, int bp,
-                 float eps2, int n_valid, int* __restrict__ out) {
+// The pairs of tile pair (li, lj) -> global (ti, tj), written at
+// out[offset + rank] for rank < total, in row-major in-tile order.  Both
+// emission kernels run exactly this.
+__device__ __forceinline__ void emit_tile(const float* __restrict__ x, int D, int li, int lj, int ti,
+                                          int tj, int offset, int total, int bp, float eps2,
+                                          int n_valid, int* __restrict__ out) {
   __shared__ __align__(16) float As[BK * TILE];
   __shared__ __align__(16) float Bs[BK * TILE];
   __shared__ float norms[2 * TILE];
   __shared__ int row_total[TILE];
   __shared__ int row_start[TILE];
-  const int* row = table + 4 * (size_t)blockIdx.x;
-  const int ti = row[0], tj = row[1], offset = row[2], total = row[3];
   if (total == 0) return;  // uniform across the CTA: nothing to write
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
   const int lane16 = threadIdx.x & 15;
   unsigned char hit[8];
-  hit_tile(x, D, ti, tj, bp, eps2, n_valid, As, Bs, norms, hit);
+  hit_tile(x, D, li, lj, ti, tj, bp, eps2, n_valid, As, Bs, norms, hit);
   // Row r's columns in row-major order: first halves (cols 4tx..4tx+3) of
   // tx = 0..15, then second halves (64+4tx..64+4tx+3) of tx = 0..15.
   int pre_lo[8], pre_hi[8], tot_lo[8];
@@ -183,6 +203,49 @@ join_emit_kernel(const float* __restrict__ x, int D, const int* __restrict__ tab
   }
 }
 
+__global__ void __launch_bounds__(THREADS)
+join_emit_kernel(const float* __restrict__ x, int D, const int* __restrict__ table, int bp,
+                 float eps2, int n_valid, int* __restrict__ out) {
+  const int* row = table + 4 * (size_t)blockIdx.x;
+  emit_tile(x, D, row[0], row[1], row[0], row[1], row[2], row[3], bp, eps2, n_valid, out);
+}
+
+// Row counts only, over a 2-column (i, j) table or a 4-column
+// (i_slot, j_slot, i, j) one: tiles load by columns (0, 1) and mask by the
+// global columns (cols - 2, cols - 1).
+__global__ void __launch_bounds__(THREADS)
+join_hits_rows_kernel(const float* __restrict__ x, int D, const int* __restrict__ sched, int cols,
+                      int bp, float eps2, int n_valid, int* __restrict__ row_hits) {
+  __shared__ __align__(16) float As[BK * TILE];
+  __shared__ __align__(16) float Bs[BK * TILE];
+  __shared__ float norms[2 * TILE];
+  const int* row = sched + (size_t)cols * blockIdx.x;
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  unsigned char hit[8];
+  hit_tile(x, D, row[0], row[1], row[cols - 2], row[cols - 1], bp, eps2, n_valid, As, Bs, norms,
+           hit);
+  int* rows_out = row_hits + (size_t)blockIdx.x * bp;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    int n = __popc(hit[i]);
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) n += __shfl_xor_sync(0xffffffffu, n, off);
+    const int r = tile_row(ty, i);
+    if (tx == 0 && r < bp) rows_out[r] = n;
+  }
+}
+
+// Emission over a shard's resident + halo buffer: 6-column rows
+// (i_slot, j_slot, i, j, offset, total), the offset local to the shard's
+// own pair buffer.
+__global__ void __launch_bounds__(THREADS)
+join_emit_halo_kernel(const float* __restrict__ x, int D, const int* __restrict__ table, int bp,
+                      float eps2, int n_valid, int* __restrict__ out) {
+  const int* row = table + 6 * (size_t)blockIdx.x;
+  emit_tile(x, D, row[0], row[1], row[2], row[3], row[4], row[5], bp, eps2, n_valid, out);
+}
+
 }  // namespace
 
 extern "C" int sfc_join_hits(const void* x, int D, const void* sched, int steps, int bp, float eps2,
@@ -195,6 +258,20 @@ extern "C" int sfc_join_hits(const void* x, int D, const void* sched, int steps,
 extern "C" int sfc_join_emit(const void* x, int D, const void* table, int steps, int bp, float eps2,
                              int n_valid, void* out, void* stream) {
   join_emit_kernel<<<steps, THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)x, D, (const int*)table, bp, eps2, n_valid, (int*)out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sfc_join_hits_rows(const void* x, int D, const void* sched, int cols, int steps,
+                                  int bp, float eps2, int n_valid, void* row_hits, void* stream) {
+  join_hits_rows_kernel<<<steps, THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)x, D, (const int*)sched, cols, bp, eps2, n_valid, (int*)row_hits);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sfc_join_emit_halo(const void* x, int D, const void* table, int steps, int bp,
+                                  float eps2, int n_valid, void* out, void* stream) {
+  join_emit_halo_kernel<<<steps, THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)x, D, (const int*)table, bp, eps2, n_valid, (int*)out);
   return (int)cudaGetLastError();
 }

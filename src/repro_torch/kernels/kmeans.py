@@ -30,6 +30,14 @@ argmin over centroid tiles) and :func:`kmeans_update_swizzled`
 Both run the fused path's device code, so the two paths agree to the bit
 on the card.
 
+The sharded path (:mod:`repro_torch.kernels.sharded`) runs one Lloyd
+step per shard as :func:`kmeans_shard_program` — ``sfc_kmeans_shard_assign``
+and ``sfc_kmeans_shard_update``, the same device code as the fused
+path's two launches with device-side ``(n_valid_local, k_valid)`` masks
+and one partial per point tile — and folds the gathered partials with
+:func:`kmeans_fold_program` (``sfc_kmeans_fold``), a left fold in the
+order of a device table.
+
 Port defaults for the H100 (set in ops.py): ``bp = 128`` points per
 tile (one 128x128 metric tile per centroid chunk) and ``bc = 128``.  The
 JAX package's ``bp = 256`` was sized for VMEM; a CTA's 128-row tile keeps
@@ -208,19 +216,19 @@ def _assign_cuda(program: GpuProgram, x, c, cn):
     return min_m, arg
 
 
-def _assign_plain(program: GpuProgram, x, c, cn):
-    """Per CTA (point tile): the full (bp, Kp) metric tile, k_valid
-    masked with the largest finite f32, then min and first argmin."""
-    p = program.params
-    bp = p["bp"]
+def _assign_tiles_of(program: GpuProgram, x, c, cn, k_valid: int):
+    """Per CTA (the point tile of a schedule row): the full (bp, Kp)
+    metric tile, k_valid masked with the largest finite f32, then min
+    and first argmin; (min, argmin) of every point, (N,) each."""
+    bp, Kp = program.params["bp"], program.params["Kp"]
     Np, D = x.shape
     xt = x.float().view(-1, bp, D)
     min_m = torch.empty(Np, dtype=torch.float32, device=x.device).view(-1, bp)
     arg = torch.empty(Np, dtype=torch.int32, device=x.device).view(-1, bp)
-    invalid = torch.arange(p["Kp"], device=x.device) >= p["k_valid"]
+    invalid = torch.arange(Kp, device=x.device) >= k_valid
     tiles = program.schedule[:, 1].long()
     order = shuffled_ctas(program.steps, x.device)
-    for chunk in cta_chunks(order, bp * p["Kp"]):
+    for chunk in cta_chunks(order, bp * Kp):
         ti = tiles[chunk]
         m = cn - 2.0 * torch.matmul(xt[ti], c.float().T)
         m = torch.where(invalid, _F32_MAX, m)
@@ -228,6 +236,10 @@ def _assign_plain(program: GpuProgram, x, c, cn):
         min_m[ti] = vals
         arg[ti] = idx.to(torch.int32)
     return min_m.view(Np), arg.view(Np)
+
+
+def _assign_plain(program: GpuProgram, x, c, cn):
+    return _assign_tiles_of(program, x, c, cn, program.params["k_valid"])
 
 
 # ---------------------------------------------------------------------------
@@ -544,3 +556,161 @@ def kmeans_lloyd_reference(
         cw = cnt[0][:, None]
         c = torch.where(cw > 0, sums / torch.clamp(cw, min=1.0), c).contiguous()
     return c, assign
+
+
+# ---------------------------------------------------------------------------
+# The shard step: one Lloyd step on one shard, per-tile partials (the
+# curve-range-sharded path, kernels/sharded.py)
+# ---------------------------------------------------------------------------
+
+def shard_assign_cuda(program: GpuProgram, x, c, cn, lim):
+    """The shard step's first launch, ``sfc_kmeans_shard_assign``:
+    (min, argmin) f32/int32[pt, bp]."""
+    p = program.params
+    bp, Kp, pt = p["bp"], p["Kp"], p["pt"]
+    D = x.shape[1]
+    sched = program.schedule
+    require(program, x, "x", dtypes=(torch.float32,), shape=(pt * bp, D))
+    require(program, c, "c", dtypes=(torch.float32,), shape=(Kp, D))
+    require(program, cn, "cn", dtypes=(torch.float32,), shape=(Kp,))
+    require(program, lim, "lim", dtypes=(torch.int32,), shape=(2,))
+    require(program, sched, "schedule", dtypes=(torch.int32,))
+    min_m = torch.empty((pt, bp), dtype=torch.float32, device=x.device)
+    arg = torch.empty((pt, bp), dtype=torch.int32, device=x.device)
+    call(
+        "sfc_kmeans_shard_assign", x.data_ptr(), c.data_ptr(), cn.data_ptr(), sched.data_ptr(),
+        pt, sched.shape[1], 1, bp, Kp, D, lim.data_ptr(), min_m.data_ptr(), arg.data_ptr(),
+        stream_of(x),
+    )
+    return min_m, arg
+
+
+def shard_update_cuda(program: GpuProgram, x, arg, lim):
+    """The shard step's second launch, ``sfc_kmeans_shard_update``: the
+    per-tile partials, sums f32[pt, Kp, D] and counts f32[pt, Kp]."""
+    p = program.params
+    bp, Kp, pt = p["bp"], p["Kp"], p["pt"]
+    D = x.shape[1]
+    sched = program.schedule
+    require(program, x, "x", dtypes=(torch.float32,), shape=(pt * bp, D))
+    require(program, arg, "assignment", dtypes=(torch.int32,), shape=(pt, bp))
+    require(program, lim, "lim", dtypes=(torch.int32,), shape=(2,))
+    psum = torch.empty((pt, Kp, D), dtype=torch.float32, device=x.device)
+    pcnt = torch.empty((pt, Kp), dtype=torch.float32, device=x.device)
+    _pt, ctiles, dchunks = program.grid
+    call(
+        "sfc_kmeans_shard_update", x.data_ptr(), arg.data_ptr(), sched.data_ptr(),
+        sched.shape[1], 1, pt, ctiles, dchunks, bp, lim.data_ptr(), Kp, D, p["dchunk"],
+        psum.data_ptr(), pcnt.data_ptr(), stream_of(x),
+    )
+    return psum, pcnt
+
+
+def _shard_cuda(program: GpuProgram, x, c, cn, lim):
+    min_m, arg = shard_assign_cuda(program, x, c, cn, lim)
+    return (min_m, arg, *shard_update_cuda(program, x, arg, lim))
+
+
+def shard_assign_plain(program: GpuProgram, x, c, cn, lim):
+    """The assign CTAs as :func:`_assign_tiles_of`, k_valid read from
+    ``lim``: (min, argmin) [pt, bp]."""
+    pt, bp = program.params["pt"], program.params["bp"]
+    min_m, arg = _assign_tiles_of(program, x, c, cn, int(lim[1]))
+    return min_m.view(pt, bp), arg.view(pt, bp)
+
+
+def shard_update_plain(program: GpuProgram, x, arg, lim):
+    """Per update CTA (one point tile): the tile's valid points (row <
+    ``lim[0]``) added in point order into the tile's own (Kp, D) slot
+    (``index_add_`` on the CPU adds in source order, as the kernel does),
+    the counts beside them."""
+    p = program.params
+    bp, Kp, pt = p["bp"], p["Kp"], p["pt"]
+    D = x.shape[1]
+    n_valid = int(lim[0])
+    arg = arg.reshape(-1)
+    xf = x.float()
+    psum = torch.zeros((pt * Kp, D), dtype=torch.float32, device=x.device)
+    pcnt = torch.zeros((pt * Kp,), dtype=torch.float32, device=x.device)
+    tiles = program.schedule[:, 1].long()
+    in_tile = torch.arange(bp, device=x.device)
+    for chunk in cta_chunks(shuffled_ctas(pt, x.device), bp * D):
+        rows = (tiles[chunk][:, None] * bp + in_tile).reshape(-1)
+        rows = rows[rows < n_valid]
+        slot = (rows // bp) * Kp + arg[rows].long()
+        psum.index_add_(0, slot, xf[rows])
+        pcnt.index_add_(0, slot, torch.ones(len(rows), device=x.device))
+    return psum.view(pt, Kp, D), pcnt.view(pt, Kp)
+
+
+def _shard_plain(program: GpuProgram, x, c, cn, lim):
+    min_m, arg = shard_assign_plain(program, x, c, cn, lim)
+    return (min_m, arg, *shard_update_plain(program, x, arg, lim))
+
+
+def kmeans_shard_program(
+    schedule: torch.Tensor, *, pt: int, ct: int, bp: int, bc: int, D: int
+) -> GpuProgram:
+    """One Lloyd step on a ``pt``-tile point shard: the declaration of
+    ``sfc_kmeans_shard_assign`` + ``sfc_kmeans_shard_update``.
+
+    ``schedule`` is the shard's int32[pt*ct + pt, 4] :func:`repro_torch.
+    core.kmeans_schedule` table; both launches run over its update-phase
+    rows.  Operands: x f32[pt*bp, D], the replicated centroids f32[Kp, D]
+    and their norms f32[Kp], and ``lim``, a device int32[2] holding
+    ``(n_valid_local, k_valid)`` — dynamic masks, so one program serves
+    every shard (masking with the full extent changes no bit).  Outputs,
+    each written exactly once: (min, argmin) f32/int32[pt, bp] and the
+    PER-TILE partials, sums f32[pt, Kp, D] and counts f32[pt, Kp] (zeros
+    for a shard of pure padding).
+    """
+    Kp = ct * bc
+    if tuple(schedule.shape) != (pt * ct + pt, 4):
+        raise ValueError(f"schedule {tuple(schedule.shape)} is not a kmeans table for {(pt, ct)}")
+    dchunk, dchunks = update_columns(D)
+    return GpuProgram(
+        name="sfc_kmeans_shard",
+        schedule=schedule[pt * ct:],
+        launcher=_shard_cuda,
+        plain=_shard_plain,
+        grid=(pt, -(-Kp // _UPDATE_BLOCK), dchunks),
+        params={"pt": pt, "bp": bp, "Kp": Kp, "dchunk": dchunk,
+                "smem_bytes": update_smem_bytes(dchunk)},
+        phases=("assign", "update"),
+        columns=("phase", "i", "j", "first_visit"),
+    )
+
+
+def _fold_cuda(program: GpuProgram, parts):
+    order = program.schedule
+    require(program, parts, "parts", dtypes=(torch.float32,))
+    require(program, order, "order", dtypes=(torch.int32,))
+    _T, Kp, D = parts.shape
+    out = torch.empty((Kp, D), dtype=torch.float32, device=parts.device)
+    call("sfc_kmeans_fold", parts.data_ptr(), order.data_ptr(), program.steps, Kp, D,
+         out.data_ptr(), stream_of(parts))
+    return out
+
+
+def _fold_plain(program: GpuProgram, parts):
+    """The fold as a loop of f32 adds, in the table's order."""
+    order = program.schedule[:, 0].tolist()
+    if not order:
+        return torch.zeros(parts.shape[1:], dtype=torch.float32, device=parts.device)
+    acc = parts[order[0]].clone()
+    for t in order[1:]:
+        acc += parts[t]
+    return acc
+
+
+def kmeans_fold_program(order: torch.Tensor) -> GpuProgram:
+    """``sfc_kmeans_fold``: the left fold ``parts[order[0]] + parts[order[1]]
+    + ...`` of (T, Kp, D) partials into (Kp, D), one fixed chain of f32
+    adds per element.  ``order`` is an int32[n, 1] table of tile ids."""
+    return GpuProgram(
+        name="sfc_kmeans_fold",
+        schedule=order,
+        launcher=_fold_cuda,
+        plain=_fold_plain,
+        columns=("tile",),
+    )

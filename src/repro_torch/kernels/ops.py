@@ -31,8 +31,15 @@ shared-memory budget gate: no fused form of the port holds state its
 reference path does not (the k-means update tiles its columns, so it
 runs at any D), so a gate would have nothing to choose between.
 
-Not in this slice (each raises :class:`NotImplementedError` naming the
-slice that brings it): ``mesh=`` and ``choice=``.
+``mesh=`` (an :class:`~repro_torch.launch.mesh.AppMesh` from
+``make_app_mesh``) runs ``kmeans_lloyd`` and ``simjoin_pairs`` curve-range
+sharded over its shards (:mod:`repro_torch.kernels.sharded`): k-means in
+the ``exact`` / ``tree`` / ``psum`` reduction classes, the ε-join with
+the halo exchange.  The shards' tensors live on the mesh's devices; the
+result comes back on the input's device.
+
+Not in this slice (raises :class:`NotImplementedError` naming the slice
+that brings it): ``choice=``.
 """
 from __future__ import annotations
 
@@ -69,6 +76,7 @@ from .kmeans import (
     kmeans_lloyd_reference,
 )
 from .matmul import matmul3d_csr_device, matmul_swizzled, matmul_swizzled_3d
+from .sharded import kmeans_lloyd_sharded, simjoin_pairs_sharded
 from .simjoin import map_pairs_back, simjoin_counts_swizzled, simjoin_pairs_scheduled
 
 DEFAULT_CURVE = "fur"  # overlay-grid Hilbert: native n×m, unit steps
@@ -81,9 +89,7 @@ def _not_in_slice(what: str, slice_name: str):
     )
 
 
-def _check_slice_options(*, mesh=None, choice=None):
-    if mesh is not None:
-        _not_in_slice("mesh=", "sharding (kernels/sharded.py)")
+def _check_slice_options(*, choice=None):
     if choice is not None:
         _not_in_slice("choice=", "autotuner (kernels/autotune.py)")
 
@@ -408,6 +414,8 @@ def kmeans_lloyd(
     hilbert_order: bool = False,
     fused: bool = True,
     mesh=None,
+    shard_exact: bool = True,
+    shard_reduce: str | None = None,
     choice=None,
     device=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -422,8 +430,27 @@ def kmeans_lloyd(
     sorts the points by their d-dimensional Hilbert key ONCE (cached on
     the quantised grid), runs all iterations in sorted order, and maps
     the assignment back through the inverse permutation at the end.
+
+    ``mesh=`` runs the curve-range-sharded form (point tiles partitioned
+    contiguously over the shards, counts by ``psum``): with
+    ``shard_exact=True`` the coordinate sums fold in the single-core
+    schedule's tile order, the same bits on every mesh size;
+    ``shard_reduce`` names the class (``"exact"`` / ``"tree"`` /
+    ``"psum"``, see :func:`repro_torch.kernels.sharded.kmeans_lloyd_sharded`).
+    It always runs the fused form: ``fused=False`` with ``mesh=`` raises.
     """
-    _check_slice_options(mesh=mesh, choice=choice)
+    _check_slice_options(choice=choice)
+    if mesh is not None:
+        if not fused:
+            raise ValueError(
+                "mesh= always runs the sharded fused path; fused=False is "
+                "only available single-core (drop mesh= to use the "
+                "multi-dispatch reference)"
+            )
+        return kmeans_lloyd_sharded(
+            _to_device(x, device), k, mesh=mesh, iters=iters, curve=curve, seed=seed, bp=bp,
+            bc=bc, hilbert_order=hilbert_order, exact=shard_exact, reduce=shard_reduce,
+        )
     x = _to_device(x, device)
     N, D = x.shape
     c0 = kmeans_init(x, k, seed)
@@ -513,9 +540,16 @@ def simjoin_pairs(
     the (cached) permutation, so pairs always refer to the original point
     order.  The output size is data-dependent, so the pass-1 totals are
     copied to the host between the two launches.
+
+    ``mesh=`` runs the distributed two-pass join with the halo exchange
+    (:func:`repro_torch.kernels.sharded.simjoin_pairs_sharded`): the same
+    pairs in the same order on every mesh size.
     """
-    _check_slice_options(mesh=mesh, choice=choice)
+    _check_slice_options(choice=choice)
     x = _to_device(x, device)
+    if mesh is not None:
+        return simjoin_pairs_sharded(x, eps, mesh=mesh, curve=curve, bp=bp,
+                                     hilbert_order=hilbert_order)
     N = x.shape[0]
     if N == 0:
         return torch.zeros((0, 2), dtype=torch.int32, device=x.device)

@@ -20,6 +20,14 @@ shared by both kernels so counts and emitted pairs can never disagree):
   ranked by an in-CTA prefix sum in row-major in-tile order.  The output
   order is schedule order, then row-major — the JAX package's order.
 
+The sharded join (:mod:`repro_torch.kernels.sharded`) adds two more
+programs on the same hit predicate: ``sfc_join_hits_rows``
+(:func:`simjoin_hits_rows_program`, row counts only, over a 2-column
+table or a 4-column ``(i_slot, j_slot, i, j)`` one that loads tiles by
+their slot in a shard's resident + halo buffer and masks by global tile
+id) and ``sfc_join_emit_halo`` (:func:`simjoin_emit_halo_program`,
+emission over the 6-column halo table at shard-local offsets).
+
 A diagonal tile counts each unordered pair once via a strict i > j mask;
 an off-diagonal (i_tile > j_tile) tile contributes row sums to the i
 side and column sums to the j side, and emits (global_i, global_j) with
@@ -72,13 +80,16 @@ def map_pairs_back(pairs: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
     ).to(torch.int32)
 
 
-def _hit_tiles(x, ti, tj, *, bp: int, eps2: float, n_valid: int) -> torch.Tensor:
+def _hit_tiles(x, ti, tj, *, bp: int, eps2: float, n_valid: int, load=None) -> torch.Tensor:
     """Boolean (B, bp, bp) hit masks of tile pairs (ti[b], tj[b]) — the
     plain version of the kernels' ``hit_tile``, with ``_hit_tile``'s
-    operation order: (|xi|² − 2 xi·xj) + |xj|²."""
+    operation order: (|xi|² − 2 xi·xj) + |xj|².  ``load`` = (li, lj)
+    names the tiles of ``x`` that hold the points when they are not the
+    global ids (a shard's resident + halo buffer)."""
     D = x.shape[1]
     xt = x.float().view(-1, bp, D)
-    xi, xj = xt[ti], xt[tj]
+    li, lj = (ti, tj) if load is None else load
+    xi, xj = xt[li], xt[lj]
     d2 = (
         (xi * xi).sum(dim=-1)[:, :, None]
         - 2.0 * torch.bmm(xi, xj.transpose(1, 2))
@@ -220,15 +231,21 @@ def _emit_cuda(program: GpuProgram, x: torch.Tensor):
 
 
 def _emit_plain(program: GpuProgram, x: torch.Tensor):
+    """Per CTA (table row): the hit tile, ranked in row-major order; the
+    pairs of rank < total written at offset + rank.  Tiles load by the
+    first two columns and pair ids come from the global ids, the two
+    columns before (offset, total) — the same columns in a 4-column
+    table, columns 2 and 3 in the halo form's 6."""
     p = program.params
     bp = p["bp"]
     out = torch.full((p["p_pad"], 2), -1, dtype=torch.int32, device=x.device)
     table = program.schedule.long()
     lin = torch.arange(bp * bp, device=x.device)
     for chunk in cta_chunks(shuffled_ctas(program.steps, x.device), bp * bp):
-        ti, tj, off, tot = table[chunk].unbind(dim=1)
+        rows = table[chunk]
+        ti, tj, off, tot = rows[:, -4:].unbind(dim=1)
         hit = _hit_tiles(
-            x, ti, tj, bp=bp, eps2=p["eps2"], n_valid=p["n_valid"]
+            x, ti, tj, bp=bp, eps2=p["eps2"], n_valid=p["n_valid"], load=(rows[:, 0], rows[:, 1]),
         ).reshape(len(chunk), bp * bp)
         rank = torch.cumsum(hit, dim=1) - 1  # row-major in-tile order
         keep = hit & (rank < tot[:, None])
@@ -282,6 +299,94 @@ def simjoin_emit_swizzled(
         table, eps=eps, bp=bp, npad=N, cap=cap, p_pad=p_pad, n_valid=n_valid
     )
     return launch(program, x.to(torch.float32).contiguous())
+
+
+# ---------------------------------------------------------------------------
+# The sharded join's passes (kernels/sharded.py): row counts only, and
+# emission over a shard's resident + halo buffer
+# ---------------------------------------------------------------------------
+
+def _hits_rows_cuda(program: GpuProgram, x: torch.Tensor):
+    _check_join_operands(program, x)
+    p = program.params
+    rows = torch.empty((program.steps, p["bp"]), dtype=torch.int32, device=x.device)
+    if program.steps:
+        call(
+            "sfc_join_hits_rows", x.data_ptr(), x.shape[1], program.schedule.data_ptr(),
+            program.schedule.shape[1], *program.grid, p["bp"], p["eps2"], p["n_valid"],
+            rows.data_ptr(), stream_of(x),
+        )
+    return rows
+
+
+def _hits_rows_plain(program: GpuProgram, x: torch.Tensor):
+    p = program.params
+    bp = p["bp"]
+    rows = torch.empty((program.steps, bp), dtype=torch.int32, device=x.device)
+    sched = program.schedule.long()
+    for chunk in cta_chunks(shuffled_ctas(program.steps, x.device), bp * bp):
+        r = sched[chunk]
+        hit = _hit_tiles(
+            x, r[:, -2], r[:, -1], bp=bp, eps2=p["eps2"], n_valid=p["n_valid"],
+            load=(r[:, 0], r[:, 1]),
+        )
+        rows[chunk] = hit.sum(dim=2, dtype=torch.int32)
+    return rows
+
+
+def simjoin_hits_rows_program(
+    schedule: torch.Tensor, *, eps: float, bp: int, npad: int, n_valid: int | None,
+    halo: bool = False,
+) -> GpuProgram:
+    """Pass-1 declaration of the sharded join (``sfc_join_hits_rows``):
+    only the per-row hit sums int32[steps, bp], the pair emission's
+    prefix-sum input.
+
+    ``halo=False``: a 2-column ``(i, j)`` table over the whole point set.
+    ``halo=True``: a 4-column ``(i_slot, j_slot, i, j)`` table over a
+    shard's resident + halo buffer — the slot columns say where the tiles
+    lie in the buffer, the global tile ids (< ``npad / bp``) drive the
+    diagonal strictness and the ragged-N mask.
+    """
+    return GpuProgram(
+        name="sfc_join_hits_rows",
+        schedule=schedule,
+        launcher=_hits_rows_cuda,
+        plain=_hits_rows_plain,
+        params=_join_params(eps, bp, n_valid, npad),
+        columns=("i_slot", "j_slot", "i", "j") if halo else ("i", "j"),
+    )
+
+
+def _emit_halo_cuda(program: GpuProgram, x: torch.Tensor):
+    _check_join_operands(program, x)
+    p = program.params
+    out = torch.full((p["p_pad"], 2), -1, dtype=torch.int32, device=x.device)
+    if program.steps:
+        call(
+            "sfc_join_emit_halo", x.data_ptr(), x.shape[1], program.schedule.data_ptr(),
+            *program.grid, p["bp"], p["eps2"], p["n_valid"], out.data_ptr(), stream_of(x),
+        )
+    return out
+
+
+def simjoin_emit_halo_program(
+    table: torch.Tensor, *, eps: float, bp: int, npad: int, cap: int, p_pad: int,
+    n_valid: int | None,
+) -> GpuProgram:
+    """Pass-2 declaration of the halo join (``sfc_join_emit_halo``): 6-column
+    rows ``(i_slot, j_slot, i, j, offset, total)``.  Slots index the
+    shard's resident + halo buffer, global tile ids give the pair indices,
+    ``offset`` is local to the shard's own (p_pad, 2) buffer.  A padding
+    row (``total = 0``) writes nothing."""
+    return GpuProgram(
+        name="sfc_join_emit_halo",
+        schedule=table,
+        launcher=_emit_halo_cuda,
+        plain=_emit_plain,
+        params={**_join_params(eps, bp, n_valid, npad), "cap": int(cap), "p_pad": int(p_pad)},
+        columns=("i_slot", "j_slot", "i", "j", "offset", "total"),
+    )
 
 
 def emission_table(
