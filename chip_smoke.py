@@ -10,7 +10,9 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    ``build/repro_torch/``.
 2. Hold each kernel against its plain PyTorch version on the same CUDA
    inputs, at a small ragged and a mid-size shape (the k-means update up
-   to D = 960, its column-chunked grid), and the reference paths against
+   to D = 960, its column-chunked grid; ``sfc_chol_diag`` equal to
+   ``_chol_tile`` to the bit; ``sfc_matmul3d`` bf16 to bf16 and to f32),
+   and the reference paths against
    the fused ones; the sharded paths' kernels (rows 7, 9, 11) on every
    shard, shards of pure padding and a halo table whose slots are not the
    global tile ids included (``compare_sharded``).
@@ -52,7 +54,9 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    a few runs), its plain version (one run) and, where one PyTorch call
    computes the same function, that call; compute each kernel's bound.
    The phased kernels are timed per entry point: the launches of one
-   phase over all k-blocks of one call.
+   phase over all k-blocks of one call (``sfc_chol_diag`` also against
+   one ``linalg.cholesky`` call per diagonal tile); ``sfc_matmul3d`` in
+   bf16 with bf16 and f32 outputs.
 6. Run the main path's calls once more, warm, under ``torch.profiler``:
    wall time, kernel (device) time and the device's busy share per call,
    and one warm tick of each streaming service.
@@ -76,12 +80,15 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    data in the exact, tree and psum classes and exact on one shard, the
    halo ε-join (``ops.simjoin_pairs(mesh=, hilbert_order=True)``) and the
    replicated one on the stream's 262,144 points in the unit cube, and
-   the replicated one on phase 3's 262,144 × 16 set; exact S = 4 equal to
-   S = 1 to the bit, tree equal to itself, every class allclose to phase
-   3's centroids with assignments exact outside the band, every join
-   array-equal to the single-core join; collective counts and bytes per
-   shard, the halo plan's rows and host time, a warm profile of each
-   call, and the five sharded kernels' times, bounds and plain versions.
+   the replicated one on phase 3's 262,144 × 16 set; exact S = 4 and
+   S = 1 equal to phase 3's single-core call to the bit, tree equal to
+   itself, every class allclose to phase 3's centroids with assignments
+   exact outside the band, every join array-equal to the single-core
+   join; phase 3's default-``bp`` pairs in the 256-tile order and the
+   reorder's time; collective counts and bytes per shard, the halo
+   plan's rows and host time, a warm profile of each call, and the five
+   sharded kernels' times, bounds and plain versions (the update also
+   with the exact class's group partials).
 
 The second-to-last line of output is one JSON object ``{"kernels": [...]}``,
 the last ``{"ok": true, "device": {...}}``.  ``--quick`` runs phases 1-2
@@ -431,9 +438,19 @@ def compare_phased(rng, device) -> None:
     import torch
     from repro_torch.core import triangle_schedule_device
     from repro_torch.kernels import launch, ops
-    from repro_torch.kernels.cholesky import cholesky_program, cholesky_reference_program
+    from repro_torch.kernels.cholesky import _chol_tile, cholesky_program, cholesky_reference_program
     from repro_torch.kernels.floyd_warshall import fw_program, fw_reference_program
     from repro_torch.kernels.matmul import tile_update_program
+
+    for b in (8, 88, 128):
+        prog = cholesky_program("hilbert", 1, b, device=device)
+        for _ in range(3):
+            a = gp_covariance(rng, b, device)
+            got, want = launch(prog, a.clone()), _chol_tile(a.clone())
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"sfc_chol_diag b={b}: kernel != _chol_tile "
+                                          f"(max diff {max_diff(got, want)})")
+    log("compare sfc_chol_diag b=8, 88, 128 (3 tiles each): array_equal to the plain _chol_tile")
 
     for n, b in [(64, 8), (528, 88), (1024, 128)]:
         d = fw_graph(rng, n, device, integer=False)
@@ -641,24 +658,32 @@ def compare_reference(rng, device) -> None:
             f"{prog.params['dchunk']}, {prog.params['smem_bytes']} B shared memory per CTA), "
             f"counts equal, sums max_abs_err={serr:.3e}")
 
-    for (M, N, K, bm, bk, curve, dtype) in [(200, 136, 40, 64, 16, "hilbert", torch.float32),
-                                            (1024, 1536, 1024, 128, 128, "hilbert", torch.float32),
-                                            (1024, 1536, 1024, 128, 128, "row", torch.float32),
-                                            (1000, 700, 608, 128, 128, "zorder", torch.bfloat16)]:
+    # bf16 inputs run the tensor-core kernel: bf16 outputs within one bf16
+    # ulp of the largest output, f32 outputs (exact bf16 products summed in
+    # f32 in another order) within 1e-4 sqrt(K) of the plain version
+    f32, bf16 = torch.float32, torch.bfloat16
+    for (M, N, K, bm, bk, curve, dtype, out) in [(200, 136, 40, 64, 16, "hilbert", f32, f32),
+                                                 (1024, 1536, 1024, 128, 128, "hilbert", f32, f32),
+                                                 (1024, 1536, 1024, 128, 128, "row", f32, f32),
+                                                 (1000, 700, 608, 128, 128, "zorder", bf16, bf16),
+                                                 (1000, 700, 608, 128, 128, "hilbert", bf16, f32),
+                                                 (100, 90, 40, 100, 40, "row", bf16, bf16)]:
         a = torch.as_tensor(rng.standard_normal((M, K), dtype=np.float32), device=device).to(dtype)
         b = torch.as_tensor(rng.standard_normal((K, N), dtype=np.float32), device=device).to(dtype)
-        Mp, Np_, Kp = -(-M // bm) * bm, -(-N // bm) * bm, -(-K // bk) * bk
+        bn = min(bm, N)
+        Mp, Np_, Kp = -(-M // bm) * bm, -(-N // bn) * bn, -(-K // bk) * bk
         a = torch.nn.functional.pad(a, (0, Kp - K, 0, Mp - M)).contiguous()
         b = torch.nn.functional.pad(b, (0, Np_ - N, 0, Kp - K)).contiguous()
-        ij, ks = matmul3d_csr_device(curve, (Mp // bm, Np_ // bm, Kp // bk), device=device)
-        prog = matmul3d_program(ij, ks, a, b, bm=bm, bn=bm, bk=bk)
+        ij, ks = matmul3d_csr_device(curve, (Mp // bm, Np_ // bn, Kp // bk), device=device)
+        prog = matmul3d_program(ij, ks, a, b, bm=bm, bn=bn, bk=bk, out_dtype=out)
         got, want = launch(prog, a, b), prog.plain(prog, a, b)
         torch.cuda.synchronize()
+        check(got.dtype == out and got.shape == want.shape, f"sfc_matmul3d {M}x{N}x{K}: {got.dtype} {got.shape}")
         err = float((got.float() - want.float()).abs().max())
-        tol = 1e-2 * max(1.0, float(want.float().abs().max())) if dtype == torch.bfloat16 else 1e-4 * K ** 0.5
-        check(err <= tol, f"sfc_matmul3d {M}x{N}x{K} {dtype}: max err {err} > {tol}")
-        log(f"compare sfc_matmul3d {M}x{N}x{K} {str(dtype)[6:]} bm={bm} bk={bk} {curve}: "
-            f"max_abs_err={err:.3e} (tol {tol:.1e})")
+        tol = 1e-2 * max(1.0, float(want.float().abs().max())) if out == bf16 else 1e-4 * K ** 0.5
+        check(err <= tol, f"sfc_matmul3d {M}x{N}x{K} {dtype}->{out}: max err {err} > {tol}")
+        log(f"compare sfc_matmul3d {M}x{N}x{K} {str(dtype)[6:]}->{str(out)[6:]} bm={bm} bn={bn} bk={bk} "
+            f"{curve}: max_abs_err={err:.3e} (tol {tol:.1e})")
 
     for (N, D, K) in [(5000, 16, 50), (3000, 960, 40)]:
         x = torch.as_tensor(rng.standard_normal((N, D), dtype=np.float32), device=device)
@@ -1408,13 +1433,22 @@ def time_matmul3d(entry, a32, b32, a16, b16, device) -> None:
     tol16 = 1e-2 * max(1.0, float(w16.float().abs().max()))
     check(err16 <= tol16, f"sfc_matmul3d bf16 vs plain: max err {err16} > {tol16}")
     del g16, w16
+    # bf16 inputs, f32 output: the same kernel's other epilogue
+    p16f = matmul3d_program(ij16, ks16, a16p, b16p, bm=128, bn=128, bk=128, out_dtype=torch.float32)
+    g16, w16 = launch(p16f, a16p, b16p), p16f.plain(p16f, a16p, b16p)
+    err16f, tol16f = float((g16 - w16).abs().max()), 1e-4 * k16 ** 0.5
+    check(err16f <= tol16f, f"sfc_matmul3d bf16->f32 vs plain: max err {err16f} > {tol16f}")
+    del g16, w16
     b16_ms, b16_by = bound_ms(2.0 * m16 * n16 * k16, BF16_PEAK, 2 * (m16 * k16 + k16 * n16 + m16 * n16))
     entry("sfc_matmul3d", lambda: launch(prog, a32, b32), lambda: prog.plain(prog, a32, b32),
           lambda: torch.matmul(a32, b32), 2.0 * s ** 3, FP32_PEAK, 3 * s * s * 4, 5, err,
           {"table": [s // 128] * 3, "sfc_matmul_ms": sfc_2d,
            "bf16": {"shape": [m16, n16, k16], "table": list(shape16), "ms": cuda_ms(lambda: launch(p16, a16p, b16p), 5),
+                    "plain_ms": cuda_ms(lambda: p16.plain(p16, a16p, b16p), 1, warmup=0),
                     "library_ms": cuda_ms(lambda: torch.matmul(a16, b16), 5), "bound_ms": b16_ms,
-                    "bound_by": b16_by, "max_abs_err": err16, "tol": tol16}})
+                    "bound_by": b16_by, "max_abs_err": err16, "tol": tol16,
+                    "f32_out_ms": cuda_ms(lambda: launch(p16f, a16p, b16p), 5),
+                    "f32_out_max_abs_err": err16f, "f32_out_tol": tol16f}})
 
 
 # ---------------------------------------------------------------------------
@@ -1883,7 +1917,7 @@ def sharded_path(device, seed: int, ctx: dict) -> list:
         hilbert_point_order_cached, kmeans_fold_program, kmeans_shard_program, shard_assign_cuda,
         shard_assign_plain, shard_update_cuda, shard_update_plain,
     )
-    from repro_torch.kernels.simjoin import simjoin_hits_rows_program
+    from repro_torch.kernels.simjoin import pairs_in_tile_order, simjoin_hits_rows_program
     from repro_torch.launch.mesh import make_app_mesh
 
     t_phase = time.perf_counter()
@@ -1934,6 +1968,9 @@ def sharded_path(device, seed: int, ctx: dict) -> list:
           f"sharded k-means exact: S={SHARDS} != S=1 to the bit")
     check(torch.equal(km["tree"][0], tree_again[0]) and torch.equal(km["tree"][1], tree_again[1]),
           "sharded k-means tree: two runs differ")
+    for r in ("exact", "exact S=1"):
+        check(torch.equal(km[r][0], cent) and torch.equal(km[r][1], asg),
+              f"sharded k-means {r}: != the single-core ops.kmeans_lloyd to the bit")
     kstats = {}
     for r, (c, a) in km.items():
         check(c.shape == cent.shape and bool(torch.isfinite(c).all()), f"sharded k-means {r}: shape")
@@ -1945,7 +1982,7 @@ def sharded_path(device, seed: int, ctx: dict) -> list:
     jn = names[4:]
     for name, want in zip(jn, (single_h, single_h, pairs)):
         check(torch.equal(outs[name], want), f"{name}: != the single-core ops.simjoin_pairs")
-    log("check sharded: exact S=4 == S=1 to the bit, tree bit-stable run to run, every class allclose to "
+    log("check sharded: exact S=4 == S=1 == single core to the bit, tree bit-stable run to run, every class allclose to "
         "the single-core centroids (rtol 1e-4, atol 1e-3), assignments exact outside the band; every join "
         "array_equal to the single-core join; " + json.dumps(kstats))
     coll = {r: {p: n // iters for p, n in vols[n_]["counts"].items()} for r, n_ in zip(km, names[:4])}
@@ -1954,6 +1991,27 @@ def sharded_path(device, seed: int, ctx: dict) -> list:
         "kmeans bytes per shard": {r: vols[n_]["bytes_per_shard"] for r, n_ in zip(km, names[:4])},
         "join bytes per shard": {n_: vols[n_] for n_ in jn},
     }))
+
+    # the single-core default-bp join (phase 3's pairs): in the 256-tile
+    # order, and the reorder of the 128-tile join's pairs into it, timed
+    NJ = xj.shape[0]
+    nt = -(-NJ // 256)
+    tri256 = torch.as_tensor(triangle_schedule("hilbert", nt, strict=False), device=device).long()
+    rank = torch.zeros(nt * nt, dtype=torch.long, device=device)
+    rank[tri256[:, 0] * nt + tri256[:, 1]] = torch.arange(len(tri256), device=device)
+    pi, pj = pairs[:, 0].long(), pairs[:, 1].long()
+    key = (rank[(pi // 256) * nt + pj // 256] * 256 + pi % 256) * 256 + pj % 256
+    check(bool((key[1:] > key[:-1]).all()), "ops.simjoin_pairs default bp: pairs not in the 256-tile order")
+    pairs128 = ops.simjoin_pairs(xj, eps, bp=128)
+    check(torch.equal(pairs_in_tile_order(pairs128, n=NJ, bp=256, curve="hilbert"), pairs),
+          "ops.simjoin_pairs: the reordered 128-tile pairs != the default call's")
+    order = {"pairs": len(pairs), "bp": 256, "run_bp": 128,
+             "reorder_ms": cuda_ms(lambda: pairs_in_tile_order(pairs128, n=NJ, bp=256, curve="hilbert"), 5),
+             "pairs_bp128_ms": cuda_ms(lambda: ops.simjoin_pairs(xj, eps, bp=128), 3),
+             "pairs_default_ms": cuda_ms(lambda: ops.simjoin_pairs(xj, eps), 3)}
+    log("check simjoin_pairs default bp: pairs in the 256-tile order (strictly increasing key), the 128-tile "
+        "join reordered equal to it, set-equal to the oracle outside the band (phase 4); " + json.dumps(order))
+    del pairs128, key, pi, pj, rank
 
     # the halo join's host plan at these sizes
     xsorted = xs_j[hilbert_point_order_cached(xs_j)]
@@ -2036,6 +2094,24 @@ def sharded_path(device, seed: int, ctx: dict) -> list:
           {"grid_per_shard": list(prog.grid), "partials_bytes": 4 * ptl * SHARDS * Kp * (DK + 1),
            "library_partials_max_abs_err": lerr})
     del x_aug, slot, acc
+    # the exact class's launch: one partial per single-core update group
+    local, _gid = ksh._exact_groups(st, SHARDS)
+    gprogs = [kmeans_shard_program(
+        kmeans_schedule_device("fur", ptl, st["ct"], device=device), pt=ptl, ct=st["ct"], bp=bp, bc=st["bc"],
+        D=DK, groups=torch.as_tensor(local[i], device=device), tiles_per_group=st["tpg"]) for i in range(SHARDS)]
+    gerr = 0.0
+    for i in range(SHARDS):
+        (s_k, n_k), (s_p, n_p) = (shard_update_cuda(gprogs[i], xs[i], args[i], lims[i]),
+                                  shard_update_plain(gprogs[i], xs[i], args[i], lims[i]))
+        check(torch.equal(n_k, n_p), "sfc_kmeans_shard_update (groups) counts vs plain at full size")
+        check(bool(torch.allclose(s_k, s_p, rtol=1e-5, atol=1e-3)), "sfc_kmeans_shard_update (groups) sums")
+        gerr = max(gerr, float((s_k - s_p).abs().max()))
+    del s_k, s_p
+    rows[-1]["exact_groups"] = {
+        "tiles_per_group": st["tpg"], "groups_per_shard": gprogs[0].grid[0], "grid_per_shard": list(gprogs[0].grid),
+        "ms": cuda_ms(lambda: [shard_update_cuda(gprogs[i], xs[i], args[i], lims[i]) for i in range(SHARDS)], 5),
+        "partials_bytes": 4 * gprogs[0].grid[0] * SHARDS * Kp * (DK + 1), "max_abs_err": gerr}
+    log(f"time sfc_kmeans_shard_update exact groups: {json.dumps(rows[-1]['exact_groups'])}")
     host = kmeans_schedule("fur", pt_all, st["ct"])
     fold = kmeans_fold_program(torch.as_tensor(np.ascontiguousarray(host[host[:, 0] == 1][:, 1:2]), device=device))
     check(torch.equal(launch(fold, gathered), fold.plain(fold, gathered)), "sfc_kmeans_fold vs plain at full size")
@@ -2204,7 +2280,11 @@ def time_phased(entry, device, fw_d, fw_dr, ch_a, ch_ar, ch) -> None:
             nbytes = sum(2 * (hi - lo) + (nt - k - 1) for _p, k, lo, hi in groups) * tile_bytes
         else:
             nbytes = sum(2 * (hi - lo) + phase for _p, _k, lo, hi in groups) * tile_bytes
-        extra = {"bound_one_sm_ms": 1e3 * ops_ / per_sm} if phase == 0 else None
+        extra = None
+        if phase == 0:  # beside the batched call: one library call per tile
+            extra = {"bound_one_sm_ms": 1e3 * ops_ / per_sm,
+                     "library_single_tiles_ms": cuda_ms(lambda: [torch.linalg.cholesky(t) for t in diag_tiles], 3),
+                     "tiles": int(ctas)}
         entry(name, lambda: launch(sub, work), lambda: sub.plain(sub, work), libraries[phase], ops_,
               FP32_PEAK, nbytes, 3, ch_err, extra)
     del work, diag_tiles, l_kk, a_ik

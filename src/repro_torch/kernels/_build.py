@@ -47,7 +47,7 @@ SIGNATURES = {
     "sfc_join_emit": (_P, _I, _P, _I, _I, _F, _I, _P, _P),
     # the sharded paths: lim is a device int32[2] (n_valid_local, k_valid)
     "sfc_kmeans_shard_assign": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
-    "sfc_kmeans_shard_update": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P),
+    "sfc_kmeans_shard_update": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P),
     "sfc_kmeans_fold": (_P, _P, _I, _I, _I, _P, _P),
     "sfc_join_hits_rows": (_P, _I, _P, _I, _I, _I, _F, _I, _P, _P),
     "sfc_join_emit_halo": (_P, _I, _P, _I, _I, _F, _I, _P, _P),

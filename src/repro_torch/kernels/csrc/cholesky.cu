@@ -23,14 +23,37 @@
 // all of them in the trailing phase: the SIMT 128x128 tile product of
 // tile_gemm.cuh).  The diag phase (one CTA per k) and the panel phase (at
 // most n/b - 1 CTAs per k) are latency-bound sequential loops:
-//   diag:  b steps; the tile stays in registers, 8x8 per thread, and only
-//          column t goes through shared memory at step t;
+//   diag:  b dependent sqrt + divide steps on one SM.  The first design
+//          held the tile in registers, 8x8 per thread, and ran b
+//          steps of two CTA barriers and 16 IEEE divisions per thread
+//          each (4,096 divisions a step where b - t - 1 are needed):
+//          248-270 us a tile at b = 128, 17.31 ms for the 64 tiles of
+//          n = 8192 (H100 80GB HBM3, 700 W).  This design keeps the tile
+//          in dynamic shared memory (b x (b + 1) floats, 66 KB at
+//          b = 128) and factors it in panels of 32 columns.  Inside a
+//          panel no CTA barrier is taken: warp 0 factors the 32-row
+//          diagonal block in registers (one row a lane, the pivot and
+//          multipliers by __shfl_sync, each element below the diagonal
+//          divided once) and publishes each finished column through
+//          shared memory and a release/acquire flag; warps 1-3 follow a
+//          step behind on the rows below, reading the column back.  The
+//          step loop stays rolled, so the body is small: it runs once per
+//          launch, from a cold instruction cache.  The whole CTA
+//          then applies the panel's 32 rank-1 updates, in ascending t, to
+//          the lower triangle right of the panel (4x4 register blocks
+//          reading the panel from shared memory).  Two CTA barriers a
+//          panel: 8 at b = 128.  The b sequential steps of pivot, square
+//          root and division on one warp remain its bound.
 //   panel: X . L_kk^T = A_ik by forward substitution, one thread per row
 //          of the tile (rows are independent), L_kk and the tile in
 //          dynamic shared memory (2 b^2 floats, 128 KB at b = 128, above
 //          the 48 KB static limit, hence cudaFuncSetAttribute).
 // Every rounding step is an explicit intrinsic (no FMA contraction of
-// a - b * c), the order of the JAX package's tile code.
+// a - b * c), the order of the JAX package's tile code: each element of
+// the diagonal tile sees a[r][c] = a[r][c] - L[r][t] L[c][t] (product,
+// then difference, each rounded) for t = 0, 1, ... in turn, then one
+// division by its column's pivot, as in _chol_tile, so the diag kernel
+// equals the plain version to the bit.
 //
 // Limits: 8 <= b <= 128, b % 8 == 0 (the wrapper raises otherwise).
 #include <mutex>
@@ -44,57 +67,161 @@ using namespace sfc;
 // phase 0: cholesky.py::_chol_tile on the tile in place.  Step t:
 // d = sqrt(a[t][t]); col = a[:, t] / d; a[r][c] -= col[r] col[c] for
 // r, c > t; column t becomes (0 above, d on, col below the diagonal).
-__global__ void __launch_bounds__(THREADS)
+constexpr int DIAG_THREADS = 256;
+constexpr int PANEL = 32;  // columns a panel
+constexpr unsigned FULL = 0xffffffffu;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void flag_release(unsigned* f, unsigned v) {
+  asm volatile("st.release.cta.shared::cta.u32 [%0], %1;" ::"r"(smem_addr(f)), "r"(v) : "memory");
+}
+__device__ __forceinline__ unsigned flag_acquire(const unsigned* f) {
+  unsigned v;
+  asm volatile("ld.acquire.cta.shared::cta.u32 %0, [%1];" : "=r"(v) : "r"(smem_addr(f)) : "memory");
+  return v;
+}
+
+// The panel (columns c0 .. c0 + pw - 1) is factored by four warps that
+// take no CTA barrier.  Warp 0 leads: it factors the 32x32 diagonal block
+// in registers, one column a step, writes each finished column to S and
+// then raises `flag` to the number of columns done.  Slot jj of a lane's
+// registers holds element (row, c0 + j + jj) at step j: the update of
+// column j + jj lands in slot jj - 1, so the next column is always slot 0
+// and the loop over j stays rolled (a small body).  Slots of the upper
+// triangle and past the panel are updated too and never read.
+__device__ __forceinline__ void factor_block(float* S, int ld, int c0, int pw, int b, int lane,
+                                             unsigned* flag) {
+  const int rd = c0 + lane;
+  float dg[PANEL];
+#pragma unroll
+  for (int j = 0; j < PANEL; ++j) dg[j] = (rd < b && j < pw) ? S[rd * ld + c0 + j] : 0.f;
+  float pv = __shfl_sync(FULL, dg[0], 0);  // the next pivot, a[c0 + j][c0 + j]
+  for (int j = 0; j < pw; ++j) {
+    const float d = __fsqrt_rn(pv);
+    const float cd = lane > j ? __fdiv_rn(dg[0], d) : d;  // lane j: the pivot
+    if (lane >= j && rd < b) S[rd * ld + c0 + j] = cd;
+    __syncwarp();
+    if (lane == 0) flag_release(flag, c0 + j + 1);
+    // the chain first: lane j + 1's slot 1 after this step is the next
+    // pivot (its multiplier is its own cd), the rest of the step after it
+    pv = __shfl_sync(FULL, __fsub_rn(dg[1], __fmul_rn(cd, cd)), (j + 1) & 31);
+    float lc[PANEL];  // lc[jj] = L[c0 + j + jj][c0 + j], all fetched before any is used
+#pragma unroll
+    for (int jj = 1; jj < PANEL; ++jj) lc[jj] = __shfl_sync(FULL, cd, (j + jj) & 31);
+#pragma unroll
+    for (int jj = 1; jj < PANEL; ++jj) dg[jj - 1] = __fsub_rn(dg[jj], __fmul_rn(cd, lc[jj]));
+  }
+}
+
+// Warp w >= 1 follows: row ro = c0 + 32 w + lane below the block, column
+// c0 + j as soon as the leader has published it (its pivot and
+// multipliers read back from S), so the rows trail the block by a step or
+// so instead of recomputing it.
+__device__ __forceinline__ void factor_rows(float* S, int ld, int c0, int pw, int b, int ro,
+                                            const unsigned* flag) {
+  float own[PANEL];
+#pragma unroll
+  for (int j = 0; j < PANEL; ++j) own[j] = (ro < b && j < pw) ? S[ro * ld + c0 + j] : 0.f;
+  for (int j = 0; j < pw; ++j) {
+    while (flag_acquire(flag) <= (unsigned)(c0 + j)) {
+    }
+    const float* col = S + c0 + j;
+    const float d = col[(c0 + j) * ld];
+    float lc[PANEL];
+#pragma unroll
+    for (int jj = 1; jj < PANEL; ++jj) lc[jj] = j + jj < pw ? col[(c0 + j + jj) * ld] : 0.f;
+    const float co = __fdiv_rn(own[0], d);
+    if (ro < b) S[ro * ld + c0 + j] = co;
+#pragma unroll
+    for (int jj = 1; jj < PANEL; ++jj) own[jj - 1] = __fsub_rn(own[jj], __fmul_rn(co, lc[jj]));
+  }
+}
+
+// The lower triangle right of the panel, rows and columns [base, b):
+// a[r][c] -= L[r][t] L[c][t] for t = c0 .. base - 1 in turn, 4x4 blocks
+// per thread (b - base is a multiple of 8).  The blocks on the diagonal
+// update their upper elements too, with the same values as their mirror
+// images (never read: the tile's upper triangle is written as zeros).
+__device__ __forceinline__ void trailing_panel(float* S, int ld, int c0, int base, int b) {
+  const int nb = (b - base) >> 2;
+  const int nblk = nb * (nb + 1) / 2;
+  for (int q = threadIdx.x; q < nblk; q += DIAG_THREADS) {
+    int R = (int)((sqrtf(8.f * q + 1.f) - 1.f) * 0.5f);
+    while (R * (R + 1) / 2 > q) --R;
+    while ((R + 1) * (R + 2) / 2 <= q) ++R;
+    const int C = q - R * (R + 1) / 2;
+    const int r0 = base + 4 * R, q0 = base + 4 * C;
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = S[(r0 + i) * ld + q0 + j];
+    for (int t = c0; t < base; ++t) {
+      float lr[4], lc[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        lr[i] = S[(r0 + i) * ld + t];
+        lc[i] = S[(q0 + i) * ld + t];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = __fsub_rn(acc[i][j], __fmul_rn(lr[i], lc[j]));
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) S[(r0 + i) * ld + q0 + j] = acc[i][j];
+  }
+}
+
+__global__ void __launch_bounds__(DIAG_THREADS)
 chol_diag_kernel(float* D, const int* sched, int sched_cols, int col_i, int row_begin, int n,
                  int b) {
-  __shared__ __align__(16) float colt[TILE];
+  extern __shared__ float S[];  // the tile, row-major with stride b + 1, then the flag
+  const int ld = b + 1;
+  unsigned* flag = reinterpret_cast<unsigned*>(S + b * ld);
+  if (threadIdx.x == 0) *flag = 0;
   const int2 t0 = cta_tile(sched, sched_cols, col_i, row_begin);
   float* T = tile_at(D, n, b, t0.x, t0.y);
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  float a[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int r = tile_row(ty, i), c = tile_col(tx, j);
-      a[i][j] = (r < b && c < b) ? T[(size_t)r * n + c] : 0.f;
-    }
-  for (int t = 0; t < b; ++t) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      if (tile_col(tx, j) == t) {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) colt[tile_row(ty, i)] = a[i][j];
-      }
-    __syncthreads();
-    const float d = __fsqrt_rn(colt[t]);
-    float cr[8], cc[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) cr[i] = __fdiv_rn(colt[tile_row(ty, i)], d);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) cc[j] = __fdiv_rn(colt[tile_col(tx, j)], d);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = tile_row(ty, i);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = tile_col(tx, j);
-        if (r > t && c > t)
-          a[i][j] = __fsub_rn(a[i][j], __fmul_rn(cr[i], cc[j]));
-        else if (c == t)
-          a[i][j] = r > t ? cr[i] : (r == t ? d : 0.f);
-      }
-    }
-    __syncthreads();  // column t + 1 is staged next
+  // 16-byte loads, all of a thread's in flight at once (b % 8 == 0 and
+  // the tile starts at a multiple of 8 floats)
+  const int q4 = b / 4;
+#pragma unroll 16
+  for (int idx = threadIdx.x; idx < b * q4; idx += DIAG_THREADS) {
+    const int r = idx / q4, c = 4 * (idx % q4);
+    const float4 v = *reinterpret_cast<const float4*>(T + (size_t)r * n + c);
+    float* row = S + r * ld + c;
+    row[0] = v.x;
+    row[1] = v.y;
+    row[2] = v.z;
+    row[3] = v.w;
   }
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int r = tile_row(ty, i), c = tile_col(tx, j);
-      if (r < b && c < b) T[(size_t)r * n + c] = a[i][j];
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int c0 = 0; c0 < b; c0 += PANEL) {
+    const int pw = min(PANEL, b - c0);
+    if (warp == 0)
+      factor_block(S, ld, c0, pw, b, lane, flag);
+    else if (warp < 4 && c0 + 32 * warp < b)
+      factor_rows(S, ld, c0, pw, b, c0 + 32 * warp + lane, flag);
+    __syncthreads();
+    if (c0 + pw < b) {
+      trailing_panel(S, ld, c0, c0 + pw, b);
+      __syncthreads();
     }
+  }
+#pragma unroll 16
+  for (int idx = threadIdx.x; idx < b * q4; idx += DIAG_THREADS) {
+    const int r = idx / q4, c = 4 * (idx % q4);
+    const float* row = S + r * ld + c;
+    *reinterpret_cast<float4*>(T + (size_t)r * n + c) =
+        make_float4(r >= c ? row[0] : 0.f, r >= c + 1 ? row[1] : 0.f, r >= c + 2 ? row[2] : 0.f,
+                    r >= c + 3 ? row[3] : 0.f);
+  }
 }
 
 // phase 1: cholesky.py::_solve_tile: X with X . L_kk^T = A_ik, in place.
@@ -145,9 +272,27 @@ chol_trailing_kernel(float* D, const int* sched, int sched_cols, int col_i, int 
 }
 
 // the panel kernel's dynamic shared memory at the largest block: L_kk and
-// the tile, 2 TILE^2 + TILE floats (128.5 KB)
+// the tile, 2 TILE^2 + TILE floats (128.5 KB); the diag kernel's: the tile
+// with a padded stride, TILE (TILE + 1) floats (64.5 KB)
 constexpr int PANEL_SMEM_MAX = (TILE * TILE + TILE * (TILE + 1)) * (int)sizeof(float);
+constexpr int DIAG_SMEM_MAX = (TILE * (TILE + 1) + 1) * (int)sizeof(float);
 constexpr int MAX_DEVICES = 64;
+
+// Raise `kernel`'s dynamic shared-memory limit to `bytes` once per device
+// (above the 48 KB static limit), not on every launch.
+template <int Slot>
+cudaError_t opt_in_smem(const void* kernel, int bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  static std::once_flag once[MAX_DEVICES];
+  static cudaError_t attr[MAX_DEVICES];
+  std::call_once(once[dev], [dev, kernel, bytes] {
+    attr[dev] = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  });
+  return attr[dev];
+}
 
 }  // namespace
 
@@ -157,8 +302,11 @@ constexpr int MAX_DEVICES = 64;
 extern "C" int sfc_chol_diag(void* d, const void* sched, int sched_cols, int col_i, int row_begin,
                              int ctas, int k, int n, int b, void* stream) {
   (void)k;
-  if (bad_block(b)) return (int)cudaErrorInvalidValue;
-  chol_diag_kernel<<<ctas, THREADS, 0, (cudaStream_t)stream>>>(
+  if (bad_block(b) || (uintptr_t)d % 16) return (int)cudaErrorInvalidValue;  // 16-byte rows
+  const cudaError_t attr = opt_in_smem<0>((const void*)chol_diag_kernel, DIAG_SMEM_MAX);
+  if (attr != cudaSuccess) return (int)attr;
+  const size_t smem = (size_t)(b * (b + 1) + 1) * sizeof(float);
+  chol_diag_kernel<<<ctas, DIAG_THREADS, smem, (cudaStream_t)stream>>>(
       (float*)d, (const int*)sched, sched_cols, col_i, row_begin, n, b);
   return (int)cudaGetLastError();
 }
@@ -166,19 +314,8 @@ extern "C" int sfc_chol_diag(void* d, const void* sched, int sched_cols, int col
 extern "C" int sfc_chol_panel(void* d, const void* sched, int sched_cols, int col_i, int row_begin,
                               int ctas, int k, int n, int b, void* stream) {
   if (bad_block(b)) return (int)cudaErrorInvalidValue;
-  // above the 48 KB static limit: raised once per device, at the largest
-  // block, not on every launch
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  static std::once_flag once[MAX_DEVICES];
-  static cudaError_t attr[MAX_DEVICES];
-  std::call_once(once[dev], [dev] {
-    attr[dev] = cudaFuncSetAttribute(chol_panel_kernel,
-                                     cudaFuncAttributeMaxDynamicSharedMemorySize, PANEL_SMEM_MAX);
-  });
-  if (attr[dev] != cudaSuccess) return (int)attr[dev];
+  const cudaError_t attr = opt_in_smem<1>((const void*)chol_panel_kernel, PANEL_SMEM_MAX);
+  if (attr != cudaSuccess) return (int)attr;
   const size_t smem = (size_t)(b * b + b * (b + 1)) * sizeof(float);
   chol_panel_kernel<<<ctas, TILE, smem, (cudaStream_t)stream>>>(
       (float*)d, (const int*)sched, sched_cols, col_i, row_begin, k, n, b);

@@ -24,7 +24,10 @@
 //     reaches device memory.
 //
 // (b) update: grid (point group g, 128-centroid range, column chunk).
-//     CTA (g, c, z) scans the point tiles of group g in schedule order
+//     A group is a run of tiles_per_group consecutive point-tile ids; the
+//     wrapper's group table lists each group's tiles in the schedule's
+//     order, groups in the order the schedule first reaches them.
+//     CTA (g, c, z) scans the point tiles of group g in table order
 //     and adds columns [z dchunk, (z + 1) dchunk) of every valid point
 //     (row < n_valid, kmeans.py::_update_tile's row mask) assigned to its
 //     centroid range into a (128, dchunk) shared-memory partial; warp w
@@ -68,20 +71,25 @@
 //     - the ragged masks are device operands, lim = (n_valid_local,
 //       k_valid), so one launch configuration serves every shard, as the
 //       TPU kernel's dynamic operand does;
-//     - the update writes each point tile's partial to that tile's own
-//       slot (sfc_kmeans_update's grid with one tile per group), so the
-//       partials can be folded across shards in the single-core tile
-//       order.  Every slot is written, zeros included: a shard of pure
-//       padding (more shards than tiles) holds zeros, not garbage.
-//     sfc_kmeans_fold then left-folds the gathered per-tile partials in
-//     the order of a device table, one thread per (k, d) element, so the
-//     sum is one fixed chain of f32 adds whatever the mesh size (the JAX
-//     package's lax.scan over the gathered partials, sharded.py).
+//     - the update writes one partial per group of its shard's group
+//       table, through the same update_partial as (b).  The exact class
+//       gives it the single-core groups (shards are whole groups wide),
+//       so each group partial is the single-core one to the bit and one
+//       torch sum over the gathered groups, in the single-core group
+//       order, is the single-core sum; the tree and psum classes give it
+//       one tile per group.  Every slot is written, zeros included: a
+//       shard of pure padding (more shards than tiles) holds zeros, not
+//       garbage.
+//     sfc_kmeans_fold left-folds per-tile partials in the order of a
+//     device table, one thread per (k, d) element, one fixed chain of f32
+//     adds (the tree class's local fold; the JAX package's lax.scan).
 //     Bound on the H100: FP32 FLOP/s for the assign (2 N Kp D), bytes
-//     for the update (x read, pt Kp (D + 1) 4 bytes of partials written)
-//     and the fold (the partials read once).  Design: the partials are
-//     the price of an exact fold (4.1 GB at SIFT1M's 7,813 tiles and
-//     K = 1024); they cost HBM bandwidth, not SM time.
+//     for the update (x read, groups Kp (D + 1) 4 bytes of partials
+//     written) and the fold (the partials read once).  Before the group
+//     partials the exact class wrote and folded one partial per tile
+//     (4.1 GB at SIFT1M's 7,813 tiles and K = 1024): a 28 ms gather copy
+//     and a 13.7 ms fold per call.  At SIFT1M's 62 tiles a group it
+//     writes 127 partials.
 #include <cfloat>
 #include <climits>
 
@@ -293,19 +301,19 @@ kmeans_update_kernel(const float* __restrict__ x, const int* __restrict__ arg,
                  n_valid, Kp, D, dchunk, psum + (size_t)g * Kp * D, pcnt + (size_t)g * Kp);
 }
 
-// The shard step's update: CTA (r, c, z) folds schedule row r's point tile
-// ti alone into the partial slot of ti itself (not of the row), masked by
-// the device n_valid_local = lim[0].  A shard of pure padding
-// (n_valid_local = 0) writes zeros to every slot.
+// The shard step's update: CTA (g, c, z) folds the point tiles of table
+// rows [g tpg, (g + 1) tpg) into group slot g, masked by the device
+// n_valid_local = lim[0].  A shard of pure padding (n_valid_local = 0)
+// writes zeros to every slot.
 __global__ void __launch_bounds__(THREADS)
 kmeans_shard_update_kernel(const float* __restrict__ x, const int* __restrict__ arg,
-                           const int* __restrict__ sched, int sched_cols, int col_i, int bp,
-                           const int* __restrict__ lim, int Kp, int D, int dchunk,
-                           float* __restrict__ psum, float* __restrict__ pcnt) {
-  const int r = blockIdx.x;
-  const size_t ti = sched[(size_t)r * sched_cols + col_i];
-  update_partial(x, arg, sched, sched_cols, col_i, r, r + 1, bp, lim[0], Kp, D, dchunk,
-                 psum + ti * Kp * D, pcnt + ti * Kp);
+                           const int* __restrict__ sched, int sched_cols, int col_i,
+                           int tiles_per_group, int bp, const int* __restrict__ lim, int Kp, int D,
+                           int dchunk, float* __restrict__ psum, float* __restrict__ pcnt) {
+  const size_t g = blockIdx.x;
+  const int r_lo = (int)g * tiles_per_group;
+  update_partial(x, arg, sched, sched_cols, col_i, r_lo, r_lo + tiles_per_group, bp, lim[0], Kp,
+                 D, dchunk, psum + g * Kp * D, pcnt + g * Kp);
 }
 
 // out[e] = parts[order[0]][e] + parts[order[1]][e] + ..., a left fold in
@@ -367,17 +375,18 @@ extern "C" int sfc_kmeans_shard_assign(const void* x, const void* c, const void*
 }
 
 extern "C" int sfc_kmeans_shard_update(const void* x, const void* arg, const void* sched,
-                                       int sched_cols, int col_i, int pt, int ctiles, int dchunks,
-                                       int bp, const void* lim, int Kp, int D, int dchunk,
-                                       void* psum, void* pcnt, void* stream) {
+                                       int sched_cols, int col_i, int groups, int ctiles,
+                                       int dchunks, int tiles_per_group, int bp, const void* lim,
+                                       int Kp, int D, int dchunk, void* psum, void* pcnt,
+                                       void* stream) {
   const size_t smem = (size_t)TILE * dchunk * sizeof(float) + TILE * sizeof(int);
   cudaError_t err = cudaFuncSetAttribute(kmeans_shard_update_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(pt, ctiles, dchunks);
+  dim3 grid(groups, ctiles, dchunks);
   kmeans_shard_update_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)x, (const int*)arg, (const int*)sched, sched_cols, col_i, bp, (const int*)lim,
-      Kp, D, dchunk, (float*)psum, (float*)pcnt);
+      (const float*)x, (const int*)arg, (const int*)sched, sched_cols, col_i, tiles_per_group, bp,
+      (const int*)lim, Kp, D, dchunk, (float*)psum, (float*)pcnt);
   return (int)cudaGetLastError();
 }
 

@@ -44,11 +44,25 @@
 // table visits them.  The CTA walks its own k list in that order (the
 // JAX kernel's summation order), keeps the accumulator in registers
 // across the k tiles (tile_gemm.cuh::tile_accumulate) and writes C once.
-// Bound on the H100: FP32 FLOP/s (2 M N K; TF32 is off), as sfc_matmul.
-// Design: the same SIMT tile product; the curve order of the (i, j)
+// f32 inputs: bound on the H100 by FP32 FLOP/s (2 M N K; TF32 is off), as
+// sfc_matmul; the same SIMT tile product.  The curve order of the (i, j)
 // first visits decides which panels neighbouring CTAs share in L2, and
 // each CTA's k order which depth panels it streams first.
+// bf16 inputs: bound by the bf16 tensor cores (2 M N K at 989 TFLOP/s:
+// 0.68 ms at 8000x7000x6000).  The first design widened bf16 to f32 on
+// the SIMT path: 26.55 ms there (H100 80GB HBM3, 700 W), against
+// torch.matmul's 0.97.  This design (wgmma_gemm.cuh) runs the CTA's 128x128
+// tile on wgmma: TMA loads 64-deep stages of A and B into a 4-stage
+// shared-memory ring, one producer thread walks the CTA's k list in the
+// table's order (so the tile products are summed in the JAX kernel's
+// order at tile granularity, each tile in 64-deep steps), two consumer
+// warpgroups keep the f32 accumulator in registers, and the epilogue
+// writes bf16 or f32 once, masked at M and N.  The bf16 kernel takes
+// 128x128 output tiles (or one tile of the whole M or N when it is
+// smaller) and tiles 64 deep (or one tile of the whole K); the wrapper
+// pads K to 16 and N to 8 for TMA's 16-byte strides.
 #include "tile_gemm.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
@@ -56,6 +70,13 @@ using namespace sfc;
 
 __device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+// two neighbouring columns (an even column of an even-width row)
+__device__ __forceinline__ void store_pair(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
 
 template <typename T, typename TO>
 __global__ void __launch_bounds__(THREADS)
@@ -171,6 +192,59 @@ int launch3d(const void* a, const void* b, void* c, const void* ij, const void* 
   return (int)cudaGetLastError();
 }
 
+// bf16 inputs: CTA r owns the 128x128 output tile ij[r] and sums its k
+// tiles ks[r kt] .. ks[r kt + kt - 1] in that order, each in 64-deep
+// stages; the maps cover A (M, K) and B (K, N), zero outside them.
+template <typename TO>
+__global__ void __launch_bounds__(wg::THREADS, 1)
+matmul3d_wgmma_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtensorMap mb,
+                      TO* __restrict__ C, const int* __restrict__ ij, const int* __restrict__ ks,
+                      int kt, int M, int N, int bk) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const wg::Ring ring = wg::make_ring(smem);
+  const int row0 = ij[2 * (size_t)blockIdx.x] * wg::BM;
+  const int col0 = ij[2 * (size_t)blockIdx.x + 1] * wg::BN;
+  const int per_tile = (bk + wg::BKS - 1) / wg::BKS;
+  const int n = kt * per_tile;
+  const int g = threadIdx.x / 128;
+  if (g == 2) {  // the producer warpgroup: one thread issues every load
+    if (threadIdx.x == 256) {
+      const int* kr = ks + (size_t)blockIdx.x * kt;
+      wg::produce(ring, &ma, &mb, row0, col0, n,
+                  [&](int i) { return kr[i / per_tile] * bk + (i % per_tile) * wg::BKS; });
+    }
+    return;
+  }
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  wg::consume(ring, g, n, acc);
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    const int r = row0 + g * 64 + wg::acc_row(i);
+    const int c = col0 + wg::acc_col(i);
+    if (r < M && c < N) store_pair(C + (size_t)r * N + c, acc[i], acc[i + 1]);
+  }
+}
+
+template <typename TO>
+int launch3d_wgmma(const void* a, const void* b, void* c, const void* ij, const void* ks, int steps,
+                   int kt, int M, int N, int K, int bk, void* stream) {
+  // TMA: 16-byte aligned bases and row strides (the wrapper pads)
+  if (K % 8 || N % 8 || (uintptr_t)a % 16 || (uintptr_t)b % 16) return (int)cudaErrorInvalidValue;
+  CUtensorMap ma, mb;
+  int err = make_tensor_map_bf16(&ma, a, M, K, wg::BM, wg::BKS);
+  if (err) return err;
+  err = make_tensor_map_bf16(&mb, b, K, N, wg::BKS, 64);
+  if (err) return err;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      matmul3d_wgmma_kernel<TO>, cudaFuncAttributeMaxDynamicSharedMemorySize, wg::SMEM_BYTES);
+  if (attr != cudaSuccess) return (int)attr;
+  matmul3d_wgmma_kernel<TO><<<steps, wg::THREADS, wg::SMEM_BYTES, (cudaStream_t)stream>>>(
+      ma, mb, (TO*)c, (const int*)ij, (const int*)ks, kt, M, N, bk);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int sfc_tile_update(void* o, const void* a, const void* b, const void* sched, int steps,
@@ -196,6 +270,7 @@ extern "C" int sfc_matmul(const void* a, const void* b, void* c, const void* sch
 }
 
 // dtype codes as sfc_matmul's; ij int32[steps, 2], ks int32[steps, kt].
+// bf16 inputs run the wgmma kernel (bm, bn: 128 or the whole M, N).
 extern "C" int sfc_matmul3d(const void* a, const void* b, void* c, const void* ij, const void* ks,
                             int steps, int kt, int M, int N, int K, int bm, int bn, int bk,
                             int in_dtype, int out_dtype, void* stream) {
@@ -203,10 +278,13 @@ extern "C" int sfc_matmul3d(const void* a, const void* b, void* c, const void* i
     return launch3d<float, float>(a, b, c, ij, ks, steps, kt, M, N, K, bm, bn, bk, stream);
   if (in_dtype == 0 && out_dtype == 1)
     return launch3d<float, __nv_bfloat16>(a, b, c, ij, ks, steps, kt, M, N, K, bm, bn, bk, stream);
+  const bool one_row_tile = bm == M && M < wg::BM, one_col_tile = bn == N && N < wg::BN;
+  if (in_dtype == 1 && ((bm != wg::BM && !one_row_tile) || (bn != wg::BN && !one_col_tile) ||
+                        (bk % wg::BKS && kt != 1)))
+    return (int)cudaErrorInvalidValue;
   if (in_dtype == 1 && out_dtype == 0)
-    return launch3d<__nv_bfloat16, float>(a, b, c, ij, ks, steps, kt, M, N, K, bm, bn, bk, stream);
+    return launch3d_wgmma<float>(a, b, c, ij, ks, steps, kt, M, N, K, bk, stream);
   if (in_dtype == 1 && out_dtype == 1)
-    return launch3d<__nv_bfloat16, __nv_bfloat16>(a, b, c, ij, ks, steps, kt, M, N, K, bm, bn, bk,
-                                                  stream);
+    return launch3d_wgmma<__nv_bfloat16>(a, b, c, ij, ks, steps, kt, M, N, K, bk, stream);
   return (int)cudaErrorInvalidValue;
 }

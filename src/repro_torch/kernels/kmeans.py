@@ -16,7 +16,10 @@ runs in order:
   partial of its centroid range and columns, written once; one torch
   ``sum`` over the groups folds the partials in a fixed order.  No
   atomics: the result is the same on every run.  The column chunks keep
-  the 128-centroid partial inside a CTA's shared memory at any D.
+  the 128-centroid partial inside a CTA's shared memory at any D.  A
+  group is a run of consecutive point-tile ids (:func:`update_groups`),
+  so a curve-range shard that is whole groups wide makes the same group
+  partials as the single core.
 
 The centroid update ``where(cnt > 0, sums / max(cnt, 1), c)`` and the
 loop over iterations stay torch around the launches.
@@ -34,9 +37,10 @@ The sharded path (:mod:`repro_torch.kernels.sharded`) runs one Lloyd
 step per shard as :func:`kmeans_shard_program` — ``sfc_kmeans_shard_assign``
 and ``sfc_kmeans_shard_update``, the same device code as the fused
 path's two launches with device-side ``(n_valid_local, k_valid)`` masks
-and one partial per point tile — and folds the gathered partials with
-:func:`kmeans_fold_program` (``sfc_kmeans_fold``), a left fold in the
-order of a device table.
+and one partial per group of its own group table (the single-core
+groups for the exact class, one tile per group otherwise).  The tree
+class folds per-tile partials with :func:`kmeans_fold_program`
+(``sfc_kmeans_fold``), a left fold in the order of a device table.
 
 Port defaults for the H100 (set in ops.py): ``bp = 128`` points per
 tile (one 128x128 metric tile per centroid chunk) and ``bc = 128``.  The
@@ -74,6 +78,38 @@ def update_columns(D: int) -> tuple[int, int]:
     columns up to D = 453; D = 960 is three of 320)."""
     chunks = max(1, -(-D // _UPDATE_MAX_CHUNK))
     return -(-D // chunks), chunks
+
+
+def update_tiles_per_group(pt: int, Kp: int, D: int) -> int:
+    """Point tiles per update group: the fewest that keep the update grid
+    (groups × 128-centroid ranges × column chunks) near
+    ``_UPDATE_TARGET_CTAS`` CTAs (62 at SIFT1M's 7,813 tiles, K = 1024)."""
+    ctiles = -(-Kp // _UPDATE_BLOCK)
+    dchunks = update_columns(D)[1]
+    return max(1, -(-pt * ctiles * dchunks // _UPDATE_TARGET_CTAS))
+
+
+def update_groups(tiles: torch.Tensor, tpg: int) -> torch.Tensor:
+    """The update's group table, int32[G, tpg] with G = ceil(pt / tpg).
+
+    ``tiles`` lists each of ``pt`` point tiles once, in the order the
+    schedule's update rows visit them.  Group g is the run of tile ids
+    [g tpg, (g + 1) tpg): row r lists one group's tiles in ``tiles``'
+    order, and the rows come in the order ``tiles`` first reaches their
+    groups.  The last group's ids at or past ``pt`` (no such tile exists)
+    close its row; every point of theirs is past ``n_valid``, so the
+    kernels add nothing for them.  At ``tpg = 1`` the table is ``tiles``.
+    """
+    pt = tiles.shape[0]
+    n = -(-pt // tpg) * tpg
+    dev = tiles.device
+    ext = torch.cat([tiles.reshape(-1).long(), torch.arange(pt, n, device=dev)])
+    pos = torch.arange(n, device=dev)
+    gid = ext // tpg
+    first = torch.full((n // tpg,), n, dtype=torch.long, device=dev)
+    first = first.scatter_reduce(0, gid, pos, "amin")
+    order = torch.argsort(first[gid] * n + pos)
+    return ext[order].to(torch.int32).view(n // tpg, tpg)
 
 
 def update_smem_bytes(dchunk: int) -> int:
@@ -252,7 +288,7 @@ def _update_cuda(program: GpuProgram, x, arg):
     G, ctiles, dchunks = program.grid
     Np, D = x.shape
     sched = program.schedule
-    require(program, x, "x", dtypes=(torch.float32,), shape=(program.steps * bp, D))
+    require(program, x, "x", dtypes=(torch.float32,), shape=(p["pt"] * bp, D))
     require(program, arg, "assignment", dtypes=(torch.int32,), shape=(Np,))
     require(program, sched, "schedule", dtypes=(torch.int32,))
     psum = torch.empty((G, Kp, D), dtype=torch.float32, device=x.device)
@@ -260,7 +296,7 @@ def _update_cuda(program: GpuProgram, x, arg):
     if program.steps and Kp and D:
         call(
             "sfc_kmeans_update", x.data_ptr(), arg.data_ptr(), sched.data_ptr(),
-            sched.shape[1], p["col_i"], program.steps, G, ctiles, dchunks,
+            sched.shape[1], 0, program.steps, G, ctiles, dchunks,
             p["tiles_per_group"], bp, p["n_valid"], Kp, D, p["dchunk"],
             psum.data_ptr(), pcnt.data_ptr(), stream_of(x),
         )
@@ -270,32 +306,41 @@ def _update_cuda(program: GpuProgram, x, arg):
     return psum.sum(dim=0), pcnt.sum(dim=0)
 
 
-def _update_plain(program: GpuProgram, x, arg):
-    """Per CTA (group g, centroid range, column chunk): the one-hot sums
-    of the group's valid points assigned into the range, over the chunk's
-    columns, written to its own partial (the counts by the first column
-    chunk); the partials are folded by one sum over the groups."""
-    p = program.params
-    bp, Kp, tpg, dchunk = p["bp"], p["Kp"], p["tiles_per_group"], p["dchunk"]
-    G, ctiles, dchunks = program.grid
-    Np, D = x.shape
+def group_partials(x, arg, groups: torch.Tensor, *, bp: int, Kp: int, n_valid: int):
+    """Per group g (row g of the int[G, tpg] tile table): the valid points
+    (row < ``n_valid``) of its tiles, one by one in table order and point
+    order, added into slot g's (Kp, D) sums and (Kp,) counts, as the update
+    kernels' CTAs add them (``index_add_`` on the CPU adds in source order,
+    one f32 add at a time, so there the partials are the kernels' bits).
+    Returns sums f32[G, Kp, D] and counts f32[G, Kp]; a group with no valid
+    point holds zeros."""
+    G, tpg = groups.shape
+    D = x.shape[1]
     xf = x.float()
-    psum = torch.zeros((G, Kp, D), dtype=torch.float32, device=x.device)
-    pcnt = torch.zeros((G, Kp), dtype=torch.float32, device=x.device)
-    tiles = program.schedule[:, p["col_i"]].long()
+    arg = arg.reshape(-1)
+    psum = torch.zeros((G * Kp, D), dtype=torch.float32, device=x.device)
+    pcnt = torch.zeros((G * Kp,), dtype=torch.float32, device=x.device)
+    tiles = groups.long()
     in_tile = torch.arange(bp, device=x.device)
-    for cta in shuffled_ctas(G * ctiles * dchunks, "cpu").tolist():
-        g, rest = divmod(cta, ctiles * dchunks)
-        cb, z = divmod(rest, dchunks)
-        k0, d0 = cb * _UPDATE_BLOCK, z * dchunk
-        kn = min(_UPDATE_BLOCK, Kp - k0)
-        rows = (tiles[g * tpg:(g + 1) * tpg, None] * bp + in_tile).reshape(-1)
-        a = arg[rows].long()
-        onehot = (a[:, None] == torch.arange(k0, k0 + kn, device=x.device))
-        onehot = (onehot & (rows < p["n_valid"])[:, None]).float()
-        psum[g, k0:k0 + kn, d0:d0 + dchunk] = onehot.T @ xf[rows, d0:d0 + dchunk]
-        if z == 0:
-            pcnt[g, k0:k0 + kn] = onehot.sum(dim=0)
+    for chunk in cta_chunks(shuffled_ctas(G, x.device), tpg * bp * D):
+        rows = (tiles[chunk][:, :, None] * bp + in_tile).reshape(-1)
+        slot0 = (chunk[:, None] * Kp).expand(-1, tpg * bp).reshape(-1)
+        keep = rows < n_valid
+        rows = rows[keep]
+        slot = slot0[keep] + arg[rows].long()
+        psum.index_add_(0, slot, xf[rows])
+        pcnt.index_add_(0, slot, torch.ones(len(rows), device=x.device))
+    return psum.view(G, Kp, D), pcnt.view(G, Kp)
+
+
+def _update_plain(program: GpuProgram, x, arg):
+    """The group partials of :func:`group_partials` (a CTA's (centroid
+    range, column chunk) block is a slice of its group's), folded by one
+    sum over the groups."""
+    p = program.params
+    G = program.grid[0]
+    psum, pcnt = group_partials(x, arg, program.schedule.view(G, p["tiles_per_group"]),
+                                bp=p["bp"], Kp=p["Kp"], n_valid=p["n_valid"])
     return psum.sum(dim=0), pcnt.sum(dim=0)
 
 
@@ -303,28 +348,32 @@ def kmeans_update_program(
     rows: torch.Tensor, *, col_i: int, bp: int, Kp: int, D: int, n_valid: int | None,
     columns: tuple[str, ...], phases: tuple[str, ...] = (),
 ) -> GpuProgram:
-    """The ``sfc_kmeans_update`` declaration over a table whose column
-    ``col_i`` lists each point tile once, in the order the partials
-    accumulate it: grid (point groups, 128-centroid ranges, column
-    chunks), sized for a few waves of the card's SMs."""
+    """The ``sfc_kmeans_update`` declaration over a table ``rows`` (its
+    columns named by ``columns``) whose column ``col_i`` lists each point
+    tile once, in the order the partials accumulate it: grid (point
+    groups, 128-centroid ranges, column chunks), sized for a few waves of
+    the card's SMs.  The program's own table is :func:`update_groups` of
+    that column, flattened to int32[G tpg, 1]."""
+    if columns and rows.shape[1] != len(columns):
+        raise ValueError(f"rows has {rows.shape[1]} columns, declared {columns}")
     pt = rows.shape[0]
     ctiles = -(-Kp // _UPDATE_BLOCK)
     dchunk, dchunks = update_columns(D)
-    tpg = max(1, -(-pt * ctiles * dchunks // _UPDATE_TARGET_CTAS))
-    groups = max(1, -(-pt // tpg))
+    tpg = update_tiles_per_group(pt, Kp, D)
+    groups = update_groups(rows[:, col_i], tpg)
     return GpuProgram(
         name="sfc_kmeans_update",
-        schedule=rows,
+        schedule=groups.reshape(-1, 1),
         launcher=_update_cuda,
         plain=_update_plain,
-        grid=(groups, ctiles, dchunks),
+        grid=(groups.shape[0], ctiles, dchunks),
         params={
-            "bp": bp, "Kp": Kp, "tiles_per_group": tpg, "col_i": col_i, "dchunk": dchunk,
+            "bp": bp, "Kp": Kp, "pt": pt, "tiles_per_group": tpg, "dchunk": dchunk,
             "smem_bytes": update_smem_bytes(dchunk),
             "n_valid": pt * bp if n_valid is None else int(n_valid),
         },
         phases=phases,
-        columns=columns,
+        columns=("tile",),
     )
 
 
@@ -559,8 +608,8 @@ def kmeans_lloyd_reference(
 
 
 # ---------------------------------------------------------------------------
-# The shard step: one Lloyd step on one shard, per-tile partials (the
-# curve-range-sharded path, kernels/sharded.py)
+# The shard step: one Lloyd step on one shard, one partial per group of
+# its group table (the curve-range-sharded path, kernels/sharded.py)
 # ---------------------------------------------------------------------------
 
 def shard_assign_cuda(program: GpuProgram, x, c, cn, lim):
@@ -586,8 +635,9 @@ def shard_assign_cuda(program: GpuProgram, x, c, cn, lim):
 
 
 def shard_update_cuda(program: GpuProgram, x, arg, lim):
-    """The shard step's second launch, ``sfc_kmeans_shard_update``: the
-    per-tile partials, sums f32[pt, Kp, D] and counts f32[pt, Kp]."""
+    """The shard step's second launch, ``sfc_kmeans_shard_update``: one
+    partial per group of the program's group table, sums f32[G, Kp, D]
+    and counts f32[G, Kp] (G = pt with one tile per group)."""
     p = program.params
     bp, Kp, pt = p["bp"], p["Kp"], p["pt"]
     D = x.shape[1]
@@ -595,13 +645,13 @@ def shard_update_cuda(program: GpuProgram, x, arg, lim):
     require(program, x, "x", dtypes=(torch.float32,), shape=(pt * bp, D))
     require(program, arg, "assignment", dtypes=(torch.int32,), shape=(pt, bp))
     require(program, lim, "lim", dtypes=(torch.int32,), shape=(2,))
-    psum = torch.empty((pt, Kp, D), dtype=torch.float32, device=x.device)
-    pcnt = torch.empty((pt, Kp), dtype=torch.float32, device=x.device)
-    _pt, ctiles, dchunks = program.grid
+    G, ctiles, dchunks = program.grid
+    psum = torch.empty((G, Kp, D), dtype=torch.float32, device=x.device)
+    pcnt = torch.empty((G, Kp), dtype=torch.float32, device=x.device)
     call(
         "sfc_kmeans_shard_update", x.data_ptr(), arg.data_ptr(), sched.data_ptr(),
-        sched.shape[1], 1, pt, ctiles, dchunks, bp, lim.data_ptr(), Kp, D, p["dchunk"],
-        psum.data_ptr(), pcnt.data_ptr(), stream_of(x),
+        sched.shape[1], 4, G, ctiles, dchunks, p["tiles_per_group"], bp, lim.data_ptr(), Kp, D,
+        p["dchunk"], psum.data_ptr(), pcnt.data_ptr(), stream_of(x),
     )
     return psum, pcnt
 
@@ -620,27 +670,13 @@ def shard_assign_plain(program: GpuProgram, x, c, cn, lim):
 
 
 def shard_update_plain(program: GpuProgram, x, arg, lim):
-    """Per update CTA (one point tile): the tile's valid points (row <
-    ``lim[0]``) added in point order into the tile's own (Kp, D) slot
-    (``index_add_`` on the CPU adds in source order, as the kernel does),
-    the counts beside them."""
+    """Per update CTA (one group of the table's last column): the group's
+    valid points (row < ``lim[0]``) added into its slot, as
+    :func:`group_partials`."""
     p = program.params
-    bp, Kp, pt = p["bp"], p["Kp"], p["pt"]
-    D = x.shape[1]
-    n_valid = int(lim[0])
-    arg = arg.reshape(-1)
-    xf = x.float()
-    psum = torch.zeros((pt * Kp, D), dtype=torch.float32, device=x.device)
-    pcnt = torch.zeros((pt * Kp,), dtype=torch.float32, device=x.device)
-    tiles = program.schedule[:, 1].long()
-    in_tile = torch.arange(bp, device=x.device)
-    for chunk in cta_chunks(shuffled_ctas(pt, x.device), bp * D):
-        rows = (tiles[chunk][:, None] * bp + in_tile).reshape(-1)
-        rows = rows[rows < n_valid]
-        slot = (rows // bp) * Kp + arg[rows].long()
-        psum.index_add_(0, slot, xf[rows])
-        pcnt.index_add_(0, slot, torch.ones(len(rows), device=x.device))
-    return psum.view(pt, Kp, D), pcnt.view(pt, Kp)
+    G = program.grid[0]
+    return group_partials(x, arg, program.schedule[:, 4].view(G, p["tiles_per_group"]),
+                          bp=p["bp"], Kp=p["Kp"], n_valid=int(lim[0]))
 
 
 def _shard_plain(program: GpuProgram, x, c, cn, lim):
@@ -649,35 +685,45 @@ def _shard_plain(program: GpuProgram, x, c, cn, lim):
 
 
 def kmeans_shard_program(
-    schedule: torch.Tensor, *, pt: int, ct: int, bp: int, bc: int, D: int
+    schedule: torch.Tensor, *, pt: int, ct: int, bp: int, bc: int, D: int,
+    groups: torch.Tensor | None = None, tiles_per_group: int = 1,
 ) -> GpuProgram:
     """One Lloyd step on a ``pt``-tile point shard: the declaration of
     ``sfc_kmeans_shard_assign`` + ``sfc_kmeans_shard_update``.
 
     ``schedule`` is the shard's int32[pt*ct + pt, 4] :func:`repro_torch.
-    core.kmeans_schedule` table; both launches run over its update-phase
-    rows.  Operands: x f32[pt*bp, D], the replicated centroids f32[Kp, D]
-    and their norms f32[Kp], and ``lim``, a device int32[2] holding
+    core.kmeans_schedule` table; the assign runs over its update-phase
+    rows.  ``groups`` (int[pt], default ``arange(pt)``) lists the shard's
+    local tile ids group by group, ``tiles_per_group`` each; the update
+    writes one partial per group.  It becomes the program table's fifth
+    column.  Operands: x f32[pt*bp, D], the replicated centroids f32[Kp,
+    D] and their norms f32[Kp], and ``lim``, a device int32[2] holding
     ``(n_valid_local, k_valid)`` — dynamic masks, so one program serves
     every shard (masking with the full extent changes no bit).  Outputs,
     each written exactly once: (min, argmin) f32/int32[pt, bp] and the
-    PER-TILE partials, sums f32[pt, Kp, D] and counts f32[pt, Kp] (zeros
-    for a shard of pure padding).
+    group partials, sums f32[G, Kp, D] and counts f32[G, Kp] with G =
+    pt / tiles_per_group (zeros for a shard of pure padding).
     """
     Kp = ct * bc
     if tuple(schedule.shape) != (pt * ct + pt, 4):
         raise ValueError(f"schedule {tuple(schedule.shape)} is not a kmeans table for {(pt, ct)}")
+    if groups is None:
+        groups = torch.arange(pt, dtype=torch.int32, device=schedule.device)
+    if groups.numel() != pt or pt % tiles_per_group:
+        raise ValueError(f"groups of {groups.numel()} tiles, {tiles_per_group} a group, "
+                         f"for a shard of {pt}")
     dchunk, dchunks = update_columns(D)
+    table = torch.cat([schedule[pt * ct:], groups.reshape(pt, 1).to(schedule)], dim=1)
     return GpuProgram(
         name="sfc_kmeans_shard",
-        schedule=schedule[pt * ct:],
+        schedule=table.contiguous(),
         launcher=_shard_cuda,
         plain=_shard_plain,
-        grid=(pt, -(-Kp // _UPDATE_BLOCK), dchunks),
+        grid=(pt // tiles_per_group, -(-Kp // _UPDATE_BLOCK), dchunks),
         params={"pt": pt, "bp": bp, "Kp": Kp, "dchunk": dchunk,
-                "smem_bytes": update_smem_bytes(dchunk)},
+                "tiles_per_group": tiles_per_group, "smem_bytes": update_smem_bytes(dchunk)},
         phases=("assign", "update"),
-        columns=("phase", "i", "j", "first_visit"),
+        columns=("phase", "i", "j", "first_visit", "update_tile"),
     )
 
 

@@ -24,7 +24,11 @@ O[i, j] += α·A_i·B_jᵀ over a scheduled subset of tiles, O in place.
 read-modify-writes an output block once per k tile; concurrent CTAs must
 not, so the table becomes a CSR (:func:`matmul3d_csr`): one CTA per
 (i, j), launched in first-visit order, which walks its own k tiles in
-the order the table visits them and writes its tile once.
+the order the table visits them and writes its tile once.  f32 inputs
+run the SIMT tile product; bf16 inputs the tensor cores (``wgmma`` fed
+by TMA, ``csrc/wgmma_gemm.cuh``), which take 128x128 output tiles (or
+one tile of the whole M or N) and k tiles of a multiple of 64 (or one
+tile of the whole K): :func:`wgmma_layout`.
 """
 from __future__ import annotations
 
@@ -279,6 +283,36 @@ def matmul3d_csr_device(curve: str, shape: tuple[int, int, int], *, device="cuda
     return _csr_device(str(curve), tuple(int(v) for v in shape), str(torch.device(device)))
 
 
+# the bf16 kernel's CTA tile (bm = bn) and the depth of one of its stages
+WGMMA_TILE = 128
+WGMMA_STAGE = 64
+
+
+def wgmma_layout(M: int, N: int, K: int, bm: int, bn: int, bk: int) -> tuple[int, int]:
+    """``(K_pad, N_pad)``: the depth and width the bf16 ``sfc_matmul3d``
+    kernel runs an (M, K) @ (K, N) product at, with blocks ``(bm, bn,
+    bk)`` (M, N, K multiples of them).  Its CTA tile is 128x128 and its
+    stages 64 deep, so ``bm`` and ``bn`` must be 128 or the whole M or N
+    (one tile, smaller than 128), and ``bk`` a multiple of 64 or the whole
+    K (one tile).  TMA needs 16-byte row strides: a single k tile is
+    zero-padded to a multiple of 16, a single column tile to a multiple of
+    8 (products with zeros add nothing).  Raises ValueError on other
+    blocks."""
+    for name, blk, dim in (("bm", bm, M), ("bn", bn, N)):
+        if blk != WGMMA_TILE and not (blk == dim < WGMMA_TILE):
+            raise ValueError(
+                f"sfc_matmul3d (bf16): {name}={blk} for a dimension of {dim}; the tensor-core "
+                f"kernel takes {name}={WGMMA_TILE}, or {name} equal to a dimension below "
+                f"{WGMMA_TILE}"
+            )
+    if bk % WGMMA_STAGE and bk != K:
+        raise ValueError(
+            f"sfc_matmul3d (bf16): bk={bk} for K={K}; the tensor-core kernel takes a multiple "
+            f"of {WGMMA_STAGE}, or bk equal to K (one k tile)"
+        )
+    return -(-K // 16) * 16, -(-N // 8) * 8
+
+
 def _matmul3d_cuda(program: GpuProgram, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     p = program.params
     M, K = a.shape
@@ -290,15 +324,26 @@ def _matmul3d_cuda(program: GpuProgram, a: torch.Tensor, b: torch.Tensor) -> tor
     require(program, ks, "k lists", dtypes=(torch.int32,), shape=(program.steps, p["kt"]))
     if p["out_dtype"] not in _DTYPE_CODE:
         raise TypeError(f"sfc_matmul3d: out_dtype {p['out_dtype']} not supported")
-    c = torch.empty((M, N), dtype=p["out_dtype"], device=a.device)
+    bn, bk, Kk, Nk = p["bn"], p["bk"], K, N
+    if a.dtype == torch.bfloat16:
+        Kk, Nk = wgmma_layout(M, N, K, p["bm"], bn, bk)
+        if Kk != K:  # one k tile: its zero-padded depth
+            a = torch.nn.functional.pad(a, (0, Kk - K))
+            b = torch.nn.functional.pad(b, (0, 0, 0, Kk - K))
+            bk = Kk
+        if Nk != N:  # one column tile: its zero-padded width
+            b = torch.nn.functional.pad(b, (0, Nk - N))
+            bn = Nk
+        a, b = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (a, b))
+    c = torch.empty((M, Nk), dtype=p["out_dtype"], device=a.device)
     if program.steps == 0 or K == 0:
-        return c.zero_()
+        return c[:, :N].zero_()
     call(
         "sfc_matmul3d", a.data_ptr(), b.data_ptr(), c.data_ptr(), program.schedule.data_ptr(),
-        ks.data_ptr(), program.steps, p["kt"], M, N, K, p["bm"], p["bn"], p["bk"],
+        ks.data_ptr(), program.steps, p["kt"], M, Nk, Kk, p["bm"], bn, bk,
         _DTYPE_CODE[a.dtype], _DTYPE_CODE[p["out_dtype"]], stream_of(a),
     )
-    return c
+    return c if Nk == N else c[:, :N].contiguous()
 
 
 def _matmul3d_plain(program: GpuProgram, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -17,7 +17,9 @@ path).
 Port defaults for the H100, where the JAX package's VMEM-sized blocks do
 not carry over: matmul ``bm = bn = 128, bk = 16`` (``bk = 128`` with
 ``schedule_ndim=3``, see :func:`matmul`); k-means ``bp = 128, bc = 128``;
-ε-join ``bp = 128`` (see each kernel module's docstring).
+ε-join counts ``bp = 128``; ε-join pairs ``bp = 256`` as the JAX package,
+run at 128-tiles and put in the 256-tile order by one device sort (see
+each kernel module's docstring).
 Floyd–Warshall and Cholesky keep the JAX defaults (``b = 128``,
 ``curve = "hilbert"``, ``fused = True``); their kernels take b ≤ 128.
 Attention keeps the JAX defaults too (``bq = bkv = 128``, serpentine kv
@@ -77,7 +79,13 @@ from .kmeans import (
 )
 from .matmul import matmul3d_csr_device, matmul_swizzled, matmul_swizzled_3d
 from .sharded import kmeans_lloyd_sharded, simjoin_pairs_sharded
-from .simjoin import map_pairs_back, simjoin_counts_swizzled, simjoin_pairs_scheduled
+from .simjoin import (
+    MAX_JOIN_BLOCK,
+    map_pairs_back,
+    pairs_in_tile_order,
+    simjoin_counts_swizzled,
+    simjoin_pairs_scheduled,
+)
 
 DEFAULT_CURVE = "fur"  # overlay-grid Hilbert: native n×m, unit steps
 
@@ -433,8 +441,9 @@ def kmeans_lloyd(
 
     ``mesh=`` runs the curve-range-sharded form (point tiles partitioned
     contiguously over the shards, counts by ``psum``): with
-    ``shard_exact=True`` the coordinate sums fold in the single-core
-    schedule's tile order, the same bits on every mesh size;
+    ``shard_exact=True`` the coordinate sums are the single-core
+    update's group partials summed as the single core sums them, the
+    single-core bits on every mesh size;
     ``shard_reduce`` names the class (``"exact"`` / ``"tree"`` /
     ``"psum"``, see :func:`repro_torch.kernels.sharded.kmeans_lloyd_sharded`).
     It always runs the fused form: ``fused=False`` with ``mesh=`` raises.
@@ -523,7 +532,7 @@ def simjoin_pairs(
     eps: float,
     *,
     curve: str = "hilbert",
-    bp: int = 128,
+    bp: int = 256,
     hilbert_order: bool = False,
     mesh=None,
     choice=None,
@@ -539,7 +548,11 @@ def simjoin_pairs(
     Hilbert-sorted points and the emitted indices are mapped back through
     the (cached) permutation, so pairs always refer to the original point
     order.  The output size is data-dependent, so the pass-1 totals are
-    copied to the host between the two launches.
+    copied to the host between the two launches.  The kernels take tiles
+    of at most 128 points: at ``bp > 128`` the passes run at 128-tiles
+    and :func:`~repro_torch.kernels.simjoin.pairs_in_tile_order` puts the
+    pairs in the ``bp``-tile order (before they are mapped back), so they
+    equal the JAX package's at the same ``bp``, order included.
 
     ``mesh=`` runs the distributed two-pass join with the halo exchange
     (:func:`repro_torch.kernels.sharded.simjoin_pairs_sharded`): the same
@@ -557,7 +570,8 @@ def simjoin_pairs(
     if hilbert_order:
         perm = hilbert_point_order_cached(x)
         x = x[perm]
-    bp = min(bp, N)
+    bp_order = min(bp, N)
+    bp = min(bp_order, MAX_JOIN_BLOCK)
     pn = (-N) % bp
     xp = F.pad(x, (0, 0, 0, pn)) if pn else x
     pt = xp.shape[0] // bp
@@ -565,6 +579,8 @@ def simjoin_pairs(
     pairs = simjoin_pairs_scheduled(
         tri, xp, eps=float(eps), bp=bp, n_valid=N if pn else None
     )
+    if bp_order > bp:
+        pairs = pairs_in_tile_order(pairs, n=N, bp=bp_order, curve=curve)
     if perm is not None:
         pairs = map_pairs_back(pairs, perm)
     return pairs

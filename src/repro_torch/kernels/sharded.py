@@ -15,21 +15,22 @@ not.
 
 **k-means** (:func:`kmeans_lloyd_sharded`): per Lloyd step each shard
 runs :func:`~repro_torch.kernels.kmeans.kmeans_shard_program` (assign +
-per-tile partials, two launches).  Counts are integer-valued f32, so a
+update partials, two launches: one partial per single-core update group
+for ``exact``, per point tile otherwise).  Counts are integer-valued f32, so a
 ``psum`` is exact in any grouping.  The coordinate sums come in three
 classes, picked by ``reduce``:
 
-* ``"exact"`` (default): the per-tile partials are ``all_gather``\\ ed and
-  left-folded by one ``sfc_kmeans_fold`` launch in the phase-1
-  first-appearance order of the global :func:`repro_torch.core.
-  kmeans_schedule` — the JAX package's fold.  The result is the same to
-  the bit on every mesh size and from run to run.  It is NOT the bits of
-  the port's single-core ``ops.kmeans_lloyd``, unlike the JAX package's
-  exact class: the port's single-core update adds whole point groups in
-  one CTA and then sums the groups (``tiles_per_group`` in
-  :func:`~repro_torch.kernels.kmeans.kmeans_update_program`), and no
-  per-tile left fold gives those bits.  The two are allclose (rtol 1e-4,
-  atol 1e-3 at SIFT1M's shapes).
+* ``"exact"`` (default): BIT-identical to the single-core
+  ``ops.kmeans_lloyd(..., fused=True)`` on any mesh size, as the JAX
+  package's exact class is.  The single-core update adds the points of
+  each group of ``tiles_per_group`` consecutive point tiles in one CTA
+  and sums the group partials with one torch ``sum`` over the groups
+  (:func:`~repro_torch.kernels.kmeans.update_groups`).  Every shard is
+  whole groups wide, its update writes the single-core partial of each
+  of its groups (the same device code over the same tiles in the same
+  order), and the ``all_gather``\\ ed partials, put in the single-core
+  group order with the padding groups dropped, go through the same
+  ``sum``.
 * ``"tree"``: a local left fold per shard (the same fold kernel over the
   shard's own tiles), then a recursive-doubling butterfly (power-of-two
   meshes, lower index first) or a balanced pairwise tree over the
@@ -76,11 +77,15 @@ from .kmeans import (
     kmeans_fold_program,
     kmeans_init,
     kmeans_shard_program,
+    update_groups,
+    update_tiles_per_group,
 )
 from .launch import launch
 from .simjoin import (
+    MAX_JOIN_BLOCK,
     check_pair_offsets,
     map_pairs_back,
+    pairs_in_tile_order,
     simjoin_emit_halo_program,
     simjoin_emit_program,
     simjoin_hits_rows_program,
@@ -166,8 +171,8 @@ def _resolve_reduce(exact: bool, reduce: str | None) -> str:
 
 def _lloyd_setup(x, k, *, curve, seed, bp, bc, hilbert_order, mesh):
     """Host-side prep: the single-core path's decisions (clamped blocks,
-    zero-pad + index-mask, shared c0), then the tile count padded to a
-    multiple of the mesh size."""
+    zero-pad + index-mask, shared c0), then the shard width: whole update
+    groups of the single-core call, ``ptl = tpg ceil(G / S)`` tiles."""
     N, D = x.shape
     c0 = kmeans_init(x, k, seed)
     inv = None
@@ -178,18 +183,36 @@ def _lloyd_setup(x, k, *, curve, seed, bp, bc, hilbert_order, mesh):
     bp, bc = min(bp, N), min(bc, k)
     pt = -(-N // bp)
     _axis, num = mesh_axis(mesh)
-    # uniform curve-range partition: every shard as wide as the largest
-    # curve_partition range (= ceil), the tail pure padding
-    ptl = int(np.diff(curve_partition(pt, num)).max())
-    Nl = ptl * bp
-    xp = F.pad(x.to(torch.float32), (0, 0, 0, Nl * num - N)).contiguous()
     pc = (-k) % bc
     cp = F.pad(c0.to(torch.float32), (0, 0, 0, pc)).contiguous()
+    # uniform curve-range partition of the single-core update's groups:
+    # every shard as wide as the largest curve_partition range of groups
+    # (= ceil), the tail pure padding
+    tpg = update_tiles_per_group(pt, cp.shape[0], D)
+    ptl = tpg * int(np.diff(curve_partition(-(-pt // tpg), num)).max())
+    Nl = ptl * bp
+    xp = F.pad(x.to(torch.float32), (0, 0, 0, Nl * num - N)).contiguous()
     limits = np.stack(
         [np.clip(N - np.arange(num) * Nl, 0, Nl), np.full(num, k)], axis=1
     ).astype(np.int32)
-    return dict(xp=xp, cp=cp, limits=limits, inv=inv, N=N, k=k, D=D, pt=pt, ptl=ptl,
+    return dict(xp=xp, cp=cp, limits=limits, inv=inv, N=N, k=k, D=D, pt=pt, ptl=ptl, tpg=tpg,
                 ct=cp.shape[0] // bc, bp=bp, bc=bc, curve=curve)
+
+
+def _exact_groups(s: dict, num: int) -> tuple[np.ndarray, np.ndarray]:
+    """The single-core update's groups laid out over the shards:
+    (int32[num, ptl] each shard's local tile ids group by group, its
+    groups in id order; int64[G] the global id of each single-core group
+    in the single-core order).  Groups past the single core's G are
+    padding, their tiles in id order."""
+    pt, ptl, tpg = s["pt"], s["ptl"], s["tpg"]
+    host = kmeans_schedule(s["curve"], pt, s["ct"])
+    groups = update_groups(torch.as_tensor(host[host[:, 0] == 1][:, 1]), tpg).numpy()
+    gid = groups[:, 0].astype(np.int64) // tpg
+    by_id = np.arange(num * ptl, dtype=np.int64).reshape(-1, tpg)
+    by_id[gid] = groups
+    local = by_id.reshape(num, ptl) - (np.arange(num) * ptl)[:, None]
+    return local.astype(np.int32), gid
 
 
 def _lloyd_run(mesh: AppMesh, s: dict, iters: int, reduce: str):
@@ -199,22 +222,22 @@ def _lloyd_run(mesh: AppMesh, s: dict, iters: int, reduce: str):
     xs = mesh.shard(s["xp"])
     lims = [t.reshape(2) for t in mesh.shard(torch.as_tensor(s["limits"]))]
     c = mesh.broadcast(s["cp"])
-    progs = mesh.per_device(lambda i: kmeans_shard_program(
-        kmeans_schedule_device(s["curve"], ptl, ct, device=mesh.devices[i]), pt=ptl, ct=ct, bp=bp,
-        bc=s["bc"], D=D,
-    ))
+    groups, tpg = [None] * mesh.size, 1
     if reduce == "exact":
-        # the single-core fused kernel's accumulation order: phase-1 rows
-        # visit point tiles in phase-0 first-appearance order (global tile
-        # ids; tiles past pt are pure padding and left out)
-        host = kmeans_schedule(s["curve"], s["pt"], ct)
-        order = np.ascontiguousarray(host[host[:, 0] == 1][:, 1:2], dtype=np.int32)
-        folds = mesh.per_device(
-            lambda i: kmeans_fold_program(torch.as_tensor(order, device=mesh.devices[i])))
+        # the single-core update's group partials, each made on the shard
+        # that holds the group, gathered and put in the single-core order
+        local, gid = _exact_groups(s, mesh.size)
+        groups = [torch.as_tensor(local[i], device=d) for i, d in enumerate(mesh.devices)]
+        tpg = s["tpg"]
+        order = mesh.per_device(lambda i: torch.as_tensor(gid, device=mesh.devices[i]))
     elif reduce == "tree":
         local = np.arange(ptl, dtype=np.int32)[:, None]
         folds = mesh.per_device(
             lambda i: kmeans_fold_program(torch.as_tensor(local, device=mesh.devices[i])))
+    progs = [kmeans_shard_program(
+        kmeans_schedule_device(s["curve"], ptl, ct, device=d), pt=ptl, ct=ct, bp=bp, bc=s["bc"],
+        D=D, groups=groups[i], tiles_per_group=tpg,
+    ) for i, d in enumerate(mesh.devices)]
     arg = None
     for _ in range(iters):
         cn = mesh.per_device(lambda i: (c[i] * c[i]).sum(dim=1))
@@ -224,7 +247,7 @@ def _lloyd_run(mesh: AppMesh, s: dict, iters: int, reduce: str):
         cnt = mesh.psum([o[3].sum(dim=0) for o in outs])
         if reduce == "exact":
             gsums = mesh.all_gather([o[2] for o in outs])
-            sums = mesh.per_device(lambda i: launch(folds[i], gsums[i]))
+            sums = mesh.per_device(lambda i: gsums[i].index_select(0, order[i]).sum(dim=0))
         elif reduce == "tree":
             local_sums = [launch(folds[i], o[2]) for i, o in enumerate(outs)]
             sums = _tree_reduce(mesh, local_sums)
@@ -261,16 +284,16 @@ def kmeans_lloyd_sharded(
     alias: True → ``"exact"``, False → ``"psum"``; an explicit ``reduce``
     wins):
 
-    * ``"exact"`` (default): bit-identical across mesh sizes and runs —
-      the global per-tile partials ``all_gather``\\ ed and left-folded in
-      the single-core schedule's tile order.  Allclose to, not the bits
-      of, the port's single-core ``ops.kmeans_lloyd`` (module docstring).
+    * ``"exact"`` (default): bit-identical to the single-core
+      ``ops.kmeans_lloyd`` on any mesh size — the single-core update's
+      group partials ``all_gather``\\ ed and summed as the single core
+      sums them (module docstring).
     * ``"tree"``: a local fold per shard, then a butterfly (power-of-two
       meshes) or a balanced pairwise tree; bit-stable run to run.
     * ``"psum"``: plain ``psum`` of per-shard sums.
 
     Two kernel launches per step per shard (plus one fold launch per
-    device for ``exact``); counts always reduce by ``psum``.
+    shard for ``tree``); counts always reduce by ``psum``.
     """
     mesh_axis(mesh)
     reduce = _resolve_reduce(exact, reduce)
@@ -413,7 +436,7 @@ def simjoin_pairs_sharded(
     *,
     mesh,
     curve: str = "hilbert",
-    bp: int = 128,
+    bp: int = 256,
     hilbert_order: bool = False,
     halo: bool = True,
 ) -> torch.Tensor:
@@ -429,7 +452,9 @@ def simjoin_pairs_sharded(
     result is array-equal, order included, to ``ops.simjoin_pairs`` with
     the same ``curve``, ``bp`` and ``hilbert_order``: pruned rows hold no
     pair by construction of the reach mask, and the gather back restores
-    the global schedule order.
+    the global schedule order.  At ``bp > 128`` the shards run 128-tiles
+    and the pairs are put in the ``bp``-tile order as the single core
+    puts them (:func:`~repro_torch.kernels.simjoin.pairs_in_tile_order`).
     """
     _axis, num = mesh_axis(mesh)
     N, D = x.shape
@@ -440,7 +465,8 @@ def simjoin_pairs_sharded(
         perm = hilbert_point_order_cached(x)
         x = x[perm]
     x = x.to(torch.float32)
-    bp = min(bp, N)
+    bp_order = min(bp, N)
+    bp = min(bp_order, MAX_JOIN_BLOCK)
     pn = (-N) % bp
     xp = F.pad(x, (0, 0, 0, pn)).contiguous()
     pt = xp.shape[0] // bp
@@ -449,6 +475,8 @@ def simjoin_pairs_sharded(
     join = _join_halo if halo else _join_replicated
     pairs = join(mesh, x, xp, float(eps), bp=bp, pt=pt, n_valid=n_valid, tri=tri,
                  sorted_keys=hilbert_order)
+    if bp_order > bp:
+        pairs = pairs_in_tile_order(pairs, n=N, bp=bp_order, curve=curve)
     if perm is not None:
         pairs = map_pairs_back(pairs, perm)
     return pairs

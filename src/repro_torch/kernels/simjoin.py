@@ -33,14 +33,18 @@ an off-diagonal (i_tile > j_tile) tile contributes row sums to the i
 side and column sums to the j side, and emits (global_i, global_j) with
 global_i > global_j always.
 
-Port default for the H100 (set in ops.py): ``bp = 128``, one 128x128
-tile per CTA (the kernels take ``bp <= 128``).
+The kernels take ``bp <= 128``, one 128x128 tile per CTA.  The pairs
+entry points default to the JAX package's ``bp = 256``: a join asked
+for at ``bp > 128`` runs at 128-tiles, and :func:`pairs_in_tile_order`
+puts its pairs into the order the ``bp``-tile join emits them (one
+device sort), so the output is the JAX package's, order included.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core import triangle_schedule_device
 from repro_torch.core.program import GpuProgram
 
 from ._build import call, stream_of
@@ -78,6 +82,24 @@ def map_pairs_back(pairs: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
         [torch.maximum(pp[:, 0], pp[:, 1]), torch.minimum(pp[:, 0], pp[:, 1])],
         dim=1,
     ).to(torch.int32)
+
+
+def pairs_in_tile_order(pairs: torch.Tensor, *, n: int, bp: int, curve) -> torch.Tensor:
+    """Pairs (local ids, i > j) in the order a join over ``bp``-tiles
+    emits them: by the rank of their (i // bp, j // bp) tile in
+    ``triangle_schedule(curve, ceil(n / bp), strict=False)``, then
+    row-major inside the tile.  One stable device sort on the int64 key
+    ``(rank * bp + i % bp) * bp + j % bp``; any emission order of the same
+    set gives the same result."""
+    if len(pairs) == 0:
+        return pairs
+    nt = -(-n // bp)
+    tri = triangle_schedule_device(curve, nt, strict=False, device=pairs.device).long()
+    rank = torch.zeros(nt * nt, dtype=torch.long, device=pairs.device)
+    rank[tri[:, 0] * nt + tri[:, 1]] = torch.arange(len(tri), device=pairs.device)
+    i, j = pairs[:, 0].long(), pairs[:, 1].long()
+    key = (rank[(i // bp) * nt + j // bp] * bp + i % bp) * bp + j % bp
+    return pairs[torch.sort(key, stable=True).indices]
 
 
 def _hit_tiles(x, ti, tj, *, bp: int, eps2: float, n_valid: int, load=None) -> torch.Tensor:

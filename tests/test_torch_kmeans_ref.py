@@ -266,6 +266,28 @@ def test_ops_matmul_3d_port_defaults_bf16():
         tops.matmul(a, b, schedule_ndim=4)
 
 
+@pytest.mark.parametrize("M,N,K,bm,bn,bk,want", [
+    (8064, 7040, 6016, 128, 128, 128, (6016, 7040)),  # the main path's padded shapes
+    (256, 90, 384, 128, 90, 128, (384, 96)),  # one column tile, its width padded to 8
+    (100, 256, 70, 100, 128, 70, (80, 256)),  # one row tile, one k tile padded to 16
+    (128, 128, 256, 128, 128, 64, (256, 128)),
+])
+def test_wgmma_layout_shape_math(M, N, K, bm, bn, bk, want):
+    assert tmm.wgmma_layout(M, N, K, bm, bn, bk) == want
+
+
+@pytest.mark.parametrize("M,N,K,bm,bn,bk,what", [
+    (256, 256, 256, 64, 128, 128, "bm=64"),  # two row tiles of 64
+    (256, 256, 256, 256, 128, 128, "bm=256"),
+    (256, 256, 256, 128, 32, 128, "bn=32"),
+    (256, 256, 256, 128, 128, 96, "bk=96"),  # not a multiple of 64, three k tiles
+])
+def test_wgmma_layout_refuses_blocks_it_cannot_take(M, N, K, bm, bn, bk, what):
+    with pytest.raises(ValueError, match=what) as err:
+        tmm.wgmma_layout(M, N, K, bm, bn, bk)
+    assert "128" in str(err.value) or "64" in str(err.value)
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -318,3 +340,40 @@ def test_reference_kernels_on_cuda(monkeypatch):
     counts = LAUNCHES.counts()
     for name in ("sfc_kmeans_assign_tiles", "sfc_kmeans_update", "sfc_matmul3d"):
         assert counts[name] > 0, counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,N,K,bn,bk,curve,out", [
+    (1000, 700, 608, 128, 128, "zorder", "bfloat16"),  # chip_smoke's shape
+    (1000, 700, 608, 128, 128, "hilbert", "float32"),  # bf16 inputs, f32 output
+    (150, 90, 270, 90, 128, "hilbert", "bfloat16"),  # ragged: one 90-wide column tile
+    (300, 200, 40, 128, 40, "row", "float32"),  # one k tile of 40, padded to 48
+])
+def test_bf16_matmul3d_wgmma_matches_plain(M, N, K, bn, bk, curve, out):
+    """The bf16 ``sfc_matmul3d`` (wgmma fed by TMA) against its plain
+    version on the same CUDA inputs.  Both sum exact bf16 products in f32,
+    in other orders: f32 outputs rtol 1e-4, atol 1e-3 (sums of up to 608
+    products of N(0, 1) values); bf16 outputs within one bf16 ulp of the
+    largest output (1e-2 of it)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    LAUNCHES.reset()
+    rng = np.random.default_rng(M + K)
+    a = torch.as_tensor(rng.standard_normal((M, K), dtype=np.float32), device=dev).bfloat16()
+    b = torch.as_tensor(rng.standard_normal((K, N), dtype=np.float32), device=dev).bfloat16()
+    bm = 128
+    Mp, Np_, Kp = -(-M // bm) * bm, -(-N // bn) * bn, -(-K // bk) * bk
+    a = torch.nn.functional.pad(a, (0, Kp - K, 0, Mp - M)).contiguous()
+    b = torch.nn.functional.pad(b, (0, Np_ - N, 0, Kp - K)).contiguous()
+    ij, ks = tmm.matmul3d_csr_device(curve, (Mp // bm, Np_ // bn, Kp // bk), device=dev)
+    prog = tmm.matmul3d_program(ij, ks, a, b, bm=bm, bn=bn, bk=bk, out_dtype=getattr(torch, out))
+    got, want = launch(prog, a, b), prog.plain(prog, a, b)
+    assert got.dtype == want.dtype == getattr(torch, out) and got.shape == want.shape
+    if out == "float32":
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+    else:
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= 1e-2 * float(want.float().abs().max()), err
+    assert LAUNCHES.counts()["sfc_matmul3d"] == 1
+

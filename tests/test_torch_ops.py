@@ -3,7 +3,8 @@ package's, on the CPU.
 
 Both sides get the same seeded numpy inputs and the same explicit block
 sizes (the port's defaults are sized for the H100, the JAX package's for
-a TPU's VMEM), so schedules — and the ε-join's emission order — agree.
+a TPU's VMEM), so schedules — and the ε-join's emission order — agree;
+``simjoin_pairs`` at default arguments is held to JAX's order too.
 Tolerances: ε-join counts and pairs array-equal, order included, on data
 whose float64 d² all lie at least 1e-4·ε² away from ε²; k-means
 assignments exact on well-separated data with JAX's c0 passed across
@@ -11,6 +12,8 @@ assignments exact on well-separated data with JAX's c0 passed across
 matmul f32 rtol = atol = 1e-5.  The ``cuda``-marked case runs the same
 comparisons with the port on the card; it skips without one.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -22,6 +25,8 @@ from repro.kernels import kmeans as jkm  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.kernels import LAUNCHES  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import simjoin as tsj  # noqa: E402
+from repro_torch.launch import mesh as tmesh  # noqa: E402
 from test_torch_kernels import band_free_eps, clustered  # noqa: E402
 
 
@@ -92,6 +97,53 @@ def test_simjoin_pairs_vs_jax(hilbert_order):
     got = tops.simjoin_pairs(x, eps, bp=64, hilbert_order=hilbert_order, device="cpu")
     assert got.dtype == torch.int32 and len(want) > 0
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+# the four default-argument cases: (seed, N, D, eps), points uniform in [0, 1)^D
+JOIN_DEFAULT_CASES = [(100, 1000, 3, 0.03), (101, 3000, 3, 0.03), (102, 1500, 16, 0.6),
+                      (103, 200, 3, 0.1)]
+
+
+@functools.lru_cache(maxsize=None)
+def default_join_case(seed, N, D, eps, hilbert_order):
+    x = np.random.default_rng(seed).random((N, D)).astype(np.float32)
+    want = np.asarray(jops.simjoin_pairs(jnp.asarray(x), eps, hilbert_order=hilbert_order,
+                                         interpret=True))
+    return x, want
+
+
+@pytest.mark.parametrize("hilbert_order", [False, True])
+@pytest.mark.parametrize("case", JOIN_DEFAULT_CASES, ids=lambda c: f"seed{c[0]}")
+def test_simjoin_pairs_default_bp_is_jax_order(case, hilbert_order):
+    """At default arguments both packages join 256-tiles; the port runs
+    128-tiles and sorts its pairs into the 256-tile order: array-equal."""
+    seed, N, D, eps = case
+    x, want = default_join_case(seed, N, D, eps, hilbert_order)
+    got = tops.simjoin_pairs(x, eps, hilbert_order=hilbert_order, device="cpu")
+    assert len(want) > 0
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("case", JOIN_DEFAULT_CASES, ids=lambda c: f"seed{c[0]}")
+def test_simjoin_pairs_default_bp_on_a_mesh(case):
+    seed, N, D, eps = case
+    x, want = default_join_case(seed, N, D, eps, False)
+    mesh = tmesh.make_app_mesh(2, devices=["cpu"] * 2)
+    got = tops.simjoin_pairs(x, eps, mesh=mesh, device="cpu")
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_pairs_in_tile_order_is_the_join_order_at_that_block():
+    """Pairs of a 64-tile join, shuffled, sorted into the 128-tile order:
+    the 128-tile join's array, whatever order they came in."""
+    x, eps = join_points(300, 3, 6)
+    want = tops.simjoin_pairs(x, eps, bp=128, device="cpu")
+    got = tops.simjoin_pairs(x, eps, bp=64, device="cpu")
+    assert not torch.equal(got, want) and len(want) > 0
+    shuffled = got[torch.randperm(len(got), generator=torch.Generator().manual_seed(0))]
+    for pairs in (got, shuffled):
+        np.testing.assert_array_equal(
+            tsj.pairs_in_tile_order(pairs, n=300, bp=128, curve="hilbert").numpy(), want.numpy())
 
 
 def test_simjoin_pairs_match_dense_oracle():

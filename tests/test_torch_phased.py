@@ -272,3 +272,24 @@ def test_phased_slice_on_cuda_matches_plain_and_jax():
     prog = tch.cholesky_program("hilbert", 4, 32, device=dev)
     torch.testing.assert_close(launch(prog, a.clone()).tril(), prog.plain(prog, a.clone()).tril(),
                                **CHOL_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [8, 88, 128])
+def test_chol_diag_kernel_is_chol_tile_to_the_bit(b):
+    """``sfc_chol_diag`` (the panel-blocked, warp-synchronous design) on one
+    b x b tile, against ``_chol_tile`` on the same CUDA tile: each element
+    sees the same rounded products and differences in the same order and
+    one division by its pivot, so the two are equal to the bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    LAUNCHES.reset()
+    for seed in range(3):
+        a = torch.as_tensor(rand_spd(np.random.default_rng(seed), b), device=dev)
+        prog = tch.cholesky_program("hilbert", 1, b, device=dev)
+        got = launch(prog, a.clone())
+        want = tch._chol_tile(a.clone())
+        assert torch.equal(got, want), float((got - want).abs().max())
+    assert LAUNCHES.counts()["sfc_chol_diag"] == 3
+

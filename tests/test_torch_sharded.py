@@ -322,6 +322,57 @@ def test_kmeans_sharded_vs_jax_single_core(reduce, hilbert_order, monkeypatch):
             assert torch.equal(c, again[0]) and torch.equal(a, again[1])
 
 
+@functools.lru_cache(maxsize=None)
+def exact_case(N: int, k: int, hilbert_order: bool):
+    """Points of ``default_rng(5)`` in tiles of 8 and the port's single-core
+    fused Lloyd on them: (x, centroids, assignment)."""
+    x = np.random.default_rng(5).standard_normal((N, 4)).astype(np.float32)
+    c, a = tops.kmeans_lloyd(x, k, iters=3, bp=8, bc=8, hilbert_order=hilbert_order, device="cpu")
+    return x, c, a
+
+
+@pytest.mark.parametrize("num", [1, 2, 3, 4, 8])
+def test_kmeans_sharded_exact_is_single_core_bits(num):
+    """1,050 tiles of 8 points, two tiles to an update group: the exact
+    class returns the single-core centroids and assignments to the bit."""
+    assert tkm.update_tiles_per_group(1050, 8, 4) == 2
+    x, c1, a1 = exact_case(8400, 8, False)
+    c, a = tops.kmeans_lloyd(x, 8, iters=3, bp=8, bc=8, mesh=cpu_mesh(num), device="cpu")
+    assert torch.equal(c, c1) and torch.equal(a, a1)
+
+
+@pytest.mark.parametrize("N,k,hilbert_order", [(8390, 200, False), (8400, 8, True)])
+def test_kmeans_sharded_exact_bits_groups_of_three_and_hilbert(N, k, hilbert_order):
+    """Ragged N (1,049 tiles) with K = 200 (25 centroid tiles, two update
+    centroid ranges): three tiles to a group, the last group short; and
+    the Hilbert-sorted case."""
+    x, c1, a1 = exact_case(N, k, hilbert_order)
+    for num in (3, 4):
+        c, a = tops.kmeans_lloyd(x, k, iters=3, bp=8, bc=8, hilbert_order=hilbert_order,
+                                 mesh=cpu_mesh(num), device="cpu")
+        assert torch.equal(c, c1) and torch.equal(a, a1)
+
+
+@pytest.mark.parametrize("tpg", [1, 2, 3, 5])
+def test_update_groups_are_id_runs_in_first_visit_order(tpg):
+    tiles = torch.as_tensor(np.random.default_rng(tpg).permutation(11).astype(np.int32))
+    got = tkm.update_groups(tiles, tpg).numpy()
+    G = -(-11 // tpg)
+    assert got.shape == (G, tpg)
+    pos = {int(t): i for i, t in enumerate(tiles)}
+    firsts = []
+    for row in got:
+        g = int(row[0]) // tpg
+        assert sorted(row.tolist()) == list(range(g * tpg, (g + 1) * tpg))
+        real = [int(t) for t in row if t < 11]
+        assert real == sorted(real, key=pos.get)  # the schedule's order in a group
+        assert all(t >= 11 for t in row[len(real):])  # missing ids close the row
+        firsts.append(pos[real[0]])
+    assert firsts == sorted(firsts)
+    if tpg == 1:
+        np.testing.assert_array_equal(got[:, 0], tiles.numpy())
+
+
 def test_kmeans_sharded_degenerate(monkeypatch):
     """N = 1 (K = 1, and K = 3 > N sampled with replacement) on every mesh."""
     jax_c0(monkeypatch)
