@@ -36,7 +36,9 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    ``StreamSimJoin`` (262,144 points uniform in the unit cube, ε = 0.0308
    for ~32 neighbours, 256 inserts of 1,024, a 1,024-point query every 8
    ticks; once more with ``max_residents=65,536``).  Every kernel must
-   have launched.
+   have launched, and both cores of ``sfc_matmul`` and ``sfc_matmul3d``
+   (``LAUNCHES.cores()``: the f32 calls on SIMT, the bf16 ones on
+   ``wgmma``).
 4. Check the results against the ``ref.py`` oracles: matmul allclose;
    k-means assignments exact outside the float64 tie band and centroids
    allclose; ε-join counts and pair set exact outside the float64
@@ -52,7 +54,8 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    brute force, outside the threshold band.
 5. Time each kernel at the main path's shapes with CUDA events (median of
    a few runs), its plain version (one run) and, where one PyTorch call
-   computes the same function, that call; compute each kernel's bound.
+   computes the same function, that call; compute each kernel's bound
+   (``sfc_matmul`` in f32 and, on its tensor-core core, in bf16).
    The phased kernels are timed per entry point: the launches of one
    phase over all k-blocks of one call (``sfc_chol_diag`` also against
    one ``linalg.cholesky`` call per diagonal tile); ``sfc_matmul3d`` in
@@ -67,13 +70,15 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    prefill, prefix sharing, Hilbert page layout; 8 slots, max_len 2048)
    serves 32 requests (prompts of 64-1024 tokens, every other one behind
    a shared 256-token prefix, 32-128 new tokens), and, counted apart,
-   ``forward`` of 2 x 2048 tokens with ``use_hilbert_kernels``; prints
+   ``forward`` of 2 x 2048 tokens with ``use_hilbert_kernels``, whose
+   22 ``sfc_flash_attention`` launches must all be on the tensor-core
+   core; prints
    tokens/s, time to first token, tick p99, pages and the busy share of
    a warm decode tick; (c) the f32 gate: 8 requests served on f32
    weights, each served token equal to the dense forward's argmax outside
    the top-2 margin band, the flash decode step allclose to the page
    gather; (d) each flash kernel's time, bound, plain version and a
-   PyTorch SDPA call.
+   PyTorch SDPA call (``sfc_flash_attention`` in bf16 and f32).
 8. The curve-range-sharded apps (``sharded_path``), SHARDS = 4 shards on
    the one card (the code path of a mesh, not multi-GPU scaling): with the
    launch counts reset, ``ops.kmeans_lloyd(mesh=)`` on phase 3's SIFT1M
@@ -88,7 +93,8 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    reorder's time; collective counts and bytes per shard, the halo
    plan's rows and host time, a warm profile of each call, and the five
    sharded kernels' times, bounds and plain versions (the update also
-   with the exact class's group partials).
+   with the exact class's group partials; the assign against ``cdist`` +
+   ``argmin`` over each shard's points).
 
 The second-to-last line of output is one JSON object ``{"kernels": [...]}``,
 the last ``{"ok": true, "device": {...}}``.  ``--quick`` runs phases 1-2
@@ -520,10 +526,14 @@ def compare_kernels(rng, device) -> None:
     from repro_torch.kernels.matmul import matmul_program
     from repro_torch.kernels.simjoin import simjoin_hits_program, simjoin_pairs_scheduled
 
-    for (M, N, K, bm, dtype) in [(200, 136, 40, 64, torch.float32),
-                                 (300, 260, 48, 256, torch.float32),
-                                 (1024, 1536, 1024, 128, torch.float32),
-                                 (1000, 700, 608, 128, torch.bfloat16)]:
+    # bf16 runs the wgmma core: 128² tiles, a 256² tile's sub-tile loop,
+    # and bf16 -> f32 (tolerance as sfc_matmul3d's f32 output)
+    for (M, N, K, bm, dtype, out) in [(200, 136, 40, 64, torch.float32, None),
+                                      (300, 260, 48, 256, torch.float32, None),
+                                      (1024, 1536, 1024, 128, torch.float32, None),
+                                      (1000, 700, 608, 128, torch.bfloat16, None),
+                                      (300, 260, 48, 256, torch.bfloat16, None),
+                                      (1000, 700, 608, 128, torch.bfloat16, torch.float32)]:
         a = torch.as_tensor(rng.standard_normal((M, K), dtype=np.float32), device=device)
         b = torch.as_tensor(rng.standard_normal((K, N), dtype=np.float32), device=device)
         a, b = a.to(dtype), b.to(dtype)
@@ -531,13 +541,17 @@ def compare_kernels(rng, device) -> None:
         a = torch.nn.functional.pad(a, (0, Kp - K, 0, Mp - M)).contiguous()
         b = torch.nn.functional.pad(b, (0, Np - N, 0, Kp - K)).contiguous()
         sched = tile_schedule_device("fur", (Mp // bm, Np // bm), device=device)
-        prog = matmul_program(sched, a, b, bm=bm, bn=bm, bk=16)
+        prog = matmul_program(sched, a, b, bm=bm, bn=bm, bk=16, out_dtype=out)
         got, want = launch(prog, a, b), prog.plain(prog, a, b)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
-        tol = 1e-2 * max(1.0, float(want.float().abs().max())) if dtype == torch.bfloat16 else 1e-4 * K ** 0.5
-        check(err <= tol, f"sfc_matmul {M}x{N}x{K} {dtype}: max err {err} > {tol}")
-        log(f"compare sfc_matmul {M}x{N}x{K} {str(dtype)[6:]} bm={bm}: max_abs_err={err:.3e} (tol {tol:.1e})")
+        if dtype == torch.bfloat16 and out is None:
+            tol = 1e-2 * max(1.0, float(want.float().abs().max()))
+        else:
+            tol = 1e-4 * K ** 0.5
+        check(err <= tol, f"sfc_matmul {M}x{N}x{K} {dtype} -> {got.dtype}: max err {err} > {tol}")
+        log(f"compare sfc_matmul {M}x{N}x{K} {str(dtype)[6:]} -> {str(got.dtype)[6:]} bm={bm}: "
+            f"max_abs_err={err:.3e} (tol {tol:.1e})")
 
     for (N, D, K, bp, bc) in [(300, 5, 7, 64, 4), (600, 8, 20, 256, 8), (20000, 128, 1000, 128, 128)]:
         x = torch.as_tensor(rng.standard_normal((N, D), dtype=np.float32), device=device)
@@ -1051,9 +1065,14 @@ def main_path(rng, device, seed: int) -> dict:
             f"StreamSimJoin max_residents={maxr}", lambda: drive_stream_join(xs_j, q_pool, maxr, device))
     launches = {k: n for k, n in LAUNCHES.counts().items()
                 if k not in SERVING_KERNELS + SHARDED_KERNELS}
+    cores = {k: n for k, n in LAUNCHES.cores().items() if not k.startswith("sfc_flash_attention")}
     log("main path wall ms: " + json.dumps({k: round(v, 3) for k, v in wall.items()}))
     log("main path launches: " + json.dumps(launches))
+    log("main path cores: " + json.dumps(cores))
     for name, n in launches.items():
+        check(n > 0, f"{name} was not launched on the main path")
+    # the f32 matmuls on the SIMT core, the bf16 ones on the tensor cores
+    for name, n in cores.items():
         check(n > 0, f"{name} was not launched on the main path")
 
     # --- phase 4: results against the oracles -------------------------------
@@ -1226,9 +1245,7 @@ def main_path(rng, device, seed: int) -> dict:
     merr, mtol = float((got - want).abs().max()), 1e-4 * S ** 0.5
     check(merr <= mtol, f"sfc_matmul {S}^3 f32 vs plain: max err {merr} > {mtol}")
     del got, want
-    entry("sfc_matmul", lambda: launch(prog, a32, b32), lambda: prog.plain(prog, a32, b32),
-          lambda: torch.matmul(a32, b32), 2.0 * S ** 3, FP32_PEAK, 3 * S * S * 4, 5, merr)
-    # the padded bf16 case of the same kernel, printed for PERF.md
+    # the bf16 case, ops.matmul's padded program, on the wgmma core
     a16p = torch.nn.functional.pad(a16, (0, (-K16) % 16, 0, (-M16) % 128)).contiguous()
     b16p = torch.nn.functional.pad(b16, (0, (-N16) % 128, 0, (-K16) % 16)).contiguous()
     s16 = tile_schedule_device("fur", (a16p.shape[0] // 128, b16p.shape[1] // 128), device=device)
@@ -1238,12 +1255,15 @@ def main_path(rng, device, seed: int) -> dict:
     mtol16 = 1e-2 * max(1.0, float(want.float().abs().max()))
     check(merr16 <= mtol16, f"sfc_matmul {list(got.shape)} bf16 vs plain: max err {merr16} > {mtol16}")
     del got, want
-    ms16 = cuda_ms(lambda: launch(p16, a16p, b16p), 5)
-    lib16 = cuda_ms(lambda: torch.matmul(a16, b16), 5)
     b16_ms, b16_by = bound_ms(2.0 * M16 * N16 * K16, BF16_PEAK, 2 * (M16 * K16 + K16 * N16 + M16 * N16))
-    log("matmul_bf16: " + json.dumps({"shape": [M16, N16, K16], "padded": [a16p.shape[0], b16p.shape[1], a16p.shape[1]],
-                                      "ms": ms16, "library_ms": lib16, "bound_ms": b16_ms, "bound_by": b16_by,
-                                      "max_abs_err": merr16, "tol": mtol16, "oracle_max_abs_err": err16}))
+    bf16_row = {"shape": [M16, N16, K16], "padded": [a16p.shape[0], b16p.shape[1], a16p.shape[1]],
+                "core": "wgmma", "ms": cuda_ms(lambda: launch(p16, a16p, b16p), 5),
+                "plain_ms": cuda_ms(lambda: p16.plain(p16, a16p, b16p), 1, warmup=0),
+                "library_ms": cuda_ms(lambda: torch.matmul(a16, b16), 5), "bound_ms": b16_ms,
+                "bound_by": b16_by, "max_abs_err": merr16, "tol": mtol16, "oracle_max_abs_err": err16}
+    entry("sfc_matmul", lambda: launch(prog, a32, b32), lambda: prog.plain(prog, a32, b32),
+          lambda: torch.matmul(a32, b32), 2.0 * S ** 3, FP32_PEAK, 3 * S * S * 4, 5, merr,
+          {"core": "simt", "bf16": bf16_row})
 
     pt = -(-NK // 128)
     xkp = torch.nn.functional.pad(xk, (0, 0, 0, pt * 128 - NK)).contiguous()
@@ -1765,14 +1785,21 @@ def serving_path(rng, device, seed: int) -> list:
     torch.cuda.synchronize()
     fwd_ms = 1e3 * (time.perf_counter() - t)
     fwd_launches = LAUNCHES.counts()
+    fwd_cores = LAUNCHES.cores()
     check(fwd_launches["sfc_flash_attention"] > 0, "sfc_flash_attention was not launched by forward")
+    # bf16 at D = 64, bq = bkv = 128: every layer on the tensor-core core
+    check(fwd_cores["sfc_flash_attention.wgmma"] == fwd_launches["sfc_flash_attention"] == cfg.num_layers
+          and fwd_cores["sfc_flash_attention.simt"] == 0,
+          f"forward: sfc_flash_attention cores {fwd_cores}, expected {cfg.num_layers} wgmma launches")
     check(logits_hk.shape == (ATTN_ROW20[0], ATTN_ROW20[2], cfg.vocab_size)
           and bool(torch.isfinite(logits_hk).all()), "forward(use_hilbert_kernels): shape or non-finite")
     logits_pl, _ = forward(params, {"tokens": toks}, cfg)
     agree = float((logits_hk.argmax(-1) == logits_pl.argmax(-1)).float().mean())
     fwd_diff = float((logits_hk - logits_pl).abs().max())
     log(f"forward {ATTN_ROW20[0]}x{ATTN_ROW20[2]} bf16 use_hilbert_kernels: {fwd_ms:.1f} ms, "
-        f"sfc_flash_attention launches {fwd_launches['sfc_flash_attention']}; against the plain attention: "
+        f"sfc_flash_attention launches {fwd_launches['sfc_flash_attention']} (wgmma "
+        f"{fwd_cores['sfc_flash_attention.wgmma']}, simt {fwd_cores['sfc_flash_attention.simt']}); "
+        f"against the plain attention: "
         f"argmax agreement {agree:.4f}, max |dlogit| {fwd_diff:.3e} (max |logit| {float(logits_pl.abs().max()):.3e})")
     del logits_hk, logits_pl
     busy = warm_decode_tick(cfg, params, requests, device)
@@ -1886,13 +1913,24 @@ def serving_path(rng, device, seed: int) -> list:
     qa, ka, va, _seqlen = att
     BH, S, d = qa.shape
     Bq, H = ATTN_ROW20[0], ATTN_ROW20[1]
+    att_ops = 4.0 * BH * d * S * (S + 1) / 2
+    # f32 on the SIMT core: the same function, bound by the FP32 pipes
+    q32, k32, v32, _ = attention_inputs(rng, device, torch.float32)
+    f32_bound, f32_by = bound_ms(att_ops, FP32_PEAK, 4 * BH * S * d * 4)
+    f32 = {"core": "simt", "ms": cuda_ms(lambda: launch(p_att, q32, k32, v32), 10),
+           "plain_ms": cuda_ms(lambda: p_att.plain(p_att, q32, k32, v32), 1, warmup=0),
+           "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+               q32.reshape(Bq, H, S, d), k32.reshape(Bq, H, S, d), v32.reshape(Bq, H, S, d),
+               is_causal=True), 10),
+           "bound_ms": f32_bound, "bound_by": f32_by,
+           "max_abs_err": errs[("sfc_flash_attention", torch.float32)]}
+    del q32, k32, v32
     row("sfc_flash_attention", lambda: launch(p_att, qa, ka, va), lambda: p_att.plain(p_att, qa, ka, va),
         lambda: F.scaled_dot_product_attention(qa.reshape(Bq, H, S, d), ka.reshape(Bq, H, S, d),
                                                va.reshape(Bq, H, S, d), is_causal=True),
-        4.0 * BH * d * S * (S + 1) / 2, 4 * BH * S * d * 2, errs[("sfc_flash_attention", torch.bfloat16)],
+        att_ops, 4 * BH * S * d * 2, errs[("sfc_flash_attention", torch.bfloat16)],
         {"shape": {"BH": BH, "S": S, "D": d, "bq": 128, "bkv": 128, "causal": True},
-         "ctas": int(p_att.grid[0] * p_att.grid[1]),
-         "f32_max_abs_err": errs[("sfc_flash_attention", torch.float32)]})
+         "ctas": int(p_att.grid[0] * p_att.grid[1]), "core": "wgmma", "f32": f32})
     log("serving busy: " + json.dumps(busy))
     return rows
 
@@ -2065,8 +2103,11 @@ def sharded_path(device, seed: int, ctx: dict) -> list:
     del want
     args = [g[1] for g in got]
     pt_all = st["pt"]
+    # the library call, as rows 4 and 5a's: cdist + argmin over each
+    # shard's points (one call a shard, as one launch a shard)
     entry("sfc_kmeans_shard_assign", lambda: [shard_assign_cuda(prog, xs[i], cp, cn, lims[i]) for i in range(SHARDS)],
-          lambda: [shard_assign_plain(prog, xs[i], cp, cn, lims[i]) for i in range(SHARDS)], None,
+          lambda: [shard_assign_plain(prog, xs[i], cp, cn, lims[i]) for i in range(SHARDS)],
+          lambda: [torch.cdist(xs[i], cp[:K]).argmin(dim=1) for i in range(SHARDS)],
           2.0 * NK * Kp * DK, 4 * (NK * DK + Kp * DK + Kp + 2 * NK), 5, aerr,
           {"shards": SHARDS, "tiles_per_shard": ptl, "ctas_per_launch": ptl, "argmin_band_points": int(band.sum()),
            "argmin_mismatches": int((a_k != a_p).sum())})

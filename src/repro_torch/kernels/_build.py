@@ -69,24 +69,42 @@ SIGNATURES = {
 }
 
 
-class LaunchCounter:
-    """Launches per kernel name, counted where a kernel is launched.
+# the entry points that dispatch to more than one kernel, and their cores:
+# bf16 on the tensor cores (TMA + wgmma), f32 (and the shapes the tensor-core
+# core does not take) on the SIMT kernels
+CORES = {
+    "sfc_matmul": ("wgmma", "simt"),
+    "sfc_matmul3d": ("wgmma", "simt"),
+    "sfc_flash_attention": ("wgmma", "simt"),
+}
 
-    ``reset()`` before a run, read ``counts()`` after it: a kernel with a
+
+class LaunchCounter:
+    """Launches per kernel name, counted where a kernel is launched, and
+    per core for the entry points of :data:`CORES`.
+
+    ``reset()`` before a run, read ``counts()`` (per entry point) and
+    ``cores()`` (``"sfc_matmul.wgmma"``, ...) after it: a kernel with a
     count of 0 did not run on the device.
     """
 
     def __init__(self):
         self._n: collections.Counter = collections.Counter()
 
-    def add(self, name: str) -> None:
+    def add(self, name: str, core: str | None = None) -> None:
         self._n[name] += 1
+        if core is not None:
+            self._n[f"{name}.{core}"] += 1
 
     def reset(self) -> None:
         self._n.clear()
 
     def counts(self) -> dict[str, int]:
         return {name: int(self._n[name]) for name in SIGNATURES}
+
+    def cores(self) -> dict[str, int]:
+        return {f"{name}.{core}": int(self._n[f"{name}.{core}"])
+                for name, cores in CORES.items() for core in cores}
 
 
 LAUNCHES = LaunchCounter()
@@ -167,13 +185,16 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def call(name: str, *args) -> None:
+def call(name: str, *args, core: str | None = None) -> None:
     """Launch kernel ``name`` with C arguments ``args``; raise if the
-    launch was refused, else count it."""
+    launch was refused, else count it (and, for an entry point of
+    :data:`CORES`, the ``core`` its wrapper's rule picked)."""
+    if (core is None) != (name not in CORES) or (core is not None and core not in CORES[name]):
+        raise ValueError(f"{name}: core {core!r}; the entry point's cores are {CORES.get(name)}")
     err = getattr(library(), name)(*args)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
-    LAUNCHES.add(name)
+    LAUNCHES.add(name, core)
 
 
 def stream_of(tensor) -> int:

@@ -35,6 +35,12 @@ Limits of the CUDA kernels: head widths ``Dk, Dv <= 128`` (``Dk`` a
 multiple of 4) and at most 256 query rows per CTA (``bq`` for
 ``sfc_flash_attention``, ``g`` for decode, ``page_size * g`` for prefill).
 The plain versions take any shape.
+
+``sfc_flash_attention`` has two cores, picked by dtype and shape
+(:func:`flash_core`): bf16 at D = 64 or 128, bq = 128 and bkv a multiple
+of 64 runs on the tensor cores (TMA + ``wgmma``, P rounded to bf16 for
+P·V); f32, and every other shape, runs the SIMT f32 core that decode and
+prefill share.
 """
 from __future__ import annotations
 
@@ -56,6 +62,11 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # the CUDA kernels' limits (csrc/attention.cu: MAX_D, MAX_ROWS)
 MAX_HEAD_DIM = 128
 MAX_ROWS = 256
+# the shapes sfc_flash_attention's tensor-core core takes in bf16
+# (csrc/attention.cu: tensor_core_shape)
+WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_BQ = 128
+WGMMA_BKV_STEP = 64
 
 __all__ = [
     "DEFAULT_MASK_VALUE",
@@ -339,6 +350,18 @@ def _check_kernel_shape(program: GpuProgram, dk: int, dv: int, rows: int) -> Non
 # row 20: (BH, S, D) attention over a jump-over tile schedule
 # ---------------------------------------------------------------------------
 
+def flash_core(dtype: torch.dtype, D: int, bq: int, bkv: int) -> str:
+    """The core of ``sfc_flash_attention`` that runs a launch, by dtype and
+    shape (the rule of ``csrc/attention.cu``'s entry point): ``"wgmma"``
+    (TMA and the tensor cores) for bf16 at D in :data:`WGMMA_HEAD_DIMS`,
+    bq = 128 and bkv a multiple of 64; ``"simt"`` (``flash_rows``, f32
+    arithmetic) for f32 and every other shape."""
+    if (dtype == torch.bfloat16 and D in WGMMA_HEAD_DIMS and bq == WGMMA_BQ
+            and bkv % WGMMA_BKV_STEP == 0):
+        return "wgmma"
+    return "simt"
+
+
 def _attention_cuda(program: GpuProgram, q, k, v, seqlen=None):
     p = program.params
     BH, S, D = q.shape
@@ -350,13 +373,16 @@ def _attention_cuda(program: GpuProgram, q, k, v, seqlen=None):
     if seqlen is not None:
         require(program, seqlen, "kv_seqlen", dtypes=(torch.int32,), shape=(BH,))
     _check_kernel_shape(program, D, D, p["bq"])
+    core = flash_core(q.dtype, D, p["bq"], p["bkv"])
+    if core == "wgmma":  # TMA reads from 16-byte aligned bases
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     o = torch.empty_like(q)
     call(
         "sfc_flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         program.schedule.data_ptr(), p["runs"].data_ptr(), *program.grid, S, D,
         p["bq"], p["bkv"], int(p["causal"]), -1 if p["kv_valid"] is None else p["kv_valid"],
         0 if seqlen is None else seqlen.data_ptr(), p["sm_scale"], _DTYPE_CODE[q.dtype],
-        stream_of(q),
+        stream_of(q), core=core,
     )
     return o
 

@@ -31,21 +31,51 @@
 // Bound on the H100: bytes.  Decode reads each live K/V page once for g
 // query rows (2 flops per byte in bf16 at g = 8); prefill and the
 // full-sequence kernel do 2 * rows flops per K/V element read, well under
-// the ridge of the bf16 tensor cores.  This first design is SIMT f32: a
-// CTA of 8 warps stages 64 kv rows of K and V at a time in shared memory
-// as f32 (the page-table or tile-table lookup done once per row by one
+// the ridge of the bf16 tensor cores.  The SIMT f32 core (flash_rows) runs
+// decode, prefill and every f32 or odd-shaped sfc_flash_attention: a CTA
+// of 8 warps stages 64 kv rows of K and V at a time in shared memory as
+// f32 (the page-table or tile-table lookup done once per row by one
 // thread), each warp owns RW query rows held in shared memory, a lane
 // owns one kv row of each 32-row chunk for the scores and 4 of the 128
 // output columns for P.V, and each row's (m, l, acc) lives in registers.
 // Query blocks of more than 64 rows (prefill's 16 x 8, bq = 128) are
 // walked in passes of 64.  No tensor cores, no TMA, no split-KV: decode
 // at 8 slots x 4 kv heads runs 32 CTAs on 132 SMs.  Those are later work.
+//
+// sfc_flash_attention in bf16 at D = 64 or 128, bq = 128 and bkv a
+// multiple of 64 runs the tensor-core core instead (flash_wgmma_kernel;
+// kernels/attention.py::flash_core is the same rule).  At the model's
+// forward (BH 64, S 2048, D 64, causal) the work is 0.0348 ms of bf16
+// tensor-core operations, and on the SIMT core, whose every product runs
+// on the FP32 pipes, it took 3.894 ms (NVIDIA H100 80GB HBM3, 700.00 W;
+// SDPA 0.187).  The design moves both products onto wgmma: TMA loads Q
+// once and K, V in 128-row stages (two 64-row boxes each, 128-byte
+// swizzle) into a ring of full / empty mbarriers, one producer thread
+// walking the run's table rows in table order (the serpentine order);
+// two consumer warpgroups of 64 query rows each run S = Q K^T
+// (m64n128k16, K K-major from shared memory), the masks and the online
+// softmax on S's accumulator fragments (a row lives in one quad of
+// lanes: 2 shuffles a row maximum, the row sums kept per thread until
+// the end), and O += P V with P's fragments packed to bf16 in registers
+// as wgmma's A operand (m64nDk16, V MN-major).  P in bf16 is the only
+// precision change (the reference multiplies p.v in f32), and one bf16
+// term of P is what ships: at the forward's shape the kernel is within
+// one bf16 ulp of the plain version (1.56e-2 at outputs up to 3.8,
+// inside rtol 8e-3 / atol 4e-3), so the two-term split P_hi + P_lo is
+// not needed.  What bounds it now is the softmax on the SMs (128 x 128
+// exponentials and their masks, maxima and sums a stage), which the
+// tensor cores wait for: 0.216 ms at that shape on the same card, then
+// 0.183-0.197 with a stage that masks nothing skipping the mask
+// arithmetic and a 3-stage ring at D = 64 (SDPA 0.148-0.159 in the same
+// runs; chip_smoke.py).
 #include <climits>
 #include <cmath>
 #include <cstddef>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mutex>
+
+#include "wgmma_gemm.cuh"
 
 namespace {
 
@@ -433,6 +463,292 @@ int prefill_t(const void* q, const void* kp, const void* vp, void* o, const void
       dv, ps, mp, scale);
 }
 
+// ---------------------------------------------------------------------------
+// sfc_flash_attention in bf16 on the tensor cores: TMA + wgmma
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+using namespace sfc;
+
+constexpr int BQ = 128;                  // query rows of a CTA: two consumer warpgroups of 64
+constexpr int STAGE_KV = 128;            // kv rows of a ring stage: two 64-row halves
+constexpr int THREADS = 384;             // two consumer warpgroups + the producer warpgroup
+constexpr int CHUNK = 128 * 64 * 2;      // 128 rows of 64 bf16 columns (one 128-byte swizzle row each)
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Shared memory at head width D: Q, then STAGES x (K, V), each as D / 64
+// column chunks of 128 rows; the barriers after the ring.  The ring is 3
+// stages deep at D = 64 (112 KB), 2 at D = 128 (160 KB).
+template <int D>
+struct Layout {
+  static constexpr int STAGES = D == 64 ? 3 : 2;
+  static constexpr int CHUNKS = D / 64;
+  static constexpr int TILE_BYTES = CHUNKS * CHUNK;  // Q, or K or V of one stage
+  static constexpr int STAGE_BYTES = 2 * TILE_BYTES;
+  static constexpr int SMEM = TILE_BYTES + STAGES * STAGE_BYTES + (2 * STAGES + 1) * 8 + 1024;
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// One CTA per (run, bh): 128 query rows of q tile qt, the run's kv tiles
+// in table order, 128 kv rows a stage.  Warpgroup 2's first thread loads
+// Q once and K, V stages into the ring; warpgroups 0 and 1 own query rows
+// 64 g .. 64 g + 63: S = Q K^T (m64n128k16, both from shared memory, K
+// K-major), masks and the online softmax on the accumulator fragments (a
+// row lives in one quad of lanes), P packed to bf16 in registers as the
+// A fragments of O += P V (m64nDk16, V MN-major).  Scores are kept in
+// log2 units (scale * log2 e after the product) for ex2; a stage's
+// missing second half (nkv % 128 == 64) re-reads the first and scores
+// -inf.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                   const __grid_constant__ CUtensorMap mv, __nv_bfloat16* __restrict__ o,
+                   const int* __restrict__ sched, const int* __restrict__ runs, int S, int bkv,
+                   int causal, int kv_valid, const int* __restrict__ seqlen, float scale_log2) {
+  using L = Layout<D>;
+  constexpr int STAGES = L::STAGES;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* qs = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  uint8_t* ring = qs + L::TILE_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * L::STAGE_BYTES);
+  uint64_t* empty = full + STAGES;
+  uint64_t* qbar = empty + STAGES;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      wg::mbar_init(&full[s], 1);
+      wg::mbar_init(&empty[s], 2);
+    }
+    wg::mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // the CTA's query rows, kv rows and limits: flash_rows' walk
+  const DenseWalk w(sched, runs, S, D, BQ, bkv, causal, kv_valid, seqlen);
+  const int nkv = w.nkv;
+  const int n = (nkv + STAGE_KV - 1) / STAGE_KV;
+  const int row_base = w.bh * S;  // the (BH S, D) row of (bh, position 0)
+  const int g = threadIdx.x / 128;
+  size_t ko, vo;  // the walk's element offsets (unused: TMA takes rows)
+  int pos;
+
+  if (g == 2) {  // the producer warpgroup: one thread issues every load
+    if (threadIdx.x == 256) {
+      wg::mbar_expect_tx(qbar, L::TILE_BYTES);
+      for (int c = 0; c < L::CHUNKS; ++c)
+        wg::tma_load_2d(qs + c * CHUNK, &mq, qbar, c * 64, row_base + w.qt * BQ);
+      int s = 0;
+      uint32_t phase = 0;
+      for (int i = 0; i < n; ++i) {
+        wg::mbar_wait(&empty[s], phase ^ 1);
+        wg::mbar_expect_tx(&full[s], L::STAGE_BYTES);
+        uint8_t* ks = ring + s * L::STAGE_BYTES;
+        uint8_t* vs = ks + L::TILE_BYTES;
+        for (int h = 0; h < 2; ++h) {
+          int f = i * STAGE_KV + h * 64;
+          if (f >= nkv) f -= 64;
+          w.kv(f, ko, vo, pos);
+          const int row = row_base + pos;
+          for (int c = 0; c < L::CHUNKS; ++c) {
+            wg::tma_load_2d(ks + c * CHUNK + h * (CHUNK / 2), &mk, &full[s], c * 64, row);
+            wg::tma_load_2d(vs + c * CHUNK + h * (CHUNK / 2), &mv, &full[s], c * 64, row);
+          }
+        }
+        if (++s == STAGES) {
+          s = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // this thread's two query rows (the accumulator layout of wg::acc_row)
+  const int t = threadIdx.x & 127;
+  const int r0 = g * 64 + (t >> 5) * 16 + ((t & 31) >> 2);
+  const int lim0 = w.qlim(r0), lim1 = w.qlim(r0 + 8), klim = w.klim;
+  const int cq = (t & 3) * 2;
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  const uint32_t qa = wg::smem_u32(qs) + g * 64 * 128;
+  wg::mbar_wait(qbar, 0);
+  int s = 0;
+  uint32_t phase = 0;
+  for (int i = 0; i < n; ++i) {
+    int kb[2];
+    bool live[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int f = i * STAGE_KV + h * 64;
+      live[h] = f < nkv;
+      kb[h] = 0;
+      if (live[h]) w.kv(f, ko, vo, kb[h]);
+    }
+    wg::mbar_wait(&full[s], phase);
+    const uint32_t ka = wg::smem_u32(ring + s * L::STAGE_BYTES);
+    const uint32_t va = ka + L::TILE_BYTES;
+
+    // S = Q K^T: chunk kk / 4 of Q and K, 32 bytes along the swizzled row a step
+    float sc[64];
+    wg::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * CHUNK + (kk % 4) * 32;
+      wg::wgmma_m64n128k16_kmajor(sc, wg::desc_sw128(qa + off, 16, 1024),
+                                  wg::desc_sw128(ka + off, 16, 1024), kk);
+    }
+    wg::wgmma_commit();
+    wg::wgmma_wait<0>();
+
+    // masks and row maxima: register j holds row r0 + 8 ((j >> 1) & 1),
+    // stage column 8 (j >> 2) + cq + (j & 1), half j >> 5.  At D = 64 a
+    // stage whose kv rows all exist, lie below klim and (causal) at or
+    // before the CTA's first query row masks nothing: its scores stay
+    // unscaled until the exponent (scale > 0 keeps the maxima), one branch
+    // for the CTA.  (At D = 128 the second copy of the loop would spill.)
+    const int kmax = max(kb[0], kb[1]) + 63;
+    const bool unmasked = D == 64 && live[1] && kmax < klim && kmax <= w.qlim(0) &&
+                          scale_log2 > 0.f;
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+    if (unmasked) {
+#pragma unroll
+      for (int j = 0; j < 64; ++j) {
+        if (j & 2)
+          mx1 = fmaxf(mx1, sc[j]);
+        else
+          mx0 = fmaxf(mx0, sc[j]);
+      }
+      mx0 *= scale_log2;
+      mx1 *= scale_log2;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 64; ++j) {
+        const int h = j >> 5;
+        const int kp = kb[h] + ((j >> 2) & 7) * 8 + cq + (j & 1);
+        float v = (kp <= ((j & 2) ? lim1 : lim0) && kp < klim) ? sc[j] * scale_log2 : MASK;
+        if (!live[h]) v = -INFINITY;
+        sc[j] = v;
+        if (j & 2)
+          mx1 = fmaxf(mx1, v);
+        else
+          mx0 = fmaxf(mx0, v);
+      }
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float a0 = ex2(m0 - mn0), a1 = ex2(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    const float sl = unmasked ? scale_log2 : 1.f;
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 64; ++j) {
+      const float p = ex2(fmaf(sc[j], sl, -((j & 2) ? mn1 : mn0)));
+      sc[j] = p;
+      if (j & 2)
+        s1 += p;
+      else
+        s0 += p;
+    }
+    l0 = l0 * a0 + s0;  // this thread's part of the row sum (the quad's are added at the end)
+    l1 = l1 * a1 + s1;
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) acc[j] *= (j & 2) ? a1 : a0;
+    // P's k16 slice kk is accumulator registers 8 kk .. 8 kk + 7, in the
+    // order of the A fragment's four bf16 pairs
+    uint32_t pa[8][4];
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+
+    // O += P V: V's k16 slice is 16 rows (2048 bytes) further, its column
+    // chunks CHUNK bytes apart
+    wg::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const uint64_t db = wg::desc_sw128(va + kk * 2048, CHUNK, 1024);
+      if constexpr (D == 64)
+        wg::wgmma_m64n64k16_rs(acc, pa[kk], db);
+      else
+        wg::wgmma_m64n128k16_rs(acc, pa[kk], db);
+    }
+    wg::wgmma_commit();
+    wg::wgmma_wait<0>();
+    if (t == 0) wg::mbar_arrive(&empty[s]);
+    if (++s == STAGES) {
+      s = 0;
+      phase ^= 1;
+    }
+  }
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  __nv_bfloat16* o0 = o + w.o_off(r0);
+  __nv_bfloat16* o1 = o0 + 8 * D;
+#pragma unroll
+  for (int j = 0; j < D / 2; j += 2) {
+    const int c = (j >> 2) * 8 + cq;
+    if (j & 2)
+      *reinterpret_cast<__nv_bfloat162*>(o1 + c) = __floats2bfloat162_rn(acc[j] / l1, acc[j + 1] / l1);
+    else
+      *reinterpret_cast<__nv_bfloat162*>(o0 + c) = __floats2bfloat162_rn(acc[j] / l0, acc[j + 1] / l0);
+  }
+}
+
+template <int D>
+int attention_wgmma(const void* q, const void* k, const void* v, void* o, const void* sched,
+                    const void* runs, int n_runs, int BH, int S, int bkv, int causal, int kv_valid,
+                    const void* seqlen, float scale, void* stream) {
+  if (n_runs == 0 || BH == 0) return 0;
+  if (BH > 65535) return (int)cudaErrorInvalidConfiguration;
+  // TMA: 16-byte aligned bases, int32 row coordinates
+  if ((uintptr_t)q % 16 || (uintptr_t)k % 16 || (uintptr_t)v % 16 || (uintptr_t)o % 4 ||
+      (long long)BH * S > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv;
+  const uint64_t rows = (uint64_t)BH * S;
+  int err = make_tensor_map_bf16(&mq, q, rows, D, BQ, 64);
+  if (!err) err = make_tensor_map_bf16(&mk, k, rows, D, 64, 64);
+  if (!err) err = make_tensor_map_bf16(&mv, v, rows, D, 64, 64);
+  if (err) return err;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<D>::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  flash_wgmma_kernel<D><<<dim3(n_runs, BH), THREADS, Layout<D>::SMEM, (cudaStream_t)stream>>>(
+      mq, mk, mv, (__nv_bfloat16*)o, (const int*)sched, (const int*)runs, S, bkv, causal, kv_valid,
+      (const int*)seqlen, scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
+// the shapes the tensor-core core takes (bf16 inputs); every other shape,
+// and f32, runs flash_rows.  kernels/attention.py::flash_core is this rule.
+bool tensor_core_shape(int D, int bq, int bkv) {
+  return (D == 64 || D == 128) && bq == tc::BQ && bkv % 64 == 0;
+}
+
 }  // namespace
 
 extern "C" int sfc_flash_attention(const void* q, const void* k, const void* v, void* o,
@@ -443,6 +759,11 @@ extern "C" int sfc_flash_attention(const void* q, const void* k, const void* v, 
   if (dtype == 0)
     return attention_t<float>(q, k, v, o, sched, runs, n_runs, BH, S, D, bq, bkv, causal, kv_valid,
                               seqlen, scale, stream);
+  if (tensor_core_shape(D, bq, bkv))
+    return D == 64 ? tc::attention_wgmma<64>(q, k, v, o, sched, runs, n_runs, BH, S, bkv, causal,
+                                             kv_valid, seqlen, scale, stream)
+                   : tc::attention_wgmma<128>(q, k, v, o, sched, runs, n_runs, BH, S, bkv, causal,
+                                              kv_valid, seqlen, scale, stream);
   return attention_t<__nv_bfloat16>(q, k, v, o, sched, runs, n_runs, BH, S, D, bq, bkv, causal,
                                     kv_valid, seqlen, scale, stream);
 }

@@ -6,17 +6,34 @@
 // CTAs concurrently and in no order, so here the whole K reduction is a
 // loop inside one CTA and each output tile is written exactly once.
 //
-// Bound on the H100: FP32 FLOP/s.  TF32 is off, so f32 products cannot
-// use the tensor cores (67 TFLOP/s on the FP32 pipes); bf16 inputs are
-// widened with __bfloat162float and take the same f32 path.  This first
-// design is a plain SIMT tile product (tile_gemm.cuh: 128x128 CTA tile,
-// 8x8 outputs per thread, 16-deep shared-memory chunks with a register
-// prefetch of the next chunk).  The curve order of the schedule decides
-// which A row panels and B column panels neighbouring CTAs share in L2.
-// No wgmma, no TMA: those are later work.
+// f32 inputs: bound on the H100 by FP32 FLOP/s.  TF32 is off, so f32
+// products cannot use the tensor cores (67 TFLOP/s on the FP32 pipes).
+// The design is a plain SIMT tile product (tile_gemm.cuh: 128x128 CTA
+// tile, 8x8 outputs per thread, 16-deep shared-memory chunks with a
+// register prefetch of the next chunk).  The curve order of the schedule
+// decides which A row panels and B column panels neighbouring CTAs share
+// in L2.
+// bf16 inputs: bound by the bf16 tensor cores (2 M N K at 989 TFLOP/s:
+// 0.68 ms at 8000x7000x6000).  Widened to f32 on the SIMT path they took
+// 19.35 ms there (NVIDIA H100 80GB HBM3, 700.00 W), against
+// torch.matmul's 1.01.  They run matmul_wgmma_kernel instead, the
+// wgmma_gemm.cuh mainloop of sfc_matmul3d's bf16 kernel: TMA loads 64-deep
+// stages of A and B into a 4-stage ring, one producer thread walks k =
+// 0, 64, .. over the whole K (the JAX kernel's k order; TMA fills past K
+// with zeros), two consumer warpgroups keep the f32 accumulator in
+// registers and write bf16 or f32 once.  Every CTA streams its panels in
+// the same k order, so CTAs that are neighbours on the curve read the
+// same A and B stages from L2 at about the same time: 1.35-1.43 ms on
+// the same card over four runs, within 3.4 % of sfc_matmul3d's bf16
+// kernel in each (below it in three), against torch.matmul's 0.91-0.92
+// (chip_smoke.py): the shared order buys nothing measurable.  A 128x128
+// tile reads (128 + 128) K bf16 of operands, 64 flops a byte: 10.6 GB
+// from L2 at this shape, 7.9 TB/s at 1.35 ms; a 128x256 tile or TMA
+// multicast across a CTA pair would read less.
 //
 // CTA s reads (i, j) = sched[s]; a (bm, bn) tile wider than 128 is
-// covered by a loop of 128x128 sub-tiles inside the CTA.
+// covered by a loop of 128x128 sub-tiles inside the CTA (bf16: bm, bn
+// multiples of 128, or the whole M or N below 128).
 //
 // sfc_tile_update: O[i, j] += alpha * A_i . B_j^T over a scheduled subset
 // of (i, j) tiles, O updated in place.
@@ -227,6 +244,68 @@ matmul3d_wgmma_kernel(const __grid_constant__ CUtensorMap ma, const __grid_const
   }
 }
 
+// bf16 inputs, the 2-D table: CTA r owns the (bm, bn) output tile sched[r]
+// and covers it with 128x128 sub-tiles, each summed over the whole K in
+// 64-deep stages (0, 64, ...), the ring running on from one sub-tile to
+// the next; bm, bn are multiples of 128 or the whole M, N below 128.
+template <typename TO>
+__global__ void __launch_bounds__(wg::THREADS, 1)
+matmul_wgmma_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtensorMap mb,
+                    TO* __restrict__ C, const int* __restrict__ sched, int M, int N, int K, int bm,
+                    int bn) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const wg::Ring ring = wg::make_ring(smem);
+  const int ti = sched[2 * (size_t)blockIdx.x];
+  const int tj = sched[2 * (size_t)blockIdx.x + 1];
+  const int n = (K + wg::BKS - 1) / wg::BKS;
+  const int subs_r = (bm + wg::BM - 1) / wg::BM, subs_c = (bn + wg::BN - 1) / wg::BN;
+  const int g = threadIdx.x / 128;
+  if (g == 2) {  // the producer warpgroup: one thread issues every load
+    if (threadIdx.x == 256)
+      for (int u = 0; u < subs_r * subs_c; ++u)
+        wg::produce(ring, &ma, &mb, ti * bm + (u / subs_c) * wg::BM, tj * bn + (u % subs_c) * wg::BN,
+                    n, [](int i) { return i * wg::BKS; }, u * n);
+    return;
+  }
+  for (int u = 0; u < subs_r * subs_c; ++u) {
+    const int row0 = ti * bm + (u / subs_c) * wg::BM, col0 = tj * bn + (u % subs_c) * wg::BN;
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    wg::consume(ring, g, n, acc, u * n);
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) {
+      const int r = row0 + g * 64 + wg::acc_row(i);
+      const int c = col0 + wg::acc_col(i);
+      if (r < M && c < N) store_pair(C + (size_t)r * N + c, acc[i], acc[i + 1]);
+    }
+  }
+}
+
+template <typename TO>
+int launch_wgmma(const void* a, const void* b, void* c, const void* sched, int steps, int M, int N,
+                 int K, int bm, int bn, void* stream) {
+  // TMA: 16-byte aligned bases and row strides (the wrapper pads)
+  if (K % 8 || N % 8 || (uintptr_t)a % 16 || (uintptr_t)b % 16) return (int)cudaErrorInvalidValue;
+  CUtensorMap ma, mb;
+  int err = make_tensor_map_bf16(&ma, a, M, K, wg::BM, wg::BKS);
+  if (err) return err;
+  err = make_tensor_map_bf16(&mb, b, K, N, wg::BKS, 64);
+  if (err) return err;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      matmul_wgmma_kernel<TO>, cudaFuncAttributeMaxDynamicSharedMemorySize, wg::SMEM_BYTES);
+  if (attr != cudaSuccess) return (int)attr;
+  matmul_wgmma_kernel<TO><<<steps, wg::THREADS, wg::SMEM_BYTES, (cudaStream_t)stream>>>(
+      ma, mb, (TO*)c, (const int*)sched, M, N, K, bm, bn);
+  return (int)cudaGetLastError();
+}
+
+// the blocks the bf16 kernels take: a multiple of 128 (2-D table only:
+// the sub-tile loop), 128, or the whole dimension below 128
+bool wgmma_block(int blk, int dim, bool multiples) {
+  return blk == wg::BM || (multiples && blk > 0 && blk % wg::BM == 0) || (blk == dim && dim < wg::BM);
+}
+
 template <typename TO>
 int launch3d_wgmma(const void* a, const void* b, void* c, const void* ij, const void* ks, int steps,
                    int kt, int M, int N, int K, int bk, void* stream) {
@@ -255,6 +334,8 @@ extern "C" int sfc_tile_update(void* o, const void* a, const void* b, const void
 }
 
 // dtype codes: 0 = float32, 1 = bfloat16 (inputs share one dtype).
+// bf16 inputs run the wgmma kernel (bm, bn: multiples of 128 or the whole
+// M, N below 128; K, N multiples of 8).
 extern "C" int sfc_matmul(const void* a, const void* b, void* c, const void* sched, int steps,
                           int M, int N, int K, int bm, int bn, int in_dtype, int out_dtype,
                           void* stream) {
@@ -262,10 +343,12 @@ extern "C" int sfc_matmul(const void* a, const void* b, void* c, const void* sch
     return launch<float, float>(a, b, c, sched, steps, M, N, K, bm, bn, stream);
   if (in_dtype == 0 && out_dtype == 1)
     return launch<float, __nv_bfloat16>(a, b, c, sched, steps, M, N, K, bm, bn, stream);
+  if (in_dtype == 1 && (!wgmma_block(bm, M, true) || !wgmma_block(bn, N, true)))
+    return (int)cudaErrorInvalidValue;
   if (in_dtype == 1 && out_dtype == 0)
-    return launch<__nv_bfloat16, float>(a, b, c, sched, steps, M, N, K, bm, bn, stream);
+    return launch_wgmma<float>(a, b, c, sched, steps, M, N, K, bm, bn, stream);
   if (in_dtype == 1 && out_dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16>(a, b, c, sched, steps, M, N, K, bm, bn, stream);
+    return launch_wgmma<__nv_bfloat16>(a, b, c, sched, steps, M, N, K, bm, bn, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -278,8 +361,7 @@ extern "C" int sfc_matmul3d(const void* a, const void* b, void* c, const void* i
     return launch3d<float, float>(a, b, c, ij, ks, steps, kt, M, N, K, bm, bn, bk, stream);
   if (in_dtype == 0 && out_dtype == 1)
     return launch3d<float, __nv_bfloat16>(a, b, c, ij, ks, steps, kt, M, N, K, bm, bn, bk, stream);
-  const bool one_row_tile = bm == M && M < wg::BM, one_col_tile = bn == N && N < wg::BN;
-  if (in_dtype == 1 && ((bm != wg::BM && !one_row_tile) || (bn != wg::BN && !one_col_tile) ||
+  if (in_dtype == 1 && (!wgmma_block(bm, M, false) || !wgmma_block(bn, N, false) ||
                         (bk % wg::BKS && kt != 1)))
     return (int)cudaErrorInvalidValue;
   if (in_dtype == 1 && out_dtype == 0)

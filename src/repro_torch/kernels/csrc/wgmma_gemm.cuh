@@ -1,7 +1,9 @@
 // A bf16 tile-GEMM mainloop for Hopper: TMA loads into a ring of
 // shared-memory stages, mbarrier hand-off between one producer thread and
 // two consumer warpgroups, wgmma products with f32 accumulators in
-// registers.
+// registers.  The same header holds the wgmma forms the flash-attention
+// kernel (attention.cu) adds: a K-major B from shared memory (S = Q K^T)
+// and A from registers (O += P V).
 //
 // The CTA computes one 128x128 output tile: consumer warpgroup g (warps
 // 4g .. 4g + 3) owns rows 64 g .. 64 g + 63 and issues m64n128k16 wgmmas;
@@ -117,6 +119,62 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
         SFC_R8(56)
       : "l"(da), "l"(db), "r"(1));
 }
+
+// S = A (64x16, K-major) . B (16x128, K-major: B's 128 rows are the
+// columns of S, each 16 deep), overwriting S when `accumulate` is 0
+__device__ __forceinline__ void wgmma_m64n128k16_kmajor(float (&d)[64], uint64_t da, uint64_t db,
+                                                        int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}"
+      : SFC_R8(0), SFC_R8(8), SFC_R8(16), SFC_R8(24), SFC_R8(32), SFC_R8(40), SFC_R8(48),
+        SFC_R8(56)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A (64x16, bf16 pairs in registers, the wgmma A-fragment layout) .
+// B (16x64, MN-major)
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}"
+      : SFC_R8(0), SFC_R8(8), SFC_R8(16), SFC_R8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A (64x16, registers) . B (16x128, MN-major)
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}"
+      : SFC_R8(0), SFC_R8(8), SFC_R8(16), SFC_R8(24), SFC_R8(32), SFC_R8(40), SFC_R8(48),
+        SFC_R8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 #undef SFC_R8
 
 struct Ring {
@@ -149,11 +207,13 @@ __device__ __forceinline__ Ring make_ring(uint8_t* smem) {
 
 // The producer thread: stage i (i = 0 .. n - 1) loads A's box at (depth
 // k_of(i), row0) and B's two boxes at (col0, k_of(i)), (col0 + 64, k_of(i)).
+// `used` is how many stages the ring has served before this call (a CTA
+// that computes several tiles runs the ring on from one to the next).
 template <typename KOf>
 __device__ __forceinline__ void produce(const Ring& r, const CUtensorMap* ma, const CUtensorMap* mb,
-                                        int row0, int col0, int n, KOf k_of) {
-  int s = 0;
-  uint32_t phase = 0;
+                                        int row0, int col0, int n, KOf k_of, int used = 0) {
+  int s = used % STAGES;
+  uint32_t phase = (used / STAGES) & 1;
   for (int i = 0; i < n; ++i) {
     mbar_wait(&r.empty[s], phase ^ 1);
     mbar_expect_tx(&r.full[s], STAGE_BYTES);
@@ -171,10 +231,11 @@ __device__ __forceinline__ void produce(const Ring& r, const CUtensorMap* ma, co
 // A consumer warpgroup (g = 0 or 1): n stages into acc (which the caller
 // zeroes), in stage order; one wgmma group in flight while the next stage
 // is issued, each stage handed back as soon as its group has finished.
-__device__ __forceinline__ void consume(const Ring& r, int g, int n, float (&acc)[64]) {
+// `used` as for produce.
+__device__ __forceinline__ void consume(const Ring& r, int g, int n, float (&acc)[64], int used = 0) {
   const bool signals = (threadIdx.x & 127) == 0;
-  int s = 0, prev = -1;
-  uint32_t phase = 0;
+  int s = used % STAGES, prev = -1;
+  uint32_t phase = (used / STAGES) & 1;
   for (int i = 0; i < n; ++i) {
     mbar_wait(&r.full[s], phase);
     // A: K-major, rows 64 g .. 64 g + 63 of the box, 8-row groups 1024 B
@@ -198,6 +259,7 @@ __device__ __forceinline__ void consume(const Ring& r, int g, int n, float (&acc
     }
   }
   wgmma_wait<0>();
+  if (prev >= 0 && signals) mbar_arrive(&r.empty[prev]);
 }
 
 // Element (row, col) of a consumer thread's accumulator register i, rows

@@ -13,7 +13,11 @@ Port defaults for the H100 (set in ops.py): ``bm = bn = 128`` (one
 depth of one shared-memory chunk).  The JAX package's 256³ blocks were
 sized for 16 MiB of VMEM; a 256x256 f32 operand tile alone (256 KB) is
 above a block's 227 KB of shared memory.  Larger ``(bm, bn)`` are still
-accepted: the CTA loops over 128x128 sub-tiles.
+accepted: the CTA loops over 128x128 sub-tiles.  The core follows the
+dtype (:func:`matmul_core`): f32 runs that SIMT tile product, bf16 the
+tensor cores (``wgmma`` fed by TMA, ``csrc/wgmma_gemm.cuh``; each
+128x128 sub-tile sums the whole K in 64-deep stages, so ``bk`` plays no
+part there): :func:`matmul_wgmma_layout`.
 
 :func:`tile_update_swizzled` (``sfc_tile_update``, the counterpart of
 ``_accum_update_kernel``) is the per-k Cholesky's trailing update:
@@ -46,6 +50,46 @@ from .launch import cta_chunks, launch, require, shuffled_ctas
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
+# the bf16 kernels' CTA tile (bm = bn) and the depth of one of their stages
+WGMMA_TILE = 128
+WGMMA_STAGE = 64
+
+
+def matmul_core(dtype: torch.dtype) -> str:
+    """The core that runs ``sfc_matmul`` and ``sfc_matmul3d``, by the
+    inputs' dtype: ``"wgmma"`` (TMA and the bf16 tensor cores,
+    ``csrc/wgmma_gemm.cuh``) for bf16, ``"simt"`` (``tile_gemm.cuh``, the
+    FP32 pipes; TF32 stays off) for f32."""
+    return "wgmma" if dtype == torch.bfloat16 else "simt"
+
+
+def _check_wgmma_blocks(kernel: str, M: int, N: int, bm: int, bn: int, multiples: bool) -> None:
+    for name, blk, dim in (("bm", bm, M), ("bn", bn, N)):
+        if blk == WGMMA_TILE or (multiples and blk > 0 and blk % WGMMA_TILE == 0):
+            continue
+        if blk == dim < WGMMA_TILE:
+            continue
+        takes = f"a multiple of {WGMMA_TILE}" if multiples else f"{name}={WGMMA_TILE}"
+        raise ValueError(
+            f"{kernel} (bf16): {name}={blk} for a dimension of {dim}; the tensor-core "
+            f"kernel takes {takes}, or {name} equal to a dimension below {WGMMA_TILE}"
+        )
+
+
+def matmul_wgmma_layout(M: int, N: int, K: int, bm: int, bn: int) -> tuple[int, int]:
+    """``(K_pad, N_pad)``: the depth and width the bf16 ``sfc_matmul``
+    kernel runs an (M, K) @ (K, N) product at, with blocks ``(bm, bn)``
+    (M, N multiples of them).  Its CTA covers a (bm, bn) tile with 128x128
+    sub-tiles and sums the whole K in 64-deep stages (TMA fills past K with
+    zeros), so ``bm`` and ``bn`` must be multiples of 128 or the whole M or
+    N (one tile, smaller than 128); ``bk`` plays no part.  TMA needs 16-byte
+    row strides: K and a single column tile are zero-padded to multiples of
+    8 (products with zeros add nothing).  Raises ValueError on other
+    blocks."""
+    _check_wgmma_blocks("sfc_matmul", M, N, bm, bn, multiples=True)
+    return -(-K // 8) * 8, -(-N // 8) * 8
+
+
 def _matmul_cuda(program: GpuProgram, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     p = program.params
     M, K = a.shape
@@ -55,15 +99,24 @@ def _matmul_cuda(program: GpuProgram, a: torch.Tensor, b: torch.Tensor) -> torch
     require(program, program.schedule, "schedule", dtypes=(torch.int32,))
     if p["out_dtype"] not in _DTYPE_CODE:
         raise TypeError(f"sfc_matmul: out_dtype {p['out_dtype']} not supported")
-    c = torch.empty((M, N), dtype=p["out_dtype"], device=a.device)
+    core = matmul_core(a.dtype)
+    bn, Kk, Nk = p["bn"], K, N
+    if core == "wgmma":
+        Kk, Nk = matmul_wgmma_layout(M, N, K, p["bm"], bn)
+        a = torch.nn.functional.pad(a, (0, Kk - K)) if Kk != K else a
+        b = torch.nn.functional.pad(b, (0, Nk - N, 0, Kk - K)) if (Kk, Nk) != (K, N) else b
+        if Nk != N:  # one column tile: its zero-padded width
+            bn = Nk
+        a, b = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (a, b))
+    c = torch.empty((M, Nk), dtype=p["out_dtype"], device=a.device)
     if program.steps == 0 or K == 0:
-        return c.zero_()
+        return c[:, :N].zero_()
     call(
         "sfc_matmul", a.data_ptr(), b.data_ptr(), c.data_ptr(),
-        program.schedule.data_ptr(), *program.grid, M, N, K, p["bm"], p["bn"],
-        _DTYPE_CODE[a.dtype], _DTYPE_CODE[p["out_dtype"]], stream_of(a),
+        program.schedule.data_ptr(), *program.grid, M, Nk, Kk, p["bm"], bn,
+        _DTYPE_CODE[a.dtype], _DTYPE_CODE[p["out_dtype"]], stream_of(a), core=core,
     )
-    return c
+    return c if Nk == N else c[:, :N].contiguous()
 
 
 def _matmul_plain(program: GpuProgram, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -283,11 +336,6 @@ def matmul3d_csr_device(curve: str, shape: tuple[int, int, int], *, device="cuda
     return _csr_device(str(curve), tuple(int(v) for v in shape), str(torch.device(device)))
 
 
-# the bf16 kernel's CTA tile (bm = bn) and the depth of one of its stages
-WGMMA_TILE = 128
-WGMMA_STAGE = 64
-
-
 def wgmma_layout(M: int, N: int, K: int, bm: int, bn: int, bk: int) -> tuple[int, int]:
     """``(K_pad, N_pad)``: the depth and width the bf16 ``sfc_matmul3d``
     kernel runs an (M, K) @ (K, N) product at, with blocks ``(bm, bn,
@@ -298,13 +346,7 @@ def wgmma_layout(M: int, N: int, K: int, bm: int, bn: int, bk: int) -> tuple[int
     zero-padded to a multiple of 16, a single column tile to a multiple of
     8 (products with zeros add nothing).  Raises ValueError on other
     blocks."""
-    for name, blk, dim in (("bm", bm, M), ("bn", bn, N)):
-        if blk != WGMMA_TILE and not (blk == dim < WGMMA_TILE):
-            raise ValueError(
-                f"sfc_matmul3d (bf16): {name}={blk} for a dimension of {dim}; the tensor-core "
-                f"kernel takes {name}={WGMMA_TILE}, or {name} equal to a dimension below "
-                f"{WGMMA_TILE}"
-            )
+    _check_wgmma_blocks("sfc_matmul3d", M, N, bm, bn, multiples=False)
     if bk % WGMMA_STAGE and bk != K:
         raise ValueError(
             f"sfc_matmul3d (bf16): bk={bk} for K={K}; the tensor-core kernel takes a multiple "
@@ -324,8 +366,9 @@ def _matmul3d_cuda(program: GpuProgram, a: torch.Tensor, b: torch.Tensor) -> tor
     require(program, ks, "k lists", dtypes=(torch.int32,), shape=(program.steps, p["kt"]))
     if p["out_dtype"] not in _DTYPE_CODE:
         raise TypeError(f"sfc_matmul3d: out_dtype {p['out_dtype']} not supported")
+    core = matmul_core(a.dtype)
     bn, bk, Kk, Nk = p["bn"], p["bk"], K, N
-    if a.dtype == torch.bfloat16:
+    if core == "wgmma":
         Kk, Nk = wgmma_layout(M, N, K, p["bm"], bn, bk)
         if Kk != K:  # one k tile: its zero-padded depth
             a = torch.nn.functional.pad(a, (0, Kk - K))
@@ -341,7 +384,7 @@ def _matmul3d_cuda(program: GpuProgram, a: torch.Tensor, b: torch.Tensor) -> tor
     call(
         "sfc_matmul3d", a.data_ptr(), b.data_ptr(), c.data_ptr(), program.schedule.data_ptr(),
         ks.data_ptr(), program.steps, p["kt"], M, Nk, Kk, p["bm"], bn, bk,
-        _DTYPE_CODE[a.dtype], _DTYPE_CODE[p["out_dtype"]], stream_of(a),
+        _DTYPE_CODE[a.dtype], _DTYPE_CODE[p["out_dtype"]], stream_of(a), core=core,
     )
     return c if Nk == N else c[:, :N].contiguous()
 

@@ -283,6 +283,49 @@ def test_ops_paged_entry_points_match_pallas():
         np.testing.assert_allclose(got[b, : n_new[b]], want[b, : n_new[b]], **F32_TOL)
 
 
+# ---------------------------------------------------------------------------
+# row 20's two cores: the dispatch rule and the wrapper's launch arguments
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [64, 128, 96, 32])
+@pytest.mark.parametrize("bq,bkv", [(128, 128), (128, 64), (128, 256), (128, 96), (64, 64), (256, 128)])
+def test_flash_core_rule(dtype, D, bq, bkv):
+    """bf16 at D = 64 or 128, bq = 128 and bkv a multiple of 64 runs on the
+    tensor cores; f32 and every other shape on the SIMT core."""
+    want = ("wgmma" if dtype == torch.bfloat16 and D in (64, 128) and bq == 128 and bkv % 64 == 0
+            else "simt")
+    assert tatt.flash_core(dtype, D, bq, bkv) == want
+
+
+@pytest.mark.parametrize("dtype,D,bq,core", [
+    (torch.bfloat16, 64, 128, "wgmma"),  # the model's forward
+    (torch.float32, 64, 128, "simt"),
+    (torch.bfloat16, 32, 128, "simt"),
+    (torch.bfloat16, 128, 64, "simt"),
+])
+def test_attention_wrapper_launch_arguments(monkeypatch, dtype, D, bq, core):
+    """``_attention_cuda``'s host side on CPU tensors, the kernel call
+    recorded: the core its rule picks is counted with the entry point, and
+    the C arguments are the program's."""
+    calls = []
+    monkeypatch.setattr(tatt, "require", lambda *a, **k: None)
+    monkeypatch.setattr(tatt, "stream_of", lambda t: 0)
+    monkeypatch.setattr(tatt, "call", lambda name, *args, core=None: calls.append((name, args, core)))
+    rng = np.random.default_rng(D + bq)
+    q, k, v = (_t(a, dtype) for a in _qkv(rng, (3, 256, D)))
+    sched = tatt.attention_schedule_device(256 // bq, 256 // bq, causal=True, device="cpu")
+    prog = tatt.flash_attention_program(sched, q, causal=True, sm_scale=0.125, bq=bq, bkv=bq,
+                                        kv_valid=250)
+    out = tatt._attention_cuda(prog, q, k, v)
+    assert out.shape == q.shape and out.dtype == dtype
+    ((name, args, got_core),) = calls
+    assert name == "sfc_flash_attention" and got_core == core
+    # (..., runs, BH, S, D, bq, bkv, causal, kv_valid, seqlen, scale, dtype, stream)
+    assert args[6:] == (len(sched.runs), 3, 256, D, bq, bq, 1, 250, 0, 0.125,
+                        0 if dtype == torch.float32 else 1, 0)
+
+
 def test_plain_versions_count_no_launch():
     LAUNCHES.reset()
     rng = np.random.default_rng(0)
@@ -330,3 +373,45 @@ def test_flash_kernels_match_plain_versions_on_cuda():
         for b in range(B):
             rows[b, : -(-int(n_new[b]) // ps) * ps] = True
         torch.testing.assert_close(got[rows].float(), want[rows].float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,D,table,bkv,mask", [
+    (2048, 64, "causal", 128, None),  # the model's full-sequence shape
+    (2048, 128, "full", 128, "kv_seqlen"),
+    (384, 64, "full", 64, "kv_valid"),
+    (384, 128, "causal", 128, "kv_valid"),
+    (128, 64, "causal", 128, "kv_seqlen"),
+    (128, 128, "full", 64, None),
+    (384, 64, "odd", 64, "kv_seqlen"),  # runs of 1, 3, 5 kv tiles: a last stage of 64 rows
+])
+def test_bf16_flash_attention_wgmma_matches_plain(S, D, table, bkv, mask):
+    """Row 20's tensor-core core (TMA + wgmma, P rounded to bf16 for P·V)
+    against ``_attention_plain`` (f32 throughout, output rounded to bf16)
+    on the same CUDA inputs, at the file's bf16 tolerance; only the
+    tensor-core core launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(S + D + bkv)
+    BH, bq = 6, 128
+    q, k, v = (_t(a, torch.bfloat16).to(dev) for a in _qkv(rng, (BH, S, D)))
+    if table == "odd":
+        t = tatt.causal_schedule(S // bq, lambda i: 2 * i + 1)
+        sched = tatt.PageSchedule(torch.as_tensor(t, device=dev),
+                                  torch.as_tensor(tatt.schedule_runs(t, 2, 3), device=dev))
+    else:
+        sched = tatt.attention_schedule_device(S // bq, S // bkv, causal=table == "causal", device=dev)
+    seqlen = None
+    if mask == "kv_seqlen":
+        seqlen = torch.as_tensor(rng.integers(1, S + 1, size=BH).astype(np.int32), device=dev)
+    prog = tatt.flash_attention_program(sched, q, causal=table != "full", sm_scale=D ** -0.5, bq=bq,
+                                        bkv=bkv, kv_valid=S - 37 if mask == "kv_valid" else None)
+    assert tatt.flash_core(q.dtype, D, bq, bkv) == "wgmma"
+    LAUNCHES.reset()
+    got = prog.launcher(prog, q, k, v, seqlen)
+    want = prog.plain(prog, q, k, v, seqlen)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+    cores = LAUNCHES.cores()
+    assert cores["sfc_flash_attention.wgmma"] == 1 and cores["sfc_flash_attention.simt"] == 0
