@@ -58,18 +58,22 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    (``sfc_matmul`` in f32 and, on its tensor-core core, in bf16).
    The phased kernels are timed per entry point: the launches of one
    phase over all k-blocks of one call (``sfc_chol_diag`` also against
-   one ``linalg.cholesky`` call per diagonal tile); ``sfc_matmul3d`` in
-   bf16 with bf16 and f32 outputs.
+   one ``linalg.cholesky`` call per diagonal tile); ``sfc_chol_panel`` is
+   first held on its own against ``_solve_tiles`` on the panels of k = 0
+   and k = 32 of the 8192 call, as the fused program leaves them;
+   ``sfc_matmul3d`` in bf16 with bf16 and f32 outputs.
 6. Run the main path's calls once more, warm, under ``torch.profiler``:
    wall time, kernel (device) time and the device's busy share per call,
    and one warm tick of each streaming service.
 7. LM serving (``serving_path``), TinyLlama-1.1B at full width with
    seeded random weights: (a) the three flash kernels against their plain
-   versions at the serving shapes, f32 and bf16; (b) with the launch
+   versions at the serving shapes, f32 and bf16 (the bf16 prefill on
+   its tensor-core core, the f32 one on SIMT); (b) with the launch
    counts reset, the bf16 ``ServeEngine`` (paged, flash, compiled
    prefill, prefix sharing, Hilbert page layout; 8 slots, max_len 2048)
    serves 32 requests (prompts of 64-1024 tokens, every other one behind
-   a shared 256-token prefix, 32-128 new tokens), and, counted apart,
+   a shared 256-token prefix, 32-128 new tokens), every one of its
+   ``sfc_flash_prefill`` launches on the tensor-core core, and, counted apart,
    ``forward`` of 2 x 2048 tokens with ``use_hilbert_kernels``, whose
    22 ``sfc_flash_attention`` launches must all be on the tensor-core
    core; prints
@@ -78,7 +82,8 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    weights, each served token equal to the dense forward's argmax outside
    the top-2 margin band, the flash decode step allclose to the page
    gather; (d) each flash kernel's time, bound, plain version and a
-   PyTorch SDPA call (``sfc_flash_attention`` in bf16 and f32).
+   PyTorch SDPA call (``sfc_flash_attention`` and ``sfc_flash_prefill``
+   in bf16 and f32).
 8. The curve-range-sharded apps (``sharded_path``), SHARDS = 4 shards on
    the one card (the code path of a mesh, not multi-GPU scaling): with the
    launch counts reset, ``ops.kmeans_lloyd(mesh=)`` on phase 3's SIFT1M
@@ -435,6 +440,10 @@ def max_diff(a, b) -> float:
 # kernel vs plain Cholesky on the card: the factor's entries are O(1) and
 # both sides sum up to n f32 terms, in other orders
 CHOL_RTOL, CHOL_ATOL = 1e-4, 1e-5
+# sfc_chol_panel vs _solve_tiles on the same tiles, relative and as a
+# share of the panel's max |X|: one rounded FMA a step against a matmul a
+# step (a float64-product emulation of the kernel's order: within 7e-7)
+PANEL_TOL = 1e-5
 
 
 def compare_phased(rng, device) -> None:
@@ -1065,7 +1074,7 @@ def main_path(rng, device, seed: int) -> dict:
             f"StreamSimJoin max_residents={maxr}", lambda: drive_stream_join(xs_j, q_pool, maxr, device))
     launches = {k: n for k, n in LAUNCHES.counts().items()
                 if k not in SERVING_KERNELS + SHARDED_KERNELS}
-    cores = {k: n for k, n in LAUNCHES.cores().items() if not k.startswith("sfc_flash_attention")}
+    cores = {k: n for k, n in LAUNCHES.cores().items() if k.split(".")[0] not in SERVING_KERNELS}
     log("main path wall ms: " + json.dumps({k: round(v, 3) for k, v in wall.items()}))
     log("main path launches: " + json.dumps(launches))
     log("main path cores: " + json.dumps(cores))
@@ -1583,9 +1592,10 @@ def flash_programs(device, dec, pre, att):
 
 def compare_attention(rng, device) -> dict:
     """Each flash kernel against its plain version on the card at the
-    serving shapes, in f32 and bf16; returns the largest errors."""
+    serving shapes, in f32 and bf16 (the bf16 prefill on its tensor-core
+    core, the f32 one on SIMT); returns the largest errors."""
     import torch
-    from repro_torch.kernels import launch
+    from repro_torch.kernels import LAUNCHES, launch
 
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -1596,7 +1606,12 @@ def compare_attention(rng, device) -> dict:
         got, want = launch(p_dec, *dec), p_dec.plain(p_dec, *dec)
         torch.cuda.synchronize()
         errs[("sfc_flash_decode", dtype)] = attn_err(got, want, tol, f"sfc_flash_decode {dtype}")
-        got, want = launch(p_pre, *pre[:5]), p_pre.plain(p_pre, *pre[:5])
+        before = LAUNCHES.cores()
+        got = launch(p_pre, *pre[:5])
+        core = "wgmma" if dtype == torch.bfloat16 else "simt"
+        check(LAUNCHES.cores()[f"sfc_flash_prefill.{core}"] == before[f"sfc_flash_prefill.{core}"] + 1,
+              f"sfc_flash_prefill {dtype}: not launched on its {core} core")
+        want = p_pre.plain(p_pre, *pre[:5])
         torch.cuda.synchronize()
         rows = prefill_covered(pre[5], pre[2].shape[1], SERVE_PAGE, device)
         errs[("sfc_flash_prefill", dtype)] = attn_err(got[rows], want[rows], tol, f"sfc_flash_prefill {dtype}")
@@ -1770,13 +1785,19 @@ def serving_path(rng, device, seed: int) -> list:
     LAUNCHES.reset()
     reqs, metrics = drive_engine(serve_engine(cfg, params), requests)
     serve_launches = LAUNCHES.counts()
+    serve_cores = LAUNCHES.cores()
     for r in reqs:
         check(len(r.out) == r.max_new and all(0 <= t < cfg.vocab_size for t in r.out), f"rid {r.rid}: output")
     check(metrics["pages_shared"] > 0, "prefix sharing never engaged")
     metrics["launches"] = {k: serve_launches[k] for k in SERVING_KERNELS}
+    metrics["prefill_cores"] = {k: serve_cores[k] for k in ("sfc_flash_prefill.wgmma", "sfc_flash_prefill.simt")}
     log("serving: " + json.dumps(metrics))
     for name in ("sfc_flash_decode", "sfc_flash_prefill"):
         check(serve_launches[name] > 0, f"{name} was not launched by the serving run")
+    # bf16 at Dk = Dv = 64, pages of 16, g = 8: every prefill on the tensor-core core
+    check(serve_cores["sfc_flash_prefill.wgmma"] == serve_launches["sfc_flash_prefill"]
+          and serve_cores["sfc_flash_prefill.simt"] == 0,
+          f"serving: sfc_flash_prefill cores {metrics['prefill_cores']}, expected every launch on wgmma")
     cfg_hk = dc.replace(cfg, use_hilbert_kernels=True)
     toks = rng.integers(0, cfg.vocab_size, size=(ATTN_ROW20[0], ATTN_ROW20[2])).astype(np.int32)
     LAUNCHES.reset()
@@ -1898,17 +1919,26 @@ def serving_path(rng, device, seed: int) -> list:
     pref_bytes = 2 * (2 * int(need.sum()) * hkv * g * d + 2 * kv_rows * hkv * d) + 4 * (pages_read + 2 * B)
     pmask = (torch.arange(MP * ps, device=device)[None, None] <= positions[:, :, None])[:, None]
 
-    def sdpa_prefill():
+    def sdpa_prefill(q2=q2, kp2=kp2, vp2=vp2):
         kk = kp2[pt2.long()].reshape(B, MP * ps, hkv, d).transpose(1, 2)
         vv = vp2[pt2.long()].reshape(B, MP * ps, hkv, d).transpose(1, 2)
         qq = q2.reshape(B, T, hkv * g, d).transpose(1, 2)
         return F.scaled_dot_product_attention(qq, kk, vv, attn_mask=pmask, enable_gqa=True)
 
+    # f32 on the SIMT core: the same cohort, bound by the FP32 pipes
+    pre32 = (pt2, pos0, q2.float(), kp2.float(), vp2.float())
+    pf_bound, pf_by = bound_ms(pref_ops, FP32_PEAK, 2 * pref_bytes)
+    pf32 = {"core": "simt", "ms": cuda_ms(lambda: launch(p_pre, *pre32), 10),
+            "plain_ms": cuda_ms(lambda: p_pre.plain(p_pre, *pre32), 1, warmup=0),
+            "library_ms": cuda_ms(lambda: sdpa_prefill(*pre32[2:]), 10),
+            "bound_ms": pf_bound, "bound_by": pf_by,
+            "max_abs_err": errs[("sfc_flash_prefill", torch.float32)]}
+    del pre32
     row("sfc_flash_prefill", lambda: launch(p_pre, *pre[:5]), lambda: p_pre.plain(p_pre, *pre[:5]), sdpa_prefill,
         pref_ops, pref_bytes, errs[("sfc_flash_prefill", torch.bfloat16)],
         {"shape": {"B": B, "Tq": T, "n_new": [int(n) for n in n_new], "pos0": pos0.tolist(), "Hkv": hkv,
                    "g": g, "D": d, "page_size": ps},
-         "ctas": int(p_pre.grid[0] * p_pre.grid[1]), "rows_per_cta": ps * g})
+         "ctas": int(p_pre.grid[0] * p_pre.grid[1]), "rows_per_cta": ps * g, "core": "wgmma", "f32": pf32})
 
     qa, ka, va, _seqlen = att
     BH, S, d = qa.shape
@@ -2291,6 +2321,27 @@ def time_phased(entry, device, fw_d, fw_dr, ch_a, ch_ar, ch) -> None:
           f"fused cholesky {n} vs plain: max err {ch_err}")
     check(torch.equal(got, ch), f"fused cholesky {n}: program != ops.cholesky")
     del got, want
+    # sfc_chol_panel on its own, on the main path's panels: the matrix as
+    # the fused program leaves it just before the panel launches of k = 0
+    # and k = nt / 2, then that launch against _solve_tiles on the same tiles
+    groups_all = prog.params["groups"]
+    panel_err = panel_rel = 0.0
+    for kc in (0, nt // 2):
+        at = next(i for i, g in enumerate(groups_all) if g[:2] == (1, kc))
+        state = ch_a.clone()
+        launch(dataclasses.replace(prog, params={**prog.params, "groups": groups_all[:at]}), state)
+        one = dataclasses.replace(prog, params={**prog.params, "groups": groups_all[at:at + 1]})
+        got, want = launch(one, state.clone()), one.plain(one, state.clone())
+        sl = (slice((kc + 1) * b, None), slice(kc * b, (kc + 1) * b))
+        err, scale = float((got[sl] - want[sl]).abs().max()), float(want[sl].abs().max())
+        check(bool(torch.allclose(got[sl], want[sl], rtol=PANEL_TOL, atol=PANEL_TOL * scale)),
+              f"sfc_chol_panel k={kc} of cholesky {n}: max err {err} at max |X| {scale}")
+        check(torch.equal(got[:, (kc + 1) * b:], state[:, (kc + 1) * b:]),
+              f"sfc_chol_panel k={kc}: a tile right of the panel changed")
+        panel_err, panel_rel = max(panel_err, err), max(panel_rel, err / scale)
+        del state, got, want
+    log(f"check sfc_chol_panel on the panels of k = 0 and {nt // 2} of cholesky {n}: vs _solve_tiles "
+        f"max_abs_err {panel_err:.3e}, {panel_rel:.3e} of max |X| (tol {PANEL_TOL})")
     av, lv = ch_a.view(nt, b, nt, b), ch.view(nt, b, nt, b)
     ar = torch.arange(nt, device=device)
     diag_tiles = av[ar, :, ar, :].contiguous()
@@ -2321,13 +2372,16 @@ def time_phased(entry, device, fw_d, fw_dr, ch_a, ch_ar, ch) -> None:
             nbytes = sum(2 * (hi - lo) + (nt - k - 1) for _p, k, lo, hi in groups) * tile_bytes
         else:
             nbytes = sum(2 * (hi - lo) + phase for _p, _k, lo, hi in groups) * tile_bytes
-        extra = None
+        extra, err = None, ch_err
+        if phase == 1:  # the panel's own check, above; CTAs of 32 rows, b / 32 a tile
+            err = panel_err
+            extra = {"max_rel_err": panel_rel, "ctas": int(ctas) * (b // 32), "tiles": int(ctas)}
         if phase == 0:  # beside the batched call: one library call per tile
             extra = {"bound_one_sm_ms": 1e3 * ops_ / per_sm,
                      "library_single_tiles_ms": cuda_ms(lambda: [torch.linalg.cholesky(t) for t in diag_tiles], 3),
                      "tiles": int(ctas)}
         entry(name, lambda: launch(sub, work), lambda: sub.plain(sub, work), libraries[phase], ops_,
-              FP32_PEAK, nbytes, 3, ch_err, extra)
+              FP32_PEAK, nbytes, 3, err, extra)
     del work, diag_tiles, l_kk, a_ik
 
     # sfc_tile_update on the full tile grid, against torch.addmm

@@ -62,10 +62,11 @@ SIGNATURES = {
     "sfc_chol_panel": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "sfc_chol_trailing": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # flash kernels: (q, k, v, out, table, runs, runs, heads, ...shape, scale,
-    # dtype, stream)
+    # dtype, [prefill: 1 for the tensor-core core, 0 for SIMT,] stream)
     "sfc_flash_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _F, _I, _P),
     "sfc_flash_decode": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
-    "sfc_flash_prefill": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    "sfc_flash_prefill": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                          _I, _I, _P),
 }
 
 
@@ -76,6 +77,7 @@ CORES = {
     "sfc_matmul": ("wgmma", "simt"),
     "sfc_matmul3d": ("wgmma", "simt"),
     "sfc_flash_attention": ("wgmma", "simt"),
+    "sfc_flash_prefill": ("wgmma", "simt"),
 }
 
 

@@ -36,11 +36,13 @@ multiple of 4) and at most 256 query rows per CTA (``bq`` for
 ``sfc_flash_attention``, ``g`` for decode, ``page_size * g`` for prefill).
 The plain versions take any shape.
 
-``sfc_flash_attention`` has two cores, picked by dtype and shape
-(:func:`flash_core`): bf16 at D = 64 or 128, bq = 128 and bkv a multiple
-of 64 runs on the tensor cores (TMA + ``wgmma``, P rounded to bf16 for
-P·V); f32, and every other shape, runs the SIMT f32 core that decode and
-prefill share.
+``sfc_flash_attention`` and ``sfc_flash_prefill`` have two cores each,
+picked by dtype and shape (:func:`flash_core`, :func:`prefill_core`):
+bf16 runs on the tensor cores (TMA + ``wgmma``, P rounded to bf16 for
+P·V) at D = 64 or 128 with 128 query rows a CTA (bq = 128 and bkv a
+multiple of 64; for prefill Dk = Dv, page_size · g = 128 and whole pages
+of 8 to 64 rows a 64-row half); f32, and every other shape, runs the SIMT
+f32 core that decode shares.
 """
 from __future__ import annotations
 
@@ -67,6 +69,10 @@ MAX_ROWS = 256
 WGMMA_HEAD_DIMS = (64, 128)
 WGMMA_BQ = 128
 WGMMA_BKV_STEP = 64
+# sfc_flash_prefill's tensor-core core (csrc/attention.cu refuses it
+# beyond prefill_tensor_core_shape): whole pages of at least 8 rows a
+# 64-row half
+WGMMA_PAGE_MIN = 8
 
 __all__ = [
     "DEFAULT_MASK_VALUE",
@@ -79,6 +85,7 @@ __all__ = [
     "flash_attention_prefill",
     "flash_attention_swizzled",
     "full_schedule",
+    "prefill_core",
     "prefill_page_schedule",
     "prefill_page_schedule_device",
     "schedule_runs",
@@ -362,6 +369,12 @@ def flash_core(dtype: torch.dtype, D: int, bq: int, bkv: int) -> str:
     return "simt"
 
 
+def _tma_aligned(*tensors):
+    """The tensors with 16-byte aligned bases (TMA reads from them): a
+    misaligned one is copied."""
+    return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in tensors)
+
+
 def _attention_cuda(program: GpuProgram, q, k, v, seqlen=None):
     p = program.params
     BH, S, D = q.shape
@@ -374,8 +387,8 @@ def _attention_cuda(program: GpuProgram, q, k, v, seqlen=None):
         require(program, seqlen, "kv_seqlen", dtypes=(torch.int32,), shape=(BH,))
     _check_kernel_shape(program, D, D, p["bq"])
     core = flash_core(q.dtype, D, p["bq"], p["bkv"])
-    if core == "wgmma":  # TMA reads from 16-byte aligned bases
-        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
+    if core == "wgmma":
+        q, k, v = _tma_aligned(q, k, v)
     o = torch.empty_like(q)
     call(
         "sfc_flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -593,6 +606,21 @@ def flash_attention_decode(
 # row 22: batched causal prefill against a paged KV pool
 # ---------------------------------------------------------------------------
 
+def prefill_core(dtype: torch.dtype, dk: int, dv: int, ps: int, g: int) -> str:
+    """The core of ``sfc_flash_prefill`` that runs a launch: ``"wgmma"``
+    for bf16 with Dk = Dv in :data:`WGMMA_HEAD_DIMS`, a CTA's ``ps * g``
+    rows equal to :data:`WGMMA_BQ` and whole pages of at least
+    :data:`WGMMA_PAGE_MIN` rows in a 64-row half (each page's TMA box
+    starts a 128-byte swizzle atom); ``"simt"`` for f32 and every other
+    shape (stablelm's g = 1, for one).  The wrapper passes it to the C
+    entry, which launches that core or refuses the call (a wgmma call
+    outside ``csrc/attention.cu``'s ``prefill_tensor_core_shape``)."""
+    if (dtype == torch.bfloat16 and dk == dv and dk in WGMMA_HEAD_DIMS and ps * g == WGMMA_BQ
+            and ps >= WGMMA_PAGE_MIN and WGMMA_BKV_STEP % ps == 0):
+        return "wgmma"
+    return "simt"
+
+
 def _prefill_cuda(program: GpuProgram, page_table, pos0, q, k_pages, v_pages):
     p = program.params
     B, Tq, Hkv, g, Dk = q.shape
@@ -607,14 +635,17 @@ def _prefill_cuda(program: GpuProgram, page_table, pos0, q, k_pages, v_pages):
     require(program, program.schedule, "schedule", dtypes=(torch.int32,))
     require(program, p["runs"], "runs", dtypes=(torch.int32,))
     _check_kernel_shape(program, Dk, Dv, ps * g)
+    core = prefill_core(q.dtype, Dk, Dv, ps, g)
+    if core == "wgmma":
+        q, k_pages, v_pages = _tma_aligned(q, k_pages, v_pages)
     # rows that no run covers stay unwritten, as on the TPU
     o = torch.empty((B, Tq, Hkv, g, Dv), dtype=q.dtype, device=q.device)
     if program.grid[0]:
         call(
             "sfc_flash_prefill", q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), o.data_ptr(),
             program.schedule.data_ptr(), p["runs"].data_ptr(), *program.grid,
-            page_table.data_ptr(), pos0.data_ptr(), Tq, g, Dk, Dv, ps, MP, p["sm_scale"],
-            _DTYPE_CODE[q.dtype], stream_of(q),
+            page_table.data_ptr(), pos0.data_ptr(), Tq, g, Dk, Dv, ps, MP, B, P, p["sm_scale"],
+            _DTYPE_CODE[q.dtype], int(core == "wgmma"), stream_of(q), core=core,
         )
     return o
 

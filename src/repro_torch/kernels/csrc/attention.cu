@@ -32,7 +32,7 @@
 // query rows (2 flops per byte in bf16 at g = 8); prefill and the
 // full-sequence kernel do 2 * rows flops per K/V element read, well under
 // the ridge of the bf16 tensor cores.  The SIMT f32 core (flash_rows) runs
-// decode, prefill and every f32 or odd-shaped sfc_flash_attention: a CTA
+// decode and every f32 or odd-shaped prefill and sfc_flash_attention: a CTA
 // of 8 warps stages 64 kv rows of K and V at a time in shared memory as
 // f32 (the page-table or tile-table lookup done once per row by one
 // thread), each warp owns RW query rows held in shared memory, a lane
@@ -67,6 +67,28 @@
 // tensor cores wait for: 0.216 ms at that shape on the same card, then
 // 0.183-0.197 with a stage that masks nothing skipping the mask
 // arithmetic and a 3-stage ring at D = 64 (SDPA 0.148-0.159 in the same
+// runs; chip_smoke.py).
+//
+// sfc_flash_prefill in bf16 with Dk = Dv = 64 or 128, ps * g = 128 query
+// rows a CTA and pages of 8 to 64 rows runs the same consumer on a paged
+// producer (prefill_wgmma_kernel; kernels/attention.py::prefill_core
+// picks the core and the entry launches it or refuses the call).  At the serving cohort (8 lanes, Tq 1024, 1,056 CTAs of
+// 128 rows, TinyLlama's Hkv 4, g 8, D 64, pages of 16) the work is 0.0415
+// ms of bf16 tensor-core operations; on the SIMT core it took 6.44 ms
+// (H100 80GB HBM3, 700.00 W; page gather + SDPA 0.73).  Its bound is row
+// 20's: the softmax on the SMs.  What the page table changes is the
+// producer: a CTA's 128 rows (ps tokens x the g heads of one kv head, in
+// PrefillWalk::row order) are one 4-D TMA box of Q {Dk, g, Hkv, B Tq};
+// K and V come a page at a time, a 3-D box {D, Hkv, P ps} of ps rows of
+// one kv head, each on its own 1024-byte swizzle atom (hence ps >= 8),
+// 128 / ps pages a stage, looked up and issued by one lane each of the
+// producer warp.  Positions are not contiguous across pages, so the
+// producer publishes per stage each 8-column block's first position in
+// shared memory, which a masked stage reads; the slots of a stage past
+// the run's end re-read its last page and score -inf, and a stage whose
+// pages are all live and at or before the CTA's first query position
+// masks nothing (at D = 64, row 20's fast path).  0.226-0.261 ms at that
+// shape, 2.9-3.6x faster than page gather + SDPA (0.75-0.84 in the same
 // runs; chip_smoke.py).
 #include <climits>
 #include <cmath>
@@ -208,10 +230,16 @@ struct PrefillWalk {
   __device__ size_t q_off(int r) const { return row(r) * dk; }
   __device__ size_t o_off(int r) const { return row(r) * dv; }
   __device__ int qlim(int r) const { return p0 + qt * ps + r / g; }
+  // page t of the run: its logical page lp and its physical page
+  __device__ void page(int t, int& lp, int& phys) const {
+    lp = sched[6 * (start + t) + 2];
+    phys = table[(size_t)slot * mp + lp];
+  }
   __device__ void kv(int f, size_t& ko, size_t& vo, int& pos) const {
     const int t = f / ps, off = f - t * ps;
-    const int lp = sched[6 * (start + t) + 2];
-    const size_t r = ((size_t)table[(size_t)slot * mp + lp] * ps + off) * hkv + h;
+    int lp, phys;
+    page(t, lp, phys);
+    const size_t r = ((size_t)phys * ps + off) * hkv + h;
     pos = lp * ps + off;
     ko = r * dk;
     vo = r * dv;
@@ -464,7 +492,8 @@ int prefill_t(const void* q, const void* kp, const void* vp, void* o, const void
 }
 
 // ---------------------------------------------------------------------------
-// sfc_flash_attention in bf16 on the tensor cores: TMA + wgmma
+// sfc_flash_attention and sfc_flash_prefill in bf16 on the tensor cores:
+// TMA + wgmma
 // ---------------------------------------------------------------------------
 
 namespace tc {
@@ -472,21 +501,58 @@ namespace tc {
 using namespace sfc;
 
 constexpr int BQ = 128;                  // query rows of a CTA: two consumer warpgroups of 64
-constexpr int STAGE_KV = 128;            // kv rows of a ring stage: two 64-row halves
+constexpr int STAGE_KV = 128;            // kv rows of a ring stage
+constexpr int BLOCKS = STAGE_KV / 8;     // 8-column blocks of a stage's scores
 constexpr int THREADS = 384;             // two consumer warpgroups + the producer warpgroup
 constexpr int CHUNK = 128 * 64 * 2;      // 128 rows of 64 bf16 columns (one 128-byte swizzle row each)
+constexpr unsigned FULL = 0xffffffffu;
 constexpr float LOG2E = 1.4426950408889634f;
 
 // Shared memory at head width D: Q, then STAGES x (K, V), each as D / 64
-// column chunks of 128 rows; the barriers after the ring.  The ring is 3
-// stages deep at D = 64 (112 KB), 2 at D = 128 (160 KB).
+// column chunks of 128 rows; the barriers after the ring, then (prefill)
+// the producer's per-stage page facts.  The ring is 3 stages deep at D =
+// 64 (112 KB), 2 at D = 128 (160 KB).
 template <int D>
 struct Layout {
   static constexpr int STAGES = D == 64 ? 3 : 2;
   static constexpr int CHUNKS = D / 64;
   static constexpr int TILE_BYTES = CHUNKS * CHUNK;  // Q, or K or V of one stage
   static constexpr int STAGE_BYTES = 2 * TILE_BYTES;
-  static constexpr int SMEM = TILE_BYTES + STAGES * STAGE_BYTES + (2 * STAGES + 1) * 8 + 1024;
+  static constexpr int BARRIER_BYTES = (2 * STAGES + 2) * 8;  // full, empty, Q's; 16-byte multiple
+  static constexpr int FACTS = STAGES * (BLOCKS + 1);         // ints: block positions, stage maxima
+  static constexpr int SMEM = TILE_BYTES + STAGES * STAGE_BYTES + BARRIER_BYTES + 1024;
+  static constexpr int PREFILL_SMEM = SMEM + FACTS * 4;
+};
+
+// the ring of a CTA: Q's tile, the stages, their barriers (every thread
+// calls this; it ends in a CTA barrier)
+template <int D>
+struct Smem {
+  uint8_t* qs;
+  uint8_t* ring;
+  uint64_t* full;
+  uint64_t* empty;
+  uint64_t* qbar;
+  int* facts;  // 16-byte aligned, after the barriers
+
+  __device__ explicit Smem(uint8_t* raw) {
+    using L = Layout<D>;
+    qs = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(raw) + 1023) & ~(uintptr_t)1023);
+    ring = qs + L::TILE_BYTES;
+    full = reinterpret_cast<uint64_t*>(ring + L::STAGES * L::STAGE_BYTES);
+    empty = full + L::STAGES;
+    qbar = empty + L::STAGES;
+    facts = reinterpret_cast<int*>(full + 2 * L::STAGES + 2);
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < L::STAGES; ++s) {
+        wg::mbar_init(&full[s], 1);
+        wg::mbar_init(&empty[s], 2);
+      }
+      wg::mbar_init(qbar, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+  }
 };
 
 __device__ __forceinline__ float ex2(float x) {
@@ -500,107 +566,37 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// One CTA per (run, bh): 128 query rows of q tile qt, the run's kv tiles
-// in table order, 128 kv rows a stage.  Warpgroup 2's first thread loads
-// Q once and K, V stages into the ring; warpgroups 0 and 1 own query rows
-// 64 g .. 64 g + 63: S = Q K^T (m64n128k16, both from shared memory, K
-// K-major), masks and the online softmax on the accumulator fragments (a
-// row lives in one quad of lanes), P packed to bf16 in registers as the
-// A fragments of O += P V (m64nDk16, V MN-major).  Scores are kept in
-// log2 units (scale * log2 e after the product) for ex2; a stage's
-// missing second half (nkv % 128 == 64) re-reads the first and scores
-// -inf.
-template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
-flash_wgmma_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
-                   const __grid_constant__ CUtensorMap mv, __nv_bfloat16* __restrict__ o,
-                   const int* __restrict__ sched, const int* __restrict__ runs, int S, int bkv,
-                   int causal, int kv_valid, const int* __restrict__ seqlen, float scale_log2) {
+// A consumer warpgroup (wgi = 0 or 1) of both tensor-core kernels: query
+// rows 64 wgi .. 64 wgi + 63 of the CTA's 128 in Q's tile, n stages of the
+// ring.  Per stage: S = Q K^T (m64n128k16, both from shared memory, K
+// K-major), the walk's masks, the online softmax on the accumulator
+// fragments (a row lives in one quad of lanes), and O += P V with P packed
+// to bf16 in registers as the A fragments (m64nDk16, V MN-major).  Scores
+// are kept in log2 units (scale * log2 e after the product) for ex2.
+// Masks: load(i, s) once stage i (ring slot s) has landed; plain(): the
+// stage masks nothing (at D = 64 its scores then stay unscaled until the
+// exponent, scale > 0 keeping the maxima: one branch for the CTA; at D =
+// 128 the second copy of the loop would spill); mask(j, v): register j's
+// scaled score v, MASK where the position is masked, -inf where the
+// column does not exist.  The thread's rows r0 and r0 + 8 end in o0, o1.
+template <int D, typename Masks>
+__device__ __forceinline__ void consume(Masks& mk, const Smem<D>& sm, int wgi, int n, float scale_log2,
+                                        __nv_bfloat16* o0, __nv_bfloat16* o1) {
   using L = Layout<D>;
-  constexpr int STAGES = L::STAGES;
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  uint8_t* qs = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
-  uint8_t* ring = qs + L::TILE_BYTES;
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * L::STAGE_BYTES);
-  uint64_t* empty = full + STAGES;
-  uint64_t* qbar = empty + STAGES;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      wg::mbar_init(&full[s], 1);
-      wg::mbar_init(&empty[s], 2);
-    }
-    wg::mbar_init(qbar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-
-  // the CTA's query rows, kv rows and limits: flash_rows' walk
-  const DenseWalk w(sched, runs, S, D, BQ, bkv, causal, kv_valid, seqlen);
-  const int nkv = w.nkv;
-  const int n = (nkv + STAGE_KV - 1) / STAGE_KV;
-  const int row_base = w.bh * S;  // the (BH S, D) row of (bh, position 0)
-  const int g = threadIdx.x / 128;
-  size_t ko, vo;  // the walk's element offsets (unused: TMA takes rows)
-  int pos;
-
-  if (g == 2) {  // the producer warpgroup: one thread issues every load
-    if (threadIdx.x == 256) {
-      wg::mbar_expect_tx(qbar, L::TILE_BYTES);
-      for (int c = 0; c < L::CHUNKS; ++c)
-        wg::tma_load_2d(qs + c * CHUNK, &mq, qbar, c * 64, row_base + w.qt * BQ);
-      int s = 0;
-      uint32_t phase = 0;
-      for (int i = 0; i < n; ++i) {
-        wg::mbar_wait(&empty[s], phase ^ 1);
-        wg::mbar_expect_tx(&full[s], L::STAGE_BYTES);
-        uint8_t* ks = ring + s * L::STAGE_BYTES;
-        uint8_t* vs = ks + L::TILE_BYTES;
-        for (int h = 0; h < 2; ++h) {
-          int f = i * STAGE_KV + h * 64;
-          if (f >= nkv) f -= 64;
-          w.kv(f, ko, vo, pos);
-          const int row = row_base + pos;
-          for (int c = 0; c < L::CHUNKS; ++c) {
-            wg::tma_load_2d(ks + c * CHUNK + h * (CHUNK / 2), &mk, &full[s], c * 64, row);
-            wg::tma_load_2d(vs + c * CHUNK + h * (CHUNK / 2), &mv, &full[s], c * 64, row);
-          }
-        }
-        if (++s == STAGES) {
-          s = 0;
-          phase ^= 1;
-        }
-      }
-    }
-    return;
-  }
-
-  // this thread's two query rows (the accumulator layout of wg::acc_row)
   const int t = threadIdx.x & 127;
-  const int r0 = g * 64 + (t >> 5) * 16 + ((t & 31) >> 2);
-  const int lim0 = w.qlim(r0), lim1 = w.qlim(r0 + 8), klim = w.klim;
   const int cq = (t & 3) * 2;
-
   float acc[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-  const uint32_t qa = wg::smem_u32(qs) + g * 64 * 128;
-  wg::mbar_wait(qbar, 0);
+  const uint32_t qa = wg::smem_u32(sm.qs) + wgi * 64 * 128;
+  wg::mbar_wait(sm.qbar, 0);
   int s = 0;
   uint32_t phase = 0;
   for (int i = 0; i < n; ++i) {
-    int kb[2];
-    bool live[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int f = i * STAGE_KV + h * 64;
-      live[h] = f < nkv;
-      kb[h] = 0;
-      if (live[h]) w.kv(f, ko, vo, kb[h]);
-    }
-    wg::mbar_wait(&full[s], phase);
-    const uint32_t ka = wg::smem_u32(ring + s * L::STAGE_BYTES);
+    wg::mbar_wait(&sm.full[s], phase);
+    mk.load(i, s);
+    const uint32_t ka = wg::smem_u32(sm.ring + s * L::STAGE_BYTES);
     const uint32_t va = ka + L::TILE_BYTES;
 
     // S = Q K^T: chunk kk / 4 of Q and K, 32 bytes along the swizzled row a step
@@ -616,14 +612,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant
     wg::wgmma_wait<0>();
 
     // masks and row maxima: register j holds row r0 + 8 ((j >> 1) & 1),
-    // stage column 8 (j >> 2) + cq + (j & 1), half j >> 5.  At D = 64 a
-    // stage whose kv rows all exist, lie below klim and (causal) at or
-    // before the CTA's first query row masks nothing: its scores stay
-    // unscaled until the exponent (scale > 0 keeps the maxima), one branch
-    // for the CTA.  (At D = 128 the second copy of the loop would spill.)
-    const int kmax = max(kb[0], kb[1]) + 63;
-    const bool unmasked = D == 64 && live[1] && kmax < klim && kmax <= w.qlim(0) &&
-                          scale_log2 > 0.f;
+    // stage column 8 (j >> 2) + cq + (j & 1)
+    const bool unmasked = D == 64 && mk.plain() && scale_log2 > 0.f;
     float mx0 = -INFINITY, mx1 = -INFINITY;
     if (unmasked) {
 #pragma unroll
@@ -638,10 +628,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant
     } else {
 #pragma unroll
       for (int j = 0; j < 64; ++j) {
-        const int h = j >> 5;
-        const int kp = kb[h] + ((j >> 2) & 7) * 8 + cq + (j & 1);
-        float v = (kp <= ((j & 2) ? lim1 : lim0) && kp < klim) ? sc[j] * scale_log2 : MASK;
-        if (!live[h]) v = -INFINITY;
+        const float v = mk.mask(j, sc[j] * scale_log2);
         sc[j] = v;
         if (j & 2)
           mx1 = fmaxf(mx1, v);
@@ -649,10 +636,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant
           mx0 = fmaxf(mx0, v);
       }
     }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(FULL, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(FULL, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(FULL, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(FULL, mx1, 2));
     const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
     const float a0 = ex2(m0 - mn0), a1 = ex2(m1 - mn1);
     m0 = mn0;
@@ -693,19 +680,17 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant
     }
     wg::wgmma_commit();
     wg::wgmma_wait<0>();
-    if (t == 0) wg::mbar_arrive(&empty[s]);
-    if (++s == STAGES) {
+    if (t == 0) wg::mbar_arrive(&sm.empty[s]);
+    if (++s == L::STAGES) {
       s = 0;
       phase ^= 1;
     }
   }
 
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  __nv_bfloat16* o0 = o + w.o_off(r0);
-  __nv_bfloat16* o1 = o0 + 8 * D;
+  l0 += __shfl_xor_sync(FULL, l0, 1);
+  l0 += __shfl_xor_sync(FULL, l0, 2);
+  l1 += __shfl_xor_sync(FULL, l1, 1);
+  l1 += __shfl_xor_sync(FULL, l1, 2);
 #pragma unroll
   for (int j = 0; j < D / 2; j += 2) {
     const int c = (j >> 2) * 8 + cq;
@@ -714,6 +699,106 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant
     else
       *reinterpret_cast<__nv_bfloat162*>(o0 + c) = __floats2bfloat162_rn(acc[j] / l0, acc[j + 1] / l0);
   }
+}
+
+// this consumer thread's first row of the CTA's 128 (the accumulator
+// layout of wg::acc_row): r0 and r0 + 8
+__device__ __forceinline__ int consumer_row(int wgi) {
+  const int t = threadIdx.x & 127;
+  return wgi * 64 + (t >> 5) * 16 + ((t & 31) >> 2);
+}
+
+// row 20's masks: a stage is two 64-row halves, each a contiguous slice of
+// one table tile; a half past the run's end (nkv % 128 == 64) re-reads the
+// first and scores -inf
+struct DenseMasks {
+  const DenseWalk& w;
+  int lim0, lim1, cq;
+  int kb[2];
+  bool live[2];
+
+  __device__ void load(int i, int) {
+    size_t ko, vo;  // the walk's element offsets (unused: TMA takes rows)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int f = i * STAGE_KV + h * 64;
+      live[h] = f < w.nkv;
+      kb[h] = 0;
+      if (live[h]) w.kv(f, ko, vo, kb[h]);
+    }
+  }
+  // all kv rows exist, lie below klim and (causal) at or before the CTA's
+  // first query row
+  __device__ bool plain() const {
+    const int kmax = max(kb[0], kb[1]) + 63;
+    return live[1] && kmax < w.klim && kmax <= w.qlim(0);
+  }
+  __device__ float mask(int j, float v) const {
+    const int h = j >> 5;
+    const int kp = kb[h] + ((j >> 2) & 7) * 8 + cq + (j & 1);
+    const float r = (kp <= ((j & 2) ? lim1 : lim0) && kp < w.klim) ? v : MASK;
+    return live[h] ? r : -INFINITY;
+  }
+};
+
+// One CTA per (run, bh): 128 query rows of q tile qt, the run's kv tiles
+// in table order, 128 kv rows a stage.  Warpgroup 2's first thread loads
+// Q once and K, V stages (two 64-row boxes each) into the ring; warpgroups
+// 0 and 1 consume (see consume).
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                   const __grid_constant__ CUtensorMap mv, __nv_bfloat16* __restrict__ o,
+                   const int* __restrict__ sched, const int* __restrict__ runs, int S, int bkv,
+                   int causal, int kv_valid, const int* __restrict__ seqlen, float scale_log2) {
+  using L = Layout<D>;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const Smem<D> sm(smem_raw);
+
+  // the CTA's query rows, kv rows and limits: flash_rows' walk
+  const DenseWalk w(sched, runs, S, D, BQ, bkv, causal, kv_valid, seqlen);
+  const int nkv = w.nkv;
+  const int n = (nkv + STAGE_KV - 1) / STAGE_KV;
+  const int row_base = w.bh * S;  // the (BH S, D) row of (bh, position 0)
+  const int g = threadIdx.x / 128;
+
+  if (g == 2) {  // the producer warpgroup: one thread issues every load
+    if (threadIdx.x == 256) {
+      size_t ko, vo;
+      int pos;
+      wg::mbar_expect_tx(sm.qbar, L::TILE_BYTES);
+      for (int c = 0; c < L::CHUNKS; ++c)
+        wg::tma_load_2d(sm.qs + c * CHUNK, &mq, sm.qbar, c * 64, row_base + w.qt * BQ);
+      int s = 0;
+      uint32_t phase = 0;
+      for (int i = 0; i < n; ++i) {
+        wg::mbar_wait(&sm.empty[s], phase ^ 1);
+        wg::mbar_expect_tx(&sm.full[s], L::STAGE_BYTES);
+        uint8_t* ks = sm.ring + s * L::STAGE_BYTES;
+        uint8_t* vs = ks + L::TILE_BYTES;
+        for (int h = 0; h < 2; ++h) {
+          int f = i * STAGE_KV + h * 64;
+          if (f >= nkv) f -= 64;
+          w.kv(f, ko, vo, pos);
+          const int row = row_base + pos;
+          for (int c = 0; c < L::CHUNKS; ++c) {
+            wg::tma_load_2d(ks + c * CHUNK + h * (CHUNK / 2), &mk, &sm.full[s], c * 64, row);
+            wg::tma_load_2d(vs + c * CHUNK + h * (CHUNK / 2), &mv, &sm.full[s], c * 64, row);
+          }
+        }
+        if (++s == L::STAGES) {
+          s = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  const int r0 = consumer_row(g);
+  DenseMasks masks{w, w.qlim(r0), w.qlim(r0 + 8), (threadIdx.x & 3) * 2, {0, 0}, {false, false}};
+  __nv_bfloat16* o0 = o + w.o_off(r0);
+  consume<D>(masks, sm, g, n, scale_log2, o0, o0 + 8 * D);
 }
 
 template <int D>
@@ -741,12 +826,160 @@ int attention_wgmma(const void* q, const void* k, const void* v, void* o, const 
   return (int)cudaGetLastError();
 }
 
+// row 22's masks: a stage is 128 / ps whole pages, each page's kv
+// positions lp ps .. lp ps + ps - 1 of its own logical page.  The producer
+// publishes per stage the position of each 8-column block's first column
+// (-1 for the slots of pages past the run's end, which re-read a live page
+// and score -inf) and the stage's largest position when all its pages are
+// live (else INT_MAX); the positions are read from shared memory where a
+// block is masked, not held in registers.
+struct PrefillMasks {
+  const int* facts;  // [STAGES][BLOCKS] block positions, then [STAGES] stage maxima
+  int stages, lim0, lim1, first, cq;
+  const int* bpos;
+  int top;
+
+  __device__ void load(int, int s) {
+    bpos = facts + s * BLOCKS;
+    top = facts[stages * BLOCKS + s];
+  }
+  // every page live and at or before the CTA's first query row's position
+  __device__ bool plain() const { return top <= first; }
+  __device__ float mask(int j, float v) const {
+    const int kb = bpos[j >> 2];
+    const int kp = kb + cq + (j & 1);
+    const float r = kp <= ((j & 2) ? lim1 : lim0) ? v : MASK;
+    return kb >= 0 ? r : -INFINITY;
+  }
+};
+
+// One CTA per (run, kv head h): the 128 rows of PrefillWalk (tokens qt ps
+// .. qt ps + ps - 1 x the g query heads of h, row r = token g + head) in
+// one 4-D box of Q, the run's pages in table order, 128 / ps pages a
+// stage.  Warp 8 produces: lane 0 loads Q, and per stage lane i < 128 / ps
+// looks up page i (PrefillWalk::page), publishes the stage's block
+// positions and issues the page's K and V boxes (ps rows of one kv head,
+// 128-byte rows, at row i ps of the stage); a slot past the run's end
+// re-reads the run's last page.  Warpgroups 0 and 1 consume (see consume).
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+prefill_wgmma_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                     const __grid_constant__ CUtensorMap mv, __nv_bfloat16* __restrict__ o,
+                     const int* __restrict__ sched, const int* __restrict__ runs,
+                     const int* __restrict__ table, const int* __restrict__ pos0, int tq, int g,
+                     int ps, int mp, float scale_log2) {
+  using L = Layout<D>;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const Smem<D> sm(smem_raw);
+
+  const PrefillWalk w(sched, runs, table, pos0, tq, g, D, D, ps, mp);
+  const int pages = w.nkv / ps;
+  const int per_stage = STAGE_KV / ps;
+  const int n = (pages + per_stage - 1) / per_stage;
+  const int wgi = threadIdx.x / 128;
+
+  if (wgi == 2) {
+    if (threadIdx.x >= 256 + 32) return;
+    const int lane = threadIdx.x & 31;
+    if (lane == 0) {
+      wg::mbar_expect_tx(sm.qbar, L::TILE_BYTES);
+      for (int c = 0; c < L::CHUNKS; ++c)
+        wg::tma_load_4d(sm.qs + c * CHUNK, &mq, sm.qbar, c * 64, 0, w.h, w.slot * tq + w.qt * ps);
+    }
+    int* bpos = sm.facts;
+    int* tops = sm.facts + L::STAGES * BLOCKS;
+    int s = 0;
+    uint32_t phase = 0;
+    for (int i = 0; i < n; ++i) {
+      const int t = i * per_stage + lane;
+      const bool mine = lane < per_stage;
+      const int live = mine && t < pages;
+      int lp = 0, phys = 0;
+      if (mine) w.page(min(t, pages - 1), lp, phys);
+      const bool all_live = __all_sync(FULL, live || !mine);
+      int top = live ? lp * ps + ps - 1 : -1;
+#pragma unroll
+      for (int d = 16; d; d >>= 1) top = max(top, __shfl_xor_sync(FULL, top, d));
+      // lane b < BLOCKS describes columns 8 b .. 8 b + 7, in page 8 b / ps
+      const int pb = (8 * lane) / ps;
+      const int blp = __shfl_sync(FULL, lp, pb & 31);
+      const int blive = __shfl_sync(FULL, live, pb & 31);
+      wg::mbar_wait(&sm.empty[s], phase ^ 1);
+      if (lane < BLOCKS) bpos[s * BLOCKS + lane] = blive ? blp * ps + (8 * lane) % ps : -1;
+      if (lane == 0) tops[s] = all_live ? top : INT_MAX;
+      __threadfence_block();
+      __syncwarp();
+      if (lane == 0) wg::mbar_expect_tx(&sm.full[s], L::STAGE_BYTES);
+      __syncwarp();
+      if (mine) {
+        uint8_t* ks = sm.ring + s * L::STAGE_BYTES + lane * ps * 128;
+        uint8_t* vs = ks + L::TILE_BYTES;
+        for (int c = 0; c < L::CHUNKS; ++c) {
+          wg::tma_load_3d(ks + c * CHUNK, &mk, &sm.full[s], c * 64, w.h, phys * ps);
+          wg::tma_load_3d(vs + c * CHUNK, &mv, &sm.full[s], c * 64, w.h, phys * ps);
+        }
+      }
+      if (++s == L::STAGES) {
+        s = 0;
+        phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  const int r0 = consumer_row(wgi);
+  PrefillMasks masks{sm.facts, L::STAGES, w.qlim(r0), w.qlim(r0 + 8), w.qlim(0),
+                     (threadIdx.x & 3) * 2, sm.facts, INT_MAX};
+  consume<D>(masks, sm, wgi, n, scale_log2, o + w.o_off(r0), o + w.o_off(r0 + 8));
+}
+
+template <int D>
+int prefill_wgmma(const void* q, const void* kp, const void* vp, void* o, const void* sched,
+                  const void* runs, int n_runs, int hkv, const void* table, const void* pos0, int tq,
+                  int g, int ps, int mp, int B, int P, float scale, void* stream) {
+  if (n_runs == 0 || hkv == 0) return 0;
+  if (hkv > 65535) return (int)cudaErrorInvalidConfiguration;
+  // TMA: 16-byte aligned bases, int32 coordinates
+  if ((uintptr_t)q % 16 || (uintptr_t)kp % 16 || (uintptr_t)vp % 16 || (uintptr_t)o % 4 ||
+      (long long)B * tq > INT_MAX || (long long)P * ps > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv;
+  // Q (B Tq, Hkv, g, D): one box is the ps tokens x g heads of one kv head
+  const uint64_t qdims[4] = {(uint64_t)D, (uint64_t)g, (uint64_t)hkv, (uint64_t)B * tq};
+  const uint64_t qstrides[3] = {2ull * D, 2ull * g * D, 2ull * hkv * g * D};
+  const uint32_t qbox[4] = {64, (uint32_t)g, 1, (uint32_t)ps};
+  // the pools (P ps, Hkv, D): one box is one page of one kv head
+  const uint64_t kdims[3] = {(uint64_t)D, (uint64_t)hkv, (uint64_t)P * ps};
+  const uint64_t kstrides[2] = {2ull * D, 2ull * hkv * D};
+  const uint32_t kbox[3] = {64, 1, (uint32_t)ps};
+  int err = make_tensor_map_bf16_nd(&mq, q, 4, qdims, qstrides, qbox);
+  if (!err) err = make_tensor_map_bf16_nd(&mk, kp, 3, kdims, kstrides, kbox);
+  if (!err) err = make_tensor_map_bf16_nd(&mv, vp, 3, kdims, kstrides, kbox);
+  if (err) return err;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      prefill_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<D>::PREFILL_SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  prefill_wgmma_kernel<D><<<dim3(n_runs, hkv), THREADS, Layout<D>::PREFILL_SMEM, (cudaStream_t)stream>>>(
+      mq, mk, mv, (__nv_bfloat16*)o, (const int*)sched, (const int*)runs, (const int*)table,
+      (const int*)pos0, tq, g, ps, mp, scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace tc
 
 // the shapes the tensor-core core takes (bf16 inputs); every other shape,
 // and f32, runs flash_rows.  kernels/attention.py::flash_core is this rule.
 bool tensor_core_shape(int D, int bq, int bkv) {
   return (D == 64 || D == 128) && bq == tc::BQ && bkv % 64 == 0;
+}
+
+// the prefill shapes the tensor-core core takes (bf16 inputs): Dk == Dv
+// in {64, 128}; a CTA's ps * g rows are the two warpgroups' 128; whole
+// pages a 64-row half (64 % ps == 0) of at least 8 rows, so that every
+// page's box lands on a 1024-byte swizzle atom.  kernels/attention.py::
+// prefill_core picks the core; a wgmma call outside these is refused.
+bool prefill_tensor_core_shape(int dk, int dv, int ps, int g) {
+  return dk == dv && (dk == 64 || dk == 128) && ps * g == tc::BQ && ps >= 8 && 64 % ps == 0;
 }
 
 }  // namespace
@@ -783,8 +1016,17 @@ extern "C" int sfc_flash_decode(const void* q, const void* kp, const void* vp, v
 extern "C" int sfc_flash_prefill(const void* q, const void* kp, const void* vp, void* o,
                                  const void* sched, const void* runs, int n_runs, int hkv,
                                  const void* table, const void* pos0, int tq, int g, int dk, int dv,
-                                 int ps, int mp, float scale, int dtype, void* stream) {
+                                 int ps, int mp, int B, int P, float scale, int dtype,
+                                 int tensor_core, void* stream) {
   if (bad_shape(ps * g, dk, dv) || ps < 1) return (int)cudaErrorInvalidValue;
+  // the core the wrapper picked (prefill_core): launched, or the call refused
+  if (tensor_core) {
+    if (dtype == 0 || !prefill_tensor_core_shape(dk, dv, ps, g)) return (int)cudaErrorInvalidValue;
+    return dk == 64 ? tc::prefill_wgmma<64>(q, kp, vp, o, sched, runs, n_runs, hkv, table, pos0, tq,
+                                            g, ps, mp, B, P, scale, stream)
+                    : tc::prefill_wgmma<128>(q, kp, vp, o, sched, runs, n_runs, hkv, table, pos0, tq,
+                                             g, ps, mp, B, P, scale, stream);
+  }
   if (dtype == 0)
     return prefill_t<float>(q, kp, vp, o, sched, runs, n_runs, hkv, table, pos0, tq, g, dk, dv, ps,
                             mp, scale, stream);

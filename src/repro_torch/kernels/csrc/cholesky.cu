@@ -22,7 +22,7 @@
 // Bound on the H100: FP32 FMAs with TF32 off (n^3/3 flops in all, nearly
 // all of them in the trailing phase: the SIMT 128x128 tile product of
 // tile_gemm.cuh).  The diag phase (one CTA per k) and the panel phase (at
-// most n/b - 1 CTAs per k) are latency-bound sequential loops:
+// most (n/b - 1) b/32 CTAs per k) are latency-bound sequential loops:
 //   diag:  b dependent sqrt + divide steps on one SM.  The first design
 //          held the tile in registers, 8x8 per thread, and ran b
 //          steps of two CTA barriers and 16 IEEE divisions per thread
@@ -44,10 +44,41 @@
 //          reading the panel from shared memory).  Two CTA barriers a
 //          panel: 8 at b = 128.  The b sequential steps of pivot, square
 //          root and division on one warp remain its bound.
-//   panel: X . L_kk^T = A_ik by forward substitution, one thread per row
-//          of the tile (rows are independent), L_kk and the tile in
-//          dynamic shared memory (2 b^2 floats, 128 KB at b = 128, above
-//          the 48 KB static limit, hence cudaFuncSetAttribute).
+//   panel: X . L_kk^T = A_ik by forward substitution; the rows of the
+//          tile are independent, the dependency runs along the columns.
+//          The first design took one thread per row of the tile, whose
+//          step t summed t products from shared memory in one chain: 128
+//          threads a CTA, at most n/b - 1 = 63 CTAs on 132 SMs, so every
+//          launch took one tile's latency, and the 63 launches of n = 8192
+//          took 8.70 ms (H100 80GB HBM3, 700 W; batched solve_triangular
+//          1.30 ms).  This design is right-looking and takes no CTA
+//          barrier inside a solve: a warp owns 4 rows, lane l holds
+//          columns l, l + 32, l + 64, l + 96 of each in registers, and at
+//          step t the pivot column's value is broadcast by __shfl_sync
+//          from lane t % 32, divided by L[t][t], and every lane subtracts
+//          x L[c][t] from its columns c > t with one fmaf each.  The
+//          quotient is the correctly rounded one, from the pivot's
+//          correctly rounded reciprocal and one FMA correction
+//          (Markstein), so __fdiv_rn's slow path (for subnormal or huge
+//          operands) is never taken.  L_kk^T
+//          sits in shared memory (row t holds L[c][t] for c > t, zeros
+//          elsewhere), so the 32 lanes' reads of L[c][t] are one
+//          conflict-free row, and each step's operands are read while the
+//          step before runs.  A CTA is 8 warps, a strip of 32 rows of one
+//          tile, so a tile is b / 32 CTAs (252 at k = 0 where there were
+//          63), and each CTA reads L_kk (64 KB at b = 128) from L2: 16 MB
+//          per launch at k = 0.  That read is a launch's fixed cost, so it
+//          is straight-line code: a warp loads 128 contiguous bytes of a
+//          row of L_kk a time, all of a thread's 64 loads in flight before
+//          any is stored, no division or branch in the index arithmetic,
+//          each store to its own bank; the tile rows' loads are issued
+//          before it: the 63 launches of n = 8192, repeated in place,
+//          take 1.006-1.044 ms, 1.388 with a first load loop of 16-byte
+//          loads, an integer division and a branch a load (batched
+//          solve_triangular 1.26-1.32 in the same runs; H100 80GB HBM3,
+//          700 W; chip_smoke.py).  What bounds a launch now is one
+//          warp's 128 dependent shuffle-divide-FMA steps, not the card's
+//          width.
 // Every rounding step is an explicit intrinsic (no FMA contraction of
 // a - b * c), the order of the JAX package's tile code: each element of
 // the diagonal tile sees a[r][c] = a[r][c] - L[r][t] L[c][t] (product,
@@ -225,38 +256,110 @@ chol_diag_kernel(float* D, const int* sched, int sched_cols, int col_i, int row_
 }
 
 // phase 1: cholesky.py::_solve_tile: X with X . L_kk^T = A_ik, in place.
-// Thread r owns row r of the tile: x[r][t] = (a[r][t] - sum_{c<t}
-// x[r][c] L[t][c]) / L[t][t], the sum taken in c order.
-__global__ void __launch_bounds__(TILE)
+// CTA (x, y) solves rows 32 y .. 32 y + 31 of table row x's tile; warp w
+// of it rows 32 y + 4 w .. + 3, lane l columns l + 32 j (j < NC, those
+// below b; one instantiation takes every b up to 128).  Step t:
+// x[r][t] = a[r][t] / L[t][t], then a[r][c] = fmaf(-x[r][t], L[c][t],
+// a[r][c]) for c > t: the running value of column c takes one rounded
+// FMA a step, in t order.
+constexpr int PANEL_ROWS = 4;                         // rows a warp
+constexpr int PANEL_WARPS = 8;
+constexpr int PANEL_STRIP = PANEL_ROWS * PANEL_WARPS;  // rows a CTA
+constexpr int PANEL_THREADS = 32 * PANEL_WARPS;
+constexpr int NC = TILE / 32;  // column slots a lane
+constexpr int LD = TILE + 1;   // LT's padded stride
+
+__global__ void __launch_bounds__(PANEL_THREADS)
 chol_panel_kernel(float* D, const int* sched, int sched_cols, int col_i, int row_begin, int k,
                   int n, int b) {
   extern __shared__ float sh[];
-  float* Ls = sh;          // L_kk, row-major, b x b
-  float* Xs = sh + b * b;  // the tile, column-major with stride b + 1
-  const int ldx = b + 1;
+  float* LT = sh;          // LT[t][c] = L_kk[c][t] for t < c < b, else 0: b rows of LD
+  float* dg = sh + b * LD;  // L_kk[t][t]
+  float* rc = dg + b;       // RN(1 / L_kk[t][t])
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // this warp's rows first (b % 8 == 0: they are all in the tile or all
+  // past it), so that their loads overlap L_kk's
+  const int row0 = blockIdx.y * PANEL_STRIP + warp * PANEL_ROWS;
+  const bool rows = row0 < b;
   const int2 t0 = cta_tile(sched, sched_cols, col_i, row_begin);
+  float* T = tile_at(D, n, b, t0.x, t0.y) + (size_t)row0 * n;
+  float a[PANEL_ROWS][NC];
+#pragma unroll
+  for (int r = 0; r < PANEL_ROWS; ++r)
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const int c = lane + 32 * j;
+      a[r][j] = rows && c < b ? T[(size_t)r * n + c] : 0.f;
+    }
   const float* L = tile_at(D, n, b, k, k);
-  float* T = tile_at(D, n, b, t0.x, t0.y);
-  for (int idx = threadIdx.x; idx < b * b; idx += blockDim.x) {
-    const int r = idx / b, c = idx % b;
-    Ls[idx] = L[(size_t)r * n + c];
-    Xs[c * ldx + r] = T[(size_t)r * n + c];
+  // L_kk transposed into LT: warp w reads rows c = w + 8 u, lane l the
+  // columns t = l + 32 v (128 contiguous bytes a warp load, all of a
+  // thread's loads in flight before any is stored), and stores LT[t][c]
+  // to 32 banks; rows past b read nothing and store zeros, columns past
+  // b read and store nothing
+  constexpr int CU = TILE / PANEL_WARPS;  // rows a warp
+  float v[CU][NC];
+#pragma unroll
+  for (int u = 0; u < CU; ++u)
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const int c = warp + PANEL_WARPS * u, t = lane + 32 * j;
+      v[u][j] = c < b && t < b ? L[(size_t)c * n + t] : 0.f;
+    }
+  if (threadIdx.x < b) {
+    const float d = L[(size_t)threadIdx.x * (n + 1)];
+    dg[threadIdx.x] = d;
+    rc[threadIdx.x] = __frcp_rn(d);
   }
+#pragma unroll
+  for (int u = 0; u < CU; ++u)
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const int c = warp + PANEL_WARPS * u, t = lane + 32 * j;
+      if (t < b) LT[t * LD + c] = c > t ? v[u][j] : 0.f;
+    }
   __syncthreads();
-  const int r = threadIdx.x;
-  if (r < b) {
-    for (int t = 0; t < b; ++t) {
-      const float* lrow = Ls + t * b;
-      float s = 0.f;
-      for (int c = 0; c < t; ++c) s = __fmaf_rn(Xs[c * ldx + r], lrow[c], s);
-      Xs[t * ldx + r] = __fdiv_rn(__fsub_rn(Xs[t * ldx + r], s), lrow[t]);
+  if (!rows) return;
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    if (32 * j >= b) break;
+    const int steps = min(32, b - 32 * j);
+    int t = 32 * j;
+    float d = dg[t], r1 = rc[t], lc[NC];
+#pragma unroll
+    for (int jj = j; jj < NC; ++jj) lc[jj] = LT[t * LD + lane + 32 * jj];
+#pragma unroll 2
+    for (int tt = 0; tt < steps; ++tt, ++t) {
+      // the next step's operands, read while this step runs
+      const int tn = min(t + 1, b - 1);
+      const float dn = dg[tn], rn = rc[tn];
+      float ln[NC];
+#pragma unroll
+      for (int jj = j; jj < NC; ++jj) ln[jj] = LT[tn * LD + lane + 32 * jj];
+#pragma unroll
+      for (int r = 0; r < PANEL_ROWS; ++r) {
+        // x = RN(y / d): the quotient from the correctly rounded
+        // reciprocal with one FMA correction (Markstein), no slow path
+        const float y = __shfl_sync(0xffffffffu, a[r][j], tt);
+        const float q = __fmul_rn(y, r1);
+        const float x = fmaf(fmaf(-q, d, y), r1, q);
+        a[r][j] = lane == tt ? x : fmaf(-x, lc[j], a[r][j]);  // lanes below tt: lc = 0
+#pragma unroll
+        for (int jj = j + 1; jj < NC; ++jj) a[r][jj] = fmaf(-x, lc[jj], a[r][jj]);
+      }
+      d = dn;
+      r1 = rn;
+#pragma unroll
+      for (int jj = j; jj < NC; ++jj) lc[jj] = ln[jj];
     }
   }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < b * b; idx += blockDim.x) {
-    const int rr = idx / b, c = idx % b;
-    T[(size_t)rr * n + c] = Xs[c * ldx + rr];
-  }
+#pragma unroll
+  for (int r = 0; r < PANEL_ROWS; ++r)
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const int c = lane + 32 * j;
+      if (c < b) T[(size_t)r * n + c] = a[r][j];
+    }
 }
 
 // phase 2: A_ij <- A_ij - L_ik . L_jk^T for k < j <= i (tile_update,
@@ -271,10 +374,11 @@ chol_trailing_kernel(float* D, const int* sched, int sched_cols, int col_i, int 
               tile_at(D, n, b, t0.y, k), (size_t)n, b, b, b, -1.f, As, Bs);
 }
 
-// the panel kernel's dynamic shared memory at the largest block: L_kk and
-// the tile, 2 TILE^2 + TILE floats (128.5 KB); the diag kernel's: the tile
-// with a padded stride, TILE (TILE + 1) floats (64.5 KB)
-constexpr int PANEL_SMEM_MAX = (TILE * TILE + TILE * (TILE + 1)) * (int)sizeof(float);
+// the panel kernel's dynamic shared memory: L_kk^T with a padded stride,
+// its diagonal and their reciprocals, b (LD + 2) floats (65 KB at
+// b = 128); the diag
+// kernel's: the tile with a padded stride, TILE (TILE + 1) floats (64.5 KB)
+constexpr int panel_smem(int b) { return b * (LD + 2) * (int)sizeof(float); }
 constexpr int DIAG_SMEM_MAX = (TILE * (TILE + 1) + 1) * (int)sizeof(float);
 constexpr int MAX_DEVICES = 64;
 
@@ -313,11 +417,13 @@ extern "C" int sfc_chol_diag(void* d, const void* sched, int sched_cols, int col
 
 extern "C" int sfc_chol_panel(void* d, const void* sched, int sched_cols, int col_i, int row_begin,
                               int ctas, int k, int n, int b, void* stream) {
-  if (bad_block(b)) return (int)cudaErrorInvalidValue;
-  const cudaError_t attr = opt_in_smem<1>((const void*)chol_panel_kernel, PANEL_SMEM_MAX);
+  if (bad_block(b) || (uintptr_t)d % 16) return (int)cudaErrorInvalidValue;  // 16-byte rows
+  if (ctas == 0) return 0;
+  const cudaError_t attr = opt_in_smem<1>((const void*)chol_panel_kernel, panel_smem(TILE));
   if (attr != cudaSuccess) return (int)attr;
-  const size_t smem = (size_t)(b * b + b * (b + 1)) * sizeof(float);
-  chol_panel_kernel<<<ctas, TILE, smem, (cudaStream_t)stream>>>(
+  // (ctas, b / 32 strips) CTAs
+  const dim3 grid(ctas, (b + PANEL_STRIP - 1) / PANEL_STRIP);
+  chol_panel_kernel<<<grid, PANEL_THREADS, panel_smem(b), (cudaStream_t)stream>>>(
       (float*)d, (const int*)sched, sched_cols, col_i, row_begin, k, n, b);
   return (int)cudaGetLastError();
 }

@@ -14,8 +14,8 @@
 // callback names the depth of each stage in the order the CTA should sum
 // them, which is how a curve schedule's k order reaches the tensor cores.
 //
-// Host side: make_tensor_map_bf16 encodes a 2-D TMA descriptor with
-// cuTensorMapEncodeTiled, looked up at run time through cudart
+// Host side: make_tensor_map_bf16(_nd) encodes a 2-D (or n-D) TMA
+// descriptor with cuTensorMapEncodeTiled, looked up at run time through cudart
 // (cudaGetDriverEntryPoint), so the library needs no -lcuda.  Descriptors
 // are kernel parameters (__grid_constant__).
 #pragma once
@@ -81,6 +81,24 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// a 3-D / 4-D TMA box (the paged prefill's pools and its grouped queries)
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                            int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                            int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -277,11 +295,13 @@ __device__ __forceinline__ int acc_col(int i) {
 
 }  // namespace wg
 
-// Host: a 2-D bf16 tensor map of a row-major (rows, cols) matrix, box
-// (box_rows, box_cols), 128-byte swizzle, zero fill outside the matrix.
-// Returns 0 or a CUresult / cudaError code.
-inline int make_tensor_map_bf16(CUtensorMap* map, const void* ptr, uint64_t rows, uint64_t cols,
-                                uint32_t box_rows, uint32_t box_cols) {
+// Host: a bf16 tensor map of `rank` dimensions, innermost first: extents
+// dims[rank], byte strides of dimensions 1 .. rank - 1 in strides[rank - 1]
+// (each a multiple of 16), box[rank]; 128-byte swizzle (box[0] is 64
+// elements, one swizzle row), zero fill outside the tensor.  Returns 0 or a
+// CUresult / cudaError code.
+inline int make_tensor_map_bf16_nd(CUtensorMap* map, const void* ptr, int rank, const uint64_t* dims,
+                                   const uint64_t* strides, const uint32_t* box) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (!encode) {
     cudaDriverEntryPointQueryResult found;
@@ -292,15 +312,28 @@ inline int make_tensor_map_bf16(CUtensorMap* map, const void* ptr, uint64_t rows
     if (found != cudaDriverEntryPointSuccess || !fn) return (int)cudaErrorSymbolNotFound;
     encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
   }
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols * 2};
-  const cuuint32_t box[2] = {box_cols, box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
-                              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  cuuint64_t d[5], st[4];
+  cuuint32_t bx[5], elem[5];
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    bx[i] = box[i];
+    elem[i] = 1;
+    if (i) st[i - 1] = strides[i - 1];
+  }
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), d,
+                              st, bx, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// Host: a 2-D bf16 tensor map of a row-major (rows, cols) matrix, box
+// (box_rows, box_cols), 128-byte swizzle, zero fill outside the matrix.
+inline int make_tensor_map_bf16(CUtensorMap* map, const void* ptr, uint64_t rows, uint64_t cols,
+                                uint32_t box_rows, uint32_t box_cols) {
+  const uint64_t dims[2] = {cols, rows};
+  const uint64_t strides[1] = {cols * 2};
+  const uint32_t box[2] = {box_cols, box_rows};
+  return make_tensor_map_bf16_nd(map, ptr, 2, dims, strides, box);
 }
 
 }  // namespace sfc

@@ -326,6 +326,126 @@ def test_attention_wrapper_launch_arguments(monkeypatch, dtype, D, bq, core):
                         0 if dtype == torch.float32 else 1, 0)
 
 
+# ---------------------------------------------------------------------------
+# row 22's two cores: the rule, the launch arguments, the TMA boxes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,dk,dv,ps,g,core", [
+    (torch.bfloat16, 64, 64, 16, 8, "wgmma"),  # tinyllama's serving shape
+    (torch.bfloat16, 128, 128, 16, 8, "wgmma"),
+    (torch.bfloat16, 64, 64, 8, 16, "wgmma"),
+    (torch.bfloat16, 64, 64, 32, 4, "wgmma"),
+    (torch.bfloat16, 128, 128, 64, 2, "wgmma"),
+    (torch.float32, 64, 64, 16, 8, "simt"),  # the f32 replay gate
+    (torch.bfloat16, 64, 64, 128, 1, "simt"),  # stablelm's g = 1: a page wider than a half
+    (torch.bfloat16, 64, 64, 4, 32, "simt"),  # a page box under one swizzle atom
+    (torch.bfloat16, 64, 64, 16, 4, "simt"),  # 64 rows a CTA
+    (torch.bfloat16, 64, 64, 16, 16, "simt"),  # 256 rows a CTA
+    (torch.bfloat16, 64, 32, 16, 8, "simt"),  # Dk != Dv
+    (torch.bfloat16, 96, 96, 16, 8, "simt"),
+    (torch.bfloat16, 32, 32, 16, 8, "simt"),
+    (torch.bfloat16, 64, 64, 24, 5, "simt"),  # 120 rows, pages not dividing a half
+])
+def test_prefill_core_rule(dtype, dk, dv, ps, g, core):
+    """bf16 with Dk = Dv in (64, 128), ps * g = 128 and whole pages of 8
+    to 64 rows in a 64-row half runs on the tensor cores; the rest on the
+    SIMT core."""
+    assert tatt.prefill_core(dtype, dk, dv, ps, g) == core
+
+
+def _prefill_case(rng, B, Hkv, g, D, ps, MP, P, Tq, pos0, n_new, dtype=torch.float32, device="cpu"):
+    """Pools, page table and queries of a prefill cohort (pages of each
+    slot's pos0 + n_new positions distinct, the rest on the trash page)."""
+    ends = np.asarray(pos0) + np.maximum(np.asarray(n_new), 1) - 1
+    _, kp, vp, pt = _paged_inputs(rng, B, Hkv, g, D, ps, MP, P, ends)
+    q = rng.standard_normal((B, Tq, Hkv, g, D)).astype(np.float32)
+    sched = tatt.prefill_page_schedule_device(pos0, n_new, ps, MP, device=device)
+    args = [torch.as_tensor(pt, device=device), torch.as_tensor(np.asarray(pos0, np.int32), device=device),
+            *(_t(a, dtype).to(device) for a in (q, kp, vp))]
+    return sched, args
+
+
+@pytest.mark.parametrize("dtype,D,ps,g,core", [
+    (torch.bfloat16, 64, 16, 8, "wgmma"),
+    (torch.bfloat16, 128, 8, 16, "wgmma"),
+    (torch.float32, 64, 16, 8, "simt"),
+    (torch.bfloat16, 64, 128, 1, "simt"),
+])
+def test_prefill_wrapper_launch_arguments(monkeypatch, dtype, D, ps, g, core):
+    """``_prefill_cuda``'s host side on CPU tensors, the kernel call
+    recorded: the core its rule picks is counted with the entry point, and
+    the C arguments carry the cohort's B and the pool's P (the extents of
+    the tensor maps) beside the walk's shape."""
+    calls = []
+    monkeypatch.setattr(tatt, "require", lambda *a, **k: None)
+    monkeypatch.setattr(tatt, "stream_of", lambda t: 0)
+    monkeypatch.setattr(tatt, "call", lambda name, *args, core=None: calls.append((name, args, core)))
+    rng = np.random.default_rng(D + ps)
+    B, Hkv, MP, Tq = 3, 2, 6, 2 * ps
+    P = B * MP + 1
+    sched, args = _prefill_case(rng, B, Hkv, g, D, ps, MP, P, Tq, [0, 5, 3], [2 * ps, 1, 0], dtype)
+    prog = tatt.flash_prefill_program(sched, args[2], page_size=ps, sm_scale=0.125)
+    out = tatt._prefill_cuda(prog, *args)
+    assert out.shape == (B, Tq, Hkv, g, D) and out.dtype == dtype
+    ((name, cargs, got_core),) = calls
+    assert name == "sfc_flash_prefill" and got_core == core
+    # (q, k, v, o, table, runs, n_runs, hkv, page_table, pos0, tq, g, dk, dv, ps, mp, B, P, scale,
+    #  dtype, tensor_core, stream): the C entry launches the core the rule picked
+    assert cargs[6:8] == (len(sched.runs), Hkv) and len(sched.runs) == 3
+    assert cargs[10:] == (Tq, g, D, D, ps, MP, B, P, 0.125, 0 if dtype == torch.float32 else 1,
+                          int(core == "wgmma"), 0)
+    assert cargs[0] == args[2].data_ptr() and cargs[1] == args[3].data_ptr()
+
+
+def _box_rows(strides, box, origin):
+    """Element offsets of the 64-column rows of one TMA box, in the order
+    the box lands in shared memory (dimension 0 innermost; the rows walk
+    dimensions 1, 2, ... with dimension 1 fastest)."""
+    rows = [sum(o * st for o, st in zip(origin, strides))]
+    for dim in range(1, len(box)):
+        rows = [r + i * strides[dim] for i in range(box[dim]) for r in rows]
+    return np.asarray(rows)
+
+
+@pytest.mark.parametrize("ps,g", [(16, 8), (8, 16), (32, 4)])
+def test_prefill_tma_boxes_are_the_walk(ps, g):
+    """The host twin of the tensor-core core's TMA boxes on a small cohort:
+    the Q box {64, g, 1, ps} at (0, 0, h, slot Tq + qt ps) of the map
+    {Dk, g, Hkv, B Tq} loads row r = token g + head of PrefillWalk::row,
+    and the page box {64, 1, ps} at (0, h, phys ps) of the pool map {D,
+    Hkv, P ps} the ps kv rows of PrefillWalk::kv, for every run and page;
+    both match the plain version's gathers."""
+    rng = np.random.default_rng(ps)
+    B, Hkv, D, MP, Tq = 3, 2, 64, 40, 8 * ps
+    P = B * MP + 1
+    pos0, n_new = [0, 37, 130], [Tq, 45, 0]
+    sched, args = _prefill_case(rng, B, Hkv, g, D, ps, MP, P, Tq, pos0, n_new)
+    pt = args[0].numpy()
+    table, runs = sched.table.numpy(), sched.runs.numpy()
+    q_strides = (1, D, g * D, Hkv * g * D)  # the map's byte strides / 2
+    kv_strides = (1, D, Hkv * D)
+    q_flat = args[2].reshape(-1)
+    k_flat = args[3].reshape(-1)
+    for start, n in runs:
+        slot, qt = table[start, 0], table[start, 1]
+        for h in range(Hkv):
+            got = _box_rows(q_strides, (64, g, 1, ps), (0, 0, h, slot * Tq + qt * ps))
+            # PrefillWalk::row(r) * dk
+            r = np.arange(ps * g)
+            want = (((slot * Tq + qt * ps + r // g) * Hkv + h) * g + r % g) * D
+            np.testing.assert_array_equal(got, want)
+            plain = args[2][slot, qt * ps:(qt + 1) * ps, h].reshape(ps * g, D)
+            assert torch.equal(q_flat[got[:, None] + np.arange(D)], plain)
+            for t in range(n):
+                lp = table[start + t, 2]
+                phys = pt[slot, lp]
+                got = _box_rows(kv_strides, (64, 1, ps), (0, h, phys * ps))
+                # PrefillWalk::kv(t ps + off): ko = ((phys ps + off) Hkv + h) dk
+                want = ((phys * ps + np.arange(ps)) * Hkv + h) * D
+                np.testing.assert_array_equal(got, want)
+                assert torch.equal(k_flat[got[:, None] + np.arange(D)], args[3][phys, :, h])
+
+
 def test_plain_versions_count_no_launch():
     LAUNCHES.reset()
     rng = np.random.default_rng(0)
@@ -415,3 +535,37 @@ def test_bf16_flash_attention_wgmma_matches_plain(S, D, table, bkv, mask):
     torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
     cores = LAUNCHES.cores()
     assert cores["sfc_flash_attention.wgmma"] == 1 and cores["sfc_flash_attention.simt"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,ps,g", [(64, 16, 8), (128, 16, 8), (64, 8, 16), (64, 32, 4)])
+def test_bf16_flash_prefill_wgmma_matches_plain(D, ps, g):
+    """Row 22's tensor-core core against ``_prefill_plain`` (f32
+    throughout, output rounded to bf16) on the same CUDA inputs, at the
+    serving tolerance (rtol 8e-3, atol 4e-3).  The cohort: a slot from
+    position 0 whose 8 q tiles walk runs of 1 .. 8 pages (every count mod
+    8), a slot resuming mid-page at 301 (unmasked stages before the last
+    two pages, runs of 19 .. 33 pages), a page-aligned slot at 4 ps with
+    a ragged last tile, and a lane with no new tokens; only the
+    tensor-core core launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(D + ps)
+    B, Hkv, MP = 4, 2, 72
+    Tq = 256
+    P = B * MP + 1
+    pos0, n_new = [0, 301, 4 * ps, 9], [8 * ps, 230, 3 * ps + 5, 0]
+    sched, args = _prefill_case(rng, B, Hkv, g, D, ps, MP, P, Tq, pos0, n_new, torch.bfloat16, dev)
+    prog = tatt.flash_prefill_program(sched, args[2], page_size=ps, sm_scale=D ** -0.5)
+    assert tatt.prefill_core(torch.bfloat16, D, D, ps, g) == "wgmma"
+    LAUNCHES.reset()
+    got = prog.launcher(prog, *args)
+    want = prog.plain(prog, *args)
+    cores = LAUNCHES.cores()
+    assert cores["sfc_flash_prefill.wgmma"] == 1 and cores["sfc_flash_prefill.simt"] == 0
+    rows = torch.zeros((B, Tq), dtype=torch.bool, device=dev)
+    for b in range(B):
+        rows[b, : -(-n_new[b] // ps) * ps] = True
+    assert torch.isfinite(got[rows].float()).all()
+    torch.testing.assert_close(got[rows].float(), want[rows].float(), rtol=8e-3, atol=4e-3)

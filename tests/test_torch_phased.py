@@ -16,6 +16,8 @@ float64 ``numpy.linalg.cholesky`` rtol = atol = 2e-4, the JAX tests' own.
 The ``cuda``-marked case runs the entry points on the card against their
 plain versions and against JAX on the CPU; it skips without one.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -293,3 +295,67 @@ def test_chol_diag_kernel_is_chol_tile_to_the_bit(b):
         assert torch.equal(got, want), float((got - want).abs().max())
     assert LAUNCHES.counts()["sfc_chol_diag"] == 3
 
+
+
+def _panel_case(rng, b: int, spread: float, nt: int = 5):
+    """An (nt b)² matrix whose tile (0, 0) is a lower-triangular L_kk (row
+    i scaled by pivot d_i, unit lower triangle with N(0, 0.09/b) entries
+    below the diagonal; d spread over ``spread`` when it is above 1,
+    else in [1, 2)) and whose tiles (i, 0) below it are N(0, 1): the
+    input of the k = 0 panel launch; and that launch's program."""
+    d = np.logspace(0, -np.log10(spread), b) if spread > 1 else 1 + rng.random(b)
+    unit = np.eye(b) + np.tril(rng.standard_normal((b, b)) * 0.3 / np.sqrt(b), -1)
+    a = rng.standard_normal((nt * b, nt * b)).astype(np.float32)
+    a[:b, :b] = (d[:, None] * unit).astype(np.float32)
+    prog = tch.cholesky_program("hilbert", nt, b, device="cpu")
+    groups = tuple(g for g in prog.params["groups"] if g[:2] == (1, 0))
+    assert groups and sum(hi - lo for _p, _k, lo, hi in groups) == nt - 1
+    return a, dataclasses.replace(prog, params={**prog.params, "groups": groups})
+
+
+# the panel kernel (right-looking, one rounded FMA per step) against
+# _solve_tiles (a matmul per step): both within ~7e-7 of max |X| on these
+# tiles (a float64-product emulation of the kernel's order), 14x margin
+PANEL_TOL = 1e-5
+
+
+@pytest.mark.parametrize("b", [8, 32, 64, 128])
+@pytest.mark.parametrize("spread", [1.0, 1e3])
+def test_chol_panel_plain_solves_against_float64(b, spread):
+    """The k = 0 panel launch through ``launch`` on the CPU (its plain
+    version, ``_solve_tiles`` per tile) against float64 ``numpy.linalg.
+    solve``; tiles other than column 0 below the diagonal untouched."""
+    a, prog = _panel_case(np.random.default_rng(b), b, spread)
+    got = launch(prog, torch.as_tensor(a.copy())).numpy()
+    l64 = a[:b, :b].astype(np.float64)
+    want = np.linalg.solve(l64, a[b:, :b].astype(np.float64).T).T
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got[b:, :b], want, rtol=PANEL_TOL, atol=PANEL_TOL * scale)
+    np.testing.assert_array_equal(got[:, b:], a[:, b:])
+    np.testing.assert_array_equal(got[:b], a[:b])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [8, 32, 64, 128])
+@pytest.mark.parametrize("spread", [1.0, 1e3])
+def test_chol_panel_kernel_matches_solve_tiles(b, spread):
+    """``sfc_chol_panel`` (row strips of 32, a warp's 4 rows solved by
+    shuffles and one FMA a column a step) on the k = 0 panel of 4 tiles,
+    against ``_solve_tiles`` on the same CUDA tiles: within PANEL_TOL of
+    max |X| (and relative); every other tile untouched; one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    a, prog = _panel_case(np.random.default_rng(b), b, spread)
+    prog = dataclasses.replace(prog, schedule=prog.schedule.to(dev))
+    x = torch.as_tensor(a, device=dev)
+    LAUNCHES.reset()
+    got = launch(prog, x.clone())
+    torch.cuda.synchronize()
+    assert LAUNCHES.counts()["sfc_chol_panel"] == 1
+    nt = a.shape[0] // b
+    tiles = x[b:, :b].reshape(nt - 1, b, b)
+    want = tch._solve_tiles(x[:b, :b], tiles).reshape(-1, b)
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got[b:, :b], want, rtol=PANEL_TOL, atol=PANEL_TOL * scale)
+    assert torch.equal(got[:, b:], x[:, b:]) and torch.equal(got[:b], x[:b])

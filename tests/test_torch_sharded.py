@@ -118,7 +118,15 @@ def test_collectives_semantics_and_ledger():
 def test_shard_program_matches_jax_per_shard():
     """N = 100 points in tiles of 32 over 8 shards of one tile each: three
     full shards, a ragged one (4 points) and four of pure padding
-    (n_valid_local = 0, partials zeros); K = 5 of Kp = 8 (k_valid < Kp)."""
+    (n_valid_local = 0, partials zeros); K = 5 of Kp = 8 (k_valid < Kp).
+
+    Assignments and counts are exact against JAX.  The metric is a matmul
+    product, in the allclose class of the equivalence contract: the JAX
+    kernel's bits are those of XLA's CPU code for ``cnv - 2 x.c`` (under
+    jit it contracts the D = 3 dot into a chain of FMAs, 1-2 ulp from the
+    unfused sum on an FMA-capable host), so the shard's metric is held to
+    the bit against the port's own single-core assign on the same tile and
+    within 4 ulp of JAX's."""
     N, D, k, bp, bc, num = 100, 3, 5, 32, 4, 8
     rng = np.random.default_rng(3)
     seed_ids = np.asarray(jax.random.choice(jax.random.PRNGKey(0), N, shape=(k,), replace=False))
@@ -136,14 +144,18 @@ def test_shard_program_matches_jax_per_shard():
     tprog = tkm.kmeans_shard_program(kmeans_schedule_device("fur", ptl, ct, device="cpu"), pt=ptl,
                                      ct=ct, bp=bp, bc=bc, D=D)
     cn = (c.astype(np.float32) ** 2).sum(1)
+    single, _ = tkm.kmeans_lloyd_program(kmeans_schedule_device("fur", ptl, ct, device="cpu"), pt=ptl,
+                                         ct=ct, bp=bp, bc=bc, D=D, k_valid=k, n_valid=None)
     for s in range(num):
         xs = xp[s * Nl:(s + 1) * Nl]
         jm, ja, js, jc = jlaunch(jprog, jnp.asarray(xs), jnp.asarray(c), jnp.asarray(cn[None]),
                                  jnp.asarray(limits[s:s + 1]), interpret=True)
         tm, ta, ts, tc = launch(tprog, torch.as_tensor(xs), torch.as_tensor(c),
                                 torch.as_tensor(cn), torch.as_tensor(limits[s]))
+        sm, _sa = launch(single, torch.as_tensor(xs), torch.as_tensor(c), torch.as_tensor(cn))
         np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
-        np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+        np.testing.assert_array_equal(tm.numpy().reshape(-1), sm.numpy())
+        np.testing.assert_array_max_ulp(tm.numpy(), np.asarray(jm), maxulp=4)
         np.testing.assert_array_equal(tc.numpy(), np.asarray(jc)[:, 0])
         np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-5, atol=1e-5)
         if limits[s, 0] == 0:

@@ -87,13 +87,16 @@ def test_launch_counter_counts_each_core():
     LAUNCHES.reset()
     LAUNCHES.add("sfc_matmul", "wgmma")
     LAUNCHES.add("sfc_flash_attention", "simt")
+    LAUNCHES.add("sfc_flash_prefill", "wgmma")
     LAUNCHES.add("sfc_join_hits")
     assert LAUNCHES.counts()["sfc_matmul"] == 1 and LAUNCHES.counts()["sfc_join_hits"] == 1
     cores = LAUNCHES.cores()
-    assert set(cores) == {f"{n}.{c}" for n in ("sfc_matmul", "sfc_matmul3d", "sfc_flash_attention")
+    assert set(cores) == {f"{n}.{c}" for n in ("sfc_matmul", "sfc_matmul3d", "sfc_flash_attention",
+                                               "sfc_flash_prefill")
                           for c in ("wgmma", "simt")}
     assert cores["sfc_matmul.wgmma"] == 1 and cores["sfc_flash_attention.simt"] == 1
-    assert sum(cores.values()) == 2
+    assert cores["sfc_flash_prefill.wgmma"] == 1 and LAUNCHES.counts()["sfc_flash_prefill"] == 1
+    assert sum(cores.values()) == 3
     LAUNCHES.reset()
     assert sum(LAUNCHES.cores().values()) == 0
 
@@ -101,6 +104,7 @@ def test_launch_counter_counts_each_core():
 @pytest.mark.parametrize("name,core", [
     ("sfc_matmul", None),  # a dispatching entry point names its core
     ("sfc_matmul", "tensor"),
+    ("sfc_flash_prefill", None),
     ("sfc_join_hits", "wgmma"),  # a single-core entry point names none
 ])
 def test_call_refuses_an_unknown_core(name, core):
