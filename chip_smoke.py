@@ -58,10 +58,12 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    (``sfc_matmul`` in f32 and, on its tensor-core core, in bf16).
    The phased kernels are timed per entry point: the launches of one
    phase over all k-blocks of one call (``sfc_chol_diag`` also against
-   one ``linalg.cholesky`` call per diagonal tile); ``sfc_chol_panel`` is
-   first held on its own against ``_solve_tiles`` on the panels of k = 0
-   and k = 32 of the 8192 call, as the fused program leaves them;
-   ``sfc_matmul3d`` in bf16 with bf16 and f32 outputs.
+   one ``linalg.cholesky`` call per diagonal tile; ``sfc_chol_trailing``
+   against the 63 in-place ``addmm_`` of the trailing squares and beside
+   the per-k form's ``sfc_tile_update`` on the same tiles);
+   ``sfc_chol_panel`` is first held on its own against ``_solve_tiles`` on
+   the panels of k = 0 and k = 32 of the 8192 call, as the fused program
+   leaves them; ``sfc_matmul3d`` in bf16 with bf16 and f32 outputs.
 6. Run the main path's calls once more, warm, under ``torch.profiler``:
    wall time, kernel (device) time and the device's busy share per call,
    and one warm tick of each streaming service.
@@ -83,7 +85,10 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    the top-2 margin band, the flash decode step allclose to the page
    gather; (d) each flash kernel's time, bound, plain version and a
    PyTorch SDPA call (``sfc_flash_attention`` and ``sfc_flash_prefill``
-   in bf16 and f32).
+   in bf16 and f32; ``sfc_flash_decode``, whose call is shorter on the
+   card than on the host, by the device time of its kernels and of the
+   gather + SDPA call's, beside both calls' CUDA-event times, with its
+   split-KV launch and its time at other split sizes).
 8. The curve-range-sharded apps (``sharded_path``), SHARDS = 4 shards on
    the one card (the code path of a mesh, not multi-GPU scaling): with the
    launch counts reset, ``ops.kmeans_lloyd(mesh=)`` on phase 3's SIFT1M
@@ -264,6 +269,23 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_ms(fn, reps: int) -> dict:
+    """Device time per call of each kernel that ``fn()`` launches, by its
+    full name: mean ms over ``reps`` calls under torch.profiler, after one
+    warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: 1e-3 * e.self_device_time_total / reps for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0}
 
 
 def bound_ms(ops: float, peak: float, nbytes: float) -> tuple[float, str]:
@@ -1579,7 +1601,7 @@ def flash_programs(device, dec, pre, att):
     B, MP = dec[0].shape
     scale = 1.0 / float(np.sqrt(dec[2].shape[-1]))
     sd = katt.decode_page_schedule_device(B, MP, device=device)
-    p_dec = katt.flash_decode_program(sd, dec[2], sm_scale=scale)
+    p_dec = katt.flash_decode_program(sd, dec[2], page_size=dec[3].shape[1], max_pages=MP, sm_scale=scale)
     ps = pre[3].shape[1]
     sp = katt.prefill_page_schedule_device(pre[1].cpu().numpy(), pre[5], ps, pre[0].shape[1], device=device)
     p_pre = katt.flash_prefill_program(sp, pre[2], page_size=ps, sm_scale=scale)
@@ -1763,6 +1785,7 @@ def serving_path(rng, device, seed: int) -> list:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import LAUNCHES, launch
+    from repro_torch.kernels import attention as katt
     from repro_torch.models import count_params, decode_step_paged, forward, init_params
 
     errs = compare_attention(rng, device)
@@ -1871,14 +1894,24 @@ def serving_path(rng, device, seed: int) -> list:
     launches = {**{k: serve_launches[k] for k in ("sfc_flash_decode", "sfc_flash_prefill")},
                 "sfc_flash_attention": fwd_launches["sfc_flash_attention"]}
 
-    def row(name, kern, plain, library, ops_, nbytes, err, extra):
+    def row(name, kern, plain, library, ops_, nbytes, err, extra, device_time=False):
+        """ms and library_ms are the CUDA-event time of a call, as for
+        every row; with device_time, device_ms and library_device_ms add
+        the device time of the kernels a call launches (torch.profiler),
+        each kernel's beside them: for a call whose kernels take less than
+        its host side."""
         b_ms, b_by = bound_ms(ops_, BF16_PEAK, nbytes)
+        timing = {"ms": cuda_ms(kern, 10), "library_ms": cuda_ms(library, 10)}
+        if device_time:
+            kern_dev, lib_dev = kernel_ms(kern, 10), kernel_ms(library, 10)
+            timing.update(device_ms=sum(kern_dev.values()), library_device_ms=sum(lib_dev.values()),
+                          kernels_ms=kern_dev, library_kernels_ms=lib_dev)
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-            "launches": launches[name], "max_abs_err": err, "ms": cuda_ms(kern, 10),
+            "launches": launches[name], "max_abs_err": err, "ms": timing["ms"],
             "plain_ms": cuda_ms(plain, 1, warmup=0), "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": cuda_ms(library, 10), "peak": "bf16 tensor cores (989 TFLOP/s), HBM 3.35 TB/s",
-            **extra,
+            "library_ms": timing["library_ms"], "peak": "bf16 tensor cores (989 TFLOP/s), HBM 3.35 TB/s",
+            **timing, **extra,
         })
         log(f"time {name}: {json.dumps(rows[-1])}")
 
@@ -1898,13 +1931,19 @@ def serving_path(rng, device, seed: int) -> list:
         return F.scaled_dot_product_attention(q.reshape(B, hkv * g, 1, d), kk, vv, attn_mask=mask,
                                               enable_gqa=True)
 
+    # the split-KV launch: split CTAs (those past a slot's last live page
+    # exit at once), the merge's B x Hkv CTAs, the f32 workspace
+    lay = katt.decode_launch(B, hkv, g, ps, MP)
+    live_ctas = int(sum(-(-(int(pp) // ps + 1) // lay.split_pages) for pp in pos.tolist())) * hkv
     row("sfc_flash_decode", lambda: launch(p_dec, *dec), lambda: p_dec.plain(p_dec, *dec), sdpa_decode,
         4.0 * g * hkv * d * n_kv, 2 * q.numel() * 2 + kv_bytes + 4 * (live_pages + B),
         errs[("sfc_flash_decode", torch.bfloat16)],
         {"shape": {"B": B, "Hkv": hkv, "g": g, "D": d, "page_size": ps, "max_pages": MP,
                    "pos": pos.tolist()},
-         "ctas": int(p_dec.grid[0] * p_dec.grid[1]),
-         "sms": torch.cuda.get_device_properties(device).multi_processor_count})
+         "split_pages": lay.split_pages, "splits": lay.splits,
+         "ctas": int(np.prod(lay.grid)), "live_ctas": live_ctas, "merge_ctas": B * hkv,
+         "workspace_bytes": 4 * int(np.prod(lay.workspace(g, d))),
+         "sms": torch.cuda.get_device_properties(device).multi_processor_count}, device_time=True)
 
     pt2, pos0, q2, kp2, vp2, n_new = pre
     T = q2.shape[1]
@@ -2272,7 +2311,7 @@ def time_phased(entry, device, fw_d, fw_dr, ch_a, ch_ar, ch) -> None:
     from repro_torch.core import tile_schedule_device
     from repro_torch.kernels import launch, ops
     from repro_torch.kernels.cholesky import ENTRY_POINTS as CHOL_ENTRY
-    from repro_torch.kernels.cholesky import cholesky_program
+    from repro_torch.kernels.cholesky import cholesky_program, cholesky_reference_program
     from repro_torch.kernels.floyd_warshall import ENTRY_POINTS as FW_ENTRY
     from repro_torch.kernels.floyd_warshall import fw_program
     from repro_torch.kernels.matmul import tile_update_program
@@ -2349,10 +2388,21 @@ def time_phased(entry, device, fw_d, fw_dr, ch_a, ch_ar, ch) -> None:
     rows = prog.schedule[torch.cat([torch.arange(lo, hi) for _p, _k, lo, hi in panel]).to(device)].long()
     l_kk = lv[rows[:, 1], :, rows[:, 1], :].contiguous()
     a_ik = av[rows[:, 2], :, rows[:, 3], :].contiguous()
+    lib_work = ch_a.clone()
+
+    def trailing_addmm():
+        # the trailing update of every k as one in-place addmm_ on the
+        # square below and right of block k (TF32 off): the full square,
+        # twice the operations of the lower triangle the kernel updates
+        for k in range(nt - 1):
+            lo = (k + 1) * b
+            l21 = ch[lo:, k * b:lo]
+            lib_work[lo:, lo:].addmm_(l21, l21.T, alpha=-1.0)
+
     libraries = {
         0: lambda: torch.linalg.cholesky(diag_tiles),
         1: lambda: torch.linalg.solve_triangular(l_kk.mT, a_ik, upper=True, left=False),
-        2: None,
+        2: trailing_addmm,
     }
     work = ch_a.clone()
     table = prog.schedule.cpu().numpy()
@@ -2380,9 +2430,13 @@ def time_phased(entry, device, fw_d, fw_dr, ch_a, ch_ar, ch) -> None:
             extra = {"bound_one_sm_ms": 1e3 * ops_ / per_sm,
                      "library_single_tiles_ms": cuda_ms(lambda: [torch.linalg.cholesky(t) for t in diag_tiles], 3),
                      "tiles": int(ctas)}
+        if phase == 2:  # beside it, the per-k form's trailing updates: the same tiles on tile_update
+            ref_sub = only_phase(cholesky_reference_program("hilbert", nt, b, device=device), 2)
+            extra = {"tiles": int(ctas), "library": f"{nt - 1} in-place addmm_ of the full trailing square",
+                     "per_k_tile_update_ms": cuda_ms(lambda: launch(ref_sub, work), 3)}
         entry(name, lambda: launch(sub, work), lambda: sub.plain(sub, work), libraries[phase], ops_,
               FP32_PEAK, nbytes, 3, err, extra)
-    del work, diag_tiles, l_kk, a_ik
+    del work, lib_work, diag_tiles, l_kk, a_ik
 
     # sfc_tile_update on the full tile grid, against torch.addmm
     kp = 128

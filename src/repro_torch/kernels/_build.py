@@ -61,10 +61,12 @@ SIGNATURES = {
     "sfc_chol_diag": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "sfc_chol_panel": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "sfc_chol_trailing": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # flash kernels: (q, k, v, out, table, runs, runs, heads, ...shape, scale,
-    # dtype, [prefill: 1 for the tensor-core core, 0 for SIMT,] stream)
+    # flash kernels: (q, k, v, out, [decode: workspace,] table, runs, runs,
+    # heads, ...shape, [decode: split pages, splits,] scale, dtype, [prefill:
+    # 1 for the tensor-core core, 0 for SIMT,] stream)
     "sfc_flash_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _F, _I, _P),
-    "sfc_flash_decode": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
+    "sfc_flash_decode": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                         _I, _P),
     "sfc_flash_prefill": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                           _I, _I, _P),
 }

@@ -69,6 +69,11 @@ MAX_ROWS = 256
 WGMMA_HEAD_DIMS = (64, 128)
 WGMMA_BQ = 128
 WGMMA_BKV_STEP = 64
+# sfc_flash_decode's split-KV launch (csrc/attention.cu: dec::GR,
+# dec::MAX_WARPS): query rows a CTA, and the kv rows of the default split,
+# one round of a CTA's four warps of 32 rows
+DECODE_ROWS = 8
+DECODE_SPLIT_ROWS = 128
 # sfc_flash_prefill's tensor-core core (csrc/attention.cu refuses it
 # beyond prefill_tensor_core_shape): whole pages of at least 8 rows a
 # 64-row half
@@ -76,9 +81,11 @@ WGMMA_PAGE_MIN = 8
 
 __all__ = [
     "DEFAULT_MASK_VALUE",
+    "DecodeLaunch",
     "PageSchedule",
     "attention_schedule_device",
     "causal_schedule",
+    "decode_launch",
     "decode_page_schedule",
     "decode_page_schedule_device",
     "flash_attention_decode",
@@ -297,7 +304,7 @@ def prefill_page_schedule_device(
 # the plain online-softmax walk (the tile-walk twin of every kernel here)
 # ---------------------------------------------------------------------------
 
-def _online_walk(q, step, n_steps: int, lens, qlim, klim, scale: float):
+def _online_state(q, step, n_steps: int, lens, qlim, klim, scale: float):
     """The JAX kernels' per-row-of-table math for a batch of CTAs.
 
     q: (C, R, Dk) f32 query rows of C CTAs; ``step(s)`` gives the s-th kv
@@ -305,7 +312,9 @@ def _online_walk(q, step, n_steps: int, lens, qlim, klim, scale: float):
     positions (C, T)).  ``lens`` (C,): steps in each run (a CTA past its
     run keeps its state).  A score is kept where its kv position is
     ``<= qlim`` (C, R) and ``< klim`` (C,), else set to
-    :data:`DEFAULT_MASK_VALUE`.  Returns acc / l, (C, R, Dv) f32.
+    :data:`DEFAULT_MASK_VALUE`.  Returns the online-softmax state (acc
+    (C, R, Dv), m (C, R, 1), l (C, R, 1)), f32; a CTA with no step keeps
+    (0, -inf, 0).
     """
     acc = m = l = None
     for s in range(n_steps):
@@ -327,14 +336,20 @@ def _online_walk(q, step, n_steps: int, lens, qlim, klim, scale: float):
         acc = torch.where(live, acc_new, acc)
         m = torch.where(live, m_new, m)
         l = torch.where(live, l_new, l)
+    return acc, m, l
+
+
+def _online_walk(q, step, n_steps: int, lens, qlim, klim, scale: float):
+    """:func:`_online_state`'s acc / l, (C, R, Dv) f32: each CTA's output."""
+    acc, _m, l = _online_state(q, step, n_steps, lens, qlim, klim, scale)
     return acc / l
 
 
-def _run_rows(sched: torch.Tensor, runs: torch.Tensor, run_ids: torch.Tensor, s: int) -> torch.Tensor:
-    """The table row of step ``s`` of each run (clamped to the run's last
-    row for runs shorter than s + 1)."""
+def _run_rows(sched: torch.Tensor, runs: torch.Tensor, run_ids: torch.Tensor, s) -> torch.Tensor:
+    """The table row of step ``s`` (an int, or one per run) of each run
+    (clamped to the run's last row for runs shorter than s + 1)."""
     start, n = runs[run_ids, 0], runs[run_ids, 1]
-    return sched[start + torch.minimum(torch.full_like(n, s), n - 1)]
+    return sched[start + torch.minimum(torch.as_tensor(s, device=n.device).expand_as(n), n - 1)]
 
 
 _INT_MAX = torch.iinfo(torch.int32).max
@@ -496,6 +511,52 @@ def flash_attention_swizzled(
 # row 21: one decode step against a paged KV pool
 # ---------------------------------------------------------------------------
 
+class DecodeLaunch(NamedTuple):
+    """The split-KV launch of ``sfc_flash_decode`` (``csrc/attention.cu``:
+    ``dec::Geometry``, ``dec::launch_t``)."""
+
+    split_pages: int             # consecutive logical pages a split CTA walks
+    splits: int                  # split CTAs along a slot's max_pages pages
+    grid: tuple[int, int, int]   # (runs * splits, Hkv, row groups of DECODE_ROWS)
+
+    def workspace(self, g: int, dv: int) -> tuple[int, ...]:
+        """The f32 workspace of the split partials: (runs, splits, Hkv,
+        g, Dv + 2), each row's (acc[0:Dv], m, l)."""
+        return (self.grid[0] // self.splits, self.splits, self.grid[1], g, dv + 2)
+
+
+def decode_launch(n_runs: int, hkv: int, g: int, page_size: int, max_pages: int) -> DecodeLaunch:
+    """The split-KV geometry of a decode launch.  It depends on the shapes
+    alone, never on ``pos`` (which stays on the device): a split holds
+    :data:`DECODE_SPLIT_ROWS` // page_size pages (one round of a CTA's
+    four warps), at least one and at most ``max_pages``."""
+    split_pages = max(1, min(DECODE_SPLIT_ROWS // page_size, max_pages))
+    splits = -(-max_pages // split_pages)
+    return DecodeLaunch(split_pages, splits, (n_runs * splits, hkv, -(-g // DECODE_ROWS)))
+
+
+def decode_workspace(lay: DecodeLaunch, g: int, dv: int, device) -> torch.Tensor:
+    """The kernel's workspace, allocated by the wrapper (the kernel writes
+    the live splits' entries and the merge reads only those)."""
+    return torch.empty(lay.workspace(g, dv), dtype=torch.float32, device=device)
+
+
+def _decode_walk_steps(pos: torch.Tensor, ps: int, n: torch.Tensor) -> torch.Tensor:
+    """Table steps (pages) a slot's decode walks: up to its last live page
+    (``lp <= pos // ps``; later pages are masked and add exactly zero), or
+    all ``n`` when ``pos < 0`` (every entry masked: the mean of the values
+    visited, trash page included)."""
+    return torch.where(pos >= 0, torch.minimum(torch.div(pos, ps, rounding_mode="floor"), n - 1) + 1, n)
+
+
+def _decode_check(program: GpuProgram, page_table, k_pages) -> None:
+    p = program.params
+    if k_pages.shape[1] != p["page_size"] or page_table.shape[1] != p["max_pages"]:
+        raise ValueError(
+            f"{program.name}: pages of {k_pages.shape[1]} rows, {page_table.shape[1]} a slot; the "
+            f"program was built for {p['page_size']} and {p['max_pages']}")
+
+
 def _decode_cuda(program: GpuProgram, page_table, pos, q, k_pages, v_pages):
     p = program.params
     B, Hkv, g, Dk = q.shape
@@ -510,63 +571,95 @@ def _decode_cuda(program: GpuProgram, page_table, pos, q, k_pages, v_pages):
     require(program, program.schedule, "schedule", dtypes=(torch.int32,))
     require(program, p["runs"], "runs", dtypes=(torch.int32,))
     _check_kernel_shape(program, Dk, Dv, g)
+    _decode_check(program, page_table, k_pages)
+    n_runs = int(p["runs"].shape[0])
+    lay = decode_launch(n_runs, Hkv, g, ps, MP)
     o = torch.empty((B, Hkv, g, Dv), dtype=q.dtype, device=q.device)
+    ws = decode_workspace(lay, g, Dv, q.device)
     call(
         "sfc_flash_decode", q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), o.data_ptr(),
-        program.schedule.data_ptr(), p["runs"].data_ptr(), *program.grid,
-        page_table.data_ptr(), pos.data_ptr(), g, Dk, Dv, ps, MP, p["sm_scale"],
-        _DTYPE_CODE[q.dtype], stream_of(q),
+        ws.data_ptr(), program.schedule.data_ptr(), p["runs"].data_ptr(), n_runs, Hkv,
+        page_table.data_ptr(), pos.data_ptr(), g, Dk, Dv, ps, MP, lay.split_pages, lay.splits,
+        p["sm_scale"], _DTYPE_CODE[q.dtype], stream_of(q),
     )
     return o
 
 
 def _decode_plain(program: GpuProgram, page_table, pos, q, k_pages, v_pages):
+    """The kernel's two passes: each split CTA's online walk over its
+    pages (CTAs in a shuffled order) into the workspace, then per (slot,
+    kv head) the merge of its live splits in ascending split order."""
     p = program.params
     B, Hkv, g, Dk = q.shape
     ps = k_pages.shape[1]
     Dv = v_pages.shape[-1]
     MP = page_table.shape[1]
+    _decode_check(program, page_table, k_pages)
     sched, runs = program.schedule.long(), p["runs"].long()
     pt, posl = page_table.long(), pos.long()
     qf, kf, vf = q.float(), k_pages.float(), v_pages.float()
-    o = torch.empty((B, Hkv, g, Dv), dtype=q.dtype, device=q.device)
-    ar = torch.arange(ps, device=q.device)
     n_runs = runs.shape[0]
-    order = shuffled_ctas(n_runs * Hkv, q.device)
-    for chunk in cta_chunks(order, g * Dk + ps * (Dk + Dv) * MP):
-        run, h = chunk // Hkv, chunk % Hkv
-        slot = sched[runs[run, 0], 0]
-        # the kernel's walk: the slot's pages up to its last live one
-        last = torch.where(posl[slot] >= 0, torch.clamp(posl[slot] // ps, max=MP - 1), MP - 1)
-        lens = torch.minimum(runs[run, 1], last + 1)
+    lay = decode_launch(n_runs, Hkv, g, ps, MP)
+    S, NS = lay.split_pages, lay.splits
+    # a dead split's entries are never written: NaN here, so reading one fails
+    ws = torch.full(lay.workspace(g, Dv), float("nan"), dtype=torch.float32, device=q.device)
+    ar = torch.arange(ps, device=q.device)
+    slots = sched[runs[:, 0], 0]
+    steps = _decode_walk_steps(posl[slots], ps, runs[:, 1])  # (n_runs,)
+    order = shuffled_ctas(n_runs * NS * Hkv, q.device)
+    for chunk in cta_chunks(order, g * Dk + S * ps * (Dk + Dv)):
+        run, split, h = chunk // (NS * Hkv), chunk // Hkv % NS, chunk % Hkv
+        slot = slots[run]
+        t0 = split * S
+        lens = torch.clamp(steps[run] - t0, 0, S)
         qlim = posl[slot][:, None].expand(-1, g)
 
-        def step(s, run=run, h=h, slot=slot):
-            lp = _run_rows(sched, runs, run, s)[:, 1]
+        def step(s, run=run, h=h, slot=slot, t0=t0):
+            lp = _run_rows(sched, runs, run, t0 + s)[:, 1]
             phys = pt[slot, lp]
-            kpos = lp[:, None] * ps + ar
-            return kf[phys, :, h], vf[phys, :, h], kpos
+            return kf[phys, :, h], vf[phys, :, h], lp[:, None] * ps + ar
 
-        out = _online_walk(qf[slot, h], step, int(lens.max()), lens, qlim,
-                           torch.full_like(slot, _INT_MAX), p["sm_scale"])
-        o[slot, h] = out.to(o.dtype)
+        acc, m, l = _online_state(qf[slot, h], step, max(1, int(lens.max())), lens, qlim,
+                                  torch.full_like(slot, _INT_MAX), p["sm_scale"])
+        live = lens > 0
+        ws[run[live], split[live], h[live]] = torch.cat([acc, m, l], dim=2)[live]
+    live = torch.arange(NS, device=q.device)[None] < -(-steps[:, None] // S)  # (n_runs, NS)
+    m_s = torch.where(live[:, :, None, None], ws[..., Dv], float("-inf"))
+    M = m_s.amax(dim=1)  # (n_runs, Hkv, g)
+    acc = torch.zeros((n_runs, Hkv, g, Dv), dtype=torch.float32, device=q.device)
+    L = torch.zeros((n_runs, Hkv, g), dtype=torch.float32, device=q.device)
+    for s in range(NS):
+        e = torch.exp(m_s[:, s] - M)  # 0 for a dead split
+        w = live[:, s, None, None]
+        L = L + torch.where(w, e * ws[:, s, ..., Dv + 1], 0.0)
+        acc = acc + torch.where(w[..., None], e[..., None] * ws[:, s, ..., :Dv], 0.0)
+    o = torch.empty((B, Hkv, g, Dv), dtype=q.dtype, device=q.device)
+    o[slots] = (acc / L[..., None]).to(o.dtype)
     return o
 
 
-def flash_decode_program(schedule: PageSchedule, q: torch.Tensor, *, sm_scale: float) -> GpuProgram:
-    """The ``sfc_flash_decode`` declaration: one CTA per (slot run, kv
-    head), serving the g query heads of its group."""
-    Hkv = q.shape[1]
+def flash_decode_program(schedule: PageSchedule, q: torch.Tensor, *, page_size: int,
+                         max_pages: int, sm_scale: float) -> GpuProgram:
+    """The ``sfc_flash_decode`` declaration: one CTA per (slot run, split of
+    consecutive pages, kv head, group of
+    :data:`DECODE_ROWS` query heads), then one merge CTA per (slot run,
+    kv head) (:func:`decode_launch`)."""
+    Hkv, g = q.shape[1], q.shape[2]
     table = schedule.table
     if table.dim() != 2 or table.shape[1] != 4:
         raise ValueError(f"schedule {tuple(table.shape)} is not a (slot, page, first, last) table")
+    n_runs = int(schedule.runs.shape[0])
+    if table.shape[0] != n_runs * max_pages:
+        raise ValueError(f"schedule of {table.shape[0]} rows is not {n_runs} runs of {max_pages} pages")
+    lay = decode_launch(n_runs, Hkv, g, page_size, max_pages)
     return GpuProgram(
         name="sfc_flash_decode",
         schedule=table,
         launcher=_decode_cuda,
         plain=_decode_plain,
-        grid=(int(schedule.runs.shape[0]), Hkv),
-        params={"runs": schedule.runs, "sm_scale": float(sm_scale)},
+        grid=lay.grid,
+        params={"runs": schedule.runs, "sm_scale": float(sm_scale), "page_size": int(page_size),
+                "max_pages": int(max_pages)},
         columns=("slot", "logical_page", "first", "last"),
     )
 
@@ -595,7 +688,8 @@ def flash_attention_decode(
         raise ValueError(f"pools {tuple(k_pages.shape)}/{tuple(v_pages.shape)} do not match q {tuple(q.shape)}")
     if sm_scale is None:
         sm_scale = 1.0 / float(np.sqrt(Dk))
-    program = flash_decode_program(schedule, q, sm_scale=sm_scale)
+    program = flash_decode_program(schedule, q, page_size=k_pages.shape[1],
+                                   max_pages=page_table.shape[1], sm_scale=sm_scale)
     return launch(
         program, page_table.to(torch.int32).contiguous(), pos.to(torch.int32).contiguous(),
         q.contiguous(), k_pages, v_pages,

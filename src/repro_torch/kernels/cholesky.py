@@ -11,14 +11,15 @@ respect; the paper's maximal order-free parts are, per k-block:
 :func:`cholesky_program` (the fused form, the counterpart of the JAX
 package's ``_fused_chol_kernel``) runs every phase of every k-block off ONE
 :func:`repro_torch.core.phased_schedule` table, one launch per ``(k,
-phase)`` barrier group, one CTA per table row (``csrc/cholesky.cu``:
-``sfc_chol_diag``, ``sfc_chol_panel``, ``sfc_chol_trailing``).
+phase)`` barrier group over its table rows (``csrc/cholesky.cu``:
+``sfc_chol_diag`` and ``sfc_chol_panel`` one CTA per row,
+``sfc_chol_trailing`` one persistent CTA per SM walking the rows).
 :func:`cholesky_reference_program` (the per-k form) launches the same diag
 and panel kernels with its own per-k tables and runs each trailing update
 through :func:`repro_torch.kernels.matmul.tile_update_swizzled` on the
 zero-padded (n, b) panel, as the JAX reference does; the fused trailing
-kernel runs the same device function as ``sfc_tile_update``, so both
-forms agree to the last bit.
+kernel computes each element by ``sfc_tile_update``'s chain of rounded
+operations, so both forms agree to the last bit.
 
 Every update is in place.  No workspace: the panel phase reads L_kk,
 which no CTA of its launch writes, and trailing tiles never write column
@@ -77,7 +78,7 @@ def _solve_tiles(l: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
 
 
 def _run_group(program: GpuProgram, a: torch.Tensor, phase: int, k: int, lo: int, hi: int) -> None:
-    """One barrier group on the card: one launch, one CTA per table row."""
+    """One barrier group on the card: one launch over its table rows."""
     sched = program.schedule
     call(
         ENTRY_POINTS[phase], a.data_ptr(), sched.data_ptr(), sched.shape[1], program.params["col_i"],

@@ -1,5 +1,7 @@
-// Flash attention over curve- and page-scheduled runs: three kernels that
-// share one online-softmax device routine (flash_rows).
+// Flash attention over curve- and page-scheduled runs: three entry points;
+// the full-sequence and prefill kernels share one SIMT online-softmax
+// routine (flash_rows) and, in bf16, one tensor-core consumer; decode is
+// split-KV.
 //
 // sfc_flash_attention replaces src/repro/kernels/attention.py::
 // flash_attention_swizzled (_flash_kernel): attention over (BH, S, D) with
@@ -9,10 +11,10 @@
 //
 // sfc_flash_decode replaces flash_attention_decode (_flash_decode_kernel):
 // one decode step of (B, Hkv, g, Dk) grouped queries against (P, ps, Hkv,
-// D) page pools read through page_table[slot, lp].  One CTA per (slot run,
-// kv head) serves the g query heads of its group, and stops at the slot's
-// last live page (lp <= pos // ps): a later page is masked by position and
-// adds exactly zero to a finite state.
+// D) page pools read through page_table[slot, lp].  A slot's walk stops at
+// its last live page (lp <= pos // ps): a later page is masked by position
+// and adds exactly zero to a finite state.  A slot with pos < 0 walks all
+// its pages, every entry masked: the mean of every V row visited.
 //
 // sfc_flash_prefill replaces flash_attention_prefill (_flash_prefill_kernel):
 // a cohort's (B, Tq, Hkv, g, Dk) new tokens, causal over each slot's paged
@@ -32,15 +34,43 @@
 // query rows (2 flops per byte in bf16 at g = 8); prefill and the
 // full-sequence kernel do 2 * rows flops per K/V element read, well under
 // the ridge of the bf16 tensor cores.  The SIMT f32 core (flash_rows) runs
-// decode and every f32 or odd-shaped prefill and sfc_flash_attention: a CTA
-// of 8 warps stages 64 kv rows of K and V at a time in shared memory as
-// f32 (the page-table or tile-table lookup done once per row by one
-// thread), each warp owns RW query rows held in shared memory, a lane
-// owns one kv row of each 32-row chunk for the scores and 4 of the 128
-// output columns for P.V, and each row's (m, l, acc) lives in registers.
-// Query blocks of more than 64 rows (prefill's 16 x 8, bq = 128) are
-// walked in passes of 64.  No tensor cores, no TMA, no split-KV: decode
-// at 8 slots x 4 kv heads runs 32 CTAs on 132 SMs.  Those are later work.
+// every f32 or odd-shaped prefill and sfc_flash_attention: a CTA of 8
+// warps stages 64 kv rows of K and V at a time in shared memory as f32
+// (the page-table or tile-table lookup done once per row by one thread),
+// each warp owns RW query rows held in shared memory, a lane owns one kv
+// row of each 32-row chunk for the scores and 4 of the 128 output columns
+// for P.V, and each row's (m, l, acc) lives in registers.  Query blocks of
+// more than 64 rows (prefill's 16 x 8, bq = 128) are walked in passes of
+// 64.
+//
+// Decode ran on that core too, one CTA per (slot, kv head): at the serving
+// shape (8 slots x 128 pages of 16, Hkv 4, g 8, D 64, bf16) 32 CTAs on 132
+// SMs, 0.385-0.440 ms for ~7.6 MB of live K/V.  It is now split-KV (dec::,
+// below), one design for f32 and bf16: a split CTA per (slot run, split of
+// 128 // ps consecutive pages (at least one), kv head, group of 8 query
+// heads), the grid fixed by the shapes alone (pos stays on the card; a CTA
+// whose split starts past its slot's last live page exits at once), then
+// a merge CTA per (slot run, kv head), both launched by the one entry.  A
+// split CTA has up to 4 warps; a warp walks chunks of 32 kv rows, lane j
+// looking up row j's page (the first chunk's while pos is in flight) and
+// the warp copying the chunk with 16-byte cp.async (8 lanes a 128-byte
+// bf16 row) into shared memory as stored, K and V as two groups, so the
+// scores and the softmax run while V lands; a warp with more than one
+// chunk (pages over 128 rows) keeps the next one in flight in a second
+// ring slot.  Lane j scores row j against the 8 query rows (f32 in shared
+// memory), bf16 converted in registers, the online softmax in f32, P.V
+// with a lane owning output columns; the warps' states merge in shared
+// memory and the split's (acc, m, l) go to an f32 workspace (runs,
+// splits, Hkv, g, Dv + 2) that the
+// wrapper allocates.  The merge takes each slot's live splits in
+// ascending order (deterministic), 8 splits' loads in flight a thread.
+// Splits of 128 rows (8 pages of 16): 512 split CTAs, 244 live at the
+// timing run's positions.  A call by CUDA events, the host's enqueue
+// included, 0.062-0.089 ms against 0.126-0.163 for page gather + SDPA;
+// device time 0.022 ms (split 0.016, merge 0.005) against 0.025 (NVIDIA
+// H100 80GB HBM3, 700.00 W, chip_smoke.py).  Tensor cores would not pay: at
+// 2 flops a byte the kernel is bound by bytes and latency, not by FP32
+// issue.
 //
 // sfc_flash_attention in bf16 at D = 64 or 128, bq = 128 and bkv a
 // multiple of 64 runs the tensor-core core instead (flash_wgmma_kernel;
@@ -97,6 +127,7 @@
 #include <cuda_runtime.h>
 #include <mutex>
 
+#include "cp_async.cuh"
 #include "wgmma_gemm.cuh"
 
 namespace {
@@ -167,39 +198,6 @@ struct DenseWalk {
     const int t = f / bkv;
     pos = sched[4 * (start + t) + 1] * bkv + (f - t * bkv);
     ko = vo = ((size_t)bh * S + pos) * D;
-  }
-};
-
-// sfc_flash_decode: the g query heads of (slot, kv head h); kv rows of the
-// slot's pages up to its last live one
-struct DecodeWalk {
-  const int* sched;
-  const int* table;
-  int start, slot, h, hkv, g, dk, dv, ps, mp, p, nkv;
-  static constexpr int klim = INT_MAX;
-
-  __device__ DecodeWalk(const int* sched_, const int* runs, const int* table_, const int* pos,
-                        int g_, int dk_, int dv_, int ps_, int mp_)
-      : sched(sched_), table(table_), g(g_), dk(dk_), dv(dv_), ps(ps_), mp(mp_) {
-    start = runs[2 * blockIdx.x];
-    const int n = runs[2 * blockIdx.x + 1];
-    h = blockIdx.y;
-    hkv = gridDim.y;
-    slot = sched[4 * start];
-    p = pos[slot];
-    nkv = (p >= 0 ? min(p / ps, n - 1) + 1 : n) * ps;
-  }
-  __device__ int rows() const { return g; }
-  __device__ size_t q_off(int r) const { return (((size_t)slot * hkv + h) * g + r) * dk; }
-  __device__ size_t o_off(int r) const { return (((size_t)slot * hkv + h) * g + r) * dv; }
-  __device__ int qlim(int) const { return p; }
-  __device__ void kv(int f, size_t& ko, size_t& vo, int& pos) const {
-    const int t = f / ps, off = f - t * ps;
-    const int lp = sched[4 * (start + t) + 1];
-    const size_t row = ((size_t)table[(size_t)slot * mp + lp] * ps + off) * hkv + h;
-    pos = lp * ps + off;
-    ko = row * dk;
-    vo = row * dv;
   }
 };
 
@@ -394,15 +392,6 @@ flash_attention_kernel(const T* q, const T* k, const T* v, T* o, const int* sche
 
 template <typename T, int RW>
 __global__ void __launch_bounds__(THREADS)
-flash_decode_kernel(const T* q, const T* kp, const T* vp, T* o, const int* sched, const int* runs,
-                    const int* table, const int* pos, int g, int dk, int dv, int ps, int mp,
-                    float scale) {
-  const DecodeWalk w(sched, runs, table, pos, g, dk, dv, ps, mp);
-  flash_rows<T, RW>(w, q, kp, vp, o, dk, dv, scale);
-}
-
-template <typename T, int RW>
-__global__ void __launch_bounds__(THREADS)
 flash_prefill_kernel(const T* q, const T* kp, const T* vp, T* o, const int* sched, const int* runs,
                      const int* table, const int* pos0, int tq, int g, int dk, int dv, int ps, int mp,
                      float scale) {
@@ -413,19 +402,17 @@ flash_prefill_kernel(const T* q, const T* kp, const T* vp, T* o, const int* sche
 constexpr int MAX_DEVICES = 64;
 
 // kernel Kern's dynamic shared-memory limit (above the 48 KB static one),
-// raised once per device to the most a launch of it can ask for: passes of
-// RW * WARPS query rows at Dk = Dv = MAX_D
-template <auto Kern, int RW>
-cudaError_t raise_smem_limit() {
+// raised once per device to `bytes`, the most a launch of it can ask for
+template <auto Kern>
+cudaError_t raise_smem_limit(int bytes) {
   int dev = 0;
   const cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
   static std::once_flag once[MAX_DEVICES];
   static cudaError_t attr[MAX_DEVICES];
-  std::call_once(once[dev], [dev] {
-    attr[dev] = cudaFuncSetAttribute(Kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                     (int)smem_bytes(RW * WARPS, MAX_D, MAX_D));
+  std::call_once(once[dev], [dev, bytes] {
+    attr[dev] = cudaFuncSetAttribute(Kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   });
   return attr[dev];
 }
@@ -435,7 +422,8 @@ template <auto Kern, int RW, typename... Args>
 int launch(int runs, int heads, size_t smem, void* stream, Args... args) {
   if (runs == 0 || heads == 0) return 0;
   if (heads > 65535) return (int)cudaErrorInvalidConfiguration;
-  const cudaError_t err = raise_smem_limit<Kern, RW>();
+  // passes of RW * WARPS query rows at Dk = Dv = MAX_D: the most a launch asks for
+  const cudaError_t err = raise_smem_limit<Kern>((int)smem_bytes(RW * WARPS, MAX_D, MAX_D));
   if (err != cudaSuccess) return (int)err;
   Kern<<<dim3(runs, heads), THREADS, smem, (cudaStream_t)stream>>>(args...);
   return (int)cudaGetLastError();
@@ -462,21 +450,6 @@ int attention_t(const void* q, const void* k, const void* v, void* o, const void
 }
 
 template <typename T>
-int decode_t(const void* q, const void* kp, const void* vp, void* o, const void* sched,
-             const void* runs, int n_runs, int hkv, const void* table, const void* pos, int g,
-             int dk, int dv, int ps, int mp, float scale, void* stream) {
-  if (g > WARPS)
-    return launch<flash_decode_kernel<T, 8>, 8>(
-        n_runs, hkv, smem_bytes(8 * WARPS, dk, dv), stream, (const T*)q, (const T*)kp,
-        (const T*)vp, (T*)o, (const int*)sched, (const int*)runs, (const int*)table,
-        (const int*)pos, g, dk, dv, ps, mp, scale);
-  return launch<flash_decode_kernel<T, 1>, 1>(
-      n_runs, hkv, smem_bytes(WARPS, dk, dv), stream, (const T*)q, (const T*)kp, (const T*)vp,
-      (T*)o, (const int*)sched, (const int*)runs, (const int*)table, (const int*)pos, g, dk, dv,
-      ps, mp, scale);
-}
-
-template <typename T>
 int prefill_t(const void* q, const void* kp, const void* vp, void* o, const void* sched,
               const void* runs, int n_runs, int hkv, const void* table, const void* pos0, int tq,
               int g, int dk, int dv, int ps, int mp, float scale, void* stream) {
@@ -490,6 +463,408 @@ int prefill_t(const void* q, const void* kp, const void* vp, void* o, const void
       (T*)o, (const int*)sched, (const int*)runs, (const int*)table, (const int*)pos0, tq, g, dk,
       dv, ps, mp, scale);
 }
+
+// ---------------------------------------------------------------------------
+// sfc_flash_decode: split-KV over each slot's pages, then a merge
+// ---------------------------------------------------------------------------
+
+namespace dec {
+
+constexpr int GR = 8;              // query rows of a CTA: a row group of g
+constexpr int MAX_WARPS = 4;       // a warp walks 32 kv rows a round
+constexpr int MERGE_THREADS = 256;
+constexpr int SMEM_CAP = 227 * 1024;  // the H100's dynamic shared memory a CTA
+
+__host__ __device__ constexpr int imin(int a, int b) { return a < b ? a : b; }
+__host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
+
+// A split CTA's shared memory at element size es (bytes), Dk, Dv, page
+// size ps and split_pages pages a split.  A warp walks chunks of 32 kv
+// rows (warp w the split's chunks w, w + warps, ...) through a ring of
+// `stages` slots of its own (K and V as stored, 16-byte units a row, K's
+// stride an odd number of units so the 8 lanes of a 16-byte read phase hit
+// 8 distinct bank groups): two slots when a warp has more than one chunk
+// and they fit, else one.  Then Q's GR rows in f32, zero past Dk, and each
+// warp's GR x 32 probabilities.  After the walk the K/V space holds each
+// warp's (acc, m, l) for the CTA's merge.
+struct Geometry {
+  int warps, stages, kunits, vunits, kstride, vstride, dkp;
+  int v_off, q_off, p_off, bytes;
+
+  __host__ __device__ Geometry(int es, int dk, int dv, int ps, int split_pages) {
+    const int rows = split_pages * ps;
+    warps = imin(MAX_WARPS, (rows + 31) / 32);
+    kunits = (dk * es + 15) / 16;
+    vunits = (dv * es + 15) / 16;
+    kstride = (kunits | 1) * 16;
+    vstride = vunits * 16;
+    dkp = kunits * 16 / es;
+    layout(rows > 32 * warps ? 2 : 1, dv);
+    if (bytes > SMEM_CAP) layout(1, dv);
+  }
+
+  __host__ __device__ void layout(int st, int dv) {
+    stages = st;
+    const int slots = warps * stages * 32;  // rows of the K and V rings
+    v_off = slots * kstride;
+    q_off = imax(v_off + slots * vstride, warps * GR * (dv + 2) * 4);
+    p_off = q_off + GR * dkp * 4;
+    bytes = p_off + warps * GR * 32 * 4;
+  }
+};
+
+// the number of a slot's table steps (pages) that a decode walks: up to
+// its last live page, or every page when pos < 0
+__device__ __forceinline__ int walk_steps(int p, int ps, int n) {
+  return p >= 0 ? min(p / ps, n - 1) + 1 : n;
+}
+
+__device__ __forceinline__ void unpack(const uint4& u, float (&f)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 v = __bfloat1622float2(h[i]);
+    f[2 * i] = v.x;
+    f[2 * i + 1] = v.y;
+  }
+}
+
+__device__ __forceinline__ void unpack(const uint4& u, float (&f)[4]) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
+
+// CTA (run * splits + split, kv head h, row group z): query rows z GR ..
+// of the slot's group against table steps split * split_pages .. of the
+// run, up to the slot's last live page.  VEC: K and V rows are whole
+// 16-byte units from 16-byte aligned pools (cp.async), else staged an
+// element a thread.  Lane j of a warp looks up row j of the warp's chunk
+// (its pool row and position) and the warp's copies take each row's pool
+// row from its lane by shuffle; a chunk's K and V are two cp.async groups,
+// so the scores and the softmax run while V lands, and with two slots the
+// warp's next chunk is in flight while this one is scored.  Writes the
+// split's (acc, m, l) for each query row to ws[run, split, h, row] =
+// (acc[0 .. Dv), m, l).
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(MAX_WARPS * 32)
+split_kernel(const T* __restrict__ q, const T* __restrict__ kp, const T* __restrict__ vp,
+             float* __restrict__ ws, const int* __restrict__ sched, const int* __restrict__ runs,
+             const int* __restrict__ table, const int* __restrict__ pos, int g, int dk, int dv,
+             int ps, int mp, int split_pages, int splits, float scale) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* raw = smem_raw;
+  constexpr int EPU = 16 / (int)sizeof(T);  // elements of a 16-byte unit
+  constexpr unsigned FULL = 0xffffffffu;
+  const Geometry geo((int)sizeof(T), dk, dv, ps, split_pages);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int run = blockIdx.x / splits, split = blockIdx.x - run * splits;
+  const int h = blockIdx.y, hkv = gridDim.y;
+  const int r0 = blockIdx.z * GR, nr = min(GR, g - r0);
+  const int start = runs[2 * run], n = runs[2 * run + 1];
+  const int slot = sched[4 * start];
+  const int t0 = split * split_pages;
+
+  uint8_t* Kw = raw + warp * geo.stages * 32 * geo.kstride;  // the warp's ring slots
+  uint8_t* Vw = raw + geo.v_off + warp * geo.stages * 32 * geo.vstride;
+  float* Qs = reinterpret_cast<float*>(raw + geo.q_off);
+  float* Ps = reinterpret_cast<float*>(raw + geo.p_off) + warp * GR * 32;
+
+  // row 32 c + lane of the split, page t0 + f / ps of the walk (past the
+  // run's last page, its last page again): its pool row and its position
+  auto lookup = [&](int c, size_t& roff, int& rpos) {
+    const int f = t0 * ps + 32 * c + lane;
+    const int t = min(f / ps, n - 1), off = f - (f / ps) * ps;
+    const int lp = sched[4 * (start + t) + 1];
+    roff = ((size_t)table[(size_t)slot * mp + lp] * ps + off) * hkv + h;
+    rpos = lp * ps + off;
+  };
+  // chunk rows 0 .. wrows - 1 into ring slot st: K, then V, a cp.async
+  // group each (empty groups on the element path, which stores at once)
+  auto issue = [&](int st, int wrows, size_t roff) {
+    uint8_t* Ks = Kw + st * 32 * geo.kstride;
+    uint8_t* Vs = Vw + st * 32 * geo.vstride;
+    if (VEC) {
+      for (int i = lane; i < 32 * geo.kunits; i += 32) {
+        const int j = i / geo.kunits, u = i - j * geo.kunits;
+        const size_t ro = __shfl_sync(FULL, roff, j);
+        if (j < wrows) sfc::cp_async16(Ks + j * geo.kstride + u * 16, kp + ro * dk + u * EPU);
+      }
+      sfc::cp_async_commit();
+      for (int i = lane; i < 32 * geo.vunits; i += 32) {
+        const int j = i / geo.vunits, u = i - j * geo.vunits;
+        const size_t ro = __shfl_sync(FULL, roff, j);
+        if (j < wrows) sfc::cp_async16(Vs + j * geo.vstride + u * 16, vp + ro * dv + u * EPU);
+      }
+      sfc::cp_async_commit();
+    } else {
+      const int kw = geo.kunits * EPU, vw = geo.vunits * EPU;
+      for (int i = lane; i < 32 * kw; i += 32) {
+        const int j = i / kw, d = i - j * kw;
+        const size_t ro = __shfl_sync(FULL, roff, j);
+        T* dst = reinterpret_cast<T*>(Ks + j * geo.kstride) + d;
+        if (j < wrows) {
+          if (d < dk) *dst = kp[ro * dk + d];
+          else store(dst, 0.f);  // Qs is zero there too, but 0 * garbage may be NaN
+        }
+      }
+      for (int i = lane; i < 32 * vw; i += 32) {
+        const int j = i / vw, d = i - j * vw;
+        const size_t ro = __shfl_sync(FULL, roff, j);
+        if (j < wrows && d < dv) reinterpret_cast<T*>(Vs + j * geo.vstride)[d] = vp[ro * dv + d];
+      }
+      sfc::cp_async_commit();
+      sfc::cp_async_commit();
+    }
+  };
+
+  // Q and the warp's first lookups do not wait for pos: they are in
+  // flight together with it
+  for (int i = threadIdx.x; i < GR * geo.dkp; i += blockDim.x) {
+    const int r = i / geo.dkp, d = i - r * geo.dkp;
+    Qs[i] = (r < nr && d < dk) ? to_f32(q[(((size_t)slot * hkv + h) * g + r0 + r) * dk + d]) : 0.f;
+  }
+  size_t roff;
+  int rpos;
+  lookup(warp, roff, rpos);
+  const int p = pos[slot];
+  const int steps = walk_steps(p, ps, n);
+  if (t0 >= steps) return;  // wholly past the slot's last live page: no partial
+  const int nkv = (min(t0 + split_pages, steps) - t0) * ps;
+  const int chunks = (nkv + 31) / 32;
+
+  float m[GR], l[GR], acc[GR][ND];
+#pragma unroll
+  for (int r = 0; r < GR; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < ND; ++c) acc[r][c] = 0.f;
+  }
+  if (warp < chunks) issue(0, min(32, nkv - 32 * warp), roff);
+  __syncthreads();  // Qs is in place
+
+  // warp w stages and reads only its own ring slots: no CTA barrier.  The
+  // cp.async groups in flight at a chunk's first wait, oldest first: its
+  // K, its V, the next chunk's K and V (empty when there is none, or when
+  // one slot makes the next chunk wait for this one to be consumed)
+  for (int c = warp, k = 0; c < chunks; c += geo.warps, ++k) {
+    const int st = geo.stages == 2 ? (k & 1) : 0;
+    const int wrows = min(32, nkv - 32 * c), kpos = rpos;
+    const int cn = c + geo.warps;
+    if (geo.stages == 2 && cn < chunks) {
+      lookup(cn, roff, rpos);
+      issue(st ^ 1, min(32, nkv - 32 * cn), roff);
+    } else {
+      sfc::cp_async_commit();
+      sfc::cp_async_commit();
+    }
+    const uint8_t* Ks = Kw + st * 32 * geo.kstride;
+    const uint8_t* Vs = Vw + st * 32 * geo.vstride;
+    sfc::cp_async_wait<3>();
+    __syncwarp();
+
+    // scores: lane j against the CTA's GR query rows
+    const bool live = lane < wrows;
+    float s[GR];
+#pragma unroll
+    for (int r = 0; r < GR; ++r) s[r] = 0.f;
+    if (live) {
+      const uint8_t* kr = Ks + lane * geo.kstride;
+      for (int u = 0; u < geo.kunits; ++u) {
+        float kf[EPU];
+        unpack(*reinterpret_cast<const uint4*>(kr + u * 16), kf);
+#pragma unroll
+        for (int r = 0; r < GR; ++r) {
+          const float* qr = Qs + r * geo.dkp + u * EPU;
+#pragma unroll
+          for (int e = 0; e < EPU; e += 4) {
+            const float4 q4 = *reinterpret_cast<const float4*>(qr + e);
+            s[r] = fmaf(q4.x, kf[e], s[r]);
+            s[r] = fmaf(q4.y, kf[e + 1], s[r]);
+            s[r] = fmaf(q4.z, kf[e + 2], s[r]);
+            s[r] = fmaf(q4.w, kf[e + 3], s[r]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < GR; ++r) {
+      const float sc = live ? (kpos <= p ? s[r] * scale : MASK) : -INFINITY;
+      const float mn = fmaxf(m[r], warp_max(sc));
+      const float pe = expf(sc - mn);
+      const float alpha = expf(m[r] - mn);
+      l[r] = alpha * l[r] + warp_sum(pe);
+#pragma unroll
+      for (int c = 0; c < ND; ++c) acc[r][c] *= alpha;
+      m[r] = mn;
+      Ps[r * 32 + lane] = pe;
+    }
+    sfc::cp_async_wait<2>();
+    __syncwarp();
+    // P . V: lane owns output columns lane, lane + 32, ...
+    for (int jj = 0; jj < wrows; ++jj) {
+      const T* vr = reinterpret_cast<const T*>(Vs + jj * geo.vstride);
+      float vv[ND];
+#pragma unroll
+      for (int c = 0; c < ND; ++c) {
+        const int d = lane + 32 * c;
+        vv[c] = d < dv ? to_f32(vr[d]) : 0.f;
+      }
+#pragma unroll
+      for (int r = 0; r < GR; ++r) {
+        const float pr = Ps[r * 32 + jj];
+#pragma unroll
+        for (int c = 0; c < ND; ++c) acc[r][c] = fmaf(pr, vv[c], acc[r][c]);
+      }
+    }
+    __syncwarp();  // ring slot st and Ps are consumed
+    if (geo.stages == 1 && cn < chunks) {
+      lookup(cn, roff, rpos);
+      issue(0, min(32, nkv - 32 * cn), roff);
+    }
+  }
+  __syncthreads();  // every warp is done with the K/V space
+
+  // the CTA's merge: each warp's state through shared memory, warps in
+  // ascending order (a warp that saw no row has m = -inf and weight 0)
+  const int W = dv + 2;
+  float* Mg = reinterpret_cast<float*>(raw);
+#pragma unroll
+  for (int r = 0; r < GR; ++r) {
+    float* dst = Mg + (warp * GR + r) * W;
+#pragma unroll
+    for (int c = 0; c < ND; ++c) {
+      const int d = lane + 32 * c;
+      if (d < dv) dst[d] = acc[r][c];
+    }
+    if (lane == 0) {
+      dst[dv] = m[r];
+      dst[dv + 1] = l[r];
+    }
+  }
+  __syncthreads();
+  float* out = ws + ((((size_t)run * splits + split) * hkv + h) * g + r0) * W;
+  for (int i = threadIdx.x; i < nr * dv; i += blockDim.x) {
+    const int r = i / dv, d = i - r * dv;
+    float M = -INFINITY;
+    for (int w = 0; w < geo.warps; ++w) M = fmaxf(M, Mg[(w * GR + r) * W + dv]);
+    float a = 0.f, L = 0.f;
+    for (int w = 0; w < geo.warps; ++w) {
+      const float* src = Mg + (w * GR + r) * W;
+      const float e = expf(src[dv] - M);
+      a = __fadd_rn(a, __fmul_rn(e, src[d]));
+      L = __fadd_rn(L, __fmul_rn(e, src[dv + 1]));
+    }
+    out[r * W + d] = a;
+    if (d == 0) {
+      out[r * W + dv] = M;
+      out[r * W + dv + 1] = L;
+    }
+  }
+}
+
+// CTA (run, kv head h): the slot's live splits in ascending order,
+// o = sum_s e_s acc_s / sum_s e_s l_s with e_s = exp(m_s - max_s m_s).
+// A warp a row finds its max and sum (32 splits' loads in flight, the sum
+// taken in split order by shuffles), then a thread an output element
+// walks the splits with 8 splits' loads in flight.
+template <typename T>
+__global__ void __launch_bounds__(MERGE_THREADS)
+merge_kernel(const float* __restrict__ ws, T* __restrict__ o, const int* __restrict__ sched,
+             const int* __restrict__ runs, const int* __restrict__ pos, int g, int dv, int ps,
+             int split_pages, int splits) {
+  __shared__ float Ms[MAX_ROWS], Ls[MAX_ROWS];
+  const int run = blockIdx.x, h = blockIdx.y, hkv = gridDim.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int start = runs[2 * run];
+  const int slot = sched[4 * start];
+  const int steps = walk_steps(pos[slot], ps, runs[2 * run + 1]);
+  const int live = (steps + split_pages - 1) / split_pages;
+  const int W = dv + 2;
+  const size_t between = (size_t)hkv * g * W;  // from one split's partials to the next
+  const float* base = ws + ((size_t)run * splits * hkv + h) * g * W;
+  for (int r = warp; r < g; r += MERGE_THREADS / 32) {
+    const float* pr = base + r * W;
+    float M = -INFINITY;
+    for (int s = lane; s < live; s += 32) M = fmaxf(M, pr[s * between + dv]);
+    M = warp_max(M);
+    float L = 0.f;
+    for (int s0 = 0; s0 < live; s0 += 32) {
+      const int s = s0 + lane;
+      const float x =
+          s < live ? __fmul_rn(expf(pr[s * between + dv] - M), pr[s * between + dv + 1]) : 0.f;
+      const int cnt = min(32, live - s0);
+      for (int j = 0; j < cnt; ++j) L = __fadd_rn(L, __shfl_sync(0xffffffffu, x, j));
+    }
+    if (lane == 0) {
+      Ms[r] = M;
+      Ls[r] = L;
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < g * dv; i += MERGE_THREADS) {
+    const int r = i / dv, d = i - r * dv;
+    const float* pr = base + r * W;
+    const float M = Ms[r];
+    float a = 0.f;
+    for (int s0 = 0; s0 < live; s0 += 8) {
+      float m8[8], v8[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const size_t at = (size_t)min(s0 + j, live - 1) * between;
+        m8[j] = pr[at + dv];
+        v8[j] = pr[at + d];
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (s0 + j < live) a = __fadd_rn(a, __fmul_rn(expf(m8[j] - M), v8[j]));
+    }
+    store(o + (((size_t)slot * hkv + h) * g + r) * dv + d, a / Ls[r]);
+  }
+}
+
+template <typename T, bool VEC>
+int launch_t(const void* q, const void* kp, const void* vp, void* o, void* ws, const void* sched,
+             const void* runs, int n_runs, int hkv, const void* table, const void* pos, int g,
+             int dk, int dv, int ps, int mp, int split_pages, int splits, float scale,
+             void* stream) {
+  if (n_runs == 0 || hkv == 0) return 0;
+  if (hkv > 65535) return (int)cudaErrorInvalidConfiguration;
+  const Geometry geo((int)sizeof(T), dk, dv, ps, split_pages);
+  // Geometry keeps every launch within SMEM_CAP
+  const cudaError_t err = raise_smem_limit<split_kernel<T, VEC>>(SMEM_CAP);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(n_runs * splits, hkv, (g + GR - 1) / GR);
+  split_kernel<T, VEC><<<grid, 32 * geo.warps, geo.bytes, (cudaStream_t)stream>>>(
+      (const T*)q, (const T*)kp, (const T*)vp, (float*)ws, (const int*)sched, (const int*)runs,
+      (const int*)table, (const int*)pos, g, dk, dv, ps, mp, split_pages, splits, scale);
+  const cudaError_t split_err = cudaGetLastError();
+  if (split_err != cudaSuccess) return (int)split_err;
+  merge_kernel<T><<<dim3(n_runs, hkv), MERGE_THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)ws, (T*)o, (const int*)sched, (const int*)runs, (const int*)pos, g, dv, ps,
+      split_pages, splits);
+  return (int)cudaGetLastError();
+}
+
+// the cp.async path: whole 16-byte units a row from 16-byte aligned pools
+template <typename T>
+int launch_dtype(const void* q, const void* kp, const void* vp, void* o, void* ws,
+                 const void* sched, const void* runs, int n_runs, int hkv, const void* table,
+                 const void* pos, int g, int dk, int dv, int ps, int mp, int split_pages,
+                 int splits, float scale, void* stream) {
+  const int es = (int)sizeof(T);
+  const bool vec = (dk * es) % 16 == 0 && (dv * es) % 16 == 0 && (uintptr_t)kp % 16 == 0 &&
+                   (uintptr_t)vp % 16 == 0;
+  if (vec)
+    return launch_t<T, true>(q, kp, vp, o, ws, sched, runs, n_runs, hkv, table, pos, g, dk, dv,
+                             ps, mp, split_pages, splits, scale, stream);
+  return launch_t<T, false>(q, kp, vp, o, ws, sched, runs, n_runs, hkv, table, pos, g, dk, dv, ps,
+                            mp, split_pages, splits, scale, stream);
+}
+
+}  // namespace dec
 
 // ---------------------------------------------------------------------------
 // sfc_flash_attention and sfc_flash_prefill in bf16 on the tensor cores:
@@ -1001,16 +1376,21 @@ extern "C" int sfc_flash_attention(const void* q, const void* k, const void* v, 
                                     kv_valid, seqlen, scale, stream);
 }
 
-extern "C" int sfc_flash_decode(const void* q, const void* kp, const void* vp, void* o,
+// ws: the f32 workspace of the split partials, (n_runs, splits, hkv, g,
+// dv + 2); splits * split_pages must cover the mp pages of a run
+extern "C" int sfc_flash_decode(const void* q, const void* kp, const void* vp, void* o, void* ws,
                                 const void* sched, const void* runs, int n_runs, int hkv,
                                 const void* table, const void* pos, int g, int dk, int dv, int ps,
-                                int mp, float scale, int dtype, void* stream) {
-  if (bad_shape(g, dk, dv) || ps < 1) return (int)cudaErrorInvalidValue;
+                                int mp, int split_pages, int splits, float scale, int dtype,
+                                void* stream) {
+  if (bad_shape(g, dk, dv) || ps < 1 || split_pages < 1 || splits < 1 ||
+      (long long)split_pages * splits < mp || (long long)split_pages * ps > INT_MAX / 2)
+    return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return decode_t<float>(q, kp, vp, o, sched, runs, n_runs, hkv, table, pos, g, dk, dv, ps, mp,
-                           scale, stream);
-  return decode_t<__nv_bfloat16>(q, kp, vp, o, sched, runs, n_runs, hkv, table, pos, g, dk, dv,
-                                 ps, mp, scale, stream);
+    return dec::launch_dtype<float>(q, kp, vp, o, ws, sched, runs, n_runs, hkv, table, pos, g, dk,
+                                    dv, ps, mp, split_pages, splits, scale, stream);
+  return dec::launch_dtype<__nv_bfloat16>(q, kp, vp, o, ws, sched, runs, n_runs, hkv, table, pos,
+                                          g, dk, dv, ps, mp, split_pages, splits, scale, stream);
 }
 
 extern "C" int sfc_flash_prefill(const void* q, const void* kp, const void* vp, void* o,

@@ -7,12 +7,14 @@
 // kernel walks the phased (phase, k, i, j) table in grid order and keeps
 // L_kk and the finished L_*k panel in VMEM scratch.  A GPU grid runs its
 // CTAs concurrently and the phases of one k depend on each other, so here
-// every (k, phase) barrier group is its own launch, one CTA per table
-// row: CTA x reads (i, j) at row `row_begin + x` (columns col_i and
-// col_i + 1).  The per-k form launches the diag and panel kernels with
-// its own per-k tables and its trailing update through sfc_tile_update
-// (matmul.cu); the fused trailing kernel here runs the same device
-// function (tile_gemm.cuh::tile_update), so both forms agree to the bit.
+// every (k, phase) barrier group is its own launch over its table rows:
+// diag and panel CTA x read (i, j) at row `row_begin + x` (columns col_i
+// and col_i + 1), a persistent trailing CTA the rows x, x + grid, ....
+// The per-k form launches the diag and panel kernels with its own per-k
+// tables and its trailing update through sfc_tile_update (matmul.cu,
+// tile_gemm.cuh::tile_update); the fused trailing kernel here computes
+// each element by the same chain of rounded operations, so both forms
+// agree to the bit.
 //
 // No workspace: the panel phase writes only column k below the diagonal
 // and reads L_kk, which no CTA of that launch writes; trailing tiles
@@ -20,9 +22,21 @@
 // from the matrix.
 //
 // Bound on the H100: FP32 FMAs with TF32 off (n^3/3 flops in all, nearly
-// all of them in the trailing phase: the SIMT 128x128 tile product of
-// tile_gemm.cuh).  The diag phase (one CTA per k) and the panel phase (at
-// most (n/b - 1) b/32 CTAs per k) are latency-bound sequential loops:
+// all of them in the trailing phase, 2.671 ms of the 2.735 at n = 8192).
+// The trailing phase first ran tile_gemm.cuh::tile_update, one CTA a
+// tile: 16-deep chunks loaded 4 bytes a thread and stored transposed,
+// two CTA barriers a chunk, O read and written a scalar at a time after
+// the product; at depth b = 128 its 63 launches took 10.87 ms (0.25 of
+// the bound), against 0.47 for the same core at depth 8192 (row 1).
+// Now (chol_trailing_kernel below) a persistent CTA an SM keeps every
+// load in flight a tile ahead through 16-byte cp.async and reads 4 k a
+// time: 7.41-7.58 ms (sfc_tile_update on the same tiles 10.87-11.04 and
+// 63 addmm_ of the full trailing square 10.98-11.07 in the same runs;
+// NVIDIA H100 80GB HBM3, 700.00 W, chip_smoke.py).  A 128-thread CTA of
+// 8 x 16 thread tiles ran no faster, so what bounds it is the FMA loop
+// itself (0.36 of the bound), not its loads.  The diag phase (one CTA per
+// k) and the panel phase (at most (n/b - 1) b/32 CTAs per k) are
+// latency-bound sequential loops:
 //   diag:  b dependent sqrt + divide steps on one SM.  The first design
 //          held the tile in registers, 8x8 per thread, and ran b
 //          steps of two CTA barriers and 16 IEEE divisions per thread
@@ -89,6 +103,7 @@
 // Limits: 8 <= b <= 128, b % 8 == 0 (the wrapper raises otherwise).
 #include <mutex>
 
+#include "cp_async.cuh"
 #include "phased.cuh"
 
 namespace {
@@ -362,16 +377,153 @@ chol_panel_kernel(float* D, const int* sched, int sched_cols, int col_i, int row
     }
 }
 
-// phase 2: A_ij <- A_ij - L_ik . L_jk^T for k < j <= i (tile_update,
-// alpha = -1, the per-k form's sfc_tile_update call on the same values)
-__global__ void __launch_bounds__(THREADS)
-chol_trailing_kernel(float* D, const int* sched, int sched_cols, int col_i, int row_begin, int k,
-                     int n, int b) {
-  __shared__ __align__(16) float As[BK * TILE];
-  __shared__ __align__(16) float Bs[BK * TILE];
-  const int2 t0 = cta_tile(sched, sched_cols, col_i, row_begin);
-  tile_update(tile_at(D, n, b, t0.x, t0.y), (size_t)n, tile_at(D, n, b, t0.x, k), (size_t)n,
-              tile_at(D, n, b, t0.y, k), (size_t)n, b, b, b, -1.f, As, Bs);
+// phase 2: A_ij <- A_ij - L_ik . L_jk^T for k < j <= i, each element the
+// chain of tile_update (the per-k form's sfc_tile_update on the same
+// values): acc = __fmaf_rn(L_ik[r][t], L_jk[c][t], acc) for t = 0, 1, ...
+// up to b rounded up to 16 (zeros past b, tile_update's 16-deep chunks),
+// from 0, then a = __fadd_rn(a, __fmul_rn(-1, acc)).
+//
+// A persistent CTA of 256 threads on each SM walks the launch's tiles
+// (table rows x, x + grid, ...), with the thread tile of tile_gemm.cuh
+// (8 x 8: rows 4 ty + i and 64 + 4 ty + i, columns 4 tx + j and
+// 64 + 4 tx + j).  A tile's depth b <= 128 is four stages of 32 k; each
+// stage of L_ik and L_jk sits in one slot of a four-slot ring (a
+// diagonal tile loads its single operand once), one 128-byte row segment
+// a row, its 16-byte chunk c stored in slot position c ^ ((row >> 2) & 7)
+// so the 8 lanes of a 16-byte read phase (rows 4 tx + j, tx = 0 .. 7) hit
+// 8 distinct bank groups.  Every copy is a 16-byte cp.async: a slot is
+// refilled with the same stage of the CTA's next tile as soon as it is
+// consumed, and the O tile (row-major, 64 KB) of the next tile as soon
+// as this tile's epilogue has read it, so loads run a tile ahead of the
+// product.  A thread reads 4 k at a time as one float4 per row and
+// column (16 loads for 256 FMAs, tile_gemm's ratio); the epilogue reads O
+// from shared memory and stores 16 bytes at a time.
+constexpr int TR_STAGE = 32;                        // k columns of a stage
+constexpr int TR_STAGES = TILE / TR_STAGE;          // 4: depth b <= 128, one ring slot each
+constexpr int TR_SLOT = 2 * TILE * TR_STAGE;        // floats of a slot: L_ik's and L_jk's stage
+constexpr int TR_SMEM = (TR_STAGES * TR_SLOT + TILE * TILE) * (int)sizeof(float);  // 192 KB
+
+// float offset of (row, 16-byte chunk c) in a stage
+__device__ __forceinline__ int tr_at(int row, int c) {
+  return row * TR_STAGE + ((c ^ ((row >> 2) & 7)) << 2);
+}
+
+__device__ __forceinline__ float lane4(const float4& v, int q) {
+  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+}
+
+struct Trailing {
+  float* D;
+  const int* sched;
+  int sched_cols, col_i, row_begin, ctas, k, n, b, kp;
+
+  __device__ int2 tile(int x) const {
+    const int* s = sched + (size_t)(row_begin + x) * sched_cols + col_i;
+    return make_int2(s[0], s[1]);
+  }
+  // 16-byte chunks of stage s (zeros from b to kp)
+  __device__ int chunks(int s) const { return max(0, min(TR_STAGE, kp - s * TR_STAGE)) / 4; }
+  // stage s of tile x into ring slot s, one copy group (empty past the
+  // launch's tiles or the depth)
+  __device__ void issue_stage(float* ring, int x, int s) const {
+    const int nc = chunks(s);
+    if (x < ctas && nc > 0) {
+      const int2 t = tile(x);
+      const float* A = tile_at(D, n, b, t.x, k) + s * TR_STAGE;
+      const float* B = tile_at(D, n, b, t.y, k) + s * TR_STAGE;
+      float* As = ring + s * TR_SLOT;
+      float* Bs = As + TILE * TR_STAGE;
+      for (int i = threadIdx.x; i < b * nc; i += THREADS) {
+        const int row = i / nc, c = i - row * nc;
+        const bool fill = s * TR_STAGE + 4 * c >= b;
+        const size_t at = (size_t)row * n + (fill ? 0 : 4 * c);
+        cp_async16(As + tr_at(row, c), A + at, fill);
+        if (t.x != t.y) cp_async16(Bs + tr_at(row, c), B + at, fill);
+      }
+    }
+    cp_async_commit();
+  }
+  // the O tile of tile x, one copy group
+  __device__ void issue_o(float* Os, int x) const {
+    if (x < ctas) {
+      const int2 t = tile(x);
+      const float* O = tile_at(D, n, b, t.x, t.y);
+      const int row4 = b / 4;
+      for (int i = threadIdx.x; i < b * row4; i += THREADS) {
+        const int row = i / row4, c = i - row * row4;
+        cp_async16(Os + row * TILE + 4 * c, O + (size_t)row * n + 4 * c);
+      }
+    }
+    cp_async_commit();
+  }
+};
+
+__global__ void __launch_bounds__(THREADS, 1)
+chol_trailing_kernel(float* D, const int* sched, int sched_cols, int col_i, int row_begin, int ctas,
+                     int k, int n, int b) {
+  extern __shared__ __align__(16) float tr[];
+  float* ring = tr;
+  float* Os = tr + TR_STAGES * TR_SLOT;
+  const Trailing w{D, sched, sched_cols, col_i, row_begin, ctas, k, n, b, (b + BK - 1) / BK * BK};
+  const int step = gridDim.x;
+  // in flight from the start: the four stages and O of the first tile
+  for (int s = 0; s < TR_STAGES; ++s) w.issue_stage(ring, blockIdx.x, s);
+  w.issue_o(Os, blockIdx.x);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  for (int x = blockIdx.x; x < ctas; x += step) {
+    const int2 t = w.tile(x);
+    float acc[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int s = 0; s < TR_STAGES; ++s) {
+      // one group is committed after each of the 5 a tile uses, so 4
+      // younger groups may be in flight once stage s has landed
+      cp_async_wait<TR_STAGES>();
+      __syncthreads();
+      const float* As = ring + s * TR_SLOT;
+      const float* Bs = t.x == t.y ? As : As + TILE * TR_STAGE;
+      const int nc = w.chunks(s);
+      for (int c = 0; c < nc; ++c) {
+        float4 a4[8], b4[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) a4[i] = *reinterpret_cast<const float4*>(As + tr_at(tile_row(ty, i), c));
+#pragma unroll
+        for (int j = 0; j < 8; ++j) b4[j] = *reinterpret_cast<const float4*>(Bs + tr_at(tile_col(tx, j), c));
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) acc[i][j] = __fmaf_rn(lane4(a4[i], q), lane4(b4[j], q), acc[i][j]);
+      }
+      __syncthreads();  // slot s is consumed: refill it with the next tile's stage s
+      w.issue_stage(ring, x + step, s);
+    }
+    cp_async_wait<TR_STAGES>();  // this tile's O has landed
+    __syncthreads();
+    float* O = tile_at(D, n, b, t.x, t.y);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = tile_row(ty, i);
+      if (r >= b) continue;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int c = 64 * hh + 4 * tx;
+        if (c >= b) continue;
+        float4 o = *reinterpret_cast<const float4*>(Os + r * TILE + c);
+        o.x = __fadd_rn(o.x, __fmul_rn(-1.f, acc[i][4 * hh]));
+        o.y = __fadd_rn(o.y, __fmul_rn(-1.f, acc[i][4 * hh + 1]));
+        o.z = __fadd_rn(o.z, __fmul_rn(-1.f, acc[i][4 * hh + 2]));
+        o.w = __fadd_rn(o.w, __fmul_rn(-1.f, acc[i][4 * hh + 3]));
+        *reinterpret_cast<float4*>(O + (size_t)r * n + c) = o;
+      }
+    }
+    __syncthreads();  // O is read: load the next tile's
+    w.issue_o(Os, x + step);
+  }
+  cp_async_wait<0>();
 }
 
 // the panel kernel's dynamic shared memory: L_kk^T with a padded stride,
@@ -430,8 +582,16 @@ extern "C" int sfc_chol_panel(void* d, const void* sched, int sched_cols, int co
 
 extern "C" int sfc_chol_trailing(void* d, const void* sched, int sched_cols, int col_i,
                                  int row_begin, int ctas, int k, int n, int b, void* stream) {
-  if (bad_block(b)) return (int)cudaErrorInvalidValue;
-  chol_trailing_kernel<<<ctas, THREADS, 0, (cudaStream_t)stream>>>(
-      (float*)d, (const int*)sched, sched_cols, col_i, row_begin, k, n, b);
+  if (bad_block(b) || (uintptr_t)d % 16) return (int)cudaErrorInvalidValue;  // 16-byte rows
+  if (ctas == 0) return 0;
+  const cudaError_t attr = opt_in_smem<2>((const void*)chol_trailing_kernel, TR_SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  // one persistent CTA an SM (192 KB of shared memory each), none idle
+  chol_trailing_kernel<<<min(ctas, sms), THREADS, TR_SMEM, (cudaStream_t)stream>>>(
+      (float*)d, (const int*)sched, sched_cols, col_i, row_begin, ctas, k, n, b);
   return (int)cudaGetLastError();
 }

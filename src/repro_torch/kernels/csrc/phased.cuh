@@ -1,6 +1,7 @@
 // What the phased kernels (floyd_warshall.cu, cholesky.cu) share: one
 // launch per (k, phase) barrier group of a phased table, one CTA per
-// table row.  CTA x owns tile (i, j) read from row `row_begin + x`,
+// table row (the Cholesky trailing kernel: one persistent CTA an SM over
+// the rows).  CTA x owns tile (i, j) read from row `row_begin + x`,
 // columns col_i and col_i + 1, of the int32 table `sched` (`sched_cols`
 // columns); every tile is b x b inside the row-major n x n matrix.
 #pragma once

@@ -176,8 +176,9 @@ __device__ __forceinline__ void tile_product(float (&acc)[8][8], const LA& la, c
 // O(r, c) <- O(r, c) + alpha * sum_k A(r, k) B(c, k) over one sub-tile of
 // at most TILE x TILE: both operands are row panels (RowLoader), as in
 // x . c^T.  The epilogue rounds the product and the sum apart, the order
-// of the JAX package's `o + alpha * dot(a, b^T)`.  sfc_tile_update and
-// the fused Cholesky's trailing phase both run exactly this code.
+// of the JAX package's `o + alpha * dot(a, b^T)`.  sfc_tile_update runs
+// this code; the fused Cholesky's trailing kernel (cholesky.cu) computes
+// each element by the same chain of rounded operations.
 __device__ __forceinline__ void tile_update(float* O, size_t ldo, const float* A, size_t lda,
                                             const float* B, size_t ldb, int rows, int cols,
                                             int K, float alpha, float* As, float* Bs) {

@@ -1,7 +1,8 @@
 """What the phased applications (Floyd–Warshall, Cholesky) share.
 
 Both run one launch per ``(k, phase)`` barrier group of a table, one CTA
-per table row (``csrc/phased.cuh``): a program's ``params["groups"]``
+per table row (``csrc/phased.cuh``; the Cholesky trailing kernel walks
+the rows with one persistent CTA per SM): a program's ``params["groups"]``
 holds ``(phase, k, begin, end)`` row ranges, either
 :func:`repro_torch.core.phase_groups` of the phased table (the fused
 forms) or the groups of a per-k table built by :func:`per_k_table`; its

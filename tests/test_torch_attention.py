@@ -20,7 +20,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import attention as jatt  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.core import schedule_cache_clear  # noqa: E402
-from repro_torch.kernels import LAUNCHES  # noqa: E402
+from repro_torch.kernels import LAUNCHES, launch  # noqa: E402
 from repro_torch.kernels import attention as tatt  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 
@@ -190,29 +190,74 @@ def _paged_inputs(rng, B, Hkv, g, D, ps, MP, P, pos):
     return q, kp, vp, pt
 
 
+# (MP, pos) with B = 4 slots of MP pages of ps = 8 rows, so splits of 16
+# pages (128 rows): one split a slot; three splits with pos on the last
+# row of split 0 and the first of split 1, pos = 0 (every later split past
+# the last live page) and pos = MP ps - 1; the boundary of splits 1 and 2
+# beside slots whose later splits are past their last live page; a ragged
+# last split of 4 pages, pos on its first and its last row
+DECODE_SPLIT_CASES = [
+    (5, (0, 11, 39, 23)),
+    (40, (127, 128, 0, 319)),
+    (40, (255, 256, 40, 200)),
+    (20, (7, 135, 159, 128)),
+]
+
+
+def _decode(sched_args, pt, pos, q, kp, vp, dtype):
+    """The decode program launched on CPU tensors (its plain version)."""
+    qt = _t(q, dtype)
+    prog = tatt.flash_decode_program(tatt.decode_page_schedule_device(*sched_args, device="cpu"), qt,
+                                     page_size=kp.shape[1], max_pages=pt.shape[1],
+                                     sm_scale=q.shape[-1] ** -0.5)
+    return launch(prog, torch.as_tensor(pt), torch.as_tensor(pos), qt, _t(kp, dtype), _t(vp, dtype))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("order", [None, (2, 0, 3, 1)])
-def test_flash_decode_plain_matches_pallas(dtype, order):
+@pytest.mark.parametrize("MP,pos", DECODE_SPLIT_CASES)
+def test_flash_decode_plain_matches_pallas(dtype, order, MP, pos):
     rng = np.random.default_rng(7)
-    B, Hkv, g, D, ps, MP, P = 4, 2, 4, 32, 8, 5, 24
-    pos = np.array([0, 11, 39, 23], np.int32)
+    B, Hkv, g, D, ps = 4, 2, 4, 32, 8
+    P = B * MP + 1
+    pos = np.array(pos, np.int32)
     q, kp, vp, pt = _paged_inputs(rng, B, Hkv, g, D, ps, MP, P, pos)
+    assert tatt.decode_launch(B, Hkv, g, ps, MP).splits == -(-MP // 16)
     jd = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
     want = jatt.flash_attention_decode(
         jnp.asarray(jatt.decode_page_schedule(B, MP, order)), jnp.asarray(pt), jnp.asarray(pos),
         *(jnp.asarray(a, jd) for a in (q, kp, vp)), interpret=True)
-    got = tatt.flash_attention_decode(
-        tatt.decode_page_schedule_device(B, MP, order, device="cpu"), torch.as_tensor(pt),
-        torch.as_tensor(pos), _t(q, dtype), _t(kp, dtype), _t(vp, dtype))
+    got = _decode((B, MP, order), pt, pos, q, kp, vp, dtype)
     assert got.dtype == dtype and got.shape == (B, Hkv, g, D)
     _close(got, want, dtype)
-    # the trash page's contents never reach the output
+    # the trash page's contents never reach an active slot's output
     kp2, vp2 = kp.copy(), vp.copy()
     kp2[0], vp2[0] = -3e4, 7e3
-    again = tatt.flash_attention_decode(
-        tatt.decode_page_schedule_device(B, MP, order, device="cpu"), torch.as_tensor(pt),
-        torch.as_tensor(pos), _t(q, dtype), _t(kp2, dtype), _t(vp2, dtype))
+    again = _decode((B, MP, order), pt, pos, q, kp2, vp2, dtype)
     assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("MP", [5, 40])
+def test_flash_decode_inactive_slot_is_the_mean_of_its_walk(dtype, MP):
+    """A slot with pos < 0 walks all max_pages pages, every entry masked
+    with the finite mask value: its output is the mean of every V row it
+    visited, the trash page's included (so the trash-page check of the
+    active slots does not apply to it), in one split or in three."""
+    rng = np.random.default_rng(9)
+    B, Hkv, g, D, ps, P = 4, 2, 4, 32, 8, 24
+    pos = np.array([-1, 13, 39, 0], np.int32)
+    q, kp, vp, pt = _paged_inputs(rng, B, Hkv, g, D, ps, MP, P, pos)
+    jd = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    want = jatt.flash_attention_decode(
+        jnp.asarray(jatt.decode_page_schedule(B, MP)), jnp.asarray(pt), jnp.asarray(pos),
+        *(jnp.asarray(a, jd) for a in (q, kp, vp)), interpret=True)
+    got = _decode((B, MP), pt, pos, q, kp, vp, dtype)
+    _close(got, want, dtype)
+    assert torch.isfinite(got).all()
+    v = _t(vp, dtype).float().numpy()[pt[0]]  # (MP, ps, Hkv, D): slot 0's pages, trash included
+    mean = v.reshape(MP * ps, Hkv, D).mean(axis=0)  # (Hkv, D), the same for each of the g heads
+    _close(got[0], np.broadcast_to(mean[:, None], (Hkv, g, D)), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -397,6 +442,54 @@ def test_prefill_wrapper_launch_arguments(monkeypatch, dtype, D, ps, g, core):
     assert cargs[0] == args[2].data_ptr() and cargs[1] == args[3].data_ptr()
 
 
+@pytest.mark.parametrize("ps,MP,g,splits,groups", [
+    (16, 128, 8, 16, 1),   # TinyLlama's serving shape: 8-page splits of 128 rows
+    (16, 130, 8, 17, 1),   # a ragged last split
+    (16, 5, 8, 1, 1),      # fewer pages than a split
+    (8, 40, 12, 3, 2),     # 16-page splits; g = 12 is two row groups of 8
+    (256, 4, 1, 4, 1),     # a page above the split's 128 rows: one page a split
+    (32, 9, 8, 3, 1),      # 4-page splits, the last of one page
+])
+def test_decode_wrapper_launch_arguments(monkeypatch, ps, MP, g, splits, groups):
+    """``_decode_cuda``'s host side on CPU tensors, the kernel call
+    recorded: the split-KV grid is fixed by the runs, max_pages and the
+    page size alone (never by pos), a split is max(1, 128 // ps) pages,
+    the split count is ceil(max_pages / split pages), and the wrapper
+    passes one f32 workspace of (runs, splits, Hkv, g, Dv + 2)."""
+    calls, spaces = [], []
+    monkeypatch.setattr(tatt, "require", lambda *a, **k: None)
+    monkeypatch.setattr(tatt, "stream_of", lambda t: 0)
+    monkeypatch.setattr(tatt, "call", lambda name, *args, core=None: calls.append((name, args, core)))
+    workspace = tatt.decode_workspace
+    monkeypatch.setattr(tatt, "decode_workspace",
+                        lambda *a: spaces.append(workspace(*a)) or spaces[-1])
+    B, Hkv, D, Dv = 3, 2, 16, 24
+    sched = tatt.decode_page_schedule_device(B, MP, (2, 0, 1), device="cpu")
+    q = torch.zeros((B, Hkv, g, D))
+    prog = tatt.flash_decode_program(sched, q, page_size=ps, max_pages=MP, sm_scale=0.25)
+    lay = tatt.decode_launch(B, Hkv, g, ps, MP)
+    sp = lay.split_pages
+    assert sp == max(1, min(128 // ps, MP)) and lay.splits == splits == -(-MP // sp)
+    assert prog.grid == (B * splits, Hkv, groups)
+    P = B * MP + 1
+    kp, vp = torch.zeros((P, ps, Hkv, D)), torch.zeros((P, ps, Hkv, Dv))
+    pt = torch.zeros((B, MP), dtype=torch.int32)
+    pos = torch.tensor([-1, 0, MP * ps - 1], dtype=torch.int32)
+    out = tatt._decode_cuda(prog, pt, pos, q, kp, vp)
+    assert out.shape == (B, Hkv, g, Dv) and out.dtype == q.dtype
+    ((name, cargs, core),) = calls
+    (ws,) = spaces
+    assert name == "sfc_flash_decode" and core is None
+    assert ws.shape == (B, splits, Hkv, g, Dv + 2) and ws.dtype == torch.float32
+    # (q, k, v, o, ws, table, runs, n_runs, hkv, page_table, pos, g, dk, dv, ps, mp, split_pages,
+    #  splits, scale, dtype, stream)
+    assert cargs[4] == ws.data_ptr() and cargs[0] == q.data_ptr() and cargs[3] == out.data_ptr()
+    assert cargs[7:9] == (B, Hkv) and cargs[11:] == (g, D, Dv, ps, MP, sp, splits, 0.25, 0, 0)
+    assert lay.grid == prog.grid and lay.workspace(g, Dv) == tuple(ws.shape)
+    with pytest.raises(ValueError, match="built for"):
+        tatt._decode_cuda(prog, pt[:, :-1], pos, q, kp, vp)
+
+
 def _box_rows(strides, box, origin):
     """Element offsets of the 64-column rows of one TMA box, in the order
     the box lands in shared memory (dimension 0 innermost; the rows walk
@@ -481,7 +574,7 @@ def test_flash_kernels_match_plain_versions_on_cuda():
         args = [torch.as_tensor(pt, device=dev), torch.as_tensor(pos, device=dev),
                 *(_t(a, dtype).to(dev) for a in (qd, kp, vp))]
         prog = tatt.flash_decode_program(tatt.decode_page_schedule_device(B, MP, device=dev),
-                                         args[2], sm_scale=0.125)
+                                         args[2], page_size=ps, max_pages=MP, sm_scale=0.125)
         torch.testing.assert_close(prog.launcher(prog, *args).float(), prog.plain(prog, *args).float(), **tol)
         pos0, n_new = np.array([3, 0, 40, 0], np.int32), np.array([20, 16, 30, 0], np.int32)
         qp = _t(rng.standard_normal((B, 32, Hkv, g, D)), dtype).to(dev)
@@ -569,3 +662,41 @@ def test_bf16_flash_prefill_wgmma_matches_plain(D, ps, g):
         rows[b, : -(-n_new[b] // ps) * ps] = True
     assert torch.isfinite(got[rows].float()).all()
     torch.testing.assert_close(got[rows].float(), want[rows].float(), rtol=8e-3, atol=4e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,Hkv,g,D,ps,MP", [
+    (8, 4, 8, 64, 16, 128),   # TinyLlama's serving shape: 16 splits of 8 pages
+    (4, 2, 8, 64, 16, 20),    # small: splits of 8, 8 and 4 pages
+    (3, 2, 12, 36, 4, 70),    # two row groups; splits of 32, 32 and 6 pages; bf16 rows of 72
+                              # bytes: staged an element a thread
+    (3, 1, 1, 128, 256, 3),   # pages of 256 rows: one page a split, a warp's two chunks of 32
+])
+def test_flash_decode_split_kv_matches_plain(dtype, B, Hkv, g, D, ps, MP):
+    """Row 21's split-KV kernel (split CTAs, then the merge, one counted
+    launch) against ``_decode_plain`` on the same CUDA inputs: ragged
+    positions with pos on split boundaries, 0, max_len - 1 and a slot
+    with pos < 0 (the mean of every row it visits, trash page
+    included); bf16 at rtol 8e-3 / atol 4e-3, f32 at 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(B * MP + ps)
+    P = B * MP + 1
+    sp = tatt.decode_launch(B, Hkv, g, ps, MP).split_pages
+    pos = rng.integers(0, MP * ps, size=B).astype(np.int32)
+    pos[:3] = (MP * ps - 1, sp * ps - 1 if sp < MP else 0, -1)
+    pos[3:4] = sp * ps % (MP * ps)
+    q, kp, vp, pt = _paged_inputs(rng, B, Hkv, g, D, ps, MP, P, np.maximum(pos, 0))
+    args = [torch.as_tensor(pt, device=dev), torch.as_tensor(pos, device=dev),
+            *(_t(a, dtype).to(dev) for a in (q, kp, vp))]
+    prog = tatt.flash_decode_program(tatt.decode_page_schedule_device(B, MP, device=dev), args[2],
+                                     page_size=ps, max_pages=MP, sm_scale=D ** -0.5)
+    LAUNCHES.reset()
+    got = prog.launcher(prog, *args)
+    want = prog.plain(prog, *args)
+    assert LAUNCHES.counts()["sfc_flash_decode"] == 1
+    tol = dict(rtol=8e-3, atol=4e-3) if dtype == torch.bfloat16 else dict(rtol=1e-4, atol=1e-4)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), **tol)

@@ -359,3 +359,66 @@ def test_chol_panel_kernel_matches_solve_tiles(b, spread):
     scale = float(want.abs().max())
     torch.testing.assert_close(got[b:, :b], want, rtol=PANEL_TOL, atol=PANEL_TOL * scale)
     assert torch.equal(got[:, b:], x[:, b:]) and torch.equal(got[:b], x[:b])
+
+
+def _trailing_case(b: int, k: int, nt: int, device):
+    """An (nt b)² f32 matrix and the trailing groups of block k in the fused
+    and the per-k programs (the same (i, j) tiles, k < j <= i), each as a
+    program restricted to that one launch."""
+    rng = np.random.default_rng(b + k)
+    a = torch.as_tensor(rng.standard_normal((nt * b, nt * b)).astype(np.float32), device=device)
+    fused = tch.cholesky_program("hilbert", nt, b, device=device)
+    per_k = tch.cholesky_reference_program("hilbert", nt, b, device=device)
+    (gf,) = [g for g in fused.params["groups"] if g[:2] == (2, k)]
+    (gp,) = [g for g in per_k.params["groups"] if g[:2] == (2, k)]
+    assert gf[3] - gf[2] == gp[3] - gp[2] == (nt - k - 1) * (nt - k) // 2
+    return (a, dataclasses.replace(fused, params={**fused.params, "groups": (gf,)}),
+            dataclasses.replace(per_k, params={**per_k.params, "groups": (gp,)}))
+
+
+# b and the first, a middle and the last k-group of nt = 5 blocks
+TRAILING_CASES = [(b, k) for b in (8, 32, 64, 128) for k in (0, 2, 3)]
+
+
+@pytest.mark.parametrize("b,k", TRAILING_CASES)
+def test_chol_trailing_group_is_tile_update_per_k_to_the_bit(b, k):
+    """One fused trailing launch (``_plain_group`` on the CPU) against the
+    per-k form's update of the same tiles through ``tile_update_swizzled``:
+    equal to the bit, diagonal and off-diagonal tiles; the rest of the
+    matrix untouched."""
+    a, fused, per_k = _trailing_case(b, k, 5, "cpu")
+    got, want = launch(fused, a.clone()), launch(per_k, a.clone())
+    assert torch.equal(got, want)
+    assert torch.equal(got[: (k + 1) * b], a[: (k + 1) * b]) and torch.equal(got[:, : (k + 1) * b], a[:, : (k + 1) * b])
+    assert not torch.equal(got, a)
+
+
+# the cases above at nt = 5 (at most 10 tiles a launch, one a persistent
+# CTA), then launches of more tiles than the H100's 132 SMs, so that a CTA
+# walks several tiles, diagonal and off-diagonal ones mixed: 780 and 190
+# tiles of b = 8, 190 and 153 of b = 32, 171 of b = 64, 136 of b = 128
+TRAILING_KERNEL_CASES = [(b, k, 5) for b, k in TRAILING_CASES] + [
+    (8, 0, 40), (8, 20, 40), (32, 0, 20), (32, 2, 20), (64, 1, 20), (128, 0, 17)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k,nt", TRAILING_KERNEL_CASES)
+def test_chol_trailing_kernel_is_tile_update_to_the_bit(b, k, nt):
+    """``sfc_chol_trailing`` (persistent CTAs, each walking the launch's
+    tiles through a cp.async ring of operand k-stages with the next tile's
+    O in flight, the 8 x 8 thread tile reading 4 k a time) on one k-group
+    of tiles against ``sfc_tile_update`` (the per-k form's unchanged
+    ``tile_update``) on the same CUDA matrix: each element is the same FMA
+    chain in ascending k, so the two are equal to the bit; one launch
+    each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    a, fused, per_k = _trailing_case(b, k, nt, torch.device("cuda"))
+    LAUNCHES.reset()
+    got = launch(fused, a.clone())
+    want = launch(per_k, a.clone())
+    torch.cuda.synchronize()
+    counts = LAUNCHES.counts()
+    assert counts["sfc_chol_trailing"] == 1 and counts["sfc_tile_update"] == 1
+    assert torch.equal(got, want), float((got - want).abs().max())
+    assert not torch.equal(got, a)
