@@ -5,9 +5,10 @@
 
 Phases, each of which raises (and so exits non-zero) on a failed check:
 
-1. Print the card's name and power limit (nvidia-smi) and build every
+1. Print the card's name and power limit (nvidia-smi), build every
    CUDA kernel of the port from ``src/repro_torch/kernels/csrc`` into
-   ``build/repro_torch/``.
+   ``build/repro_torch/``, and print the f32 SIMT matmul kernels'
+   registers, spills and resident CTAs an SM.
 2. Hold each kernel against its plain PyTorch version on the same CUDA
    inputs, at a small ragged and a mid-size shape (the k-means update up
    to D = 960, its column-chunked grid; ``sfc_chol_diag`` equal to
@@ -55,7 +56,8 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
 5. Time each kernel at the main path's shapes with CUDA events (median of
    a few runs), its plain version (one run) and, where one PyTorch call
    computes the same function, that call; compute each kernel's bound
-   (``sfc_matmul`` in f32 and, on its tensor-core core, in bf16).
+   (``sfc_matmul`` in f32 and, on its tensor-core core, in bf16; the SM
+   clock read beside the 8192³ f32 matmuls and their library call).
    The phased kernels are timed per entry point: the launches of one
    phase over all k-blocks of one call (``sfc_chol_diag`` also against
    one ``linalg.cholesky`` call per diagonal tile; ``sfc_chol_trailing``
@@ -119,6 +121,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -291,6 +294,52 @@ def kernel_ms(fn, reps: int) -> dict:
 def bound_ms(ops: float, peak: float, nbytes: float) -> tuple[float, str]:
     t_ops, t_bytes = ops / peak, nbytes / HBM_RATE
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def smi_clocks() -> tuple[int, int]:
+    """The card's SM clock and its maximum, MHz (nvidia-smi)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    sm, top = out.stdout.splitlines()[0].split(",")
+    return int(sm), int(top)
+
+
+class SmClock:
+    """The SM clock read by nvidia-smi, one call after another on a
+    thread, while the block runs: ``record`` = the reading before it, the
+    readings during it (min, median, max: null where the block ended
+    before the first reading; count) and the card's maximum.  A failed
+    reading fails the block."""
+
+    def __enter__(self):
+        self.before, self.max_sm = smi_clocks()
+        self.samples: list[int] = []
+        self.error: BaseException | None = None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self):
+        try:
+            while not self._stop.is_set():
+                self.samples.append(smi_clocks()[0])
+        except BaseException as e:  # re-raised by __exit__
+            self.error = e
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=120)
+        check(not self._thread.is_alive(), "nvidia-smi: the SM clock reading did not return")
+        if self.error is not None and exc[0] is None:
+            raise RuntimeError(f"nvidia-smi: the SM clock reading failed: {self.error!r}") from self.error
+        s = sorted(self.samples)
+        self.record = {"before": self.before, "min": s[0] if s else None,
+                       "median": statistics.median(s) if s else None,
+                       "max": s[-1] if s else None, "n": len(s), "max_sm": self.max_sm}
+        return False
 
 
 # ---------------------------------------------------------------------------
@@ -1253,10 +1302,20 @@ def main_path(rng, device, seed: int) -> dict:
     # --- phase 5: kernel timings at the main path's shapes ------------------
     rows = []
 
-    def entry(name, kern, plain, library, ops_, peak, nbytes, reps, err, extra=None):
-        ms = cuda_ms(kern, reps)
+    def entry(name, kern, plain, library, ops_, peak, nbytes, reps, err, extra=None, clock=False):
+        if clock:  # the SM clock while the kernel and the library call run
+            with SmClock() as k_clock:
+                ms = cuda_ms(kern, reps)
+            with SmClock() as l_clock:
+                l_ms = cuda_ms(library, reps)
+            extra = {**(extra or {}), "sm_clock_mhz": {"kernel": k_clock.record,
+                                                       "library": l_clock.record}}
+            log(f"sm clock {name}: kernel {json.dumps(k_clock.record)}, library "
+                f"{json.dumps(l_clock.record)}")
+        else:
+            ms = cuda_ms(kern, reps)
+            l_ms = cuda_ms(library, reps) if library is not None else None
         p_ms = cuda_ms(plain, 1, warmup=0)
-        l_ms = cuda_ms(library, reps) if library is not None else None
         b_ms, b_by = bound_ms(ops_, peak, nbytes)
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
@@ -1294,7 +1353,7 @@ def main_path(rng, device, seed: int) -> dict:
                 "bound_by": b16_by, "max_abs_err": merr16, "tol": mtol16, "oracle_max_abs_err": err16}
     entry("sfc_matmul", lambda: launch(prog, a32, b32), lambda: prog.plain(prog, a32, b32),
           lambda: torch.matmul(a32, b32), 2.0 * S ** 3, FP32_PEAK, 3 * S * S * 4, 5, merr,
-          {"core": "simt", "bf16": bf16_row})
+          {"core": "simt", "bf16": bf16_row}, clock=True)
 
     pt = -(-NK // 128)
     xkp = torch.nn.functional.pad(xk, (0, 0, 0, pt * 128 - NK)).contiguous()
@@ -1499,7 +1558,7 @@ def time_matmul3d(entry, a32, b32, a16, b16, device) -> None:
                     "library_ms": cuda_ms(lambda: torch.matmul(a16, b16), 5), "bound_ms": b16_ms,
                     "bound_by": b16_by, "max_abs_err": err16, "tol": tol16,
                     "f32_out_ms": cuda_ms(lambda: launch(p16f, a16p, b16p), 5),
-                    "f32_out_max_abs_err": err16f, "f32_out_tol": tol16f}})
+                    "f32_out_max_abs_err": err16f, "f32_out_tol": tol16f}}, clock=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2546,6 +2605,9 @@ def main() -> int:
     for line in (lib.parent / "build.log").read_text().splitlines():
         if "registers" in line or "spill" in line.lower() or line.startswith("=="):
             log("  " + line.strip())
+    from repro_torch.kernels.matmul import simt_kernel_info
+
+    log("simt kernels: " + json.dumps(simt_kernel_info()))
     rng = np.random.default_rng(args.seed)
     compare_kernels(rng, device)
     compare_phased(np.random.default_rng(args.seed + 1), device)

@@ -72,6 +72,11 @@ SIGNATURES = {
 }
 
 
+# entry points that read a kernel's build attributes and launch nothing
+# (not counted): out int32[8] (kernels/matmul.py::simt_kernel_info)
+QUERIES = {"sfc_matmul_simt_info": (_I, _P)}
+
+
 # the entry points that dispatch to more than one kernel, and their cores:
 # bf16 on the tensor cores (TMA + wgmma), f32 (and the shapes the tensor-core
 # core does not take) on the SIMT kernels
@@ -182,7 +187,7 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
     lib = ctypes.CDLL(str(build()))
-    for name, argtypes in SIGNATURES.items():
+    for name, argtypes in {**SIGNATURES, **QUERIES}.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int

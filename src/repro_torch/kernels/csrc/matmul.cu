@@ -8,11 +8,17 @@
 //
 // f32 inputs: bound on the H100 by FP32 FLOP/s.  TF32 is off, so f32
 // products cannot use the tensor cores (67 TFLOP/s on the FP32 pipes).
-// The design is a plain SIMT tile product (tile_gemm.cuh: 128x128 CTA
-// tile, 8x8 outputs per thread, 16-deep shared-memory chunks with a
-// register prefetch of the next chunk).  The curve order of the schedule
-// decides which A row panels and B column panels neighbouring CTAs share
-// in L2.
+// They run the SIMT core of simt_gemm.cuh: a 128x128 CTA sub-tile of 8x8
+// thread tiles in 32x64 warp tiles, operands streamed through a 3-stage
+// ring of 32-deep shared-memory stages filled by cp.async (A transposed
+// by 4-byte copies, B by 16-byte ones), one barrier a stage, the ring
+// running on across the CTA's sub-tiles: 24.3 ms at 8192^3 on an NVIDIA
+// H100 80GB HBM3 at 700 W, 0.68 of the bound, against torch.matmul's
+// 21.4.  The first design (tile_gemm.cuh: register-staged 16-deep
+// chunks, two barriers a chunk) took 34.6-35.1 ms, 0.47 of the bound.  Every output element is one
+// __fmaf_rn chain over k ascending, as it was: the same bits.  The curve
+// order of the schedule decides which A row panels and B column panels
+// neighbouring CTAs share in L2.
 // bf16 inputs: bound by the bf16 tensor cores (2 M N K at 989 TFLOP/s:
 // 0.68 ms at 8000x7000x6000).  Widened to f32 on the SIMT path they took
 // 19.35 ms there (NVIDIA H100 80GB HBM3, 700.00 W), against
@@ -60,11 +66,14 @@
 // launched in that order, and per tile its k tiles in the order the 3-D
 // table visits them.  The CTA walks its own k list in that order (the
 // JAX kernel's summation order), keeps the accumulator in registers
-// across the k tiles (tile_gemm.cuh::tile_accumulate) and writes C once.
+// across the k tiles and writes C once.
 // f32 inputs: bound on the H100 by FP32 FLOP/s (2 M N K; TF32 is off), as
-// sfc_matmul; the same SIMT tile product.  The curve order of the (i, j)
-// first visits decides which panels neighbouring CTAs share in L2, and
-// each CTA's k order which depth panels it streams first.
+// sfc_matmul; the same SIMT core, whose cp.async ring runs on across the
+// CTA's k list (a k-tile boundary does not drain it): every element is
+// one __fmaf_rn chain over the k tiles in list order, each ascending, so
+// ascending k lists give sfc_matmul's bits.  The curve order of the
+// (i, j) first visits decides which panels neighbouring CTAs share in L2,
+// and each CTA's k order which depth panels it streams first.
 // bf16 inputs: bound by the bf16 tensor cores (2 M N K at 989 TFLOP/s:
 // 0.68 ms at 8000x7000x6000).  The first design widened bf16 to f32 on
 // the SIMT path: 26.55 ms there (H100 80GB HBM3, 700 W), against
@@ -78,6 +87,9 @@
 // 128x128 output tiles (or one tile of the whole M or N when it is
 // smaller) and tiles 64 deep (or one tile of the whole K); the wrapper
 // pads K to 16 and N to 8 for TMA's 16-byte strides.
+#include <mutex>
+
+#include "simt_gemm.cuh"
 #include "tile_gemm.cuh"
 #include "wgmma_gemm.cuh"
 
@@ -85,8 +97,6 @@ namespace {
 
 using namespace sfc;
 
-__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 // two neighbouring columns (an even column of an even-width row)
 __device__ __forceinline__ void store_pair(float* p, float v0, float v1) {
   *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
@@ -95,45 +105,70 @@ __device__ __forceinline__ void store_pair(__nv_bfloat16* p, float v0, float v1)
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
 }
 
-template <typename T, typename TO>
-__global__ void __launch_bounds__(THREADS)
-matmul_kernel(const T* __restrict__ A, const T* __restrict__ B, TO* __restrict__ C,
+// f32 inputs: CTA r owns the (bm, bn) output tile sched[r] and covers it
+// with 128x128 sub-tiles, each summed over k = 0 .. K - 1 (simt_gemm.cuh).
+template <typename TO>
+__global__ void __launch_bounds__(simt::THREADS, simt::MIN_CTAS)
+matmul_kernel(const float* __restrict__ A, const float* __restrict__ B, TO* __restrict__ C,
               const int* __restrict__ sched, int M, int N, int K, int bm, int bn) {
-  __shared__ __align__(16) float As[BK * TILE];
-  __shared__ __align__(16) float Bs[BK * TILE];
-  const int ti = sched[2 * (size_t)blockIdx.x];
-  const int tj = sched[2 * (size_t)blockIdx.x + 1];
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  for (int sr = 0; sr < bm; sr += TILE) {
-    const int row0 = ti * bm + sr;
-    const int rows = min(min(TILE, bm - sr), M - row0);
-    for (int sc = 0; sc < bn; sc += TILE) {
-      const int col0 = tj * bn + sc;
-      const int cols = min(min(TILE, bn - sc), N - col0);
-      RowLoader<T> la{A + (size_t)row0 * K, (size_t)K, rows, K};
-      KLoader<T> lb{B + col0, (size_t)N, cols, K};
-      float acc[8][8];
-      tile_product<false>(acc, la, lb, K, As, Bs, nullptr);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int r = tile_row(ty, i);
-        if (r >= rows) continue;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int c = tile_col(tx, j);
-          if (c < cols) store_out(C + (size_t)(row0 + r) * N + col0 + c, acc[i][j]);
-        }
-      }
-    }
-  }
+  const simt::Walk w{sched[2 * (size_t)blockIdx.x] * bm, sched[2 * (size_t)blockIdx.x + 1] * bn,
+                     bm, bn, M, N, nullptr, 1, K};
+  simt::gemm(A, K, B, N, C, w);
 }
 
-template <typename T, typename TO>
+// f32 inputs: CTA r owns output tile (i, j) = ij[r] and adds A(i, k) B(k, j)
+// for k = ks[r kt], ..., ks[r kt + kt - 1] in that order; K % bk == 0.
+template <typename TO>
+__global__ void __launch_bounds__(simt::THREADS, simt::MIN_CTAS)
+matmul3d_kernel(const float* __restrict__ A, const float* __restrict__ B, TO* __restrict__ C,
+                const int* __restrict__ ij, const int* __restrict__ ks, int kt, int M, int N,
+                int K, int bm, int bn, int bk) {
+  const simt::Walk w{ij[2 * (size_t)blockIdx.x] * bm, ij[2 * (size_t)blockIdx.x + 1] * bn,
+                     bm, bn, M, N, ks + (size_t)blockIdx.x * kt, kt, bk};
+  simt::gemm(A, K, B, N, C, w);
+}
+
+constexpr int MAX_DEVICES = 64;
+
+// the f32 kernels' launch checks: cp.async's 16-byte B rows and the
+// epilogue's 4-wide stores need N and bn multiples of 4 and 16-byte
+// aligned B and C (the wrapper pads: kernels/matmul.py::simt_layout); the
+// ring above 48 KB of shared memory needs the opt-in attribute, raised
+// once per device and kernel, not on every launch
+template <typename Kernel>
+int simt_prepare(Kernel kernel, const void* b, const void* c, int N, int bn) {
+  if (N % 4 || bn % 4 || (uintptr_t)b % 16 || (uintptr_t)c % 16) return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  static std::once_flag once[MAX_DEVICES];
+  static cudaError_t attr[MAX_DEVICES];
+  std::call_once(once[dev], [dev, kernel] {
+    attr[dev] = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     simt::SMEM_BYTES);
+  });
+  return (int)attr[dev];
+}
+
+template <typename TO>
 int launch(const void* a, const void* b, void* c, const void* sched, int steps, int M, int N,
            int K, int bm, int bn, void* stream) {
-  matmul_kernel<T, TO><<<steps, THREADS, 0, (cudaStream_t)stream>>>(
-      (const T*)a, (const T*)b, (TO*)c, (const int*)sched, M, N, K, bm, bn);
+  const int err = simt_prepare(matmul_kernel<TO>, b, c, N, bn);
+  if (err) return err;
+  matmul_kernel<TO><<<steps, simt::THREADS, simt::SMEM_BYTES, (cudaStream_t)stream>>>(
+      (const float*)a, (const float*)b, (TO*)c, (const int*)sched, M, N, K, bm, bn);
+  return (int)cudaGetLastError();
+}
+
+template <typename TO>
+int launch3d(const void* a, const void* b, void* c, const void* ij, const void* ks, int steps,
+             int kt, int M, int N, int K, int bm, int bn, int bk, void* stream) {
+  const int err = simt_prepare(matmul3d_kernel<TO>, b, c, N, bn);
+  if (err) return err;
+  matmul3d_kernel<TO><<<steps, simt::THREADS, simt::SMEM_BYTES, (cudaStream_t)stream>>>(
+      (const float*)a, (const float*)b, (TO*)c, (const int*)ij, (const int*)ks, kt, M, N, K, bm,
+      bn, bk);
   return (int)cudaGetLastError();
 }
 
@@ -154,59 +189,6 @@ tile_update_kernel(float* O, const float* A, const float* B, const int* __restri
                   B + (size_t)col0 * Kp, (size_t)Kp, rows, cols, Kp, alpha, As, Bs);
     }
   }
-}
-
-// CTA r owns output tile (i, j) = ij[r] and adds A(i, k) B(k, j) for k =
-// ks[r kt], ..., ks[r kt + kt - 1] in that order; K % bk == 0.
-template <typename T, typename TO>
-__global__ void __launch_bounds__(THREADS)
-matmul3d_kernel(const T* __restrict__ A, const T* __restrict__ B, TO* __restrict__ C,
-                const int* __restrict__ ij, const int* __restrict__ ks, int kt, int M, int N,
-                int K, int bm, int bn, int bk) {
-  __shared__ __align__(16) float As[BK * TILE];
-  __shared__ __align__(16) float Bs[BK * TILE];
-  const int ti = ij[2 * (size_t)blockIdx.x];
-  const int tj = ij[2 * (size_t)blockIdx.x + 1];
-  const int* kr = ks + (size_t)blockIdx.x * kt;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  for (int sr = 0; sr < bm; sr += TILE) {
-    const int row0 = ti * bm + sr;
-    const int rows = min(min(TILE, bm - sr), M - row0);
-    for (int sc = 0; sc < bn; sc += TILE) {
-      const int col0 = tj * bn + sc;
-      const int cols = min(min(TILE, bn - sc), N - col0);
-      float acc[8][8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-      for (int q = 0; q < kt; ++q) {
-        const size_t k0 = (size_t)kr[q] * bk;
-        RowLoader<T> la{A + (size_t)row0 * K + k0, (size_t)K, rows, bk};
-        KLoader<T> lb{B + k0 * N + col0, (size_t)N, cols, bk};
-        tile_accumulate<false>(acc, la, lb, bk, As, Bs, nullptr);
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int r = tile_row(ty, i);
-        if (r >= rows) continue;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int c = tile_col(tx, j);
-          if (c < cols) store_out(C + (size_t)(row0 + r) * N + col0 + c, acc[i][j]);
-        }
-      }
-    }
-  }
-}
-
-template <typename T, typename TO>
-int launch3d(const void* a, const void* b, void* c, const void* ij, const void* ks, int steps,
-             int kt, int M, int N, int K, int bm, int bn, int bk, void* stream) {
-  matmul3d_kernel<T, TO><<<steps, THREADS, 0, (cudaStream_t)stream>>>(
-      (const T*)a, (const T*)b, (TO*)c, (const int*)ij, (const int*)ks, kt, M, N, K, bm, bn, bk);
-  return (int)cudaGetLastError();
 }
 
 // bf16 inputs: CTA r owns the 128x128 output tile ij[r] and sums its k
@@ -334,15 +316,16 @@ extern "C" int sfc_tile_update(void* o, const void* a, const void* b, const void
 }
 
 // dtype codes: 0 = float32, 1 = bfloat16 (inputs share one dtype).
-// bf16 inputs run the wgmma kernel (bm, bn: multiples of 128 or the whole
+// f32 inputs run the SIMT kernel (N, bn multiples of 4; B and C 16-byte
+// aligned); bf16 inputs the wgmma kernel (bm, bn: multiples of 128 or the whole
 // M, N below 128; K, N multiples of 8).
 extern "C" int sfc_matmul(const void* a, const void* b, void* c, const void* sched, int steps,
                           int M, int N, int K, int bm, int bn, int in_dtype, int out_dtype,
                           void* stream) {
   if (in_dtype == 0 && out_dtype == 0)
-    return launch<float, float>(a, b, c, sched, steps, M, N, K, bm, bn, stream);
+    return launch<float>(a, b, c, sched, steps, M, N, K, bm, bn, stream);
   if (in_dtype == 0 && out_dtype == 1)
-    return launch<float, __nv_bfloat16>(a, b, c, sched, steps, M, N, K, bm, bn, stream);
+    return launch<__nv_bfloat16>(a, b, c, sched, steps, M, N, K, bm, bn, stream);
   if (in_dtype == 1 && (!wgmma_block(bm, M, true) || !wgmma_block(bn, N, true)))
     return (int)cudaErrorInvalidValue;
   if (in_dtype == 1 && out_dtype == 0)
@@ -358,9 +341,9 @@ extern "C" int sfc_matmul3d(const void* a, const void* b, void* c, const void* i
                             int steps, int kt, int M, int N, int K, int bm, int bn, int bk,
                             int in_dtype, int out_dtype, void* stream) {
   if (in_dtype == 0 && out_dtype == 0)
-    return launch3d<float, float>(a, b, c, ij, ks, steps, kt, M, N, K, bm, bn, bk, stream);
+    return launch3d<float>(a, b, c, ij, ks, steps, kt, M, N, K, bm, bn, bk, stream);
   if (in_dtype == 0 && out_dtype == 1)
-    return launch3d<float, __nv_bfloat16>(a, b, c, ij, ks, steps, kt, M, N, K, bm, bn, bk, stream);
+    return launch3d<__nv_bfloat16>(a, b, c, ij, ks, steps, kt, M, N, K, bm, bn, bk, stream);
   if (in_dtype == 1 && (!wgmma_block(bm, M, false) || !wgmma_block(bn, N, false) ||
                         (bk % wg::BKS && kt != 1)))
     return (int)cudaErrorInvalidValue;
@@ -369,4 +352,28 @@ extern "C" int sfc_matmul3d(const void* a, const void* b, void* c, const void* i
   if (in_dtype == 1 && out_dtype == 1)
     return launch3d_wgmma<__nv_bfloat16>(a, b, c, ij, ks, steps, kt, M, N, K, bk, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+// The f32 SIMT kernels' build and residency, for the record: which = 0
+// (sfc_matmul, f32 out), 1 (bf16 out), 2 (sfc_matmul3d, f32 out), 3 (bf16
+// out); out[0..7] = registers a thread, local (spill) bytes a thread,
+// resident CTAs an SM, dynamic shared memory a CTA, threads a CTA, and
+// the core's TN, BK and STAGES.
+extern "C" int sfc_matmul_simt_info(int which, int* out) {
+  cudaFuncAttributes attr;
+  const void* fn = which == 0   ? (const void*)matmul_kernel<float>
+                   : which == 1 ? (const void*)matmul_kernel<__nv_bfloat16>
+                   : which == 2 ? (const void*)matmul3d_kernel<float>
+                                : (const void*)matmul3d_kernel<__nv_bfloat16>;
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         simt::SMEM_BYTES);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fn);
+  int ctas = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, fn, simt::THREADS, simt::SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const int vals[8] = {attr.numRegs, (int)attr.localSizeBytes, ctas, simt::SMEM_BYTES,
+                       simt::THREADS, simt::TN, simt::BK, simt::STAGES};
+  for (int i = 0; i < 8; ++i) out[i] = vals[i];
+  return 0;
 }

@@ -1,0 +1,243 @@
+// SIMT f32 GEMM core for Hopper's FP32 pipes, fed by a cp.async ring:
+// the f32 path of sfc_matmul and sfc_matmul3d (matmul.cu).
+//
+// Bound: 2 M N K FMAs' worth of FP32 FLOP/s (67 TFLOP/s on an H100 SXM;
+// TF32 stays off, so no tensor core may take an f32 product).  The core
+// keeps the FP32 pipes fed:
+//
+// - A CTA of THREADS threads owns a TILE x TILE output sub-tile; thread
+//   tiles of TM x TN outputs sit in warp tiles of 32 rows x 8 TN columns
+//   (lanes 4 x 8), so each fragment read is a conflict-free LDS.128 (the
+//   8 lanes of a quarter-warp read one A address, broadcast, and 8
+//   consecutive float4s of B).  The fragments of step kk + 1 are read
+//   while step kk's TM x TN FMAs issue.
+// - Operands stream through a STAGES-deep ring of BK-deep stages in
+//   shared memory, filled by cp.async with no register staging: B (K x N,
+//   row-major) as [k][col] rows by 16-byte copies; A (M x K, row-major)
+//   as [k][row + pad] by 4-byte copies, which transpose it on the way in
+//   (a warp's copy covers 8 consecutive k of 4 rows: one 32-byte sector a
+//   row in device memory, 32 distinct banks in shared memory with the
+//   row stride TILE + 4).  Past the M, N and K edges the copies write
+//   zeros, the neutral element of the sum.  One CTA barrier a stage.
+// - The ring runs on across the CTA's sub-tiles and, in the 3-D matmul,
+//   across its k list: the stage sequence is one walk, and only the
+//   epilogue (float4 or 4 x bf16 stores) sits between two sub-tiles.
+//
+// Numerics: every output element is one __fmaf_rn chain from 0 over its
+// stage sequence, k ascending inside a stage, so the walk decides the
+// summation order and nothing else does (no split of k, no tensor core).
+// A zero-filled depth adds fma(0, 0, acc) = acc.
+//
+// The shape, 256 threads of 8 x 8 outputs and a ring of 3 stages of 32
+// deep (2 CTAs an SM, 128 registers), was chosen by timing rows 1 and 2
+// at 8192^3 against 4 stages of 16, 3 of 16 and 128 threads of 8 x 16
+// (PERF.md, rows 1-2: 24.3 ms for sfc_matmul against 25.5, 25.5 and
+// 24.5 on an H100 80GB HBM3 at 700 W; torch.matmul 21.4, bound 16.41).
+#pragma once
+
+#include <cstddef>
+#include <cstdint>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include "cp_async.cuh"
+
+namespace sfc {
+namespace simt {
+
+constexpr int TILE = 128;  // the CTA's sub-tile: TILE x TILE outputs
+constexpr int TM = 8;
+constexpr int TN = 8;
+constexpr int BK = 32;     // a stage's depth
+constexpr int STAGES = 3;  // stages in the ring
+constexpr int THREADS = TILE * TILE / (TM * TN);
+constexpr int WARPS = THREADS / 32;
+constexpr int WARP_COLS = 8 * TN;  // a warp: 32 rows x WARP_COLS columns
+constexpr int WARPS_N = TILE / WARP_COLS;
+constexpr int LDA = TILE + 4;  // the A stage's row stride, [k][row]
+constexpr int A_FLOATS = BK * LDA;
+constexpr int B_FLOATS = BK * TILE;
+constexpr int STAGE_FLOATS = A_FLOATS + B_FLOATS;
+constexpr int SMEM_BYTES = STAGES * STAGE_FLOATS * 4;
+// two CTAs an SM where their rings fit in its 228 KB (1 KB a CTA reserved)
+constexpr int MIN_CTAS = 2 * (SMEM_BYTES + 1024) <= 228 * 1024 ? 2 : 1;
+// copies a thread issues a stage: A in units of 8 k x 4 rows a warp, B in
+// rows of TILE columns a warp
+constexpr int A_UNITS = BK / 8 * (TILE / 4) / WARPS;
+constexpr int B_ROWS = BK / WARPS;
+
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&lo);
+  u.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+// A CTA's walk: its (bm, bn) output tile (ti, tj) as sub-tiles of at most
+// TILE x TILE, row-major, each summed over nq depth ranges of span k
+// (range q starts at kr[q] * span, or at 0 when kr is null), each range in
+// ceil(span / BK) stages.  Row 1 walks one range of span K; row 2 its k
+// list, span bk.
+struct Walk {
+  int row0, col0;  // the CTA tile's first row and column
+  int bm, bn, M, N;
+  const int* kr;
+  int nq, span;
+};
+
+// C (M x N, ldc = N) over the CTA's walk.  A: M x lda, row-major; B: rows
+// of ldb floats, ldb % 4 == 0, 16-byte aligned; C 16-byte aligned (8 for
+// bf16 outputs); bn % 4 == 0 or bn == N, N % 4 == 0.
+template <typename TO>
+__device__ __forceinline__ void gemm(const float* __restrict__ A, int lda,
+                                     const float* __restrict__ B, int ldb, TO* __restrict__ C,
+                                     const Walk& w) {
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // fragment coordinates inside the sub-tile: rows fr + p * 16 + (0..3),
+  // columns fc + q * 32 + (0..3)
+  const int fr = (warp / WARPS_N) * 32 + (lane / 8) * 4;
+  const int fc = (warp % WARPS_N) * WARP_COLS + (lane % 8) * 4;
+  // copy coordinates: A unit i is depth ak of row ar + i * A_ROW_STEP; B
+  // row k = warp + i * WARPS, columns lane * 4 .. + 3
+  constexpr int A_ROW_STEP = 4 * WARPS / (BK / 8);
+  const int ak = (warp % (BK / 8)) * 8 + lane % 8;
+  const int ar = (warp / (BK / 8)) * 4 + lane / 8;
+
+  const int subs_c = (w.bn + TILE - 1) / TILE;
+  const int n_subs = ((w.bm + TILE - 1) / TILE) * subs_c;
+  const int spt = (w.span + BK - 1) / BK;  // stages a depth range
+  const int per = w.nq * spt;              // stages a sub-tile
+  const int n = n_subs * per;
+  auto sub = [&](int u, int& row0, int& rows, int& col0, int& cols) {
+    const int sr = (u / subs_c) * TILE, sc = (u % subs_c) * TILE;
+    row0 = w.row0 + sr;
+    rows = min(min(TILE, w.bm - sr), w.M - row0);
+    col0 = w.col0 + sc;
+    cols = min(min(TILE, w.bn - sc), w.N - col0);
+  };
+
+  // the issue cursor: sub-tile iu (rows, columns), range iq, stage ss;
+  // per sub-tile, this thread's first A source (row ar, depth ak) and B
+  // source (row warp, columns lane * 4 ..), and whether the sub-tile is
+  // whole (no row or column past an edge)
+  int iu = 0, iq = 0, ss = 0;
+  int i_row0, i_rows, i_col0, i_cols;
+  const float* a_src;
+  const float* b_src;
+  bool whole;
+  auto start = [&](int u) {
+    sub(u, i_row0, i_rows, i_col0, i_cols);
+    a_src = A + (size_t)(i_row0 + ar) * lda + ak;
+    b_src = B + (size_t)warp * ldb + i_col0 + lane * 4;
+    whole = i_rows == TILE && i_cols == TILE;
+  };
+  start(0);
+  int kq = w.kr ? w.kr[0] * w.span : 0;
+  const int a_step = A_ROW_STEP * lda, b_step = WARPS * ldb;
+  auto issue = [&](int slot) {
+    float* da = smem + slot * STAGE_FLOATS + ak * LDA + ar;
+    float* db = smem + slot * STAGE_FLOATS + A_FLOATS + warp * TILE + lane * 4;
+    const int k0 = kq + ss * BK, kv = w.span - ss * BK;  // first k, valid depth
+    const float* pa = a_src + k0;
+    const float* pb = b_src + (size_t)k0 * ldb;
+    if (whole && kv >= BK) {  // every copy in range: no predicate
+#pragma unroll
+      for (int i = 0; i < A_UNITS; ++i) cp_async4(da + i * A_ROW_STEP, pa + i * a_step);
+#pragma unroll
+      for (int i = 0; i < B_ROWS; ++i) cp_async16(db + i * WARPS * TILE, pb + i * b_step);
+    } else {  // zeros past the edges (a copy of 0 bytes reads nothing)
+      const bool k_ok = ak < kv, c_ok = lane * 4 < i_cols;
+#pragma unroll
+      for (int i = 0; i < A_UNITS; ++i)
+        cp_async4(da + i * A_ROW_STEP, pa + i * a_step, !(k_ok && ar + i * A_ROW_STEP < i_rows));
+#pragma unroll
+      for (int i = 0; i < B_ROWS; ++i)
+        cp_async16(db + i * WARPS * TILE, pb + i * b_step, !(c_ok && warp + i * WARPS < kv));
+    }
+    if (++ss == spt) {  // the next depth range, or the next sub-tile
+      ss = 0;
+      if (++iq == w.nq) {
+        iq = 0;
+        if (++iu < n_subs) start(iu);
+      }
+      if (w.kr && iu < n_subs) kq = w.kr[iq] * w.span;
+    }
+  };
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+#pragma unroll
+  for (int j = 0; j < STAGES - 1; ++j) {
+    if (j < n) issue(j);
+    cp_async_commit();
+  }
+  int cu = 0, cs = 0;  // the compute cursor: sub-tile cu, stage cs of it
+  for (int j = 0; j < n; ++j) {
+    cp_async_wait<STAGES - 2>();  // this thread's copies of stage j have landed
+    __syncthreads();              // everyone's; slot (j - 1) % STAGES is free
+    if (j + STAGES - 1 < n) issue((j + STAGES - 1) % STAGES);
+    cp_async_commit();
+
+    const float* as = smem + (j % STAGES) * STAGE_FLOATS;
+    const float* bs = as + A_FLOATS;
+    auto fragments = [&](int kk, float (&fa)[TM], float (&fb)[TN]) {
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const float4 v = *reinterpret_cast<const float4*>(as + kk * LDA + fr + p * 16);
+        fa[p * 4 + 0] = v.x, fa[p * 4 + 1] = v.y, fa[p * 4 + 2] = v.z, fa[p * 4 + 3] = v.w;
+      }
+#pragma unroll
+      for (int q = 0; q < TN / 4; ++q) {
+        const float4 v = *reinterpret_cast<const float4*>(bs + kk * TILE + fc + q * 32);
+        fb[q * 4 + 0] = v.x, fb[q * 4 + 1] = v.y, fb[q * 4 + 2] = v.z, fb[q * 4 + 3] = v.w;
+      }
+    };
+    float a[2][TM], b[2][TN];
+    fragments(0, a[0], b[0]);
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      if (kk + 1 < BK) fragments(kk + 1, a[(kk + 1) & 1], b[(kk + 1) & 1]);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int jj = 0; jj < TN; ++jj)
+          acc[i][jj] = __fmaf_rn(a[kk & 1][i], b[kk & 1][jj], acc[i][jj]);
+    }
+
+    if (++cs == per) {  // the sub-tile's last stage: write it, start the next
+      cs = 0;
+      int row0, rows, col0, cols;
+      sub(cu++, row0, rows, col0, cols);
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const int r = fr + (i / 4) * 16 + i % 4;
+        TO* crow = C + (size_t)(row0 + r) * w.N + col0;
+#pragma unroll
+        for (int q = 0; q < TN / 4; ++q) {
+          const int c = fc + q * 32;
+          if (r < rows && c < cols) {
+            const float v[4] = {acc[i][q * 4], acc[i][q * 4 + 1], acc[i][q * 4 + 2],
+                                acc[i][q * 4 + 3]};
+            store4(crow + c, v);
+          }
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) acc[i][q * 4 + jj] = 0.f;
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+}  // namespace simt
+}  // namespace sfc

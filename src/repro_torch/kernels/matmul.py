@@ -9,15 +9,17 @@ together in time share A row panels or B column panels, which is what
 L2 reuse depends on.
 
 Port defaults for the H100 (set in ops.py): ``bm = bn = 128`` (one
-128x128 CTA tile of 256 threads, 8x8 outputs each) and ``bk = 16`` (the
-depth of one shared-memory chunk).  The JAX package's 256³ blocks were
+128x128 CTA tile) and ``bk = 16``.  The JAX package's 256³ blocks were
 sized for 16 MiB of VMEM; a 256x256 f32 operand tile alone (256 KB) is
 above a block's 227 KB of shared memory.  Larger ``(bm, bn)`` are still
 accepted: the CTA loops over 128x128 sub-tiles.  The core follows the
-dtype (:func:`matmul_core`): f32 runs that SIMT tile product, bf16 the
+dtype (:func:`matmul_core`): f32 runs the SIMT core of
+``csrc/simt_gemm.cuh`` (8x8 outputs a thread, a ring of 32-deep stages
+filled by ``cp.async``; each sub-tile sums the whole K, so ``bk`` plays
+no part), whose 16-byte copies of B need :func:`simt_layout`; bf16 the
 tensor cores (``wgmma`` fed by TMA, ``csrc/wgmma_gemm.cuh``; each
-128x128 sub-tile sums the whole K in 64-deep stages, so ``bk`` plays no
-part there): :func:`matmul_wgmma_layout`.
+128x128 sub-tile sums the whole K in 64-deep stages):
+:func:`matmul_wgmma_layout`.
 
 :func:`tile_update_swizzled` (``sfc_tile_update``, the counterpart of
 ``_accum_update_kernel``) is the per-k Cholesky's trailing update:
@@ -29,7 +31,8 @@ read-modify-writes an output block once per k tile; concurrent CTAs must
 not, so the table becomes a CSR (:func:`matmul3d_csr`): one CTA per
 (i, j), launched in first-visit order, which walks its own k tiles in
 the order the table visits them and writes its tile once.  f32 inputs
-run the SIMT tile product; bf16 inputs the tensor cores (``wgmma`` fed
+run the SIMT core (its ring runs on across the k list; ascending k lists
+give ``sfc_matmul``'s bits); bf16 inputs the tensor cores (``wgmma`` fed
 by TMA, ``csrc/wgmma_gemm.cuh``), which take 128x128 output tiles (or
 one tile of the whole M or N) and k tiles of a multiple of 64 (or one
 tile of the whole K): :func:`wgmma_layout`.
@@ -58,7 +61,7 @@ WGMMA_STAGE = 64
 def matmul_core(dtype: torch.dtype) -> str:
     """The core that runs ``sfc_matmul`` and ``sfc_matmul3d``, by the
     inputs' dtype: ``"wgmma"`` (TMA and the bf16 tensor cores,
-    ``csrc/wgmma_gemm.cuh``) for bf16, ``"simt"`` (``tile_gemm.cuh``, the
+    ``csrc/wgmma_gemm.cuh``) for bf16, ``"simt"`` (``simt_gemm.cuh``, the
     FP32 pipes; TF32 stays off) for f32."""
     return "wgmma" if dtype == torch.bfloat16 else "simt"
 
@@ -90,6 +93,61 @@ def matmul_wgmma_layout(M: int, N: int, K: int, bm: int, bn: int) -> tuple[int, 
     return -(-K // 8) * 8, -(-N // 8) * 8
 
 
+def simt_layout(N: int, bn: int) -> tuple[int, int]:
+    """``(N_pad, bn_pad)``: the width and column block the f32 SIMT kernels
+    run an (M, K) @ (K, N) product at, with column blocks ``bn`` (N a
+    multiple of it).  They copy B's rows into shared memory 16 bytes at a
+    time and store C four columns at a time, so every column tile starts
+    on a multiple of 4: each tile of B is zero-padded to ``bn_pad``, the
+    next multiple of 4 (products with zeros add nothing), and the result
+    cut back.  A is copied 4 bytes at a time: M, K, ``bm`` and ``bk`` take
+    any value."""
+    bn_pad = -(-bn // 4) * 4
+    return N // bn * bn_pad, bn_pad
+
+
+def _simt_b(b: torch.Tensor, bn: int) -> tuple[torch.Tensor, int]:
+    """B in :func:`simt_layout`'s column tiles, 16-byte aligned, and the
+    padded block."""
+    K, N = b.shape
+    Nk, bnk = simt_layout(N, bn)
+    if Nk != N:
+        b = torch.nn.functional.pad(b.reshape(K, N // bn, bn), (0, bnk - bn)).reshape(K, Nk)
+    return (b if b.data_ptr() % 16 == 0 else b.clone()), bnk
+
+
+def _simt_c(c: torch.Tensor, N: int, bn: int) -> torch.Tensor:
+    """The (M, N) result from one in :func:`simt_layout`'s column tiles."""
+    _Nk, bnk = simt_layout(N, bn)
+    if bnk == bn:
+        return c
+    return c.reshape(len(c), N // bn, bnk)[:, :, :bn].reshape(len(c), N).contiguous()
+
+
+def simt_kernel_info() -> dict:
+    """The f32 SIMT kernels' build and residency on the current card, by
+    kernel: registers and spilled (local) bytes a thread, resident CTAs an
+    SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), dynamic shared
+    memory and threads a CTA, and the core's thread-tile columns, stage
+    depth and stages (TN, BK, STAGES)."""
+    import ctypes
+
+    from ._build import library
+
+    lib = library()
+    keys = ("registers", "spill_bytes", "ctas_per_sm", "smem_bytes", "threads", "tn", "bk",
+            "stages")
+    info = {}
+    for which, name in enumerate(("sfc_matmul f32", "sfc_matmul bf16-out", "sfc_matmul3d f32",
+                                  "sfc_matmul3d bf16-out")):
+        out = (ctypes.c_int * 8)()
+        err = lib.sfc_matmul_simt_info(which, out)
+        if err:
+            raise RuntimeError(f"sfc_matmul_simt_info: cudaError {err}")
+        info[name] = dict(zip(keys, out))
+    return info
+
+
 def _matmul_cuda(program: GpuProgram, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     p = program.params
     M, K = a.shape
@@ -108,14 +166,19 @@ def _matmul_cuda(program: GpuProgram, a: torch.Tensor, b: torch.Tensor) -> torch
         if Nk != N:  # one column tile: its zero-padded width
             bn = Nk
         a, b = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (a, b))
-    c = torch.empty((M, Nk), dtype=p["out_dtype"], device=a.device)
+    else:
+        b, bn = _simt_b(b, bn)
+        Nk = b.shape[1]
     if program.steps == 0 or K == 0:
-        return c[:, :N].zero_()
+        return torch.zeros((M, N), dtype=p["out_dtype"], device=a.device)
+    c = torch.empty((M, Nk), dtype=p["out_dtype"], device=a.device)
     call(
         "sfc_matmul", a.data_ptr(), b.data_ptr(), c.data_ptr(),
         program.schedule.data_ptr(), *program.grid, M, Nk, Kk, p["bm"], bn,
         _DTYPE_CODE[a.dtype], _DTYPE_CODE[p["out_dtype"]], stream_of(a), core=core,
     )
+    if core == "simt":
+        return _simt_c(c, N, p["bn"])
     return c if Nk == N else c[:, :N].contiguous()
 
 
@@ -378,14 +441,19 @@ def _matmul3d_cuda(program: GpuProgram, a: torch.Tensor, b: torch.Tensor) -> tor
             b = torch.nn.functional.pad(b, (0, Nk - N))
             bn = Nk
         a, b = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (a, b))
-    c = torch.empty((M, Nk), dtype=p["out_dtype"], device=a.device)
+    else:
+        b, bn = _simt_b(b, bn)
+        Nk = b.shape[1]
     if program.steps == 0 or K == 0:
-        return c[:, :N].zero_()
+        return torch.zeros((M, N), dtype=p["out_dtype"], device=a.device)
+    c = torch.empty((M, Nk), dtype=p["out_dtype"], device=a.device)
     call(
         "sfc_matmul3d", a.data_ptr(), b.data_ptr(), c.data_ptr(), program.schedule.data_ptr(),
         ks.data_ptr(), program.steps, p["kt"], M, Nk, Kk, p["bm"], bn, bk,
         _DTYPE_CODE[a.dtype], _DTYPE_CODE[p["out_dtype"]], stream_of(a), core=core,
     )
+    if core == "simt":
+        return _simt_c(c, N, p["bn"])
     return c if Nk == N else c[:, :N].contiguous()
 
 

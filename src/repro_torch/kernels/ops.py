@@ -180,11 +180,10 @@ def matmul(
     tile is written exactly once.  Ragged shapes are zero-padded to block
     multiples and the result sliced back to (M, N).
 
-    ``bk`` defaults to 16 (2-D: the depth of one shared-memory chunk) and
+    ``bk`` defaults to 16 (2-D: K's padding; the CTA sums the whole K) and
     to 128 (3-D: the depth of one k tile of the curve, a 128³ cube per
     table row like the output tile; 8192³ is then a 64³ table, built once
-    on the host, and a CTA restarts its operand pipeline once every 8
-    chunks rather than every chunk).
+    on the host).
     """
     if schedule_ndim not in (2, 3):
         raise ValueError(f"schedule_ndim must be 2 or 3, got {schedule_ndim}")

@@ -236,7 +236,7 @@ def test_matmul_swizzled_3d_vs_jax(curve):
 
 
 @pytest.mark.parametrize("curve", ["hilbert", "fur", "row"])
-@pytest.mark.parametrize("M,N,K", [(100, 70, 50), (64, 130, 300)])
+@pytest.mark.parametrize("M,N,K", [(100, 70, 50), (64, 130, 300), (70, 90, 7)])
 def test_ops_matmul_3d_vs_jax(curve, M, N, K):
     """``fur`` has no 3-D form and falls back to ``hilbert``, as in JAX."""
     rng = np.random.default_rng(M * N + K)

@@ -31,7 +31,7 @@ from test_torch_kernels import band_free_eps, clustered  # noqa: E402
 
 
 @pytest.mark.parametrize("curve", ["fur", "hilbert"])
-@pytest.mark.parametrize("M,N,K", [(100, 70, 50), (64, 130, 33)])
+@pytest.mark.parametrize("M,N,K", [(100, 70, 50), (64, 130, 33), (70, 90, 7)])
 def test_matmul_vs_jax(curve, M, N, K):
     rng = np.random.default_rng(M * N + K)
     a = rng.standard_normal((M, K)).astype(np.float32)

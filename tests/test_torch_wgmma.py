@@ -59,12 +59,14 @@ def test_matmul_wgmma_layout_refuses_blocks_it_cannot_take(M, N, K, bm, bn, what
     # (M, N, K, bm, bn) as the kernel sees them, and the core
     (100, 90, 70, 100, 90, torch.bfloat16, (100, 96, 72, 100, 96, "wgmma")),
     (256, 256, 64, 256, 128, torch.bfloat16, (256, 256, 64, 256, 128, "wgmma")),
-    (100, 90, 70, 100, 90, torch.float32, (100, 90, 70, 100, 90, "simt")),
+    # f32: the column tile padded to a multiple of 4 (simt_layout), K as it is
+    (100, 90, 70, 100, 90, torch.float32, (100, 92, 70, 100, 92, "simt")),
 ])
 def test_matmul_wrapper_launch_arguments(monkeypatch, M, N, K, bm, bn, dtype, args):
     """``_matmul_cuda``'s host side on CPU tensors, the kernel call
-    recorded: bf16 operands zero-padded to the layout's (K, N), a single
-    column tile widened with them, the result sliced back to (M, N)."""
+    recorded: bf16 operands zero-padded to the layout's (K, N), f32 ones
+    to ``simt_layout``'s N, a single column tile widened with them, the
+    result sliced back to (M, N)."""
     calls = []
     monkeypatch.setattr(tmm, "require", lambda *a, **k: None)
     monkeypatch.setattr(tmm, "stream_of", lambda t: 0)
