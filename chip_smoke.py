@@ -7,8 +7,9 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
 
 1. Print the card's name and power limit (nvidia-smi), build every
    CUDA kernel of the port from ``src/repro_torch/kernels/csrc`` into
-   ``build/repro_torch/``, and print the f32 SIMT matmul kernels'
-   registers, spills and resident CTAs an SM.
+   ``build/repro_torch/``, and print the registers, spills and resident
+   CTAs an SM of the SIMT core's kernels (the f32 matmuls and
+   ``sfc_tile_update``) and of row 20's register-tiled f32 core.
 2. Hold each kernel against its plain PyTorch version on the same CUDA
    inputs, at a small ragged and a mid-size shape (the k-means update up
    to D = 960, its column-chunked grid; ``sfc_chol_diag`` equal to
@@ -62,7 +63,10 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    phase over all k-blocks of one call (``sfc_chol_diag`` also against
    one ``linalg.cholesky`` call per diagonal tile; ``sfc_chol_trailing``
    against the 63 in-place ``addmm_`` of the trailing squares and beside
-   the per-k form's ``sfc_tile_update`` on the same tiles);
+   the per-k form's ``sfc_tile_update`` on the same tiles, which must
+   leave the matrix equal to the bit); ``sfc_tile_update`` on the 64 x 64
+   tile grid at Kp = 128 equal to the bit to ``O - sfc_matmul(A, Bᵀ)``,
+   the chain both compute;
    ``sfc_chol_panel`` is first held on its own against ``_solve_tiles`` on
    the panels of k = 0 and k = 32 of the 8192 call, as the fused program
    leaves them; ``sfc_matmul3d`` in bf16 with bf16 and f32 outputs.
@@ -80,14 +84,19 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    ``sfc_flash_prefill`` launches on the tensor-core core, and, counted apart,
    ``forward`` of 2 x 2048 tokens with ``use_hilbert_kernels``, whose
    22 ``sfc_flash_attention`` launches must all be on the tensor-core
-   core; prints
+   core (and its wall time again, warm); prints
    tokens/s, time to first token, tick p99, pages and the busy share of
    a warm decode tick; (c) the f32 gate: 8 requests served on f32
    weights, each served token equal to the dense forward's argmax outside
    the top-2 margin band, the flash decode step allclose to the page
-   gather; (d) each flash kernel's time, bound, plain version and a
-   PyTorch SDPA call (``sfc_flash_attention`` and ``sfc_flash_prefill``
-   in bf16 and f32; ``sfc_flash_decode``, whose call is shorter on the
+   gather, and the f32 ``forward`` of 1 x 2048 tokens with
+   ``use_hilbert_kernels`` (its 22 ``sfc_flash_attention`` launches all on
+   the register-tiled core, counted apart) against the plain forward:
+   logits allclose, argmax equal outside the top-2 margin band, its wall
+   time and the flash kernels' device time; (d) each flash kernel's
+   time, bound, plain version and a PyTorch SDPA call
+   (``sfc_flash_attention`` and ``sfc_flash_prefill`` in bf16 and f32;
+   ``sfc_flash_decode``, whose call is shorter on the
    card than on the host, by the device time of its kernels and of the
    gather + SDPA call's, beside both calls' CUDA-event times, with its
    split-KV launch and its time at other split sizes).
@@ -1674,9 +1683,12 @@ def flash_programs(device, dec, pre, att):
 def compare_attention(rng, device) -> dict:
     """Each flash kernel against its plain version on the card at the
     serving shapes, in f32 and bf16 (the bf16 prefill on its tensor-core
-    core, the f32 one on SIMT); returns the largest errors."""
+    core, the f32 one on SIMT; row 20 in bf16 on the tensor cores, in f32
+    on the register-tiled core, and in both on the SIMT core at q and kv
+    tiles of 64 rows); returns the largest errors."""
     import torch
     from repro_torch.kernels import LAUNCHES, launch
+    from repro_torch.kernels import attention as katt
 
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -1697,19 +1709,38 @@ def compare_attention(rng, device) -> dict:
         rows = prefill_covered(pre[5], pre[2].shape[1], SERVE_PAGE, device)
         errs[("sfc_flash_prefill", dtype)] = attn_err(got[rows], want[rows], tol, f"sfc_flash_prefill {dtype}")
         q, k, v, seqlen = att
-        got, want = launch(p_att, q, k, v), p_att.plain(p_att, q, k, v)
+        before = LAUNCHES.cores()
+        got = launch(p_att, q, k, v)
+        core = "wgmma" if dtype == torch.bfloat16 else "tiled"
+        check(LAUNCHES.cores()[f"sfc_flash_attention.{core}"] == before[f"sfc_flash_attention.{core}"] + 1,
+              f"sfc_flash_attention {dtype}: not launched on its {core} core")
+        want = p_att.plain(p_att, q, k, v)
         torch.cuda.synchronize()
         e1 = attn_err(got, want, tol, f"sfc_flash_attention {dtype}")
         got, want = launch(p_att, q, k, v, seqlen), p_att.plain(p_att, q, k, v, seqlen)
         torch.cuda.synchronize()
         e2 = attn_err(got, want, tol, f"sfc_flash_attention kv_seqlen {dtype}")
-        errs[("sfc_flash_attention", dtype)] = max(e1, e2)
+        # every other shape runs flash_rows (the "simt" core): q and kv tiles
+        # of 64 rows on the same inputs
+        S = q.shape[1]
+        p_simt = katt.flash_attention_program(
+            katt.attention_schedule_device(S // 64, S // 64, causal=True, device=device), q,
+            causal=True, sm_scale=p_att.params["sm_scale"], bq=64, bkv=64, kv_valid=None)
+        before = LAUNCHES.cores()
+        got = launch(p_simt, q, k, v, seqlen)
+        check(LAUNCHES.cores()["sfc_flash_attention.simt"] == before["sfc_flash_attention.simt"] + 1,
+              f"sfc_flash_attention bq=bkv=64 {dtype}: not launched on its simt core")
+        want = p_simt.plain(p_simt, q, k, v, seqlen)
+        torch.cuda.synchronize()
+        e3 = attn_err(got, want, tol, f"sfc_flash_attention simt bq=bkv=64 kv_seqlen {dtype}")
+        errs[("sfc_flash_attention", dtype)] = max(e1, e2, e3)
         B, hkv, g, d = dec[2].shape
         log(f"compare flash {str(dtype)[6:]} (rtol {tol['rtol']}, atol {tol['atol']}): decode B={B} Hkv={hkv} "
             f"g={g} D={d} ps={SERVE_PAGE} MP={dec[0].shape[1]} pos={dec[1].tolist()} max_abs_err="
             f"{errs[('sfc_flash_decode', dtype)]:.3e}; prefill Tq={pre[2].shape[1]} n_new={pre[5].tolist()} "
             f"pos0={pre[1].tolist()} max_abs_err={errs[('sfc_flash_prefill', dtype)]:.3e}; attention "
-            f"BH={q.shape[0]} S={q.shape[1]} causal max_abs_err={e1:.3e}, with kv_seqlen {e2:.3e}")
+            f"BH={q.shape[0]} S={q.shape[1]} causal max_abs_err={e1:.3e}, with kv_seqlen {e2:.3e}, "
+            f"simt core (bq = bkv = 64) with kv_seqlen {e3:.3e}")
         del dec, pre, att, got, want
     return errs
 
@@ -1899,12 +1930,20 @@ def serving_path(rng, device, seed: int) -> list:
     logits_pl, _ = forward(params, {"tokens": toks}, cfg)
     agree = float((logits_hk.argmax(-1) == logits_pl.argmax(-1)).float().mean())
     fwd_diff = float((logits_hk - logits_pl).abs().max())
-    log(f"forward {ATTN_ROW20[0]}x{ATTN_ROW20[2]} bf16 use_hilbert_kernels: {fwd_ms:.1f} ms, "
+    del logits_hk, logits_pl
+    # the same forward warm: the median wall of 3 more (counted apart)
+    warm_ms = []
+    for _ in range(3):
+        t = time.perf_counter()
+        forward(params, {"tokens": toks}, cfg_hk)
+        torch.cuda.synchronize()
+        warm_ms.append(1e3 * (time.perf_counter() - t))
+    log(f"forward {ATTN_ROW20[0]}x{ATTN_ROW20[2]} bf16 use_hilbert_kernels: {fwd_ms:.1f} ms "
+        f"(warm {statistics.median(warm_ms):.2f} ms, median of 3), "
         f"sfc_flash_attention launches {fwd_launches['sfc_flash_attention']} (wgmma "
         f"{fwd_cores['sfc_flash_attention.wgmma']}, simt {fwd_cores['sfc_flash_attention.simt']}); "
         f"against the plain attention: "
-        f"argmax agreement {agree:.4f}, max |dlogit| {fwd_diff:.3e} (max |logit| {float(logits_pl.abs().max()):.3e})")
-    del logits_hk, logits_pl
+        f"argmax agreement {agree:.4f}, max |dlogit| {fwd_diff:.3e}")
     busy = warm_decode_tick(cfg, params, requests, device)
     del params
 
@@ -1936,14 +1975,45 @@ def serving_path(rng, device, seed: int) -> list:
     check(bool(torch.allclose(outs["flash"], outs["xla"], rtol=STEP_TOL, atol=STEP_TOL)),
           f"decode_step_paged flash vs xla: max err {step_err}")
     gate["decode_step_paged_flash_vs_xla_max_abs_err"] = step_err
+    # the f32 forward, 1 x 2048 tokens, through row 20's register-tiled core
     toks32 = rng.integers(0, cfg32.vocab_size, size=(1, ATTN_ROW20[2])).astype(np.int32)
-    lk, _ = forward(params32, {"tokens": toks32}, dc.replace(cfg32, use_hilbert_kernels=True))
+    cfg32_hk = dc.replace(cfg32, use_hilbert_kernels=True)
+    LAUNCHES.reset()
+    t = time.perf_counter()
+    lk, _ = forward(params32, {"tokens": toks32}, cfg32_hk)
+    torch.cuda.synchronize()
+    f32_fwd_ms = 1e3 * (time.perf_counter() - t)
+    f32_launches, f32_cores = LAUNCHES.counts()["sfc_flash_attention"], LAUNCHES.cores()
+    check(f32_cores["sfc_flash_attention.tiled"] == f32_launches == cfg32.num_layers,
+          f"f32 forward: sfc_flash_attention launches {f32_launches}, cores {f32_cores}, expected "
+          f"{cfg32.num_layers} on the tiled core")
     lp, _ = forward(params32, {"tokens": toks32}, cfg32)
     fwd_err = float((lk - lp).abs().max())
+    check(bool(torch.isfinite(lk).all()) and lk.shape == lp.shape, "f32 forward: non-finite or shape")
     check(bool(torch.allclose(lk, lp, rtol=STEP_TOL, atol=STEP_TOL)), f"f32 forward kernel vs plain: {fwd_err}")
+    # logits allclose at STEP_TOL can swap the top two only where their
+    # margin is at most 2 (atol + rtol |top|): the band left out
+    top2 = lp.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * STEP_TOL * (1 + top2[..., 0].abs())
+    same = lk.argmax(-1) == lp.argmax(-1)
+    check(bool(same[clear].all()), f"f32 forward: argmax differs at {int((~same & clear).sum())} positions "
+                                   f"outside the margin band")
+    del lk, lp
+    warm = [cuda_ms(lambda: forward(params32, {"tokens": toks32}, cfg32_hk), 1, warmup=0) for _ in range(3)]
+    fwd_dev = kernel_ms(lambda: forward(params32, {"tokens": toks32}, cfg32_hk), 2)
+    att_dev = sum(v for k, v in fwd_dev.items() if "flash_tiled" in k)
     gate["forward_flash_vs_plain_max_abs_err"] = fwd_err
-    log("check serving f32 gate: " + json.dumps(gate) + f" (tolerance rtol = atol = {STEP_TOL})")
-    del params32, engine, pools, snap, outs, lk, lp
+    gate["forward_f32"] = {
+        "tokens": int(toks32.size), "wall_ms": f32_fwd_ms, "warm_ms": statistics.median(warm),
+        "device_ms": sum(fwd_dev.values()), "sfc_flash_attention_device_ms": att_dev,
+        "sfc_flash_attention_launches": f32_launches,
+        "cores": {k: f32_cores[k] for k in ("sfc_flash_attention.tiled", "sfc_flash_attention.simt",
+                                            "sfc_flash_attention.wgmma")},
+        "argmax_clear_share": float(clear.float().mean()), "argmax_agreement": float(same.float().mean()),
+    }
+    log("check serving f32 gate: " + json.dumps(gate) + f" (tolerance rtol = atol = {STEP_TOL}; the f32 "
+        f"forward's argmax where the top-2 margin exceeds 2 (atol + rtol |top|))")
+    del params32, engine, pools, snap, outs
 
     # --- (d) timings at the serving shapes (bf16) --------------------------
     rows = []
@@ -2042,10 +2112,10 @@ def serving_path(rng, device, seed: int) -> list:
     BH, S, d = qa.shape
     Bq, H = ATTN_ROW20[0], ATTN_ROW20[1]
     att_ops = 4.0 * BH * d * S * (S + 1) / 2
-    # f32 on the SIMT core: the same function, bound by the FP32 pipes
+    # f32 on the register-tiled core: the same function, bound by the FP32 pipes
     q32, k32, v32, _ = attention_inputs(rng, device, torch.float32)
     f32_bound, f32_by = bound_ms(att_ops, FP32_PEAK, 4 * BH * S * d * 4)
-    f32 = {"core": "simt", "ms": cuda_ms(lambda: launch(p_att, q32, k32, v32), 10),
+    f32 = {"core": "tiled", "ms": cuda_ms(lambda: launch(p_att, q32, k32, v32), 10),
            "plain_ms": cuda_ms(lambda: p_att.plain(p_att, q32, k32, v32), 1, warmup=0),
            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
                q32.reshape(Bq, H, S, d), k32.reshape(Bq, H, S, d), v32.reshape(Bq, H, S, d),
@@ -2373,7 +2443,8 @@ def time_phased(entry, device, fw_d, fw_dr, ch_a, ch_ar, ch) -> None:
     from repro_torch.kernels.cholesky import cholesky_program, cholesky_reference_program
     from repro_torch.kernels.floyd_warshall import ENTRY_POINTS as FW_ENTRY
     from repro_torch.kernels.floyd_warshall import fw_program
-    from repro_torch.kernels.matmul import tile_update_program
+    from repro_torch.kernels.matmul import (matmul_program, simt_kernel_info, tile_update_launch,
+                                            tile_update_program, tile_update_residency)
 
     n, b = fw_d.shape[0], 128
     nt = n // b
@@ -2489,10 +2560,13 @@ def time_phased(entry, device, fw_d, fw_dr, ch_a, ch_ar, ch) -> None:
             extra = {"bound_one_sm_ms": 1e3 * ops_ / per_sm,
                      "library_single_tiles_ms": cuda_ms(lambda: [torch.linalg.cholesky(t) for t in diag_tiles], 3),
                      "tiles": int(ctas)}
-        if phase == 2:  # beside it, the per-k form's trailing updates: the same tiles on tile_update
+        if phase == 2:  # beside it, the per-k form's trailing updates: the same tiles on sfc_tile_update
             ref_sub = only_phase(cholesky_reference_program("hilbert", nt, b, device=device), 2)
+            same = torch.equal(launch(sub, work.clone()), launch(ref_sub, work.clone()))
+            check(same, f"cholesky {n}: sfc_chol_trailing and sfc_tile_update differ on the same tiles")
             extra = {"tiles": int(ctas), "library": f"{nt - 1} in-place addmm_ of the full trailing square",
-                     "per_k_tile_update_ms": cuda_ms(lambda: launch(ref_sub, work), 3)}
+                     "per_k_tile_update_ms": cuda_ms(lambda: launch(ref_sub, work), 3),
+                     "equal_to_per_k_tile_update": same}
         entry(name, lambda: launch(sub, work), lambda: sub.plain(sub, work), libraries[phase], ops_,
               FP32_PEAK, nbytes, 3, err, extra)
     del work, lib_work, diag_tiles, l_kk, a_ik
@@ -2508,10 +2582,19 @@ def time_phased(entry, device, fw_d, fw_dr, ch_a, ch_ar, ch) -> None:
     got, want = launch(tu, o.clone(), a, bb), tu.plain(tu, o.clone(), a, bb)
     tu_err, tu_tol = float((got - want).abs().max()), 1e-4 * kp ** 0.5
     check(tu_err <= tu_tol, f"sfc_tile_update {n}^2 Kp={kp} vs plain: max err {tu_err} > {tu_tol}")
-    del got, want
+    # the chain to the bit: each element __fmaf_rn over k ascending from 0
+    # (sfc_matmul f32's chain too), times alpha, added to O, rounded apart
+    prod = launch(matmul_program(tile_schedule_device("row", (nt, nt), device=device), a,
+                                 bb.T.contiguous(), bm=b, bn=b, bk=kp), a, bb.T.contiguous())
+    chain = torch.equal(got, o + prod * -1.0)
+    check(chain, f"sfc_tile_update {n}^2 Kp={kp}: not O - sfc_matmul(A, B^T) to the bit")
+    del got, want, prod
+    grid = tile_update_launch(nt * nt, *tile_update_residency(device.index))
+    smem = simt_kernel_info()["sfc_tile_update"]["smem_bytes"]
     entry("sfc_tile_update", lambda: launch(tu, o, a, bb), lambda: tu.plain(tu, o, a, bb),
           lambda: torch.addmm(o, a, bb.T, alpha=-1.0), 2.0 * n * n * kp, FP32_PEAK,
-          4 * (2 * n * n + 2 * n * kp), 5, tu_err)
+          4 * (2 * n * n + 2 * n * kp), 5, tu_err,
+          {"equal_to_the_matmul_chain": chain, "tiles": nt * nt, "persistent_ctas": grid, "smem_bytes": smem})
     del o, a, bb
 
     # the entry points end to end (each copies its input once)
@@ -2605,9 +2688,11 @@ def main() -> int:
     for line in (lib.parent / "build.log").read_text().splitlines():
         if "registers" in line or "spill" in line.lower() or line.startswith("=="):
             log("  " + line.strip())
+    from repro_torch.kernels.attention import tiled_kernel_info
     from repro_torch.kernels.matmul import simt_kernel_info
 
     log("simt kernels: " + json.dumps(simt_kernel_info()))
+    log("flash tiled kernels: " + json.dumps(tiled_kernel_info()))
     rng = np.random.default_rng(args.seed)
     compare_kernels(rng, device)
     compare_phased(np.random.default_rng(args.seed + 1), device)

@@ -51,7 +51,8 @@ SIGNATURES = {
     "sfc_kmeans_fold": (_P, _P, _I, _I, _I, _P, _P),
     "sfc_join_hits_rows": (_P, _I, _P, _I, _I, _I, _F, _I, _P, _P),
     "sfc_join_emit_halo": (_P, _I, _P, _I, _I, _F, _I, _P, _P),
-    "sfc_tile_update": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    # (o, a, b, table, steps, persistent CTAs, M, N, Kp, bm, bn, alpha, stream)
+    "sfc_tile_update": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     # phased kernels: (matrix, [workspace,] table, table columns, column of
     # i, first row, CTAs, k, n, b, stream)
     "sfc_fw_diag": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
@@ -73,17 +74,21 @@ SIGNATURES = {
 
 
 # entry points that read a kernel's build attributes and launch nothing
-# (not counted): out int32[8] (kernels/matmul.py::simt_kernel_info)
-QUERIES = {"sfc_matmul_simt_info": (_I, _P)}
+# (not counted): (which kernel, out int32[8]), read by kernel_info
+QUERIES = {"sfc_matmul_simt_info": (_I, _P), "sfc_flash_tiled_info": (_I, _P)}
+# the first five of a query's eight values (csrc/kernel_info.cuh); the
+# last three are constants of the kernel's design
+INFO_KEYS = ("registers", "spill_bytes", "ctas_per_sm", "smem_bytes", "threads")
 
 
 # the entry points that dispatch to more than one kernel, and their cores:
 # bf16 on the tensor cores (TMA + wgmma), f32 (and the shapes the tensor-core
-# core does not take) on the SIMT kernels
+# core does not take) on the SIMT kernels; sfc_flash_attention's f32 at the
+# tensor-core core's shapes on the register-tiled SIMT core ("tiled")
 CORES = {
     "sfc_matmul": ("wgmma", "simt"),
     "sfc_matmul3d": ("wgmma", "simt"),
-    "sfc_flash_attention": ("wgmma", "simt"),
+    "sfc_flash_attention": ("wgmma", "tiled", "simt"),
     "sfc_flash_prefill": ("wgmma", "simt"),
 }
 
@@ -204,6 +209,20 @@ def call(name: str, *args, core: str | None = None) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
     LAUNCHES.add(name, core)
+
+
+def kernel_info(query: str, which: int, design: tuple[str, str, str]) -> dict[str, int]:
+    """Kernel ``which``'s build and residency on the current card, through
+    the query entry point ``query`` of :data:`QUERIES`: registers and
+    spilled (local) bytes a thread, resident CTAs an SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), dynamic shared
+    memory and threads a CTA, and three constants of its design, named by
+    ``design``.  Launches nothing and counts nothing."""
+    out = (ctypes.c_int * 8)()
+    err = getattr(library(), query)(which, out)
+    if err != 0:
+        raise RuntimeError(f"{query}({which}): cudaError {err}")
+    return dict(zip(INFO_KEYS + design, out))
 
 
 def stream_of(tensor) -> int:

@@ -36,13 +36,16 @@ multiple of 4) and at most 256 query rows per CTA (``bq`` for
 ``sfc_flash_attention``, ``g`` for decode, ``page_size * g`` for prefill).
 The plain versions take any shape.
 
-``sfc_flash_attention`` and ``sfc_flash_prefill`` have two cores each,
-picked by dtype and shape (:func:`flash_core`, :func:`prefill_core`):
-bf16 runs on the tensor cores (TMA + ``wgmma``, P rounded to bf16 for
-P·V) at D = 64 or 128 with 128 query rows a CTA (bq = 128 and bkv a
-multiple of 64; for prefill Dk = Dv, page_size · g = 128 and whole pages
-of 8 to 64 rows a 64-row half); f32, and every other shape, runs the SIMT
-f32 core that decode shares.
+``sfc_flash_attention`` and ``sfc_flash_prefill`` have more than one
+core each, picked by dtype and shape (:func:`flash_core`,
+:func:`prefill_core`): bf16 runs on the tensor cores (TMA + ``wgmma``, P
+rounded to bf16 for P·V) at D = 64 or 128 with 128 query rows a CTA (bq
+= 128 and bkv a multiple of 64; for prefill Dk = Dv, page_size · g = 128
+and whole pages of 8 to 64 rows a 64-row half); ``sfc_flash_attention``
+in f32 at those shapes runs the register-tiled SIMT core (``"tiled"``:
+all 128 rows in one pass, K/V stages of 64 rows through a ``cp.async``
+ring, 8 × 4 score tiles a thread); every other shape runs the SIMT f32
+core (``flash_rows``).
 """
 from __future__ import annotations
 
@@ -55,7 +58,7 @@ import torch
 from repro_torch.core import register_schedule_cache
 from repro_torch.core.program import GpuProgram
 
-from ._build import call, stream_of
+from ._build import call, kernel_info, stream_of
 from .launch import cta_chunks, launch, require, shuffled_ctas
 
 DEFAULT_MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
@@ -64,8 +67,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # the CUDA kernels' limits (csrc/attention.cu: MAX_D, MAX_ROWS)
 MAX_HEAD_DIM = 128
 MAX_ROWS = 256
-# the shapes sfc_flash_attention's tensor-core core takes in bf16
-# (csrc/attention.cu: tensor_core_shape)
+# the shapes sfc_flash_attention's tensor-core core (bf16) and its
+# register-tiled core (f32) take (csrc/attention.cu: core_shape)
 WGMMA_HEAD_DIMS = (64, 128)
 WGMMA_BQ = 128
 WGMMA_BKV_STEP = 64
@@ -374,19 +377,27 @@ def _check_kernel_shape(program: GpuProgram, dk: int, dv: int, rows: int) -> Non
 
 def flash_core(dtype: torch.dtype, D: int, bq: int, bkv: int) -> str:
     """The core of ``sfc_flash_attention`` that runs a launch, by dtype and
-    shape (the rule of ``csrc/attention.cu``'s entry point): ``"wgmma"``
-    (TMA and the tensor cores) for bf16 at D in :data:`WGMMA_HEAD_DIMS`,
-    bq = 128 and bkv a multiple of 64; ``"simt"`` (``flash_rows``, f32
-    arithmetic) for f32 and every other shape."""
-    if (dtype == torch.bfloat16 and D in WGMMA_HEAD_DIMS and bq == WGMMA_BQ
-            and bkv % WGMMA_BKV_STEP == 0):
-        return "wgmma"
+    shape (the rule of ``csrc/attention.cu``'s entry point): at D in
+    :data:`WGMMA_HEAD_DIMS`, bq = 128 and bkv a multiple of 64, ``"wgmma"``
+    (TMA and the tensor cores) for bf16 and ``"tiled"`` (the
+    register-tiled SIMT core) for f32; ``"simt"`` (``flash_rows``, f32
+    arithmetic) for every other shape."""
+    if D in WGMMA_HEAD_DIMS and bq == WGMMA_BQ and bkv % WGMMA_BKV_STEP == 0:
+        return "wgmma" if dtype == torch.bfloat16 else "tiled"
     return "simt"
 
 
-def _tma_aligned(*tensors):
-    """The tensors with 16-byte aligned bases (TMA reads from them): a
-    misaligned one is copied."""
+def tiled_kernel_info() -> dict:
+    """The register-tiled f32 core's build and residency on the current
+    card, at D = 64 and 128 (:func:`._build.kernel_info`), with the core's
+    D, kv rows a stage and stages."""
+    return {f"sfc_flash_attention.tiled D={d}":
+            kernel_info("sfc_flash_tiled_info", d, ("d", "kv_stage", "stages")) for d in (64, 128)}
+
+
+def _aligned16(*tensors):
+    """The tensors with 16-byte aligned bases (TMA and 16-byte ``cp.async``
+    read from them): a misaligned one is copied."""
     return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in tensors)
 
 
@@ -402,8 +413,8 @@ def _attention_cuda(program: GpuProgram, q, k, v, seqlen=None):
         require(program, seqlen, "kv_seqlen", dtypes=(torch.int32,), shape=(BH,))
     _check_kernel_shape(program, D, D, p["bq"])
     core = flash_core(q.dtype, D, p["bq"], p["bkv"])
-    if core == "wgmma":
-        q, k, v = _tma_aligned(q, k, v)
+    if core != "simt":
+        q, k, v = _aligned16(q, k, v)
     o = torch.empty_like(q)
     call(
         "sfc_flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -731,7 +742,7 @@ def _prefill_cuda(program: GpuProgram, page_table, pos0, q, k_pages, v_pages):
     _check_kernel_shape(program, Dk, Dv, ps * g)
     core = prefill_core(q.dtype, Dk, Dv, ps, g)
     if core == "wgmma":
-        q, k_pages, v_pages = _tma_aligned(q, k_pages, v_pages)
+        q, k_pages, v_pages = _aligned16(q, k_pages, v_pages)
     # rows that no run covers stay unwritten, as on the TPU
     o = torch.empty((B, Tq, Hkv, g, Dv), dtype=q.dtype, device=q.device)
     if program.grid[0]:

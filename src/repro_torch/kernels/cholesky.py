@@ -19,7 +19,9 @@ and panel kernels with its own per-k tables and runs each trailing update
 through :func:`repro_torch.kernels.matmul.tile_update_swizzled` on the
 zero-padded (n, b) panel, as the JAX reference does; the fused trailing
 kernel computes each element by ``sfc_tile_update``'s chain of rounded
-operations, so both forms agree to the last bit.
+operations (``csrc/simt_gemm.cuh``: the ``__fmaf_rn`` chain over k
+ascending, then the ``Update`` epilogue), so both forms agree to the last
+bit.
 
 Every update is in place.  No workspace: the panel phase reads L_kk,
 which no CTA of its launch writes, and trailing tiles never write column

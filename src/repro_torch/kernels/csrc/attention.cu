@@ -34,7 +34,9 @@
 // query rows (2 flops per byte in bf16 at g = 8); prefill and the
 // full-sequence kernel do 2 * rows flops per K/V element read, well under
 // the ridge of the bf16 tensor cores.  The SIMT f32 core (flash_rows) runs
-// every f32 or odd-shaped prefill and sfc_flash_attention: a CTA of 8
+// every f32 or odd-shaped prefill and every sfc_flash_attention that
+// neither the tensor-core core nor the register-tiled f32 core (below)
+// takes: a CTA of 8
 // warps stages 64 kv rows of K and V at a time in shared memory as f32
 // (the page-table or tile-table lookup done once per row by one thread),
 // each warp owns RW query rows held in shared memory, a lane owns one kv
@@ -71,6 +73,32 @@
 // H100 80GB HBM3, 700.00 W, chip_smoke.py).  Tensor cores would not pay: at
 // 2 flops a byte the kernel is bound by bytes and latency, not by FP32
 // issue.
+//
+// sfc_flash_attention in f32 at D = 64 or 128, bq = 128 and bkv a
+// multiple of 64 runs the register-tiled SIMT core (tiled::, below;
+// kernels/attention.py::flash_core is the same rule).  Bound on the H100:
+// the FP32 pipes (TF32 stays off): 0.513 ms at the model's forward (BH
+// 64, S 2048, D 64, causal).  flash_rows took 3.92-3.99 ms there (SDPA f32
+// 1.21-1.23; H100 80GB HBM3, 700.00 W): a lane scored one kv row against
+// Q rows re-read from shared memory for every 4-deep step (~2.7 FFMA a
+// shared-memory load), K and V were staged through registers behind
+// three barriers a tile, and a q tile of 128 rows took two passes over
+// its kv walk.  This core holds the CTA's 128 query rows in one pass:
+// Q^T is copied once (4-byte cp.async that transpose it), K^T and V
+// stream through a two-stage cp.async ring of 64 kv rows (K^T by 4-byte
+// copies, V as stored by 16-byte ones; the next stage in flight while
+// this one is used), and each thread owns 8 query rows: an 8 x
+// 4 tile of S (2 + 1 LDS.128 for 32 FFMA a d), the online softmax on its
+// rows (a row's maximum by 4 shuffles among the 16 lanes sharing it, its
+// sum kept per thread), P through its warp's rows of shared memory, and
+// an 8 x D/16 tile of O (P·V: 2 + D/64 LDS.128 for 32 D/64 FFMA a kv
+// row), so the rescale by alpha never leaves the thread.  Every score is
+// flash_rows' fmaf chain over d; the row sums and P·V are summed in
+// another order (within 1e-4 of the plain version).  1.24-1.33 ms there,
+// SDPA f32 1.23 in the same runs (chip_smoke.py and an A/B probe); the
+// FFMA share of the issued stage is ~0.72 (SASS: the S loop 288 of 340,
+// P·V 1,024 of 1,170; the softmax's 40 expf and the copies the rest) at
+// 167 registers and one CTA (8 warps) an SM.
 //
 // sfc_flash_attention in bf16 at D = 64 or 128, bq = 128 and bkv a
 // multiple of 64 runs the tensor-core core instead (flash_wgmma_kernel;
@@ -128,6 +156,7 @@
 #include <mutex>
 
 #include "cp_async.cuh"
+#include "kernel_info.cuh"
 #include "wgmma_gemm.cuh"
 
 namespace {
@@ -463,6 +492,268 @@ int prefill_t(const void* q, const void* kp, const void* vp, void* o, const void
       (T*)o, (const int*)sched, (const int*)runs, (const int*)table, (const int*)pos0, tq, g, dk,
       dv, ps, mp, scale);
 }
+
+// ---------------------------------------------------------------------------
+// sfc_flash_attention in f32 at D = 64 or 128, bq = 128, bkv a multiple of
+// 64: the register-tiled SIMT core
+// ---------------------------------------------------------------------------
+
+namespace tiled {
+
+using sfc::cp_async4;
+using sfc::cp_async16;
+using sfc::cp_async_commit;
+using sfc::cp_async_wait;
+
+constexpr int BQ = 128;       // query rows of a CTA, all in one pass
+constexpr int KV = 64;        // kv rows of a ring stage (a slice of one table tile)
+constexpr int STAGES = 2;     // ring stages
+constexpr int WARPS = 8;
+constexpr int THREADS = WARPS * 32;
+constexpr int LDQ = BQ + 4;   // Q^T's row stride, [d][row]
+
+// Shared memory at head width D, in floats: Q^T [d][row + pad] (copied
+// once), P [kv][row] (each warp's 16 rows), then the ring's stages of K^T
+// [d][kv] and V [kv][d].  K^T and P keep 16-byte chunks XOR-swizzled
+// (chunk c of row x at c ^ (x & 7), x = d for K^T, kv / 4 for P), so
+// 4-byte copies into K^T and the float4 writes of P hit 32 banks and the
+// fragment reads stay conflict-free LDS.128s: 132,096 B at D = 64,
+// 231,424 B at D = 128, one CTA an SM.
+template <int D>
+struct Layout {
+  static constexpr int Q_FLOATS = D * LDQ;
+  static constexpr int P_FLOATS = KV * BQ;
+  static constexpr int K_FLOATS = D * KV;
+  static constexpr int STAGE_FLOATS = K_FLOATS + KV * D;
+  static constexpr int SMEM = 4 * (Q_FLOATS + P_FLOATS + STAGES * STAGE_FLOATS);
+};
+
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+
+// One CTA per (run, bh): the 128 query rows of q tile qt, the run's kv
+// tiles in table order, KV rows a stage.  Warp w owns query rows 16 w ..
+// 16 w + 15; lane (h, c) = (lane / 16, lane % 16) owns rows rb .. rb + 7
+// (rb = 16 w + 8 h): scores of kv columns 4 c .. 4 c + 3 of each stage,
+// output columns 64 q + 4 c .. + 3.  Per stage: S = Q K^T on the 8 x 4
+// register tile (each score the fmaf chain over d ascending from 0, as
+// flash_rows'), the masks, the online softmax (a row's maximum by 4
+// shuffles among the 16 lanes that share it, its sum kept per thread
+// until the end), P into the warp's rows of shared memory, O += P V on
+// the 8 x D / 16 register tile.  The next K / V stage is copied while
+// this one is used.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, float* __restrict__ o, const int* __restrict__ sched,
+                   const int* __restrict__ runs, int S, int bkv, int causal, int kv_valid,
+                   const int* __restrict__ seqlen, float scale) {
+  using L = Layout<D>;
+  constexpr int NQ = D / 64;  // float4 output columns a thread: 4 c + 64 q
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;
+  float* Ps = Qs + L::Q_FLOATS;
+  float* ring = Ps + L::P_FLOATS;
+  const DenseWalk w(sched, runs, S, D, BQ, bkv, causal, kv_valid, seqlen);
+  const int n = w.nkv / KV;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int h = lane >> 4, c = lane & 15;
+  const int rb = 16 * warp + 8 * h;
+  const int xq = rb >> 2;  // the first of the thread's two float4 chunks of rows
+
+  // Q^T, once: a warp copies 8 d x 4 rows at a time (one 32-byte sector a
+  // row; banks 4 d + row with the stride BQ + 4)
+  {
+    const float* qg = q + w.q_off(0);
+#pragma unroll 4
+    for (int u = warp; u < (D / 8) * (BQ / 4); u += WARPS) {
+      const int d = (u % (D / 8)) * 8 + (lane & 7), r = (u / (D / 8)) * 4 + (lane >> 3);
+      cp_async4(Qs + d * LDQ + r, qg + (size_t)r * D + d);
+    }
+    cp_async_commit();
+  }
+  // stage i into ring slot i % STAGES: K^T by 4-byte copies (8 d x the 4
+  // kv rows of one chunk a warp copy), V as stored by 16-byte copies; the
+  // stage's rows are consecutive positions of one table tile
+  auto issue = [&](int i) {
+    size_t ko, vo;
+    int pos0;
+    w.kv(i * KV, ko, vo, pos0);
+    float* ks = ring + (i % STAGES) * L::STAGE_FLOATS;
+    float* vs = ks + L::K_FLOATS;
+    const float* kg = k + ko;
+    const float* vg = v + vo;
+#pragma unroll 4
+    for (int u = warp; u < (D / 8) * (KV / 4); u += WARPS) {
+      const int d = (u % (D / 8)) * 8 + (lane & 7), x = u / (D / 8);
+      cp_async4(ks + d * KV + ((x ^ (d & 7)) << 2) + (lane >> 3), kg + (size_t)(4 * x + (lane >> 3)) * D + d);
+    }
+#pragma unroll
+    for (int id = threadIdx.x; id < KV * D / 4; id += THREADS) {
+      const int r = id / (D / 4), c4 = id % (D / 4);
+      cp_async16(vs + r * D + 4 * c4, vg + (size_t)r * D + 4 * c4);
+    }
+  };
+
+  float m[8], l[8], acc[8][4 * NQ];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4 * NQ; ++j) acc[i][j] = 0.f;
+  }
+  if (n > 0) issue(0);
+  cp_async_commit();
+
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<0>();  // this thread's copies of stage i (and Q) have landed
+    __syncthreads();     // everyone's; everyone is done with stage i - 1's slot
+    if (i + 1 < n) issue(i + 1);
+    cp_async_commit();
+    const float* ks = ring + (i % STAGES) * L::STAGE_FLOATS;
+    const float* vs = ks + L::K_FLOATS;
+
+    // S = Q K^T: per d, two LDS.128 of Q (broadcast to the 16 lanes of a
+    // row group) and one of K^T for 32 FMAs; step d + 1's fragments are
+    // read while step d's FMAs issue
+    float s[8][4];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[r][j] = 0.f;
+    float fq[2][8], fk[2][4];
+    // d's fragments; sw = d & 7, known where the loop is unrolled
+    auto frag = [&](int d, int sw, float (&a)[8], float (&b)[4]) {
+      const float4 q0 = ld4(Qs + d * LDQ + rb), q1 = ld4(Qs + d * LDQ + rb + 4);
+      const float4 k0 = ld4(ks + d * KV + ((c ^ sw) << 2));
+      a[0] = q0.x, a[1] = q0.y, a[2] = q0.z, a[3] = q0.w;
+      a[4] = q1.x, a[5] = q1.y, a[6] = q1.z, a[7] = q1.w;
+      b[0] = k0.x, b[1] = k0.y, b[2] = k0.z, b[3] = k0.w;
+    };
+    frag(0, 0, fq[0], fk[0]);
+#pragma unroll 1
+    for (int d0 = 0; d0 < D; d0 += 8) {
+#pragma unroll
+      for (int dd = 0; dd < 8; ++dd) {
+        if (dd < 7 || d0 + 8 < D) frag(d0 + dd + 1, (dd + 1) & 7, fq[(dd + 1) & 1], fk[(dd + 1) & 1]);
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[r][j] = fmaf(fq[dd & 1][r], fk[dd & 1][j], s[r][j]);
+      }
+    }
+
+    // masks: kv position kp is kept where kp <= qlim(row) and kp < klim,
+    // else scored MASK; a stage whose positions all lie below klim and
+    // (causal) at or before the CTA's first query row masks nothing
+    size_t ko, vo;
+    int pos0;
+    w.kv(i * KV, ko, vo, pos0);
+    if (pos0 + KV - 1 < w.klim && pos0 + KV - 1 <= w.qlim(0)) {
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[r][j] *= scale;
+    } else {
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int lim = w.qlim(rb + r);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int kp = pos0 + 4 * c + j;
+          s[r][j] = (kp <= lim && kp < w.klim) ? s[r][j] * scale : MASK;
+        }
+      }
+    }
+
+    // the online softmax on the thread's rows; P to shared memory as
+    // [kv][row], the thread's 8 rows of kv column 4 c + j two float4s
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      float mx = fmaxf(fmaxf(s[r][0], s[r][1]), fmaxf(s[r][2], s[r][3]));
+#pragma unroll
+      for (int off = 8; off; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float mn = fmaxf(m[r], mx);
+      const float alpha = expf(m[r] - mn);
+      float ps = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[r][j] = expf(s[r][j] - mn);
+        ps += s[r][j];
+      }
+      l[r] = alpha * l[r] + ps;
+#pragma unroll
+      for (int j = 0; j < 4 * NQ; ++j) acc[r][j] *= alpha;
+      m[r] = mn;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float* prow = Ps + (4 * c + j) * BQ;
+      const int f = c & 7;  // ((4 c + j) >> 2) & 7
+      *reinterpret_cast<float4*>(prow + ((xq ^ f) << 2)) = make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+      *reinterpret_cast<float4*>(prow + (((xq + 1) ^ f) << 2)) = make_float4(s[4][j], s[5][j], s[6][j], s[7][j]);
+    }
+    __syncwarp();  // the warp's P is written
+
+    // O += P V: per kv row, two LDS.128 of P (broadcast) and NQ of V for
+    // 32 NQ FMAs
+#pragma unroll 1
+    for (int j0 = 0; j0 < KV; j0 += 32) {
+#pragma unroll
+      for (int jj = 0; jj < 32; ++jj) {
+        const int j = j0 + jj;
+        const int f = (jj >> 2) & 7;  // (j >> 2) & 7, j0 a multiple of 32
+        const float4 p0 = ld4(Ps + j * BQ + ((xq ^ f) << 2));
+        const float4 p1 = ld4(Ps + j * BQ + (((xq + 1) ^ f) << 2));
+        const float p[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+#pragma unroll
+        for (int qq = 0; qq < NQ; ++qq) {
+          const float4 v4 = ld4(vs + j * D + 64 * qq + 4 * c);
+          const float vv[4] = {v4.x, v4.y, v4.z, v4.w};
+#pragma unroll
+          for (int r = 0; r < 8; ++r)
+#pragma unroll
+            for (int jj4 = 0; jj4 < 4; ++jj4)
+              acc[r][4 * qq + jj4] = fmaf(p[r], vv[jj4], acc[r][4 * qq + jj4]);
+        }
+      }
+    }
+    __syncwarp();  // the warp is done with P before the next stage rewrites it
+  }
+  cp_async_wait<0>();
+
+  // a row's sum over its 16 lanes; O = acc / l, float4 stores
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    float lt = l[r];
+#pragma unroll
+    for (int off = 8; off; off >>= 1) lt += __shfl_xor_sync(0xffffffffu, lt, off);
+    float* orow = o + w.o_off(rb + r);
+#pragma unroll
+    for (int qq = 0; qq < NQ; ++qq)
+      *reinterpret_cast<float4*>(orow + 64 * qq + 4 * c) =
+          make_float4(acc[r][4 * qq] / lt, acc[r][4 * qq + 1] / lt, acc[r][4 * qq + 2] / lt,
+                      acc[r][4 * qq + 3] / lt);
+  }
+}
+
+template <int D>
+int attention(const void* q, const void* k, const void* v, void* o, const void* sched,
+              const void* runs, int n_runs, int BH, int S, int bkv, int causal, int kv_valid,
+              const void* seqlen, float scale, void* stream) {
+  if (n_runs == 0 || BH == 0) return 0;
+  if (BH > 65535) return (int)cudaErrorInvalidConfiguration;
+  // 16-byte copies of V, float4 stores of O
+  if ((uintptr_t)v % 16 || (uintptr_t)o % 16) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = raise_smem_limit<flash_tiled_kernel<D>>(Layout<D>::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  flash_tiled_kernel<D><<<dim3(n_runs, BH), THREADS, Layout<D>::SMEM, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, (const int*)sched,
+      (const int*)runs, S, bkv, causal, kv_valid, (const int*)seqlen, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tiled
 
 // ---------------------------------------------------------------------------
 // sfc_flash_decode: split-KV over each slot's pages, then a merge
@@ -1192,8 +1483,7 @@ int attention_wgmma(const void* q, const void* k, const void* v, void* o, const 
   if (!err) err = make_tensor_map_bf16(&mk, k, rows, D, 64, 64);
   if (!err) err = make_tensor_map_bf16(&mv, v, rows, D, 64, 64);
   if (err) return err;
-  const cudaError_t attr = cudaFuncSetAttribute(
-      flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<D>::SMEM);
+  const cudaError_t attr = raise_smem_limit<flash_wgmma_kernel<D>>(Layout<D>::SMEM);
   if (attr != cudaSuccess) return (int)attr;
   flash_wgmma_kernel<D><<<dim3(n_runs, BH), THREADS, Layout<D>::SMEM, (cudaStream_t)stream>>>(
       mq, mk, mv, (__nv_bfloat16*)o, (const int*)sched, (const int*)runs, S, bkv, causal, kv_valid,
@@ -1331,8 +1621,7 @@ int prefill_wgmma(const void* q, const void* kp, const void* vp, void* o, const 
   if (!err) err = make_tensor_map_bf16_nd(&mk, kp, 3, kdims, kstrides, kbox);
   if (!err) err = make_tensor_map_bf16_nd(&mv, vp, 3, kdims, kstrides, kbox);
   if (err) return err;
-  const cudaError_t attr = cudaFuncSetAttribute(
-      prefill_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<D>::PREFILL_SMEM);
+  const cudaError_t attr = raise_smem_limit<prefill_wgmma_kernel<D>>(Layout<D>::PREFILL_SMEM);
   if (attr != cudaSuccess) return (int)attr;
   prefill_wgmma_kernel<D><<<dim3(n_runs, hkv), THREADS, Layout<D>::PREFILL_SMEM, (cudaStream_t)stream>>>(
       mq, mk, mv, (__nv_bfloat16*)o, (const int*)sched, (const int*)runs, (const int*)table,
@@ -1342,10 +1631,12 @@ int prefill_wgmma(const void* q, const void* kp, const void* vp, void* o, const 
 
 }  // namespace tc
 
-// the shapes the tensor-core core takes (bf16 inputs); every other shape,
-// and f32, runs flash_rows.  kernels/attention.py::flash_core is this rule.
-bool tensor_core_shape(int D, int bq, int bkv) {
-  return (D == 64 || D == 128) && bq == tc::BQ && bkv % 64 == 0;
+// the shapes the tensor-core core (bf16 inputs) and the register-tiled
+// core (f32) take; every other shape runs flash_rows.
+// kernels/attention.py::flash_core is this rule.
+static_assert(tc::BQ == 128 && tiled::BQ == 128 && tiled::KV == 64, "core_shape's constants");
+bool core_shape(int D, int bq, int bkv) {
+  return (D == 64 || D == 128) && bq == 128 && bkv % 64 == 0;
 }
 
 // the prefill shapes the tensor-core core takes (bf16 inputs): Dk == Dv
@@ -1364,10 +1655,15 @@ extern "C" int sfc_flash_attention(const void* q, const void* k, const void* v, 
                                    int D, int bq, int bkv, int causal, int kv_valid,
                                    const void* seqlen, float scale, int dtype, void* stream) {
   if (bad_shape(bq, D, D) || bkv < 1) return (int)cudaErrorInvalidValue;
+  if (dtype == 0 && core_shape(D, bq, bkv))
+    return D == 64 ? tiled::attention<64>(q, k, v, o, sched, runs, n_runs, BH, S, bkv, causal,
+                                          kv_valid, seqlen, scale, stream)
+                   : tiled::attention<128>(q, k, v, o, sched, runs, n_runs, BH, S, bkv, causal,
+                                           kv_valid, seqlen, scale, stream);
   if (dtype == 0)
     return attention_t<float>(q, k, v, o, sched, runs, n_runs, BH, S, D, bq, bkv, causal, kv_valid,
                               seqlen, scale, stream);
-  if (tensor_core_shape(D, bq, bkv))
+  if (core_shape(D, bq, bkv))
     return D == 64 ? tc::attention_wgmma<64>(q, k, v, o, sched, runs, n_runs, BH, S, bkv, causal,
                                              kv_valid, seqlen, scale, stream)
                    : tc::attention_wgmma<128>(q, k, v, o, sched, runs, n_runs, BH, S, bkv, causal,
@@ -1412,4 +1708,15 @@ extern "C" int sfc_flash_prefill(const void* q, const void* kp, const void* vp, 
                             mp, scale, stream);
   return prefill_t<__nv_bfloat16>(q, kp, vp, o, sched, runs, n_runs, hkv, table, pos0, tq, g, dk,
                                   dv, ps, mp, scale, stream);
+}
+
+// The register-tiled f32 core's build and residency, for the record: d =
+// 64 or 128; out as kernel_info.cuh's, the design constants the core's D,
+// kv rows a stage and stages.
+extern "C" int sfc_flash_tiled_info(int d, int* out) {
+  if (d != 64 && d != 128) return (int)cudaErrorInvalidValue;
+  const void* fn = d == 64 ? (const void*)tiled::flash_tiled_kernel<64>
+                           : (const void*)tiled::flash_tiled_kernel<128>;
+  const int smem = d == 64 ? tiled::Layout<64>::SMEM : tiled::Layout<128>::SMEM;
+  return sfc::kernel_info(fn, tiled::THREADS, smem, {d, tiled::KV, tiled::STAGES}, out);
 }

@@ -11,10 +11,10 @@
 // diag and panel CTA x read (i, j) at row `row_begin + x` (columns col_i
 // and col_i + 1), a persistent trailing CTA the rows x, x + grid, ....
 // The per-k form launches the diag and panel kernels with its own per-k
-// tables and its trailing update through sfc_tile_update (matmul.cu,
-// tile_gemm.cuh::tile_update); the fused trailing kernel here computes
-// each element by the same chain of rounded operations, so both forms
-// agree to the bit.
+// tables and its trailing update through sfc_tile_update (matmul.cu, on
+// simt_gemm.cuh's loop with its Update epilogue); the fused trailing
+// kernel here computes each element by the same chain of rounded
+// operations, so both forms agree to the bit.
 //
 // No workspace: the panel phase writes only column k below the diagonal
 // and reads L_kk, which no CTA of that launch writes; trailing tiles
@@ -23,10 +23,10 @@
 //
 // Bound on the H100: FP32 FMAs with TF32 off (n^3/3 flops in all, nearly
 // all of them in the trailing phase, 2.671 ms of the 2.735 at n = 8192).
-// The trailing phase first ran tile_gemm.cuh::tile_update, one CTA a
-// tile: 16-deep chunks loaded 4 bytes a thread and stored transposed,
-// two CTA barriers a chunk, O read and written a scalar at a time after
-// the product; at depth b = 128 its 63 launches took 10.87 ms (0.25 of
+// The trailing phase first ran sfc_tile_update's first kernel (the 8 x 8
+// loop of tile_gemm.cuh), one CTA a tile: 16-deep chunks loaded 4 bytes
+// a thread and stored transposed, two CTA barriers a chunk, O read and
+// written a scalar at a time after the product; at depth b = 128 its 63 launches took 10.87 ms (0.25 of
 // the bound), against 0.47 for the same core at depth 8192 (row 1).
 // Now (chol_trailing_kernel below) a persistent CTA an SM keeps every
 // load in flight a tile ahead through 16-byte cp.async and reads 4 k a
@@ -378,9 +378,9 @@ chol_panel_kernel(float* D, const int* sched, int sched_cols, int col_i, int row
 }
 
 // phase 2: A_ij <- A_ij - L_ik . L_jk^T for k < j <= i, each element the
-// chain of tile_update (the per-k form's sfc_tile_update on the same
-// values): acc = __fmaf_rn(L_ik[r][t], L_jk[c][t], acc) for t = 0, 1, ...
-// up to b rounded up to 16 (zeros past b, tile_update's 16-deep chunks),
+// chain of the per-k form's sfc_tile_update on the same values
+// (simt_gemm.cuh, Update): acc = __fmaf_rn(L_ik[r][t], L_jk[c][t], acc)
+// for t = 0, 1, ... up to b rounded up to 16 (zeros past b add nothing),
 // from 0, then a = __fadd_rn(a, __fmul_rn(-1, acc)).
 //
 // A persistent CTA of 256 threads on each SM walks the launch's tiles

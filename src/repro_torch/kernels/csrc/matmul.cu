@@ -47,12 +47,29 @@
 // Replaces: src/repro/kernels/matmul.py::_accum_update_kernel (the TPU
 // kernel of tile_update_swizzled, the per-k Cholesky's trailing SYRK
 // update).  Each tile of the schedule is visited once, so the in-place
-// read-modify-write needs no ordering between CTAs.  Both operands are
-// row panels, A (M, Kp) and B (N, Kp), read by RowLoader as x . c^T is in
-// kmeans.cu; the epilogue is tile_gemm.cuh::tile_update, which the fused
-// Cholesky's trailing phase (cholesky.cu) runs too.
+// read-modify-write needs no ordering between CTAs.
 // Bound on the H100: FP32 FLOP/s (2 M N Kp over the whole grid; TF32 is
-// off).  Same SIMT tile product and sub-tile loop as sfc_matmul.
+// off): 0.256 ms for the 64 x 64 grid of 128 x 128 tiles at Kp = 128.
+// The first design (tile_gemm.cuh's 8 x 8 loop, one CTA a tile, 16-deep
+// chunks staged through registers behind two barriers a chunk, O read
+// and written a scalar at a time) took 0.795 ms there, 0.32 of the
+// bound, against torch.addmm's 0.693 (H100 80GB HBM3, 700.00 W).  Now
+// (tile_update_kernel) the grid is persistent: min(steps, SMs x resident
+// CTAs an SM) CTAs, two an SM on the H100 (a 99 KB ring each;
+// kernels/matmul.py::tile_update_launch, the residency from the occupancy
+// query sfc_matmul_simt_info), each walking table rows x, x + grid, ... on
+// simt_gemm.cuh's loop.  Both operands are row panels, A (M, Kp) and B
+// (N, Kp), transposed on the way in by 4-byte cp.async; the ring runs on
+// from one tile to the next, so the next tile's stages are in flight
+// while this one's last stages are multiplied, and the O sub-tile is
+// prefetched into L2 meanwhile.  The epilogue reads O and writes it 16
+// bytes at a time (N, bn multiples of 4), else a float at a time.  Staging
+// O in shared memory by cp.async instead (one CTA an SM, 163 KB) ran 5-7 %
+// slower in the same A/B call (PERF.md, row 3).  Each element is the
+// chain it was: acc from +0 by __fmaf_rn over k ascending (zeros past Kp
+// add nothing), then __fadd_rn(o, __fmul_rn(alpha, acc)); the fused
+// Cholesky's trailing kernel (cholesky.cu) computes the same chain, so
+// both forms agree to the bit.
 //
 // sfc_matmul3d: C = A . B over a 3-D (i, j, k) curve table.
 //
@@ -89,8 +106,8 @@
 // pads K to 16 and N to 8 for TMA's 16-byte strides.
 #include <mutex>
 
+#include "kernel_info.cuh"
 #include "simt_gemm.cuh"
-#include "tile_gemm.cuh"
 #include "wgmma_gemm.cuh"
 
 namespace {
@@ -111,9 +128,8 @@ template <typename TO>
 __global__ void __launch_bounds__(simt::THREADS, simt::MIN_CTAS)
 matmul_kernel(const float* __restrict__ A, const float* __restrict__ B, TO* __restrict__ C,
               const int* __restrict__ sched, int M, int N, int K, int bm, int bn) {
-  const simt::Walk w{sched[2 * (size_t)blockIdx.x] * bm, sched[2 * (size_t)blockIdx.x + 1] * bn,
-                     bm, bn, M, N, nullptr, 1, K};
-  simt::gemm(A, K, B, N, C, w);
+  const simt::Walk w{sched, (int)blockIdx.x, 0, 1, bm, bn, M, N, nullptr, 1, K};
+  simt::gemm<simt::BPanel::KN>(A, K, B, N, w, simt::Store<TO>{C, N});
 }
 
 // f32 inputs: CTA r owns output tile (i, j) = ij[r] and adds A(i, k) B(k, j)
@@ -123,38 +139,41 @@ __global__ void __launch_bounds__(simt::THREADS, simt::MIN_CTAS)
 matmul3d_kernel(const float* __restrict__ A, const float* __restrict__ B, TO* __restrict__ C,
                 const int* __restrict__ ij, const int* __restrict__ ks, int kt, int M, int N,
                 int K, int bm, int bn, int bk) {
-  const simt::Walk w{ij[2 * (size_t)blockIdx.x] * bm, ij[2 * (size_t)blockIdx.x + 1] * bn,
-                     bm, bn, M, N, ks + (size_t)blockIdx.x * kt, kt, bk};
-  simt::gemm(A, K, B, N, C, w);
+  const simt::Walk w{ij, (int)blockIdx.x, 0, 1, bm, bn, M, N, ks + (size_t)blockIdx.x * kt, kt, bk};
+  simt::gemm<simt::BPanel::KN>(A, K, B, N, w, simt::Store<TO>{C, N});
 }
 
 constexpr int MAX_DEVICES = 64;
 
-// the f32 kernels' launch checks: cp.async's 16-byte B rows and the
-// epilogue's 4-wide stores need N and bn multiples of 4 and 16-byte
-// aligned B and C (the wrapper pads: kernels/matmul.py::simt_layout); the
-// ring above 48 KB of shared memory needs the opt-in attribute, raised
-// once per device and kernel, not on every launch
-template <typename Kernel>
-int simt_prepare(Kernel kernel, const void* b, const void* c, int N, int bn) {
-  if (N % 4 || bn % 4 || (uintptr_t)b % 16 || (uintptr_t)c % 16) return (int)cudaErrorInvalidValue;
+// kernel Kern's dynamic shared-memory limit (above the 48 KB static one),
+// raised once per device, not on every launch
+template <auto Kern>
+int raise_smem_limit(int bytes) {
   int dev = 0;
   const cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
   static std::once_flag once[MAX_DEVICES];
   static cudaError_t attr[MAX_DEVICES];
-  std::call_once(once[dev], [dev, kernel] {
-    attr[dev] = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                     simt::SMEM_BYTES);
+  std::call_once(once[dev], [dev, bytes] {
+    attr[dev] = cudaFuncSetAttribute(Kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   });
   return (int)attr[dev];
+}
+
+// the f32 matmuls' launch checks: cp.async's 16-byte B rows and the
+// epilogue's 4-wide stores need N and bn multiples of 4 and 16-byte
+// aligned B and C (the wrapper pads: kernels/matmul.py::simt_layout)
+template <auto Kern>
+int simt_prepare(const void* b, const void* c, int N, int bn) {
+  if (N % 4 || bn % 4 || (uintptr_t)b % 16 || (uintptr_t)c % 16) return (int)cudaErrorInvalidValue;
+  return raise_smem_limit<Kern>(simt::SMEM_BYTES);
 }
 
 template <typename TO>
 int launch(const void* a, const void* b, void* c, const void* sched, int steps, int M, int N,
            int K, int bm, int bn, void* stream) {
-  const int err = simt_prepare(matmul_kernel<TO>, b, c, N, bn);
+  const int err = simt_prepare<matmul_kernel<TO>>(b, c, N, bn);
   if (err) return err;
   matmul_kernel<TO><<<steps, simt::THREADS, simt::SMEM_BYTES, (cudaStream_t)stream>>>(
       (const float*)a, (const float*)b, (TO*)c, (const int*)sched, M, N, K, bm, bn);
@@ -164,7 +183,7 @@ int launch(const void* a, const void* b, void* c, const void* sched, int steps, 
 template <typename TO>
 int launch3d(const void* a, const void* b, void* c, const void* ij, const void* ks, int steps,
              int kt, int M, int N, int K, int bm, int bn, int bk, void* stream) {
-  const int err = simt_prepare(matmul3d_kernel<TO>, b, c, N, bn);
+  const int err = simt_prepare<matmul3d_kernel<TO>>(b, c, N, bn);
   if (err) return err;
   matmul3d_kernel<TO><<<steps, simt::THREADS, simt::SMEM_BYTES, (cudaStream_t)stream>>>(
       (const float*)a, (const float*)b, (TO*)c, (const int*)ij, (const int*)ks, kt, M, N, K, bm,
@@ -172,23 +191,16 @@ int launch3d(const void* a, const void* b, void* c, const void* ij, const void* 
   return (int)cudaGetLastError();
 }
 
-__global__ void __launch_bounds__(THREADS)
-tile_update_kernel(float* O, const float* A, const float* B, const int* __restrict__ sched, int M,
-                   int N, int Kp, int bm, int bn, float alpha) {
-  __shared__ __align__(16) float As[BK * TILE];
-  __shared__ __align__(16) float Bs[BK * TILE];
-  const int ti = sched[2 * (size_t)blockIdx.x];
-  const int tj = sched[2 * (size_t)blockIdx.x + 1];
-  for (int sr = 0; sr < bm; sr += TILE) {
-    const int row0 = ti * bm + sr;
-    const int rows = min(min(TILE, bm - sr), M - row0);
-    for (int sc = 0; sc < bn; sc += TILE) {
-      const int col0 = tj * bn + sc;
-      const int cols = min(min(TILE, bn - sc), N - col0);
-      tile_update(O + (size_t)row0 * N + col0, (size_t)N, A + (size_t)row0 * Kp, (size_t)Kp,
-                  B + (size_t)col0 * Kp, (size_t)Kp, rows, cols, Kp, alpha, As, Bs);
-    }
-  }
+// O (M x N) += alpha A . B^T over the table rows x = blockIdx.x,
+// blockIdx.x + gridDim.x, ... < steps; A (M x Kp) and B (N x Kp) row
+// panels.  vec: N and bn multiples of 4, O 16-byte aligned.
+__global__ void __launch_bounds__(simt::THREADS, simt::UPDATE_MIN_CTAS)
+tile_update_kernel(float* O, const float* __restrict__ A, const float* __restrict__ B,
+                   const int* __restrict__ sched, int steps, int M, int N, int Kp, int bm, int bn,
+                   float alpha, int vec) {
+  const int tiles = (steps - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const simt::Walk w{sched, (int)blockIdx.x, (int)gridDim.x, tiles, bm, bn, M, N, nullptr, 1, Kp};
+  simt::gemm<simt::BPanel::NK>(A, Kp, B, Kp, w, simt::Update{O, N, alpha, vec != 0});
 }
 
 // bf16 inputs: CTA r owns the 128x128 output tile ij[r] and sums its k
@@ -274,9 +286,8 @@ int launch_wgmma(const void* a, const void* b, void* c, const void* sched, int s
   if (err) return err;
   err = make_tensor_map_bf16(&mb, b, K, N, wg::BKS, 64);
   if (err) return err;
-  const cudaError_t attr = cudaFuncSetAttribute(
-      matmul_wgmma_kernel<TO>, cudaFuncAttributeMaxDynamicSharedMemorySize, wg::SMEM_BYTES);
-  if (attr != cudaSuccess) return (int)attr;
+  err = raise_smem_limit<matmul_wgmma_kernel<TO>>(wg::SMEM_BYTES);
+  if (err) return err;
   matmul_wgmma_kernel<TO><<<steps, wg::THREADS, wg::SMEM_BYTES, (cudaStream_t)stream>>>(
       ma, mb, (TO*)c, (const int*)sched, M, N, K, bm, bn);
   return (int)cudaGetLastError();
@@ -298,9 +309,8 @@ int launch3d_wgmma(const void* a, const void* b, void* c, const void* ij, const 
   if (err) return err;
   err = make_tensor_map_bf16(&mb, b, K, N, wg::BKS, 64);
   if (err) return err;
-  const cudaError_t attr = cudaFuncSetAttribute(
-      matmul3d_wgmma_kernel<TO>, cudaFuncAttributeMaxDynamicSharedMemorySize, wg::SMEM_BYTES);
-  if (attr != cudaSuccess) return (int)attr;
+  err = raise_smem_limit<matmul3d_wgmma_kernel<TO>>(wg::SMEM_BYTES);
+  if (err) return err;
   matmul3d_wgmma_kernel<TO><<<steps, wg::THREADS, wg::SMEM_BYTES, (cudaStream_t)stream>>>(
       ma, mb, (TO*)c, (const int*)ij, (const int*)ks, kt, M, N, bk);
   return (int)cudaGetLastError();
@@ -308,10 +318,18 @@ int launch3d_wgmma(const void* a, const void* b, void* c, const void* ij, const 
 
 }  // namespace
 
+// grid: the persistent CTAs, 1 .. steps (kernels/matmul.py::tile_update_launch)
 extern "C" int sfc_tile_update(void* o, const void* a, const void* b, const void* sched, int steps,
-                               int M, int N, int Kp, int bm, int bn, float alpha, void* stream) {
-  tile_update_kernel<<<steps, THREADS, 0, (cudaStream_t)stream>>>(
-      (float*)o, (const float*)a, (const float*)b, (const int*)sched, M, N, Kp, bm, bn, alpha);
+                               int grid, int M, int N, int Kp, int bm, int bn, float alpha,
+                               void* stream) {
+  if (steps == 0) return 0;
+  if (grid < 1 || grid > steps || bm < 1 || bn < 1 || Kp < 0) return (int)cudaErrorInvalidValue;
+  const int err = raise_smem_limit<tile_update_kernel>(simt::UPDATE_SMEM_BYTES);
+  if (err) return err;
+  const int vec = N % 4 == 0 && bn % 4 == 0 && (uintptr_t)o % 16 == 0;
+  tile_update_kernel<<<grid, simt::THREADS, simt::UPDATE_SMEM_BYTES, (cudaStream_t)stream>>>(
+      (float*)o, (const float*)a, (const float*)b, (const int*)sched, steps, M, N, Kp, bm, bn, alpha,
+      vec);
   return (int)cudaGetLastError();
 }
 
@@ -354,26 +372,16 @@ extern "C" int sfc_matmul3d(const void* a, const void* b, void* c, const void* i
   return (int)cudaErrorInvalidValue;
 }
 
-// The f32 SIMT kernels' build and residency, for the record: which = 0
+// The SIMT core's kernels' build and residency, for the record: which = 0
 // (sfc_matmul, f32 out), 1 (bf16 out), 2 (sfc_matmul3d, f32 out), 3 (bf16
-// out); out[0..7] = registers a thread, local (spill) bytes a thread,
-// resident CTAs an SM, dynamic shared memory a CTA, threads a CTA, and
-// the core's TN, BK and STAGES.
+// out), 4 (sfc_tile_update); out as kernel_info.cuh's, the design
+// constants the core's TN, BK and STAGES.
 extern "C" int sfc_matmul_simt_info(int which, int* out) {
-  cudaFuncAttributes attr;
   const void* fn = which == 0   ? (const void*)matmul_kernel<float>
                    : which == 1 ? (const void*)matmul_kernel<__nv_bfloat16>
                    : which == 2 ? (const void*)matmul3d_kernel<float>
-                                : (const void*)matmul3d_kernel<__nv_bfloat16>;
-  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         simt::SMEM_BYTES);
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fn);
-  int ctas = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, fn, simt::THREADS, simt::SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  const int vals[8] = {attr.numRegs, (int)attr.localSizeBytes, ctas, simt::SMEM_BYTES,
-                       simt::THREADS, simt::TN, simt::BK, simt::STAGES};
-  for (int i = 0; i < 8; ++i) out[i] = vals[i];
-  return 0;
+                   : which == 3 ? (const void*)matmul3d_kernel<__nv_bfloat16>
+                                : (const void*)tile_update_kernel;
+  const int smem = which == 4 ? simt::UPDATE_SMEM_BYTES : simt::SMEM_BYTES;
+  return sfc::kernel_info(fn, simt::THREADS, smem, {simt::TN, simt::BK, simt::STAGES}, out);
 }

@@ -1,5 +1,6 @@
 // SIMT f32 GEMM core for Hopper's FP32 pipes, fed by a cp.async ring:
-// the f32 path of sfc_matmul and sfc_matmul3d (matmul.cu).
+// the f32 path of sfc_matmul and sfc_matmul3d and the whole of
+// sfc_tile_update (matmul.cu).
 //
 // Bound: 2 M N K FMAs' worth of FP32 FLOP/s (67 TFLOP/s on an H100 SXM;
 // TF32 stays off, so no tensor core may take an f32 product).  The core
@@ -12,16 +13,23 @@
 //   consecutive float4s of B).  The fragments of step kk + 1 are read
 //   while step kk's TM x TN FMAs issue.
 // - Operands stream through a STAGES-deep ring of BK-deep stages in
-//   shared memory, filled by cp.async with no register staging: B (K x N,
-//   row-major) as [k][col] rows by 16-byte copies; A (M x K, row-major)
-//   as [k][row + pad] by 4-byte copies, which transpose it on the way in
-//   (a warp's copy covers 8 consecutive k of 4 rows: one 32-byte sector a
-//   row in device memory, 32 distinct banks in shared memory with the
-//   row stride TILE + 4).  Past the M, N and K edges the copies write
-//   zeros, the neutral element of the sum.  One CTA barrier a stage.
-// - The ring runs on across the CTA's sub-tiles and, in the 3-D matmul,
-//   across its k list: the stage sequence is one walk, and only the
-//   epilogue (float4 or 4 x bf16 stores) sits between two sub-tiles.
+//   shared memory, filled by cp.async with no register staging: A (M x K,
+//   row-major) as [k][row + pad] by 4-byte copies, which transpose it on
+//   the way in (a warp's copy covers 8 consecutive k of 4 rows: one
+//   32-byte sector a row in device memory, 32 distinct banks in shared
+//   memory with the row stride TILE + 4).  B is either K x N row-major
+//   (BPanel::KN, the matmuls), copied as [k][col] rows by 16-byte copies,
+//   or an N x K row panel (BPanel::NK, the tile update's B_j), transposed
+//   by 4-byte copies exactly as A is.  Past the M, N and K edges the
+//   copies write zeros, the neutral element of the sum.  One CTA barrier
+//   a stage.
+// - The ring runs on across the CTA's walk: its sub-tiles, its table rows
+//   (a persistent CTA walks rows first, first + step, ...) and, in the
+//   3-D matmul, its k list.  The stage sequence is one walk, and only the
+//   epilogue sits between two sub-tiles.  The epilogue is the caller's
+//   (Store: float4 or 4 x bf16 stores of C; Update: O + alpha acc, the O
+//   sub-tile prefetched into L2 while the sub-tile's last stages are
+//   multiplied).
 //
 // Numerics: every output element is one __fmaf_rn chain from 0 over its
 // stage sequence, k ascending inside a stage, so the walk decides the
@@ -54,13 +62,25 @@ constexpr int THREADS = TILE * TILE / (TM * TN);
 constexpr int WARPS = THREADS / 32;
 constexpr int WARP_COLS = 8 * TN;  // a warp: 32 rows x WARP_COLS columns
 constexpr int WARPS_N = TILE / WARP_COLS;
-constexpr int LDA = TILE + 4;  // the A stage's row stride, [k][row]
+constexpr int LDA = TILE + 4;  // a transposed stage's row stride, [k][row]
 constexpr int A_FLOATS = BK * LDA;
-constexpr int B_FLOATS = BK * TILE;
-constexpr int STAGE_FLOATS = A_FLOATS + B_FLOATS;
-constexpr int SMEM_BYTES = STAGES * STAGE_FLOATS * 4;
+
+// B's layout in device memory: K x N row-major, or an N x K row panel
+enum class BPanel { KN, NK };
+
+// a ring stage: A's [k][row + pad], then B's [k][col] (KN) or [k][col + pad] (NK)
+template <BPanel BP>
+struct Stage {
+  static constexpr int LDB = BP == BPanel::KN ? TILE : LDA;
+  static constexpr int FLOATS = A_FLOATS + BK * LDB;
+};
+// the matmuls' ring
+constexpr int SMEM_BYTES = STAGES * Stage<BPanel::KN>::FLOATS * 4;
 // two CTAs an SM where their rings fit in its 228 KB (1 KB a CTA reserved)
 constexpr int MIN_CTAS = 2 * (SMEM_BYTES + 1024) <= 228 * 1024 ? 2 : 1;
+// the tile update's ring, and its CTAs an SM (two)
+constexpr int UPDATE_SMEM_BYTES = STAGES * Stage<BPanel::NK>::FLOATS * 4;
+constexpr int UPDATE_MIN_CTAS = 2 * (UPDATE_SMEM_BYTES + 1024) <= 228 * 1024 ? 2 : 1;
 // copies a thread issues a stage: A in units of 8 k x 4 rows a warp, B in
 // rows of TILE columns a warp
 constexpr int A_UNITS = BK / 8 * (TILE / 4) / WARPS;
@@ -78,54 +98,142 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
   *reinterpret_cast<uint2*>(p) = u;
 }
 
-// A CTA's walk: its (bm, bn) output tile (ti, tj) as sub-tiles of at most
-// TILE x TILE, row-major, each summed over nq depth ranges of span k
-// (range q starts at kr[q] * span, or at 0 when kr is null), each range in
-// ceil(span / BK) stages.  Row 1 walks one range of span K; row 2 its k
-// list, span bk.
+// A CTA's walk: the (bm, bn) output tiles (i, j) = sched[r] of its table
+// rows r = first, first + step, ... (tiles of them), each as sub-tiles of
+// at most TILE x TILE, row-major, each summed over nq depth ranges of span
+// k (range q starts at kr[q] * span, or at 0 when kr is null), each range
+// in ceil(span / BK) stages (at least one).  Rows 1 and 2 walk one tile,
+// row 1 one range of span K, row 2 its k list, span bk; row 3 walks its
+// table rows x, x + grid, ... over one range of span Kp.
 struct Walk {
-  int row0, col0;  // the CTA tile's first row and column
+  const int* sched;  // int32 (i, j) pairs
+  int first, step, tiles;
   int bm, bn, M, N;
   const int* kr;
   int nq, span;
 };
 
-// C (M x N, ldc = N) over the CTA's walk.  A: M x lda, row-major; B: rows
-// of ldb floats, ldb % 4 == 0, 16-byte aligned; C 16-byte aligned (8 for
-// bf16 outputs); bn % 4 == 0 or bn == N, N % 4 == 0.
+// The matmuls' epilogue: C (M x N, ldc = N) written once, float4 or 4 x bf16.
 template <typename TO>
+struct Store {
+  TO* C;
+  int N;
+  static constexpr bool PREFETCH = false;
+  __device__ void prefetch(int, int, int, int) const {}
+  __device__ __forceinline__ void store(const float (&acc)[TM][TN], int row0, int rows,
+                                        int col0, int cols, int fr, int fc) const {
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int r = fr + (i / 4) * 16 + i % 4;
+      TO* crow = C + (size_t)(row0 + r) * N + col0;
+#pragma unroll
+      for (int q = 0; q < TN / 4; ++q) {
+        const int c = fc + q * 32;
+        if (r < rows && c < cols) {
+          const float v[4] = {acc[i][q * 4], acc[i][q * 4 + 1], acc[i][q * 4 + 2], acc[i][q * 4 + 3]};
+          store4(crow + c, v);
+        }
+      }
+    }
+  }
+};
+
+// The tile update's epilogue: O(r, c) <- O(r, c) + alpha acc(r, c),
+// rounded apart (__fadd_rn(o, __fmul_rn(alpha, acc))), the order of the
+// JAX package's `o + alpha * dot(a, b^T)`.  prefetch asks L2 for the O
+// sub-tile's lines (128 bytes each) while the sub-tile's last stages are
+// multiplied, and the epilogue reads O from there; vec: 16-byte rows (N
+// and bn multiples of 4, O 16-byte aligned), else a float at a time.
+struct Update {
+  float* O;
+  int N;
+  float alpha;
+  bool vec;
+  static constexpr bool PREFETCH = true;
+  __device__ __forceinline__ void prefetch(int row0, int rows, int col0, int cols) const {
+    const float* src = O + (size_t)row0 * N + col0;
+    for (int i = threadIdx.x; i < TILE * 4; i += THREADS) {
+      const int r = i / 4, c = (i % 4) * 32;
+      if (r < rows && c < cols) asm volatile("prefetch.global.L2 [%0];" ::"l"(src + (size_t)r * N + c));
+    }
+  }
+  __device__ __forceinline__ void store(const float (&acc)[TM][TN], int row0, int rows, int col0,
+                                        int cols, int fr, int fc) const {
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int r = fr + (i / 4) * 16 + i % 4;
+      if (r >= rows) continue;
+      float* orow = O + (size_t)(row0 + r) * N + col0;
+#pragma unroll
+      for (int q = 0; q < TN / 4; ++q) {
+        const int c = fc + q * 32;
+        if (c >= cols) continue;
+        float v[4];
+        if (vec) {
+          const float4 o4 = *reinterpret_cast<const float4*>(orow + c);
+          v[0] = o4.x, v[1] = o4.y, v[2] = o4.z, v[3] = o4.w;
+        } else {
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) v[jj] = c + jj < cols ? orow[c + jj] : 0.f;
+        }
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) v[jj] = __fadd_rn(v[jj], __fmul_rn(alpha, acc[i][q * 4 + jj]));
+        if (vec) {
+          store4(orow + c, v);
+        } else {
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+            if (c + jj < cols) orow[c + jj] = v[jj];
+        }
+      }
+    }
+  }
+};
+
+// The CTA's walk through the ring, each sub-tile handed to epi.  A: M x
+// lda, row-major.  B (KN): rows of ldb floats, ldb % 4 == 0, 16-byte
+// aligned, bn % 4 == 0 or bn == N, N % 4 == 0; (NK): N x ldb, row-major,
+// any alignment.  Store's C 16-byte aligned (8 for bf16 outputs).
+template <BPanel BP, typename Epi>
 __device__ __forceinline__ void gemm(const float* __restrict__ A, int lda,
-                                     const float* __restrict__ B, int ldb, TO* __restrict__ C,
-                                     const Walk& w) {
+                                     const float* __restrict__ B, int ldb, const Walk& w,
+                                     const Epi& epi) {
+  using St = Stage<BP>;
+  constexpr int STAGE_FLOATS = St::FLOATS;
+  constexpr int LDB = St::LDB;
   extern __shared__ __align__(16) float smem[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   // fragment coordinates inside the sub-tile: rows fr + p * 16 + (0..3),
   // columns fc + q * 32 + (0..3)
   const int fr = (warp / WARPS_N) * 32 + (lane / 8) * 4;
   const int fc = (warp % WARPS_N) * WARP_COLS + (lane % 8) * 4;
-  // copy coordinates: A unit i is depth ak of row ar + i * A_ROW_STEP; B
-  // row k = warp + i * WARPS, columns lane * 4 .. + 3
+  // copy coordinates: A unit i is depth ak of row ar + i * A_ROW_STEP (B
+  // unit i of an NK panel: depth ak of column ar + i * A_ROW_STEP); B row
+  // k = warp + i * WARPS of a KN matrix, columns lane * 4 .. + 3
   constexpr int A_ROW_STEP = 4 * WARPS / (BK / 8);
   const int ak = (warp % (BK / 8)) * 8 + lane % 8;
   const int ar = (warp / (BK / 8)) * 4 + lane / 8;
 
   const int subs_c = (w.bn + TILE - 1) / TILE;
-  const int n_subs = ((w.bm + TILE - 1) / TILE) * subs_c;
-  const int spt = (w.span + BK - 1) / BK;  // stages a depth range
-  const int per = w.nq * spt;              // stages a sub-tile
+  const int subs = ((w.bm + TILE - 1) / TILE) * subs_c;  // sub-tiles a tile
+  const int n_subs = w.tiles * subs;
+  const int spt = max(1, (w.span + BK - 1) / BK);  // stages a depth range
+  const int per = w.nq * spt;                      // stages a sub-tile
   const int n = n_subs * per;
   auto sub = [&](int u, int& row0, int& rows, int& col0, int& cols) {
-    const int sr = (u / subs_c) * TILE, sc = (u % subs_c) * TILE;
-    row0 = w.row0 + sr;
+    const int t = u / subs, v = u - t * subs;
+    const int* ij = w.sched + 2 * (size_t)(w.first + t * w.step);
+    const int sr = (v / subs_c) * TILE, sc = (v % subs_c) * TILE;
+    row0 = ij[0] * w.bm + sr;
     rows = min(min(TILE, w.bm - sr), w.M - row0);
-    col0 = w.col0 + sc;
+    col0 = ij[1] * w.bn + sc;
     cols = min(min(TILE, w.bn - sc), w.N - col0);
   };
 
   // the issue cursor: sub-tile iu (rows, columns), range iq, stage ss;
   // per sub-tile, this thread's first A source (row ar, depth ak) and B
-  // source (row warp, columns lane * 4 ..), and whether the sub-tile is
-  // whole (no row or column past an edge)
+  // source (KN: row warp, columns lane * 4 ..; NK: row ar, depth ak), and
+  // whether the sub-tile is whole (no row or column past an edge)
   int iu = 0, iq = 0, ss = 0;
   int i_row0, i_rows, i_col0, i_cols;
   const float* a_src;
@@ -134,31 +242,46 @@ __device__ __forceinline__ void gemm(const float* __restrict__ A, int lda,
   auto start = [&](int u) {
     sub(u, i_row0, i_rows, i_col0, i_cols);
     a_src = A + (size_t)(i_row0 + ar) * lda + ak;
-    b_src = B + (size_t)warp * ldb + i_col0 + lane * 4;
+    b_src = BP == BPanel::KN ? B + (size_t)warp * ldb + i_col0 + lane * 4
+                             : B + (size_t)(i_col0 + ar) * ldb + ak;
     whole = i_rows == TILE && i_cols == TILE;
   };
   start(0);
   int kq = w.kr ? w.kr[0] * w.span : 0;
-  const int a_step = A_ROW_STEP * lda, b_step = WARPS * ldb;
+  const int a_step = A_ROW_STEP * lda;
+  const int b_step = BP == BPanel::KN ? WARPS * ldb : A_ROW_STEP * ldb;
   auto issue = [&](int slot) {
     float* da = smem + slot * STAGE_FLOATS + ak * LDA + ar;
-    float* db = smem + slot * STAGE_FLOATS + A_FLOATS + warp * TILE + lane * 4;
+    float* db = smem + slot * STAGE_FLOATS + A_FLOATS +
+                (BP == BPanel::KN ? warp * TILE + lane * 4 : ak * LDB + ar);
     const int k0 = kq + ss * BK, kv = w.span - ss * BK;  // first k, valid depth
     const float* pa = a_src + k0;
-    const float* pb = b_src + (size_t)k0 * ldb;
+    const float* pb = BP == BPanel::KN ? b_src + (size_t)k0 * ldb : b_src + k0;
     if (whole && kv >= BK) {  // every copy in range: no predicate
 #pragma unroll
       for (int i = 0; i < A_UNITS; ++i) cp_async4(da + i * A_ROW_STEP, pa + i * a_step);
+      if (BP == BPanel::KN) {
 #pragma unroll
-      for (int i = 0; i < B_ROWS; ++i) cp_async16(db + i * WARPS * TILE, pb + i * b_step);
+        for (int i = 0; i < B_ROWS; ++i) cp_async16(db + i * WARPS * TILE, pb + i * b_step);
+      } else {
+#pragma unroll
+        for (int i = 0; i < A_UNITS; ++i) cp_async4(db + i * A_ROW_STEP, pb + i * b_step);
+      }
     } else {  // zeros past the edges (a copy of 0 bytes reads nothing)
-      const bool k_ok = ak < kv, c_ok = lane * 4 < i_cols;
+      const bool k_ok = ak < kv;
 #pragma unroll
       for (int i = 0; i < A_UNITS; ++i)
         cp_async4(da + i * A_ROW_STEP, pa + i * a_step, !(k_ok && ar + i * A_ROW_STEP < i_rows));
+      if (BP == BPanel::KN) {
+        const bool c_ok = lane * 4 < i_cols;
 #pragma unroll
-      for (int i = 0; i < B_ROWS; ++i)
-        cp_async16(db + i * WARPS * TILE, pb + i * b_step, !(c_ok && warp + i * WARPS < kv));
+        for (int i = 0; i < B_ROWS; ++i)
+          cp_async16(db + i * WARPS * TILE, pb + i * b_step, !(c_ok && warp + i * WARPS < kv));
+      } else {
+#pragma unroll
+        for (int i = 0; i < A_UNITS; ++i)
+          cp_async4(db + i * A_ROW_STEP, pb + i * b_step, !(k_ok && ar + i * A_ROW_STEP < i_cols));
+      }
     }
     if (++ss == spt) {  // the next depth range, or the next sub-tile
       ss = 0;
@@ -181,10 +304,18 @@ __device__ __forceinline__ void gemm(const float* __restrict__ A, int lda,
     if (j < n) issue(j);
     cp_async_commit();
   }
+  // Update's O sub-tile is asked for while the sub-tile's last STAGES
+  // stages are multiplied (all of them, in a shorter sub-tile)
+  const int o_stage = max(0, per - STAGES);
   int cu = 0, cs = 0;  // the compute cursor: sub-tile cu, stage cs of it
   for (int j = 0; j < n; ++j) {
     cp_async_wait<STAGES - 2>();  // this thread's copies of stage j have landed
     __syncthreads();              // everyone's; slot (j - 1) % STAGES is free
+    if (Epi::PREFETCH && cs == o_stage) {
+      int row0, rows, col0, cols;
+      sub(cu, row0, rows, col0, cols);
+      epi.prefetch(row0, rows, col0, cols);
+    }
     if (j + STAGES - 1 < n) issue((j + STAGES - 1) % STAGES);
     cp_async_commit();
 
@@ -198,7 +329,7 @@ __device__ __forceinline__ void gemm(const float* __restrict__ A, int lda,
       }
 #pragma unroll
       for (int q = 0; q < TN / 4; ++q) {
-        const float4 v = *reinterpret_cast<const float4*>(bs + kk * TILE + fc + q * 32);
+        const float4 v = *reinterpret_cast<const float4*>(bs + kk * LDB + fc + q * 32);
         fb[q * 4 + 0] = v.x, fb[q * 4 + 1] = v.y, fb[q * 4 + 2] = v.z, fb[q * 4 + 3] = v.w;
       }
     };
@@ -218,22 +349,11 @@ __device__ __forceinline__ void gemm(const float* __restrict__ A, int lda,
       cs = 0;
       int row0, rows, col0, cols;
       sub(cu++, row0, rows, col0, cols);
+      epi.store(acc, row0, rows, col0, cols, fr, fc);
 #pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const int r = fr + (i / 4) * 16 + i % 4;
-        TO* crow = C + (size_t)(row0 + r) * w.N + col0;
+      for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int q = 0; q < TN / 4; ++q) {
-          const int c = fc + q * 32;
-          if (r < rows && c < cols) {
-            const float v[4] = {acc[i][q * 4], acc[i][q * 4 + 1], acc[i][q * 4 + 2],
-                                acc[i][q * 4 + 3]};
-            store4(crow + c, v);
-          }
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) acc[i][q * 4 + jj] = 0.f;
-        }
-      }
+        for (int jj = 0; jj < TN; ++jj) acc[i][jj] = 0.f;
     }
   }
   cp_async_wait<0>();

@@ -173,33 +173,4 @@ __device__ __forceinline__ void tile_product(float (&acc)[8][8], const LA& la, c
   tile_accumulate<WithNorms, Ring>(acc, la, lb, K, As, Bs, norm);
 }
 
-// O(r, c) <- O(r, c) + alpha * sum_k A(r, k) B(c, k) over one sub-tile of
-// at most TILE x TILE: both operands are row panels (RowLoader), as in
-// x . c^T.  The epilogue rounds the product and the sum apart, the order
-// of the JAX package's `o + alpha * dot(a, b^T)`.  sfc_tile_update runs
-// this code; the fused Cholesky's trailing kernel (cholesky.cu) computes
-// each element by the same chain of rounded operations.
-__device__ __forceinline__ void tile_update(float* O, size_t ldo, const float* A, size_t lda,
-                                            const float* B, size_t ldb, int rows, int cols,
-                                            int K, float alpha, float* As, float* Bs) {
-  RowLoader<float> la{A, lda, rows, K};
-  RowLoader<float> lb{B, ldb, cols, K};
-  float acc[8][8];
-  tile_product<false>(acc, la, lb, K, As, Bs, nullptr);
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = tile_row(ty, i);
-    if (r >= rows) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = tile_col(tx, j);
-      if (c >= cols) continue;
-      float* o = O + (size_t)r * ldo + c;
-      *o = __fadd_rn(*o, __fmul_rn(alpha, acc[i][j]));
-    }
-  }
-}
-
 }  // namespace sfc

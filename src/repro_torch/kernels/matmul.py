@@ -23,7 +23,11 @@ tensor cores (``wgmma`` fed by TMA, ``csrc/wgmma_gemm.cuh``; each
 
 :func:`tile_update_swizzled` (``sfc_tile_update``, the counterpart of
 ``_accum_update_kernel``) is the per-k Cholesky's trailing update:
-O[i, j] += α·A_i·B_jᵀ over a scheduled subset of tiles, O in place.
+O[i, j] += α·A_i·B_jᵀ over a scheduled subset of tiles, O in place.  It
+runs the same SIMT core with both operands as row panels, on a
+persistent grid (:func:`tile_update_launch`): the CTAs resident at once
+(two an SM on the H100) walk table rows x, x + grid, ..., the ring
+running on from tile to tile and each O sub-tile prefetched into L2.
 
 :func:`matmul_swizzled_3d` (``sfc_matmul3d``, the counterpart of
 ``_matmul3d_kernel``) takes a 3-D (i, j, k) curve order.  The TPU kernel
@@ -47,7 +51,7 @@ import torch
 from repro_torch.core import mark_first_visits, register_schedule_cache, tile_schedule_nd
 from repro_torch.core.program import GpuProgram
 
-from ._build import call, stream_of
+from ._build import call, kernel_info, stream_of
 from .launch import cta_chunks, launch, require, shuffled_ctas
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -56,6 +60,11 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # the bf16 kernels' CTA tile (bm = bn) and the depth of one of their stages
 WGMMA_TILE = 128
 WGMMA_STAGE = 64
+# the SIMT core's kernels, by their number in the C query sfc_matmul_simt_info,
+# and the names of the design constants it reports (TN, BK, STAGES)
+SIMT_KERNELS = ("sfc_matmul f32", "sfc_matmul bf16-out", "sfc_matmul3d f32",
+                "sfc_matmul3d bf16-out", "sfc_tile_update")
+SIMT_DESIGN = ("tn", "bk", "stages")
 
 
 def matmul_core(dtype: torch.dtype) -> str:
@@ -125,27 +134,12 @@ def _simt_c(c: torch.Tensor, N: int, bn: int) -> torch.Tensor:
 
 
 def simt_kernel_info() -> dict:
-    """The f32 SIMT kernels' build and residency on the current card, by
-    kernel: registers and spilled (local) bytes a thread, resident CTAs an
-    SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), dynamic shared
-    memory and threads a CTA, and the core's thread-tile columns, stage
-    depth and stages (TN, BK, STAGES)."""
-    import ctypes
-
-    from ._build import library
-
-    lib = library()
-    keys = ("registers", "spill_bytes", "ctas_per_sm", "smem_bytes", "threads", "tn", "bk",
-            "stages")
-    info = {}
-    for which, name in enumerate(("sfc_matmul f32", "sfc_matmul bf16-out", "sfc_matmul3d f32",
-                                  "sfc_matmul3d bf16-out")):
-        out = (ctypes.c_int * 8)()
-        err = lib.sfc_matmul_simt_info(which, out)
-        if err:
-            raise RuntimeError(f"sfc_matmul_simt_info: cudaError {err}")
-        info[name] = dict(zip(keys, out))
-    return info
+    """The SIMT core's kernels' build and residency on the current card
+    (the f32 matmuls and ``sfc_tile_update``, :func:`._build.kernel_info`),
+    by kernel, with the core's thread-tile columns, stage depth and stages
+    (TN, BK, STAGES)."""
+    return {name: kernel_info("sfc_matmul_simt_info", which, SIMT_DESIGN)
+            for which, name in enumerate(SIMT_KERNELS)}
 
 
 def _matmul_cuda(program: GpuProgram, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -270,6 +264,24 @@ def tile_update_chunk(n_ctas: int, bm: int, bn: int, K: int, device):
     return cta_chunks(shuffled_ctas(n_ctas, device), (bm + bn) * max(K, 1))
 
 
+def tile_update_launch(steps: int, sms: int, ctas_per_sm: int) -> int:
+    """``sfc_tile_update``'s persistent grid over ``steps`` table rows: as
+    many CTAs as are resident at once on ``sms`` SMs of ``ctas_per_sm``
+    each (:func:`tile_update_residency`), never more than there are rows."""
+    return min(steps, sms * ctas_per_sm)
+
+
+@functools.lru_cache(maxsize=None)
+def tile_update_residency(index: int) -> tuple[int, int]:
+    """``(SMs, resident sfc_tile_update CTAs an SM)`` of CUDA device
+    ``index``, asked once per device: the CTAs from the occupancy query at
+    the kernel's shared memory (two an SM on the H100)."""
+    with torch.cuda.device(index):
+        ctas = kernel_info("sfc_matmul_simt_info", SIMT_KERNELS.index("sfc_tile_update"),
+                           SIMT_DESIGN)["ctas_per_sm"]
+    return torch.cuda.get_device_properties(index).multi_processor_count, ctas
+
+
 def _tile_update_cuda(program: GpuProgram, o: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
     p = program.params
     M, N = o.shape
@@ -279,9 +291,10 @@ def _tile_update_cuda(program: GpuProgram, o: torch.Tensor, a: torch.Tensor, b: 
     require(program, b, "b", dtypes=(torch.float32,), shape=(N, Kp))
     require(program, program.schedule, "schedule", dtypes=(torch.int32,))
     if program.steps:
+        grid = tile_update_launch(program.steps, *tile_update_residency(o.device.index))
         call(
             "sfc_tile_update", o.data_ptr(), a.data_ptr(), b.data_ptr(),
-            program.schedule.data_ptr(), *program.grid, M, N, Kp, p["bm"], p["bn"],
+            program.schedule.data_ptr(), program.steps, grid, M, N, Kp, p["bm"], p["bn"],
             p["alpha"], stream_of(o),
         )
     return o
@@ -306,9 +319,10 @@ def tile_update_program(
     schedule: torch.Tensor, o: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *,
     bm: int, bn: int, alpha: float = -1.0,
 ) -> GpuProgram:
-    """The ``sfc_tile_update`` declaration: one CTA per (i, j) row of
-    ``schedule``, O (M, N) += alpha · A (M, Kp) row panels · B (N, Kp) row
-    panels transposed.  M % bm == N % bn == 0; any Kp."""
+    """The ``sfc_tile_update`` declaration: each (i, j) row of ``schedule``
+    once (persistent CTAs walk the rows: :func:`tile_update_launch`), O
+    (M, N) += alpha · A (M, Kp) row panels · B (N, Kp) row panels
+    transposed.  M % bm == N % bn == 0; any Kp."""
     M, Kp = a.shape
     N, Kp2 = b.shape
     if Kp != Kp2 or tuple(o.shape) != (M, N):

@@ -336,16 +336,20 @@ def test_ops_paged_entry_points_match_pallas():
 @pytest.mark.parametrize("D", [64, 128, 96, 32])
 @pytest.mark.parametrize("bq,bkv", [(128, 128), (128, 64), (128, 256), (128, 96), (64, 64), (256, 128)])
 def test_flash_core_rule(dtype, D, bq, bkv):
-    """bf16 at D = 64 or 128, bq = 128 and bkv a multiple of 64 runs on the
-    tensor cores; f32 and every other shape on the SIMT core."""
-    want = ("wgmma" if dtype == torch.bfloat16 and D in (64, 128) and bq == 128 and bkv % 64 == 0
-            else "simt")
+    """At D = 64 or 128, bq = 128 and bkv a multiple of 64, bf16 runs on the
+    tensor cores and f32 on the register-tiled SIMT core; every other
+    shape on the SIMT core of ``flash_rows``."""
+    core_shape = D in (64, 128) and bq == 128 and bkv % 64 == 0
+    want = ("simt" if not core_shape else "wgmma" if dtype == torch.bfloat16 else "tiled")
     assert tatt.flash_core(dtype, D, bq, bkv) == want
 
 
 @pytest.mark.parametrize("dtype,D,bq,core", [
     (torch.bfloat16, 64, 128, "wgmma"),  # the model's forward
-    (torch.float32, 64, 128, "simt"),
+    (torch.float32, 64, 128, "tiled"),   # the model's forward in f32
+    (torch.float32, 128, 128, "tiled"),
+    (torch.float32, 32, 128, "simt"),
+    (torch.float32, 64, 64, "simt"),
     (torch.bfloat16, 32, 128, "simt"),
     (torch.bfloat16, 128, 64, "simt"),
 ])
@@ -562,11 +566,15 @@ def test_flash_kernels_match_plain_versions_on_cuda():
     for dtype in (torch.float32, torch.bfloat16):
         tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else BF16_TOL
         q, k, v = (_t(a, dtype).to(dev) for a in _qkv(rng, (4, 256, 64)))
+        core = tatt.flash_core(dtype, 64, 128, 128)
+        assert core == ("tiled" if dtype == torch.float32 else "wgmma")
         for causal in (True, False):
             sched = tatt.attention_schedule_device(2, 2, causal=causal, device=dev)
             prog = tatt.flash_attention_program(sched, q, causal=causal, sm_scale=0.125, bq=128,
                                                 bkv=128, kv_valid=250)
+            LAUNCHES.reset()
             got, want = prog.launcher(prog, q, k, v), prog.plain(prog, q, k, v)
+            assert LAUNCHES.cores()[f"sfc_flash_attention.{core}"] == 1
             torch.testing.assert_close(got.float(), want.float(), **tol)
         B, Hkv, g, D, ps, MP, P = 4, 2, 8, 64, 16, 6, 40
         pos = np.array([0, 17, 95, 40], np.int32)
@@ -586,6 +594,44 @@ def test_flash_kernels_match_plain_versions_on_cuda():
         for b in range(B):
             rows[b, : -(-int(n_new[b]) // ps) * ps] = True
         torch.testing.assert_close(got[rows].float(), want[rows].float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("S,D,bq,bkv,causal,mask", [
+    (256, 32, 128, 128, True, "kv_seqlen"),  # the reduced configs' head width
+    (256, 64, 64, 64, True, "kv_valid"),     # q tiles of 64 rows
+    (384, 96, 128, 128, False, "kv_seqlen"),
+    (384, 128, 128, 96, False, None),        # kv tiles not a multiple of 64 rows
+])
+def test_flash_attention_simt_core_matches_plain(dtype, S, D, bq, bkv, causal, mask):
+    """Row 20 outside the tensor-core and register-tiled cores' shapes runs
+    ``flash_rows`` (core ``"simt"``) in both dtypes: against
+    ``_attention_plain`` on the same CUDA inputs, at 1e-4 in f32 and the
+    file's bf16 tolerance; only the SIMT core launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(S + D + bq + bkv)
+    BH = 6
+    q, k, v = (_t(a, dtype).to(dev) for a in _qkv(rng, (BH, S, D)))
+    sched = tatt.attention_schedule_device(S // bq, S // bkv, causal=causal, device=dev)
+    seqlen = None
+    if mask == "kv_seqlen":
+        seqlen = torch.as_tensor(rng.integers(1, S + 1, size=BH).astype(np.int32), device=dev)
+    prog = tatt.flash_attention_program(sched, q, causal=causal, sm_scale=D ** -0.5, bq=bq,
+                                        bkv=bkv, kv_valid=S - 37 if mask == "kv_valid" else None)
+    assert tatt.flash_core(dtype, D, bq, bkv) == "simt"
+    LAUNCHES.reset()
+    got = prog.launcher(prog, q, k, v, seqlen)
+    want = prog.plain(prog, q, k, v, seqlen)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else BF16_TOL
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    cores = LAUNCHES.cores()
+    assert cores["sfc_flash_attention.simt"] == 1
+    assert cores["sfc_flash_attention.tiled"] == cores["sfc_flash_attention.wgmma"] == 0
 
 
 @pytest.mark.cuda
@@ -628,6 +674,59 @@ def test_bf16_flash_attention_wgmma_matches_plain(S, D, table, bkv, mask):
     torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
     cores = LAUNCHES.cores()
     assert cores["sfc_flash_attention.wgmma"] == 1 and cores["sfc_flash_attention.simt"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,D,table,bkv,mask", [
+    (2048, 64, "causal", 128, None),  # the model's full-sequence shape
+    (2048, 128, "full", 128, "kv_seqlen"),
+    (384, 64, "full", 64, "kv_valid"),
+    (384, 128, "causal", 128, "kv_valid"),
+    (384, 64, "causal_plain", 128, "kv_seqlen"),  # kv tiles in ascending order
+    (256, 128, "full_plain", 256, None),  # a kv tile of four stages
+    (128, 64, "causal", 128, "kv_seqlen"),
+    (384, 64, "odd", 64, "kv_seqlen"),  # runs of 1, 3, 5 kv tiles
+    (256, 64, "causal", 128, "masked_rows"),  # sequences with no kv row to see
+    (256, 128, "full", 64, "masked_rows"),
+])
+def test_f32_flash_attention_tiled_matches_plain(S, D, table, bkv, mask):
+    """Row 20's register-tiled f32 core against ``_attention_plain`` on the
+    same CUDA inputs, within 1e-4 (the summation order of the row sums and
+    of P·V differs; every score is flash_rows' chain): causal and not,
+    serpentine and ascending tables, ``kv_valid`` and ``kv_seqlen``, and
+    rows with every kv position masked (finite: the mean of the V rows
+    they visit); only the tiled core launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(S + D + bkv)
+    BH, bq = 6, 128
+    q, k, v = (_t(a).to(dev) for a in _qkv(rng, (BH, S, D)))
+    causal = table.startswith("causal") or table == "odd"
+    if table == "odd":
+        t = tatt.causal_schedule(S // bq, lambda i: 2 * i + 1)
+        sched = tatt.PageSchedule(torch.as_tensor(t, device=dev),
+                                  torch.as_tensor(tatt.schedule_runs(t, 2, 3), device=dev))
+    else:
+        sched = tatt.attention_schedule_device(S // bq, S // bkv, causal=causal,
+                                               serpentine=not table.endswith("_plain"), device=dev)
+    seqlen = None
+    if mask == "kv_seqlen":
+        seqlen = torch.as_tensor(rng.integers(1, S + 1, size=BH).astype(np.int32), device=dev)
+    if mask == "masked_rows":  # sequences 0 and 3 mask every kv position
+        seqlen = torch.as_tensor([0, S, 5, 0, S // 2, 1], dtype=torch.int32, device=dev)
+    prog = tatt.flash_attention_program(sched, q, causal=causal, sm_scale=D ** -0.5, bq=bq,
+                                        bkv=bkv, kv_valid=S - 37 if mask == "kv_valid" else None)
+    assert tatt.flash_core(q.dtype, D, bq, bkv) == "tiled"
+    LAUNCHES.reset()
+    got = prog.launcher(prog, q, k, v, seqlen)
+    want = prog.plain(prog, q, k, v, seqlen)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    cores = LAUNCHES.cores()
+    assert cores["sfc_flash_attention.tiled"] == 1
+    assert cores["sfc_flash_attention.simt"] == cores["sfc_flash_attention.wgmma"] == 0
 
 
 @pytest.mark.cuda

@@ -30,7 +30,7 @@ from repro.kernels import cholesky as jch  # noqa: E402
 from repro.kernels import floyd_warshall as jfw  # noqa: E402
 from repro.kernels import matmul as jmm  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
-from repro_torch.core import phase_barriers, phase_groups, phased_schedule  # noqa: E402
+from repro_torch.core import phase_barriers, phase_groups, phased_schedule, tile_schedule_device  # noqa: E402
 from repro_torch.kernels import LAUNCHES, launch, ops, ref  # noqa: E402
 from repro_torch.kernels import cholesky as tch  # noqa: E402
 from repro_torch.kernels import floyd_warshall as tfw  # noqa: E402
@@ -407,10 +407,10 @@ def test_chol_trailing_kernel_is_tile_update_to_the_bit(b, k, nt):
     """``sfc_chol_trailing`` (persistent CTAs, each walking the launch's
     tiles through a cp.async ring of operand k-stages with the next tile's
     O in flight, the 8 x 8 thread tile reading 4 k a time) on one k-group
-    of tiles against ``sfc_tile_update`` (the per-k form's unchanged
-    ``tile_update``) on the same CUDA matrix: each element is the same FMA
-    chain in ascending k, so the two are equal to the bit; one launch
-    each."""
+    of tiles against ``sfc_tile_update`` (the per-k form's kernel, on
+    ``simt_gemm.cuh``'s loop) on the same CUDA matrix: each element is the
+    same FMA chain in ascending k, so the two are equal to the bit; one
+    launch each."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     a, fused, per_k = _trailing_case(b, k, nt, torch.device("cuda"))
@@ -422,3 +422,137 @@ def test_chol_trailing_kernel_is_tile_update_to_the_bit(b, k, nt):
     assert counts["sfc_chol_trailing"] == 1 and counts["sfc_tile_update"] == 1
     assert torch.equal(got, want), float((got - want).abs().max())
     assert not torch.equal(got, a)
+
+
+# ---------------------------------------------------------------------------
+# row 3 on the SIMT core: the persistent launch, its arguments, its bits
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("steps,sms,ctas,grid", [
+    (4096, 132, 2, 264),  # chip_smoke's 64 x 64 grid on the H100: 15-16 tiles a CTA
+    (2016, 132, 2, 264),  # the first trailing update of the 8192 Cholesky
+    (10, 132, 2, 10),     # fewer tiles than CTA slots: one CTA a tile
+    (265, 132, 2, 264),
+    (1, 132, 2, 1),
+    (500, 7, 3, 21),      # another card: 7 SMs of 3 resident CTAs
+])
+def test_tile_update_launch_math(steps, sms, ctas, grid):
+    """``tile_update_launch``: as many persistent CTAs as are resident at
+    once (the occupancy query's CTAs an SM times the SMs), never more CTAs
+    than table rows."""
+    assert tmm.tile_update_launch(steps, sms, ctas) == grid
+
+
+@pytest.mark.parametrize("M,N,Kp,bm,bn,sms", [
+    (384, 384, 128, 128, 128, 132),  # the Cholesky's b = 128
+    (264, 270, 77, 88, 90, 4),       # ragged blocks and depth, a grid below the steps
+    (512, 256, 40, 256, 128, 132),   # the sub-tile loop
+])
+def test_tile_update_wrapper_launch_arguments(monkeypatch, M, N, Kp, bm, bn, sms):
+    """``_tile_update_cuda`` on CPU tensors, the kernel call recorded: the
+    table's rows, the persistent grid of ``tile_update_launch`` over the
+    device's residency, the shapes and alpha as given, O in place."""
+    calls = []
+    monkeypatch.setattr(tmm, "require", lambda *a, **k: None)
+    monkeypatch.setattr(tmm, "stream_of", lambda t: 0)
+    monkeypatch.setattr(tmm, "tile_update_residency", lambda index: (sms, 2))
+    monkeypatch.setattr(tmm, "call", lambda name, *a, core=None: calls.append((name, a, core)))
+    rng = np.random.default_rng(M + Kp)
+    o = torch.as_tensor(rng.standard_normal((M, N)).astype(np.float32))
+    a = torch.as_tensor(rng.standard_normal((M, Kp)).astype(np.float32))
+    b = torch.as_tensor(rng.standard_normal((N, Kp)).astype(np.float32))
+    sched = tile_schedule_device("hilbert", (M // bm, N // bn), device="cpu")
+    prog = tmm.tile_update_program(sched, o, a, b, bm=bm, bn=bn, alpha=0.75)
+    assert tmm._tile_update_cuda(prog, o, a, b) is o
+    ((name, c_args, core),) = calls
+    steps = (M // bm) * (N // bn)
+    grid = tmm.tile_update_launch(steps, sms, 2)
+    assert name == "sfc_tile_update" and core is None
+    # (o, a, b, table, steps, grid, M, N, Kp, bm, bn, alpha, stream)
+    assert c_args[:4] == (o.data_ptr(), a.data_ptr(), b.data_ptr(), sched.data_ptr())
+    assert c_args[4:] == (steps, grid, M, N, Kp, bm, bn, 0.75, 0)
+    assert grid == min(steps, 2 * sms)
+
+
+def _update_case(rng, M, N, Kp, bm, bn, keep, dev):
+    """f32 O (M, N), row panels A (M, Kp) and B (N, Kp), and a hilbert
+    table of the (i, j) tiles with its rows kept where ``keep`` says."""
+    o, a, b = (torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device=dev)
+               for shape in ((M, N), (M, Kp), (N, Kp)))
+    table = tile_schedule_device("hilbert", (M // bm, N // bn), device="cpu")
+    table = table[torch.as_tensor(rng.random(len(table)) < keep)] if keep < 1 else table
+    return o, a, b, table.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,N,Kp,bm,bn,alpha,keep", [
+    (1024, 1024, 128, 128, 128, -1.0, 1.0),  # the Cholesky's shape, 64 tiles
+    (264, 270, 77, 88, 90, 0.5, 1.0),        # ragged: no 16-byte rows, Kp % 32 != 0
+    (352, 360, 40, 88, 120, -1.25, 0.6),     # a partial table
+    (512, 768, 129, 256, 256, 2.0, 1.0),     # the sub-tile loop, a stage of one k
+    (2560, 2560, 64, 128, 128, -1.0, 0.5),   # ~200 tiles: CTAs walk several, two stages a tile
+    (160, 160, 8, 8, 8, -1.0, 1.0),          # 400 one-stage tiles of 8 x 8
+])
+def test_tile_update_kernel_is_the_fma_chain_to_the_bit(M, N, Kp, bm, bn, alpha, keep):
+    """``sfc_tile_update`` (persistent CTAs on ``simt_gemm.cuh``'s loop,
+    both operands transposed on the way in, O prefetched to L2) against the
+    chain it must compute: ``sfc_matmul`` f32 of A and B^T (each element
+    one ``__fmaf_rn`` chain over k ascending from 0, the same loop) times
+    alpha, then added to O, two roundings, on every tile of the table, to
+    the bit; every tile off the table unchanged; the plain version within
+    1e-4 √Kp."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(M + N + Kp)
+    o, a, b, sched = _update_case(rng, M, N, Kp, bm, bn, keep, dev)
+    prog = tmm.tile_update_program(sched, o, a, b, bm=bm, bn=bn, alpha=alpha)
+    LAUNCHES.reset()
+    got = launch(prog, o.clone(), a, b)
+    prod = tmm.matmul_swizzled(tile_schedule_device("row", (M // bm, N // bn), device=dev), a,
+                               b.T.contiguous(), bm=bm, bn=bn, bk=Kp)
+    torch.cuda.synchronize()
+    assert LAUNCHES.counts()["sfc_tile_update"] == 1
+    want = o + prod * alpha
+    on = torch.zeros((M // bm, N // bn), dtype=torch.bool, device=dev)
+    on[sched[:, 0].long(), sched[:, 1].long()] = True
+    on = on.repeat_interleave(bm, 0).repeat_interleave(bn, 1)
+    assert torch.equal(got[on], want[on]), float((got[on] - want[on]).abs().max())
+    assert torch.equal(got[~on], o[~on])
+    plain = prog.plain(prog, o.clone(), a, b)
+    torch.testing.assert_close(got, plain, rtol=0, atol=1e-4 * Kp ** 0.5)
+
+
+@pytest.mark.cuda
+def test_tile_update_residency_on_cuda():
+    """The persistent grid's residency comes from the occupancy query at
+    the kernel's own shared memory (the ring of three 32-deep stages of
+    both transposed panels, 101,376 bytes), asked once per device."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    info = tmm.simt_kernel_info()["sfc_tile_update"]
+    assert info["smem_bytes"] == 4 * 3 * 2 * 32 * (128 + 4) == 101_376
+    assert info["spill_bytes"] == 0 and info["ctas_per_sm"] >= 1
+    sms, ctas = tmm.tile_update_residency(0)
+    assert sms == torch.cuda.get_device_properties(0).multi_processor_count
+    assert ctas == info["ctas_per_sm"]
+    assert tmm.tile_update_residency(0) == (sms, ctas)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1000, 1536])
+def test_cholesky_fused_is_per_k_on_cuda(n):
+    """``ops.cholesky`` on the card: the fused program (``sfc_chol_trailing``)
+    and ``fused=False`` (``sfc_tile_update`` on the zero-padded panels) to
+    the bit, each update kernel launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    a = torch.as_tensor(rand_spd(np.random.default_rng(n), n), device="cuda")
+    LAUNCHES.reset()
+    fused = ops.cholesky(a)
+    per_k = ops.cholesky(a, fused=False)
+    torch.cuda.synchronize()
+    counts = LAUNCHES.counts()
+    assert counts["sfc_chol_trailing"] > 0 and counts["sfc_tile_update"] > 0
+    assert torch.equal(fused, per_k), float((fused - per_k).abs().max())

@@ -90,15 +90,17 @@ def test_launch_counter_counts_each_core():
     LAUNCHES.add("sfc_matmul", "wgmma")
     LAUNCHES.add("sfc_flash_attention", "simt")
     LAUNCHES.add("sfc_flash_prefill", "wgmma")
+    LAUNCHES.add("sfc_flash_attention", "tiled")
     LAUNCHES.add("sfc_join_hits")
     assert LAUNCHES.counts()["sfc_matmul"] == 1 and LAUNCHES.counts()["sfc_join_hits"] == 1
     cores = LAUNCHES.cores()
     assert set(cores) == {f"{n}.{c}" for n in ("sfc_matmul", "sfc_matmul3d", "sfc_flash_attention",
                                                "sfc_flash_prefill")
-                          for c in ("wgmma", "simt")}
+                          for c in ("wgmma", "simt")} | {"sfc_flash_attention.tiled"}
     assert cores["sfc_matmul.wgmma"] == 1 and cores["sfc_flash_attention.simt"] == 1
+    assert cores["sfc_flash_attention.tiled"] == 1 and LAUNCHES.counts()["sfc_flash_attention"] == 2
     assert cores["sfc_flash_prefill.wgmma"] == 1 and LAUNCHES.counts()["sfc_flash_prefill"] == 1
-    assert sum(cores.values()) == 3
+    assert sum(cores.values()) == 4
     LAUNCHES.reset()
     assert sum(LAUNCHES.cores().values()) == 0
 
