@@ -9,10 +9,13 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    CUDA kernel of the port from ``src/repro_torch/kernels/csrc`` into
    ``build/repro_torch/``, and print the registers, spills and resident
    CTAs an SM of the SIMT core's kernels (the f32 matmuls and
-   ``sfc_tile_update``) and of row 20's register-tiled f32 core.
+   ``sfc_tile_update``), of row 20's register-tiled f32 core and of the
+   k-means update (D = 128 and 960, and the shard update) and fold.
 2. Hold each kernel against its plain PyTorch version on the same CUDA
    inputs, at a small ragged and a mid-size shape (the k-means update up
-   to D = 960, its column-chunked grid; ``sfc_chol_diag`` equal to
+   to D = 960, its column-chunked grid, and its group partials through
+   both update entries equal to the bit to ``group_partials`` on the CPU
+   at D = 128 and 960 over 400 tiles; ``sfc_chol_diag`` equal to
    ``_chol_tile`` to the bit; ``sfc_matmul3d`` bf16 to bf16 and to f32),
    and the reference paths against
    the fused ones; the sharded paths' kernels (rows 7, 9, 11) on every
@@ -761,6 +764,8 @@ def compare_reference(rng, device) -> None:
             f"{prog.params['dchunk']}, {prog.params['smem_bytes']} B shared memory per CTA), "
             f"counts equal, sums max_abs_err={serr:.3e}")
 
+    compare_update_bits(rng, device)
+
     # bf16 inputs run the tensor-core kernel: bf16 outputs within one bf16
     # ulp of the largest output, f32 outputs (exact bf16 products summed in
     # f32 in another order) within 1e-4 sqrt(K) of the plain version
@@ -795,6 +800,56 @@ def compare_reference(rng, device) -> None:
         check(torch.equal(c_f, c_r) and torch.equal(a_f, a_r),
               f"ops.kmeans_lloyd N={N} D={D}: fused != fused=False")
         log(f"compare ops.kmeans_lloyd N={N} D={D} K={K}: fused == fused=False to the bit")
+
+
+def compare_update_bits(rng, device) -> None:
+    """The update's group partials through both entries equal to the bit
+    to group_partials on the CPU (index_add_ there adds in source order,
+    one f32 add at a time: the chain each element of a partial is), at
+    D = 128 and 960 over 600 tiles of 128 points (960 CTAs each: 2.4 and
+    7.3 waves at 3 and 1 CTAs an SM), K = 1024, n_valid 45 short of the
+    last tile, the tiles in a permuted order, tile 3 with 90 % of its
+    points on one centroid, and every point of group 1 (5 and 15 tiles)
+    on centroid 11, so warp 3 of its first centroid range queues 640 and
+    1,920 rows: 2.5 and 7.5 laps of its 256-entry queue.
+    sfc_kmeans_update over its own table, sfc_kmeans_shard_update over the
+    same groups as a 600-tile shard."""
+    import torch
+    from repro_torch.core import kmeans_schedule_device
+    from repro_torch.kernels.kmeans import (
+        group_partials, kmeans_shard_program, kmeans_update_program, shard_update_cuda,
+        update_partials_cuda,
+    )
+
+    pt, bp, K = 600, 128, 1024
+    nv = pt * bp - 45
+    for D in (128, 960):
+        x = rng.standard_normal((pt * bp, D), dtype=np.float32)
+        a = rng.integers(0, K, size=pt * bp).astype(np.int32)
+        a[3 * bp:3 * bp + 116] = 11
+        xc, ac = torch.as_tensor(x), torch.as_tensor(a)
+        table = np.stack([rng.permutation(pt), np.ones(pt)], 1).astype(np.int32)
+        prog = kmeans_update_program(torch.as_tensor(table, device=device), col_i=0, bp=bp, Kp=K, D=D,
+                                     n_valid=nv, columns=("i", "first_visit"))
+        G, tpg = prog.grid[0], prog.params["tiles_per_group"]
+        ac[tpg * bp:2 * tpg * bp] = 11  # group 1: tiles tpg .. 2 tpg - 1
+        xd, ad = xc.to(device), ac.to(device)
+        groups = prog.schedule.reshape(-1)
+        want = group_partials(xc, ac, groups.cpu().view(G, tpg), bp=bp, Kp=K, n_valid=nv)
+        check(int(want[1][:, 11].max()) == tpg * bp, f"update bits D={D}: group 1 is not all on centroid 11")
+        got = update_partials_cuda(prog, xd, ad)
+        check(torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1]),
+              f"sfc_kmeans_update D={D}: group partials != group_partials on the CPU")
+        sprog = kmeans_shard_program(kmeans_schedule_device("fur", pt, K // 128, device=device), pt=pt,
+                                     ct=K // 128, bp=bp, bc=128, D=D, groups=groups, tiles_per_group=tpg)
+        lim = torch.tensor([nv, K], dtype=torch.int32, device=device)
+        got = shard_update_cuda(sprog, xd, ad.view(pt, bp), lim)
+        check(torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1]),
+              f"sfc_kmeans_shard_update D={D}: group partials != group_partials on the CPU")
+        log(f"compare sfc_kmeans_update / sfc_kmeans_shard_update N={nv} D={D} K={K}: grid {prog.grid} "
+            f"({tpg} tiles a group; group 1's {tpg * bp} rows in one warp's queue), group partials "
+            f"torch.equal to group_partials on the CPU through both")
+        del xd, got
 
 
 def shard_case(rng, N: int, D: int, K: int, bp: int, bc: int, S: int, device) -> dict:
@@ -2356,7 +2411,7 @@ def sharded_path(device, seed: int, ctx: dict) -> list:
     check(torch.equal(launch(fold, gathered), fold.plain(fold, gathered)), "sfc_kmeans_fold vs plain at full size")
     entry("sfc_kmeans_fold", lambda: launch(fold, gathered), lambda: fold.plain(fold, gathered),
           lambda: gathered[:pt_all].sum(0),
-          float((pt_all - 1) * Kp * DK), 4 * (pt_all * Kp * DK + Kp * DK), 5, 0.0,
+          float((pt_all - 1) * Kp * DK), 4 * (pt_all * Kp * DK + Kp * DK), 20, 0.0,
           {"tiles_folded": pt_all, "elements": Kp * DK})
     del gathered
 
@@ -2689,9 +2744,11 @@ def main() -> int:
         if "registers" in line or "spill" in line.lower() or line.startswith("=="):
             log("  " + line.strip())
     from repro_torch.kernels.attention import tiled_kernel_info
+    from repro_torch.kernels.kmeans import kmeans_kernel_info
     from repro_torch.kernels.matmul import simt_kernel_info
 
     log("simt kernels: " + json.dumps(simt_kernel_info()))
+    log("kmeans kernels: " + json.dumps(kmeans_kernel_info()))
     log("flash tiled kernels: " + json.dumps(tiled_kernel_info()))
     rng = np.random.default_rng(args.seed)
     compare_kernels(rng, device)

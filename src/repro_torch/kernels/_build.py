@@ -75,7 +75,8 @@ SIGNATURES = {
 
 # entry points that read a kernel's build attributes and launch nothing
 # (not counted): (which kernel, out int32[8]), read by kernel_info
-QUERIES = {"sfc_matmul_simt_info": (_I, _P), "sfc_flash_tiled_info": (_I, _P)}
+QUERIES = {"sfc_matmul_simt_info": (_I, _P), "sfc_flash_tiled_info": (_I, _P),
+           "sfc_kmeans_info": (_I, _P)}
 # the first five of a query's eight values (csrc/kernel_info.cuh); the
 # last three are constants of the kernel's design
 INFO_KEYS = ("registers", "spill_bytes", "ctas_per_sm", "smem_bytes", "threads")

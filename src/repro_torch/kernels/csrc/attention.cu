@@ -153,7 +153,6 @@
 #include <cstddef>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mutex>
 
 #include "cp_async.cuh"
 #include "kernel_info.cuh"
@@ -428,23 +427,7 @@ flash_prefill_kernel(const T* q, const T* kp, const T* vp, T* o, const int* sche
   flash_rows<T, RW>(w, q, kp, vp, o, dk, dv, scale);
 }
 
-constexpr int MAX_DEVICES = 64;
-
-// kernel Kern's dynamic shared-memory limit (above the 48 KB static one),
-// raised once per device to `bytes`, the most a launch of it can ask for
-template <auto Kern>
-cudaError_t raise_smem_limit(int bytes) {
-  int dev = 0;
-  const cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  static std::once_flag once[MAX_DEVICES];
-  static cudaError_t attr[MAX_DEVICES];
-  std::call_once(once[dev], [dev, bytes] {
-    attr[dev] = cudaFuncSetAttribute(Kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  });
-  return attr[dev];
-}
+using sfc::raise_smem_limit;
 
 // one launch of kernel Kern over (runs, heads) CTAs with `smem` bytes
 template <auto Kern, int RW, typename... Args>

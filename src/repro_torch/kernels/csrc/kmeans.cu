@@ -27,7 +27,7 @@
 //     A group is a run of tiles_per_group consecutive point-tile ids; the
 //     wrapper's group table lists each group's tiles in the schedule's
 //     order, groups in the order the schedule first reaches them.
-//     CTA (g, c, z) scans the point tiles of group g in table order
+//     CTA (g, c, z) walks the points of group g's tiles in table order
 //     and adds columns [z dchunk, (z + 1) dchunk) of every valid point
 //     (row < n_valid, kmeans.py::_update_tile's row mask) assigned to its
 //     centroid range into a (128, dchunk) shared-memory partial; warp w
@@ -37,13 +37,34 @@
 //     only); the host folds them with one torch sum over g.  Every sum
 //     is taken in a fixed order, so the result is deterministic from run
 //     to run, and each output element is summed by one CTA over the same
-//     points in the same order whatever the chunking.
-//     Bound on the H100: bytes (x read once: N D 4 bytes).  Design: the
+//     points in the same order whatever the chunking: element (k, d) of
+//     a group partial is 0.f plus x[row][d] for each of k's rows, in
+//     table then point order, one f32 add each.
+//     Bound on the H100: bytes (x read once: N D 4 bytes).  What held it
+//     back was latency, not bytes: a warp owns 1/64 of a group's points
+//     (1/8 of the centroid ranges, 1/8 of a range), and walked them one
+//     at a time, each row's loads issued after the last row's adds and
+//     each ballot after a load of the assignments, so an SM had one or
+//     two rows a warp in flight (0.17 of the bound at D = 960, 1 CTA an
+//     SM).  Design: each warp scans its stream 7 blocks of 32 points at
+//     a time (every table and assignment load of a scan issued before the
+//     first ballot) into a queue of its own rows in shared memory, and
+//     keeps RING = 8 rows in flight in registers, adding each in queue
+//     order as it lands and issuing the row 8 places behind it; scans run
+//     ahead of the adds, so a warp's row loads never wait for a ballot.
+//     A lane holds V = 4 or 16 columns of a row (dchunk <= 32 V).  The
 //     whole (Kp, D) accumulator (512 KB at Kp=1024, D=128) cannot sit in
-//     one CTA's shared memory, hence the split by centroid range; a
-//     128 x D partial fits the 227 KB a CTA may have only up to D = 453,
-//     hence the split by columns (the wrapper sizes dchunk: D = 960,
-//     GIST1M's width, runs as three 320-column chunks of 160 KB).
+//     one CTA's shared memory, hence the split by centroid range; a 128 x
+//     D partial beside the 8 KB of queues fits the 227 KB a CTA may have
+//     only up to D = 437, hence the split by columns (the wrapper sizes
+//     dchunk: D = 960, GIST1M's width, runs as three 320-column chunks of
+//     168.5 KB, one CTA an SM; D = 128 as one chunk of 72.5 KB, three CTAs
+//     an SM at 80 registers).  The A/B that chose these constants
+//     (PERF.md, section 6) ran 4, 7, 8, 12 and 15 blocks a scan, 4, 8 and 16
+//     rows in flight, 2 or 3 CTAs an SM at D = 128, and assignments
+//     loaded a scan ahead in registers (slower).
+//     The shared-memory limit is raised once per device to 227 KB, and a
+//     launch that asks for more is refused.
 //
 // Replaces also: src/repro/kernels/kmeans.py::_update_kernel (the TPU
 // kernel of kmeans_update_swizzled, the reference path's update), which
@@ -81,18 +102,36 @@
 //       shard of pure padding (more shards than tiles) holds zeros, not
 //       garbage.
 //     sfc_kmeans_fold left-folds per-tile partials in the order of a
-//     device table, one thread per (k, d) element, one fixed chain of f32
-//     adds (the tree class's local fold; the JAX package's lax.scan).
+//     device table (the tree class's local fold; the JAX package's
+//     lax.scan): out[e] = ((parts[o0][e] + parts[o1][e]) + parts[o2][e])
+//     + ..., one f32 add chain per element, n = 0 giving zeros.
 //     Bound on the H100: FP32 FLOP/s for the assign (2 N Kp D), bytes
 //     for the update (x read, groups Kp (D + 1) 4 bytes of partials
 //     written) and the fold (the partials read once).  Before the group
 //     partials the exact class wrote and folded one partial per tile
 //     (4.1 GB at SIFT1M's 7,813 tiles and K = 1024): a 28 ms gather copy
 //     and a 13.7 ms fold per call.  At SIFT1M's 62 tiles a group it
-//     writes 127 partials.
+//     writes 127 partials.  The fold's chain is serial in the tiles, so
+//     its design is the bytes' path alone: a float4 of adjacent elements
+//     a thread (four clamped floats when Kp D % 4 != 0 or a pointer is
+//     not 16-byte aligned), 128-thread CTAs
+//     (256 at SIFT1M's 131,072 floats: every SM), the order table staged
+//     in shared memory 1,024 entries at a time, and the tiles loaded in
+//     batches of 8 into two register sets, one batch added in table order
+//     while the next is in flight, with streaming (evict-first) loads,
+//     each partial being read once.  The whole batches' loads sit under no
+//     branch: under one, ptxas gave every load of the ring one scoreboard
+//     and each add waited for all of them, one tile in flight a thread
+//     (3.5 ms against 1.3 at SIFT1M's 7,813 tiles; PERF.md, section 6).
+//     A plain elementwise reduction like this one could be Triton; it
+//     stays CUDA C++ beside the kernels whose partials it folds, in their
+//     build.
 #include <cfloat>
 #include <climits>
+#include <cstdint>
+#include <type_traits>
 
+#include "kernel_info.cuh"
 #include "tile_gemm.cuh"
 
 namespace {
@@ -240,20 +279,106 @@ kmeans_assign_tiles_kernel(const float* __restrict__ x, const float* __restrict_
   }
 }
 
+// ---------------------------------------------------------------------------
+// (b), (d) the update
+// ---------------------------------------------------------------------------
+
+namespace upd {
+
+constexpr int WARPS = THREADS / 32;  // warp w adds the rows of the centroids k with k % 8 == w
+constexpr int SCAN = 7;              // 32-point blocks a warp scans at once
+constexpr int RING = 8;              // rows a warp has in flight
+constexpr int QCAP = 256;            // row ids a warp's queue holds: >= RING + 32 SCAN, a power of 2
+constexpr int SMEM_MAX = 232448;     // the 227 KB a CTA may have: the most a launch asks for
+
+
+// a CTA's dynamic shared memory: the (TILE, dchunk) f32 partial, TILE
+// int32 counts and the warps' queues (kernels/kmeans.py::update_smem_bytes)
+constexpr size_t smem_bytes(int dchunk) {
+  return ((size_t)TILE * dchunk + TILE + (size_t)WARPS * QCAP) * sizeof(float);
+}
+
+// A CTA's point stream: point s is point s % bp of the tile in table row
+// r_lo + s / bp; rows at or past n_valid are not points.
+struct Stream {
+  const int* sched;
+  const int* arg;
+  int cols, col_i, r_lo, bp, n_valid, k0, kn;
+  unsigned ntiles, npts;
+};
+
+// Queue, in stream order, the rows of the next 32 SCAN points that this
+// warp adds (assigned to a centroid k0 + kl with kl < kn, kl % 8 == warp).
+// Every table and assignment load of the scan is issued before its first
+// ballot; a point past the stream or at or past n_valid loads nothing.
+__device__ __forceinline__ void scan(const Stream& st, int warp, int lane, int* queue,
+                                     unsigned& scanned, unsigned& tail) {
+  int row[SCAN];
+  unsigned t = (scanned + lane) / st.bp;
+  unsigned p = scanned + lane - t * st.bp;
+#pragma unroll
+  for (int b = 0; b < SCAN; ++b) {
+    row[b] = -1;
+    if (t < st.ntiles) {
+      const long long r =
+          (long long)__ldg(st.sched + (size_t)(st.r_lo + t) * st.cols + st.col_i) * st.bp + p;
+      if (r < st.n_valid) row[b] = (int)r;
+    }
+    for (p += 32; p >= (unsigned)st.bp; p -= st.bp) ++t;
+  }
+  int a[SCAN];
+#pragma unroll
+  for (int b = 0; b < SCAN; ++b) a[b] = row[b] >= 0 ? __ldg(st.arg + row[b]) : -1;
+  __syncwarp();  // every lane is done reading the queue slots reused below
+#pragma unroll
+  for (int b = 0; b < SCAN; ++b) {
+    const int kl = a[b] - st.k0;
+    const bool mine = a[b] >= 0 && kl >= 0 && kl < st.kn && (kl & (WARPS - 1)) == warp;
+    const unsigned m = __ballot_sync(0xffffffffu, mine);
+    if (mine) queue[(tail + __popc(m & ((1u << lane) - 1))) & (QCAP - 1)] = row[b];
+    tail += __popc(m);
+  }
+  scanned += 32 * SCAN;
+}
+
+// issue the loads of a queued row: its assignment and its dn columns
+// from d0, lane + 32 j in v[j]
+template <int V>
+__device__ __forceinline__ void fetch(const float* __restrict__ x, const int* __restrict__ arg,
+                                      int row, int D, int d0, int dn, int lane, float (&v)[V],
+                                      int& a) {
+  a = __ldg(arg + row);
+  const float* xr = x + (size_t)row * D + d0 + lane;
+#pragma unroll
+  for (int j = 0; j < V; ++j)
+    if (lane + 32 * j < dn) v[j] = __ldcs(xr + 32 * j);
+}
+
+}  // namespace upd
+
 // The (128-centroid range blockIdx.y, column chunk blockIdx.z) block of
-// the partial over the point tiles of schedule rows [r_lo, r_hi), written
+// the partial over the point tiles of table rows [r_lo, r_hi), written
 // once to psum_g (Kp, D) / pcnt_g (Kp) (the counts by the z = 0 CTA).
 // Rows at or past n_valid add nothing; a CTA with no row to add writes
-// zeros.  Both update kernels run exactly this.
+// zeros.  Each warp scans the stream into its queue a scan ahead and
+// keeps RING rows in flight in registers, adding them in queue order:
+// element (k, d) of the partial is 0.f plus each of k's rows, in stream
+// order, one f32 add each.  Both update kernels run exactly this; V = the
+// columns of a chunk a lane holds (dchunk <= 32 V).
+template <int V>
 __device__ __forceinline__ void update_partial(const float* __restrict__ x,
                                                const int* __restrict__ arg,
                                                const int* __restrict__ sched, int sched_cols,
                                                int col_i, int r_lo, int r_hi, int bp, int n_valid,
                                                int Kp, int D, int dchunk, float* __restrict__ psum_g,
                                                float* __restrict__ pcnt_g) {
+  using namespace upd;
   extern __shared__ float sh[];
-  float* ssum = sh;                      // [TILE][dchunk]
+  float* ssum = sh;                                                // [TILE][dchunk]
   int* scnt = reinterpret_cast<int*>(sh + (size_t)TILE * dchunk);  // [TILE]
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  int* queue = scnt + TILE + warp * QCAP;                          // [WARPS][QCAP]
   const int k0 = blockIdx.y * TILE;
   const int kn = min(TILE, Kp - k0);
   const int d0 = blockIdx.z * dchunk;
@@ -261,25 +386,37 @@ __device__ __forceinline__ void update_partial(const float* __restrict__ x,
   for (int idx = threadIdx.x; idx < TILE * dchunk; idx += THREADS) ssum[idx] = 0.f;
   if (threadIdx.x < TILE) scnt[threadIdx.x] = 0;
   __syncthreads();
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  for (int r = r_lo; r < r_hi; ++r) {
-    const size_t base = (size_t)sched[(size_t)r * sched_cols + col_i] * bp;
-    for (int p0 = 0; p0 < bp; p0 += 32) {
-      const int p = p0 + lane;
-      const size_t row = base + p;
-      const int a = (p < bp && row < (size_t)n_valid) ? arg[row] : -1;
-      const int kl = a - k0;
-      const bool mine = a >= 0 && kl >= 0 && kl < kn && (kl & 7) == warp;
-      unsigned mask = __ballot_sync(0xffffffffu, mine);
-      while (mask) {  // warp-uniform: every lane walks the same points
-        const int src = __ffs(mask) - 1;
-        mask &= mask - 1;
-        const int k = __shfl_sync(0xffffffffu, kl, src);
-        const float* xr = x + (base + p0 + src) * D + d0;
-        float* acc = ssum + (size_t)k * dchunk;
-        for (int d = lane; d < dn; d += 32) acc[d] += xr[d];
+  const unsigned ntiles = (unsigned)(r_hi - r_lo);
+  const Stream st{sched, arg, sched_cols, col_i, r_lo, bp, n_valid, k0, kn, ntiles,
+                  ntiles * (unsigned)bp};
+  unsigned scanned = 0;  // points of the stream scanned
+  unsigned tail = 0;     // rows queued: entry i at queue[i % QCAP], in slot i % RING once issued
+  float xv[RING][V];
+  int av[RING];
+  while (scanned < st.npts && tail < RING) scan(st, warp, lane, queue, scanned, tail);
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < RING; ++j)
+    if (j < tail) fetch<V>(x, arg, queue[j], D, d0, dn, lane, xv[j], av[j]);
+  for (unsigned i0 = 0;; i0 += RING) {
+    // entries i0 .. i0 + RING - 1 are in flight; queue those whose loads
+    // this pass issues
+    while (scanned < st.npts && tail < i0 + 2 * RING)
+      scan(st, warp, lane, queue, scanned, tail);
+    __syncwarp();
+    if (i0 >= tail) break;
+#pragma unroll
+    for (int j = 0; j < RING; ++j) {
+      const unsigned i = i0 + j;
+      if (i < tail) {
+        const int k = av[j] - k0;
+        float* acc = ssum + (size_t)k * dchunk + lane;
+#pragma unroll
+        for (int c = 0; c < V; ++c)
+          if (lane + 32 * c < dn) acc[32 * c] = __fadd_rn(acc[32 * c], xv[j][c]);
         if (lane == 0) scnt[k] += 1;
+        if (i + RING < tail)
+          fetch<V>(x, arg, queue[(i + RING) & (QCAP - 1)], D, d0, dn, lane, xv[j], av[j]);
       }
     }
   }
@@ -290,42 +427,155 @@ __device__ __forceinline__ void update_partial(const float* __restrict__ x,
   if (blockIdx.z == 0 && threadIdx.x < kn) pcnt_g[k0 + threadIdx.x] = (float)scnt[threadIdx.x];
 }
 
-__global__ void __launch_bounds__(THREADS)
+template <int V>
+__global__ void __launch_bounds__(THREADS, V <= 4 ? 3 : 1)
 kmeans_update_kernel(const float* __restrict__ x, const int* __restrict__ arg,
-                     const int* __restrict__ sched, int sched_cols, int col_i, int pt,
+                     const int* __restrict__ sched, int sched_cols, int col_i, int steps,
                      int tiles_per_group, int bp, int n_valid, int Kp, int D, int dchunk,
                      float* __restrict__ psum, float* __restrict__ pcnt) {
   const int g = blockIdx.x;
   const int r_lo = g * tiles_per_group;
-  update_partial(x, arg, sched, sched_cols, col_i, r_lo, min(pt, r_lo + tiles_per_group), bp,
-                 n_valid, Kp, D, dchunk, psum + (size_t)g * Kp * D, pcnt + (size_t)g * Kp);
+  update_partial<V>(x, arg, sched, sched_cols, col_i, r_lo, min(steps, r_lo + tiles_per_group),
+                    bp, n_valid, Kp, D, dchunk, psum + (size_t)g * Kp * D, pcnt + (size_t)g * Kp);
 }
 
 // The shard step's update: CTA (g, c, z) folds the point tiles of table
 // rows [g tpg, (g + 1) tpg) into group slot g, masked by the device
 // n_valid_local = lim[0].  A shard of pure padding (n_valid_local = 0)
 // writes zeros to every slot.
-__global__ void __launch_bounds__(THREADS)
+template <int V>
+__global__ void __launch_bounds__(THREADS, V <= 4 ? 3 : 1)
 kmeans_shard_update_kernel(const float* __restrict__ x, const int* __restrict__ arg,
                            const int* __restrict__ sched, int sched_cols, int col_i,
                            int tiles_per_group, int bp, const int* __restrict__ lim, int Kp, int D,
                            int dchunk, float* __restrict__ psum, float* __restrict__ pcnt) {
   const size_t g = blockIdx.x;
   const int r_lo = (int)g * tiles_per_group;
-  update_partial(x, arg, sched, sched_cols, col_i, r_lo, r_lo + tiles_per_group, bp, lim[0], Kp,
-                 D, dchunk, psum + g * Kp * D, pcnt + g * Kp);
+  update_partial<V>(x, arg, sched, sched_cols, col_i, r_lo, r_lo + tiles_per_group, bp, lim[0],
+                    Kp, D, dchunk, psum + g * Kp * D, pcnt + g * Kp);
+}
+
+// one update launch of kernel Kern with dchunk columns a CTA: refused if
+// its shared memory passes the limit raised once per device
+template <auto Kern, typename... Args>
+int launch_update(dim3 grid, int dchunk, void* stream, Args... args) {
+  const size_t smem = upd::smem_bytes(dchunk);
+  if (smem > (size_t)upd::SMEM_MAX) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = raise_smem_limit<Kern>(upd::SMEM_MAX);
+  if (err != cudaSuccess) return (int)err;
+  Kern<<<grid, THREADS, smem, (cudaStream_t)stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+// f(V) for the V of a chunk of dchunk columns: 4 columns a lane up to
+// dchunk = 128 (D = 128), else 16 (D = 960's chunks of 320)
+template <typename F>
+int by_columns(int dchunk, F&& f) {
+  if (dchunk <= 128) return f(std::integral_constant<int, 4>{});
+  return f(std::integral_constant<int, 16>{});
+}
+
+// ---------------------------------------------------------------------------
+// (d) the tree class's fold
+// ---------------------------------------------------------------------------
+
+constexpr int FOLD_THREADS = 128;  // 256 CTAs at SIFT1M's 131,072 floats: every SM has one or two
+constexpr int FOLD_VEC = 4;        // adjacent elements a thread
+constexpr int FOLD_BATCH = 8;      // tiles a batch of loads: 8 to 16 tiles in flight a thread
+constexpr int FOLD_CHUNK = 1024;   // order entries a CTA stages at once, a multiple of 2 FOLD_BATCH
+
+// FOLD_VEC floats of tile o from element e: one 16-byte streaming load
+// (evict-first: each partial is read once) when the tiles are whole
+// float4s, else four 4-byte ones, each index clamped to the tile
+template <bool VEC>
+__device__ __forceinline__ float4 fold_load(const float* __restrict__ parts, int o, size_t elems,
+                                            size_t e) {
+  const float* p = parts + (size_t)o * elems;
+  if (VEC) return __ldcs(reinterpret_cast<const float4*>(p + e));
+  return make_float4(__ldcs(p + min(e, elems - 1)), __ldcs(p + min(e + 1, elems - 1)),
+                     __ldcs(p + min(e + 2, elems - 1)), __ldcs(p + min(e + 3, elems - 1)));
+}
+
+// issue the loads of the staged table's tiles [t0, t0 + FOLD_BATCH) into
+// r; with ALL unset, only of those below lim
+template <bool VEC, bool ALL>
+__device__ __forceinline__ void fold_batch(float4 (&r)[FOLD_BATCH], const float* __restrict__ parts,
+                                           const int* staged, int t0, int lim, size_t elems,
+                                           size_t e) {
+#pragma unroll
+  for (int j = 0; j < FOLD_BATCH; ++j)
+    if (ALL || t0 + j < lim) r[j] = fold_load<VEC>(parts, staged[t0 + j], elems, e);
+}
+
+// acc += r[0], r[1], ... in order, one f32 add an element each; with ALL
+// unset, only those of tiles t0 + j below lim
+template <bool ALL>
+__device__ __forceinline__ void fold_adds(float4& acc, const float4 (&r)[FOLD_BATCH], int t0,
+                                          int lim) {
+#pragma unroll
+  for (int j = 0; j < FOLD_BATCH; ++j) {
+    if (ALL || t0 + j < lim) {
+      acc.x = __fadd_rn(acc.x, r[j].x);
+      acc.y = __fadd_rn(acc.y, r[j].y);
+      acc.z = __fadd_rn(acc.z, r[j].z);
+      acc.w = __fadd_rn(acc.w, r[j].w);
+    }
+  }
 }
 
 // out[e] = parts[order[0]][e] + parts[order[1]][e] + ..., a left fold in
-// the order of the table, one thread per element of the (Kp, D) partial.
-__global__ void __launch_bounds__(256)
+// the order of the table, `elems` floats a tile, FOLD_VEC adjacent
+// elements a thread (VEC: elems % 4 == 0 and aligned pointers, so each
+// tile's are one float4).  The CTA stages the table FOLD_CHUNK entries at
+// a time (and the FOLD_BATCH after them) in shared memory with coalesced
+// loads.  A thread loads the tiles in batches of FOLD_BATCH into two
+// register sets, ring[0] holding the batches that start at even multiples
+// of FOLD_BATCH, and adds one batch in table order while the next one's
+// loads are in flight.  The batches that are whole issue their loads
+// under no branch: ptxas gives loads under branches one scoreboard, and
+// an add waiting on it waits for every load in flight (PERF.md: 3.5 ms
+// against 1.3).  The chain starts at -0.f, which x + -0.f leaves as x to
+// the bit, so element e is the plain fold's chain; n = 0 writes zeros.  A
+// thread past the end loads element 0's floats and stores nothing.
+template <bool VEC>
+__global__ void __launch_bounds__(FOLD_THREADS)
 kmeans_fold_kernel(const float* __restrict__ parts, const int* __restrict__ order, int n,
                    size_t elems, float* __restrict__ out) {
-  const size_t e = (size_t)blockIdx.x * 256 + threadIdx.x;
+  constexpr int B = FOLD_BATCH;
+  __shared__ int staged[FOLD_CHUNK + B];
+  const size_t e = ((size_t)blockIdx.x * FOLD_THREADS + threadIdx.x) * FOLD_VEC;
+  const size_t el = e < elems ? e : 0;
+  float4 acc = make_float4(-0.f, -0.f, -0.f, -0.f);
+  float4 ring[2][B];
+  for (int c0 = 0; c0 < n; c0 += FOLD_CHUNK) {
+    const int staged_n = min(FOLD_CHUNK + B, n - c0);  // tiles [c0, c0 + staged_n)
+    __syncthreads();  // every thread is done with the last chunk's entries
+    for (int i = threadIdx.x; i < staged_n; i += FOLD_THREADS) staged[i] = __ldg(order + c0 + i);
+    __syncthreads();
+    if (c0 == 0) fold_batch<VEC, false>(ring[0], parts, staged, 0, staged_n, elems, el);
+    const int end = min(FOLD_CHUNK, n - c0);
+    int t = 0;
+    for (; t + 3 * B <= staged_n; t += 2 * B) {
+      fold_batch<VEC, true>(ring[1], parts, staged, t + B, 0, elems, el);
+      fold_adds<true>(acc, ring[0], t, 0);
+      fold_batch<VEC, true>(ring[0], parts, staged, t + 2 * B, 0, elems, el);
+      fold_adds<true>(acc, ring[1], t + B, 0);
+    }
+    for (; t < end; t += 2 * B) {  // the table's last tiles
+      fold_batch<VEC, false>(ring[1], parts, staged, t + B, staged_n, elems, el);
+      fold_adds<false>(acc, ring[0], t, end);
+      fold_batch<VEC, false>(ring[0], parts, staged, t + 2 * B, staged_n, elems, el);
+      fold_adds<false>(acc, ring[1], t + B, end);
+    }
+  }
   if (e >= elems) return;
-  float acc = n ? parts[(size_t)order[0] * elems + e] : 0.f;
-  for (int t = 1; t < n; ++t) acc = __fadd_rn(acc, parts[(size_t)order[t] * elems + e]);
-  out[e] = acc;
+  const float4 r = n ? acc : make_float4(0.f, 0.f, 0.f, 0.f);
+  if (VEC) {
+    *reinterpret_cast<float4*>(out + e) = r;
+  } else {
+    const float v[FOLD_VEC] = {r.x, r.y, r.z, r.w};
+    for (int i = 0; i < FOLD_VEC && e + i < elems; ++i) out[e + i] = v[i];
+  }
 }
 
 }  // namespace
@@ -340,18 +590,15 @@ extern "C" int sfc_kmeans_assign(const void* x, const void* c, const void* cn, c
 }
 
 extern "C" int sfc_kmeans_update(const void* x, const void* arg, const void* sched, int sched_cols,
-                                 int col_i, int pt, int groups, int ctiles, int dchunks,
+                                 int col_i, int steps, int groups, int ctiles, int dchunks,
                                  int tiles_per_group, int bp, int n_valid, int Kp, int D, int dchunk,
                                  void* psum, void* pcnt, void* stream) {
-  const size_t smem = (size_t)TILE * dchunk * sizeof(float) + TILE * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(kmeans_update_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(groups, ctiles, dchunks);
-  kmeans_update_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)x, (const int*)arg, (const int*)sched, sched_cols, col_i, pt, tiles_per_group,
-      bp, n_valid, Kp, D, dchunk, (float*)psum, (float*)pcnt);
-  return (int)cudaGetLastError();
+  return by_columns(dchunk, [&](auto v) {
+    return launch_update<kmeans_update_kernel<decltype(v)::value>>(
+        dim3(groups, ctiles, dchunks), dchunk, stream, (const float*)x, (const int*)arg,
+        (const int*)sched, sched_cols, col_i, steps, tiles_per_group, bp, n_valid, Kp, D, dchunk,
+        (float*)psum, (float*)pcnt);
+  });
 }
 
 extern "C" int sfc_kmeans_assign_tiles(const void* x, const void* c, const void* cn,
@@ -379,23 +626,42 @@ extern "C" int sfc_kmeans_shard_update(const void* x, const void* arg, const voi
                                        int dchunks, int tiles_per_group, int bp, const void* lim,
                                        int Kp, int D, int dchunk, void* psum, void* pcnt,
                                        void* stream) {
-  const size_t smem = (size_t)TILE * dchunk * sizeof(float) + TILE * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(kmeans_shard_update_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(groups, ctiles, dchunks);
-  kmeans_shard_update_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)x, (const int*)arg, (const int*)sched, sched_cols, col_i, tiles_per_group, bp,
-      (const int*)lim, Kp, D, dchunk, (float*)psum, (float*)pcnt);
-  return (int)cudaGetLastError();
+  return by_columns(dchunk, [&](auto v) {
+    return launch_update<kmeans_shard_update_kernel<decltype(v)::value>>(
+        dim3(groups, ctiles, dchunks), dchunk, stream, (const float*)x, (const int*)arg,
+        (const int*)sched, sched_cols, col_i, tiles_per_group, bp, (const int*)lim, Kp, D, dchunk,
+        (float*)psum, (float*)pcnt);
+  });
 }
 
 extern "C" int sfc_kmeans_fold(const void* parts, const void* order, int n, int Kp, int D, void* out,
                                void* stream) {
   const size_t elems = (size_t)Kp * D;
-  const unsigned blocks = (unsigned)((elems + 255) / 256);
-  kmeans_fold_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>((const float*)parts,
-                                                               (const int*)order, n, elems,
-                                                               (float*)out);
+  const size_t per_cta = (size_t)FOLD_THREADS * FOLD_VEC;
+  const unsigned blocks = (unsigned)((elems + per_cta - 1) / per_cta);
+  if (!blocks) return 0;
+  const bool vec = elems % FOLD_VEC == 0 && (uintptr_t)parts % 16 == 0 && (uintptr_t)out % 16 == 0;
+  auto kern = vec ? kmeans_fold_kernel<true> : kmeans_fold_kernel<false>;
+  kern<<<blocks, FOLD_THREADS, 0, (cudaStream_t)stream>>>((const float*)parts, (const int*)order, n,
+                                                          elems, (float*)out);
   return (int)cudaGetLastError();
+}
+
+// The build and residency of the redesigned k-means kernels
+// (kernel_info.cuh; launches nothing): which = 0 the update at the main
+// path's D = 128 (V = 4, dchunk 128), 1 at GIST1M's D = 960 (V = 16,
+// dchunk 320), 2 the shard update at D = 128, with (V, RING, SCAN); 3 the
+// fold, with (FOLD_VEC, 2 FOLD_BATCH, FOLD_CHUNK): floats a thread, the
+// most tiles in flight a thread, order entries staged at once.
+extern "C" int sfc_kmeans_info(int which, int* out) {
+  if (which == 3)
+    return sfc::kernel_info((const void*)kmeans_fold_kernel<true>, FOLD_THREADS, 0,
+                            {FOLD_VEC, 2 * FOLD_BATCH, FOLD_CHUNK}, out);
+  const int dchunk = which == 1 ? 320 : 128;
+  const int v = which == 1 ? 16 : 4;
+  const void* fn = which == 0   ? (const void*)kmeans_update_kernel<4>
+                   : which == 1 ? (const void*)kmeans_update_kernel<16>
+                                : (const void*)kmeans_shard_update_kernel<4>;
+  return sfc::kernel_info(fn, THREADS, (int)upd::smem_bytes(dchunk), {v, upd::RING, upd::SCAN},
+                          out);
 }

@@ -104,8 +104,6 @@
 // 128x128 output tiles (or one tile of the whole M or N when it is
 // smaller) and tiles 64 deep (or one tile of the whole K); the wrapper
 // pads K to 16 and N to 8 for TMA's 16-byte strides.
-#include <mutex>
-
 #include "kernel_info.cuh"
 #include "simt_gemm.cuh"
 #include "wgmma_gemm.cuh"
@@ -141,24 +139,6 @@ matmul3d_kernel(const float* __restrict__ A, const float* __restrict__ B, TO* __
                 int K, int bm, int bn, int bk) {
   const simt::Walk w{ij, (int)blockIdx.x, 0, 1, bm, bn, M, N, ks + (size_t)blockIdx.x * kt, kt, bk};
   simt::gemm<simt::BPanel::KN>(A, K, B, N, w, simt::Store<TO>{C, N});
-}
-
-constexpr int MAX_DEVICES = 64;
-
-// kernel Kern's dynamic shared-memory limit (above the 48 KB static one),
-// raised once per device, not on every launch
-template <auto Kern>
-int raise_smem_limit(int bytes) {
-  int dev = 0;
-  const cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  static std::once_flag once[MAX_DEVICES];
-  static cudaError_t attr[MAX_DEVICES];
-  std::call_once(once[dev], [dev, bytes] {
-    attr[dev] = cudaFuncSetAttribute(Kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  });
-  return (int)attr[dev];
 }
 
 // the f32 matmuls' launch checks: cp.async's 16-byte B rows and the

@@ -15,11 +15,15 @@ runs in order:
   column chunk); each CTA folds its group's valid points into a per-CTA
   partial of its centroid range and columns, written once; one torch
   ``sum`` over the groups folds the partials in a fixed order.  No
-  atomics: the result is the same on every run.  The column chunks keep
-  the 128-centroid partial inside a CTA's shared memory at any D.  A
-  group is a run of consecutive point-tile ids (:func:`update_groups`),
-  so a curve-range shard that is whole groups wide makes the same group
-  partials as the single core.
+  atomics: the result is the same on every run.  Element (k, d) of a
+  group partial is 0 plus each of k's rows in table then point order,
+  one f32 add each.  Each warp scans its group's points ahead into a
+  queue of the rows it adds and keeps several rows in flight, so the
+  kernel waits on bytes, not on one row at a time.  The column chunks
+  keep the 128-centroid partial and the queues inside a CTA's shared
+  memory at any D.  A group is a run of consecutive point-tile ids
+  (:func:`update_groups`), so a curve-range shard that is whole groups
+  wide makes the same group partials as the single core.
 
 The centroid update ``where(cnt > 0, sums / max(cnt, 1), c)`` and the
 loop over iterations stay torch around the launches.
@@ -40,7 +44,9 @@ path's two launches with device-side ``(n_valid_local, k_valid)`` masks
 and one partial per group of its own group table (the single-core
 groups for the exact class, one tile per group otherwise).  The tree
 class folds per-tile partials with :func:`kmeans_fold_program`
-(``sfc_kmeans_fold``), a left fold in the order of a device table.
+(``sfc_kmeans_fold``), a left fold in the order of a device table: one
+f32 add chain per element, a float4 of adjacent elements a thread, the
+table staged in shared memory and 8 to 16 tiles' loads in flight.
 
 Port defaults for the H100 (set in ops.py): ``bp = 128`` points per
 tile (one 128x128 metric tile per centroid chunk) and ``bc = 128``.  The
@@ -58,24 +64,29 @@ import torch
 from repro_torch.core import hilbert_sort_key, register_schedule_cache
 from repro_torch.core.program import GpuProgram
 
-from ._build import call, stream_of
+from ._build import call, kernel_info, stream_of
 from .launch import cta_chunks, launch, require, shuffled_ctas
 
 _F32_MAX = float(np.finfo(np.float32).max)
-# centroids per update CTA (the kernel's shared-memory partial is 128 x D)
-_UPDATE_BLOCK = 128
+# The update CTA's sizes, as csrc/kmeans.cu fixes them (TILE and upd::WARPS,
+# QCAP, SMEM_MAX), named once for the launch math on the CPU; the card
+# holds them to the C side (tests/test_torch_kmeans_ref.py::
+# test_update_smem_bytes_are_the_kernels): 128 centroids a CTA (its
+# shared-memory partial is 128 x dchunk), 8 warps with a queue of 256
+# int32 row ids each, and the 227 KB a CTA may ask for on the H100.
+_UPDATE_BLOCK, _UPDATE_WARPS, _UPDATE_QCAP, _SMEM_LIMIT = 128, 8, 256, 227 * 1024
 # update CTAs to aim for: a few waves over the H100's 132 SMs
 _UPDATE_TARGET_CTAS = 1024
-# shared memory a CTA may use on the H100 (227 KB, after opting in)
-_SMEM_LIMIT = 227 * 1024
-# the widest column chunk whose 128 x chunk f32 partial + 128 counts fit
-_UPDATE_MAX_CHUNK = (_SMEM_LIMIT - 4 * _UPDATE_BLOCK) // (4 * _UPDATE_BLOCK)
+# the widest column chunk whose 128 x chunk f32 partial, 128 counts and
+# queues fit (437)
+_UPDATE_MAX_CHUNK = ((_SMEM_LIMIT - 4 * _UPDATE_BLOCK - 4 * _UPDATE_WARPS * _UPDATE_QCAP)
+                     // (4 * _UPDATE_BLOCK))
 
 
 def update_columns(D: int) -> tuple[int, int]:
     """``(dchunk, chunks)`` of the update grid's column axis: the fewest
     equal chunks of at most ``_UPDATE_MAX_CHUNK`` columns (one chunk of D
-    columns up to D = 453; D = 960 is three of 320)."""
+    columns up to D = 437; D = 960 is three of 320)."""
     chunks = max(1, -(-D // _UPDATE_MAX_CHUNK))
     return -(-D // chunks), chunks
 
@@ -112,10 +123,29 @@ def update_groups(tiles: torch.Tensor, tpg: int) -> torch.Tensor:
     return ext[order].to(torch.int32).view(n // tpg, tpg)
 
 
+# the kernels the info query ``sfc_kmeans_info`` reports, by its ``which``
+# (csrc/kmeans.cu)
+_INFO_KERNELS = ("sfc_kmeans_update D=128", "sfc_kmeans_update D=960",
+                 "sfc_kmeans_shard_update D=128", "sfc_kmeans_fold")
+
+
+def kmeans_kernel_info() -> dict:
+    """The update's and the fold's build and residency on the current card
+    (:func:`._build.kernel_info`), by kernel: the update at the main path's
+    D = 128 and 960 and the shard update at 128, with the columns a lane
+    holds, its rows in flight and the 32-point blocks a scan (V, RING,
+    SCAN); the fold with its floats a thread, the most tiles in flight a
+    thread and the order entries a CTA stages at once (4, 16, 1024)."""
+    return {name: kernel_info("sfc_kmeans_info", which,
+                              ("vec", "in_flight", "scan_or_chunk"))
+            for which, name in enumerate(_INFO_KERNELS)}
+
+
 def update_smem_bytes(dchunk: int) -> int:
     """Dynamic shared memory of one update CTA: the 128 x dchunk f32
-    partial and 128 int32 counts (as ``sfc_kmeans_update`` sizes it)."""
-    return 4 * _UPDATE_BLOCK * dchunk + 4 * _UPDATE_BLOCK
+    partial, 128 int32 counts and the 8 warps' queues of the rows they add
+    (as ``csrc/kmeans.cu``'s ``upd::smem_bytes`` sizes it)."""
+    return 4 * (_UPDATE_BLOCK * dchunk + _UPDATE_BLOCK + _UPDATE_WARPS * _UPDATE_QCAP)
 
 
 def _quantise_points(
@@ -282,7 +312,9 @@ def _assign_plain(program: GpuProgram, x, c, cn):
 # (b) update: per (point group, centroid range) partials, folded by one sum
 # ---------------------------------------------------------------------------
 
-def _update_cuda(program: GpuProgram, x, arg):
+def update_partials_cuda(program: GpuProgram, x, arg):
+    """The ``sfc_kmeans_update`` launch: the group partials, sums f32[G,
+    Kp, D] and counts f32[G, Kp], before the sum over the groups."""
     p = program.params
     bp, Kp = p["bp"], p["Kp"]
     G, ctiles, dchunks = program.grid
@@ -303,6 +335,11 @@ def _update_cuda(program: GpuProgram, x, arg):
     else:
         psum.zero_()
         pcnt.zero_()
+    return psum, pcnt
+
+
+def _update_cuda(program: GpuProgram, x, arg):
+    psum, pcnt = update_partials_cuda(program, x, arg)
     return psum.sum(dim=0), pcnt.sum(dim=0)
 
 
@@ -352,8 +389,11 @@ def kmeans_update_program(
     columns named by ``columns``) whose column ``col_i`` lists each point
     tile once, in the order the partials accumulate it: grid (point
     groups, 128-centroid ranges, column chunks), sized for a few waves of
-    the card's SMs.  The program's own table is :func:`update_groups` of
-    that column, flattened to int32[G tpg, 1]."""
+    the card's SMs, ``smem_bytes`` a CTA (:func:`update_smem_bytes`: the
+    partial, its counts and the warps' row queues).  The program's own
+    table is :func:`update_groups` of that column, flattened to int32[G
+    tpg, 1]; :func:`update_partials_cuda` launches it and returns the
+    group partials."""
     if columns and rows.shape[1] != len(columns):
         raise ValueError(f"rows has {rows.shape[1]} columns, declared {columns}")
     pt = rows.shape[0]
@@ -752,7 +792,10 @@ def _fold_plain(program: GpuProgram, parts):
 def kmeans_fold_program(order: torch.Tensor) -> GpuProgram:
     """``sfc_kmeans_fold``: the left fold ``parts[order[0]] + parts[order[1]]
     + ...`` of (T, Kp, D) partials into (Kp, D), one fixed chain of f32
-    adds per element.  ``order`` is an int32[n, 1] table of tile ids."""
+    adds per element (zeros for an empty table).  ``order`` is an
+    int32[n, 1] table of tile ids.  The kernel runs a float4 of adjacent
+    elements a thread (four floats when ``Kp D % 4 != 0``), stages the
+    table in shared memory and keeps 8 to 16 tiles' loads in flight."""
     return GpuProgram(
         name="sfc_kmeans_fold",
         schedule=order,

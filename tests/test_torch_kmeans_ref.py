@@ -30,7 +30,7 @@ import repro.core as jcore  # noqa: E402
 from repro.kernels import kmeans as jkm  # noqa: E402
 from repro.kernels import matmul as jmm  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
-from repro_torch.core import tile_schedule_device  # noqa: E402
+from repro_torch.core import kmeans_schedule_device, tile_schedule_device  # noqa: E402
 from repro_torch.kernels import LAUNCHES, launch  # noqa: E402
 from repro_torch.kernels import kmeans as tkm  # noqa: E402
 from repro_torch.kernels import matmul as tmm  # noqa: E402
@@ -122,18 +122,19 @@ def test_update_swizzled_vs_jax(N, D, K, bp):
     np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("D,dchunk,chunks", [(3, 3, 1), (128, 128, 1), (453, 453, 1), (454, 227, 2),
+@pytest.mark.parametrize("D,dchunk,chunks", [(3, 3, 1), (128, 128, 1), (437, 437, 1), (438, 219, 2),
                                              (960, 320, 3), (2000, 400, 5)])
 def test_update_launch_math_fits_shared_memory(D, dchunk, chunks):
-    """The update grid's column axis: one chunk of D columns up to D = 453
+    """The update grid's column axis: one chunk of D columns up to D = 437
     (the grid, and so every sum, as before the column tiling), the fewest
-    equal chunks above; each CTA's partial within the card's 227 KB."""
+    equal chunks above; each CTA's partial, its counts and its 8 warps'
+    256-entry row queues within the card's 227 KB."""
     assert tkm.update_columns(D) == (dchunk, chunks)
     rows = torch.zeros((7813, 4), dtype=torch.int32)
     prog = tkm.kmeans_update_program(rows, col_i=1, bp=128, Kp=1024, D=D, n_valid=1_000_000,
                                      columns=("phase", "i", "j", "first_visit"))
     assert prog.grid[1:] == (8, chunks) and prog.params["dchunk"] == dchunk
-    assert prog.params["smem_bytes"] == 4 * 128 * dchunk + 4 * 128 <= 227 * 1024
+    assert prog.params["smem_bytes"] == 4 * 128 * dchunk + 4 * 128 + 8 * 256 * 4 <= 227 * 1024
     # about 1024 CTAs per launch whatever the chunking
     assert 1000 <= prog.grid[0] * 8 * chunks <= 1050
 
@@ -340,6 +341,124 @@ def test_reference_kernels_on_cuda(monkeypatch):
     counts = LAUNCHES.counts()
     for name in ("sfc_kmeans_assign_tiles", "sfc_kmeans_update", "sfc_matmul3d"):
         assert counts[name] > 0, counts
+
+
+def update_bits_case(D: int):
+    """Row 6's and row 7's update operands at several waves of CTAs: 151
+    tiles of 64 points (a group table padded past the last tile), K = 1000
+    (a ragged last centroid range), n_valid 37 short of the last tile, the
+    tiles in a permuted order, and tile 5 with 90 % of its points on one
+    centroid."""
+    rng = np.random.default_rng(D)
+    pt, bp, K = 151, 64, 1000
+    x = rng.standard_normal((152 * bp, D)).astype(np.float32)
+    a = rng.integers(0, K, size=152 * bp).astype(np.int32)
+    a[5 * bp:5 * bp + 58] = 7
+    return x, a, pt, bp, K, pt * bp - 37, rng.permutation(pt).astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [3, 5, 128, 320, 960])
+def test_update_group_partials_are_the_cpu_bits(D):
+    """The update's group partials through both entries equal to the bit
+    (``torch.equal``) to :func:`group_partials` on the CPU, whose
+    ``index_add_`` adds in source order, one f32 add at a time: the
+    chain each partial element is defined by.  ``sfc_kmeans_update`` over
+    its own table; ``sfc_kmeans_shard_update`` over a 152-tile shard's
+    groups (its last tiles past ``lim[0]``) and over a shard of pure
+    padding (``lim[0] = 0``: zeros).  Every grid holds more CTAs than the
+    card has SMs.  Then both entries over 9 tiles of 1,024 points, one a
+    group, with tile 1 on centroid 7: warp 7 of the first centroid range
+    queues its 1,024 rows, four laps of its 256-entry queue."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    x, a, pt, bp, K, nv, perm = update_bits_case(D)
+    xt, at = torch.as_tensor(x), torch.as_tensor(a)
+    table = torch.as_tensor(np.stack([perm, np.ones(pt, np.int32)], 1))
+    prog = tkm.kmeans_update_program(table.to(dev), col_i=0, bp=bp, Kp=K, D=D, n_valid=nv,
+                                     columns=("i", "first_visit"))
+    G, tpg = prog.grid[0], prog.params["tiles_per_group"]
+    assert tpg > 1 and G * tpg > pt and prog.grid[0] * prog.grid[1] * prog.grid[2] > 132
+    s_k, n_k = tkm.update_partials_cuda(prog, xt[:pt * bp].to(dev), at[:pt * bp].to(dev))
+    s_p, n_p = tkm.group_partials(xt[:pt * bp], at[:pt * bp], prog.schedule.cpu().view(G, tpg),
+                                  bp=bp, Kp=K, n_valid=nv)
+    assert torch.equal(s_k.cpu(), s_p) and torch.equal(n_k.cpu(), n_p)
+    groups = torch.as_tensor(np.append(perm, pt).astype(np.int32), device=dev)
+    sprog = tkm.kmeans_shard_program(kmeans_schedule_device("fur", 152, 125, device=dev), pt=152,
+                                     ct=125, bp=bp, bc=8, D=D, groups=groups, tiles_per_group=4)
+    for lim0 in (nv, 0):
+        lim = torch.tensor([lim0, K], dtype=torch.int32, device=dev)
+        s_k, n_k = tkm.shard_update_cuda(sprog, xt.to(dev), at.view(152, bp).to(dev), lim)
+        s_p, n_p = tkm.group_partials(xt, at, groups.cpu().view(38, 4), bp=bp, Kp=K, n_valid=lim0)
+        assert torch.equal(s_k.cpu(), s_p) and torch.equal(n_k.cpu(), n_p)
+        assert lim0 or not (s_k.any() or n_k.any())
+    bw, ptw = 1024, 9
+    nvw = ptw * bw - 5
+    aw = a[:ptw * bw].copy()
+    aw[bw:2 * bw] = 7
+    xw, awt = xt[:ptw * bw], torch.as_tensor(aw)
+    permw = np.random.default_rng(D + 1).permutation(ptw).astype(np.int32)
+    tablew = torch.as_tensor(np.stack([permw, np.ones(ptw, np.int32)], 1))
+    progw = tkm.kmeans_update_program(tablew.to(dev), col_i=0, bp=bw, Kp=K, D=D, n_valid=nvw,
+                                      columns=("i", "first_visit"))
+    Gw, tpgw = progw.grid[0], progw.params["tiles_per_group"]
+    assert tpgw == 1
+    s_p, n_p = tkm.group_partials(xw, awt, progw.schedule.cpu().view(Gw, tpgw), bp=bw, Kp=K,
+                                  n_valid=nvw)
+    assert n_p.max() == bw
+    s_k, n_k = tkm.update_partials_cuda(progw, xw.to(dev), awt.to(dev))
+    assert torch.equal(s_k.cpu(), s_p) and torch.equal(n_k.cpu(), n_p)
+    sprogw = tkm.kmeans_shard_program(kmeans_schedule_device("fur", ptw, 125, device=dev), pt=ptw,
+                                      ct=125, bp=bw, bc=8, D=D, groups=progw.schedule.reshape(-1),
+                                      tiles_per_group=tpgw)
+    lim = torch.tensor([nvw, K], dtype=torch.int32, device=dev)
+    s_k, n_k = tkm.shard_update_cuda(sprogw, xw.to(dev), awt.view(ptw, bw).to(dev), lim)
+    assert torch.equal(s_k.cpu(), s_p) and torch.equal(n_k.cpu(), n_p)
+
+
+@pytest.mark.cuda
+def test_update_smem_bytes_are_the_kernels():
+    """The launch math's copy of the update CTA's sizes is the kernels':
+    :func:`update_smem_bytes` is the shared memory the C query reports at
+    the main path's chunks (128 and 320 columns), and a launch of one chunk
+    of ``_UPDATE_MAX_CHUNK`` columns, which asks for the whole 227 KB, is
+    accepted after that query (which leaves the limit the launches raised
+    as it is) and adds the CPU's bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    info = tkm.kmeans_kernel_info()
+    for name, dchunk in (("sfc_kmeans_update D=128", 128), ("sfc_kmeans_update D=960", 320),
+                         ("sfc_kmeans_shard_update D=128", 128)):
+        assert info[name]["smem_bytes"] == tkm.update_smem_bytes(dchunk), name
+    D = tkm._UPDATE_MAX_CHUNK
+    assert tkm.update_smem_bytes(D) <= tkm._SMEM_LIMIT < tkm.update_smem_bytes(D + 1)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(D)
+    pt, bp, K = 20, 64, 256
+    x = torch.as_tensor(rng.standard_normal((pt * bp, D)).astype(np.float32))
+    a = torch.as_tensor(rng.integers(0, K, size=pt * bp).astype(np.int32))
+    table = torch.as_tensor(np.stack([np.arange(pt), np.ones(pt)], 1).astype(np.int32))
+    prog = tkm.kmeans_update_program(table.to(dev), col_i=0, bp=bp, Kp=K, D=D, n_valid=pt * bp,
+                                     columns=("i", "first_visit"))
+    assert prog.grid[2] == 1 and prog.params["smem_bytes"] == tkm.update_smem_bytes(D)
+    s_k, n_k = tkm.update_partials_cuda(prog, x.to(dev), a.to(dev))
+    s_p, n_p = tkm.group_partials(x, a, prog.schedule.cpu().view(prog.grid[0], -1), bp=bp, Kp=K,
+                                  n_valid=pt * bp)
+    assert torch.equal(s_k.cpu(), s_p) and torch.equal(n_k.cpu(), n_p)
+
+
+@pytest.mark.cuda
+def test_fused_lloyd_is_the_reference_at_gist_width_on_cuda():
+    """``ops.kmeans_lloyd`` fused == ``fused=False`` to the bit at D = 960
+    with several update groups of several tiles (K = 1000: 8 centroid
+    ranges, 3 column chunks, 4 tiles a group)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x = clustered(np.random.default_rng(960), 20000, 960, 1000, np.arange(1000))
+    c_f, a_f = tops.kmeans_lloyd(x, 1000, iters=2)
+    c_r, a_r = tops.kmeans_lloyd(x, 1000, iters=2, fused=False)
+    assert torch.equal(c_f, c_r) and torch.equal(a_f, a_r)
 
 
 @pytest.mark.cuda

@@ -163,11 +163,28 @@ def test_shard_program_matches_jax_per_shard():
     assert int(ta.max()) < k  # the pad centroids are never chosen
 
 
-def test_fold_program_is_a_left_fold():
-    parts = torch.as_tensor(np.random.default_rng(0).standard_normal((5, 3, 2)).astype(np.float32))
-    order = torch.tensor([[3], [0], [4]], dtype=torch.int32)
-    got = launch(tkm.kmeans_fold_program(order), parts)
-    assert torch.equal(got, (parts[3] + parts[0]) + parts[4])
+def f32_left_fold(parts: np.ndarray, order) -> np.ndarray:
+    """parts[order[0]] + parts[order[1]] + ... as a Python loop of f32
+    adds (zeros for an empty order)."""
+    acc = np.zeros(parts.shape[1:], np.float32) if not len(order) else parts[order[0]].copy()
+    for t in order[1:]:
+        acc = np.add(acc, parts[t], dtype=np.float32)
+    return acc
+
+
+# (tiles, Kp, D, order): the first case's 6 elements are not whole float4s,
+# nor are 5 x 3's; an empty order, one tile, and a permutation with the
+# last tile first
+FOLD_CASES = [(5, 3, 2, [3, 0, 4]), (4, 8, 4, []), (4, 8, 4, [2]), (4, 5, 3, [1, 3, 0, 1]),
+              (6, 8, 4, [5, 2, 0, 4, 1, 3])]
+
+
+@pytest.mark.parametrize("T,Kp,D,order", FOLD_CASES)
+def test_fold_program_is_a_left_fold(T, Kp, D, order):
+    parts = np.random.default_rng(T * D).standard_normal((T, Kp, D)).astype(np.float32)
+    table = torch.tensor(order, dtype=torch.int32).reshape(-1, 1)
+    got = launch(tkm.kmeans_fold_program(table), torch.as_tensor(parts))
+    assert got.shape == (Kp, D) and torch.equal(got, torch.as_tensor(f32_left_fold(parts, order)))
 
 
 def test_new_launchers_refuse_cpu_tensors():
@@ -500,6 +517,52 @@ def test_sharded_pair_offsets_overflow_raises(halo, monkeypatch):
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,Kp,D,order", [
+    *FOLD_CASES,
+    (40, 1024, 128, None),  # 256 CTAs of a float4 a thread: every SM
+    (50, 999, 131, None),   # 130,869 elements, not whole float4s: 256 CTAs of four floats a thread
+    (4500, 8, 8, None),     # more than four times the 1,024 order entries staged at once
+])
+def test_fold_kernel_is_the_plain_fold_to_the_bit(T, Kp, D, order):
+    """``sfc_kmeans_fold`` on the card equal to the bit to its plain
+    version and to a Python loop of f32 adds; ``None`` is a permutation of
+    every tile with the last one first."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    parts = np.random.default_rng(T + D).standard_normal((T, Kp, D)).astype(np.float32)
+    if order is None:
+        rest = np.random.default_rng(T).permutation(T - 1)
+        order = [T - 1, *rest.tolist()]
+    prog = tkm.kmeans_fold_program(torch.tensor(order, dtype=torch.int32, device="cuda").reshape(-1, 1))
+    pt = torch.as_tensor(parts, device="cuda")
+    LAUNCHES.reset()
+    got = launch(prog, pt)
+    assert LAUNCHES.counts()["sfc_kmeans_fold"] == 1
+    assert torch.equal(got, prog.plain(prog, pt))
+    assert torch.equal(got.cpu(), torch.as_tensor(f32_left_fold(parts, order)))
+
+
+@pytest.mark.cuda
+def test_fold_kernel_reads_unaligned_partials():
+    """``sfc_kmeans_fold`` over partials that start 4 bytes into their
+    buffer (whole float4s a tile, but no 16-byte alignment: the kernel
+    takes four floats a thread), equal to the bit to a Python loop of f32
+    adds."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    T, Kp, D = 30, 64, 20
+    parts = np.random.default_rng(7).standard_normal((T, Kp, D)).astype(np.float32)
+    order = [T - 1, *np.random.default_rng(8).permutation(T - 1).tolist()]
+    buf = torch.zeros(T * Kp * D + 1, device="cuda")
+    pt = buf[1:].view(T, Kp, D)
+    pt.copy_(torch.as_tensor(parts))
+    assert pt.data_ptr() % 16 == 4
+    prog = tkm.kmeans_fold_program(torch.tensor(order, dtype=torch.int32, device="cuda").reshape(-1, 1))
+    got = launch(prog, pt)
+    assert torch.equal(got.cpu(), torch.as_tensor(f32_left_fold(parts, order)))
+
 
 @pytest.mark.cuda
 def test_sharded_kernels_match_plain_on_cuda(monkeypatch):
