@@ -10,7 +10,8 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    ``build/repro_torch/``, and print the registers, spills and resident
    CTAs an SM of the SIMT core's kernels (the f32 matmuls and
    ``sfc_tile_update``), of row 20's register-tiled f32 core and of the
-   k-means update (D = 128 and 960, and the shard update) and fold.
+   k-means update (D = 128 and 960, and the shard update), fold and
+   assign (the one kernel of the three assign entries).
 2. Hold each kernel against its plain PyTorch version on the same CUDA
    inputs, at a small ragged and a mid-size shape (the k-means update up
    to D = 960, its column-chunked grid, and its group partials through
@@ -61,13 +62,17 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    a few runs), its plain version (one run) and, where one PyTorch call
    computes the same function, that call; compute each kernel's bound
    (``sfc_matmul`` in f32 and, on its tensor-core core, in bf16; the SM
-   clock read beside the 8192³ f32 matmuls and their library call).
+   clock read beside the 8192³ f32 matmuls, ``sfc_kmeans_assign`` and
+   their library calls).
    The phased kernels are timed per entry point: the launches of one
    phase over all k-blocks of one call (``sfc_chol_diag`` also against
    one ``linalg.cholesky`` call per diagonal tile; ``sfc_chol_trailing``
    against the 63 in-place ``addmm_`` of the trailing squares and beside
    the per-k form's ``sfc_tile_update`` on the same tiles, which must
-   leave the matrix equal to the bit); ``sfc_tile_update`` on the 64 x 64
+   leave the matrix equal to the bit); the k-means assigns also against
+   ``addmm`` + ``min`` (one cuBLAS product and one read of the metric
+   matrix) beside ``cdist`` + ``argmin``, ``sfc_kmeans_assign`` at
+   GIST1M's width too; ``sfc_tile_update`` on the 64 x 64
    tile grid at Kp = 128 equal to the bit to ``O - sfc_matmul(A, Bᵀ)``,
    the chain both compute;
    ``sfc_chol_panel`` is first held on its own against ``_solve_tiles`` on
@@ -118,7 +123,7 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    plan's rows and host time, a warm profile of each call, and the five
    sharded kernels' times, bounds and plain versions (the update also
    with the exact class's group partials; the assign against ``cdist`` +
-   ``argmin`` over each shard's points).
+   ``argmin`` and ``addmm`` + ``min`` over each shard's points).
 
 The second-to-last line of output is one JSON object ``{"kernels": [...]}``,
 the last ``{"ok": true, "device": {...}}``.  ``--quick`` runs phases 1-2
@@ -449,6 +454,14 @@ def check_tile_counts(tri, got, want, band, n: int, bp: int, what: str) -> int:
         check(bool((diff[bad] <= deg).all()), f"{what}: {side} counts differ outside the band")
         err = max(err, int(diff.max()) if diff.numel() else 0)
     return err
+
+
+def addmm_min(x, c, cn):
+    """The assign's strongest library yardstick: the metric |c|² − 2 x·c
+    as one cuBLAS product (f32, TF32 off) and one min over its rows."""
+    import torch
+
+    return torch.addmm(cn, x, c.T, alpha=-2).min(1)
 
 
 def argmin_band(x, c) -> "torch.Tensor":
@@ -1432,7 +1445,10 @@ def main_path(rng, device, seed: int) -> dict:
     aerr = float((m_k - m_p).abs().max())
     entry("sfc_kmeans_assign", lambda: launch(assign, xkp, cent, cn), lambda: assign.plain(assign, xkp, cent, cn),
           lambda: torch.cdist(xkp, cent).argmin(dim=1), 2.0 * pt * 128 * K * DK, FP32_PEAK,
-          4 * (pt * 128 * DK + K * DK + K + 2 * pt * 128), 5, aerr)
+          4 * (pt * 128 * DK + K * DK + K + 2 * pt * 128), 5, aerr,
+          {"addmm_min_ms": cuda_ms(lambda: addmm_min(xkp, cent, cn), 5)}, clock=True)
+    rows[-1]["d960"] = time_assign_d960(xg, cent_g, device)
+    log(f"time sfc_kmeans_assign D={DG}: {json.dumps(rows[-1]['d960'])}")
     (s_k, n_k), (s_p, n_p) = launch(update, xkp, a_k), update.plain(update, xkp, a_k)
     check(torch.equal(n_k, n_p), "sfc_kmeans_update counts vs plain at full size")
     uerr = float((s_k - s_p).abs().max())
@@ -1544,6 +1560,41 @@ def time_update_d960(xg, asg_g, k: int, device) -> dict:
     return out
 
 
+def time_assign_d960(xg, cg, device) -> dict:
+    """Row 5a at GIST1M's width: sfc_kmeans_assign over the k-means
+    table's point tiles at the GIST run's centroids, held against its
+    plain version (argmins outside the float64 band), its plain version's
+    time, cdist + argmin, addmm + min and the bound 2 N Kp D over FP32."""
+    import torch
+    from repro_torch.core import kmeans_schedule_device
+    from repro_torch.kernels import launch
+    from repro_torch.kernels.kmeans import kmeans_lloyd_program
+
+    n, d = xg.shape
+    k = cg.shape[0]
+    pt = -(-n // 128)
+    xgp = torch.nn.functional.pad(xg, (0, 0, 0, pt * 128 - n)).contiguous()
+    assign, _update = kmeans_lloyd_program(kmeans_schedule_device("fur", pt, k // 128, device=device),
+                                           pt=pt, ct=k // 128, bp=128, bc=128, D=d, k_valid=None,
+                                           n_valid=n)
+    cn = (cg * cg).sum(1)
+    (m_k, a_k), (m_p, a_p) = launch(assign, xgp, cg, cn), assign.plain(assign, xgp, cg, cn)
+    band = argmin_band(xg, cg)
+    check(not bool(((a_k[:n] != a_p[:n]) & ~band).any()), f"sfc_kmeans_assign D={d} vs plain at full size")
+    err = float((m_k - m_p).abs().max())
+    del m_k, a_k, m_p, a_p, band
+    b_ms, b_by = bound_ms(2.0 * pt * 128 * k * d, FP32_PEAK, 4 * (pt * 128 * d + k * d + k + 2 * pt * 128))
+    out = {
+        "shape": [n, d, k], "ms": cuda_ms(lambda: launch(assign, xgp, cg, cn), 5),
+        "plain_ms": cuda_ms(lambda: assign.plain(assign, xgp, cg, cn), 1, 0),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(lambda: torch.cdist(xgp, cg).argmin(dim=1), 5),
+        "addmm_min_ms": cuda_ms(lambda: addmm_min(xgp, cg, cn), 5), "max_abs_err": err,
+    }
+    del xgp
+    return out
+
+
 def time_assign_tiles(entry, xk, probes, cent, device) -> None:
     """Row 4 at ops.kmeans_assign's main-path shapes: the 1,000,000 points
     (pt x ct = 7813 x 8 CTAs) and a 4,096-probe batch (32 x 8)."""
@@ -1572,8 +1623,10 @@ def time_assign_tiles(entry, xk, probes, cent, device) -> None:
     entry("sfc_kmeans_assign_tiles", lambda: launch(prog, xp, cent, cn), lambda: prog.plain(prog, xp, cent, cn),
           lambda: torch.cdist(xp, cent).argmin(dim=1), 2.0 * n_pt * 128 * k * d, FP32_PEAK,
           4 * (n_pt * 128 * d + k * d + k + 2 * n_pt * (k // 128) * 128), 5, err,
-          {"probes_4096": {"ms": p_ms, "bound_ms": p_bound, "ctas": pprog.steps,
-                           "library_ms": cuda_ms(lambda: torch.cdist(pp, cent).argmin(dim=1), 10)}})
+          {"addmm_min_ms": cuda_ms(lambda: addmm_min(xp, cent, cn), 5),
+           "probes_4096": {"ms": p_ms, "bound_ms": p_bound, "ctas": pprog.steps,
+                           "library_ms": cuda_ms(lambda: torch.cdist(pp, cent).argmin(dim=1), 10),
+                           "addmm_min_ms": cuda_ms(lambda: addmm_min(pp, cent, cn), 10)}})
 
 
 def time_matmul3d(entry, a32, b32, a16, b16, device) -> None:
@@ -2362,8 +2415,9 @@ def sharded_path(device, seed: int, ctx: dict) -> list:
           lambda: [shard_assign_plain(prog, xs[i], cp, cn, lims[i]) for i in range(SHARDS)],
           lambda: [torch.cdist(xs[i], cp[:K]).argmin(dim=1) for i in range(SHARDS)],
           2.0 * NK * Kp * DK, 4 * (NK * DK + Kp * DK + Kp + 2 * NK), 5, aerr,
-          {"shards": SHARDS, "tiles_per_shard": ptl, "ctas_per_launch": ptl, "argmin_band_points": int(band.sum()),
-           "argmin_mismatches": int((a_k != a_p).sum())})
+          {"shards": SHARDS, "tiles_per_shard": ptl, "ctas_per_launch": ptl,
+           "argmin_band_points": int(band.sum()), "argmin_mismatches": int((a_k != a_p).sum()),
+           "addmm_min_ms": cuda_ms(lambda: [addmm_min(xs[i], cp[:K], cn[:K]) for i in range(SHARDS)], 5)})
     got = [shard_update_cuda(prog, xs[i], args[i], lims[i]) for i in range(SHARDS)]
     want = [shard_update_plain(prog, xs[i], args[i], lims[i]) for i in range(SHARDS)]
     for (s_k, n_k), (s_p, n_p) in zip(got, want):

@@ -39,9 +39,12 @@ _F = ctypes.c_float
 # C signatures of the entry points in csrc/*.cu
 SIGNATURES = {
     "sfc_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # the assigns: (x, centroid panel, cn, table, steps, table columns, column
+    # of i, [tiles: column of j,] bp, Kp or [tiles:] bc, ct, D, k_valid or
+    # [shard] lim, min, arg, stream)
     "sfc_kmeans_assign": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     "sfc_kmeans_update": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
-    "sfc_kmeans_assign_tiles": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    "sfc_kmeans_assign_tiles": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     "sfc_matmul3d": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "sfc_join_hits": (_P, _I, _P, _I, _I, _F, _I, _P, _P, _P),
     "sfc_join_emit": (_P, _I, _P, _I, _I, _F, _I, _P, _P),

@@ -12,16 +12,41 @@
 //
 // (a) assign: one CTA per point tile (a phase-1 row of the kmeans
 //     schedule, so point tiles are taken in the curve's first-visit
-//     order).  It loops over ALL centroids in 128-wide chunks, computes
-//     m = |c|^2 - 2 x.c (kmeans.py::_assign_tile), masks centroids at or
-//     past k_valid with FLT_MAX, and keeps the running (min, argmin) in
-//     registers with the (value, index) tie rule, so the smallest index
-//     wins among equal minima exactly as argmin does.  `arg` is written
-//     once per point.
-//     Bound on the H100: FP32 FLOP/s (2 N Kp D; TF32 is off).  Design:
-//     the same SIMT 128x128 tile product as sfc_matmul (tile_gemm.cuh)
-//     with an argmin epilogue, so the (N, Kp) metric matrix never
-//     reaches device memory.
+//     order).  A point tile is a bp x Kp tile of m = |c|^2 - 2 x.c
+//     (kmeans.py::_assign_tile), walked as 128 x 128 sub-tiles, row-major,
+//     on simt_gemm.cuh's ring: x as its M x D panel (4-byte copies that
+//     transpose it), the centroids as a D x Kp panel the wrapper transposes
+//     (kmeans.py::centroid_panel; 16-byte copies).  Centroids at or past
+//     k_valid count as FLT_MAX, and each row keeps its running (min, first
+//     argmin) under the (value, index) order, so the smallest index wins
+//     among equal minima exactly as argmin does.  `arg` is written once
+//     per point.
+//     Bound on the H100: FP32 FLOP/s (2 N Kp D; TF32 is off).  The first
+//     design ran tile_gemm.cuh's tile_product (16-deep chunks staged
+//     through registers by 4-byte loads, two barriers a chunk) afresh for
+//     each 128-centroid tile: at D = 128 a product is 8 chunks, and its
+//     pipeline filled and drained 8 times a point tile with the argmin
+//     merge between (11.3 ms at 1M x 1024 x 128, 0.35 of the bound, on an
+//     H100 80GB HBM3 at 700 W; PERF.md, row 5a).  On the ring the stage
+//     sequence runs on across a tile's sub-tiles, and only the epilogue
+//     sits between two of them.  Every metric is still one __fmaf_rn chain
+//     from 0, k ascending (a zero-filled depth adds nothing), so every
+//     minimum and argmin is the first design's to the bit.  In the A/B
+//     that chose the design (PERF.md, section 6), the centroids as an N x K
+//     panel (BPanel::NK, 4-byte copies that transpose them) ran 5-11 %
+//     slower, and persistent CTAs walking rows b, b + grid, ... 1-7 %
+//     slower than one CTA a tile.
+//     The epilogue (Argmin), after each sub-tile: a thread reduces its 8
+//     columns for each of its 8 rows in ascending column order (strict <),
+//     the 8 lanes that share rows merge by __shfl_xor_sync, and one of
+//     them merges the result into the running pair of its (row, column
+//     half), kept in 2 KB of shared memory outside the ring: held in
+//     registers, 16 more values would stay live across the loop beside
+//     the 64 accumulators, past the 128 registers two CTAs an SM allow.
+//     After a row block's last sub-tile, the two warps that share its rows
+//     meet at a named barrier of their 64 threads, and one of them merges
+//     the halves and writes each row once.  The (value, index) minimum is
+//     associative and commutative, so the merge order changes no bit.
 //
 // (b) update: grid (point group g, 128-centroid range, column chunk).
 //     A group is a run of tiles_per_group consecutive point-tile ids; the
@@ -72,23 +97,24 @@
 //
 // (c) assign_tiles: src/repro/kernels/kmeans.py::_assign_kernel (the TPU
 //     kernel of kmeans_assign_swizzled: ops.kmeans_assign, the reference
-//     Lloyd path and the streaming service's assign command).  One CTA
-//     per row (i, j) of a 2-D (point tile, centroid tile) curve table;
-//     it writes the (min, first argmin) of point tile i over centroid
-//     tile j once, to its own (i, j) slot of the (pt, ct, bp) partials,
-//     and a torch argmin over ct merges them.  It runs the same device
-//     code as (a) over a centroid range, so every metric and every
-//     tie-break is the same: the reference path equals the fused one to
-//     the bit.
-//     Bound on the H100: FP32 FLOP/s (2 N Kp D), as (a).  Design: the
-//     (i, j) grid has pt ct CTAs where (a) has pt, so a streaming batch
-//     of 4,096 probes fills 256 CTAs at K = 1024 where (a) fills 32 of
-//     the 132 SMs.
+//     Lloyd path and the streaming service's assign command).  One CTA per
+//     row (i, j) of a 2-D (point tile, centroid tile) curve table: (a)'s
+//     kernel on the bp x bc tile, which writes the (min, first argmin) of
+//     point tile i over centroid tile j once, to its own (i, j) slot of the
+//     (pt, ct, bp) partials; a torch argmin over ct merges them.  Every
+//     metric and every tie-break is (a)'s, so the reference path equals
+//     the fused one to the bit.  Each centroid tile is zero-padded to a
+//     multiple of 4 columns in the kernel's operand, which the epilogue
+//     skips.
+//     Bound on the H100: FP32 FLOP/s (2 N Kp D), as (a).  The (i, j) grid
+//     has pt ct CTAs where (a) has pt, so a streaming batch of 4,096 probes
+//     fills 256 CTAs at K = 1024 where (a) fills 32 of the 132 SMs.
 //
 // (d) shard step: src/repro/kernels/kmeans.py::_shard_lloyd_kernel (the
 //     TPU kernel of kmeans_shard_program, one Lloyd step on one shard of
 //     the curve-range-sharded k-means).  It is (a) and (b) again, as two
-//     launches, with two differences the sharded fold needs:
+//     launches (the assign (a)'s kernel itself), with two differences the
+//     sharded fold needs:
 //     - the ragged masks are device operands, lim = (n_valid_local,
 //       k_valid), so one launch configuration serves every shard, as the
 //       TPU kernel's dynamic operand does;
@@ -132,151 +158,141 @@
 #include <type_traits>
 
 #include "kernel_info.cuh"
-#include "tile_gemm.cuh"
+#include "simt_gemm.cuh"
 
 namespace {
 
 using namespace sfc;
+using simt::THREADS;
+using simt::TILE;
 
-// Running (min, first argmin) of m = |c|^2 - 2 x.c for the rows [row0,
-// row0 + rows) of x over centroids [c_lo, c_hi), in 128-wide chunks from
-// c_lo; centroids at or past k_valid count as FLT_MAX.  Thread (tx, ty)
-// returns the result of its rows tile_row(ty, i) in best_v / best_a (the
-// 16 threads of a row agree).  Both assign kernels run exactly this.
-__device__ __forceinline__ void assign_rows(const float* __restrict__ x, const float* __restrict__ c,
-                                            const float* __restrict__ cn, size_t row0, int rows,
-                                            int D, int c_lo, int c_hi, int k_valid, float (&best_v)[8],
-                                            int (&best_a)[8], float* As, float* Bs) {
-  const int tx = threadIdx.x & 15;
-  RowLoader<float> la{x + row0 * D, (size_t)D, rows, D};
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    best_v[i] = __int_as_float(0x7f800000);  // +inf: loses to every real metric
-    best_a[i] = INT_MAX;
+// ---------------------------------------------------------------------------
+// (a), (c), (d) the assign
+// ---------------------------------------------------------------------------
+
+// (v, a) <- (ov, oa) if (ov, oa) comes first in the (value, index) order
+__device__ __forceinline__ void take_min(float& v, int& a, float ov, int oa) {
+  if (ov < v || (ov == v && oa < a)) {
+    v = ov;
+    a = oa;
   }
-  for (int c0 = c_lo; c0 < c_hi; c0 += TILE) {
-    RowLoader<float> lb{c + (size_t)c0 * D, (size_t)D, min(TILE, c_hi - c0), D};
-    float acc[8][8];
-    tile_product<false>(acc, la, lb, D, As, Bs, nullptr);
+}
+
+// simt_gemm.cuh's epilogue for the assign: per row of a (bm, bn) tile,
+// the (min, first argmin) of m = |c|^2 - 2 x.c over the tile's columns
+// (FLT_MAX at or past k_valid), written once to slot ((i ct + j) bm + row)
+// of min_out / arg_out: i, j the tile's, ct = 1 when the tile spans every
+// centroid.  Column l of tile j is centroid j bw + l, for l < bw; the bn -
+// bw columns that pad a tile to a multiple of 4 are skipped.
+struct Argmin {
+  const float* __restrict__ cn;
+  int k_valid, bm, bn, bw, ct;
+  float* __restrict__ min_out;
+  int* __restrict__ arg_out;
+  static constexpr bool PREFETCH = false;
+  __device__ void prefetch(int, int, int, int) const {}
+  __device__ __forceinline__ void store(const float (&acc)[simt::TM][simt::TN], int row0, int rows,
+                                        int col0, int /* cols: l < bw covers them */, int fr,
+                                        int fc) const {
+    using namespace simt;
+    // the running pair of each (row, column half) of a sub-tile's rows
+    __shared__ float run_v[WARPS_N * TILE];
+    __shared__ int run_a[WARPS_N * TILE];
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int half = warp % WARPS_N;
+    const int tj = col0 / bn, sc = col0 - tj * bn;  // the tile, and the sub-tile's first column in it
+    int col[TN];  // this thread's centroids, ascending in j; -1 past the tile's edge
+    float cv[TN];  // and their |c|^2
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      float v = __int_as_float(0x7f800000);
+    for (int j = 0; j < TN; ++j) {
+      const int l = sc + fc + (j / 4) * 32 + j % 4;
+      col[j] = l < bw ? tj * bw + l : -1;
+      cv[j] = l < bw ? __ldg(cn + tj * bw + l) : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      float v = __int_as_float(0x7f800000);  // +inf: loses to every real metric
       int a = INT_MAX;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {  // columns ascend with j
-        const int col = c0 + tile_col(tx, j);
-        if (col >= c_hi) continue;
-        float m = __fsub_rn(cn[col], __fmul_rn(2.f, acc[i][j]));
-        if (col >= k_valid) m = FLT_MAX;
+      for (int j = 0; j < TN; ++j) {
+        if (col[j] < 0) continue;
+        float m = __fsub_rn(cv[j], __fmul_rn(2.f, acc[i][j]));
+        if (col[j] >= k_valid) m = FLT_MAX;
         if (m < v) {
           v = m;
-          a = col;
+          a = col[j];
         }
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1) {  // the 16 threads sharing a row
-        const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-        const int oa = __shfl_xor_sync(0xffffffffu, a, off);
-        if (ov < v || (ov == v && oa < a)) {
-          v = ov;
-          a = oa;
-        }
-      }
-      if (v < best_v[i] || (v == best_v[i] && a < best_a[i])) {
-        best_v[i] = v;
-        best_a[i] = a;
+      for (int off = 4; off > 0; off >>= 1)  // the 8 lanes that share these rows
+        take_min(v, a, __shfl_xor_sync(0xffffffffu, v, off), __shfl_xor_sync(0xffffffffu, a, off));
+      if (lane % 8 == 0) {  // one owner a (row, half): no barrier between sub-tiles
+        const int r = half * TILE + fr + (i / 4) * 16 + i % 4;
+        if (sc) take_min(v, a, run_v[r], run_a[r]);
+        run_v[r] = v;
+        run_a[r] = a;
       }
     }
-  }
-}
-
-// Point tile ti's (min, first argmin) over all Kp centroids, written once
-// per point to min_out / arg_out.  Both one-CTA-per-point-tile assign
-// kernels run exactly this.
-__device__ __forceinline__ void assign_tile(const float* __restrict__ x, const float* __restrict__ c,
-                                            const float* __restrict__ cn, int ti, int bp, int Kp,
-                                            int D, int k_valid, float* __restrict__ min_out,
-                                            int* __restrict__ arg_out, float* As, float* Bs) {
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  for (int sr = 0; sr < bp; sr += TILE) {
-    const size_t row0 = (size_t)ti * bp + sr;
-    const int rows = min(TILE, bp - sr);
-    float best_v[8];
-    int best_a[8];
-    assign_rows(x, c, cn, row0, rows, D, 0, Kp, k_valid, best_v, best_a, As, Bs);
-    if (tx == 0) {
+    if (sc + TILE < bn) return;  // the row block has more sub-tiles
+    // its last: the WARPS_N warps of these 32 rows meet, the first merges
+    // the halves and writes each row once.  The next sub-tile's owners
+    // write run_* only after the CTA barrier of its first stage.
+    const int g = warp / WARPS_N;
+    asm volatile("bar.sync %0, %1;" ::"r"(1 + g), "r"(32 * WARPS_N) : "memory");
+    if (half) return;
+    const int r = g * 32 + lane;
+    float v = run_v[r];
+    int a = run_a[r];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int r = tile_row(ty, i);
-        if (r < rows) {
-          min_out[row0 + r] = best_v[i];
-          arg_out[row0 + r] = best_a[i];
-        }
-      }
+    for (int h = 1; h < WARPS_N; ++h) take_min(v, a, run_v[h * TILE + r], run_a[h * TILE + r]);
+    if (r < rows) {
+      const int ti = row0 / bm;
+      const size_t o = ((size_t)ti * ct + tj) * bm + (row0 - (size_t)ti * bm) + r;
+      min_out[o] = v;
+      arg_out[o] = a;
     }
   }
-}
+};
 
-__global__ void __launch_bounds__(THREADS)
-kmeans_assign_kernel(const float* __restrict__ x, const float* __restrict__ c,
-                     const float* __restrict__ cn, const int* __restrict__ sched, int sched_cols,
-                     int col_i, int bp, int Kp, int D, int k_valid, float* __restrict__ min_out,
+// The centroid tile's width in the kernel's operand: bw padded to a
+// multiple of 4 (kernels/matmul.py::simt_layout)
+__host__ __device__ constexpr int padded(int bw) { return (bw + 3) / 4 * 4; }
+
+// The assign: CTA r walks the tile (i, j) of table row r (at sched[r cols
+// ..], i in column col_i, j in col_j, j = 0 when col_j < 0), a (bp, bw)
+// tile of x (M x D) . c^T, with Argmin's epilogue; k_valid, or lim[1] when
+// lim is set (the shard step's device limits).  ck: the ct bw centroids as
+// a D x (ct padded(bw)) K x N panel, each tile of bw zero-padded to
+// padded(bw) columns, 16-byte aligned (kernels/kmeans.py::centroid_panel).
+// All three assign entries run it.
+__global__ void __launch_bounds__(THREADS, simt::MIN_CTAS)
+kmeans_assign_kernel(const float* __restrict__ x, const float* __restrict__ ck,
+                     const float* __restrict__ cn, const int* __restrict__ sched, int cols,
+                     int col_i, int col_j, int bp, int bw, int ct, int M, int D, int k_valid,
+                     const int* __restrict__ lim, float* __restrict__ min_out,
                      int* __restrict__ arg_out) {
-  __shared__ __align__(16) float As[BK * TILE];
-  __shared__ __align__(16) float Bs[BK * TILE];
-  const int ti = sched[(size_t)blockIdx.x * sched_cols + col_i];
-  assign_tile(x, c, cn, ti, bp, Kp, D, k_valid, min_out, arg_out, As, Bs);
+  const int bn = padded(bw);
+  const simt::Walk w{sched, (int)blockIdx.x, 1, 1, bp, bn, M, ct * bn, nullptr, 1, D, cols, col_i,
+                     col_j};
+  const Argmin epi{cn, lim ? lim[1] : k_valid, bp, bn, bw, ct, min_out, arg_out};
+  simt::gemm<simt::BPanel::KN>(x, D, ck, ct * bn, w, epi);
 }
 
-// The shard step's assign: as kmeans_assign_kernel, with k_valid read from
-// the device limits lim = (n_valid_local, k_valid), so one launch
-// configuration serves every shard.
-__global__ void __launch_bounds__(THREADS)
-kmeans_shard_assign_kernel(const float* __restrict__ x, const float* __restrict__ c,
-                           const float* __restrict__ cn, const int* __restrict__ sched,
-                           int sched_cols, int col_i, int bp, int Kp, int D,
-                           const int* __restrict__ lim, float* __restrict__ min_out,
-                           int* __restrict__ arg_out) {
-  __shared__ __align__(16) float As[BK * TILE];
-  __shared__ __align__(16) float Bs[BK * TILE];
-  const int ti = sched[(size_t)blockIdx.x * sched_cols + col_i];
-  assign_tile(x, c, cn, ti, bp, Kp, D, lim[1], min_out, arg_out, As, Bs);
-}
-
-// CTA s: point tile i = sched[s][0] against centroid tile j = sched[s][1];
-// its partial lands at [(i ct + j) bp, +bp) of min_out / arg_out.
-__global__ void __launch_bounds__(THREADS)
-kmeans_assign_tiles_kernel(const float* __restrict__ x, const float* __restrict__ c,
-                           const float* __restrict__ cn, const int* __restrict__ sched, int bp,
-                           int bc, int ct, int Kp, int D, int k_valid, float* __restrict__ min_out,
-                           int* __restrict__ arg_out) {
-  __shared__ __align__(16) float As[BK * TILE];
-  __shared__ __align__(16) float Bs[BK * TILE];
-  const int ti = sched[2 * (size_t)blockIdx.x];
-  const int tj = sched[2 * (size_t)blockIdx.x + 1];
-  const int c_lo = tj * bc;
-  const int c_hi = min(Kp, c_lo + bc);
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const size_t out0 = ((size_t)ti * ct + tj) * bp;
-  for (int sr = 0; sr < bp; sr += TILE) {
-    const size_t row0 = (size_t)ti * bp + sr;
-    const int rows = min(TILE, bp - sr);
-    float best_v[8];
-    int best_a[8];
-    assign_rows(x, c, cn, row0, rows, D, c_lo, c_hi, k_valid, best_v, best_a, As, Bs);
-    if (tx == 0) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int r = tile_row(ty, i);
-        if (r < rows) {
-          min_out[out0 + sr + r] = best_v[i];
-          arg_out[out0 + sr + r] = best_a[i];
-        }
-      }
-    }
-  }
+// one assign launch, a CTA a table row, refused unless ck is 16-byte
+// aligned (the ring's 16-byte copies); the ring's shared memory limit is
+// raised once per device
+int launch_assign(const void* x, const void* ck, const void* cn, const void* sched, int steps,
+                  int cols, int col_i, int col_j, int bp, int bw, int ct, int M, int D, int k_valid,
+                  const void* lim, void* min_out, void* arg_out, void* stream) {
+  if (steps == 0) return 0;
+  if (steps < 0 || bp < 1 || bw < 1 || ct < 1 || D < 0 || (uintptr_t)ck % 16)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = raise_smem_limit<kmeans_assign_kernel>(simt::SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  kmeans_assign_kernel<<<steps, THREADS, simt::SMEM_BYTES, (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)ck, (const float*)cn, (const int*)sched, cols, col_i, col_j,
+      bp, bw, ct, M, D, k_valid, (const int*)lim, (float*)min_out, (int*)arg_out);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -580,13 +596,14 @@ kmeans_fold_kernel(const float* __restrict__ parts, const int* __restrict__ orde
 
 }  // namespace
 
-extern "C" int sfc_kmeans_assign(const void* x, const void* c, const void* cn, const void* sched,
+// (a): steps point tiles, the i of table row r at sched[r sched_cols +
+// col_i], each over all Kp centroids (ck: one tile of Kp); x is steps bp
+// rows.
+extern "C" int sfc_kmeans_assign(const void* x, const void* ck, const void* cn, const void* sched,
                                  int steps, int sched_cols, int col_i, int bp, int Kp, int D,
                                  int k_valid, void* min_out, void* arg_out, void* stream) {
-  kmeans_assign_kernel<<<steps, THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)c, (const float*)cn, (const int*)sched, sched_cols, col_i, bp,
-      Kp, D, k_valid, (float*)min_out, (int*)arg_out);
-  return (int)cudaGetLastError();
+  return launch_assign(x, ck, cn, sched, steps, sched_cols, col_i, -1, bp, Kp, 1, steps * bp, D,
+                       k_valid, nullptr, min_out, arg_out, stream);
 }
 
 extern "C" int sfc_kmeans_update(const void* x, const void* arg, const void* sched, int sched_cols,
@@ -601,24 +618,26 @@ extern "C" int sfc_kmeans_update(const void* x, const void* arg, const void* sch
   });
 }
 
-extern "C" int sfc_kmeans_assign_tiles(const void* x, const void* c, const void* cn,
-                                       const void* sched, int steps, int bp, int bc, int ct, int Kp,
-                                       int D, int k_valid, void* min_out, void* arg_out,
-                                       void* stream) {
-  kmeans_assign_tiles_kernel<<<steps, THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)c, (const float*)cn, (const int*)sched, bp, bc, ct, Kp, D,
-      k_valid, (float*)min_out, (int*)arg_out);
-  return (int)cudaGetLastError();
+// (c): steps = pt ct (point tile i, centroid tile j) rows, i and j in
+// columns col_i, col_j of sched_cols; ck: ct tiles of bc; x is pt bp rows,
+// tile (i, j)'s partial at [(i ct + j) bp, + bp) of min_out / arg_out.
+extern "C" int sfc_kmeans_assign_tiles(const void* x, const void* ck, const void* cn,
+                                       const void* sched, int steps, int sched_cols, int col_i,
+                                       int col_j, int bp, int bc, int ct, int D, int k_valid,
+                                       void* min_out, void* arg_out, void* stream) {
+  if (ct < 1 || steps % ct) return (int)cudaErrorInvalidValue;
+  return launch_assign(x, ck, cn, sched, steps, sched_cols, col_i, col_j, bp, bc, ct,
+                       steps / ct * bp, D, k_valid, nullptr, min_out, arg_out, stream);
 }
 
-extern "C" int sfc_kmeans_shard_assign(const void* x, const void* c, const void* cn,
+// (d): as sfc_kmeans_assign, k_valid read from the device limits lim =
+// (n_valid_local, k_valid), so one launch configuration serves every shard.
+extern "C" int sfc_kmeans_shard_assign(const void* x, const void* ck, const void* cn,
                                        const void* sched, int steps, int sched_cols, int col_i,
                                        int bp, int Kp, int D, const void* lim, void* min_out,
                                        void* arg_out, void* stream) {
-  kmeans_shard_assign_kernel<<<steps, THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)c, (const float*)cn, (const int*)sched, sched_cols, col_i, bp,
-      Kp, D, (const int*)lim, (float*)min_out, (int*)arg_out);
-  return (int)cudaGetLastError();
+  return launch_assign(x, ck, cn, sched, steps, sched_cols, col_i, -1, bp, Kp, 1, steps * bp, D, 0,
+                       lim, min_out, arg_out, stream);
 }
 
 extern "C" int sfc_kmeans_shard_update(const void* x, const void* arg, const void* sched,
@@ -647,13 +666,17 @@ extern "C" int sfc_kmeans_fold(const void* parts, const void* order, int n, int 
   return (int)cudaGetLastError();
 }
 
-// The build and residency of the redesigned k-means kernels
-// (kernel_info.cuh; launches nothing): which = 0 the update at the main
-// path's D = 128 (V = 4, dchunk 128), 1 at GIST1M's D = 960 (V = 16,
-// dchunk 320), 2 the shard update at D = 128, with (V, RING, SCAN); 3 the
-// fold, with (FOLD_VEC, 2 FOLD_BATCH, FOLD_CHUNK): floats a thread, the
-// most tiles in flight a thread, order entries staged at once.
+// The build and residency of the k-means kernels (kernel_info.cuh;
+// launches nothing): which = 0 the update at the main path's D = 128 (V =
+// 4, dchunk 128), 1 at GIST1M's D = 960 (V = 16, dchunk 320), 2 the shard
+// update at D = 128, with (V, RING, SCAN); 3 the fold, with (FOLD_VEC,
+// 2 FOLD_BATCH, FOLD_CHUNK): floats a thread, the most tiles in flight a
+// thread, order entries staged at once; 4 the assign, with simt_gemm.cuh's
+// (TN, BK, STAGES).
 extern "C" int sfc_kmeans_info(int which, int* out) {
+  if (which == 4)
+    return sfc::kernel_info((const void*)kmeans_assign_kernel, THREADS, simt::SMEM_BYTES,
+                            {simt::TN, simt::BK, simt::STAGES}, out);
   if (which == 3)
     return sfc::kernel_info((const void*)kmeans_fold_kernel<true>, FOLD_THREADS, 0,
                             {FOLD_VEC, 2 * FOLD_BATCH, FOLD_CHUNK}, out);

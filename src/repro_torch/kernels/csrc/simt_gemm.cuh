@@ -1,6 +1,7 @@
 // SIMT f32 GEMM core for Hopper's FP32 pipes, fed by a cp.async ring:
 // the f32 path of sfc_matmul and sfc_matmul3d and the whole of
-// sfc_tile_update (matmul.cu).
+// sfc_tile_update (matmul.cu), and the k-means assign kernels' x . c^T
+// (kmeans.cu, with an argmin epilogue).
 //
 // Bound: 2 M N K FMAs' worth of FP32 FLOP/s (67 TFLOP/s on an H100 SXM;
 // TF32 stays off, so no tensor core may take an f32 product).  The core
@@ -29,7 +30,7 @@
 //   epilogue sits between two sub-tiles.  The epilogue is the caller's
 //   (Store: float4 or 4 x bf16 stores of C; Update: O + alpha acc, the O
 //   sub-tile prefetched into L2 while the sub-tile's last stages are
-//   multiplied).
+//   multiplied; kmeans.cu's Argmin: a running (min, argmin) a row).
 //
 // Numerics: every output element is one __fmaf_rn chain from 0 over its
 // stage sequence, k ascending inside a stage, so the walk decides the
@@ -98,19 +99,24 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
   *reinterpret_cast<uint2*>(p) = u;
 }
 
-// A CTA's walk: the (bm, bn) output tiles (i, j) = sched[r] of its table
-// rows r = first, first + step, ... (tiles of them), each as sub-tiles of
-// at most TILE x TILE, row-major, each summed over nq depth ranges of span
-// k (range q starts at kr[q] * span, or at 0 when kr is null), each range
-// in ceil(span / BK) stages (at least one).  Rows 1 and 2 walk one tile,
-// row 1 one range of span K, row 2 its k list, span bk; row 3 walks its
-// table rows x, x + grid, ... over one range of span Kp.
+// A CTA's walk: the (bm, bn) output tiles (i, j) of its table rows r =
+// first, first + step, ... (tiles of them), each as sub-tiles of at most
+// TILE x TILE, row-major, each summed over nq depth ranges of span k
+// (range q starts at kr[q] * span, or at 0 when kr is null), each range
+// in ceil(span / BK) stages (at least one).  Row r of the int32 table is
+// sched[r * cols ..], i in its column col_i and j in col_j (j = 0 when
+// col_j < 0: one column tile).  Rows 1 and 2 walk one tile of an (i, j)
+// table, row 1 one range of span K, row 2 its k list, span bk; row 3 walks
+// its table rows x, x + grid, ... over one range of span Kp; the k-means
+// assign walks one tile over span D (kmeans.cu), of a 4-column table with
+// j = 0 or of an (i, j) table.
 struct Walk {
-  const int* sched;  // int32 (i, j) pairs
+  const int* sched;
   int first, step, tiles;
   int bm, bn, M, N;
   const int* kr;
   int nq, span;
+  int cols = 2, col_i = 0, col_j = 1;
 };
 
 // The matmuls' epilogue: C (M x N, ldc = N) written once, float4 or 4 x bf16.
@@ -222,11 +228,11 @@ __device__ __forceinline__ void gemm(const float* __restrict__ A, int lda,
   const int n = n_subs * per;
   auto sub = [&](int u, int& row0, int& rows, int& col0, int& cols) {
     const int t = u / subs, v = u - t * subs;
-    const int* ij = w.sched + 2 * (size_t)(w.first + t * w.step);
+    const int* row = w.sched + (size_t)(w.first + t * w.step) * w.cols;
     const int sr = (v / subs_c) * TILE, sc = (v % subs_c) * TILE;
-    row0 = ij[0] * w.bm + sr;
+    row0 = row[w.col_i] * w.bm + sr;
     rows = min(min(TILE, w.bm - sr), w.M - row0);
-    col0 = ij[1] * w.bn + sc;
+    col0 = (w.col_j < 0 ? 0 : row[w.col_j]) * w.bn + sc;
     cols = min(min(TILE, w.bn - sc), w.N - col0);
   };
 

@@ -7,10 +7,10 @@ runs in order:
 
 * ``sfc_kmeans_assign`` — one CTA per point tile, taken in the order the
   :func:`repro_torch.core.kmeans_schedule` table's update phase lists
-  them (the curve's first-visit order).  It loops over every centroid,
-  keeps the running (min, argmin) of m(x, c) = ||c||² − 2⟨x, c⟩ in
-  registers with the smallest-index tie rule, and writes each point's
-  assignment once.
+  them (the curve's first-visit order), each against every centroid on
+  the f32 SIMT core of ``csrc/simt_gemm.cuh``.  An argmin epilogue keeps
+  the running (min, argmin) of m(x, c) = ||c||² − 2⟨x, c⟩ with the
+  smallest-index tie rule and writes each point's assignment once.
 * ``sfc_kmeans_update`` — grid (point group × 128-centroid range ×
   column chunk); each CTA folds its group's valid points into a per-CTA
   partial of its centroid range and columns, written once; one torch
@@ -31,8 +31,9 @@ loop over iterations stay torch around the launches.
 The reference path (``fused=False``, the JAX package's
 ``kmeans_lloyd_reference``) is two other programs per iteration:
 :func:`kmeans_assign_swizzled` (``sfc_kmeans_assign_tiles``, one CTA per
-(point tile, centroid tile) row of a 2-D curve table, merged by a torch
-argmin over centroid tiles) and :func:`kmeans_update_swizzled`
+(point tile, centroid tile) row of a 2-D curve table, the same kernel as
+``sfc_kmeans_assign``'s, merged by a torch argmin over centroid tiles) and
+:func:`kmeans_update_swizzled`
 (``sfc_kmeans_update`` over its own (point tile, first_visit) table).
 Both run the fused path's device code, so the two paths agree to the bit
 on the card.
@@ -66,6 +67,7 @@ from repro_torch.core.program import GpuProgram
 
 from ._build import call, kernel_info, stream_of
 from .launch import cta_chunks, launch, require, shuffled_ctas
+from .matmul import _simt_b
 
 _F32_MAX = float(np.finfo(np.float32).max)
 # The update CTA's sizes, as csrc/kmeans.cu fixes them (TILE and upd::WARPS,
@@ -124,21 +126,26 @@ def update_groups(tiles: torch.Tensor, tpg: int) -> torch.Tensor:
 
 
 # the kernels the info query ``sfc_kmeans_info`` reports, by its ``which``
-# (csrc/kmeans.cu)
-_INFO_KERNELS = ("sfc_kmeans_update D=128", "sfc_kmeans_update D=960",
-                 "sfc_kmeans_shard_update D=128", "sfc_kmeans_fold")
+# (csrc/kmeans.cu), with the names of their three design constants
+_QUEUE_DESIGN = ("vec", "in_flight", "scan_or_chunk")
+_INFO_KERNELS = (("sfc_kmeans_update D=128", _QUEUE_DESIGN),
+                 ("sfc_kmeans_update D=960", _QUEUE_DESIGN),
+                 ("sfc_kmeans_shard_update D=128", _QUEUE_DESIGN),
+                 ("sfc_kmeans_fold", _QUEUE_DESIGN),
+                 ("sfc_kmeans_assign", ("tn", "bk", "stages")))
 
 
 def kmeans_kernel_info() -> dict:
-    """The update's and the fold's build and residency on the current card
+    """The k-means kernels' build and residency on the current card
     (:func:`._build.kernel_info`), by kernel: the update at the main path's
     D = 128 and 960 and the shard update at 128, with the columns a lane
     holds, its rows in flight and the 32-point blocks a scan (V, RING,
     SCAN); the fold with its floats a thread, the most tiles in flight a
-    thread and the order entries a CTA stages at once (4, 16, 1024)."""
-    return {name: kernel_info("sfc_kmeans_info", which,
-                              ("vec", "in_flight", "scan_or_chunk"))
-            for which, name in enumerate(_INFO_KERNELS)}
+    thread and the order entries a CTA stages at once (4, 16, 1024); the
+    assign kernel that all three assign entries launch, with the SIMT
+    core's thread-tile columns, stage depth and stages (8, 32, 3)."""
+    return {name: kernel_info("sfc_kmeans_info", which, design)
+            for which, (name, design) in enumerate(_INFO_KERNELS)}
 
 
 def update_smem_bytes(dchunk: int) -> int:
@@ -259,8 +266,17 @@ def kmeans_init(x: torch.Tensor, k: int, seed: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# (a) assign: one CTA per point tile, running (min, argmin) in registers
+# (a) assign: one CTA per point tile, a running (min, argmin) a row
 # ---------------------------------------------------------------------------
+
+def centroid_panel(c: torch.Tensor, bw: int) -> tuple[torch.Tensor, int]:
+    """The assign kernel's centroid operand: the (D, Kp) transpose of ``c``
+    in tiles of ``bw`` centroids, each zero-padded to the next multiple of 4
+    columns (:func:`.matmul.simt_layout`; the kernel skips the padding),
+    16-byte aligned, and the padded tile width.  The kernel copies its
+    rows into shared memory 16 bytes at a time."""
+    return _simt_b(c.t().contiguous(), bw)
+
 
 def _assign_cuda(program: GpuProgram, x, c, cn):
     p = program.params
@@ -274,10 +290,11 @@ def _assign_cuda(program: GpuProgram, x, c, cn):
     min_m = torch.empty(Np, dtype=torch.float32, device=x.device)
     arg = torch.empty(Np, dtype=torch.int32, device=x.device)
     if program.steps:
+        ck, _bn = centroid_panel(c, Kp)
         call(
-            "sfc_kmeans_assign", x.data_ptr(), c.data_ptr(), cn.data_ptr(),
-            sched.data_ptr(), *program.grid, sched.shape[1], 1, bp, Kp, D,
-            p["k_valid"], min_m.data_ptr(), arg.data_ptr(), stream_of(x),
+            "sfc_kmeans_assign", x.data_ptr(), ck.data_ptr(), cn.data_ptr(), sched.data_ptr(),
+            program.steps, sched.shape[1], program.columns.index("i"), bp, Kp, D, p["k_valid"],
+            min_m.data_ptr(), arg.data_ptr(), stream_of(x),
         )
     return min_m, arg
 
@@ -504,10 +521,12 @@ def _assign_tiles_cuda(program: GpuProgram, x, c, cn):
     tile_min = torch.empty((p["pt"], ct, bp), dtype=torch.float32, device=x.device)
     tile_arg = torch.empty((p["pt"], ct, bp), dtype=torch.int32, device=x.device)
     if program.steps:
+        ck, _bn = centroid_panel(c, bc)
         call(
-            "sfc_kmeans_assign_tiles", x.data_ptr(), c.data_ptr(), cn.data_ptr(),
-            sched.data_ptr(), program.steps, bp, bc, ct, Kp, D, p["k_valid"],
-            tile_min.data_ptr(), tile_arg.data_ptr(), stream_of(x),
+            "sfc_kmeans_assign_tiles", x.data_ptr(), ck.data_ptr(), cn.data_ptr(),
+            sched.data_ptr(), program.steps, sched.shape[1], program.columns.index("i"),
+            program.columns.index("j"), bp, bc, ct, D, p["k_valid"], tile_min.data_ptr(),
+            tile_arg.data_ptr(), stream_of(x),
         )
     return tile_min, tile_arg
 
@@ -666,10 +685,11 @@ def shard_assign_cuda(program: GpuProgram, x, c, cn, lim):
     require(program, sched, "schedule", dtypes=(torch.int32,))
     min_m = torch.empty((pt, bp), dtype=torch.float32, device=x.device)
     arg = torch.empty((pt, bp), dtype=torch.int32, device=x.device)
+    ck, _bn = centroid_panel(c, Kp)
     call(
-        "sfc_kmeans_shard_assign", x.data_ptr(), c.data_ptr(), cn.data_ptr(), sched.data_ptr(),
-        pt, sched.shape[1], 1, bp, Kp, D, lim.data_ptr(), min_m.data_ptr(), arg.data_ptr(),
-        stream_of(x),
+        "sfc_kmeans_shard_assign", x.data_ptr(), ck.data_ptr(), cn.data_ptr(), sched.data_ptr(),
+        pt, sched.shape[1], program.columns.index("i"), bp, Kp, D, lim.data_ptr(), min_m.data_ptr(),
+        arg.data_ptr(), stream_of(x),
     )
     return min_m, arg
 
