@@ -11,7 +11,8 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    CTAs an SM of the SIMT core's kernels (the f32 matmuls and
    ``sfc_tile_update``), of row 20's register-tiled f32 core and of the
    k-means update (D = 128 and 960, and the shard update), fold and
-   assign (the one kernel of the three assign entries).
+   assign (the one kernel of the three assign entries), and of the
+   ε-join's kernel of each pass (16-deep stages, and 8-deep for D <= 8).
 2. Hold each kernel against its plain PyTorch version on the same CUDA
    inputs, at a small ragged and a mid-size shape (the k-means update up
    to D = 960, its column-chunked grid, and its group partials through
@@ -77,7 +78,9 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    the chain both compute;
    ``sfc_chol_panel`` is first held on its own against ``_solve_tiles`` on
    the panels of k = 0 and k = 32 of the 8192 call, as the fused program
-   leaves them; ``sfc_matmul3d`` in bf16 with bf16 and f32 outputs.
+   leaves them; ``sfc_matmul3d`` in bf16 with bf16 and f32 outputs; the
+   join passes (rows 8–11) with their persistent CTAs, ring and
+   registers.
 6. Run the main path's calls once more, warm, under ``torch.profiler``:
    wall time, kernel (device) time and the device's busy share per call,
    and one warm tick of each streaming service.
@@ -493,6 +496,22 @@ def emission(tri, row_hits, eps: float, npad: int, n_valid):
     return P, simjoin_emit_program(
         table, eps=eps, bp=row_hits.shape[1], npad=npad, cap=cap, p_pad=p_pad, n_valid=n_valid,
     )
+
+
+def join_walk(programs) -> dict:
+    """A join pass's launch (rows 8–11) as its entry point reported it in
+    ``program.launched``: the persistent CTAs of the program's last launch
+    (a list of programs, one a shard: a grid each, 0 for a shard that
+    launched nothing), and the launched kernel's registers, ring (dynamic
+    shared memory), stage depth and stages."""
+    from repro_torch.kernels.simjoin import simjoin_kernel_info
+
+    progs = programs if isinstance(programs, list) else [programs]
+    grids = [p_.launched.get("grid", 0) for p_ in progs]
+    info = simjoin_kernel_info(next(p_.launched["kernel"] for p_ in progs if p_.launched))
+    return {"persistent_ctas": grids if isinstance(programs, list) else grids[0],
+            "smem_bytes": info["smem_bytes"], "registers": info["registers"],
+            "stage_depth": info["stage_depth"], "stages": info["stages"]}
 
 
 def fw_graph(rng, n: int, device, *, p: float = FW_EDGE_P, integer: bool = True):
@@ -1470,7 +1489,8 @@ def main_path(rng, device, seed: int) -> dict:
     del c_k, c_p
     pair_ops = NJ * (NJ - 1) / 2 * (2 * DJ + 3)
     entry("sfc_join_hits", lambda: launch(hits, xj), lambda: hits.plain(hits, xj), None,
-          pair_ops, FP32_PEAK, 4 * (NJ * DJ + 2 * len(trid) * 128), 5, herr)
+          pair_ops, FP32_PEAK, 4 * (NJ * DJ + 2 * len(trid) * 128), 5, herr,
+          join_walk(hits))
     P, emit = emission(trid, r_k, eps, NJ, None)
     P_p, emit_p = emission(trid, r_p, eps, NJ, None)
     e_k = launch(emit, xj)
@@ -1480,15 +1500,16 @@ def main_path(rng, device, seed: int) -> dict:
     # check_pairs fails), so the error is 0; the pairs in their symmetric
     # difference (each one inside the band) are counted apart
     differ = check_pairs(e_k[:P], e_p[:P_p], band_j, NJ, "sfc_join_emit")["differ_in_band"]
-    # a CTA whose tile has no pair returns at once: only tiles with
-    # total > 0 do the (2D + 3) operations per pair of their tile
+    # the emission table holds only the tiles with pairs: only they do the
+    # (2D + 3) operations per pair of their tile
     busy = emit.schedule[:, 3] > 0
     on_diag = emit.schedule[:, 0] == emit.schedule[:, 1]
     n_off, n_diag = int((busy & ~on_diag).sum()), int((busy & on_diag).sum())
     emit_ops = (n_off * 128 * 128 + n_diag * 128 * 127 / 2) * (2 * DJ + 3)
     log(f"sfc_join_emit: {n_off + n_diag} of {len(trid)} tiles hold a pair ({n_diag} on the diagonal)")
     entry("sfc_join_emit", lambda: launch(emit, xj), lambda: emit_p.plain(emit_p, xj), None,
-          emit_ops, FP32_PEAK, 4 * (NJ * DJ + 4 * len(trid) + 2 * P), 5, 0.0, {"differ_in_band": differ})
+          emit_ops, FP32_PEAK, 4 * (NJ * DJ + 4 * len(trid) + 2 * P), 5, 0.0,
+          {"differ_in_band": differ, **join_walk(emit)})
 
     del r_k, r_p, e_k, e_p
     time_phased(entry, device, fw_d, fw_dr, ch_a, ch_ar, ch)
@@ -2497,7 +2518,8 @@ def sharded_path(device, seed: int, ctx: dict) -> list:
     entry("sfc_join_hits_rows", lambda: [launch(p_, b) for p_, b in zip(hprogs, hj.bufs)],
           lambda: [p_.plain(p_, b) for p_, b in zip(hprogs, hj.bufs)], None,
           cand * (2 * DJ3 + 3), 4 * (buf_rows * DJ3 + 4 * hr + hr * 128), 5, float(herr),
-          {"table_rows": hr, "pruned_rows": len(hj.pruned), "triangle_rows": len(tri), "buffer_rows": buf_rows})
+          {"table_rows": hr, "pruned_rows": len(hj.pruned), "triangle_rows": len(tri), "buffer_rows": buf_rows,
+           **join_walk(hprogs)})
     busy = tot > 0
     n_off, n_diag = int((busy & ~on_diag).sum()), int((busy & on_diag).sum())
     P = int(tot.sum())
@@ -2509,7 +2531,8 @@ def sharded_path(device, seed: int, ctx: dict) -> list:
           (n_off * 128 * 128 + n_diag * 128 * 127 / 2) * (2 * DJ3 + 3),
           4 * (buf_rows * DJ3 + 6 * hr + 2 * P), 5, 0.0,
           {"tiles_with_pairs": n_off + n_diag, "pairs": P, "p_pad": eprogs[0].params["p_pad"],
-           "differ_in_band": estats["differ_in_band"], "band_pairs": len(band_s), "band_tiles": len(band_tiles)})
+           "differ_in_band": estats["differ_in_band"], "band_pairs": len(band_s), "band_tiles": len(band_tiles),
+           **join_walk(eprogs)})
     log(f"sharded phase: {time.perf_counter() - t_phase:.1f} s")
     return rows
 
@@ -2800,9 +2823,11 @@ def main() -> int:
     from repro_torch.kernels.attention import tiled_kernel_info
     from repro_torch.kernels.kmeans import kmeans_kernel_info
     from repro_torch.kernels.matmul import simt_kernel_info
+    from repro_torch.kernels.simjoin import simjoin_kernel_info
 
     log("simt kernels: " + json.dumps(simt_kernel_info()))
     log("kmeans kernels: " + json.dumps(kmeans_kernel_info()))
+    log("simjoin kernels: " + json.dumps(simjoin_kernel_info()))
     log("flash tiled kernels: " + json.dumps(tiled_kernel_info()))
     rng = np.random.default_rng(args.seed)
     compare_kernels(rng, device)

@@ -49,6 +49,9 @@ class GpuProgram:
     * ``phases`` / ``columns`` — documentation of the schedule layout
       (phase names, column meanings); ``columns`` lets audits find the
       (i, j) projection without reading the kernel.
+    * ``launched`` — what the entry point reports of the program's last
+      launch where it picks the launch itself (the ε-join's passes: the
+      persistent grid and the kernel), for the record; empty otherwise.
 
     There are no block specs: a CUDA kernel computes its own offsets from
     the schedule row and the strides it is given.
@@ -62,6 +65,7 @@ class GpuProgram:
     params: Mapping[str, Any] = dataclasses.field(default_factory=dict)
     phases: tuple[str, ...] = ()
     columns: tuple[str, ...] = ()
+    launched: dict = dataclasses.field(default_factory=dict, init=False, compare=False, repr=False)
 
     def __post_init__(self):
         if self.grid is None:

@@ -46,14 +46,17 @@ SIGNATURES = {
     "sfc_kmeans_update": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     "sfc_kmeans_assign_tiles": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     "sfc_matmul3d": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    "sfc_join_hits": (_P, _I, _P, _I, _I, _F, _I, _P, _P, _P),
-    "sfc_join_emit": (_P, _I, _P, _I, _I, _F, _I, _P, _P),
+    # the join's passes: (D, panel, panel width, norms scratch, table,
+    # [hits_rows: table columns,] steps, bp, eps², n_valid, outputs, host
+    # int[2] the entry sets to its grid and kernel, stream)
+    "sfc_join_hits": (_I, _P, _I, _P, _P, _I, _I, _F, _I, _P, _P, _P, _P),
+    "sfc_join_emit": (_I, _P, _I, _P, _P, _I, _I, _F, _I, _P, _P, _P),
     # the sharded paths: lim is a device int32[2] (n_valid_local, k_valid)
     "sfc_kmeans_shard_assign": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     "sfc_kmeans_shard_update": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P),
     "sfc_kmeans_fold": (_P, _P, _I, _I, _I, _P, _P),
-    "sfc_join_hits_rows": (_P, _I, _P, _I, _I, _I, _F, _I, _P, _P),
-    "sfc_join_emit_halo": (_P, _I, _P, _I, _I, _F, _I, _P, _P),
+    "sfc_join_hits_rows": (_I, _P, _I, _P, _P, _I, _I, _I, _F, _I, _P, _P, _P),
+    "sfc_join_emit_halo": (_I, _P, _I, _P, _P, _I, _I, _F, _I, _P, _P, _P),
     # (o, a, b, table, steps, persistent CTAs, M, N, Kp, bm, bn, alpha, stream)
     "sfc_tile_update": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     # phased kernels: (matrix, [workspace,] table, table columns, column of
@@ -79,7 +82,7 @@ SIGNATURES = {
 # entry points that read a kernel's build attributes and launch nothing
 # (not counted): (which kernel, out int32[8]), read by kernel_info
 QUERIES = {"sfc_matmul_simt_info": (_I, _P), "sfc_flash_tiled_info": (_I, _P),
-           "sfc_kmeans_info": (_I, _P)}
+           "sfc_kmeans_info": (_I, _P), "sfc_simjoin_info": (_I, _P)}
 # the first five of a query's eight values (csrc/kernel_info.cuh); the
 # last three are constants of the kernel's design
 INFO_KEYS = ("registers", "spill_bytes", "ctas_per_sm", "smem_bytes", "threads")

@@ -45,7 +45,7 @@ __device__ __forceinline__ void minplus_update(float* O, int ldo, const LA& la, 
   float acc[8][8];
   // every global read of A and B (one of which may be O itself) ends
   // before tile_product's last barrier, so the writes below are safe
-  tile_product<false, MinPlus>(acc, la, lb, b, As, Bs, nullptr);
+  tile_product<MinPlus>(acc, la, lb, b, As, Bs);
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
 #pragma unroll

@@ -1,9 +1,11 @@
 // A kernel's build and residency on the current card, for the record:
 // the body of the query entry points (matmul.cu: sfc_matmul_simt_info,
-// attention.cu: sfc_flash_tiled_info, kmeans.cu: sfc_kmeans_info), which
-// launch nothing.  Read by kernels/_build.py::kernel_info.  Also the
-// once-per-device raise of a kernel's dynamic shared-memory limit that
-// the launches of matmul.cu, attention.cu and kmeans.cu share.
+// attention.cu: sfc_flash_tiled_info, kmeans.cu: sfc_kmeans_info,
+// simjoin.cu: sfc_simjoin_info), which launch nothing.  Read by
+// kernels/_build.py::kernel_info.  Also the once-per-device raise of a
+// kernel's dynamic shared-memory limit that the launches of matmul.cu,
+// attention.cu, kmeans.cu and simjoin.cu share, and the once-per-device
+// count of resident CTAs that sizes the join's persistent grid.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -29,6 +31,33 @@ cudaError_t raise_smem_limit(int bytes) {
     attr[dev] = cudaFuncSetAttribute(Kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   });
   return attr[dev];
+}
+
+// the CTAs of kernel Kern resident at once on the current device: SMs x
+// CTAs an SM at `threads` threads and `bytes` of dynamic shared memory
+// (its limit raised first), asked once per device; a persistent launch's
+// largest grid
+template <auto Kern>
+cudaError_t resident_ctas(int threads, int bytes, int* out) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  static std::once_flag once[MAX_DEVICES];
+  static cudaError_t res[MAX_DEVICES];
+  static int ctas[MAX_DEVICES];
+  std::call_once(once[dev], [dev, threads, bytes] {
+    int per_sm = 0, sms = 0;
+    res[dev] = raise_smem_limit<Kern>(bytes);
+    if (res[dev] == cudaSuccess)
+      res[dev] = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kern, threads, bytes);
+    if (res[dev] == cudaSuccess)
+      res[dev] = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (res[dev] == cudaSuccess && per_sm * sms < 1) res[dev] = cudaErrorLaunchOutOfResources;
+    ctas[dev] = per_sm * sms;
+  });
+  *out = ctas[dev];
+  return res[dev];
 }
 
 // out[0..7] = registers a thread, local (spill) bytes a thread, resident

@@ -190,10 +190,10 @@ struct Argmin {
   float* __restrict__ min_out;
   int* __restrict__ arg_out;
   static constexpr bool PREFETCH = false;
-  __device__ void prefetch(int, int, int, int) const {}
+  __device__ void prefetch(int, int, int, int, int) const {}
   __device__ __forceinline__ void store(const float (&acc)[simt::TM][simt::TN], int row0, int rows,
                                         int col0, int /* cols: l < bw covers them */, int fr,
-                                        int fc) const {
+                                        int fc, int) const {
     using namespace simt;
     // the running pair of each (row, column half) of a sub-tile's rows
     __shared__ float run_v[WARPS_N * TILE];

@@ -1,29 +1,29 @@
-// Shared 128x128 SIMT tile product for the curve-scheduled kernels.
+// 128x128 SIMT tile product, now used only through phased.cuh: the
+// Floyd-Warshall kernels' (min, +) product (floyd_warshall.cu, rows
+// 12-16), and its thread-tile layout by the Cholesky trailing kernel
+// (cholesky.cu).  The matmuls, the k-means assign and the e-join's passes
+// run simt_gemm.cuh's cp.async ring.
 //
-// One CTA of 256 threads computes a 128x128 f32 tile of A . B over a K
+// One CTA of 256 threads computes a 128x128 f32 tile of A (x) B over a K
 // loop, staging 16-deep chunks of both operands through shared memory
 // and prefetching the next chunk into registers while the current one is
 // multiplied.  Thread (tx, ty) = (tid % 16, tid / 16) owns rows
 // {4ty..4ty+3, 64+4ty..64+4ty+3} and columns {4tx..4tx+3, 64+4tx..64+4tx+3}
 // of the tile, so its shared-memory reads are float4-wide and
-// conflict-free.  Every product is an explicit __fmaf_rn accumulated in
-// k order, so two kernels that call this on the same operands get the
-// same bits (the e-join's two passes rely on that).
+// conflict-free.
 //
 // Operands are read through small loader structs:
-//   RowLoader<T>: element (r, k) at p[r * ld + k]  (A of a GEMM, or the
-//                 rows of a point / centroid matrix for x . c^T)
-//   KLoader<T>:   element (k, c) at p[k * ld + c]  (B of a GEMM)
+//   RowLoader<T>: element (r, k) at p[r * ld + k]  (A)
+//   KLoader<T>:   element (k, c) at p[k * ld + c]  (B)
 // Both fill outside (rows, K) with their `fill` member, so ragged tiles
 // need no special case.  The fill must be the semiring's neutral element:
-// 0 for the ordinary product (the default), +inf for the (min, +) product,
-// where a zero-filled depth would offer the candidate 0 + 0 = 0 to every
-// output (blocks that are not multiples of BK = 16, e.g. b = 88, reach
-// past the tile edge).
+// +inf for the (min, +) product, where a zero-filled depth would offer the
+// candidate 0 + 0 = 0 to every output (blocks that are not multiples of
+// BK = 16, e.g. b = 88, reach past the tile edge).
 //
-// tile_product is a template over its semiring: PlusTimes (acc += a * b
-// with __fmaf_rn, from 0) or MinPlus (acc = min(acc, a + b) with
-// __fadd_rn, from +inf, the shortest-path product of Floyd-Warshall).
+// tile_product is a template over its semiring: MinPlus (acc = min(acc,
+// a + b) with __fadd_rn, from +inf, the shortest-path product of
+// Floyd-Warshall).
 #pragma once
 
 #include <cstddef>
@@ -96,13 +96,6 @@ struct KLoader {
   }
 };
 
-struct PlusTimes {  // acc = sum_k a * b, each term an explicit FMA
-  static __device__ __forceinline__ float zero() { return 0.f; }
-  static __device__ __forceinline__ float fold(float acc, float a, float b) {
-    return __fmaf_rn(a, b, acc);
-  }
-};
-
 struct MinPlus {  // acc = min_k (a + b): the (min, +) product
   static __device__ __forceinline__ float zero() { return __int_as_float(0x7f800000); }
   static __device__ __forceinline__ float fold(float acc, float a, float b) {
@@ -111,18 +104,17 @@ struct MinPlus {  // acc = min_k (a + b): the (min, +) product
 };
 
 // acc[i][j] = Ring::fold over k ascending of A(tile_row(i), k) and
-// B(k, tile_col(j)), continuing from the caller's acc: a CTA that walks
-// several depth ranges in its own order (sfc_matmul3d's k tiles) calls
-// this once per range on one accumulator.  With WithNorms, threads
-// 0..127 also return the squared norm of A-row t in *norm and threads
-// 128..255 that of B-column t-128 (both summed in k order with
-// __fmaf_rn).  As/Bs: BK*TILE floats of shared memory each.
-template <bool WithNorms, typename Ring = PlusTimes, typename LA, typename LB>
-__device__ __forceinline__ void tile_accumulate(float (&acc)[8][8], const LA& la, const LB& lb,
-                                                int K, float* As, float* Bs, float* norm) {
+// B(k, tile_col(j)), from the ring's zero.  As/Bs: BK*TILE floats of
+// shared memory each.
+template <typename Ring, typename LA, typename LB>
+__device__ __forceinline__ void tile_product(float (&acc)[8][8], const LA& la, const LB& lb,
+                                             int K, float* As, float* Bs) {
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
-  float nacc = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = Ring::zero();
   float ra[8], rb[8];
   la.load(ra, 0);
   lb.load(rb, 0);
@@ -134,14 +126,6 @@ __device__ __forceinline__ void tile_accumulate(float (&acc)[8][8], const LA& la
     if (k0 + BK < K) {
       la.load(ra, k0 + BK);
       lb.load(rb, k0 + BK);
-    }
-    if (WithNorms) {
-      const float* src = threadIdx.x < TILE ? As + threadIdx.x : Bs + (threadIdx.x - TILE);
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        const float v = src[kk * TILE];
-        nacc = __fmaf_rn(v, v, nacc);
-      }
     }
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
@@ -157,20 +141,6 @@ __device__ __forceinline__ void tile_accumulate(float (&acc)[8][8], const LA& la
         for (int j = 0; j < 8; ++j) acc[i][j] = Ring::fold(acc[i][j], a[i], b[j]);
     }
   }
-  if (WithNorms) *norm = nacc;
-}
-
-// acc[i][j] = sum_k A(tile_row(i), k) * B(k, tile_col(j)), k ascending
-// (Ring::fold in place of the multiply-add for another semiring), from
-// the ring's zero.
-template <bool WithNorms, typename Ring = PlusTimes, typename LA, typename LB>
-__device__ __forceinline__ void tile_product(float (&acc)[8][8], const LA& la, const LB& lb,
-                                             int K, float* As, float* Bs, float* norm) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = Ring::zero();
-  tile_accumulate<WithNorms, Ring>(acc, la, lb, K, As, Bs, norm);
 }
 
 }  // namespace sfc

@@ -118,6 +118,15 @@ def _per_shard(mesh: AppMesh, table: np.ndarray, rows: int) -> list:
     return [t[s * rows:(s + 1) * rows].to(d) for s, d in enumerate(mesh.devices)]
 
 
+def _busy_per_shard(mesh: AppMesh, table: np.ndarray, rows: int) -> list:
+    """Pass 2's tables: rows [s*rows, (s+1)*rows) of a host emission table
+    whose last column is the row's pair total, only the rows with pairs
+    (the kernel walks nothing else), as int32 on shard s's device."""
+    parts = [table[s * rows:(s + 1) * rows] for s in range(mesh.size)]
+    return [torch.as_tensor(np.ascontiguousarray(t[t[:, -1] > 0], dtype=np.int32)).to(d)
+            for t, d in zip(parts, mesh.devices)]
+
+
 def _gather(parts: list, device) -> torch.Tensor:
     """The host-side gather of ``P(axis)`` outputs: concatenated on one
     device (no collective)."""
@@ -511,7 +520,7 @@ def _join_replicated(mesh, x, xp, eps, *, bp, pt, n_valid, tri, sorted_keys):
     out = [
         launch(simjoin_emit_program(t, eps=eps, bp=bp, npad=npad, cap=cap, p_pad=p_pad,
                                     n_valid=n_valid), b)
-        for t, b in zip(_per_shard(mesh, table, per), mesh.broadcast(xp))
+        for t, b in zip(_busy_per_shard(mesh, table, per), mesh.broadcast(xp))
     ]
     return _gather([o[:int(n)] for o, n in zip(out, shard_tot)], x.device)
 
@@ -569,8 +578,9 @@ class _HaloJoin:
 
     def emission(self, tot: np.ndarray) -> tuple[list, torch.Tensor]:
         """Pass 2 from per-row pair totals (``pruned`` order): the
-        ``sfc_join_emit_halo`` programs over int32[per_h, 6] ``(i_slot,
-        j_slot, i, j, offset, total)`` tables with shard-local offsets, and
+        ``sfc_join_emit_halo`` programs over int32 ``(i_slot, j_slot, i, j,
+        offset, total)`` tables of each shard's rows with pairs, offsets
+        local to the shard, and
         the index that takes the concatenated (num * p_pad, 2) outputs to
         the pairs in global order."""
         num, per_h, bp = self.mesh.size, self.per_h, self.bp
@@ -588,7 +598,7 @@ class _HaloJoin:
             table[s * per_h:s * per_h + len(r), 4] = loff
             table[s * per_h:s * per_h + len(r), 5] = rt
         progs = [simjoin_emit_halo_program(t, **self.args, cap=cap, p_pad=p_pad)
-                 for t in _per_shard(self.mesh, table, per_h)]
+                 for t in _busy_per_shard(self.mesh, table, per_h)]
         # gather back into the GLOBAL pruned-row order — which equals the
         # full triangle order because pruned rows are provably pair-free
         nz = tot > 0

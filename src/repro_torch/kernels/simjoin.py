@@ -7,18 +7,20 @@ Hilbert order.  :func:`repro_torch.kernels.kmeans.hilbert_point_order`
 can pre-sort the points so ε-neighbours concentrate near the tile-grid
 diagonal (``hilbert_order=True`` in ops.py).
 
-Two passes, one hit predicate (``hit_tile`` in ``csrc/simjoin.cu``,
-shared by both kernels so counts and emitted pairs can never disagree):
+Two passes, one hit predicate (``Threshold::hits`` in ``csrc/simjoin.cu``,
+one kernel for all four entry points, so counts and emitted pairs can
+never disagree):
 
 * ``sfc_join_hits`` (:func:`simjoin_tile_hits_swizzled`) — per schedule
-  row, the tile's row and column hit counts, each written once by its
-  own CTA; ``simjoin_counts`` scatter-adds them onto the point axis, and
-  their row sums are the per-tile totals that drive pair emission.
+  row, the tile's row and column hit counts, each written once;
+  ``simjoin_counts`` scatter-adds them onto the point axis, and their row
+  sums are the per-tile totals that drive pair emission.
 * ``sfc_join_emit`` (:func:`simjoin_emit_swizzled`) — given per-tile
-  exclusive offsets (host prefix sum of pass-1 totals), each CTA
-  recomputes its hit tile and writes its pairs at ``offset + rank``,
-  ranked by an in-CTA prefix sum in row-major in-tile order.  The output
-  order is schedule order, then row-major — the JAX package's order.
+  exclusive offsets (host prefix sum of pass-1 totals), each tile's hits
+  are recomputed and its pairs written at ``offset + rank``, ranked in
+  row-major in-tile order.  The output order is schedule order, then
+  row-major — the JAX package's order.  The host step
+  (:func:`emission_table`) keeps only the tiles that hold a pair.
 
 The sharded join (:mod:`repro_torch.kernels.sharded`) adds two more
 programs on the same hit predicate: ``sfc_join_hits_rows``
@@ -28,12 +30,20 @@ their slot in a shard's resident + halo buffer and masks by global tile
 id) and ``sfc_join_emit_halo`` (:func:`simjoin_emit_halo_program`,
 emission over the 6-column halo table at shard-local offsets).
 
+On the card every pass is one launch of persistent CTAs (as many as
+are resident at once, never more than table rows; the C entry point
+picks the grid and the kernel and reports both in the program's
+``launched`` record), CTA ``b`` walking table rows ``b, b + grid, ...``
+on ``csrc/simt_gemm.cuh``'s ``cp.async`` ring, with x as a K × N panel
+(:func:`join_panel`) and |x|² computed once a call from the panel by the
+same FMA chain as the products (:func:`norm_chain` is its plain twin).
+
 A diagonal tile counts each unordered pair once via a strict i > j mask;
 an off-diagonal (i_tile > j_tile) tile contributes row sums to the i
 side and column sums to the j side, and emits (global_i, global_j) with
 global_i > global_j always.
 
-The kernels take ``bp <= 128``, one 128x128 tile per CTA.  The pairs
+The kernels take ``bp <= 128``, one 128x128 tile per walk step.  The pairs
 entry points default to the JAX package's ``bp = 256``: a join asked
 for at ``bp > 128`` runs at 128-tiles, and :func:`pairs_in_tile_order`
 puts its pairs into the order the ``bp``-tile join emits them (one
@@ -41,17 +51,25 @@ device sort), so the output is the JAX package's, order included.
 """
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
 from repro_torch.core import triangle_schedule_device
 from repro_torch.core.program import GpuProgram
 
-from ._build import call, stream_of
+from ._build import call, kernel_info, stream_of
 from .launch import cta_chunks, launch, require, shuffled_ctas
+from .matmul import _simt_b
 
-# the CUDA join kernels hold one whole tile per 128x128 CTA
+# the CUDA join kernel multiplies one tile pair per 128x128 walk step
 MAX_JOIN_BLOCK = 128
+# the join kernel of each pass, as the info query numbers them (then the
+# same three in 8-deep stages), and the design constants it reports:
+# simt_gemm.cuh's thread-tile columns, the stage depth and the ring's stages
+JOIN_KERNELS = ("sfc_join_hits", "sfc_join_hits_rows", "sfc_join_emit")
+JOIN_DESIGN = ("tn", "stage_depth", "stages")
 
 
 def eps_squared(eps: float) -> float:
@@ -104,7 +122,8 @@ def pairs_in_tile_order(pairs: torch.Tensor, *, n: int, bp: int, curve) -> torch
 
 def _hit_tiles(x, ti, tj, *, bp: int, eps2: float, n_valid: int, load=None) -> torch.Tensor:
     """Boolean (B, bp, bp) hit masks of tile pairs (ti[b], tj[b]) — the
-    plain version of the kernels' ``hit_tile``, with ``_hit_tile``'s
+    plain version of ``Threshold::hits`` in ``csrc/simjoin.cu``, with the
+    JAX package's ``_hit_tile``'s
     operation order: (|xi|² − 2 xi·xj) + |xj|².  ``load`` = (li, lj)
     names the tiles of ``x`` that hold the points when they are not the
     global ids (a shard's resident + halo buffer)."""
@@ -124,6 +143,74 @@ def _hit_tiles(x, ti, tj, *, bp: int, eps2: float, n_valid: int, load=None) -> t
     gi = ti[:, None, None] * bp + ii
     gj = tj[:, None, None] * bp + jj
     return hit & (gi < n_valid) & (gj < n_valid)
+
+
+def join_panel(x: torch.Tensor, bp: int) -> tuple[torch.Tensor, int]:
+    """The join kernel's operand: the (D, slots · bpad) transpose of ``x``
+    (slots · bp, D) in tiles of ``bp`` points, each zero-padded to
+    ``bpad``, the next multiple of 4 columns (the kernel skips the
+    padding), 16-byte aligned, and ``bpad``.  The kernel copies its rows
+    into shared memory 16 bytes at a time, as both operands."""
+    return _simt_b(x.t().contiguous(), bp)
+
+
+def norm_chain(x: torch.Tensor) -> torch.Tensor:
+    """|x_r|² in f32 as the join kernel computes it: one fused
+    multiply-add chain from 0, k ascending, each step rounded once —
+    the plain twin of ``join_norms_kernel`` (:func:`_join_call` returns
+    the kernel's norms).  Each step is exact in
+    float64 (the square is), rounded to odd, then to f32: the one
+    rounding of an f32 FMA."""
+    xd = x.double()
+    acc = torch.zeros(x.shape[0], dtype=torch.float64, device=x.device)
+    for k in range(x.shape[1]):
+        sq = xd[:, k] * xd[:, k]
+        s = acc + sq
+        bb = s - acc
+        err = (acc - (s - bb)) + (sq - bb)  # s + err == acc + sq exactly
+        bits = s.view(torch.int64)
+        even = (bits & 1) == 0
+        toward = torch.where(err > 0, torch.full_like(s, float("inf")), torch.full_like(s, -float("inf")))
+        s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+        acc = s.float().double()
+    return acc.float()
+
+
+def simjoin_kernel_info(which: int | None = None) -> dict:
+    """The join kernels' build and residency on the current card
+    (:func:`._build.kernel_info`): registers, spill, resident CTAs an SM,
+    the ring's shared memory, and (TN, stage depth, stages).  Kernel
+    ``which`` (a program's ``launched["kernel"]``), or all six by name:
+    each pass in 16-deep stages, then in 8-deep ones."""
+    if which is not None:
+        return kernel_info("sfc_simjoin_info", which, JOIN_DESIGN)
+    infos = [kernel_info("sfc_simjoin_info", w, JOIN_DESIGN) for w in range(2 * len(JOIN_KERNELS))]
+    return {f"{JOIN_KERNELS[w % len(JOIN_KERNELS)]} depth {info['stage_depth']}": info
+            for w, info in enumerate(infos)}
+
+
+def _join_call(program: GpuProgram, x: torch.Tensor, *outs) -> torch.Tensor | None:
+    """Launch ``program``'s join pass over ``x``, with the panel and the
+    norms' scratch built here; the entry point picks the persistent grid
+    and the kernel, recorded in ``program.launched`` as ``grid`` and
+    ``kernel`` (the info query's number).  Returns the norms the launch
+    computed (None for an empty table: no launch)."""
+    _check_join_operands(program, x)
+    p = program.params
+    if program.steps == 0:
+        return None
+    panel, _bpad = join_panel(x, p["bp"])
+    norms = torch.empty(panel.shape[1], dtype=torch.float32, device=x.device)
+    table = program.schedule
+    cols = (table.shape[1],) if program.name == "sfc_join_hits_rows" else ()
+    launched = (ctypes.c_int * 2)()
+    call(
+        program.name, x.shape[1], panel.data_ptr(), panel.shape[1], norms.data_ptr(),
+        table.data_ptr(), *cols, program.steps, p["bp"], p["eps2"], p["n_valid"], *outs,
+        ctypes.addressof(launched), stream_of(x),
+    )
+    program.launched.update(grid=launched[0], kernel=launched[1])
+    return norms
 
 
 def _join_params(eps: float, bp: int, n_valid: int | None, npad: int) -> dict:
@@ -146,17 +233,10 @@ def _check_join_operands(program: GpuProgram, x: torch.Tensor) -> None:
 # ---------------------------------------------------------------------------
 
 def _hits_cuda(program: GpuProgram, x: torch.Tensor):
-    _check_join_operands(program, x)
-    p = program.params
-    bp = p["bp"]
+    bp = program.params["bp"]
     rows = torch.empty((program.steps, bp), dtype=torch.int32, device=x.device)
     cols = torch.empty((program.steps, bp), dtype=torch.int32, device=x.device)
-    if program.steps:
-        call(
-            "sfc_join_hits", x.data_ptr(), x.shape[1], program.schedule.data_ptr(),
-            *program.grid, bp, p["eps2"], p["n_valid"], rows.data_ptr(),
-            cols.data_ptr(), stream_of(x),
-        )
+    _join_call(program, x, rows.data_ptr(), cols.data_ptr())
     return rows, cols
 
 
@@ -240,15 +320,8 @@ def simjoin_counts_swizzled(
 # ---------------------------------------------------------------------------
 
 def _emit_cuda(program: GpuProgram, x: torch.Tensor):
-    _check_join_operands(program, x)
-    p = program.params
-    out = torch.full((p["p_pad"], 2), -1, dtype=torch.int32, device=x.device)
-    if program.steps:
-        call(
-            "sfc_join_emit", x.data_ptr(), x.shape[1], program.schedule.data_ptr(),
-            *program.grid, p["bp"], p["eps2"], p["n_valid"], out.data_ptr(),
-            stream_of(x),
-        )
+    out = torch.full((program.params["p_pad"], 2), -1, dtype=torch.int32, device=x.device)
+    _join_call(program, x, out.data_ptr())
     return out
 
 
@@ -329,15 +402,8 @@ def simjoin_emit_swizzled(
 # ---------------------------------------------------------------------------
 
 def _hits_rows_cuda(program: GpuProgram, x: torch.Tensor):
-    _check_join_operands(program, x)
-    p = program.params
-    rows = torch.empty((program.steps, p["bp"]), dtype=torch.int32, device=x.device)
-    if program.steps:
-        call(
-            "sfc_join_hits_rows", x.data_ptr(), x.shape[1], program.schedule.data_ptr(),
-            program.schedule.shape[1], *program.grid, p["bp"], p["eps2"], p["n_valid"],
-            rows.data_ptr(), stream_of(x),
-        )
+    rows = torch.empty((program.steps, program.params["bp"]), dtype=torch.int32, device=x.device)
+    _join_call(program, x, rows.data_ptr())
     return rows
 
 
@@ -380,18 +446,6 @@ def simjoin_hits_rows_program(
     )
 
 
-def _emit_halo_cuda(program: GpuProgram, x: torch.Tensor):
-    _check_join_operands(program, x)
-    p = program.params
-    out = torch.full((p["p_pad"], 2), -1, dtype=torch.int32, device=x.device)
-    if program.steps:
-        call(
-            "sfc_join_emit_halo", x.data_ptr(), x.shape[1], program.schedule.data_ptr(),
-            *program.grid, p["bp"], p["eps2"], p["n_valid"], out.data_ptr(), stream_of(x),
-        )
-    return out
-
-
 def simjoin_emit_halo_program(
     table: torch.Tensor, *, eps: float, bp: int, npad: int, cap: int, p_pad: int,
     n_valid: int | None,
@@ -404,7 +458,7 @@ def simjoin_emit_halo_program(
     return GpuProgram(
         name="sfc_join_emit_halo",
         schedule=table,
-        launcher=_emit_halo_cuda,
+        launcher=_emit_cuda,
         plain=_emit_plain,
         params={**_join_params(eps, bp, n_valid, npad), "cap": int(cap), "p_pad": int(p_pad)},
         columns=("i_slot", "j_slot", "i", "j", "offset", "total"),
@@ -417,22 +471,26 @@ def emission_table(
     """The host step between the two passes: pass-1 row counts →
     ``(table, P, cap, p_pad)``.
 
-    The per-tile totals are copied to the host, where their exclusive
-    prefix sum gives the offsets, ``P`` the pair total, ``cap`` the
-    per-tile window (max total rounded up to 8, never past bp²) and
-    ``p_pad`` the padded buffer length — the JAX package's arithmetic,
-    unchanged.  ``table`` is the int32[steps, 4] ``(i_tile, j_tile,
-    offset, total)`` emission table on ``tri``'s device.
+    The per-tile totals' exclusive prefix sum gives the offsets, ``P``
+    the pair total, ``cap`` the per-tile window (max total rounded up to
+    8, never past bp²) and ``p_pad`` the padded buffer length — the JAX
+    package's arithmetic, unchanged.  ``table`` is the int32[busy, 4]
+    ``(i_tile, j_tile, offset, total)`` emission table of the rows of
+    ``tri`` whose total is not 0, in ``tri``'s order: pass 2 walks only
+    the tiles that hold a pair, and writes the same buffer as over every
+    row.  The totals, offsets and table are made on ``row_hits``' device;
+    only P and the largest total come to the host.
     """
     bp = row_hits.shape[1]
-    tot = row_hits.sum(dim=1).cpu().numpy().astype(np.int64)
-    P = int(tot.sum())
+    tot = row_hits.sum(dim=1)  # int64
+    P, top = (int(v) for v in torch.stack([tot.sum(), tot.max()]).tolist()) if len(tot) else (0, 0)
     check_pair_offsets(P, bp)
-    cap = min(max(8, -(-int(tot.max(initial=0)) // 8) * 8), bp * bp)
-    offs = np.concatenate([[0], np.cumsum(tot)[:-1]])
+    cap = min(max(8, -(-top // 8) * 8), bp * bp)
+    offs = torch.cumsum(tot, dim=0) - tot
     p_pad = -(-(P + cap) // 8) * 8
-    off_tot = torch.as_tensor(np.column_stack([offs, tot]).astype(np.int32), device=tri.device)
-    return torch.cat([tri.to(torch.int32), off_tot], dim=1), P, cap, p_pad
+    table = torch.cat([tri.to(device=tot.device, dtype=torch.int32),
+                       torch.stack([offs, tot], dim=1).to(torch.int32)], dim=1)
+    return table[tot > 0], P, cap, p_pad
 
 
 def simjoin_pairs_scheduled(
@@ -449,8 +507,9 @@ def simjoin_pairs_scheduled(
 
     ``schedule`` is any int32[steps, 2] set of (i_tile >= j_tile) pairs,
     a host array or a tensor (ops.py passes the cached device table).
-    Pass-1 totals are copied to the host and turned into the emission
-    table by :func:`emission_table`, then pass 2 writes the pairs.
+    Pass-1 totals are turned into the emission table by
+    :func:`emission_table` (P and the largest total copied to the host),
+    then pass 2 writes the pairs.
     ``xp``: (Np, D) with Np % bp == 0 (callers pad; ``n_valid`` is the
     true row count when padding exists).
     """
