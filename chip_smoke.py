@@ -11,8 +11,11 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    CTAs an SM of the SIMT core's kernels (the f32 matmuls and
    ``sfc_tile_update``), of row 20's register-tiled f32 core and of the
    k-means update (D = 128 and 960, and the shard update), fold and
-   assign (the one kernel of the three assign entries), and of the
-   ε-join's kernel of each pass (16-deep stages, and 8-deep for D <= 8).
+   assign (the one kernel of the three assign entries), of the ε-join's
+   kernel of each pass (16-deep stages, and 8-deep for D <= 8), and of
+   Floyd–Warshall's diagonal closure and panel kernel (with the panels'
+   widest grid, table rows × strips, as the launcher records it over the
+   panel launches of the main path's two calls' shapes).
 2. Hold each kernel against its plain PyTorch version on the same CUDA
    inputs, at a small ragged and a mid-size shape (the k-means update up
    to D = 960, its column-chunked grid, and its group partials through
@@ -80,7 +83,9 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    the panels of k = 0 and k = 32 of the 8192 call, as the fused program
    leaves them; ``sfc_matmul3d`` in bf16 with bf16 and f32 outputs; the
    join passes (rows 8–11) with their persistent CTAs, ring and
-   registers.
+   registers; Floyd–Warshall's diagonal and panels with their device time
+   (torch.profiler) beside the event time, the panels with their strips
+   and CTAs a launch.
 6. Run the main path's calls once more, warm, under ``torch.profiler``:
    wall time, kernel (device) time and the device's busy share per call,
    and one warm tick of each streaming service.
@@ -562,9 +567,11 @@ PANEL_TOL = 1e-5
 
 
 def compare_phased(rng, device) -> None:
-    """Floyd–Warshall, Cholesky (fused and per-k programs, b = 8, 88, 128)
-    and sfc_tile_update against their plain versions on the card; the two
-    entry points at n = 1000 (padded) against the same call on the CPU."""
+    """Floyd–Warshall, Cholesky (fused and per-k programs, b = 8, 24, 40,
+    88, 120, 128: the FW panels' strips end inside the tile at 88, 120 and
+    128) and sfc_tile_update against their plain versions on the card; the
+    two entry points at n = 1000 (padded) against the same call on the
+    CPU."""
     import torch
     from repro_torch.core import triangle_schedule_device
     from repro_torch.kernels import launch, ops
@@ -582,7 +589,7 @@ def compare_phased(rng, device) -> None:
                                           f"(max diff {max_diff(got, want)})")
     log("compare sfc_chol_diag b=8, 88, 128 (3 tiles each): array_equal to the plain _chol_tile")
 
-    for n, b in [(64, 8), (528, 88), (1024, 128)]:
+    for n, b in [(64, 8), (96, 24), (200, 40), (528, 88), (480, 120), (1024, 128)]:
         d = fw_graph(rng, n, device, integer=False)
         outs = []
         for build in (fw_program, fw_reference_program):
@@ -2560,6 +2567,31 @@ def only_phase(prog, phase: int):
     return dataclasses.replace(prog, params={**prog.params, "groups": groups})
 
 
+def fw_panel_grids(device) -> dict:
+    """The widest grid (table rows, strips) that each FW panel entry was
+    launched with at the main path's two calls' blocks, as the launcher
+    records it (``program.launched``): the panel launches of one call each,
+    on a scratch matrix (the grid does not depend on the values)."""
+    import torch
+    from repro_torch.kernels import launch, ops
+    from repro_torch.kernels.floyd_warshall import fw_program
+
+    grids = {}
+    for n in FW:
+        b, npad = ops._block_and_pad(n, 128, mult=8)
+        prog = fw_program("hilbert", npad // b, b, device=device)
+        work = torch.full((npad, npad), float("inf"), device=device)
+        for phase in (1, 2):
+            sub = only_phase(prog, phase)
+            launch(sub, work)
+            for name, (rows, strips) in sub.launched.items():
+                grids[f"n={n} b={b} {name}"] = {"rows": rows, "strips": strips,
+                                                "ctas": rows * strips}
+        del work
+    torch.cuda.synchronize()
+    return grids
+
+
 def time_phased(entry, device, fw_d, fw_dr, ch_a, ch_ar, ch) -> None:
     """Phase 5 of the Floyd–Warshall and Cholesky kernels at the main path's
     shapes (n = 8192, b = 128, hilbert): the whole fused program against
@@ -2607,7 +2639,14 @@ def time_phased(entry, device, fw_d, fw_dr, ch_a, ch_ar, ch) -> None:
             nbytes = sum(2 * (hi - lo) + 2 * (nt - 1) for _p, _k, lo, hi in groups) * tile_bytes
         else:  # diag: tile in, tile + workspace out; panels: tiles + workspace
             nbytes = sum(2 * (hi - lo) + 1 for _p, _k, lo, hi in groups) * tile_bytes
-        extra = {"bound_one_sm_ms": 1e3 * ops_ / (per_sm / 2)} if phase == 0 else None
+        # beside the event time, the device time of the launches (their
+        # host enqueue is ~10 µs each)
+        extra = {"device_ms": sum(kernel_ms(lambda: launch(sub, work), 3).values())}
+        if phase == 0:
+            extra["bound_one_sm_ms"] = 1e3 * ops_ / (per_sm / 2)
+        if phase in (1, 2):  # a CTA a (table row, strip): the widest grid launched
+            rows_, extra["strips"] = sub.launched[name]
+            extra["ctas_per_launch"] = rows_ * extra["strips"]
         entry(name, lambda: launch(sub, work), lambda: sub.plain(sub, work), None, ops_, FP32_PEAK / 2,
               nbytes, 3, fw_err, extra)
     del work
@@ -2821,6 +2860,7 @@ def main() -> int:
         if "registers" in line or "spill" in line.lower() or line.startswith("=="):
             log("  " + line.strip())
     from repro_torch.kernels.attention import tiled_kernel_info
+    from repro_torch.kernels.floyd_warshall import fw_kernel_info
     from repro_torch.kernels.kmeans import kmeans_kernel_info
     from repro_torch.kernels.matmul import simt_kernel_info
     from repro_torch.kernels.simjoin import simjoin_kernel_info
@@ -2829,6 +2869,8 @@ def main() -> int:
     log("kmeans kernels: " + json.dumps(kmeans_kernel_info()))
     log("simjoin kernels: " + json.dumps(simjoin_kernel_info()))
     log("flash tiled kernels: " + json.dumps(tiled_kernel_info()))
+    log("fw kernels: " + json.dumps(fw_kernel_info()))
+    log("fw panel grid: " + json.dumps(fw_panel_grids(device)))
     rng = np.random.default_rng(args.seed)
     compare_kernels(rng, device)
     compare_phased(np.random.default_rng(args.seed + 1), device)

@@ -60,10 +60,11 @@ SIGNATURES = {
     # (o, a, b, table, steps, persistent CTAs, M, N, Kp, bm, bn, alpha, stream)
     "sfc_tile_update": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     # phased kernels: (matrix, [workspace,] table, table columns, column of
-    # i, first row, CTAs, k, n, b, stream)
+    # i, first row, CTAs (table rows), [FW panels: strips a tile,] k, n, b,
+    # stream)
     "sfc_fw_diag": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "sfc_fw_row": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "sfc_fw_col": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "sfc_fw_row": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "sfc_fw_col": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "sfc_fw_trailing": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "sfc_chol_diag": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "sfc_chol_panel": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
@@ -82,7 +83,7 @@ SIGNATURES = {
 # entry points that read a kernel's build attributes and launch nothing
 # (not counted): (which kernel, out int32[8]), read by kernel_info
 QUERIES = {"sfc_matmul_simt_info": (_I, _P), "sfc_flash_tiled_info": (_I, _P),
-           "sfc_kmeans_info": (_I, _P), "sfc_simjoin_info": (_I, _P)}
+           "sfc_kmeans_info": (_I, _P), "sfc_simjoin_info": (_I, _P), "sfc_fw_info": (_I, _P)}
 # the first five of a query's eight values (csrc/kernel_info.cuh); the
 # last three are constants of the kernel's design
 INFO_KEYS = ("registers", "spill_bytes", "ctas_per_sm", "smem_bytes", "threads")

@@ -1,8 +1,9 @@
 // 128x128 SIMT tile product, now used only through phased.cuh: the
-// Floyd-Warshall kernels' (min, +) product (floyd_warshall.cu, rows
-// 12-16), and its thread-tile layout by the Cholesky trailing kernel
-// (cholesky.cu).  The matmuls, the k-means assign and the e-join's passes
-// run simt_gemm.cuh's cp.async ring.
+// Floyd-Warshall trailing kernel's (min, +) product (floyd_warshall.cu,
+// row 16), and its thread-tile layout (tile_row, tile_col) by the
+// Floyd-Warshall diagonal closure and the Cholesky trailing kernel
+// (cholesky.cu).  The Floyd-Warshall panels, the matmuls, the k-means
+// assign and the e-join's passes stage their operands by cp.async.
 //
 // One CTA of 256 threads computes a 128x128 f32 tile of A (x) B over a K
 // loop, staging 16-deep chunks of both operands through shared memory

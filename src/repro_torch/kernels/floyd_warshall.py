@@ -16,7 +16,12 @@ classic three phases of blocked FW, per k-block:
 concurrently, so each ``(k, phase)`` barrier group
 (:func:`repro_torch.core.phase_groups`) is one launch, one CTA per table
 row: 4 launches per k-block (``csrc/floyd_warshall.cu``: ``sfc_fw_diag``,
-``sfc_fw_row``, ``sfc_fw_col``, ``sfc_fw_trailing``).
+``sfc_fw_row``, ``sfc_fw_col``, ``sfc_fw_trailing``).  The two panel
+launches also split each tile into :func:`panel_strips`, a CTA a (table
+row, strip): the row panel's strips are columns of its tiles, the column
+panel's rows, so a launch of 64 tiles at b = 128 is 128 CTAs.  The strip
+width is the kernel's own (``sfc_fw_info``), and the launcher records
+each panel entry's widest grid in ``program.launched``.
 :func:`fw_reference_program` (the per-k form, the counterpart of the JAX
 package's per-k host loop) launches the same four kernels with its own
 per-k tables, built the way the JAX reference builds them, so the two
@@ -47,13 +52,41 @@ from repro_torch.core import FW_PHASES, phase_groups, phased_schedule_device, ti
 from repro_torch.core.program import GpuProgram
 from repro_torch.core.schedule import _curve_name, _device_key, register_schedule_cache
 
-from ._build import call, stream_of
+from ._build import call, kernel_info, stream_of
 from .launch import cta_chunks, launch, shuffled_ctas
 from .phased import check_square, per_k_table, phased_program, require_matrix
 
 _CHUNK = 8
 # the C entry point of each phase id (FW_PHASES order)
 ENTRY_POINTS = ("sfc_fw_diag", "sfc_fw_row", "sfc_fw_col", "sfc_fw_trailing")
+# the kernels of sfc_fw_info (csrc/floyd_warshall.cu), and their design
+# constants: the tile's (diagonal) or a strip's width, outputs a thread
+# in rows and in columns
+INFO_KERNELS = ("sfc_fw_diag", "sfc_fw_row", "sfc_fw_col")
+INFO_DESIGN = ("strip", "thread_rows", "thread_cols")
+
+
+def panel_strips(b: int, strip: int) -> tuple[tuple[int, int], ...]:
+    """The ``(first, width)`` strips of a b x b panel tile, one CTA each in
+    the row panel (columns) and the column panel (rows): ``strip`` wide,
+    the last one ragged (b = 88, strip = 64: 64, 24)."""
+    return tuple((s, min(strip, b - s)) for s in range(0, b, strip))
+
+
+@functools.cache
+def panel_strip() -> int:
+    """A panel CTA's strip width: ``STRIP`` of ``csrc/floyd_warshall.cu``,
+    read from the built library (needs the card)."""
+    return kernel_info("sfc_fw_info", INFO_KERNELS.index("sfc_fw_row"), INFO_DESIGN)["strip"]
+
+
+def fw_kernel_info() -> dict:
+    """The diagonal closure's and the panel kernels' build and residency on
+    the current card at b = 128 (:func:`._build.kernel_info`), by entry
+    point: registers, spill, resident CTAs an SM, shared memory, threads
+    and ``INFO_DESIGN``."""
+    return {name: kernel_info("sfc_fw_info", which, INFO_DESIGN)
+            for which, name in enumerate(INFO_KERNELS)}
 
 
 def _minplus(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -81,11 +114,18 @@ def _fw_cuda(program: GpuProgram, d: torch.Tensor) -> torch.Tensor:
     ws = torch.empty((b, b), dtype=torch.float32, device=d.device)
     sched = program.schedule
     stream = stream_of(d)
+    strips = len(panel_strips(b, panel_strip()))
+    program.launched.clear()
     for phase, k, lo, hi in p["groups"]:
+        # the panels' grid is (table rows) x strips
+        grid = (hi - lo, strips) if phase in (1, 2) else (hi - lo,)
         call(
             ENTRY_POINTS[phase], d.data_ptr(), ws.data_ptr(), sched.data_ptr(), sched.shape[1],
-            p["col_i"], lo, hi - lo, k, n, b, stream,
+            p["col_i"], lo, *grid, k, n, b, stream,
         )
+        if phase in (1, 2):  # each panel entry's widest grid, for the record
+            name = ENTRY_POINTS[phase]
+            program.launched[name] = max(program.launched.get(name, grid), grid)
     return d
 
 
