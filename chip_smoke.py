@@ -9,7 +9,8 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    CUDA kernel of the port from ``src/repro_torch/kernels/csrc`` into
    ``build/repro_torch/``, and print the registers, spills and resident
    CTAs an SM of the SIMT core's kernels (the f32 matmuls and
-   ``sfc_tile_update``), of row 20's register-tiled f32 core and of the
+   ``sfc_tile_update``), of the register-tiled f32 core's kernels (rows
+   20 and 22) and of the
    k-means update (D = 128 and 960, and the shard update), fold and
    assign (the one kernel of the three assign entries), of the ε-join's
    kernel of each pass (16-deep stages, and 8-deep for D <= 8), and of
@@ -92,7 +93,9 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
 7. LM serving (``serving_path``), TinyLlama-1.1B at full width with
    seeded random weights: (a) the three flash kernels against their plain
    versions at the serving shapes, f32 and bf16 (the bf16 prefill on
-   its tensor-core core, the f32 one on SIMT); (b) with the launch
+   its tensor-core core, the f32 one on the register-tiled core, and in
+   both the prefill at half the query heads, ps g = 64, on the SIMT
+   core); (b) with the launch
    counts reset, the bf16 ``ServeEngine`` (paged, flash, compiled
    prefill, prefix sharing, Hilbert page layout; 8 slots, max_len 2048)
    serves 32 requests (prompts of 64-1024 tokens, every other one behind
@@ -103,7 +106,9 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    core (and its wall time again, warm); prints
    tokens/s, time to first token, tick p99, pages and the busy share of
    a warm decode tick; (c) the f32 gate: 8 requests served on f32
-   weights, each served token equal to the dense forward's argmax outside
+   weights, every ``sfc_flash_prefill`` launch of its admissions on the
+   register-tiled core (counted, with the admissions' wall time), each
+   served token equal to the dense forward's argmax outside
    the top-2 margin band, the flash decode step allclose to the page
    gather, and the f32 ``forward`` of 1 x 2048 tokens with
    ``use_hilbert_kernels`` (its 22 ``sfc_flash_attention`` launches all on
@@ -262,6 +267,7 @@ ATTN_ROW20 = (2, 32, 2048)  # B, H, S of the full-sequence forward
 # 3.8), so about two ulps at the outputs' scale
 ATTN_TOL = {"float32": dict(rtol=1e-4, atol=1e-4), "bfloat16": dict(rtol=8e-3, atol=4e-3)}
 SERVING_KERNELS = ("sfc_flash_attention", "sfc_flash_decode", "sfc_flash_prefill")
+PREFILL_CORES = ("sfc_flash_prefill.wgmma", "sfc_flash_prefill.tiled", "sfc_flash_prefill.simt")
 # the sharded phase: shards of its meshes, all on the one card
 SHARDS = 4
 SHARDED_KERNELS = ("sfc_kmeans_shard_assign", "sfc_kmeans_shard_update", "sfc_kmeans_fold",
@@ -1819,9 +1825,10 @@ def flash_programs(device, dec, pre, att):
 def compare_attention(rng, device) -> dict:
     """Each flash kernel against its plain version on the card at the
     serving shapes, in f32 and bf16 (the bf16 prefill on its tensor-core
-    core, the f32 one on SIMT; row 20 in bf16 on the tensor cores, in f32
-    on the register-tiled core, and in both on the SIMT core at q and kv
-    tiles of 64 rows); returns the largest errors."""
+    core, the f32 one on the register-tiled core, and in both on the SIMT
+    core at half the query heads; row 20 in bf16 on the tensor cores, in
+    f32 on the register-tiled core, and in both on the SIMT core at q and
+    kv tiles of 64 rows); returns the largest errors."""
     import torch
     from repro_torch.kernels import LAUNCHES, launch
     from repro_torch.kernels import attention as katt
@@ -1837,13 +1844,29 @@ def compare_attention(rng, device) -> dict:
         errs[("sfc_flash_decode", dtype)] = attn_err(got, want, tol, f"sfc_flash_decode {dtype}")
         before = LAUNCHES.cores()
         got = launch(p_pre, *pre[:5])
-        core = "wgmma" if dtype == torch.bfloat16 else "simt"
+        core = "wgmma" if dtype == torch.bfloat16 else "tiled"
         check(LAUNCHES.cores()[f"sfc_flash_prefill.{core}"] == before[f"sfc_flash_prefill.{core}"] + 1,
               f"sfc_flash_prefill {dtype}: not launched on its {core} core")
         want = p_pre.plain(p_pre, *pre[:5])
         torch.cuda.synchronize()
         rows = prefill_covered(pre[5], pre[2].shape[1], SERVE_PAGE, device)
-        errs[("sfc_flash_prefill", dtype)] = attn_err(got[rows], want[rows], tol, f"sfc_flash_prefill {dtype}")
+        e_pre = attn_err(got[rows], want[rows], tol, f"sfc_flash_prefill {dtype}")
+        # a shape outside both prefill rules runs flash_rows (the "simt"
+        # core): the same cohort with half of each kv head's query heads,
+        # ps g = 64 rows a CTA
+        g_half = pre[2].shape[3] // 2
+        q_half = pre[2][:, :, :, :g_half].contiguous()
+        p_half = katt.flash_prefill_program(katt.PageSchedule(p_pre.schedule, p_pre.params["runs"]), q_half,
+                                            page_size=SERVE_PAGE, sm_scale=p_pre.params["sm_scale"])
+        before = LAUNCHES.cores()
+        got = launch(p_half, pre[0], pre[1], q_half, pre[3], pre[4])
+        check(LAUNCHES.cores()["sfc_flash_prefill.simt"] == before["sfc_flash_prefill.simt"] + 1,
+              f"sfc_flash_prefill g={g_half} {dtype}: not launched on its simt core")
+        want = p_half.plain(p_half, pre[0], pre[1], q_half, pre[3], pre[4])
+        torch.cuda.synchronize()
+        errs[("sfc_flash_prefill", dtype)] = e_pre
+        errs[("sfc_flash_prefill.simt_half", dtype)] = attn_err(got[rows], want[rows], tol,
+                                                                 f"sfc_flash_prefill simt g={g_half} {dtype}")
         q, k, v, seqlen = att
         before = LAUNCHES.cores()
         got = launch(p_att, q, k, v)
@@ -1874,11 +1897,33 @@ def compare_attention(rng, device) -> dict:
         log(f"compare flash {str(dtype)[6:]} (rtol {tol['rtol']}, atol {tol['atol']}): decode B={B} Hkv={hkv} "
             f"g={g} D={d} ps={SERVE_PAGE} MP={dec[0].shape[1]} pos={dec[1].tolist()} max_abs_err="
             f"{errs[('sfc_flash_decode', dtype)]:.3e}; prefill Tq={pre[2].shape[1]} n_new={pre[5].tolist()} "
-            f"pos0={pre[1].tolist()} max_abs_err={errs[('sfc_flash_prefill', dtype)]:.3e}; attention "
+            f"pos0={pre[1].tolist()} max_abs_err={errs[('sfc_flash_prefill', dtype)]:.3e}, simt core at "
+            f"g={pre[2].shape[3] // 2} max_abs_err={errs[('sfc_flash_prefill.simt_half', dtype)]:.3e}; attention "
             f"BH={q.shape[0]} S={q.shape[1]} causal max_abs_err={e1:.3e}, with kv_seqlen {e2:.3e}, "
             f"simt core (bq = bkv = 64) with kv_seqlen {e3:.3e}")
         del dec, pre, att, got, want
     return errs
+
+
+def launch_order_ab(p_pre, args, rows) -> dict:
+    """A prefill launch with its CTAs longest first (the port's launch
+    order, ``katt.longest_first``) against the same runs in table order (a
+    permutation of the runs at launch; each run writes its own rows, so
+    the covered rows are equal), timed in turns: table, longest, longest,
+    table."""
+    import torch
+    from repro_torch.kernels import launch
+    from repro_torch.kernels import attention as katt
+
+    runs = p_pre.params["runs"]
+    table_order = runs[torch.argsort(runs[:, 0])].contiguous()
+    check(bool((runs[1:, 1] <= runs[:-1, 1]).all()), "prefill runs are not launched longest first")
+    p_tab = katt.flash_prefill_program(katt.PageSchedule(p_pre.schedule, table_order), args[2],
+                                       page_size=args[3].shape[1], sm_scale=p_pre.params["sm_scale"])
+    check(torch.equal(launch(p_pre, *args)[rows], launch(p_tab, *args)[rows]),
+          "prefill launched in table order: output differs")
+    t = [cuda_ms(lambda p=p: launch(p, *args), 10) for p in (p_tab, p_pre, p_pre, p_tab)]
+    return {"table_order_ms": [t[0], t[3]], "longest_first_ms": [t[1], t[2]]}
 
 
 def attn_err(got, want, tol, what: str) -> float:
@@ -1915,25 +1960,35 @@ def serve_engine(cfg, params):
                        prefix_sharing=True, page_layout="hilbert", stats_capacity=8192)
 
 
+def time_prefill(engine) -> dict:
+    """Time the engine's admissions (its compiled prefill), synchronised:
+    the returned dict accumulates their seconds, new tokens and calls
+    until ``engine._prefill_compiled = d["inner"]`` restores the engine."""
+    import torch
+
+    prefill = {"s": 0.0, "tokens": 0, "calls": 0, "inner": engine._prefill_compiled}
+
+    def timed_prefill(slots):
+        n = sum(len(engine.slot_req[s].prompt) - 1 - int(engine.pos[s]) for s in slots)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        prefill["inner"](slots)
+        torch.cuda.synchronize()
+        prefill["s"] += time.perf_counter() - t
+        prefill["tokens"] += n
+        prefill["calls"] += 1
+
+    engine._prefill_compiled = timed_prefill
+    return prefill
+
+
 def drive_engine(engine, requests) -> tuple[list, dict]:
     """Submit every request at once and tick until all are served.
     Prefill (admission) and decode are timed apart (synchronised), and
     each request's time to first token from its submission."""
     import torch
 
-    prefill = {"s": 0.0, "tokens": 0}
-    inner = engine._prefill_compiled
-
-    def timed_prefill(slots):
-        n = sum(len(engine.slot_req[s].prompt) - 1 - int(engine.pos[s]) for s in slots)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        inner(slots)
-        torch.cuda.synchronize()
-        prefill["s"] += time.perf_counter() - t
-        prefill["tokens"] += n
-
-    engine._prefill_compiled = timed_prefill
+    prefill = time_prefill(engine)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     reqs = [engine.submit(p, max_new=m) for p, m in requests]
@@ -1948,7 +2003,7 @@ def drive_engine(engine, requests) -> tuple[list, dict]:
                 ttft[r.rid] = now - t0
         check(ticks < 100_000, "the engine does not finish")
     wall = time.perf_counter() - t0
-    engine._prefill_compiled = inner
+    engine._prefill_compiled = prefill["inner"]
     decode_tokens = sum(len(r.out) for r in reqs)
     decode_s = wall - prefill["s"]
     t = np.array(sorted(ttft.values()))
@@ -2039,13 +2094,12 @@ def serving_path(rng, device, seed: int) -> list:
         check(len(r.out) == r.max_new and all(0 <= t < cfg.vocab_size for t in r.out), f"rid {r.rid}: output")
     check(metrics["pages_shared"] > 0, "prefix sharing never engaged")
     metrics["launches"] = {k: serve_launches[k] for k in SERVING_KERNELS}
-    metrics["prefill_cores"] = {k: serve_cores[k] for k in ("sfc_flash_prefill.wgmma", "sfc_flash_prefill.simt")}
+    metrics["prefill_cores"] = {k: serve_cores[k] for k in PREFILL_CORES}
     log("serving: " + json.dumps(metrics))
     for name in ("sfc_flash_decode", "sfc_flash_prefill"):
         check(serve_launches[name] > 0, f"{name} was not launched by the serving run")
     # bf16 at Dk = Dv = 64, pages of 16, g = 8: every prefill on the tensor-core core
-    check(serve_cores["sfc_flash_prefill.wgmma"] == serve_launches["sfc_flash_prefill"]
-          and serve_cores["sfc_flash_prefill.simt"] == 0,
+    check(serve_cores["sfc_flash_prefill.wgmma"] == serve_launches["sfc_flash_prefill"],
           f"serving: sfc_flash_prefill cores {metrics['prefill_cores']}, expected every launch on wgmma")
     cfg_hk = dc.replace(cfg, use_hilbert_kernels=True)
     toks = rng.integers(0, cfg.vocab_size, size=(ATTN_ROW20[0], ATTN_ROW20[2])).astype(np.int32)
@@ -2087,6 +2141,10 @@ def serving_path(rng, device, seed: int) -> list:
     cfg32 = _serve_cfg(dtype="float32")
     params32 = init_params(seed + 1, cfg32, device=device)
     engine = serve_engine(cfg32, params32)
+    # every f32 admission through sfc_flash_prefill on the register-tiled
+    # core (Dk = Dv = 64, pages of 16, g = 8), counted and timed apart
+    gate_prefill = time_prefill(engine)
+    LAUNCHES.reset()
     # two cohorts, so the second one shares the first one's prefix pages
     half = GATE_REQUESTS // 2
     gate_reqs = [engine.submit(p, max_new=m) for p, m in requests[:half]]
@@ -2098,8 +2156,17 @@ def serving_path(rng, device, seed: int) -> list:
         if snap is None and engine.active.all():
             snap = (engine.next_token.copy(), engine.pos.copy(), engine.active.copy(),
                     engine.kv_pages.page_table.copy(), {k: v.clone() for k, v in engine.cache["blocks"].items()})
+    engine._prefill_compiled = gate_prefill["inner"]
+    gate_launches, gate_cores = LAUNCHES.counts()["sfc_flash_prefill"], LAUNCHES.cores()
+    check(gate_launches > 0 and gate_cores["sfc_flash_prefill.tiled"] == gate_launches,
+          f"f32 gate: sfc_flash_prefill launches {gate_launches}, cores "
+          f"{ {k: gate_cores[k] for k in PREFILL_CORES} }, expected every launch on tiled")
     gate = replay_gate(cfg32, params32, gate_reqs)
     gate["pages_shared"], gate["pages_cow"] = engine.kv_pages.stat_shared, engine.kv_pages.stat_cow
+    gate["prefill"] = {"sfc_flash_prefill_launches": gate_launches,
+                       "cores": {k: gate_cores[k] for k in PREFILL_CORES},
+                       "admissions": gate_prefill["calls"], "tokens": gate_prefill["tokens"],
+                       "wall_s": gate_prefill["s"]}
     check(snap is not None, "f32 gate: the engine never ran every slot at once")
     nt, pos, act, pt, pools = snap
     outs = {}
@@ -2212,6 +2279,7 @@ def serving_path(rng, device, seed: int) -> list:
 
     pt2, pos0, q2, kp2, vp2, n_new = pre
     T = q2.shape[1]
+    rows_pre = prefill_covered(n_new, T, ps, device)
     positions = pos0.long()[:, None] + torch.arange(T, device=device)[None]
     need = torch.arange(T, device=device)[None] < torch.as_tensor(n_new, device=device)[:, None]
     pref_ops = 4.0 * g * hkv * d * float(((positions + 1) * need).sum())
@@ -2229,20 +2297,25 @@ def serving_path(rng, device, seed: int) -> list:
         qq = q2.reshape(B, T, hkv * g, d).transpose(1, 2)
         return F.scaled_dot_product_attention(qq, kk, vv, attn_mask=pmask, enable_gqa=True)
 
-    # f32 on the SIMT core: the same cohort, bound by the FP32 pipes
+    # f32 on the register-tiled core: the same cohort, bound by the FP32
+    # pipes; its launches are the f32 gate's
     pre32 = (pt2, pos0, q2.float(), kp2.float(), vp2.float())
     pf_bound, pf_by = bound_ms(pref_ops, FP32_PEAK, 2 * pref_bytes)
-    pf32 = {"core": "simt", "ms": cuda_ms(lambda: launch(p_pre, *pre32), 10),
+    pf32 = {"core": "tiled", "launches": gate["prefill"]["sfc_flash_prefill_launches"],
+            "launch_order": launch_order_ab(p_pre, pre32, rows_pre),
+            "ms": cuda_ms(lambda: launch(p_pre, *pre32), 10),
             "plain_ms": cuda_ms(lambda: p_pre.plain(p_pre, *pre32), 1, warmup=0),
             "library_ms": cuda_ms(lambda: sdpa_prefill(*pre32[2:]), 10),
             "bound_ms": pf_bound, "bound_by": pf_by,
-            "max_abs_err": errs[("sfc_flash_prefill", torch.float32)]}
+            "max_abs_err": errs[("sfc_flash_prefill", torch.float32)],
+            "simt_half_max_abs_err": errs[("sfc_flash_prefill.simt_half", torch.float32)]}
     del pre32
     row("sfc_flash_prefill", lambda: launch(p_pre, *pre[:5]), lambda: p_pre.plain(p_pre, *pre[:5]), sdpa_prefill,
         pref_ops, pref_bytes, errs[("sfc_flash_prefill", torch.bfloat16)],
         {"shape": {"B": B, "Tq": T, "n_new": [int(n) for n in n_new], "pos0": pos0.tolist(), "Hkv": hkv,
-                   "g": g, "D": d, "page_size": ps},
-         "ctas": int(p_pre.grid[0] * p_pre.grid[1]), "rows_per_cta": ps * g, "core": "wgmma", "f32": pf32})
+                   "g": g, "D": d, "page_size": ps}, "launch_order": launch_order_ab(p_pre, pre[:5], rows_pre),
+         "ctas": int(p_pre.grid[0] * p_pre.grid[1]), "rows_per_cta": ps * g, "core": "wgmma",
+         "simt_half_max_abs_err": errs[("sfc_flash_prefill.simt_half", torch.bfloat16)], "f32": pf32})
 
     qa, ka, va, _seqlen = att
     BH, S, d = qa.shape

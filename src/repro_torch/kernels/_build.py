@@ -71,7 +71,7 @@ SIGNATURES = {
     "sfc_chol_trailing": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # flash kernels: (q, k, v, out, [decode: workspace,] table, runs, runs,
     # heads, ...shape, [decode: split pages, splits,] scale, dtype, [prefill:
-    # 1 for the tensor-core core, 0 for SIMT,] stream)
+    # the core's code, kernels/attention.py::PREFILL_CORE_CODE,] stream)
     "sfc_flash_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _F, _I, _P),
     "sfc_flash_decode": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                          _I, _P),
@@ -83,7 +83,8 @@ SIGNATURES = {
 # entry points that read a kernel's build attributes and launch nothing
 # (not counted): (which kernel, out int32[8]), read by kernel_info
 QUERIES = {"sfc_matmul_simt_info": (_I, _P), "sfc_flash_tiled_info": (_I, _P),
-           "sfc_kmeans_info": (_I, _P), "sfc_simjoin_info": (_I, _P), "sfc_fw_info": (_I, _P)}
+           "sfc_prefill_tiled_info": (_I, _P), "sfc_kmeans_info": (_I, _P),
+           "sfc_simjoin_info": (_I, _P), "sfc_fw_info": (_I, _P)}
 # the first five of a query's eight values (csrc/kernel_info.cuh); the
 # last three are constants of the kernel's design
 INFO_KEYS = ("registers", "spill_bytes", "ctas_per_sm", "smem_bytes", "threads")
@@ -91,13 +92,14 @@ INFO_KEYS = ("registers", "spill_bytes", "ctas_per_sm", "smem_bytes", "threads")
 
 # the entry points that dispatch to more than one kernel, and their cores:
 # bf16 on the tensor cores (TMA + wgmma), f32 (and the shapes the tensor-core
-# core does not take) on the SIMT kernels; sfc_flash_attention's f32 at the
-# tensor-core core's shapes on the register-tiled SIMT core ("tiled")
+# core does not take) on the SIMT kernels; the flash entries' f32 at the
+# tensor-core core's shapes (prefill: pages of 4 to 64 rows) on the
+# register-tiled SIMT core ("tiled")
 CORES = {
     "sfc_matmul": ("wgmma", "simt"),
     "sfc_matmul3d": ("wgmma", "simt"),
     "sfc_flash_attention": ("wgmma", "tiled", "simt"),
-    "sfc_flash_prefill": ("wgmma", "simt"),
+    "sfc_flash_prefill": ("wgmma", "tiled", "simt"),
 }
 
 

@@ -36,16 +36,23 @@ multiple of 4) and at most 256 query rows per CTA (``bq`` for
 ``sfc_flash_attention``, ``g`` for decode, ``page_size * g`` for prefill).
 The plain versions take any shape.
 
-``sfc_flash_attention`` and ``sfc_flash_prefill`` have more than one
-core each, picked by dtype and shape (:func:`flash_core`,
-:func:`prefill_core`): bf16 runs on the tensor cores (TMA + ``wgmma``, P
-rounded to bf16 for P·V) at D = 64 or 128 with 128 query rows a CTA (bq
-= 128 and bkv a multiple of 64; for prefill Dk = Dv, page_size · g = 128
-and whole pages of 8 to 64 rows a 64-row half); ``sfc_flash_attention``
-in f32 at those shapes runs the register-tiled SIMT core (``"tiled"``:
-all 128 rows in one pass, K/V stages of 64 rows through a ``cp.async``
-ring, 8 × 4 score tiles a thread); every other shape runs the SIMT f32
-core (``flash_rows``).
+``sfc_flash_attention`` and ``sfc_flash_prefill`` have three cores each,
+picked by dtype and shape (:func:`flash_core`, :func:`prefill_core`):
+
+* ``"wgmma"``: bf16 on the tensor cores (TMA + ``wgmma``, P rounded to
+  bf16 for P·V) at D = 64 or 128 with 128 query rows a CTA (bq = 128 and
+  bkv a multiple of 64; for prefill Dk = Dv, page_size · g = 128 and
+  whole pages of 8 to 64 rows a 64-row half);
+* ``"tiled"``: f32 at those shapes on the register-tiled SIMT core (all
+  128 rows in one pass, K/V stages of 64 rows through a ``cp.async``
+  ring, 8 × 4 score tiles a thread); for prefill whole pages of 4 to 64
+  rows, a multiple of 4, a stage, looked up through the page table a
+  stage at a time;
+* ``"simt"``: every other shape on the SIMT f32 core (``flash_rows``).
+
+The f32 serving path runs ``"tiled"`` prefill: every admission of an f32
+``ServeEngine`` (``prefill="compiled"``) at TinyLlama's shapes.  A
+prefill launch takes its runs longest first (:func:`longest_first`).
 """
 from __future__ import annotations
 
@@ -79,8 +86,13 @@ DECODE_ROWS = 8
 DECODE_SPLIT_ROWS = 128
 # sfc_flash_prefill's tensor-core core (csrc/attention.cu refuses it
 # beyond prefill_tensor_core_shape): whole pages of at least 8 rows a
-# 64-row half
+# 64-row half; its register-tiled core (prefill_tiled_shape): whole pages
+# of at least 4 rows, a multiple of 4, a 64-row stage
 WGMMA_PAGE_MIN = 8
+TILED_PAGE_MIN = 4
+# the core codes of sfc_flash_prefill's C entry (csrc/attention.cu:
+# PrefillCore)
+PREFILL_CORE_CODE = {"simt": 0, "wgmma": 1, "tiled": 2}
 
 __all__ = [
     "DEFAULT_MASK_VALUE",
@@ -95,6 +107,7 @@ __all__ = [
     "flash_attention_prefill",
     "flash_attention_swizzled",
     "full_schedule",
+    "longest_first",
     "prefill_core",
     "prefill_page_schedule",
     "prefill_page_schedule_device",
@@ -219,8 +232,8 @@ def schedule_runs(table: np.ndarray, first_col: int, last_col: int,
 
 class PageSchedule(NamedTuple):
     """A flash schedule on a device: the JAX layout's ``table`` and the
-    ``runs`` a launch takes from it (:func:`schedule_runs`).  Cached: do
-    not mutate."""
+    ``runs`` a launch takes from it (:func:`schedule_runs`), in launch
+    order.  Cached: do not mutate."""
 
     table: torch.Tensor
     runs: torch.Tensor
@@ -281,13 +294,23 @@ def decode_page_schedule_device(
                                      str(torch.device(device)))
 
 
+def longest_first(runs: np.ndarray) -> np.ndarray:
+    """The runs of a schedule in launch order, the longest first (ties in
+    table order): a permutation of the CTAs, each of which writes its own
+    rows.  A prefill cohort's runs grow with each lane's q tile (1 to
+    max_pages pages); launched in table order, the last wave holds the
+    last lane's longest runs, and longest first shortens that tail."""
+    runs = np.asarray(runs)
+    return runs[np.argsort(-runs[:, 1], kind="stable")]
+
+
 @register_schedule_cache
 @functools.lru_cache(maxsize=128)
 def _prefill_page_schedule_dev(
     pos0: tuple, n_new: tuple, page_size: int, max_pages: int, bq: int, device: str,
 ) -> PageSchedule:
     sched = prefill_page_schedule(pos0, n_new, page_size, max_pages, bq)
-    return _upload(sched, schedule_runs(sched, 3, 4, valid_col=5), device)
+    return _upload(sched, longest_first(schedule_runs(sched, 3, 4, valid_col=5)), device)
 
 
 def prefill_page_schedule_device(
@@ -295,7 +318,7 @@ def prefill_page_schedule_device(
     device="cuda",
 ) -> PageSchedule:
     """:func:`prefill_page_schedule` on ``device`` (LRU per cohort shape
-    and device)."""
+    and device), its runs launched :func:`longest_first`."""
     bq = page_size if bq is None else bq
     return _prefill_page_schedule_dev(
         tuple(int(p) for p in pos0), tuple(int(n) for n in n_new),
@@ -389,10 +412,13 @@ def flash_core(dtype: torch.dtype, D: int, bq: int, bkv: int) -> str:
 
 def tiled_kernel_info() -> dict:
     """The register-tiled f32 core's build and residency on the current
-    card, at D = 64 and 128 (:func:`._build.kernel_info`), with the core's
-    D, kv rows a stage and stages."""
-    return {f"sfc_flash_attention.tiled D={d}":
-            kernel_info("sfc_flash_tiled_info", d, ("d", "kv_stage", "stages")) for d in (64, 128)}
+    card, row 20's kernel and row 22's, at D = 64 and 128
+    (:func:`._build.kernel_info`), with the core's D, kv rows a stage and
+    stages."""
+    return {f"{name}.tiled D={d}": kernel_info(query, d, ("d", "kv_stage", "stages"))
+            for name, query in (("sfc_flash_attention", "sfc_flash_tiled_info"),
+                                ("sfc_flash_prefill", "sfc_prefill_tiled_info"))
+            for d in (64, 128)}
 
 
 def _aligned16(*tensors):
@@ -712,17 +738,22 @@ def flash_attention_decode(
 # ---------------------------------------------------------------------------
 
 def prefill_core(dtype: torch.dtype, dk: int, dv: int, ps: int, g: int) -> str:
-    """The core of ``sfc_flash_prefill`` that runs a launch: ``"wgmma"``
-    for bf16 with Dk = Dv in :data:`WGMMA_HEAD_DIMS`, a CTA's ``ps * g``
-    rows equal to :data:`WGMMA_BQ` and whole pages of at least
-    :data:`WGMMA_PAGE_MIN` rows in a 64-row half (each page's TMA box
-    starts a 128-byte swizzle atom); ``"simt"`` for f32 and every other
-    shape (stablelm's g = 1, for one).  The wrapper passes it to the C
-    entry, which launches that core or refuses the call (a wgmma call
-    outside ``csrc/attention.cu``'s ``prefill_tensor_core_shape``)."""
-    if (dtype == torch.bfloat16 and dk == dv and dk in WGMMA_HEAD_DIMS and ps * g == WGMMA_BQ
-            and ps >= WGMMA_PAGE_MIN and WGMMA_BKV_STEP % ps == 0):
-        return "wgmma"
+    """The core of ``sfc_flash_prefill`` that runs a launch.  At Dk = Dv
+    in :data:`WGMMA_HEAD_DIMS` with a CTA's ``ps * g`` rows equal to
+    :data:`WGMMA_BQ` and whole pages in a 64-row half or stage: ``"wgmma"``
+    for bf16 with pages of at least :data:`WGMMA_PAGE_MIN` rows (each
+    page's TMA box starts a 128-byte swizzle atom), ``"tiled"`` (the
+    register-tiled SIMT core) for f32 with pages of a multiple of
+    :data:`TILED_PAGE_MIN` rows (a thread's 4 kv columns in one page).
+    ``"simt"`` (``flash_rows``) for every other shape (stablelm's g = 1,
+    Dk != Dv, D = 96, for some).  The wrapper passes it to the C entry,
+    which launches that core or refuses the call (``csrc/attention.cu``'s
+    ``prefill_tensor_core_shape`` and ``prefill_tiled_shape``)."""
+    if (dk == dv and dk in WGMMA_HEAD_DIMS and ps * g == WGMMA_BQ and WGMMA_BKV_STEP % ps == 0):
+        if dtype == torch.bfloat16 and ps >= WGMMA_PAGE_MIN:
+            return "wgmma"
+        if dtype == torch.float32 and ps % TILED_PAGE_MIN == 0:
+            return "tiled"
     return "simt"
 
 
@@ -741,7 +772,7 @@ def _prefill_cuda(program: GpuProgram, page_table, pos0, q, k_pages, v_pages):
     require(program, p["runs"], "runs", dtypes=(torch.int32,))
     _check_kernel_shape(program, Dk, Dv, ps * g)
     core = prefill_core(q.dtype, Dk, Dv, ps, g)
-    if core == "wgmma":
+    if core != "simt":
         q, k_pages, v_pages = _aligned16(q, k_pages, v_pages)
     # rows that no run covers stay unwritten, as on the TPU
     o = torch.empty((B, Tq, Hkv, g, Dv), dtype=q.dtype, device=q.device)
@@ -750,7 +781,7 @@ def _prefill_cuda(program: GpuProgram, page_table, pos0, q, k_pages, v_pages):
             "sfc_flash_prefill", q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), o.data_ptr(),
             program.schedule.data_ptr(), p["runs"].data_ptr(), *program.grid,
             page_table.data_ptr(), pos0.data_ptr(), Tq, g, Dk, Dv, ps, MP, B, P, p["sm_scale"],
-            _DTYPE_CODE[q.dtype], int(core == "wgmma"), stream_of(q), core=core,
+            _DTYPE_CODE[q.dtype], PREFILL_CORE_CODE[core], stream_of(q), core=core,
         )
     return o
 
@@ -795,7 +826,8 @@ def _prefill_plain(program: GpuProgram, page_table, pos0, q, k_pages, v_pages):
 def flash_prefill_program(schedule: PageSchedule, q: torch.Tensor, *, page_size: int,
                           sm_scale: float) -> GpuProgram:
     """The ``sfc_flash_prefill`` declaration: one CTA per (run, kv head);
-    a run is one (slot, q tile) of ``page_size`` tokens."""
+    a run is one (slot, q tile) of ``page_size`` tokens, the runs in the
+    schedule's launch order."""
     Tq, Hkv = q.shape[1], q.shape[2]
     if Tq % page_size:
         raise ValueError(f"Tq={Tq} is not a multiple of the page size {page_size}")

@@ -20,7 +20,10 @@
 // a cohort's (B, Tq, Hkv, g, Dk) new tokens, causal over each slot's paged
 // prefix.  One CTA per (run, kv head); a run is one (slot, q tile of ps
 // tokens) and its rows are the ps * g (token, head) pairs of the tile.
-// Rows that no run covers stay unwritten, as on the TPU.
+// Rows that no run covers stay unwritten, as on the TPU.  The wrapper
+// launches the runs longest first (kernels/attention.py::longest_first):
+// a lane's runs grow with its q tiles, and in table order the launch's
+// last wave held the last lane's longest runs.
 //
 // The TPU grids run (heads, steps) in order and carry the online-softmax
 // state in VMEM from one table row to the next; here each run is a loop
@@ -34,9 +37,8 @@
 // query rows (2 flops per byte in bf16 at g = 8); prefill and the
 // full-sequence kernel do 2 * rows flops per K/V element read, well under
 // the ridge of the bf16 tensor cores.  The SIMT f32 core (flash_rows) runs
-// every f32 or odd-shaped prefill and every sfc_flash_attention that
-// neither the tensor-core core nor the register-tiled f32 core (below)
-// takes: a CTA of 8
+// every sfc_flash_attention and sfc_flash_prefill that neither the
+// tensor-core core nor the register-tiled f32 core (below) takes: a CTA of 8
 // warps stages 64 kv rows of K and V at a time in shared memory as f32
 // (the page-table or tile-table lookup done once per row by one thread),
 // each warp owns RW query rows held in shared memory, a lane owns one kv
@@ -99,6 +101,32 @@
 // FFMA share of the issued stage is ~0.72 (SASS: the S loop 288 of 340,
 // P·V 1,024 of 1,170; the softmax's 40 expf and the copies the rest) at
 // 167 registers and one CTA (8 warps) an SM.
+//
+// sfc_flash_prefill in f32 with Dk = Dv = 64 or 128, ps * g = 128 rows a
+// CTA and pages of 4 to 64 rows (a multiple of 4) runs the same core
+// (tiled_core, templated on the walk) on a paged cp.async producer
+// (prefill_tiled_kernel; kernels/attention.py::prefill_core picks the core
+// and the entry launches it or refuses the call).  At the serving cohort
+// (8 lanes, Tq 1024, 1,056 CTAs, TinyLlama's Hkv 4, g 8, D 64, pages of
+// 16) the bound is 0.613 ms of FP32 operations, and flash_rows took
+// 6.24-6.38 ms there (its three faults above, and its page lookups done a
+// row a thread behind a barrier).  The core is unchanged; what the pages
+// change is the producer: a stage is 64 / ps whole pages of one kv head,
+// ps rows Hkv D apart in the pool.  Warp 0 looks a stage's pages up
+// through the page table two stages ahead, a lane a page, and publishes
+// (logical page, physical page) and the stage's largest position in three
+// slots of shared memory, so each copy reads its page from shared memory
+// and the lookups' latency hides behind a stage of arithmetic; Q^T's rows
+// come through PrefillWalk::row (g heads of a token D apart, tokens Hkv g
+// D apart).  A thread's 4 kv columns lie in one page (ps % 4 == 0), so
+// their positions are lp ps + (4 c mod ps) + j; the slots of a stage past
+// the run's end re-read its last page and score -inf; a stage whose pages
+// are all live and at or before the CTA's first query position masks
+// nothing.  1.37-1.41 ms at that shape with the runs launched longest
+// first, 1.54-1.58 in table order in the same runs, against flash_rows'
+// 6.28-6.31 in the same call (gather + SDPA f32 10.4-10.6; NVIDIA H100
+// 80GB HBM3, 700.00 W; chip_smoke.py), at 168 registers (251 at D = 128,
+// no spill), one CTA an SM.
 //
 // sfc_flash_attention in bf16 at D = 64 or 128, bq = 128 and bkv a
 // multiple of 64 runs the tensor-core core instead (flash_wgmma_kernel;
@@ -477,8 +505,9 @@ int prefill_t(const void* q, const void* kp, const void* vp, void* o, const void
 }
 
 // ---------------------------------------------------------------------------
-// sfc_flash_attention in f32 at D = 64 or 128, bq = 128, bkv a multiple of
-// 64: the register-tiled SIMT core
+// the register-tiled SIMT core: sfc_flash_attention in f32 at D = 64 or
+// 128, bq = 128, bkv a multiple of 64; sfc_flash_prefill in f32 at Dk = Dv
+// = 64 or 128, ps * g = 128 rows a CTA and pages of 4 to 64 rows
 // ---------------------------------------------------------------------------
 
 namespace tiled {
@@ -489,11 +518,22 @@ using sfc::cp_async_commit;
 using sfc::cp_async_wait;
 
 constexpr int BQ = 128;       // query rows of a CTA, all in one pass
-constexpr int KV = 64;        // kv rows of a ring stage (a slice of one table tile)
+constexpr int KV = 64;        // kv rows of a ring stage
 constexpr int STAGES = 2;     // ring stages
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int LDQ = BQ + 4;   // Q^T's row stride, [d][row]
+constexpr unsigned FULL = 0xffffffffu;
+// prefill: a thread's 4 kv columns lie in one page (ps % 4 == 0), so a
+// stage holds at most KV / 4 pages.  A stage's page facts: its largest
+// position (INT_MAX unless every page is live), then each page's logical
+// page (-1 past the run's end) and physical page.  Three stages' facts are
+// kept: the masks read stage i's, the copies stage i + 1's, and warp 0
+// publishes stage i + 2's.
+constexpr int PAGE_MIN = 4;
+constexpr int MAX_PAGES = KV / PAGE_MIN;
+constexpr int FACTS = 1 + 2 * MAX_PAGES;
+constexpr int FACT_SLOTS = 3;
 
 // Shared memory at head width D, in floats: Q^T [d][row + pad] (copied
 // once), P [kv][row] (each warp's 16 rows), then the ring's stages of K^T
@@ -501,7 +541,8 @@ constexpr int LDQ = BQ + 4;   // Q^T's row stride, [d][row]
 // (chunk c of row x at c ^ (x & 7), x = d for K^T, kv / 4 for P), so
 // 4-byte copies into K^T and the float4 writes of P hit 32 banks and the
 // fragment reads stay conflict-free LDS.128s: 132,096 B at D = 64,
-// 231,424 B at D = 128, one CTA an SM.
+// 231,424 B at D = 128, one CTA an SM; prefill adds its page facts after
+// the ring (396 B).
 template <int D>
 struct Layout {
   static constexpr int Q_FLOATS = D * LDQ;
@@ -509,35 +550,168 @@ struct Layout {
   static constexpr int K_FLOATS = D * KV;
   static constexpr int STAGE_FLOATS = K_FLOATS + KV * D;
   static constexpr int SMEM = 4 * (Q_FLOATS + P_FLOATS + STAGES * STAGE_FLOATS);
+  static constexpr int PREFILL_SMEM = SMEM + 4 * FACT_SLOTS * FACTS;
 };
 
 __device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
 
-// One CTA per (run, bh): the 128 query rows of q tile qt, the run's kv
-// tiles in table order, KV rows a stage.  Warp w owns query rows 16 w ..
-// 16 w + 15; lane (h, c) = (lane / 16, lane % 16) owns rows rb .. rb + 7
-// (rb = 16 w + 8 h): scores of kv columns 4 c .. 4 c + 3 of each stage,
-// output columns 64 q + 4 c .. + 3.  Per stage: S = Q K^T on the 8 x 4
-// register tile (each score the fmaf chain over d ascending from 0, as
-// flash_rows'), the masks, the online softmax (a row's maximum by 4
-// shuffles among the 16 lanes that share it, its sum kept per thread
-// until the end), P into the warp's rows of shared memory, O += P V on
-// the 8 x D / 16 register tile.  The next K / V stage is copied while
-// this one is used.
+// Row 20's stages: KV consecutive positions of one table tile (bkv % KV ==
+// 0), rows D apart in K and V.
 template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
-flash_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, float* __restrict__ o, const int* __restrict__ sched,
-                   const int* __restrict__ runs, int S, int bkv, int causal, int kv_valid,
-                   const int* __restrict__ seqlen, float scale) {
+struct DenseStages {
+  static constexpr bool RAGGED = false;
+  DenseWalk w;
+  int n;
+
+  __device__ DenseStages(const int* sched, const int* runs, int S, int bkv, int causal,
+                         int kv_valid, const int* seqlen)
+      : w(sched, runs, S, D, BQ, bkv, causal, kv_valid, seqlen), n(w.nkv / KV) {}
+  __device__ void start() {}
+  __device__ void lookup(int) {}
+  __device__ void publish(int) {}
+
+  // the element offset of stage i's kv row x in K and V
+  struct Rows {
+    size_t base;
+    __device__ size_t operator()(int x) const { return base + (size_t)x * D; }
+  };
+  __device__ Rows rows(int i) const {
+    size_t ko, vo;
+    int pos;
+    w.kv(i * KV, ko, vo, pos);
+    return {ko};
+  }
+  // stage i's kv positions: column 4 c + j at pos + 4 c + j; the stage
+  // masks nothing when all lie below klim and (causal) at or before the
+  // CTA's first query row
+  struct Cols {
+    int pos;
+    bool all;
+    __device__ bool plain() const { return all; }
+    __device__ int col(int c) const { return pos + 4 * c; }
+  };
+  __device__ Cols cols(int i) const {
+    size_t ko, vo;
+    int pos;
+    w.kv(i * KV, ko, vo, pos);
+    return {pos, pos + KV - 1 < w.klim && pos + KV - 1 <= w.qlim(0)};
+  }
+};
+
+// Row 22's stages: KV / ps whole pages of kv head h, page t of the run in
+// table order at rows t ps .. t ps + ps - 1 of stage t / (KV / ps); a page
+// is ps rows Hkv D apart in the pool (P, ps, Hkv, D).  Warp 0 looks a
+// stage's pages up through the page table (PrefillWalk::page) two stages
+// ahead, lane t page t: the loads are issued after the copies of stage i +
+// 1 and published in shared memory after stage i's arithmetic, so their
+// latency hides behind it and the next CTA barrier orders the writes
+// before every reader (the slot rewritten was last read in stage i - 1).
+// The slots of pages past the run's end re-read its last page (V stays
+// finite) and score -inf.
+template <int D>
+struct PagedStages {
+  static constexpr bool RAGGED = true;
+  PrefillWalk w;
+  int n, per, lg, pages;
+  int* facts;
+  int lp, phys;  // warp 0, lane t < per: page t of the stage being looked up
+
+  __device__ PagedStages(const int* sched, const int* runs, const int* table, const int* pos0,
+                         int tq, int g, int ps, int mp, int* facts_)
+      : w(sched, runs, table, pos0, tq, g, D, D, ps, mp), facts(facts_), lp(-1), phys(0) {
+    per = KV / ps;
+    lg = __ffs(ps) - 1;
+    pages = w.nkv / ps;
+    n = (pages + per - 1) / per;
+  }
+  __device__ void lookup(int i) {
+    if (threadIdx.x >= 32 || i >= n) return;
+    const int lane = threadIdx.x;
+    lp = -1;
+    if (lane < per) {
+      const int t = i * per + lane;
+      int l;
+      w.page(min(t, pages - 1), l, phys);
+      if (t < pages) lp = l;
+    }
+  }
+  __device__ void publish(int i) {
+    if (threadIdx.x >= 32 || i >= n) return;
+    const int lane = threadIdx.x;
+    const bool all = __all_sync(FULL, lane >= per || lp >= 0);
+    int top = lp >= 0 ? lp * w.ps + w.ps - 1 : -1;
+#pragma unroll
+    for (int o = 16; o; o >>= 1) top = max(top, __shfl_xor_sync(FULL, top, o));
+    int* f = facts + (i % FACT_SLOTS) * FACTS;
+    if (lane < per) {
+      f[1 + lane] = lp;
+      f[1 + MAX_PAGES + lane] = phys;
+    }
+    if (lane == 0) f[0] = all ? top : INT_MAX;
+  }
+  // stages 0 and 1 before the first copy
+  __device__ void start() {
+    lookup(0);
+    publish(0);
+    lookup(1);
+    publish(1);
+    __syncthreads();
+  }
+
+  struct Rows {
+    const int* phys;
+    size_t page, row, head;  // ps Hkv D, Hkv D, h D
+    int lg, off;             // log2 ps, ps - 1
+    __device__ size_t operator()(int x) const {
+      return (size_t)phys[x >> lg] * page + (size_t)(x & off) * row + head;
+    }
+  };
+  __device__ Rows rows(int i) const {
+    const size_t row = (size_t)w.hkv * D;
+    return {facts + (i % FACT_SLOTS) * FACTS + 1 + MAX_PAGES, row << lg, row, (size_t)w.h * D, lg,
+            w.ps - 1};
+  }
+  // column 4 c + j of a live page lp at lp ps + (4 c mod ps) + j, -1 for a
+  // slot past the run's end; the stage masks nothing when every page is
+  // live and at or before the CTA's first query position (qlim rises with
+  // the row)
+  struct Cols {
+    const int* lp;
+    int top, first, lg, ps;
+    __device__ bool plain() const { return top <= first; }
+    __device__ int col(int c) const {
+      const int l = lp[(4 * c) >> lg];
+      return l < 0 ? -1 : l * ps + ((4 * c) & (ps - 1));
+    }
+  };
+  __device__ Cols cols(int i) const {
+    const int* f = facts + (i % FACT_SLOTS) * FACTS;
+    return {f + 1, f[0], w.qlim(0), lg, w.ps};
+  }
+};
+
+// One CTA: the 128 query rows of the walk (St::w) in one pass, its kv rows
+// KV a stage (St: which rows, which positions).  Warp w owns query rows 16
+// w .. 16 w + 15; lane (h, c) = (lane / 16, lane % 16) owns rows rb .. rb
+// + 7 (rb = 16 w + 8 h): scores of kv columns 4 c .. 4 c + 3 of each
+// stage, output columns 64 q + 4 c .. + 3.  Per stage: S = Q K^T on the 8
+// x 4 register tile (each score the fmaf chain over d ascending from 0, as
+// flash_rows'), the masks, the online softmax (a row's maximum by 4
+// shuffles among the 16 lanes that share it, its sum kept per thread until
+// the end), P into the warp's rows of shared memory, O += P V on the 8 x D
+// / 16 register tile.  The next K / V stage is copied while this one is
+// used.
+template <int D, typename St>
+__device__ __forceinline__ void tiled_core(St& st, const float* __restrict__ q,
+                                           const float* __restrict__ k, const float* __restrict__ v,
+                                           float* __restrict__ o, float scale, float* smem) {
   using L = Layout<D>;
   constexpr int NQ = D / 64;  // float4 output columns a thread: 4 c + 64 q
-  extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
   float* Ps = Qs + L::Q_FLOATS;
   float* ring = Ps + L::P_FLOATS;
-  const DenseWalk w(sched, runs, S, D, BQ, bkv, causal, kv_valid, seqlen);
-  const int n = w.nkv / KV;
+  const auto& w = st.w;
+  const int n = st.n;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int h = lane >> 4, c = lane & 15;
   const int rb = 16 * warp + 8 * h;
@@ -546,34 +720,29 @@ flash_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // Q^T, once: a warp copies 8 d x 4 rows at a time (one 32-byte sector a
   // row; banks 4 d + row with the stride BQ + 4)
   {
-    const float* qg = q + w.q_off(0);
 #pragma unroll 4
     for (int u = warp; u < (D / 8) * (BQ / 4); u += WARPS) {
       const int d = (u % (D / 8)) * 8 + (lane & 7), r = (u / (D / 8)) * 4 + (lane >> 3);
-      cp_async4(Qs + d * LDQ + r, qg + (size_t)r * D + d);
+      cp_async4(Qs + d * LDQ + r, q + w.q_off(r) + d);
     }
     cp_async_commit();
   }
+  st.start();
   // stage i into ring slot i % STAGES: K^T by 4-byte copies (8 d x the 4
-  // kv rows of one chunk a warp copy), V as stored by 16-byte copies; the
-  // stage's rows are consecutive positions of one table tile
+  // kv rows of one chunk a warp copy), V as stored by 16-byte copies
   auto issue = [&](int i) {
-    size_t ko, vo;
-    int pos0;
-    w.kv(i * KV, ko, vo, pos0);
+    const auto row = st.rows(i);
     float* ks = ring + (i % STAGES) * L::STAGE_FLOATS;
     float* vs = ks + L::K_FLOATS;
-    const float* kg = k + ko;
-    const float* vg = v + vo;
 #pragma unroll 4
     for (int u = warp; u < (D / 8) * (KV / 4); u += WARPS) {
       const int d = (u % (D / 8)) * 8 + (lane & 7), x = u / (D / 8);
-      cp_async4(ks + d * KV + ((x ^ (d & 7)) << 2) + (lane >> 3), kg + (size_t)(4 * x + (lane >> 3)) * D + d);
+      cp_async4(ks + d * KV + ((x ^ (d & 7)) << 2) + (lane >> 3), k + row(4 * x + (lane >> 3)) + d);
     }
 #pragma unroll
     for (int id = threadIdx.x; id < KV * D / 4; id += THREADS) {
       const int r = id / (D / 4), c4 = id % (D / 4);
-      cp_async16(vs + r * D + 4 * c4, vg + (size_t)r * D + 4 * c4);
+      cp_async16(vs + r * D + 4 * c4, v + row(r) + 4 * c4);
     }
   };
 
@@ -593,6 +762,7 @@ flash_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();     // everyone's; everyone is done with stage i - 1's slot
     if (i + 1 < n) issue(i + 1);
     cp_async_commit();
+    st.lookup(i + 2);
     const float* ks = ring + (i % STAGES) * L::STAGE_FLOATS;
     const float* vs = ks + L::K_FLOATS;
 
@@ -627,24 +797,25 @@ flash_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
 
     // masks: kv position kp is kept where kp <= qlim(row) and kp < klim,
-    // else scored MASK; a stage whose positions all lie below klim and
-    // (causal) at or before the CTA's first query row masks nothing
-    size_t ko, vo;
-    int pos0;
-    w.kv(i * KV, ko, vo, pos0);
-    if (pos0 + KV - 1 < w.klim && pos0 + KV - 1 <= w.qlim(0)) {
+    // else scored MASK; a column past the walk's end (ragged stages)
+    // scores -inf
+    const auto cols = st.cols(i);
+    if (cols.plain()) {
 #pragma unroll
       for (int r = 0; r < 8; ++r)
 #pragma unroll
         for (int j = 0; j < 4; ++j) s[r][j] *= scale;
     } else {
+      const int kb = cols.col(c);
 #pragma unroll
       for (int r = 0; r < 8; ++r) {
         const int lim = w.qlim(rb + r);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const int kp = pos0 + 4 * c + j;
-          s[r][j] = (kp <= lim && kp < w.klim) ? s[r][j] * scale : MASK;
+          const int kp = kb + j;
+          float sc = (kp <= lim && kp < w.klim) ? s[r][j] * scale : MASK;
+          if constexpr (St::RAGGED) sc = kb < 0 ? -INFINITY : sc;
+          s[r][j] = sc;
         }
       }
     }
@@ -655,7 +826,7 @@ flash_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int r = 0; r < 8; ++r) {
       float mx = fmaxf(fmaxf(s[r][0], s[r][1]), fmaxf(s[r][2], s[r][3]));
 #pragma unroll
-      for (int off = 8; off; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      for (int off = 8; off; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
       const float mn = fmaxf(m[r], mx);
       const float alpha = expf(m[r] - mn);
       float ps = 0.f;
@@ -702,6 +873,7 @@ flash_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
     __syncwarp();  // the warp is done with P before the next stage rewrites it
+    st.publish(i + 2);
   }
   cp_async_wait<0>();
 
@@ -710,7 +882,7 @@ flash_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int r = 0; r < 8; ++r) {
     float lt = l[r];
 #pragma unroll
-    for (int off = 8; off; off >>= 1) lt += __shfl_xor_sync(0xffffffffu, lt, off);
+    for (int off = 8; off; off >>= 1) lt += __shfl_xor_sync(FULL, lt, off);
     float* orow = o + w.o_off(rb + r);
 #pragma unroll
     for (int qq = 0; qq < NQ; ++qq)
@@ -718,6 +890,35 @@ flash_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
           make_float4(acc[r][4 * qq] / lt, acc[r][4 * qq + 1] / lt, acc[r][4 * qq + 2] / lt,
                       acc[r][4 * qq + 3] / lt);
   }
+}
+
+// One CTA per (run, bh): the 128 query rows of q tile qt, the run's kv
+// tiles in table order.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, float* __restrict__ o, const int* __restrict__ sched,
+                   const int* __restrict__ runs, int S, int bkv, int causal, int kv_valid,
+                   const int* __restrict__ seqlen, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  DenseStages<D> st(sched, runs, S, bkv, causal, kv_valid, seqlen);
+  tiled_core<D>(st, q, k, v, o, scale, smem);
+}
+
+// One CTA per (run, kv head h): the 128 rows of PrefillWalk (tokens qt ps
+// .. qt ps + ps - 1 x the g query heads of h, row r = token g + head), the
+// run's pages in table order, KV / ps pages a stage.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+prefill_tiled_kernel(const float* __restrict__ q, const float* __restrict__ kp,
+                     const float* __restrict__ vp, float* __restrict__ o,
+                     const int* __restrict__ sched, const int* __restrict__ runs,
+                     const int* __restrict__ table, const int* __restrict__ pos0, int tq, int g,
+                     int ps, int mp, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  PagedStages<D> st(sched, runs, table, pos0, tq, g, ps, mp,
+                    reinterpret_cast<int*>(smem + Layout<D>::SMEM / 4));
+  tiled_core<D>(st, q, kp, vp, o, scale, smem);
 }
 
 template <int D>
@@ -733,6 +934,22 @@ int attention(const void* q, const void* k, const void* v, void* o, const void* 
   flash_tiled_kernel<D><<<dim3(n_runs, BH), THREADS, Layout<D>::SMEM, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, (const int*)sched,
       (const int*)runs, S, bkv, causal, kv_valid, (const int*)seqlen, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int prefill(const void* q, const void* kp, const void* vp, void* o, const void* sched,
+            const void* runs, int n_runs, int hkv, const void* table, const void* pos0, int tq,
+            int g, int ps, int mp, float scale, void* stream) {
+  if (n_runs == 0 || hkv == 0) return 0;
+  if (hkv > 65535) return (int)cudaErrorInvalidConfiguration;
+  // 16-byte copies of V, float4 stores of O; K's pool beside V's
+  if ((uintptr_t)kp % 16 || (uintptr_t)vp % 16 || (uintptr_t)o % 16) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = raise_smem_limit<prefill_tiled_kernel<D>>(Layout<D>::PREFILL_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  prefill_tiled_kernel<D><<<dim3(n_runs, hkv), THREADS, Layout<D>::PREFILL_SMEM, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)kp, (const float*)vp, (float*)o, (const int*)sched,
+      (const int*)runs, (const int*)table, (const int*)pos0, tq, g, ps, mp, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1625,11 +1842,24 @@ bool core_shape(int D, int bq, int bkv) {
 // the prefill shapes the tensor-core core takes (bf16 inputs): Dk == Dv
 // in {64, 128}; a CTA's ps * g rows are the two warpgroups' 128; whole
 // pages a 64-row half (64 % ps == 0) of at least 8 rows, so that every
-// page's box lands on a 1024-byte swizzle atom.  kernels/attention.py::
-// prefill_core picks the core; a wgmma call outside these is refused.
+// page's box lands on a 1024-byte swizzle atom.
 bool prefill_tensor_core_shape(int dk, int dv, int ps, int g) {
   return dk == dv && (dk == 64 || dk == 128) && ps * g == tc::BQ && ps >= 8 && 64 % ps == 0;
 }
+
+// the prefill shapes the register-tiled core takes (f32 inputs): Dk == Dv
+// in {64, 128}; a CTA's ps * g rows are its 128; whole pages a 64-row
+// stage (64 % ps == 0) whose rows a thread's 4 kv columns do not straddle
+// (ps % 4 == 0): ps in {4, 8, 16, 32, 64}, a power of two.
+static_assert(tiled::KV == 64 && tiled::PAGE_MIN == 4, "prefill_tiled_shape's constants");
+bool prefill_tiled_shape(int dk, int dv, int ps, int g) {
+  return dk == dv && (dk == 64 || dk == 128) && ps * g == tiled::BQ && ps >= tiled::PAGE_MIN &&
+         ps % tiled::PAGE_MIN == 0 && tiled::KV % ps == 0;
+}
+
+// sfc_flash_prefill's cores, as the wrapper names them (kernels/
+// attention.py::prefill_core picks one by these rules and passes its code)
+enum PrefillCore { PREFILL_SIMT = 0, PREFILL_WGMMA = 1, PREFILL_TILED = 2 };
 
 }  // namespace
 
@@ -1672,20 +1902,29 @@ extern "C" int sfc_flash_decode(const void* q, const void* kp, const void* vp, v
                                           g, dk, dv, ps, mp, split_pages, splits, scale, stream);
 }
 
+// core: a PrefillCore code, the core the wrapper picked; the entry
+// launches it, or refuses the call for a shape outside that core's rule
 extern "C" int sfc_flash_prefill(const void* q, const void* kp, const void* vp, void* o,
                                  const void* sched, const void* runs, int n_runs, int hkv,
                                  const void* table, const void* pos0, int tq, int g, int dk, int dv,
-                                 int ps, int mp, int B, int P, float scale, int dtype,
-                                 int tensor_core, void* stream) {
+                                 int ps, int mp, int B, int P, float scale, int dtype, int core,
+                                 void* stream) {
   if (bad_shape(ps * g, dk, dv) || ps < 1) return (int)cudaErrorInvalidValue;
-  // the core the wrapper picked (prefill_core): launched, or the call refused
-  if (tensor_core) {
+  if (core == PREFILL_WGMMA) {
     if (dtype == 0 || !prefill_tensor_core_shape(dk, dv, ps, g)) return (int)cudaErrorInvalidValue;
     return dk == 64 ? tc::prefill_wgmma<64>(q, kp, vp, o, sched, runs, n_runs, hkv, table, pos0, tq,
                                             g, ps, mp, B, P, scale, stream)
                     : tc::prefill_wgmma<128>(q, kp, vp, o, sched, runs, n_runs, hkv, table, pos0, tq,
                                              g, ps, mp, B, P, scale, stream);
   }
+  if (core == PREFILL_TILED) {
+    if (dtype != 0 || !prefill_tiled_shape(dk, dv, ps, g)) return (int)cudaErrorInvalidValue;
+    return dk == 64 ? tiled::prefill<64>(q, kp, vp, o, sched, runs, n_runs, hkv, table, pos0, tq, g,
+                                         ps, mp, scale, stream)
+                    : tiled::prefill<128>(q, kp, vp, o, sched, runs, n_runs, hkv, table, pos0, tq, g,
+                                          ps, mp, scale, stream);
+  }
+  if (core != PREFILL_SIMT) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return prefill_t<float>(q, kp, vp, o, sched, runs, n_runs, hkv, table, pos0, tq, g, dk, dv, ps,
                             mp, scale, stream);
@@ -1695,11 +1934,20 @@ extern "C" int sfc_flash_prefill(const void* q, const void* kp, const void* vp, 
 
 // The register-tiled f32 core's build and residency, for the record: d =
 // 64 or 128; out as kernel_info.cuh's, the design constants the core's D,
-// kv rows a stage and stages.
+// kv rows a stage and stages.  sfc_flash_tiled_info reads row 20's
+// kernel, sfc_prefill_tiled_info row 22's.
 extern "C" int sfc_flash_tiled_info(int d, int* out) {
   if (d != 64 && d != 128) return (int)cudaErrorInvalidValue;
   const void* fn = d == 64 ? (const void*)tiled::flash_tiled_kernel<64>
                            : (const void*)tiled::flash_tiled_kernel<128>;
   const int smem = d == 64 ? tiled::Layout<64>::SMEM : tiled::Layout<128>::SMEM;
+  return sfc::kernel_info(fn, tiled::THREADS, smem, {d, tiled::KV, tiled::STAGES}, out);
+}
+
+extern "C" int sfc_prefill_tiled_info(int d, int* out) {
+  if (d != 64 && d != 128) return (int)cudaErrorInvalidValue;
+  const void* fn = d == 64 ? (const void*)tiled::prefill_tiled_kernel<64>
+                           : (const void*)tiled::prefill_tiled_kernel<128>;
+  const int smem = d == 64 ? tiled::Layout<64>::PREFILL_SMEM : tiled::Layout<128>::PREFILL_SMEM;
   return sfc::kernel_info(fn, tiled::THREADS, smem, {d, tiled::KV, tiled::STAGES}, out);
 }

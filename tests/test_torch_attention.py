@@ -88,6 +88,36 @@ def test_prefill_schedules_array_equal(pos0, n_new, ps, MP):
     np.testing.assert_array_equal(dev.table.numpy(), np.asarray(jatt.prefill_page_schedule_device(pos0, n_new, ps, MP)))
 
 
+@pytest.mark.parametrize("pos0,n_new,ps,MP", [
+    ((3, 0, 9), (17, 4, 0), 4, 8),
+    ((0, 301, 64, 9), (256, 230, 197, 0), 16, 72),  # runs of 1 .. 34 pages, ties
+])
+def test_prefill_launch_runs_longest_first(pos0, n_new, ps, MP):
+    """The device schedule keeps the JAX table and holds its runs longest
+    first (ties in table order): a permutation of the CTAs that leaves the
+    plain version's output equal to the runs launched in table order."""
+    dev = tatt.prefill_page_schedule_device(pos0, n_new, ps, MP, device="cpu")
+    table = tatt.prefill_page_schedule(pos0, n_new, ps, MP)
+    runs = tatt.schedule_runs(table, 3, 4, valid_col=5)
+    got = dev.runs.numpy()
+    order = sorted(range(len(runs)), key=lambda i: (-runs[i, 1], i))
+    np.testing.assert_array_equal(got, runs[order])
+    np.testing.assert_array_equal(tatt.longest_first(runs), got)
+    rng = np.random.default_rng(ps)
+    B, Hkv, g, D = len(pos0), 2, 2, 8
+    P = B * MP + 1
+    _, args = _prefill_case(rng, B, Hkv, g, D, ps, MP, P, -(-max(n_new) // ps) * ps, pos0, n_new)
+    prog = tatt.flash_prefill_program(dev, args[2], page_size=ps, sm_scale=0.3)
+    assert torch.equal(prog.params["runs"], dev.runs)
+    table_order = torch.as_tensor(runs)
+    tab = tatt.flash_prefill_program(tatt.PageSchedule(dev.table, table_order), args[2], page_size=ps,
+                                     sm_scale=0.3)
+    assert torch.equal(tab.params["runs"], table_order)
+    a, b = launch(prog, *args), launch(tab, *args)
+    rows = ~torch.isnan(b).any(-1).any(-1).any(-1)
+    assert rows.any() and torch.equal(a[rows], b[rows]) and torch.isnan(a[~rows]).all()
+
+
 def _check_runs(table, runs, first_col, last_col, key_cols, valid_col=None):
     """Every valid row lies in exactly one run; a run starts at a first
     row, ends at a last row, and keeps one (q tile | slot | (slot, qt))."""
@@ -260,12 +290,36 @@ def test_flash_decode_inactive_slot_is_the_mean_of_its_walk(dtype, MP):
     _close(got[0], np.broadcast_to(mean[:, None], (Hkv, g, D)), dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_prefill_plain_matches_pallas(dtype):
-    rng = np.random.default_rng(11)
-    B, Hkv, g, D, ps, MP, P, Tq = 4, 2, 3, 16, 4, 8, 40, 16
-    pos0 = np.array([3, 0, 9, 0], np.int32)
-    n_new = np.array([13, 4, 0, 16], np.int32)  # slot 2 is an inactive lane
+def _tiled_cohort(ps):
+    """A cohort at a register-tiled shape: a lane from position 0 whose q
+    tiles walk runs of 1 .. 64 / ps pages (every page count mod a stage's
+    64 / ps pages), a lane resuming mid-page at 301 with a ragged last
+    tile, and a lane with no new tokens."""
+    Tq = 64
+    return Tq, np.array([0, 301, 5], np.int32), np.array([Tq, Tq - 5, 0], np.int32)
+
+
+@pytest.mark.parametrize("dtype,D,ps,g,Hkv", [
+    pytest.param(torch.float32, 16, 4, 3, 2, id="dtype0"),
+    pytest.param(torch.bfloat16, 16, 4, 3, 2, id="dtype1"),
+    # the register-tiled core's shapes (f32, ps g = 128): TinyLlama's
+    # serving shape, pages of 4 and 64 rows, D = 128
+    pytest.param(torch.float32, 64, 16, 8, 1, id="tiled-D64-ps16-g8"),
+    pytest.param(torch.float32, 64, 4, 32, 1, id="tiled-D64-ps4-g32"),
+    pytest.param(torch.float32, 64, 64, 2, 2, id="tiled-D64-ps64-g2"),
+    pytest.param(torch.float32, 128, 32, 4, 1, id="tiled-D128-ps32-g4"),
+])
+def test_flash_prefill_plain_matches_pallas(dtype, D, ps, g, Hkv):
+    rng = np.random.default_rng(11 if D == 16 else 11 + D + ps)
+    if D == 16:
+        B, MP, P, Tq = 4, 8, 40, 16
+        pos0 = np.array([3, 0, 9, 0], np.int32)
+        n_new = np.array([13, 4, 0, 16], np.int32)  # slot 2 is an inactive lane
+    else:
+        assert tatt.prefill_core(dtype, D, D, ps, g) == "tiled"
+        Tq, pos0, n_new = _tiled_cohort(ps)
+        B, MP = len(pos0), -(-(301 + Tq) // ps)
+        P = B * MP + 1
     q = rng.standard_normal((B, Tq, Hkv, g, D)).astype(np.float32)
     ends = pos0 + np.maximum(n_new, 1) - 1
     _, kp, vp, pt = _paged_inputs(rng, B, Hkv, g, D, ps, MP, P, ends)
@@ -385,7 +439,7 @@ def test_attention_wrapper_launch_arguments(monkeypatch, dtype, D, bq, core):
     (torch.bfloat16, 64, 64, 8, 16, "wgmma"),
     (torch.bfloat16, 64, 64, 32, 4, "wgmma"),
     (torch.bfloat16, 128, 128, 64, 2, "wgmma"),
-    (torch.float32, 64, 64, 16, 8, "simt"),  # the f32 replay gate
+    (torch.float32, 64, 64, 16, 8, "tiled"),  # the f32 replay gate
     (torch.bfloat16, 64, 64, 128, 1, "simt"),  # stablelm's g = 1: a page wider than a half
     (torch.bfloat16, 64, 64, 4, 32, "simt"),  # a page box under one swizzle atom
     (torch.bfloat16, 64, 64, 16, 4, "simt"),  # 64 rows a CTA
@@ -394,11 +448,22 @@ def test_attention_wrapper_launch_arguments(monkeypatch, dtype, D, bq, core):
     (torch.bfloat16, 96, 96, 16, 8, "simt"),
     (torch.bfloat16, 32, 32, 16, 8, "simt"),
     (torch.bfloat16, 64, 64, 24, 5, "simt"),  # 120 rows, pages not dividing a half
+    (torch.float32, 64, 64, 4, 32, "tiled"),  # pages of 4 rows: a thread's 4 kv columns
+    (torch.float32, 64, 64, 64, 2, "tiled"),  # one page a stage
+    (torch.float32, 128, 128, 16, 8, "tiled"),
+    (torch.float32, 128, 128, 8, 16, "tiled"),
+    (torch.float32, 64, 64, 16, 4, "simt"),  # 64 rows a CTA
+    (torch.float32, 64, 32, 16, 8, "simt"),  # Dk != Dv
+    (torch.float32, 96, 96, 16, 8, "simt"),
+    (torch.float32, 64, 64, 24, 5, "simt"),  # 120 rows, pages not dividing a stage
+    (torch.float32, 64, 64, 2, 64, "simt"),  # pages under a thread's 4 kv columns
+    (torch.float32, 64, 64, 128, 1, "simt"),  # stablelm's g = 1: a page wider than a stage
 ])
 def test_prefill_core_rule(dtype, dk, dv, ps, g, core):
-    """bf16 with Dk = Dv in (64, 128), ps * g = 128 and whole pages of 8
-    to 64 rows in a 64-row half runs on the tensor cores; the rest on the
-    SIMT core."""
+    """At Dk = Dv in (64, 128), ps * g = 128 and whole pages in a 64-row
+    half or stage: bf16 with pages of 8 to 64 rows runs on the tensor
+    cores, f32 with pages of 4 to 64 rows (a multiple of 4) on the
+    register-tiled core; the rest on the SIMT core."""
     assert tatt.prefill_core(dtype, dk, dv, ps, g) == core
 
 
@@ -417,14 +482,18 @@ def _prefill_case(rng, B, Hkv, g, D, ps, MP, P, Tq, pos0, n_new, dtype=torch.flo
 @pytest.mark.parametrize("dtype,D,ps,g,core", [
     (torch.bfloat16, 64, 16, 8, "wgmma"),
     (torch.bfloat16, 128, 8, 16, "wgmma"),
-    (torch.float32, 64, 16, 8, "simt"),
+    (torch.float32, 64, 16, 8, "tiled"),
     (torch.bfloat16, 64, 128, 1, "simt"),
+    (torch.float32, 128, 4, 32, "tiled"),
+    (torch.float32, 64, 64, 2, "tiled"),
+    (torch.float32, 96, 16, 8, "simt"),
 ])
 def test_prefill_wrapper_launch_arguments(monkeypatch, dtype, D, ps, g, core):
     """``_prefill_cuda``'s host side on CPU tensors, the kernel call
-    recorded: the core its rule picks is counted with the entry point, and
-    the C arguments carry the cohort's B and the pool's P (the extents of
-    the tensor maps) beside the walk's shape."""
+    recorded: the core its rule picks is counted with the entry point and
+    passed to the C entry by its code (simt 0, wgmma 1, tiled 2), and the
+    C arguments carry the cohort's B and the pool's P (the extents of the
+    tensor maps) beside the walk's shape."""
     calls = []
     monkeypatch.setattr(tatt, "require", lambda *a, **k: None)
     monkeypatch.setattr(tatt, "stream_of", lambda t: 0)
@@ -439,10 +508,10 @@ def test_prefill_wrapper_launch_arguments(monkeypatch, dtype, D, ps, g, core):
     ((name, cargs, got_core),) = calls
     assert name == "sfc_flash_prefill" and got_core == core
     # (q, k, v, o, table, runs, n_runs, hkv, page_table, pos0, tq, g, dk, dv, ps, mp, B, P, scale,
-    #  dtype, tensor_core, stream): the C entry launches the core the rule picked
+    #  dtype, core, stream): the C entry launches the core the rule picked
     assert cargs[6:8] == (len(sched.runs), Hkv) and len(sched.runs) == 3
     assert cargs[10:] == (Tq, g, D, D, ps, MP, B, P, 0.125, 0 if dtype == torch.float32 else 1,
-                          int(core == "wgmma"), 0)
+                          {"simt": 0, "wgmma": 1, "tiled": 2}[core], 0)
     assert cargs[0] == args[2].data_ptr() and cargs[1] == args[3].data_ptr()
 
 
@@ -761,6 +830,48 @@ def test_bf16_flash_prefill_wgmma_matches_plain(D, ps, g):
         rows[b, : -(-n_new[b] // ps) * ps] = True
     assert torch.isfinite(got[rows].float()).all()
     torch.testing.assert_close(got[rows].float(), want[rows].float(), rtol=8e-3, atol=4e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,ps,g", [(64, 16, 8), (128, 16, 8), (64, 8, 16), (64, 32, 4), (64, 4, 32),
+                                    (64, 64, 2)])
+def test_f32_flash_prefill_tiled_matches_plain(D, ps, g):
+    """Row 22's register-tiled f32 core against ``_prefill_plain`` on the
+    same CUDA inputs, within 1e-4 (every score is flash_rows' chain; the
+    row sums and P·V add in another order), on the tensor-core core's
+    cohort: runs of every page count mod 64 / ps from position 0, a resume
+    mid-page at 301, a page-aligned lane with a ragged last tile and a
+    lane with no new tokens.  Every physical page that no run reads holds
+    NaN, so a stray read shows; only the tiled core launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(D + ps + 1)
+    B, Hkv, Tq = 4, 2, 256
+    pos0 = [0, 301, 4 * ps, 9]
+    n_new = [min(Tq, max(8, 64 // ps) * ps), 230, 3 * ps + 5, 0]
+    MP = max(72, -(-(301 + 230) // ps))
+    P = B * MP + 1
+    sched, args = _prefill_case(rng, B, Hkv, g, D, ps, MP, P, Tq, pos0, n_new, torch.float32, dev)
+    # the pages the runs read: each live lane's pages up to its last new token's
+    pt = args[0].cpu().numpy()
+    read = {int(p) for b in range(B) if n_new[b] for p in pt[b, : (pos0[b] + n_new[b] - 1) // ps + 1]}
+    unread = torch.as_tensor(sorted(set(range(P)) - read), device=dev, dtype=torch.long)
+    args[3][unread] = float("nan")
+    args[4][unread] = float("nan")
+    prog = tatt.flash_prefill_program(sched, args[2], page_size=ps, sm_scale=D ** -0.5)
+    assert tatt.prefill_core(torch.float32, D, D, ps, g) == "tiled"
+    LAUNCHES.reset()
+    got = prog.launcher(prog, *args)
+    want = prog.plain(prog, *args)
+    cores = LAUNCHES.cores()
+    assert cores["sfc_flash_prefill.tiled"] == 1
+    assert cores["sfc_flash_prefill.simt"] == cores["sfc_flash_prefill.wgmma"] == 0
+    rows = torch.zeros((B, Tq), dtype=torch.bool, device=dev)
+    for b in range(B):
+        rows[b, : -(-n_new[b] // ps) * ps] = True
+    assert torch.isfinite(got[rows]).all() and torch.isfinite(want[rows]).all()
+    torch.testing.assert_close(got[rows], want[rows], rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.cuda
