@@ -121,6 +121,26 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    card than on the host, by the device time of its kernels and of the
    gather + SDPA call's, beside both calls' CUDA-event times, with its
    split-KV launch and its time at other split sizes).
+7b. DeepSeek-V2 paged serving (``mla_serving_path``, after TinyLlama's
+   weights are freed): (a) ``compare flash latent``: rows 21 and 22 on
+   the latent core (one kv head, the latent pool given as K and V, f32
+   queries) against their plain versions at MLA's full shapes (8 slots,
+   g 128, D 576, pools of 16-row pages in bf16 and in f32, Tq 1024 for
+   prefill) and at D = 48, g = 4, ragged positions and garbage in the
+   trash page; (b) ``serving deepseek:``: DeepSeek-V2 at full width, its
+   depth cut to MLA_LAYERS = 4 of 60, bf16, seeded random weights, the
+   paged flash engine (8 slots, max_len 2048, compiled prefill, prefix
+   sharing) serving 16 requests (prompts of 64-1024 tokens, every other
+   one behind a shared 256-token prefix, 16-64 new tokens), every
+   ``sfc_flash_prefill`` / ``sfc_flash_decode`` launch on the latent core,
+   4 x the admissions and 4 x the decode ticks of them; the warm decode
+   tick's ``profile:``; (c) ``check serving deepseek gate:``: the same
+   model at 1 layer in f32, the paged flash engine's greedy tokens equal
+   to the dense-cache engine's (``mla_decode``) up to each request's first
+   token inside the top-2 margin band, one decode step flash vs "xla";
+   (d) ``time sfc_flash_decode latent`` / ``time sfc_flash_prefill
+   latent``: ms, bound (FP32 operations), plain ms and a page gather +
+   SDPA in f32.
 8. The curve-range-sharded apps (``sharded_path``), SHARDS = 4 shards on
    the one card (the code path of a mesh, not multi-GPU scaling): with the
    launch counts reset, ``ops.kmeans_lloyd(mesh=)`` on phase 3's SIFT1M
@@ -268,6 +288,23 @@ ATTN_ROW20 = (2, 32, 2048)  # B, H, S of the full-sequence forward
 ATTN_TOL = {"float32": dict(rtol=1e-4, atol=1e-4), "bfloat16": dict(rtol=8e-3, atol=4e-3)}
 SERVING_KERNELS = ("sfc_flash_attention", "sfc_flash_decode", "sfc_flash_prefill")
 PREFILL_CORES = ("sfc_flash_prefill.wgmma", "sfc_flash_prefill.tiled", "sfc_flash_prefill.simt")
+# the MLA slice: DeepSeek-V2 at full width, its depth cut from 60 layers to
+# MLA_LAYERS (~34 GB of bf16 weights; 8 would leave no room), seeded random
+# weights, the engine and page shapes of the TinyLlama run
+MLA_ARCH = "deepseek-v2-236b"
+MLA_LAYERS = 4
+MLA_REQUESTS = 16
+MLA_NEW = (16, 64)  # new tokens per request
+MLA_QK_WIDTH = 192  # qk_nope_head_dim + qk_rope_head_dim: the scores' scale is 1/sqrt(192)
+# the f32 gate: 1 layer (~20 GB), a few shorter requests (the dense engine
+# prefills a token a step)
+MLA_GATE_LAYERS = 1
+MLA_GATE_REQUESTS = 4
+MLA_GATE_PROMPT = (64, 320)
+MLA_GATE_NEW = (16, 32)
+# the latent core against its plain version: f32 outputs (q is f32), sums
+# in other orders over up to 2048 kv rows of 576 columns
+LATENT_TOL = dict(rtol=1e-4, atol=1e-4)
 # the sharded phase: shards of its meshes, all on the one card
 SHARDS = 4
 SHARDED_KERNELS = ("sfc_kmeans_shard_assign", "sfc_kmeans_shard_update", "sfc_kmeans_fold",
@@ -1936,19 +1973,21 @@ def attn_err(got, want, tol, what: str) -> float:
     return err
 
 
-def make_requests(rng, vocab: int):
-    """SERVE_REQUESTS prompts of 64-1024 tokens, every other one behind a
-    shared 256-token system prefix, with 32-128 new tokens each."""
-    lo, hi = SERVE_PROMPT
+def make_requests(rng, vocab: int, n: int | None = None, new=None, prompt=None):
+    """n (SERVE_REQUESTS) prompts of 64-1024 tokens (``prompt``), every
+    other one behind a shared 256-token system prefix, with 32-128
+    (``new``) new tokens each."""
+    n, new, prompt = n or SERVE_REQUESTS, new or SERVE_NEW, prompt or SERVE_PROMPT
+    lo, hi = prompt
     system = rng.integers(0, vocab, size=SERVE_PREFIX).tolist()
     reqs = []
-    for i in range(SERVE_REQUESTS):
+    for i in range(n):
         if i % 2:
             n = int(rng.integers(max(lo, SERVE_PREFIX + 1), hi + 1))
             prompt = system + rng.integers(0, vocab, size=n - SERVE_PREFIX).tolist()
         else:
             prompt = rng.integers(0, vocab, size=int(rng.integers(lo, hi + 1))).tolist()
-        reqs.append((prompt, int(rng.integers(SERVE_NEW[0], SERVE_NEW[1] + 1))))
+        reqs.append((prompt, int(rng.integers(new[0], new[1] + 1))))
     return reqs
 
 
@@ -1966,7 +2005,7 @@ def time_prefill(engine) -> dict:
     until ``engine._prefill_compiled = d["inner"]`` restores the engine."""
     import torch
 
-    prefill = {"s": 0.0, "tokens": 0, "calls": 0, "inner": engine._prefill_compiled}
+    prefill = {"s": 0.0, "tokens": 0, "calls": 0, "launching": 0, "inner": engine._prefill_compiled}
 
     def timed_prefill(slots):
         n = sum(len(engine.slot_req[s].prompt) - 1 - int(engine.pos[s]) for s in slots)
@@ -1977,6 +2016,7 @@ def time_prefill(engine) -> dict:
         prefill["s"] += time.perf_counter() - t
         prefill["tokens"] += n
         prefill["calls"] += 1
+        prefill["launching"] += int(n > 0)  # an admission with new tokens runs the model
 
     engine._prefill_compiled = timed_prefill
     return prefill
@@ -2010,6 +2050,7 @@ def drive_engine(engine, requests) -> tuple[list, dict]:
     kv = engine.kv_pages
     return reqs, {
         "requests": len(reqs), "ticks": ticks, "wall_s": wall,
+        "admissions": prefill["calls"], "launching_admissions": prefill["launching"],
         "prefill_tokens": prefill["tokens"], "prefill_s": prefill["s"],
         "prefill_tok_per_s": prefill["tokens"] / prefill["s"],
         "decode_tokens": decode_tokens, "decode_s": decode_s, "decode_tok_per_s": decode_tokens / decode_s,
@@ -2028,7 +2069,8 @@ def warm_decode_tick(cfg, params, requests, device) -> dict:
     for _ in range(4):
         engine.step()
     check(bool(engine.active.all()) and not engine._queue, "warm tick: not all slots decoding")
-    out = profile_calls({f"ServeEngine warm decode tick ({SERVE_SLOTS} slots, tinyllama-1.1b bf16)": engine.step})
+    label = f"ServeEngine warm decode tick ({SERVE_SLOTS} slots, {cfg.name} {cfg.num_layers} layers {cfg.dtype})"
+    out = profile_calls({label: engine.step})
     return out[0]
 
 
@@ -2339,6 +2381,355 @@ def serving_path(rng, device, seed: int) -> list:
         {"shape": {"BH": BH, "S": S, "D": d, "bq": 128, "bkv": 128, "causal": True},
          "ctas": int(p_att.grid[0] * p_att.grid[1]), "core": "wgmma", "f32": f32})
     log("serving busy: " + json.dumps(busy))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 7b: DeepSeek-V2 paged serving (MLA + MoE) on the latent core
+# ---------------------------------------------------------------------------
+
+def _mla_cfg(layers: int, dtype: str):
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config
+
+    return dc.replace(get_config(MLA_ARCH), num_layers=layers, dtype=dtype)
+
+
+def latent_inputs(rng, device, pool_dtype, *, g=None, D=None, prefill=False):
+    """Rows 21 / 22 at MLA's shapes: 8 slots of 128 pages of 16 (max_len
+    2048), Hkv 1, g 128 query heads of D 576 = r 512 + dr 64 in f32, one
+    latent pool (bf16 or f32) given as K and V, garbage in the trash page.
+    Decode: ragged positions (0 and 2047 included); prefill: the cohort of
+    :func:`prefill_inputs` (64-1024 new tokens at staggered pos0, Tq 1024).
+    Returns (page_table, pos or pos0, q, pool, n_new or None)."""
+    import torch
+    from repro_torch.serve import PagedKVCache
+
+    cfg = _mla_cfg(1, "float32")
+    g = g or cfg.num_heads
+    D = D or cfg.kv_lora_rank + cfg.qk_rope_head_dim
+    B, MP, ps = SERVE_SLOTS, SERVE_MAX_LEN // SERVE_PAGE, SERVE_PAGE
+    kv = PagedKVCache(B, MP, ps, layout="hilbert")
+    n_new = None
+    if prefill:
+        T = SERVE_MAX_LEN // 2
+        n_new = rng.integers(SERVE_PROMPT[0], T + 1, size=B).astype(np.int32)
+        n_new[:2] = (SERVE_PROMPT[0], T)
+        pos = rng.integers(0, SERVE_MAX_LEN - n_new + 1).astype(np.int32)
+        last = pos + n_new - 1
+        qshape = (B, T, 1, g, D)
+    else:
+        pos = rng.integers(0, SERVE_MAX_LEN, size=B).astype(np.int32)
+        pos[:2] = (0, SERVE_MAX_LEN - 1)
+        last = pos
+        qshape = (B, 1, g, D)
+    for b in range(B):
+        kv.ensure_pos(b, int(last[b]))
+    pool = torch.as_tensor(rng.standard_normal((kv.num_pages, ps, 1, D), dtype=np.float32), device=device)
+    pool[0] = 3e3 * torch.sign(pool[0])
+    q = torch.as_tensor(rng.standard_normal(qshape, dtype=np.float32), device=device)
+    return (torch.as_tensor(kv.page_table, device=device), torch.as_tensor(pos, device=device), q,
+            pool.to(pool_dtype), n_new)
+
+
+def latent_programs(device, inputs, scale):
+    """The decode or prefill program of :func:`latent_inputs`' tensors, on
+    the latent core."""
+    from repro_torch.kernels import attention as katt
+
+    pt, pos, q, pool, n_new = inputs
+    B, MP = pt.shape
+    ps = pool.shape[1]
+    if n_new is None:
+        sd = katt.decode_page_schedule_device(B, MP, device=device)
+        return katt.flash_decode_program(sd, q, page_size=ps, max_pages=MP, sm_scale=scale, latent=True)
+    sp = katt.prefill_page_schedule_device(pos.cpu().numpy(), n_new, ps, MP, device=device)
+    return katt.flash_prefill_program(sp, q, page_size=ps, sm_scale=scale, latent=True)
+
+
+def compare_latent(rng, device) -> dict:
+    """Rows 21 and 22 on the latent core against their plain versions: at
+    MLA's full shapes with the pool in bf16 and in f32, and at the reduced
+    width D = 48, g = 4; each launch counted on the latent core.  Returns
+    the largest errors by (name, pool dtype)."""
+    import torch
+    from repro_torch.kernels import LAUNCHES, launch
+
+    scale = 1.0 / float(np.sqrt(MLA_QK_WIDTH))
+    errs, parts = {}, []
+    for pool_dtype in (torch.bfloat16, torch.float32):
+        for g, D in ((None, None), (4, 48)):
+            for prefill in (False, True):
+                inp = latent_inputs(rng, device, pool_dtype, g=g, D=D, prefill=prefill)
+                prog = latent_programs(device, inp, scale)
+                name = prog.name
+                args = inp[:4] + (inp[3],)
+                before = LAUNCHES.cores()[f"{name}.latent"]
+                got = launch(prog, *args)
+                check(LAUNCHES.cores()[f"{name}.latent"] == before + 1, f"{name}: not launched on the latent core")
+                want = prog.plain(prog, *args)
+                torch.cuda.synchronize()
+                what = f"{name} latent g={inp[2].shape[-2]} D={inp[2].shape[-1]} pool {str(pool_dtype)[6:]}"
+                if prefill:
+                    rows = prefill_covered(inp[4], inp[2].shape[1], SERVE_PAGE, device)
+                    got, want = got[rows], want[rows]
+                err = attn_err(got, want, LATENT_TOL, what)
+                key = (name, str(pool_dtype)[6:])
+                errs[key] = max(errs.get(key, 0.0), err)
+                parts.append(f"{what}: pos{'0' if prefill else ''}={inp[1].tolist()} max_abs_err={err:.3e}")
+                del inp, prog, got, want
+    log(f"compare flash latent (rtol {LATENT_TOL['rtol']}, atol {LATENT_TOL['atol']}): " + "; ".join(parts))
+    return errs
+
+
+def margins_of_dense_engine(engine):
+    """Record, for every token the dense engine samples, the top-2 logit
+    margin of its decode step: returns ({(rid, index): margin}, a callable
+    that restores the engine module).  Wraps the engine module's masked
+    step; chunked prefill's steps (no sample) are left out."""
+    import torch
+    from repro_torch.serve import engine as engine_mod
+
+    out, inner_step, inner_prefill = {}, engine_mod._masked_step, engine._prefill_chunked
+    state = {"prefill": False}
+
+    def prefill(slots):
+        state["prefill"] = True
+        try:
+            inner_prefill(slots)
+        finally:
+            state["prefill"] = False
+
+    def step(params, toks, cache, pos, mask, *, cfg):
+        logits, cache = inner_step(params, toks, cache, pos, mask, cfg=cfg)
+        if not state["prefill"]:
+            top2 = torch.topk(logits, 2, dim=-1).values
+            margin = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+            for s in range(engine.num_slots):
+                req = engine.slot_req[s]
+                if engine.active[s] and req is not None:
+                    out[(req.rid, len(req.out))] = float(margin[s])
+        return logits, cache
+
+    engine._prefill_chunked = prefill
+    engine_mod._masked_step = step
+    return out, lambda: setattr(engine_mod, "_masked_step", inner_step)
+
+
+def mla_gate(seed: int, device, requests) -> dict:
+    """The f32 gate at 1 layer: the paged flash engine's greedy tokens
+    against the dense-cache engine's (``paged=False``: ``mla_decode``),
+    each request's first differing token inside the top-2 margin band of
+    the dense engine's logits; every launch of the flash engine on the
+    latent core; one decode step flash vs "xla"."""
+    import torch
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import decode_step_paged, init_params
+    from repro_torch.serve import ServeEngine
+
+    cfg32 = _mla_cfg(MLA_GATE_LAYERS, "float32")
+    params32 = init_params(seed + 1, cfg32, device=device)
+    engine = serve_engine(cfg32, params32)
+    LAUNCHES.reset()
+    flash = [engine.submit(p, max_new=m) for p, m in requests]
+    snap = None
+    while any(not r.done for r in flash):
+        engine.step()
+        if snap is None and engine.active[: len(requests)].all():
+            snap = (engine.next_token.copy(), engine.pos.copy(), engine.active.copy(),
+                    engine.kv_pages.page_table.copy(), {k: v.clone() for k, v in engine.cache["blocks"].items()})
+    counts, cores = LAUNCHES.counts(), LAUNCHES.cores()
+    for name in ("sfc_flash_decode", "sfc_flash_prefill"):
+        check(counts[name] > 0 and cores[f"{name}.latent"] == counts[name],
+              f"deepseek f32 gate: {name} launches {counts[name]}, latent {cores[f'{name}.latent']}")
+    check(snap is not None, "deepseek f32 gate: the engine never ran every request at once")
+    nt, pos, act, pt, pools = snap
+    outs = {}
+    for impl in ("flash", "xla"):
+        cache = {"blocks": {k: v.clone() for k, v in pools.items()}}
+        outs[impl], _ = decode_step_paged(params32, nt[:, None], cache, pos, pt, cfg32, write_mask=act,
+                                          attn_impl=impl)
+    step_err = float((outs["flash"] - outs["xla"]).abs().max())
+    check(bool(torch.allclose(outs["flash"], outs["xla"], rtol=STEP_TOL, atol=STEP_TOL)),
+          f"deepseek decode_step_paged flash vs xla: max err {step_err}")
+    del engine, snap, pools, outs
+    dense = ServeEngine(cfg32, params32, num_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN, paged=False)
+    margins, restore = margins_of_dense_engine(dense)
+    try:
+        ref = [dense.submit(p, max_new=m) for p, m in requests]
+        dense.run_until_done()
+    finally:
+        restore()
+    compared = diverged = 0
+    for f, d in zip(flash, ref):
+        check(len(f.out) == len(d.out) == f.max_new, f"deepseek gate rid {f.rid}: lengths")
+        differ = [i for i, (a, b) in enumerate(zip(f.out, d.out)) if a != b]
+        compared += differ[0] + 1 if differ else len(d.out)
+        if differ:
+            i = differ[0]
+            check(margins[(d.rid, i)] <= GATE_BAND,
+                  f"deepseek gate rid {f.rid}: token {i} differs outside the band (margin {margins[(d.rid, i)]})")
+            diverged += 1
+    del dense, params32
+    torch.cuda.empty_cache()
+    return {"layers": MLA_GATE_LAYERS, "requests": len(requests), "tokens_compared": compared,
+            "diverged_in_band": diverged, "band": GATE_BAND,
+            "decode_step_paged_flash_vs_xla_max_abs_err": step_err, "step_tol": STEP_TOL,
+            "launches": {k: counts[k] for k in ("sfc_flash_decode", "sfc_flash_prefill")},
+            "latent": {k: cores[f"{k}.latent"] for k in ("sfc_flash_decode", "sfc_flash_prefill")}}
+
+
+def time_latent(rng, device, errs, launches) -> list:
+    """Rows 21 and 22 on the latent core at MLA's full shapes (bf16 pool;
+    the f32 pool beside it): CUDA-event ms, the bound (FP32 operations: 4
+    g D per live (query, kv row) pair; bytes: q, the live pool rows, the
+    page-table entries and the output once), the plain version's ms, and a
+    page gather + SDPA in f32 as the library call.  With one kv head the
+    g query heads fold into SDPA's query axis (decode: g rows, prefill: T
+    g rows, each with its token's causal limit in an additive mask), so
+    SDPA reads the gathered pool once, as the kernel does; its largest
+    difference from the kernel on the live rows is reported beside it."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import launch
+
+    scale = 1.0 / float(np.sqrt(MLA_QK_WIDTH))
+    rows = []
+    for prefill in (False, True):
+        inp = latent_inputs(rng, device, torch.bfloat16, prefill=prefill)
+        pt, pos, q, pool, n_new = inp
+        prog = latent_programs(device, inp, scale)
+        args = (pt, pos, q, pool, pool)
+        B, MP = pt.shape
+        ps, D = pool.shape[1], pool.shape[-1]
+        g = q.shape[-2]
+        S = MP * ps
+        if prefill:
+            T = q.shape[1]
+            positions = pos.long()[:, None] + torch.arange(T, device=device)[None]
+            need = torch.arange(T, device=device)[None] < torch.as_tensor(n_new, device=device)[:, None]
+            pairs = float(((positions + 1) * need).sum())
+            nn_ = torch.as_tensor(n_new, device=device).long()
+            ends = (pos.long() + nn_)[nn_ > 0]
+            kv_rows, pages = int(ends.sum()), int(((ends - 1) // ps + 1).sum())
+            nbytes = 2 * 4 * int(need.sum()) * g * D + 2 * kv_rows * D + 4 * (pages + 2 * B)
+            limit = positions[:, :, None, None].expand(B, T, g, 1).reshape(B, 1, T * g, 1)
+            live = need[:, :, None].expand(B, T, g).reshape(B, T * g)
+        else:
+            pairs = float((pos.long() + 1).sum())
+            pages = int((pos.long() // ps + 1).sum())
+            nbytes = 2 * 4 * B * g * D + 2 * int(pairs) * D + 4 * (pages + B)
+            limit = pos.long()[:, None, None, None]
+            live = torch.ones((B, g), dtype=torch.bool, device=device)
+        # query row (token, head) of slot b as SDPA's row t g + head of its one head
+        qq = q.reshape(B, 1, -1, D)
+        mask = torch.zeros((B, 1, qq.shape[2], S), device=device).masked_fill_(
+            torch.arange(S, device=device) > limit, float("-inf"))
+        del limit
+
+        def library(qq=qq, mask=mask):
+            kk = pool[pt.long()].reshape(B, 1, S, D).float()
+            return F.scaled_dot_product_attention(qq, kk, kk, attn_mask=mask, scale=scale)
+
+        lib_err = float((library().reshape(B, -1, D) - launch(prog, *args).reshape(B, -1, D))[live].abs().max())
+
+        b_ms, b_by = bound_ms(4.0 * g * D * pairs, FP32_PEAK, nbytes)
+        pool32 = pool.float()
+        name = prog.name
+        row = {
+            "name": f"{name}.latent", "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+            "launches": launches[f"{name}.latent"], "max_abs_err": errs[(name, "bfloat16")],
+            "ms": cuda_ms(lambda: launch(prog, *args), 5),
+            "plain_ms": cuda_ms(lambda: prog.plain(prog, *args), 1, warmup=0),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(library, 3),
+            "library": "page gather + scaled_dot_product_attention f32, the g heads folded into the query axis",
+            "library_max_abs_err": lib_err,
+            "peak": "FP32 pipes (67 TFLOP/s), HBM 3.35 TB/s", "core": "latent",
+            "f32_pool": {"ms": cuda_ms(lambda: launch(prog, pt, pos, q, pool32, pool32), 5),
+                         "max_abs_err": errs[(name, "float32")]},
+            "shape": {"B": B, "Hkv": 1, "g": g, "D": D, "page_size": ps, "max_pages": MP,
+                      ("pos0" if prefill else "pos"): pos.tolist(),
+                      **({"Tq": q.shape[1], "n_new": [int(n) for n in n_new]} if prefill else {})},
+            "ctas": int(np.prod(prog.grid)),
+        }
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        rows.append(row)
+        log(f"time {name} latent: {json.dumps(row)}")
+        del inp, args, q, pool, pool32, prog, qq, mask, live
+        torch.cuda.empty_cache()
+    return rows
+
+
+def mla_serving_path(rng, device, seed: int) -> list:
+    """(a) rows 21 and 22 on the latent core against their plain versions;
+    (b) DeepSeek-V2 at MLA_LAYERS layers, full width, bf16, seeded random
+    weights: the paged flash engine serves MLA_REQUESTS requests, every
+    sfc_flash_prefill / sfc_flash_decode launch on the latent core, layers
+    x admissions and layers x decode ticks of them; the warm decode tick's
+    profile; (c) the f32 gate at MLA_GATE_LAYERS layer; (d) the latent
+    rows' timings.  Returns the two kernel rows."""
+    import torch
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import count_params, init_params
+    from repro_torch.serve import engine as engine_mod
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()  # TinyLlama's weights are gone (serving_path)
+    errs = compare_latent(rng, device)
+    cfg = _mla_cfg(MLA_LAYERS, "bfloat16")
+    t0 = time.perf_counter()
+    params = init_params(seed, cfg, device=device)
+    torch.cuda.synchronize()
+    log(f"serving deepseek model: {cfg.name} {cfg.num_layers} of 60 layers d={cfg.d_model} H={cfg.num_heads} "
+        f"q_lora={cfg.q_lora_rank} kv_lora={cfg.kv_lora_rank} rope={cfg.qk_rope_head_dim} "
+        f"experts={cfg.num_experts} top_k={cfg.top_k} shared={cfg.num_shared_experts} "
+        f"d_ff_expert={cfg.d_ff_expert} vocab={cfg.vocab_size} {cfg.dtype}, {count_params(params)} parameters, "
+        f"seeded random, {time.perf_counter() - t0:.1f} s to make, "
+        f"{torch.cuda.memory_allocated(device) / 2**30:.1f} GiB allocated")
+    requests = make_requests(rng, cfg.vocab_size, MLA_REQUESTS, MLA_NEW)
+    warm = serve_engine(cfg, params)
+    warm.submit(requests[0][0][:80], max_new=2)
+    warm.run_until_done()
+    del warm
+    ticks = {"decode": 0}
+    inner = engine_mod._masked_step_paged
+
+    def counted(*a, **k):
+        ticks["decode"] += 1
+        return inner(*a, **k)
+
+    engine_mod._masked_step_paged = counted
+    LAUNCHES.reset()
+    try:
+        reqs, metrics = drive_engine(serve_engine(cfg, params), requests)
+    finally:
+        engine_mod._masked_step_paged = inner
+    counts, cores = LAUNCHES.counts(), LAUNCHES.cores()
+    for r in reqs:
+        check(len(r.out) == r.max_new and all(0 <= t < cfg.vocab_size for t in r.out), f"deepseek rid {r.rid}: output")
+    check(metrics["pages_shared"] > 0, "deepseek: prefix sharing never engaged")
+    L = cfg.num_layers
+    want = {"sfc_flash_prefill": L * metrics["launching_admissions"], "sfc_flash_decode": L * ticks["decode"]}
+    for name, n in want.items():
+        check(counts[name] == cores[f"{name}.latent"] == n,
+              f"deepseek serving: {name} launches {counts[name]}, latent {cores[f'{name}.latent']}, expected {n}")
+    metrics["decode_ticks"] = ticks["decode"]
+    metrics["launches"] = {k: counts[k] for k in want}
+    metrics["cores"] = {k: v for k, v in cores.items() if k.split(".")[0] in want}
+    metrics["layers"] = L
+    log("serving deepseek: " + json.dumps(metrics))
+    busy = warm_decode_tick(cfg, params, requests, device)
+    launches = dict(cores)
+    del params, reqs
+    torch.cuda.empty_cache()
+
+    gate = mla_gate(seed, device, make_requests(rng, cfg.vocab_size, MLA_GATE_REQUESTS, MLA_GATE_NEW,
+                                                MLA_GATE_PROMPT))
+    log("check serving deepseek gate: " + json.dumps(gate))
+    rows = time_latent(rng, device, errs, launches)
+    log("serving deepseek busy: " + json.dumps(busy))
+    log(f"deepseek phase: {time.perf_counter() - t_phase:.1f} s")
     return rows
 
 
@@ -2932,7 +3323,7 @@ def main() -> int:
     for line in (lib.parent / "build.log").read_text().splitlines():
         if "registers" in line or "spill" in line.lower() or line.startswith("=="):
             log("  " + line.strip())
-    from repro_torch.kernels.attention import tiled_kernel_info
+    from repro_torch.kernels.attention import latent_kernel_info, tiled_kernel_info
     from repro_torch.kernels.floyd_warshall import fw_kernel_info
     from repro_torch.kernels.kmeans import kmeans_kernel_info
     from repro_torch.kernels.matmul import simt_kernel_info
@@ -2942,6 +3333,7 @@ def main() -> int:
     log("kmeans kernels: " + json.dumps(kmeans_kernel_info()))
     log("simjoin kernels: " + json.dumps(simjoin_kernel_info()))
     log("flash tiled kernels: " + json.dumps(tiled_kernel_info()))
+    log("flash latent kernels: " + json.dumps(latent_kernel_info()))
     log("fw kernels: " + json.dumps(fw_kernel_info()))
     log("fw panel grid: " + json.dumps(fw_panel_grids(device)))
     rng = np.random.default_rng(args.seed)
@@ -2951,9 +3343,11 @@ def main() -> int:
     compare_sharded(np.random.default_rng(args.seed + 4), device)
     if args.quick:
         compare_attention(np.random.default_rng(args.seed + 3), device)
+        compare_latent(np.random.default_rng(args.seed + 5), device)
         return 0
     result, ctx = main_path(rng, device, args.seed)
     result["kernels"] += serving_path(np.random.default_rng(args.seed + 3), device, args.seed)
+    result["kernels"] += mla_serving_path(np.random.default_rng(args.seed + 5), device, args.seed)
     result["kernels"] += sharded_path(device, args.seed, ctx)
     log(json.dumps(result))
     log(json.dumps({"ok": True, "device": {

@@ -12,6 +12,7 @@ imports that package); only the device-facing parts differ:
   fgf           jump-over walker for general regions        (paper §6.2)
   hilbert_nd    d-dimensional Hilbert/Z-order/Gray codecs   (beyond-paper)
   fgf_nd        d-dimensional jump-over walker              (beyond-paper)
+  nano          nano-programs (packed curve fragments)      (paper §6.3)
   curve         SpaceFillingCurve abstraction + registry    (beyond-paper)
   curves_nd     table-driven curve algebras (harmonious,
                 cyclic) + verification oracles              (beyond-paper)
@@ -43,6 +44,7 @@ from .fgf_nd import curve_jump_path_nd, fgf_box_nd, fgf_path_nd, fgf_triangle_nd
 from .fur import fur_is_unit_step, fur_path
 from .hilbert import hilbert_decode, hilbert_encode, hilbert_path
 from .hilbert_nd import hilbert_decode_nd, hilbert_encode_nd, hilbert_path_nd
+from . import nano
 from .neighbors import curve_range_boxes, halo_ranges, halo_ranges_oracle, neighbor_tile_mask
 from .peano import peano_decode, peano_encode, peano_path
 from .program import GpuProgram, curve_partition
@@ -74,9 +76,11 @@ from .schedule import (
     triangle_schedule_nd,
 )
 from .torch_hilbert import (
+    hilbert_decode_torch,
     hilbert_encode_nd_torch,
     hilbert_encode_torch,
     hilbert_sort_key,
+    zorder_encode_torch,
 )
 from .zorder import zorder_decode, zorder_encode, zorder_path
 

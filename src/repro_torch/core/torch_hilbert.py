@@ -15,7 +15,7 @@ import functools
 
 import torch
 
-from .hilbert import _ENC_DIGIT, _ENC_NEXT, U
+from .hilbert import _DEC_IJ, _DEC_NEXT, _ENC_DIGIT, _ENC_NEXT, U
 
 
 @functools.lru_cache(maxsize=16)
@@ -24,6 +24,14 @@ def _enc_tables(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     digit = torch.as_tensor(_ENC_DIGIT.reshape(-1), dtype=torch.int32, device=device)
     nxt = torch.as_tensor(_ENC_NEXT.reshape(-1), dtype=torch.int32, device=device)
     return digit, nxt
+
+
+@functools.lru_cache(maxsize=16)
+def _dec_tables(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Flattened [state * 4 + digit] decode tables on ``device``."""
+    ij = torch.as_tensor(_DEC_IJ.reshape(-1), dtype=torch.int32, device=device)
+    nxt = torch.as_tensor(_DEC_NEXT.reshape(-1), dtype=torch.int32, device=device)
+    return ij, nxt
 
 
 def hilbert_encode_torch(i: torch.Tensor, j: torch.Tensor, nbits: int) -> torch.Tensor:
@@ -46,6 +54,41 @@ def hilbert_encode_torch(i: torch.Tensor, j: torch.Tensor, nbits: int) -> torch.
         h = (h << 2) | enc_digit[idx]
         state = enc_next[idx]
     return h
+
+
+def hilbert_decode_torch(h: torch.Tensor, nbits: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(i, j) = H^-1(h) for an integer tensor; ``nbits`` bit-pair levels
+    (rounded up to even, as the encoder does).  int32 throughout."""
+    nbits = nbits + (nbits & 1)
+    h = h.to(torch.int32)
+    dec_ij, dec_next = _dec_tables(h.device)
+    state = torch.full(h.shape, U, dtype=torch.int32, device=h.device)
+    i = torch.zeros_like(state)
+    j = torch.zeros_like(state)
+    for t in range(nbits):
+        level = nbits - 1 - t
+        idx = (state * 4 + ((h >> (2 * level)) & 3)).long()
+        q = dec_ij[idx]
+        state = dec_next[idx]
+        i = (i << 1) | (q >> 1)
+        j = (j << 1) | (q & 1)
+    return i, j
+
+
+def zorder_encode_torch(i: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
+    """Z(i, j) via shift-mask spreading (16-bit coordinates, int32 out; the
+    bits are spread in int64, which holds the uint32 values exactly)."""
+
+    def spread(x):
+        x = x.to(torch.int64) & 0xFFFF
+        x = (x | (x << 8)) & 0x00FF00FF
+        x = (x | (x << 4)) & 0x0F0F0F0F
+        x = (x | (x << 2)) & 0x33333333
+        x = (x | (x << 1)) & 0x55555555
+        return x
+
+    z = (spread(i) << 1) | spread(j)
+    return torch.where(z >= 1 << 31, z - (1 << 32), z).to(torch.int32)
 
 
 def hilbert_encode_nd_torch(coords: torch.Tensor, nbits: int) -> torch.Tensor:

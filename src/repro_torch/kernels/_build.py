@@ -70,11 +70,12 @@ SIGNATURES = {
     "sfc_chol_panel": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "sfc_chol_trailing": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # flash kernels: (q, k, v, out, [decode: workspace,] table, runs, runs,
-    # heads, ...shape, [decode: split pages, splits,] scale, dtype, [prefill:
-    # the core's code, kernels/attention.py::PREFILL_CORE_CODE,] stream)
+    # heads, ...shape, [decode: split pages, splits,] scale, dtype (the
+    # pools'), [paged: the core's code, kernels/attention.py::
+    # PREFILL_CORE_CODE / DECODE_CORE_CODE,] stream)
     "sfc_flash_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _F, _I, _P),
     "sfc_flash_decode": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
-                         _I, _P),
+                         _I, _I, _P),
     "sfc_flash_prefill": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                           _I, _I, _P),
 }
@@ -84,7 +85,8 @@ SIGNATURES = {
 # (not counted): (which kernel, out int32[8]), read by kernel_info
 QUERIES = {"sfc_matmul_simt_info": (_I, _P), "sfc_flash_tiled_info": (_I, _P),
            "sfc_prefill_tiled_info": (_I, _P), "sfc_kmeans_info": (_I, _P),
-           "sfc_simjoin_info": (_I, _P), "sfc_fw_info": (_I, _P)}
+           "sfc_simjoin_info": (_I, _P), "sfc_fw_info": (_I, _P),
+           "sfc_flash_latent_info": (_I, _P)}
 # the first five of a query's eight values (csrc/kernel_info.cuh); the
 # last three are constants of the kernel's design
 INFO_KEYS = ("registers", "spill_bytes", "ctas_per_sm", "smem_bytes", "threads")
@@ -94,12 +96,15 @@ INFO_KEYS = ("registers", "spill_bytes", "ctas_per_sm", "smem_bytes", "threads")
 # bf16 on the tensor cores (TMA + wgmma), f32 (and the shapes the tensor-core
 # core does not take) on the SIMT kernels; the flash entries' f32 at the
 # tensor-core core's shapes (prefill: pages of 4 to 64 rows) on the
-# register-tiled SIMT core ("tiled")
+# register-tiled SIMT core ("tiled"); the paged entries' MLA calls (one
+# latent pool as K and V, f32 queries) on the latent core, GQA decode on
+# the split-KV core ("split")
 CORES = {
     "sfc_matmul": ("wgmma", "simt"),
     "sfc_matmul3d": ("wgmma", "simt"),
     "sfc_flash_attention": ("wgmma", "tiled", "simt"),
-    "sfc_flash_prefill": ("wgmma", "tiled", "simt"),
+    "sfc_flash_decode": ("split", "latent"),
+    "sfc_flash_prefill": ("wgmma", "tiled", "simt", "latent"),
 }
 
 

@@ -33,8 +33,8 @@ of the full walk.
 
 Limits of the CUDA kernels: head widths ``Dk, Dv <= 128`` (``Dk`` a
 multiple of 4) and at most 256 query rows per CTA (``bq`` for
-``sfc_flash_attention``, ``g`` for decode, ``page_size * g`` for prefill).
-The plain versions take any shape.
+``sfc_flash_attention``, ``g`` for decode, ``page_size * g`` for prefill),
+except on the latent core (below).  The plain versions take any shape.
 
 ``sfc_flash_attention`` and ``sfc_flash_prefill`` have three cores each,
 picked by dtype and shape (:func:`flash_core`, :func:`prefill_core`):
@@ -53,6 +53,15 @@ picked by dtype and shape (:func:`flash_core`, :func:`prefill_core`):
 The f32 serving path runs ``"tiled"`` prefill: every admission of an f32
 ``ServeEngine`` (``prefill="compiled"``) at TinyLlama's shapes.  A
 prefill launch takes its runs longest first (:func:`longest_first`).
+
+``sfc_flash_decode`` and ``sfc_flash_prefill`` have one more core,
+``"latent"`` (:func:`is_latent`): MLA's absorbed-weight attention, one kv
+head (Hkv = 1) whose single latent pool (c_kv ⊕ k_rope, f32 or bf16) is
+given as both K and V, against f32 queries of up to 576 columns (a
+multiple of 16) and any number of query heads.  The output is in q's
+dtype (f32).  Its rule looks at the pool itself: GQA passes two pools, so
+every GQA call keeps the core it had.  Decode's other core is
+``"split"``.
 """
 from __future__ import annotations
 
@@ -90,9 +99,16 @@ DECODE_SPLIT_ROWS = 128
 # of at least 4 rows, a multiple of 4, a 64-row stage
 WGMMA_PAGE_MIN = 8
 TILED_PAGE_MIN = 4
-# the core codes of sfc_flash_prefill's C entry (csrc/attention.cu:
-# PrefillCore)
-PREFILL_CORE_CODE = {"simt": 0, "wgmma": 1, "tiled": 2}
+# the core codes of sfc_flash_prefill's and sfc_flash_decode's C entries
+# (csrc/attention.cu: PrefillCore, DecodeCore)
+PREFILL_CORE_CODE = {"simt": 0, "wgmma": 1, "tiled": 2, "latent": 3}
+DECODE_CORE_CODE = {"split": 0, "latent": 1}
+# the latent core (csrc/attention.cu: lat::R, lat::MAX_D): query rows a CTA,
+# and its widths, multiples of LATENT_D_STEP up to LATENT_MAX_D (DeepSeek-V2's
+# kv_lora_rank + qk_rope_head_dim = 512 + 64)
+LATENT_ROWS = 32
+LATENT_MAX_D = 576
+LATENT_D_STEP = 16
 
 __all__ = [
     "DEFAULT_MASK_VALUE",
@@ -107,6 +123,7 @@ __all__ = [
     "flash_attention_prefill",
     "flash_attention_swizzled",
     "full_schedule",
+    "is_latent",
     "longest_first",
     "prefill_core",
     "prefill_page_schedule",
@@ -385,13 +402,59 @@ def _check_kernel_shape(program: GpuProgram, dk: int, dv: int, rows: int) -> Non
     if dk > MAX_HEAD_DIM or dv > MAX_HEAD_DIM or dk % 4:
         raise ValueError(
             f"{program.name}: head widths Dk={dk}, Dv={dv} are outside the CUDA "
-            f"kernel's limit (Dk, Dv <= {MAX_HEAD_DIM}, Dk % 4 == 0)"
+            f"kernel's limit (Dk, Dv <= {MAX_HEAD_DIM}, Dk % 4 == 0); a paged call with "
+            f"one kv head, an f32 q and one pool given as K and V (MLA's latent pool, Dk "
+            f"= Dv <= {LATENT_MAX_D}, a multiple of {LATENT_D_STEP}) runs the latent core"
         )
     if rows > MAX_ROWS:
         raise ValueError(
             f"{program.name}: {rows} query rows per CTA exceed the CUDA kernel's "
             f"limit of {MAX_ROWS}"
         )
+
+
+def _one_pool(k_pages: torch.Tensor, v_pages: torch.Tensor) -> bool:
+    """K and V are one tensor: the same storage, shape, strides and dtype."""
+    return (k_pages.data_ptr() == v_pages.data_ptr() and k_pages.shape == v_pages.shape
+            and k_pages.stride() == v_pages.stride() and k_pages.dtype == v_pages.dtype)
+
+
+def is_latent(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor) -> bool:
+    """Whether a paged decode or prefill call runs the latent core: one kv
+    head, an f32 q, and one pool of f32 or bf16 given as both K and V (MLA's
+    c_kv ⊕ k_rope, ``models.attention.mla_decode_paged``).  GQA passes two
+    pools, so its calls keep their cores."""
+    return (k_pages.dim() == 4 and k_pages.shape[2] == 1 and q.dtype == torch.float32
+            and k_pages.dtype in (torch.float32, torch.bfloat16) and _one_pool(k_pages, v_pages))
+
+
+def _latent_call(program: GpuProgram, q, k_pages, v_pages) -> bool:
+    """Whether a launch runs the latent core.  The operands decide
+    (:func:`is_latent`); the program must have been built for that core
+    (its ``latent`` flag sets the declared grid), or the call is refused."""
+    latent = is_latent(q, k_pages, v_pages)
+    if latent != program.params["latent"]:
+        raise ValueError(
+            f"{program.name}: the operands run the {'latent' if latent else 'GQA'} core, the program "
+            f"was built with latent={program.params['latent']}")
+    return latent
+
+
+def _check_latent_shape(program: GpuProgram, d: int) -> None:
+    if d % LATENT_D_STEP or not LATENT_D_STEP <= d <= LATENT_MAX_D:
+        raise ValueError(
+            f"{program.name}: latent width D={d} is outside the latent core's limit "
+            f"({LATENT_D_STEP} <= D <= {LATENT_MAX_D}, D % {LATENT_D_STEP} == 0)"
+        )
+
+
+def _require_pools(program: GpuProgram, q, k_pages, v_pages, latent: bool, shape_k, shape_v):
+    """The operand checks of a paged call: the latent core takes an f32 q
+    over one f32 or bf16 pool, the other cores pools in q's dtype."""
+    require(program, q, "q", dtypes=(torch.float32,) if latent else tuple(_DTYPE_CODE))
+    pools = tuple(_DTYPE_CODE) if latent else (q.dtype,)
+    require(program, k_pages, "k_pages", dtypes=pools, shape=shape_k)
+    require(program, v_pages, "v_pages", dtypes=pools, shape=shape_v)
 
 
 # ---------------------------------------------------------------------------
@@ -419,6 +482,14 @@ def tiled_kernel_info() -> dict:
             for name, query in (("sfc_flash_attention", "sfc_flash_tiled_info"),
                                 ("sfc_flash_prefill", "sfc_prefill_tiled_info"))
             for d in (64, 128)}
+
+
+def latent_kernel_info() -> dict:
+    """The latent core's build and residency on the current card (decode
+    and prefill at a bf16 pool and D = 576, :func:`._build.kernel_info`),
+    with its query rows a CTA, kv rows a stage and largest D."""
+    return {f"{name}.latent": kernel_info("sfc_flash_latent_info", which, ("rows", "kv_stage", "max_d"))
+            for which, name in enumerate(("sfc_flash_decode", "sfc_flash_prefill"))}
 
 
 def _aligned16(*tensors):
@@ -554,7 +625,7 @@ class DecodeLaunch(NamedTuple):
 
     split_pages: int             # consecutive logical pages a split CTA walks
     splits: int                  # split CTAs along a slot's max_pages pages
-    grid: tuple[int, int, int]   # (runs * splits, Hkv, row groups of DECODE_ROWS)
+    grid: tuple[int, int, int]   # (runs * splits, Hkv, row groups of a CTA's rows)
 
     def workspace(self, g: int, dv: int) -> tuple[int, ...]:
         """The f32 workspace of the split partials: (runs, splits, Hkv,
@@ -562,14 +633,17 @@ class DecodeLaunch(NamedTuple):
         return (self.grid[0] // self.splits, self.splits, self.grid[1], g, dv + 2)
 
 
-def decode_launch(n_runs: int, hkv: int, g: int, page_size: int, max_pages: int) -> DecodeLaunch:
+def decode_launch(n_runs: int, hkv: int, g: int, page_size: int, max_pages: int,
+                  rows: int = DECODE_ROWS) -> DecodeLaunch:
     """The split-KV geometry of a decode launch.  It depends on the shapes
     alone, never on ``pos`` (which stays on the device): a split holds
     :data:`DECODE_SPLIT_ROWS` // page_size pages (one round of a CTA's
-    four warps), at least one and at most ``max_pages``."""
+    four warps), at least one and at most ``max_pages``; a split CTA takes
+    ``rows`` query rows (:data:`DECODE_ROWS`, or :data:`LATENT_ROWS` on the
+    latent core)."""
     split_pages = max(1, min(DECODE_SPLIT_ROWS // page_size, max_pages))
     splits = -(-max_pages // split_pages)
-    return DecodeLaunch(split_pages, splits, (n_runs * splits, hkv, -(-g // DECODE_ROWS)))
+    return DecodeLaunch(split_pages, splits, (n_runs * splits, hkv, -(-g // rows)))
 
 
 def decode_workspace(lay: DecodeLaunch, g: int, dv: int, device) -> torch.Tensor:
@@ -600,24 +674,28 @@ def _decode_cuda(program: GpuProgram, page_table, pos, q, k_pages, v_pages):
     P, ps = k_pages.shape[:2]
     Dv = v_pages.shape[-1]
     MP = page_table.shape[1]
-    require(program, q, "q", dtypes=tuple(_DTYPE_CODE))
-    require(program, k_pages, "k_pages", dtypes=(q.dtype,), shape=(P, ps, Hkv, Dk))
-    require(program, v_pages, "v_pages", dtypes=(q.dtype,), shape=(P, ps, Hkv, Dv))
+    core = "latent" if _latent_call(program, q, k_pages, v_pages) else "split"
+    _require_pools(program, q, k_pages, v_pages, core == "latent", (P, ps, Hkv, Dk), (P, ps, Hkv, Dv))
     require(program, page_table, "page_table", dtypes=(torch.int32,), shape=(B, MP))
     require(program, pos, "pos", dtypes=(torch.int32,), shape=(B,))
     require(program, program.schedule, "schedule", dtypes=(torch.int32,))
     require(program, p["runs"], "runs", dtypes=(torch.int32,))
-    _check_kernel_shape(program, Dk, Dv, g)
+    if core == "latent":
+        _check_latent_shape(program, Dk)
+        q, k_pages = _aligned16(q, k_pages)
+        v_pages = k_pages
+    else:
+        _check_kernel_shape(program, Dk, Dv, g)
     _decode_check(program, page_table, k_pages)
     n_runs = int(p["runs"].shape[0])
-    lay = decode_launch(n_runs, Hkv, g, ps, MP)
+    lay = decode_launch(n_runs, Hkv, g, ps, MP, LATENT_ROWS if core == "latent" else DECODE_ROWS)
     o = torch.empty((B, Hkv, g, Dv), dtype=q.dtype, device=q.device)
     ws = decode_workspace(lay, g, Dv, q.device)
     call(
         "sfc_flash_decode", q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), o.data_ptr(),
         ws.data_ptr(), program.schedule.data_ptr(), p["runs"].data_ptr(), n_runs, Hkv,
         page_table.data_ptr(), pos.data_ptr(), g, Dk, Dv, ps, MP, lay.split_pages, lay.splits,
-        p["sm_scale"], _DTYPE_CODE[q.dtype], stream_of(q),
+        p["sm_scale"], _DTYPE_CODE[k_pages.dtype], DECODE_CORE_CODE[core], stream_of(q), core=core,
     )
     return o
 
@@ -676,11 +754,13 @@ def _decode_plain(program: GpuProgram, page_table, pos, q, k_pages, v_pages):
 
 
 def flash_decode_program(schedule: PageSchedule, q: torch.Tensor, *, page_size: int,
-                         max_pages: int, sm_scale: float) -> GpuProgram:
+                         max_pages: int, sm_scale: float, latent: bool = False) -> GpuProgram:
     """The ``sfc_flash_decode`` declaration: one CTA per (slot run, split of
     consecutive pages, kv head, group of
-    :data:`DECODE_ROWS` query heads), then one merge CTA per (slot run,
-    kv head) (:func:`decode_launch`)."""
+    :data:`DECODE_ROWS` query heads, :data:`LATENT_ROWS` with ``latent``),
+    then the merge of each (slot run, kv head) (:func:`decode_launch`).
+    The launcher refuses operands whose core (:func:`is_latent`) is not
+    the one ``latent`` declares."""
     Hkv, g = q.shape[1], q.shape[2]
     table = schedule.table
     if table.dim() != 2 or table.shape[1] != 4:
@@ -688,7 +768,7 @@ def flash_decode_program(schedule: PageSchedule, q: torch.Tensor, *, page_size: 
     n_runs = int(schedule.runs.shape[0])
     if table.shape[0] != n_runs * max_pages:
         raise ValueError(f"schedule of {table.shape[0]} rows is not {n_runs} runs of {max_pages} pages")
-    lay = decode_launch(n_runs, Hkv, g, page_size, max_pages)
+    lay = decode_launch(n_runs, Hkv, g, page_size, max_pages, LATENT_ROWS if latent else DECODE_ROWS)
     return GpuProgram(
         name="sfc_flash_decode",
         schedule=table,
@@ -696,7 +776,7 @@ def flash_decode_program(schedule: PageSchedule, q: torch.Tensor, *, page_size: 
         plain=_decode_plain,
         grid=lay.grid,
         params={"runs": schedule.runs, "sm_scale": float(sm_scale), "page_size": int(page_size),
-                "max_pages": int(max_pages)},
+                "max_pages": int(max_pages), "latent": bool(latent)},
         columns=("slot", "logical_page", "first", "last"),
     )
 
@@ -717,8 +797,9 @@ def flash_attention_decode(
     layout.  k_pages/v_pages: (P, page_size, Hkv, Dk/Dv) physical pools;
     page_table: int32[B, max_pages] logical→physical map; pos: int32[B]
     per-slot positions (the entry at pos is live, later positions are
-    masked).  schedule: :func:`decode_page_schedule_device`.  Returns
-    (B, Hkv, g, Dv) in q's dtype.
+    masked).  schedule: :func:`decode_page_schedule_device`.  MLA passes
+    one latent pool as both pools and an f32 q (:func:`is_latent`).
+    Returns (B, Hkv, g, Dv) in q's dtype.
     """
     B, Hkv, g, Dk = q.shape
     if k_pages.shape[2:] != (Hkv, Dk) or v_pages.shape[:3] != k_pages.shape[:3]:
@@ -726,7 +807,8 @@ def flash_attention_decode(
     if sm_scale is None:
         sm_scale = 1.0 / float(np.sqrt(Dk))
     program = flash_decode_program(schedule, q, page_size=k_pages.shape[1],
-                                   max_pages=page_table.shape[1], sm_scale=sm_scale)
+                                   max_pages=page_table.shape[1], sm_scale=sm_scale,
+                                   latent=is_latent(q, k_pages, v_pages))
     return launch(
         program, page_table.to(torch.int32).contiguous(), pos.to(torch.int32).contiguous(),
         q.contiguous(), k_pages, v_pages,
@@ -763,25 +845,31 @@ def _prefill_cuda(program: GpuProgram, page_table, pos0, q, k_pages, v_pages):
     P, ps = k_pages.shape[:2]
     Dv = v_pages.shape[-1]
     MP = page_table.shape[1]
-    require(program, q, "q", dtypes=tuple(_DTYPE_CODE))
-    require(program, k_pages, "k_pages", dtypes=(q.dtype,), shape=(P, ps, Hkv, Dk))
-    require(program, v_pages, "v_pages", dtypes=(q.dtype,), shape=(P, ps, Hkv, Dv))
+    latent = _latent_call(program, q, k_pages, v_pages)
+    _require_pools(program, q, k_pages, v_pages, latent, (P, ps, Hkv, Dk), (P, ps, Hkv, Dv))
     require(program, page_table, "page_table", dtypes=(torch.int32,), shape=(B, MP))
     require(program, pos0, "pos0", dtypes=(torch.int32,), shape=(B,))
     require(program, program.schedule, "schedule", dtypes=(torch.int32,))
     require(program, p["runs"], "runs", dtypes=(torch.int32,))
-    _check_kernel_shape(program, Dk, Dv, ps * g)
-    core = prefill_core(q.dtype, Dk, Dv, ps, g)
-    if core != "simt":
-        q, k_pages, v_pages = _aligned16(q, k_pages, v_pages)
+    if latent:
+        _check_latent_shape(program, Dk)
+        core = "latent"
+        q, k_pages = _aligned16(q, k_pages)
+        v_pages = k_pages
+    else:
+        _check_kernel_shape(program, Dk, Dv, ps * g)
+        core = prefill_core(q.dtype, Dk, Dv, ps, g)
+        if core != "simt":
+            q, k_pages, v_pages = _aligned16(q, k_pages, v_pages)
     # rows that no run covers stay unwritten, as on the TPU
     o = torch.empty((B, Tq, Hkv, g, Dv), dtype=q.dtype, device=q.device)
-    if program.grid[0]:
+    n_runs = int(p["runs"].shape[0])
+    if n_runs:
         call(
             "sfc_flash_prefill", q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), o.data_ptr(),
-            program.schedule.data_ptr(), p["runs"].data_ptr(), *program.grid,
+            program.schedule.data_ptr(), p["runs"].data_ptr(), n_runs, Hkv,
             page_table.data_ptr(), pos0.data_ptr(), Tq, g, Dk, Dv, ps, MP, B, P, p["sm_scale"],
-            _DTYPE_CODE[q.dtype], PREFILL_CORE_CODE[core], stream_of(q), core=core,
+            _DTYPE_CODE[k_pages.dtype], PREFILL_CORE_CODE[core], stream_of(q), core=core,
         )
     return o
 
@@ -824,10 +912,13 @@ def _prefill_plain(program: GpuProgram, page_table, pos0, q, k_pages, v_pages):
 
 
 def flash_prefill_program(schedule: PageSchedule, q: torch.Tensor, *, page_size: int,
-                          sm_scale: float) -> GpuProgram:
-    """The ``sfc_flash_prefill`` declaration: one CTA per (run, kv head);
-    a run is one (slot, q tile) of ``page_size`` tokens, the runs in the
-    schedule's launch order."""
+                          sm_scale: float, latent: bool = False) -> GpuProgram:
+    """The ``sfc_flash_prefill`` declaration: one CTA per (run, kv head),
+    with ``latent`` per (run, block of :data:`LATENT_ROWS` of the run's
+    page_size x g query rows); a run is one (slot, q tile) of
+    ``page_size`` tokens, the runs in the schedule's launch order.  The
+    launcher refuses operands whose core (:func:`is_latent`) is not the
+    one ``latent`` declares."""
     Tq, Hkv = q.shape[1], q.shape[2]
     if Tq % page_size:
         raise ValueError(f"Tq={Tq} is not a multiple of the page size {page_size}")
@@ -839,8 +930,9 @@ def flash_prefill_program(schedule: PageSchedule, q: torch.Tensor, *, page_size:
         schedule=table,
         launcher=_prefill_cuda,
         plain=_prefill_plain,
-        grid=(int(schedule.runs.shape[0]), Hkv),
-        params={"runs": schedule.runs, "sm_scale": float(sm_scale)},
+        grid=(int(schedule.runs.shape[0]),
+              -(-page_size * q.shape[3] // LATENT_ROWS) if latent else Hkv),
+        params={"runs": schedule.runs, "sm_scale": float(sm_scale), "latent": bool(latent)},
         columns=("slot", "q_tile", "logical_page", "first", "last", "valid"),
     )
 
@@ -860,7 +952,8 @@ def flash_attention_prefill(
     q: (B, Tq, Hkv, g, Dk) — each slot's Tq new prompt tokens in grouped
     GQA layout (token i at absolute position ``pos0[slot] + i``).  Tq
     must be a multiple of the page size (q tiles align to kv pages).  The
-    cohort's new K/V must already be in the pools.  schedule:
+    cohort's new K/V must already be in the pools (MLA: one latent pool
+    given as both, :func:`is_latent`).  schedule:
     :func:`prefill_page_schedule_device`.  Returns (B, Tq, Hkv, g, Dv);
     rows that no run of the schedule covers are left unwritten.
     """
@@ -869,7 +962,8 @@ def flash_attention_prefill(
         raise ValueError(f"pools {tuple(k_pages.shape)}/{tuple(v_pages.shape)} do not match q {tuple(q.shape)}")
     if sm_scale is None:
         sm_scale = 1.0 / float(np.sqrt(Dk))
-    program = flash_prefill_program(schedule, q, page_size=k_pages.shape[1], sm_scale=sm_scale)
+    program = flash_prefill_program(schedule, q, page_size=k_pages.shape[1], sm_scale=sm_scale,
+                                    latent=is_latent(q, k_pages, v_pages))
     return launch(
         program, page_table.to(torch.int32).contiguous(), pos0.to(torch.int32).contiguous(),
         q.contiguous(), k_pages, v_pages,

@@ -176,6 +176,36 @@
 // masks nothing (at D = 64, row 20's fast path).  0.226-0.261 ms at that
 // shape, 2.9-3.6x faster than page gather + SDPA (0.75-0.84 in the same
 // runs; chip_smoke.py).
+//
+// The latent core (lat::, below) runs sfc_flash_decode and sfc_flash_prefill
+// for MLA (DeepSeek-V2's absorbed-weight attention, models/attention.py::
+// mla_decode_paged / mla_prefill_paged): the same TPU kernels,
+// _flash_decode_kernel and _flash_prefill_kernel, at Hkv = 1, g = 128
+// query heads of D = 576 (c_kv 512 + k_rope 64) in f32 over one latent pool
+// in bf16 (or f32) given as both K and V.  The wrapper picks it
+// (kernels/attention.py::is_latent: one kv head, an f32 q, one pool); the
+// entries launch it for that core's code or refuse the call.  Each 1,152-byte
+// pool row is read by 128 heads: 4 g D = 294,912 FP32 operations a row, 256
+// a byte, far above the ridge of ~20 (67 TFLOP/s over 3.35 TB/s), so the
+// bound is the FP32 pipes (TF32 stays off; a bf16 tensor-core product would
+// change the numbers).  A CTA of 8 warps takes 32 query rows (a row block
+// of the slot's heads in decode, of the run's ps g rows in prefill) and
+// walks the kv rows 32 a stage: the stage's rows are looked up a stage
+// ahead, converted to f32 once into shared memory and read there as K (S =
+// Q K^T, each score flash_rows' fmaf chain over d ascending from 0) and as
+// V (O += P V on an 8 x 9 register tile a thread: the 32 x 576 f32
+// accumulator is 72 registers a thread); Q^T stays in shared memory for
+// the whole walk.  Decode is split-KV as the split core (splits of 128 kv
+// rows, dec::walk_steps, the same f32 workspace) and its merge takes 8 rows
+// a CTA.  One CTA an SM (157,952 B of shared memory at D = 576; 159 / 165
+// registers, no spill); the stage's copy is not overlapped with the
+// arithmetic.  At chip_smoke.py's shapes (8 slots, pools of 16-row pages)
+// decode takes 0.342 ms a call against a 0.0235 ms bound (0.07), prefill
+// 140.0 ms against 27.7 (0.20), where a page gather + SDPA in f32 with the
+// heads folded into the query axis takes 0.830 and 118.2 (NVIDIA H100 80GB
+// HBM3, 700.00 W).  By count, S = Q K^T gives a thread only 4 scores, so
+// its 5 LDS.128 (>= 20 shared-memory wavefronts) a warp per 16 FFMA would
+// cap the FP32 pipes near a fifth there.
 #include <climits>
 #include <cmath>
 #include <cstddef>
@@ -1256,18 +1286,21 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ kp, const T* __restr
   }
 }
 
-// CTA (run, kv head h): the slot's live splits in ascending order,
-// o = sum_s e_s acc_s / sum_s e_s l_s with e_s = exp(m_s - max_s m_s).
-// A warp a row finds its max and sum (32 splits' loads in flight, the sum
-// taken in split order by shuffles), then a thread an output element
-// walks the splits with 8 splits' loads in flight.
+// CTA (run, kv head h, row block z): rows z rows .. of the slot's g (all
+// of them on the split core, 8 a CTA on the latent core), the slot's live
+// splits in ascending order, o = sum_s e_s acc_s / sum_s e_s l_s with e_s
+// = exp(m_s - max_s m_s).  A warp a row finds its max and sum (32 splits'
+// loads in flight, the sum taken in split order by shuffles), then a
+// thread an output element walks the splits with 8 splits' loads in
+// flight.  An output's arithmetic does not depend on the row blocks.
 template <typename T>
 __global__ void __launch_bounds__(MERGE_THREADS)
 merge_kernel(const float* __restrict__ ws, T* __restrict__ o, const int* __restrict__ sched,
              const int* __restrict__ runs, const int* __restrict__ pos, int g, int dv, int ps,
-             int split_pages, int splits) {
+             int split_pages, int splits, int rows) {
   __shared__ float Ms[MAX_ROWS], Ls[MAX_ROWS];
   const int run = blockIdx.x, h = blockIdx.y, hkv = gridDim.y;
+  const int r0 = blockIdx.z * rows, nr = min(rows, g - r0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int start = runs[2 * run];
   const int slot = sched[4 * start];
@@ -1275,8 +1308,8 @@ merge_kernel(const float* __restrict__ ws, T* __restrict__ o, const int* __restr
   const int live = (steps + split_pages - 1) / split_pages;
   const int W = dv + 2;
   const size_t between = (size_t)hkv * g * W;  // from one split's partials to the next
-  const float* base = ws + ((size_t)run * splits * hkv + h) * g * W;
-  for (int r = warp; r < g; r += MERGE_THREADS / 32) {
+  const float* base = ws + (((size_t)run * splits * hkv + h) * g + r0) * W;
+  for (int r = warp; r < nr; r += MERGE_THREADS / 32) {
     const float* pr = base + r * W;
     float M = -INFINITY;
     for (int s = lane; s < live; s += 32) M = fmaxf(M, pr[s * between + dv]);
@@ -1295,7 +1328,7 @@ merge_kernel(const float* __restrict__ ws, T* __restrict__ o, const int* __restr
     }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < g * dv; i += MERGE_THREADS) {
+  for (int i = threadIdx.x; i < nr * dv; i += MERGE_THREADS) {
     const int r = i / dv, d = i - r * dv;
     const float* pr = base + r * W;
     const float M = Ms[r];
@@ -1312,7 +1345,7 @@ merge_kernel(const float* __restrict__ ws, T* __restrict__ o, const int* __restr
       for (int j = 0; j < 8; ++j)
         if (s0 + j < live) a = __fadd_rn(a, __fmul_rn(expf(m8[j] - M), v8[j]));
     }
-    store(o + (((size_t)slot * hkv + h) * g + r) * dv + d, a / Ls[r]);
+    store(o + (((size_t)slot * hkv + h) * g + r0 + r) * dv + d, a / Ls[r]);
   }
 }
 
@@ -1335,7 +1368,7 @@ int launch_t(const void* q, const void* kp, const void* vp, void* o, void* ws, c
   if (split_err != cudaSuccess) return (int)split_err;
   merge_kernel<T><<<dim3(n_runs, hkv), MERGE_THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)ws, (T*)o, (const int*)sched, (const int*)runs, (const int*)pos, g, dv, ps,
-      split_pages, splits);
+      split_pages, splits, g);
   return (int)cudaGetLastError();
 }
 
@@ -1356,6 +1389,394 @@ int launch_dtype(const void* q, const void* kp, const void* vp, void* o, void* w
 }
 
 }  // namespace dec
+
+// ---------------------------------------------------------------------------
+// the latent core: sfc_flash_decode and sfc_flash_prefill at MLA's shapes
+// (one kv head, one latent pool given as K and V, f32 queries)
+// ---------------------------------------------------------------------------
+
+namespace lat {
+
+constexpr int R = 32;              // query rows of a CTA
+constexpr int KV = 32;             // kv rows of a stage
+constexpr int WARPS = 8;
+constexpr int THREADS = WARPS * 32;
+constexpr int MAX_D = 576;         // DeepSeek-V2's kv_lora_rank + qk_rope_head_dim
+constexpr int NC = MAX_D / 64;     // output columns a lane: a warp's half of D, 32 lanes wide
+constexpr int PAD = 4;             // floats after each stage row and each row of P^T
+constexpr int PTS = R + PAD;       // P^T's row stride
+constexpr int MERGE_ROWS = 8;      // query rows of a decode merge CTA
+
+__host__ __device__ constexpr int row_stride(int D) { return D + PAD; }
+
+// Shared memory at width D (a multiple of 16): Q^T [D][R] (copied once),
+// the stage [KV][D + PAD] in f32 (the pool's rows, read once as K and once
+// as V), S [R][KV + 1], P^T [KV][R + PAD], each row's m, l and alpha, then
+// the stage rows' pool offsets and positions, two stages' worth.  A stage
+// row is 4 D + 16 bytes, an odd multiple of 16 modulo 128: the 8 lanes of
+// a 16-byte read phase of distinct rows hit distinct bank groups.
+// 157,952 B at D = 576, one CTA an SM.
+struct Smem {
+  float *qt, *kv, *s, *pt, *m, *l, *alpha;
+  size_t* roff;
+  int* rpos;
+
+  __device__ explicit Smem(float* base, int D) {
+    qt = base;
+    kv = qt + D * R;
+    s = kv + KV * row_stride(D);
+    pt = s + R * (KV + 1);
+    m = pt + KV * PTS;
+    l = m + R;
+    alpha = l + R;
+    roff = reinterpret_cast<size_t*>(alpha + R);
+    rpos = reinterpret_cast<int*>(roff + 2 * KV);
+  }
+};
+
+__host__ __device__ constexpr size_t smem_bytes(int D) {
+  return 4 * ((size_t)D * R + (size_t)KV * row_stride(D) + R * (KV + 1) + KV * PTS + 3 * R) +
+         2 * KV * (sizeof(size_t) + sizeof(int));
+}
+
+__device__ __forceinline__ float comp(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// decode: CTA (run * splits + split, kv head h, row block z): query rows
+// z R .. of the slot's g against table steps split * split_pages .. of the
+// run, up to the slot's last live page (dec::walk_steps; nkv = 0 for a
+// split wholly past it)
+struct DecodeRows {
+  const int* sched;
+  const int* table;
+  int start, slot, h, hkv, g, r0, nr, t0, nkv, p, ps, mp;
+
+  __device__ DecodeRows(const int* sched_, const int* runs, const int* table_, const int* pos,
+                        int g_, int ps_, int mp_, int split_pages, int splits)
+      : sched(sched_), table(table_), g(g_), ps(ps_), mp(mp_) {
+    const int run = blockIdx.x / splits, split = blockIdx.x - run * splits;
+    start = runs[2 * run];
+    const int n = runs[2 * run + 1];
+    slot = sched[4 * start];
+    h = blockIdx.y;
+    hkv = gridDim.y;
+    r0 = blockIdx.z * R;
+    nr = min(R, g - r0);
+    t0 = split * split_pages;
+    p = pos[slot];
+    const int steps = dec::walk_steps(p, ps, n);
+    nkv = t0 < steps ? (min(t0 + split_pages, steps) - t0) * ps : 0;
+  }
+  __device__ size_t q_row(int r) const { return ((size_t)slot * hkv + h) * g + r0 + r; }
+  __device__ int qlim(int) const { return p; }
+  // kv row f of the walk: its pool row and its position
+  __device__ void kv(int f, size_t& row, int& pos) const {
+    const int t = t0 + f / ps, off = f - (f / ps) * ps;
+    const int lp = sched[4 * (start + t) + 1];
+    row = ((size_t)table[(size_t)slot * mp + lp] * ps + off) * hkv + h;
+    pos = lp * ps + off;
+  }
+};
+
+// prefill: CTA (run, row block y): rows y R .. of the run's ps * g rows in
+// PrefillWalk::row order (row r = token r / g of the q tile, head r % g),
+// the run's pages in table order; one kv head
+struct PrefillRows {
+  const int* sched;
+  const int* table;
+  int start, slot, qt, tq, g, ps, mp, p0, r0, nr, nkv;
+
+  __device__ PrefillRows(const int* sched_, const int* runs, const int* table_, const int* pos0,
+                         int tq_, int g_, int ps_, int mp_)
+      : sched(sched_), table(table_), tq(tq_), g(g_), ps(ps_), mp(mp_) {
+    start = runs[2 * blockIdx.x];
+    nkv = runs[2 * blockIdx.x + 1] * ps;
+    slot = sched[6 * start];
+    qt = sched[6 * start + 1];
+    p0 = pos0[slot];
+    r0 = blockIdx.y * R;
+    nr = min(R, ps * g - r0);
+  }
+  __device__ size_t q_row(int r) const {
+    const int rr = r0 + r;
+    return ((size_t)slot * tq + qt * ps + rr / g) * g + rr % g;
+  }
+  __device__ int qlim(int r) const { return p0 + qt * ps + (r0 + r) / g; }
+  __device__ void kv(int f, size_t& row, int& pos) const {
+    const int t = f / ps, off = f - t * ps;
+    const int lp = sched[6 * (start + t) + 2];
+    row = (size_t)table[(size_t)slot * mp + lp] * ps + off;
+    pos = lp * ps + off;
+  }
+};
+
+// a stage's rows 0 .. nrows - 1 from the pool into sm.kv as f32, 16 bytes
+// a load (the pool 16-byte aligned, D a multiple of 16)
+__device__ __forceinline__ void stage_rows(const Smem& sm, const __nv_bfloat16* __restrict__ pool,
+                                           const size_t* roff, int nrows, int D) {
+  const int units = D / 8, st = row_stride(D);
+  for (int i = threadIdx.x; i < nrows * units; i += THREADS) {
+    const int j = i / units, u = i - j * units;
+    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(pool + roff[j] * D) + u);
+    float f[8];
+    dec::unpack(raw, f);
+    float4* dst = reinterpret_cast<float4*>(sm.kv + j * st + 8 * u);
+    dst[0] = make_float4(f[0], f[1], f[2], f[3]);
+    dst[1] = make_float4(f[4], f[5], f[6], f[7]);
+  }
+}
+
+__device__ __forceinline__ void stage_rows(const Smem& sm, const float* __restrict__ pool,
+                                           const size_t* roff, int nrows, int D) {
+  const int units = D / 4, st = row_stride(D);
+  for (int i = threadIdx.x; i < nrows * units; i += THREADS) {
+    const int j = i / units, u = i - j * units;
+    *reinterpret_cast<float4*>(sm.kv + j * st + 4 * u) =
+        __ldg(reinterpret_cast<const float4*>(pool + roff[j] * D) + u);
+  }
+}
+
+// One CTA: R query rows (w) against the walk's kv rows, KV a stage; on
+// return acc holds this thread's rows 8 (warp % 4) .. + 7 at columns
+// (warp / 4) D / 2 + lane + 32 c (c < NC, lane + 32 c < D / 2) of the
+// unnormalised output, and sm.m / sm.l each row's max and sum.  Per stage:
+// the rows' pool offsets (looked up a stage ahead by the first KV
+// threads), the stage in f32; S = Q K^T with thread (warp, lane) scoring
+// rows 4 (lane % 8) .. + 3 against kv row 4 warp + lane / 8 (each score
+// one fmaf chain over d ascending from 0, as flash_rows'; per 4 d: 4
+// LDS.128 of Q^T, 1 of the stage, 16 FFMA); the masks; the online softmax
+// a warp 4 rows, a lane a kv row (P^T, alpha, m, l to shared memory); O =
+// alpha O + P V on the 8 x NC register tile (per kv row 2 LDS.128 of P^T,
+// NC LDS.32 of the stage, 8 NC FFMA).
+template <typename T, typename Walk>
+__device__ __forceinline__ void latent_core(const Walk& w, const Smem& sm,
+                                            const float* __restrict__ q,
+                                            const T* __restrict__ pool, int D, float scale,
+                                            float (&acc)[8][NC]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int st = row_stride(D), nkv = w.nkv;
+
+  // Q^T, zero past the CTA's rows: a thread a row, 16 bytes a load
+  for (int i = threadIdx.x; i < R * (D / 4); i += THREADS) {
+    const int r = i % R, u = i / R;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < w.nr) v = __ldg(reinterpret_cast<const float4*>(q + w.q_row(r) * D) + u);
+    sm.qt[(4 * u) * R + r] = v.x;
+    sm.qt[(4 * u + 1) * R + r] = v.y;
+    sm.qt[(4 * u + 2) * R + r] = v.z;
+    sm.qt[(4 * u + 3) * R + r] = v.w;
+  }
+  if (threadIdx.x < R) {
+    sm.m[threadIdx.x] = -INFINITY;
+    sm.l[threadIdx.x] = 0.f;
+  }
+  if (threadIdx.x < KV) {
+    size_t ro = 0;
+    int pp = -1;
+    if ((int)threadIdx.x < nkv) w.kv(threadIdx.x, ro, pp);
+    sm.roff[threadIdx.x] = ro;
+    sm.rpos[threadIdx.x] = pp;
+  }
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
+  // the scores' rows and kv row; their limits
+  const int rg = lane & 7, jj = 4 * warp + (lane >> 3);
+  int lim[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) lim[i] = 4 * rg + i < w.nr ? w.qlim(4 * rg + i) : INT_MAX;
+  // P V's rows and columns
+  const int rb = 8 * (warp & 3), hw = D / 2, col0 = (warp >> 2) * hw + lane;
+  __syncthreads();
+
+  for (int f0 = 0, s = 0; f0 < nkv; f0 += KV, ++s) {
+    const int buf = (s & 1) * KV, nxt = KV - buf, nrows = min(KV, nkv - f0);
+    stage_rows(sm, pool, sm.roff + buf, nrows, D);
+    if (threadIdx.x < KV && f0 + KV < nkv) {
+      const int f = f0 + KV + threadIdx.x;
+      size_t ro = 0;
+      int pp = -1;
+      if (f < nkv) w.kv(f, ro, pp);
+      sm.roff[nxt + threadIdx.x] = ro;
+      sm.rpos[nxt + threadIdx.x] = pp;
+    }
+    __syncthreads();
+
+    {  // S = Q K^T, scaled and masked; a kv row past the walk scores -inf
+      float sc[4] = {0.f, 0.f, 0.f, 0.f};
+      const float* kr = sm.kv + jj * st;
+      const float* qc = sm.qt + 4 * rg;
+      for (int d = 0; d < D; d += 4) {
+        const float4 k4 = *reinterpret_cast<const float4*>(kr + d);
+        const float4 q0 = *reinterpret_cast<const float4*>(qc + d * R);
+        const float4 q1 = *reinterpret_cast<const float4*>(qc + (d + 1) * R);
+        const float4 q2 = *reinterpret_cast<const float4*>(qc + (d + 2) * R);
+        const float4 q3 = *reinterpret_cast<const float4*>(qc + (d + 3) * R);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          sc[i] = fmaf(comp(q0, i), k4.x, sc[i]);
+          sc[i] = fmaf(comp(q1, i), k4.y, sc[i]);
+          sc[i] = fmaf(comp(q2, i), k4.z, sc[i]);
+          sc[i] = fmaf(comp(q3, i), k4.w, sc[i]);
+        }
+      }
+      const int kp = sm.rpos[buf + jj];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        sm.s[(4 * rg + i) * (KV + 1) + jj] =
+            jj < nrows ? (kp <= lim[i] ? sc[i] * scale : MASK) : -INFINITY;
+    }
+    __syncthreads();
+
+    // the online softmax: warp w rows 4 w .. 4 w + 3, lane j kv row j
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = 4 * warp + i;
+      const float x = sm.s[r * (KV + 1) + lane];
+      const float mo = sm.m[r];
+      const float mn = fmaxf(mo, warp_max(x));
+      const float pe = expf(x - mn);
+      const float alpha = expf(mo - mn);
+      const float ls = warp_sum(pe);
+      sm.pt[lane * PTS + r] = pe;
+      if (lane == 0) {
+        sm.m[r] = mn;
+        sm.l[r] = alpha * sm.l[r] + ls;
+        sm.alpha[r] = alpha;
+      }
+    }
+    __syncthreads();
+
+    {  // O = alpha O + P V
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const float a = sm.alpha[rb + r];
+#pragma unroll
+        for (int c = 0; c < NC; ++c) acc[r][c] *= a;
+      }
+      for (int j = 0; j < nrows; ++j) {
+        const float4 pa = *reinterpret_cast<const float4*>(sm.pt + j * PTS + rb);
+        const float4 pb = *reinterpret_cast<const float4*>(sm.pt + j * PTS + rb + 4);
+        const float* vr = sm.kv + j * st + col0;
+        float v[NC];
+#pragma unroll
+        for (int c = 0; c < NC; ++c) v[c] = lane + 32 * c < hw ? vr[32 * c] : 0.f;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          acc[0][c] = fmaf(pa.x, v[c], acc[0][c]);
+          acc[1][c] = fmaf(pa.y, v[c], acc[1][c]);
+          acc[2][c] = fmaf(pa.z, v[c], acc[2][c]);
+          acc[3][c] = fmaf(pa.w, v[c], acc[3][c]);
+          acc[4][c] = fmaf(pb.x, v[c], acc[4][c]);
+          acc[5][c] = fmaf(pb.y, v[c], acc[5][c]);
+          acc[6][c] = fmaf(pb.z, v[c], acc[6][c]);
+          acc[7][c] = fmaf(pb.w, v[c], acc[7][c]);
+        }
+      }
+    }
+    __syncthreads();  // the stage, P^T and alpha are consumed
+  }
+}
+
+// decode's split CTAs: the split's (acc, m, l) of each row to ws[run,
+// split, h, row] = (acc[0 .. D), m, l), as dec::split_kernel's
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+decode_kernel(const float* __restrict__ q, const T* __restrict__ pool, float* __restrict__ ws,
+              const int* __restrict__ sched, const int* __restrict__ runs,
+              const int* __restrict__ table, const int* __restrict__ pos, int g, int D, int ps,
+              int mp, int split_pages, int splits, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  const DecodeRows w(sched, runs, table, pos, g, ps, mp, split_pages, splits);
+  if (w.nkv == 0) return;  // wholly past the slot's last live page: no partial
+  const Smem sm(smem, D);
+  float acc[8][NC];
+  latent_core(w, sm, q, pool, D, scale, acc);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rb = 8 * (warp & 3), hw = D / 2, col0 = (warp >> 2) * hw + lane, W = D + 2;
+  float* out = ws + (((size_t)blockIdx.x * w.hkv + w.h) * g + w.r0) * W;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    if (rb + r >= w.nr) continue;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      if (lane + 32 * c < hw) out[(rb + r) * W + col0 + 32 * c] = acc[r][c];
+  }
+  if ((int)threadIdx.x < w.nr) {
+    out[threadIdx.x * W + D] = sm.m[threadIdx.x];
+    out[threadIdx.x * W + D + 1] = sm.l[threadIdx.x];
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+prefill_kernel(const float* __restrict__ q, const T* __restrict__ pool, float* __restrict__ o,
+               const int* __restrict__ sched, const int* __restrict__ runs,
+               const int* __restrict__ table, const int* __restrict__ pos0, int tq, int g, int D,
+               int ps, int mp, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  const PrefillRows w(sched, runs, table, pos0, tq, g, ps, mp);
+  const Smem sm(smem, D);
+  float acc[8][NC];
+  latent_core(w, sm, q, pool, D, scale, acc);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rb = 8 * (warp & 3), hw = D / 2, col0 = (warp >> 2) * hw + lane;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    if (rb + r >= w.nr) continue;
+    float* orow = o + w.q_row(rb + r) * D + col0;
+    const float l = sm.l[rb + r];
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      if (lane + 32 * c < hw) orow[32 * c] = acc[r][c] / l;
+  }
+}
+
+// D a multiple of 16 up to MAX_D, one kv head, any number of query rows
+bool shape(int hkv, int dk, int dv) {
+  return hkv == 1 && dk == dv && dk >= 16 && dk <= MAX_D && dk % 16 == 0;
+}
+
+template <typename T>
+int decode(const void* q, const void* pool, void* o, void* ws, const void* sched, const void* runs,
+           int n_runs, const void* table, const void* pos, int g, int D, int ps, int mp,
+           int split_pages, int splits, float scale, void* stream) {
+  if (n_runs == 0) return 0;
+  if ((g + R - 1) / R > 65535) return (int)cudaErrorInvalidConfiguration;
+  cudaError_t err = raise_smem_limit<decode_kernel<T>>((int)smem_bytes(MAX_D));
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(n_runs * splits, 1, (g + R - 1) / R);
+  decode_kernel<T><<<grid, THREADS, smem_bytes(D), (cudaStream_t)stream>>>(
+      (const float*)q, (const T*)pool, (float*)ws, (const int*)sched, (const int*)runs,
+      (const int*)table, (const int*)pos, g, D, ps, mp, split_pages, splits, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 merge_grid(n_runs, 1, (g + MERGE_ROWS - 1) / MERGE_ROWS);
+  dec::merge_kernel<float><<<merge_grid, dec::MERGE_THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)ws, (float*)o, (const int*)sched, (const int*)runs, (const int*)pos, g, D, ps,
+      split_pages, splits, MERGE_ROWS);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int prefill(const void* q, const void* pool, void* o, const void* sched, const void* runs,
+            int n_runs, const void* table, const void* pos0, int tq, int g, int D, int ps, int mp,
+            float scale, void* stream) {
+  if (n_runs == 0) return 0;
+  const int blocks = (ps * g + R - 1) / R;
+  if (blocks > 65535) return (int)cudaErrorInvalidConfiguration;
+  const cudaError_t err = raise_smem_limit<prefill_kernel<T>>((int)smem_bytes(MAX_D));
+  if (err != cudaSuccess) return (int)err;
+  prefill_kernel<T><<<dim3(n_runs, blocks), THREADS, smem_bytes(D), (cudaStream_t)stream>>>(
+      (const float*)q, (const T*)pool, (float*)o, (const int*)sched, (const int*)runs,
+      (const int*)table, (const int*)pos0, tq, g, D, ps, mp, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace lat
+
 
 // ---------------------------------------------------------------------------
 // sfc_flash_attention and sfc_flash_prefill in bf16 on the tensor cores:
@@ -1857,9 +2278,17 @@ bool prefill_tiled_shape(int dk, int dv, int ps, int g) {
          ps % tiled::PAGE_MIN == 0 && tiled::KV % ps == 0;
 }
 
-// sfc_flash_prefill's cores, as the wrapper names them (kernels/
-// attention.py::prefill_core picks one by these rules and passes its code)
-enum PrefillCore { PREFILL_SIMT = 0, PREFILL_WGMMA = 1, PREFILL_TILED = 2 };
+// sfc_flash_prefill's and sfc_flash_decode's cores, as the wrapper names
+// them (kernels/attention.py::prefill_core and is_latent pick one by these
+// rules and pass its code)
+enum PrefillCore { PREFILL_SIMT = 0, PREFILL_WGMMA = 1, PREFILL_TILED = 2, PREFILL_LATENT = 3 };
+enum DecodeCore { DECODE_SPLIT = 0, DECODE_LATENT = 1 };
+
+// the latent core's operands: one pool given as K and V, q and the pool
+// 16-byte aligned
+bool latent_operands(const void* q, const void* kp, const void* vp) {
+  return kp == vp && (uintptr_t)q % 16 == 0 && (uintptr_t)kp % 16 == 0;
+}
 
 }  // namespace
 
@@ -1886,15 +2315,26 @@ extern "C" int sfc_flash_attention(const void* q, const void* k, const void* v, 
 }
 
 // ws: the f32 workspace of the split partials, (n_runs, splits, hkv, g,
-// dv + 2); splits * split_pages must cover the mp pages of a run
+// dv + 2); splits * split_pages must cover the mp pages of a run.  dtype:
+// the pools'; q is in it too on the split core, f32 on the latent core.
 extern "C" int sfc_flash_decode(const void* q, const void* kp, const void* vp, void* o, void* ws,
                                 const void* sched, const void* runs, int n_runs, int hkv,
                                 const void* table, const void* pos, int g, int dk, int dv, int ps,
                                 int mp, int split_pages, int splits, float scale, int dtype,
-                                void* stream) {
-  if (bad_shape(g, dk, dv) || ps < 1 || split_pages < 1 || splits < 1 ||
-      (long long)split_pages * splits < mp || (long long)split_pages * ps > INT_MAX / 2)
+                                int core, void* stream) {
+  if (ps < 1 || split_pages < 1 || splits < 1 || (long long)split_pages * splits < mp ||
+      (long long)split_pages * ps > INT_MAX / 2)
     return (int)cudaErrorInvalidValue;
+  if (core == DECODE_LATENT) {
+    if (!lat::shape(hkv, dk, dv) || g < 1 || !latent_operands(q, kp, vp))
+      return (int)cudaErrorInvalidValue;
+    if (dtype == 0)
+      return lat::decode<float>(q, kp, o, ws, sched, runs, n_runs, table, pos, g, dk, ps, mp,
+                                split_pages, splits, scale, stream);
+    return lat::decode<__nv_bfloat16>(q, kp, o, ws, sched, runs, n_runs, table, pos, g, dk, ps, mp,
+                                      split_pages, splits, scale, stream);
+  }
+  if (core != DECODE_SPLIT || bad_shape(g, dk, dv)) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return dec::launch_dtype<float>(q, kp, vp, o, ws, sched, runs, n_runs, hkv, table, pos, g, dk,
                                     dv, ps, mp, split_pages, splits, scale, stream);
@@ -1909,6 +2349,15 @@ extern "C" int sfc_flash_prefill(const void* q, const void* kp, const void* vp, 
                                  const void* table, const void* pos0, int tq, int g, int dk, int dv,
                                  int ps, int mp, int B, int P, float scale, int dtype, int core,
                                  void* stream) {
+  if (core == PREFILL_LATENT) {
+    if (!lat::shape(hkv, dk, dv) || g < 1 || ps < 1 || !latent_operands(q, kp, vp))
+      return (int)cudaErrorInvalidValue;
+    if (dtype == 0)
+      return lat::prefill<float>(q, kp, o, sched, runs, n_runs, table, pos0, tq, g, dk, ps, mp,
+                                 scale, stream);
+    return lat::prefill<__nv_bfloat16>(q, kp, o, sched, runs, n_runs, table, pos0, tq, g, dk, ps,
+                                       mp, scale, stream);
+  }
   if (bad_shape(ps * g, dk, dv) || ps < 1) return (int)cudaErrorInvalidValue;
   if (core == PREFILL_WGMMA) {
     if (dtype == 0 || !prefill_tensor_core_shape(dk, dv, ps, g)) return (int)cudaErrorInvalidValue;
@@ -1950,4 +2399,15 @@ extern "C" int sfc_prefill_tiled_info(int d, int* out) {
                            : (const void*)tiled::prefill_tiled_kernel<128>;
   const int smem = d == 64 ? tiled::Layout<64>::PREFILL_SMEM : tiled::Layout<128>::PREFILL_SMEM;
   return sfc::kernel_info(fn, tiled::THREADS, smem, {d, tiled::KV, tiled::STAGES}, out);
+}
+
+// The latent core's build and residency, for the record: which = 0 decode,
+// 1 prefill, at a bf16 pool and D = 576; out as kernel_info.cuh's, the
+// design constants its query rows a CTA, kv rows a stage and largest D.
+extern "C" int sfc_flash_latent_info(int which, int* out) {
+  if (which != 0 && which != 1) return (int)cudaErrorInvalidValue;
+  const void* fn = which == 0 ? (const void*)lat::decode_kernel<__nv_bfloat16>
+                              : (const void*)lat::prefill_kernel<__nv_bfloat16>;
+  return sfc::kernel_info(fn, lat::THREADS, (int)lat::smem_bytes(lat::MAX_D),
+                          {lat::R, lat::KV, lat::MAX_D}, out);
 }

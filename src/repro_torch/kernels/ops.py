@@ -313,7 +313,8 @@ def attention_decode(
     """One serving decode step against a PAGED KV cache.
 
     q: (B, Hkv, g, Dk) grouped single-token queries; k_pages/v_pages:
-    (P, page_size, Hkv, Dk/Dv) physical pools; ``page_table`` int32[B,
+    (P, page_size, Hkv, Dk/Dv) physical pools (MLA: Hkv = 1, one latent
+    pool given as both, an f32 q; the latent core); ``page_table`` int32[B,
     max_pages] and ``pos`` int32[B].  The decode table is cached per
     (B, max_pages, slot_order, device).  Returns (B, Hkv, g, Dv).
     """

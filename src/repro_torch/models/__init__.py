@@ -1,5 +1,5 @@
-"""repro_torch.models — the LM stack of the PyTorch/CUDA port (dense GQA
-blocks in this slice; MoE, MLA and SSM blocks raise
+"""repro_torch.models — the LM stack of the PyTorch/CUDA port (dense and
+MoE blocks, GQA and MLA attention; SSM blocks and the hybrid pattern raise
 :class:`NotImplementedError` naming the slice that brings them)."""
 from .config import ModelConfig, reduced
 from .model import (

@@ -1,6 +1,6 @@
-"""Attention blocks: GQA (RoPE, optional QKV bias).
+"""Attention blocks: GQA (RoPE, optional QKV bias) and MLA (DeepSeek-V2).
 
-Two execution paths, as in the JAX package:
+Two execution paths each, as in the JAX package:
   * ``forward`` — full-sequence (prefill / scoring), through the
     ``sfc_flash_attention`` kernel when ``cfg.use_hilbert_kernels`` is set,
     else the plain ``_sdpa_auto``;
@@ -10,24 +10,28 @@ Two execution paths, as in the JAX package:
     named as in the JAX package so launch flags match), and batched
     prefill runs ``sfc_flash_prefill``.
 
+MLA keeps the paper's *compressed* cache (c_kv ⊕ k_rope, 576 numbers a
+position at DeepSeek-V2's widths) and decodes in the absorbed-weight form;
+its paged calls hand the one latent pool to the flash kernels as both K
+and V with an f32 query (their latent core).  ``mla_forward`` expands the
+latent to full heads (einsum, or the chunked online softmax for long
+sequences).
+
 Caches are dicts of tensors updated IN PLACE (the JAX package returns new
 arrays and donates the old ones); every function still returns the cache
 it was given, so the call shapes match.
-
-MLA (DeepSeek-V2) is not in this slice: :func:`init_mla` raises.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .config import ModelConfig
-from .layers import apply_rope, dense_init, param
+from .layers import RMSNorm, apply_rope, dense_init, param, rms_norm
 
 NEG_INF = -0.7 * float(np.finfo(np.float32).max)
-
-_NEXT = "the MLA slice of the PyTorch/CUDA port (deepseek-v2-236b)"
 
 
 def _neg_inf(like: torch.Tensor) -> torch.Tensor:
@@ -65,10 +69,6 @@ class GQA(nn.Module):
 
 def init_gqa(cfg: ModelConfig, dtype, device) -> GQA:
     return GQA(cfg, dtype, device)
-
-
-def init_mla(cfg: ModelConfig, dtype, device):
-    raise NotImplementedError(f"MLA attention is not ported yet: it arrives with {_NEXT}")
 
 
 def _qkv(params: GQA, x: torch.Tensor, cfg: ModelConfig):
@@ -336,3 +336,235 @@ def gqa_prefill_paged(params: GQA, x, cfg: ModelConfig, pools, pos0, n_new,
     # trash page, from where the online softmax leaks it back through 0·NaN.
     out = torch.where(wm[:, :, None], out, torch.zeros((), dtype=out.dtype, device=out.device))
     return out @ params.wo, pools
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+class MLA(nn.Module):
+    """MLA projections, the JAX package's keys: ``wkv_a`` (d, r + dr),
+    ``kv_norm`` (r), ``wkv_b`` (r, H·(dn + dv)), ``wo`` (H·dv, d) and either
+    ``wq_a`` (d, q_lora), ``q_norm``, ``wq_b`` (q_lora, H·(dn + dr)) or, when
+    ``q_lora_rank == 0``, ``wq`` (d, H·(dn + dr))."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        d, h = cfg.d_model, cfg.num_heads
+        dqk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+        self.wkv_a = param((d, cfg.kv_lora_rank + cfg.qk_rope_head_dim), dtype, device)
+        self.kv_norm = RMSNorm(cfg.kv_lora_rank, dtype, device)
+        self.wkv_b = param((cfg.kv_lora_rank, h * (cfg.qk_nope_head_dim + cfg.v_head_dim)), dtype, device)
+        self.wo = param((h * cfg.v_head_dim, d), dtype, device)
+        if cfg.q_lora_rank:
+            self.wq_a = param((d, cfg.q_lora_rank), dtype, device)
+            self.q_norm = RMSNorm(cfg.q_lora_rank, dtype, device)
+            self.wq_b = param((cfg.q_lora_rank, h * dqk), dtype, device)
+        else:
+            self.wq = param((d, h * dqk), dtype, device)
+
+    @torch.no_grad()
+    def reset(self, gen: torch.Generator) -> None:
+        for name in ("wkv_a", "wkv_b", "wo", "wq_a", "wq_b", "wq"):
+            if hasattr(self, name):
+                dense_init(getattr(self, name), gen)
+        for name in ("kv_norm", "q_norm"):
+            if hasattr(self, name):
+                getattr(self, name).reset(gen)
+
+
+def init_mla(cfg: ModelConfig, dtype, device) -> MLA:
+    return MLA(cfg, dtype, device)
+
+
+def _mla_q(params: MLA, x, cfg: ModelConfig, positions):
+    B, S, _ = x.shape
+    if cfg.q_lora_rank:
+        q = rms_norm(x @ params.wq_a, params.q_norm, cfg.norm_eps) @ params.wq_b
+    else:
+        q = x @ params.wq
+    q = q.reshape(B, S, cfg.num_heads, cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+    q_nope, q_rope = q.split([cfg.qk_nope_head_dim, cfg.qk_rope_head_dim], dim=-1)
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_ckv(params: MLA, x, cfg: ModelConfig, positions):
+    """(c_kv (B, S, r), k_rope (B, S, dr)), in x's dtype."""
+    c_kv, k_rope = (x @ params.wkv_a).split([cfg.kv_lora_rank, cfg.qk_rope_head_dim], dim=-1)
+    c_kv = rms_norm(c_kv, params.kv_norm, cfg.norm_eps)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    return c_kv, k_rope
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    """1/√(dn + dr): the scale of the full heads' scores (1/√192 at
+    DeepSeek-V2's widths), not of the latent width."""
+    return 1.0 / float(np.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim))
+
+
+def mla_forward(params: MLA, x, cfg: ModelConfig, positions, kv_chunk: int = 1024):
+    """Full-sequence path: the latent expanded to full K/V heads.  Long
+    sequences (S > kv_chunk, a multiple of it) run the chunked online
+    softmax with V padded to the K width."""
+    B, S, _ = x.shape
+    h = cfg.num_heads
+    dn, dv, dr = cfg.qk_nope_head_dim, cfg.v_head_dim, cfg.qk_rope_head_dim
+    q_nope, q_rope = _mla_q(params, x, cfg, positions)
+    c_kv, k_rope = _mla_ckv(params, x, cfg, positions)
+    scale = _mla_scale(cfg)
+    kv = (c_kv @ params.wkv_b).reshape(B, S, h, dn + dv)
+    k_nope, v = kv.split([dn, dv], dim=-1)
+    if S <= kv_chunk or S % kv_chunk:
+        scores = (torch.einsum("bqhd,bkhd->bhqk", q_nope.float(), k_nope.float())
+                  + torch.einsum("bqhd,bkd->bhqk", q_rope.float(), k_rope.float())) * scale
+        if cfg.causal:
+            mask = torch.ones((S, S), dtype=torch.bool, device=x.device).tril()
+            scores = torch.where(mask[None, None], scores, _neg_inf(scores))
+        p = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(x.dtype)
+        return out.reshape(B, S, -1) @ params.wo
+    k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, h, dr).to(k_nope.dtype)], dim=-1)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    qf = (q_full.float() * scale)[:, :, :, None, :]  # g = 1
+    v_pad = F.pad(v, (0, dn + dr - dv))
+    out = _flash_fwd_scan(qf, k_full, v_pad, cfg.causal, kv_chunk)
+    out = out[:, :, :, 0, :dv].to(x.dtype)
+    return out.reshape(B, S, -1) @ params.wo
+
+
+def mla_init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device):
+    return {
+        "c_kv": torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype, device=device),
+        "k_rope": torch.zeros((batch, max_len, cfg.qk_rope_head_dim), dtype=dtype, device=device),
+    }
+
+
+def _absorbed(params: MLA, cfg: ModelConfig):
+    """wkv_b split per head: (w_nope (r, H, dn), w_v (r, H, dv))."""
+    wkv_b = params.wkv_b.reshape(cfg.kv_lora_rank, cfg.num_heads,
+                                 cfg.qk_nope_head_dim + cfg.v_head_dim)
+    return wkv_b[:, :, :cfg.qk_nope_head_dim], wkv_b[:, :, cfg.qk_nope_head_dim:]
+
+
+def _latent_softmax(q_lat, q_rope, c_all, kr_all, mask, scale):
+    """The absorbed-weight attention over gathered latents: q_lat (B, T, H,
+    r), q_rope (B, T, H, dr) f32; c_all (B, S, r), kr_all (B, S, dr); mask
+    broadcast against (B, H, T, S).  Returns the context (B, T, H, r) f32."""
+    scores = (torch.einsum("bqhr,bkr->bhqk", q_lat, c_all.float())
+              + torch.einsum("bqhd,bkd->bhqk", q_rope.float(), kr_all.float())) * scale
+    scores = torch.where(mask, scores, _neg_inf(scores))
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bkr->bqhr", p, c_all.float())
+
+
+def mla_decode(params: MLA, x, cfg: ModelConfig, cache, pos):
+    """Absorbed-weight decode against the dense compressed cache (written
+    in place at (slot, pos)).  pos: int[B].  Returns (out, cache)."""
+    B = x.shape[0]
+    pos_arr = pos[:, None]
+    q_nope, q_rope = _mla_q(params, x, cfg, pos_arr)  # (B, 1, H, *)
+    c_kv_new, k_rope_new = _mla_ckv(params, x, cfg, pos_arr)
+    rows = torch.arange(B, device=x.device)
+    p = pos.long()
+    cache["c_kv"][rows, p] = c_kv_new[:, 0].to(cache["c_kv"].dtype)
+    cache["k_rope"][rows, p] = k_rope_new[:, 0].to(cache["k_rope"].dtype)
+    w_nope, w_v = _absorbed(params, cfg)
+    q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope.float(), w_nope.float())
+    Sk = cache["c_kv"].shape[1]
+    valid = (torch.arange(Sk, device=x.device)[None] <= p[:, None])[:, None, None]
+    ctx = _latent_softmax(q_lat, q_rope, cache["c_kv"], cache["k_rope"], valid, _mla_scale(cfg))
+    out = torch.einsum("bqhr,rhd->bqhd", ctx, w_v.float()).to(x.dtype)
+    return out.reshape(B, 1, -1) @ params.wo, cache
+
+
+# ---------------------------------------------------------------------------
+# paged decode and prefill (MLA)
+# ---------------------------------------------------------------------------
+
+def mla_init_pages(cfg: ModelConfig, num_pages: int, page_size: int, dtype, device):
+    """One pool leaf of the compressed latent: (P, ps, 1, r + dr), c_kv ⊕
+    k_rope a position, with the single kv head of the flash kernels'
+    (P, ps, Hkv, D) layout."""
+    w = cfg.kv_lora_rank + cfg.qk_rope_head_dim
+    return {"kv_pages": torch.zeros((num_pages, page_size, 1, w), dtype=dtype, device=device)}
+
+
+def _gather_latent(pools, page_table, cfg: ModelConfig):
+    """(c_all (B, S, r), kr_all (B, S, dr)) of every slot's pages, in
+    logical order (S = max_pages · page_size)."""
+    B, MP = page_table.shape
+    kvp = pools["kv_pages"]
+    kv_all = kvp[page_table.long()].reshape(B, MP * kvp.shape[1], kvp.shape[-1])
+    return kv_all[..., :cfg.kv_lora_rank], kv_all[..., cfg.kv_lora_rank:]
+
+
+def mla_decode_paged(params: MLA, x, cfg: ModelConfig, pools, pos, page_table, *,
+                     write_mask=None, attn_impl: str = "flash"):
+    """Absorbed-weight MLA decode against the paged compressed cache.
+
+    The flash path is the grouped decode kernel at Hkv = 1, g = H: the
+    latent pool goes in as both K and V, the f32 query is q_lat ⊕ q_rope
+    over the r + dr columns, and the context is cut back to its first r
+    columns before the w_v expansion.  "xla" gathers the pages for the
+    plain softmax.  Returns (out, pools)."""
+    B = x.shape[0]
+    r = cfg.kv_lora_rank
+    pos_arr = pos[:, None]
+    q_nope, q_rope = _mla_q(params, x, cfg, pos_arr)  # (B, 1, H, *)
+    c_kv_new, k_rope_new = _mla_ckv(params, x, cfg, pos_arr)
+    new = torch.cat([c_kv_new[:, 0], k_rope_new[:, 0]], dim=-1)
+    _paged_write(pools["kv_pages"], new[:, None, :], page_table, pos, write_mask)
+    w_nope, w_v = _absorbed(params, cfg)
+    q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope.float(), w_nope.float())
+    scale = _mla_scale(cfg)
+    if attn_impl == "flash":
+        from repro_torch.kernels import ops as kops
+
+        qg = torch.cat([q_lat, q_rope.float()], dim=-1)[:, 0][:, None]  # (B, 1, H, r + dr)
+        ctx = kops.attention_decode(qg, pools["kv_pages"], pools["kv_pages"], page_table, pos,
+                                    sm_scale=scale)
+        ctx = ctx[:, 0, :, :r]  # (B, H, r): the k_rope columns dropped
+        out = torch.einsum("bhr,rhd->bhd", ctx, w_v.float())[:, None].to(x.dtype)
+    else:
+        c_all, kr_all = _gather_latent(pools, page_table, cfg)
+        valid = torch.arange(c_all.shape[1], device=x.device)[None] <= pos.long()[:, None]
+        ctx = _latent_softmax(q_lat, q_rope, c_all, kr_all, valid[:, None, None], scale)
+        out = torch.einsum("bqhr,rhd->bqhd", ctx, w_v.float()).to(x.dtype)
+    return out.reshape(B, 1, -1) @ params.wo, pools
+
+
+def mla_prefill_paged(params: MLA, x, cfg: ModelConfig, pools, pos0, n_new, page_table, *,
+                      attn_impl: str = "flash", schedule=None):
+    """Batched multi-token absorbed-weight MLA prefill against the paged
+    compressed cache (the prefill twin of :func:`mla_decode_paged`: the
+    cohort's latents scattered first, then Hkv = 1, g = H over the one
+    pool given as K and V).  Padding rows are zeroed.  Returns (out,
+    pools)."""
+    B, T, _ = x.shape
+    r = cfg.kv_lora_rank
+    positions = pos0.long()[:, None] + torch.arange(T, device=x.device)[None]
+    q_nope, q_rope = _mla_q(params, x, cfg, positions)  # (B, T, H, *)
+    c_kv_new, k_rope_new = _mla_ckv(params, x, cfg, positions)
+    new = torch.cat([c_kv_new, k_rope_new], dim=-1)[:, :, None, :]
+    wm = torch.arange(T, device=x.device)[None] < n_new.long()[:, None]
+    _paged_write_many(pools["kv_pages"], new, page_table, pos0, wm)
+    w_nope, w_v = _absorbed(params, cfg)
+    q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope.float(), w_nope.float())
+    scale = _mla_scale(cfg)
+    if attn_impl == "flash":
+        from repro_torch.kernels import ops as kops
+
+        qg = torch.cat([q_lat, q_rope.float()], dim=-1)[:, :, None]  # (B, T, 1, H, r + dr)
+        ctx = kops.attention_prefill(qg, pools["kv_pages"], pools["kv_pages"], page_table, pos0,
+                                     n_new, sm_scale=scale, schedule=schedule)
+        ctx = ctx[:, :, 0, :, :r]  # (B, T, H, r)
+        out = torch.einsum("bqhr,rhd->bqhd", ctx, w_v.float()).to(x.dtype)
+    else:
+        c_all, kr_all = _gather_latent(pools, page_table, cfg)
+        mask = torch.arange(c_all.shape[1], device=x.device)[None, None] <= positions[:, :, None]
+        ctx = _latent_softmax(q_lat, q_rope, c_all, kr_all, mask[:, None], scale)
+        out = torch.einsum("bqhr,rhd->bqhd", ctx, w_v.float()).to(x.dtype)
+    # padding rows zeroed: q rows no run covers are never written by the
+    # kernel, and a NaN there would reach the trash page (see gqa_prefill_paged)
+    out = torch.where(wm[:, :, None, None], out, torch.zeros((), dtype=out.dtype, device=out.device))
+    return out.reshape(B, T, -1) @ params.wo, pools

@@ -141,7 +141,8 @@ def _on(x, device, dtype=None) -> torch.Tensor:
 
 
 def forward(params: LM, batch: dict[str, Any], cfg: ModelConfig):
-    """Full-sequence forward.  Returns (logits f32 (B, S, V), aux)."""
+    """Full-sequence forward.  Returns (logits f32 (B, S, V), aux: the MoE
+    load-balance loss summed over layers, 0 for dense blocks)."""
     tokens = _on(batch["tokens"], params.device)
     B, S = tokens.shape
     x = embed(tokens, params.embed)
@@ -157,7 +158,8 @@ def forward(params: LM, batch: dict[str, Any], cfg: ModelConfig):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda"):
     """Dense decode cache: {"blocks": {"k", "v"}} with (L, B, max_len, Hkv,
-    Dh) leaves."""
+    Dh) leaves; MLA's {"c_kv", "k_rope"} with (L, B, max_len, r) and (L, B,
+    max_len, dr) leaves."""
     one = tfm.block_init_cache(cfg, batch, max_len, cfg.params_dtype, device)
     return {"blocks": {k: v.new_zeros((cfg.num_layers,) + tuple(v.shape)) for k, v in one.items()}}
 
@@ -179,7 +181,8 @@ def decode_step(params: LM, tokens, cache, pos, cfg: ModelConfig):
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int, *, device="cuda"):
     """Paged decode cache: one physical pool per layer, one page table for
     all layers (kept on the host by :mod:`repro_torch.serve.kv_pages`).
-    Pool leaves are (L, num_pages, page_size, Hkv, D)."""
+    Pool leaves are (L, num_pages, page_size, Hkv, D): GQA's ``k_pages`` and
+    ``v_pages``, MLA's one ``kv_pages`` (Hkv = 1, D = r + dr)."""
     one = tfm.block_init_pages(cfg, num_pages, page_size, cfg.params_dtype, device)
     return {"blocks": {k: v.new_zeros((cfg.num_layers,) + tuple(v.shape)) for k, v in one.items()}}
 

@@ -1,14 +1,16 @@
-"""Block definitions and the layer stack (dense blocks).
+"""Block definitions and the layer stack (dense and MoE blocks, GQA or
+MLA attention).
 
 A block is a :class:`Block` module (``norm1``, ``attn``, ``norm2``,
 ``ffn``: the JAX package's parameter keys); the stack is an
 ``nn.ModuleList`` walked by a Python loop over layers where the JAX
 package scans parameters stacked on a leading layer axis.  Caches keep
 that layer axis: one (L, ...) tensor per leaf, of which layer ``i`` works
-on the view ``leaf[i]`` in place.
+on the view ``leaf[i]`` in place.  The serving paths run MoE lossless
+(and prefill with its pad rows masked), as the JAX package does.
 
-Not in this slice (each raises :class:`NotImplementedError` naming the
-slice that brings it): ``moe`` and ``mamba2`` blocks and the hybrid
+Not in this port yet (each raises :class:`NotImplementedError` naming the
+slice that brings it): ``mamba2`` blocks and the hybrid
 (``hybrid_attn_every``) pattern.
 """
 from __future__ import annotations
@@ -17,26 +19,23 @@ import torch
 from torch import nn
 
 from . import attention as attn
+from . import moe as moe_mod
 from .config import ModelConfig
 from .layers import MLP, RMSNorm, mlp, rms_norm
 
 _NEXT = {
-    "moe": "the MoE slice of the PyTorch/CUDA port (olmoe-1b-7b)",
     "mamba2": "the SSM slice of the PyTorch/CUDA port (mamba2-2.7b)",
     "hybrid": "the hybrid slice of the PyTorch/CUDA port (zamba2-2.7b)",
 }
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise for a configuration whose blocks this slice does not run."""
+    """Raise for a configuration whose blocks the port does not run yet
+    (SSM blocks and the hybrid pattern)."""
     if cfg.hybrid_attn_every:
         raise NotImplementedError(f"hybrid_attn_every is not ported yet: it arrives with {_NEXT['hybrid']}")
-    if cfg.block_kind != "dense":
-        raise NotImplementedError(
-            f"{cfg.block_kind} blocks are not ported yet: they arrive with {_NEXT[cfg.block_kind]}"
-        )
-    if cfg.is_mla:
-        attn.init_mla(cfg, None, None)
+    if cfg.block_kind == "mamba2":
+        raise NotImplementedError(f"mamba2 blocks are not ported yet: they arrive with {_NEXT['mamba2']}")
 
 
 # ---------------------------------------------------------------------------
@@ -44,12 +43,18 @@ def check_ported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 class Block(nn.Module):
+    """``attn``: :class:`~.attention.MLA` or :class:`~.attention.GQA`;
+    ``ffn``: :class:`~.moe.MoE` or :class:`~.layers.MLP`."""
+
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
         self.norm1 = RMSNorm(cfg.d_model, dtype, device)
-        self.attn = attn.init_gqa(cfg, dtype, device)
+        self.attn = (attn.init_mla if cfg.is_mla else attn.init_gqa)(cfg, dtype, device)
         self.norm2 = RMSNorm(cfg.d_model, dtype, device)
-        self.ffn = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_act, dtype, device)
+        if cfg.block_kind == "moe":
+            self.ffn = moe_mod.init_moe(cfg, dtype, device)
+        else:
+            self.ffn = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_act, dtype, device)
 
     def reset(self, gen: torch.Generator) -> None:
         for part in (self.norm1, self.attn, self.norm2, self.ffn):
@@ -60,58 +65,78 @@ def init_block(cfg: ModelConfig, dtype, device) -> Block:
     return Block(cfg, dtype, device)
 
 
-def _ffn(params: Block, x, cfg: ModelConfig):
+def _ffn(params: Block, x, cfg: ModelConfig, *, token_mask=None, lossless: bool = False):
+    """x + the block's feed-forward; returns (x, aux), aux None for dense
+    blocks (the decode paths drop it)."""
     h = rms_norm(x, params.norm2, cfg.norm_eps)
-    return x + mlp(h, params.ffn, cfg.mlp_act)
+    if cfg.block_kind == "moe":
+        y, aux = moe_mod.moe_forward(params.ffn, h, cfg, token_mask=token_mask, lossless=lossless)
+        return x + y, aux
+    return x + mlp(h, params.ffn, cfg.mlp_act), None
 
 
 def block_forward(params: Block, x, cfg: ModelConfig, positions):
-    """Returns (x, aux); aux is 0 for dense blocks."""
+    """Returns (x, aux); aux is 0 for dense blocks.  MoE takes its
+    capacity-bounded dispatch here (``lossless=False``), as in the JAX
+    package."""
     h = rms_norm(x, params.norm1, cfg.norm_eps)
-    x = x + attn.gqa_forward(params.attn, h, cfg, positions)
-    return _ffn(params, x, cfg), torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.is_mla:
+        x = x + attn.mla_forward(params.attn, h, cfg, positions)
+    else:
+        x = x + attn.gqa_forward(params.attn, h, cfg, positions)
+    x, aux = _ffn(params, x, cfg)
+    return x, aux if aux is not None else torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def block_decode(params: Block, x, cfg: ModelConfig, cache, pos):
-    """Single-token step.  Returns (x, cache)."""
+    """Single-token step (MoE lossless: a token's expert output must not
+    depend on the dispatch's shape).  Returns (x, cache)."""
     h = rms_norm(x, params.norm1, cfg.norm_eps)
-    y, cache = attn.gqa_decode(params.attn, h, cfg, cache, pos)
-    return _ffn(params, x + y, cfg), cache
+    if cfg.is_mla:
+        y, cache = attn.mla_decode(params.attn, h, cfg, cache, pos)
+    else:
+        y, cache = attn.gqa_decode(params.attn, h, cfg, cache, pos)
+    return _ffn(params, x + y, cfg, lossless=True)[0], cache
 
 
 def block_decode_paged(params: Block, x, cfg: ModelConfig, pools, pos, page_table, *,
                        write_mask=None, attn_impl: str = "flash"):
     """Single-token step against a paged KV pool.  Returns (x, pools)."""
     h = rms_norm(x, params.norm1, cfg.norm_eps)
-    y, pools = attn.gqa_decode_paged(
-        params.attn, h, cfg, pools, pos, page_table,
-        write_mask=write_mask, attn_impl=attn_impl,
-    )
-    return _ffn(params, x + y, cfg), pools
+    decode = attn.mla_decode_paged if cfg.is_mla else attn.gqa_decode_paged
+    y, pools = decode(params.attn, h, cfg, pools, pos, page_table,
+                      write_mask=write_mask, attn_impl=attn_impl)
+    return _ffn(params, x + y, cfg, lossless=True)[0], pools
 
 
 def block_prefill_paged(params: Block, x, cfg: ModelConfig, pools, pos0, n_new,
                         page_table, *, attn_impl: str = "flash", schedule=None):
     """Batched multi-token prefill step against a paged KV pool: every new
-    prompt token of every slot in one launch.  Returns (x, pools)."""
+    prompt token of every slot in one launch; MoE lossless, with the pad
+    rows (past each slot's n_new) masked out of the dispatch.  Returns (x,
+    pools)."""
     h = rms_norm(x, params.norm1, cfg.norm_eps)
-    y, pools = attn.gqa_prefill_paged(
-        params.attn, h, cfg, pools, pos0, n_new, page_table,
-        attn_impl=attn_impl, schedule=schedule,
-    )
-    return _ffn(params, x + y, cfg), pools
+    prefill = attn.mla_prefill_paged if cfg.is_mla else attn.gqa_prefill_paged
+    y, pools = prefill(params.attn, h, cfg, pools, pos0, n_new, page_table,
+                       attn_impl=attn_impl, schedule=schedule)
+    wm = None
+    if cfg.block_kind == "moe":
+        wm = torch.arange(x.shape[1], device=x.device)[None] < n_new.long()[:, None]
+    return _ffn(params, x + y, cfg, token_mask=wm, lossless=True)[0], pools
 
 
 def block_init_pages(cfg: ModelConfig, num_pages: int, page_size: int, dtype, device):
     if cfg.block_kind == "mamba2" or cfg.hybrid_attn_every:
         raise ValueError("paged KV serving requires a pure attention stack")
     check_ported(cfg)
-    return attn.gqa_init_pages(cfg, num_pages, page_size, dtype, device)
+    init = attn.mla_init_pages if cfg.is_mla else attn.gqa_init_pages
+    return init(cfg, num_pages, page_size, dtype, device)
 
 
 def block_init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device):
     check_ported(cfg)
-    return attn.gqa_init_cache(cfg, batch, max_len, dtype, device)
+    init = attn.mla_init_cache if cfg.is_mla else attn.gqa_init_cache
+    return init(cfg, batch, max_len, dtype, device)
 
 
 # ---------------------------------------------------------------------------

@@ -552,12 +552,12 @@ def test_decode_wrapper_launch_arguments(monkeypatch, ps, MP, g, splits, groups)
     assert out.shape == (B, Hkv, g, Dv) and out.dtype == q.dtype
     ((name, cargs, core),) = calls
     (ws,) = spaces
-    assert name == "sfc_flash_decode" and core is None
+    assert name == "sfc_flash_decode" and core == "split"
     assert ws.shape == (B, splits, Hkv, g, Dv + 2) and ws.dtype == torch.float32
     # (q, k, v, o, ws, table, runs, n_runs, hkv, page_table, pos, g, dk, dv, ps, mp, split_pages,
-    #  splits, scale, dtype, stream)
+    #  splits, scale, dtype, core, stream): two pools run the split core (code 0)
     assert cargs[4] == ws.data_ptr() and cargs[0] == q.data_ptr() and cargs[3] == out.data_ptr()
-    assert cargs[7:9] == (B, Hkv) and cargs[11:] == (g, D, Dv, ps, MP, sp, splits, 0.25, 0, 0)
+    assert cargs[7:9] == (B, Hkv) and cargs[11:] == (g, D, Dv, ps, MP, sp, splits, 0.25, 0, 0, 0)
     assert lay.grid == prog.grid and lay.workspace(g, Dv) == tuple(ws.shape)
     with pytest.raises(ValueError, match="built for"):
         tatt._decode_cuda(prog, pt[:, :-1], pos, q, kp, vp)

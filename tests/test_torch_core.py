@@ -186,6 +186,61 @@ def test_hilbert_key_overflow_raises_like_jax():
         tcore.hilbert_sort_key(torch.as_tensor(q), 6)
 
 
+@pytest.mark.parametrize("nbits", range(1, 17))
+def test_hilbert_decode_matches_jax_and_round_trips(nbits):
+    """hilbert_decode_torch == hilbert_decode_jax on every order value (or
+    a seeded sample of 4,096 past 12 bits), and H(H^-1(h)) == h."""
+    from repro.core.jax_hilbert import hilbert_decode_jax
+
+    n = 1 << (2 * (nbits + (nbits & 1)))
+    h = np.arange(n) if n <= 1 << 12 else np.random.default_rng(nbits).integers(0, n, 4096)
+    h = h.astype(np.int32)
+    i, j = tcore.hilbert_decode_torch(torch.as_tensor(h), nbits)
+    ji, jj = hilbert_decode_jax(jnp.asarray(h), nbits)
+    assert i.dtype == j.dtype == torch.int32
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(j.numpy(), np.asarray(jj))
+    np.testing.assert_array_equal(tcore.hilbert_encode_torch(i, j, nbits).numpy(), h)
+
+
+@pytest.mark.parametrize("nbits", [1, 4, 8, 15, 16])
+def test_zorder_encode_matches_jax(nbits):
+    from repro.core.jax_hilbert import zorder_encode_jax
+    from repro_torch.core.zorder import zorder_decode
+
+    rng = np.random.default_rng(nbits)
+    ij = rng.integers(0, 1 << nbits, size=(1000, 2)).astype(np.int32)
+    ij[:2] = [[0, 0], [(1 << nbits) - 1] * 2]
+    got = tcore.zorder_encode_torch(torch.as_tensor(ij[:, 0]), torch.as_tensor(ij[:, 1]))
+    want = np.asarray(zorder_encode_jax(jnp.asarray(ij[:, 0]), jnp.asarray(ij[:, 1])))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    if nbits < 16:  # the numpy decoder takes the non-negative order values
+        di, dj = zorder_decode(got.numpy())
+        np.testing.assert_array_equal(np.stack([di, dj], 1), ij)
+
+
+@pytest.mark.parametrize("state", ["U", "D", "A", "C"])
+def test_nano_programs_equal_jax(state):
+    """The port's nano-programs (its own copy of ``repro.core.nano``):
+    the same packed 4x4 Hilbert fragment for every orientation, the same
+    visited cells, and pack / unpack / from_path round trips."""
+    from repro.core import nano as jnano
+
+    word = tcore.nano.hilbert_4x4(state)
+    assert word == jnano.hilbert_4x4(state)
+    np.testing.assert_array_equal(tcore.nano.run(word, 3, 5), jnano.run(word, 3, 5))
+    moves = tcore.nano.unpack(word)
+    assert moves == jnano.unpack(word) and len(moves) == 15
+    assert tcore.nano.pack(moves) == word == tcore.nano.from_path(tcore.nano.run(word))
+    cells = tcore.nano.run(word)
+    assert len({tuple(c) for c in cells}) == 16 and (cells.max(0) - cells.min(0) == 3).all()
+    with pytest.raises(ValueError, match="too long"):
+        tcore.nano.pack([0] * 29)
+    with pytest.raises(ValueError, match="non-unit"):
+        tcore.nano.from_path(np.array([[0, 0], [1, 1]]))
+
+
 # ---------------------------------------------------------------------------
 # hygiene: the port never imports JAX or the JAX package
 # ---------------------------------------------------------------------------
@@ -202,7 +257,8 @@ def _imported_modules(path: Path) -> set[str]:
 
 
 def test_port_imports_neither_jax_nor_repro():
-    files = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py",
+                                                                    REPO / "tools" / "gqa_hashes.py"]
     assert len(files) > 15
     for path in files:
         for name in _imported_modules(path):

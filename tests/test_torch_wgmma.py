@@ -92,18 +92,24 @@ def test_launch_counter_counts_each_core():
     LAUNCHES.add("sfc_flash_prefill", "wgmma")
     LAUNCHES.add("sfc_flash_attention", "tiled")
     LAUNCHES.add("sfc_flash_prefill", "tiled")
+    LAUNCHES.add("sfc_flash_prefill", "latent")
+    LAUNCHES.add("sfc_flash_decode", "latent")
     LAUNCHES.add("sfc_join_hits")
     assert LAUNCHES.counts()["sfc_matmul"] == 1 and LAUNCHES.counts()["sfc_join_hits"] == 1
     cores = LAUNCHES.cores()
     assert set(cores) == {f"{n}.{c}" for n in ("sfc_matmul", "sfc_matmul3d", "sfc_flash_attention",
                                                "sfc_flash_prefill")
                           for c in ("wgmma", "simt")} | {"sfc_flash_attention.tiled",
-                                                         "sfc_flash_prefill.tiled"}
+                                                         "sfc_flash_prefill.tiled",
+                                                         "sfc_flash_prefill.latent",
+                                                         "sfc_flash_decode.split",
+                                                         "sfc_flash_decode.latent"}
     assert cores["sfc_matmul.wgmma"] == 1 and cores["sfc_flash_attention.simt"] == 1
     assert cores["sfc_flash_attention.tiled"] == 1 and LAUNCHES.counts()["sfc_flash_attention"] == 2
     assert cores["sfc_flash_prefill.wgmma"] == 1 and cores["sfc_flash_prefill.tiled"] == 1
-    assert LAUNCHES.counts()["sfc_flash_prefill"] == 2
-    assert sum(cores.values()) == 5
+    assert cores["sfc_flash_prefill.latent"] == 1 and LAUNCHES.counts()["sfc_flash_prefill"] == 3
+    assert cores["sfc_flash_decode.latent"] == 1 and cores["sfc_flash_decode.split"] == 0
+    assert sum(cores.values()) == 7
     LAUNCHES.reset()
     assert sum(LAUNCHES.cores().values()) == 0
 

@@ -1,0 +1,64 @@
+"""Hash the GQA outputs of the flash kernels (rows 20-22) on seeded inputs.
+
+On a machine with an NVIDIA GPU, from the root of a checkout:
+
+    python3 tools/gqa_hashes.py
+
+It builds the checkout's kernels, launches ``sfc_flash_decode``,
+``sfc_flash_prefill`` and ``sfc_flash_attention`` on chip_smoke.py's
+inputs at TinyLlama's serving shapes, in f32 and bf16, and prints one JSON
+object of SHA-256 prefixes of their outputs (prefill: the rows its runs
+cover).  It reads only the checkout it lies in: to check that a change
+keeps these bits, copy it into a ``git archive`` of the parent commit and
+run it in both trees; the two objects are equal when the bits are.
+"""
+import hashlib
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def hashes(device) -> dict:
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.kernels import launch
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        rng = np.random.default_rng(1234)
+        dec, pre, att = (cs.decode_inputs(rng, device, dtype), cs.prefill_inputs(rng, device, dtype),
+                         cs.attention_inputs(rng, device, dtype))
+        p_dec, p_pre, p_att = cs.flash_programs(device, dec, pre, att)
+        rows = cs.prefill_covered(pre[5], pre[2].shape[1], cs.SERVE_PAGE, device)
+        for name, fn in (("sfc_flash_decode", lambda: launch(p_dec, *dec)),
+                         ("sfc_flash_prefill", lambda: launch(p_pre, *pre[:5])[rows]),
+                         ("sfc_flash_attention", lambda: launch(p_att, *att[:3]))):
+            t = fn()
+            torch.cuda.synchronize()
+            out[f"{name} {str(dtype)[6:]}"] = hashlib.sha256(
+                t.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()[:16]
+    return out
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("gqa_hashes: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build()
+    print(json.dumps(hashes(torch.device("cuda", 0))))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
