@@ -342,10 +342,10 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
-def kernel_ms(fn, reps: int) -> dict:
-    """Device time per call of each kernel that ``fn()`` launches, by its
-    full name: mean ms over ``reps`` calls under torch.profiler, after one
-    warm-up call."""
+def kernel_stats(fn, reps: int) -> dict:
+    """(total device ms, launches recorded) of each kernel that ``fn()``
+    launches over ``reps`` calls under torch.profiler, after one warm-up
+    call, by its full name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -355,8 +355,15 @@ def kernel_ms(fn, reps: int) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return {e.key: 1e-3 * e.self_device_time_total / reps for e in prof.key_averages()
+    return {e.key: (1e-3 * e.self_device_time_total, e.count) for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0}
+
+
+def kernel_ms(fn, reps: int) -> dict:
+    """Device time per call of each kernel that ``fn()`` launches, by its
+    full name: mean ms over ``reps`` calls under torch.profiler, after one
+    warm-up call."""
+    return {k: total / reps for k, (total, _) in kernel_stats(fn, reps).items()}
 
 
 def bound_ms(ops: float, peak: float, nbytes: float) -> tuple[float, str]:
@@ -2653,12 +2660,43 @@ def time_latent(rng, device, errs, launches) -> list:
                       **({"Tq": q.shape[1], "n_new": [int(n) for n in n_new]} if prefill else {})},
             "ctas": int(np.prod(prog.grid)),
         }
+        if not prefill:
+            row.update(decode_device_time(prog, args, library, device))
         row["bound_share"] = row["bound_ms"] / row["ms"]
         rows.append(row)
         log(f"time {name} latent: {json.dumps(row)}")
         del inp, args, q, pool, pool32, prog, qq, mask, live
         torch.cuda.empty_cache()
     return rows
+
+
+def decode_device_time(prog, args, library, device) -> dict:
+    """Row 21 latent beside its event-timed call: the device time of the
+    split and merge kernels a call launches (each launched once a call:
+    the mean over the launches the profiler recorded, with their count)
+    and of the library call's kernels (torch.profiler; a call's host side
+    is about half its event time), and the split grid as the wrapper
+    launched it (``prog.launched``) with its live CTAs (splits that reach
+    a slot's last live page, by pos) and the waves they take at the
+    kernel's CTAs an SM."""
+    import torch
+    from repro_torch.kernels import launch
+    from repro_torch.kernels import attention as katt
+
+    stats = kernel_stats(lambda: launch(prog, *args), 10)
+    kern = {k: total / count for k, (total, count) in stats.items()}
+    dev_ms = sum(kern.values())
+    check(dev_ms > 0 and any("decode_kernel" in k for k in kern) and any("merge_kernel" in k for k in kern),
+          f"sfc_flash_decode latent: no device time of its split and merge kernels read ({kern})")
+    lib = kernel_ms(library, 10)
+    live = katt.decode_live_ctas(prog, args[1], args[3].shape[1])
+    per_sm = katt.latent_kernel_info()["sfc_flash_decode.latent"]["ctas_per_sm"]
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return {"device_ms": dev_ms, "kernels_ms": kern,
+            "profiled_launches": {k: count for k, (_, count) in stats.items()},
+            "library_device_ms": sum(lib.values()),
+            "grid": list(prog.launched["grid"]), "live_ctas": live, "ctas_per_sm": per_sm, "sms": sms,
+            "waves": live / (sms * per_sm)}
 
 
 def mla_serving_path(rng, device, seed: int) -> list:

@@ -51,7 +51,9 @@ class GpuProgram:
       (i, j) projection without reading the kernel.
     * ``launched`` — what the entry point reports of the program's last
       launch where it picks the launch itself (the ε-join's passes: the
-      persistent grid and the kernel), for the record; empty otherwise.
+      persistent grid and the kernel; FW's panels: the widest grid; paged
+      decode: the core and the split grid), for the record; empty
+      otherwise.
 
     There are no block specs: a CUDA kernel computes its own offsets from
     the schedule row and the strides it is given.

@@ -117,6 +117,7 @@ __all__ = [
     "attention_schedule_device",
     "causal_schedule",
     "decode_launch",
+    "decode_live_ctas",
     "decode_page_schedule",
     "decode_page_schedule_device",
     "flash_attention_decode",
@@ -660,6 +661,19 @@ def _decode_walk_steps(pos: torch.Tensor, ps: int, n: torch.Tensor) -> torch.Ten
     return torch.where(pos >= 0, torch.minimum(torch.div(pos, ps, rounding_mode="floor"), n - 1) + 1, n)
 
 
+def decode_live_ctas(program: GpuProgram, pos: torch.Tensor, page_size: int) -> int:
+    """The split CTAs of ``program``'s last CUDA launch (its ``launched``
+    record) that walk at least one page: a slot's splits up to the one
+    holding its last live page (all of them for pos < 0), times the row
+    blocks of the grid; the rest exit at once."""
+    lay = program.launched
+    runs = program.params["runs"].long()
+    slots = program.schedule[runs[:, 0], 0].long()
+    steps = _decode_walk_steps(pos.long().to(slots.device)[slots], page_size, runs[:, 1])
+    live = torch.div(steps + lay["split_pages"] - 1, lay["split_pages"], rounding_mode="floor")
+    return int(live.sum()) * lay["grid"][2]
+
+
 def _decode_check(program: GpuProgram, page_table, k_pages) -> None:
     p = program.params
     if k_pages.shape[1] != p["page_size"] or page_table.shape[1] != p["max_pages"]:
@@ -697,6 +711,7 @@ def _decode_cuda(program: GpuProgram, page_table, pos, q, k_pages, v_pages):
         page_table.data_ptr(), pos.data_ptr(), g, Dk, Dv, ps, MP, lay.split_pages, lay.splits,
         p["sm_scale"], _DTYPE_CODE[k_pages.dtype], DECODE_CORE_CODE[core], stream_of(q), core=core,
     )
+    program.launched.update(core=core, grid=lay.grid, split_pages=lay.split_pages, splits=lay.splits)
     return o
 
 

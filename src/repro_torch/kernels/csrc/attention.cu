@@ -189,23 +189,35 @@
 // a byte, far above the ridge of ~20 (67 TFLOP/s over 3.35 TB/s), so the
 // bound is the FP32 pipes (TF32 stays off; a bf16 tensor-core product would
 // change the numbers).  A CTA of 8 warps takes 32 query rows (a row block
-// of the slot's heads in decode, of the run's ps g rows in prefill) and
-// walks the kv rows 32 a stage: the stage's rows are looked up a stage
-// ahead, converted to f32 once into shared memory and read there as K (S =
-// Q K^T, each score flash_rows' fmaf chain over d ascending from 0) and as
-// V (O += P V on an 8 x 9 register tile a thread: the 32 x 576 f32
-// accumulator is 72 registers a thread); Q^T stays in shared memory for
-// the whole walk.  Decode is split-KV as the split core (splits of 128 kv
-// rows, dec::walk_steps, the same f32 workspace) and its merge takes 8 rows
-// a CTA.  One CTA an SM (157,952 B of shared memory at D = 576; 159 / 165
-// registers, no spill); the stage's copy is not overlapped with the
-// arithmetic.  At chip_smoke.py's shapes (8 slots, pools of 16-row pages)
-// decode takes 0.342 ms a call against a 0.0235 ms bound (0.07), prefill
-// 140.0 ms against 27.7 (0.20), where a page gather + SDPA in f32 with the
-// heads folded into the query axis takes 0.830 and 118.2 (NVIDIA H100 80GB
-// HBM3, 700.00 W).  By count, S = Q K^T gives a thread only 4 scores, so
-// its 5 LDS.128 (>= 20 shared-memory wavefronts) a warp per 16 FFMA would
-// cap the FP32 pipes near a fifth there.
+// of the slot's heads in decode, of the run's ps g rows in prefill), 4 a
+// warp from end to end, and walks the kv rows in stages of 32, the online
+// softmax's step.  A first form of this core kept Q^T and one f32 stage
+// in shared memory and gave a thread 4 scores of S = Q K^T: 5 LDS.128 a
+// warp for 16 FFMA, the stage loaded and converted behind four barriers a
+// stage, 140.0 ms at chip_smoke.py's prefill cohort against a 27.7 ms
+// bound (0.20).  This core takes q off shared memory: a lane holds its warp's 4 rows on
+// its slice of 18 d in registers, and S runs as a systolic chain along the
+// warp (lane l takes kv row t - l at step t and continues the chains lane
+// l - 1 ran one step before, over its slice, d ascending: each score is
+// still one fmaf chain over d from 0), so a fma costs a quarter of a shared
+// load and the q operand none; P V holds 4 rows x 18 columns a lane.  The
+// pool's rows land as stored by 16-byte cp.async in a ring of three
+// stages, issued two stages ahead, one CTA barrier a stage; rows, scores
+// and sums never leave their warp.  Decode is split-KV as the split core
+// (splits of 128 kv rows, dec::walk_steps, the same f32 workspace) and its
+// merge takes 8 rows a CTA.  One CTA an SM (217 / 240 registers, no
+// spill; 116,224 B of shared memory for a bf16 pool, 226,816 for f32).
+// At chip_smoke.py's shapes (8 slots, pools of 16-row pages) prefill takes
+// 67.1-67.5 ms against the 27.7 ms bound (0.41), decode 0.20-0.23 ms a
+// call by CUDA events with 0.135 ms of device time (split 0.104, merge
+// 0.031 a launch; 180 live split CTAs, 1.36 waves), where a page gather +
+// SDPA in f32 with the heads folded into the query axis takes 118.0-118.7
+// and 0.77-0.91 (NVIDIA H100 80GB HBM3, 700.00 W).  What bounds it now: the issue slots.  A step of
+// S issues 72 FFMA beside ~50 other instructions (9 shared loads, 18
+// bf16-to-f32 conversions, 4 shuffles, the ring row, lane 31's store), a
+// row of P V 72 beside ~34, and S runs at ~0.7 of even that rate with 2
+// warps a scheduler; a skew of two rows a lane (the shuffles off the
+// chain's path, two rows a step) measured slower.
 #include <climits>
 #include <cmath>
 #include <cstddef>
@@ -1398,54 +1410,60 @@ int launch_dtype(const void* q, const void* kp, const void* vp, void* o, void* w
 namespace lat {
 
 constexpr int R = 32;              // query rows of a CTA
-constexpr int KV = 32;             // kv rows of a stage
+constexpr int KV = 32;             // kv rows of a stage: the online softmax's step
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
+constexpr int RW = R / WARPS;      // query rows of a warp
 constexpr int MAX_D = 576;         // DeepSeek-V2's kv_lora_rank + qk_rope_head_dim
-constexpr int NC = MAX_D / 64;     // output columns a lane: a warp's half of D, 32 lanes wide
-constexpr int PAD = 4;             // floats after each stage row and each row of P^T
-constexpr int PTS = R + PAD;       // P^T's row stride
+constexpr int DS = MAX_D / 32;     // a lane's slice of d in the scores' chain
+constexpr int NP = MAX_D / 64;     // column pairs a lane in P V
+constexpr int RING = 3;            // stages in shared memory: two read, one landing
+constexpr int SLOTS = 4;           // stages' row facts: read, copied, looked up, kept
 constexpr int MERGE_ROWS = 8;      // query rows of a decode merge CTA
+constexpr unsigned FULL = 0xffffffffu;
 
-__host__ __device__ constexpr int row_stride(int D) { return D + PAD; }
+// Shared memory at width D (a multiple of 16) for a pool of T: the ring of
+// RING stages of KV pool rows as stored (D T each, by 16-byte cp.async),
+// each warp's KV x RW scores (then probabilities), then SLOTS stages' row
+// facts (pool row, position).  226,816 B for an f32 pool at D = 576,
+// 116,224 for bf16; one CTA an SM either way (registers).
+template <typename T>
+__host__ __device__ constexpr size_t smem_bytes(int D) {
+  return sizeof(T) * (size_t)RING * KV * D + 4 * (size_t)WARPS * KV * RW +
+         (size_t)SLOTS * KV * (sizeof(size_t) + sizeof(int));
+}
 
-// Shared memory at width D (a multiple of 16): Q^T [D][R] (copied once),
-// the stage [KV][D + PAD] in f32 (the pool's rows, read once as K and once
-// as V), S [R][KV + 1], P^T [KV][R + PAD], each row's m, l and alpha, then
-// the stage rows' pool offsets and positions, two stages' worth.  A stage
-// row is 4 D + 16 bytes, an odd multiple of 16 modulo 128: the 8 lanes of
-// a 16-byte read phase of distinct rows hit distinct bank groups.
-// 157,952 B at D = 576, one CTA an SM.
+template <typename T>
 struct Smem {
-  float *qt, *kv, *s, *pt, *m, *l, *alpha;
+  T* ring;
+  float* sw;   // this warp's KV x RW
   size_t* roff;
   int* rpos;
 
-  __device__ explicit Smem(float* base, int D) {
-    qt = base;
-    kv = qt + D * R;
-    s = kv + KV * row_stride(D);
-    pt = s + R * (KV + 1);
-    m = pt + KV * PTS;
-    l = m + R;
-    alpha = l + R;
-    roff = reinterpret_cast<size_t*>(alpha + R);
-    rpos = reinterpret_cast<int*>(roff + 2 * KV);
+  __device__ Smem(char* base, int D) {
+    ring = reinterpret_cast<T*>(base);
+    sw = reinterpret_cast<float*>(ring + (size_t)RING * KV * D) + (threadIdx.x >> 5) * KV * RW;
+    roff = reinterpret_cast<size_t*>(reinterpret_cast<float*>(ring + (size_t)RING * KV * D) +
+                                     WARPS * KV * RW);
+    rpos = reinterpret_cast<int*>(roff + SLOTS * KV);
   }
 };
 
-__host__ __device__ constexpr size_t smem_bytes(int D) {
-  return 4 * ((size_t)D * R + (size_t)KV * row_stride(D) + R * (KV + 1) + KV * PTS + 3 * R) +
-         2 * KV * (sizeof(size_t) + sizeof(int));
+// two consecutive elements of a pool row in shared memory as f32 (4-byte
+// aligned: bf16 to f32 is exact, the bits moved up)
+__device__ __forceinline__ float2 pair(const __nv_bfloat16* p) {
+  const uint32_t u = *reinterpret_cast<const uint32_t*>(p);
+  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
 }
+__device__ __forceinline__ float2 pair(const float* p) { return *reinterpret_cast<const float2*>(p); }
 
 __device__ __forceinline__ float comp(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
 // decode: CTA (run * splits + split, kv head h, row block z): query rows
-// z R .. of the slot's g against table steps split * split_pages .. of the
-// run, up to the slot's last live page (dec::walk_steps; nkv = 0 for a
+// z R .. of the slot's group against table steps split * split_pages .. of
+// the run, up to the slot's last live page (dec::walk_steps; nkv = 0 for a
 // split wholly past it)
 struct DecodeRows {
   const int* sched;
@@ -1470,10 +1488,10 @@ struct DecodeRows {
   }
   __device__ size_t q_row(int r) const { return ((size_t)slot * hkv + h) * g + r0 + r; }
   __device__ int qlim(int) const { return p; }
-  // kv row f of the walk: its pool row and its position
-  __device__ void kv(int f, size_t& row, int& pos) const {
-    const int t = t0 + f / ps, off = f - (f / ps) * ps;
-    const int lp = sched[4 * (start + t) + 1];
+  // kv row f of the walk: its logical page, then its pool row and position
+  __device__ int page(int f) const { return sched[4 * (start + t0 + f / ps) + 1]; }
+  __device__ void place(int f, int lp, size_t& row, int& pos) const {
+    const int off = f % ps;
     row = ((size_t)table[(size_t)slot * mp + lp] * ps + off) * hkv + h;
     pos = lp * ps + off;
   }
@@ -1503,234 +1521,272 @@ struct PrefillRows {
     return ((size_t)slot * tq + qt * ps + rr / g) * g + rr % g;
   }
   __device__ int qlim(int r) const { return p0 + qt * ps + (r0 + r) / g; }
-  __device__ void kv(int f, size_t& row, int& pos) const {
-    const int t = f / ps, off = f - t * ps;
-    const int lp = sched[6 * (start + t) + 2];
+  __device__ int page(int f) const { return sched[6 * (start + f / ps) + 2]; }
+  __device__ void place(int f, int lp, size_t& row, int& pos) const {
+    const int off = f % ps;
     row = (size_t)table[(size_t)slot * mp + lp] * ps + off;
     pos = lp * ps + off;
   }
 };
 
-// a stage's rows 0 .. nrows - 1 from the pool into sm.kv as f32, 16 bytes
-// a load (the pool 16-byte aligned, D a multiple of 16)
-__device__ __forceinline__ void stage_rows(const Smem& sm, const __nv_bfloat16* __restrict__ pool,
-                                           const size_t* roff, int nrows, int D) {
-  const int units = D / 8, st = row_stride(D);
-  for (int i = threadIdx.x; i < nrows * units; i += THREADS) {
-    const int j = i / units, u = i - j * units;
-    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(pool + roff[j] * D) + u);
-    float f[8];
-    dec::unpack(raw, f);
-    float4* dst = reinterpret_cast<float4*>(sm.kv + j * st + 8 * u);
-    dst[0] = make_float4(f[0], f[1], f[2], f[3]);
-    dst[1] = make_float4(f[4], f[5], f[6], f[7]);
-  }
+// walk row f's facts, (0, -1) past the walk
+template <typename Walk>
+__device__ __forceinline__ void facts(const Walk& w, int f, size_t& ro, int& pp) {
+  ro = 0;
+  pp = -1;
+  if (f < w.nkv) w.place(f, w.page(f), ro, pp);
 }
 
-__device__ __forceinline__ void stage_rows(const Smem& sm, const float* __restrict__ pool,
-                                           const size_t* roff, int nrows, int D) {
-  const int units = D / 4, st = row_stride(D);
+// stage s's rows from the pool into ring slot s % RING by 16-byte cp.async
+// (the pool 16-byte aligned, D a multiple of 16), closed as one group (an
+// empty one past the walk)
+template <typename T, bool Full, typename Walk>
+__device__ __forceinline__ void copy_stage(const Walk& w, const Smem<T>& sm,
+                                           const T* __restrict__ pool, int s, int D) {
+  const int nrows = min(KV, w.nkv - s * KV);
+  constexpr int per = 16 / (int)sizeof(T);
+  const int units = Full ? MAX_D / per : D / per;
+  T* dst = sm.ring + (size_t)(s % RING) * KV * D;
+  const size_t* ro = sm.roff + (s % SLOTS) * KV;
   for (int i = threadIdx.x; i < nrows * units; i += THREADS) {
     const int j = i / units, u = i - j * units;
-    *reinterpret_cast<float4*>(sm.kv + j * st + 4 * u) =
-        __ldg(reinterpret_cast<const float4*>(pool + roff[j] * D) + u);
+    sfc::cp_async16(dst + j * D + u * per, pool + ro[j] * D + u * per);
   }
+  sfc::cp_async_commit();
 }
 
-// One CTA: R query rows (w) against the walk's kv rows, KV a stage; on
-// return acc holds this thread's rows 8 (warp % 4) .. + 7 at columns
-// (warp / 4) D / 2 + lane + 32 c (c < NC, lane + 32 c < D / 2) of the
-// unnormalised output, and sm.m / sm.l each row's max and sum.  Per stage:
-// the rows' pool offsets (looked up a stage ahead by the first KV
-// threads), the stage in f32; S = Q K^T with thread (warp, lane) scoring
-// rows 4 (lane % 8) .. + 3 against kv row 4 warp + lane / 8 (each score
-// one fmaf chain over d ascending from 0, as flash_rows'; per 4 d: 4
-// LDS.128 of Q^T, 1 of the stage, 16 FFMA); the masks; the online softmax
-// a warp 4 rows, a lane a kv row (P^T, alpha, m, l to shared memory); O =
-// alpha O + P V on the 8 x NC register tile (per kv row 2 LDS.128 of P^T,
-// NC LDS.32 of the stage, 8 NC FFMA).
-template <typename T, typename Walk>
-__device__ __forceinline__ void latent_core(const Walk& w, const Smem& sm,
+// One CTA: R query rows (w) against the walk's kv rows, KV a stage.  Warp
+// k owns rows RW k .. + RW - 1 from end to end: a lane holds those rows' q
+// on its slice of d, [DS lane, DS lane + DS), in registers, and their
+// output columns 2 lane + 64 c, + 1 (c < NP) in acc.
+//
+// S = Q K^T runs as a systolic chain along the warp: at step t lane l
+// takes kv row t - l, continues the RW chains that lane l - 1 ran on that
+// row one step before (a shuffle) over its slice of d ascending, and lane
+// 31 ends them: each score is one fmaf chain over d ascending from 0, as
+// flash_rows'.  Per step a lane reads its DS values
+// of one pool row (DS / 2 words) for RW DS fmaf, so K costs 1 / RW of a
+// load a fma, and the q operand none.  Stage s's last score is done at
+// step 32 s + 62, when lanes 0 .. 30 are already on stage s + 1: the ring
+// holds stages s and s + 1 while stage s + 2 lands, so the copy of a stage
+// is issued two stages ahead, under one stage of arithmetic, and a stage
+// costs one CTA barrier (the ring's turn).  A lane that has no row at a
+// step (before the walk, past it) runs the step on ring rows nobody reads
+// back, so the step loop has no branch.  Lane 31 leaves each row's scores
+// in the warp's KV x RW; then the online softmax of the stage, lane j its
+// row j (scale, masks, warp_max / warp_sum: m, alpha, l once a 32-row
+// stage; the rows' butterflies side by side), the probabilities
+// back in place, and O = alpha O + P V with P broadcast from shared
+// memory, j ascending in the stage.  Rows, scores and sums never leave the
+// warp; only the ring is shared.  On return acc holds the unnormalised
+// output and m / l each row's max and sum (l as lane 0 summed it).
+template <typename T, bool Full, typename Walk>
+__device__ __forceinline__ void latent_core(const Walk& w, const Smem<T>& sm,
                                             const float* __restrict__ q,
                                             const T* __restrict__ pool, int D, float scale,
-                                            float (&acc)[8][NC]) {
+                                            float (&acc)[RW][2 * NP], float (&m)[RW],
+                                            float (&l)[RW]) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int st = row_stride(D), nkv = w.nkv;
+  const int nkv = w.nkv, nst = (nkv + KV - 1) / KV;
+  const bool active = RW * warp < w.nr;
 
-  // Q^T, zero past the CTA's rows: a thread a row, 16 bytes a load
-  for (int i = threadIdx.x; i < R * (D / 4); i += THREADS) {
-    const int r = i % R, u = i / R;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < w.nr) v = __ldg(reinterpret_cast<const float4*>(q + w.q_row(r) * D) + u);
-    sm.qt[(4 * u) * R + r] = v.x;
-    sm.qt[(4 * u + 1) * R + r] = v.y;
-    sm.qt[(4 * u + 2) * R + r] = v.z;
-    sm.qt[(4 * u + 3) * R + r] = v.w;
+  // the first stages' row facts, then their copies
+  for (int f = threadIdx.x; f < min(RING, nst) * KV; f += THREADS)
+    facts(w, f, sm.roff[(f / KV) % SLOTS * KV + f % KV], sm.rpos[(f / KV) % SLOTS * KV + f % KV]);
+  // this lane's q: RW rows on its slice of d, zero past the CTA's rows
+  float qr[RW][DS];
+  int lim[RW];
+#pragma unroll
+  for (int r = 0; r < RW; ++r) {
+    const bool live = RW * warp + r < w.nr;
+    lim[r] = live ? w.qlim(RW * warp + r) : INT_MAX;
+    const float* qrow = q + (live ? w.q_row(RW * warp + r) * D : 0) + DS * lane;
+#pragma unroll
+    for (int i = 0; i < DS / 2; ++i) {
+      float2 v = make_float2(0.f, 0.f);
+      if (live && (Full || DS * lane + 2 * i < D)) v = *reinterpret_cast<const float2*>(qrow + 2 * i);
+      qr[r][2 * i] = v.x;
+      qr[r][2 * i + 1] = v.y;
+    }
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 2 * NP; ++c) acc[r][c] = 0.f;
   }
-  if (threadIdx.x < R) {
-    sm.m[threadIdx.x] = -INFINITY;
-    sm.l[threadIdx.x] = 0.f;
-  }
-  if (threadIdx.x < KV) {
+  __syncthreads();
+  copy_stage<T, Full>(w, sm, pool, 0, D);
+  copy_stage<T, Full>(w, sm, pool, 1, D);
+
+  float out[RW];  // this lane's chains after its last step
+#pragma unroll
+  for (int r = 0; r < RW; ++r) out[r] = 0.f;
+  int t = 0, rr = 0;  // step; ring row of this lane's row t - lane
+  for (int s = 0; s < nst; ++s) {
+    sfc::cp_async_wait<0>();
+    __syncthreads();  // stages s, s + 1 landed; stage s - 1 consumed
+    if (s + 2 < nst) copy_stage<T, Full>(w, sm, pool, s + 2, D);
+    // stage s + 3's facts, published after this stage (the barrier above
+    // the copy that reads them orders them): the page looked up here, the
+    // pool row after the scores, so neither load stalls the warp
+    const int fn = (s + 3) * KV + (int)threadIdx.x;
+    const bool look = threadIdx.x < KV && s + 3 < nst;
+    const int lpn = look && fn < nkv ? w.page(fn) : 0;
+
+    if (active) {
+      // the steps that end stage s's rows in lane 31
+      const int t_end = min(KV * s + KV - 1, nkv - 1) + 31;
+#pragma unroll 2
+      for (; t <= t_end; ++t) {
+        const int j = t - lane;
+        float c[RW];
+#pragma unroll
+        for (int r = 0; r < RW; ++r) {
+          const float in = __shfl_up_sync(FULL, out[r], 1);
+          c[r] = lane == 0 ? 0.f : in;
+        }
+        // ring row of row j (row 0 before the walk; rows past it are read
+        // and never used)
+        rr = j <= 0 ? 0 : (rr + 1 == RING * KV ? 0 : rr + 1);
+        const T* kr = sm.ring + rr * D + DS * lane;
+#pragma unroll
+        for (int i = 0; i < DS / 2; ++i) {
+          if (Full || DS * lane + 2 * i < D) {
+            const float2 k2 = pair(kr + 2 * i);
+#pragma unroll
+            for (int r = 0; r < RW; ++r) c[r] = fmaf(qr[r][2 * i], k2.x, c[r]);
+#pragma unroll
+            for (int r = 0; r < RW; ++r) c[r] = fmaf(qr[r][2 * i + 1], k2.y, c[r]);
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < RW; ++r) out[r] = c[r];
+        if (lane == 31 && j >= 0)
+          *reinterpret_cast<float4*>(sm.sw + (j % KV) * RW) = make_float4(c[0], c[1], c[2], c[3]);
+      }
+      __syncwarp();
+    }
     size_t ro = 0;
     int pp = -1;
-    if ((int)threadIdx.x < nkv) w.kv(threadIdx.x, ro, pp);
-    sm.roff[threadIdx.x] = ro;
-    sm.rpos[threadIdx.x] = pp;
-  }
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
-  // the scores' rows and kv row; their limits
-  const int rg = lane & 7, jj = 4 * warp + (lane >> 3);
-  int lim[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) lim[i] = 4 * rg + i < w.nr ? w.qlim(4 * rg + i) : INT_MAX;
-  // P V's rows and columns
-  const int rb = 8 * (warp & 3), hw = D / 2, col0 = (warp >> 2) * hw + lane;
-  __syncthreads();
+    if (look && fn < nkv) w.place(fn, lpn, ro, pp);
 
-  for (int f0 = 0, s = 0; f0 < nkv; f0 += KV, ++s) {
-    const int buf = (s & 1) * KV, nxt = KV - buf, nrows = min(KV, nkv - f0);
-    stage_rows(sm, pool, sm.roff + buf, nrows, D);
-    if (threadIdx.x < KV && f0 + KV < nkv) {
-      const int f = f0 + KV + threadIdx.x;
-      size_t ro = 0;
-      int pp = -1;
-      if (f < nkv) w.kv(f, ro, pp);
-      sm.roff[nxt + threadIdx.x] = ro;
-      sm.rpos[nxt + threadIdx.x] = pp;
-    }
-    __syncthreads();
-
-    {  // S = Q K^T, scaled and masked; a kv row past the walk scores -inf
-      float sc[4] = {0.f, 0.f, 0.f, 0.f};
-      const float* kr = sm.kv + jj * st;
-      const float* qc = sm.qt + 4 * rg;
-      for (int d = 0; d < D; d += 4) {
-        const float4 k4 = *reinterpret_cast<const float4*>(kr + d);
-        const float4 q0 = *reinterpret_cast<const float4*>(qc + d * R);
-        const float4 q1 = *reinterpret_cast<const float4*>(qc + (d + 1) * R);
-        const float4 q2 = *reinterpret_cast<const float4*>(qc + (d + 2) * R);
-        const float4 q3 = *reinterpret_cast<const float4*>(qc + (d + 3) * R);
+    if (active) {
+      // the online softmax of stage s: lane j its row j, the scores scaled
+      // and masked (a row past the walk scores -inf)
+      const int nrows = min(KV, nkv - KV * s);
+      const float4 x4 = *reinterpret_cast<const float4*>(sm.sw + lane * RW);
+      const int kp = sm.rpos[(s % SLOTS) * KV + lane];
+      float x[RW], mx[RW], alpha[RW], pe[RW], ls[RW];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          sc[i] = fmaf(comp(q0, i), k4.x, sc[i]);
-          sc[i] = fmaf(comp(q1, i), k4.y, sc[i]);
-          sc[i] = fmaf(comp(q2, i), k4.z, sc[i]);
-          sc[i] = fmaf(comp(q3, i), k4.w, sc[i]);
+      for (int r = 0; r < RW; ++r) {
+        x[r] = lane < nrows ? (kp <= lim[r] ? __fmul_rn(comp(x4, r), scale) : MASK) : -INFINITY;
+        mx[r] = x[r];
+      }
+#pragma unroll
+      for (int o = 16; o; o >>= 1)  // warp_max of each row
+#pragma unroll
+        for (int r = 0; r < RW; ++r) mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], o));
+#pragma unroll
+      for (int r = 0; r < RW; ++r) {
+        const float mn = fmaxf(m[r], mx[r]);
+        pe[r] = expf(x[r] - mn);
+        alpha[r] = expf(m[r] - mn);
+        ls[r] = pe[r];
+        m[r] = mn;
+      }
+#pragma unroll
+      for (int o = 16; o; o >>= 1)  // warp_sum of each row
+#pragma unroll
+        for (int r = 0; r < RW; ++r) ls[r] += __shfl_xor_sync(FULL, ls[r], o);
+#pragma unroll
+      for (int r = 0; r < RW; ++r) l[r] = alpha[r] * l[r] + ls[r];
+      *reinterpret_cast<float4*>(sm.sw + lane * RW) = make_float4(pe[0], pe[1], pe[2], pe[3]);
+      __syncwarp();
+
+      // O = alpha O + P V
+#pragma unroll
+      for (int r = 0; r < RW; ++r)
+#pragma unroll
+        for (int c = 0; c < 2 * NP; ++c) acc[r][c] *= alpha[r];
+      const T* vb = sm.ring + (size_t)(s % RING) * KV * D + 2 * lane;
+#pragma unroll 2
+      for (int jj = 0; jj < nrows; ++jj) {
+        const float4 p = *reinterpret_cast<const float4*>(sm.sw + jj * RW);
+        const T* vr = vb + jj * D;
+#pragma unroll
+        for (int c = 0; c < NP; ++c) {
+          if (Full || 2 * lane + 64 * c < D) {
+            const float2 v = pair(vr + 64 * c);
+#pragma unroll
+            for (int r = 0; r < RW; ++r) {
+              acc[r][2 * c] = fmaf(comp(p, r), v.x, acc[r][2 * c]);
+              acc[r][2 * c + 1] = fmaf(comp(p, r), v.y, acc[r][2 * c + 1]);
+            }
+          }
         }
       }
-      const int kp = sm.rpos[buf + jj];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        sm.s[(4 * rg + i) * (KV + 1) + jj] =
-            jj < nrows ? (kp <= lim[i] ? sc[i] * scale : MASK) : -INFINITY;
+      __syncwarp();  // P consumed before the next stage's scores land
     }
-    __syncthreads();
-
-    // the online softmax: warp w rows 4 w .. 4 w + 3, lane j kv row j
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = 4 * warp + i;
-      const float x = sm.s[r * (KV + 1) + lane];
-      const float mo = sm.m[r];
-      const float mn = fmaxf(mo, warp_max(x));
-      const float pe = expf(x - mn);
-      const float alpha = expf(mo - mn);
-      const float ls = warp_sum(pe);
-      sm.pt[lane * PTS + r] = pe;
-      if (lane == 0) {
-        sm.m[r] = mn;
-        sm.l[r] = alpha * sm.l[r] + ls;
-        sm.alpha[r] = alpha;
-      }
+    if (look) {
+      sm.roff[((s + 3) % SLOTS) * KV + threadIdx.x] = ro;
+      sm.rpos[((s + 3) % SLOTS) * KV + threadIdx.x] = pp;
     }
-    __syncthreads();
-
-    {  // O = alpha O + P V
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        const float a = sm.alpha[rb + r];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[r][c] *= a;
-      }
-      for (int j = 0; j < nrows; ++j) {
-        const float4 pa = *reinterpret_cast<const float4*>(sm.pt + j * PTS + rb);
-        const float4 pb = *reinterpret_cast<const float4*>(sm.pt + j * PTS + rb + 4);
-        const float* vr = sm.kv + j * st + col0;
-        float v[NC];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) v[c] = lane + 32 * c < hw ? vr[32 * c] : 0.f;
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          acc[0][c] = fmaf(pa.x, v[c], acc[0][c]);
-          acc[1][c] = fmaf(pa.y, v[c], acc[1][c]);
-          acc[2][c] = fmaf(pa.z, v[c], acc[2][c]);
-          acc[3][c] = fmaf(pa.w, v[c], acc[3][c]);
-          acc[4][c] = fmaf(pb.x, v[c], acc[4][c]);
-          acc[5][c] = fmaf(pb.y, v[c], acc[5][c]);
-          acc[6][c] = fmaf(pb.z, v[c], acc[6][c]);
-          acc[7][c] = fmaf(pb.w, v[c], acc[7][c]);
-        }
-      }
-    }
-    __syncthreads();  // the stage, P^T and alpha are consumed
   }
+#pragma unroll
+  for (int r = 0; r < RW; ++r) l[r] = __shfl_sync(FULL, l[r], 0);
 }
 
 // decode's split CTAs: the split's (acc, m, l) of each row to ws[run,
 // split, h, row] = (acc[0 .. D), m, l), as dec::split_kernel's
-template <typename T>
+template <typename T, bool Full>
 __global__ void __launch_bounds__(THREADS, 1)
 decode_kernel(const float* __restrict__ q, const T* __restrict__ pool, float* __restrict__ ws,
               const int* __restrict__ sched, const int* __restrict__ runs,
               const int* __restrict__ table, const int* __restrict__ pos, int g, int D, int ps,
               int mp, int split_pages, int splits, float scale) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) char smem[];
   const DecodeRows w(sched, runs, table, pos, g, ps, mp, split_pages, splits);
   if (w.nkv == 0) return;  // wholly past the slot's last live page: no partial
-  const Smem sm(smem, D);
-  float acc[8][NC];
-  latent_core(w, sm, q, pool, D, scale, acc);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int rb = 8 * (warp & 3), hw = D / 2, col0 = (warp >> 2) * hw + lane, W = D + 2;
-  float* out = ws + (((size_t)blockIdx.x * w.hkv + w.h) * g + w.r0) * W;
+  const Smem<T> sm(smem, D);
+  float acc[RW][2 * NP], m[RW], l[RW];
+  latent_core<T, Full>(w, sm, q, pool, D, scale, acc, m, l);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, W = D + 2;
+  float* out = ws + (((size_t)blockIdx.x * w.hkv + w.h) * g + w.r0 + RW * warp) * W;
 #pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    if (rb + r >= w.nr) continue;
+  for (int r = 0; r < RW; ++r) {
+    if (RW * warp + r >= w.nr) continue;
 #pragma unroll
-    for (int c = 0; c < NC; ++c)
-      if (lane + 32 * c < hw) out[(rb + r) * W + col0 + 32 * c] = acc[r][c];
-  }
-  if ((int)threadIdx.x < w.nr) {
-    out[threadIdx.x * W + D] = sm.m[threadIdx.x];
-    out[threadIdx.x * W + D + 1] = sm.l[threadIdx.x];
+    for (int c = 0; c < NP; ++c)
+      if (Full || 2 * lane + 64 * c < D)
+        *reinterpret_cast<float2*>(out + r * W + 2 * lane + 64 * c) =
+            make_float2(acc[r][2 * c], acc[r][2 * c + 1]);
+    if (lane == 0) {
+      out[r * W + D] = m[r];
+      out[r * W + D + 1] = l[r];
+    }
   }
 }
 
-template <typename T>
+template <typename T, bool Full>
 __global__ void __launch_bounds__(THREADS, 1)
 prefill_kernel(const float* __restrict__ q, const T* __restrict__ pool, float* __restrict__ o,
                const int* __restrict__ sched, const int* __restrict__ runs,
                const int* __restrict__ table, const int* __restrict__ pos0, int tq, int g, int D,
                int ps, int mp, float scale) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) char smem[];
   const PrefillRows w(sched, runs, table, pos0, tq, g, ps, mp);
-  const Smem sm(smem, D);
-  float acc[8][NC];
-  latent_core(w, sm, q, pool, D, scale, acc);
+  const Smem<T> sm(smem, D);
+  float acc[RW][2 * NP], m[RW], l[RW];
+  latent_core<T, Full>(w, sm, q, pool, D, scale, acc, m, l);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int rb = 8 * (warp & 3), hw = D / 2, col0 = (warp >> 2) * hw + lane;
 #pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    if (rb + r >= w.nr) continue;
-    float* orow = o + w.q_row(rb + r) * D + col0;
-    const float l = sm.l[rb + r];
+  for (int r = 0; r < RW; ++r) {
+    if (RW * warp + r >= w.nr) continue;
+    float* orow = o + w.q_row(RW * warp + r) * D + 2 * lane;
 #pragma unroll
-    for (int c = 0; c < NC; ++c)
-      if (lane + 32 * c < hw) orow[32 * c] = acc[r][c] / l;
+    for (int c = 0; c < NP; ++c)
+      if (Full || 2 * lane + 64 * c < D)
+        *reinterpret_cast<float2*>(orow + 64 * c) =
+            make_float2(acc[r][2 * c] / l[r], acc[r][2 * c + 1] / l[r]);
   }
 }
 
@@ -1739,16 +1795,14 @@ bool shape(int hkv, int dk, int dv) {
   return hkv == 1 && dk == dv && dk >= 16 && dk <= MAX_D && dk % 16 == 0;
 }
 
-template <typename T>
-int decode(const void* q, const void* pool, void* o, void* ws, const void* sched, const void* runs,
-           int n_runs, const void* table, const void* pos, int g, int D, int ps, int mp,
-           int split_pages, int splits, float scale, void* stream) {
-  if (n_runs == 0) return 0;
-  if ((g + R - 1) / R > 65535) return (int)cudaErrorInvalidConfiguration;
-  cudaError_t err = raise_smem_limit<decode_kernel<T>>((int)smem_bytes(MAX_D));
+template <typename T, bool Full>
+int decode_t(const void* q, const void* pool, void* o, void* ws, const void* sched,
+             const void* runs, int n_runs, const void* table, const void* pos, int g, int D,
+             int ps, int mp, int split_pages, int splits, float scale, void* stream) {
+  cudaError_t err = raise_smem_limit<decode_kernel<T, Full>>((int)smem_bytes<T>(MAX_D));
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(n_runs * splits, 1, (g + R - 1) / R);
-  decode_kernel<T><<<grid, THREADS, smem_bytes(D), (cudaStream_t)stream>>>(
+  decode_kernel<T, Full><<<grid, THREADS, smem_bytes<T>(D), (cudaStream_t)stream>>>(
       (const float*)q, (const T*)pool, (float*)ws, (const int*)sched, (const int*)runs,
       (const int*)table, (const int*)pos, g, D, ps, mp, split_pages, splits, scale);
   err = cudaGetLastError();
@@ -1760,19 +1814,42 @@ int decode(const void* q, const void* pool, void* o, void* ws, const void* sched
   return (int)cudaGetLastError();
 }
 
+// D = MAX_D (every lane's slice and columns whole) or a narrower width
+template <typename T>
+int decode(const void* q, const void* pool, void* o, void* ws, const void* sched, const void* runs,
+           int n_runs, const void* table, const void* pos, int g, int D, int ps, int mp,
+           int split_pages, int splits, float scale, void* stream) {
+  if (n_runs == 0) return 0;
+  if ((g + R - 1) / R > 65535) return (int)cudaErrorInvalidConfiguration;
+  return D == MAX_D ? decode_t<T, true>(q, pool, o, ws, sched, runs, n_runs, table, pos, g, D, ps,
+                                        mp, split_pages, splits, scale, stream)
+                    : decode_t<T, false>(q, pool, o, ws, sched, runs, n_runs, table, pos, g, D, ps,
+                                         mp, split_pages, splits, scale, stream);
+}
+
+template <typename T, bool Full>
+int prefill_t(const void* q, const void* pool, void* o, const void* sched, const void* runs,
+              int n_runs, const void* table, const void* pos0, int tq, int g, int D, int ps,
+              int mp, float scale, void* stream) {
+  const cudaError_t err = raise_smem_limit<prefill_kernel<T, Full>>((int)smem_bytes<T>(MAX_D));
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(n_runs, (ps * g + R - 1) / R);
+  prefill_kernel<T, Full><<<grid, THREADS, smem_bytes<T>(D), (cudaStream_t)stream>>>(
+      (const float*)q, (const T*)pool, (float*)o, (const int*)sched, (const int*)runs,
+      (const int*)table, (const int*)pos0, tq, g, D, ps, mp, scale);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int prefill(const void* q, const void* pool, void* o, const void* sched, const void* runs,
             int n_runs, const void* table, const void* pos0, int tq, int g, int D, int ps, int mp,
             float scale, void* stream) {
   if (n_runs == 0) return 0;
-  const int blocks = (ps * g + R - 1) / R;
-  if (blocks > 65535) return (int)cudaErrorInvalidConfiguration;
-  const cudaError_t err = raise_smem_limit<prefill_kernel<T>>((int)smem_bytes(MAX_D));
-  if (err != cudaSuccess) return (int)err;
-  prefill_kernel<T><<<dim3(n_runs, blocks), THREADS, smem_bytes(D), (cudaStream_t)stream>>>(
-      (const float*)q, (const T*)pool, (float*)o, (const int*)sched, (const int*)runs,
-      (const int*)table, (const int*)pos0, tq, g, D, ps, mp, scale);
-  return (int)cudaGetLastError();
+  if ((ps * g + R - 1) / R > 65535) return (int)cudaErrorInvalidConfiguration;
+  return D == MAX_D ? prefill_t<T, true>(q, pool, o, sched, runs, n_runs, table, pos0, tq, g, D,
+                                         ps, mp, scale, stream)
+                    : prefill_t<T, false>(q, pool, o, sched, runs, n_runs, table, pos0, tq, g, D,
+                                          ps, mp, scale, stream);
 }
 
 }  // namespace lat
@@ -2404,10 +2481,11 @@ extern "C" int sfc_prefill_tiled_info(int d, int* out) {
 // The latent core's build and residency, for the record: which = 0 decode,
 // 1 prefill, at a bf16 pool and D = 576; out as kernel_info.cuh's, the
 // design constants its query rows a CTA, kv rows a stage and largest D.
+
 extern "C" int sfc_flash_latent_info(int which, int* out) {
   if (which != 0 && which != 1) return (int)cudaErrorInvalidValue;
-  const void* fn = which == 0 ? (const void*)lat::decode_kernel<__nv_bfloat16>
-                              : (const void*)lat::prefill_kernel<__nv_bfloat16>;
-  return sfc::kernel_info(fn, lat::THREADS, (int)lat::smem_bytes(lat::MAX_D),
+  const void* fn = which == 0 ? (const void*)lat::decode_kernel<__nv_bfloat16, true>
+                              : (const void*)lat::prefill_kernel<__nv_bfloat16, true>;
+  return sfc::kernel_info(fn, lat::THREADS, (int)lat::smem_bytes<__nv_bfloat16>(lat::MAX_D),
                           {lat::R, lat::KV, lat::MAX_D}, out);
 }

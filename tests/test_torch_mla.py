@@ -218,6 +218,63 @@ def test_latent_flag_must_match_the_operands(monkeypatch, built_latent):
     assert calls == []
 
 
+@pytest.mark.parametrize("g,ps,MP", [(40, 8, 20), (128, 16, 24), (16, 16, 3), (33, 4, 50)])
+def test_latent_decode_launch_record(monkeypatch, g, ps, MP):
+    """The latent decode wrapper records the split grid it launched
+    (``decode_launch``'s splits, blocks of LATENT_ROWS query rows) in
+    ``program.launched``, and ``decode_live_ctas`` counts the split CTAs
+    that walk a page: against each slot's last live page worked out here
+    (pos // ps; every page for pos < 0), times the row blocks."""
+    monkeypatch.setattr(tatt, "require", lambda *a, **k: None)
+    monkeypatch.setattr(tatt, "stream_of", lambda t: 0)
+    monkeypatch.setattr(tatt, "call", lambda *a, **k: None)
+    rng = np.random.default_rng(g + ps)
+    B, D = 4, 16
+    pos = np.array([0, MP * ps - 1, rng.integers(1, MP * ps - 1), -1], np.int32)
+    pt, pool = _latent_case(rng, B, g, D, ps, MP, pos)
+    tq, tp = _t(rng.standard_normal((B, 1, g, D))), _t(pool)
+    sched = tatt.decode_page_schedule_device(B, MP, device="cpu")
+    prog = tatt.flash_decode_program(sched, tq, page_size=ps, max_pages=MP, sm_scale=0.2, latent=True)
+    tatt._decode_cuda(prog, torch.as_tensor(pt), torch.as_tensor(pos), tq, tp, tp)
+    lay = tatt.decode_launch(B, 1, g, ps, MP, tatt.LATENT_ROWS)
+    assert prog.launched == {"core": "latent", "grid": lay.grid, "split_pages": lay.split_pages,
+                             "splits": lay.splits}
+    blocks = lay.grid[2]
+    assert (blocks - 1) * tatt.LATENT_ROWS < g <= blocks * tatt.LATENT_ROWS
+    assert lay.splits * lay.split_pages >= MP > (lay.splits - 1) * lay.split_pages
+    last = [min(int(p) // ps, MP - 1) if p >= 0 else MP - 1 for p in pos]
+    want = sum(lp // lay.split_pages + 1 for lp in last) * blocks
+    assert tatt.decode_live_ctas(prog, torch.as_tensor(pos), ps) == want
+
+
+@pytest.mark.parametrize("g,ps", [(128, 16), (40, 8), (4, 16), (33, 4)])
+def test_latent_prefill_row_blocks_cover_each_run(g, ps):
+    """``flash_prefill_program(latent=True)`` declares (runs, ⌈ps g /
+    LATENT_ROWS⌉): block y takes rows 32 y .. of a run's ps g (token, head)
+    rows, so the blocks cover each run's rows once; the plain walk over
+    that grid writes exactly the tokens of the runs' q tiles (every head)
+    and leaves the rest NaN."""
+    rng = np.random.default_rng(g * ps)
+    B, D, MP, Tq = 3, 16, 12, 4 * ps
+    pos0, n_new = np.array([0, 5, 3 * ps], np.int32), np.array([Tq, ps + 1, 0], np.int32)
+    pt, pool = _latent_case(rng, B, g, D, ps, MP, pos0 + np.maximum(n_new, 1) - 1)
+    qp = _t(rng.standard_normal((B, Tq, 1, g, D)))
+    sp = tatt.prefill_page_schedule_device(pos0, n_new, ps, MP, device="cpu")
+    prog = tatt.flash_prefill_program(sp, qp, page_size=ps, sm_scale=0.2, latent=True)
+    blocks = prog.grid[1]
+    assert prog.grid[0] == len(sp.runs)
+    rows = [r for y in range(blocks) for r in range(y * tatt.LATENT_ROWS, min((y + 1) * tatt.LATENT_ROWS, ps * g))]
+    assert rows == list(range(ps * g))
+    tp = _t(pool)
+    out = prog.plain(prog, torch.as_tensor(pt), torch.as_tensor(pos0), qp, tp, tp)
+    written = ~torch.isnan(out).any(-1).any(-1).any(-1)  # (B, Tq)
+    want = torch.zeros((B, Tq), dtype=torch.bool)
+    for b in range(B):
+        want[b, :-(-int(n_new[b]) // ps) * ps] = True
+    assert torch.equal(written, want)
+    assert not torch.isnan(out[written]).any()
+
+
 def test_latent_shape_limits():
     """Widths past 576 or not a multiple of 16 are refused on the latent
     core; every other shape rule names it as the route for one kv head."""
@@ -397,12 +454,14 @@ def test_serve_launcher_runs_moe_archs_on_cpu(arch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("pool_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("g,D", [(4, 48), (128, 576)])
+@pytest.mark.parametrize("g,D", [(4, 48), (128, 576), (40, 576), (4, 16)])
 def test_latent_core_matches_plain_on_cuda(pool_dtype, g, D):
     """Decode (pos 0, a split boundary, the last row, -1) and prefill (a
     ragged tail, an inactive lane) on the latent core, within 1e-4 of the
     plain version (f32 sums in other orders; the scores' chain over d is
-    the plain bmm's in another order)."""
+    the plain bmm's in another order); g = 40 leaves the second row block
+    of a CTA 8 rows (warps without rows), D = 16 is the narrowest width
+    (most lanes' slices of d empty)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     from repro_torch.kernels import LAUNCHES, launch

@@ -1,4 +1,4 @@
-"""Hash the GQA outputs of the flash kernels (rows 20-22) on seeded inputs.
+"""Hash the outputs of the flash kernels (rows 20-22) on seeded inputs.
 
 On a machine with an NVIDIA GPU, from the root of a checkout:
 
@@ -6,11 +6,14 @@ On a machine with an NVIDIA GPU, from the root of a checkout:
 
 It builds the checkout's kernels, launches ``sfc_flash_decode``,
 ``sfc_flash_prefill`` and ``sfc_flash_attention`` on chip_smoke.py's
-inputs at TinyLlama's serving shapes, in f32 and bf16, and prints one JSON
-object of SHA-256 prefixes of their outputs (prefill: the rows its runs
-cover).  It reads only the checkout it lies in: to check that a change
-keeps these bits, copy it into a ``git archive`` of the parent commit and
-run it in both trees; the two objects are equal when the bits are.
+inputs at TinyLlama's serving shapes (GQA), in f32 and bf16, then
+``sfc_flash_decode`` and ``sfc_flash_prefill`` on the latent core at MLA's
+full shapes (chip_smoke.latent_inputs: g 128, D 576, f32 q) over a bf16
+and an f32 pool, and prints one JSON object of SHA-256 prefixes of their
+outputs (prefill: the rows its runs cover).  It reads only the checkout it
+lies in: to check that a change keeps these bits, copy it into a ``git
+archive`` of the parent commit and run it in both trees; the two objects
+are equal when the bits are.
 """
 import hashlib
 import json
@@ -40,9 +43,25 @@ def hashes(device) -> dict:
                          ("sfc_flash_attention", lambda: launch(p_att, *att[:3]))):
             t = fn()
             torch.cuda.synchronize()
-            out[f"{name} {str(dtype)[6:]}"] = hashlib.sha256(
-                t.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()[:16]
+            out[f"{name} {str(dtype)[6:]}"] = digest(t)
+    scale = 1.0 / float(np.sqrt(cs.MLA_QK_WIDTH))
+    for pool_dtype in (torch.bfloat16, torch.float32):
+        rng = np.random.default_rng(4321)
+        for prefill in (False, True):
+            inp = cs.latent_inputs(rng, device, pool_dtype, prefill=prefill)
+            prog = cs.latent_programs(device, inp, scale)
+            t = launch(prog, *inp[:4], inp[3])
+            if prefill:
+                t = t[cs.prefill_covered(inp[4], inp[2].shape[1], cs.SERVE_PAGE, device)]
+            torch.cuda.synchronize()
+            out[f"{prog.name} latent pool {str(pool_dtype)[6:]}"] = digest(t)
     return out
+
+
+def digest(t) -> str:
+    import torch
+
+    return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()[:16]
 
 
 def main() -> int:
