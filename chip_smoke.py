@@ -141,6 +141,29 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    (d) ``time sfc_flash_decode latent`` / ``time sfc_flash_prefill
    latent``: ms, bound (FP32 operations), plain ms and a page gather +
    SDPA in f32.
+7c. Mamba2-2.7B and Zamba2-2.7B dense serving (``ssm_serving_path``, after
+   DeepSeek's weights are freed): (a) ``compare flash d80``: row 20 at
+   Zamba2's shared-attention shapes (B·H 64, S 2048, D 80, causal) in bf16
+   and f32 against its plain version, the core read from the launch
+   record (``flash_rows``, "simt"); (b) ``serving mamba2:`` and (c)
+   ``serving zamba2:``: each model at full width and depth (64 layers;
+   54 + 9 shared-block applications), bf16, seeded random weights, on the
+   dense engine (8 slots, max_len 2048, chunked prefill) serving 16
+   requests (prompts of 16-64 tokens, 16-64 new tokens): tokens/s, TTFT,
+   tick p99, the cache's bytes, the where-merge's ms, a warm decode tick's
+   ``profile:``; then Zamba2's ``forward`` of 2 x 2048 tokens with
+   ``use_hilbert_kernels``, its 9 ``sfc_flash_attention`` launches counted
+   apart, all on simt (the logits' difference from the plain forward
+   reported); (d) ``check serving mamba2 gate:`` / ``check serving zamba2
+   gate:``: each model in f32 at full depth, 4 requests (prompts of 16-64,
+   16-32 new tokens) whose served tokens equal the argmax of the f32
+   forward replay outside the top-2 margin band (Zamba2's replay with
+   ``use_hilbert_kernels``: row 20 at D = 80 in f32, its launches
+   counted), each decode step's logits against the forward's at the same
+   position (the recurrence against the chunked SSD form), and Zamba2's
+   f32 forward of 1 x 2048 tokens through row 20 against the plain
+   forward (allclose at STEP_TOL, argmax outside the band); (e) ``time
+   sfc_flash_attention d80``: ms, bound, plain ms and SDPA, bf16 and f32.
 8. The curve-range-sharded apps (``sharded_path``), SHARDS = 4 shards on
    the one card (the code path of a mesh, not multi-GPU scaling): with the
    launch counts reset, ``ops.kmeans_lloyd(mesh=)`` on phase 3's SIFT1M
@@ -160,7 +183,8 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
 
 The second-to-last line of output is one JSON object ``{"kernels": [...]}``,
 the last ``{"ok": true, "device": {...}}``.  ``--quick`` runs phases 1-2
-(and 7a) only (a first check of a new kernel), and prints no result line.
+(and 7a, 7b (a), 7c (a)) only (a first check of a new kernel), and prints
+no result line.
 The script imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
@@ -305,6 +329,27 @@ MLA_GATE_NEW = (16, 32)
 # the latent core against its plain version: f32 outputs (q is f32), sums
 # in other orders over up to 2048 kv rows of 576 columns
 LATENT_TOL = dict(rtol=1e-4, atol=1e-4)
+# the SSM / hybrid slice: Mamba2-2.7B and Zamba2-2.7B at full width and
+# depth, seeded random weights, on the dense engine (8 slots, max_len 2048,
+# chunked prefill: one token a step for every slot, its other slots
+# waiting).  A step is host-bound (a bf16 decode step 65-150 ms on the
+# H100), so prompts are short: at 32-256 tokens the two runs' admissions
+# alone took 71 and 92 s (PERF.md)
+SSM_ARCHS = ("mamba2-2.7b", "zamba2-2.7b")
+SSM_HYBRID = "zamba2-2.7b"
+SSM_REQUESTS = 16
+SSM_PROMPT = (16, 64)
+SSM_NEW = (16, 64)
+SSM_WARM_PROMPT = 16  # prompt tokens of the warm decode tick's requests
+# the f32 gate: both models at full depth, served tokens against the replay.
+# Its band: a decode step's f32 logits and the forward's at the same
+# position differed by at most 1.3e-5 on the H100 (PERF.md §6), so a token
+# can flip only where the top-2 margin is at most 2.6e-5; the band is ~4x
+# that (GATE_BAND's 1e-3 held 6 of 78 Mamba2 tokens)
+SSM_GATE_BAND = 1e-4
+SSM_GATE_REQUESTS = 4
+SSM_GATE_PROMPT = (16, 64)
+SSM_GATE_NEW = (16, 32)
 # the sharded phase: shards of its meshes, all on the one card
 SHARDS = 4
 SHARDED_KERNELS = ("sfc_kmeans_shard_assign", "sfc_kmeans_shard_update", "sfc_kmeans_fold",
@@ -2007,12 +2052,14 @@ def serve_engine(cfg, params):
 
 
 def time_prefill(engine) -> dict:
-    """Time the engine's admissions (its compiled prefill), synchronised:
-    the returned dict accumulates their seconds, new tokens and calls
-    until ``engine._prefill_compiled = d["inner"]`` restores the engine."""
+    """Time the engine's admissions (its compiled prefill; the dense
+    engine's chunked one), synchronised: the returned dict accumulates their
+    seconds, new tokens and calls until ``setattr(engine, d["attr"],
+    d["inner"])`` restores the engine."""
     import torch
 
-    prefill = {"s": 0.0, "tokens": 0, "calls": 0, "launching": 0, "inner": engine._prefill_compiled}
+    attr = "_prefill_compiled" if engine.prefill_mode == "compiled" else "_prefill_chunked"
+    prefill = {"s": 0.0, "tokens": 0, "calls": 0, "launching": 0, "attr": attr, "inner": getattr(engine, attr)}
 
     def timed_prefill(slots):
         n = sum(len(engine.slot_req[s].prompt) - 1 - int(engine.pos[s]) for s in slots)
@@ -2025,7 +2072,7 @@ def time_prefill(engine) -> dict:
         prefill["calls"] += 1
         prefill["launching"] += int(n > 0)  # an admission with new tokens runs the model
 
-    engine._prefill_compiled = timed_prefill
+    setattr(engine, attr, timed_prefill)
     return prefill
 
 
@@ -2050,11 +2097,13 @@ def drive_engine(engine, requests) -> tuple[list, dict]:
                 ttft[r.rid] = now - t0
         check(ticks < 100_000, "the engine does not finish")
     wall = time.perf_counter() - t0
-    engine._prefill_compiled = prefill["inner"]
+    setattr(engine, prefill["attr"], prefill["inner"])
     decode_tokens = sum(len(r.out) for r in reqs)
     decode_s = wall - prefill["s"]
     t = np.array(sorted(ttft.values()))
     kv = engine.kv_pages
+    pages = {} if kv is None else {
+        "pages_allocated": kv.stat_allocated, "pages_shared": kv.stat_shared, "pages_cow": kv.stat_cow}
     return reqs, {
         "requests": len(reqs), "ticks": ticks, "wall_s": wall,
         "admissions": prefill["calls"], "launching_admissions": prefill["launching"],
@@ -2062,15 +2111,15 @@ def drive_engine(engine, requests) -> tuple[list, dict]:
         "prefill_tok_per_s": prefill["tokens"] / prefill["s"],
         "decode_tokens": decode_tokens, "decode_s": decode_s, "decode_tok_per_s": decode_tokens / decode_s,
         "ttft_p50_ms": 1e3 * float(np.percentile(t, 50)), "ttft_p99_ms": 1e3 * float(np.percentile(t, 99)),
-        "tick_p99_ms": 1e3 * engine.stats.p99(), "tick_mean_ms": 1e3 * engine.stats.mean(),
-        "pages_allocated": kv.stat_allocated, "pages_shared": kv.stat_shared, "pages_cow": kv.stat_cow,
+        "tick_p99_ms": 1e3 * engine.stats.p99(), "tick_mean_ms": 1e3 * engine.stats.mean(), **pages,
     }
 
 
-def warm_decode_tick(cfg, params, requests, device) -> dict:
+def warm_decode_tick(cfg, params, requests, device, make_engine=None) -> dict:
     """Device busy share of one warm decode tick (8 active slots, no
-    admission) under torch.profiler."""
-    engine = serve_engine(cfg, params)
+    admission) under torch.profiler, on ``make_engine(cfg, params)``
+    (default :func:`serve_engine`)."""
+    engine = (make_engine or serve_engine)(cfg, params)
     for p, _m in requests[:SERVE_SLOTS]:
         engine.submit(p, max_new=64)
     for _ in range(4):
@@ -2081,28 +2130,41 @@ def warm_decode_tick(cfg, params, requests, device) -> dict:
     return out[0]
 
 
-def replay_gate(cfg32, params32, reqs) -> dict:
+def replay_gate(cfg32, params32, reqs, step_logits=None, band=GATE_BAND) -> dict:
     """Every served token against the argmax of the port's dense forward
-    (plain attention, no kernel) over the request's prompt and served
-    tokens, outside the top-2 margin band."""
+    (plain attention, no kernel, unless ``cfg32`` sets
+    ``use_hilbert_kernels``) over the request's prompt and served tokens,
+    outside the top-2 margin band.  ``step_logits``: {(rid, i): the f32
+    logits of the decode step that served token i}, held against the
+    forward's at the same position (the largest difference is returned).
+    Returns the tokens checked, those in the band and those in the band that
+    differ from the forward's argmax."""
     import torch
     from repro_torch.models import forward
 
-    in_band = checked = 0
+    in_band = differ = checked = 0
+    step_diff = 0.0
     for r in reqs:
         seq = r.prompt + r.out[:-1]
         logits, _ = forward(params32, {"tokens": np.asarray([seq], np.int32)}, cfg32)
         lg = logits[0, len(r.prompt) - 1:]
+        if step_logits is not None:
+            steps = torch.stack([step_logits[(r.rid, i)] for i in range(len(r.out))])
+            step_diff = max(step_diff, float((steps - lg).abs().max()))
         top2 = torch.topk(lg, 2, dim=-1).values
         margin = (top2[:, 0] - top2[:, 1]).cpu().numpy()
         pick = lg.argmax(dim=-1).cpu().numpy()
         served = np.asarray(r.out)
-        band = margin <= GATE_BAND
-        check(not bool(((pick != served) & ~band).any()),
+        near = margin <= band
+        check(not bool(((pick != served) & ~near).any()),
               f"replay rid {r.rid}: served tokens differ from the dense forward's argmax outside the band")
-        in_band += int(band.sum())
+        in_band += int(near.sum())
+        differ += int((pick != served).sum())
         checked += len(served)
-    return {"positions": checked, "in_band": in_band, "band": GATE_BAND}
+    out = {"positions": checked, "in_band": in_band, "in_band_differ": differ, "band": band}
+    if step_logits is not None:
+        out["decode_step_vs_forward_max_abs_diff"] = step_diff
+    return out
 
 
 def serving_path(rng, device, seed: int) -> list:
@@ -2490,12 +2552,11 @@ def compare_latent(rng, device) -> dict:
     return errs
 
 
-def margins_of_dense_engine(engine):
-    """Record, for every token the dense engine samples, the top-2 logit
-    margin of its decode step: returns ({(rid, index): margin}, a callable
-    that restores the engine module).  Wraps the engine module's masked
-    step; chunked prefill's steps (no sample) are left out."""
-    import torch
+def served_steps(engine, record):
+    """Record ``record(logits)[slot]`` for every token the dense engine
+    serves, by (rid, index): returns (the dict, a callable that restores
+    the engine module).  Wraps the engine module's masked step; chunked
+    prefill's steps (no token served) are left out."""
     from repro_torch.serve import engine as engine_mod
 
     out, inner_step, inner_prefill = {}, engine_mod._masked_step, engine._prefill_chunked
@@ -2511,17 +2572,28 @@ def margins_of_dense_engine(engine):
     def step(params, toks, cache, pos, mask, *, cfg):
         logits, cache = inner_step(params, toks, cache, pos, mask, cfg=cfg)
         if not state["prefill"]:
-            top2 = torch.topk(logits, 2, dim=-1).values
-            margin = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+            values = record(logits)
             for s in range(engine.num_slots):
                 req = engine.slot_req[s]
                 if engine.active[s] and req is not None:
-                    out[(req.rid, len(req.out))] = float(margin[s])
+                    out[(req.rid, len(req.out))] = values[s]
         return logits, cache
 
     engine._prefill_chunked = prefill
     engine_mod._masked_step = step
     return out, lambda: setattr(engine_mod, "_masked_step", inner_step)
+
+
+def margins_of_dense_engine(engine):
+    """The top-2 logit margin of the decode step of every token the dense
+    engine samples (:func:`served_steps`)."""
+    import torch
+
+    def margins(logits):
+        top2 = torch.topk(logits, 2, dim=-1).values
+        return [float(m) for m in (top2[:, 0] - top2[:, 1]).cpu().numpy()]
+
+    return served_steps(engine, margins)
 
 
 def mla_gate(seed: int, device, requests) -> dict:
@@ -2769,6 +2841,343 @@ def mla_serving_path(rng, device, seed: int) -> list:
     log("serving deepseek busy: " + json.dumps(busy))
     log(f"deepseek phase: {time.perf_counter() - t_phase:.1f} s")
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 7c: Mamba2-2.7B and Zamba2-2.7B dense serving (the SSD mixer, its
+# recurrence, the hybrid shared attention block on row 20 at D = 80)
+# ---------------------------------------------------------------------------
+
+def ssm_requests(rng, vocab: int, n: int, prompt, new):
+    """n requests of random prompts (lengths in ``prompt``) with ``new``
+    new tokens each; no shared prefix (the dense engine shares no pages)."""
+    return [(rng.integers(0, vocab, size=int(rng.integers(prompt[0], prompt[1] + 1))).tolist(),
+             int(rng.integers(new[0], new[1] + 1))) for _ in range(n)]
+
+
+def ssm_engine(cfg, params, slots: int | None = None):
+    """The dense engine, the serving route of the recurrent archs: one
+    (slots, max_len) cache (SERVE_SLOTS slots by default), chunked prefill
+    (one token a step)."""
+    from repro_torch.serve import ServeEngine
+
+    return ServeEngine(cfg, params, num_slots=slots or SERVE_SLOTS, max_len=SERVE_MAX_LEN, paged=False,
+                       prefill="chunked", stats_capacity=8192)
+
+
+def d80_inputs(rng, device, dtype):
+    """Row 20 at Zamba2's shared-attention shapes: B·H = 2·32 sequences of
+    2048 x 80 (MHA, so K and V are not expanded)."""
+    import torch
+
+    B, H, S = ATTN_ROW20
+    d = _ssm_cfg(SSM_HYBRID, "bfloat16").attn_head_dim
+
+    def t():
+        return torch.as_tensor(rng.standard_normal((B * H, S, d), dtype=np.float32), device=device).to(dtype)
+
+    return t(), t(), t()
+
+
+def d80_program(device, q):
+    """The program ``ops.attention`` builds for q of :func:`d80_inputs`
+    (causal, bq = bkv = 128, the model's 1/sqrt(D))."""
+    from repro_torch.kernels import attention as katt
+
+    S, d = q.shape[1], q.shape[2]
+    sched = katt.attention_schedule_device(S // 128, S // 128, causal=True, device=device)
+    return katt.flash_attention_program(sched, q, causal=True, sm_scale=1.0 / float(np.sqrt(d)), bq=128,
+                                        bkv=128, kv_valid=None)
+
+
+def compare_d80(rng, device) -> dict:
+    """(a) row 20 at D = 80 against its plain version, bf16 and f32, each
+    launch read from the launch record's cores: ``flash_rows`` (simt) by
+    the core rule.  Returns the largest errors by dtype."""
+    import torch
+    from repro_torch.kernels import LAUNCHES, launch
+    from repro_torch.kernels import attention as katt
+
+    errs, parts = {}, []
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = ATTN_TOL[str(dtype)[6:]]
+        q, k, v = d80_inputs(rng, device, dtype)
+        prog = d80_program(device, q)
+        before = LAUNCHES.cores()
+        got = launch(prog, q, k, v)
+        after = LAUNCHES.cores()
+        ran = [c for c in after if after[c] != before[c]]
+        check(ran == ["sfc_flash_attention.simt"] and katt.flash_core(dtype, q.shape[2], 128, 128) == "simt",
+              f"sfc_flash_attention D={q.shape[2]} {dtype}: launched on {ran}, expected the simt core")
+        want = prog.plain(prog, q, k, v)
+        torch.cuda.synchronize()
+        errs[dtype] = attn_err(got, want, tol, f"sfc_flash_attention D={q.shape[2]} {dtype}")
+        parts.append(f"{str(dtype)[6:]} (rtol {tol['rtol']}, atol {tol['atol']}) core {ran[0].split('.')[1]} "
+                     f"max_abs_err={errs[dtype]:.3e}")
+        del q, k, v, got, want
+    B, H, S = ATTN_ROW20
+    log(f"compare flash d80: BH={B * H} S={S} D={_ssm_cfg(SSM_HYBRID, 'bfloat16').attn_head_dim} causal: "
+        + "; ".join(parts))
+    return errs
+
+
+def _ssm_cfg(arch: str, dtype: str, **overrides):
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config
+
+    return dc.replace(get_config(arch), dtype=dtype, **overrides)
+
+
+def cache_bytes(cache) -> dict:
+    """Bytes of each group of a dense cache."""
+    return {g: sum(leaf.numel() * leaf.element_size() for leaf in leaves.values()) for g, leaves in cache.items()}
+
+
+def merge_ms(engine) -> float:
+    """CUDA-event ms of the dense engine's where-merge alone (every cache
+    leaf cloned, then merged back under a slot mask), as ``_masked_step``
+    runs it each step, on the engine's cache."""
+    import torch
+    from repro_torch.serve import engine as engine_mod
+
+    leaves = engine_mod._leaves(engine.cache)
+    mask = torch.ones(engine.num_slots, dtype=torch.bool, device=engine.device)
+
+    def merge():
+        old = [leaf.clone() for leaf in leaves]
+        for leaf, before in zip(leaves, old):
+            leaf.copy_(torch.where(mask.reshape((1, -1) + (1,) * (leaf.dim() - 2)), leaf, before))
+
+    return cuda_ms(merge, 5)
+
+
+def ssm_serve(arch: str, rng, device, seed: int):
+    """(b) / (c): one arch at full width and depth in bf16 on the dense
+    engine: SSM_REQUESTS requests, the serving metrics, the cache's bytes,
+    the where-merge's ms and a warm decode tick's profile.  Returns (the
+    tick's profile, the params)."""
+    import torch
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import count_params, init_params
+
+    cfg = _ssm_cfg(arch, "bfloat16")
+    t0 = time.perf_counter()
+    params = init_params(seed, cfg, device=device)
+    torch.cuda.synchronize()
+    log(f"serving {cfg.name} model: {cfg.num_layers} layers d={cfg.d_model} d_inner={cfg.d_inner} "
+        f"ssm heads={cfg.ssm_heads}x{cfg.ssm_head_dim} state={cfg.ssm_state} chunk={cfg.ssm_chunk}"
+        + (f" shared attention every {cfg.hybrid_attn_every} (H={cfg.num_heads} Hkv={cfg.num_kv_heads} "
+           f"D={cfg.attn_head_dim} d_ff={cfg.d_ff})" if cfg.hybrid_attn_every else "")
+        + f" vocab={cfg.vocab_size} {cfg.dtype}, {count_params(params)} parameters, seeded random, "
+        f"{time.perf_counter() - t0:.1f} s to make, {torch.cuda.memory_allocated(device) / 2**30:.1f} GiB allocated")
+    requests = ssm_requests(rng, cfg.vocab_size, SSM_REQUESTS, SSM_PROMPT, SSM_NEW)
+    warm = ssm_engine(cfg, params)
+    warm.submit(requests[0][0][:16], max_new=2)
+    warm.run_until_done()
+    del warm
+    engine = ssm_engine(cfg, params)
+    LAUNCHES.reset()
+    reqs, metrics = drive_engine(engine, requests)
+    counts = LAUNCHES.counts()
+    for r in reqs:
+        check(len(r.out) == r.max_new and all(0 <= t < cfg.vocab_size for t in r.out), f"{arch} rid {r.rid}: output")
+    metrics["cache_bytes"] = cache_bytes(engine.cache)
+    metrics["where_merge_ms"] = merge_ms(engine)
+    metrics["launches"] = {k: v for k, v in counts.items() if v}
+    metrics["layers"] = cfg.num_layers
+    del engine
+    log(f"serving {arch.split('-')[0]}: " + json.dumps(metrics))
+    # a tick's cost does not depend on the prompts (a recurrent state; the
+    # shared K/V attended over max_len under a mask): short ones admit fast
+    busy = warm_decode_tick(cfg, params, [(p[:SSM_WARM_PROMPT], m) for p, m in requests], device,
+                            make_engine=ssm_engine)
+    return busy, params
+
+
+def zamba2_forward(params, rng, device) -> dict:
+    """(c): Zamba2's forward of 2 x 2048 tokens with use_hilbert_kernels,
+    its row 20 launches counted apart (all simt at D = 80, one per shared
+    application), its logits against the plain forward's."""
+    import dataclasses as dc
+
+    import torch
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import forward
+
+    cfg = _ssm_cfg(SSM_HYBRID, "bfloat16")
+    cfg_hk = dc.replace(cfg, use_hilbert_kernels=True)
+    napp = -(-cfg.num_layers // cfg.hybrid_attn_every)
+    toks = rng.integers(0, cfg.vocab_size, size=(ATTN_ROW20[0], ATTN_ROW20[2])).astype(np.int32)
+    LAUNCHES.reset()
+    t = time.perf_counter()
+    lk, _ = forward(params, {"tokens": toks}, cfg_hk)
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t)
+    n, cores = LAUNCHES.counts()["sfc_flash_attention"], LAUNCHES.cores()
+    check(n == napp == cores["sfc_flash_attention.simt"],
+          f"zamba2 forward: sfc_flash_attention launches {n}, cores {cores}, expected {napp} on simt")
+    check(lk.shape == (ATTN_ROW20[0], ATTN_ROW20[2], cfg.vocab_size) and bool(torch.isfinite(lk).all()),
+          "zamba2 forward(use_hilbert_kernels): shape or non-finite")
+    # in bf16 the two attention forms round apart (on the CPU, with the
+    # plain versions on both sides, reduced Zamba2's logits already differ
+    # by ~1e-2), so the bf16 forward is reported; the f32 gate holds it
+    lp, _ = forward(params, {"tokens": toks}, cfg)
+    out = {"tokens": int(toks.size), "wall_ms": wall, "sfc_flash_attention_launches": n,
+           "simt": cores["sfc_flash_attention.simt"], "max_abs_diff": float((lk - lp).abs().max()),
+           "argmax_agreement": float((lk.argmax(-1) == lp.argmax(-1)).float().mean())}
+    del lk, lp
+    warm = []
+    for _ in range(3):
+        t = time.perf_counter()
+        forward(params, {"tokens": toks}, cfg_hk)
+        torch.cuda.synchronize()
+        warm.append(1e3 * (time.perf_counter() - t))
+    out["warm_ms"] = statistics.median(warm)
+    log(f"forward zamba2 {ATTN_ROW20[0]}x{ATTN_ROW20[2]} bf16 use_hilbert_kernels: " + json.dumps(out))
+    return out
+
+
+def forward_against_plain(params32, cfg32, rng, device) -> dict:
+    """The f32 forward of 1 x 2048 tokens with use_hilbert_kernels (row 20
+    at the model's head width, its launches all on simt) against the plain
+    forward: logits allclose at STEP_TOL, argmax equal where the top-2
+    margin exceeds 2 (atol + rtol |top|)."""
+    import dataclasses as dc
+
+    import torch
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import forward
+
+    toks = rng.integers(0, cfg32.vocab_size, size=(1, ATTN_ROW20[2])).astype(np.int32)
+    cfg_hk = dc.replace(cfg32, use_hilbert_kernels=True)
+    napp = -(-cfg32.num_layers // cfg32.hybrid_attn_every)
+    LAUNCHES.reset()
+    t = time.perf_counter()
+    lk, _ = forward(params32, {"tokens": toks}, cfg_hk)
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t)
+    n, cores = LAUNCHES.counts()["sfc_flash_attention"], LAUNCHES.cores()
+    check(n == napp == cores["sfc_flash_attention.simt"],
+          f"{cfg32.name} f32 forward: sfc_flash_attention launches {n}, cores {cores}, expected {napp} on simt")
+    lp, _ = forward(params32, {"tokens": toks}, cfg32)
+    err = float((lk - lp).abs().max())
+    check(bool(torch.isfinite(lk).all()) and lk.shape == lp.shape, f"{cfg32.name} f32 forward: non-finite or shape")
+    check(bool(torch.allclose(lk, lp, rtol=STEP_TOL, atol=STEP_TOL)), f"{cfg32.name} f32 forward kernel vs plain: {err}")
+    top2 = lp.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * STEP_TOL * (1 + top2[..., 0].abs())
+    same = lk.argmax(-1) == lp.argmax(-1)
+    check(bool(same[clear].all()), f"{cfg32.name} f32 forward: argmax differs at {int((~same & clear).sum())} "
+                                   f"positions outside the margin band")
+    return {"tokens": int(toks.size), "wall_ms": wall, "sfc_flash_attention_launches": n,
+            "simt": cores["sfc_flash_attention.simt"], "max_abs_err": err, "step_tol": STEP_TOL,
+            "argmax_clear_share": float(clear.float().mean()), "argmax_agreement": float(same.float().mean())}
+
+
+def ssm_gate(arch: str, rng, device, seed: int) -> dict:
+    """(d): the arch in f32 at full depth, SSM_GATE_REQUESTS requests on the
+    dense engine; every served token against the argmax of the f32 forward
+    replay (Zamba2's with use_hilbert_kernels: row 20 at D = 80 in f32,
+    its launches counted) outside GATE_BAND, and each decode step's logits
+    against the forward's at the same position: the recurrence against the
+    chunked SSD form."""
+    import dataclasses as dc
+
+    import torch
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import init_params
+
+    cfg32 = _ssm_cfg(arch, "float32")
+    params32 = init_params(seed + 1, cfg32, device=device)
+    requests = ssm_requests(rng, cfg32.vocab_size, SSM_GATE_REQUESTS, SSM_GATE_PROMPT, SSM_GATE_NEW)
+    engine = ssm_engine(cfg32, params32, slots=SSM_GATE_REQUESTS)
+    logits, restore = served_steps(engine, lambda lg: lg.clone())
+    try:
+        reqs = [engine.submit(p, max_new=m) for p, m in requests]
+        engine.run_until_done()
+    finally:
+        restore()
+    for r in reqs:
+        check(len(r.out) == r.max_new, f"{arch} f32 gate rid {r.rid}: output length")
+    replay_cfg = dc.replace(cfg32, use_hilbert_kernels=bool(cfg32.hybrid_attn_every))
+    LAUNCHES.reset()
+    gate = replay_gate(replay_cfg, params32, reqs, step_logits=logits, band=SSM_GATE_BAND)
+    n, cores = LAUNCHES.counts()["sfc_flash_attention"], LAUNCHES.cores()
+    if cfg32.hybrid_attn_every:
+        napp = -(-cfg32.num_layers // cfg32.hybrid_attn_every)
+        check(n == napp * len(reqs) == cores["sfc_flash_attention.simt"],
+              f"{arch} f32 gate replay: sfc_flash_attention launches {n}, cores {cores}, expected "
+              f"{napp * len(reqs)} on simt")
+    gate.update(layers=cfg32.num_layers, requests=len(reqs),
+                replay_use_hilbert_kernels=replay_cfg.use_hilbert_kernels,
+                sfc_flash_attention_launches=n, simt=cores["sfc_flash_attention.simt"])
+    if cfg32.hybrid_attn_every:
+        gate["forward_f32"] = forward_against_plain(params32, cfg32, rng, device)
+    log(f"check serving {arch.split('-')[0]} gate: " + json.dumps(gate))
+    del engine, params32, logits
+    torch.cuda.empty_cache()
+    return gate
+
+
+def time_d80(rng, device, errs, launches: int) -> dict:
+    """(e) row 20 at D = 80 (bf16; f32 beside it): CUDA-event ms, the bound
+    (causal pairs x 4 D operations; q, k, v read and o written once), the
+    plain version and ``scaled_dot_product_attention(is_causal=True)``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import launch
+
+    B, H, S = ATTN_ROW20
+    timed = {}
+    for dtype, peak in ((torch.bfloat16, BF16_PEAK), (torch.float32, FP32_PEAK)):
+        q, k, v = d80_inputs(rng, device, dtype)
+        prog = d80_program(device, q)
+        BH, _, d = q.shape
+        b_ms, b_by = bound_ms(4.0 * BH * d * S * (S + 1) / 2, peak, 4 * BH * S * d * q.element_size())
+        timed[dtype] = {
+            "ms": cuda_ms(lambda: launch(prog, q, k, v), 10),
+            "plain_ms": cuda_ms(lambda: prog.plain(prog, q, k, v), 1, warmup=0),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                q.reshape(B, H, S, d), k.reshape(B, H, S, d), v.reshape(B, H, S, d), is_causal=True), 10),
+            "max_abs_err": errs[dtype], "core": "simt", "ctas": int(np.prod(prog.grid)),
+        }
+        del q, k, v
+    row = {"name": "sfc_flash_attention.d80", "route": "cuda", "source": SOURCES["sfc_flash_attention"],
+           "replaces": REPLACES["sfc_flash_attention"], "launches": launches, **timed[torch.bfloat16],
+           "peak": "bf16 tensor cores (989 TFLOP/s), HBM 3.35 TB/s; f32: FP32 pipes (67 TFLOP/s)",
+           "shape": {"BH": B * H, "S": S, "D": d, "bq": 128, "bkv": 128, "causal": True},
+           "f32": timed[torch.float32]}
+    log(f"time sfc_flash_attention d80: {json.dumps(row)}")
+    return row
+
+
+def ssm_serving_path(rng, device, seed: int) -> list:
+    """Phase 7c, after DeepSeek's weights are freed: (a) row 20 at D = 80
+    against its plain version; (b) Mamba2-2.7B and (c) Zamba2-2.7B at full
+    width and depth in bf16 on the dense engine, and Zamba2's forward with
+    use_hilbert_kernels (its 9 row 20 launches); (d) both in f32 against
+    their forward replay; (e) row 20 at D = 80 timed.  Returns its kernel
+    row."""
+    import torch
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    errs = compare_d80(rng, device)
+    busy = {}
+    fwd = None
+    for arch in SSM_ARCHS:
+        busy[arch], params = ssm_serve(arch, rng, device, seed)
+        if arch == SSM_HYBRID:
+            fwd = zamba2_forward(params, rng, device)
+        del params
+        torch.cuda.empty_cache()
+    for arch in SSM_ARCHS:
+        ssm_gate(arch, rng, device, seed)
+    row = time_d80(rng, device, errs, fwd["sfc_flash_attention_launches"])
+    log("serving ssm busy: " + json.dumps(busy))
+    log(f"ssm phase: {time.perf_counter() - t_phase:.1f} s")
+    return [row]
 
 
 # ---------------------------------------------------------------------------
@@ -3382,10 +3791,12 @@ def main() -> int:
     if args.quick:
         compare_attention(np.random.default_rng(args.seed + 3), device)
         compare_latent(np.random.default_rng(args.seed + 5), device)
+        compare_d80(np.random.default_rng(args.seed + 6), device)
         return 0
     result, ctx = main_path(rng, device, args.seed)
     result["kernels"] += serving_path(np.random.default_rng(args.seed + 3), device, args.seed)
     result["kernels"] += mla_serving_path(np.random.default_rng(args.seed + 5), device, args.seed)
+    result["kernels"] += ssm_serving_path(np.random.default_rng(args.seed + 6), device, args.seed)
     result["kernels"] += sharded_path(device, args.seed, ctx)
     log(json.dumps(result))
     log(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
-"""repro_torch.models — the LM stack of the PyTorch/CUDA port (dense and
-MoE blocks, GQA and MLA attention; SSM blocks and the hybrid pattern raise
-:class:`NotImplementedError` naming the slice that brings them)."""
+"""repro_torch.models — the LM stack of the PyTorch/CUDA port: dense, MoE
+and Mamba2 (SSD) blocks, GQA and MLA attention, and the hybrid pattern
+(Zamba2's shared attention block)."""
 from .config import ModelConfig, reduced
 from .model import (
     LM,

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from . import attention as attn
 from . import transformer as tfm
 from .config import ModelConfig
 from .layers import Embed, RMSNorm, embed, rms_norm, unembed
@@ -42,12 +43,12 @@ __all__ = [
 
 class LM(nn.Module):
     """The parameters of one model: ``blocks`` (one :class:`Block` per
-    layer), ``final_norm``, ``embed`` and, unless tied, ``head``."""
+    layer), ``final_norm``, ``embed``, unless tied ``head``, and for the
+    hybrid pattern ``shared_attn`` (one :class:`~.transformer.SharedAttn`)."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
         cfg.validate()
-        tfm.check_ported(cfg)
         if not cfg.embed_inputs:
             raise NotImplementedError(
                 "stub frontends (embed_inputs=False) arrive with the training slice of the "
@@ -59,6 +60,8 @@ class LM(nn.Module):
         self.embed = Embed(cfg.vocab_size, cfg.d_model, dtype, device)
         if not cfg.tie_embeddings:
             self.head = Embed(cfg.vocab_size, cfg.d_model, dtype, device)
+        if cfg.hybrid_attn_every:
+            self.shared_attn = tfm.init_shared_attn(cfg, dtype, device)
 
     @property
     def device(self) -> torch.device:
@@ -83,6 +86,8 @@ def init_params(seed: int, cfg: ModelConfig, *, device="cuda") -> LM:
     params.embed.reset(gen)
     if hasattr(params, "head"):
         params.head.reset(gen)
+    if hasattr(params, "shared_attn"):
+        params.shared_attn.reset(gen)
     return params
 
 
@@ -114,8 +119,11 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> LM:
     """The JAX package's parameter pytree (leaves as numpy arrays, e.g.
     ``jax.tree.map(np.asarray, params)``) as the port's :class:`LM` on
     ``device``.  The stacked ``(L, ...)`` block leaves are split per layer
-    (the port keeps one module per block); every leaf must match a
-    parameter of the same shape, and every parameter must be given."""
+    (the port keeps one module per block); ``shared_attn`` (the hybrid
+    pattern's one shared block) is unstacked.  Every leaf must match a
+    parameter of the same shape, and every parameter must be given; each
+    keeps the port's dtype (``A_log``, ``D``, ``dt_bias`` and MoE's router
+    f32 in a bf16 model)."""
     params = LM(cfg, device)
     blocks = tree["blocks"]
     for i, block in enumerate(params.blocks):
@@ -147,7 +155,8 @@ def forward(params: LM, batch: dict[str, Any], cfg: ModelConfig):
     B, S = tokens.shape
     x = embed(tokens, params.embed)
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
-    x, aux = tfm.stack_forward(params.blocks, x, cfg, positions)
+    x, aux = tfm.stack_forward(params.blocks, x, cfg, positions,
+                               shared_attn=getattr(params, "shared_attn", None))
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return unembed(x, params.lm_head), aux
 
@@ -159,9 +168,18 @@ def forward(params: LM, batch: dict[str, Any], cfg: ModelConfig):
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda"):
     """Dense decode cache: {"blocks": {"k", "v"}} with (L, B, max_len, Hkv,
     Dh) leaves; MLA's {"c_kv", "k_rope"} with (L, B, max_len, r) and (L, B,
-    max_len, dr) leaves."""
-    one = tfm.block_init_cache(cfg, batch, max_len, cfg.params_dtype, device)
-    return {"blocks": {k: v.new_zeros((cfg.num_layers,) + tuple(v.shape)) for k, v in one.items()}}
+    max_len, dr) leaves; Mamba2's {"state", "conv"} with (L, B, H, p, n) f32
+    and (L, B, w - 1, conv_dim) leaves.  The hybrid pattern adds
+    {"shared": {"k", "v"}}, one (napp, B, max_len, Hkv, Dh) leaf each for
+    the napp = ⌈L / hybrid_attn_every⌉ shared-block applications."""
+    dtype = cfg.params_dtype
+    one = tfm.block_init_cache(cfg, batch, max_len, dtype, device)
+    out = {"blocks": {k: v.new_zeros((cfg.num_layers,) + tuple(v.shape)) for k, v in one.items()}}
+    if cfg.hybrid_attn_every:
+        napp = -(-cfg.num_layers // cfg.hybrid_attn_every)
+        sc = attn.gqa_init_cache(cfg, batch, max_len, dtype, device)
+        out["shared"] = {k: v.new_zeros((napp,) + tuple(v.shape)) for k, v in sc.items()}
+    return out
 
 
 def decode_step(params: LM, tokens, cache, pos, cfg: ModelConfig):
@@ -173,7 +191,9 @@ def decode_step(params: LM, tokens, cache, pos, cfg: ModelConfig):
     if pos.dim() == 0:
         pos = pos.expand(tokens.shape[0])
     x = embed(tokens, params.embed)
-    x, _ = tfm.stack_decode(params.blocks, x, cfg, cache["blocks"], pos)
+    x, _ = tfm.stack_decode(params.blocks, x, cfg, cache["blocks"], pos,
+                            shared_attn=getattr(params, "shared_attn", None),
+                            shared_caches=cache.get("shared"))
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return unembed(x, params.lm_head)[:, 0], cache
 

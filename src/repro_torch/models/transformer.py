@@ -1,17 +1,20 @@
-"""Block definitions and the layer stack (dense and MoE blocks, GQA or
-MLA attention).
+"""Block definitions and the layer stack (dense, MoE and Mamba2 blocks,
+GQA or MLA attention, and the hybrid pattern).
 
-A block is a :class:`Block` module (``norm1``, ``attn``, ``norm2``,
-``ffn``: the JAX package's parameter keys); the stack is an
-``nn.ModuleList`` walked by a Python loop over layers where the JAX
-package scans parameters stacked on a leading layer axis.  Caches keep
-that layer axis: one (L, ...) tensor per leaf, of which layer ``i`` works
-on the view ``leaf[i]`` in place.  The serving paths run MoE lossless
-(and prefill with its pad rows masked), as the JAX package does.
+A block is a :class:`Block` module with the JAX package's parameter keys
+(``norm1``, ``attn``, ``norm2``, ``ffn``; a ``mamba2`` block ``norm1`` and
+``mixer``); the stack is an ``nn.ModuleList`` walked by a Python loop
+over layers where the JAX package scans parameters stacked on a leading
+layer axis.  Caches keep that layer axis: one (L, ...) tensor per leaf,
+of which layer ``i`` works on the view ``leaf[i]`` in place.  The serving
+paths run MoE lossless (and prefill with its pad rows masked), as the JAX
+package does.
 
-Not in this port yet (each raises :class:`NotImplementedError` naming the
-slice that brings it): ``mamba2`` blocks and the hybrid
-(``hybrid_attn_every``) pattern.
+The hybrid (Zamba2) pattern applies one :class:`SharedAttn` block (GQA +
+MLP, the same weights each time) after every ``hybrid_attn_every``
+Mamba2 layers, the last partial segment included.  Recurrent stacks have
+no paged cache: the paged entry points refuse them, and the dense decode
+path is their serving route.
 """
 from __future__ import annotations
 
@@ -20,22 +23,12 @@ from torch import nn
 
 from . import attention as attn
 from . import moe as moe_mod
+from . import ssm as ssm_mod
 from .config import ModelConfig
 from .layers import MLP, RMSNorm, mlp, rms_norm
 
-_NEXT = {
-    "mamba2": "the SSM slice of the PyTorch/CUDA port (mamba2-2.7b)",
-    "hybrid": "the hybrid slice of the PyTorch/CUDA port (zamba2-2.7b)",
-}
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise for a configuration whose blocks the port does not run yet
-    (SSM blocks and the hybrid pattern)."""
-    if cfg.hybrid_attn_every:
-        raise NotImplementedError(f"hybrid_attn_every is not ported yet: it arrives with {_NEXT['hybrid']}")
-    if cfg.block_kind == "mamba2":
-        raise NotImplementedError(f"mamba2 blocks are not ported yet: they arrive with {_NEXT['mamba2']}")
+_NO_PAGES = "recurrent blocks have no paged KV cache"
+_PURE_ATTENTION = "paged KV serving requires a pure attention stack"
 
 
 # ---------------------------------------------------------------------------
@@ -44,11 +37,15 @@ def check_ported(cfg: ModelConfig) -> None:
 
 class Block(nn.Module):
     """``attn``: :class:`~.attention.MLA` or :class:`~.attention.GQA`;
-    ``ffn``: :class:`~.moe.MoE` or :class:`~.layers.MLP`."""
+    ``ffn``: :class:`~.moe.MoE` or :class:`~.layers.MLP`; a ``mamba2``
+    block has ``norm1`` and ``mixer`` (:class:`~.ssm.Mamba2`) only."""
 
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
         self.norm1 = RMSNorm(cfg.d_model, dtype, device)
+        if cfg.block_kind == "mamba2":
+            self.mixer = ssm_mod.init_mamba2(cfg, dtype, device)
+            return
         self.attn = (attn.init_mla if cfg.is_mla else attn.init_gqa)(cfg, dtype, device)
         self.norm2 = RMSNorm(cfg.d_model, dtype, device)
         if cfg.block_kind == "moe":
@@ -57,7 +54,7 @@ class Block(nn.Module):
             self.ffn = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_act, dtype, device)
 
     def reset(self, gen: torch.Generator) -> None:
-        for part in (self.norm1, self.attn, self.norm2, self.ffn):
+        for part in self.children():
             part.reset(gen)
 
 
@@ -80,6 +77,9 @@ def block_forward(params: Block, x, cfg: ModelConfig, positions):
     capacity-bounded dispatch here (``lossless=False``), as in the JAX
     package."""
     h = rms_norm(x, params.norm1, cfg.norm_eps)
+    if cfg.block_kind == "mamba2":
+        return x + ssm_mod.mamba2_forward(params.mixer, h, cfg), torch.zeros(
+            (), dtype=torch.float32, device=x.device)
     if cfg.is_mla:
         x = x + attn.mla_forward(params.attn, h, cfg, positions)
     else:
@@ -92,6 +92,9 @@ def block_decode(params: Block, x, cfg: ModelConfig, cache, pos):
     """Single-token step (MoE lossless: a token's expert output must not
     depend on the dispatch's shape).  Returns (x, cache)."""
     h = rms_norm(x, params.norm1, cfg.norm_eps)
+    if cfg.block_kind == "mamba2":
+        y, cache = ssm_mod.mamba2_decode(params.mixer, h, cfg, cache)
+        return x + y, cache
     if cfg.is_mla:
         y, cache = attn.mla_decode(params.attn, h, cfg, cache, pos)
     else:
@@ -102,6 +105,8 @@ def block_decode(params: Block, x, cfg: ModelConfig, cache, pos):
 def block_decode_paged(params: Block, x, cfg: ModelConfig, pools, pos, page_table, *,
                        write_mask=None, attn_impl: str = "flash"):
     """Single-token step against a paged KV pool.  Returns (x, pools)."""
+    if cfg.block_kind == "mamba2":
+        raise NotImplementedError(_NO_PAGES)
     h = rms_norm(x, params.norm1, cfg.norm_eps)
     decode = attn.mla_decode_paged if cfg.is_mla else attn.gqa_decode_paged
     y, pools = decode(params.attn, h, cfg, pools, pos, page_table,
@@ -115,6 +120,8 @@ def block_prefill_paged(params: Block, x, cfg: ModelConfig, pools, pos0, n_new,
     prompt token of every slot in one launch; MoE lossless, with the pad
     rows (past each slot's n_new) masked out of the dispatch.  Returns (x,
     pools)."""
+    if cfg.block_kind == "mamba2":
+        raise NotImplementedError(_NO_PAGES)
     h = rms_norm(x, params.norm1, cfg.norm_eps)
     prefill = attn.mla_prefill_paged if cfg.is_mla else attn.gqa_prefill_paged
     y, pools = prefill(params.attn, h, cfg, pools, pos0, n_new, page_table,
@@ -127,14 +134,14 @@ def block_prefill_paged(params: Block, x, cfg: ModelConfig, pools, pos0, n_new,
 
 def block_init_pages(cfg: ModelConfig, num_pages: int, page_size: int, dtype, device):
     if cfg.block_kind == "mamba2" or cfg.hybrid_attn_every:
-        raise ValueError("paged KV serving requires a pure attention stack")
-    check_ported(cfg)
+        raise ValueError(_PURE_ATTENTION)
     init = attn.mla_init_pages if cfg.is_mla else attn.gqa_init_pages
     return init(cfg, num_pages, page_size, dtype, device)
 
 
 def block_init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device):
-    check_ported(cfg)
+    if cfg.block_kind == "mamba2":
+        return ssm_mod.mamba2_init_cache(cfg, batch, dtype, device)
     init = attn.mla_init_cache if cfg.is_mla else attn.gqa_init_cache
     return init(cfg, batch, max_len, dtype, device)
 
@@ -152,19 +159,42 @@ def layer(cache: dict, i: int) -> dict:
     return {name: leaf[i] for name, leaf in cache.items()}
 
 
-def stack_forward(blocks: nn.ModuleList, x, cfg: ModelConfig, positions):
-    """Run all layers.  Returns (x, total_aux)."""
+def _segments(cfg: ModelConfig):
+    """The stack's segments, (lo, hi) layer ranges: one of all L layers, or
+    for the hybrid pattern ⌈L / every⌉ of them, the last one partial, each
+    followed by one shared-block application."""
+    every, L = cfg.hybrid_attn_every or cfg.num_layers, cfg.num_layers
+    return [(lo, min(lo + every, L)) for lo in range(0, L, every)]
+
+
+def stack_forward(blocks: nn.ModuleList, x, cfg: ModelConfig, positions, shared_attn=None):
+    """Run all layers.  Returns (x, total_aux).  Hybrid (Zamba2):
+    ``shared_attn`` is applied after every ``hybrid_attn_every`` layers
+    (the same weights each time)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for block in blocks:
-        x, a = block_forward(block, x, cfg, positions)
-        aux = aux + a
+    for lo, hi in _segments(cfg):
+        for block in blocks[lo:hi]:
+            x, a = block_forward(block, x, cfg, positions)
+            aux = aux + a
+        if cfg.hybrid_attn_every:
+            h = rms_norm(x, shared_attn.norm, cfg.norm_eps)
+            x = x + attn.gqa_forward(shared_attn.attn, h, cfg, positions)
+            x = _shared_block_tail(shared_attn, x, cfg)
     return x, aux
 
 
-def stack_decode(blocks: nn.ModuleList, x, cfg: ModelConfig, caches, pos):
-    """Single-token decode through all layers.  Returns (x, caches)."""
-    for i, block in enumerate(blocks):
-        x, _ = block_decode(block, x, cfg, layer(caches, i), pos)
+def stack_decode(blocks: nn.ModuleList, x, cfg: ModelConfig, caches, pos, shared_attn=None,
+                 shared_caches=None):
+    """Single-token decode through all layers; the hybrid stack's shared
+    block application ``s`` works on ``layer(shared_caches, s)``.  Returns
+    (x, caches); both cache groups are updated in place."""
+    for s, (lo, hi) in enumerate(_segments(cfg)):
+        for i in range(lo, hi):
+            x, _ = block_decode(blocks[i], x, cfg, layer(caches, i), pos)
+        if cfg.hybrid_attn_every:
+            h = rms_norm(x, shared_attn.norm, cfg.norm_eps)
+            y, _ = attn.gqa_decode(shared_attn.attn, h, cfg, layer(shared_caches, s), pos)
+            x = _shared_block_tail(shared_attn, x + y, cfg)
     return x, caches
 
 
@@ -172,6 +202,8 @@ def stack_decode_paged(blocks: nn.ModuleList, x, cfg: ModelConfig, pools, pos, p
                        write_mask=None, attn_impl: str = "flash"):
     """Single-token paged decode through all layers; one page table for
     every layer (one logical→physical map, L pools).  Returns (x, pools)."""
+    if cfg.hybrid_attn_every:
+        raise ValueError(_PURE_ATTENTION)
     for i, block in enumerate(blocks):
         x, _ = block_decode_paged(block, x, cfg, layer(pools, i), pos, page_table,
                                   write_mask=write_mask, attn_impl=attn_impl)
@@ -183,7 +215,42 @@ def stack_prefill_paged(blocks: nn.ModuleList, x, cfg: ModelConfig, pools, pos0,
     """Batched paged prefill through all layers (the compiled-forward
     admission path: per layer one scatter and one whole-cohort attention
     launch).  Returns (x, pools)."""
+    if cfg.hybrid_attn_every:
+        raise ValueError(_PURE_ATTENTION)
     for i, block in enumerate(blocks):
         x, _ = block_prefill_paged(block, x, cfg, layer(pools, i), pos0, n_new, page_table,
                                    attn_impl=attn_impl, schedule=schedule)
     return x, pools
+
+
+# ---------------------------------------------------------------------------
+# the hybrid pattern's shared block
+# ---------------------------------------------------------------------------
+
+class SharedAttn(nn.Module):
+    """Zamba2's shared transformer block, applied with the same weights
+    after every ``hybrid_attn_every`` Mamba2 layers: ``norm``, ``attn``
+    (GQA) and, when ``d_ff`` is set, ``norm2`` and ``mlp``."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.norm = RMSNorm(cfg.d_model, dtype, device)
+        self.attn = attn.init_gqa(cfg, dtype, device)
+        if cfg.d_ff:
+            self.norm2 = RMSNorm(cfg.d_model, dtype, device)
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_act, dtype, device)
+
+    def reset(self, gen: torch.Generator) -> None:
+        for part in self.children():
+            part.reset(gen)
+
+
+def init_shared_attn(cfg: ModelConfig, dtype, device) -> SharedAttn:
+    return SharedAttn(cfg, dtype, device)
+
+
+def _shared_block_tail(shared_attn: SharedAttn, x, cfg: ModelConfig):
+    if hasattr(shared_attn, "mlp"):
+        h = rms_norm(x, shared_attn.norm2, cfg.norm_eps)
+        x = x + mlp(h, shared_attn.mlp, cfg.mlp_act)
+    return x

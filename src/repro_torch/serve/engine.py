@@ -58,15 +58,22 @@ from .kv_pages import PagedKVCache
 from .tick import TickCore
 
 
+def _leaves(cache):
+    """Every leaf of every cache group (``blocks``; the hybrid pattern's
+    ``shared``), each with the slot on its axis 1."""
+    return [leaf for group in cache.values() for leaf in group.values()]
+
+
 def _masked_step(params, toks, cache, pos, mask, *, cfg):
-    """Decode one token; slots with mask=False keep their cache untouched
-    (the where-merge of the JAX engine, on the cache's layer-stacked
-    leaves)."""
-    old = {k: v.clone() for k, v in cache["blocks"].items()}
+    """Decode one token; slots with mask=False keep their cache untouched:
+    the where-merge of the JAX engine, on every leaf of every cache group.
+    It is what keeps filler tokens out of a masked slot's recurrent state
+    (a positional mask hides stale K/V, nothing hides SSM state)."""
+    old = [leaf.clone() for leaf in _leaves(cache)]
     logits, cache = decode_step(params, toks, cache, pos, cfg)
-    for name, leaf in cache["blocks"].items():
+    for leaf, before in zip(_leaves(cache), old):
         m = mask.reshape((1, -1) + (1,) * (leaf.dim() - 2))
-        leaf.copy_(torch.where(m, leaf, old[name]))
+        leaf.copy_(torch.where(m, leaf, before))
     return logits, cache
 
 
@@ -108,8 +115,9 @@ def _copy_pages(cache, src: torch.Tensor, dst: torch.Tensor):
 
 
 def _zero_slot(cache, slot: int):
-    """Zero ONE slot's rows across the dense cache, in place."""
-    for leaf in cache["blocks"].values():
+    """Zero ONE slot's rows across every group of the dense cache, in
+    place: a reused slot starts from a zero recurrent state."""
+    for leaf in _leaves(cache):
         leaf[:, slot] = 0
     return cache
 

@@ -10,7 +10,9 @@ logits are O(1)): ``forward`` with and without ``use_hilbert_kernels``,
 with ``"flash"`` and ``"xla"`` against the JAX package's ``"xla"``
 reference, for reduced tinyllama-1.1b (GQA, g = 2), qwen2.5-14b (QKV
 bias, g = 2), minitron-8b (tanh GeLU, g = 4) and stablelm-1.6b (MHA).  The layers
-(``rms_norm``, ``apply_rope``, both MLP activations) match at 1e-6.
+(``rms_norm``, ``apply_rope``, both MLP activations) match at 1e-6.  The
+MoE archs' and the SSM / hybrid archs' forward and decode are held in
+``test_torch_mla.py`` and ``test_torch_ssm.py``; here they initialise.
 """
 import numpy as np
 import pytest
@@ -118,9 +120,18 @@ def test_full_size_tinyllama_shapes_and_unported_blocks():
         moe = tm.init_params(0, get_reduced(arch), device="cpu")
         assert tm.count_params(moe) == jm.param_count_analytic(j_reduced(arch))
         assert moe.blocks[0].ffn.router.dtype == torch.float32
-    for arch, what in [("mamba2-2.7b", "SSM"), ("zamba2-2.7b", "hybrid")]:
-        with pytest.raises(NotImplementedError, match=what):
-            tm.init_params(0, get_reduced(arch), device="cpu")
+    # the SSM and hybrid archs are ported too: seeded init (the same
+    # parameters twice), the JAX package's parameter count, Mamba2's
+    # A_log / D / dt_bias in f32 beside bf16 weights
+    for arch in ("mamba2-2.7b", "zamba2-2.7b"):
+        ssm = tm.init_params(0, get_reduced(arch), device="cpu")
+        again = tm.init_params(0, get_reduced(arch), device="cpu")
+        assert all(torch.equal(a, b) for a, b in zip(ssm.parameters(), again.parameters()))
+        assert tm.count_params(ssm) == jm.param_count_analytic(j_reduced(arch))
+        mixer = ssm.blocks[0].mixer
+        assert mixer.A_log.dtype == mixer.D.dtype == mixer.dt_bias.dtype == torch.float32
+        assert mixer.in_proj.dtype == torch.bfloat16
+        assert hasattr(ssm, "shared_attn") == (arch == "zamba2-2.7b")
 
 
 # ---------------------------------------------------------------------------
