@@ -10,7 +10,8 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    ``build/repro_torch/``, and print the registers, spills and resident
    CTAs an SM of the SIMT core's kernels (the f32 matmuls and
    ``sfc_tile_update``), of the register-tiled f32 core's kernels (rows
-   20 and 22) and of the
+   20 at D = 64, 80, 128 and 22), of row 20's tensor-core kernel (D =
+   64, 80, 128) and of the
    k-means update (D = 128 and 960, and the shard update), fold and
    assign (the one kernel of the three assign entries), of the ε-join's
    kernel of each pass (16-deep stages, and 8-deep for D <= 8), and of
@@ -145,7 +146,8 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    DeepSeek's weights are freed): (a) ``compare flash d80``: row 20 at
    Zamba2's shared-attention shapes (B·H 64, S 2048, D 80, causal) in bf16
    and f32 against its plain version, the core read from the launch
-   record (``flash_rows``, "simt"); (b) ``serving mamba2:`` and (c)
+   record (bf16 on "wgmma", f32 on "tiled"), and ``flash_rows`` ("simt")
+   at D = 80 on tiles of 64 beside them; (b) ``serving mamba2:`` and (c)
    ``serving zamba2:``: each model at full width and depth (64 layers;
    54 + 9 shared-block applications), bf16, seeded random weights, on the
    dense engine (8 slots, max_len 2048, chunked prefill) serving 16
@@ -153,17 +155,20 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    tick p99, the cache's bytes, the where-merge's ms, a warm decode tick's
    ``profile:``; then Zamba2's ``forward`` of 2 x 2048 tokens with
    ``use_hilbert_kernels``, its 9 ``sfc_flash_attention`` launches counted
-   apart, all on simt (the logits' difference from the plain forward
+   apart, all on wgmma (the logits' difference from the plain forward
    reported); (d) ``check serving mamba2 gate:`` / ``check serving zamba2
-   gate:``: each model in f32 at full depth, 4 requests (prompts of 16-64,
-   16-32 new tokens) whose served tokens equal the argmax of the f32
-   forward replay outside the top-2 margin band (Zamba2's replay with
+   gate:``: each model in f32 at full depth, 4 requests (prompts of
+   128-160, 16-32 new tokens) whose served tokens equal the argmax of the
+   f32 forward replay outside the top-2 margin band (Zamba2's replay with
    ``use_hilbert_kernels``: row 20 at D = 80 in f32, its launches
-   counted), each decode step's logits against the forward's at the same
-   position (the recurrence against the chunked SSD form), and Zamba2's
-   f32 forward of 1 x 2048 tokens through row 20 against the plain
-   forward (allclose at STEP_TOL, argmax outside the band); (e) ``time
-   sfc_flash_attention d80``: ms, bound, plain ms and SDPA, bf16 and f32.
+   counted, all on tiled), each decode step's logits against the
+   forward's at the same position (the recurrence against the chunked SSD
+   form), and Zamba2's f32 forward of 1 x 2048 tokens through row 20
+   against the plain forward (allclose at STEP_TOL, argmax outside the
+   band); (e) ``time
+   sfc_flash_attention d80``: ms, bound, plain ms and SDPA, bf16 and f32,
+   the core from the launch record and ``flash_rows``' time at D = 80
+   (tiles of 64) in the same run as the "was" time.
 8. The curve-range-sharded apps (``sharded_path``), SHARDS = 4 shards on
    the one card (the code path of a mesh, not multi-GPU scaling): with the
    launch counts reset, ``ops.kmeans_lloyd(mesh=)`` on phase 3's SIFT1M
@@ -348,7 +353,10 @@ SSM_WARM_PROMPT = 16  # prompt tokens of the warm decode tick's requests
 # that (GATE_BAND's 1e-3 held 6 of 78 Mamba2 tokens)
 SSM_GATE_BAND = 1e-4
 SSM_GATE_REQUESTS = 4
-SSM_GATE_PROMPT = (16, 64)
+# prompts of at least 128 tokens: Zamba2's replays then run row 20 on 128-row
+# tiles, the register-tiled core's shape (a shorter sequence is one tile of
+# its own length, on flash_rows)
+SSM_GATE_PROMPT = (128, 160)
 SSM_GATE_NEW = (16, 32)
 # the sharded phase: shards of its meshes, all on the one card
 SHARDS = 4
@@ -2890,10 +2898,26 @@ def d80_program(device, q):
                                         bkv=128, kv_valid=None)
 
 
+D80_CORES = {"bfloat16": "wgmma", "float32": "tiled"}
+
+
+def d80_rows_program(device, q):
+    """Row 20 at D = 80 on tiles of 64 (causal), the shape at which
+    ``flash_rows`` (the "simt" core) keeps Zamba2's width."""
+    from repro_torch.kernels import attention as katt
+
+    S, d = q.shape[1], q.shape[2]
+    sched = katt.attention_schedule_device(S // 64, S // 64, causal=True, device=device)
+    return katt.flash_attention_program(sched, q, causal=True, sm_scale=1.0 / float(np.sqrt(d)), bq=64,
+                                        bkv=64, kv_valid=None)
+
+
 def compare_d80(rng, device) -> dict:
     """(a) row 20 at D = 80 against its plain version, bf16 and f32, each
-    launch read from the launch record's cores: ``flash_rows`` (simt) by
-    the core rule.  Returns the largest errors by dtype."""
+    launch read from the launch record's cores: bf16 on the tensor-core
+    core, f32 on the register-tiled core, by the core rule; then
+    ``flash_rows`` (simt) at D = 80 on tiles of 64, the shape that keeps
+    it.  Returns the largest errors by dtype (and by ``(dtype, "simt")``)."""
     import torch
     from repro_torch.kernels import LAUNCHES, launch
     from repro_torch.kernels import attention as katt
@@ -2902,19 +2926,24 @@ def compare_d80(rng, device) -> dict:
     for dtype in (torch.bfloat16, torch.float32):
         tol = ATTN_TOL[str(dtype)[6:]]
         q, k, v = d80_inputs(rng, device, dtype)
-        prog = d80_program(device, q)
-        before = LAUNCHES.cores()
-        got = launch(prog, q, k, v)
-        after = LAUNCHES.cores()
-        ran = [c for c in after if after[c] != before[c]]
-        check(ran == ["sfc_flash_attention.simt"] and katt.flash_core(dtype, q.shape[2], 128, 128) == "simt",
-              f"sfc_flash_attention D={q.shape[2]} {dtype}: launched on {ran}, expected the simt core")
-        want = prog.plain(prog, q, k, v)
-        torch.cuda.synchronize()
-        errs[dtype] = attn_err(got, want, tol, f"sfc_flash_attention D={q.shape[2]} {dtype}")
-        parts.append(f"{str(dtype)[6:]} (rtol {tol['rtol']}, atol {tol['atol']}) core {ran[0].split('.')[1]} "
-                     f"max_abs_err={errs[dtype]:.3e}")
-        del q, k, v, got, want
+        for key, prog, core in ((dtype, d80_program(device, q), D80_CORES[str(dtype)[6:]]),
+                                ((dtype, "simt"), d80_rows_program(device, q), "simt")):
+            before = LAUNCHES.cores()
+            got = launch(prog, q, k, v)
+            after = LAUNCHES.cores()
+            ran = [c for c in after if after[c] != before[c]]
+            p = prog.params
+            check(ran == [f"sfc_flash_attention.{core}"]
+                  and katt.flash_core(dtype, q.shape[2], p["bq"], p["bkv"]) == core,
+                  f"sfc_flash_attention D={q.shape[2]} bq={p['bq']} {dtype}: launched on {ran}, "
+                  f"expected the {core} core")
+            want = prog.plain(prog, q, k, v)
+            torch.cuda.synchronize()
+            errs[key] = attn_err(got, want, tol, f"sfc_flash_attention D={q.shape[2]} bq={p['bq']} {dtype}")
+            parts.append(f"{str(dtype)[6:]} bq=bkv={p['bq']} (rtol {tol['rtol']}, atol {tol['atol']}) core "
+                         f"{core} max_abs_err={errs[key]:.3e}")
+            del got, want
+        del q, k, v
     B, H, S = ATTN_ROW20
     log(f"compare flash d80: BH={B * H} S={S} D={_ssm_cfg(SSM_HYBRID, 'bfloat16').attn_head_dim} causal: "
         + "; ".join(parts))
@@ -2997,8 +3026,9 @@ def ssm_serve(arch: str, rng, device, seed: int):
 
 def zamba2_forward(params, rng, device) -> dict:
     """(c): Zamba2's forward of 2 x 2048 tokens with use_hilbert_kernels,
-    its row 20 launches counted apart (all simt at D = 80, one per shared
-    application), its logits against the plain forward's."""
+    its row 20 launches counted apart (all on the tensor-core core at D =
+    80, one per shared application), its logits against the plain
+    forward's."""
     import dataclasses as dc
 
     import torch
@@ -3015,8 +3045,8 @@ def zamba2_forward(params, rng, device) -> dict:
     torch.cuda.synchronize()
     wall = 1e3 * (time.perf_counter() - t)
     n, cores = LAUNCHES.counts()["sfc_flash_attention"], LAUNCHES.cores()
-    check(n == napp == cores["sfc_flash_attention.simt"],
-          f"zamba2 forward: sfc_flash_attention launches {n}, cores {cores}, expected {napp} on simt")
+    check(n == napp == cores["sfc_flash_attention.wgmma"],
+          f"zamba2 forward: sfc_flash_attention launches {n}, cores {cores}, expected {napp} on wgmma")
     check(lk.shape == (ATTN_ROW20[0], ATTN_ROW20[2], cfg.vocab_size) and bool(torch.isfinite(lk).all()),
           "zamba2 forward(use_hilbert_kernels): shape or non-finite")
     # in bf16 the two attention forms round apart (on the CPU, with the
@@ -3024,7 +3054,7 @@ def zamba2_forward(params, rng, device) -> dict:
     # by ~1e-2), so the bf16 forward is reported; the f32 gate holds it
     lp, _ = forward(params, {"tokens": toks}, cfg)
     out = {"tokens": int(toks.size), "wall_ms": wall, "sfc_flash_attention_launches": n,
-           "simt": cores["sfc_flash_attention.simt"], "max_abs_diff": float((lk - lp).abs().max()),
+           "wgmma": cores["sfc_flash_attention.wgmma"], "max_abs_diff": float((lk - lp).abs().max()),
            "argmax_agreement": float((lk.argmax(-1) == lp.argmax(-1)).float().mean())}
     del lk, lp
     warm = []
@@ -3040,7 +3070,7 @@ def zamba2_forward(params, rng, device) -> dict:
 
 def forward_against_plain(params32, cfg32, rng, device) -> dict:
     """The f32 forward of 1 x 2048 tokens with use_hilbert_kernels (row 20
-    at the model's head width, its launches all on simt) against the plain
+    at the model's head width, its launches all on tiled) against the plain
     forward: logits allclose at STEP_TOL, argmax equal where the top-2
     margin exceeds 2 (atol + rtol |top|)."""
     import dataclasses as dc
@@ -3058,8 +3088,8 @@ def forward_against_plain(params32, cfg32, rng, device) -> dict:
     torch.cuda.synchronize()
     wall = 1e3 * (time.perf_counter() - t)
     n, cores = LAUNCHES.counts()["sfc_flash_attention"], LAUNCHES.cores()
-    check(n == napp == cores["sfc_flash_attention.simt"],
-          f"{cfg32.name} f32 forward: sfc_flash_attention launches {n}, cores {cores}, expected {napp} on simt")
+    check(n == napp == cores["sfc_flash_attention.tiled"],
+          f"{cfg32.name} f32 forward: sfc_flash_attention launches {n}, cores {cores}, expected {napp} on tiled")
     lp, _ = forward(params32, {"tokens": toks}, cfg32)
     err = float((lk - lp).abs().max())
     check(bool(torch.isfinite(lk).all()) and lk.shape == lp.shape, f"{cfg32.name} f32 forward: non-finite or shape")
@@ -3070,7 +3100,7 @@ def forward_against_plain(params32, cfg32, rng, device) -> dict:
     check(bool(same[clear].all()), f"{cfg32.name} f32 forward: argmax differs at {int((~same & clear).sum())} "
                                    f"positions outside the margin band")
     return {"tokens": int(toks.size), "wall_ms": wall, "sfc_flash_attention_launches": n,
-            "simt": cores["sfc_flash_attention.simt"], "max_abs_err": err, "step_tol": STEP_TOL,
+            "tiled": cores["sfc_flash_attention.tiled"], "max_abs_err": err, "step_tol": STEP_TOL,
             "argmax_clear_share": float(clear.float().mean()), "argmax_agreement": float(same.float().mean())}
 
 
@@ -3105,12 +3135,12 @@ def ssm_gate(arch: str, rng, device, seed: int) -> dict:
     n, cores = LAUNCHES.counts()["sfc_flash_attention"], LAUNCHES.cores()
     if cfg32.hybrid_attn_every:
         napp = -(-cfg32.num_layers // cfg32.hybrid_attn_every)
-        check(n == napp * len(reqs) == cores["sfc_flash_attention.simt"],
+        check(n == napp * len(reqs) == cores["sfc_flash_attention.tiled"],
               f"{arch} f32 gate replay: sfc_flash_attention launches {n}, cores {cores}, expected "
-              f"{napp * len(reqs)} on simt")
+              f"{napp * len(reqs)} on tiled")
     gate.update(layers=cfg32.num_layers, requests=len(reqs),
                 replay_use_hilbert_kernels=replay_cfg.use_hilbert_kernels,
-                sfc_flash_attention_launches=n, simt=cores["sfc_flash_attention.simt"])
+                sfc_flash_attention_launches=n, tiled=cores["sfc_flash_attention.tiled"])
     if cfg32.hybrid_attn_every:
         gate["forward_f32"] = forward_against_plain(params32, cfg32, rng, device)
     log(f"check serving {arch.split('-')[0]} gate: " + json.dumps(gate))
@@ -3122,31 +3152,40 @@ def ssm_gate(arch: str, rng, device, seed: int) -> dict:
 def time_d80(rng, device, errs, launches: int) -> dict:
     """(e) row 20 at D = 80 (bf16; f32 beside it): CUDA-event ms, the bound
     (causal pairs x 4 D operations; q, k, v read and o written once), the
-    plain version and ``scaled_dot_product_attention(is_causal=True)``."""
+    plain version and ``scaled_dot_product_attention(is_causal=True)``; the
+    core from the launch record, and ``flash_rows`` at D = 80 (tiles of
+    64) on the same inputs as the "was" time."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import launch
+    from repro_torch.kernels import LAUNCHES, launch
 
     B, H, S = ATTN_ROW20
     timed = {}
     for dtype, peak in ((torch.bfloat16, BF16_PEAK), (torch.float32, FP32_PEAK)):
         q, k, v = d80_inputs(rng, device, dtype)
         prog = d80_program(device, q)
+        rows = d80_rows_program(device, q)
         BH, _, d = q.shape
         b_ms, b_by = bound_ms(4.0 * BH * d * S * (S + 1) / 2, peak, 4 * BH * S * d * q.element_size())
+        LAUNCHES.reset()
+        launch(prog, q, k, v)
+        core = [c.split(".")[1] for c, n in LAUNCHES.cores().items() if n]
         timed[dtype] = {
             "ms": cuda_ms(lambda: launch(prog, q, k, v), 10),
+            "flash_rows_ms": cuda_ms(lambda: launch(rows, q, k, v), 3),
             "plain_ms": cuda_ms(lambda: prog.plain(prog, q, k, v), 1, warmup=0),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
                 q.reshape(B, H, S, d), k.reshape(B, H, S, d), v.reshape(B, H, S, d), is_causal=True), 10),
-            "max_abs_err": errs[dtype], "core": "simt", "ctas": int(np.prod(prog.grid)),
+            "max_abs_err": errs[dtype], "core": "+".join(core),
+            "ctas": int(np.prod(prog.grid)), "flash_rows_max_abs_err": errs[(dtype, "simt")],
         }
         del q, k, v
     row = {"name": "sfc_flash_attention.d80", "route": "cuda", "source": SOURCES["sfc_flash_attention"],
            "replaces": REPLACES["sfc_flash_attention"], "launches": launches, **timed[torch.bfloat16],
            "peak": "bf16 tensor cores (989 TFLOP/s), HBM 3.35 TB/s; f32: FP32 pipes (67 TFLOP/s)",
            "shape": {"BH": B * H, "S": S, "D": d, "bq": 128, "bkv": 128, "causal": True},
+           "flash_rows_shape": {"bq": 64, "bkv": 64},
            "f32": timed[torch.float32]}
     log(f"time sfc_flash_attention d80: {json.dumps(row)}")
     return row
@@ -3770,7 +3809,7 @@ def main() -> int:
     for line in (lib.parent / "build.log").read_text().splitlines():
         if "registers" in line or "spill" in line.lower() or line.startswith("=="):
             log("  " + line.strip())
-    from repro_torch.kernels.attention import latent_kernel_info, tiled_kernel_info
+    from repro_torch.kernels.attention import latent_kernel_info, tiled_kernel_info, wgmma_kernel_info
     from repro_torch.kernels.floyd_warshall import fw_kernel_info
     from repro_torch.kernels.kmeans import kmeans_kernel_info
     from repro_torch.kernels.matmul import simt_kernel_info
@@ -3780,6 +3819,7 @@ def main() -> int:
     log("kmeans kernels: " + json.dumps(kmeans_kernel_info()))
     log("simjoin kernels: " + json.dumps(simjoin_kernel_info()))
     log("flash tiled kernels: " + json.dumps(tiled_kernel_info()))
+    log("flash wgmma kernels: " + json.dumps(wgmma_kernel_info()))
     log("flash latent kernels: " + json.dumps(latent_kernel_info()))
     log("fw kernels: " + json.dumps(fw_kernel_info()))
     log("fw panel grid: " + json.dumps(fw_panel_grids(device)))

@@ -86,7 +86,7 @@ SIGNATURES = {
 QUERIES = {"sfc_matmul_simt_info": (_I, _P), "sfc_flash_tiled_info": (_I, _P),
            "sfc_prefill_tiled_info": (_I, _P), "sfc_kmeans_info": (_I, _P),
            "sfc_simjoin_info": (_I, _P), "sfc_fw_info": (_I, _P),
-           "sfc_flash_latent_info": (_I, _P)}
+           "sfc_flash_latent_info": (_I, _P), "sfc_flash_wgmma_info": (_I, _P)}
 # the first five of a query's eight values (csrc/kernel_info.cuh); the
 # last three are constants of the kernel's design
 INFO_KEYS = ("registers", "spill_bytes", "ctas_per_sm", "smem_bytes", "threads")

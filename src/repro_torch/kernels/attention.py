@@ -40,9 +40,9 @@ except on the latent core (below).  The plain versions take any shape.
 picked by dtype and shape (:func:`flash_core`, :func:`prefill_core`):
 
 * ``"wgmma"``: bf16 on the tensor cores (TMA + ``wgmma``, P rounded to
-  bf16 for P·V) at D = 64 or 128 with 128 query rows a CTA (bq = 128 and
-  bkv a multiple of 64; for prefill Dk = Dv, page_size · g = 128 and
-  whole pages of 8 to 64 rows a 64-row half);
+  bf16 for P·V) at D = 64, 80 or 128 with 128 query rows a CTA (bq = 128
+  and bkv a multiple of 64; for prefill Dk = Dv = 64 or 128,
+  page_size · g = 128 and whole pages of 8 to 64 rows a 64-row half);
 * ``"tiled"``: f32 at those shapes on the register-tiled SIMT core (all
   128 rows in one pass, K/V stages of 64 rows through a ``cp.async``
   ring, 8 × 4 score tiles a thread); for prefill whole pages of 4 to 64
@@ -84,7 +84,11 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
 MAX_ROWS = 256
 # the shapes sfc_flash_attention's tensor-core core (bf16) and its
-# register-tiled core (f32) take (csrc/attention.cu: core_shape)
+# register-tiled core (f32) take (csrc/attention.cu: core_shape); D = 80
+# is Zamba2's and HuBERT's head width
+FLASH_HEAD_DIMS = (64, 80, 128)
+# the head widths of sfc_flash_prefill's two such cores
+# (prefill_tensor_core_shape, prefill_tiled_shape)
 WGMMA_HEAD_DIMS = (64, 128)
 WGMMA_BQ = 128
 WGMMA_BKV_STEP = 64
@@ -465,24 +469,33 @@ def _require_pools(program: GpuProgram, q, k_pages, v_pages, latent: bool, shape
 def flash_core(dtype: torch.dtype, D: int, bq: int, bkv: int) -> str:
     """The core of ``sfc_flash_attention`` that runs a launch, by dtype and
     shape (the rule of ``csrc/attention.cu``'s entry point): at D in
-    :data:`WGMMA_HEAD_DIMS`, bq = 128 and bkv a multiple of 64, ``"wgmma"``
+    :data:`FLASH_HEAD_DIMS`, bq = 128 and bkv a multiple of 64, ``"wgmma"``
     (TMA and the tensor cores) for bf16 and ``"tiled"`` (the
     register-tiled SIMT core) for f32; ``"simt"`` (``flash_rows``, f32
     arithmetic) for every other shape."""
-    if D in WGMMA_HEAD_DIMS and bq == WGMMA_BQ and bkv % WGMMA_BKV_STEP == 0:
+    if D in FLASH_HEAD_DIMS and bq == WGMMA_BQ and bkv % WGMMA_BKV_STEP == 0:
         return "wgmma" if dtype == torch.bfloat16 else "tiled"
     return "simt"
 
 
 def tiled_kernel_info() -> dict:
     """The register-tiled f32 core's build and residency on the current
-    card, row 20's kernel and row 22's, at D = 64 and 128
+    card, row 20's kernel at D = 64, 80 and 128 and row 22's at 64 and 128
     (:func:`._build.kernel_info`), with the core's D, kv rows a stage and
     stages."""
     return {f"{name}.tiled D={d}": kernel_info(query, d, ("d", "kv_stage", "stages"))
-            for name, query in (("sfc_flash_attention", "sfc_flash_tiled_info"),
-                                ("sfc_flash_prefill", "sfc_prefill_tiled_info"))
-            for d in (64, 128)}
+            for name, query, dims in (("sfc_flash_attention", "sfc_flash_tiled_info", FLASH_HEAD_DIMS),
+                                      ("sfc_flash_prefill", "sfc_prefill_tiled_info", WGMMA_HEAD_DIMS))
+            for d in dims}
+
+
+def wgmma_kernel_info() -> dict:
+    """Row 20's tensor-core kernel's build and residency on the current
+    card at D = 64, 80 and 128 (:func:`._build.kernel_info`), with the
+    core's D, kv rows a stage and ring stages."""
+    return {f"sfc_flash_attention.wgmma D={d}": kernel_info("sfc_flash_wgmma_info", d,
+                                                            ("d", "kv_stage", "stages"))
+            for d in FLASH_HEAD_DIMS}
 
 
 def latent_kernel_info() -> dict:

@@ -155,6 +155,34 @@
 // arithmetic and a 3-stage ring at D = 64 (SDPA 0.148-0.159 in the same
 // runs; chip_smoke.py).
 //
+// At D = 80 (Zamba2's shared attention, HuBERT's encoder) both cores take
+// row 20 too; flash_rows ran it before, 4.39-4.43 ms in bf16 and 4.47-4.52
+// in f32 at Zamba2's forward (BH 64, S 2048, causal), against bounds of
+// 0.0434 ms (bf16 tensor-core operations) and 0.641 (FP32).  The
+// tensor-core core keeps its 128-row tiles as two 64-column chunks: the
+// tensor maps span the true 80 columns (160-byte rows), so the second
+// chunk's box reads columns 64..79 and TMA writes zeros past them, with
+// no padded copy on the host.  S = Q K^T issues the 5 k16 steps D has (4
+// in chunk 0, 1 in chunk 1), each score still one product over d, and
+// P V is m64n80k16 on the same MN-major descriptor (the second atom's
+// first 16 columns), 40 accumulators a thread, the unmasked fast path kept
+// (166 registers, no spill, 2 stages, 164,912 B).  Against it, a
+// 64-column chunk plus a 16-column tail in the 32-byte swizzle (20 KB
+// tiles, 3 stages, P V as m64n64k16 + m64n16k16) and m64n128k16 over the
+// zero-filled chunk read 0.2057 and 0.2036 ms (medians of 6 turns each)
+// to this form's 0.1955, SDPA 0.197 (H100 80GB HBM3, 700.00 W; an A/B probe
+// since removed): the softmax on the 128 x 128 stage sets the pace, not
+// the products or the ring.  In chip_smoke.py 0.205 ms, SDPA 0.181,
+// flash_rows (on tiles of 64) 3.77.  The register-tiled core gives a thread 5 of
+// D's columns: float4 columns 4 c .. 4 c + 3 as at D = 64 and column 64 +
+// c, one LDS.32 a kv row (the 16 lanes of a row group read 16 consecutive
+// floats) for 8 more FMAs; Q^T, K^T and the score chain index d up to 80
+// unchanged, so every score is still flash_rows' fmaf chain (214
+// registers, no spill, 156,928 B, one CTA an SM).  1.510 ms (1.495-1.517)
+// against SDPA f32 1.62, where padding D to 96 inside the kernel (16 zero
+// d in S, a float2 tail) read 1.724 in the same runs; in chip_smoke.py
+// 1.561, SDPA f32 1.601, flash_rows 3.78.
+//
 // sfc_flash_prefill in bf16 with Dk = Dv = 64 or 128, ps * g = 128 query
 // rows a CTA and pages of 8 to 64 rows runs the same consumer on a paged
 // producer (prefill_wgmma_kernel; kernels/attention.py::prefill_core
@@ -547,9 +575,9 @@ int prefill_t(const void* q, const void* kp, const void* vp, void* o, const void
 }
 
 // ---------------------------------------------------------------------------
-// the register-tiled SIMT core: sfc_flash_attention in f32 at D = 64 or
-// 128, bq = 128, bkv a multiple of 64; sfc_flash_prefill in f32 at Dk = Dv
-// = 64 or 128, ps * g = 128 rows a CTA and pages of 4 to 64 rows
+// the register-tiled SIMT core: sfc_flash_attention in f32 at D = 64, 80
+// or 128, bq = 128, bkv a multiple of 64; sfc_flash_prefill in f32 at Dk =
+// Dv = 64 or 128, ps * g = 128 rows a CTA and pages of 4 to 64 rows
 // ---------------------------------------------------------------------------
 
 namespace tiled {
@@ -583,8 +611,8 @@ constexpr int FACT_SLOTS = 3;
 // (chunk c of row x at c ^ (x & 7), x = d for K^T, kv / 4 for P), so
 // 4-byte copies into K^T and the float4 writes of P hit 32 banks and the
 // fragment reads stay conflict-free LDS.128s: 132,096 B at D = 64,
-// 231,424 B at D = 128, one CTA an SM; prefill adds its page facts after
-// the ring (396 B).
+// 156,928 B at D = 80, 231,424 B at D = 128, one CTA an SM; prefill adds
+// its page facts after the ring (396 B).
 template <int D>
 struct Layout {
   static constexpr int Q_FLOATS = D * LDQ;
@@ -736,9 +764,9 @@ struct PagedStages {
 // KV a stage (St: which rows, which positions).  Warp w owns query rows 16
 // w .. 16 w + 15; lane (h, c) = (lane / 16, lane % 16) owns rows rb .. rb
 // + 7 (rb = 16 w + 8 h): scores of kv columns 4 c .. 4 c + 3 of each
-// stage, output columns 64 q + 4 c .. + 3.  Per stage: S = Q K^T on the 8
-// x 4 register tile (each score the fmaf chain over d ascending from 0, as
-// flash_rows'), the masks, the online softmax (a row's maximum by 4
+// stage, output columns 64 q + 4 c .. + 3 (and 64 + c at D = 80).  Per
+// stage: S = Q K^T on the 8 x 4 register tile (each score the fmaf chain
+// over d ascending from 0, as flash_rows'), the masks, the online softmax (a row's maximum by 4
 // shuffles among the 16 lanes that share it, its sum kept per thread until
 // the end), P into the warp's rows of shared memory, O += P V on the 8 x D
 // / 16 register tile.  The next K / V stage is copied while this one is
@@ -748,7 +776,10 @@ __device__ __forceinline__ void tiled_core(St& st, const float* __restrict__ q,
                                            const float* __restrict__ k, const float* __restrict__ v,
                                            float* __restrict__ o, float scale, float* smem) {
   using L = Layout<D>;
-  constexpr int NQ = D / 64;  // float4 output columns a thread: 4 c + 64 q
+  constexpr int NQ = D / 64;       // float4 output columns a thread: 4 c + 64 q
+  constexpr bool TAIL = D % 64 != 0;  // and at D = 80 one more: 64 NQ + c
+  static_assert(D % 64 == 0 || D % 64 == 16, "tiled_core: D = 64 q or 64 q + 16");
+  constexpr int NA = 4 * NQ + TAIL;
   float* Qs = smem;
   float* Ps = Qs + L::Q_FLOATS;
   float* ring = Ps + L::P_FLOATS;
@@ -788,13 +819,13 @@ __device__ __forceinline__ void tiled_core(St& st, const float* __restrict__ q,
     }
   };
 
-  float m[8], l[8], acc[8][4 * NQ];
+  float m[8], l[8], acc[8][NA];
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < 4 * NQ; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < NA; ++j) acc[i][j] = 0.f;
   }
   if (n > 0) issue(0);
   cp_async_commit();
@@ -879,7 +910,7 @@ __device__ __forceinline__ void tiled_core(St& st, const float* __restrict__ q,
       }
       l[r] = alpha * l[r] + ps;
 #pragma unroll
-      for (int j = 0; j < 4 * NQ; ++j) acc[r][j] *= alpha;
+      for (int j = 0; j < NA; ++j) acc[r][j] *= alpha;
       m[r] = mn;
     }
 #pragma unroll
@@ -892,7 +923,8 @@ __device__ __forceinline__ void tiled_core(St& st, const float* __restrict__ q,
     __syncwarp();  // the warp's P is written
 
     // O += P V: per kv row, two LDS.128 of P (broadcast) and NQ of V for
-    // 32 NQ FMAs
+    // 32 NQ FMAs; at D = 80 one more LDS.32 of V (the 16 lanes of a row
+    // group read 16 consecutive floats) for 8
 #pragma unroll 1
     for (int j0 = 0; j0 < KV; j0 += 32) {
 #pragma unroll
@@ -911,6 +943,11 @@ __device__ __forceinline__ void tiled_core(St& st, const float* __restrict__ q,
 #pragma unroll
             for (int jj4 = 0; jj4 < 4; ++jj4)
               acc[r][4 * qq + jj4] = fmaf(p[r], vv[jj4], acc[r][4 * qq + jj4]);
+        }
+        if constexpr (TAIL) {
+          const float vt = vs[j * D + 64 * NQ + c];
+#pragma unroll
+          for (int r = 0; r < 8; ++r) acc[r][4 * NQ] = fmaf(p[r], vt, acc[r][4 * NQ]);
         }
       }
     }
@@ -931,6 +968,7 @@ __device__ __forceinline__ void tiled_core(St& st, const float* __restrict__ q,
       *reinterpret_cast<float4*>(orow + 64 * qq + 4 * c) =
           make_float4(acc[r][4 * qq] / lt, acc[r][4 * qq + 1] / lt, acc[r][4 * qq + 2] / lt,
                       acc[r][4 * qq + 3] / lt);
+    if constexpr (TAIL) orow[64 * NQ + c] = acc[r][4 * NQ] / lt;
   }
 }
 
@@ -1872,14 +1910,16 @@ constexpr int CHUNK = 128 * 64 * 2;      // 128 rows of 64 bf16 columns (one 128
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// Shared memory at head width D: Q, then STAGES x (K, V), each as D / 64
-// column chunks of 128 rows; the barriers after the ring, then (prefill)
-// the producer's per-stage page facts.  The ring is 3 stages deep at D =
-// 64 (112 KB), 2 at D = 128 (160 KB).
+// Shared memory at head width D: Q, then STAGES x (K, V), each as
+// ceil(D / 64) column chunks of 128 rows (at D = 80 the second chunk holds
+// columns 64..79 and the zeros TMA fills past the tensor's 80); the
+// barriers after the ring, then (prefill) the producer's per-stage page
+// facts.  The ring is 3 stages deep at D = 64 (112 KB), 2 at D = 80 and
+// 128 (160 KB).
 template <int D>
 struct Layout {
   static constexpr int STAGES = D == 64 ? 3 : 2;
-  static constexpr int CHUNKS = D / 64;
+  static constexpr int CHUNKS = (D + 63) / 64;
   static constexpr int TILE_BYTES = CHUNKS * CHUNK;  // Q, or K or V of one stage
   static constexpr int STAGE_BYTES = 2 * TILE_BYTES;
   static constexpr int BARRIER_BYTES = (2 * STAGES + 2) * 8;  // full, empty, Q's; 16-byte multiple
@@ -1938,11 +1978,11 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // to bf16 in registers as the A fragments (m64nDk16, V MN-major).  Scores
 // are kept in log2 units (scale * log2 e after the product) for ex2.
 // Masks: load(i, s) once stage i (ring slot s) has landed; plain(): the
-// stage masks nothing (at D = 64 its scores then stay unscaled until the
-// exponent, scale > 0 keeping the maxima: one branch for the CTA; at D =
-// 128 the second copy of the loop would spill); mask(j, v): register j's
-// scaled score v, MASK where the position is masked, -inf where the
-// column does not exist.  The thread's rows r0 and r0 + 8 end in o0, o1.
+// stage masks nothing (at D = 64 and 80 its scores then stay unscaled
+// until the exponent, scale > 0 keeping the maxima: one branch for the
+// CTA; at D = 128 the second copy of the loop would spill); mask(j, v):
+// register j's scaled score v, MASK where the position is masked, -inf
+// where the column does not exist.  The thread's rows r0 and r0 + 8 end in o0, o1.
 template <int D, typename Masks>
 __device__ __forceinline__ void consume(Masks& mk, const Smem<D>& sm, int wgi, int n, float scale_log2,
                                         __nv_bfloat16* o0, __nv_bfloat16* o1) {
@@ -1977,7 +2017,7 @@ __device__ __forceinline__ void consume(Masks& mk, const Smem<D>& sm, int wgi, i
 
     // masks and row maxima: register j holds row r0 + 8 ((j >> 1) & 1),
     // stage column 8 (j >> 2) + cq + (j & 1)
-    const bool unmasked = D == 64 && mk.plain() && scale_log2 > 0.f;
+    const bool unmasked = D != 128 && mk.plain() && scale_log2 > 0.f;
     float mx0 = -INFINITY, mx1 = -INFINITY;
     if (unmasked) {
 #pragma unroll
@@ -2032,13 +2072,15 @@ __device__ __forceinline__ void consume(Masks& mk, const Smem<D>& sm, int wgi, i
       for (int r = 0; r < 4; ++r) pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
 
     // O += P V: V's k16 slice is 16 rows (2048 bytes) further, its column
-    // chunks CHUNK bytes apart
+    // chunks CHUNK bytes apart (n80 reads the second's first 16 columns)
     wg::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk) {
       const uint64_t db = wg::desc_sw128(va + kk * 2048, CHUNK, 1024);
       if constexpr (D == 64)
         wg::wgmma_m64n64k16_rs(acc, pa[kk], db);
+      else if constexpr (D == 80)
+        wg::wgmma_m64n80k16_rs(acc, pa[kk], db);
       else
         wg::wgmma_m64n128k16_rs(acc, pa[kk], db);
     }
@@ -2175,6 +2217,9 @@ int attention_wgmma(const void* q, const void* k, const void* v, void* o, const 
   if ((uintptr_t)q % 16 || (uintptr_t)k % 16 || (uintptr_t)v % 16 || (uintptr_t)o % 4 ||
       (long long)BH * S > INT_MAX)
     return (int)cudaErrorInvalidValue;
+  // the maps span the D true columns (rows 2 D bytes apart): at D = 80 the
+  // second chunk's box reads columns 64..79 and TMA fills the rest with
+  // zeros (no padded copy on the host)
   CUtensorMap mq, mk, mv;
   const uint64_t rows = (uint64_t)BH * S;
   int err = make_tensor_map_bf16(&mq, q, rows, D, BQ, 64);
@@ -2330,11 +2375,12 @@ int prefill_wgmma(const void* q, const void* kp, const void* vp, void* o, const 
 }  // namespace tc
 
 // the shapes the tensor-core core (bf16 inputs) and the register-tiled
-// core (f32) take; every other shape runs flash_rows.
+// core (f32) take, D = 80 being Zamba2's and HuBERT's head width; every
+// other shape runs flash_rows.
 // kernels/attention.py::flash_core is this rule.
 static_assert(tc::BQ == 128 && tiled::BQ == 128 && tiled::KV == 64, "core_shape's constants");
 bool core_shape(int D, int bq, int bkv) {
-  return (D == 64 || D == 128) && bq == 128 && bkv % 64 == 0;
+  return (D == 64 || D == 80 || D == 128) && bq == 128 && bkv % 64 == 0;
 }
 
 // the prefill shapes the tensor-core core takes (bf16 inputs): Dk == Dv
@@ -2374,19 +2420,21 @@ extern "C" int sfc_flash_attention(const void* q, const void* k, const void* v, 
                                    int D, int bq, int bkv, int causal, int kv_valid,
                                    const void* seqlen, float scale, int dtype, void* stream) {
   if (bad_shape(bq, D, D) || bkv < 1) return (int)cudaErrorInvalidValue;
-  if (dtype == 0 && core_shape(D, bq, bkv))
-    return D == 64 ? tiled::attention<64>(q, k, v, o, sched, runs, n_runs, BH, S, bkv, causal,
-                                          kv_valid, seqlen, scale, stream)
-                   : tiled::attention<128>(q, k, v, o, sched, runs, n_runs, BH, S, bkv, causal,
-                                           kv_valid, seqlen, scale, stream);
+  using Core = int (*)(const void*, const void*, const void*, void*, const void*, const void*, int,
+                       int, int, int, int, int, const void*, float, void*);
+  if (dtype == 0 && core_shape(D, bq, bkv)) {
+    const Core f = D == 64 ? &tiled::attention<64> : D == 80 ? &tiled::attention<80> : &tiled::attention<128>;
+    return f(q, k, v, o, sched, runs, n_runs, BH, S, bkv, causal, kv_valid, seqlen, scale, stream);
+  }
   if (dtype == 0)
     return attention_t<float>(q, k, v, o, sched, runs, n_runs, BH, S, D, bq, bkv, causal, kv_valid,
                               seqlen, scale, stream);
-  if (core_shape(D, bq, bkv))
-    return D == 64 ? tc::attention_wgmma<64>(q, k, v, o, sched, runs, n_runs, BH, S, bkv, causal,
-                                             kv_valid, seqlen, scale, stream)
-                   : tc::attention_wgmma<128>(q, k, v, o, sched, runs, n_runs, BH, S, bkv, causal,
-                                              kv_valid, seqlen, scale, stream);
+  if (core_shape(D, bq, bkv)) {
+    const Core f = D == 64   ? &tc::attention_wgmma<64>
+                   : D == 80 ? &tc::attention_wgmma<80>
+                             : &tc::attention_wgmma<128>;
+    return f(q, k, v, o, sched, runs, n_runs, BH, S, bkv, causal, kv_valid, seqlen, scale, stream);
+  }
   return attention_t<__nv_bfloat16>(q, k, v, o, sched, runs, n_runs, BH, S, D, bq, bkv, causal,
                                     kv_valid, seqlen, scale, stream);
 }
@@ -2463,10 +2511,13 @@ extern "C" int sfc_flash_prefill(const void* q, const void* kp, const void* vp, 
 // kv rows a stage and stages.  sfc_flash_tiled_info reads row 20's
 // kernel, sfc_prefill_tiled_info row 22's.
 extern "C" int sfc_flash_tiled_info(int d, int* out) {
-  if (d != 64 && d != 128) return (int)cudaErrorInvalidValue;
-  const void* fn = d == 64 ? (const void*)tiled::flash_tiled_kernel<64>
-                           : (const void*)tiled::flash_tiled_kernel<128>;
-  const int smem = d == 64 ? tiled::Layout<64>::SMEM : tiled::Layout<128>::SMEM;
+  if (d != 64 && d != 80 && d != 128) return (int)cudaErrorInvalidValue;
+  const void* fn = d == 64   ? (const void*)tiled::flash_tiled_kernel<64>
+                   : d == 80 ? (const void*)tiled::flash_tiled_kernel<80>
+                             : (const void*)tiled::flash_tiled_kernel<128>;
+  const int smem = d == 64 ? tiled::Layout<64>::SMEM
+                   : d == 80 ? tiled::Layout<80>::SMEM
+                             : tiled::Layout<128>::SMEM;
   return sfc::kernel_info(fn, tiled::THREADS, smem, {d, tiled::KV, tiled::STAGES}, out);
 }
 
@@ -2476,6 +2527,21 @@ extern "C" int sfc_prefill_tiled_info(int d, int* out) {
                            : (const void*)tiled::prefill_tiled_kernel<128>;
   const int smem = d == 64 ? tiled::Layout<64>::PREFILL_SMEM : tiled::Layout<128>::PREFILL_SMEM;
   return sfc::kernel_info(fn, tiled::THREADS, smem, {d, tiled::KV, tiled::STAGES}, out);
+}
+
+// Row 20's tensor-core kernel's build and residency, for the record: d =
+// 64, 80 or 128; the design constants the core's D, kv rows a stage and
+// ring stages.
+extern "C" int sfc_flash_wgmma_info(int d, int* out) {
+  if (d != 64 && d != 80 && d != 128) return (int)cudaErrorInvalidValue;
+  const void* fn = d == 64   ? (const void*)tc::flash_wgmma_kernel<64>
+                   : d == 80 ? (const void*)tc::flash_wgmma_kernel<80>
+                             : (const void*)tc::flash_wgmma_kernel<128>;
+  const int smem = d == 64 ? tc::Layout<64>::SMEM : d == 80 ? tc::Layout<80>::SMEM : tc::Layout<128>::SMEM;
+  const int stages = d == 64 ? tc::Layout<64>::STAGES
+                     : d == 80 ? tc::Layout<80>::STAGES
+                               : tc::Layout<128>::STAGES;
+  return sfc::kernel_info(fn, tc::THREADS, smem, {d, tc::STAGE_KV, stages}, out);
 }
 
 // The latent core's build and residency, for the record: which = 0 decode,

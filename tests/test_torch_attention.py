@@ -387,13 +387,13 @@ def test_ops_paged_entry_points_match_pallas():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("D", [64, 128, 96, 32])
+@pytest.mark.parametrize("D", [64, 128, 96, 32, 80])
 @pytest.mark.parametrize("bq,bkv", [(128, 128), (128, 64), (128, 256), (128, 96), (64, 64), (256, 128)])
 def test_flash_core_rule(dtype, D, bq, bkv):
-    """At D = 64 or 128, bq = 128 and bkv a multiple of 64, bf16 runs on the
-    tensor cores and f32 on the register-tiled SIMT core; every other
+    """At D = 64, 80 or 128, bq = 128 and bkv a multiple of 64, bf16 runs on
+    the tensor cores and f32 on the register-tiled SIMT core; every other
     shape on the SIMT core of ``flash_rows``."""
-    core_shape = D in (64, 128) and bq == 128 and bkv % 64 == 0
+    core_shape = D in (64, 80, 128) and bq == 128 and bkv % 64 == 0
     want = ("simt" if not core_shape else "wgmma" if dtype == torch.bfloat16 else "tiled")
     assert tatt.flash_core(dtype, D, bq, bkv) == want
 
@@ -406,6 +406,9 @@ def test_flash_core_rule(dtype, D, bq, bkv):
     (torch.float32, 64, 64, "simt"),
     (torch.bfloat16, 32, 128, "simt"),
     (torch.bfloat16, 128, 64, "simt"),
+    (torch.bfloat16, 80, 128, "wgmma"),  # Zamba2's shared attention
+    (torch.float32, 80, 128, "tiled"),
+    (torch.bfloat16, 80, 64, "simt"),
 ])
 def test_attention_wrapper_launch_arguments(monkeypatch, dtype, D, bq, core):
     """``_attention_cuda``'s host side on CPU tensors, the kernel call
@@ -427,6 +430,37 @@ def test_attention_wrapper_launch_arguments(monkeypatch, dtype, D, bq, core):
     # (..., runs, BH, S, D, bq, bkv, causal, kv_valid, seqlen, scale, dtype, stream)
     assert args[6:] == (len(sched.runs), 3, 256, D, bq, bq, 1, 250, 0, 0.125,
                         0 if dtype == torch.float32 else 1, 0)
+
+
+@pytest.mark.parametrize("dtype,core", [(torch.bfloat16, "wgmma"), (torch.float32, "tiled")])
+def test_attention_wrapper_launch_arguments_d80_aligned_bases(monkeypatch, dtype, core):
+    """At D = 80 the wrapper hands the tensor-core or register-tiled core
+    D = 80 and 16-byte-aligned q, k, v (TMA and 16-byte ``cp.async`` read
+    them): views whose bases are not are copied, and the copies hold the
+    same values; the output is 16-byte aligned too."""
+    calls = []
+    monkeypatch.setattr(tatt, "require", lambda *a, **k: None)
+    monkeypatch.setattr(tatt, "stream_of", lambda t: 0)
+    monkeypatch.setattr(tatt, "call", lambda name, *args, core=None: calls.append((name, args, core)))
+    BH, S, D = 2, 256, 80
+    rng = np.random.default_rng(80)
+    q, k, v = (_t(a, dtype) for a in _qkv(rng, (BH, S, D)))
+    # k and v one element past a 16-byte-aligned base: misaligned views
+    k_off, v_off = (torch.cat([torch.zeros(1, dtype=dtype), t.flatten()])[1:].view(BH, S, D) for t in (k, v))
+    assert k_off.data_ptr() % 16 and v_off.data_ptr() % 16
+    sched = tatt.attention_schedule_device(S // 128, S // 128, causal=True, device="cpu")
+    prog = tatt.flash_attention_program(sched, q, causal=True, sm_scale=D ** -0.5, bq=128, bkv=128,
+                                        kv_valid=None)
+    seen = {}
+    orig = tatt._aligned16
+    monkeypatch.setattr(tatt, "_aligned16", lambda *ts: seen.setdefault("out", orig(*ts)))
+    out = tatt._attention_cuda(prog, q, k_off, v_off)
+    ((name, args, got_core),) = calls
+    assert name == "sfc_flash_attention" and got_core == core and args[9] == D
+    assert all(ptr % 16 == 0 for ptr in args[:4]) and args[3] == out.data_ptr()
+    qa, ka, va = seen["out"]
+    assert [t.data_ptr() for t in (qa, ka, va)] == list(args[:3])
+    assert torch.equal(ka, k) and torch.equal(va, v)
 
 
 # ---------------------------------------------------------------------------
@@ -672,6 +706,7 @@ def test_flash_kernels_match_plain_versions_on_cuda():
     (256, 64, 64, 64, True, "kv_valid"),     # q tiles of 64 rows
     (384, 96, 128, 128, False, "kv_seqlen"),
     (384, 128, 128, 96, False, None),        # kv tiles not a multiple of 64 rows
+    (256, 80, 64, 64, True, "kv_seqlen"),    # Zamba2's width on tiles of 64: flash_rows
 ])
 def test_flash_attention_simt_core_matches_plain(dtype, S, D, bq, bkv, causal, mask):
     """Row 20 outside the tensor-core and register-tiled cores' shapes runs
@@ -712,12 +747,20 @@ def test_flash_attention_simt_core_matches_plain(dtype, S, D, bq, bkv, causal, m
     (128, 64, "causal", 128, "kv_seqlen"),
     (128, 128, "full", 64, None),
     (384, 64, "odd", 64, "kv_seqlen"),  # runs of 1, 3, 5 kv tiles: a last stage of 64 rows
+    (2048, 80, "causal", 128, None),  # Zamba2's shared attention: a 64-column chunk + a 16-column tail
+    (384, 80, "full", 64, "kv_valid"),  # HuBERT's: not causal, block padding
+    (384, 80, "causal", 128, "kv_valid"),
+    (128, 80, "causal", 128, "kv_seqlen"),
+    (384, 80, "odd", 64, "kv_seqlen"),
+    (256, 80, "causal", 128, "masked_rows"),  # sequences with no kv row to see
+    (256, 80, "full", 64, "masked_rows"),
 ])
 def test_bf16_flash_attention_wgmma_matches_plain(S, D, table, bkv, mask):
     """Row 20's tensor-core core (TMA + wgmma, P rounded to bf16 for P·V)
     against ``_attention_plain`` (f32 throughout, output rounded to bf16)
-    on the same CUDA inputs, at the file's bf16 tolerance; only the
-    tensor-core core launches."""
+    on the same CUDA inputs, at the file's bf16 tolerance, at D = 64, 80
+    and 128, and rows with every kv position masked (finite: the mean of
+    the V rows they visit); only the tensor-core core launches."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     dev = torch.device("cuda")
@@ -733,6 +776,8 @@ def test_bf16_flash_attention_wgmma_matches_plain(S, D, table, bkv, mask):
     seqlen = None
     if mask == "kv_seqlen":
         seqlen = torch.as_tensor(rng.integers(1, S + 1, size=BH).astype(np.int32), device=dev)
+    if mask == "masked_rows":  # sequences 0 and 3 mask every kv position
+        seqlen = torch.as_tensor([0, S, 5, 0, S // 2, 1], dtype=torch.int32, device=dev)
     prog = tatt.flash_attention_program(sched, q, causal=table != "full", sm_scale=D ** -0.5, bq=bq,
                                         bkv=bkv, kv_valid=S - 37 if mask == "kv_valid" else None)
     assert tatt.flash_core(q.dtype, D, bq, bkv) == "wgmma"
@@ -742,7 +787,8 @@ def test_bf16_flash_attention_wgmma_matches_plain(S, D, table, bkv, mask):
     assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
     torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
     cores = LAUNCHES.cores()
-    assert cores["sfc_flash_attention.wgmma"] == 1 and cores["sfc_flash_attention.simt"] == 0
+    assert cores["sfc_flash_attention.wgmma"] == 1
+    assert cores["sfc_flash_attention.simt"] == cores["sfc_flash_attention.tiled"] == 0
 
 
 @pytest.mark.cuda
@@ -757,6 +803,13 @@ def test_bf16_flash_attention_wgmma_matches_plain(S, D, table, bkv, mask):
     (384, 64, "odd", 64, "kv_seqlen"),  # runs of 1, 3, 5 kv tiles
     (256, 64, "causal", 128, "masked_rows"),  # sequences with no kv row to see
     (256, 128, "full", 64, "masked_rows"),
+    (2048, 80, "causal", 128, None),  # Zamba2's shared attention: 4 + 1 output columns a thread
+    (384, 80, "full", 64, "kv_valid"),  # HuBERT's: not causal, block padding
+    (384, 80, "causal", 128, "kv_valid"),
+    (384, 80, "causal_plain", 128, "kv_seqlen"),
+    (384, 80, "odd", 64, "kv_seqlen"),
+    (256, 80, "causal", 128, "masked_rows"),
+    (256, 80, "full", 64, "masked_rows"),
 ])
 def test_f32_flash_attention_tiled_matches_plain(S, D, table, bkv, mask):
     """Row 20's register-tiled f32 core against ``_attention_plain`` on the

@@ -18,7 +18,8 @@ before loading, to count:
   ``decode_step`` with per-slot positions, f32 logits at rtol = atol =
   1e-4 as for the other archs (``test_torch_models.py``), and the caches;
 * row 20's plain version at Zamba2's head width D = 80 against the
-  Pallas kernel in interpret mode, at 1e-5;
+  Pallas kernel in interpret mode, at 1e-5: causal, and HuBERT's full
+  table with ``kv_valid``;
 * the dense ``ServeEngine``'s greedy tokens (2 slots, 4 prompts, so slots
   are reused) equal to the JAX engine's; ``paged=True`` and the paged
   entry points refused; the serve launcher with ``--device cpu``.
@@ -247,7 +248,8 @@ def test_decode_step_matches_jax(arch):
 def test_row20_plain_at_head_width_80_matches_pallas():
     """Zamba2's shared attention runs row 20 at D = 80 (32 MHA heads):
     the plain version against the Pallas kernel in interpret mode, causal,
-    on tiles of 64."""
+    on tiles of 64; at bq = 128 the rule sends D = 80 to the tensor-core
+    core in bf16 and the register-tiled core in f32."""
     rng = np.random.default_rng(80)
     BH, S, D, bq = 2, 128, 80, 64
     q, k, v = (rng.standard_normal((BH, S, D)).astype(np.float32) for _ in range(3))
@@ -256,7 +258,26 @@ def test_row20_plain_at_head_width_80_matches_pallas():
                                          bq=bq, bkv=bq, interpret=True)
     sched = tatt.attention_schedule_device(S // bq, S // bq, causal=True, device="cpu")
     got = tatt.flash_attention_swizzled(sched, _t(q), _t(k), _t(v), causal=True, bq=bq, bkv=bq)
-    assert tatt.flash_core(torch.bfloat16, D, 128, 128) == tatt.flash_core(torch.float32, D, 128, 128) == "simt"
+    assert tatt.flash_core(torch.bfloat16, D, 128, 128) == "wgmma"
+    assert tatt.flash_core(torch.float32, D, 128, 128) == "tiled"
+    np.testing.assert_allclose(_np(got), np.asarray(want), **KERNEL_TOL)
+
+
+@pytest.mark.parametrize("bq,bkv", [(64, 64), (128, 64)])
+def test_row20_plain_at_head_width_80_full_kv_valid_matches_pallas(bq, bkv):
+    """HuBERT-XLarge's attention (D = 80, not causal) over block padding:
+    the plain version against the Pallas kernel in interpret mode with
+    ``kv_valid``, on the full table."""
+    rng = np.random.default_rng(82)
+    BH, S, D = 2, 256, 80
+    kv_valid = S - 37
+    q, k, v = (rng.standard_normal((BH, S, D)).astype(np.float32) for _ in range(3))
+    want = jatt.flash_attention_swizzled(jnp.asarray(jatt.full_schedule(S // bq, S // bkv)),
+                                         *(jnp.asarray(a) for a in (q, k, v)), causal=False,
+                                         bq=bq, bkv=bkv, kv_valid=kv_valid, interpret=True)
+    sched = tatt.attention_schedule_device(S // bq, S // bkv, causal=False, device="cpu")
+    got = tatt.flash_attention_swizzled(sched, _t(q), _t(k), _t(v), causal=False, bq=bq, bkv=bkv,
+                                        kv_valid=kv_valid)
     np.testing.assert_allclose(_np(got), np.asarray(want), **KERNEL_TOL)
 
 
@@ -355,9 +376,9 @@ def _cuda():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_row20_at_head_width_80_matches_plain_on_cuda(dtype):
     """Zamba2's shared attention shapes, cut to B·H = 8, S = 512: row 20 at
-    D = 80 on ``flash_rows`` (core ``simt``), causal on tiles of 128,
-    against its plain version (1e-4 in f32; bf16 two ulps at the outputs'
-    scale, as ``chip_smoke.ATTN_TOL``)."""
+    D = 80 on the tensor-core core (bf16) or the register-tiled core
+    (f32), causal on tiles of 128, against its plain version (1e-4 in f32;
+    bf16 two ulps at the outputs' scale, as ``chip_smoke.ATTN_TOL``)."""
     dev = _cuda()
     rng = np.random.default_rng(81)
     BH, S, D = 8, 512, 80
@@ -369,7 +390,9 @@ def test_row20_at_head_width_80_matches_plain_on_cuda(dtype):
     got = prog.launcher(prog, q, k, v)
     want = prog.plain(prog, q, k, v)
     torch.cuda.synchronize()
-    assert LAUNCHES.cores()["sfc_flash_attention.simt"] == 1
+    core = "tiled" if dtype == torch.float32 else "wgmma"
+    assert LAUNCHES.cores()[f"sfc_flash_attention.{core}"] == 1
+    assert LAUNCHES.cores()["sfc_flash_attention.simt"] == 0
     tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else dict(rtol=8e-3, atol=4e-3)
     torch.testing.assert_close(got.float(), want.float(), **tol)
 

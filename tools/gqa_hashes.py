@@ -9,11 +9,13 @@ It builds the checkout's kernels, launches ``sfc_flash_decode``,
 inputs at TinyLlama's serving shapes (GQA), in f32 and bf16, then
 ``sfc_flash_decode`` and ``sfc_flash_prefill`` on the latent core at MLA's
 full shapes (chip_smoke.latent_inputs: g 128, D 576, f32 q) over a bf16
-and an f32 pool, and prints one JSON object of SHA-256 prefixes of their
-outputs (prefill: the rows its runs cover).  It reads only the checkout it
-lies in: to check that a change keeps these bits, copy it into a ``git
-archive`` of the parent commit and run it in both trees; the two objects
-are equal when the bits are.
+and an f32 pool, then ``sfc_flash_attention`` at Zamba2's D = 80
+(chip_smoke.d80_inputs: B·H 64, S 2048, causal) in bf16 and f32, and
+prints one JSON object of SHA-256 prefixes of their outputs (prefill: the
+rows its runs cover).  It reads only the checkout it lies in: to check
+that a change keeps these bits, copy it into a ``git archive`` of the
+parent commit and run it in both trees; the two objects are equal when
+the bits are (a parent without a key prints none for it).
 """
 import hashlib
 import json
@@ -55,6 +57,12 @@ def hashes(device) -> dict:
                 t = t[cs.prefill_covered(inp[4], inp[2].shape[1], cs.SERVE_PAGE, device)]
             torch.cuda.synchronize()
             out[f"{prog.name} latent pool {str(pool_dtype)[6:]}"] = digest(t)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = cs.d80_inputs(np.random.default_rng(80), device, dtype)
+        t = launch(cs.d80_program(device, q), q, k, v)
+        torch.cuda.synchronize()
+        out[f"sfc_flash_attention d80 {str(dtype)[6:]}"] = digest(t)
+        del q, k, v, t
     return out
 
 
