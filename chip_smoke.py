@@ -185,6 +185,25 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    sharded kernels' times, bounds and plain versions (the update also
    with the exact class's group partials; the assign against ``cdist`` +
    ``argmin`` and ``addmm`` + ``min`` over each shard's points).
+9. The training stack (``training_path``; no kernel row: training runs
+   no hand-written kernel, as the JAX package's runs no Pallas one):
+   (a) ``check train card vs cpu:`` TinyLlama at full width and 2 layers
+   in f32, one ``Trainer`` step of 1 x 2048 tokens on the card and the
+   same step on the CPU from the same seeded state and batch: loss rel
+   1e-5, grad norm rel 1e-4, the first moments (0.1 x the clipped grads)
+   allclose, the parameters whose grad is away from 0 within
+   TRAIN_PARAM_TOL of lr and every one within a step (2 lr); (b) ``check
+   train recovery:`` the reference's exact-recovery case on the card (a
+   ``SimulatedFailure`` at step 9 of 16: one restart, steps 12-15's
+   losses rel 1e-5 of the uninterrupted run's); (c) ``train tinyllama:``
+   TinyLlama-1.1B at full size in bf16 through the launcher's code path
+   (``repro_torch.launch.train``: 2 x 2048 tokens x 2 micro-batches, 10
+   steps, lr 3e-4, warm-up 2): each step's loss, grad norm, lr and
+   seconds, the warm step's median wall, a profiled step's device time
+   and busy share, tokens/s, the step against its bound, peak memory, the
+   start-of-run checkpoint save's seconds and GB, and one restore's
+   (sha256 checked on every leaf, the restored state equal to the saved
+   one, re-made from the seed); every loss and grad norm finite.
 
 The second-to-last line of output is one JSON object ``{"kernels": [...]}``,
 the last ``{"ok": true, "device": {...}}``.  ``--quick`` runs phases 1-2
@@ -197,6 +216,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -362,6 +382,20 @@ SSM_GATE_NEW = (16, 32)
 SHARDS = 4
 SHARDED_KERNELS = ("sfc_kmeans_shard_assign", "sfc_kmeans_shard_update", "sfc_kmeans_fold",
                    "sfc_join_hits_rows", "sfc_join_emit_halo")
+# the training phase: TinyLlama-1.1B; (a) 2 layers at full width, f32, one
+# step of B x S on the card and on the CPU; (c) full size, bf16, micro-batch,
+# sequence and micro-batches of a step, steps, lr and warm-up
+TRAIN_ARCH = "tinyllama-1.1b"
+TRAIN_CHECK = (2, 1, 2048)  # layers, B, S
+TRAIN_CHECK_LR = 3e-4
+# Adam's first step moves each parameter by g / (|g| + eps) · lr, about ±lr.
+# Where the CPU's grad is away from 0 (|g| above TRAIN_GRAD_FLOOR of its
+# leaf's largest) the two devices' parameters agree to TRAIN_PARAM_TOL · lr;
+# a grad that is 0 up to its rounding (|g| near eps) may move its parameter
+# by up to one step, 2 lr, apart (0.27 lr read on the H100)
+TRAIN_GRAD_FLOOR = 1e-3
+TRAIN_PARAM_TOL = 1e-3
+TRAIN_FULL = (2, 2048, 2, 10, 3e-4, 2)
 
 
 def log(msg: str) -> None:
@@ -3494,6 +3528,216 @@ def sharded_path(device, seed: int, ctx: dict) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the training stack; TinyLlama-1.1B trains on the card
+# ---------------------------------------------------------------------------
+
+def _train_cfg(layers: int | None, dtype: str):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(TRAIN_ARCH)
+    return dataclasses.replace(cfg, num_layers=layers or cfg.num_layers, dtype=dtype)
+
+
+def train_card_vs_cpu(device, seed: int, tmp: str) -> dict:
+    """(a) One Trainer step on the card against the same step on the CPU."""
+    import torch
+
+    from repro_torch.models import init_params, params_from_numpy, params_to_numpy
+    from repro_torch.train import Trainer, TrainerConfig
+
+    layers, B, S = TRAIN_CHECK
+    cfg = _train_cfg(layers, "float32")
+    tcfg = TrainerConfig(lr=TRAIN_CHECK_LR, warmup_steps=0, micro_batch=B, seq_len=S, seed=seed,
+                         ckpt_dir=tmp)
+    cpu, gpu = Trainer(cfg, tcfg, device="cpu"), Trainer(cfg, tcfg, device=device)
+    params = init_params(seed, cfg, device="cpu")
+    s_gpu = gpu.state_from_params(params_from_numpy(params_to_numpy(params), cfg, device))
+    s_cpu = cpu.state_from_params(params)
+    t = time.perf_counter()
+    s_gpu, m_gpu = gpu.step(s_gpu, gpu.batch_at(0))
+    torch.cuda.synchronize()
+    t_gpu = time.perf_counter() - t
+    t = time.perf_counter()
+    s_cpu, m_cpu = cpu.step(s_cpu, cpu.batch_at(0))
+    t_cpu = time.perf_counter() - t
+    rel = {k: abs(float(m_gpu[k]) - float(m_cpu[k])) / abs(float(m_cpu[k])) for k in ("loss", "grad_norm")}
+    # the first moments are 0.1 x the clipped grads: the grads compared
+    m_err = max(float((s_gpu["opt"].m[n].cpu() - m).abs().max()) / max(float(m.abs().max()), 1e-30)
+                for n, m in s_cpu["opt"].m.items())
+    p_err = p_err_away = 0.0
+    for n, b in s_cpu["params"].named_parameters():
+        diff = (dict(s_gpu["params"].named_parameters())[n].detach().cpu() - b.detach()).abs()
+        m = s_cpu["opt"].m[n].abs()
+        away = m > TRAIN_GRAD_FLOOR * m.max()
+        p_err = max(p_err, float(diff.max()))
+        p_err_away = max(p_err_away, float(diff[away].max()) if away.any() else 0.0)
+    out = {"layers": layers, "B": B, "S": S, "loss": float(m_cpu["loss"]), "rel_loss": rel["loss"],
+           "rel_grad_norm": rel["grad_norm"], "max_moment_diff_rel": m_err,
+           "max_param_diff_over_lr": p_err / TRAIN_CHECK_LR,
+           "max_param_diff_over_lr_grad_away_from_0": p_err_away / TRAIN_CHECK_LR,
+           "card_s": t_gpu, "cpu_s": t_cpu}
+    log("check train card vs cpu: " + json.dumps(out))
+    check(rel["loss"] <= 1e-5, f"train card vs cpu: loss rel {rel['loss']:.2e} > 1e-5")
+    check(rel["grad_norm"] <= 1e-4, f"train card vs cpu: grad norm rel {rel['grad_norm']:.2e} > 1e-4")
+    check(m_err <= 1e-4, f"train card vs cpu: first moments differ by {m_err:.2e} of their max")
+    check(p_err_away <= TRAIN_PARAM_TOL * TRAIN_CHECK_LR,
+          f"train card vs cpu: a parameter differs by {p_err_away / TRAIN_CHECK_LR:.2e} lr")
+    check(p_err <= 2 * TRAIN_CHECK_LR * (1 + 1e-3),
+          f"train card vs cpu: a parameter differs by {p_err / TRAIN_CHECK_LR:.2e} lr, more than a step")
+    return out
+
+
+def train_recovery(device, tmp: str) -> dict:
+    """(b) The reference's test_recovery_is_exact on the card."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.train import SimulatedFailure, Trainer, TrainerConfig
+
+    cfg = get_reduced(TRAIN_ARCH, num_layers=2, d_model=64, num_heads=2, num_kv_heads=2,
+                      head_dim=32, d_ff=128, vocab_size=128)
+
+    def trainer(sub):
+        return Trainer(cfg, TrainerConfig(lr=3e-3, warmup_steps=5, total_steps=100, micro_batch=4,
+                                          seq_len=32, ckpt_dir=f"{tmp}/{sub}", ckpt_every=5),
+                       device=device)
+
+    _, hist1 = trainer("a").run(16)
+    tr2, armed = trainer("b"), [True]
+
+    def hook(step):
+        if step == 9 and armed[0]:
+            armed[0] = False
+            raise SimulatedFailure("node lost at step 9")
+
+    _, hist2 = tr2.run(16, failure_hook=hook)
+    tail1 = {h["step"]: h["loss"] for h in hist1}
+    tail2 = {h["step"]: h["loss"] for h in hist2}
+    rel = max(abs(tail1[s] - tail2[s]) / abs(tail1[s]) for s in range(12, 16))
+    out = {"restarts": tr2.restarts, "steps_run": len(hist2), "max_rel_loss_12_15": rel}
+    log("check train recovery: " + json.dumps(out))
+    check(tr2.restarts == 1, f"train recovery: {tr2.restarts} restarts, expected 1")
+    check(rel <= 1e-5, f"train recovery: steps 12-15 differ by rel {rel:.2e}")
+    return out
+
+
+def train_step_bound(cfg, B: int, S: int, accum: int) -> dict:
+    """The least time of one step: the blocks' projections in bf16 on the
+    tensor cores, the unembed in f32 (it casts x and the head to f32), and
+    the f32 flash (forward: Q K^T and P V; recompute backward: S, dP, dQ,
+    dK, dV, every kv chunk in full, masked or not) on the FP32 pipes;
+    6 flops a parameter a token for the projections."""
+    d, L, V = cfg.d_model, cfg.num_layers, cfg.vocab_size
+    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.attn_head_dim
+    tokens = B * S * accum
+    block_params = L * (d * H * D + 2 * d * Hkv * D + H * D * d + 3 * d * cfg.d_ff)
+    flops = {"blocks_bf16": 6 * block_params * tokens, "head_f32": 6 * V * d * tokens,
+             "flash_f32": (2 + 5) * 2 * B * H * S * S * D * L * accum}
+    ms = {"blocks_bf16": 1e3 * flops["blocks_bf16"] / BF16_PEAK,
+          "head_f32": 1e3 * flops["head_f32"] / FP32_PEAK,
+          "flash_f32": 1e3 * flops["flash_f32"] / FP32_PEAK}
+    return {"tflop": {k: v / 1e12 for k, v in flops.items()}, "ms": ms, "bound_ms": sum(ms.values()),
+            "bound_by": "operations"}
+
+
+def train_full(device, seed: int, tmp: str) -> dict:
+    """(c) TinyLlama-1.1B at full size in bf16 through the launcher."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import train as launcher
+    from repro_torch.train import Trainer
+
+    B, S, accum, steps, lr, warmup = TRAIN_FULL
+    args = launcher.parse_args(["--arch", TRAIN_ARCH, "--full", "--steps", str(steps),
+                                "--seq-len", str(S), "--micro-batch", str(B),
+                                "--grad-accum", str(accum), "--lr", str(lr), "--ckpt-dir", tmp,
+                                "--device", str(device)])
+    cfg, tcfg = launcher.build(args)
+    # warm-up 2 (the launcher's steps // 10 is 1); only the start-of-run save
+    # (a save is ~11 GB: parameters and both moments)
+    tcfg = dataclasses.replace(tcfg, warmup_steps=warmup, ckpt_every=steps + 1, seed=seed)
+    trainer = Trainer(cfg, tcfg, device=device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, hist = trainer.run(steps)
+    peak = torch.cuda.max_memory_allocated()
+    for h in hist:
+        log("train tinyllama step: " + json.dumps(h))
+    check(len(hist) == steps and all(np.isfinite([h["loss"], h["grad_norm"]]).all() for h in hist),
+          "train tinyllama: a loss or grad norm is not finite")
+    warm = statistics.median(h["seconds"] for h in hist[2:])
+
+    # one more step under the profiler: its device time and busy share
+    batch = trainer.batch_at(steps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        trainer.step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    dev_ms = 1e-3 * sum(e.self_device_time_total for e in kernels) if kernels else None
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+
+    bound = train_step_bound(cfg, B, S, accum)
+    save = dict(trainer.ckpt.last_save)
+    # restore the start-of-run checkpoint into the trained state and hold
+    # it against the start state made again from the seed
+    t = time.perf_counter()
+    step0 = trainer.restore(state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    fresh = trainer.init_state(tcfg.seed)
+    same = (step0 == 0 and int(state["opt"].step) == 0
+            and all(torch.equal(a, b) for a, b in zip(state["params"].parameters(), fresh["params"].parameters()))
+            and all(torch.equal(state["opt"].m[n], fresh["opt"].m[n]) and torch.equal(state["opt"].v[n], fresh["opt"].v[n])
+                    for n in fresh["opt"].m))
+    tokens = B * S * accum
+    out = {
+        "config": {"layers": cfg.num_layers, "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+                   "dtype": cfg.dtype, "micro_batch": B, "seq_len": S, "grad_accum": accum,
+                   "tokens_a_step": tokens, "steps": steps, "lr": lr, "warmup_steps": warmup},
+        "params": sum(p.numel() for p in state["params"].parameters()),
+        "loss_first_last": [hist[0]["loss"], hist[-1]["loss"]],
+        "warm_step_s_median": warm, "tokens_per_s": tokens / warm,
+        "step_bound_s": bound["bound_ms"] / 1e3, "bound_share": bound["bound_ms"] / 1e3 / warm,
+        "bound": bound,
+        "profiled_step": {"wall_s": wall, "device_s": dev_ms / 1e3 if dev_ms else "not measured",
+                          "busy_share": dev_ms / 1e3 / wall if dev_ms else "not measured",
+                          "top": [[e.key[:60], 1e-3 * e.self_device_time_total, e.count] for e in top]},
+        "peak_memory_gb": peak / 1e9,
+        "ckpt_save": {"step": save["step"], "seconds": save["seconds"], "gb": save["bytes"] / 1e9},
+        "ckpt_restore": {"step": step0, "seconds": restore_s,
+                         "read_and_hash_s": trainer.ckpt.last_restore["seconds"],
+                         "gb": trainer.ckpt.last_restore["bytes"] / 1e9, "equal_to_saved": same},
+    }
+    log("train tinyllama: " + json.dumps(out))
+    check(same, "train tinyllama: the restored state differs from the saved one")
+    return out
+
+
+def training_path(device, seed: int) -> dict:
+    """Phase 9: (a) a step on the card against the CPU, (b) exact recovery
+    on the card, (c) TinyLlama-1.1B trains at full size.  Checkpoints go to
+    a temporary directory, removed afterwards."""
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        free = shutil.disk_usage(tmp).free
+        log(f"train: checkpoints under {tmp} ({free / 1e9:.1f} GB free)")
+        out = {"card_vs_cpu": train_card_vs_cpu(device, seed, f"{tmp}/a"),
+               "recovery": train_recovery(device, f"{tmp}/b"),
+               "tinyllama": train_full(device, seed, f"{tmp}/c")}
+    torch.cuda.empty_cache()
+    log(f"training phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def cholesky_errors(a, L) -> dict:
     """max|L − L₆₄| / max|L₆₄| and ‖L·Lᵀ − A‖_F / ‖A‖_F, in float64 on the
     card, L₆₄ the float64 factor of the same (f32) A."""
@@ -3838,6 +4082,7 @@ def main() -> int:
     result["kernels"] += mla_serving_path(np.random.default_rng(args.seed + 5), device, args.seed)
     result["kernels"] += ssm_serving_path(np.random.default_rng(args.seed + 6), device, args.seed)
     result["kernels"] += sharded_path(device, args.seed, ctx)
+    training_path(device, args.seed)
     log(json.dumps(result))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

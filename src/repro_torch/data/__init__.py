@@ -1,6 +1,5 @@
-"""repro_torch.data — host-side data helpers of the port (Hilbert token
-ordering; the synthetic training pipeline arrives with the training
-slice)."""
-from .pipeline import hilbert_token_order
+"""repro_torch.data — host-side data of the port: the deterministic
+synthetic training pipeline and Hilbert token ordering."""
+from .pipeline import SyntheticPipeline, hilbert_token_order, make_batch
 
-__all__ = ["hilbert_token_order"]
+__all__ = ["SyntheticPipeline", "hilbert_token_order", "make_batch"]

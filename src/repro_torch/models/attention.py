@@ -20,6 +20,13 @@ sequences).
 Caches are dicts of tensors updated IN PLACE (the JAX package returns new
 arrays and donates the old ones); every function still returns the cache
 it was given, so the call shapes match.
+
+The long-sequence path (``_sdpa_blocked``, ``mla_forward`` past one kv
+chunk) runs :class:`_Flash`, the JAX package's ``_flash`` custom VJP: the
+online-softmax forward saves (q, k, v, out, lse) and the backward
+recomputes each chunk's probabilities, so training holds O(Sq · kv_chunk)
+scores in both passes.  ``specs_gqa`` / ``specs_mla`` and the cache specs
+are the JAX package's PartitionSpec trees.
 """
 from __future__ import annotations
 
@@ -29,7 +36,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from .config import ModelConfig
-from .layers import RMSNorm, apply_rope, dense_init, param, rms_norm
+from .layers import RMSNorm, apply_rope, dense_init, matrix_spec, param, rms_norm, specs_rmsnorm
+from .sharding import P
 
 NEG_INF = -0.7 * float(np.finfo(np.float32).max)
 
@@ -71,6 +79,26 @@ def init_gqa(cfg: ModelConfig, dtype, device) -> GQA:
     return GQA(cfg, dtype, device)
 
 
+def specs_gqa(cfg: ModelConfig):
+    d, h, hkv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.attn_head_dim
+    s = {
+        "wq": matrix_spec((d, h * dh), tp_dim=1),
+        "wk": matrix_spec((d, hkv * dh), tp_dim=1),
+        "wv": matrix_spec((d, hkv * dh), tp_dim=1),
+        "wo": matrix_spec((h * dh, d), tp_dim=0),
+    }
+    if cfg.qkv_bias:
+        s["bq"], s["bk"], s["bv"] = P("model"), P("model"), P("model")
+    return s
+
+
+def _seq_spec(seq_axes):
+    """The sequence dim's axes with ``model`` appended."""
+    if seq_axes is None:
+        return ("model",)
+    return (tuple(seq_axes) if isinstance(seq_axes, tuple) else (seq_axes,)) + ("model",)
+
+
 def _qkv(params: GQA, x: torch.Tensor, cfg: ModelConfig):
     B, S, _ = x.shape
     h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.attn_head_dim
@@ -101,9 +129,20 @@ def _sdpa(q, k, v, *, causal: bool, kv_len_mask=None):
     return out.reshape(B, Sq, H, Dh).to(q.dtype)
 
 
+def _chunk_scores(q, kb, c: int, kv_chunk: int, causal: bool, q_pos):
+    """One kv chunk's (B, Sq, Hkv, g, chunk) f32 scores, causally masked."""
+    scores = torch.einsum("bqhgd,bkhd->bqhgk", q, kb)
+    if causal:
+        kv_pos = c * kv_chunk + torch.arange(kv_chunk, dtype=torch.int32, device=q.device)
+        mask = q_pos[:, None] >= kv_pos[None, :]
+        scores = torch.where(mask[None, :, None, None, :], scores, _neg_inf(scores))
+    return scores
+
+
 def _flash_fwd_scan(q, k, v, causal: bool, kv_chunk: int):
     """Online-softmax forward over kv chunks.  q: (B,Sq,Hkv,g,Dh)
-    PRE-SCALED f32; k/v: (B,Sk,Hkv,Dh).  Returns out f32."""
+    PRE-SCALED f32; k/v: (B,Sk,Hkv,Dh).  Returns (out f32, lse f32
+    (B,Sq,Hkv,g))."""
     B, Sq, Hkv, g, Dh = q.shape
     Sk = k.shape[1]
     q_pos = torch.arange(Sq, dtype=torch.int32, device=q.device) + (Sk - Sq)
@@ -113,27 +152,67 @@ def _flash_fwd_scan(q, k, v, causal: bool, kv_chunk: int):
     for c in range(Sk // kv_chunk):
         kb = k[:, c * kv_chunk:(c + 1) * kv_chunk].float()
         vb = v[:, c * kv_chunk:(c + 1) * kv_chunk].float()
-        scores = torch.einsum("bqhgd,bkhd->bqhgk", q, kb)
-        if causal:
-            kv_pos = c * kv_chunk + torch.arange(kv_chunk, dtype=torch.int32, device=q.device)
-            mask = q_pos[:, None] >= kv_pos[None, :]
-            scores = torch.where(mask[None, :, None, None, :], scores, _neg_inf(scores))
+        scores = _chunk_scores(q, kb, c, kv_chunk, causal, q_pos)
         m_new = torch.maximum(m, scores.amax(dim=-1))
         p = torch.exp(scores - m_new[..., None])
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(dim=-1)
         acc = acc * alpha[..., None] + torch.einsum("bqhgk,bkhd->bqhgd", p, vb)
         m = m_new
-    return acc / l[..., None]
+    return acc / l[..., None], m + torch.log(l)
+
+
+class _Flash(torch.autograd.Function):
+    """Flash attention with the recompute backward of the JAX package's
+    ``_flash`` (its XLA twin of the Pallas kernel; no Pallas kernel has a
+    backward).  q: (B,Sq,Hkv,g,Dh) pre-scaled f32; k/v: (B,Sk,Hkv,Dh).
+    The backward runs in f32 a kv chunk at a time: ``delta = Σ dout·out``,
+    ``p = exp(s − lse)``, ``ds = p (dout·vᵀ − delta)``, dq summed over the
+    chunks, dk and dv one chunk each, cast back to k's and v's dtype."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, kv_chunk: int):
+        out, lse = _flash_fwd_scan(q, k, v, causal, kv_chunk)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.kv_chunk = causal, kv_chunk
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, kv_chunk = ctx.causal, ctx.kv_chunk
+        Sq, Sk = q.shape[1], k.shape[1]
+        dout = dout.float()
+        delta = (dout * out).sum(dim=-1)  # (B, Sq, Hkv, g)
+        q_pos = torch.arange(Sq, dtype=torch.int32, device=q.device) + (Sk - Sq)
+        dq = torch.zeros_like(q)
+        dk, dv = [], []
+        for c in range(Sk // kv_chunk):
+            kb = k[:, c * kv_chunk:(c + 1) * kv_chunk].float()
+            vb = v[:, c * kv_chunk:(c + 1) * kv_chunk].float()
+            p = torch.exp(_chunk_scores(q, kb, c, kv_chunk, causal, q_pos) - lse[..., None])
+            dp = torch.einsum("bqhgd,bkhd->bqhgk", dout, vb)
+            ds = p * (dp - delta[..., None])
+            dq = dq + torch.einsum("bqhgk,bkhd->bqhgd", ds, kb)
+            dk.append(torch.einsum("bqhgk,bqhgd->bkhd", ds, q))
+            dv.append(torch.einsum("bqhgk,bqhgd->bkhd", p, dout))
+        return dq, torch.cat(dk, dim=1).to(k.dtype), torch.cat(dv, dim=1).to(v.dtype), None, None
+
+
+def _flash(q, k, v, causal: bool, kv_chunk: int) -> torch.Tensor:
+    """The flash core's output; through :class:`_Flash` where a gradient
+    is wanted (the same forward either way)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _Flash.apply(q, k, v, causal, kv_chunk)
+    return _flash_fwd_scan(q, k, v, causal, kv_chunk)[0]
 
 
 def _sdpa_blocked(q, k, v, *, causal: bool, kv_chunk: int):
-    """(B,Sq,H,Dh)×(B,Sk,Hkv,Dh) GQA wrapper around the chunked online
-    softmax (the JAX package's XLA flash twin, forward only)."""
+    """(B,Sq,H,Dh)×(B,Sk,Hkv,Dh) GQA wrapper around the flash core."""
     B, Sq, H, Dh = q.shape
     Hkv = k.shape[2]
     qf = q.reshape(B, Sq, Hkv, H // Hkv, Dh).float() / np.sqrt(Dh)
-    out = _flash_fwd_scan(qf, k, v, causal, kv_chunk)
+    out = _flash(qf, k, v, causal, kv_chunk)
     return out.reshape(B, Sq, H, Dh).to(q.dtype)
 
 
@@ -167,6 +246,16 @@ def gqa_init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device):
         "k": torch.zeros((batch, max_len, hkv, dh), dtype=dtype, device=device),
         "v": torch.zeros((batch, max_len, hkv, dh), dtype=dtype, device=device),
     }
+
+
+def gqa_cache_specs(cfg: ModelConfig, seq_axes=None, model_on_heads: bool = True):
+    """batch → dp; ``model`` on the kv heads, or else on the sequence dim
+    (after ``seq_axes``)."""
+    if model_on_heads:
+        spec = P(("pod", "data"), seq_axes, "model", None)
+    else:
+        spec = P(("pod", "data"), _seq_spec(seq_axes), None, None)
+    return {"k": spec, "v": spec}
 
 
 def gqa_decode(params: GQA, x, cfg: ModelConfig, cache, pos):
@@ -377,6 +466,24 @@ def init_mla(cfg: ModelConfig, dtype, device) -> MLA:
     return MLA(cfg, dtype, device)
 
 
+def specs_mla(cfg: ModelConfig):
+    d, h = cfg.d_model, cfg.num_heads
+    dqk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    s = {
+        "wkv_a": matrix_spec((d, cfg.kv_lora_rank + cfg.qk_rope_head_dim), tp_dim=None),
+        "kv_norm": specs_rmsnorm(),
+        "wkv_b": matrix_spec((cfg.kv_lora_rank, h * (cfg.qk_nope_head_dim + cfg.v_head_dim)), tp_dim=1),
+        "wo": matrix_spec((h * cfg.v_head_dim, d), tp_dim=0),
+    }
+    if cfg.q_lora_rank:
+        s["wq_a"] = matrix_spec((d, cfg.q_lora_rank), tp_dim=None)
+        s["q_norm"] = specs_rmsnorm()
+        s["wq_b"] = matrix_spec((cfg.q_lora_rank, h * dqk), tp_dim=1)
+    else:
+        s["wq"] = matrix_spec((d, h * dqk), tp_dim=1)
+    return s
+
+
 def _mla_q(params: MLA, x, cfg: ModelConfig, positions):
     B, S, _ = x.shape
     if cfg.q_lora_rank:
@@ -404,8 +511,8 @@ def _mla_scale(cfg: ModelConfig) -> float:
 
 def mla_forward(params: MLA, x, cfg: ModelConfig, positions, kv_chunk: int = 1024):
     """Full-sequence path: the latent expanded to full K/V heads.  Long
-    sequences (S > kv_chunk, a multiple of it) run the chunked online
-    softmax with V padded to the K width."""
+    sequences (S > kv_chunk, a multiple of it) run :class:`_Flash` with V
+    padded to the K width."""
     B, S, _ = x.shape
     h = cfg.num_heads
     dn, dv, dr = cfg.qk_nope_head_dim, cfg.v_head_dim, cfg.qk_rope_head_dim
@@ -427,7 +534,7 @@ def mla_forward(params: MLA, x, cfg: ModelConfig, positions, kv_chunk: int = 102
     q_full = torch.cat([q_nope, q_rope], dim=-1)
     qf = (q_full.float() * scale)[:, :, :, None, :]  # g = 1
     v_pad = F.pad(v, (0, dn + dr - dv))
-    out = _flash_fwd_scan(qf, k_full, v_pad, cfg.causal, kv_chunk)
+    out = _flash(qf, k_full, v_pad, cfg.causal, kv_chunk)
     out = out[:, :, :, 0, :dv].to(x.dtype)
     return out.reshape(B, S, -1) @ params.wo
 
@@ -437,6 +544,12 @@ def mla_init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device):
         "c_kv": torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype, device=device),
         "k_rope": torch.zeros((batch, max_len, cfg.qk_rope_head_dim), dtype=dtype, device=device),
     }
+
+
+def mla_cache_specs(cfg: ModelConfig, seq_axes=None, model_on_heads: bool = True):
+    """The latent has no head dim: ``model`` always shards the sequence."""
+    spec = P(("pod", "data"), _seq_spec(seq_axes), None)
+    return {"c_kv": spec, "k_rope": spec}
 
 
 def _absorbed(params: MLA, cfg: ModelConfig):

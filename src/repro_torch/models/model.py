@@ -4,15 +4,29 @@ Public surface (the JAX package's, with parameters as a module):
 
   init_params(seed, cfg, device=)           -> LM module
   params_from_numpy(tree, cfg, device)      -> LM module from a JAX pytree
+  params_to_numpy(params)                   -> the JAX pytree of an LM
+  param_specs(cfg)                          -> matching PartitionSpec tree
   forward(params, batch, cfg)               -> (logits (B, S, V) f32, aux)
+  loss_fn(params, batch, cfg)               -> (loss, {"ce", "aux"})
+  loss_and_grads(params, batch, cfg)        -> (loss, metrics, grads)
   init_cache(cfg, B, max_len, device=)      -> dense decode cache
+  cache_specs(cfg, seq_axes)                -> matching PartitionSpec tree
   decode_step(params, tok, cache, pos, cfg) -> (logits (B, V) f32, cache)
   init_paged_cache(cfg, P, page_size, device=)
-  decode_step_paged(...), prefill_paged(...), count_params(params)
+  decode_step_paged(...), prefill_paged(...), count_params(params),
+  active_param_count(cfg), param_count_analytic(cfg)
 
-Batches: {"tokens": int (B, S)}.  Token, position and table arguments
-may be numpy arrays or tensors; they are moved to the parameters' device.
-Caches are updated in place.
+Batches: {"tokens": int (B, S)} or, for stub frontends
+(``embed_inputs=False``: the model has no embedding table), {"embeds":
+(B, S, d)}; training batches add "labels" int (B, S), −1 masked.  Token,
+position and table arguments may be numpy arrays or tensors; they are
+moved to the parameters' device.  Caches are updated in place.
+
+The JAX package stacks each block leaf over a leading layer axis; the
+port keeps one module a block.  ``param_paths`` maps one layout onto the
+other: each JAX leaf (a key path, in the JAX package's flatten order:
+dict keys sorted) with the port's parameter names that make it up, one a
+layer for a block leaf.
 """
 from __future__ import annotations
 
@@ -25,10 +39,13 @@ from torch import nn
 from . import attention as attn
 from . import transformer as tfm
 from .config import ModelConfig
-from .layers import Embed, RMSNorm, embed, rms_norm, unembed
+from .layers import Embed, RMSNorm, embed, rms_norm, specs_embed, specs_rmsnorm, unembed
+from .sharding import shard_batch, shard_logits
 
 __all__ = [
     "LM",
+    "active_param_count",
+    "cache_specs",
     "count_params",
     "decode_step",
     "decode_step_paged",
@@ -36,29 +53,33 @@ __all__ = [
     "init_cache",
     "init_paged_cache",
     "init_params",
+    "loss_and_grads",
+    "loss_fn",
+    "named_params",
+    "param_count_analytic",
+    "param_paths",
+    "param_specs",
     "params_from_numpy",
+    "params_to_numpy",
     "prefill_paged",
 ]
 
 
 class LM(nn.Module):
     """The parameters of one model: ``blocks`` (one :class:`Block` per
-    layer), ``final_norm``, ``embed``, unless tied ``head``, and for the
-    hybrid pattern ``shared_attn`` (one :class:`~.transformer.SharedAttn`)."""
+    layer), ``final_norm``, ``embed`` (not for a stub frontend), ``head``
+    (unless tied to ``embed``), and for the hybrid pattern ``shared_attn``
+    (one :class:`~.transformer.SharedAttn`)."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
         cfg.validate()
-        if not cfg.embed_inputs:
-            raise NotImplementedError(
-                "stub frontends (embed_inputs=False) arrive with the training slice of the "
-                "PyTorch/CUDA port"
-            )
         dtype = cfg.params_dtype
         self.blocks = tfm.init_stack(cfg, dtype, device)
         self.final_norm = RMSNorm(cfg.d_model, dtype, device)
-        self.embed = Embed(cfg.vocab_size, cfg.d_model, dtype, device)
-        if not cfg.tie_embeddings:
+        if cfg.embed_inputs:
+            self.embed = Embed(cfg.vocab_size, cfg.d_model, dtype, device)
+        if not cfg.tie_embeddings or not cfg.embed_inputs:
             self.head = Embed(cfg.vocab_size, cfg.d_model, dtype, device)
         if cfg.hybrid_attn_every:
             self.shared_attn = tfm.init_shared_attn(cfg, dtype, device)
@@ -83,12 +104,107 @@ def init_params(seed: int, cfg: ModelConfig, *, device="cuda") -> LM:
     for block in params.blocks:
         block.reset(gen)
     params.final_norm.reset(gen)
-    params.embed.reset(gen)
+    if hasattr(params, "embed"):
+        params.embed.reset(gen)
     if hasattr(params, "head"):
         params.head.reset(gen)
     if hasattr(params, "shared_attn"):
         params.shared_attn.reset(gen)
     return params
+
+
+def param_specs(cfg: ModelConfig):
+    """The JAX package's PartitionSpec tree of the parameters (stacked
+    block leaves: a leading unsharded layer dim)."""
+    s: dict[str, Any] = {"blocks": tfm.specs_stack(cfg), "final_norm": specs_rmsnorm()}
+    if cfg.embed_inputs:
+        s["embed"] = specs_embed(cfg.vocab_size, cfg.d_model)
+    if not cfg.tie_embeddings or not cfg.embed_inputs:
+        s["head"] = specs_embed(cfg.vocab_size, cfg.d_model)
+    if cfg.hybrid_attn_every:
+        s["shared_attn"] = tfm.specs_shared_attn(cfg)
+    return s
+
+
+def cache_specs(cfg: ModelConfig, seq_axes=None, model_on_heads: bool = True):
+    """The JAX package's PartitionSpec tree of the dense decode cache."""
+    out = {"blocks": tfm._prepend_layer_axis(tfm.block_cache_specs(cfg, seq_axes, model_on_heads))}
+    if cfg.hybrid_attn_every:
+        out["shared"] = tfm._prepend_layer_axis(attn.gqa_cache_specs(cfg, seq_axes, model_on_heads))
+    return out
+
+
+def param_paths(params: nn.Module) -> list[tuple[tuple[str, ...], list[str]]]:
+    """The JAX leaves of ``params`` in the JAX package's flatten order:
+    (key path, the port's parameter names of that leaf).  A block leaf
+    (``("blocks", "attn", "wq")``) lists its L per-layer names in layer
+    order; every other leaf one name."""
+    groups: dict[tuple[str, ...], list[str]] = {}
+    for name, _ in params.named_parameters():
+        parts = name.split(".")
+        path = ("blocks",) + tuple(parts[2:]) if parts[0] == "blocks" else tuple(parts)
+        groups.setdefault(path, []).append(name)
+    for path, names in groups.items():
+        if path[0] == "blocks":
+            names.sort(key=lambda n: int(n.split(".")[1]))
+    # sorted key paths are the order of a flatten with sorted keys at each level
+    return sorted(groups.items())
+
+
+def named_params(params: nn.Module) -> dict[str, torch.Tensor]:
+    """The parameters by name, in the JAX package's leaf order."""
+    named = dict(params.named_parameters())
+    return {n: named[n] for _, names in param_paths(params) for n in names}
+
+
+def stack_tree(named: dict[str, torch.Tensor], paths, *, to_host: bool = False) -> dict:
+    """Tensors keyed by the port's parameter names (parameters, grads,
+    moments) as the JAX package's nested tree: block leaves stacked over a
+    leading layer axis.  ``to_host``: every leaf a new CPU tensor (a
+    snapshot that later in-place updates do not reach)."""
+    tree: dict = {}
+    with torch.no_grad():
+        for path, names in paths:
+            node = tree
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            if path[0] == "blocks":
+                leaf = torch.stack([named[n] for n in names])
+                leaf = leaf.cpu() if to_host else leaf
+            else:
+                leaf = named[names[0]].detach()
+                leaf = leaf.to("cpu", copy=True) if to_host else leaf
+            node[path[-1]] = leaf
+    return tree
+
+
+def unstack_tree(tree: dict, paths) -> dict[str, torch.Tensor]:
+    """The inverse of :func:`stack_tree`: a JAX-layout tree of tensors as
+    tensors keyed by the port's parameter names (views of its leaves)."""
+    out = {}
+    for path, names in paths:
+        leaf = tree
+        for key in path:
+            leaf = leaf[key]
+        if path[0] == "blocks":
+            out.update({n: leaf[i] for i, n in enumerate(names)})
+        else:
+            out[names[0]] = leaf
+    return out
+
+
+def params_to_numpy(params: "LM") -> dict:
+    """The inverse of :func:`params_from_numpy`: the JAX package's
+    parameter pytree of ``params``, leaves as numpy arrays on the host,
+    block leaves stacked over layers.  bf16 leaves come back as f32 arrays
+    holding the same values (numpy has no bf16 without ``ml_dtypes``);
+    ``params_from_numpy`` casts them back exactly."""
+    def host(node):
+        if isinstance(node, dict):
+            return {k: host(v) for k, v in node.items()}
+        return (node.float() if node.dtype == torch.bfloat16 else node).numpy()
+
+    return host(stack_tree(named_params(params), param_paths(params), to_host=True))
 
 
 def _leaf(a) -> torch.Tensor:
@@ -148,22 +264,76 @@ def _on(x, device, dtype=None) -> torch.Tensor:
     return t.to(device=device, dtype=dtype) if dtype is not None else t.to(device)
 
 
+def _inputs(params: LM, batch: dict[str, Any], cfg: ModelConfig):
+    """(x (B, S, d), positions (B, S)): embedded tokens, or a stub
+    frontend's embeddings cast to the model dtype."""
+    if cfg.embed_inputs:
+        x = embed(_on(batch["tokens"], params.device), params.embed)
+    else:
+        x = _on(batch["embeds"], params.device, cfg.params_dtype)
+    x = shard_batch(x)  # the post-embed anchor: (B → dp, S, d)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+    return x, positions
+
+
 def forward(params: LM, batch: dict[str, Any], cfg: ModelConfig):
     """Full-sequence forward.  Returns (logits f32 (B, S, V), aux: the MoE
     load-balance loss summed over layers, 0 for dense blocks)."""
-    tokens = _on(batch["tokens"], params.device)
-    B, S = tokens.shape
-    x = embed(tokens, params.embed)
-    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+    x, positions = _inputs(params, batch, cfg)
     x, aux = tfm.stack_forward(params.blocks, x, cfg, positions,
                                shared_attn=getattr(params, "shared_attn", None))
-    x = rms_norm(x, params.final_norm, cfg.norm_eps)
+    x = shard_batch(rms_norm(x, params.final_norm, cfg.norm_eps))
     return unembed(x, params.lm_head), aux
+
+
+def loss_fn(params: LM, batch: dict[str, Any], cfg: ModelConfig, aux_weight: float = 0.01):
+    """The JAX package's loss: one-hot masked-sum cross entropy over the
+    f32 logits (labels < 0 masked) plus ``aux_weight · aux``.  Returns
+    (loss, {"ce", "aux"}), f32 scalars."""
+    logits, aux = forward(params, batch, cfg)
+    logits = shard_logits(logits)
+    labels = _on(batch["labels"], logits.device)
+    logp = torch.log_softmax(logits, dim=-1)
+    vocab_ids = torch.arange(cfg.vocab_size, dtype=labels.dtype, device=labels.device)
+    onehot = labels[..., None] == vocab_ids
+    ll = torch.where(onehot, logp, torch.zeros((), dtype=logp.dtype, device=logp.device)).sum(dim=-1)
+    mask = (labels >= 0).float()
+    # tensor by tensor, as XLA divides
+    ce = -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
+
+
+def loss_and_grads(params: LM, batch: dict[str, Any], cfg: ModelConfig, aux_weight: float = 0.01):
+    """``jax.value_and_grad(loss_fn, has_aux=True)`` over the parameters:
+    (loss, metrics, grads), grads keyed by the port's parameter names in
+    the JAX package's leaf order (``param_paths``), each in its
+    parameter's dtype; a parameter the loss does not reach gets zeros."""
+    named = named_params(params)
+    names, leaves = list(named), list(named.values())
+    flags = [p.requires_grad for p in leaves]
+    try:
+        for p in leaves:
+            p.requires_grad_(True)
+        with torch.enable_grad():
+            loss, metrics = loss_fn(params, batch, cfg, aux_weight)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    finally:
+        for p, flag in zip(leaves, flags):
+            p.requires_grad_(flag)
+    out = {n: torch.zeros_like(p) if g is None else g for n, p, g in zip(names, leaves, grads)}
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, out
 
 
 # ---------------------------------------------------------------------------
 # decode
 # ---------------------------------------------------------------------------
+
+def _embed_step(params: LM, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The decode paths' input: embedded tokens, or (stub frontends) the
+    pre-embedded frames as given, as in the JAX package."""
+    return embed(tokens, params.embed) if cfg.embed_inputs else tokens
+
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda"):
     """Dense decode cache: {"blocks": {"k", "v"}} with (L, B, max_len, Hkv,
@@ -190,7 +360,7 @@ def decode_step(params: LM, tokens, cache, pos, cfg: ModelConfig):
     pos = _on(pos, dev, torch.int32)
     if pos.dim() == 0:
         pos = pos.expand(tokens.shape[0])
-    x = embed(tokens, params.embed)
+    x = _embed_step(params, tokens, cfg)
     x, _ = tfm.stack_decode(params.blocks, x, cfg, cache["blocks"], pos,
                             shared_attn=getattr(params, "shared_attn", None),
                             shared_caches=cache.get("shared"))
@@ -221,7 +391,7 @@ def decode_step_paged(params: LM, tokens, cache, pos, page_table, cfg: ModelConf
     page_table = _on(page_table, dev, torch.int32)
     if write_mask is not None:
         write_mask = _on(write_mask, dev, torch.bool)
-    x = embed(tokens, params.embed)
+    x = _embed_step(params, tokens, cfg)
     x, _ = tfm.stack_decode_paged(params.blocks, x, cfg, cache["blocks"], pos, page_table,
                                   write_mask=write_mask, attn_impl=attn_impl)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
@@ -245,7 +415,7 @@ def prefill_paged(params: LM, tokens, cache, pos0, n_new, page_table,
     pos0 = _on(pos0, dev, torch.int32)
     n_new = _on(n_new, dev, torch.int32)
     page_table = _on(page_table, dev, torch.int32)
-    x = embed(tokens, params.embed)
+    x = _embed_step(params, tokens, cfg)
     tfm.stack_prefill_paged(params.blocks, x, cfg, cache["blocks"], pos0, n_new, page_table,
                             attn_impl=attn_impl, schedule=schedule)
     return cache
@@ -253,3 +423,57 @@ def prefill_paged(params: LM, tokens, cache, pos0, n_new, page_table,
 
 def count_params(params: nn.Module) -> int:
     return int(sum(p.numel() for p in params.parameters()))
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Parameters touched per token (MoE: top_k + shared experts only)."""
+    full = param_count_analytic(cfg)
+    if cfg.block_kind != "moe":
+        return full
+    routed_per_layer = 3 * cfg.d_model * cfg.d_ff_expert
+    return full - (cfg.num_experts - cfg.top_k) * routed_per_layer * cfg.num_layers
+
+
+def param_count_analytic(cfg: ModelConfig) -> int:
+    """Closed-form parameter count (no allocation)."""
+    d, L, V = cfg.d_model, cfg.num_layers, cfg.vocab_size
+    total = 0
+    if cfg.embed_inputs:
+        total += V * d
+    if not cfg.tie_embeddings or not cfg.embed_inputs:
+        total += V * d
+    total += d  # final norm
+    if cfg.block_kind == "mamba2":
+        di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+        per = d + d * (2 * di + 2 * n + h) + cfg.ssm_conv_width * (di + 2 * n) \
+            + (di + 2 * n) + 3 * h + di + di * d
+        total += L * per
+    else:
+        dh = cfg.attn_head_dim
+        if cfg.is_mla:
+            dqk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+            attn_p = d * (cfg.kv_lora_rank + cfg.qk_rope_head_dim) + cfg.kv_lora_rank
+            attn_p += cfg.kv_lora_rank * cfg.num_heads * (cfg.qk_nope_head_dim + cfg.v_head_dim)
+            attn_p += cfg.num_heads * cfg.v_head_dim * d
+            if cfg.q_lora_rank:
+                attn_p += d * cfg.q_lora_rank + cfg.q_lora_rank + cfg.q_lora_rank * cfg.num_heads * dqk
+            else:
+                attn_p += d * cfg.num_heads * dqk
+        else:
+            attn_p = d * cfg.num_heads * dh + 2 * d * cfg.num_kv_heads * dh + cfg.num_heads * dh * d
+            if cfg.qkv_bias:
+                attn_p += (cfg.num_heads + 2 * cfg.num_kv_heads) * dh
+        if cfg.block_kind == "moe":
+            ffn_p = d * cfg.num_experts  # router
+            ffn_p += cfg.num_experts * 3 * d * cfg.d_ff_expert
+            if cfg.num_shared_experts:
+                ffn_p += 3 * d * cfg.num_shared_experts * cfg.d_ff_expert
+        else:
+            ffn_p = (3 if cfg.mlp_act == "swiglu" else 2) * d * cfg.d_ff
+        total += L * (attn_p + ffn_p + 2 * d)
+    if cfg.hybrid_attn_every:
+        dh = cfg.attn_head_dim
+        total += d + d * cfg.num_heads * dh + 2 * d * cfg.num_kv_heads * dh + cfg.num_heads * dh * d
+        if cfg.d_ff:
+            total += d + (3 if cfg.mlp_act == "swiglu" else 2) * d * cfg.d_ff
+    return total

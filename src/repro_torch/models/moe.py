@@ -30,9 +30,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from .config import ModelConfig
-from .layers import MLP, dense_init, mlp, param
+from .layers import MLP, dense_init, matrix_spec, mlp, param, specs_mlp
+from .sharding import P
 
-__all__ = ["MoE", "init_moe", "moe_forward"]
+__all__ = ["MoE", "init_moe", "moe_forward", "specs_moe"]
 
 
 class MoE(nn.Module):
@@ -66,6 +67,21 @@ class MoE(nn.Module):
 
 def init_moe(cfg: ModelConfig, dtype, device) -> MoE:
     return MoE(cfg, dtype, device)
+
+
+def specs_moe(cfg: ModelConfig):
+    """The JAX package's specs: experts over ``model`` (EP), the FSDP dim
+    over ``data``, the f32 router by the matrix rule."""
+    d, E, f = cfg.d_model, cfg.num_experts, cfg.d_ff_expert
+    s = {
+        "router": matrix_spec((d, E), tp_dim=None),
+        "w_gate": P("model", "data", None),
+        "w_up": P("model", "data", None),
+        "w_down": P("model", None, "data"),
+    }
+    if cfg.num_shared_experts:
+        s["shared"] = specs_mlp(d, cfg.num_shared_experts * f, "swiglu")
+    return s
 
 
 def _top_k(probs: torch.Tensor, k: int):

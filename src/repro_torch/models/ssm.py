@@ -28,14 +28,17 @@ import torch.nn.functional as F
 from torch import nn
 
 from .config import ModelConfig
-from .layers import RMSNorm, dense_init, param, rms_norm
+from .layers import RMSNorm, dense_init, matrix_spec, param, rms_norm, specs_rmsnorm
+from .sharding import P
 
 __all__ = [
     "Mamba2",
     "init_mamba2",
+    "mamba2_cache_specs",
     "mamba2_decode",
     "mamba2_forward",
     "mamba2_init_cache",
+    "specs_mamba2",
     "ssd_chunked",
 ]
 
@@ -81,6 +84,20 @@ class Mamba2(nn.Module):
 
 def init_mamba2(cfg: ModelConfig, dtype, device) -> Mamba2:
     return Mamba2(cfg, dtype, device)
+
+
+def specs_mamba2(cfg: ModelConfig):
+    d, di = cfg.d_model, cfg.d_inner
+    return {
+        "in_proj": matrix_spec((d, 2 * di + 2 * cfg.ssm_state + cfg.ssm_heads), tp_dim=1),
+        "conv_w": P(None, "model"),
+        "conv_b": P("model"),
+        "A_log": P(None),
+        "D": P(None),
+        "dt_bias": P(None),
+        "norm": specs_rmsnorm(),
+        "out_proj": matrix_spec((di, d), tp_dim=0),
+    }
 
 
 def _split_in(proj: torch.Tensor, cfg: ModelConfig):
@@ -188,6 +205,13 @@ def mamba2_init_cache(cfg: ModelConfig, batch: int, dtype, device) -> dict:
         "state": torch.zeros((batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
                              dtype=torch.float32, device=device),
         "conv": torch.zeros((batch, cfg.ssm_conv_width - 1, _conv_dim(cfg)), dtype=dtype, device=device),
+    }
+
+
+def mamba2_cache_specs(cfg: ModelConfig):
+    return {
+        "state": P(("pod", "data"), "model", None, None),
+        "conv": P(("pod", "data"), None, "model"),
     }
 
 

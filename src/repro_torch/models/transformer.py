@@ -25,7 +25,8 @@ from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .config import ModelConfig
-from .layers import MLP, RMSNorm, mlp, rms_norm
+from .layers import MLP, RMSNorm, mlp, rms_norm, specs_mlp, specs_rmsnorm
+from .sharding import P, shard_batch
 
 _NO_PAGES = "recurrent blocks have no paged KV cache"
 _PURE_ATTENTION = "paged KV serving requires a pure attention stack"
@@ -62,6 +63,27 @@ def init_block(cfg: ModelConfig, dtype, device) -> Block:
     return Block(cfg, dtype, device)
 
 
+def specs_block(cfg: ModelConfig):
+    s: dict = {"norm1": specs_rmsnorm()}
+    if cfg.block_kind == "mamba2":
+        s["mixer"] = ssm_mod.specs_mamba2(cfg)
+        return s
+    s["attn"] = attn.specs_mla(cfg) if cfg.is_mla else attn.specs_gqa(cfg)
+    s["norm2"] = specs_rmsnorm()
+    if cfg.block_kind == "moe":
+        s["ffn"] = moe_mod.specs_moe(cfg)
+    else:
+        s["ffn"] = specs_mlp(cfg.d_model, cfg.d_ff, cfg.mlp_act)
+    return s
+
+
+def _prepend_layer_axis(specs):
+    """A spec tree with a leading unsharded (layer) dim on every leaf."""
+    if isinstance(specs, P):
+        return P(None, *specs)
+    return {k: _prepend_layer_axis(v) for k, v in specs.items()}
+
+
 def _ffn(params: Block, x, cfg: ModelConfig, *, token_mask=None, lossless: bool = False):
     """x + the block's feed-forward; returns (x, aux), aux None for dense
     blocks (the decode paths drop it)."""
@@ -76,6 +98,7 @@ def block_forward(params: Block, x, cfg: ModelConfig, positions):
     """Returns (x, aux); aux is 0 for dense blocks.  MoE takes its
     capacity-bounded dispatch here (``lossless=False``), as in the JAX
     package."""
+    x = shard_batch(x)  # the per-block activation anchor (B → dp, S, d)
     h = rms_norm(x, params.norm1, cfg.norm_eps)
     if cfg.block_kind == "mamba2":
         return x + ssm_mod.mamba2_forward(params.mixer, h, cfg), torch.zeros(
@@ -146,12 +169,24 @@ def block_init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device):
     return init(cfg, batch, max_len, dtype, device)
 
 
+def block_cache_specs(cfg: ModelConfig, seq_axes=None, model_on_heads: bool = True):
+    if cfg.block_kind == "mamba2":
+        return ssm_mod.mamba2_cache_specs(cfg)
+    specs = attn.mla_cache_specs if cfg.is_mla else attn.gqa_cache_specs
+    return specs(cfg, seq_axes, model_on_heads)
+
+
 # ---------------------------------------------------------------------------
 # stacked layers
 # ---------------------------------------------------------------------------
 
 def init_stack(cfg: ModelConfig, dtype, device) -> nn.ModuleList:
     return nn.ModuleList(init_block(cfg, dtype, device) for _ in range(cfg.num_layers))
+
+
+def specs_stack(cfg: ModelConfig):
+    """Block specs with the JAX package's leading (stacked) layer axis."""
+    return _prepend_layer_axis(specs_block(cfg))
 
 
 def layer(cache: dict, i: int) -> dict:
@@ -247,6 +282,14 @@ class SharedAttn(nn.Module):
 
 def init_shared_attn(cfg: ModelConfig, dtype, device) -> SharedAttn:
     return SharedAttn(cfg, dtype, device)
+
+
+def specs_shared_attn(cfg: ModelConfig):
+    s = {"norm": specs_rmsnorm(), "attn": attn.specs_gqa(cfg)}
+    if cfg.d_ff:
+        s["norm2"] = specs_rmsnorm()
+        s["mlp"] = specs_mlp(cfg.d_model, cfg.d_ff, cfg.mlp_act)
+    return s
 
 
 def _shared_block_tail(shared_attn: SharedAttn, x, cfg: ModelConfig):

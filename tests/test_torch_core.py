@@ -26,6 +26,8 @@ from repro_torch.core.program import GpuProgram  # noqa: E402
 REPO = Path(__file__).resolve().parents[1]
 SHAPES_2D = [(1, 1), (3, 5), (4, 4), (7, 2), (8, 13)]
 SHAPES_3D = [(2, 3, 2), (4, 4, 4), (3, 5, 2)]
+# odd, cubic, degenerate and long shapes (the curves that clip covers)
+SHAPES_3D_WIDE = [(5, 7, 3), (8, 8, 8), (1, 9, 2), (6, 6, 6), (16, 3, 5)]
 
 
 # ---------------------------------------------------------------------------
@@ -66,6 +68,30 @@ def test_kmeans_schedule_equal(curve, pt, ct):
     np.testing.assert_array_equal(
         tcore.kmeans_schedule(curve, pt, ct), jcore.kmeans_schedule(curve, pt, ct)
     )
+
+
+@pytest.mark.parametrize("curve", [c for c in jcore.CURVES if jcore.get_curve(c).supports(3)])
+@pytest.mark.parametrize("shape", SHAPES_3D_WIDE)
+def test_tile_schedule_nd_3d_wide_shapes_equal(curve, shape):
+    np.testing.assert_array_equal(
+        tcore.tile_schedule_nd(curve, shape), jcore.tile_schedule_nd(curve, shape)
+    )
+
+
+@pytest.mark.parametrize("axes", [(0, 1), (0, 2), (1, 2), (0,), (2,)])
+def test_min_revisit_gap_equal(axes):
+    for curve in ("hilbert", "zorder", "harmonious", "row"):
+        for shape in SHAPES_3D_WIDE:
+            sched = jcore.tile_schedule_nd(curve, shape)
+            assert tcore.min_revisit_gap(sched, axes) == jcore.min_revisit_gap(sched, axes), (curve, shape)
+
+
+@pytest.mark.parametrize("curve", jcore.CURVES)
+def test_miss_curve_equal(curve):
+    sizes = [1, 2, 4, 8, 16, 64]
+    for n, m in [(1, 1), (3, 5), (4, 4), (8, 13), (16, 16)]:
+        sched = jcore.tile_schedule(curve, n, m)
+        assert tcore.miss_curve(sched, sizes) == jcore.miss_curve(sched, sizes), (n, m)
 
 
 @pytest.mark.parametrize("axes", [(0, 1), (0, 2), (1,)])
@@ -257,13 +283,19 @@ def _imported_modules(path: Path) -> set[str]:
 
 
 def test_port_imports_neither_jax_nor_repro():
-    files = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py",
-                                                                    REPO / "tools" / "gqa_hashes.py"]
+    files = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "tools" / "gqa_hashes.py", REPO / "examples" / "train_lm_torch.py"]
     assert len(files) > 15
+    # the training slice's subpackages and modules are among the scanned files
+    scanned = {p.relative_to(REPO / "src" / "repro_torch").as_posix() for p in files
+               if p.is_relative_to(REPO / "src" / "repro_torch")}
+    for module in ("optim/adamw.py", "train/trainer.py", "checkpoint/ckpt.py", "launch/steps.py",
+                   "launch/train.py", "models/sharding.py", "data/pipeline.py"):
+        assert module in scanned, module
     for path in files:
         for name in _imported_modules(path):
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {name}"
+            assert top not in ("jax", "jaxlib", "repro", "ml_dtypes"), f"{path}: imports {name}"
 
 
 def test_importing_ops_leaves_jax_unloaded():
