@@ -204,6 +204,25 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    start-of-run checkpoint save's seconds and GB, and one restore's
    (sha256 checked on every leaf, the restored state equal to the saved
    one, re-made from the seed); every loss and grad norm finite.
+10. The schedule autotuner (``autotune_path``), the tuning cache in a
+   temporary file: ``autotune.autotune_app`` for each tunable entry point
+   at phase 3's shapes and inputs (f32 matmul 8192³, SIFT1M Lloyd, the
+   ε-join's counts and pairs at 262,144 × 16, Floyd–Warshall and
+   Cholesky at 8192) over 4 curves each (AUTOTUNE_CURVES, the default
+   first), 3 timed (the default and the 2 best by ``locality_rank``), 3
+   repeats each: ``autotune <app>:`` lines with the card, each
+   candidate's warm ms, the winner, the default's ms and the cold host
+   seconds of each curve's first schedule build.  Checked: the winner
+   recorded under ``cuda`` and not ``cpu``; ``choice="auto"`` equal to
+   the explicit winner to the bit; the fastest non-default candidate's
+   result equal to the default curve's (FW, Cholesky, matmul to the bit;
+   counts equal; pairs set-equal; k-means exact outside the tie band,
+   centroids allclose), its kernels counted in ``LAUNCHES``;
+   ``launch(fw_program(...), choice=harmonious)`` equal to the default on
+   the 8192 graph; an explicit FW block of 256 refused before any launch;
+   a ``cpu`` entry unused on the card and a ``cuda`` one used.  Then the
+   four example twins (``examples/*_torch.py``) run on the card at once,
+   each within 120 s, every match line ``True``.
 
 The second-to-last line of output is one JSON object ``{"kernels": [...]}``,
 the last ``{"ok": true, "device": {...}}``.  ``--quick`` runs phases 1-2
@@ -396,6 +415,31 @@ TRAIN_CHECK_LR = 3e-4
 TRAIN_GRAD_FLOOR = 1e-3
 TRAIN_PARAM_TOL = 1e-3
 TRAIN_FULL = (2, 2048, 2, 10, 3e-4, 2)
+# the autotuner phase: the curves each app's candidates are drawn from (its
+# default first).  A curve whose cover is the square of the grid's long side
+# takes the host minutes on a ragged grid, so the k-means grid (7,813 x 8)
+# gets none of peano, zorder or gray.
+AUTOTUNE_CURVES = {
+    "matmul": ("fur", "hilbert", "harmonious", "zorder"),
+    "kmeans_lloyd": ("fur", "hilbert", "harmonious", "hcyclic"),
+    "simjoin_counts": ("hilbert", "harmonious", "hcyclic", "row"),
+    "simjoin_pairs": ("hilbert", "harmonious", "hcyclic", "row"),
+    "floyd_warshall": ("hilbert", "harmonious", "zorder", "row"),
+    "cholesky": ("hilbert", "harmonious", "hcyclic", "zorder"),
+}
+AUTOTUNE_MEASURE = 3  # candidates timed per app, the default among them
+AUTOTUNE_REPEATS = 3
+# the kernels each app launches (each must run under a swapped choice)
+AUTOTUNE_KERNELS = {
+    "matmul": ("sfc_matmul",),
+    "kmeans_lloyd": ("sfc_kmeans_assign", "sfc_kmeans_update"),
+    "simjoin_counts": ("sfc_join_hits",),
+    "simjoin_pairs": ("sfc_join_hits", "sfc_join_emit"),
+    "floyd_warshall": ("sfc_fw_diag", "sfc_fw_row", "sfc_fw_col", "sfc_fw_trailing"),
+    "cholesky": ("sfc_chol_diag", "sfc_chol_panel", "sfc_chol_trailing"),
+}
+EXAMPLE_TWINS = ("quickstart", "datamining_apps", "stream_apps", "serve_lm")
+TWIN_TIMEOUT = 120  # seconds, each
 
 
 def log(msg: str) -> None:
@@ -1685,9 +1729,10 @@ def main_path(rng, device, seed: int) -> dict:
         f"StreamSimJoin warm tick ({NSJ} residents + {PER_J}, one query of {MQ})":
             lambda: (svc_j.insert(more_j), svc_j.query(q_pool[:MQ]), svc_j.tick()),
     })
-    # what the sharded phase holds its runs against
+    # what the sharded and autotuner phases hold their runs against
     ctx = {"xk": xk, "K": K, "iters": ITERS, "cent": cent, "asg": asg, "band_a": band_a,
-           "xs_j": xs_jt, "eps_s": EPS_S, "xj": xj, "eps": eps, "pairs": pairs}
+           "xs_j": xs_jt, "eps_s": EPS_S, "xj": xj, "eps": eps, "pairs": pairs,
+           "a32": a32, "b32": b32, "fw_d": fw_d, "ch_a": ch_a}
     return {"kernels": rows}, ctx
 
 
@@ -3738,6 +3783,222 @@ def training_path(device, seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the schedule autotuner on the card
+# ---------------------------------------------------------------------------
+
+def _outputs(out) -> tuple:
+    return out if isinstance(out, tuple) else (out,)
+
+
+def same_bits(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(_outputs(a), _outputs(b)))
+
+
+def schedule_builds(app: str, shapes: dict, device):
+    """The device tables one call of ``app`` builds under a curve, as a
+    function of the curve (timed cold, before the tuner runs)."""
+    from repro_torch.core import (kmeans_schedule_device, phase_groups, phased_schedule_device,
+                                  tile_schedule_device, triangle_schedule_device)
+
+    if app == "matmul":
+        return lambda c: tile_schedule_device(c, shapes["tiles"], device=device)
+    if app == "kmeans_lloyd":
+        return lambda c: kmeans_schedule_device(c, *shapes["kmeans"], device=device)
+    if app == "simjoin_counts":
+        return lambda c: triangle_schedule_device(c, shapes["join"], strict=False, device=device)
+    if app == "simjoin_pairs":  # the 128-tile passes and the 256-tile order
+        return lambda c: [triangle_schedule_device(c, nt, strict=False, device=device)
+                          for nt in (shapes["join"], -(-shapes["join"] // 2))]
+    kind = {"floyd_warshall": "fw", "cholesky": "cholesky"}[app]
+    return lambda c: (phased_schedule_device(c, shapes["phased"], kind=kind, device=device),
+                      phase_groups(c, shapes["phased"], kind=kind))
+
+
+def check_against_default(app: str, got, base, ctx: dict) -> dict:
+    """A swapped curve's result against the default's: FW, Cholesky and
+    matmul equal to the bit (the curve only reorders independent tiles),
+    counts equal, pairs set-equal, k-means assignments exact outside the
+    float64 tie band and centroids allclose at phase 4's tolerances."""
+    import torch
+
+    if app == "kmeans_lloyd":
+        (c, a), (cb, ab) = got, base
+        off = (a != ab) & ~ctx["band_a"]
+        check(not bool(off.any()), f"autotune {app}: {int(off.sum())} assignments differ outside the band")
+        check(bool(torch.allclose(c, cb, rtol=1e-4, atol=1e-3)), f"autotune {app}: centroids not allclose")
+        return {"mismatches": int((a != ab).sum()), "centroid_max_abs_err": float((c - cb).abs().max())}
+    if app == "simjoin_pairs":
+        n = ctx["xj"].shape[0]
+        check(len(got) == len(base) and torch.equal(pair_keys(got, n), pair_keys(base, n)),
+              f"autotune {app}: pair set differs from the default curve's")
+        return {"pairs": len(got), "same_order": bool(torch.equal(got, base))}
+    check(torch.equal(got, base), f"autotune {app}: result differs from the default curve's")
+    return {"equal_bits": True}
+
+
+def run_twins() -> dict:
+    """Run the four example twins on the card at once, each in its own
+    process with TWIN_TIMEOUT; a non-zero exit or a False match line
+    fails.  Every process is stopped before this returns."""
+    import os
+    import re
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen([sys.executable, str(ROOT / "examples" / f"{name}_torch.py")],
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+                                    cwd=ROOT)
+             for name in EXAMPLE_TWINS}
+    outs = {}
+    try:
+        for name, proc in procs.items():
+            try:
+                out, err = proc.communicate(timeout=max(1.0, TWIN_TIMEOUT - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"example twin {name}: no end within {TWIN_TIMEOUT} s") from None
+            verdicts = re.findall(r":\s*(True|False)\b", out)
+            outs[name] = {"rc": proc.returncode, "verdicts": len(verdicts),
+                          "s": round(time.perf_counter() - t0, 1)}
+            check(proc.returncode == 0, f"example twin {name}: exit {proc.returncode}: {err[-2000:]}")
+            check(verdicts and set(verdicts) == {"True"}, f"example twin {name}: match lines {verdicts}\n{out}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return outs
+
+
+def autotune_path(device, seed: int, ctx: dict) -> dict:
+    """Phase 10: ``autotune_app`` for each of the six tunable apps at the
+    main path's shapes (phase 3's inputs), the cache in a temporary file;
+    each candidate's warm ms and cold schedule build, the winner and the
+    default; ``choice="auto"`` equal to the explicit winner to the bit;
+    the best non-default candidate's result against the default curve's,
+    its kernels' launches counted; ``launch(fw_program, choice=...)``
+    equal to the default; the refusals; the four example twins."""
+    import os
+    import tempfile
+
+    import torch
+    from repro_torch.core import ScheduleChoice, schedule_cache_clear
+    from repro_torch.kernels import LAUNCHES, autotune, launch, ops
+    from repro_torch.kernels.floyd_warshall import fw_program
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    xk, K, iters, xj, eps = (ctx[k] for k in ("xk", "K", "iters", "xj", "eps"))
+    a32, b32, fw_d, ch_a = (ctx[k] for k in ("a32", "b32", "fw_d", "ch_a"))
+    calls = {
+        "matmul": ((a32, b32), {}),
+        "kmeans_lloyd": ((xk, K), {"iters": iters, "seed": seed}),
+        "simjoin_counts": ((xj, eps), {}),
+        "simjoin_pairs": ((xj, eps), {}),
+        "floyd_warshall": ((fw_d,), {}),
+        "cholesky": ((ch_a,), {}),
+    }
+    # the grids of the calls above at the entry points' default blocks
+    shapes = {"tiles": (a32.shape[0] // 128, b32.shape[1] // 128), "kmeans": (-(-xk.shape[0] // 128), K // 128),
+              "join": -(-xj.shape[0] // 128), "phased": fw_d.shape[0] // 128}
+    check(ch_a.shape[0] == fw_d.shape[0], "autotune: the phased inputs' sizes differ")
+    saved_env = os.environ.get(autotune.ENV_VAR)
+    backend = device.type  # the key's backend: "cuda" on the card
+    other = "cpu" if backend == "cuda" else "cuda"
+    report = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tune_") as tmp:
+        os.environ[autotune.ENV_VAR] = f"{tmp}/tuning.json"
+        schedule_cache_clear()  # cold schedule builds, and an empty tuning layer
+        try:
+            for app, (args, kw) in calls.items():
+                fn = getattr(ops, app)
+                build = schedule_builds(app, shapes, device)
+                cold = {}
+                for curve in AUTOTUNE_CURVES[app]:
+                    t = time.perf_counter()
+                    build(curve)
+                    torch.cuda.synchronize()
+                    cold[curve] = time.perf_counter() - t
+                base = fn(*args, **kw)
+                out = autotune.autotune_app(app, *args, curves=AUTOTUNE_CURVES[app], max_measure=AUTOTUNE_MEASURE,
+                                            repeats=AUTOTUNE_REPEATS, **kw)
+                winner = ScheduleChoice.from_key(out["winner"])
+                check(out["key"].split("|")[1] == backend, f"autotune {app}: key {out['key']} is not {backend}'s")
+                shp = tuple(tuple(a.shape) for a in args if hasattr(a, "shape"))
+                check(autotune.lookup(app, shp, backend=backend) == winner, f"autotune {app}: winner not recorded")
+                check(autotune.lookup(app, shp, backend=other) is None, f"autotune {app}: a {other} entry appeared")
+                alt_row = min((r for r in out["rows"] if not r["default"]), key=lambda r: r["warm_ms"])
+                alt = ScheduleChoice.from_key(alt_row["choice"])
+                LAUNCHES.reset()
+                got_alt = fn(*args, choice=alt, **kw)
+                torch.cuda.synchronize()
+                launches = {k: LAUNCHES.counts().get(k, 0) for k in AUTOTUNE_KERNELS[app]}
+                for name, n in launches.items():
+                    check(n > 0, f"autotune {app}: {name} was not launched under {alt.key()}")
+                vs_default = check_against_default(app, got_alt, base, ctx)
+                got_win = got_alt if winner == alt else fn(*args, choice=winner, **kw)
+                auto = fn(*args, choice="auto", **kw)
+                check(same_bits(auto, got_win), f"autotune {app}: choice='auto' != the explicit winner")
+                if app == "kmeans_lloyd":
+                    check(same_bits(base, (ctx["cent"], ctx["asg"])), f"autotune {app}: default != phase 3's")
+                report[app] = {
+                    "card": card, "key": out["key"],
+                    "candidates_warm_ms": {r["choice"]: r["warm_ms"] for r in out["rows"]},
+                    "winner": out["winner"], "default_ms": out["default_ms"],
+                    "winner_speedup": out["default_ms"] / min(r["warm_ms"] for r in out["rows"]),
+                    "cold_schedule_build_s": cold, "swapped": alt.key(), "swapped_launches": launches,
+                    "vs_default": vs_default, "auto_equals_winner": True,
+                }
+                log(f"autotune {app}: " + json.dumps(report[app]))
+                del base, got_alt, got_win, auto
+
+            # launch() swaps the phased table, its barrier groups rebuilt
+            nt = shapes["phased"]
+            base_fw = ops.floyd_warshall(fw_d)
+            prog = fw_program("hilbert", nt, 128, device=device)
+            swapped = launch(prog, fw_d.clone(), choice=ScheduleChoice(curve="harmonious", kind="phased:fw"))
+            check(torch.equal(swapped, base_fw), "launch(fw_program, choice=harmonious) != the default")
+            del swapped, base_fw
+
+            # refusals: a block above the kernels' limit; the backend in the key
+            d1k = fw_graph(np.random.default_rng(seed + 10), 1024, device)
+            LAUNCHES.reset()
+            try:
+                ops.floyd_warshall(d1k, choice=ScheduleChoice(curve="hilbert", block=(256,), kind="phased:fw"))
+                refused = None
+            except ValueError as e:
+                refused = str(e)
+            check(refused is not None and "outside" in refused, f"floyd_warshall b=256: not refused ({refused})")
+            check(not any(LAUNCHES.counts().values()), "floyd_warshall b=256: a kernel launched")
+            zorder = ScheduleChoice(curve="zorder", kind="phased:fw")
+            autotune.record("floyd_warshall", ((1024, 1024),), zorder, 1.0, backend=other)
+            check(ops._app_choice("auto", "floyd_warshall", d1k) is None, f"a {other} entry was used")
+            check(autotune.resolve_program_choice(fw_program("hilbert", 8, 128, device=device), "auto", (d1k,))
+                  .choice.curve == "hilbert", f"launch: a {other} entry was used")
+            base_1k = ops.floyd_warshall(d1k)
+            autotune.record("floyd_warshall", ((1024, 1024),), zorder, 1.0, backend=backend)
+            check(ops._app_choice("auto", "floyd_warshall", d1k) == zorder, f"the {backend} entry was not used")
+            check(autotune.resolve_program_choice(fw_program("hilbert", 8, 128, device=device), "auto", (d1k,))
+                  .choice.curve == "zorder", f"launch: the {backend} entry was not used")
+            LAUNCHES.reset()
+            check(torch.equal(ops.floyd_warshall(d1k, choice="auto"), base_1k), "floyd_warshall 1024 auto != default")
+            check(LAUNCHES.counts()["sfc_fw_trailing"] > 0, "floyd_warshall 1024 auto: no kernel launched")
+            log(f"check autotune refusals: b=256 raised ({refused}); on {backend} a {other} entry "
+                f"unused, a {backend} entry used")
+        finally:
+            if saved_env is None:
+                os.environ.pop(autotune.ENV_VAR, None)
+            else:
+                os.environ[autotune.ENV_VAR] = saved_env
+            autotune.tuning_cache_clear()
+    twins = run_twins()
+    log("example twins: " + json.dumps(twins))
+    log(f"autotune phase: {time.perf_counter() - t_phase:.1f} s ({card})")
+    return report
+
+
 def cholesky_errors(a, L) -> dict:
     """max|L − L₆₄| / max|L₆₄| and ‖L·Lᵀ − A‖_F / ‖A‖_F, in float64 on the
     card, L₆₄ the float64 factor of the same (f32) A."""
@@ -4083,6 +4344,7 @@ def main() -> int:
     result["kernels"] += ssm_serving_path(np.random.default_rng(args.seed + 6), device, args.seed)
     result["kernels"] += sharded_path(device, args.seed, ctx)
     training_path(device, args.seed)
+    autotune_path(device, args.seed, ctx)
     log(json.dumps(result))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

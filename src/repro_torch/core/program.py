@@ -13,6 +13,16 @@ is the one place that dispatches it.
 sharding: contiguous ranges of an already-curve-ordered schedule are
 exactly the compact low-surface shards the paper's locality argument
 promises (§4-5).
+
+A program may record the :class:`~repro_torch.core.ScheduleChoice` its
+table was built with and the grid arguments of that table's kind
+(``choice`` / ``schedule_args``); :meth:`GpuProgram.with_schedule` is the
+swap point through which :mod:`repro_torch.kernels.autotune` puts
+another curve's table in.  Where the function that builds a program
+derives parameters from its table (the phased programs' barrier groups,
+the k-means update's point groups and grid), it also leaves a
+``rebuild`` hook, and a swap goes through that function again, so no
+launch runs a new table under the old table's barriers.
 """
 from __future__ import annotations
 
@@ -49,6 +59,16 @@ class GpuProgram:
     * ``phases`` / ``columns`` — documentation of the schedule layout
       (phase names, column meanings); ``columns`` lets audits find the
       (i, j) projection without reading the kernel.
+    * ``choice`` — the :class:`~repro_torch.core.ScheduleChoice` the table
+      was built with (block folded in), or ``None`` where its build
+      function was not told; ``schedule_args`` — the grid arguments of
+      its kind (:func:`repro_torch.core.build_schedule`: ``(shape,)`` for
+      ``tile``, ``(shape, strict)`` for ``triangle``, ``(nt,)`` for the
+      phased kinds, ``(pt, ct)`` for ``kmeans``), empty where the table
+      cannot be rebuilt from a curve.
+    * ``rebuild`` — ``rebuild(table, choice)``: the build function run
+      again over another table of the same kind, for a program whose ``params`` or
+      ``grid`` derive from its table; ``None`` where nothing does.
     * ``launched`` — what the entry point reports of the program's last
       launch where it picks the launch itself (the ε-join's passes: the
       persistent grid and the kernel; FW's panels: the widest grid; paged
@@ -67,6 +87,9 @@ class GpuProgram:
     params: Mapping[str, Any] = dataclasses.field(default_factory=dict)
     phases: tuple[str, ...] = ()
     columns: tuple[str, ...] = ()
+    choice: Any = None
+    schedule_args: tuple = ()
+    rebuild: Callable | None = dataclasses.field(default=None, compare=False, repr=False)
     launched: dict = dataclasses.field(default_factory=dict, init=False, compare=False, repr=False)
 
     def __post_init__(self):
@@ -87,6 +110,48 @@ class GpuProgram:
     @property
     def steps(self) -> int:
         return int(self.schedule.shape[0])
+
+    @property
+    def signature(self) -> tuple:
+        """Hashable launch-shape key: ``(name, steps, grid, columns,
+        choice_key)``, ``choice_key`` the recorded choice's
+        :meth:`~repro_torch.core.ScheduleChoice.key` (``None`` when no
+        choice was recorded), so launches of one shape under different
+        traversal orders stay apart."""
+        ck = self.choice.key() if self.choice is not None else None
+        return (self.name, self.steps, tuple(int(g) for g in self.grid), self.columns, ck)
+
+    def with_schedule(self, schedule: torch.Tensor, *, choice=None) -> "GpuProgram":
+        """The same declaration over another table: the schedule swap
+        point.  ``choice`` names the curve the new table was built with,
+        and the program's recorded choice (and so its ``signature``)
+        follows it.  The column count is checked, so a 4-column emission
+        table can never drive a 2-column program.
+
+        A program with a ``rebuild`` hook derives parameters from its
+        table; it takes a new table only with its ``choice`` and through
+        the hook, which rebuilds every derived parameter (``table`` is
+        then a table of the program's kind, as its build function takes it).
+        """
+        if self.rebuild is not None:
+            if choice is None:
+                raise ValueError(
+                    f"{self.name}: its parameters derive from its table; swap "
+                    f"with choice= so that they are derived again"
+                )
+            return self.rebuild(schedule, choice)
+        if self.columns and int(schedule.shape[-1]) != len(self.columns):
+            raise ValueError(
+                f"{self.name}: schedule has {int(schedule.shape[-1])} "
+                f"columns, program declares {len(self.columns)} "
+                f"({self.columns})"
+            )
+        kw: dict[str, Any] = {"schedule": schedule}
+        if self.grid == (self.steps,):  # the default grid follows the table
+            kw["grid"] = None
+        if choice is not None:
+            kw["choice"] = choice
+        return dataclasses.replace(self, **kw)
 
 
 # ---------------------------------------------------------------------------

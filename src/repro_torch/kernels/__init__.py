@@ -6,12 +6,14 @@ version plus a :class:`repro_torch.core.GpuProgram` declaration whose
 launcher calls the CUDA kernel in ``csrc/<name>.cu``; launch.py is the
 single dispatcher every program goes through, _build.py compiles and
 binds the CUDA sources, ops.py holds the public entry points (padding,
-schedule choice, device), sharded.py the curve-range-sharded k-means and
-ε-join behind their ``mesh=``, and ref.py the dense torch oracles.  All
+schedule choice, device), autotune.py the measured choice of curve and
+blocks behind their ``choice=``, sharded.py the curve-range-sharded
+k-means and ε-join behind their ``mesh=``, and ref.py the dense torch
+oracles.  All
 kernels take their tile order from an int32 schedule table built by
 :mod:`repro_torch.core.schedule`, one row per CTA.
 """
-from . import ops, ref, sharded
+from . import autotune, ops, ref, sharded
 from ._build import LAUNCHES
 from .attention import (
     flash_attention_decode,
@@ -54,6 +56,7 @@ from .simjoin import (
 
 __all__ = [
     "LAUNCHES",
+    "autotune",
     "cholesky_blocked",
     "cholesky_blocked_reference",
     "cholesky_program",

@@ -38,14 +38,14 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.core import CHOLESKY_PHASES, phase_groups, phased_schedule, phased_schedule_device
+from repro_torch.core import CHOLESKY_PHASES, phased_schedule
 from repro_torch.core.program import GpuProgram
 from repro_torch.core.schedule import _curve_name, _device_key, register_schedule_cache
 
 from ._build import call, stream_of
 from .launch import launch
 from .matmul import tile_update_chunk, tile_update_swizzled, update_tiles
-from .phased import check_square, per_k_table, phased_program, require_matrix
+from .phased import check_square, fused_phased_program, per_k_table, phased_program, require_matrix
 
 # the C entry point of each phase id (CHOLESKY_PHASES order)
 ENTRY_POINTS = ("sfc_chol_diag", "sfc_chol_panel", "sfc_chol_trailing")
@@ -149,15 +149,16 @@ def _per_k_plain(program: GpuProgram, a: torch.Tensor) -> torch.Tensor:
     return _walk(program, a, _plain_group, _trailing_per_k)
 
 
-def cholesky_program(curve, nt: int, b: int, *, device="cuda") -> GpuProgram:
+def cholesky_program(choice, nt: int, b: int, *, device="cuda") -> GpuProgram:
     """The fused-Cholesky declaration: the phased table of every k-block,
     one launch per barrier group (``params["groups"]``), trailing SYRK
-    tiles in FGF-Hilbert triangle order, matrix updated in place."""
-    return phased_program(
-        "cholesky_fused", phased_schedule_device(curve, nt, kind="cholesky", device=device), b, 2,
-        phase_groups(curve, nt, kind="cholesky"), _fused_cuda, _fused_plain, CHOLESKY_PHASES,
-        ("phase", "k", "i", "j", "first_visit"),
-    )
+    tiles in FGF-Hilbert triangle order, matrix updated in place.
+
+    ``choice`` is a curve name or a ``phased:cholesky``
+    :class:`~repro_torch.core.ScheduleChoice`, recorded with its block
+    ``(b,)`` and ``(nt,)`` for ``launch(choice=...)``."""
+    return fused_phased_program("cholesky_fused", "cholesky", choice, nt, b, _fused_cuda, _fused_plain,
+                                CHOLESKY_PHASES, device=device)
 
 
 def cholesky_reference_program(curve, nt: int, b: int, *, device="cuda") -> GpuProgram:

@@ -48,13 +48,13 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.core import FW_PHASES, phase_groups, phased_schedule_device, tile_schedule
+from repro_torch.core import FW_PHASES, tile_schedule
 from repro_torch.core.program import GpuProgram
 from repro_torch.core.schedule import _curve_name, _device_key, register_schedule_cache
 
 from ._build import call, kernel_info, stream_of
 from .launch import cta_chunks, launch, shuffled_ctas
-from .phased import check_square, per_k_table, phased_program, require_matrix
+from .phased import check_square, fused_phased_program, per_k_table, phased_program, require_matrix
 
 _CHUNK = 8
 # the C entry point of each phase id (FW_PHASES order)
@@ -160,15 +160,17 @@ def _fw_plain(program: GpuProgram, d: torch.Tensor) -> torch.Tensor:
     return d
 
 
-def fw_program(curve, nt: int, b: int, *, device="cuda") -> GpuProgram:
+def fw_program(choice, nt: int, b: int, *, device="cuda") -> GpuProgram:
     """The fused-FW declaration: the phased table of every k-block, one
     launch per barrier group (``params["groups"]``: ``(phase, k, begin,
-    end)`` row ranges), matrix updated in place."""
-    return phased_program(
-        "fw_fused", phased_schedule_device(curve, nt, kind="fw", device=device), b, 2,
-        phase_groups(curve, nt, kind="fw"), _fw_cuda, _fw_plain, FW_PHASES,
-        ("phase", "k", "i", "j", "first_visit"),
-    )
+    end)`` row ranges), matrix updated in place.
+
+    ``choice`` is a curve name or a ``phased:fw``
+    :class:`~repro_torch.core.ScheduleChoice`; the choice (block pinned to
+    ``b``) and ``(nt,)`` are recorded, so ``launch(choice=...)`` can put
+    another curve's table in, its groups derived again."""
+    return fused_phased_program("fw_fused", "fw", choice, nt, b, _fw_cuda, _fw_plain, FW_PHASES,
+                                device=device)
 
 
 def fw_reference_program(curve, nt: int, b: int, *, device="cuda") -> GpuProgram:

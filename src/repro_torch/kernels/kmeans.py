@@ -62,7 +62,7 @@ import hashlib
 import numpy as np
 import torch
 
-from repro_torch.core import hilbert_sort_key, register_schedule_cache
+from repro_torch.core import as_choice, hilbert_sort_key, register_schedule_cache
 from repro_torch.core.program import GpuProgram
 
 from ._build import call, kernel_info, stream_of
@@ -400,7 +400,7 @@ def _update_plain(program: GpuProgram, x, arg):
 
 def kmeans_update_program(
     rows: torch.Tensor, *, col_i: int, bp: int, Kp: int, D: int, n_valid: int | None,
-    columns: tuple[str, ...], phases: tuple[str, ...] = (),
+    columns: tuple[str, ...], phases: tuple[str, ...] = (), **recorded,
 ) -> GpuProgram:
     """The ``sfc_kmeans_update`` declaration over a table ``rows`` (its
     columns named by ``columns``) whose column ``col_i`` lists each point
@@ -410,7 +410,8 @@ def kmeans_update_program(
     partial, its counts and the warps' row queues).  The program's own
     table is :func:`update_groups` of that column, flattened to int32[G
     tpg, 1]; :func:`update_partials_cuda` launches it and returns the
-    group partials."""
+    group partials.  ``recorded``: the ``choice`` / ``schedule_args`` /
+    ``rebuild`` fields of :func:`kmeans_lloyd_program`'s update."""
     if columns and rows.shape[1] != len(columns):
         raise ValueError(f"rows has {rows.shape[1]} columns, declared {columns}")
     pt = rows.shape[0]
@@ -431,12 +432,13 @@ def kmeans_update_program(
         },
         phases=phases,
         columns=("tile",),
+        **recorded,
     )
 
 
 def kmeans_lloyd_program(
     schedule: torch.Tensor, *, pt: int, ct: int, bp: int, bc: int, D: int,
-    k_valid: int | None, n_valid: int | None,
+    k_valid: int | None, n_valid: int | None, choice=None,
 ) -> tuple[GpuProgram, GpuProgram]:
     """The two launches of one Lloyd iteration, ``(assign, update)``.
 
@@ -444,12 +446,28 @@ def kmeans_lloyd_program(
     kmeans_schedule` table; both programs run over its update-phase rows
     (each point tile once, in the curve's first-visit order).  ``k_valid``
     / ``n_valid`` are the true counts when K / N carry padding.
+
+    ``choice`` (a ``kmeans``-kind :class:`~repro_torch.core.ScheduleChoice`
+    or curve name) records which curve built ``schedule``, with the block
+    ``(bp, bc)``; ``(pt, ct)`` land in ``schedule_args``.  Both programs
+    derive from the table (the update's point groups and grid from its
+    first-visit order), so both carry a ``rebuild`` hook: a swapped
+    kmeans table goes through this function again.
     """
+    if choice is not None:
+        choice = as_choice(choice, kind="kmeans").with_(block=(int(bp), int(bc)))
     Kp = ct * bc
-    if tuple(schedule.shape) != (pt * ct + pt, 4):
+    if schedule.dim() != 2 or tuple(schedule.shape) != (pt * ct + pt, 4):
         raise ValueError(f"schedule {tuple(schedule.shape)} is not a kmeans table for {(pt, ct)}")
     rows = schedule[pt * ct:]
     columns = ("phase", "i", "j", "first_visit")
+
+    def rebuild(which: int):
+        def again(table, new_choice):
+            return kmeans_lloyd_program(table, pt=pt, ct=ct, bp=bp, bc=bc, D=D, k_valid=k_valid,
+                                        n_valid=n_valid, choice=new_choice)[which]
+        return again
+
     assign = GpuProgram(
         name="sfc_kmeans_assign",
         schedule=rows,
@@ -458,9 +476,13 @@ def kmeans_lloyd_program(
         params={"bp": bp, "Kp": Kp, "k_valid": Kp if k_valid is None else int(k_valid)},
         phases=("assign",),
         columns=columns,
+        choice=choice,
+        schedule_args=(int(pt), int(ct)),
+        rebuild=rebuild(0),
     )
     update = kmeans_update_program(
         rows, col_i=1, bp=bp, Kp=Kp, D=D, n_valid=n_valid, columns=columns, phases=("update",),
+        choice=choice, schedule_args=(int(pt), int(ct)), rebuild=rebuild(1),
     )
     return assign, update
 
@@ -475,13 +497,15 @@ def kmeans_lloyd_fused(
     bc: int = 128,
     k_valid: int | None = None,
     n_valid: int | None = None,
+    choice=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``iters`` Lloyd iterations, two kernel launches each.
 
     schedule: the int32[pt*ct + pt, 4] :func:`repro_torch.core.
     kmeans_schedule` table.  x: (N, D) with N % bp == 0; c0: (K, D) with
     K % bc == 0 (ops.py pads; ``k_valid`` / ``n_valid`` are the true
-    counts when the padding exists).  Returns (centroids f32[K, D],
+    counts when the padding exists; ``choice`` the curve that built the
+    table, recorded on the programs).  Returns (centroids f32[K, D],
     assign int32[N]).
     """
     Np, D = x.shape
@@ -490,7 +514,7 @@ def kmeans_lloyd_fused(
         raise ValueError(f"x {tuple(x.shape)}, c0 {tuple(c0.shape)} vs blocks {(bp, bc)}")
     pt, ct = Np // bp, Kp // bc
     assign_prog, update_prog = kmeans_lloyd_program(
-        schedule, pt=pt, ct=ct, bp=bp, bc=bc, D=D, k_valid=k_valid, n_valid=n_valid,
+        schedule, pt=pt, ct=ct, bp=bp, bc=bc, D=D, k_valid=k_valid, n_valid=n_valid, choice=choice,
     )
     x = x.to(torch.float32).contiguous()
     c = c0.to(torch.float32).contiguous()

@@ -7,6 +7,13 @@ The operands' device decides the path, and nothing else does:
 * CPU tensors → the program's plain PyTorch version (``program.plain``),
   the tile-walk twin that the CPU tests hold against the JAX reference.
 
+``choice=`` makes the traversal order tunable at the dispatch site, as
+in the JAX package: ``"auto"`` replays the tuning cache's winner for the
+program's app, shapes and device type, and an explicit
+:class:`~repro_torch.core.ScheduleChoice` swaps strictly
+(:mod:`repro_torch.kernels.autotune`).  The device rule is the same under
+any choice.
+
 Every kernel launch is counted per kernel name, where the launcher calls
 the kernel, in :data:`repro_torch.kernels._build.LAUNCHES` (the port's
 counterpart of the JAX package's ``PallasCallCounter``), so a run can
@@ -18,14 +25,24 @@ import torch
 
 from repro_torch.core.program import GpuProgram
 
+from .autotune import resolve_program_choice
+
 __all__ = ["cta_chunks", "launch", "require", "require_block", "shuffled_ctas"]
 
 
-def launch(program: GpuProgram, *tensors: torch.Tensor):
+def launch(program: GpuProgram, *tensors: torch.Tensor, choice=None):
     """Run ``program`` over ``tensors`` on their device.
 
     All tensors, and the program's schedule, must be on one device.
+    ``choice``: ``None`` launches the program as built; ``"auto"``
+    consults the tuning cache and swaps the winning curve's table in
+    through the program's ``with_schedule`` swap point (a miss, or a
+    disabled cache, launches the program as built, bit for bit); a
+    :class:`~repro_torch.core.ScheduleChoice` or curve name swaps
+    strictly.  Launch never measures.
     """
+    if choice is not None:
+        program = resolve_program_choice(program, choice, tensors)
     devices = {t.device for t in tensors} | {program.schedule.device}
     if len(devices) != 1:
         raise ValueError(

@@ -48,7 +48,7 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.core import mark_first_visits, register_schedule_cache, tile_schedule_nd
+from repro_torch.core import as_choice, mark_first_visits, register_schedule_cache, tile_schedule_nd
 from repro_torch.core.program import GpuProgram
 
 from ._build import call, kernel_info, stream_of
@@ -201,13 +201,17 @@ def _matmul_plain(program: GpuProgram, a: torch.Tensor, b: torch.Tensor) -> torc
 
 def matmul_program(
     schedule: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *,
-    bm: int, bn: int, bk: int, out_dtype=None,
+    bm: int, bn: int, bk: int, out_dtype=None, choice=None,
 ) -> GpuProgram:
     """The ``sfc_matmul`` declaration for C = A @ B over ``schedule``.
 
     schedule: int32[(M/bm)*(N/bn), 2] — any bijective tile order (row,
     zorder, hilbert, fur...).  A: (M, K), B: (K, N); M % bm == N % bn ==
-    K % bk == 0 (the public wrapper in ops.py pads).
+    K % bk == 0 (the public wrapper in ops.py pads).  ``choice`` (a
+    ``tile``-kind :class:`~repro_torch.core.ScheduleChoice` or curve name)
+    records the curve of ``schedule`` with the block ``(bm, bn, bk)``,
+    and ``((mt, nt),)`` its grid, for ``launch(choice=...)``; nothing
+    else derives from the table.
     """
     M, K = a.shape
     K2, N = b.shape
@@ -225,6 +229,8 @@ def matmul_program(
         plain=_matmul_plain,
         params={"bm": bm, "bn": bn, "bk": bk, "out_dtype": out_dtype or a.dtype},
         columns=("i", "j"),
+        choice=None if choice is None else as_choice(choice, kind="tile").with_(block=(bm, bn, bk)),
+        schedule_args=((mt, nt),),
     )
 
 
@@ -237,10 +243,11 @@ def matmul_swizzled(
     bn: int,
     bk: int,
     out_dtype=None,
+    choice=None,
 ) -> torch.Tensor:
     """C = A @ B over the (i, j) tile order given by ``schedule`` (see
-    :func:`matmul_program`)."""
-    program = matmul_program(schedule, a, b, bm=bm, bn=bn, bk=bk, out_dtype=out_dtype)
+    :func:`matmul_program`; ``choice`` is recorded on it)."""
+    program = matmul_program(schedule, a, b, bm=bm, bn=bn, bk=bk, out_dtype=out_dtype, choice=choice)
     return launch(program, a, b)
 
 

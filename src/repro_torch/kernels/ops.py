@@ -40,8 +40,19 @@ the ``exact`` / ``tree`` / ``psum`` reduction classes, the ε-join with
 the halo exchange.  The shards' tensors live on the mesh's devices; the
 result comes back on the input's device.
 
-Not in this slice (raises :class:`NotImplementedError` naming the slice
-that brings it): ``choice=``.
+``choice=`` (``matmul``, ``kmeans_lloyd``, ``simjoin_counts``,
+``simjoin_pairs``, ``floyd_warshall``, ``cholesky``) picks the curve and,
+optionally, the blocks of one call as one value, the JAX package's
+contract: ``None`` is the defaults; ``"auto"`` replays the winner that
+:func:`repro_torch.kernels.autotune.autotune_app` recorded for (app,
+shape bucket, device type), and a miss, a disabled cache or an entry of
+another kind is the default call, bit for bit; a
+:class:`~repro_torch.core.ScheduleChoice` of the app's kind overrides
+``curve`` and the block keywords before padding (a bare curve string
+raises: use ``curve=``).  The cache is looked up after the device is
+resolved, so numpy input is keyed by the device it is sent to.  A block
+outside the CUDA kernels' limits raises on the card, as the keyword
+does; no choice sends a CUDA call to a plain version.
 """
 from __future__ import annotations
 
@@ -52,6 +63,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import (
+    ScheduleChoice,
     get_curve,
     kmeans_schedule_device,
     tile_schedule_device,
@@ -59,6 +71,7 @@ from repro_torch.core import (
 )
 
 from . import ref
+from .autotune import APP_KINDS, lookup
 from .attention import (
     attention_schedule_device,
     decode_page_schedule_device,
@@ -90,16 +103,34 @@ from .simjoin import (
 DEFAULT_CURVE = "fur"  # overlay-grid Hilbert: native n×m, unit steps
 
 
-def _not_in_slice(what: str, slice_name: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet: it arrives with the {slice_name} slice "
-        f"of the PyTorch/CUDA port"
-    )
+def _app_choice(choice, app: str, *tensors: torch.Tensor) -> ScheduleChoice | None:
+    """Resolve an entry point's ``choice=`` into a
+    :class:`~repro_torch.core.ScheduleChoice`, or ``None`` for the
+    defaults (the bit-identical call).
 
-
-def _check_slice_options(*, choice=None):
-    if choice is not None:
-        _not_in_slice("choice=", "autotuner (kernels/autotune.py)")
+    ``None`` → defaults.  ``"auto"`` → the tuning cache's entry for (app,
+    shape bucket of ``tensors``, their device type); a miss, a disabled
+    cache or an entry of another kind resolve to ``None``.  An explicit
+    ScheduleChoice is kind-checked and returned as it is.  Its block
+    overrides the block keywords before padding, which is why this runs
+    here and not in ``launch()``.
+    """
+    kind = APP_KINDS[app]
+    if choice is None:
+        return None
+    if isinstance(choice, str):
+        if choice != "auto":
+            raise ValueError(
+                f"choice= takes None, 'auto' or a ScheduleChoice; use "
+                f"curve= for a bare curve name (got {choice!r})"
+            )
+        found = lookup(app, tuple(tuple(t.shape) for t in tensors), backend=tensors[0].device.type)
+        return found if found is not None and found.kind == kind else None
+    if not isinstance(choice, ScheduleChoice):
+        raise TypeError(f"choice= expects a ScheduleChoice, got {choice!r}")
+    if choice.kind != kind:
+        raise ValueError(f"{app} needs a {kind!r} choice, got {choice.kind!r}")
+    return choice
 
 
 def _to_device(x, device, like: torch.Tensor | None = None) -> torch.Tensor:
@@ -184,14 +215,22 @@ def matmul(
     to 128 (3-D: the depth of one k tile of the curve, a 128³ cube per
     table row like the output tile; 8192³ is then a 64³ table, built once
     on the host).
+
+    ``choice`` (``None`` | ``"auto"`` | a ``tile``-kind
+    :class:`~repro_torch.core.ScheduleChoice`) overrides ``curve`` and
+    ``(bm, bn, bk)`` as one value (see the module docstring).
     """
     if schedule_ndim not in (2, 3):
         raise ValueError(f"schedule_ndim must be 2 or 3, got {schedule_ndim}")
-    _check_slice_options(choice=choice)
-    if bk is None:
-        bk = 128 if schedule_ndim == 3 else 16
     a = _to_device(a, device)
     b = _to_device(b, device, like=a)
+    ch = _app_choice(choice, "matmul", a, b)
+    if ch is not None:
+        curve = ch.curve
+        if ch.block:
+            bm, bn, bk = (tuple(ch.block) + (bn, bk))[:3]
+    if bk is None:
+        bk = 128 if schedule_ndim == 3 else 16
     M, K = a.shape
     K2, N = b.shape
     if K != K2:
@@ -207,7 +246,7 @@ def matmul(
         out = matmul_swizzled_3d(ij, ks, ap, bp, bm=bm, bn=bn, bk=bk, out_dtype=out_dtype)
     else:
         sched = tile_schedule_device(curve, (mt, nt), device=ap.device)
-        out = matmul_swizzled(sched, ap, bp, bm=bm, bn=bn, bk=bk, out_dtype=out_dtype)
+        out = matmul_swizzled(sched, ap, bp, bm=bm, bn=bn, bk=bk, out_dtype=out_dtype, choice=curve)
     return out[:M, :N]
 
 
@@ -447,8 +486,17 @@ def kmeans_lloyd(
     ``shard_reduce`` names the class (``"exact"`` / ``"tree"`` /
     ``"psum"``, see :func:`repro_torch.kernels.sharded.kmeans_lloyd_sharded`).
     It always runs the fused form: ``fused=False`` with ``mesh=`` raises.
+
+    ``choice`` (``None`` | ``"auto"`` | a ``kmeans``-kind
+    :class:`~repro_torch.core.ScheduleChoice`) overrides ``curve`` and
+    ``(bp, bc)`` as one value, on the sharded path too.
     """
-    _check_slice_options(choice=choice)
+    x = _to_device(x, device)
+    ch = _app_choice(choice, "kmeans_lloyd", x)
+    if ch is not None:
+        curve = ch.curve
+        if ch.block:
+            bp, bc = (tuple(ch.block) + (bc,))[:2]
     if mesh is not None:
         if not fused:
             raise ValueError(
@@ -457,10 +505,9 @@ def kmeans_lloyd(
                 "multi-dispatch reference)"
             )
         return kmeans_lloyd_sharded(
-            _to_device(x, device), k, mesh=mesh, iters=iters, curve=curve, seed=seed, bp=bp,
+            x, k, mesh=mesh, iters=iters, curve=curve, seed=seed, bp=bp,
             bc=bc, hilbert_order=hilbert_order, exact=shard_exact, reduce=shard_reduce,
         )
-    x = _to_device(x, device)
     N, D = x.shape
     c0 = kmeans_init(x, k, seed)
     inv = None
@@ -478,7 +525,7 @@ def kmeans_lloyd(
     kw = dict(iters=iters, bp=bp, bc=bc, k_valid=k if pc else None, n_valid=n_valid)
     sched = kmeans_schedule_device(curve, pt, ct, device=xp.device)
     if fused:
-        c, assign = kmeans_lloyd_fused(sched, xp, cp, **kw)
+        c, assign = kmeans_lloyd_fused(sched, xp, cp, choice=curve, **kw)
     else:
         # the update rows of the kmeans table, as (point tile, first_visit)
         upd = sched[pt * ct:, [1, 3]].contiguous()
@@ -505,12 +552,20 @@ def simjoin_counts(
     ``hilbert_order=True`` sorts the points by their d-dimensional
     Hilbert key first, concentrating the join's hits near the tile-grid
     diagonal (counts come back in the original point order).
+
+    ``choice`` (``None`` | ``"auto"`` | a ``triangle``-kind
+    :class:`~repro_torch.core.ScheduleChoice`) overrides ``curve`` and
+    ``bp`` as one value.
     """
-    _check_slice_options(choice=choice)
     x = _to_device(x, device)
     N = x.shape[0]
     if N == 0:
         return torch.zeros((0,), dtype=torch.int32, device=x.device)
+    ch = _app_choice(choice, "simjoin_counts", x)
+    if ch is not None:
+        curve = ch.curve
+        if ch.block:
+            bp = ch.block[0]
     if hilbert_order:
         perm = hilbert_point_order_cached(x)
         inv = torch.argsort(perm)
@@ -557,9 +612,17 @@ def simjoin_pairs(
     ``mesh=`` runs the distributed two-pass join with the halo exchange
     (:func:`repro_torch.kernels.sharded.simjoin_pairs_sharded`): the same
     pairs in the same order on every mesh size.
+
+    ``choice`` (``None`` | ``"auto"`` | a ``triangle``-kind
+    :class:`~repro_torch.core.ScheduleChoice`) overrides ``curve`` and
+    ``bp`` as one value, on the sharded path too.
     """
-    _check_slice_options(choice=choice)
     x = _to_device(x, device)
+    ch = _app_choice(choice, "simjoin_pairs", x)
+    if ch is not None:
+        curve = ch.curve
+        if ch.block:
+            bp = ch.block[0]
     if mesh is not None:
         return simjoin_pairs_sharded(x, eps, mesh=mesh, curve=curve, bp=bp,
                                      hilbert_order=hilbert_order)
@@ -605,12 +668,20 @@ def floyd_warshall(
     the matrix is padded with unreachable +inf border nodes whose
     diagonal is 0, and the result sliced back).  The caller's matrix is
     copied once and never written.
+
+    ``choice`` (``None`` | ``"auto"`` | a ``phased:fw``-kind
+    :class:`~repro_torch.core.ScheduleChoice`) overrides ``curve`` and
+    ``b`` as one value.
     """
-    _check_slice_options(choice=choice)
     d = _to_device(d, device)
     n = d.shape[0]
     if d.dim() != 2 or d.shape[1] != n:
         raise ValueError(f"floyd_warshall: d {tuple(d.shape)} is not square")
+    ch = _app_choice(choice, "floyd_warshall", d)
+    if ch is not None:
+        curve = ch.curve
+        if ch.block:
+            b = ch.block[0]
     bb, npad = _block_and_pad(n, b, mult=_FW_CHUNK)
     dp = _padded_copy(d, npad, float("inf"), 0.0)
     fn = floyd_warshall_blocked if fused else floyd_warshall_blocked_reference
@@ -637,12 +708,20 @@ def cholesky(
     multiple of 8 near ``b``, else the matrix is padded with an identity
     border — chol([[A, 0], [0, I]]) = [[L, 0], [0, I]] — and the factor
     sliced back).  The caller's matrix is copied once and never written.
+
+    ``choice`` (``None`` | ``"auto"`` | a ``phased:cholesky``-kind
+    :class:`~repro_torch.core.ScheduleChoice`) overrides ``curve`` and
+    ``b`` as one value.
     """
-    _check_slice_options(choice=choice)
     a = _to_device(a, device)
     n = a.shape[0]
     if a.dim() != 2 or a.shape[1] != n:
         raise ValueError(f"cholesky: a {tuple(a.shape)} is not square")
+    ch = _app_choice(choice, "cholesky", a)
+    if ch is not None:
+        curve = ch.curve
+        if ch.block:
+            b = ch.block[0]
     bb, npad = _block_and_pad(n, b, mult=8)
     ap = _padded_copy(a, npad, 0.0, 1.0)
     fn = cholesky_blocked if fused else cholesky_blocked_reference

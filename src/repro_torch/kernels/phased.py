@@ -8,19 +8,29 @@ holds ``(phase, k, begin, end)`` row ranges, either
 forms) or the groups of a per-k table built by :func:`per_k_table`; its
 ``params["col_i"]`` is the table column of ``i`` (``j`` follows).  Both
 update one (n, n) f32 matrix in place.
+
+The fused forms record their :class:`~repro_torch.core.ScheduleChoice`
+(kind ``phased:fw`` / ``phased:cholesky``, block ``(b,)``) and ``(nt,)``,
+and :func:`fused_phased_program` leaves a ``rebuild`` hook on them: a
+swapped table gets its barrier groups from this function again, never
+the old table's.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core import as_choice, phase_groups, phased_schedule_device
 from repro_torch.core.program import GpuProgram
 
 from .launch import require, require_block
 
 
-def phased_program(name, schedule, b, col_i, groups, launcher, plain, phases, columns) -> GpuProgram:
-    """A phased program whose barrier groups cover its table exactly once."""
+def phased_program(name, schedule, b, col_i, groups, launcher, plain, phases, columns,
+                   **recorded) -> GpuProgram:
+    """A phased program whose barrier groups cover its table exactly once
+    (``recorded``: the ``choice`` / ``schedule_args`` / ``rebuild``
+    fields of a fused form)."""
     steps = sum(hi - lo for _p, _k, lo, hi in groups)
     if steps != schedule.shape[0]:
         raise AssertionError(f"{name}: groups cover {steps} of {schedule.shape[0]} rows")
@@ -32,6 +42,33 @@ def phased_program(name, schedule, b, col_i, groups, launcher, plain, phases, co
         params={"b": int(b), "col_i": col_i, "groups": groups},
         phases=phases,
         columns=columns,
+        **recorded,
+    )
+
+
+FUSED_COLUMNS = ("phase", "k", "i", "j", "first_visit")
+
+
+def fused_phased_program(name, kind, choice, nt: int, b: int, launcher, plain, phases, *,
+                         device="cuda", table=None) -> GpuProgram:
+    """A fused phased form over the :func:`repro_torch.core.phased_schedule`
+    table of ``choice`` (a curve name or a ``phased:<kind>``
+    :class:`~repro_torch.core.ScheduleChoice`), its barrier groups
+    :func:`repro_torch.core.phase_groups` of the same curve.  ``table``
+    (that table on some device) skips the build; the ``rebuild`` hook
+    passes it, so a swapped table's groups are derived again."""
+    choice = as_choice(choice, kind=f"phased:{kind}").with_(block=(int(b),))
+    if table is None:
+        table = phased_schedule_device(choice.curve, nt, kind=kind, device=device)
+    elif table.dim() != 2 or table.shape[1] != len(FUSED_COLUMNS):
+        raise ValueError(f"{name}: a phased table has {len(FUSED_COLUMNS)} columns, got {tuple(table.shape)}")
+
+    def rebuild(new_table, new_choice):
+        return fused_phased_program(name, kind, new_choice, nt, b, launcher, plain, phases, table=new_table)
+
+    return phased_program(
+        name, table, b, 2, phase_groups(choice.curve, nt, kind=kind), launcher, plain, phases,
+        FUSED_COLUMNS, choice=choice, schedule_args=(int(nt),), rebuild=rebuild,
     )
 
 

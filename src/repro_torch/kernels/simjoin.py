@@ -56,7 +56,7 @@ import ctypes
 import numpy as np
 import torch
 
-from repro_torch.core import triangle_schedule_device
+from repro_torch.core import as_choice, triangle_schedule_device
 from repro_torch.core.program import GpuProgram
 
 from ._build import call, kernel_info, stream_of
@@ -256,11 +256,20 @@ def _hits_plain(program: GpuProgram, x: torch.Tensor):
     return rows, cols
 
 
+def _triangle_choice(choice, bp: int):
+    return None if choice is None else as_choice(choice, kind="triangle").with_(block=(int(bp),))
+
+
 def simjoin_hits_program(
     schedule: torch.Tensor, *, eps: float, bp: int, npad: int, n_valid: int | None,
+    choice=None,
 ) -> GpuProgram:
     """Pass-1 declaration: one (1, bp) row/col count pair per schedule row,
-    each written exactly once — safe under any CTA order."""
+    each written exactly once — safe under any CTA order.  ``choice`` (a
+    ``triangle``-kind :class:`~repro_torch.core.ScheduleChoice` or curve
+    name) records which curve ordered the tile pairs, with the block
+    ``(bp,)``: metadata for the signature, as in the JAX package (the
+    join's curve is resolved in ops.py, before the two passes)."""
     return GpuProgram(
         name="sfc_join_hits",
         schedule=schedule,
@@ -268,6 +277,7 @@ def simjoin_hits_program(
         plain=_hits_plain,
         params=_join_params(eps, bp, n_valid, npad),
         columns=("i", "j"),
+        choice=_triangle_choice(choice, bp),
     )
 
 
@@ -353,10 +363,12 @@ def _emit_plain(program: GpuProgram, x: torch.Tensor):
 
 def simjoin_emit_program(
     table: torch.Tensor, *, eps: float, bp: int, npad: int, cap: int, p_pad: int,
-    n_valid: int | None,
+    n_valid: int | None, choice=None,
 ) -> GpuProgram:
     """Pass-2 declaration: CTA s writes rows [offset, offset + total) of
-    the (p_pad, 2) pair buffer, and nothing else."""
+    the (p_pad, 2) pair buffer, and nothing else.  ``choice`` is recorded
+    as on :func:`simjoin_hits_program`; the emission table comes from
+    pass 1's counts, so no curve's table can be swapped in."""
     return GpuProgram(
         name="sfc_join_emit",
         schedule=table,
@@ -364,6 +376,7 @@ def simjoin_emit_program(
         plain=_emit_plain,
         params={**_join_params(eps, bp, n_valid, npad), "cap": int(cap), "p_pad": int(p_pad)},
         columns=("i", "j", "offset", "total"),
+        choice=_triangle_choice(choice, bp),
     )
 
 

@@ -284,13 +284,15 @@ def _imported_modules(path: Path) -> set[str]:
 
 def test_port_imports_neither_jax_nor_repro():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py", REPO / "tools" / "gqa_hashes.py", REPO / "examples" / "train_lm_torch.py"]
+        REPO / "chip_smoke.py", REPO / "tools" / "gqa_hashes.py"] + [
+        REPO / "examples" / f"{name}_torch.py"
+        for name in ("train_lm", "quickstart", "datamining_apps", "stream_apps", "serve_lm")]
     assert len(files) > 15
     # the training slice's subpackages and modules are among the scanned files
     scanned = {p.relative_to(REPO / "src" / "repro_torch").as_posix() for p in files
                if p.is_relative_to(REPO / "src" / "repro_torch")}
     for module in ("optim/adamw.py", "train/trainer.py", "checkpoint/ckpt.py", "launch/steps.py",
-                   "launch/train.py", "models/sharding.py", "data/pipeline.py"):
+                   "launch/train.py", "models/sharding.py", "data/pipeline.py", "kernels/autotune.py"):
         assert module in scanned, module
     for path in files:
         for name in _imported_modules(path):

@@ -161,31 +161,21 @@ def test_empty_inputs():
     assert tops.simjoin_pairs(x, 1.0, device="cpu").shape == (0, 2)
 
 
-_LATER = (NotImplementedError, "slice")
 _NOT_A_MESH = (ValueError, "1-D mesh")
 
 
 @pytest.mark.parametrize("call,raised", [
-    (lambda: tops.matmul(np.ones((4, 4), np.float32), np.ones((4, 4), np.float32),
-                         schedule_ndim=3, choice="auto", device="cpu"), _LATER),
     (lambda: tops.kmeans_lloyd(np.ones((8, 2), np.float32), 2, fused=False, mesh=object(),
                                device="cpu"), (ValueError, "fused=False")),
     (lambda: tops.kmeans_lloyd(np.ones((8, 2), np.float32), 2, mesh=object(), device="cpu"),
      _NOT_A_MESH),
     (lambda: tops.simjoin_pairs(np.ones((8, 2), np.float32), 1.0, mesh=object(), device="cpu"),
      _NOT_A_MESH),
-    (lambda: tops.simjoin_counts(np.ones((8, 2), np.float32), 1.0, choice="auto", device="cpu"),
-     _LATER),
-    (lambda: tops.matmul(np.ones((4, 4), np.float32), np.ones((4, 4), np.float32),
-                         choice="auto", device="cpu"), _LATER),
-    (lambda: tops.floyd_warshall(np.zeros((8, 8), np.float32), choice="auto", device="cpu"), _LATER),
-    (lambda: tops.cholesky(np.eye(8, dtype=np.float32), choice="auto", device="cpu"), _LATER),
-], ids=["schedule_ndim3", "unfused", "kmeans_mesh", "pairs_mesh", "counts_choice", "matmul_choice",
-        "floyd_warshall_choice", "cholesky_choice"])
+], ids=["unfused", "kmeans_mesh", "pairs_mesh"])
 def test_options_of_later_slices_raise(call, raised):
-    """``choice=`` arrives with the autotuner slice and raises until then;
-    ``mesh=`` runs the sharded path, which refuses ``fused=False`` and a
-    mesh that is not an ``AppMesh``."""
+    """``mesh=`` runs the sharded path, which refuses ``fused=False`` and a
+    mesh that is not an ``AppMesh``.  (``choice=`` is the autotuner's:
+    tests/test_torch_autotune.py.)"""
     error, match = raised
     with pytest.raises(error, match=match):
         call()
