@@ -18,6 +18,12 @@ Every kernel launch is counted per kernel name, where the launcher calls
 the kernel, in :data:`repro_torch.kernels._build.LAUNCHES` (the port's
 counterpart of the JAX package's ``PallasCallCounter``), so a run can
 show that its main path went through the kernels.
+
+``count_collectives`` / ``collective_volume`` are the JAX package's
+collective accounting, as far as the port has collectives: those of an
+:class:`~repro_torch.launch.mesh.AppMesh`, recorded in its
+``VolumeLedger`` while the call runs (the JAX package traces a jaxpr; the
+port's single-controller mesh has no program to read before running).
 """
 from __future__ import annotations
 
@@ -27,7 +33,8 @@ from repro_torch.core.program import GpuProgram
 
 from .autotune import resolve_program_choice
 
-__all__ = ["cta_chunks", "launch", "require", "require_block", "shuffled_ctas"]
+__all__ = ["collective_volume", "count_collectives", "cta_chunks", "launch", "require",
+           "require_block", "shuffled_ctas"]
 
 
 def launch(program: GpuProgram, *tensors: torch.Tensor, choice=None):
@@ -96,3 +103,44 @@ def cta_chunks(order: torch.Tensor, per_cta: int, budget: int = 1 << 26):
     ``budget`` elements (``per_cta`` elements each): the plain versions
     run a chunk of CTAs as one batched tensor op."""
     return order.split(max(1, budget // max(1, per_cta)))
+
+
+# ---------------------------------------------------------------------------
+# Collective accounting (the sharded apps' volume rows)
+# ---------------------------------------------------------------------------
+
+def _app_mesh(args, kwargs):
+    from repro_torch.launch.mesh import AppMesh
+
+    mesh = kwargs.get("mesh")
+    if mesh is None:
+        mesh = next((a for a in args if isinstance(a, AppMesh)), None)
+    if not isinstance(mesh, AppMesh):
+        raise ValueError("collective accounting needs the call's AppMesh (mesh= or a positional argument)")
+    return mesh
+
+
+def count_collectives(fn, *args, **kwargs) -> dict[str, int]:
+    """Collective calls of ``fn(*args, **kwargs)`` by primitive: the calls
+    its :class:`~repro_torch.launch.mesh.AppMesh` (``mesh=`` or a
+    positional argument) records while ``fn`` runs.  The JAX package
+    counts a scanned step body's collectives once; run one step to get its
+    counts (``kernels.sharded.kmeans_sharded_collectives``)."""
+    return collective_volume(fn, *args, **kwargs)["counts"]
+
+
+def collective_volume(fn, *args, replicated_bytes: int = 0, **kwargs) -> dict:
+    """Collective *volume* of running ``fn(*args, **kwargs)``: executed
+    counts and bytes per shard by primitive, priced as the JAX package's
+    ``collective_volume`` prices them (``ppermute``: the operand;
+    ``all_gather``: output minus operand; ``psum``: twice the operand),
+    plus the mesh's ``broadcast`` replication and ``replicated_bytes``
+    that the caller declares.  Returns ``{"counts", "bytes",
+    "replicated_bytes", "bytes_per_shard"}``."""
+    mesh = _app_mesh(args, kwargs)
+    with mesh.recording() as vol:
+        fn(*args, **kwargs)
+    out = vol.as_dict()
+    out["replicated_bytes"] += int(replicated_bytes)
+    out["bytes_per_shard"] += int(replicated_bytes)
+    return out

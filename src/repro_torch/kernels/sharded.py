@@ -80,7 +80,7 @@ from .kmeans import (
     update_groups,
     update_tiles_per_group,
 )
-from .launch import launch
+from .launch import collective_volume, count_collectives, launch
 from .simjoin import (
     MAX_JOIN_BLOCK,
     check_pair_offsets,
@@ -320,9 +320,7 @@ def kmeans_sharded_volume(x, k, *, mesh, **kw) -> dict:
     :func:`kmeans_lloyd_sharded`): executed collective counts, bytes per
     shard by primitive, and the centroid block's replication — the JAX
     package's ``collective_volume`` record.  Runs the call."""
-    with mesh.recording() as vol:
-        kmeans_lloyd_sharded(x, k, mesh=mesh, **kw)
-    return vol.as_dict()
+    return collective_volume(kmeans_lloyd_sharded, x, k, mesh=mesh, **kw)
 
 
 def kmeans_sharded_collectives(x, k, *, mesh, **kw) -> dict[str, int]:
@@ -330,7 +328,7 @@ def kmeans_sharded_collectives(x, k, *, mesh, **kw) -> dict[str, int]:
     once in the traced step body): ``exact`` → ``{"psum": 1, "all_gather":
     1}``, ``psum`` → ``{"psum": 2}``, ``tree`` on 2ᵏ shards → ``{"psum":
     1, "ppermute": k}``.  Runs one step."""
-    return kmeans_sharded_volume(x, k, mesh=mesh, **{**kw, "iters": 1})["counts"]
+    return count_collectives(kmeans_lloyd_sharded, x, k, mesh=mesh, **{**kw, "iters": 1})
 
 
 # ---------------------------------------------------------------------------
@@ -632,6 +630,4 @@ def simjoin_sharded_volume(x, eps: float, *, mesh, **kw) -> dict:
     total.  Runs the join (its tables are data-dependent).  The
     replicated path's cost is its per-pass broadcast of x; the halo
     path's is its boundary ``ppermute`` strips."""
-    with mesh.recording() as vol:
-        simjoin_pairs_sharded(x, eps, mesh=mesh, **kw)
-    return vol.as_dict()
+    return collective_volume(simjoin_pairs_sharded, x, eps, mesh=mesh, **kw)

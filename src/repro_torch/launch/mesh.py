@@ -25,8 +25,12 @@ with :meth:`AppMesh.broadcast` — the counterpart of a ``P(None, None)``
 operand, which moves bytes without a collective.
 
 ``hilbert_grid_permutation`` and ``mesh_axis_sizes`` are the JAX
-module's numpy helpers.  ``make_production_mesh`` (the 16 x 16 pod mesh)
-arrives with the training slice.
+module's numpy helpers.  ``make_production_mesh`` describes the JAX
+package's 16 x 16 ("data", "model") and 2 x 16 x 16 ("pod", "data",
+"model") meshes as a :class:`LogicalMesh` of ranks: 256 or 512 H100s
+described, not opened (no process group; a mesh across cards is
+ROADMAP.md's Queue A item 10).  ``make_one_card_mesh`` is the same axes
+shaped (1, 1) on one card: the mesh the dry run measures the card on.
 """
 from __future__ import annotations
 
@@ -38,11 +42,64 @@ import torch
 
 __all__ = [
     "AppMesh",
+    "LogicalMesh",
     "VolumeLedger",
     "hilbert_grid_permutation",
     "make_app_mesh",
+    "make_one_card_mesh",
+    "make_production_mesh",
     "mesh_axis_sizes",
 ]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class LogicalMesh:
+    """A device mesh described, not opened: ``axis_names`` and ``devices``,
+    an object array of the mesh's members (logical ranks of a production
+    mesh, ``torch.device``\\ s of a one-card mesh), the two attributes that
+    the JAX package's spec resolution reads from a ``jax.sharding.Mesh``."""
+
+    axis_names: tuple
+    devices: np.ndarray
+
+    @property
+    def shape(self) -> tuple:
+        return tuple(self.devices.shape)
+
+    @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+
+def _object_array(values, shape) -> np.ndarray:
+    out = np.empty(int(np.prod(shape)), dtype=object)
+    out[:] = list(values)
+    return out.reshape(shape)
+
+
+def make_production_mesh(*, multi_pod: bool = False, hilbert_layout: bool = False) -> LogicalMesh:
+    """16 x 16 ("data", "model") single pod, or 2 x 16 x 16 ("pod", "data",
+    "model") across two pods, of logical ranks 0..n-1 in raster order.
+    ``hilbert_layout``: each pod's ranks permuted so that the logical grid
+    walk is a Hilbert walk over the physical (row-major) grid, as the JAX
+    package permutes its devices (``hilbert_grid_permutation``)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    ranks = np.arange(int(np.prod(shape)))
+    if hilbert_layout:
+        n, m = shape[-2], shape[-1]
+        perm = hilbert_grid_permutation(n, m)
+        ranks = np.concatenate([pod[perm] for pod in ranks.reshape(-1, n * m)])
+    return LogicalMesh(axes, _object_array(ranks.tolist(), shape))
+
+
+def make_one_card_mesh(device="cuda:0") -> LogicalMesh:
+    """The production mesh's axes, ("data", "model"), shaped (1, 1) on one
+    card (``cuda`` without an index is ``cuda:0``)."""
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", 0)
+    return LogicalMesh(("data", "model"), _object_array([d], (1, 1)))
 
 
 def hilbert_grid_permutation(n: int, m: int) -> np.ndarray:

@@ -11,7 +11,10 @@ segment of the sorted rows (``torch.matmul``; the JAX package leaves these
 products to XLA, outside any Pallas kernel) instead of JAX's (E·cap + 1, d)
 zero buffer, which at a lossless cohort of 8 x 1,024 tokens of DeepSeek-V2
 would be ~80 GB.  Moving the segment sizes to the host costs one sync per
-call.
+call.  On ``meta`` tensors (the dry run's trace: no values, so no sizes)
+every expert takes a full segment of exactly ``cap`` rows, the work of the
+JAX package's (E, C, d) dispatch buffer, without ``bincount`` (it has no
+meta kernel) and without a host read.
 
 The combine adds each token's kept contributions in f32 in ascending
 expert id (the order in which JAX's stable sort feeds its scatter-add),
@@ -146,7 +149,10 @@ def _dispatch_plan(xt, router_w, cfg: ModelConfig, token_mask=None,
     if token_mask is not None:
         e_key = torch.where(token_mask[tok_flat], e_flat, torch.full_like(e_flat, E))
     order = torch.argsort(e_key, stable=True)
-    counts = torch.bincount(e_key, minlength=E + 1)
+    if dev.type == "meta":  # no values: the segments are cap rows each (below)
+        counts = e_key.new_empty(E + 1)
+    else:
+        counts = torch.bincount(e_key, minlength=E + 1)
     seg_start = torch.cumsum(counts, 0) - counts
     e_sorted = e_key[order]
     rank = torch.arange(T * k, device=dev) - seg_start[e_sorted]
@@ -167,16 +173,25 @@ def _dispatch_compute_combine(xt, params: MoE, cfg: ModelConfig, token_mask=None
 
     # the expert products, one expert's kept segment of the sorted rows at
     # a time; the host needs the segment sizes (one sync)
-    y = torch.zeros((T * k, d), dtype=xt.dtype, device=dev)
-    starts = plan.seg_start[:E].tolist()
-    kept = torch.clamp(plan.counts[:E], max=plan.cap).tolist()
+    seg, nrows = order, T * k
+    if dev.type == "meta":
+        # each expert a full segment of cap rows, gathered through an
+        # (E·cap) index: the JAX package's (E, C, d) dispatch buffer
+        nrows = max(nrows, E * plan.cap)
+        starts, kept = [e * plan.cap for e in range(E)], [plan.cap] * E
+        seg = order.new_empty(E * plan.cap)
+    else:
+        starts = plan.seg_start[:E].tolist()
+        kept = torch.clamp(plan.counts[:E], max=plan.cap).tolist()
+    y = torch.zeros((nrows, d), dtype=xt.dtype, device=dev)
     for e in range(E):
         lo, n = starts[e], kept[e]
         if n == 0:
             continue
-        h = xt[tok_flat[order[lo:lo + n]]]
+        h = xt[tok_flat[seg[lo:lo + n]]]
         act = F.silu(h @ params.w_gate[e]) * (h @ params.w_up[e])
         y[lo:lo + n] = act @ params.w_down[e]
+    y = y[:T * k]
 
     # the combine: each entry's weighted output in xt's dtype (JAX's
     # contrib), back in token order, each token's k entries summed in f32

@@ -292,7 +292,8 @@ def test_port_imports_neither_jax_nor_repro():
     scanned = {p.relative_to(REPO / "src" / "repro_torch").as_posix() for p in files
                if p.is_relative_to(REPO / "src" / "repro_torch")}
     for module in ("optim/adamw.py", "train/trainer.py", "checkpoint/ckpt.py", "launch/steps.py",
-                   "launch/train.py", "models/sharding.py", "data/pipeline.py", "kernels/autotune.py"):
+                   "launch/train.py", "models/sharding.py", "data/pipeline.py", "kernels/autotune.py",
+                   "launch/dryrun.py", "roofline/analysis.py", "roofline/finalize.py"):
         assert module in scanned, module
     for path in files:
         for name in _imported_modules(path):

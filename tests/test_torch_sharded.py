@@ -433,6 +433,31 @@ def test_kmeans_collective_structure():
     assert vol["replicated_bytes"] == 48
 
 
+@pytest.mark.parametrize("reduce", ["exact", "tree", "psum"])
+def test_count_collectives_and_volume_are_the_kmeans_records(reduce):
+    """``kernels.launch.count_collectives`` / ``collective_volume`` over a
+    sharded Lloyd call equal ``kmeans_sharded_collectives`` /
+    ``kmeans_sharded_volume`` in each reduction class (the JAX package's
+    record: counts, bytes, replicated bytes and their total), a declared
+    replication adds to the total, and a call without an AppMesh raises."""
+    from repro_torch.kernels.launch import collective_volume, count_collectives
+
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal((64, 3)).astype(np.float32))
+    kw = dict(iters=2, bp=16, bc=4, reduce=reduce)
+    for num in (2, 3, 4):
+        want = tsh.kmeans_sharded_volume(x, 4, mesh=cpu_mesh(num), **kw)
+        got = collective_volume(tsh.kmeans_lloyd_sharded, x, 4, mesh=cpu_mesh(num), **kw)
+        assert got == want and set(got) == {"counts", "bytes", "replicated_bytes", "bytes_per_shard"}
+        assert got["bytes_per_shard"] == sum(got["bytes"].values()) + got["replicated_bytes"]
+        assert count_collectives(tsh.kmeans_lloyd_sharded, x, 4, mesh=cpu_mesh(num), **{**kw, "iters": 1}) \
+            == tsh.kmeans_sharded_collectives(x, 4, mesh=cpu_mesh(num), **kw)
+        more = collective_volume(tsh.kmeans_lloyd_sharded, x, 4, mesh=cpu_mesh(num), replicated_bytes=100, **kw)
+        assert more["replicated_bytes"] == want["replicated_bytes"] + 100
+        assert more["bytes_per_shard"] == want["bytes_per_shard"] + 100
+    with pytest.raises(ValueError, match="AppMesh"):
+        count_collectives(lambda: None)
+
+
 def test_kmeans_mesh_options_raise():
     x = np.ones((32, 3), np.float32)
     with pytest.raises(ValueError, match="fused=False"):
