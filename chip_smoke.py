@@ -138,7 +138,9 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    tick's ``profile:``; (c) ``check serving deepseek gate:``: the same
    model at 1 layer in f32, the paged flash engine's greedy tokens equal
    to the dense-cache engine's (``mla_decode``) up to each request's first
-   token inside the top-2 margin band, one decode step flash vs "xla";
+   token inside the top-2 margin band (or behind a routing flip of the
+   two engines within ROUTER_GATE_BAND, as 7d's gate), one decode step
+   flash vs "xla";
    (d) ``time sfc_flash_decode latent`` / ``time sfc_flash_prefill
    latent``: ms, bound (FP32 operations), plain ms and a page gather +
    SDPA in f32.
@@ -150,7 +152,7 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    at D = 80 on tiles of 64 beside them; (b) ``serving mamba2:`` and (c)
    ``serving zamba2:``: each model at full width and depth (64 layers;
    54 + 9 shared-block applications), bf16, seeded random weights, on the
-   dense engine (8 slots, max_len 2048, chunked prefill) serving 16
+   dense engine (8 slots, max_len 2048, chunked prefill) serving 8
    requests (prompts of 16-64 tokens, 16-64 new tokens): tokens/s, TTFT,
    tick p99, the cache's bytes, the where-merge's ms, a warm decode tick's
    ``profile:``; then Zamba2's ``forward`` of 2 x 2048 tokens with
@@ -169,6 +171,39 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    sfc_flash_attention d80``: ms, bound, plain ms and SDPA, bf16 and f32,
    the core from the launch record and ``flash_rows``' time at D = 80
    (tiles of 64) in the same run as the "was" time.
+7d. OLMoE-1B-7B paged serving (``olmoe_serving_path``, after the SSM
+   weights are freed; MHA: 16 query over 16 kv heads, g = 1, D = 128):
+   (a) ``compare flash mha``: rows 21 and 22 at OLMoE's serving shapes (8
+   slots, Hkv 16, g 1, D 128, 128 pages of 16; ragged positions with a
+   slot at pos -1, garbage in the trash page; the prefill cohort of phase
+   7) and row 20 at D = 128 (2 x 16 x 2048, causal) against their plain
+   versions, bf16 and f32, each launch's core read from the launch record
+   (decode on split, prefill on the core ``prefill_core`` names: ps g = 16
+   rows, "simt"; row 20 on wgmma / tiled); (b) ``serving olmoe:``: the
+   model at full size (16 layers, 64 experts, top-8; 13.84 GB of bf16
+   weights, seeded random) on the paged flash engine (8 slots, max_len
+   2048, compiled prefill, prefix sharing, Hilbert page layout) serving 16
+   requests (prompts of 64-1024 tokens, every other one behind a shared
+   256-token prefix, 16-64 new tokens): tokens/s, TTFT, tick p99, pages,
+   the bytes of the weights and of the pool; 16 x the decode ticks of
+   ``sfc_flash_decode`` launches, all on split, and 16 x the admissions of
+   ``sfc_flash_prefill`` launches, all on ``prefill_core``'s core; a warm
+   decode tick's ``profile:``; the bf16 ``forward`` of 2 x 2048 tokens with
+   ``use_hilbert_kernels``, its 16 ``sfc_flash_attention`` launches counted
+   apart, all on wgmma (wall time, the logits' difference from the plain
+   forward reported); (c) ``check serving olmoe gate:``: the model in f32
+   at full depth (27.68 GB), 8 requests (prompts of 64-320 tokens, 16-32
+   new tokens) through the paged flash engine and the dense-cache engine
+   (``gqa_decode`` on ``_sdpa``, independent of rows 21-22): each
+   request's tokens equal up to its first token inside the top-2 margin
+   band (GATE_BAND), or behind a routing flip of the two engines that is a
+   near-tie (ROUTER_GATE_BAND; both engines' routing is logged by (request,
+   position, layer)); one decode step flash vs "xla"; the f32 forward of 1
+   x 2048 tokens through row 20 (16 launches on tiled) against the plain
+   forward at STEP_TOL up to its first routing flip; (d) ``time ...
+   mha`` / ``time sfc_flash_attention d128``: ms (row 21 also its device
+   time), bound, plain ms, the library call (page gather + SDPA for rows
+   21-22, SDPA with is_causal for row 20) and the core, bf16 and f32.
 8. The curve-range-sharded apps (``sharded_path``), SHARDS = 4 shards on
    the one card (the code path of a mesh, not multi-GPU scaling): with the
    launch counts reset, ``ops.kmeans_lloyd(mesh=)`` on phase 3's SIFT1M
@@ -245,7 +280,7 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
 
 The second-to-last line of output is one JSON object ``{"kernels": [...]}``,
 the last ``{"ok": true, "device": {...}}``.  ``--quick`` runs phases 1-2
-(and 7a, 7b (a), 7c (a)) only (a first check of a new kernel), and prints
+(and 7a, 7b (a), 7c (a), 7d (a)) only (a first check of a new kernel), and prints
 no result line.
 The script imports nothing of JAX and nothing of the JAX package.
 """
@@ -404,7 +439,7 @@ LATENT_TOL = dict(rtol=1e-4, atol=1e-4)
 # alone took 71 and 92 s (PERF.md)
 SSM_ARCHS = ("mamba2-2.7b", "zamba2-2.7b")
 SSM_HYBRID = "zamba2-2.7b"
-SSM_REQUESTS = 16
+SSM_REQUESTS = 8  # one wave on the 8 slots (16, two waves, took 75 s of the phase's 114 s)
 SSM_PROMPT = (16, 64)
 SSM_NEW = (16, 64)
 SSM_WARM_PROMPT = 16  # prompt tokens of the warm decode tick's requests
@@ -420,6 +455,26 @@ SSM_GATE_REQUESTS = 4
 # its own length, on flash_rows)
 SSM_GATE_PROMPT = (128, 160)
 SSM_GATE_NEW = (16, 32)
+# the OLMoE slice: OLMoE-1B-7B at full size (16 layers, 64 experts, top-8,
+# MHA: 16 query over 16 kv heads of 128), seeded random weights, the
+# engine and page shapes of the TinyLlama run, DeepSeek's request mix
+OLMOE_ARCH = "olmoe-1b-7b"
+OLMOE_REQUESTS = 16
+OLMOE_NEW = (16, 64)
+# its f32 gate at full depth (27.68 GB): 8 requests in one cohort; the
+# dense engine prefills a token a step, so the prompts are 64-320 tokens
+OLMOE_GATE_REQUESTS = 8
+OLMOE_GATE_PROMPT = (64, 320)
+OLMOE_GATE_NEW = (16, 32)
+# two f32 paths rank an 8th and a 9th expert apart (a flip) only where
+# their routing probabilities tie within the paths' difference: where the
+# two runs' top-8 agreed, their probabilities differed by at most 1.2e-6
+# on the H100 (34,592 engine and 32,768 forward decisions; the smallest
+# gaps were 3e-8 to 6e-8), so a flip needs a gap under ~2.4e-6.  The gates
+# accept a token that differs outside GATE_BAND only behind a flip of the
+# two runs' routing, and every flip must be a tie within this band, ~4x that
+ROUTER_GATE_BAND = 1e-5
+MHA_ROW20 = (2, 16, 2048)  # B, H, S of OLMoE's full-sequence forward (D = 128)
 # the sharded phase: shards of its meshes, all on the one card
 SHARDS = 4
 SHARDED_KERNELS = ("sfc_kmeans_shard_assign", "sfc_kmeans_shard_update", "sfc_kmeans_fold",
@@ -1934,22 +1989,26 @@ def _serve_cfg(**overrides):
     return dc.replace(get_config(SERVE_ARCH), **overrides)
 
 
-def decode_inputs(rng, device, dtype):
-    """Row 21 at the serving shapes: 8 slots of 128 pages of 16, 4 kv
-    heads x 8 query heads x 64, ragged positions (0 and 2047 included),
+def decode_inputs(rng, device, dtype, cfg=None, inactive=()):
+    """Row 21 at the serving shapes: 8 slots of 128 pages of 16, the kv
+    heads, query heads a kv head and head width of ``cfg`` (TinyLlama's
+    4 x 8 x 64 by default), ragged positions (0 and 2047 included; pos =
+    -1 in the ``inactive`` slots, whose page table is all trash page),
     the page table of a Hilbert-laid-out PagedKVCache; the trash page
     holds garbage."""
     import torch
     from repro_torch.serve import PagedKVCache
 
     B, MP, ps = SERVE_SLOTS, SERVE_MAX_LEN // SERVE_PAGE, SERVE_PAGE
-    cfg = _serve_cfg()
+    cfg = cfg or _serve_cfg()
     hkv, g, d = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, cfg.attn_head_dim
     pos = rng.integers(0, SERVE_MAX_LEN, size=B).astype(np.int32)
     pos[:2] = (0, SERVE_MAX_LEN - 1)
+    pos[list(inactive)] = -1
     kv = PagedKVCache(B, MP, ps, layout="hilbert")
     for b in range(B):
-        kv.ensure_pos(b, int(pos[b]))
+        if pos[b] >= 0:
+            kv.ensure_pos(b, int(pos[b]))
     P = kv.num_pages
 
     def t(shape):
@@ -1961,15 +2020,17 @@ def decode_inputs(rng, device, dtype):
             t((B, hkv, g, d)), kp, vp)
 
 
-def prefill_inputs(rng, device, dtype):
+def prefill_inputs(rng, device, dtype, cfg=None, trash=False):
     """Row 22 at the serving shapes: a cohort of 8 slots with 64-1024 new
     tokens each at staggered resume positions (the padded width 1024 of
-    the engine's pow2-page bucket), pages from a Hilbert PagedKVCache."""
+    the engine's pow2-page bucket), pages from a Hilbert PagedKVCache, the
+    heads and width of ``cfg`` (TinyLlama's by default); with ``trash``
+    the trash page holds garbage."""
     import torch
     from repro_torch.serve import PagedKVCache
 
     B, MP, ps = SERVE_SLOTS, SERVE_MAX_LEN // SERVE_PAGE, SERVE_PAGE
-    cfg = _serve_cfg()
+    cfg = cfg or _serve_cfg()
     hkv, g, d = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, cfg.attn_head_dim
     T = SERVE_MAX_LEN // 2  # the engine's bucket for prompts of up to 1024 new tokens
     lo = min(SERVE_PROMPT[0], T)
@@ -1984,17 +2045,21 @@ def prefill_inputs(rng, device, dtype):
     def t(shape):
         return torch.as_tensor(rng.standard_normal(shape, dtype=np.float32), device=device).to(dtype)
 
+    q, kp, vp = t((B, T, hkv, g, d)), t((P, ps, hkv, d)), t((P, ps, hkv, d))
+    if trash:
+        kp[0], vp[0] = 3e3, -3e3
     return (torch.as_tensor(kv.page_table, device=device), torch.as_tensor(pos0, device=device),
-            t((B, T, hkv, g, d)), t((P, ps, hkv, d)), t((P, ps, hkv, d)), n_new)
+            q, kp, vp, n_new)
 
 
-def attention_inputs(rng, device, dtype):
-    """Row 20 at the model's full-sequence shapes: B·H = 2·32 sequences of
-    2048 x 64, and per-sequence kv lengths for the kv_seqlen case."""
+def attention_inputs(rng, device, dtype, cfg=None, shape=None):
+    """Row 20 at the model's full-sequence shapes: B·H sequences of S x D
+    (TinyLlama's 2·32 of 2048 x 64 by default; ``shape`` = (B, H, S), D
+    of ``cfg``), and per-sequence kv lengths for the kv_seqlen case."""
     import torch
 
-    B, H, S = ATTN_ROW20
-    d = _serve_cfg().attn_head_dim
+    B, H, S = shape or ATTN_ROW20
+    d = (cfg or _serve_cfg()).attn_head_dim
 
     def t():
         return torch.as_tensor(rng.standard_normal((B * H, S, d), dtype=np.float32), device=device).to(dtype)
@@ -2030,6 +2095,84 @@ def flash_programs(device, dec, pre, att):
     p_att = katt.flash_attention_program(sa, att[0], causal=True, sm_scale=scale, bq=128, bkv=128,
                                          kv_valid=None)
     return p_dec, p_pre, p_att
+
+
+def decode_work(dec):
+    """Row 21's work on :func:`decode_inputs`' tensors: its operations (4
+    g D for each live (kv head, kv row) pair of a slot: pos + 1 rows, none
+    at pos < 0), its bytes (q read and o written once, each live K/V row
+    and live page-table entry read once) and its library call, a page
+    gather + SDPA under the positional mask."""
+    import torch
+    import torch.nn.functional as F
+
+    pt, pos, q, kp, vp = dec
+    B, hkv, g, d = q.shape
+    ps, MP = kp.shape[1], pt.shape[1]
+    p = pos.long()
+    n_kv = int((p + 1).clamp(min=0).sum())
+    live_pages = int(torch.where(p >= 0, p // ps + 1, 0).sum())
+    mask = torch.arange(MP * ps, device=q.device)[None, None, None] <= p[:, None, None, None]
+
+    def library():
+        kk = kp[pt.long()].reshape(B, MP * ps, hkv, d).transpose(1, 2)
+        vv = vp[pt.long()].reshape(B, MP * ps, hkv, d).transpose(1, 2)
+        return F.scaled_dot_product_attention(q.reshape(B, hkv * g, 1, d), kk, vv, attn_mask=mask,
+                                              enable_gqa=True)
+
+    nbytes = 2 * q.element_size() * (q.numel() + n_kv * hkv * d) + 4 * (live_pages + B)
+    return 4.0 * g * hkv * d * n_kv, nbytes, library
+
+
+def prefill_work(pre):
+    """Row 22's work on :func:`prefill_inputs`' tensors: its operations (4
+    g D for each (new token, kv row up to it) pair of a kv head), its bytes
+    (the new tokens' q read and o written once; each lane with new tokens
+    reads its pos0 + n_new kv rows and their pages' table entries once)
+    and its library call, a page gather + SDPA under the causal mask of
+    each token's position (``library(q, k_pages, v_pages)``: other dtypes
+    of the same cohort)."""
+    import torch
+    import torch.nn.functional as F
+
+    pt, pos0, q, kp, vp, n_new = pre
+    B, T, hkv, g, d = q.shape
+    ps, MP = kp.shape[1], pt.shape[1]
+    dev = q.device
+    positions = pos0.long()[:, None] + torch.arange(T, device=dev)[None]
+    nn = torch.as_tensor(n_new, device=dev).long()
+    need = torch.arange(T, device=dev)[None] < nn[:, None]
+    ops = 4.0 * g * hkv * d * float(((positions + 1) * need).sum())
+    ends = (pos0.long() + nn)[nn > 0]
+    kv_rows, pages = int(ends.sum()), int(((ends - 1) // ps + 1).sum())
+    nbytes = q.element_size() * (2 * int(need.sum()) * hkv * g * d + 2 * kv_rows * hkv * d) + 4 * (pages + 2 * B)
+    pmask = (torch.arange(MP * ps, device=dev)[None, None] <= positions[:, :, None])[:, None]
+
+    def library(q=q, kp=kp, vp=vp):
+        kk = kp[pt.long()].reshape(B, MP * ps, hkv, d).transpose(1, 2)
+        vv = vp[pt.long()].reshape(B, MP * ps, hkv, d).transpose(1, 2)
+        qq = q.reshape(B, T, hkv * g, d).transpose(1, 2)
+        return F.scaled_dot_product_attention(qq, kk, vv, attn_mask=pmask, enable_gqa=True)
+
+    return ops, nbytes, library
+
+
+def attention_work(att, shape):
+    """Row 20's work on :func:`attention_inputs`' (B·H, S, D) tensors of
+    ``shape`` (B, H, S), causal: its operations (4 D a (query, kv) pair at
+    or below the diagonal), its bytes (q, k, v read and o written once)
+    and its library call, ``scaled_dot_product_attention(is_causal=True)``."""
+    import torch.nn.functional as F
+
+    q, k, v = att[:3]
+    B, H, _ = shape
+    BH, S, d = q.shape
+
+    def library():
+        return F.scaled_dot_product_attention(q.reshape(B, H, S, d), k.reshape(B, H, S, d),
+                                              v.reshape(B, H, S, d), is_causal=True)
+
+    return 4.0 * BH * d * S * (S + 1) / 2, 4 * BH * S * d * q.element_size(), library
 
 
 def compare_attention(rng, device) -> dict:
@@ -2296,7 +2439,6 @@ def serving_path(rng, device, seed: int) -> list:
     import dataclasses as dc
 
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import LAUNCHES, launch
     from repro_torch.kernels import attention as katt
     from repro_torch.models import count_params, decode_step_paged, forward, init_params
@@ -2479,29 +2621,16 @@ def serving_path(rng, device, seed: int) -> list:
         })
         log(f"time {name}: {json.dumps(rows[-1])}")
 
-    pt, pos, q, kp, vp = dec
+    pt, pos, q, kp, _ = dec
     B, hkv, g, d = q.shape
     ps, MP = kp.shape[1], pt.shape[1]
-    # the function needs each slot's pos + 1 live kv rows and the page-table
-    # entries of its live pages
-    n_kv = int((pos.long() + 1).sum())
-    live_pages = int((pos.long() // ps + 1).sum())
-    kv_bytes = 2 * 2 * n_kv * hkv * d
-    mask = torch.arange(MP * ps, device=device)[None, None, None] <= pos.long()[:, None, None, None]
-
-    def sdpa_decode():
-        kk = kp[pt.long()].reshape(B, MP * ps, hkv, d).transpose(1, 2)
-        vv = vp[pt.long()].reshape(B, MP * ps, hkv, d).transpose(1, 2)
-        return F.scaled_dot_product_attention(q.reshape(B, hkv * g, 1, d), kk, vv, attn_mask=mask,
-                                              enable_gqa=True)
-
+    dec_ops, dec_bytes, sdpa_decode = decode_work(dec)
     # the split-KV launch: split CTAs (those past a slot's last live page
     # exit at once), the merge's B x Hkv CTAs, the f32 workspace
     lay = katt.decode_launch(B, hkv, g, ps, MP)
     live_ctas = int(sum(-(-(int(pp) // ps + 1) // lay.split_pages) for pp in pos.tolist())) * hkv
     row("sfc_flash_decode", lambda: launch(p_dec, *dec), lambda: p_dec.plain(p_dec, *dec), sdpa_decode,
-        4.0 * g * hkv * d * n_kv, 2 * q.numel() * 2 + kv_bytes + 4 * (live_pages + B),
-        errs[("sfc_flash_decode", torch.bfloat16)],
+        dec_ops, dec_bytes, errs[("sfc_flash_decode", torch.bfloat16)],
         {"shape": {"B": B, "Hkv": hkv, "g": g, "D": d, "page_size": ps, "max_pages": MP,
                    "pos": pos.tolist()},
          "split_pages": lay.split_pages, "splits": lay.splits,
@@ -2512,23 +2641,7 @@ def serving_path(rng, device, seed: int) -> list:
     pt2, pos0, q2, kp2, vp2, n_new = pre
     T = q2.shape[1]
     rows_pre = prefill_covered(n_new, T, ps, device)
-    positions = pos0.long()[:, None] + torch.arange(T, device=device)[None]
-    need = torch.arange(T, device=device)[None] < torch.as_tensor(n_new, device=device)[:, None]
-    pref_ops = 4.0 * g * hkv * d * float(((positions + 1) * need).sum())
-    # each lane with new tokens needs its pos0 + n_new kv rows and the
-    # page-table entries of their pages
-    nn = torch.as_tensor(n_new, device=device).long()
-    ends = (pos0.long() + nn)[nn > 0]
-    kv_rows, pages_read = int(ends.sum()), int(((ends - 1) // ps + 1).sum())
-    pref_bytes = 2 * (2 * int(need.sum()) * hkv * g * d + 2 * kv_rows * hkv * d) + 4 * (pages_read + 2 * B)
-    pmask = (torch.arange(MP * ps, device=device)[None, None] <= positions[:, :, None])[:, None]
-
-    def sdpa_prefill(q2=q2, kp2=kp2, vp2=vp2):
-        kk = kp2[pt2.long()].reshape(B, MP * ps, hkv, d).transpose(1, 2)
-        vv = vp2[pt2.long()].reshape(B, MP * ps, hkv, d).transpose(1, 2)
-        qq = q2.reshape(B, T, hkv * g, d).transpose(1, 2)
-        return F.scaled_dot_product_attention(qq, kk, vv, attn_mask=pmask, enable_gqa=True)
-
+    pref_ops, pref_bytes, sdpa_prefill = prefill_work(pre)
     # f32 on the register-tiled core: the same cohort, bound by the FP32
     # pipes; its launches are the f32 gate's
     pre32 = (pt2, pos0, q2.float(), kp2.float(), vp2.float())
@@ -2551,23 +2664,18 @@ def serving_path(rng, device, seed: int) -> list:
 
     qa, ka, va, _seqlen = att
     BH, S, d = qa.shape
-    Bq, H = ATTN_ROW20[0], ATTN_ROW20[1]
-    att_ops = 4.0 * BH * d * S * (S + 1) / 2
+    att_ops, att_bytes, sdpa_causal = attention_work(att, ATTN_ROW20)
     # f32 on the register-tiled core: the same function, bound by the FP32 pipes
-    q32, k32, v32, _ = attention_inputs(rng, device, torch.float32)
-    f32_bound, f32_by = bound_ms(att_ops, FP32_PEAK, 4 * BH * S * d * 4)
-    f32 = {"core": "tiled", "ms": cuda_ms(lambda: launch(p_att, q32, k32, v32), 10),
-           "plain_ms": cuda_ms(lambda: p_att.plain(p_att, q32, k32, v32), 1, warmup=0),
-           "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-               q32.reshape(Bq, H, S, d), k32.reshape(Bq, H, S, d), v32.reshape(Bq, H, S, d),
-               is_causal=True), 10),
-           "bound_ms": f32_bound, "bound_by": f32_by,
+    att32 = attention_inputs(rng, device, torch.float32)
+    _, bytes32, sdpa32 = attention_work(att32, ATTN_ROW20)
+    f32_bound, f32_by = bound_ms(att_ops, FP32_PEAK, bytes32)
+    f32 = {"core": "tiled", "ms": cuda_ms(lambda: launch(p_att, *att32[:3]), 10),
+           "plain_ms": cuda_ms(lambda: p_att.plain(p_att, *att32[:3]), 1, warmup=0),
+           "library_ms": cuda_ms(sdpa32, 10), "bound_ms": f32_bound, "bound_by": f32_by,
            "max_abs_err": errs[("sfc_flash_attention", torch.float32)]}
-    del q32, k32, v32
+    del att32, sdpa32
     row("sfc_flash_attention", lambda: launch(p_att, qa, ka, va), lambda: p_att.plain(p_att, qa, ka, va),
-        lambda: F.scaled_dot_product_attention(qa.reshape(Bq, H, S, d), ka.reshape(Bq, H, S, d),
-                                               va.reshape(Bq, H, S, d), is_causal=True),
-        att_ops, 4 * BH * S * d * 2, errs[("sfc_flash_attention", torch.bfloat16)],
+        sdpa_causal, att_ops, att_bytes, errs[("sfc_flash_attention", torch.bfloat16)],
         {"shape": {"BH": BH, "S": S, "D": d, "bq": 128, "bkv": 128, "causal": True},
          "ctas": int(p_att.grid[0] * p_att.grid[1]), "core": "wgmma", "f32": f32})
     log("serving busy: " + json.dumps(busy))
@@ -2717,33 +2825,148 @@ def margins_of_dense_engine(engine):
     return served_steps(engine, margins)
 
 
-def mla_gate(seed: int, device, requests) -> dict:
-    """The f32 gate at 1 layer: the paged flash engine's greedy tokens
-    against the dense-cache engine's (``paged=False``: ``mla_decode``),
-    each request's first differing token inside the top-2 margin band of
-    the dense engine's logits; every launch of the flash engine on the
-    latent core; one decode step flash vs "xla"."""
+class RouterLog:
+    """The routing of every MoE call while entered (``moe_forward``
+    wrapped; every block of the model is MoE, so a call's layer is its
+    index modulo the layers): for each live token row (its token mask, or
+    every row) that ``key(b, t)`` names (None: left out), under that key
+    and the layer, its top-k experts (sorted), the gap between its k-th
+    and (k+1)-th routing probabilities and its top-k probabilities, read
+    on the host (a sync a call)."""
+
+    def __init__(self, key):
+        self.key, self.rec, self.calls = key, {}, 0
+
+    def __enter__(self):
+        from repro_torch.models import moe as moe_mod
+
+        self._inner = inner = moe_mod.moe_forward
+
+        def wrapped(params, x, cfg, token_mask=None, lossless=False):
+            self.record(params, x, cfg, token_mask)
+            return inner(params, x, cfg, token_mask=token_mask, lossless=lossless)
+
+        moe_mod.moe_forward = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe as moe_mod
+
+        moe_mod.moe_forward = self._inner
+
+    def record(self, params, x, cfg, token_mask):
+        import torch
+
+        B, S, d = x.shape
+        k, layer = cfg.top_k, self.calls % cfg.num_layers
+        self.calls += 1
+        probs = torch.softmax(x.reshape(B * S, d).float() @ params.router, dim=-1)
+        vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+        top = torch.sort(idx[:, :k], dim=-1).values.reshape(B, S, k).cpu().numpy()
+        gap = (vals[:, k - 1] - vals[:, k]).reshape(B, S).cpu().numpy()
+        pk = vals[:, :k].reshape(B, S, k).cpu().numpy()
+        live = np.ones((B, S), bool) if token_mask is None else token_mask.cpu().numpy()
+        for b, t in zip(*np.nonzero(live)):
+            key = self.key(int(b), int(t))
+            if key is not None:
+                self.rec[key + (layer,)] = (tuple(top[b, t]), float(gap[b, t]), pk[b, t])
+
+
+def router_flips(a: RouterLog, b: RouterLog) -> dict:
+    """The decisions two runs' logs both hold: those whose top-k expert
+    sets differ (flips; each with the larger of its two k-th to (k+1)-th
+    gaps), and the largest difference of the top-k probabilities where the
+    sets agree; the smallest gap of either log."""
+    common = a.rec.keys() & b.rec.keys()
+    flips = {key: max(a.rec[key][1], b.rec[key][1]) for key in common if a.rec[key][0] != b.rec[key][0]}
+    diff = max((float(np.abs(a.rec[key][2] - b.rec[key][2]).max()) for key in common if key not in flips),
+               default=0.0)
+    gaps = [r[1] for log in (a, b) for r in log.rec.values()]
+    return {"decisions": len(common), "flips": flips, "agreeing_prob_max_abs_diff": diff,
+            "min_gap": min(gaps, default=float("inf"))}
+
+
+class EngineRouterLog(RouterLog):
+    """A :class:`RouterLog` of an engine's steps keyed (rid, position):
+    while entered it also wraps the engine module's masked steps (decode,
+    and the dense engine's chunked prefill: one token a slot, live where
+    the step's slot mask is) and ``prefill_paged`` (the compiled prefill:
+    row t of slot b is position pos0[b] + t, live where its token mask
+    is)."""
+
+    STEPS = ("_masked_step", "_masked_step_paged", "prefill_paged")
+
+    def __init__(self, engine):
+        super().__init__(self._key)
+        self.engine, self.state = engine, {}
+
+    def _key(self, b, t):
+        if "mask" in self.state and not self.state["mask"][b]:
+            return None
+        return self.engine.slot_req[b].rid, int(self.state["pos"][b]) + t
+
+    def __enter__(self):
+        from repro_torch.serve import engine as engine_mod
+
+        self._steps = {name: getattr(engine_mod, name) for name in self.STEPS}
+        state = self.state
+
+        def wrap(inner, masked):
+            def step(params, toks, cache, pos, *a, **kw):
+                state.clear()
+                state["pos"] = pos.cpu().numpy()
+                if masked:  # (.., pos, mask, ..): one token a slot
+                    state["mask"] = a[0].cpu().numpy()
+                return inner(params, toks, cache, pos, *a, **kw)
+            return step
+
+        for name, inner in self._steps.items():
+            setattr(engine_mod, name, wrap(inner, name != "prefill_paged"))
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        from repro_torch.serve import engine as engine_mod
+
+        for name, inner in self._steps.items():
+            setattr(engine_mod, name, inner)
+        self.engine = None  # the log outlives the engine's pools
+        super().__exit__(*exc)
+
+
+def engine_gate(cfg32, params32, requests, what: str, cores: dict) -> dict:
+    """The f32 gate: the paged flash engine's greedy tokens against the
+    dense-cache engine's (``paged=False``: the plain decode, independent of
+    rows 21-22), each request's first differing token inside the top-2
+    margin band of the dense engine's logits, or (a MoE model, both
+    engines' routing logged) at or after a position where the two
+    engines' routing differs, every such flip a near-tie (the k-th and
+    (k+1)-th routing probabilities within ROUTER_GATE_BAND in both); every
+    launch of the flash engine on its core (``cores``: {entry point:
+    core}); one decode step flash vs "xla"."""
+    import contextlib
+
     import torch
     from repro_torch.kernels import LAUNCHES
-    from repro_torch.models import decode_step_paged, init_params
+    from repro_torch.models import decode_step_paged
     from repro_torch.serve import ServeEngine
 
-    cfg32 = _mla_cfg(MLA_GATE_LAYERS, "float32")
-    params32 = init_params(seed + 1, cfg32, device=device)
+    moe = cfg32.block_kind == "moe"
     engine = serve_engine(cfg32, params32)
+    flash_log = EngineRouterLog(engine) if moe else contextlib.nullcontext()
     LAUNCHES.reset()
-    flash = [engine.submit(p, max_new=m) for p, m in requests]
-    snap = None
-    while any(not r.done for r in flash):
-        engine.step()
-        if snap is None and engine.active[: len(requests)].all():
-            snap = (engine.next_token.copy(), engine.pos.copy(), engine.active.copy(),
-                    engine.kv_pages.page_table.copy(), {k: v.clone() for k, v in engine.cache["blocks"].items()})
-    counts, cores = LAUNCHES.counts(), LAUNCHES.cores()
-    for name in ("sfc_flash_decode", "sfc_flash_prefill"):
-        check(counts[name] > 0 and cores[f"{name}.latent"] == counts[name],
-              f"deepseek f32 gate: {name} launches {counts[name]}, latent {cores[f'{name}.latent']}")
-    check(snap is not None, "deepseek f32 gate: the engine never ran every request at once")
+    with flash_log:
+        flash = [engine.submit(p, max_new=m) for p, m in requests]
+        snap = None
+        while any(not r.done for r in flash):
+            engine.step()
+            if snap is None and engine.active[: len(requests)].all():
+                snap = (engine.next_token.copy(), engine.pos.copy(), engine.active.copy(),
+                        engine.kv_pages.page_table.copy(), {k: v.clone() for k, v in engine.cache["blocks"].items()})
+    counts, got_cores = LAUNCHES.counts(), LAUNCHES.cores()
+    for name, core in cores.items():
+        check(counts[name] > 0 and got_cores[f"{name}.{core}"] == counts[name],
+              f"{what} f32 gate: {name} launches {counts[name]}, {core} {got_cores[f'{name}.{core}']}")
+    check(snap is not None, f"{what} f32 gate: the engine never ran every request at once")
     nt, pos, act, pt, pools = snap
     outs = {}
     for impl in ("flash", "xla"):
@@ -2752,32 +2975,63 @@ def mla_gate(seed: int, device, requests) -> dict:
                                           attn_impl=impl)
     step_err = float((outs["flash"] - outs["xla"]).abs().max())
     check(bool(torch.allclose(outs["flash"], outs["xla"], rtol=STEP_TOL, atol=STEP_TOL)),
-          f"deepseek decode_step_paged flash vs xla: max err {step_err}")
+          f"{what} decode_step_paged flash vs xla: max err {step_err}")
     del engine, snap, pools, outs
     dense = ServeEngine(cfg32, params32, num_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN, paged=False)
+    dense_log = EngineRouterLog(dense) if moe else contextlib.nullcontext()
     margins, restore = margins_of_dense_engine(dense)
     try:
-        ref = [dense.submit(p, max_new=m) for p, m in requests]
-        dense.run_until_done()
+        with dense_log:
+            ref = [dense.submit(p, max_new=m) for p, m in requests]
+            dense.run_until_done()
     finally:
         restore()
-    compared = diverged = 0
+    routing = router_flips(flash_log, dense_log) if moe else None
+    compared = diverged = routed = 0
     for f, d in zip(flash, ref):
-        check(len(f.out) == len(d.out) == f.max_new, f"deepseek gate rid {f.rid}: lengths")
+        check(len(f.out) == len(d.out) == f.max_new, f"{what} gate rid {f.rid}: lengths")
         differ = [i for i, (a, b) in enumerate(zip(f.out, d.out)) if a != b]
         compared += differ[0] + 1 if differ else len(d.out)
-        if differ:
-            i = differ[0]
-            check(margins[(d.rid, i)] <= GATE_BAND,
-                  f"deepseek gate rid {f.rid}: token {i} differs outside the band (margin {margins[(d.rid, i)]})")
+        if not differ:
+            continue
+        i = differ[0]
+        if margins[(d.rid, i)] <= GATE_BAND:
             diverged += 1
-    del dense, params32
+            continue
+        # the token at index i is sampled from the step at position len(prompt) - 1 + i
+        behind = routing is not None and any(rid == d.rid and p <= len(d.prompt) - 1 + i
+                                             for rid, p, _layer in routing["flips"])
+        check(behind, f"{what} gate rid {f.rid}: token {i} differs outside the band (margin {margins[(d.rid, i)]})"
+              + ("" if routing is None else ", behind no routing difference"))
+        routed += 1
+    del dense
     torch.cuda.empty_cache()
-    return {"layers": MLA_GATE_LAYERS, "requests": len(requests), "tokens_compared": compared,
-            "diverged_in_band": diverged, "band": GATE_BAND,
-            "decode_step_paged_flash_vs_xla_max_abs_err": step_err, "step_tol": STEP_TOL,
-            "launches": {k: counts[k] for k in ("sfc_flash_decode", "sfc_flash_prefill")},
-            "latent": {k: cores[f"{k}.latent"] for k in ("sfc_flash_decode", "sfc_flash_prefill")}}
+    out = {"requests": len(requests), "tokens_compared": compared, "diverged_in_band": diverged,
+           "band": GATE_BAND, "decode_step_paged_flash_vs_xla_max_abs_err": step_err, "step_tol": STEP_TOL,
+           "launches": {k: counts[k] for k in cores},
+           "cores": {f"{k}.{c}": got_cores[f"{k}.{c}"] for k, c in cores.items()}}
+    if routing is not None:
+        flips = routing.pop("flips")
+        check(all(g <= ROUTER_GATE_BAND for g in flips.values()),
+              f"{what} gate: routing differs outside the router band {ROUTER_GATE_BAND} ({flips})")
+        out["router"] = {**routing, "band": ROUTER_GATE_BAND, "flips": len(flips),
+                         "flip_gaps": sorted(flips.values()), "diverged_behind_a_flip": routed}
+    return out
+
+
+def mla_gate(seed: int, device, requests) -> dict:
+    """The f32 gate at 1 layer (:func:`engine_gate`): the flash engine's
+    launches all on the latent core, the dense engine's ``mla_decode``."""
+    import torch
+    from repro_torch.models import init_params
+
+    cfg32 = _mla_cfg(MLA_GATE_LAYERS, "float32")
+    params32 = init_params(seed + 1, cfg32, device=device)
+    out = engine_gate(cfg32, params32, requests, "deepseek",
+                      {"sfc_flash_decode": "latent", "sfc_flash_prefill": "latent"})
+    del params32
+    torch.cuda.empty_cache()
+    return {"layers": MLA_GATE_LAYERS, **out}
 
 
 def time_latent(rng, device, errs, launches) -> list:
@@ -2892,6 +3146,49 @@ def decode_device_time(prog, args, library, device) -> dict:
             "waves": live / (sms * per_sm)}
 
 
+def serve_counted(cfg, params, requests, what: str, cores: dict):
+    """The paged flash engine (:func:`serve_engine`) serves ``requests``
+    with the launch counts reset and its decode ticks counted: every
+    output full and in the vocabulary, prefix sharing engaged, and every
+    sfc_flash_prefill / sfc_flash_decode launch on its core (``cores``:
+    {entry point: core}), layers x the admissions that ran the model and
+    layers x the decode ticks of them.  Returns the metrics (the bytes of
+    the engine's page pools among them)."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.serve import engine as engine_mod
+
+    ticks = {"decode": 0}
+    inner = engine_mod._masked_step_paged
+
+    def counted(*a, **k):
+        ticks["decode"] += 1
+        return inner(*a, **k)
+
+    engine = serve_engine(cfg, params)
+    engine_mod._masked_step_paged = counted
+    LAUNCHES.reset()
+    try:
+        reqs, metrics = drive_engine(engine, requests)
+    finally:
+        engine_mod._masked_step_paged = inner
+    counts, got = LAUNCHES.counts(), LAUNCHES.cores()
+    for r in reqs:
+        check(len(r.out) == r.max_new and all(0 <= t < cfg.vocab_size for t in r.out), f"{what} rid {r.rid}: output")
+    check(metrics["pages_shared"] > 0, f"{what}: prefix sharing never engaged")
+    L = cfg.num_layers
+    want = {"sfc_flash_prefill": L * metrics["launching_admissions"], "sfc_flash_decode": L * ticks["decode"]}
+    for name, n in want.items():
+        core = cores[name]
+        check(counts[name] == got[f"{name}.{core}"] == n,
+              f"{what} serving: {name} launches {counts[name]}, {core} {got[f'{name}.{core}']}, expected {n}")
+    metrics["decode_ticks"] = ticks["decode"]
+    metrics["launches"] = {k: counts[k] for k in want}
+    metrics["cores"] = {k: v for k, v in got.items() if k.split(".")[0] in want}
+    metrics["layers"] = L
+    metrics["pool_bytes"] = cache_bytes(engine.cache)["blocks"]
+    return metrics
+
+
 def mla_serving_path(rng, device, seed: int) -> list:
     """(a) rows 21 and 22 on the latent core against their plain versions;
     (b) DeepSeek-V2 at MLA_LAYERS layers, full width, bf16, seeded random
@@ -2903,7 +3200,6 @@ def mla_serving_path(rng, device, seed: int) -> list:
     import torch
     from repro_torch.kernels import LAUNCHES
     from repro_torch.models import count_params, init_params
-    from repro_torch.serve import engine as engine_mod
 
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()  # TinyLlama's weights are gone (serving_path)
@@ -2923,36 +3219,12 @@ def mla_serving_path(rng, device, seed: int) -> list:
     warm.submit(requests[0][0][:80], max_new=2)
     warm.run_until_done()
     del warm
-    ticks = {"decode": 0}
-    inner = engine_mod._masked_step_paged
-
-    def counted(*a, **k):
-        ticks["decode"] += 1
-        return inner(*a, **k)
-
-    engine_mod._masked_step_paged = counted
-    LAUNCHES.reset()
-    try:
-        reqs, metrics = drive_engine(serve_engine(cfg, params), requests)
-    finally:
-        engine_mod._masked_step_paged = inner
-    counts, cores = LAUNCHES.counts(), LAUNCHES.cores()
-    for r in reqs:
-        check(len(r.out) == r.max_new and all(0 <= t < cfg.vocab_size for t in r.out), f"deepseek rid {r.rid}: output")
-    check(metrics["pages_shared"] > 0, "deepseek: prefix sharing never engaged")
-    L = cfg.num_layers
-    want = {"sfc_flash_prefill": L * metrics["launching_admissions"], "sfc_flash_decode": L * ticks["decode"]}
-    for name, n in want.items():
-        check(counts[name] == cores[f"{name}.latent"] == n,
-              f"deepseek serving: {name} launches {counts[name]}, latent {cores[f'{name}.latent']}, expected {n}")
-    metrics["decode_ticks"] = ticks["decode"]
-    metrics["launches"] = {k: counts[k] for k in want}
-    metrics["cores"] = {k: v for k, v in cores.items() if k.split(".")[0] in want}
-    metrics["layers"] = L
+    metrics = serve_counted(cfg, params, requests, "deepseek",
+                            {"sfc_flash_decode": "latent", "sfc_flash_prefill": "latent"})
+    launches = LAUNCHES.cores()
     log("serving deepseek: " + json.dumps(metrics))
     busy = warm_decode_tick(cfg, params, requests, device)
-    launches = dict(cores)
-    del params, reqs
+    del params
     torch.cuda.empty_cache()
 
     gate = mla_gate(seed, device, make_requests(rng, cfg.vocab_size, MLA_GATE_REQUESTS, MLA_GATE_NEW,
@@ -3032,7 +3304,6 @@ def compare_d80(rng, device) -> dict:
     ``flash_rows`` (simt) at D = 80 on tiles of 64, the shape that keeps
     it.  Returns the largest errors by dtype (and by ``(dtype, "simt")``)."""
     import torch
-    from repro_torch.kernels import LAUNCHES, launch
     from repro_torch.kernels import attention as katt
 
     errs, parts = {}, []
@@ -3041,13 +3312,9 @@ def compare_d80(rng, device) -> dict:
         q, k, v = d80_inputs(rng, device, dtype)
         for key, prog, core in ((dtype, d80_program(device, q), D80_CORES[str(dtype)[6:]]),
                                 ((dtype, "simt"), d80_rows_program(device, q), "simt")):
-            before = LAUNCHES.cores()
-            got = launch(prog, q, k, v)
-            after = LAUNCHES.cores()
-            ran = [c for c in after if after[c] != before[c]]
+            got, ran = launch_core(prog, (q, k, v))
             p = prog.params
-            check(ran == [f"sfc_flash_attention.{core}"]
-                  and katt.flash_core(dtype, q.shape[2], p["bq"], p["bkv"]) == core,
+            check(ran == core and katt.flash_core(dtype, q.shape[2], p["bq"], p["bkv"]) == core,
                   f"sfc_flash_attention D={q.shape[2]} bq={p['bq']} {dtype}: launched on {ran}, "
                   f"expected the {core} core")
             want = prog.plain(prog, q, k, v)
@@ -3137,20 +3404,25 @@ def ssm_serve(arch: str, rng, device, seed: int):
     return busy, params
 
 
-def zamba2_forward(params, rng, device) -> dict:
-    """(c): Zamba2's forward of 2 x 2048 tokens with use_hilbert_kernels,
-    its row 20 launches counted apart (all on the tensor-core core at D =
-    80, one per shared application), its logits against the plain
-    forward's."""
+def row20_launches(cfg) -> int:
+    """Row 20 launches of one forward: one a layer, or one a shared-block
+    application of the hybrid pattern."""
+    return -(-cfg.num_layers // cfg.hybrid_attn_every) if cfg.hybrid_attn_every else cfg.num_layers
+
+
+def forward_bf16(params, cfg, rng, what: str) -> dict:
+    """The bf16 forward of 2 x 2048 tokens with use_hilbert_kernels, its
+    row 20 launches counted apart (all on the tensor-core core: one a
+    layer, or a shared application), its logits against the plain
+    forward's; the wall time, cold and warm."""
     import dataclasses as dc
 
     import torch
     from repro_torch.kernels import LAUNCHES
     from repro_torch.models import forward
 
-    cfg = _ssm_cfg(SSM_HYBRID, "bfloat16")
     cfg_hk = dc.replace(cfg, use_hilbert_kernels=True)
-    napp = -(-cfg.num_layers // cfg.hybrid_attn_every)
+    napp = row20_launches(cfg)
     toks = rng.integers(0, cfg.vocab_size, size=(ATTN_ROW20[0], ATTN_ROW20[2])).astype(np.int32)
     LAUNCHES.reset()
     t = time.perf_counter()
@@ -3159,9 +3431,9 @@ def zamba2_forward(params, rng, device) -> dict:
     wall = 1e3 * (time.perf_counter() - t)
     n, cores = LAUNCHES.counts()["sfc_flash_attention"], LAUNCHES.cores()
     check(n == napp == cores["sfc_flash_attention.wgmma"],
-          f"zamba2 forward: sfc_flash_attention launches {n}, cores {cores}, expected {napp} on wgmma")
+          f"{what} forward: sfc_flash_attention launches {n}, cores {cores}, expected {napp} on wgmma")
     check(lk.shape == (ATTN_ROW20[0], ATTN_ROW20[2], cfg.vocab_size) and bool(torch.isfinite(lk).all()),
-          "zamba2 forward(use_hilbert_kernels): shape or non-finite")
+          f"{what} forward(use_hilbert_kernels): shape or non-finite")
     # in bf16 the two attention forms round apart (on the CPU, with the
     # plain versions on both sides, reduced Zamba2's logits already differ
     # by ~1e-2), so the bf16 forward is reported; the f32 gate holds it
@@ -3177,7 +3449,7 @@ def zamba2_forward(params, rng, device) -> dict:
         torch.cuda.synchronize()
         warm.append(1e3 * (time.perf_counter() - t))
     out["warm_ms"] = statistics.median(warm)
-    log(f"forward zamba2 {ATTN_ROW20[0]}x{ATTN_ROW20[2]} bf16 use_hilbert_kernels: " + json.dumps(out))
+    log(f"forward {what} {ATTN_ROW20[0]}x{ATTN_ROW20[2]} bf16 use_hilbert_kernels: " + json.dumps(out))
     return out
 
 
@@ -3185,7 +3457,12 @@ def forward_against_plain(params32, cfg32, rng, device) -> dict:
     """The f32 forward of 1 x 2048 tokens with use_hilbert_kernels (row 20
     at the model's head width, its launches all on tiled) against the plain
     forward: logits allclose at STEP_TOL, argmax equal where the top-2
-    margin exceeds 2 (atol + rtol |top|)."""
+    margin exceeds 2 (atol + rtol |top|).  For a MoE model both forwards'
+    routing is logged: where a token's top-k experts differ (a flip, which
+    must be a near-tie: the k-th and (k+1)-th routing probabilities within
+    ROUTER_GATE_BAND in both), that token and the later ones (causal
+    attention carries the flip forward) are left out of the comparison."""
+    import contextlib
     import dataclasses as dc
 
     import torch
@@ -3194,27 +3471,42 @@ def forward_against_plain(params32, cfg32, rng, device) -> dict:
 
     toks = rng.integers(0, cfg32.vocab_size, size=(1, ATTN_ROW20[2])).astype(np.int32)
     cfg_hk = dc.replace(cfg32, use_hilbert_kernels=True)
-    napp = -(-cfg32.num_layers // cfg32.hybrid_attn_every)
+    napp = row20_launches(cfg32)
+    moe = cfg32.block_kind == "moe"
+    logs = [RouterLog(lambda b, t: (t,)) if moe else contextlib.nullcontext() for _ in range(2)]
     LAUNCHES.reset()
     t = time.perf_counter()
-    lk, _ = forward(params32, {"tokens": toks}, cfg_hk)
+    with logs[0]:
+        lk, _ = forward(params32, {"tokens": toks}, cfg_hk)
     torch.cuda.synchronize()
     wall = 1e3 * (time.perf_counter() - t)
     n, cores = LAUNCHES.counts()["sfc_flash_attention"], LAUNCHES.cores()
     check(n == napp == cores["sfc_flash_attention.tiled"],
           f"{cfg32.name} f32 forward: sfc_flash_attention launches {n}, cores {cores}, expected {napp} on tiled")
-    lp, _ = forward(params32, {"tokens": toks}, cfg32)
-    err = float((lk - lp).abs().max())
+    with logs[1]:
+        lp, _ = forward(params32, {"tokens": toks}, cfg32)
     check(bool(torch.isfinite(lk).all()) and lk.shape == lp.shape, f"{cfg32.name} f32 forward: non-finite or shape")
+    out = {"tokens": int(toks.size), "wall_ms": wall, "sfc_flash_attention_launches": n,
+           "tiled": cores["sfc_flash_attention.tiled"], "step_tol": STEP_TOL}
+    if moe:
+        routing = router_flips(*logs)
+        flips = routing.pop("flips")
+        check(all(g <= ROUTER_GATE_BAND for g in flips.values()),
+              f"{cfg32.name} f32 forward: routing differs outside the router band {ROUTER_GATE_BAND} ({flips})")
+        first = min((key[0] for key in flips), default=lk.shape[1])
+        out["router"] = {**routing, "band": ROUTER_GATE_BAND, "flips": len(flips), "flip_gaps": sorted(flips.values()),
+                         "first_flipped_token": first if flips else None}
+        check(first > 0, f"{cfg32.name} f32 forward: the routing flips at the first token")
+        lk, lp = lk[:, :first], lp[:, :first]
+    err = float((lk - lp).abs().max())
     check(bool(torch.allclose(lk, lp, rtol=STEP_TOL, atol=STEP_TOL)), f"{cfg32.name} f32 forward kernel vs plain: {err}")
     top2 = lp.topk(2, dim=-1).values
     clear = (top2[..., 0] - top2[..., 1]) > 2 * STEP_TOL * (1 + top2[..., 0].abs())
     same = lk.argmax(-1) == lp.argmax(-1)
     check(bool(same[clear].all()), f"{cfg32.name} f32 forward: argmax differs at {int((~same & clear).sum())} "
                                    f"positions outside the margin band")
-    return {"tokens": int(toks.size), "wall_ms": wall, "sfc_flash_attention_launches": n,
-            "tiled": cores["sfc_flash_attention.tiled"], "max_abs_err": err, "step_tol": STEP_TOL,
-            "argmax_clear_share": float(clear.float().mean()), "argmax_agreement": float(same.float().mean())}
+    return {**out, "max_abs_err": err, "argmax_clear_share": float(clear.float().mean()),
+            "argmax_agreement": float(same.float().mean())}
 
 
 def ssm_gate(arch: str, rng, device, seed: int) -> dict:
@@ -3247,7 +3539,7 @@ def ssm_gate(arch: str, rng, device, seed: int) -> dict:
     gate = replay_gate(replay_cfg, params32, reqs, step_logits=logits, band=SSM_GATE_BAND)
     n, cores = LAUNCHES.counts()["sfc_flash_attention"], LAUNCHES.cores()
     if cfg32.hybrid_attn_every:
-        napp = -(-cfg32.num_layers // cfg32.hybrid_attn_every)
+        napp = row20_launches(cfg32)
         check(n == napp * len(reqs) == cores["sfc_flash_attention.tiled"],
               f"{arch} f32 gate replay: sfc_flash_attention launches {n}, cores {cores}, expected "
               f"{napp * len(reqs)} on tiled")
@@ -3269,8 +3561,7 @@ def time_d80(rng, device, errs, launches: int) -> dict:
     core from the launch record, and ``flash_rows`` at D = 80 (tiles of
     64) on the same inputs as the "was" time."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import LAUNCHES, launch
+    from repro_torch.kernels import launch
 
     B, H, S = ATTN_ROW20
     timed = {}
@@ -3278,22 +3569,19 @@ def time_d80(rng, device, errs, launches: int) -> dict:
         q, k, v = d80_inputs(rng, device, dtype)
         prog = d80_program(device, q)
         rows = d80_rows_program(device, q)
-        BH, _, d = q.shape
-        b_ms, b_by = bound_ms(4.0 * BH * d * S * (S + 1) / 2, peak, 4 * BH * S * d * q.element_size())
-        LAUNCHES.reset()
-        launch(prog, q, k, v)
-        core = [c.split(".")[1] for c, n in LAUNCHES.cores().items() if n]
+        d = q.shape[2]
+        ops_, nbytes, library = attention_work((q, k, v), ATTN_ROW20)
+        b_ms, b_by = bound_ms(ops_, peak, nbytes)
+        _, core = launch_core(prog, (q, k, v))
         timed[dtype] = {
             "ms": cuda_ms(lambda: launch(prog, q, k, v), 10),
             "flash_rows_ms": cuda_ms(lambda: launch(rows, q, k, v), 3),
             "plain_ms": cuda_ms(lambda: prog.plain(prog, q, k, v), 1, warmup=0),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                q.reshape(B, H, S, d), k.reshape(B, H, S, d), v.reshape(B, H, S, d), is_causal=True), 10),
-            "max_abs_err": errs[dtype], "core": "+".join(core),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(library, 10),
+            "max_abs_err": errs[dtype], "core": core,
             "ctas": int(np.prod(prog.grid)), "flash_rows_max_abs_err": errs[(dtype, "simt")],
         }
-        del q, k, v
+        del q, k, v, library
     row = {"name": "sfc_flash_attention.d80", "route": "cuda", "source": SOURCES["sfc_flash_attention"],
            "replaces": REPLACES["sfc_flash_attention"], "launches": launches, **timed[torch.bfloat16],
            "peak": "bf16 tensor cores (989 TFLOP/s), HBM 3.35 TB/s; f32: FP32 pipes (67 TFLOP/s)",
@@ -3321,7 +3609,7 @@ def ssm_serving_path(rng, device, seed: int) -> list:
     for arch in SSM_ARCHS:
         busy[arch], params = ssm_serve(arch, rng, device, seed)
         if arch == SSM_HYBRID:
-            fwd = zamba2_forward(params, rng, device)
+            fwd = forward_bf16(params, _ssm_cfg(arch, "bfloat16"), rng, "zamba2")
         del params
         torch.cuda.empty_cache()
     for arch in SSM_ARCHS:
@@ -3330,6 +3618,229 @@ def ssm_serving_path(rng, device, seed: int) -> list:
     log("serving ssm busy: " + json.dumps(busy))
     log(f"ssm phase: {time.perf_counter() - t_phase:.1f} s")
     return [row]
+
+
+# ---------------------------------------------------------------------------
+# phase 7d: OLMoE-1B-7B paged serving at full size (MoE at full depth; rows
+# 20-22 at MHA's g = 1 and D = 128)
+# ---------------------------------------------------------------------------
+
+def _olmoe_cfg(dtype: str):
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config
+
+    return dc.replace(get_config(OLMOE_ARCH), dtype=dtype)
+
+
+def mha_cores(dtype) -> dict:
+    """The core each row runs at OLMoE's shapes, by the wrappers' rules:
+    decode on the split-KV core, prefill on the core ``prefill_core``
+    names (ps g = 16 rows: ``"simt"``), row 20 on ``flash_core``'s."""
+    from repro_torch.kernels import attention as katt
+
+    cfg = _olmoe_cfg("float32")
+    d, g = cfg.attn_head_dim, cfg.num_heads // cfg.num_kv_heads
+    return {"sfc_flash_decode": "split", "sfc_flash_prefill": katt.prefill_core(dtype, d, d, SERVE_PAGE, g),
+            "sfc_flash_attention": katt.flash_core(dtype, d, 128, 128)}
+
+
+def launch_core(prog, args):
+    """Launch ``prog`` once; (its output, the one core the launch record
+    counted)."""
+    from repro_torch.kernels import LAUNCHES, launch
+
+    before = LAUNCHES.cores()
+    out = launch(prog, *args)
+    after = LAUNCHES.cores()
+    ran = [c for c in after if after[c] != before[c]]
+    check(len(ran) == 1 and after[ran[0]] == before[ran[0]] + 1, f"{prog.name}: launch record {ran}")
+    return out, ran[0].split(".", 1)[1]
+
+
+def mha_inputs(rng, device, dtype, inactive=()):
+    """Rows 21, 22 and 20 at OLMoE's shapes and their programs: decode over
+    8 slots of 128 pages of 16 (Hkv 16, g 1, D 128; ``inactive`` slots at
+    pos -1), the prefill cohort of :func:`prefill_inputs` with garbage in
+    the trash page, row 20 over 2 x 16 sequences of 2048 (causal)."""
+    cfg = _olmoe_cfg("float32")
+    dec = decode_inputs(rng, device, dtype, cfg, inactive=inactive)
+    pre = prefill_inputs(rng, device, dtype, cfg, trash=True)
+    att = attention_inputs(rng, device, dtype, cfg, MHA_ROW20)[:3]
+    return (dec, pre, att), flash_programs(device, dec, pre, att)
+
+
+def compare_mha(rng, device) -> tuple[dict, dict]:
+    """(a) rows 21 and 22 at OLMoE's serving shapes (a slot at pos -1 among
+    the ragged positions, garbage in the trash page) and row 20 at D = 128
+    against their plain versions, bf16 and f32, each launch's core read
+    from the launch record and held to :func:`mha_cores`.  Returns the
+    largest errors and the cores, by (entry point, dtype)."""
+    import torch
+
+    errs, cores, parts = {}, {}, []
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = ATTN_TOL[str(dtype)[6:]]
+        (dec, pre, att), progs = mha_inputs(rng, device, dtype, inactive=(2,))
+        rows = prefill_covered(pre[5], pre[2].shape[1], SERVE_PAGE, device)
+        for prog, args, sel in zip(progs, (dec, pre[:5], att), (None, rows, None)):
+            name = prog.name
+            got, core = launch_core(prog, args)
+            check(core == mha_cores(dtype)[name], f"{name} mha {dtype}: launched on {core}, "
+                                                   f"expected {mha_cores(dtype)[name]}")
+            want = prog.plain(prog, *args)
+            torch.cuda.synchronize()
+            if sel is not None:
+                got, want = got[sel], want[sel]
+            errs[(name, dtype)] = attn_err(got, want, tol, f"{name} mha {str(dtype)[6:]}")
+            cores[(name, dtype)] = core
+            del got, want
+        B, hkv, g, d = dec[2].shape
+        parts.append(
+            f"{str(dtype)[6:]} (rtol {tol['rtol']}, atol {tol['atol']}): decode B={B} Hkv={hkv} g={g} D={d} "
+            f"ps={SERVE_PAGE} MP={dec[0].shape[1]} pos={dec[1].tolist()} core "
+            f"{cores[('sfc_flash_decode', dtype)]} max_abs_err={errs[('sfc_flash_decode', dtype)]:.3e}; prefill "
+            f"Tq={pre[2].shape[1]} n_new={pre[5].tolist()} core {cores[('sfc_flash_prefill', dtype)]} "
+            f"max_abs_err={errs[('sfc_flash_prefill', dtype)]:.3e}; attention BH={att[0].shape[0]} "
+            f"S={att[0].shape[1]} D={att[0].shape[2]} causal core {cores[('sfc_flash_attention', dtype)]} "
+            f"max_abs_err={errs[('sfc_flash_attention', dtype)]:.3e}")
+        del dec, pre, att, progs
+    log("compare flash mha: " + "; ".join(parts))
+    return errs, cores
+
+
+def olmoe_gate(rng, device, seed: int) -> dict:
+    """(c) the f32 gate at full depth: :func:`engine_gate` over
+    OLMOE_GATE_REQUESTS requests (the flash engine's decode on split,
+    prefill on ``prefill_core``'s core; the dense engine's ``gqa_decode``
+    on ``_sdpa``), then the f32 forward of 1 x 2048 tokens through row 20
+    (16 launches on tiled) against the plain forward, both with the
+    routing compared (ROUTER_GATE_BAND)."""
+    import torch
+    from repro_torch.models import init_params
+
+    cfg32 = _olmoe_cfg("float32")
+    params32 = init_params(seed + 1, cfg32, device=device)
+    requests = make_requests(rng, cfg32.vocab_size, OLMOE_GATE_REQUESTS, OLMOE_GATE_NEW, OLMOE_GATE_PROMPT)
+    cores = mha_cores(torch.float32)
+    gate = engine_gate(cfg32, params32, requests, "olmoe",
+                       {k: cores[k] for k in ("sfc_flash_decode", "sfc_flash_prefill")})
+    gate["forward_f32"] = forward_against_plain(params32, cfg32, rng, device)
+    gate.update(layers=cfg32.num_layers, experts=cfg32.num_experts, top_k=cfg32.top_k,
+                weight_bytes=sum(p.numel() * p.element_size() for p in params32.parameters()))
+    log("check serving olmoe gate: " + json.dumps(gate))
+    del params32
+    torch.cuda.empty_cache()
+    return gate
+
+
+def time_mha(rng, device, errs, launches: dict) -> list:
+    """(d) rows 21 and 22 at (a)'s shapes (every slot live) and row 20 at D
+    = 128, bf16 with f32 beside each: CUDA-event ms (row 21 also the device
+    time of its kernels, the mean over the launches torch.profiler
+    recorded, and of the library call's), the bound (operations at the dtype's peak, or bytes:
+    :func:`decode_work`, :func:`prefill_work`, :func:`attention_work`), the
+    plain version's ms, the library call (page gather + SDPA; SDPA with
+    is_causal for row 20) and the core from the launch record."""
+    import torch
+    from repro_torch.kernels import launch
+
+    timed = {}
+    for dtype, peak in ((torch.bfloat16, BF16_PEAK), (torch.float32, FP32_PEAK)):
+        (dec, pre, att), progs = mha_inputs(rng, device, dtype)
+        work = (decode_work(dec), prefill_work(pre), attention_work(att, MHA_ROW20))
+        for prog, args, (ops_, nbytes, library) in zip(progs, (dec, pre[:5], att), work):
+            _, core = launch_core(prog, args)
+            b_ms, b_by = bound_ms(ops_, peak, nbytes)
+            t = {"ms": cuda_ms(lambda: launch(prog, *args), 10),
+                 "plain_ms": cuda_ms(lambda: prog.plain(prog, *args), 1, warmup=0),
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(library, 10),
+                 "max_abs_err": errs[(prog.name, dtype)], "core": core, "ctas": int(np.prod(prog.grid))}
+            if prog.name == "sfc_flash_decode":
+                # split + merge, each once a call: the mean over the launches
+                # the profiler recorded (it drops some), with their count
+                stats = kernel_stats(lambda: launch(prog, *args), 10)
+                kern = {k: total / count for k, (total, count) in stats.items()}
+                check(any("split_kernel" in k for k in kern) and any("merge_kernel" in k for k in kern),
+                      f"sfc_flash_decode mha {dtype}: no device time of its split and merge kernels read ({kern})")
+                lib = kernel_ms(library, 10)
+                t.update(device_ms=sum(kern.values()), kernels_ms=kern,
+                         profiled_launches={k: count for k, (_, count) in stats.items()},
+                         library_device_ms=sum(lib.values()), library_kernels_ms=lib, pos=args[1].tolist())
+            if prog.name == "sfc_flash_prefill":
+                t.update(n_new=[int(n) for n in pre[5]], pos0=pre[1].tolist(), rows_per_cta=SERVE_PAGE)
+            t["bound_share"] = b_ms / t["ms"]
+            timed[(prog.name, dtype)] = t
+        del dec, pre, att, progs, work
+        torch.cuda.empty_cache()
+    cfg = _olmoe_cfg("float32")
+    B, H, S = MHA_ROW20
+    shapes = {"sfc_flash_decode": {"B": SERVE_SLOTS, "Hkv": cfg.num_kv_heads, "g": 1, "D": cfg.attn_head_dim,
+                                   "page_size": SERVE_PAGE, "max_pages": SERVE_MAX_LEN // SERVE_PAGE},
+              "sfc_flash_prefill": {"B": SERVE_SLOTS, "Tq": SERVE_MAX_LEN // 2, "Hkv": cfg.num_kv_heads, "g": 1,
+                                    "D": cfg.attn_head_dim, "page_size": SERVE_PAGE},
+              "sfc_flash_attention": {"BH": B * H, "S": S, "D": cfg.attn_head_dim, "bq": 128, "bkv": 128,
+                                      "causal": True}}
+    library = {"sfc_flash_decode": "page gather + scaled_dot_product_attention",
+               "sfc_flash_prefill": "page gather + scaled_dot_product_attention (causal mask)",
+               "sfc_flash_attention": "scaled_dot_product_attention(is_causal=True)"}
+    rows = []
+    for name, tag in (("sfc_flash_decode", "mha"), ("sfc_flash_prefill", "mha"), ("sfc_flash_attention", "d128")):
+        row = {"name": f"{name}.{tag}", "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+               "launches": launches[name], **timed[(name, torch.bfloat16)], "library": library[name],
+               "peak": "bf16 tensor cores (989 TFLOP/s), HBM 3.35 TB/s; f32: FP32 pipes (67 TFLOP/s)",
+               "shape": shapes[name], "f32": timed[(name, torch.float32)]}
+        rows.append(row)
+        log(f"time {name} {tag}: {json.dumps(row)}")
+    return rows
+
+
+def olmoe_serving_path(rng, device, seed: int) -> list:
+    """Phase 7d, after the SSM weights are freed: (a) rows 20-22 at
+    OLMoE's shapes against their plain versions; (b) OLMoE-1B-7B at full
+    size in bf16 on the paged flash engine: OLMOE_REQUESTS requests, every
+    sfc_flash_decode launch on split and every sfc_flash_prefill launch on
+    the core ``prefill_core`` names, layers x decode ticks and layers x
+    admissions of them; a warm decode tick's profile; the bf16 forward of 2
+    x 2048 tokens (16 row 20 launches on wgmma); (c) the f32 gate at full
+    depth; (d) the three rows timed.  Returns the kernel rows."""
+    import torch
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import count_params, init_params
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    errs, _ = compare_mha(rng, device)
+    cfg = _olmoe_cfg("bfloat16")
+    t0 = time.perf_counter()
+    params = init_params(seed, cfg, device=device)
+    torch.cuda.synchronize()
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    log(f"serving olmoe model: {cfg.name} {cfg.num_layers} layers d={cfg.d_model} H={cfg.num_heads} "
+        f"Hkv={cfg.num_kv_heads} D={cfg.attn_head_dim} experts={cfg.num_experts} top_k={cfg.top_k} "
+        f"d_ff_expert={cfg.d_ff_expert} vocab={cfg.vocab_size} {cfg.dtype}, {count_params(params)} parameters "
+        f"({weight_bytes} B), seeded random, {time.perf_counter() - t0:.1f} s to make, "
+        f"{torch.cuda.memory_allocated(device) / 2**30:.1f} GiB allocated")
+    requests = make_requests(rng, cfg.vocab_size, OLMOE_REQUESTS, OLMOE_NEW)
+    warm = serve_engine(cfg, params)
+    warm.submit(requests[0][0][:80], max_new=2)
+    warm.run_until_done()
+    del warm
+    cores = mha_cores(torch.bfloat16)
+    metrics = serve_counted(cfg, params, requests, "olmoe",
+                            {k: cores[k] for k in ("sfc_flash_decode", "sfc_flash_prefill")})
+    launches = LAUNCHES.counts()
+    metrics.update(weight_bytes=weight_bytes, experts=cfg.num_experts, top_k=cfg.top_k)
+    log("serving olmoe: " + json.dumps(metrics))
+    busy = warm_decode_tick(cfg, params, requests, device)
+    fwd = forward_bf16(params, cfg, rng, "olmoe")
+    del params
+    torch.cuda.empty_cache()
+    olmoe_gate(rng, device, seed)
+    rows = time_mha(rng, device, errs, {**launches, "sfc_flash_attention": fwd["sfc_flash_attention_launches"]})
+    log("serving olmoe busy: " + json.dumps(busy))
+    log(f"olmoe phase: {time.perf_counter() - t_phase:.1f} s")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -4513,11 +5024,13 @@ def main() -> int:
         compare_attention(np.random.default_rng(args.seed + 3), device)
         compare_latent(np.random.default_rng(args.seed + 5), device)
         compare_d80(np.random.default_rng(args.seed + 6), device)
+        compare_mha(np.random.default_rng(args.seed + 7), device)
         return 0
     result, ctx = main_path(rng, device, args.seed)
     result["kernels"] += serving_path(np.random.default_rng(args.seed + 3), device, args.seed)
     result["kernels"] += mla_serving_path(np.random.default_rng(args.seed + 5), device, args.seed)
     result["kernels"] += ssm_serving_path(np.random.default_rng(args.seed + 6), device, args.seed)
+    result["kernels"] += olmoe_serving_path(np.random.default_rng(args.seed + 7), device, args.seed)
     result["kernels"] += sharded_path(device, args.seed, ctx)
     train_rec = dry_record(TRAIN_ARCH, dry_cells()[2][1], device)
     training_path(device, args.seed, train_rec)
