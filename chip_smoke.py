@@ -94,8 +94,9 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
 7. LM serving (``serving_path``), TinyLlama-1.1B at full width with
    seeded random weights: (a) the three flash kernels against their plain
    versions at the serving shapes, f32 and bf16 (the bf16 prefill on
-   its tensor-core core, the f32 one on the register-tiled core, and in
-   both the prefill at half the query heads, ps g = 64, on the SIMT
+   its tensor-core core, the f32 one on the register-tiled core, in both
+   at half the query heads, ps g = 64, two q tiles a CTA, on those same
+   cores, and at 5 of the 8 query heads, Qwen's ps g = 80, on the SIMT
    core); (b) with the launch
    counts reset, the bf16 ``ServeEngine`` (paged, flash, compiled
    prefill, prefix sharing, Hilbert page layout; 8 slots, max_len 2048)
@@ -179,7 +180,8 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    7) and row 20 at D = 128 (2 x 16 x 2048, causal) against their plain
    versions, bf16 and f32, each launch's core read from the launch record
    (decode on split, prefill on the core ``prefill_core`` names: ps g = 16
-   rows, "simt"; row 20 on wgmma / tiled); (b) ``serving olmoe:``: the
+   rows a q tile, 8 tiles a CTA on wgmma / tiled; row 20 on wgmma /
+   tiled); (b) ``serving olmoe:``: the
    model at full size (16 layers, 64 experts, top-8; 13.84 GB of bf16
    weights, seeded random) on the paged flash engine (8 slots, max_len
    2048, compiled prefill, prefix sharing, Hilbert page layout) serving 16
@@ -203,7 +205,10 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    forward at STEP_TOL up to its first routing flip; (d) ``time ...
    mha`` / ``time sfc_flash_attention d128``: ms (row 21 also its device
    time), bound, plain ms, the library call (page gather + SDPA for rows
-   21-22, SDPA with is_causal for row 20) and the core, bf16 and f32.
+   21-22, SDPA with is_causal for row 20) and the core, bf16 and f32; row
+   22 also its CTAs and rows a CTA from the launch record and
+   ``flash_rows_ms``, the SIMT core (``flash_rows``, one q tile a CTA)
+   on the same cohort in the same run, the "was" time.
 8. The curve-range-sharded apps (``sharded_path``), SHARDS = 4 shards on
    the one card (the code path of a mesh, not multi-GPU scaling): with the
    launch counts reset, ``ops.kmeans_lloyd(mesh=)`` on phase 3's SIFT1M
@@ -2178,10 +2183,11 @@ def attention_work(att, shape):
 def compare_attention(rng, device) -> dict:
     """Each flash kernel against its plain version on the card at the
     serving shapes, in f32 and bf16 (the bf16 prefill on its tensor-core
-    core, the f32 one on the register-tiled core, and in both on the SIMT
-    core at half the query heads; row 20 in bf16 on the tensor cores, in
-    f32 on the register-tiled core, and in both on the SIMT core at q and
-    kv tiles of 64 rows); returns the largest errors."""
+    core, the f32 one on the register-tiled core, on the same cores at
+    half the query heads, two q tiles a CTA, and on the SIMT core at 5 of
+    the 8 query heads; row 20 in bf16 on the tensor cores, in f32 on the
+    register-tiled core, and in both on the SIMT core at q and kv tiles of
+    64 rows); returns the largest errors."""
     import torch
     from repro_torch.kernels import LAUNCHES, launch
     from repro_torch.kernels import attention as katt
@@ -2204,22 +2210,25 @@ def compare_attention(rng, device) -> dict:
         torch.cuda.synchronize()
         rows = prefill_covered(pre[5], pre[2].shape[1], SERVE_PAGE, device)
         e_pre = attn_err(got[rows], want[rows], tol, f"sfc_flash_prefill {dtype}")
-        # a shape outside both prefill rules runs flash_rows (the "simt"
-        # core): the same cohort with half of each kv head's query heads,
-        # ps g = 64 rows a CTA
-        g_half = pre[2].shape[3] // 2
-        q_half = pre[2][:, :, :, :g_half].contiguous()
-        p_half = katt.flash_prefill_program(katt.PageSchedule(p_pre.schedule, p_pre.params["runs"]), q_half,
-                                            page_size=SERVE_PAGE, sm_scale=p_pre.params["sm_scale"])
-        before = LAUNCHES.cores()
-        got = launch(p_half, pre[0], pre[1], q_half, pre[3], pre[4])
-        check(LAUNCHES.cores()["sfc_flash_prefill.simt"] == before["sfc_flash_prefill.simt"] + 1,
-              f"sfc_flash_prefill g={g_half} {dtype}: not launched on its simt core")
-        want = p_half.plain(p_half, pre[0], pre[1], q_half, pre[3], pre[4])
-        torch.cuda.synchronize()
         errs[("sfc_flash_prefill", dtype)] = e_pre
-        errs[("sfc_flash_prefill.simt_half", dtype)] = attn_err(got[rows], want[rows], tol,
-                                                                 f"sfc_flash_prefill simt g={g_half} {dtype}")
+        # the same cohort with half of each kv head's query heads (ps g =
+        # 64 rows a q tile: two tiles a CTA on the same core), and with 5
+        # of them (Qwen's ps g = 80, outside both rules: flash_rows, the
+        # "simt" core)
+        sp = katt.prefill_page_schedule_device(pre[1].cpu().numpy(), pre[5], SERVE_PAGE, pre[0].shape[1],
+                                               device=device)
+        for key, heads, want_core in (("half", pre[2].shape[3] // 2, core), ("simt_g5", 5, "simt")):
+            q_part = pre[2][:, :, :, :heads].contiguous()
+            p_part = katt.flash_prefill_program(sp, q_part, page_size=SERVE_PAGE, sm_scale=p_pre.params["sm_scale"])
+            args = (pre[0], pre[1], q_part, pre[3], pre[4])
+            got, ran = launch_core(p_part, args)
+            check(ran == want_core, f"sfc_flash_prefill g={heads} {dtype}: launched on {ran}, expected {want_core}")
+            check(p_part.launched["tiles"] == (katt.WGMMA_BQ // (SERVE_PAGE * heads) if ran != "simt" else 1),
+                  f"sfc_flash_prefill g={heads} {dtype}: {p_part.launched['tiles']} q tiles a CTA")
+            want = p_part.plain(p_part, *args)
+            torch.cuda.synchronize()
+            errs[(f"sfc_flash_prefill.{key}", dtype)] = attn_err(got[rows], want[rows], tol,
+                                                                 f"sfc_flash_prefill {ran} g={heads} {dtype}")
         q, k, v, seqlen = att
         before = LAUNCHES.cores()
         got = launch(p_att, q, k, v)
@@ -2250,8 +2259,9 @@ def compare_attention(rng, device) -> dict:
         log(f"compare flash {str(dtype)[6:]} (rtol {tol['rtol']}, atol {tol['atol']}): decode B={B} Hkv={hkv} "
             f"g={g} D={d} ps={SERVE_PAGE} MP={dec[0].shape[1]} pos={dec[1].tolist()} max_abs_err="
             f"{errs[('sfc_flash_decode', dtype)]:.3e}; prefill Tq={pre[2].shape[1]} n_new={pre[5].tolist()} "
-            f"pos0={pre[1].tolist()} max_abs_err={errs[('sfc_flash_prefill', dtype)]:.3e}, simt core at "
-            f"g={pre[2].shape[3] // 2} max_abs_err={errs[('sfc_flash_prefill.simt_half', dtype)]:.3e}; attention "
+            f"pos0={pre[1].tolist()} max_abs_err={errs[('sfc_flash_prefill', dtype)]:.3e}, two q tiles a CTA "
+            f"at g={pre[2].shape[3] // 2} max_abs_err={errs[('sfc_flash_prefill.half', dtype)]:.3e}, simt core "
+            f"at g=5 max_abs_err={errs[('sfc_flash_prefill.simt_g5', dtype)]:.3e}; attention "
             f"BH={q.shape[0]} S={q.shape[1]} causal max_abs_err={e1:.3e}, with kv_seqlen {e2:.3e}, "
             f"simt core (bq = bkv = 64) with kv_seqlen {e3:.3e}")
         del dec, pre, att, got, want
@@ -2653,14 +2663,16 @@ def serving_path(rng, device, seed: int) -> list:
             "library_ms": cuda_ms(lambda: sdpa_prefill(*pre32[2:]), 10),
             "bound_ms": pf_bound, "bound_by": pf_by,
             "max_abs_err": errs[("sfc_flash_prefill", torch.float32)],
-            "simt_half_max_abs_err": errs[("sfc_flash_prefill.simt_half", torch.float32)]}
+            "half_max_abs_err": errs[("sfc_flash_prefill.half", torch.float32)],
+            "simt_g5_max_abs_err": errs[("sfc_flash_prefill.simt_g5", torch.float32)]}
     del pre32
     row("sfc_flash_prefill", lambda: launch(p_pre, *pre[:5]), lambda: p_pre.plain(p_pre, *pre[:5]), sdpa_prefill,
         pref_ops, pref_bytes, errs[("sfc_flash_prefill", torch.bfloat16)],
         {"shape": {"B": B, "Tq": T, "n_new": [int(n) for n in n_new], "pos0": pos0.tolist(), "Hkv": hkv,
                    "g": g, "D": d, "page_size": ps}, "launch_order": launch_order_ab(p_pre, pre[:5], rows_pre),
-         "ctas": int(p_pre.grid[0] * p_pre.grid[1]), "rows_per_cta": ps * g, "core": "wgmma",
-         "simt_half_max_abs_err": errs[("sfc_flash_prefill.simt_half", torch.bfloat16)], "f32": pf32})
+         "ctas": int(p_pre.grid[0] * p_pre.grid[1]), "rows_per_cta": p_pre.launched["rows_per_cta"],
+         "core": p_pre.launched["core"], "half_max_abs_err": errs[("sfc_flash_prefill.half", torch.bfloat16)],
+         "simt_g5_max_abs_err": errs[("sfc_flash_prefill.simt_g5", torch.bfloat16)], "f32": pf32})
 
     qa, ka, va, _seqlen = att
     BH, S, d = qa.shape
@@ -3636,12 +3648,17 @@ def _olmoe_cfg(dtype: str):
 def mha_cores(dtype) -> dict:
     """The core each row runs at OLMoE's shapes, by the wrappers' rules:
     decode on the split-KV core, prefill on the core ``prefill_core``
-    names (ps g = 16 rows: ``"simt"``), row 20 on ``flash_core``'s."""
+    names (ps g = 16 rows a q tile, 8 tiles a CTA: ``"wgmma"`` in bf16,
+    ``"tiled"`` in f32, never ``"simt"``), row 20 on ``flash_core``'s."""
+    import torch
     from repro_torch.kernels import attention as katt
 
     cfg = _olmoe_cfg("float32")
     d, g = cfg.attn_head_dim, cfg.num_heads // cfg.num_kv_heads
-    return {"sfc_flash_decode": "split", "sfc_flash_prefill": katt.prefill_core(dtype, d, d, SERVE_PAGE, g),
+    pre = katt.prefill_core(dtype, d, d, SERVE_PAGE, g)
+    check(pre == ("wgmma" if dtype == torch.bfloat16 else "tiled"),
+          f"sfc_flash_prefill at OLMoE's shapes, {dtype}: the rule names {pre}")
+    return {"sfc_flash_decode": "split", "sfc_flash_prefill": pre,
             "sfc_flash_attention": katt.flash_core(dtype, d, 128, 128)}
 
 
@@ -3734,6 +3751,38 @@ def olmoe_gate(rng, device, seed: int) -> dict:
     return gate
 
 
+def flash_rows_prefill(prog, args, n_new):
+    """Row 22's SIMT core (``flash_rows``, one q tile of ps g rows a CTA)
+    on the cohort of a program the rule sends to a grouped core: the C
+    entry called with the simt core's code over the schedule's per-tile
+    runs (longest first), as every shape with ps g < 128 was launched
+    before; the "was" time of :func:`time_mha`.  Returns a function that
+    launches it (counted on ``sfc_flash_prefill.simt``) and returns its
+    output; its ``ctas`` is the launch's CTA count."""
+    import torch
+    from repro_torch.kernels import attention as katt
+    from repro_torch.kernels._build import call, stream_of
+
+    pt, pos0, q, kp, vp = args
+    B, Tq, hkv, g, dk = q.shape
+    P, ps = kp.shape[:2]
+    dv, MP = vp.shape[-1], pt.shape[1]
+    sched = katt.prefill_page_schedule_device(pos0.cpu().numpy(), n_new, ps, MP, device=q.device)
+    check(torch.equal(sched.table, prog.schedule), "flash_rows_prefill: another table than the program's")
+    runs = sched.runs
+
+    def run():
+        o = torch.empty((B, Tq, hkv, g, dv), dtype=q.dtype, device=q.device)
+        call("sfc_flash_prefill", q.data_ptr(), kp.data_ptr(), vp.data_ptr(), o.data_ptr(), sched.table.data_ptr(),
+             runs.data_ptr(), int(runs.shape[0]), 1, hkv, pt.data_ptr(), pos0.data_ptr(), Tq, g, dk, dv, ps, MP, B, P,
+             prog.params["sm_scale"], 0 if q.dtype == torch.float32 else 1, katt.PREFILL_CORE_CODE["simt"],
+             stream_of(q), core="simt")
+        return o
+
+    run.ctas = int(runs.shape[0]) * hkv
+    return run
+
+
 def time_mha(rng, device, errs, launches: dict) -> list:
     """(d) rows 21 and 22 at (a)'s shapes (every slot live) and row 20 at D
     = 128, bf16 with f32 beside each: CUDA-event ms (row 21 also the device
@@ -3741,7 +3790,10 @@ def time_mha(rng, device, errs, launches: dict) -> list:
     recorded, and of the library call's), the bound (operations at the dtype's peak, or bytes:
     :func:`decode_work`, :func:`prefill_work`, :func:`attention_work`), the
     plain version's ms, the library call (page gather + SDPA; SDPA with
-    is_causal for row 20) and the core from the launch record."""
+    is_causal for row 20), the core, grid and (row 22) rows a CTA from the
+    launch record; row 22 also ``flash_rows_ms``, its SIMT core on the
+    same cohort (:func:`flash_rows_prefill`), held to the kernel's covered
+    rows at ATTN_TOL."""
     import torch
     from repro_torch.kernels import launch
 
@@ -3750,12 +3802,13 @@ def time_mha(rng, device, errs, launches: dict) -> list:
         (dec, pre, att), progs = mha_inputs(rng, device, dtype)
         work = (decode_work(dec), prefill_work(pre), attention_work(att, MHA_ROW20))
         for prog, args, (ops_, nbytes, library) in zip(progs, (dec, pre[:5], att), work):
-            _, core = launch_core(prog, args)
+            out, core = launch_core(prog, args)
             b_ms, b_by = bound_ms(ops_, peak, nbytes)
             t = {"ms": cuda_ms(lambda: launch(prog, *args), 10),
                  "plain_ms": cuda_ms(lambda: prog.plain(prog, *args), 1, warmup=0),
                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(library, 10),
-                 "max_abs_err": errs[(prog.name, dtype)], "core": core, "ctas": int(np.prod(prog.grid))}
+                 "max_abs_err": errs[(prog.name, dtype)], "core": core,
+                 "ctas": int(np.prod(prog.launched.get("grid", prog.grid)))}
             if prog.name == "sfc_flash_decode":
                 # split + merge, each once a call: the mean over the launches
                 # the profiler recorded (it drops some), with their count
@@ -3768,7 +3821,15 @@ def time_mha(rng, device, errs, launches: dict) -> list:
                          profiled_launches={k: count for k, (_, count) in stats.items()},
                          library_device_ms=sum(lib.values()), library_kernels_ms=lib, pos=args[1].tolist())
             if prog.name == "sfc_flash_prefill":
-                t.update(n_new=[int(n) for n in pre[5]], pos0=pre[1].tolist(), rows_per_cta=SERVE_PAGE)
+                rows_fn = flash_rows_prefill(prog, args, pre[5])
+                sel = prefill_covered(pre[5], pre[2].shape[1], SERVE_PAGE, device)
+                was = attn_err(rows_fn()[sel], out[sel], ATTN_TOL[str(dtype)[6:]],
+                               f"sfc_flash_prefill mha {str(dtype)[6:]}: flash_rows vs {core}")
+                t.update(n_new=[int(n) for n in pre[5]], pos0=pre[1].tolist(),
+                         rows_per_cta=prog.launched["rows_per_cta"], tiles=prog.launched["tiles"],
+                         flash_rows_ms=cuda_ms(rows_fn, 3), flash_rows_ctas=rows_fn.ctas,
+                         flash_rows_max_abs_diff=was)
+            del out
             t["bound_share"] = b_ms / t["ms"]
             timed[(prog.name, dtype)] = t
         del dec, pre, att, progs, work

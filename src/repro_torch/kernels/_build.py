@@ -70,14 +70,14 @@ SIGNATURES = {
     "sfc_chol_panel": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "sfc_chol_trailing": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # flash kernels: (q, k, v, out, [decode: workspace,] table, runs, runs,
-    # heads, ...shape, [decode: split pages, splits,] scale, dtype (the
-    # pools'), [paged: the core's code, kernels/attention.py::
-    # PREFILL_CORE_CODE / DECODE_CORE_CODE,] stream)
+    # [prefill: q tiles a CTA,] heads, ...shape, [decode: split pages,
+    # splits,] scale, dtype (the pools'), [paged: the core's code,
+    # kernels/attention.py::PREFILL_CORE_CODE / DECODE_CORE_CODE,] stream)
     "sfc_flash_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _F, _I, _P),
     "sfc_flash_decode": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                          _I, _I, _P),
-    "sfc_flash_prefill": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-                          _I, _I, _P),
+    "sfc_flash_prefill": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _F, _I, _I, _P),
 }
 
 

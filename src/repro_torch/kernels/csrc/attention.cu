@@ -19,7 +19,9 @@
 // sfc_flash_prefill replaces flash_attention_prefill (_flash_prefill_kernel):
 // a cohort's (B, Tq, Hkv, g, Dk) new tokens, causal over each slot's paged
 // prefix.  One CTA per (run, kv head); a run is one (slot, q tile of ps
-// tokens) and its rows are the ps * g (token, head) pairs of the tile.
+// tokens) and its rows are the ps * g (token, head) pairs of the tile, or
+// on the tensor-core and register-tiled cores a group of 128 / (ps g)
+// consecutive q tiles of one slot walking its last tile's run (below).
 // Rows that no run covers stay unwritten, as on the TPU.  The wrapper
 // launches the runs longest first (kernels/attention.py::longest_first):
 // a lane's runs grow with its q tiles, and in table order the launch's
@@ -102,8 +104,9 @@
 // P·V 1,024 of 1,170; the softmax's 40 expf and the copies the rest) at
 // 167 registers and one CTA (8 warps) an SM.
 //
-// sfc_flash_prefill in f32 with Dk = Dv = 64 or 128, ps * g = 128 rows a
-// CTA and pages of 4 to 64 rows (a multiple of 4) runs the same core
+// sfc_flash_prefill in f32 with Dk = Dv = 64 or 128, 128 rows a CTA (ps g
+// = 128; or groups of q tiles, below) and pages of 4 to 64 rows (a
+// multiple of 4) runs the same core
 // (tiled_core, templated on the walk) on a paged cp.async producer
 // (prefill_tiled_kernel; kernels/attention.py::prefill_core picks the core
 // and the entry launches it or refuses the call).  At the serving cohort
@@ -183,8 +186,9 @@
 // d in S, a float2 tail) read 1.724 in the same runs; in chip_smoke.py
 // 1.561, SDPA f32 1.601, flash_rows 3.78.
 //
-// sfc_flash_prefill in bf16 with Dk = Dv = 64 or 128, ps * g = 128 query
-// rows a CTA and pages of 8 to 64 rows runs the same consumer on a paged
+// sfc_flash_prefill in bf16 with Dk = Dv = 64 or 128, 128 query rows a
+// CTA (ps g = 128; or groups of q tiles, below) and pages of 8 to 64 rows
+// runs the same consumer on a paged
 // producer (prefill_wgmma_kernel; kernels/attention.py::prefill_core
 // picks the core and the entry launches it or refuses the call).  At the serving cohort (8 lanes, Tq 1024, 1,056 CTAs of
 // 128 rows, TinyLlama's Hkv 4, g 8, D 64, pages of 16) the work is 0.0415
@@ -204,6 +208,41 @@
 // masks nothing (at D = 64, row 20's fast path).  0.226-0.261 ms at that
 // shape, 2.9-3.6x faster than page gather + SDPA (0.75-0.84 in the same
 // runs; chip_smoke.py).
+//
+// Row 22 where a q tile's ps g rows fill less than a CTA: OLMoE's and
+// StableLM's g = 1 (16 rows at pages of 16), Minitron's g = 4 (64).  Both
+// cores needed ps g = 128, so every such shape ran flash_rows, a CTA of
+// ps g rows a q tile: at OLMoE's serving cohort (8 lanes, Tq 1,024, Hkv
+// 16, D 128, pages of 16) 5,584 CTAs of 16 rows on the FP32 pipes, each
+// staging its whole walk's K/V as f32 behind a row-a-thread page lookup,
+// so every K/V byte was read 8x as often as at 128 rows: 20.6-20.8 ms in
+// bf16 against a bound of 0.0435 and a page gather + SDPA of 0.71-0.83,
+// 17.5-17.6 in f32 (bound 0.540, gather + SDPA f32 3.9-4.0).  A CTA of
+// either core now takes m = 128 / (ps g) consecutive q tiles of one lane
+// (ps g in {16, 32, 64, 128}; m up to 8): its 128 rows are those tiles'
+// m ps tokens x the g heads of one kv head in PrefillWalk::row order, and
+// it walks the group's last tile's run, logical pages 0 .. that tile's
+// last page, which covers each earlier tile's pages; an earlier tile's
+// rows see the later pages masked by position, which adds exactly zero
+// to a finite online-softmax state (decode's argument above), so every
+// row is the function the per-tile walk computes.  The table stays the
+// JAX package's; the host builds the groups' runs (first row, rows, qt,
+// tiles) beside the table's (kernels/attention.py::prefill_group_runs),
+// longest first, and the entry takes the tiles a CTA holds (1: runs of
+// (first row, rows) as before, so ps g = 128 keeps its runs, grid and
+// bits).  The wgmma producer loads Q as one 4-D box of m ps tokens (at
+// most 128; TMA fills zeros past B Tq), the tiled core copies Q^T's rows
+// through the same walk and zeroes the rows of tiles a last group does
+// not hold; neither writes them (consume skips a null row), so the rows
+// written are the per-tile launch's.  A stage masks nothing when its
+// pages are live and at or before the CTA's first position, p0 + qt ps.
+// At that cohort 752 CTAs of 128 rows (one partial group a lane; the
+// causal diagonal 128 tokens wide instead of 16): 0.240 ms in bf16
+// against flash_rows' 20.73 in the same run and a gather + SDPA of 0.725
+// (0.18 of the bound, row 20's softmax its limit; at D = 128 every stage
+// takes the masked path), and on another cohort (592 CTAs) 1.540 ms in
+// f32 against 17.28 and a gather + SDPA f32 of 3.98 (0.35 of the bound;
+// H100 80GB HBM3, 700.00 W; chip_smoke.py phase 7d).
 //
 // The latent core (lat::, below) runs sfc_flash_decode and sfc_flash_prefill
 // for MLA (DeepSeek-V2's absorbed-weight attention, models/attention.py::
@@ -327,26 +366,38 @@ struct DenseWalk {
   }
 };
 
-// sfc_flash_prefill: the ps * g (token, head) rows of q tile qt of slot,
-// kv head h; kv rows of the run's pages in table order
+// sfc_flash_prefill: the (token, head) rows of the CTA's q tiles qt ..
+// qt + tiles - 1 of slot (ps * g a tile), kv head h; kv rows of the
+// walk's pages in table order.  A launch of group = 1 takes runs of
+// (first row, rows), one q tile each (its qt from the table); group > 1
+// (the wgmma and tiled cores, group = 128 / (ps g)) runs of (first row,
+// rows, qt, tiles): up to group consecutive tiles walking the last one's
+// run, whose pages cover every earlier tile's (those rows see the later
+// pages masked by position: zero added to a finite state).
 struct PrefillWalk {
   const int* sched;
   const int* table;
-  int start, slot, qt, h, hkv, tq, g, dk, dv, ps, mp, p0, nkv;
+  int start, slot, qt, tiles, h, hkv, tq, g, dk, dv, ps, mp, p0, nkv;
   static constexpr int klim = INT_MAX;
 
-  __device__ PrefillWalk(const int* sched_, const int* runs, const int* table_, const int* pos0,
-                         int tq_, int g_, int dk_, int dv_, int ps_, int mp_)
+  __device__ PrefillWalk(const int* sched_, const int* runs, int group, const int* table_,
+                         const int* pos0, int tq_, int g_, int dk_, int dv_, int ps_, int mp_)
       : sched(sched_), table(table_), tq(tq_), g(g_), dk(dk_), dv(dv_), ps(ps_), mp(mp_) {
-    start = runs[2 * blockIdx.x];
-    nkv = runs[2 * blockIdx.x + 1] * ps;
+    const int* run = runs + (group == 1 ? 2 : 4) * blockIdx.x;
+    start = run[0];
+    nkv = run[1] * ps;
     h = blockIdx.y;
     hkv = gridDim.y;
     slot = sched[6 * start];
-    qt = sched[6 * start + 1];
+    qt = group == 1 ? sched[6 * start + 1] : run[2];
+    tiles = group == 1 ? 1 : run[3];
     p0 = pos0[slot];
   }
-  __device__ int rows() const { return ps * g; }
+  // the rows of the tiles the CTA holds: a slot's last group may hold
+  // fewer than `group`; the CTA's further rows are never written (the
+  // tiled core zeroes them, the wgmma core's Q box reads them, zeros past
+  // B Tq: for the last slot they lie past q)
+  __device__ int rows() const { return tiles * ps * g; }
   __device__ size_t row(int r) const {
     const int tok = qt * ps + r / g;
     return (((size_t)slot * tq + tok) * hkv + h) * g + (r % g);
@@ -521,7 +572,7 @@ __global__ void __launch_bounds__(THREADS)
 flash_prefill_kernel(const T* q, const T* kp, const T* vp, T* o, const int* sched, const int* runs,
                      const int* table, const int* pos0, int tq, int g, int dk, int dv, int ps, int mp,
                      float scale) {
-  const PrefillWalk w(sched, runs, table, pos0, tq, g, dk, dv, ps, mp);
+  const PrefillWalk w(sched, runs, 1, table, pos0, tq, g, dk, dv, ps, mp);
   flash_rows<T, RW>(w, q, kp, vp, o, dk, dv, scale);
 }
 
@@ -686,9 +737,9 @@ struct PagedStages {
   int* facts;
   int lp, phys;  // warp 0, lane t < per: page t of the stage being looked up
 
-  __device__ PagedStages(const int* sched, const int* runs, const int* table, const int* pos0,
-                         int tq, int g, int ps, int mp, int* facts_)
-      : w(sched, runs, table, pos0, tq, g, D, D, ps, mp), facts(facts_), lp(-1), phys(0) {
+  __device__ PagedStages(const int* sched, const int* runs, int group, const int* table,
+                         const int* pos0, int tq, int g, int ps, int mp, int* facts_)
+      : w(sched, runs, group, table, pos0, tq, g, D, D, ps, mp), facts(facts_), lp(-1), phys(0) {
     per = KV / ps;
     lg = __ffs(ps) - 1;
     pages = w.nkv / ps;
@@ -791,12 +842,17 @@ __device__ __forceinline__ void tiled_core(St& st, const float* __restrict__ q,
   const int xq = rb >> 2;  // the first of the thread's two float4 chunks of rows
 
   // Q^T, once: a warp copies 8 d x 4 rows at a time (one 32-byte sector a
-  // row; banks 4 d + row with the stride BQ + 4)
+  // row; banks 4 d + row with the stride BQ + 4); the rows past the walk's
+  // (a partial group's) are zeros, never loaded
+  const int live_rows = w.rows();
   {
 #pragma unroll 4
     for (int u = warp; u < (D / 8) * (BQ / 4); u += WARPS) {
       const int d = (u % (D / 8)) * 8 + (lane & 7), r = (u / (D / 8)) * 4 + (lane >> 3);
-      cp_async4(Qs + d * LDQ + r, q + w.q_off(r) + d);
+      if (r < live_rows)
+        cp_async4(Qs + d * LDQ + r, q + w.q_off(r) + d);
+      else
+        Qs[d * LDQ + r] = 0.f;
     }
     cp_async_commit();
   }
@@ -956,12 +1012,14 @@ __device__ __forceinline__ void tiled_core(St& st, const float* __restrict__ q,
   }
   cp_async_wait<0>();
 
-  // a row's sum over its 16 lanes; O = acc / l, float4 stores
+  // a row's sum over its 16 lanes; O = acc / l, float4 stores (the
+  // walk's rows only)
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
     float lt = l[r];
 #pragma unroll
     for (int off = 8; off; off >>= 1) lt += __shfl_xor_sync(FULL, lt, off);
+    if (rb + r >= live_rows) continue;
     float* orow = o + w.o_off(rb + r);
 #pragma unroll
     for (int qq = 0; qq < NQ; ++qq)
@@ -986,17 +1044,18 @@ flash_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // One CTA per (run, kv head h): the 128 rows of PrefillWalk (tokens qt ps
-// .. qt ps + ps - 1 x the g query heads of h, row r = token g + head), the
-// run's pages in table order, KV / ps pages a stage.
+// .. (qt + group) ps - 1 x the g query heads of h, row r = token g + head;
+// group = 128 / (ps g) q tiles, rows past the walk's tiles zero and
+// unwritten), the walk's pages in table order, KV / ps pages a stage.
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
 prefill_tiled_kernel(const float* __restrict__ q, const float* __restrict__ kp,
                      const float* __restrict__ vp, float* __restrict__ o,
-                     const int* __restrict__ sched, const int* __restrict__ runs,
+                     const int* __restrict__ sched, const int* __restrict__ runs, int group,
                      const int* __restrict__ table, const int* __restrict__ pos0, int tq, int g,
                      int ps, int mp, float scale) {
   extern __shared__ __align__(16) float smem[];
-  PagedStages<D> st(sched, runs, table, pos0, tq, g, ps, mp,
+  PagedStages<D> st(sched, runs, group, table, pos0, tq, g, ps, mp,
                     reinterpret_cast<int*>(smem + Layout<D>::SMEM / 4));
   tiled_core<D>(st, q, kp, vp, o, scale, smem);
 }
@@ -1019,8 +1078,8 @@ int attention(const void* q, const void* k, const void* v, void* o, const void* 
 
 template <int D>
 int prefill(const void* q, const void* kp, const void* vp, void* o, const void* sched,
-            const void* runs, int n_runs, int hkv, const void* table, const void* pos0, int tq,
-            int g, int ps, int mp, float scale, void* stream) {
+            const void* runs, int n_runs, int group, int hkv, const void* table, const void* pos0,
+            int tq, int g, int ps, int mp, float scale, void* stream) {
   if (n_runs == 0 || hkv == 0) return 0;
   if (hkv > 65535) return (int)cudaErrorInvalidConfiguration;
   // 16-byte copies of V, float4 stores of O; K's pool beside V's
@@ -1029,7 +1088,7 @@ int prefill(const void* q, const void* kp, const void* vp, void* o, const void* 
   if (err != cudaSuccess) return (int)err;
   prefill_tiled_kernel<D><<<dim3(n_runs, hkv), THREADS, Layout<D>::PREFILL_SMEM, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)kp, (const float*)vp, (float*)o, (const int*)sched,
-      (const int*)runs, (const int*)table, (const int*)pos0, tq, g, ps, mp, scale);
+      (const int*)runs, group, (const int*)table, (const int*)pos0, tq, g, ps, mp, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1982,7 +2041,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // until the exponent, scale > 0 keeping the maxima: one branch for the
 // CTA; at D = 128 the second copy of the loop would spill); mask(j, v):
 // register j's scaled score v, MASK where the position is masked, -inf
-// where the column does not exist.  The thread's rows r0 and r0 + 8 end in o0, o1.
+// where the column does not exist.  The thread's rows r0 and r0 + 8 end in o0, o1
+// (a null pointer: a row that is not written).
 template <int D, typename Masks>
 __device__ __forceinline__ void consume(Masks& mk, const Smem<D>& sm, int wgi, int n, float scale_log2,
                                         __nv_bfloat16* o0, __nv_bfloat16* o1) {
@@ -2100,10 +2160,11 @@ __device__ __forceinline__ void consume(Masks& mk, const Smem<D>& sm, int wgi, i
 #pragma unroll
   for (int j = 0; j < D / 2; j += 2) {
     const int c = (j >> 2) * 8 + cq;
-    if (j & 2)
-      *reinterpret_cast<__nv_bfloat162*>(o1 + c) = __floats2bfloat162_rn(acc[j] / l1, acc[j + 1] / l1);
-    else
-      *reinterpret_cast<__nv_bfloat162*>(o0 + c) = __floats2bfloat162_rn(acc[j] / l0, acc[j + 1] / l0);
+    if (j & 2) {
+      if (o1) *reinterpret_cast<__nv_bfloat162*>(o1 + c) = __floats2bfloat162_rn(acc[j] / l1, acc[j + 1] / l1);
+    } else {
+      if (o0) *reinterpret_cast<__nv_bfloat162*>(o0 + c) = __floats2bfloat162_rn(acc[j] / l0, acc[j + 1] / l0);
+    }
   }
 }
 
@@ -2262,9 +2323,10 @@ struct PrefillMasks {
 };
 
 // One CTA per (run, kv head h): the 128 rows of PrefillWalk (tokens qt ps
-// .. qt ps + ps - 1 x the g query heads of h, row r = token g + head) in
-// one 4-D box of Q, the run's pages in table order, 128 / ps pages a
-// stage.  Warp 8 produces: lane 0 loads Q, and per stage lane i < 128 / ps
+// .. (qt + group) ps - 1 x the g query heads of h, row r = token g + head;
+// group = 128 / (ps g) q tiles) in one 4-D box of Q, the walk's pages in
+// table order, 128 / ps pages a stage.  Rows past the walk's tiles (a
+// partial group) are read (TMA fills zeros past B Tq) but never written.  Warp 8 produces: lane 0 loads Q, and per stage lane i < 128 / ps
 // looks up page i (PrefillWalk::page), publishes the stage's block
 // positions and issues the page's K and V boxes (ps rows of one kv head,
 // 128-byte rows, at row i ps of the stage); a slot past the run's end
@@ -2273,14 +2335,14 @@ template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
 prefill_wgmma_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
                      const __grid_constant__ CUtensorMap mv, __nv_bfloat16* __restrict__ o,
-                     const int* __restrict__ sched, const int* __restrict__ runs,
+                     const int* __restrict__ sched, const int* __restrict__ runs, int group,
                      const int* __restrict__ table, const int* __restrict__ pos0, int tq, int g,
                      int ps, int mp, float scale_log2) {
   using L = Layout<D>;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const Smem<D> sm(smem_raw);
 
-  const PrefillWalk w(sched, runs, table, pos0, tq, g, D, D, ps, mp);
+  const PrefillWalk w(sched, runs, group, table, pos0, tq, g, D, D, ps, mp);
   const int pages = w.nkv / ps;
   const int per_stage = STAGE_KV / ps;
   const int n = (pages + per_stage - 1) / per_stage;
@@ -2335,16 +2397,18 @@ prefill_wgmma_kernel(const __grid_constant__ CUtensorMap mq, const __grid_consta
     return;
   }
 
-  const int r0 = consumer_row(wgi);
+  const int r0 = consumer_row(wgi), live = w.rows();
   PrefillMasks masks{sm.facts, L::STAGES, w.qlim(r0), w.qlim(r0 + 8), w.qlim(0),
                      (threadIdx.x & 3) * 2, sm.facts, INT_MAX};
-  consume<D>(masks, sm, wgi, n, scale_log2, o + w.o_off(r0), o + w.o_off(r0 + 8));
+  consume<D>(masks, sm, wgi, n, scale_log2, r0 < live ? o + w.o_off(r0) : nullptr,
+             r0 + 8 < live ? o + w.o_off(r0 + 8) : nullptr);
 }
 
 template <int D>
 int prefill_wgmma(const void* q, const void* kp, const void* vp, void* o, const void* sched,
-                  const void* runs, int n_runs, int hkv, const void* table, const void* pos0, int tq,
-                  int g, int ps, int mp, int B, int P, float scale, void* stream) {
+                  const void* runs, int n_runs, int group, int hkv, const void* table,
+                  const void* pos0, int tq, int g, int ps, int mp, int B, int P, float scale,
+                  void* stream) {
   if (n_runs == 0 || hkv == 0) return 0;
   if (hkv > 65535) return (int)cudaErrorInvalidConfiguration;
   // TMA: 16-byte aligned bases, int32 coordinates
@@ -2352,10 +2416,11 @@ int prefill_wgmma(const void* q, const void* kp, const void* vp, void* o, const 
       (long long)B * tq > INT_MAX || (long long)P * ps > INT_MAX)
     return (int)cudaErrorInvalidValue;
   CUtensorMap mq, mk, mv;
-  // Q (B Tq, Hkv, g, D): one box is the ps tokens x g heads of one kv head
+  // Q (B Tq, Hkv, g, D): one box is the group ps tokens (BQ / g) x g heads
+  // of one kv head; past B Tq TMA fills zeros
   const uint64_t qdims[4] = {(uint64_t)D, (uint64_t)g, (uint64_t)hkv, (uint64_t)B * tq};
   const uint64_t qstrides[3] = {2ull * D, 2ull * g * D, 2ull * hkv * g * D};
-  const uint32_t qbox[4] = {64, (uint32_t)g, 1, (uint32_t)ps};
+  const uint32_t qbox[4] = {64, (uint32_t)g, 1, (uint32_t)(group * ps)};
   // the pools (P ps, Hkv, D): one box is one page of one kv head
   const uint64_t kdims[3] = {(uint64_t)D, (uint64_t)hkv, (uint64_t)P * ps};
   const uint64_t kstrides[2] = {2ull * D, 2ull * hkv * D};
@@ -2367,7 +2432,7 @@ int prefill_wgmma(const void* q, const void* kp, const void* vp, void* o, const 
   const cudaError_t attr = raise_smem_limit<prefill_wgmma_kernel<D>>(Layout<D>::PREFILL_SMEM);
   if (attr != cudaSuccess) return (int)attr;
   prefill_wgmma_kernel<D><<<dim3(n_runs, hkv), THREADS, Layout<D>::PREFILL_SMEM, (cudaStream_t)stream>>>(
-      mq, mk, mv, (__nv_bfloat16*)o, (const int*)sched, (const int*)runs, (const int*)table,
+      mq, mk, mv, (__nv_bfloat16*)o, (const int*)sched, (const int*)runs, group, (const int*)table,
       (const int*)pos0, tq, g, ps, mp, scale * LOG2E);
   return (int)cudaGetLastError();
 }
@@ -2383,21 +2448,30 @@ bool core_shape(int D, int bq, int bkv) {
   return (D == 64 || D == 80 || D == 128) && bq == 128 && bkv % 64 == 0;
 }
 
+// a q tile's ps * g rows that whole tiles fill a 128-row CTA with: 16,
+// 32, 64 or 128 (the CTA holds 128 / (ps g) consecutive tiles; at most 8)
+constexpr int PREFILL_TILE_MIN = 16;
+bool prefill_tile_rows(int ps, int g) {
+  const int rows = ps * g;
+  return rows >= PREFILL_TILE_MIN && rows <= tc::BQ && tc::BQ % rows == 0;
+}
+
 // the prefill shapes the tensor-core core takes (bf16 inputs): Dk == Dv
-// in {64, 128}; a CTA's ps * g rows are the two warpgroups' 128; whole
+// in {64, 128}; whole q tiles fill the two warpgroups' 128 rows; whole
 // pages a 64-row half (64 % ps == 0) of at least 8 rows, so that every
 // page's box lands on a 1024-byte swizzle atom.
 bool prefill_tensor_core_shape(int dk, int dv, int ps, int g) {
-  return dk == dv && (dk == 64 || dk == 128) && ps * g == tc::BQ && ps >= 8 && 64 % ps == 0;
+  return dk == dv && (dk == 64 || dk == 128) && prefill_tile_rows(ps, g) && ps >= 8 && 64 % ps == 0;
 }
 
 // the prefill shapes the register-tiled core takes (f32 inputs): Dk == Dv
-// in {64, 128}; a CTA's ps * g rows are its 128; whole pages a 64-row
+// in {64, 128}; whole q tiles fill its 128 rows; whole pages a 64-row
 // stage (64 % ps == 0) whose rows a thread's 4 kv columns do not straddle
 // (ps % 4 == 0): ps in {4, 8, 16, 32, 64}, a power of two.
-static_assert(tiled::KV == 64 && tiled::PAGE_MIN == 4, "prefill_tiled_shape's constants");
+static_assert(tiled::KV == 64 && tiled::PAGE_MIN == 4 && tiled::BQ == tc::BQ,
+              "prefill_tiled_shape's constants");
 bool prefill_tiled_shape(int dk, int dv, int ps, int g) {
-  return dk == dv && (dk == 64 || dk == 128) && ps * g == tiled::BQ && ps >= tiled::PAGE_MIN &&
+  return dk == dv && (dk == 64 || dk == 128) && prefill_tile_rows(ps, g) && ps >= tiled::PAGE_MIN &&
          ps % tiled::PAGE_MIN == 0 && tiled::KV % ps == 0;
 }
 
@@ -2468,14 +2542,20 @@ extern "C" int sfc_flash_decode(const void* q, const void* kp, const void* vp, v
 }
 
 // core: a PrefillCore code, the core the wrapper picked; the entry
-// launches it, or refuses the call for a shape outside that core's rule
+// launches it, or refuses the call for a shape outside that core's rule.
+// tiles: the q tiles a CTA holds, 128 / (ps g) on the wgmma and tiled
+// cores (runs of (first row, rows, qt, tiles); kernels/attention.py::
+// prefill_group_runs), 1 on the others (runs of (first row, rows)).
 extern "C" int sfc_flash_prefill(const void* q, const void* kp, const void* vp, void* o,
-                                 const void* sched, const void* runs, int n_runs, int hkv,
+                                 const void* sched, const void* runs, int n_runs, int tiles, int hkv,
                                  const void* table, const void* pos0, int tq, int g, int dk, int dv,
                                  int ps, int mp, int B, int P, float scale, int dtype, int core,
                                  void* stream) {
+  if (ps < 1 || g < 1) return (int)cudaErrorInvalidValue;
+  const bool grouped = core == PREFILL_WGMMA || core == PREFILL_TILED;
+  if (tiles != (grouped && ps * g <= tc::BQ ? tc::BQ / (ps * g) : 1)) return (int)cudaErrorInvalidValue;
   if (core == PREFILL_LATENT) {
-    if (!lat::shape(hkv, dk, dv) || g < 1 || ps < 1 || !latent_operands(q, kp, vp))
+    if (!lat::shape(hkv, dk, dv) || !latent_operands(q, kp, vp))
       return (int)cudaErrorInvalidValue;
     if (dtype == 0)
       return lat::prefill<float>(q, kp, o, sched, runs, n_runs, table, pos0, tq, g, dk, ps, mp,
@@ -2483,20 +2563,20 @@ extern "C" int sfc_flash_prefill(const void* q, const void* kp, const void* vp, 
     return lat::prefill<__nv_bfloat16>(q, kp, o, sched, runs, n_runs, table, pos0, tq, g, dk, ps,
                                        mp, scale, stream);
   }
-  if (bad_shape(ps * g, dk, dv) || ps < 1) return (int)cudaErrorInvalidValue;
+  if (bad_shape(ps * g, dk, dv)) return (int)cudaErrorInvalidValue;
   if (core == PREFILL_WGMMA) {
     if (dtype == 0 || !prefill_tensor_core_shape(dk, dv, ps, g)) return (int)cudaErrorInvalidValue;
-    return dk == 64 ? tc::prefill_wgmma<64>(q, kp, vp, o, sched, runs, n_runs, hkv, table, pos0, tq,
-                                            g, ps, mp, B, P, scale, stream)
-                    : tc::prefill_wgmma<128>(q, kp, vp, o, sched, runs, n_runs, hkv, table, pos0, tq,
-                                             g, ps, mp, B, P, scale, stream);
+    return dk == 64 ? tc::prefill_wgmma<64>(q, kp, vp, o, sched, runs, n_runs, tiles, hkv, table,
+                                            pos0, tq, g, ps, mp, B, P, scale, stream)
+                    : tc::prefill_wgmma<128>(q, kp, vp, o, sched, runs, n_runs, tiles, hkv, table,
+                                             pos0, tq, g, ps, mp, B, P, scale, stream);
   }
   if (core == PREFILL_TILED) {
     if (dtype != 0 || !prefill_tiled_shape(dk, dv, ps, g)) return (int)cudaErrorInvalidValue;
-    return dk == 64 ? tiled::prefill<64>(q, kp, vp, o, sched, runs, n_runs, hkv, table, pos0, tq, g,
-                                         ps, mp, scale, stream)
-                    : tiled::prefill<128>(q, kp, vp, o, sched, runs, n_runs, hkv, table, pos0, tq, g,
-                                          ps, mp, scale, stream);
+    return dk == 64 ? tiled::prefill<64>(q, kp, vp, o, sched, runs, n_runs, tiles, hkv, table, pos0,
+                                         tq, g, ps, mp, scale, stream)
+                    : tiled::prefill<128>(q, kp, vp, o, sched, runs, n_runs, tiles, hkv, table, pos0,
+                                          tq, g, ps, mp, scale, stream);
   }
   if (core != PREFILL_SIMT) return (int)cudaErrorInvalidValue;
   if (dtype == 0)

@@ -118,6 +118,71 @@ def test_prefill_launch_runs_longest_first(pos0, n_new, ps, MP):
     assert rows.any() and torch.equal(a[rows], b[rows]) and torch.isnan(a[~rows]).all()
 
 
+def _group_oracle(table, m):
+    """The grouped CTAs of a prefill table, from its rows alone: each
+    slot's q tiles 0 .. n_qt - 1 cut into groups of m (the last shorter),
+    each walking the table rows of its last tile, (start, rows, qt0,
+    tiles) in table order."""
+    valid = table[:, 5] == 1
+    out = []
+    for slot in sorted(set(table[valid, 0].tolist())):
+        n_qt = int(table[valid & (table[:, 0] == slot), 1].max()) + 1
+        for qt0 in range(0, n_qt, m):
+            last = min(qt0 + m, n_qt) - 1
+            rows = np.flatnonzero(valid & (table[:, 0] == slot) & (table[:, 1] == last))
+            np.testing.assert_array_equal(rows, np.arange(rows[0], rows[0] + len(rows)))
+            out.append((rows[0], len(rows), qt0, last - qt0 + 1))
+    out.sort(key=lambda r: r[0])
+    return np.asarray(out, np.int32).reshape(-1, 4)
+
+
+@pytest.mark.parametrize("pos0,n_new,ps,MP", [
+    ((0, 37, 5, 300), (64, 29, 0, 200), 16, 32),    # OLMoE-like: an inactive lane, unaligned resumes
+    ((3, 0, 9), (17, 4, 0), 4, 8),                  # staggered resume positions, pages of 4
+    ((0,), (5,), 16, 2),                            # Tq smaller than one group: a lone partial tile
+    ((6, 2, 0, 11), (9, 16, 1, 5), 8, 3),           # pages clamped at max_pages - 1
+    ((0, 301, 64, 9), (256, 230, 197, 0), 16, 72),  # runs of 1 .. 34 pages, ties
+    ((0,), (0,), 8, 2),                             # nothing to prefill
+])
+@pytest.mark.parametrize("m", [1, 2, 4, 8])
+def test_prefill_group_runs_match_oracle(pos0, n_new, ps, MP, m):
+    """The grouped runs of a cohort against a numpy oracle on the JAX
+    table: every (slot, q tile) of the table lies in exactly one group, a
+    group holds at most m consecutive tiles of one slot and walks its last
+    tile's run (which covers each earlier tile's pages); m = 1 gives the
+    table's runs exactly; the device upload launches them longest first
+    (ties in table order)."""
+    table = np.asarray(jatt.prefill_page_schedule(pos0, n_new, ps, MP))
+    got = tatt.prefill_group_runs(table, m)
+    np.testing.assert_array_equal(got, _group_oracle(table, m))
+    valid = table[:, 5] == 1
+    tiles = {(int(s), int(t)) for s, t in table[valid][:, :2]}
+    seen = []
+    for start, n, qt0, k in got:
+        slot = table[start, 0]
+        assert 1 <= k <= m
+        walk = table[start:start + n]
+        assert (walk[:, 0] == slot).all() and (walk[:, 1] == qt0 + k - 1).all()
+        assert walk[0, 3] == 1 and walk[-1, 4] == 1
+        np.testing.assert_array_equal(walk[:, 2], np.arange(n))  # logical pages 0 .. last
+        for qt in range(qt0, qt0 + k):
+            own = table[valid & (table[:, 0] == slot) & (table[:, 1] == qt), 2]
+            assert set(own.tolist()) <= set(walk[:, 2].tolist())
+            seen.append((int(slot), qt))
+    assert sorted(seen) == sorted(tiles) and len(seen) == len(set(seen))
+    runs = tatt.schedule_runs(table, 3, 4, valid_col=5)
+    if m == 1:
+        np.testing.assert_array_equal(got[:, :2], runs)
+        np.testing.assert_array_equal(got[:, 2], table[runs[:, 0], 1])
+        assert (got[:, 3] == 1).all()
+    dev = tatt.prefill_page_schedule_device(pos0, n_new, ps, MP, device="cpu")
+    assert set(dev.groups) == {k for k in tatt.PREFILL_GROUPS if k * ps <= 128}
+    if m in dev.groups:
+        order = sorted(range(len(got)), key=lambda i: (-got[i, 1], i))
+        np.testing.assert_array_equal(dev.groups[m].numpy(), got[order].reshape(-1, 4))
+        np.testing.assert_array_equal(tatt.longest_first(got), dev.groups[m].numpy())
+
+
 def _check_runs(table, runs, first_col, last_col, key_cols, valid_col=None):
     """Every valid row lies in exactly one run; a run starts at a first
     row, ends at a last row, and keeps one (q tile | slot | (slot, qt))."""
@@ -342,6 +407,47 @@ def test_flash_prefill_plain_matches_pallas(dtype, D, ps, g, Hkv):
     assert np.isfinite(got[covered]).all(), "pad rows of a covered tile stay finite"
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("D,g,ps,Tq", [
+    pytest.param(128, 1, 16, 144, id="olmoe-g1-D128"),    # 8 tiles a CTA: one full group, one of a tile
+    pytest.param(64, 1, 16, 48, id="stablelm-g1-D64"),    # Tq under one group: every group partial
+    pytest.param(128, 4, 16, 48, id="minitron-g4-D128"),  # 2 tiles a CTA, the last group partial
+    pytest.param(64, 2, 8, 40, id="g2-D64-ps8"),          # 8 tiles a CTA of 16 rows each
+])
+def test_grouped_prefill_plain_matches_pallas(dtype, D, g, ps, Tq):
+    """Row 22 where a q tile's ps g rows fill less than a CTA: the plain
+    version of the grouped CTAs (m = 128 / (ps g) consecutive q tiles of
+    a lane over its last tile's pages, the rows past Tq zero and never
+    written) against the JAX package's ``flash_attention_prefill`` in
+    interpret mode, on the rows the schedule covers: f32 within 1e-4,
+    bf16 within rtol 8e-3 / atol 4e-3.  The cohort: a lane from 0, one
+    resuming mid-page with a ragged tail, an inactive lane, a lane at 300
+    (unmasked stages); garbage in the trash page."""
+    rng = np.random.default_rng(D + g + ps + Tq)
+    B, Hkv = 4, 2
+    pos0 = np.array([0, 37, 5, 300], np.int32)
+    n_new = np.array([Tq, Tq - 13, 0, Tq - ps], np.int32)
+    MP = -(-(300 + Tq) // ps)
+    P = B * MP + 1
+    core = tatt.prefill_core(dtype, D, D, ps, g)
+    assert core == ("tiled" if dtype == torch.float32 else "wgmma")
+    sched, args = _prefill_case(rng, B, Hkv, g, D, ps, MP, P, Tq, pos0, n_new, dtype)
+    prog = tatt.flash_prefill_program(sched, args[2], page_size=ps, sm_scale=D ** -0.5)
+    m = 128 // (ps * g)
+    assert prog.params["tiles"] == m and torch.equal(prog.params["runs"], sched.groups[m])
+    got = launch(prog, *args).float().numpy()
+    jd = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    want = _np(jatt.flash_attention_prefill(
+        jnp.asarray(jatt.prefill_page_schedule(pos0, n_new, ps, MP)), *(jnp.asarray(a.numpy()) for a in args[:2]),
+        *(jnp.asarray(a.float().numpy(), jd) for a in args[2:]), interpret=True))
+    covered = np.zeros((B, Tq), bool)
+    for b in range(B):
+        covered[b, : -(-n_new[b] // ps) * ps] = True
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else dict(rtol=8e-3, atol=4e-3)
+    assert np.isfinite(got[covered]).all() and np.isnan(got[~covered]).all()
+    np.testing.assert_allclose(got[covered], want[covered], **tol)
+
+
 @pytest.mark.parametrize("mask_type", ["none", "causal", "padding", "padding_causal"])
 def test_ops_attention_mask_types_gqa(mask_type):
     rng = np.random.default_rng(5)
@@ -476,7 +582,7 @@ def test_attention_wrapper_launch_arguments_d80_aligned_bases(monkeypatch, dtype
     (torch.float32, 64, 64, 16, 8, "tiled"),  # the f32 replay gate
     (torch.bfloat16, 64, 64, 128, 1, "simt"),  # stablelm's g = 1: a page wider than a half
     (torch.bfloat16, 64, 64, 4, 32, "simt"),  # a page box under one swizzle atom
-    (torch.bfloat16, 64, 64, 16, 4, "simt"),  # 64 rows a CTA
+    (torch.bfloat16, 64, 64, 16, 4, "wgmma"),  # 64 rows a q tile: two tiles a CTA
     (torch.bfloat16, 64, 64, 16, 16, "simt"),  # 256 rows a CTA
     (torch.bfloat16, 64, 32, 16, 8, "simt"),  # Dk != Dv
     (torch.bfloat16, 96, 96, 16, 8, "simt"),
@@ -486,19 +592,38 @@ def test_attention_wrapper_launch_arguments_d80_aligned_bases(monkeypatch, dtype
     (torch.float32, 64, 64, 64, 2, "tiled"),  # one page a stage
     (torch.float32, 128, 128, 16, 8, "tiled"),
     (torch.float32, 128, 128, 8, 16, "tiled"),
-    (torch.float32, 64, 64, 16, 4, "simt"),  # 64 rows a CTA
+    (torch.float32, 64, 64, 16, 4, "tiled"),  # 64 rows a q tile: two tiles a CTA
     (torch.float32, 64, 32, 16, 8, "simt"),  # Dk != Dv
     (torch.float32, 96, 96, 16, 8, "simt"),
     (torch.float32, 64, 64, 24, 5, "simt"),  # 120 rows, pages not dividing a stage
     (torch.float32, 64, 64, 2, 64, "simt"),  # pages under a thread's 4 kv columns
     (torch.float32, 64, 64, 128, 1, "simt"),  # stablelm's g = 1: a page wider than a stage
+    (torch.bfloat16, 128, 128, 16, 5, "simt"),  # Qwen's g = 5: 80 rows do not divide 128
+    (torch.float32, 128, 128, 16, 5, "simt"),
+    (torch.bfloat16, 64, 64, 16, 12, "simt"),  # 192 rows a q tile
+] + [
+    # g = 1, 2, 4 at pages of 4 .. 64 rows: (g, ps): (bf16's core, f32's).
+    # The q tile's ps g rows must be 16, 32, 64 or 128; bf16 pages at least
+    # 8 rows, f32 pages a multiple of 4
+    (dtype, 128, 128, ps, g, cores[dtype == torch.float32])
+    for (g, ps), cores in {
+        (1, 4): ("simt", "simt"), (1, 8): ("simt", "simt"), (1, 16): ("wgmma", "tiled"),
+        (1, 32): ("wgmma", "tiled"), (1, 64): ("wgmma", "tiled"),
+        (2, 4): ("simt", "simt"), (2, 8): ("wgmma", "tiled"), (2, 16): ("wgmma", "tiled"),
+        (2, 32): ("wgmma", "tiled"), (2, 64): ("wgmma", "tiled"),
+        (4, 4): ("simt", "tiled"), (4, 8): ("wgmma", "tiled"), (4, 16): ("wgmma", "tiled"),
+        (4, 32): ("wgmma", "tiled"), (4, 64): ("simt", "simt"),
+    }.items()
+    for dtype in (torch.bfloat16, torch.float32)
 ])
 def test_prefill_core_rule(dtype, dk, dv, ps, g, core):
-    """At Dk = Dv in (64, 128), ps * g = 128 and whole pages in a 64-row
-    half or stage: bf16 with pages of 8 to 64 rows runs on the tensor
-    cores, f32 with pages of 4 to 64 rows (a multiple of 4) on the
-    register-tiled core; the rest on the SIMT core."""
+    """At Dk = Dv in (64, 128), a q tile's ps * g rows in (16, 32, 64,
+    128) and whole pages in a 64-row half or stage: bf16 with pages of 8
+    to 64 rows runs on the tensor cores, f32 with pages of 4 to 64 rows (a
+    multiple of 4) on the register-tiled core, each CTA 128 / (ps g) q
+    tiles; the rest on the SIMT core."""
     assert tatt.prefill_core(dtype, dk, dv, ps, g) == core
+    assert tatt.prefill_tiles(core, ps, g) == (128 // (ps * g) if core != "simt" else 1)
 
 
 def _prefill_case(rng, B, Hkv, g, D, ps, MP, P, Tq, pos0, n_new, dtype=torch.float32, device="cpu"):
@@ -521,13 +646,22 @@ def _prefill_case(rng, B, Hkv, g, D, ps, MP, P, Tq, pos0, n_new, dtype=torch.flo
     (torch.float32, 128, 4, 32, "tiled"),
     (torch.float32, 64, 64, 2, "tiled"),
     (torch.float32, 96, 16, 8, "simt"),
+    # q tiles of fewer than 128 rows: 128 / (ps g) of them a CTA
+    (torch.bfloat16, 128, 16, 1, "wgmma"),  # OLMoE's: 8 tiles a CTA
+    (torch.float32, 128, 16, 1, "tiled"),
+    (torch.bfloat16, 64, 16, 4, "wgmma"),  # Minitron's g = 4: 2 tiles a CTA
+    (torch.float32, 64, 8, 2, "tiled"),  # 8 tiles a CTA
+    (torch.float32, 64, 4, 4, "tiled"),  # pages of 4: 8 tiles a CTA
+    (torch.bfloat16, 128, 16, 5, "simt"),  # Qwen's g = 5: one tile a CTA
 ])
 def test_prefill_wrapper_launch_arguments(monkeypatch, dtype, D, ps, g, core):
     """``_prefill_cuda``'s host side on CPU tensors, the kernel call
     recorded: the core its rule picks is counted with the entry point and
-    passed to the C entry by its code (simt 0, wgmma 1, tiled 2), and the
-    C arguments carry the cohort's B and the pool's P (the extents of the
-    tensor maps) beside the walk's shape."""
+    passed to the C entry by its code (simt 0, wgmma 1, tiled 2) with the
+    q tiles a CTA holds, over the runs grouped by them (the schedule's
+    runs at one tile); the C arguments carry the cohort's B and the pool's
+    P (the extents of the tensor maps) beside the walk's shape, and the
+    launch record its core, grid, tiles and rows a CTA."""
     calls = []
     monkeypatch.setattr(tatt, "require", lambda *a, **k: None)
     monkeypatch.setattr(tatt, "stream_of", lambda t: 0)
@@ -541,12 +675,27 @@ def test_prefill_wrapper_launch_arguments(monkeypatch, dtype, D, ps, g, core):
     assert out.shape == (B, Tq, Hkv, g, D) and out.dtype == dtype
     ((name, cargs, got_core),) = calls
     assert name == "sfc_flash_prefill" and got_core == core
-    # (q, k, v, o, table, runs, n_runs, hkv, page_table, pos0, tq, g, dk, dv, ps, mp, B, P, scale,
-    #  dtype, core, stream): the C entry launches the core the rule picked
-    assert cargs[6:8] == (len(sched.runs), Hkv) and len(sched.runs) == 3
-    assert cargs[10:] == (Tq, g, D, D, ps, MP, B, P, 0.125, 0 if dtype == torch.float32 else 1,
+    tiles = 1 if core == "simt" else 128 // (ps * g)
+    runs = sched.runs if tiles == 1 else sched.groups[tiles]
+    # lane 0's two tiles are one group, lane 1's one tile another
+    assert torch.equal(prog.params["runs"], runs) and len(runs) == (3 if tiles == 1 else 2)
+    assert prog.grid == (len(runs), Hkv) and cargs[5] == runs.data_ptr()
+    # (q, k, v, o, table, runs, n_runs, tiles, hkv, page_table, pos0, tq, g, dk, dv, ps, mp, B, P,
+    #  scale, dtype, core, stream): the C entry launches the core the rule picked
+    assert cargs[6:9] == (len(runs), tiles, Hkv)
+    assert cargs[11:] == (Tq, g, D, D, ps, MP, B, P, 0.125, 0 if dtype == torch.float32 else 1,
                           {"simt": 0, "wgmma": 1, "tiled": 2}[core], 0)
     assert cargs[0] == args[2].data_ptr() and cargs[1] == args[3].data_ptr()
+    assert prog.launched == {"core": core, "grid": prog.grid, "tiles": tiles, "rows_per_cta": tiles * ps * g}
+    if tiles > 1:  # a program of the other tile count is refused (a float16 q takes no grouped core)
+        prog1 = tatt.flash_prefill_program(tatt.PageSchedule(sched.table, sched.runs), args[2].to(torch.float16),
+                                           page_size=ps, sm_scale=0.125)
+        assert prog1.params["tiles"] == 1
+        with pytest.raises(ValueError, match="tiles"):
+            tatt._prefill_cuda(prog1, *args)
+        with pytest.raises(ValueError, match="grouped"):
+            tatt.flash_prefill_program(tatt.PageSchedule(sched.table, sched.runs), args[2], page_size=ps,
+                                       sm_scale=0.125)
 
 
 @pytest.mark.parametrize("ps,MP,g,splits,groups", [
@@ -607,35 +756,48 @@ def _box_rows(strides, box, origin):
     return np.asarray(rows)
 
 
-@pytest.mark.parametrize("ps,g", [(16, 8), (8, 16), (32, 4)])
+@pytest.mark.parametrize("ps,g", [(16, 8), (8, 16), (32, 4), (16, 1), (16, 4), (8, 2), (64, 1)])
 def test_prefill_tma_boxes_are_the_walk(ps, g):
     """The host twin of the tensor-core core's TMA boxes on a small cohort:
-    the Q box {64, g, 1, ps} at (0, 0, h, slot Tq + qt ps) of the map
-    {Dk, g, Hkv, B Tq} loads row r = token g + head of PrefillWalk::row,
-    and the page box {64, 1, ps} at (0, h, phys ps) of the pool map {D,
-    Hkv, P ps} the ps kv rows of PrefillWalk::kv, for every run and page;
-    both match the plain version's gathers."""
+    the Q box {64, g, 1, m ps} (m = 128 / (ps g) q tiles a CTA) at (0, 0,
+    h, slot Tq + qt0 ps) of the map {Dk, g, Hkv, B Tq} loads row r = token
+    g + head of PrefillWalk::row for the rows of the tiles the CTA holds
+    (a partial group's further rows are never written; past B Tq TMA
+    fills zeros), and the page box {64, 1, ps} at (0, h, phys ps) of the
+    pool map {D, Hkv, P ps} the ps kv rows of PrefillWalk::kv, for every
+    CTA and page of its walk; both match the plain version's gathers."""
     rng = np.random.default_rng(ps)
     B, Hkv, D, MP, Tq = 3, 2, 64, 40, 8 * ps
     P = B * MP + 1
     pos0, n_new = [0, 37, 130], [Tq, 45, 0]
     sched, args = _prefill_case(rng, B, Hkv, g, D, ps, MP, P, Tq, pos0, n_new)
+    m = 128 // (ps * g)
     pt = args[0].numpy()
-    table, runs = sched.table.numpy(), sched.runs.numpy()
+    table = sched.table.numpy()
+    runs = sched.runs.numpy() if m == 1 else sched.groups[m].numpy()
     q_strides = (1, D, g * D, Hkv * g * D)  # the map's byte strides / 2
     kv_strides = (1, D, Hkv * D)
     q_flat = args[2].reshape(-1)
     k_flat = args[3].reshape(-1)
-    for start, n in runs:
-        slot, qt = table[start, 0], table[start, 1]
+    for run in runs:
+        start, n = run[:2]
+        slot = table[start, 0]
+        qt0, tiles = (table[start, 1], 1) if m == 1 else run[2:]
+        live = tiles * ps * g  # PrefillWalk::rows()
         for h in range(Hkv):
-            got = _box_rows(q_strides, (64, g, 1, ps), (0, 0, h, slot * Tq + qt * ps))
+            got = _box_rows(q_strides, (64, g, 1, m * ps), (0, 0, h, slot * Tq + qt0 * ps))
             # PrefillWalk::row(r) * dk
-            r = np.arange(ps * g)
-            want = (((slot * Tq + qt * ps + r // g) * Hkv + h) * g + r % g) * D
+            r = np.arange(m * ps * g)
+            want = (((slot * Tq + qt0 * ps + r // g) * Hkv + h) * g + r % g) * D
             np.testing.assert_array_equal(got, want)
-            plain = args[2][slot, qt * ps:(qt + 1) * ps, h].reshape(ps * g, D)
-            assert torch.equal(q_flat[got[:, None] + np.arange(D)], plain)
+            assert len(got) == 128
+            # a partial group's further rows lie past its lane's covered
+            # tokens (past q for the last lane: TMA fills zeros)
+            covered = slot * Tq + -(-n_new[slot] // ps) * ps
+            assert (slot * Tq + qt0 * ps + r[live:] // g >= covered).all()
+            assert (got[:live] < q_flat.numel()).all()
+            plain = args[2][slot, qt0 * ps:(qt0 + tiles) * ps, h].reshape(live, D)
+            assert torch.equal(q_flat[got[:live, None] + np.arange(D)], plain)
             for t in range(n):
                 lp = table[start + t, 2]
                 phys = pt[slot, lp]
@@ -851,33 +1013,57 @@ def test_f32_flash_attention_tiled_matches_plain(S, D, table, bkv, mask):
     assert cores["sfc_flash_attention.simt"] == cores["sfc_flash_attention.wgmma"] == 0
 
 
+def _grouped_cohort(ps, g):
+    """A cohort where a q tile's ps g rows fill less than a CTA (m = 128 /
+    (ps g) tiles a CTA): Tq not a multiple of a group's m ps tokens, so
+    the last lane (all Tq tokens new) ends in a partial group reaching
+    past Tq and past q; a lane from 0, one resuming mid-page at 301 with a
+    ragged tail, a page-aligned lane of 4 tiles (a partial group) and a
+    lane with no new tokens.  (B, Tq, pos0, n_new, MP)."""
+    Tq = 4 * (128 // g) - ps
+    pos0, n_new = [0, 301, 4 * ps, 9, 37], [min(Tq, 8 * ps), Tq - 13, 3 * ps + 5, 0, Tq]
+    return len(pos0), Tq, pos0, n_new, max(72, -(-(301 + Tq) // ps))
+
+
+# (D, ps, g) with ps g < 128: 128 / (ps g) q tiles a CTA (OLMoE's and
+# StableLM's g = 1, Minitron's g = 4, and 16-row tiles of 8 a CTA)
+GROUPED_PREFILL = [(128, 16, 1), (64, 16, 1), (128, 16, 4), (64, 8, 2), (128, 64, 1), (64, 32, 1),
+                   (128, 8, 4)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("D,ps,g", [(64, 16, 8), (128, 16, 8), (64, 8, 16), (64, 32, 4)])
+@pytest.mark.parametrize("D,ps,g", [(64, 16, 8), (128, 16, 8), (64, 8, 16), (64, 32, 4)] + GROUPED_PREFILL)
 def test_bf16_flash_prefill_wgmma_matches_plain(D, ps, g):
     """Row 22's tensor-core core against ``_prefill_plain`` (f32
     throughout, output rounded to bf16) on the same CUDA inputs, at the
-    serving tolerance (rtol 8e-3, atol 4e-3).  The cohort: a slot from
-    position 0 whose 8 q tiles walk runs of 1 .. 8 pages (every count mod
-    8), a slot resuming mid-page at 301 (unmasked stages before the last
-    two pages, runs of 19 .. 33 pages), a page-aligned slot at 4 ps with
-    a ragged last tile, and a lane with no new tokens; only the
-    tensor-core core launches."""
+    serving tolerance (rtol 8e-3, atol 4e-3).  The cohort at ps g = 128: a
+    slot from position 0 whose 8 q tiles walk runs of 1 .. 8 pages (every
+    count mod 8), a slot resuming mid-page at 301 (unmasked stages before
+    the last two pages, runs of 19 .. 33 pages), a page-aligned slot at 4
+    ps with a ragged last tile, and a lane with no new tokens; below 128
+    rows a q tile, :func:`_grouped_cohort` (partial groups, the last
+    lane's past Tq) with garbage in the trash page.  Only the tensor-core
+    core launches, over the runs grouped by 128 / (ps g) tiles."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     dev = torch.device("cuda")
     rng = np.random.default_rng(D + ps)
     B, Hkv, MP = 4, 2, 72
     Tq = 256
-    P = B * MP + 1
     pos0, n_new = [0, 301, 4 * ps, 9], [8 * ps, 230, 3 * ps + 5, 0]
+    if ps * g < 128:
+        B, Tq, pos0, n_new, MP = _grouped_cohort(ps, g)
+    P = B * MP + 1
     sched, args = _prefill_case(rng, B, Hkv, g, D, ps, MP, P, Tq, pos0, n_new, torch.bfloat16, dev)
     prog = tatt.flash_prefill_program(sched, args[2], page_size=ps, sm_scale=D ** -0.5)
     assert tatt.prefill_core(torch.bfloat16, D, D, ps, g) == "wgmma"
+    assert prog.params["tiles"] == 128 // (ps * g)
     LAUNCHES.reset()
     got = prog.launcher(prog, *args)
     want = prog.plain(prog, *args)
     cores = LAUNCHES.cores()
     assert cores["sfc_flash_prefill.wgmma"] == 1 and cores["sfc_flash_prefill.simt"] == 0
+    assert prog.launched["tiles"] == prog.params["tiles"] and prog.launched["rows_per_cta"] == 128
     rows = torch.zeros((B, Tq), dtype=torch.bool, device=dev)
     for b in range(B):
         rows[b, : -(-n_new[b] // ps) * ps] = True
@@ -887,15 +1073,19 @@ def test_bf16_flash_prefill_wgmma_matches_plain(D, ps, g):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("D,ps,g", [(64, 16, 8), (128, 16, 8), (64, 8, 16), (64, 32, 4), (64, 4, 32),
-                                    (64, 64, 2)])
+                                    (64, 64, 2)] + GROUPED_PREFILL + [(64, 4, 4), (128, 4, 16)])
 def test_f32_flash_prefill_tiled_matches_plain(D, ps, g):
     """Row 22's register-tiled f32 core against ``_prefill_plain`` on the
     same CUDA inputs, within 1e-4 (every score is flash_rows' chain; the
     row sums and P·V add in another order), on the tensor-core core's
     cohort: runs of every page count mod 64 / ps from position 0, a resume
     mid-page at 301, a page-aligned lane with a ragged last tile and a
-    lane with no new tokens.  Every physical page that no run reads holds
-    NaN, so a stray read shows; only the tiled core launches."""
+    lane with no new tokens; below 128 rows a q tile,
+    :func:`_grouped_cohort` (partial groups, the last lane's past Tq and
+    past q, whose rows the core zeroes instead of loading).  Every
+    physical page that no run reads holds NaN, so a stray read shows; only
+    the tiled core launches, over the runs grouped by 128 / (ps g)
+    tiles."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     dev = torch.device("cuda")
@@ -904,6 +1094,8 @@ def test_f32_flash_prefill_tiled_matches_plain(D, ps, g):
     pos0 = [0, 301, 4 * ps, 9]
     n_new = [min(Tq, max(8, 64 // ps) * ps), 230, 3 * ps + 5, 0]
     MP = max(72, -(-(301 + 230) // ps))
+    if ps * g < 128:
+        B, Tq, pos0, n_new, MP = _grouped_cohort(ps, g)
     P = B * MP + 1
     sched, args = _prefill_case(rng, B, Hkv, g, D, ps, MP, P, Tq, pos0, n_new, torch.float32, dev)
     # the pages the runs read: each live lane's pages up to its last new token's
@@ -914,17 +1106,51 @@ def test_f32_flash_prefill_tiled_matches_plain(D, ps, g):
     args[4][unread] = float("nan")
     prog = tatt.flash_prefill_program(sched, args[2], page_size=ps, sm_scale=D ** -0.5)
     assert tatt.prefill_core(torch.float32, D, D, ps, g) == "tiled"
+    assert prog.params["tiles"] == 128 // (ps * g)
     LAUNCHES.reset()
     got = prog.launcher(prog, *args)
     want = prog.plain(prog, *args)
     cores = LAUNCHES.cores()
     assert cores["sfc_flash_prefill.tiled"] == 1
     assert cores["sfc_flash_prefill.simt"] == cores["sfc_flash_prefill.wgmma"] == 0
+    assert prog.launched["tiles"] == prog.params["tiles"] and prog.launched["rows_per_cta"] == 128
     rows = torch.zeros((B, Tq), dtype=torch.bool, device=dev)
     for b in range(B):
         rows[b, : -(-n_new[b] // ps) * ps] = True
     assert torch.isfinite(got[rows]).all() and torch.isfinite(want[rows]).all()
     torch.testing.assert_close(got[rows], want[rows], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("D,ps,g", [(128, 16, 5), (96, 16, 8)])
+def test_flash_prefill_simt_core_matches_plain(dtype, D, ps, g):
+    """Row 22 at shapes the rule leaves on ``flash_rows`` (core ``"simt"``,
+    one q tile a CTA): Qwen's g = 5 (80 rows a tile do not divide 128) and
+    D = 96, on :func:`_grouped_cohort`'s lanes, against ``_prefill_plain``
+    at 1e-4 in f32 and rtol 8e-3 / atol 4e-3 in bf16; only the SIMT core
+    launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(D + g)
+    B, Tq, pos0, n_new, MP = _grouped_cohort(ps, 4)
+    Hkv, P = 2, B * MP + 1
+    sched, args = _prefill_case(rng, B, Hkv, g, D, ps, MP, P, Tq, pos0, n_new, dtype, dev)
+    prog = tatt.flash_prefill_program(sched, args[2], page_size=ps, sm_scale=D ** -0.5)
+    assert tatt.prefill_core(dtype, D, D, ps, g) == "simt" and prog.params["tiles"] == 1
+    LAUNCHES.reset()
+    got = prog.launcher(prog, *args)
+    want = prog.plain(prog, *args)
+    cores = LAUNCHES.cores()
+    assert cores["sfc_flash_prefill.simt"] == 1
+    assert cores["sfc_flash_prefill.tiled"] == cores["sfc_flash_prefill.wgmma"] == 0
+    rows = torch.zeros((B, Tq), dtype=torch.bool, device=dev)
+    for b in range(B):
+        rows[b, : -(-n_new[b] // ps) * ps] = True
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else dict(rtol=8e-3, atol=4e-3)
+    assert torch.isfinite(got[rows].float()).all()
+    torch.testing.assert_close(got[rows].float(), want[rows].float(), **tol)
 
 
 @pytest.mark.cuda

@@ -303,15 +303,16 @@ def test_mha_decode_plain_matches_pallas(dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_mha_prefill_plain_matches_pallas(dtype):
-    """Row 22 at g = 1, D = 128, pages of 16 (a CTA's 16 rows): a lane from
-    0, one resuming mid-page with a ragged tail, an inactive lane."""
+    """Row 22 at g = 1, D = 128, pages of 16 (a q tile's 16 rows, 8 tiles
+    a CTA on the wgmma and tiled cores): a lane from 0, one resuming
+    mid-page with a ragged tail, an inactive lane."""
     rng = np.random.default_rng(22)
     B, Hkv, D, ps, MP, Tq = 3, 2, 128, 16, 8, 48
     pos0 = np.array([0, 37, 5], np.int32)
     n_new = np.array([48, 29, 0], np.int32)
     pt, kp, vp = _mha_pages(rng, B, Hkv, D, ps, MP, pos0 + np.maximum(n_new, 1) - 1)
     q = rng.standard_normal((B, Tq, Hkv, 1, D)).astype(np.float32)
-    assert tatt.prefill_core(dtype, D, D, ps, 1) == "simt"
+    assert tatt.prefill_core(dtype, D, D, ps, 1) == ("tiled" if dtype == torch.float32 else "wgmma")
     jd = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
     want = _np(jatt.flash_attention_prefill(
         jnp.asarray(jatt.prefill_page_schedule(pos0, n_new, ps, MP)), jnp.asarray(pt), jnp.asarray(pos0),
@@ -333,8 +334,11 @@ def test_mha_prefill_plain_matches_pallas(dtype):
 def test_serving_shapes_core_rules():
     B, Hkv, g, D, ps, MP = SERVING
     for dtype in (torch.bfloat16, torch.float32):
-        # ps g = 16 rows a CTA, not the 128 of the tensor-core and tiled cores
-        assert tatt.prefill_core(dtype, D, D, ps, g) == "simt"
+        # ps g = 16 rows a q tile: 8 tiles fill the 128 rows of a CTA of the
+        # tensor-core and tiled cores
+        core = tatt.prefill_core(dtype, D, D, ps, g)
+        assert core == ("wgmma" if dtype == torch.bfloat16 else "tiled")
+        assert tatt.prefill_tiles(core, ps, g) == 8
     assert tatt.flash_core(torch.bfloat16, D, 128, 128) == "wgmma"
     assert tatt.flash_core(torch.float32, D, 128, 128) == "tiled"
     lay = tatt.decode_launch(B, Hkv, g, ps, MP)
@@ -376,9 +380,10 @@ def test_decode_wrapper_launch_arguments_at_serving_shapes(monkeypatch, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 def test_prefill_wrapper_launch_arguments_at_serving_shapes(monkeypatch, dtype):
-    """``_prefill_cuda``'s host side at OLMoE's shapes: the SIMT core
-    (code 0) over CTAs of ps g = 16 query rows, the cohort's B and the
-    pool's P beside the walk's shape."""
+    """``_prefill_cuda``'s host side at OLMoE's shapes: the tensor-core
+    (bf16, code 1) or register-tiled (f32, code 2) core over CTAs of 8 q
+    tiles of ps g = 16 query rows (the runs grouped by 8), the cohort's B
+    and the pool's P beside the walk's shape."""
     calls = _record_calls(monkeypatch)
     B, Hkv, g, D, ps, MP = SERVING
     pos0, n_new = np.array([0, 40, 300, 5, 0, 0, 7, 1000], np.int32), np.array([64, 17, 0, 1, 9, 0, 33, 64],
@@ -393,10 +398,13 @@ def test_prefill_wrapper_launch_arguments_at_serving_shapes(monkeypatch, dtype):
                              kp.clone())
     assert out.shape == (B, Tq, Hkv, g, D)
     ((name, cargs, core),) = calls
-    assert name == "sfc_flash_prefill" and core == "simt"
-    # one run a q tile of 16 rows of a lane with new tokens
-    assert cargs[6] == len(sched.runs) == int(sum(-(-n // ps) for n in n_new))
-    assert cargs[10:] == (Tq, g, D, D, ps, MP, B, P, D ** -0.5, 0 if dtype == torch.float32 else 1, 0, 0)
+    want = "tiled" if dtype == torch.float32 else "wgmma"
+    assert name == "sfc_flash_prefill" and core == want
+    # one CTA a group of up to 8 q tiles of 16 rows of a lane with new tokens
+    assert len(sched.runs) == int(sum(-(-n // ps) for n in n_new))
+    assert cargs[6:9] == (len(sched.groups[8]), 8, Hkv) == (int(sum(-(-n // (8 * ps)) for n in n_new)), 8, Hkv)
+    assert cargs[11:] == (Tq, g, D, D, ps, MP, B, P, D ** -0.5, 0 if dtype == torch.float32 else 1,
+                          {"wgmma": 1, "tiled": 2}[want], 0)
 
 
 # ---------------------------------------------------------------------------
@@ -409,8 +417,9 @@ def test_mha_kernels_match_plain_on_cuda(dtype):
     """Rows 21 and 22 at OLMoE's serving shapes (8 slots, Hkv 16, g 1, D
     128, 128 pages of 16) against their plain versions on the card: decode
     at ragged positions with a pos < 0 slot, prefill of a 1,024-wide cohort
-    on the SIMT core; garbage in the trash page; bf16 at rtol 8e-3 / atol
-    4e-3, f32 at 1e-4."""
+    on the tensor-core (bf16) or register-tiled (f32) core, 8 q tiles a
+    CTA; garbage in the trash page; bf16 at rtol 8e-3 / atol 4e-3, f32 at
+    1e-4."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     dev = torch.device("cuda")
@@ -443,7 +452,8 @@ def test_mha_kernels_match_plain_on_cuda(dtype):
     prog = tatt.flash_prefill_program(sched, args[2], page_size=ps, sm_scale=D ** -0.5)
     LAUNCHES.reset()
     got, want = launch(prog, *args), prog.plain(prog, *args)
-    assert LAUNCHES.cores()["sfc_flash_prefill.simt"] == 1
+    assert LAUNCHES.cores()[f"sfc_flash_prefill.{'tiled' if dtype == torch.float32 else 'wgmma'}"] == 1
+    assert LAUNCHES.cores()["sfc_flash_prefill.simt"] == 0
     rows = torch.zeros((B, Tq), dtype=torch.bool, device=dev)
     for b, n in enumerate(n_new):
         rows[b, : -(-int(n) // ps) * ps] = True

@@ -10,9 +10,11 @@ inputs at TinyLlama's serving shapes (GQA), in f32 and bf16, then
 ``sfc_flash_decode`` and ``sfc_flash_prefill`` on the latent core at MLA's
 full shapes (chip_smoke.latent_inputs: g 128, D 576, f32 q) over a bf16
 and an f32 pool, then ``sfc_flash_attention`` at Zamba2's D = 80
-(chip_smoke.d80_inputs: B·H 64, S 2048, causal) in bf16 and f32, and
-prints one JSON object of SHA-256 prefixes of their outputs (prefill: the
-rows its runs cover).  It reads only the checkout it lies in: to check
+(chip_smoke.d80_inputs: B·H 64, S 2048, causal) in bf16 and f32, then
+``sfc_flash_prefill`` at OLMoE's cohort (chip_smoke.mha_inputs: Hkv 16, g
+1, D 128, pages of 16: 8 q tiles a CTA on the grouped cores) in f32 and
+bf16, and prints one JSON object of SHA-256 prefixes of their outputs
+(prefill: the rows its runs cover).  It reads only the checkout it lies in: to check
 that a change keeps these bits, copy it into a ``git archive`` of the
 parent commit and run it in both trees; the two objects are equal when
 the bits are (a parent without a key prints none for it).
@@ -63,6 +65,13 @@ def hashes(device) -> dict:
         torch.cuda.synchronize()
         out[f"sfc_flash_attention d80 {str(dtype)[6:]}"] = digest(t)
         del q, k, v, t
+    for dtype in (torch.float32, torch.bfloat16):
+        (_dec, pre, _att), (_p_dec, p_pre, _p_att) = cs.mha_inputs(np.random.default_rng(35), device, dtype)
+        rows = cs.prefill_covered(pre[5], pre[2].shape[1], cs.SERVE_PAGE, device)
+        t = launch(p_pre, *pre[:5])[rows]
+        torch.cuda.synchronize()
+        out[f"sfc_flash_prefill mha {str(dtype)[6:]}"] = digest(t)
+        del pre, t
     return out
 
 
