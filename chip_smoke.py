@@ -209,6 +209,24 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    22 also its CTAs and rows a CTA from the launch record and
    ``flash_rows_ms``, the SIMT core (``flash_rows``, one q tile a CTA)
    on the same cohort in the same run, the "was" time.
+7e. Qwen2.5-14B paged serving (``qwen_serving_path``, after OLMoE's
+   weights are freed; GQA: 40 query over 8 kv heads, g = 5, D = 128, QKV
+   bias): (a) ``compare flash g5``: rows 21 and 22 at Qwen's serving
+   shapes (8 slots, Hkv 8, g 5, D 128, 128 pages of 16; the cohorts of
+   7d) against their plain versions, bf16 and f32, decode on split and
+   prefill on wgmma / tiled (CTAs of 25 tokens, 125 rows); (b) ``serving
+   qwen:``: the model at full size (48 layers; 29.54 GB of bf16 weights,
+   seeded random, the QKV biases drawn N(0, 0.02)) on the 7d engine
+   serving 16 requests of 7d's mix: tokens/s, TTFT, tick p99, pages, a
+   warm tick's wall and device time; 48 x the decode ticks of
+   ``sfc_flash_decode`` launches on split and 48 x the admissions of
+   ``sfc_flash_prefill`` launches on wgmma, none on simt, each timed by
+   CUDA events (``prefill_attention_ms`` beside the admissions' wall);
+   (c) ``check serving qwen gate:``: f32 at full depth (59.08 GB), 8
+   requests through the paged flash engine (prefill on tiled) and the
+   dense-cache engine, both of 384 positions a slot, as 7d's gate, with
+   the peak allocated bytes beside the prediction; (d) ``time ... g5``:
+   rows 21 and 22 at g = 5 as 7d's (d).
 8. The curve-range-sharded apps (``sharded_path``), SHARDS = 4 shards on
    the one card (the code path of a mesh, not multi-GPU scaling): with the
    launch counts reset, ``ops.kmeans_lloyd(mesh=)`` on phase 3's SIFT1M
@@ -285,7 +303,7 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
 
 The second-to-last line of output is one JSON object ``{"kernels": [...]}``,
 the last ``{"ok": true, "device": {...}}``.  ``--quick`` runs phases 1-2
-(and 7a, 7b (a), 7c (a), 7d (a)) only (a first check of a new kernel), and prints
+(and 7a, 7b (a), 7c (a), 7d (a), 7e (a)) only (a first check of a new kernel), and prints
 no result line.
 The script imports nothing of JAX and nothing of the JAX package.
 """
@@ -480,6 +498,25 @@ OLMOE_GATE_NEW = (16, 32)
 # two runs' routing, and every flip must be a tie within this band, ~4x that
 ROUTER_GATE_BAND = 1e-5
 MHA_ROW20 = (2, 16, 2048)  # B, H, S of OLMoE's full-sequence forward (D = 128)
+# the Qwen slice: Qwen2.5-14B at full size (48 layers, d 5,120, 40 query
+# over 8 kv heads of 128: g = 5, QKV bias), seeded random weights and
+# biases, the engine and page shapes of the TinyLlama run, OLMoE's mix
+QWEN_ARCH = "qwen2.5-14b"
+QWEN_PARAMS = 14_770_033_664  # param_count_analytic: 29.54 GB in bf16, 59.08 GB in f32
+QWEN_BIAS_STD = 0.02
+QWEN_REQUESTS = 16
+QWEN_NEW = (16, 64)
+# its f32 gate at full depth: 8 requests in one cohort (prompts of 64-320
+# tokens, 16-32 new), both engines cut to the 384 positions they need (an
+# f32 pool of 193 pages of 16 x 393,216 B a token: 1.21 GB, where max_len
+# 2048 would take 6.45 GB), and the peak the phase predicts: the weights,
+# four pools' worth (the engine's, its snapshot, the two decode-step
+# copies) and 1 GB of activations
+QWEN_GATE_REQUESTS = 8
+QWEN_GATE_PROMPT = (64, 320)
+QWEN_GATE_NEW = (16, 32)
+QWEN_GATE_MAX_LEN = 384
+QWEN_GATE_PEAK_PREDICTED = 4 * QWEN_PARAMS + 4 * 193 * 16 * 393_216 + 2**30
 # the sharded phase: shards of its meshes, all on the one card
 SHARDS = 4
 SHARDED_KERNELS = ("sfc_kmeans_shard_assign", "sfc_kmeans_shard_update", "sfc_kmeans_fold",
@@ -2085,7 +2122,8 @@ def prefill_covered(n_new, T: int, ps: int, device):
 
 def flash_programs(device, dec, pre, att):
     """The three programs over the inputs of :func:`decode_inputs`,
-    :func:`prefill_inputs` and :func:`attention_inputs`."""
+    :func:`prefill_inputs` and :func:`attention_inputs` (row 20's None
+    without ``att``)."""
     from repro_torch.kernels import attention as katt
 
     B, MP = dec[0].shape
@@ -2095,6 +2133,8 @@ def flash_programs(device, dec, pre, att):
     ps = pre[3].shape[1]
     sp = katt.prefill_page_schedule_device(pre[1].cpu().numpy(), pre[5], ps, pre[0].shape[1], device=device)
     p_pre = katt.flash_prefill_program(sp, pre[2], page_size=ps, sm_scale=scale)
+    if att is None:
+        return p_dec, p_pre, None
     S = att[0].shape[1]
     sa = katt.attention_schedule_device(S // 128, S // 128, causal=True, device=device)
     p_att = katt.flash_attention_program(sa, att[0], causal=True, sm_scale=scale, bq=128, bkv=128,
@@ -2184,8 +2224,9 @@ def compare_attention(rng, device) -> dict:
     """Each flash kernel against its plain version on the card at the
     serving shapes, in f32 and bf16 (the bf16 prefill on its tensor-core
     core, the f32 one on the register-tiled core, on the same cores at
-    half the query heads, two q tiles a CTA, and on the SIMT core at 5 of
-    the 8 query heads; row 20 in bf16 on the tensor cores, in f32 on the
+    half the query heads, two q tiles a CTA, and at 5 of the 8 query
+    heads, 25 tokens a CTA, and on the SIMT core at 12 query heads a kv
+    head, 192 rows a q tile; row 20 in bf16 on the tensor cores, in f32 on the
     register-tiled core, and in both on the SIMT core at q and kv tiles of
     64 rows); returns the largest errors."""
     import torch
@@ -2212,19 +2253,21 @@ def compare_attention(rng, device) -> dict:
         e_pre = attn_err(got[rows], want[rows], tol, f"sfc_flash_prefill {dtype}")
         errs[("sfc_flash_prefill", dtype)] = e_pre
         # the same cohort with half of each kv head's query heads (ps g =
-        # 64 rows a q tile: two tiles a CTA on the same core), and with 5
-        # of them (Qwen's ps g = 80, outside both rules: flash_rows, the
-        # "simt" core)
+        # 64 rows a q tile: 32 tokens, two tiles a CTA on the same core),
+        # with 5 of them (Qwen's g = 5: 25 tokens, 125 rows a CTA, pages
+        # partly held), and with 12 (the 8 and 4 of them again: ps g = 192
+        # rows a q tile, past a CTA's 128: flash_rows, the "simt" core)
         sp = katt.prefill_page_schedule_device(pre[1].cpu().numpy(), pre[5], SERVE_PAGE, pre[0].shape[1],
                                                device=device)
-        for key, heads, want_core in (("half", pre[2].shape[3] // 2, core), ("simt_g5", 5, "simt")):
-            q_part = pre[2][:, :, :, :heads].contiguous()
+        g8 = pre[2].shape[3]
+        for key, heads, want_core in (("half", g8 // 2, core), ("g5", 5, core), ("simt_g12", 12, "simt")):
+            q_part = torch.cat([pre[2], pre[2]], dim=3)[:, :, :, :heads].contiguous()
             p_part = katt.flash_prefill_program(sp, q_part, page_size=SERVE_PAGE, sm_scale=p_pre.params["sm_scale"])
             args = (pre[0], pre[1], q_part, pre[3], pre[4])
             got, ran = launch_core(p_part, args)
             check(ran == want_core, f"sfc_flash_prefill g={heads} {dtype}: launched on {ran}, expected {want_core}")
-            check(p_part.launched["tiles"] == (katt.WGMMA_BQ // (SERVE_PAGE * heads) if ran != "simt" else 1),
-                  f"sfc_flash_prefill g={heads} {dtype}: {p_part.launched['tiles']} q tiles a CTA")
+            check(p_part.launched["tokens"] == (katt.WGMMA_BQ // heads if ran != "simt" else SERVE_PAGE),
+                  f"sfc_flash_prefill g={heads} {dtype}: {p_part.launched['tokens']} tokens a CTA")
             want = p_part.plain(p_part, *args)
             torch.cuda.synchronize()
             errs[(f"sfc_flash_prefill.{key}", dtype)] = attn_err(got[rows], want[rows], tol,
@@ -2260,8 +2303,9 @@ def compare_attention(rng, device) -> dict:
             f"g={g} D={d} ps={SERVE_PAGE} MP={dec[0].shape[1]} pos={dec[1].tolist()} max_abs_err="
             f"{errs[('sfc_flash_decode', dtype)]:.3e}; prefill Tq={pre[2].shape[1]} n_new={pre[5].tolist()} "
             f"pos0={pre[1].tolist()} max_abs_err={errs[('sfc_flash_prefill', dtype)]:.3e}, two q tiles a CTA "
-            f"at g={pre[2].shape[3] // 2} max_abs_err={errs[('sfc_flash_prefill.half', dtype)]:.3e}, simt core "
-            f"at g=5 max_abs_err={errs[('sfc_flash_prefill.simt_g5', dtype)]:.3e}; attention "
+            f"at g={pre[2].shape[3] // 2} max_abs_err={errs[('sfc_flash_prefill.half', dtype)]:.3e}, 25 tokens a "
+            f"CTA at g=5 max_abs_err={errs[('sfc_flash_prefill.g5', dtype)]:.3e}, simt core at g=12 "
+            f"max_abs_err={errs[('sfc_flash_prefill.simt_g12', dtype)]:.3e}; attention "
             f"BH={q.shape[0]} S={q.shape[1]} causal max_abs_err={e1:.3e}, with kv_seqlen {e2:.3e}, "
             f"simt core (bq = bkv = 64) with kv_seqlen {e3:.3e}")
         del dec, pre, att, got, want
@@ -2274,15 +2318,15 @@ def launch_order_ab(p_pre, args, rows) -> dict:
     permutation of the runs at launch; each run writes its own rows, so
     the covered rows are equal), timed in turns: table, longest, longest,
     table."""
+    import dataclasses as dc
+
     import torch
     from repro_torch.kernels import launch
-    from repro_torch.kernels import attention as katt
 
     runs = p_pre.params["runs"]
     table_order = runs[torch.argsort(runs[:, 0])].contiguous()
     check(bool((runs[1:, 1] <= runs[:-1, 1]).all()), "prefill runs are not launched longest first")
-    p_tab = katt.flash_prefill_program(katt.PageSchedule(p_pre.schedule, table_order), args[2],
-                                       page_size=args[3].shape[1], sm_scale=p_pre.params["sm_scale"])
+    p_tab = dc.replace(p_pre, params={**p_pre.params, "runs": table_order})
     check(torch.equal(launch(p_pre, *args)[rows], launch(p_tab, *args)[rows]),
           "prefill launched in table order: output differs")
     t = [cuda_ms(lambda p=p: launch(p, *args), 10) for p in (p_tab, p_pre, p_pre, p_tab)]
@@ -2317,10 +2361,10 @@ def make_requests(rng, vocab: int, n: int | None = None, new=None, prompt=None):
     return reqs
 
 
-def serve_engine(cfg, params):
+def serve_engine(cfg, params, max_len: int = SERVE_MAX_LEN):
     from repro_torch.serve import ServeEngine
 
-    return ServeEngine(cfg, params, num_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+    return ServeEngine(cfg, params, num_slots=SERVE_SLOTS, max_len=max_len,
                        page_size=SERVE_PAGE, paged=True, attn_impl="flash", prefill="compiled",
                        prefix_sharing=True, page_layout="hilbert", stats_capacity=8192)
 
@@ -2328,8 +2372,10 @@ def serve_engine(cfg, params):
 def time_prefill(engine) -> dict:
     """Time the engine's admissions (its compiled prefill; the dense
     engine's chunked one), synchronised: the returned dict accumulates their
-    seconds, new tokens and calls until ``setattr(engine, d["attr"],
-    d["inner"])`` restores the engine."""
+    seconds, new tokens and calls until ``delattr(engine, d["attr"])``
+    restores the engine (the class's method; setting the bound method back
+    would leave a reference cycle that keeps the engine's weights and pool
+    alive until the next garbage collection)."""
     import torch
 
     attr = "_prefill_compiled" if engine.prefill_mode == "compiled" else "_prefill_chunked"
@@ -2371,7 +2417,7 @@ def drive_engine(engine, requests) -> tuple[list, dict]:
                 ttft[r.rid] = now - t0
         check(ticks < 100_000, "the engine does not finish")
     wall = time.perf_counter() - t0
-    setattr(engine, prefill["attr"], prefill["inner"])
+    delattr(engine, prefill["attr"])
     decode_tokens = sum(len(r.out) for r in reqs)
     decode_s = wall - prefill["s"]
     t = np.array(sorted(ttft.values()))
@@ -2540,7 +2586,7 @@ def serving_path(rng, device, seed: int) -> list:
         if snap is None and engine.active.all():
             snap = (engine.next_token.copy(), engine.pos.copy(), engine.active.copy(),
                     engine.kv_pages.page_table.copy(), {k: v.clone() for k, v in engine.cache["blocks"].items()})
-    engine._prefill_compiled = gate_prefill["inner"]
+    delattr(engine, gate_prefill["attr"])
     gate_launches, gate_cores = LAUNCHES.counts()["sfc_flash_prefill"], LAUNCHES.cores()
     check(gate_launches > 0 and gate_cores["sfc_flash_prefill.tiled"] == gate_launches,
           f"f32 gate: sfc_flash_prefill launches {gate_launches}, cores "
@@ -2664,7 +2710,8 @@ def serving_path(rng, device, seed: int) -> list:
             "bound_ms": pf_bound, "bound_by": pf_by,
             "max_abs_err": errs[("sfc_flash_prefill", torch.float32)],
             "half_max_abs_err": errs[("sfc_flash_prefill.half", torch.float32)],
-            "simt_g5_max_abs_err": errs[("sfc_flash_prefill.simt_g5", torch.float32)]}
+            "g5_max_abs_err": errs[("sfc_flash_prefill.g5", torch.float32)],
+            "simt_g12_max_abs_err": errs[("sfc_flash_prefill.simt_g12", torch.float32)]}
     del pre32
     row("sfc_flash_prefill", lambda: launch(p_pre, *pre[:5]), lambda: p_pre.plain(p_pre, *pre[:5]), sdpa_prefill,
         pref_ops, pref_bytes, errs[("sfc_flash_prefill", torch.bfloat16)],
@@ -2672,7 +2719,8 @@ def serving_path(rng, device, seed: int) -> list:
                    "g": g, "D": d, "page_size": ps}, "launch_order": launch_order_ab(p_pre, pre[:5], rows_pre),
          "ctas": int(p_pre.grid[0] * p_pre.grid[1]), "rows_per_cta": p_pre.launched["rows_per_cta"],
          "core": p_pre.launched["core"], "half_max_abs_err": errs[("sfc_flash_prefill.half", torch.bfloat16)],
-         "simt_g5_max_abs_err": errs[("sfc_flash_prefill.simt_g5", torch.bfloat16)], "f32": pf32})
+         "g5_max_abs_err": errs[("sfc_flash_prefill.g5", torch.bfloat16)],
+         "simt_g12_max_abs_err": errs[("sfc_flash_prefill.simt_g12", torch.bfloat16)], "f32": pf32})
 
     qa, ka, va, _seqlen = att
     BH, S, d = qa.shape
@@ -2945,11 +2993,12 @@ class EngineRouterLog(RouterLog):
         super().__exit__(*exc)
 
 
-def engine_gate(cfg32, params32, requests, what: str, cores: dict) -> dict:
+def engine_gate(cfg32, params32, requests, what: str, cores: dict, max_len: int = SERVE_MAX_LEN) -> dict:
     """The f32 gate: the paged flash engine's greedy tokens against the
     dense-cache engine's (``paged=False``: the plain decode, independent of
-    rows 21-22), each request's first differing token inside the top-2
-    margin band of the dense engine's logits, or (a MoE model, both
+    rows 21-22), both of ``max_len`` positions a slot, each request's
+    first differing token inside the top-2 margin band of the dense
+    engine's logits, or (a MoE model, both
     engines' routing logged) at or after a position where the two
     engines' routing differs, every such flip a near-tie (the k-th and
     (k+1)-th routing probabilities within ROUTER_GATE_BAND in both); every
@@ -2963,7 +3012,7 @@ def engine_gate(cfg32, params32, requests, what: str, cores: dict) -> dict:
     from repro_torch.serve import ServeEngine
 
     moe = cfg32.block_kind == "moe"
-    engine = serve_engine(cfg32, params32)
+    engine = serve_engine(cfg32, params32, max_len)
     flash_log = EngineRouterLog(engine) if moe else contextlib.nullcontext()
     LAUNCHES.reset()
     with flash_log:
@@ -2989,7 +3038,7 @@ def engine_gate(cfg32, params32, requests, what: str, cores: dict) -> dict:
     check(bool(torch.allclose(outs["flash"], outs["xla"], rtol=STEP_TOL, atol=STEP_TOL)),
           f"{what} decode_step_paged flash vs xla: max err {step_err}")
     del engine, snap, pools, outs
-    dense = ServeEngine(cfg32, params32, num_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN, paged=False)
+    dense = ServeEngine(cfg32, params32, num_slots=SERVE_SLOTS, max_len=max_len, paged=False)
     dense_log = EngineRouterLog(dense) if moe else contextlib.nullcontext()
     margins, restore = margins_of_dense_engine(dense)
     try:
@@ -3645,19 +3694,19 @@ def _olmoe_cfg(dtype: str):
     return dc.replace(get_config(OLMOE_ARCH), dtype=dtype)
 
 
-def mha_cores(dtype) -> dict:
-    """The core each row runs at OLMoE's shapes, by the wrappers' rules:
+def cohort_cores(cfg, dtype) -> dict:
+    """The core each row runs at ``cfg``'s shapes, by the wrappers' rules:
     decode on the split-KV core, prefill on the core ``prefill_core``
-    names (ps g = 16 rows a q tile, 8 tiles a CTA: ``"wgmma"`` in bf16,
-    ``"tiled"`` in f32, never ``"simt"``), row 20 on ``flash_core``'s."""
+    names (a q tile of ps g rows within a CTA's 128: ``"wgmma"`` in bf16,
+    ``"tiled"`` in f32, never ``"simt"``; OLMoE's 128 tokens a CTA,
+    Qwen's 25), row 20 on ``flash_core``'s."""
     import torch
     from repro_torch.kernels import attention as katt
 
-    cfg = _olmoe_cfg("float32")
     d, g = cfg.attn_head_dim, cfg.num_heads // cfg.num_kv_heads
     pre = katt.prefill_core(dtype, d, d, SERVE_PAGE, g)
     check(pre == ("wgmma" if dtype == torch.bfloat16 else "tiled"),
-          f"sfc_flash_prefill at OLMoE's shapes, {dtype}: the rule names {pre}")
+          f"sfc_flash_prefill at {cfg.name}'s shapes, {dtype}: the rule names {pre}")
     return {"sfc_flash_decode": "split", "sfc_flash_prefill": pre,
             "sfc_flash_attention": katt.flash_core(dtype, d, 128, 128)}
 
@@ -3687,43 +3736,54 @@ def mha_inputs(rng, device, dtype, inactive=()):
     return (dec, pre, att), flash_programs(device, dec, pre, att)
 
 
-def compare_mha(rng, device) -> tuple[dict, dict]:
-    """(a) rows 21 and 22 at OLMoE's serving shapes (a slot at pos -1 among
-    the ragged positions, garbage in the trash page) and row 20 at D = 128
-    against their plain versions, bf16 and f32, each launch's core read
-    from the launch record and held to :func:`mha_cores`.  Returns the
-    largest errors and the cores, by (entry point, dtype)."""
+def compare_cohort(rng, device, inputs, cfg, tag: str) -> tuple[dict, dict]:
+    """(a) rows 21 and 22 at ``cfg``'s serving shapes (``inputs``: a slot
+    at pos -1 among the ragged positions, garbage in the trash page) and
+    row 20 where ``inputs`` gives it, against their plain versions, bf16
+    and f32, each launch's core read from the launch record and held to
+    :func:`cohort_cores`.  Returns the largest errors and the cores, by
+    (entry point, dtype)."""
     import torch
 
     errs, cores, parts = {}, {}, []
     for dtype in (torch.bfloat16, torch.float32):
         tol = ATTN_TOL[str(dtype)[6:]]
-        (dec, pre, att), progs = mha_inputs(rng, device, dtype, inactive=(2,))
+        want_cores = cohort_cores(cfg, dtype)
+        (dec, pre, att), progs = inputs(rng, device, dtype, inactive=(2,))
         rows = prefill_covered(pre[5], pre[2].shape[1], SERVE_PAGE, device)
         for prog, args, sel in zip(progs, (dec, pre[:5], att), (None, rows, None)):
+            if prog is None:
+                continue
             name = prog.name
             got, core = launch_core(prog, args)
-            check(core == mha_cores(dtype)[name], f"{name} mha {dtype}: launched on {core}, "
-                                                   f"expected {mha_cores(dtype)[name]}")
+            check(core == want_cores[name], f"{name} {tag} {dtype}: launched on {core}, expected {want_cores[name]}")
             want = prog.plain(prog, *args)
             torch.cuda.synchronize()
             if sel is not None:
                 got, want = got[sel], want[sel]
-            errs[(name, dtype)] = attn_err(got, want, tol, f"{name} mha {str(dtype)[6:]}")
+            errs[(name, dtype)] = attn_err(got, want, tol, f"{name} {tag} {str(dtype)[6:]}")
             cores[(name, dtype)] = core
             del got, want
         B, hkv, g, d = dec[2].shape
-        parts.append(
-            f"{str(dtype)[6:]} (rtol {tol['rtol']}, atol {tol['atol']}): decode B={B} Hkv={hkv} g={g} D={d} "
-            f"ps={SERVE_PAGE} MP={dec[0].shape[1]} pos={dec[1].tolist()} core "
-            f"{cores[('sfc_flash_decode', dtype)]} max_abs_err={errs[('sfc_flash_decode', dtype)]:.3e}; prefill "
-            f"Tq={pre[2].shape[1]} n_new={pre[5].tolist()} core {cores[('sfc_flash_prefill', dtype)]} "
-            f"max_abs_err={errs[('sfc_flash_prefill', dtype)]:.3e}; attention BH={att[0].shape[0]} "
-            f"S={att[0].shape[1]} D={att[0].shape[2]} causal core {cores[('sfc_flash_attention', dtype)]} "
-            f"max_abs_err={errs[('sfc_flash_attention', dtype)]:.3e}")
+        part = (f"{str(dtype)[6:]} (rtol {tol['rtol']}, atol {tol['atol']}): decode B={B} Hkv={hkv} g={g} D={d} "
+                f"ps={SERVE_PAGE} MP={dec[0].shape[1]} pos={dec[1].tolist()} core "
+                f"{cores[('sfc_flash_decode', dtype)]} max_abs_err={errs[('sfc_flash_decode', dtype)]:.3e}; prefill "
+                f"Tq={pre[2].shape[1]} n_new={pre[5].tolist()} core {cores[('sfc_flash_prefill', dtype)]} "
+                f"tokens a CTA {progs[1].launched['tokens']} max_abs_err={errs[('sfc_flash_prefill', dtype)]:.3e}")
+        if att is not None:
+            part += (f"; attention BH={att[0].shape[0]} S={att[0].shape[1]} D={att[0].shape[2]} causal core "
+                     f"{cores[('sfc_flash_attention', dtype)]} "
+                     f"max_abs_err={errs[('sfc_flash_attention', dtype)]:.3e}")
+        parts.append(part)
         del dec, pre, att, progs
-    log("compare flash mha: " + "; ".join(parts))
+    log(f"compare flash {tag}: " + "; ".join(parts))
     return errs, cores
+
+
+def compare_mha(rng, device) -> tuple[dict, dict]:
+    """:func:`compare_cohort` at OLMoE's shapes (rows 21, 22 and 20 at D =
+    128)."""
+    return compare_cohort(rng, device, mha_inputs, _olmoe_cfg("float32"), "mha")
 
 
 def olmoe_gate(rng, device, seed: int) -> dict:
@@ -3739,7 +3799,7 @@ def olmoe_gate(rng, device, seed: int) -> dict:
     cfg32 = _olmoe_cfg("float32")
     params32 = init_params(seed + 1, cfg32, device=device)
     requests = make_requests(rng, cfg32.vocab_size, OLMOE_GATE_REQUESTS, OLMOE_GATE_NEW, OLMOE_GATE_PROMPT)
-    cores = mha_cores(torch.float32)
+    cores = cohort_cores(cfg32, torch.float32)
     gate = engine_gate(cfg32, params32, requests, "olmoe",
                        {k: cores[k] for k in ("sfc_flash_decode", "sfc_flash_prefill")})
     gate["forward_f32"] = forward_against_plain(params32, cfg32, rng, device)
@@ -3753,12 +3813,12 @@ def olmoe_gate(rng, device, seed: int) -> dict:
 
 def flash_rows_prefill(prog, args, n_new):
     """Row 22's SIMT core (``flash_rows``, one q tile of ps g rows a CTA)
-    on the cohort of a program the rule sends to a grouped core: the C
-    entry called with the simt core's code over the schedule's per-tile
-    runs (longest first), as every shape with ps g < 128 was launched
-    before; the "was" time of :func:`time_mha`.  Returns a function that
-    launches it (counted on ``sfc_flash_prefill.simt``) and returns its
-    output; its ``ctas`` is the launch's CTA count."""
+    on the cohort of a program the rule sends to a CTA core: the C entry
+    called with the simt core's code over the schedule's per-tile runs
+    (longest first), as those shapes were launched before; the "was" time
+    of :func:`time_cohort`.  Returns a function that launches it (counted
+    on ``sfc_flash_prefill.simt``) and returns its output; its ``ctas`` is
+    the launch's CTA count."""
     import torch
     from repro_torch.kernels import attention as katt
     from repro_torch.kernels._build import call, stream_of
@@ -3768,14 +3828,15 @@ def flash_rows_prefill(prog, args, n_new):
     P, ps = kp.shape[:2]
     dv, MP = vp.shape[-1], pt.shape[1]
     sched = katt.prefill_page_schedule_device(pos0.cpu().numpy(), n_new, ps, MP, device=q.device)
-    check(torch.equal(sched.table, prog.schedule), "flash_rows_prefill: another table than the program's")
+    check(prog.params["ctas"] and prog.schedule is katt.prefill_cta_schedule_device(sched, prog.params["tokens"]).table,
+          "flash_rows_prefill: another cohort than the program's")
     runs = sched.runs
 
     def run():
         o = torch.empty((B, Tq, hkv, g, dv), dtype=q.dtype, device=q.device)
         call("sfc_flash_prefill", q.data_ptr(), kp.data_ptr(), vp.data_ptr(), o.data_ptr(), sched.table.data_ptr(),
-             runs.data_ptr(), int(runs.shape[0]), 1, hkv, pt.data_ptr(), pos0.data_ptr(), Tq, g, dk, dv, ps, MP, B, P,
-             prog.params["sm_scale"], 0 if q.dtype == torch.float32 else 1, katt.PREFILL_CORE_CODE["simt"],
+             runs.data_ptr(), int(runs.shape[0]), ps, hkv, pt.data_ptr(), pos0.data_ptr(), Tq, g, dk, dv, ps, MP, B,
+             P, prog.params["sm_scale"], 0 if q.dtype == torch.float32 else 1, katt.PREFILL_CORE_CODE["simt"],
              stream_of(q), core="simt")
         return o
 
@@ -3783,25 +3844,30 @@ def flash_rows_prefill(prog, args, n_new):
     return run
 
 
-def time_mha(rng, device, errs, launches: dict) -> list:
-    """(d) rows 21 and 22 at (a)'s shapes (every slot live) and row 20 at D
-    = 128, bf16 with f32 beside each: CUDA-event ms (row 21 also the device
-    time of its kernels, the mean over the launches torch.profiler
-    recorded, and of the library call's), the bound (operations at the dtype's peak, or bytes:
-    :func:`decode_work`, :func:`prefill_work`, :func:`attention_work`), the
-    plain version's ms, the library call (page gather + SDPA; SDPA with
-    is_causal for row 20), the core, grid and (row 22) rows a CTA from the
-    launch record; row 22 also ``flash_rows_ms``, its SIMT core on the
-    same cohort (:func:`flash_rows_prefill`), held to the kernel's covered
-    rows at ATTN_TOL."""
+def time_cohort(rng, device, errs, launches: dict, inputs, cfg, tags: dict, att_shape=None) -> list:
+    """(d) rows 21 and 22 at ``inputs``' shapes (every slot live) and row
+    20 where ``inputs`` gives it, bf16 with f32 beside each: CUDA-event ms
+    (row 21 also the device time of its kernels, the mean over the
+    launches torch.profiler recorded, and of the library call's), the
+    bound (operations at the dtype's peak, or bytes: :func:`decode_work`,
+    :func:`prefill_work`, :func:`attention_work`), the plain version's ms,
+    the library call (page gather + SDPA; SDPA with is_causal for row 20),
+    the core, grid and (row 22) tokens and rows a CTA from the launch
+    record; row 22 also ``flash_rows_ms``, its SIMT core on the same
+    cohort (:func:`flash_rows_prefill`), held to the kernel's covered rows
+    at ATTN_TOL.  The kernel rows are named by entry point and ``tags``
+    (e.g. ``sfc_flash_prefill.mha``)."""
     import torch
     from repro_torch.kernels import launch
 
     timed = {}
     for dtype, peak in ((torch.bfloat16, BF16_PEAK), (torch.float32, FP32_PEAK)):
-        (dec, pre, att), progs = mha_inputs(rng, device, dtype)
-        work = (decode_work(dec), prefill_work(pre), attention_work(att, MHA_ROW20))
-        for prog, args, (ops_, nbytes, library) in zip(progs, (dec, pre[:5], att), work):
+        (dec, pre, att), progs = inputs(rng, device, dtype)
+        work = (decode_work(dec), prefill_work(pre), None if att is None else attention_work(att, att_shape))
+        for prog, args, w in zip(progs, (dec, pre[:5], att), work):
+            if prog is None:
+                continue
+            ops_, nbytes, library = w
             out, core = launch_core(prog, args)
             b_ms, b_by = bound_ms(ops_, peak, nbytes)
             t = {"ms": cuda_ms(lambda: launch(prog, *args), 10),
@@ -3815,7 +3881,8 @@ def time_mha(rng, device, errs, launches: dict) -> list:
                 stats = kernel_stats(lambda: launch(prog, *args), 10)
                 kern = {k: total / count for k, (total, count) in stats.items()}
                 check(any("split_kernel" in k for k in kern) and any("merge_kernel" in k for k in kern),
-                      f"sfc_flash_decode mha {dtype}: no device time of its split and merge kernels read ({kern})")
+                      f"sfc_flash_decode {tags[prog.name]} {dtype}: no device time of its split and merge kernels "
+                      f"read ({kern})")
                 lib = kernel_ms(library, 10)
                 t.update(device_ms=sum(kern.values()), kernels_ms=kern,
                          profiled_launches={k: count for k, (_, count) in stats.items()},
@@ -3824,9 +3891,9 @@ def time_mha(rng, device, errs, launches: dict) -> list:
                 rows_fn = flash_rows_prefill(prog, args, pre[5])
                 sel = prefill_covered(pre[5], pre[2].shape[1], SERVE_PAGE, device)
                 was = attn_err(rows_fn()[sel], out[sel], ATTN_TOL[str(dtype)[6:]],
-                               f"sfc_flash_prefill mha {str(dtype)[6:]}: flash_rows vs {core}")
+                               f"sfc_flash_prefill {tags[prog.name]} {str(dtype)[6:]}: flash_rows vs {core}")
                 t.update(n_new=[int(n) for n in pre[5]], pos0=pre[1].tolist(),
-                         rows_per_cta=prog.launched["rows_per_cta"], tiles=prog.launched["tiles"],
+                         rows_per_cta=prog.launched["rows_per_cta"], tokens=prog.launched["tokens"],
                          flash_rows_ms=cuda_ms(rows_fn, 3), flash_rows_ctas=rows_fn.ctas,
                          flash_rows_max_abs_diff=was)
             del out
@@ -3834,19 +3901,19 @@ def time_mha(rng, device, errs, launches: dict) -> list:
             timed[(prog.name, dtype)] = t
         del dec, pre, att, progs, work
         torch.cuda.empty_cache()
-    cfg = _olmoe_cfg("float32")
-    B, H, S = MHA_ROW20
-    shapes = {"sfc_flash_decode": {"B": SERVE_SLOTS, "Hkv": cfg.num_kv_heads, "g": 1, "D": cfg.attn_head_dim,
-                                   "page_size": SERVE_PAGE, "max_pages": SERVE_MAX_LEN // SERVE_PAGE},
-              "sfc_flash_prefill": {"B": SERVE_SLOTS, "Tq": SERVE_MAX_LEN // 2, "Hkv": cfg.num_kv_heads, "g": 1,
-                                    "D": cfg.attn_head_dim, "page_size": SERVE_PAGE},
-              "sfc_flash_attention": {"BH": B * H, "S": S, "D": cfg.attn_head_dim, "bq": 128, "bkv": 128,
-                                      "causal": True}}
+    hkv, g, d = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, cfg.attn_head_dim
+    shapes = {"sfc_flash_decode": {"B": SERVE_SLOTS, "Hkv": hkv, "g": g, "D": d, "page_size": SERVE_PAGE,
+                                   "max_pages": SERVE_MAX_LEN // SERVE_PAGE},
+              "sfc_flash_prefill": {"B": SERVE_SLOTS, "Tq": SERVE_MAX_LEN // 2, "Hkv": hkv, "g": g, "D": d,
+                                    "page_size": SERVE_PAGE}}
+    if att_shape is not None:
+        B, H, S = att_shape
+        shapes["sfc_flash_attention"] = {"BH": B * H, "S": S, "D": d, "bq": 128, "bkv": 128, "causal": True}
     library = {"sfc_flash_decode": "page gather + scaled_dot_product_attention",
                "sfc_flash_prefill": "page gather + scaled_dot_product_attention (causal mask)",
                "sfc_flash_attention": "scaled_dot_product_attention(is_causal=True)"}
     rows = []
-    for name, tag in (("sfc_flash_decode", "mha"), ("sfc_flash_prefill", "mha"), ("sfc_flash_attention", "d128")):
+    for name, tag in tags.items():
         row = {"name": f"{name}.{tag}", "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
                "launches": launches[name], **timed[(name, torch.bfloat16)], "library": library[name],
                "peak": "bf16 tensor cores (989 TFLOP/s), HBM 3.35 TB/s; f32: FP32 pipes (67 TFLOP/s)",
@@ -3887,7 +3954,7 @@ def olmoe_serving_path(rng, device, seed: int) -> list:
     warm.submit(requests[0][0][:80], max_new=2)
     warm.run_until_done()
     del warm
-    cores = mha_cores(torch.bfloat16)
+    cores = cohort_cores(cfg, torch.bfloat16)
     metrics = serve_counted(cfg, params, requests, "olmoe",
                             {k: cores[k] for k in ("sfc_flash_decode", "sfc_flash_prefill")})
     launches = LAUNCHES.counts()
@@ -3898,9 +3965,188 @@ def olmoe_serving_path(rng, device, seed: int) -> list:
     del params
     torch.cuda.empty_cache()
     olmoe_gate(rng, device, seed)
-    rows = time_mha(rng, device, errs, {**launches, "sfc_flash_attention": fwd["sfc_flash_attention_launches"]})
+    rows = time_cohort(rng, device, errs, {**launches, "sfc_flash_attention": fwd["sfc_flash_attention_launches"]},
+                       mha_inputs, _olmoe_cfg("float32"),
+                       {"sfc_flash_decode": "mha", "sfc_flash_prefill": "mha", "sfc_flash_attention": "d128"},
+                       MHA_ROW20)
     log("serving olmoe busy: " + json.dumps(busy))
     log(f"olmoe phase: {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 7e: Qwen2.5-14B paged serving at full size (GQA g = 5, D = 128, QKV
+# bias; rows 21 and 22 at g = 5)
+# ---------------------------------------------------------------------------
+
+def _qwen_cfg(dtype: str):
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config
+
+    return dc.replace(get_config(QWEN_ARCH), dtype=dtype)
+
+
+def qwen_params(seed: int, cfg, device):
+    """Seeded random Qwen weights (``init_params``, which zeroes the QKV
+    biases) with the biases drawn N(0, QWEN_BIAS_STD) from a seeded
+    generator on the device, so that the bias add runs at full size; the
+    parameter count held to the published QWEN_PARAMS."""
+    import torch
+    from repro_torch.models import count_params, init_params
+
+    params = init_params(seed, cfg, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed + 1000)
+    with torch.no_grad():
+        for name, p in params.named_parameters():
+            if name.rsplit(".", 1)[-1] in ("bq", "bk", "bv"):
+                p.copy_(torch.randn(p.shape, generator=gen, device=device) * QWEN_BIAS_STD)
+    n = count_params(params)
+    check(n == QWEN_PARAMS, f"qwen: {n} parameters, expected {QWEN_PARAMS}")
+    return params
+
+
+def qwen_inputs(rng, device, dtype, inactive=()):
+    """Rows 21 and 22 at Qwen's shapes and their programs: decode over 8
+    slots of 128 pages of 16 (Hkv 8, g 5, D 128; ``inactive`` slots at pos
+    -1), the prefill cohort of :func:`prefill_inputs` (8 lanes, Tq 1,024)
+    with garbage in the trash page; no row 20 (Qwen's serving runs
+    none)."""
+    cfg = _qwen_cfg("float32")
+    dec = decode_inputs(rng, device, dtype, cfg, inactive=inactive)
+    pre = prefill_inputs(rng, device, dtype, cfg, trash=True)
+    return (dec, pre, None), flash_programs(device, dec, pre, None)
+
+
+class PrefillEvents:
+    """While entered, each ``sfc_flash_prefill`` launch is timed by a pair
+    of CUDA events recorded around its wrapper on the current stream (the
+    wrapper enqueues its kernel and nothing else there); :meth:`ms` is
+    their sum."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.kernels import attention as katt
+
+        self._inner = inner = katt._prefill_cuda
+        self.pairs = []
+
+        def timed(program, *args):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = inner(program, *args)
+            b.record()
+            self.pairs.append((a, b))
+            return out
+
+        katt._prefill_cuda = timed
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import attention as katt
+
+        katt._prefill_cuda = self._inner
+
+    def ms(self) -> float:
+        import torch
+
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.pairs)
+
+
+def free_cuda() -> None:
+    """Collect the garbage that holds device tensors in reference cycles
+    (an engine whose method was swapped for a closure over it, as
+    :func:`served_steps` does), then return the cached blocks: the next
+    model of a phase must find the card empty."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def qwen_gate(rng, device, seed: int) -> dict:
+    """(c) the f32 gate at full depth: :func:`engine_gate` over
+    QWEN_GATE_REQUESTS requests, both engines of QWEN_GATE_MAX_LEN
+    positions a slot (the f32 pools near 1.2 GB), the flash engine's decode
+    on split and every prefill launch on tiled (none on simt), the dense
+    engine's ``gqa_decode`` on ``_sdpa``; the peak allocated bytes beside
+    QWEN_GATE_PEAK_PREDICTED."""
+    import torch
+
+    cfg32 = _qwen_cfg("float32")
+    torch.cuda.reset_peak_memory_stats(device)
+    params32 = qwen_params(seed + 1, cfg32, device)
+    requests = make_requests(rng, cfg32.vocab_size, QWEN_GATE_REQUESTS, QWEN_GATE_NEW, QWEN_GATE_PROMPT)
+    cores = cohort_cores(cfg32, torch.float32)
+    gate = engine_gate(cfg32, params32, requests, "qwen",
+                       {k: cores[k] for k in ("sfc_flash_decode", "sfc_flash_prefill")}, QWEN_GATE_MAX_LEN)
+    gate.update(layers=cfg32.num_layers, max_len=QWEN_GATE_MAX_LEN,
+                weight_bytes=sum(p.numel() * p.element_size() for p in params32.parameters()),
+                peak_allocated_bytes=torch.cuda.max_memory_allocated(device),
+                predicted_peak_bytes=QWEN_GATE_PEAK_PREDICTED)
+    log("check serving qwen gate: " + json.dumps(gate))
+    del params32
+    free_cuda()
+    return gate
+
+
+def qwen_serving_path(rng, device, seed: int) -> list:
+    """Phase 7e, after OLMoE's weights are freed: (a) rows 21 and 22 at
+    Qwen's shapes against their plain versions; (b) Qwen2.5-14B at full
+    size in bf16 (QKV biases drawn) on the paged flash engine:
+    QWEN_REQUESTS requests, every sfc_flash_decode launch on split and
+    every sfc_flash_prefill launch on wgmma (none on simt), layers x
+    decode ticks and layers x admissions of them, each prefill launch of
+    the run timed by CUDA events beside the admissions' wall; a warm
+    decode tick's profile; (c) the f32 gate at full depth; (d) rows 21
+    and 22 timed at g = 5 (the CTAs of 25 tokens, ``flash_rows`` on the
+    same cohort, page gather + SDPA).  Returns the kernel rows."""
+    import torch
+    from repro_torch.kernels import LAUNCHES
+
+    t_phase = time.perf_counter()
+    free_cuda()
+    qcfg = _qwen_cfg("float32")
+    errs, _ = compare_cohort(rng, device, qwen_inputs, qcfg, "g5")
+    cfg = _qwen_cfg("bfloat16")
+    t0 = time.perf_counter()
+    params = qwen_params(seed, cfg, device)
+    torch.cuda.synchronize()
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    log(f"serving qwen model: {cfg.name} {cfg.num_layers} layers d={cfg.d_model} H={cfg.num_heads} "
+        f"Hkv={cfg.num_kv_heads} D={cfg.attn_head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab_size} qkv_bias "
+        f"{cfg.dtype}, {QWEN_PARAMS} parameters ({weight_bytes} B), seeded random (biases N(0, "
+        f"{QWEN_BIAS_STD})), {time.perf_counter() - t0:.1f} s to make, "
+        f"{torch.cuda.memory_allocated(device) / 2**30:.1f} GiB allocated")
+    requests = make_requests(rng, cfg.vocab_size, QWEN_REQUESTS, QWEN_NEW)
+    warm = serve_engine(cfg, params)
+    warm.submit(requests[0][0][:80], max_new=2)
+    warm.run_until_done()
+    del warm
+    cores = cohort_cores(cfg, torch.bfloat16)
+    with PrefillEvents() as events:
+        metrics = serve_counted(cfg, params, requests, "qwen",
+                                {k: cores[k] for k in ("sfc_flash_decode", "sfc_flash_prefill")})
+    launches, got = LAUNCHES.counts(), LAUNCHES.cores()
+    check(got["sfc_flash_prefill.simt"] == 0 and len(events.pairs) == launches["sfc_flash_prefill"],
+          f"qwen serving: prefill launches {launches['sfc_flash_prefill']}, timed {len(events.pairs)}, cores {got}")
+    attn_ms = events.ms()
+    busy = warm_decode_tick(cfg, params, requests, device)
+    metrics.update(weight_bytes=weight_bytes, prefill_attention_ms=attn_ms,
+                   prefill_attention_launches=len(events.pairs),
+                   prefill_attention_share=attn_ms / (1e3 * metrics["prefill_s"]),
+                   warm_tick={k: busy[k] for k in ("wall_ms", "device_ms", "busy_share")})
+    log("serving qwen: " + json.dumps(metrics))
+    del params
+    free_cuda()
+    qwen_gate(rng, device, seed)
+    rows = time_cohort(rng, device, errs, launches, qwen_inputs, qcfg,
+                       {"sfc_flash_decode": "g5", "sfc_flash_prefill": "g5"})
+    log("serving qwen busy: " + json.dumps(busy))
+    log(f"qwen phase: {time.perf_counter() - t_phase:.1f} s")
     return rows
 
 
@@ -5086,12 +5332,14 @@ def main() -> int:
         compare_latent(np.random.default_rng(args.seed + 5), device)
         compare_d80(np.random.default_rng(args.seed + 6), device)
         compare_mha(np.random.default_rng(args.seed + 7), device)
+        compare_cohort(np.random.default_rng(args.seed + 8), device, qwen_inputs, _qwen_cfg("float32"), "g5")
         return 0
     result, ctx = main_path(rng, device, args.seed)
     result["kernels"] += serving_path(np.random.default_rng(args.seed + 3), device, args.seed)
     result["kernels"] += mla_serving_path(np.random.default_rng(args.seed + 5), device, args.seed)
     result["kernels"] += ssm_serving_path(np.random.default_rng(args.seed + 6), device, args.seed)
     result["kernels"] += olmoe_serving_path(np.random.default_rng(args.seed + 7), device, args.seed)
+    result["kernels"] += qwen_serving_path(np.random.default_rng(args.seed + 8), device, args.seed)
     result["kernels"] += sharded_path(device, args.seed, ctx)
     train_rec = dry_record(TRAIN_ARCH, dry_cells()[2][1], device)
     training_path(device, args.seed, train_rec)

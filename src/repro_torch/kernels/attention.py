@@ -14,8 +14,8 @@ JAX package's three Pallas flash kernels:
 * ``sfc_flash_prefill`` (:func:`flash_attention_prefill`) — a cohort's
   new prompt tokens, causal over each slot's paged prefix, in q tiles of
   ``page_size`` tokens: a CTA takes one q tile's run, or on the
-  ``"wgmma"`` and ``"tiled"`` cores ``128 / (page_size · g)`` consecutive
-  q tiles of one slot (:func:`prefill_group_runs`).
+  ``"wgmma"`` and ``"tiled"`` cores ``⌊128 / g⌋`` consecutive tokens of
+  one slot (:func:`prefill_cta_schedule`).
 
 The TPU grids run ``(heads, steps)`` in order and carry the online
 softmax state in VMEM from one schedule row to the next (``first`` /
@@ -25,16 +25,16 @@ one CTA, so no state crosses CTAs: the host derives the runs from the
 table (:func:`schedule_runs`) and launches one CTA per (run, head).
 Every schedule keeps the JAX package's layout, and each device upload
 carries its runs beside it (:class:`PageSchedule`; a prefill upload
-also its grouped runs).
+also its cohort, from which the CTA tables are built).
 
 All three mask with the finite :data:`DEFAULT_MASK_VALUE`, never -inf,
 so a fully masked row comes out finite (the mean of the values it
 visited), as on the TPU.  The decode kernel stops at a slot's last live
 page (``lp <= pos // page_size``): every later page is masked by
 position and adds exactly zero to a finite state, so the result is that
-of the full walk.  A grouped prefill CTA walks its last tile's run for
-every tile it holds on the same argument: an earlier tile's rows see the
-later pages masked.
+of the full walk.  A prefill CTA of several q tiles' tokens walks the
+pages of its last new token for every token it holds on the same
+argument: an earlier token's rows see the later pages masked.
 
 Limits of the CUDA kernels: head widths ``Dk, Dv <= 128`` (``Dk`` a
 multiple of 4) and at most 256 query rows per CTA (``bq`` for
@@ -47,8 +47,8 @@ picked by dtype and shape (:func:`flash_core`, :func:`prefill_core`):
 * ``"wgmma"``: bf16 on the tensor cores (TMA + ``wgmma``, P rounded to
   bf16 for P·V) at D = 64, 80 or 128 with 128 query rows a CTA (bq = 128
   and bkv a multiple of 64; for prefill Dk = Dv = 64 or 128, a q tile's
-  page_size · g rows one of 16, 32, 64 or 128, so that whole q tiles fill
-  the CTA's 128, and whole pages of 8 to 64 rows a 64-row half);
+  page_size · g rows at most 128, a CTA ⌊128 / g⌋ tokens, ⌊128 / g⌋ · g of
+  its 128 rows, and whole pages of 8 to 64 rows a 64-row half);
 * ``"tiled"``: f32 at those shapes on the register-tiled SIMT core (all
   128 rows in one pass, K/V stages of 64 rows through a ``cp.async``
   ring, 8 × 4 score tiles a thread); for prefill whole pages of 4 to 64
@@ -109,11 +109,10 @@ DECODE_SPLIT_ROWS = 128
 # of at least 4 rows, a multiple of 4, a 64-row stage
 WGMMA_PAGE_MIN = 8
 TILED_PAGE_MIN = 4
-# the rows of one prefill q tile (page_size * g) those two cores take: a
-# CTA holds WGMMA_BQ // rows consecutive q tiles of one slot, so each
-# upload carries the runs grouped by 2, 4 and 8 tiles (PREFILL_GROUPS)
-PREFILL_TILE_ROWS = (16, 32, 64, 128)
-PREFILL_GROUPS = tuple(WGMMA_BQ // r for r in PREFILL_TILE_ROWS if r < WGMMA_BQ)
+# the prefill cores whose CTA holds WGMMA_BQ // g consecutive tokens of one
+# slot (prefill_tokens), at every shape whose q tile (page_size * g rows)
+# fits one
+CTA_CORES = ("wgmma", "tiled")
 # the core codes of sfc_flash_prefill's and sfc_flash_decode's C entries
 # (csrc/attention.cu: PrefillCore, DecodeCore)
 PREFILL_CORE_CODE = {"simt": 0, "wgmma": 1, "tiled": 2, "latent": 3}
@@ -142,10 +141,11 @@ __all__ = [
     "is_latent",
     "longest_first",
     "prefill_core",
-    "prefill_group_runs",
+    "prefill_cta_schedule",
+    "prefill_cta_schedule_device",
     "prefill_page_schedule",
     "prefill_page_schedule_device",
-    "prefill_tiles",
+    "prefill_tokens",
     "schedule_runs",
 ]
 
@@ -268,21 +268,22 @@ def schedule_runs(table: np.ndarray, first_col: int, last_col: int,
 class PageSchedule(NamedTuple):
     """A flash schedule on a device: the JAX layout's ``table`` and the
     ``runs`` a launch takes from it (:func:`schedule_runs`), in launch
-    order; a prefill upload also carries ``groups``, its runs grouped by m
-    q tiles for each m of :data:`PREFILL_GROUPS` that fits
-    (:func:`prefill_group_runs`), in launch order.  Cached: do not
-    mutate."""
+    order; a prefill upload also carries its ``cohort``, the host tuples
+    (pos0, n_new, page_size, max_pages) it was built from, from which
+    :func:`prefill_cta_schedule_device` builds the CTA tables of the
+    ``"wgmma"`` and ``"tiled"`` cores with no device-to-host copy.
+    Cached: do not mutate."""
 
     table: torch.Tensor
     runs: torch.Tensor
-    groups: dict | None = None
+    cohort: tuple | None = None
 
 
-def _upload(table: np.ndarray, runs: np.ndarray, device: str, groups: dict | None = None) -> PageSchedule:
+def _upload(table: np.ndarray, runs: np.ndarray, device: str, cohort: tuple | None = None) -> PageSchedule:
     def up(a):
         return torch.as_tensor(np.array(a), dtype=torch.int32, device=device)
 
-    return PageSchedule(up(table), up(runs), None if groups is None else {m: up(r) for m, r in groups.items()})
+    return PageSchedule(up(table), up(runs), cohort)
 
 
 @register_schedule_cache
@@ -335,7 +336,7 @@ def decode_page_schedule_device(
 
 def longest_first(runs: np.ndarray) -> np.ndarray:
     """The runs of a schedule in launch order, the longest first (ties in
-    table order; column 1 is a run's length, in grouped runs too): a
+    table order; column 1 is a run's length, in a CTA table's runs too): a
     permutation of the CTAs, each of which writes its own rows.  A
     prefill cohort's runs grow with each lane's q tile (1 to max_pages
     pages); launched in table order, the last wave holds the last lane's
@@ -344,30 +345,44 @@ def longest_first(runs: np.ndarray) -> np.ndarray:
     return runs[np.argsort(-runs[:, 1], kind="stable")]
 
 
-def prefill_group_runs(table: np.ndarray, m: int) -> np.ndarray:
-    """The CTAs of a prefill launch that holds ``m`` q tiles a CTA:
-    int32[n, 4] rows of (first table row of the walk, its rows, first q
-    tile ``qt0``, tiles), in table order.
+def prefill_cta_schedule(pos0, n_new, page_size: int, max_pages: int,
+                         tokens: int) -> tuple[np.ndarray, np.ndarray]:
+    """The CTAs of a prefill launch that holds ``tokens`` consecutive
+    tokens of one slot a CTA (the ``"wgmma"`` and ``"tiled"`` cores,
+    :func:`prefill_tokens`): (table, runs), in table order.
 
-    Each slot's q tiles (one run each, :func:`schedule_runs`) are cut in
-    table order into groups of ``m`` consecutive tiles, the last group of
-    a slot possibly shorter.  A group walks its last tile's run: logical
-    pages 0 .. that tile's last page, which covers every earlier tile's
-    pages; an earlier tile's rows see the later pages masked by position
-    (exactly zero added to a finite state).  At ``m = 1`` the first two
-    columns are the table's runs."""
-    t = np.asarray(table)
-    runs = schedule_runs(t, 3, 4, valid_col=5)
-    slots, tiles = t[runs[:, 0], 0], t[runs[:, 0], 1]
-    out = []
-    i = 0
-    while i < len(runs):
-        j = i
-        while j + 1 < len(runs) and j + 1 - i < m and slots[j + 1] == slots[i]:
-            j += 1
-        out.append((runs[j, 0], runs[j, 1], tiles[i], j - i + 1))
-        i = j + 1
-    return np.asarray(out, dtype=np.int32).reshape(-1, 4)
+    ``table`` has :func:`prefill_page_schedule`'s layout at ``bq =
+    tokens``, unpadded: int32 rows of (slot, CTA, logical page, first,
+    last, valid).  CTA c of a slot holds tokens c T .. c T + T - 1 and
+    walks logical pages 0 .. (pos0 + its last new token) // page_size;
+    an earlier token's rows see the later pages masked by position
+    (exactly zero added to a finite state).  A slot's CTAs cover the
+    tokens of its q tiles, ⌈n_new / page_size⌉ page_size (the rows a
+    launch of one q tile a CTA writes); where those end past its CTAs of
+    new tokens (T not a multiple of page_size), one more CTA holds pad
+    tokens only and walks the pages of the slot's last new token, as
+    their q tile does.  Where page_size divides T the table is
+    ``prefill_page_schedule(..., bq=T)`` without its padding rows.
+
+    ``runs``: int32[n, 4] rows of (first table row, rows, first token,
+    tokens the CTA writes), the kernels' walk."""
+    p0 = np.asarray(pos0, np.int64).reshape(-1)
+    nn = np.maximum(np.asarray(n_new, np.int64).reshape(-1), 0)
+    cover = -(-nn // page_size) * page_size
+    n_cta = -(-cover // tokens)
+    slot = np.repeat(np.arange(len(nn)), n_cta)
+    cta = np.arange(len(slot)) - np.repeat(np.cumsum(n_cta) - n_cta, n_cta)
+    tok0 = cta * tokens
+    last = p0[slot] + np.minimum(tok0 + tokens, nn[slot]) - 1  # the last new token's position
+    pages = np.minimum(last // page_size, max_pages - 1) + 1
+    starts = np.cumsum(pages) - pages
+    row = np.repeat(np.arange(len(slot)), pages)
+    lp = np.arange(int(pages.sum())) - starts[row]
+    table = np.stack([slot[row], cta[row], lp, lp == 0, lp == pages[row] - 1, np.ones_like(lp)], axis=1)
+    if not len(table):
+        table = np.zeros((1, 6), np.int64)
+    runs = np.stack([starts, pages, tok0, np.minimum(tokens, cover[slot] - tok0)], axis=1)
+    return table.astype(np.int32), runs.astype(np.int32).reshape(-1, 4)
 
 
 @register_schedule_cache
@@ -376,11 +391,8 @@ def _prefill_page_schedule_dev(
     pos0: tuple, n_new: tuple, page_size: int, max_pages: int, bq: int, device: str,
 ) -> PageSchedule:
     sched = prefill_page_schedule(pos0, n_new, page_size, max_pages, bq)
-    groups = None
-    if bq == page_size:
-        groups = {m: longest_first(prefill_group_runs(sched, m)) for m in PREFILL_GROUPS
-                  if m * page_size <= WGMMA_BQ}
-    return _upload(sched, longest_first(schedule_runs(sched, 3, 4, valid_col=5)), device, groups)
+    return _upload(sched, longest_first(schedule_runs(sched, 3, 4, valid_col=5)), device,
+                   (pos0, n_new, page_size, max_pages) if bq == page_size else None)
 
 
 def prefill_page_schedule_device(
@@ -388,16 +400,35 @@ def prefill_page_schedule_device(
     device="cuda",
 ) -> PageSchedule:
     """:func:`prefill_page_schedule` on ``device`` (LRU per cohort shape
-    and device), its runs launched :func:`longest_first`, and beside them
-    the runs grouped by m q tiles (:func:`prefill_group_runs`, each m of
-    :data:`PREFILL_GROUPS` with m ``page_size`` <= 128), launched longest
-    first too: built here with the table, so a grouped launch costs no
-    device-to-host copy."""
+    and device), its runs launched :func:`longest_first`, and (at ``bq =
+    page_size``) the cohort it was built from, for
+    :func:`prefill_cta_schedule_device`."""
     bq = page_size if bq is None else bq
     return _prefill_page_schedule_dev(
         tuple(int(p) for p in pos0), tuple(int(n) for n in n_new),
         int(page_size), int(max_pages), int(bq), str(torch.device(device)),
     )
+
+
+@register_schedule_cache
+@functools.lru_cache(maxsize=128)
+def _prefill_cta_schedule_dev(pos0: tuple, n_new: tuple, page_size: int, max_pages: int, tokens: int,
+                              device: str) -> PageSchedule:
+    table, runs = prefill_cta_schedule(pos0, n_new, page_size, max_pages, tokens)
+    return _upload(table, longest_first(runs), device)
+
+
+def prefill_cta_schedule_device(schedule: PageSchedule, tokens: int) -> PageSchedule:
+    """:func:`prefill_cta_schedule` of the cohort ``schedule`` (a
+    :func:`prefill_page_schedule_device` upload) was built for, CTAs of
+    ``tokens`` tokens, on its device with its runs launched
+    :func:`longest_first` (LRU per cohort, ``tokens`` and device): built
+    from the cohort's host tuples, so a launch makes no device-to-host
+    copy."""
+    if schedule.cohort is None:
+        raise ValueError("the prefill schedule carries no cohort (build it with "
+                         "prefill_page_schedule_device at bq = page_size)")
+    return _prefill_cta_schedule_dev(*schedule.cohort, int(tokens), str(schedule.table.device))
 
 
 # ---------------------------------------------------------------------------
@@ -901,19 +932,20 @@ def flash_attention_decode(
 
 def prefill_core(dtype: torch.dtype, dk: int, dv: int, ps: int, g: int) -> str:
     """The core of ``sfc_flash_prefill`` that runs a launch.  At Dk = Dv
-    in :data:`WGMMA_HEAD_DIMS` with a q tile's ``ps * g`` rows in
-    :data:`PREFILL_TILE_ROWS` (whole q tiles fill a CTA's
-    :data:`WGMMA_BQ` rows: :func:`prefill_tiles`) and whole pages in a
-    64-row half or stage: ``"wgmma"`` for bf16 with pages of at least
-    :data:`WGMMA_PAGE_MIN` rows (each page's TMA box starts a 128-byte
-    swizzle atom), ``"tiled"`` (the register-tiled SIMT core) for f32 with
-    pages of a multiple of :data:`TILED_PAGE_MIN` rows (a thread's 4 kv
-    columns in one page).  ``"simt"`` (``flash_rows``) for every other
-    shape (Qwen's g = 5, ps * g > 128, Dk != Dv, D = 96, bf16 at pages of
-    4, for some).  The wrapper passes it to the C entry, which launches
-    that core or refuses the call (``csrc/attention.cu``'s
-    ``prefill_tensor_core_shape`` and ``prefill_tiled_shape``)."""
-    if (dk == dv and dk in WGMMA_HEAD_DIMS and ps * g in PREFILL_TILE_ROWS and WGMMA_BKV_STEP % ps == 0):
+    in :data:`WGMMA_HEAD_DIMS` with a q tile's ``ps * g`` rows within a
+    CTA's :data:`WGMMA_BQ` (a CTA holds ⌊128 / g⌋ tokens:
+    :func:`prefill_tokens`) and whole pages in a 64-row half or stage:
+    ``"wgmma"`` for bf16 with pages of at least :data:`WGMMA_PAGE_MIN` rows
+    (each page's TMA box starts a 128-byte swizzle atom), ``"tiled"`` (the
+    register-tiled SIMT core) for f32 with pages of a multiple of
+    :data:`TILED_PAGE_MIN` rows (a thread's 4 kv columns in one page).
+    ``"simt"`` (``flash_rows``) for every other shape (ps * g > 128, Dk !=
+    Dv, D = 96, bf16 at pages of 4, for some).  The wrapper passes it to
+    the C entry, which launches that core or refuses the call
+    (``csrc/attention.cu``'s ``prefill_tensor_core_shape`` and
+    ``prefill_tiled_shape``)."""
+    if (dk == dv and dk in WGMMA_HEAD_DIMS and 1 <= g and ps * g <= WGMMA_BQ
+            and WGMMA_BKV_STEP % ps == 0):
         if dtype == torch.bfloat16 and ps >= WGMMA_PAGE_MIN:
             return "wgmma"
         if dtype == torch.float32 and ps % TILED_PAGE_MIN == 0:
@@ -921,25 +953,27 @@ def prefill_core(dtype: torch.dtype, dk: int, dv: int, ps: int, g: int) -> str:
     return "simt"
 
 
-def prefill_tiles(core: str, ps: int, g: int) -> int:
-    """q tiles a CTA of ``core`` holds: ``128 / (ps * g)`` on ``"wgmma"`` and
-    ``"tiled"`` (their 128 rows), one on ``"simt"`` and ``"latent"``."""
-    return WGMMA_BQ // (ps * g) if core in ("wgmma", "tiled") else 1
+def prefill_tokens(core: str, ps: int, g: int) -> int:
+    """Tokens a CTA of ``core`` holds: ``⌊128 / g⌋`` on ``"wgmma"`` and
+    ``"tiled"`` (their 128 rows, or the whole heads' rows below it: 125 at
+    Qwen's g = 5), one q tile's ``ps`` on ``"simt"`` and ``"latent"``."""
+    return WGMMA_BQ // g if core in CTA_CORES else ps
 
 
 def _prefill_launch(program: GpuProgram, q, k_pages, v_pages) -> tuple[str, int]:
-    """A launch's core and q tiles a CTA, by its operands; the program must
-    have been built for those tiles (its runs are grouped by them)."""
+    """A launch's core and tokens a CTA, by its operands; the program must
+    have been built for those tokens (its table and runs are the CTAs of
+    that many)."""
     if _latent_call(program, q, k_pages, v_pages):
-        return "latent", 1
+        return "latent", k_pages.shape[1]
     ps, g = k_pages.shape[1], q.shape[3]
     core = prefill_core(q.dtype, q.shape[-1], v_pages.shape[-1], ps, g)
-    tiles = prefill_tiles(core, ps, g)
-    if tiles != program.params["tiles"]:
+    tokens = prefill_tokens(core, ps, g)
+    if tokens != program.params["tokens"] or (core in CTA_CORES) != program.params["ctas"]:
         raise ValueError(
-            f"{program.name}: the operands run the {core} core at {tiles} q tiles a CTA, the "
-            f"program was built with tiles={program.params['tiles']}")
-    return core, tiles
+            f"{program.name}: the operands run the {core} core at {tokens} tokens a CTA, the "
+            f"program was built with tokens={program.params['tokens']}, ctas={program.params['ctas']}")
+    return core, tokens
 
 
 def _prefill_cuda(program: GpuProgram, page_table, pos0, q, k_pages, v_pages):
@@ -948,7 +982,7 @@ def _prefill_cuda(program: GpuProgram, page_table, pos0, q, k_pages, v_pages):
     P, ps = k_pages.shape[:2]
     Dv = v_pages.shape[-1]
     MP = page_table.shape[1]
-    core, tiles = _prefill_launch(program, q, k_pages, v_pages)
+    core, tokens = _prefill_launch(program, q, k_pages, v_pages)
     latent = core == "latent"
     _require_pools(program, q, k_pages, v_pages, latent, (P, ps, Hkv, Dk), (P, ps, Hkv, Dv))
     require(program, page_table, "page_table", dtypes=(torch.int32,), shape=(B, MP))
@@ -969,26 +1003,26 @@ def _prefill_cuda(program: GpuProgram, page_table, pos0, q, k_pages, v_pages):
     if n_runs:
         call(
             "sfc_flash_prefill", q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), o.data_ptr(),
-            program.schedule.data_ptr(), p["runs"].data_ptr(), n_runs, tiles, Hkv,
+            program.schedule.data_ptr(), p["runs"].data_ptr(), n_runs, tokens, Hkv,
             page_table.data_ptr(), pos0.data_ptr(), Tq, g, Dk, Dv, ps, MP, B, P, p["sm_scale"],
             _DTYPE_CODE[k_pages.dtype], PREFILL_CORE_CODE[core], stream_of(q), core=core,
         )
-        program.launched.update(core=core, grid=program.grid, tiles=tiles,
-                                rows_per_cta=LATENT_ROWS if latent else tiles * ps * g)
+        program.launched.update(core=core, grid=program.grid, tokens=tokens,
+                                rows_per_cta=LATENT_ROWS if latent else tokens * g)
     return o
 
 
 def _prefill_plain(program: GpuProgram, page_table, pos0, q, k_pages, v_pages):
-    """Tile walk of every CTA, in a shuffled order: the m q tiles of a
-    grouped run (``params["tiles"]`` > 1) over its last tile's pages, or
-    one q tile's run; rows no tile covers are NaN (the kernel leaves them
-    unwritten), so a caller that reads them fails here too."""
+    """Tile walk of every CTA, in a shuffled order: the tokens of a CTA
+    table's run (``params["ctas"]``: (first row, rows, first token,
+    tokens)) over its pages, or one q tile's run; rows no CTA covers are
+    NaN (the kernel leaves them unwritten), so a caller that reads them
+    fails here too."""
     p = program.params
     B, Tq, Hkv, g, Dk = q.shape
     ps = k_pages.shape[1]
     Dv = v_pages.shape[-1]
-    m = p["tiles"]
-    T = m * ps  # tokens a CTA holds
+    T = p["tokens"]  # tokens a CTA holds
     sched, runs = program.schedule.long(), p["runs"].long()
     pt, p0 = page_table.long(), pos0.long()
     qf, kf, vf = q.float(), k_pages.float(), v_pages.float()
@@ -1002,11 +1036,11 @@ def _prefill_plain(program: GpuProgram, page_table, pos0, q, k_pages, v_pages):
         run, h = chunk // Hkv, chunk % Hkv
         head = sched[runs[run, 0]]
         slot = head[:, 0]
-        qt0, tiles = (head[:, 1], torch.ones_like(slot)) if m == 1 else (runs[run, 2], runs[run, 3])
-        toks = qt0[:, None] * ps + ar_t  # (C, T)
-        live = ar_t < tiles[:, None] * ps  # the tokens of the tiles the CTA holds
+        t0, tokens = (runs[run, 2], runs[run, 3]) if p["ctas"] else (head[:, 1] * ps, torch.full_like(slot, ps))
+        toks = t0[:, None] + ar_t  # (C, T)
+        live = ar_t < tokens[:, None]  # the tokens the CTA writes
         # row r of the CTA's (T * g, Dk) block: token r // g, head r % g
-        qlim = p0[slot][:, None] + qt0[:, None] * ps + ar_r // g
+        qlim = p0[slot][:, None] + t0[:, None] + ar_r // g
         lens = runs[run, 1]
 
         def step(s, run=run, h=h, slot=slot):
@@ -1014,8 +1048,8 @@ def _prefill_plain(program: GpuProgram, page_table, pos0, q, k_pages, v_pages):
             phys = pt[slot, lp]
             return kf[phys, :, h], vf[phys, :, h], lp[:, None] * ps + ar_k
 
-        # the rows of tiles the CTA does not hold (past Tq for the last
-        # lane's last group) are zeros, as the kernels load them
+        # the rows of tokens the CTA does not write (past Tq for the last
+        # lane's last CTA) are zeros, as the kernels load them
         qblk = torch.where(live[:, :, None, None], qf[slot[:, None], toks.clamp(max=Tq - 1), h[:, None]], 0.0)
         out = _online_walk(qblk.reshape(len(chunk), T * g, Dk), step, int(lens.max()), lens, qlim,
                            torch.full_like(slot, _INT_MAX), p["sm_scale"])
@@ -1031,34 +1065,32 @@ def flash_prefill_program(schedule: PageSchedule, q: torch.Tensor, *, page_size:
     page_size x g query rows), the runs in the schedule's launch order.  A
     run is one (slot, q tile) of ``page_size`` tokens, or on the
     ``"wgmma"`` and ``"tiled"`` cores (:func:`prefill_core` of q's dtype,
-    head widths Dk and ``dv``, Dk by default) a group of
-    :func:`prefill_tiles` consecutive q tiles of one slot
-    (``schedule.groups``; ``params["tiles"]``).  The launcher refuses
-    operands whose core (:func:`is_latent`) or q tiles a CTA are not the
-    ones declared here."""
+    head widths Dk and ``dv``, Dk by default) :func:`prefill_tokens`
+    consecutive tokens of one slot, the table and runs then those of
+    :func:`prefill_cta_schedule_device` (``params["ctas"]``; the table is
+    the program's schedule).  The launcher refuses operands whose core
+    (:func:`is_latent`) or tokens a CTA are not the ones declared here."""
     Tq, Hkv, g = q.shape[1], q.shape[2], q.shape[3]
     if Tq % page_size:
         raise ValueError(f"Tq={Tq} is not a multiple of the page size {page_size}")
-    table = schedule.table
-    if table.dim() != 2 or table.shape[1] != 6:
-        raise ValueError(f"schedule {tuple(table.shape)} is not a prefill page table")
-    tiles = 1
+    if schedule.table.dim() != 2 or schedule.table.shape[1] != 6:
+        raise ValueError(f"schedule {tuple(schedule.table.shape)} is not a prefill page table")
+    core = "latent"
     if not latent:
         dk = q.shape[-1]
-        tiles = prefill_tiles(prefill_core(q.dtype, dk, dk if dv is None else dv, page_size, g), page_size, g)
+        core = prefill_core(q.dtype, dk, dk if dv is None else dv, page_size, g)
+    tokens = prefill_tokens(core, page_size, g)
+    if core in CTA_CORES:
+        schedule = prefill_cta_schedule_device(schedule, tokens)
     runs = schedule.runs
-    if tiles > 1:
-        if not schedule.groups or tiles not in schedule.groups:
-            raise ValueError(f"schedule carries no runs grouped by {tiles} q tiles (build it with "
-                             f"prefill_page_schedule_device at bq = page_size)")
-        runs = schedule.groups[tiles]
     return GpuProgram(
         name="sfc_flash_prefill",
-        schedule=table,
+        schedule=schedule.table,
         launcher=_prefill_cuda,
         plain=_prefill_plain,
         grid=(int(runs.shape[0]), -(-page_size * g // LATENT_ROWS) if latent else Hkv),
-        params={"runs": runs, "sm_scale": float(sm_scale), "latent": bool(latent), "tiles": tiles},
+        params={"runs": runs, "sm_scale": float(sm_scale), "latent": bool(latent), "tokens": tokens,
+                "ctas": core in CTA_CORES},
         columns=("slot", "q_tile", "logical_page", "first", "last", "valid"),
     )
 

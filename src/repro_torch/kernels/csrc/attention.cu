@@ -20,8 +20,8 @@
 // a cohort's (B, Tq, Hkv, g, Dk) new tokens, causal over each slot's paged
 // prefix.  One CTA per (run, kv head); a run is one (slot, q tile of ps
 // tokens) and its rows are the ps * g (token, head) pairs of the tile, or
-// on the tensor-core and register-tiled cores a group of 128 / (ps g)
-// consecutive q tiles of one slot walking its last tile's run (below).
+// on the tensor-core and register-tiled cores T = 128 / g consecutive
+// tokens of one slot walking the pages of its last new token (below).
 // Rows that no run covers stay unwritten, as on the TPU.  The wrapper
 // launches the runs longest first (kernels/attention.py::longest_first):
 // a lane's runs grow with its q tiles, and in table order the launch's
@@ -105,7 +105,7 @@
 // 167 registers and one CTA (8 warps) an SM.
 //
 // sfc_flash_prefill in f32 with Dk = Dv = 64 or 128, 128 rows a CTA (ps g
-// = 128; or groups of q tiles, below) and pages of 4 to 64 rows (a
+// = 128; or CTAs of 128 / g tokens, below) and pages of 4 to 64 rows (a
 // multiple of 4) runs the same core
 // (tiled_core, templated on the walk) on a paged cp.async producer
 // (prefill_tiled_kernel; kernels/attention.py::prefill_core picks the core
@@ -187,7 +187,7 @@
 // 1.561, SDPA f32 1.601, flash_rows 3.78.
 //
 // sfc_flash_prefill in bf16 with Dk = Dv = 64 or 128, 128 query rows a
-// CTA (ps g = 128; or groups of q tiles, below) and pages of 8 to 64 rows
+// CTA (ps g = 128; or CTAs of 128 / g tokens, below) and pages of 8 to 64 rows
 // runs the same consumer on a paged
 // producer (prefill_wgmma_kernel; kernels/attention.py::prefill_core
 // picks the core and the entry launches it or refuses the call).  At the serving cohort (8 lanes, Tq 1024, 1,056 CTAs of
@@ -218,31 +218,44 @@
 // so every K/V byte was read 8x as often as at 128 rows: 20.6-20.8 ms in
 // bf16 against a bound of 0.0435 and a page gather + SDPA of 0.71-0.83,
 // 17.5-17.6 in f32 (bound 0.540, gather + SDPA f32 3.9-4.0).  A CTA of
-// either core now takes m = 128 / (ps g) consecutive q tiles of one lane
-// (ps g in {16, 32, 64, 128}; m up to 8): its 128 rows are those tiles'
-// m ps tokens x the g heads of one kv head in PrefillWalk::row order, and
-// it walks the group's last tile's run, logical pages 0 .. that tile's
-// last page, which covers each earlier tile's pages; an earlier tile's
-// rows see the later pages masked by position, which adds exactly zero
-// to a finite online-softmax state (decode's argument above), so every
-// row is the function the per-tile walk computes.  The table stays the
-// JAX package's; the host builds the groups' runs (first row, rows, qt,
-// tiles) beside the table's (kernels/attention.py::prefill_group_runs),
-// longest first, and the entry takes the tiles a CTA holds (1: runs of
-// (first row, rows) as before, so ps g = 128 keeps its runs, grid and
-// bits).  The wgmma producer loads Q as one 4-D box of m ps tokens (at
-// most 128; TMA fills zeros past B Tq), the tiled core copies Q^T's rows
-// through the same walk and zeroes the rows of tiles a last group does
-// not hold; neither writes them (consume skips a null row), so the rows
-// written are the per-tile launch's.  A stage masks nothing when its
-// pages are live and at or before the CTA's first position, p0 + qt ps.
+// either core now takes T = 128 / g consecutive tokens of one lane
+// (every shape whose q tile fits, ps g <= 128, so T >= ps): its T g
+// rows are those tokens x the g heads of one kv head in
+// PrefillWalk::row order (128 where g divides 128; 125 at Qwen's g = 5,
+// whose q tile of 80 rows fits no whole number of times), and it walks
+// logical pages 0 .. (p0 + its last new token) / ps, which cover each
+// earlier token's pages; an earlier token's rows see the later pages
+// masked by position, which adds exactly zero to a finite online-softmax
+// state (decode's argument above), so every row is the function the
+// per-tile walk computes.  Where T is not a multiple of ps a CTA's first
+// and last pages are partly its own: the masks are by position, not by
+// page.  The CTAs are the JAX table at bq = T (the host builds it from
+// the cohort of the ps table, kernels/attention.py::prefill_cta_schedule,
+// with runs of (first row, rows, t0, tokens) launched longest first), a
+// lane's CTAs covering its q tiles' ceil(n / ps) ps tokens (one CTA of
+// pad tokens only where those end past its CTAs of new tokens), so the
+// rows written are the per-tile launch's.  Where ps divides T those CTAs
+// are the earlier groups of T / ps whole q tiles: the same CTAs, walks,
+// order and bits (tools/gqa_hashes.py).  The wgmma producer loads Q as one 4-D box
+// of T tokens x g heads, T g 128-byte rows a column chunk, the bytes its
+// barrier expects (TMA fills zeros past B Tq; at T g < 128 the chunk's
+// last rows keep what they held, and a row of S = Q K^T is its own Q
+// row's alone); the tiled core copies Q^T's rows through the same walk
+// and zeroes the rest; neither writes a row past the CTA's tokens
+// (consume skips a null row).  A stage masks nothing when its pages are
+// live and at or before the CTA's first position, p0 + t0.
 // At that cohort 752 CTAs of 128 rows (one partial group a lane; the
 // causal diagonal 128 tokens wide instead of 16): 0.240 ms in bf16
 // against flash_rows' 20.73 in the same run and a gather + SDPA of 0.725
 // (0.18 of the bound, row 20's softmax its limit; at D = 128 every stage
 // takes the masked path), and on another cohort (592 CTAs) 1.540 ms in
 // f32 against 17.28 and a gather + SDPA f32 of 3.98 (0.35 of the bound;
-// H100 80GB HBM3, 700.00 W; chip_smoke.py phase 7d).
+// H100 80GB HBM3, 700.00 W; chip_smoke.py phase 7d).  At Qwen2.5-14B's
+// cohort (Hkv 8, g 5, the same lanes' shapes) 1,264 CTAs of 25 tokens:
+// 0.373 ms in bf16 (0.24 of its 0.0885 ms bound) against flash_rows'
+// 15.63 on the same cohort (1,928 CTAs of 80 rows, each in two passes of
+// 64) and a gather + SDPA of 1.366; f32 on another cohort 3.913 ms (0.47
+// of its bound) against 20.92 and 16.75 (chip_smoke.py phase 7e).
 //
 // The latent core (lat::, below) runs sfc_flash_decode and sfc_flash_prefill
 // for MLA (DeepSeek-V2's absorbed-weight attention, models/attention.py::
@@ -366,45 +379,47 @@ struct DenseWalk {
   }
 };
 
-// sfc_flash_prefill: the (token, head) rows of the CTA's q tiles qt ..
-// qt + tiles - 1 of slot (ps * g a tile), kv head h; kv rows of the
-// walk's pages in table order.  A launch of group = 1 takes runs of
-// (first row, rows), one q tile each (its qt from the table); group > 1
-// (the wgmma and tiled cores, group = 128 / (ps g)) runs of (first row,
-// rows, qt, tiles): up to group consecutive tiles walking the last one's
-// run, whose pages cover every earlier tile's (those rows see the later
-// pages masked by position: zero added to a finite state).
+// sfc_flash_prefill: the (token, head) rows of the CTA's tokens t0 ..
+// t0 + tokens - 1 of slot, kv head h; kv rows of the walk's pages in
+// table order.  The SIMT core's runs (ctas == false) are (first row,
+// rows), one q tile of ps tokens each (t0 = its qt ps from the table);
+// the wgmma and tiled cores' (ctas == true) are (first row, rows, t0,
+// tokens) of a table of CTAs of T = 128 / g tokens (kernels/attention.py::
+// prefill_cta_schedule), each walking the pages of its last new token,
+// which cover every earlier token's (those rows see the later pages
+// masked by position: zero added to a finite state).
 struct PrefillWalk {
   const int* sched;
   const int* table;
-  int start, slot, qt, tiles, h, hkv, tq, g, dk, dv, ps, mp, p0, nkv;
+  int start, slot, t0, tokens, h, hkv, tq, g, dk, dv, ps, mp, p0, nkv;
   static constexpr int klim = INT_MAX;
 
-  __device__ PrefillWalk(const int* sched_, const int* runs, int group, const int* table_,
+  __device__ PrefillWalk(const int* sched_, const int* runs, bool ctas, const int* table_,
                          const int* pos0, int tq_, int g_, int dk_, int dv_, int ps_, int mp_)
       : sched(sched_), table(table_), tq(tq_), g(g_), dk(dk_), dv(dv_), ps(ps_), mp(mp_) {
-    const int* run = runs + (group == 1 ? 2 : 4) * blockIdx.x;
+    const int* run = runs + (ctas ? 4 : 2) * blockIdx.x;
     start = run[0];
     nkv = run[1] * ps;
     h = blockIdx.y;
     hkv = gridDim.y;
     slot = sched[6 * start];
-    qt = group == 1 ? sched[6 * start + 1] : run[2];
-    tiles = group == 1 ? 1 : run[3];
+    t0 = ctas ? run[2] : sched[6 * start + 1] * ps;
+    tokens = ctas ? run[3] : ps;
     p0 = pos0[slot];
   }
-  // the rows of the tiles the CTA holds: a slot's last group may hold
-  // fewer than `group`; the CTA's further rows are never written (the
-  // tiled core zeroes them, the wgmma core's Q box reads them, zeros past
-  // B Tq: for the last slot they lie past q)
-  __device__ int rows() const { return tiles * ps * g; }
+  // the rows of the tokens the CTA writes: a slot's last CTA may hold
+  // fewer than T, and T g may fall short of 128 (125 rows at g = 5); the
+  // CTA's further rows are never written (the tiled core zeroes them, the
+  // wgmma core's Q box reads them, zeros past B Tq, or leaves the rows
+  // past T g as they were: a row of S is its own Q row's alone)
+  __device__ int rows() const { return tokens * g; }
   __device__ size_t row(int r) const {
-    const int tok = qt * ps + r / g;
+    const int tok = t0 + r / g;
     return (((size_t)slot * tq + tok) * hkv + h) * g + (r % g);
   }
   __device__ size_t q_off(int r) const { return row(r) * dk; }
   __device__ size_t o_off(int r) const { return row(r) * dv; }
-  __device__ int qlim(int r) const { return p0 + qt * ps + r / g; }
+  __device__ int qlim(int r) const { return p0 + t0 + r / g; }
   // page t of the run: its logical page lp and its physical page
   __device__ void page(int t, int& lp, int& phys) const {
     lp = sched[6 * (start + t) + 2];
@@ -572,7 +587,7 @@ __global__ void __launch_bounds__(THREADS)
 flash_prefill_kernel(const T* q, const T* kp, const T* vp, T* o, const int* sched, const int* runs,
                      const int* table, const int* pos0, int tq, int g, int dk, int dv, int ps, int mp,
                      float scale) {
-  const PrefillWalk w(sched, runs, 1, table, pos0, tq, g, dk, dv, ps, mp);
+  const PrefillWalk w(sched, runs, false, table, pos0, tq, g, dk, dv, ps, mp);
   flash_rows<T, RW>(w, q, kp, vp, o, dk, dv, scale);
 }
 
@@ -737,9 +752,9 @@ struct PagedStages {
   int* facts;
   int lp, phys;  // warp 0, lane t < per: page t of the stage being looked up
 
-  __device__ PagedStages(const int* sched, const int* runs, int group, const int* table,
-                         const int* pos0, int tq, int g, int ps, int mp, int* facts_)
-      : w(sched, runs, group, table, pos0, tq, g, D, D, ps, mp), facts(facts_), lp(-1), phys(0) {
+  __device__ PagedStages(const int* sched, const int* runs, const int* table, const int* pos0, int tq,
+                         int g, int ps, int mp, int* facts_)
+      : w(sched, runs, true, table, pos0, tq, g, D, D, ps, mp), facts(facts_), lp(-1), phys(0) {
     per = KV / ps;
     lg = __ffs(ps) - 1;
     pages = w.nkv / ps;
@@ -1043,19 +1058,19 @@ flash_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
   tiled_core<D>(st, q, k, v, o, scale, smem);
 }
 
-// One CTA per (run, kv head h): the 128 rows of PrefillWalk (tokens qt ps
-// .. (qt + group) ps - 1 x the g query heads of h, row r = token g + head;
-// group = 128 / (ps g) q tiles, rows past the walk's tiles zero and
-// unwritten), the walk's pages in table order, KV / ps pages a stage.
+// One CTA per (run, kv head h): the 128 rows of PrefillWalk (tokens t0
+// .. t0 + 128 / g - 1 x the g query heads of h, row r = token g + head;
+// rows past the tokens the CTA writes zero and unwritten), the walk's
+// pages in table order, KV / ps pages a stage.
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
 prefill_tiled_kernel(const float* __restrict__ q, const float* __restrict__ kp,
                      const float* __restrict__ vp, float* __restrict__ o,
-                     const int* __restrict__ sched, const int* __restrict__ runs, int group,
+                     const int* __restrict__ sched, const int* __restrict__ runs,
                      const int* __restrict__ table, const int* __restrict__ pos0, int tq, int g,
                      int ps, int mp, float scale) {
   extern __shared__ __align__(16) float smem[];
-  PagedStages<D> st(sched, runs, group, table, pos0, tq, g, ps, mp,
+  PagedStages<D> st(sched, runs, table, pos0, tq, g, ps, mp,
                     reinterpret_cast<int*>(smem + Layout<D>::SMEM / 4));
   tiled_core<D>(st, q, kp, vp, o, scale, smem);
 }
@@ -1078,8 +1093,8 @@ int attention(const void* q, const void* k, const void* v, void* o, const void* 
 
 template <int D>
 int prefill(const void* q, const void* kp, const void* vp, void* o, const void* sched,
-            const void* runs, int n_runs, int group, int hkv, const void* table, const void* pos0,
-            int tq, int g, int ps, int mp, float scale, void* stream) {
+            const void* runs, int n_runs, int hkv, const void* table, const void* pos0, int tq,
+            int g, int ps, int mp, float scale, void* stream) {
   if (n_runs == 0 || hkv == 0) return 0;
   if (hkv > 65535) return (int)cudaErrorInvalidConfiguration;
   // 16-byte copies of V, float4 stores of O; K's pool beside V's
@@ -1088,7 +1103,7 @@ int prefill(const void* q, const void* kp, const void* vp, void* o, const void* 
   if (err != cudaSuccess) return (int)err;
   prefill_tiled_kernel<D><<<dim3(n_runs, hkv), THREADS, Layout<D>::PREFILL_SMEM, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)kp, (const float*)vp, (float*)o, (const int*)sched,
-      (const int*)runs, group, (const int*)table, (const int*)pos0, tq, g, ps, mp, scale);
+      (const int*)runs, (const int*)table, (const int*)pos0, tq, g, ps, mp, scale);
   return (int)cudaGetLastError();
 }
 
@@ -2322,11 +2337,14 @@ struct PrefillMasks {
   }
 };
 
-// One CTA per (run, kv head h): the 128 rows of PrefillWalk (tokens qt ps
-// .. (qt + group) ps - 1 x the g query heads of h, row r = token g + head;
-// group = 128 / (ps g) q tiles) in one 4-D box of Q, the walk's pages in
-// table order, 128 / ps pages a stage.  Rows past the walk's tiles (a
-// partial group) are read (TMA fills zeros past B Tq) but never written.  Warp 8 produces: lane 0 loads Q, and per stage lane i < 128 / ps
+// One CTA per (run, kv head h): the T g rows of PrefillWalk (tokens t0 ..
+// t0 + T - 1 x the g query heads of h, row r = token g + head; T = 128 /
+// g) in one 4-D box of Q of T g 128-byte rows a column chunk (the
+// barrier expects those bytes; at T g < 128 the chunk's last rows keep
+// what they held), the walk's pages in table order, 128 / ps pages a
+// stage.  Rows past the tokens the CTA writes (a slot's last CTA) are
+// read (TMA fills zeros past B Tq) but never written.  Warp 8 produces:
+// lane 0 loads Q, and per stage lane i < 128 / ps
 // looks up page i (PrefillWalk::page), publishes the stage's block
 // positions and issues the page's K and V boxes (ps rows of one kv head,
 // 128-byte rows, at row i ps of the stage); a slot past the run's end
@@ -2335,14 +2353,14 @@ template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
 prefill_wgmma_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
                      const __grid_constant__ CUtensorMap mv, __nv_bfloat16* __restrict__ o,
-                     const int* __restrict__ sched, const int* __restrict__ runs, int group,
+                     const int* __restrict__ sched, const int* __restrict__ runs, int cta_tokens,
                      const int* __restrict__ table, const int* __restrict__ pos0, int tq, int g,
                      int ps, int mp, float scale_log2) {
   using L = Layout<D>;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const Smem<D> sm(smem_raw);
 
-  const PrefillWalk w(sched, runs, group, table, pos0, tq, g, D, D, ps, mp);
+  const PrefillWalk w(sched, runs, true, table, pos0, tq, g, D, D, ps, mp);
   const int pages = w.nkv / ps;
   const int per_stage = STAGE_KV / ps;
   const int n = (pages + per_stage - 1) / per_stage;
@@ -2352,9 +2370,9 @@ prefill_wgmma_kernel(const __grid_constant__ CUtensorMap mq, const __grid_consta
     if (threadIdx.x >= 256 + 32) return;
     const int lane = threadIdx.x & 31;
     if (lane == 0) {
-      wg::mbar_expect_tx(sm.qbar, L::TILE_BYTES);
+      wg::mbar_expect_tx(sm.qbar, L::CHUNKS * cta_tokens * g * 128);
       for (int c = 0; c < L::CHUNKS; ++c)
-        wg::tma_load_4d(sm.qs + c * CHUNK, &mq, sm.qbar, c * 64, 0, w.h, w.slot * tq + w.qt * ps);
+        wg::tma_load_4d(sm.qs + c * CHUNK, &mq, sm.qbar, c * 64, 0, w.h, w.slot * tq + w.t0);
     }
     int* bpos = sm.facts;
     int* tops = sm.facts + L::STAGES * BLOCKS;
@@ -2406,7 +2424,7 @@ prefill_wgmma_kernel(const __grid_constant__ CUtensorMap mq, const __grid_consta
 
 template <int D>
 int prefill_wgmma(const void* q, const void* kp, const void* vp, void* o, const void* sched,
-                  const void* runs, int n_runs, int group, int hkv, const void* table,
+                  const void* runs, int n_runs, int cta_tokens, int hkv, const void* table,
                   const void* pos0, int tq, int g, int ps, int mp, int B, int P, float scale,
                   void* stream) {
   if (n_runs == 0 || hkv == 0) return 0;
@@ -2416,11 +2434,11 @@ int prefill_wgmma(const void* q, const void* kp, const void* vp, void* o, const 
       (long long)B * tq > INT_MAX || (long long)P * ps > INT_MAX)
     return (int)cudaErrorInvalidValue;
   CUtensorMap mq, mk, mv;
-  // Q (B Tq, Hkv, g, D): one box is the group ps tokens (BQ / g) x g heads
-  // of one kv head; past B Tq TMA fills zeros
+  // Q (B Tq, Hkv, g, D): one box is a CTA's T = BQ / g tokens x g heads of
+  // one kv head; past B Tq TMA fills zeros
   const uint64_t qdims[4] = {(uint64_t)D, (uint64_t)g, (uint64_t)hkv, (uint64_t)B * tq};
   const uint64_t qstrides[3] = {2ull * D, 2ull * g * D, 2ull * hkv * g * D};
-  const uint32_t qbox[4] = {64, (uint32_t)g, 1, (uint32_t)(group * ps)};
+  const uint32_t qbox[4] = {64, (uint32_t)g, 1, (uint32_t)cta_tokens};
   // the pools (P ps, Hkv, D): one box is one page of one kv head
   const uint64_t kdims[3] = {(uint64_t)D, (uint64_t)hkv, (uint64_t)P * ps};
   const uint64_t kstrides[2] = {2ull * D, 2ull * hkv * D};
@@ -2432,7 +2450,7 @@ int prefill_wgmma(const void* q, const void* kp, const void* vp, void* o, const 
   const cudaError_t attr = raise_smem_limit<prefill_wgmma_kernel<D>>(Layout<D>::PREFILL_SMEM);
   if (attr != cudaSuccess) return (int)attr;
   prefill_wgmma_kernel<D><<<dim3(n_runs, hkv), THREADS, Layout<D>::PREFILL_SMEM, (cudaStream_t)stream>>>(
-      mq, mk, mv, (__nv_bfloat16*)o, (const int*)sched, (const int*)runs, group, (const int*)table,
+      mq, mk, mv, (__nv_bfloat16*)o, (const int*)sched, (const int*)runs, cta_tokens, (const int*)table,
       (const int*)pos0, tq, g, ps, mp, scale * LOG2E);
   return (int)cudaGetLastError();
 }
@@ -2448,30 +2466,27 @@ bool core_shape(int D, int bq, int bkv) {
   return (D == 64 || D == 80 || D == 128) && bq == 128 && bkv % 64 == 0;
 }
 
-// a q tile's ps * g rows that whole tiles fill a 128-row CTA with: 16,
-// 32, 64 or 128 (the CTA holds 128 / (ps g) consecutive tiles; at most 8)
-constexpr int PREFILL_TILE_MIN = 16;
-bool prefill_tile_rows(int ps, int g) {
-  const int rows = ps * g;
-  return rows >= PREFILL_TILE_MIN && rows <= tc::BQ && tc::BQ % rows == 0;
-}
+// a q tile's ps * g rows fit a 128-row CTA, which then holds T = 128 / g
+// consecutive tokens of one slot (T >= ps; T g = 128 where g divides it)
+bool prefill_cta_rows(int ps, int g) { return g >= 1 && ps * g <= tc::BQ; }
+int prefill_cta_tokens(int g) { return tc::BQ / g; }
 
 // the prefill shapes the tensor-core core takes (bf16 inputs): Dk == Dv
-// in {64, 128}; whole q tiles fill the two warpgroups' 128 rows; whole
-// pages a 64-row half (64 % ps == 0) of at least 8 rows, so that every
-// page's box lands on a 1024-byte swizzle atom.
+// in {64, 128}; a q tile fits the two warpgroups' 128 rows; whole pages a
+// 64-row half (64 % ps == 0) of at least 8 rows, so that every page's box
+// lands on a 1024-byte swizzle atom.
 bool prefill_tensor_core_shape(int dk, int dv, int ps, int g) {
-  return dk == dv && (dk == 64 || dk == 128) && prefill_tile_rows(ps, g) && ps >= 8 && 64 % ps == 0;
+  return dk == dv && (dk == 64 || dk == 128) && prefill_cta_rows(ps, g) && ps >= 8 && 64 % ps == 0;
 }
 
 // the prefill shapes the register-tiled core takes (f32 inputs): Dk == Dv
-// in {64, 128}; whole q tiles fill its 128 rows; whole pages a 64-row
-// stage (64 % ps == 0) whose rows a thread's 4 kv columns do not straddle
-// (ps % 4 == 0): ps in {4, 8, 16, 32, 64}, a power of two.
+// in {64, 128}; a q tile fits its 128 rows; whole pages a 64-row stage (64
+// % ps == 0) whose rows a thread's 4 kv columns do not straddle (ps % 4
+// == 0): ps in {4, 8, 16, 32, 64}, a power of two.
 static_assert(tiled::KV == 64 && tiled::PAGE_MIN == 4 && tiled::BQ == tc::BQ,
               "prefill_tiled_shape's constants");
 bool prefill_tiled_shape(int dk, int dv, int ps, int g) {
-  return dk == dv && (dk == 64 || dk == 128) && prefill_tile_rows(ps, g) && ps >= tiled::PAGE_MIN &&
+  return dk == dv && (dk == 64 || dk == 128) && prefill_cta_rows(ps, g) && ps >= tiled::PAGE_MIN &&
          ps % tiled::PAGE_MIN == 0 && tiled::KV % ps == 0;
 }
 
@@ -2543,17 +2558,18 @@ extern "C" int sfc_flash_decode(const void* q, const void* kp, const void* vp, v
 
 // core: a PrefillCore code, the core the wrapper picked; the entry
 // launches it, or refuses the call for a shape outside that core's rule.
-// tiles: the q tiles a CTA holds, 128 / (ps g) on the wgmma and tiled
-// cores (runs of (first row, rows, qt, tiles); kernels/attention.py::
-// prefill_group_runs), 1 on the others (runs of (first row, rows)).
+// tokens: the tokens a CTA holds, T = 128 / g on the wgmma and tiled
+// cores (sched their CTA table, runs of (first row, rows, t0, tokens);
+// kernels/attention.py::prefill_cta_schedule), one q tile's ps on the
+// others (runs of (first row, rows)).
 extern "C" int sfc_flash_prefill(const void* q, const void* kp, const void* vp, void* o,
-                                 const void* sched, const void* runs, int n_runs, int tiles, int hkv,
+                                 const void* sched, const void* runs, int n_runs, int tokens, int hkv,
                                  const void* table, const void* pos0, int tq, int g, int dk, int dv,
                                  int ps, int mp, int B, int P, float scale, int dtype, int core,
                                  void* stream) {
   if (ps < 1 || g < 1) return (int)cudaErrorInvalidValue;
-  const bool grouped = core == PREFILL_WGMMA || core == PREFILL_TILED;
-  if (tiles != (grouped && ps * g <= tc::BQ ? tc::BQ / (ps * g) : 1)) return (int)cudaErrorInvalidValue;
+  const bool ctas = core == PREFILL_WGMMA || core == PREFILL_TILED;
+  if (tokens != (ctas ? prefill_cta_tokens(g) : ps)) return (int)cudaErrorInvalidValue;
   if (core == PREFILL_LATENT) {
     if (!lat::shape(hkv, dk, dv) || !latent_operands(q, kp, vp))
       return (int)cudaErrorInvalidValue;
@@ -2566,17 +2582,17 @@ extern "C" int sfc_flash_prefill(const void* q, const void* kp, const void* vp, 
   if (bad_shape(ps * g, dk, dv)) return (int)cudaErrorInvalidValue;
   if (core == PREFILL_WGMMA) {
     if (dtype == 0 || !prefill_tensor_core_shape(dk, dv, ps, g)) return (int)cudaErrorInvalidValue;
-    return dk == 64 ? tc::prefill_wgmma<64>(q, kp, vp, o, sched, runs, n_runs, tiles, hkv, table,
+    return dk == 64 ? tc::prefill_wgmma<64>(q, kp, vp, o, sched, runs, n_runs, tokens, hkv, table,
                                             pos0, tq, g, ps, mp, B, P, scale, stream)
-                    : tc::prefill_wgmma<128>(q, kp, vp, o, sched, runs, n_runs, tiles, hkv, table,
+                    : tc::prefill_wgmma<128>(q, kp, vp, o, sched, runs, n_runs, tokens, hkv, table,
                                              pos0, tq, g, ps, mp, B, P, scale, stream);
   }
   if (core == PREFILL_TILED) {
     if (dtype != 0 || !prefill_tiled_shape(dk, dv, ps, g)) return (int)cudaErrorInvalidValue;
-    return dk == 64 ? tiled::prefill<64>(q, kp, vp, o, sched, runs, n_runs, tiles, hkv, table, pos0,
-                                         tq, g, ps, mp, scale, stream)
-                    : tiled::prefill<128>(q, kp, vp, o, sched, runs, n_runs, tiles, hkv, table, pos0,
-                                          tq, g, ps, mp, scale, stream);
+    return dk == 64 ? tiled::prefill<64>(q, kp, vp, o, sched, runs, n_runs, hkv, table, pos0, tq, g,
+                                         ps, mp, scale, stream)
+                    : tiled::prefill<128>(q, kp, vp, o, sched, runs, n_runs, hkv, table, pos0, tq, g,
+                                          ps, mp, scale, stream);
   }
   if (core != PREFILL_SIMT) return (int)cudaErrorInvalidValue;
   if (dtype == 0)

@@ -146,41 +146,84 @@ def _group_oracle(table, m):
 ])
 @pytest.mark.parametrize("m", [1, 2, 4, 8])
 def test_prefill_group_runs_match_oracle(pos0, n_new, ps, MP, m):
-    """The grouped runs of a cohort against a numpy oracle on the JAX
-    table: every (slot, q tile) of the table lies in exactly one group, a
-    group holds at most m consecutive tiles of one slot and walks its last
-    tile's run (which covers each earlier tile's pages); m = 1 gives the
-    table's runs exactly; the device upload launches them longest first
-    (ties in table order)."""
+    """The CTAs of m q tiles' tokens (T = m ps: the shapes where whole q
+    tiles fill a CTA) against a numpy oracle of groups of m tiles on the
+    JAX table: each CTA holds its group's tokens and walks the group's
+    last tile's pages (which cover each earlier tile's), every (slot, q
+    tile) of the table lies in exactly one CTA; the CTA table is the JAX
+    table at bq = T without its padding rows; m = 1 gives the JAX table's
+    runs exactly; the device upload launches them longest first (ties in
+    table order)."""
+    T = m * ps
     table = np.asarray(jatt.prefill_page_schedule(pos0, n_new, ps, MP))
-    got = tatt.prefill_group_runs(table, m)
-    np.testing.assert_array_equal(got, _group_oracle(table, m))
-    valid = table[:, 5] == 1
-    tiles = {(int(s), int(t)) for s, t in table[valid][:, :2]}
-    seen = []
-    for start, n, qt0, k in got:
-        slot = table[start, 0]
-        assert 1 <= k <= m
-        walk = table[start:start + n]
-        assert (walk[:, 0] == slot).all() and (walk[:, 1] == qt0 + k - 1).all()
-        assert walk[0, 3] == 1 and walk[-1, 4] == 1
-        np.testing.assert_array_equal(walk[:, 2], np.arange(n))  # logical pages 0 .. last
-        for qt in range(qt0, qt0 + k):
-            own = table[valid & (table[:, 0] == slot) & (table[:, 1] == qt), 2]
-            assert set(own.tolist()) <= set(walk[:, 2].tolist())
-            seen.append((int(slot), qt))
-    assert sorted(seen) == sorted(tiles) and len(seen) == len(set(seen))
+    ctab, got = tatt.prefill_cta_schedule(pos0, n_new, ps, MP, T)
+    oracle = _group_oracle(table, m)
+    assert len(got) == len(oracle)
+    np.testing.assert_array_equal(got[:, 1], oracle[:, 1])
+    np.testing.assert_array_equal(got[:, 2:], oracle[:, 2:] * ps)
+    for (start, n, t0, k), (o_start, *_rest) in zip(got, oracle):
+        walk = ctab[start:start + n]
+        assert walk[0, 3] == 1 and walk[-1, 4] == 1 and (walk[:, 5] == 1).all()
+        assert (walk[:, 1] == t0 // T).all() and 0 < k <= T
+        # the group's last tile's run, slot and pages 0 .. last
+        np.testing.assert_array_equal(walk[:, [0, 2, 3, 4, 5]], table[o_start:o_start + n][:, [0, 2, 3, 4, 5]])
+        np.testing.assert_array_equal(walk[:, 2], np.arange(n))
+    bq = np.asarray(jatt.prefill_page_schedule(pos0, n_new, ps, MP, bq=T))
+    live = bq[:, 5] == 1
+    np.testing.assert_array_equal(ctab if live.any() else ctab[:0], bq[live])
     runs = tatt.schedule_runs(table, 3, 4, valid_col=5)
     if m == 1:
         np.testing.assert_array_equal(got[:, :2], runs)
-        np.testing.assert_array_equal(got[:, 2], table[runs[:, 0], 1])
-        assert (got[:, 3] == 1).all()
-    dev = tatt.prefill_page_schedule_device(pos0, n_new, ps, MP, device="cpu")
-    assert set(dev.groups) == {k for k in tatt.PREFILL_GROUPS if k * ps <= 128}
-    if m in dev.groups:
-        order = sorted(range(len(got)), key=lambda i: (-got[i, 1], i))
-        np.testing.assert_array_equal(dev.groups[m].numpy(), got[order].reshape(-1, 4))
-        np.testing.assert_array_equal(tatt.longest_first(got), dev.groups[m].numpy())
+        np.testing.assert_array_equal(got[:, 2], table[runs[:, 0], 1] * ps)
+        assert (got[:, 3] == ps).all()
+    dev = tatt.prefill_cta_schedule_device(tatt.prefill_page_schedule_device(pos0, n_new, ps, MP, device="cpu"), T)
+    order = sorted(range(len(got)), key=lambda i: (-got[i, 1], i))
+    np.testing.assert_array_equal(dev.runs.numpy(), got[order].reshape(-1, 4))
+    np.testing.assert_array_equal(tatt.longest_first(got), dev.runs.numpy())
+    np.testing.assert_array_equal(dev.table.numpy(), ctab)
+
+
+def _cta_oracle(pos0, n_new, ps, MP, T):
+    """CTAs of T tokens by their definition, a slot and CTA at a time:
+    (slot, first token, tokens it writes, pages it walks)."""
+    out = []
+    for slot, (p0, n) in enumerate(zip(pos0, n_new)):
+        cover = -(-n // ps) * ps
+        for t0 in range(0, cover, T):
+            last = p0 + min(t0 + T, n) - 1
+            out.append((slot, t0, min(T, cover - t0), min(last // ps, MP - 1) + 1))
+    return out
+
+
+@pytest.mark.parametrize("pos0,n_new,ps,MP", [
+    ((0, 37, 5, 300), (64, 29, 0, 200), 16, 32),    # an inactive lane, unaligned resumes
+    ((0, 3, 40), (25, 26, 80), 16, 8),              # a lane's q tiles end past its CTAs of new tokens
+    ((6, 2, 0, 11), (9, 16, 1, 5), 8, 3),           # pages clamped at max_pages - 1
+    ((0,), (0,), 16, 2),                            # nothing to prefill
+])
+@pytest.mark.parametrize("g", [3, 5, 6, 7])
+def test_prefill_cta_schedule_covers_the_q_tiles(pos0, n_new, ps, MP, g):
+    """CTAs of T = 128 / g tokens where the page size does not divide T
+    (Qwen's g = 5: 25 tokens; 42, 21 and 18 at g = 3, 6 and 7): each
+    slot's CTAs hold consecutive tokens from 0, cover exactly its q
+    tiles' tokens (⌈n_new / ps⌉ ps; a CTA of pad tokens only where those
+    end past the CTAs of new tokens), and walk logical pages 0 .. (pos0 +
+    the last new token) // ps, in the JAX table's layout at bq = T."""
+    T = 128 // g
+    table, runs = tatt.prefill_cta_schedule(pos0, n_new, ps, MP, T)
+    oracle = _cta_oracle(pos0, n_new, ps, MP, T)
+    assert len(runs) == len(oracle)
+    covered = {}
+    for (start, n, t0, k), (slot, o_t0, o_k, pages) in zip(runs, oracle):
+        walk = table[start:start + n]
+        assert (int(walk[0, 0]), int(t0), int(k), int(n)) == (slot, o_t0, o_k, pages)
+        np.testing.assert_array_equal(walk[:, 2], np.arange(n))
+        assert walk[0, 3] == 1 and walk[-1, 4] == 1 and (walk[1:, 3] == 0).all() and (walk[:-1, 4] == 0).all()
+        assert (walk[:, 1] == t0 // T).all()
+        covered.setdefault(slot, []).extend(range(t0, t0 + k))
+    for slot, n in enumerate(n_new):
+        assert covered.get(slot, []) == list(range(-(-n // ps) * ps))
+    assert int(sum(r[1] for r in runs)) == (len(table) if len(runs) else 0)
 
 
 def _check_runs(table, runs, first_col, last_col, key_cols, valid_col=None):
@@ -413,11 +456,13 @@ def test_flash_prefill_plain_matches_pallas(dtype, D, ps, g, Hkv):
     pytest.param(64, 1, 16, 48, id="stablelm-g1-D64"),    # Tq under one group: every group partial
     pytest.param(128, 4, 16, 48, id="minitron-g4-D128"),  # 2 tiles a CTA, the last group partial
     pytest.param(64, 2, 8, 40, id="g2-D64-ps8"),          # 8 tiles a CTA of 16 rows each
+    pytest.param(128, 5, 16, 80, id="qwen-g5-D128"),      # 25 tokens a CTA: pages partly held
+    pytest.param(64, 3, 8, 48, id="g3-D64-ps8"),          # 42 tokens, 126 rows a CTA
 ])
 def test_grouped_prefill_plain_matches_pallas(dtype, D, g, ps, Tq):
     """Row 22 where a q tile's ps g rows fill less than a CTA: the plain
-    version of the grouped CTAs (m = 128 / (ps g) consecutive q tiles of
-    a lane over its last tile's pages, the rows past Tq zero and never
+    version of the CTAs of T = 128 / g consecutive tokens of a lane over
+    the pages of its last new token (the rows past Tq zero and never
     written) against the JAX package's ``flash_attention_prefill`` in
     interpret mode, on the rows the schedule covers: f32 within 1e-4,
     bf16 within rtol 8e-3 / atol 4e-3.  The cohort: a lane from 0, one
@@ -433,8 +478,9 @@ def test_grouped_prefill_plain_matches_pallas(dtype, D, g, ps, Tq):
     assert core == ("tiled" if dtype == torch.float32 else "wgmma")
     sched, args = _prefill_case(rng, B, Hkv, g, D, ps, MP, P, Tq, pos0, n_new, dtype)
     prog = tatt.flash_prefill_program(sched, args[2], page_size=ps, sm_scale=D ** -0.5)
-    m = 128 // (ps * g)
-    assert prog.params["tiles"] == m and torch.equal(prog.params["runs"], sched.groups[m])
+    T = 128 // g
+    assert prog.params["tokens"] == T and torch.equal(prog.params["runs"],
+                                                      tatt.prefill_cta_schedule_device(sched, T).runs)
     got = launch(prog, *args).float().numpy()
     jd = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
     want = _np(jatt.flash_attention_prefill(
@@ -598,18 +644,18 @@ def test_attention_wrapper_launch_arguments_d80_aligned_bases(monkeypatch, dtype
     (torch.float32, 64, 64, 24, 5, "simt"),  # 120 rows, pages not dividing a stage
     (torch.float32, 64, 64, 2, 64, "simt"),  # pages under a thread's 4 kv columns
     (torch.float32, 64, 64, 128, 1, "simt"),  # stablelm's g = 1: a page wider than a stage
-    (torch.bfloat16, 128, 128, 16, 5, "simt"),  # Qwen's g = 5: 80 rows do not divide 128
-    (torch.float32, 128, 128, 16, 5, "simt"),
+    (torch.bfloat16, 128, 128, 16, 5, "wgmma"),  # Qwen's g = 5: 25 tokens, 125 rows a CTA
+    (torch.float32, 128, 128, 16, 5, "tiled"),
     (torch.bfloat16, 64, 64, 16, 12, "simt"),  # 192 rows a q tile
 ] + [
     # g = 1, 2, 4 at pages of 4 .. 64 rows: (g, ps): (bf16's core, f32's).
-    # The q tile's ps g rows must be 16, 32, 64 or 128; bf16 pages at least
-    # 8 rows, f32 pages a multiple of 4
+    # The q tile's ps g rows must fit 128; bf16 pages at least 8 rows, f32
+    # pages a multiple of 4, both at most a 64-row half
     (dtype, 128, 128, ps, g, cores[dtype == torch.float32])
     for (g, ps), cores in {
-        (1, 4): ("simt", "simt"), (1, 8): ("simt", "simt"), (1, 16): ("wgmma", "tiled"),
+        (1, 4): ("simt", "tiled"), (1, 8): ("wgmma", "tiled"), (1, 16): ("wgmma", "tiled"),
         (1, 32): ("wgmma", "tiled"), (1, 64): ("wgmma", "tiled"),
-        (2, 4): ("simt", "simt"), (2, 8): ("wgmma", "tiled"), (2, 16): ("wgmma", "tiled"),
+        (2, 4): ("simt", "tiled"), (2, 8): ("wgmma", "tiled"), (2, 16): ("wgmma", "tiled"),
         (2, 32): ("wgmma", "tiled"), (2, 64): ("wgmma", "tiled"),
         (4, 4): ("simt", "tiled"), (4, 8): ("wgmma", "tiled"), (4, 16): ("wgmma", "tiled"),
         (4, 32): ("wgmma", "tiled"), (4, 64): ("simt", "simt"),
@@ -617,13 +663,13 @@ def test_attention_wrapper_launch_arguments_d80_aligned_bases(monkeypatch, dtype
     for dtype in (torch.bfloat16, torch.float32)
 ])
 def test_prefill_core_rule(dtype, dk, dv, ps, g, core):
-    """At Dk = Dv in (64, 128), a q tile's ps * g rows in (16, 32, 64,
-    128) and whole pages in a 64-row half or stage: bf16 with pages of 8
-    to 64 rows runs on the tensor cores, f32 with pages of 4 to 64 rows (a
-    multiple of 4) on the register-tiled core, each CTA 128 / (ps g) q
-    tiles; the rest on the SIMT core."""
+    """At Dk = Dv in (64, 128), a q tile's ps * g rows at most 128 and
+    whole pages in a 64-row half or stage: bf16 with pages of 8 to 64 rows
+    runs on the tensor cores, f32 with pages of 4 to 64 rows (a multiple
+    of 4) on the register-tiled core, each CTA ⌊128 / g⌋ tokens; the rest
+    on the SIMT core, one q tile of ps tokens a CTA."""
     assert tatt.prefill_core(dtype, dk, dv, ps, g) == core
-    assert tatt.prefill_tiles(core, ps, g) == (128 // (ps * g) if core != "simt" else 1)
+    assert tatt.prefill_tokens(core, ps, g) == (128 // g if core != "simt" else ps)
 
 
 def _prefill_case(rng, B, Hkv, g, D, ps, MP, P, Tq, pos0, n_new, dtype=torch.float32, device="cpu"):
@@ -652,16 +698,18 @@ def _prefill_case(rng, B, Hkv, g, D, ps, MP, P, Tq, pos0, n_new, dtype=torch.flo
     (torch.bfloat16, 64, 16, 4, "wgmma"),  # Minitron's g = 4: 2 tiles a CTA
     (torch.float32, 64, 8, 2, "tiled"),  # 8 tiles a CTA
     (torch.float32, 64, 4, 4, "tiled"),  # pages of 4: 8 tiles a CTA
-    (torch.bfloat16, 128, 16, 5, "simt"),  # Qwen's g = 5: one tile a CTA
+    (torch.bfloat16, 128, 16, 5, "wgmma"),  # Qwen's g = 5: 25 tokens a CTA
+    (torch.float32, 128, 16, 5, "tiled"),
+    (torch.bfloat16, 128, 16, 12, "simt"),  # 192 rows a q tile: one tile a CTA
 ])
 def test_prefill_wrapper_launch_arguments(monkeypatch, dtype, D, ps, g, core):
     """``_prefill_cuda``'s host side on CPU tensors, the kernel call
     recorded: the core its rule picks is counted with the entry point and
     passed to the C entry by its code (simt 0, wgmma 1, tiled 2) with the
-    q tiles a CTA holds, over the runs grouped by them (the schedule's
-    runs at one tile); the C arguments carry the cohort's B and the pool's
-    P (the extents of the tensor maps) beside the walk's shape, and the
-    launch record its core, grid, tiles and rows a CTA."""
+    tokens a CTA holds (⌊128 / g⌋ over the CTA table's runs, or one q
+    tile's ps over the schedule's); the C arguments carry the cohort's B
+    and the pool's P (the extents of the tensor maps) beside the walk's
+    shape, and the launch record its core, grid, tokens and rows a CTA."""
     calls = []
     monkeypatch.setattr(tatt, "require", lambda *a, **k: None)
     monkeypatch.setattr(tatt, "stream_of", lambda t: 0)
@@ -675,25 +723,27 @@ def test_prefill_wrapper_launch_arguments(monkeypatch, dtype, D, ps, g, core):
     assert out.shape == (B, Tq, Hkv, g, D) and out.dtype == dtype
     ((name, cargs, got_core),) = calls
     assert name == "sfc_flash_prefill" and got_core == core
-    tiles = 1 if core == "simt" else 128 // (ps * g)
-    runs = sched.runs if tiles == 1 else sched.groups[tiles]
-    # lane 0's two tiles are one group, lane 1's one tile another
-    assert torch.equal(prog.params["runs"], runs) and len(runs) == (3 if tiles == 1 else 2)
+    T = ps if core == "simt" else 128 // g
+    ctas = tatt.prefill_cta_schedule_device(sched, T) if core != "simt" else sched
+    runs = ctas.runs
+    # lane 0's 2 ps tokens take one CTA where T >= 2 ps, lane 1's one tile another
+    assert torch.equal(prog.params["runs"], runs) and len(runs) == (3 if T < 2 * ps else 2)
+    assert prog.schedule is ctas.table and cargs[4] == ctas.table.data_ptr()
     assert prog.grid == (len(runs), Hkv) and cargs[5] == runs.data_ptr()
-    # (q, k, v, o, table, runs, n_runs, tiles, hkv, page_table, pos0, tq, g, dk, dv, ps, mp, B, P,
+    # (q, k, v, o, table, runs, n_runs, tokens, hkv, page_table, pos0, tq, g, dk, dv, ps, mp, B, P,
     #  scale, dtype, core, stream): the C entry launches the core the rule picked
-    assert cargs[6:9] == (len(runs), tiles, Hkv)
+    assert cargs[6:9] == (len(runs), T, Hkv)
     assert cargs[11:] == (Tq, g, D, D, ps, MP, B, P, 0.125, 0 if dtype == torch.float32 else 1,
                           {"simt": 0, "wgmma": 1, "tiled": 2}[core], 0)
     assert cargs[0] == args[2].data_ptr() and cargs[1] == args[3].data_ptr()
-    assert prog.launched == {"core": core, "grid": prog.grid, "tiles": tiles, "rows_per_cta": tiles * ps * g}
-    if tiles > 1:  # a program of the other tile count is refused (a float16 q takes no grouped core)
+    assert prog.launched == {"core": core, "grid": prog.grid, "tokens": T, "rows_per_cta": T * g}
+    if core != "simt":  # a program of one q tile a CTA is refused (a float16 q takes neither CTA core)
         prog1 = tatt.flash_prefill_program(tatt.PageSchedule(sched.table, sched.runs), args[2].to(torch.float16),
                                            page_size=ps, sm_scale=0.125)
-        assert prog1.params["tiles"] == 1
-        with pytest.raises(ValueError, match="tiles"):
+        assert prog1.params["tokens"] == ps and not prog1.params["ctas"]
+        with pytest.raises(ValueError, match="tokens"):
             tatt._prefill_cuda(prog1, *args)
-        with pytest.raises(ValueError, match="grouped"):
+        with pytest.raises(ValueError, match="cohort"):
             tatt.flash_prefill_program(tatt.PageSchedule(sched.table, sched.runs), args[2], page_size=ps,
                                        sm_scale=0.125)
 
@@ -756,47 +806,47 @@ def _box_rows(strides, box, origin):
     return np.asarray(rows)
 
 
-@pytest.mark.parametrize("ps,g", [(16, 8), (8, 16), (32, 4), (16, 1), (16, 4), (8, 2), (64, 1)])
+@pytest.mark.parametrize("ps,g", [(16, 8), (8, 16), (32, 4), (16, 1), (16, 4), (8, 2), (64, 1), (16, 5)])
 def test_prefill_tma_boxes_are_the_walk(ps, g):
     """The host twin of the tensor-core core's TMA boxes on a small cohort:
-    the Q box {64, g, 1, m ps} (m = 128 / (ps g) q tiles a CTA) at (0, 0,
-    h, slot Tq + qt0 ps) of the map {Dk, g, Hkv, B Tq} loads row r = token
-    g + head of PrefillWalk::row for the rows of the tiles the CTA holds
-    (a partial group's further rows are never written; past B Tq TMA
-    fills zeros), and the page box {64, 1, ps} at (0, h, phys ps) of the
-    pool map {D, Hkv, P ps} the ps kv rows of PrefillWalk::kv, for every
-    CTA and page of its walk; both match the plain version's gathers."""
+    the Q box {64, g, 1, T} (T = 128 / g tokens a CTA) at (0, 0, h, slot
+    Tq + t0) of the map {Dk, g, Hkv, B Tq} loads row r = token g + head of
+    PrefillWalk::row for the rows of the tokens the CTA writes (its
+    further rows are never written; past B Tq TMA fills zeros; T g rows of
+    128 bytes, the bytes the barrier expects: 125 rows at g = 5), and the
+    page box {64, 1, ps} at (0, h, phys ps) of the pool map {D, Hkv, P ps}
+    the ps kv rows of PrefillWalk::kv, for every CTA and page of its walk;
+    both match the plain version's gathers."""
     rng = np.random.default_rng(ps)
     B, Hkv, D, MP, Tq = 3, 2, 64, 40, 8 * ps
     P = B * MP + 1
     pos0, n_new = [0, 37, 130], [Tq, 45, 0]
     sched, args = _prefill_case(rng, B, Hkv, g, D, ps, MP, P, Tq, pos0, n_new)
-    m = 128 // (ps * g)
+    T = 128 // g
+    ctas = tatt.prefill_cta_schedule_device(sched, T)
     pt = args[0].numpy()
-    table = sched.table.numpy()
-    runs = sched.runs.numpy() if m == 1 else sched.groups[m].numpy()
+    table = ctas.table.numpy()
+    runs = ctas.runs.numpy()
     q_strides = (1, D, g * D, Hkv * g * D)  # the map's byte strides / 2
     kv_strides = (1, D, Hkv * D)
     q_flat = args[2].reshape(-1)
     k_flat = args[3].reshape(-1)
-    for run in runs:
-        start, n = run[:2]
+    for start, n, t0, tokens in runs:
         slot = table[start, 0]
-        qt0, tiles = (table[start, 1], 1) if m == 1 else run[2:]
-        live = tiles * ps * g  # PrefillWalk::rows()
+        live = tokens * g  # PrefillWalk::rows()
         for h in range(Hkv):
-            got = _box_rows(q_strides, (64, g, 1, m * ps), (0, 0, h, slot * Tq + qt0 * ps))
+            got = _box_rows(q_strides, (64, g, 1, T), (0, 0, h, slot * Tq + t0))
             # PrefillWalk::row(r) * dk
-            r = np.arange(m * ps * g)
-            want = (((slot * Tq + qt0 * ps + r // g) * Hkv + h) * g + r % g) * D
+            r = np.arange(T * g)
+            want = (((slot * Tq + t0 + r // g) * Hkv + h) * g + r % g) * D
             np.testing.assert_array_equal(got, want)
-            assert len(got) == 128
-            # a partial group's further rows lie past its lane's covered
-            # tokens (past q for the last lane: TMA fills zeros)
+            assert len(got) == T * g and 128 - g < T * g <= 128
+            # the CTA's further rows lie past its lane's covered tokens
+            # (past q for the last lane: TMA fills zeros)
             covered = slot * Tq + -(-n_new[slot] // ps) * ps
-            assert (slot * Tq + qt0 * ps + r[live:] // g >= covered).all()
+            assert (slot * Tq + t0 + r[live:] // g >= covered).all()
             assert (got[:live] < q_flat.numel()).all()
-            plain = args[2][slot, qt0 * ps:(qt0 + tiles) * ps, h].reshape(live, D)
+            plain = args[2][slot, t0:t0 + tokens, h].reshape(live, D)
             assert torch.equal(q_flat[got[:live, None] + np.arange(D)], plain)
             for t in range(n):
                 lp = table[start + t, 2]
@@ -1014,21 +1064,23 @@ def test_f32_flash_attention_tiled_matches_plain(S, D, table, bkv, mask):
 
 
 def _grouped_cohort(ps, g):
-    """A cohort where a q tile's ps g rows fill less than a CTA (m = 128 /
-    (ps g) tiles a CTA): Tq not a multiple of a group's m ps tokens, so
-    the last lane (all Tq tokens new) ends in a partial group reaching
-    past Tq and past q; a lane from 0, one resuming mid-page at 301 with a
-    ragged tail, a page-aligned lane of 4 tiles (a partial group) and a
-    lane with no new tokens.  (B, Tq, pos0, n_new, MP)."""
-    Tq = 4 * (128 // g) - ps
+    """A cohort where a q tile's ps g rows fill less than a CTA (T = 128 /
+    g tokens a CTA): Tq not a multiple of T, so the last lane (all Tq
+    tokens new) ends in a partial CTA reaching past Tq and past q; a lane
+    from 0, one resuming mid-page at 301 with a ragged tail (at g = 5 its
+    q tiles end past its CTAs of new tokens: a CTA of pad tokens), a
+    page-aligned lane of 4 tiles (a partial CTA) and a lane with no new
+    tokens.  (B, Tq, pos0, n_new, MP)."""
+    Tq = 4 * (128 // g) // ps * ps - ps
     pos0, n_new = [0, 301, 4 * ps, 9, 37], [min(Tq, 8 * ps), Tq - 13, 3 * ps + 5, 0, Tq]
     return len(pos0), Tq, pos0, n_new, max(72, -(-(301 + Tq) // ps))
 
 
-# (D, ps, g) with ps g < 128: 128 / (ps g) q tiles a CTA (OLMoE's and
-# StableLM's g = 1, Minitron's g = 4, and 16-row tiles of 8 a CTA)
+# (D, ps, g) with ps g < 128: 128 / g tokens a CTA (OLMoE's and StableLM's
+# g = 1, Minitron's g = 4, 16-row tiles of 8 a CTA; Qwen's g = 5, 25
+# tokens and 125 rows, and g = 12 at pages of 8, 10 tokens and 120 rows)
 GROUPED_PREFILL = [(128, 16, 1), (64, 16, 1), (128, 16, 4), (64, 8, 2), (128, 64, 1), (64, 32, 1),
-                   (128, 8, 4)]
+                   (128, 8, 4), (128, 16, 5), (64, 8, 12)]
 
 
 @pytest.mark.cuda
@@ -1043,7 +1095,7 @@ def test_bf16_flash_prefill_wgmma_matches_plain(D, ps, g):
     ps with a ragged last tile, and a lane with no new tokens; below 128
     rows a q tile, :func:`_grouped_cohort` (partial groups, the last
     lane's past Tq) with garbage in the trash page.  Only the tensor-core
-    core launches, over the runs grouped by 128 / (ps g) tiles."""
+    core launches, over the CTA table of 128 / g tokens."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     dev = torch.device("cuda")
@@ -1057,13 +1109,13 @@ def test_bf16_flash_prefill_wgmma_matches_plain(D, ps, g):
     sched, args = _prefill_case(rng, B, Hkv, g, D, ps, MP, P, Tq, pos0, n_new, torch.bfloat16, dev)
     prog = tatt.flash_prefill_program(sched, args[2], page_size=ps, sm_scale=D ** -0.5)
     assert tatt.prefill_core(torch.bfloat16, D, D, ps, g) == "wgmma"
-    assert prog.params["tiles"] == 128 // (ps * g)
+    assert prog.params["tokens"] == 128 // g
     LAUNCHES.reset()
     got = prog.launcher(prog, *args)
     want = prog.plain(prog, *args)
     cores = LAUNCHES.cores()
     assert cores["sfc_flash_prefill.wgmma"] == 1 and cores["sfc_flash_prefill.simt"] == 0
-    assert prog.launched["tiles"] == prog.params["tiles"] and prog.launched["rows_per_cta"] == 128
+    assert prog.launched["tokens"] == prog.params["tokens"] and prog.launched["rows_per_cta"] == 128 // g * g
     rows = torch.zeros((B, Tq), dtype=torch.bool, device=dev)
     for b in range(B):
         rows[b, : -(-n_new[b] // ps) * ps] = True
@@ -1084,8 +1136,7 @@ def test_f32_flash_prefill_tiled_matches_plain(D, ps, g):
     :func:`_grouped_cohort` (partial groups, the last lane's past Tq and
     past q, whose rows the core zeroes instead of loading).  Every
     physical page that no run reads holds NaN, so a stray read shows; only
-    the tiled core launches, over the runs grouped by 128 / (ps g)
-    tiles."""
+    the tiled core launches, over the CTA table of 128 / g tokens."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     dev = torch.device("cuda")
@@ -1106,14 +1157,14 @@ def test_f32_flash_prefill_tiled_matches_plain(D, ps, g):
     args[4][unread] = float("nan")
     prog = tatt.flash_prefill_program(sched, args[2], page_size=ps, sm_scale=D ** -0.5)
     assert tatt.prefill_core(torch.float32, D, D, ps, g) == "tiled"
-    assert prog.params["tiles"] == 128 // (ps * g)
+    assert prog.params["tokens"] == 128 // g
     LAUNCHES.reset()
     got = prog.launcher(prog, *args)
     want = prog.plain(prog, *args)
     cores = LAUNCHES.cores()
     assert cores["sfc_flash_prefill.tiled"] == 1
     assert cores["sfc_flash_prefill.simt"] == cores["sfc_flash_prefill.wgmma"] == 0
-    assert prog.launched["tiles"] == prog.params["tiles"] and prog.launched["rows_per_cta"] == 128
+    assert prog.launched["tokens"] == prog.params["tokens"] and prog.launched["rows_per_cta"] == 128 // g * g
     rows = torch.zeros((B, Tq), dtype=torch.bool, device=dev)
     for b in range(B):
         rows[b, : -(-n_new[b] // ps) * ps] = True
@@ -1123,11 +1174,11 @@ def test_f32_flash_prefill_tiled_matches_plain(D, ps, g):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("D,ps,g", [(128, 16, 5), (96, 16, 8)])
+@pytest.mark.parametrize("D,ps,g", [(128, 16, 12), (96, 16, 8)])
 def test_flash_prefill_simt_core_matches_plain(dtype, D, ps, g):
     """Row 22 at shapes the rule leaves on ``flash_rows`` (core ``"simt"``,
-    one q tile a CTA): Qwen's g = 5 (80 rows a tile do not divide 128) and
-    D = 96, on :func:`_grouped_cohort`'s lanes, against ``_prefill_plain``
+    one q tile a CTA): g = 12 at pages of 16 (192 rows a q tile, past a
+    CTA's 128) and D = 96, on :func:`_grouped_cohort`'s lanes, against ``_prefill_plain``
     at 1e-4 in f32 and rtol 8e-3 / atol 4e-3 in bf16; only the SIMT core
     launches."""
     if not torch.cuda.is_available():
@@ -1138,7 +1189,8 @@ def test_flash_prefill_simt_core_matches_plain(dtype, D, ps, g):
     Hkv, P = 2, B * MP + 1
     sched, args = _prefill_case(rng, B, Hkv, g, D, ps, MP, P, Tq, pos0, n_new, dtype, dev)
     prog = tatt.flash_prefill_program(sched, args[2], page_size=ps, sm_scale=D ** -0.5)
-    assert tatt.prefill_core(dtype, D, D, ps, g) == "simt" and prog.params["tiles"] == 1
+    assert tatt.prefill_core(dtype, D, D, ps, g) == "simt"
+    assert prog.params["tokens"] == ps and not prog.params["ctas"]
     LAUNCHES.reset()
     got = prog.launcher(prog, *args)
     want = prog.plain(prog, *args)

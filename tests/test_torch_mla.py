@@ -188,7 +188,8 @@ def test_latent_wrapper_launch_arguments(monkeypatch, pool_dtype):
     tatt._prefill_cuda(prog, torch.as_tensor(pt), torch.as_tensor(pos0), qp, tp, tp)
     (name, cargs, core), = calls
     assert name == "sfc_flash_prefill" and core == "latent"
-    assert cargs[6:8] == (len(sp.runs), 1) and cargs[-3:] == (code, 3, 0)
+    # the C entry's tokens a CTA: one q tile's ps on the latent core
+    assert cargs[6:8] == (len(sp.runs), ps) and cargs[-3:] == (code, 3, 0)
 
 
 @pytest.mark.parametrize("built_latent", [False, True], ids=["built_gqa", "built_latent"])

@@ -12,12 +12,14 @@ full shapes (chip_smoke.latent_inputs: g 128, D 576, f32 q) over a bf16
 and an f32 pool, then ``sfc_flash_attention`` at Zamba2's D = 80
 (chip_smoke.d80_inputs: B·H 64, S 2048, causal) in bf16 and f32, then
 ``sfc_flash_prefill`` at OLMoE's cohort (chip_smoke.mha_inputs: Hkv 16, g
-1, D 128, pages of 16: 8 q tiles a CTA on the grouped cores) in f32 and
-bf16, and prints one JSON object of SHA-256 prefixes of their outputs
-(prefill: the rows its runs cover).  It reads only the checkout it lies in: to check
-that a change keeps these bits, copy it into a ``git archive`` of the
-parent commit and run it in both trees; the two objects are equal when
-the bits are (a parent without a key prints none for it).
+1, D 128, pages of 16: 128 tokens a CTA on the wgmma and tiled cores) and
+at Qwen's (chip_smoke.qwen_inputs: Hkv 8, g 5, D 128: 25 tokens a CTA)
+in f32 and bf16, and prints one JSON object of SHA-256 prefixes of their
+outputs (prefill: the rows its runs cover).  It reads only the checkout
+it lies in: to check that a change keeps these bits, copy it into a
+``git archive`` of the parent commit and run it in both trees; the two
+objects are equal when the bits are (a parent without a key, or without
+the inputs of one, prints none for it).
 """
 import hashlib
 import json
@@ -72,6 +74,14 @@ def hashes(device) -> dict:
         torch.cuda.synchronize()
         out[f"sfc_flash_prefill mha {str(dtype)[6:]}"] = digest(t)
         del pre, t
+    if hasattr(cs, "qwen_inputs"):
+        for dtype in (torch.float32, torch.bfloat16):
+            (_dec, pre, _att), (_p_dec, p_pre, _p_att) = cs.qwen_inputs(np.random.default_rng(36), device, dtype)
+            rows = cs.prefill_covered(pre[5], pre[2].shape[1], cs.SERVE_PAGE, device)
+            t = launch(p_pre, *pre[:5])[rows]
+            torch.cuda.synchronize()
+            out[f"sfc_flash_prefill g5 {str(dtype)[6:]}"] = digest(t)
+            del pre, t
     return out
 
 
