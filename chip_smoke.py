@@ -227,6 +227,30 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    dense-cache engine, both of 384 positions a slot, as 7d's gate, with
    the peak allocated bytes beside the prediction; (d) ``time ... g5``:
    rows 21 and 22 at g = 5 as 7d's (d).
+7f. HuBERT-xlarge encodes (``hubert_path``, after Qwen's weights are
+   freed; encoder only: not causal, f32 frame embeddings in, 504 cluster
+   logits a frame out; 16 heads of D = 80): (a) ``compare flash full
+   d80``: row 20 at HuBERT's shape with the full (rectangular) table, B·H
+   256, S 1,536 (1,500 frames zero-padded, as ``ops.attention`` pads them),
+   ``kv_valid`` 1,500, tiles of 128, against its plain version, bf16 on
+   wgmma and f32 on tiled (the cores read from the launch record, none
+   simt); (b) ``encode hubert:``: the model at full size (48 layers, d
+   1,280; 1.89 GB of bf16 weights, seeded random) runs ``forward`` with
+   ``use_hilbert_kernels`` over 16 utterances x 1,500 frames of seeded
+   N(0, 1) f32 embeddings: 48 ``sfc_flash_attention`` launches, all on
+   wgmma; cold and warm wall, frames/s, a warm call's ``profile:``
+   (device time, busy share), the peak allocated bytes, the logits'
+   difference from the bf16 plain forward (reported), and
+   ``make_prefill_step`` on the same batch (the last frame's logits,
+   timed); (c) ``check encode hubert gate:``: f32 at full depth on the
+   same batch, the forward through row 20 (48 launches on tiled) against
+   the plain forward (``_sdpa`` on the 1,500 frames, independent of row
+   20) at STEP_TOL, argmax outside the margin band, and ``loss_fn`` on
+   seeded cluster labels (a tenth -1) through both within 1e-4 relative;
+   the peak allocated bytes; (d) ``time sfc_flash_attention full d80``:
+   ms, bound (4 D operations for each of the 1,500² frame pairs, bytes of
+   the padded q, k, v, o), plain ms and SDPA(is_causal=False) over the
+   unpadded frames, bf16 and f32, the core from the launch record.
 8. The curve-range-sharded apps (``sharded_path``), SHARDS = 4 shards on
    the one card (the code path of a mesh, not multi-GPU scaling): with the
    launch counts reset, ``ops.kmeans_lloyd(mesh=)`` on phase 3's SIFT1M
@@ -285,8 +309,11 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    each within 120 s, every match line ``True``.
 11. The dry run against the card (``dryrun_path``): for (a) Mamba2-2.7B
    x ``decode_32k`` (128 slots, a 32,768 state cache), (b) Zamba2-2.7B x
-   ``long_500k`` (1 x 524,288 positions) and (c) TinyLlama-1.1B training
-   at one micro-batch of 2 x 2,048 (AdamW), the one-card dry run
+   ``long_500k`` (1 x 524,288 positions), (c) TinyLlama-1.1B training
+   at one micro-batch of 2 x 2,048 (AdamW), (d) HuBERT-xlarge x prefill at
+   1 x 32,768 frames (the last frame's logits) and (e) HuBERT-xlarge
+   training at one micro-batch of 4 x 4,096 frames (AdamW; both batches
+   of seeded f32 frame embeddings), the one-card dry run
    (``repro_torch.launch.dryrun.run_cell`` on ``make_one_card_mesh``,
    traced on the host) logs its prediction (``dryrun predict``: peak
    bytes, the roofline terms, FLOPs by dtype).  Then the cell is built
@@ -303,7 +330,7 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
 
 The second-to-last line of output is one JSON object ``{"kernels": [...]}``,
 the last ``{"ok": true, "device": {...}}``.  ``--quick`` runs phases 1-2
-(and 7a, 7b (a), 7c (a), 7d (a), 7e (a)) only (a first check of a new kernel), and prints
+(and 7a, 7b (a), 7c (a), 7d (a), 7e (a), 7f (a)) only (a first check of a new kernel), and prints
 no result line.
 The script imports nothing of JAX and nothing of the JAX package.
 """
@@ -517,6 +544,19 @@ QWEN_GATE_PROMPT = (64, 320)
 QWEN_GATE_NEW = (16, 32)
 QWEN_GATE_MAX_LEN = 384
 QWEN_GATE_PEAK_PREDICTED = 4 * QWEN_PARAMS + 4 * 193 * 16 * 393_216 + 2**30
+# the HuBERT slice: HuBERT-xlarge at full size (48 layers, d 1,280, 16
+# heads of 80, not causal, encoder only, f32 frame embeddings in, 504
+# cluster targets out), seeded random weights; a batch of 16 utterances of
+# 30 s at 50 frames a second, padded by ops.attention to 1,536 rows
+HUBERT_ARCH = "hubert-xlarge"
+HUBERT_PARAMS = 944_487_680  # param_count_analytic: 1.89 GB in bf16, 3.78 GB in f32
+HUBERT_BATCH = (16, 1500)  # utterances, frames
+HUBERT_LABEL_MASK = 0.1  # share of the f32 gate's cluster labels set to -1
+HUBERT_LOSS_TOL = 1e-4  # the f32 gate's losses, kernel against plain, relative
+# phase 11's HuBERT cells, cut from the assigned shapes' global batches
+# (prefill_32k's 32, train_4k's 256): B, S
+HUBERT_PREFILL = (1, 32_768)
+HUBERT_TRAIN = (4, 4096)
 # the sharded phase: shards of its meshes, all on the one card
 SHARDS = 4
 SHARDED_KERNELS = ("sfc_kmeans_shard_assign", "sfc_kmeans_shard_update", "sfc_kmeans_fold",
@@ -2202,22 +2242,27 @@ def prefill_work(pre):
     return ops, nbytes, library
 
 
-def attention_work(att, shape):
+def attention_work(att, shape, causal: bool = True, valid: int | None = None):
     """Row 20's work on :func:`attention_inputs`' (B·H, S, D) tensors of
-    ``shape`` (B, H, S), causal: its operations (4 D a (query, kv) pair at
-    or below the diagonal), its bytes (q, k, v read and o written once)
-    and its library call, ``scaled_dot_product_attention(is_causal=True)``."""
+    ``shape`` (B, H, S): its operations (4 D a (query, kv) pair of the
+    first ``valid`` rows, the unpadded sequence: causal, the pairs at or
+    below the diagonal; else every pair), its bytes (q, k, v read and o
+    written once, padding included: the kernel reads it) and its library
+    call, ``scaled_dot_product_attention(is_causal=causal)`` over the first
+    ``valid`` rows."""
     import torch.nn.functional as F
 
     q, k, v = att[:3]
     B, H, _ = shape
     BH, S, d = q.shape
+    n = S if valid is None else valid
 
     def library():
-        return F.scaled_dot_product_attention(q.reshape(B, H, S, d), k.reshape(B, H, S, d),
-                                              v.reshape(B, H, S, d), is_causal=True)
+        return F.scaled_dot_product_attention(*(t.reshape(B, H, S, d)[:, :, :n] for t in (q, k, v)),
+                                              is_causal=causal)
 
-    return 4.0 * BH * d * S * (S + 1) / 2, 4 * BH * S * d * q.element_size(), library
+    pairs = n * (n + 1) / 2 if causal else float(n) * n
+    return 4.0 * BH * d * pairs, 4 * BH * S * d * q.element_size(), library
 
 
 def compare_attention(rng, device) -> dict:
@@ -3333,15 +3378,17 @@ def d80_inputs(rng, device, dtype):
     return t(), t(), t()
 
 
-def d80_program(device, q):
+def d80_program(device, q, causal: bool = True, kv_valid: int | None = None):
     """The program ``ops.attention`` builds for q of :func:`d80_inputs`
-    (causal, bq = bkv = 128, the model's 1/sqrt(D))."""
+    (causal, bq = bkv = 128, the model's 1/sqrt(D)), or of
+    :func:`full_d80_inputs` (the full table, ``kv_valid`` the unpadded
+    frames)."""
     from repro_torch.kernels import attention as katt
 
     S, d = q.shape[1], q.shape[2]
-    sched = katt.attention_schedule_device(S // 128, S // 128, causal=True, device=device)
-    return katt.flash_attention_program(sched, q, causal=True, sm_scale=1.0 / float(np.sqrt(d)), bq=128,
-                                        bkv=128, kv_valid=None)
+    sched = katt.attention_schedule_device(S // 128, S // 128, causal=causal, device=device)
+    return katt.flash_attention_program(sched, q, causal=causal, sm_scale=1.0 / float(np.sqrt(d)), bq=128,
+                                        bkv=128, kv_valid=kv_valid)
 
 
 D80_CORES = {"bfloat16": "wgmma", "float32": "tiled"}
@@ -3559,14 +3606,23 @@ def forward_against_plain(params32, cfg32, rng, device) -> dict:
                          "first_flipped_token": first if flips else None}
         check(first > 0, f"{cfg32.name} f32 forward: the routing flips at the first token")
         lk, lp = lk[:, :first], lp[:, :first]
+    return {**out, **logits_against_plain(lk, lp, f"{cfg32.name} f32 forward")}
+
+
+def logits_against_plain(lk, lp, what: str) -> dict:
+    """The kernel path's f32 logits ``lk`` against the plain path's ``lp``:
+    allclose at STEP_TOL, argmax equal where the top-2 margin exceeds 2
+    (atol + rtol |top|)."""
+    import torch
+
     err = float((lk - lp).abs().max())
-    check(bool(torch.allclose(lk, lp, rtol=STEP_TOL, atol=STEP_TOL)), f"{cfg32.name} f32 forward kernel vs plain: {err}")
+    check(bool(torch.allclose(lk, lp, rtol=STEP_TOL, atol=STEP_TOL)), f"{what} kernel vs plain: {err}")
     top2 = lp.topk(2, dim=-1).values
     clear = (top2[..., 0] - top2[..., 1]) > 2 * STEP_TOL * (1 + top2[..., 0].abs())
     same = lk.argmax(-1) == lp.argmax(-1)
-    check(bool(same[clear].all()), f"{cfg32.name} f32 forward: argmax differs at {int((~same & clear).sum())} "
+    check(bool(same[clear].all()), f"{what}: argmax differs at {int((~same & clear).sum())} "
                                    f"positions outside the margin band")
-    return {**out, "max_abs_err": err, "argmax_clear_share": float(clear.float().mean()),
+    return {"max_abs_err": err, "argmax_clear_share": float(clear.float().mean()),
             "argmax_agreement": float(same.float().mean())}
 
 
@@ -4148,6 +4204,267 @@ def qwen_serving_path(rng, device, seed: int) -> list:
     log("serving qwen busy: " + json.dumps(busy))
     log(f"qwen phase: {time.perf_counter() - t_phase:.1f} s")
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 7f: HuBERT-xlarge encodes at full size (encoder only: row 20 on the
+# full table at D = 80, f32 frame embeddings in, cluster logits out)
+# ---------------------------------------------------------------------------
+
+def _hubert_cfg(dtype: str, **overrides):
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config
+
+    return dc.replace(get_config(HUBERT_ARCH), dtype=dtype, **overrides)
+
+
+def hubert_frames(seed: int, device, dim: int):
+    """HUBERT_BATCH's frame embeddings, seeded N(0, 1) f32, made on the
+    device."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn((*HUBERT_BATCH, dim), generator=gen, device=device, dtype=torch.float32)
+
+
+def full_d80_inputs(rng, device, dtype):
+    """Row 20 as HuBERT's forward gives it to the kernel: B·H = 16·16
+    sequences of 1,500 frames x 80, zero-padded to the 128-row lattice
+    (1,536 rows), as ``ops.attention`` pads them."""
+    import torch
+
+    B, S = HUBERT_BATCH
+    cfg = _hubert_cfg("float32")
+    BH, d, Sp = B * cfg.num_heads, cfg.attn_head_dim, -(-S // 128) * 128
+
+    def t():
+        x = torch.zeros((BH, Sp, d), dtype=torch.float32, device=device)
+        x[:, :S] = torch.as_tensor(rng.standard_normal((BH, S, d), dtype=np.float32), device=device)
+        return x.to(dtype)
+
+    return t(), t(), t()
+
+
+def compare_full_d80(rng, device) -> dict:
+    """(a) row 20 at HuBERT's shape with the full table against its plain
+    version, bf16 and f32, each launch's core read from the launch record
+    (bf16 on the tensor-core core, f32 on the register-tiled core, never
+    the SIMT core).  Returns the largest error by dtype."""
+    import torch
+    from repro_torch.kernels import attention as katt
+
+    errs, parts = {}, []
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = ATTN_TOL[str(dtype)[6:]]
+        q, k, v = full_d80_inputs(rng, device, dtype)
+        prog = d80_program(device, q, causal=False, kv_valid=HUBERT_BATCH[1])
+        got, ran = launch_core(prog, (q, k, v))
+        core = D80_CORES[str(dtype)[6:]]
+        check(ran == core and katt.flash_core(dtype, q.shape[2], 128, 128) == core,
+              f"sfc_flash_attention full D={q.shape[2]} {dtype}: launched on {ran}, expected the {core} core")
+        want = prog.plain(prog, q, k, v)
+        torch.cuda.synchronize()
+        errs[dtype] = attn_err(got, want, tol, f"sfc_flash_attention full D={q.shape[2]} {dtype}")
+        parts.append(f"{str(dtype)[6:]} (rtol {tol['rtol']}, atol {tol['atol']}) core {ran} "
+                     f"max_abs_err={errs[dtype]:.3e}")
+        del q, k, v, got, want
+    B, S = HUBERT_BATCH
+    cfg = _hubert_cfg("float32")
+    log(f"compare flash full d80: BH={B * cfg.num_heads} S={-(-S // 128) * 128} kv_valid={S} "
+        f"D={cfg.attn_head_dim} full table, bq=bkv=128: " + "; ".join(parts))
+    return errs
+
+
+def hubert_encode(device, seed: int) -> dict:
+    """(b) HuBERT-xlarge at full size in bf16 (seeded random weights):
+    ``forward`` with use_hilbert_kernels over HUBERT_BATCH's frame
+    embeddings, every frame's logits; its row 20 launches, one a layer, all
+    on the tensor-core core; cold and warm wall, frames/s, a warm call's
+    device time and busy share (torch.profiler), the peak allocated bytes;
+    the logits against the bf16 plain forward (reported: the two attention
+    forms round apart in bf16); ``make_prefill_step`` on the same batch."""
+    import dataclasses as dc
+
+    import torch
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import count_params, forward, init_params
+
+    cfg = _hubert_cfg("bfloat16")
+    cfg_hk = dc.replace(cfg, use_hilbert_kernels=True)
+    t0 = time.perf_counter()
+    params = init_params(seed, cfg, device=device)
+    n = count_params(params)
+    check(n == HUBERT_PARAMS, f"hubert: {n} parameters, expected {HUBERT_PARAMS}")
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    frames = hubert_frames(seed + 2000, device, cfg.d_model)
+    torch.cuda.synchronize()
+    log(f"encode hubert model: {cfg.name} {cfg.num_layers} layers d={cfg.d_model} H={cfg.num_heads} "
+        f"D={cfg.attn_head_dim} d_ff={cfg.d_ff} ({cfg.mlp_act}) targets={cfg.vocab_size} causal={cfg.causal} "
+        f"encoder_only={cfg.encoder_only} embed_inputs={cfg.embed_inputs} {cfg.dtype}, {n} parameters "
+        f"({weight_bytes} B), seeded random, {time.perf_counter() - t0:.1f} s to make; frames "
+        f"{tuple(frames.shape)} f32")
+    B, S = HUBERT_BATCH
+    batch = {"embeds": frames}
+    torch.cuda.reset_peak_memory_stats(device)
+    LAUNCHES.reset()
+    t = time.perf_counter()
+    logits, _ = forward(params, batch, cfg_hk)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t
+    counts, cores = LAUNCHES.counts(), LAUNCHES.cores()
+    peak = torch.cuda.max_memory_allocated(device)
+    launches = counts["sfc_flash_attention"]
+    check(launches == cfg.num_layers == cores["sfc_flash_attention.wgmma"] and cores["sfc_flash_attention.simt"] == 0,
+          f"hubert forward: sfc_flash_attention launches {launches}, cores {cores}, expected "
+          f"{cfg.num_layers} on wgmma")
+    check(tuple(logits.shape) == (B, S, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
+          f"hubert forward: logits {tuple(logits.shape)} or non-finite")
+    warm = []
+    for _ in range(3):
+        t = time.perf_counter()
+        forward(params, batch, cfg_hk)
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t)
+    prof = profile_calls({"encode hubert forward (warm)": lambda: forward(params, batch, cfg_hk)})[0]
+    step = make_prefill_step(cfg_hk)
+    last = step(params, batch)
+    torch.cuda.synchronize()
+    check(tuple(last.shape) == (B, cfg.vocab_size) and bool(torch.allclose(last, logits[:, -1], rtol=STEP_TOL,
+                                                                          atol=STEP_TOL)),
+          "hubert make_prefill_step: not the forward's last-frame logits")
+    prefill_ms = []
+    for _ in range(3):
+        t = time.perf_counter()
+        step(params, batch)
+        torch.cuda.synchronize()
+        prefill_ms.append(1e3 * (time.perf_counter() - t))
+    plain, _ = forward(params, batch, cfg)
+    w = statistics.median(warm)
+    out = {
+        "utterances": B, "frames": S, "frames_total": B * S, "weight_bytes": weight_bytes,
+        "sfc_flash_attention_launches": launches, "wgmma": cores["sfc_flash_attention.wgmma"],
+        "cold_s": cold, "warm_s": w, "frames_per_s": B * S / w,
+        "device_ms": prof["device_ms"], "busy_share": prof["busy_share"],
+        "peak_allocated_bytes": peak, "prefill_step_ms": statistics.median(prefill_ms),
+        "prefill_step_max_abs_diff": float((last - logits[:, -1]).abs().max()),
+        "plain_max_abs_diff": float((logits - plain).abs().max()), "max_abs_logit": float(plain.abs().max()),
+        "plain_argmax_agreement": float((logits.argmax(-1) == plain.argmax(-1)).float().mean()),
+    }
+    log("encode hubert: " + json.dumps(out))
+    del params, frames, batch, logits, plain, last
+    free_cuda()
+    return out
+
+
+def hubert_gate(rng, device, seed: int) -> dict:
+    """(c) the model in f32 at full depth on HUBERT_BATCH's frames: the
+    forward with use_hilbert_kernels (row 20 on the register-tiled core, one
+    launch a layer) against the plain forward (``_sdpa`` on the unpadded
+    frames, independent of row 20) at STEP_TOL, argmax equal outside the
+    top-2 margin band; ``loss_fn`` on seeded cluster labels (about
+    HUBERT_LABEL_MASK of them -1) through both, within HUBERT_LOSS_TOL
+    relative; the peak allocated bytes."""
+    import dataclasses as dc
+
+    import torch
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import forward, init_params, loss_fn
+
+    cfg32 = _hubert_cfg("float32")
+    cfg_hk = dc.replace(cfg32, use_hilbert_kernels=True)
+    torch.cuda.reset_peak_memory_stats(device)
+    params32 = init_params(seed + 1, cfg32, device=device)
+    B, S = HUBERT_BATCH
+    frames = hubert_frames(seed + 2000, device, cfg32.d_model)
+    labels = rng.integers(0, cfg32.vocab_size, size=(B, S)).astype(np.int32)
+    labels[rng.random((B, S)) < HUBERT_LABEL_MASK] = -1
+    labels = torch.as_tensor(labels, device=device)
+    LAUNCHES.reset()
+    t = time.perf_counter()
+    lk, _ = forward(params32, {"embeds": frames}, cfg_hk)
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t)
+    n, cores = LAUNCHES.counts()["sfc_flash_attention"], LAUNCHES.cores()
+    check(n == cfg32.num_layers == cores["sfc_flash_attention.tiled"],
+          f"hubert f32 forward: sfc_flash_attention launches {n}, cores {cores}, expected {cfg32.num_layers} on tiled")
+    lp, _ = forward(params32, {"embeds": frames}, cfg32)
+    check(bool(torch.isfinite(lk).all()) and lk.shape == lp.shape, "hubert f32 forward: non-finite or shape")
+    versus = logits_against_plain(lk, lp, "hubert f32 forward")
+    del lk, lp
+    batch = {"embeds": frames, "labels": labels}
+    loss_k, met_k = loss_fn(params32, batch, cfg_hk)
+    loss_p, met_p = loss_fn(params32, batch, cfg32)
+    rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    check(bool(torch.isfinite(loss_k)) and rel <= HUBERT_LOSS_TOL,
+          f"hubert f32 loss kernel {float(loss_k)} vs plain {float(loss_p)}: rel {rel}")
+    gate = {"layers": cfg32.num_layers, "frames_total": B * S, "sfc_flash_attention_launches": n,
+            "tiled": cores["sfc_flash_attention.tiled"], "wall_ms": wall, **versus, "step_tol": STEP_TOL,
+            "loss_kernel": float(loss_k), "loss_plain": float(loss_p), "ce_plain": float(met_p["ce"]),
+            "loss_rel_diff": rel, "loss_tol": HUBERT_LOSS_TOL, "masked_labels": int((labels < 0).sum()),
+            "weight_bytes": sum(p.numel() * p.element_size() for p in params32.parameters()),
+            "peak_allocated_bytes": torch.cuda.max_memory_allocated(device)}
+    log("check encode hubert gate: " + json.dumps(gate))
+    del params32, frames, labels, batch
+    free_cuda()
+    return gate
+
+
+def time_full_d80(rng, device, errs, launches: int) -> dict:
+    """(d) row 20 at (a)'s shape, bf16 (f32 beside it): CUDA-event ms, the
+    bound (4 D operations for every pair of the unpadded frames; q, k, v
+    read and o written once, padding included), the plain version and
+    ``scaled_dot_product_attention(is_causal=False)`` over the unpadded
+    frames (its largest difference from the kernel's frames reported); the
+    core from the launch record."""
+    import torch
+    from repro_torch.kernels import launch
+
+    B, S = HUBERT_BATCH
+    H = _hubert_cfg("float32").num_heads
+    timed = {}
+    for dtype, peak in ((torch.bfloat16, BF16_PEAK), (torch.float32, FP32_PEAK)):
+        q, k, v = full_d80_inputs(rng, device, dtype)
+        prog = d80_program(device, q, causal=False, kv_valid=S)
+        Sp, d = q.shape[1], q.shape[2]
+        ops_, nbytes, library = attention_work((q, k, v), (B, H, Sp), causal=False, valid=S)
+        b_ms, b_by = bound_ms(ops_, peak, nbytes)
+        out, core = launch_core(prog, (q, k, v))
+        lib_err = float((out.reshape(B, H, Sp, d)[:, :, :S].float() - library().float()).abs().max())
+        del out
+        timed[dtype] = {
+            "ms": cuda_ms(lambda: launch(prog, q, k, v), 10),
+            "plain_ms": cuda_ms(lambda: prog.plain(prog, q, k, v), 1, warmup=0),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(library, 10),
+            "max_abs_err": errs[dtype], "library_max_abs_diff": lib_err, "core": core,
+            "ctas": int(np.prod(prog.grid)),
+        }
+        del q, k, v, library
+    row = {"name": "sfc_flash_attention.full_d80", "route": "cuda", "source": SOURCES["sfc_flash_attention"],
+           "replaces": REPLACES["sfc_flash_attention"], "launches": launches, **timed[torch.bfloat16],
+           "peak": "bf16 tensor cores (989 TFLOP/s), HBM 3.35 TB/s; f32: FP32 pipes (67 TFLOP/s)",
+           "shape": {"BH": B * H, "S": Sp, "kv_valid": S, "D": d, "bq": 128, "bkv": 128, "causal": False},
+           "library": "scaled_dot_product_attention(is_causal=False) over the unpadded frames",
+           "f32": timed[torch.float32]}
+    log(f"time sfc_flash_attention full d80: {json.dumps(row)}")
+    return row
+
+
+def hubert_path(rng, device, seed: int) -> list:
+    """Phase 7f, after Qwen's weights are freed: (a) row 20 at HuBERT's
+    shape with the full table against its plain version; (b) HuBERT-xlarge
+    encodes HUBERT_BATCH at full size in bf16 through row 20; (c) the f32
+    gate at full depth; (d) row 20 at (a)'s shape timed.  Returns its
+    kernel row."""
+    t_phase = time.perf_counter()
+    free_cuda()
+    errs = compare_full_d80(rng, device)
+    enc = hubert_encode(device, seed)
+    hubert_gate(rng, device, seed)
+    row = time_full_d80(rng, device, errs, enc["sfc_flash_attention_launches"])
+    log(f"hubert phase: {time.perf_counter() - t_phase:.1f} s")
+    return [row]
 
 
 # ---------------------------------------------------------------------------
@@ -4851,12 +5168,22 @@ def autotune_path(device, seed: int, ctx: dict) -> dict:
 def dry_cells():
     """(a) Mamba2-2.7B x decode_32k and (b) Zamba2-2.7B x long_500k at
     their full shapes, (c) TinyLlama-1.1B training at one micro-batch of
-    TRAIN_FULL's B x S."""
+    TRAIN_FULL's B x S, (d) HuBERT-xlarge x prefill at HUBERT_PREFILL's B x
+    S (prefill_32k's sequence, its batch cut from 32) and (e) HuBERT-xlarge
+    training at one micro-batch of HUBERT_TRAIN's (train_4k's sequence, its
+    batch cut from 256)."""
     from repro_torch.configs import SHAPES, ShapeSpec
 
     B, S = TRAIN_FULL[:2]
+    (pb, ps), (tb, ts) = HUBERT_PREFILL, HUBERT_TRAIN
     return (("mamba2-2.7b", SHAPES["decode_32k"]), (SSM_HYBRID, SHAPES["long_500k"]),
-            (TRAIN_ARCH, ShapeSpec(f"train_{B}x{S}", S, B, "train")))
+            (TRAIN_ARCH, ShapeSpec(f"train_{B}x{S}", S, B, "train")),
+            (HUBERT_ARCH, ShapeSpec(f"prefill_{pb}x{ps}", ps, pb, "prefill")),
+            (HUBERT_ARCH, ShapeSpec(f"train_{tb}x{ts}", ts, tb, "train")))
+
+
+def cell_name(arch: str, shape) -> str:
+    return f"{arch} x {shape.name}"
 
 
 def dry_record(arch: str, shape, device) -> dict:
@@ -4872,25 +5199,34 @@ def dry_record(arch: str, shape, device) -> dict:
 
 def dry_inputs(cfg, shape, device, seed: int):
     """A cell's arguments on the card, at ``input_specs``' shapes and
-    dtypes: seeded weights (and AdamW's state), seeded tokens, a zero
-    decode cache with every slot at its last position."""
+    dtypes: seeded weights (and AdamW's state); in the train and prefill
+    modes the batch of ``input_specs``, leaf by leaf: seeded tokens and
+    labels (ids below the vocabulary, or the cluster targets), seeded
+    N(0, 1) f32 frame embeddings where the model reads embeddings
+    (``embed_inputs=False``); in the decode mode seeded tokens and a zero
+    cache with every slot at its last position."""
     import torch
 
+    from repro_torch.launch.steps import input_specs
     from repro_torch.models import init_cache, init_params, named_params
     from repro_torch.optim import adamw_init
 
     B, S = shape.global_batch, shape.seq_len
     g = torch.Generator(device=device).manual_seed(seed)
 
-    def tokens(*dims):
-        return torch.randint(0, cfg.vocab_size, dims, generator=g, device=device, dtype=torch.int32)
+    def leaf(shape, dtype):
+        if dtype.is_floating_point:
+            return torch.randn(shape, generator=g, device=device, dtype=dtype)
+        return torch.randint(0, cfg.vocab_size, shape, generator=g, device=device, dtype=dtype)
 
     params = init_params(seed, cfg, device=device)
-    if shape.mode == "train":
-        return ({"params": params, "opt": adamw_init(named_params(params))},
-                {"tokens": tokens(B, S), "labels": tokens(B, S)})
+    if shape.mode in ("train", "prefill"):
+        batch = {k: leaf(a.shape, a.dtype) for k, a in input_specs(cfg, shape)[1].items()}
+        if shape.mode == "train":
+            return {"params": params, "opt": adamw_init(named_params(params))}, batch
+        return params, batch
     if shape.mode == "decode":
-        return (params, tokens(B, 1), init_cache(cfg, B, S, device=device),
+        return (params, leaf((B, 1), torch.int32), init_cache(cfg, B, S, device=device),
                 torch.full((B,), S - 1, dtype=torch.int32, device=device))
     raise ValueError(f"no phase-11 inputs for mode {shape.mode}")
 
@@ -4964,17 +5300,18 @@ def dry_cell(arch: str, shape, rec: dict, device, seed: int) -> dict:
             "within_tol": abs(peak - predicted) <= tol}
 
 
-def dryrun_path(device, seed: int, train_rec: dict) -> dict:
-    """Phase 11: each cell's one-card dry run on the host, its prediction
-    logged, then the cell on the card (``dry_cell``)."""
+def dryrun_path(device, seed: int, records: dict) -> dict:
+    """Phase 11: each cell's one-card dry run on the host (taken from
+    ``records`` by :func:`cell_name` where an earlier phase traced it), its
+    prediction logged, then the cell on the card (``dry_cell``)."""
     import torch
 
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     out = {}
     for arch, shape in dry_cells():
-        name = f"{arch} x {shape.name}"
-        rec = train_rec if arch == TRAIN_ARCH else dry_record(arch, shape, device)
+        name = cell_name(arch, shape)
+        rec = records[name] if name in records else dry_record(arch, shape, device)
         pred = {k: rec[k] for k in ("memory_per_device_bytes", "argument_bytes", "t_compute_s", "t_memory_s",
                                    "t_memory_hlo_s", "bottleneck", "fits_hbm_80g", "aten_ops", "trace_s")}
         pred["flops_tflop"] = {k: v / 1e12 for k, v in rec["flops_by_dtype"].items()}
@@ -5333,6 +5670,7 @@ def main() -> int:
         compare_d80(np.random.default_rng(args.seed + 6), device)
         compare_mha(np.random.default_rng(args.seed + 7), device)
         compare_cohort(np.random.default_rng(args.seed + 8), device, qwen_inputs, _qwen_cfg("float32"), "g5")
+        compare_full_d80(np.random.default_rng(args.seed + 9), device)
         return 0
     result, ctx = main_path(rng, device, args.seed)
     result["kernels"] += serving_path(np.random.default_rng(args.seed + 3), device, args.seed)
@@ -5340,12 +5678,14 @@ def main() -> int:
     result["kernels"] += ssm_serving_path(np.random.default_rng(args.seed + 6), device, args.seed)
     result["kernels"] += olmoe_serving_path(np.random.default_rng(args.seed + 7), device, args.seed)
     result["kernels"] += qwen_serving_path(np.random.default_rng(args.seed + 8), device, args.seed)
+    result["kernels"] += hubert_path(np.random.default_rng(args.seed + 9), device, args.seed)
     result["kernels"] += sharded_path(device, args.seed, ctx)
-    train_rec = dry_record(TRAIN_ARCH, dry_cells()[2][1], device)
+    train_cell = dry_cells()[2]
+    train_rec = dry_record(*train_cell, device)
     training_path(device, args.seed, train_rec)
     autotune_path(device, args.seed, ctx)
     del ctx
-    dryrun_path(device, args.seed, train_rec)
+    dryrun_path(device, args.seed, {cell_name(*train_cell): train_rec})
     log(json.dumps(result))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

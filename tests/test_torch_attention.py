@@ -961,6 +961,7 @@ def test_flash_attention_simt_core_matches_plain(dtype, S, D, bq, bkv, causal, m
     (384, 64, "odd", 64, "kv_seqlen"),  # runs of 1, 3, 5 kv tiles: a last stage of 64 rows
     (2048, 80, "causal", 128, None),  # Zamba2's shared attention: a 64-column chunk + a 16-column tail
     (384, 80, "full", 64, "kv_valid"),  # HuBERT's: not causal, block padding
+    (1536, 80, "full", 128, "kv_valid"),  # HuBERT's 30 s utterances: 1,536 padded rows, tiles of 128
     (384, 80, "causal", 128, "kv_valid"),
     (128, 80, "causal", 128, "kv_seqlen"),
     (384, 80, "odd", 64, "kv_seqlen"),
@@ -1017,6 +1018,7 @@ def test_bf16_flash_attention_wgmma_matches_plain(S, D, table, bkv, mask):
     (256, 128, "full", 64, "masked_rows"),
     (2048, 80, "causal", 128, None),  # Zamba2's shared attention: 4 + 1 output columns a thread
     (384, 80, "full", 64, "kv_valid"),  # HuBERT's: not causal, block padding
+    (1536, 80, "full", 128, "kv_valid"),  # HuBERT's 30 s utterances: 1,536 padded rows, tiles of 128
     (384, 80, "causal", 128, "kv_valid"),
     (384, 80, "causal_plain", 128, "kv_seqlen"),
     (384, 80, "odd", 64, "kv_seqlen"),
