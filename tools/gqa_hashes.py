@@ -12,9 +12,11 @@ full shapes (chip_smoke.latent_inputs: g 128, D 576, f32 q) over a bf16
 and an f32 pool, then ``sfc_flash_attention`` at Zamba2's D = 80
 (chip_smoke.d80_inputs: B·H 64, S 2048, causal) in bf16 and f32, then
 ``sfc_flash_prefill`` at OLMoE's cohort (chip_smoke.mha_inputs: Hkv 16, g
-1, D 128, pages of 16: 128 tokens a CTA on the wgmma and tiled cores) and
-at Qwen's (chip_smoke.qwen_inputs: Hkv 8, g 5, D 128: 25 tokens a CTA)
-in f32 and bf16, and prints one JSON object of SHA-256 prefixes of their
+1, D 128, pages of 16: 128 tokens a CTA on the wgmma and tiled cores), at
+Qwen's (chip_smoke.qwen_inputs: Hkv 8, g 5, D 128: 25 tokens a CTA), at
+Minitron's (chip_smoke.minitron_inputs: Hkv 8, g 4, D 128: 32 tokens a
+CTA) and at StableLM's (chip_smoke.stablelm_inputs: Hkv 32, g 1, D 64: 128
+tokens a CTA) in f32 and bf16, and prints one JSON object of SHA-256 prefixes of their
 outputs (prefill: the rows its runs cover).  It reads only the checkout
 it lies in: to check that a change keeps these bits, copy it into a
 ``git archive`` of the parent commit and run it in both trees; the two
@@ -74,13 +76,17 @@ def hashes(device) -> dict:
         torch.cuda.synchronize()
         out[f"sfc_flash_prefill mha {str(dtype)[6:]}"] = digest(t)
         del pre, t
-    if hasattr(cs, "qwen_inputs"):
+    for tag, inputs, seed in (("g5", "qwen_inputs", 36), ("g4", "minitron_inputs", 38),
+                              ("mha_d64", "stablelm_inputs", 38)):
+        if not hasattr(cs, inputs):
+            continue
         for dtype in (torch.float32, torch.bfloat16):
-            (_dec, pre, _att), (_p_dec, p_pre, _p_att) = cs.qwen_inputs(np.random.default_rng(36), device, dtype)
+            (_dec, pre, _att), (_p_dec, p_pre, _p_att) = getattr(cs, inputs)(np.random.default_rng(seed), device,
+                                                                             dtype)
             rows = cs.prefill_covered(pre[5], pre[2].shape[1], cs.SERVE_PAGE, device)
             t = launch(p_pre, *pre[:5])[rows]
             torch.cuda.synchronize()
-            out[f"sfc_flash_prefill g5 {str(dtype)[6:]}"] = digest(t)
+            out[f"sfc_flash_prefill {tag} {str(dtype)[6:]}"] = digest(t)
             del pre, t
     return out
 
