@@ -43,12 +43,13 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    b = 88) and ``ops.cholesky`` (an 8192-point Gaussian-process covariance
    M·Mᵀ/n + I; and n = 6001, padded to 6016), both 8192 calls once more
    with ``fused=False``; then the streaming services: ``StreamKMeans``
-   (262,144 SIFT-width points in 256 insert requests of 1,024, one per
-   tick, a 4,096-probe assign every 8 ticks; decay 1.0 and 0.9) and
-   ``StreamSimJoin`` (262,144 points uniform in the unit cube, ε = 0.0308
-   for ~32 neighbours, 256 inserts of 1,024, a 1,024-point query every 8
-   ticks; once more with ``max_residents=65,536``).  Every kernel must
-   have launched, and both cores of ``sfc_matmul`` and ``sfc_matmul3d``
+   (the first 131,072 of 262,144 SIFT-width points in 128 insert requests
+   of 1,024, one per tick, a 4,096-probe assign every 8 ticks; decay 1.0
+   and 0.9) and ``StreamSimJoin`` (the first 131,072 of 262,144 points
+   uniform in the unit cube, ε = 0.0308 for ~32 neighbours among the
+   262,144, 128 inserts of 1,024, a 1,024-point query every 8 ticks; once
+   more with ``max_residents=65,536``).  Every kernel must have launched,
+   and both cores of ``sfc_matmul`` and ``sfc_matmul3d``
    (``LAUNCHES.cores()``: the f32 calls on SIMT, the bf16 ones on
    ``wgmma``).
 4. Check the results against the ``ref.py`` oracles: matmul allclose;
@@ -195,8 +196,9 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    ``use_hilbert_kernels``, its 16 ``sfc_flash_attention`` launches counted
    apart, all on wgmma (wall time, the logits' difference from the plain
    forward reported); (c) ``check serving olmoe gate:``: the model in f32
-   at full depth (27.68 GB), 8 requests (prompts of 64-320 tokens, 16-32
-   new tokens) through the paged flash engine and the dense-cache engine
+   at full depth (27.68 GB), 4 requests (prompts of 64-192 tokens, every
+   other one behind a shared 128-token prefix, 16-32 new tokens) through
+   the paged flash engine and the dense-cache engine
    (``gqa_decode`` on ``_sdpa``, independent of rows 21-22): each
    request's tokens equal up to its first token inside the top-2 margin
    band (GATE_BAND), or behind a routing flip of the two engines that is a
@@ -273,6 +275,21 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    / ``time ... mha_d64``: rows 21 and 22 as 7d's (d), the kernels line's
    ``sfc_flash_decode.g4``, ``sfc_flash_prefill.g4``,
    ``sfc_flash_decode.mha_d64`` and ``sfc_flash_prefill.mha_d64``.
+7h. Chameleon-34B paged serving (``dense_serving_path(CHAMELEON, ...)``,
+   after StableLM's weights are freed; GQA: 64 query over 8 kv heads, g =
+   8, D = 128, SwiGLU of 22,016, an untied head of 65,536, token ids in),
+   as 7g: (a) ``compare flash g8_d128``: rows 21 and 22 at its serving
+   shapes against their plain versions, decode on split (all 8 rows of a
+   split CTA live) and prefill on wgmma / tiled (CTAs of 16 tokens, one q
+   tile of 128 rows); (b) ``serving chameleon:``: the model at full size
+   in bf16 (68.59 GB of weights), the launches, cores and events of 7g
+   (b), the run's peak allocated bytes beside what earlier phases hold and
+   CHAMELEON_SERVE_PEAK_PREDICTED, each engine freed before the next is
+   built; (c) ``check serving chameleon gate:``: f32 at 16 of its 48 layers
+   (CHAMELEON_GATE_LAYERS; 48.59 GB, the count held to the closed form at
+   that depth), both engines of 2,048 positions a slot, the peak beside
+   CHAMELEON_GATE_PEAK_PREDICTED; (d) ``time ... g8_d128``: the kernels
+   line's ``sfc_flash_decode.g8_d128`` and ``sfc_flash_prefill.g8_d128``.
 8. The curve-range-sharded apps (``sharded_path``), SHARDS = 4 shards on
    the one card (the code path of a mesh, not multi-GPU scaling): with the
    launch counts reset, ``ops.kmeans_lloyd(mesh=)`` on phase 3's SIFT1M
@@ -291,7 +308,7 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    ``argmin`` and ``addmm`` + ``min`` over each shard's points).
 9. The training stack (``training_path``; no kernel row: training runs
    no hand-written kernel, as the JAX package's runs no Pallas one):
-   (a) ``check train card vs cpu:`` TinyLlama at full width and 2 layers
+   (a) ``check train card vs cpu:`` TinyLlama at full width and 1 layer
    in f32, one ``Trainer`` step of 1 x 2048 tokens on the card and the
    same step on the CPU from the same seeded state and batch: loss rel
    1e-5, grad norm rel 1e-4, the first moments (0.1 x the clipped grads)
@@ -353,8 +370,8 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
 
 The second-to-last line of output is one JSON object ``{"kernels": [...]}``,
 the last ``{"ok": true, "device": {...}}``.  ``--quick`` runs phases 1-2
-(and 7a, 7b (a), 7c (a), 7d (a), 7e (a), 7f (a), 7g (a) of both models) only (a first check of a new kernel), and prints
-no result line.
+(and 7a, 7b (a), 7c (a), 7d (a), 7e (a), 7f (a), 7g (a) of both models,
+7h (a)) only (a first check of a new kernel), and prints no result line.
 The script imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
@@ -466,6 +483,10 @@ STREAM_DECAYS = (1.0, 0.9)
 # neighbours), points per insert request, a query every n ticks, probes per
 # query, max_residents of the second run
 STREAM_JOIN = (262_144, 3, 0.0308, 1024, 8, 1024, 65_536)
+# the insert requests of each stream's runs: the first 128 x 1,024 of its
+# points (StreamSimJoin's ~16 neighbours a point among them); StreamKMeans'
+# batch check and phase 8's sharded joins take all 262,144
+STREAM_INSERTS = 128
 # the LM serving slice: TinyLlama-1.1B at full width, seeded random weights
 SERVE_ARCH = "tinyllama-1.1b"
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_PAGE = 8, 2048, 16
@@ -474,6 +495,10 @@ SERVE_PROMPT = (64, 1024)  # prompt lengths
 SERVE_PREFIX = 256  # the shared system prefix of every other request
 SERVE_NEW = (32, 128)  # new tokens per request
 GATE_REQUESTS = 8  # requests of the f32 replay gate
+# the f32 engine gates of phases 7d-7h: the dense-cache engine prefills a
+# token a step (over every layer), so their prompts are short: 64-192
+# tokens, every other one behind a shared 128-token prefix (8 pages)
+GATE_PREFIX = 128
 # the replay gate's band: a served token may differ from the dense
 # forward's argmax only where that forward's top-2 logit margin is at most
 # this (f32 logits of std ~0.25; the two paths differ by ~1e-5)
@@ -537,10 +562,10 @@ OLMOE_ARCH = "olmoe-1b-7b"
 # shared only across cohorts, so 8 requests in one would share no page)
 OLMOE_REQUESTS = 10
 OLMOE_NEW = (16, 64)
-# its f32 gate at full depth (27.68 GB): 8 requests in one cohort; the
-# dense engine prefills a token a step, so the prompts are 64-320 tokens
-OLMOE_GATE_REQUESTS = 8
-OLMOE_GATE_PROMPT = (64, 320)
+# its f32 gate at full depth (27.68 GB): 4 requests in one cohort, the
+# prompts of GATE_PREFIX
+OLMOE_GATE_REQUESTS = 4
+OLMOE_GATE_PROMPT = (64, 192)
 OLMOE_GATE_NEW = (16, 32)
 # two f32 paths rank an 8th and a 9th expert apart (a flip) only where
 # their routing probabilities tie within the paths' difference: where the
@@ -551,22 +576,22 @@ OLMOE_GATE_NEW = (16, 32)
 # two runs' routing, and every flip must be a tie within this band, ~4x that
 ROUTER_GATE_BAND = 1e-5
 MHA_ROW20 = (2, 16, 2048)  # B, H, S of OLMoE's full-sequence forward (D = 128)
-# the dense decoders' phases (7e, 7g): each model at full size, seeded
+# the dense decoders' phases (7e, 7g, 7h): each model at full size, seeded
 # random weights, the engine and page shapes of the TinyLlama run, OLMoE's
 # request mix
 DENSE_REQUESTS = 16
 DENSE_NEW = (16, 64)
-# their f32 gates at full depth: 8 requests in one cohort (prompts of
-# 64-320 tokens, 16-32 new)
+# their f32 gates (at full depth but Chameleon's): 8 requests in one
+# cohort (prompts of 64-192 tokens behind GATE_PREFIX, 16-32 new)
 DENSE_GATE_REQUESTS = 8
-DENSE_GATE_PROMPT = (64, 320)
+DENSE_GATE_PROMPT = (64, 192)
 DENSE_GATE_NEW = (16, 32)
 # the Qwen slice (7e): Qwen2.5-14B (48 layers, d 5,120, 40 query over 8 kv
 # heads of 128: g = 5, QKV bias), its biases drawn N(0, 0.02)
 QWEN_ARCH = "qwen2.5-14b"
 QWEN_PARAMS = 14_770_033_664  # param_count_analytic: 29.54 GB in bf16, 59.08 GB in f32
 QWEN_BIAS_STD = 0.02
-# its f32 gate's engines cut to the 384 positions they need (an f32 pool
+# its f32 gate's engines cut to 384 positions a slot (an f32 pool
 # of 193 pages of 16 x 393,216 B a token: 1.21 GB, where max_len 2048
 # would take 6.45 GB), and the peak the phase predicts: the weights, four
 # pools' worth (the engine's, its snapshot, the two decode-step copies)
@@ -586,6 +611,23 @@ MINITRON_GATE_PEAK_PREDICTED = 4 * MINITRON_PARAMS + 4 * 1025 * 16 * 262_144 + 2
 STABLELM_ARCH = "stablelm-1.6b"
 STABLELM_PARAMS = 1_644_267_520  # param_count_analytic: 3.29 GB in bf16, 6.58 GB in f32
 STABLELM_GATE_PEAK_PREDICTED = 4 * STABLELM_PARAMS + 4 * 1025 * 16 * 393_216 + 2**30
+# the Chameleon slice (7h): Chameleon-34B (48 layers, d 8,192, 64 query
+# over 8 kv heads of 128: g = 8, SwiGLU of 22,016, an untied head of
+# 65,536; token ids in: the VQ image tokenizer is a stub) at full size in
+# bf16, 68.59 GB of its 79.2 GiB card.  The serving run's predicted peak:
+# the weights, one pool (1,025 pages of 16 x 196,608 B a token), the f32
+# copy of the head that unembed casts, and 2 GiB of a 1,024-wide
+# cohort's activations (8 lanes: the MLP's three 8,192 x 22,016 products)
+CHAMELEON_ARCH = "chameleon-34b"
+CHAMELEON_PARAMS = 34_293_424_128  # param_count_analytic: 68.59 GB in bf16, 137.2 GB in f32
+CHAMELEON_SERVE_PEAK_PREDICTED = 2 * CHAMELEON_PARAMS + 1025 * 16 * 196_608 + 4 * 65_536 * 8_192 + 2**31
+# its f32 gate cut to 16 of the 48 layers (48.59 GB of f32 weights, under
+# Qwen's 59.08 at full depth), both engines at SERVE_MAX_LEN (a pool of
+# 1,025 pages of 16 x 131,072 B a token: 2.15 GB), the peak predicted as
+# Qwen's
+CHAMELEON_GATE_LAYERS = 16
+CHAMELEON_GATE_PARAMS = 12_146_974_720  # 16 x 692,076,544 + the embedding, head and final norm
+CHAMELEON_GATE_PEAK_PREDICTED = 4 * CHAMELEON_GATE_PARAMS + 4 * 1025 * 16 * 131_072 + 2**30
 # the HuBERT slice: HuBERT-xlarge at full size (48 layers, d 1,280, 16
 # heads of 80, not causal, encoder only, f32 frame embeddings in, 504
 # cluster targets out), seeded random weights; a batch of 16 utterances of
@@ -603,11 +645,11 @@ HUBERT_TRAIN = (4, 4096)
 SHARDS = 4
 SHARDED_KERNELS = ("sfc_kmeans_shard_assign", "sfc_kmeans_shard_update", "sfc_kmeans_fold",
                    "sfc_join_hits_rows", "sfc_join_emit_halo")
-# the training phase: TinyLlama-1.1B; (a) 2 layers at full width, f32, one
+# the training phase: TinyLlama-1.1B; (a) 1 layer at full width, f32, one
 # step of B x S on the card and on the CPU; (c) full size, bf16, micro-batch,
 # sequence and micro-batches of a step, steps, lr and warm-up
 TRAIN_ARCH = "tinyllama-1.1b"
-TRAIN_CHECK = (2, 1, 2048)  # layers, B, S
+TRAIN_CHECK = (1, 1, 2048)  # layers, B, S
 TRAIN_CHECK_LR = 3e-4
 # Adam's first step moves each parameter by g / (|g| + eps) · lr, about ±lr.
 # Where the CPU's grad is away from 0 (|g| above TRAIN_GRAD_FLOOR of its
@@ -1456,7 +1498,8 @@ def drive_stream_kmeans(xs, probe_pool, k: int, decay: float, seed: int, device)
     import torch
     from repro_torch.serve import StreamKMeans
 
-    n, per, every, m = STREAM_KMEANS
+    _n, per, every, m = STREAM_KMEANS
+    n = len(xs)
     svc = StreamKMeans(k, decay=decay, seed=seed, device=device)
     asks, n_req, busy = [], 0, 0.0
     for t, i in enumerate(range(0, n, per)):
@@ -1489,7 +1532,8 @@ def drive_stream_join(pts, qpool, max_residents, device):
     import torch
     from repro_torch.serve import StreamSimJoin
 
-    n, d, eps, per, every, m, _ = STREAM_JOIN
+    _n, d, eps, per, every, m, _ = STREAM_JOIN
+    n = len(pts)
     svc = StreamSimJoin(eps, bounds=(np.zeros(d), np.ones(d)), max_residents=max_residents,
                         device=device)
     queries, n_req = [], 0
@@ -1608,15 +1652,17 @@ def main_path(rng, device, seed: int) -> dict:
     xg.add_(torch.randn((NG, DG), generator=gen, device=device))
     NS, PER, _every, MP = STREAM_KMEANS
     xs_k = xk[:NS].cpu().numpy()
+    NSK = STREAM_INSERTS * PER  # the stream's points: the first NSK of xs_k
     probe_pool = xk[NS:NS + 32 * MP].cpu().numpy()
     NSJ, DSJ, EPS_S, PER_J, _qe, MQ, MAXR = STREAM_JOIN
     xs_j = rng.uniform(0.0, 1.0, size=(NSJ, DSJ)).astype(np.float32)
+    NSS = STREAM_INSERTS * PER_J  # the stream's points: the first NSS of xs_j
     q_pool = rng.uniform(0.0, 1.0, size=(32 * MQ, DSJ)).astype(np.float32)
     torch.cuda.synchronize()
     log(f"data: {time.perf_counter() - t0:.1f} s (matmul {S}^3 f32 + {M16}x{N16}x{K16} bf16, "
         f"k-means {NK}x{DK} K={K}, e-join {NJ}x{DJ} eps={eps:.5f}, floyd_warshall {NF} and {NFR} "
         f"nodes p={FW_EDGE_P}, cholesky {NC} and {NCR}, k-means GIST {NG}x{DG} K={KG}, "
-        f"streams: k-means {NS}x{DK}, e-join {NSJ}x{DSJ} eps={EPS_S})")
+        f"streams: k-means {NSK} of {NS}x{DK}, e-join {NSS} of {NSJ}x{DSJ} eps={EPS_S})")
 
     # --- phase 3: the main path through the public entry points ------------
     wall = {}
@@ -1657,10 +1703,11 @@ def main_path(rng, device, seed: int) -> dict:
     streams = {}
     for decay in STREAM_DECAYS:
         streams[f"StreamKMeans decay={decay}"] = run(
-            f"StreamKMeans decay={decay}", lambda: drive_stream_kmeans(xs_k, probe_pool, K, decay, seed, device))
+            f"StreamKMeans decay={decay}",
+            lambda: drive_stream_kmeans(xs_k[:NSK], probe_pool, K, decay, seed, device))
     for maxr in (None, MAXR):
         streams[f"StreamSimJoin max_residents={maxr}"] = run(
-            f"StreamSimJoin max_residents={maxr}", lambda: drive_stream_join(xs_j, q_pool, maxr, device))
+            f"StreamSimJoin max_residents={maxr}", lambda: drive_stream_join(xs_j[:NSS], q_pool, maxr, device))
     launches = {k: n for k, n in LAUNCHES.counts().items()
                 if k not in SERVING_KERNELS + SHARDED_KERNELS}
     cores = {k: n for k, n in LAUNCHES.cores().items() if k.split(".")[0] not in SERVING_KERNELS}
@@ -1797,11 +1844,11 @@ def main_path(rng, device, seed: int) -> dict:
     stream_checks["StreamKMeans batch_identical"] = True
     del chk, c_b, a_b
     xs_jt = torch.as_tensor(xs_j, device=device)
-    oracle_j = ops.simjoin_pairs(xs_jt, EPS_S)
-    band_s = join_band(xs_jt, EPS_S)
+    oracle_j = ops.simjoin_pairs(xs_jt[:NSS], EPS_S)
+    band_s = join_band(xs_jt[:NSS], EPS_S)
     for maxr in (None, MAXR):
         svc, queries, _m = streams[f"StreamSimJoin max_residents={maxr}"]
-        check(np.array_equal(svc.points_by_id(), xs_j), "StreamSimJoin: points_by_id != the inserted points")
+        check(np.array_equal(svc.points_by_id(), xs_j[:NSS]), "StreamSimJoin: points_by_id != the inserted points")
         got = torch.as_tensor(svc.pairs(), device=device)
         want = oracle_j.long()
         if maxr is not None:
@@ -1809,9 +1856,9 @@ def main_path(rng, device, seed: int) -> dict:
             # a's insert request was admitted
             lo = torch.clamp(want[:, 0] // PER_J * PER_J - maxr, min=0)
             want = want[want[:, 1] >= lo]
-        st = check_pairs(got, want, band_s, NSJ, f"StreamSimJoin max_residents={maxr}")
+        st = check_pairs(got, want, band_s, NSS, f"StreamSimJoin max_residents={maxr}")
         stream_checks[f"StreamSimJoin max_residents={maxr}"] = {
-            **st, **check_join_queries(queries, xs_jt, EPS_S),
+            **st, **check_join_queries(queries, xs_jt[:NSS], EPS_S),
         }
     log("check streams: " + json.dumps({"band pairs": len(band_s), **stream_checks}))
     del oracle_j, band_s
@@ -1958,9 +2005,9 @@ def main_path(rng, device, seed: int) -> dict:
         f"ops.kmeans_lloyd {NG}x{DG} K={KG} x{ITERS_G} fused=False":
             lambda: ops.kmeans_lloyd(xg, KG, iters=ITERS_G, seed=seed, fused=False),
         f"ops.matmul f32 {S}^3 schedule_ndim=3": lambda: ops.matmul(a32, b32, schedule_ndim=3),
-        f"StreamKMeans warm tick ({NS} residents + {PER}, one assign of {MP})":
+        f"StreamKMeans warm tick ({NSK} residents + {PER}, one assign of {MP})":
             lambda: (svc_k.insert(more_k), svc_k.assign(probe_pool[:MP]), svc_k.tick()),
-        f"StreamSimJoin warm tick ({NSJ} residents + {PER_J}, one query of {MQ})":
+        f"StreamSimJoin warm tick ({NSS} residents + {PER_J}, one query of {MQ})":
             lambda: (svc_j.insert(more_j), svc_j.query(q_pool[:MQ]), svc_j.tick()),
     })
     # what the sharded and autotuner phases hold their runs against
@@ -2451,18 +2498,19 @@ def attn_err(got, want, tol, what: str) -> float:
     return err
 
 
-def make_requests(rng, vocab: int, n: int | None = None, new=None, prompt=None):
+def make_requests(rng, vocab: int, n: int | None = None, new=None, prompt=None, prefix: int | None = None):
     """n (SERVE_REQUESTS) prompts of 64-1024 tokens (``prompt``), every
-    other one behind a shared 256-token system prefix, with 32-128
-    (``new``) new tokens each."""
+    other one behind a shared system prefix of ``prefix`` (SERVE_PREFIX)
+    tokens, with 32-128 (``new``) new tokens each."""
     n, new, prompt = n or SERVE_REQUESTS, new or SERVE_NEW, prompt or SERVE_PROMPT
+    prefix = prefix or SERVE_PREFIX
     lo, hi = prompt
-    system = rng.integers(0, vocab, size=SERVE_PREFIX).tolist()
+    system = rng.integers(0, vocab, size=prefix).tolist()
     reqs = []
     for i in range(n):
         if i % 2:
-            n = int(rng.integers(max(lo, SERVE_PREFIX + 1), hi + 1))
-            prompt = system + rng.integers(0, vocab, size=n - SERVE_PREFIX).tolist()
+            n = int(rng.integers(max(lo, prefix + 1), hi + 1))
+            prompt = system + rng.integers(0, vocab, size=n - prefix).tolist()
         else:
             prompt = rng.integers(0, vocab, size=int(rng.integers(lo, hi + 1))).tolist()
         reqs.append((prompt, int(rng.integers(new[0], new[1] + 1))))
@@ -3160,6 +3208,7 @@ def engine_gate(cfg32, params32, requests, what: str, cores: dict, max_len: int 
     check(bool(torch.allclose(outs["flash"], outs["xla"], rtol=STEP_TOL, atol=STEP_TOL)),
           f"{what} decode_step_paged flash vs xla: max err {step_err}")
     del engine, snap, pools, outs
+    free_cuda()
     dense = ServeEngine(cfg32, params32, num_slots=SERVE_SLOTS, max_len=max_len, paged=False)
     dense_log = EngineRouterLog(dense) if moe else contextlib.nullcontext()
     margins, restore = margins_of_dense_engine(dense)
@@ -3188,7 +3237,7 @@ def engine_gate(cfg32, params32, requests, what: str, cores: dict, max_len: int 
               + ("" if routing is None else ", behind no routing difference"))
         routed += 1
     del dense
-    torch.cuda.empty_cache()
+    free_cuda()
     out = {"requests": len(requests), "tokens_compared": compared, "diverged_in_band": diverged,
            "band": GATE_BAND, "decode_step_paged_flash_vs_xla_max_abs_err": step_err, "step_tol": STEP_TOL,
            "launches": {k: counts[k] for k in cores},
@@ -3939,7 +3988,8 @@ def olmoe_gate(rng, device, seed: int) -> dict:
 
     cfg32 = _olmoe_cfg("float32")
     params32 = init_params(seed + 1, cfg32, device=device)
-    requests = make_requests(rng, cfg32.vocab_size, OLMOE_GATE_REQUESTS, OLMOE_GATE_NEW, OLMOE_GATE_PROMPT)
+    requests = make_requests(rng, cfg32.vocab_size, OLMOE_GATE_REQUESTS, OLMOE_GATE_NEW, OLMOE_GATE_PROMPT,
+                             GATE_PREFIX)
     cores = cohort_cores(cfg32, torch.float32)
     gate = engine_gate(cfg32, params32, requests, "olmoe",
                        {k: cores[k] for k in ("sfc_flash_decode", "sfc_flash_prefill")})
@@ -4116,10 +4166,11 @@ def olmoe_serving_path(rng, device, seed: int) -> list:
 
 
 # ---------------------------------------------------------------------------
-# phases 7e and 7g: dense decoders' paged serving at full size (7e:
+# phases 7e, 7g and 7h: dense decoders' paged serving at full size (7e:
 # Qwen2.5-14B, GQA g = 5, D = 128, QKV bias; 7g: Minitron-8B, g = 4, D =
 # 128, tanh-GeLU, a 256,000 vocabulary, and StableLM-1.6B, MHA at D = 64;
-# rows 21 and 22 at each model's shapes)
+# 7h: Chameleon-34B, g = 8, D = 128, 68.59 GB of bf16 weights; rows 21 and
+# 22 at each model's shapes)
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
@@ -4129,7 +4180,9 @@ class DenseModel:
     tag of its kernel rows, the positions a slot of its f32 gate's engines
     and the gate's predicted peak; its QKV biases drawn N(0, ``bias_std``)
     where it has them (``init_params`` zeroes them); ``unembed``: a warm
-    tick's ``unembed`` timed apart."""
+    tick's ``unembed`` timed apart; ``gate_layers``: the f32 gate's depth
+    (None: the model's); ``serve_peak``: the bf16 serving run's predicted
+    peak (0: none predicted)."""
 
     name: str
     arch: str
@@ -4139,6 +4192,8 @@ class DenseModel:
     gate_peak: int
     bias_std: float = 0.0
     unembed: bool = False
+    gate_layers: int | None = None
+    serve_peak: int = 0
 
     def cfg(self, dtype: str):
         import dataclasses as dc
@@ -4146,6 +4201,11 @@ class DenseModel:
         from repro_torch.configs import get_config
 
         return dc.replace(get_config(self.arch), dtype=dtype)
+
+    def gate_cfg(self):
+        """The f32 gate's config: the model's, cut to ``gate_layers``."""
+        cfg = self.cfg("float32")
+        return dataclasses.replace(cfg, num_layers=self.gate_layers or cfg.num_layers)
 
     def inputs(self, rng, device, dtype, inactive=()):
         """Rows 21 and 22 at the model's shapes and their programs: decode
@@ -4165,17 +4225,22 @@ MINITRON = DenseModel("minitron", MINITRON_ARCH, MINITRON_PARAMS, "g4", SERVE_MA
                       unembed=True)
 STABLELM = DenseModel("stablelm", STABLELM_ARCH, STABLELM_PARAMS, "mha_d64", SERVE_MAX_LEN,
                       STABLELM_GATE_PEAK_PREDICTED, unembed=True)
+CHAMELEON = DenseModel("chameleon", CHAMELEON_ARCH, CHAMELEON_PARAMS, "g8_d128", SERVE_MAX_LEN,
+                       CHAMELEON_GATE_PEAK_PREDICTED, unembed=True, gate_layers=CHAMELEON_GATE_LAYERS,
+                       serve_peak=CHAMELEON_SERVE_PEAK_PREDICTED)
 # rows 21 and 22 at each model's shapes (tools/gqa_hashes.py reads these)
 qwen_inputs, minitron_inputs, stablelm_inputs = QWEN.inputs, MINITRON.inputs, STABLELM.inputs
+chameleon_inputs = CHAMELEON.inputs
 
 
 def dense_params(m: DenseModel, seed: int, cfg, device):
-    """Seeded random weights of ``m`` (``init_params``), the QKV biases
-    (where ``cfg`` has them) drawn N(0, ``m.bias_std``) from a seeded
-    generator on the device, so that the bias add runs at full size; the
-    parameter count held to the published ``m.params``."""
+    """Seeded random weights of ``m`` at ``cfg`` (``init_params``), the QKV
+    biases (where ``cfg`` has them) drawn N(0, ``m.bias_std``) from a
+    seeded generator on the device, so that the bias add runs at full size;
+    the parameter count held to the published ``m.params`` at the model's
+    depth, to the closed form at a cut one."""
     import torch
-    from repro_torch.models import count_params, init_params
+    from repro_torch.models import count_params, init_params, param_count_analytic
 
     params = init_params(seed, cfg, device=device)
     if m.bias_std:
@@ -4185,7 +4250,8 @@ def dense_params(m: DenseModel, seed: int, cfg, device):
                 if name.rsplit(".", 1)[-1] in ("bq", "bk", "bv"):
                     p.copy_(torch.randn(p.shape, generator=gen, device=device) * m.bias_std)
     n = count_params(params)
-    check(n == m.params, f"{m.name}: {n} parameters, expected {m.params}")
+    want = m.params if cfg.num_layers == m.cfg(cfg.dtype).num_layers else param_count_analytic(cfg)
+    check(n == want, f"{m.name} at {cfg.num_layers} layers: {n} parameters, expected {want}")
     return params
 
 
@@ -4272,22 +4338,25 @@ def free_cuda() -> None:
 
 
 def dense_gate(m: DenseModel, rng, device, seed: int) -> dict:
-    """(c) the f32 gate at full depth: :func:`engine_gate` over
-    DENSE_GATE_REQUESTS requests, both engines of ``m.gate_max_len``
-    positions a slot, the flash engine's decode on split and every prefill
-    launch on tiled (none on simt), the dense engine's ``gqa_decode`` on
-    ``_sdpa``; the peak allocated bytes beside ``m.gate_peak``."""
+    """(c) the f32 gate at ``m.gate_layers`` (full depth by default):
+    :func:`engine_gate` over DENSE_GATE_REQUESTS requests, both engines of
+    ``m.gate_max_len`` positions a slot, the flash engine's decode on split
+    and every prefill launch on tiled (none on simt), the dense engine's
+    ``gqa_decode`` on ``_sdpa``; the peak allocated bytes beside
+    ``m.gate_peak``."""
     import torch
 
-    cfg32 = m.cfg("float32")
+    cfg32 = m.gate_cfg()
     torch.cuda.reset_peak_memory_stats(device)
     params32 = dense_params(m, seed + 1, cfg32, device)
-    requests = make_requests(rng, cfg32.vocab_size, DENSE_GATE_REQUESTS, DENSE_GATE_NEW, DENSE_GATE_PROMPT)
+    n_params = sum(p.numel() for p in params32.parameters())
+    requests = make_requests(rng, cfg32.vocab_size, DENSE_GATE_REQUESTS, DENSE_GATE_NEW, DENSE_GATE_PROMPT,
+                             GATE_PREFIX)
     cores = cohort_cores(cfg32, torch.float32)
     gate = engine_gate(cfg32, params32, requests, m.name,
                        {k: cores[k] for k in ("sfc_flash_decode", "sfc_flash_prefill")}, m.gate_max_len)
-    gate.update(layers=cfg32.num_layers, max_len=m.gate_max_len,
-                weight_bytes=sum(p.numel() * p.element_size() for p in params32.parameters()),
+    gate.update(layers=cfg32.num_layers, of_layers=m.cfg("float32").num_layers, params=n_params,
+                max_len=m.gate_max_len, weight_bytes=sum(p.numel() * p.element_size() for p in params32.parameters()),
                 peak_allocated_bytes=torch.cuda.max_memory_allocated(device),
                 predicted_peak_bytes=m.gate_peak)
     log(f"check serving {m.name} gate: " + json.dumps(gate))
@@ -4304,11 +4373,13 @@ def dense_serving_path(m: DenseModel, rng, device, seed: int) -> list:
     sfc_flash_decode launch on split and every sfc_flash_prefill launch on
     wgmma (none on simt), layers x decode ticks and layers x admissions of
     them, each prefill launch of the run timed by CUDA events beside the
-    admissions' wall; a warm decode tick's profile (and, with
-    ``m.unembed``, its ``unembed`` timed apart); (c) the f32 gate at full
-    depth; (d) rows 21 and 22 timed at ``m``'s shapes (the CTAs the rule
-    picks, ``flash_rows`` on the same cohort, page gather + SDPA).
-    Returns the kernel rows."""
+    admissions' wall, the run's peak allocated bytes beside what earlier
+    phases hold and ``m.serve_peak``; a warm decode tick's profile (and,
+    with ``m.unembed``, its ``unembed`` timed apart), each engine freed
+    before the next is built; (c) the f32 gate (:func:`dense_gate`); (d)
+    rows 21 and 22 timed at ``m``'s shapes (the CTAs the rule picks,
+    ``flash_rows`` on the same cohort, page gather + SDPA).  Returns the
+    kernel rows."""
     import torch
     from repro_torch.kernels import LAUNCHES
 
@@ -4316,6 +4387,8 @@ def dense_serving_path(m: DenseModel, rng, device, seed: int) -> list:
     free_cuda()
     cfg32 = m.cfg("float32")
     errs, _ = compare_cohort(rng, device, m.inputs, cfg32, m.rows)
+    free_cuda()
+    held = torch.cuda.memory_allocated(device)
     cfg = m.cfg("bfloat16")
     t0 = time.perf_counter()
     params = dense_params(m, seed, cfg, device)
@@ -4333,17 +4406,25 @@ def dense_serving_path(m: DenseModel, rng, device, seed: int) -> list:
     warm.submit(requests[0][0][:80], max_new=2)
     warm.run_until_done()
     del warm
+    free_cuda()
     cores = cohort_cores(cfg, torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats(device)
     with PrefillEvents() as events:
         metrics = serve_counted(cfg, params, requests, m.name,
                                 {k: cores[k] for k in ("sfc_flash_decode", "sfc_flash_prefill")})
+    peak = torch.cuda.max_memory_allocated(device)
+    free_cuda()
     launches, got = LAUNCHES.counts(), LAUNCHES.cores()
     check(got["sfc_flash_prefill.simt"] == 0 and len(events.pairs) == launches["sfc_flash_prefill"],
           f"{m.name} serving: prefill launches {launches['sfc_flash_prefill']}, timed {len(events.pairs)}, "
           f"cores {got}")
     attn_ms = events.ms()
     busy = warm_decode_tick(cfg, params, requests, device, unembed=m.unembed)
-    metrics.update(weight_bytes=weight_bytes, prefill_attention_ms=attn_ms,
+    free_cuda()
+    memory = {"peak_allocated_bytes": peak, "held_before_bytes": held}
+    if m.serve_peak:
+        memory.update(predicted_peak_bytes=m.serve_peak, peak_less_held_bytes=peak - held)
+    metrics.update(weight_bytes=weight_bytes, **memory, prefill_attention_ms=attn_ms,
                    prefill_attention_launches=len(events.pairs),
                    prefill_attention_share=attn_ms / (1e3 * metrics["prefill_s"]),
                    warm_tick={k: busy[k] for k in ("wall_ms", "device_ms", "busy_share", "unembed") if k in busy})
@@ -5831,7 +5912,7 @@ def main() -> int:
         compare_latent(np.random.default_rng(args.seed + 5), device)
         compare_d80(np.random.default_rng(args.seed + 6), device)
         compare_mha(np.random.default_rng(args.seed + 7), device)
-        for i, m in enumerate((QWEN, MINITRON, STABLELM)):
+        for i, m in enumerate((QWEN, MINITRON, STABLELM, CHAMELEON)):
             compare_cohort(np.random.default_rng(args.seed + 8 + 2 * i), device, m.inputs, m.cfg("float32"), m.rows)
         compare_full_d80(np.random.default_rng(args.seed + 9), device)
         return 0
@@ -5848,6 +5929,7 @@ def main() -> int:
     result["kernels"] += hubert_path(np.random.default_rng(args.seed + 9), device, args.seed)
     result["kernels"] += dense_serving_path(MINITRON, np.random.default_rng(args.seed + 10), device, args.seed)
     result["kernels"] += dense_serving_path(STABLELM, np.random.default_rng(args.seed + 12), device, args.seed)
+    result["kernels"] += dense_serving_path(CHAMELEON, np.random.default_rng(args.seed + 14), device, args.seed)
     result["kernels"] += sharded_path(device, args.seed, ctx)
     train_cell = dry_cells()[2]
     train_rec = dry_record(*train_cell, device)

@@ -15,9 +15,10 @@ and an f32 pool, then ``sfc_flash_attention`` at Zamba2's D = 80
 1, D 128, pages of 16: 128 tokens a CTA on the wgmma and tiled cores), at
 Qwen's (chip_smoke.qwen_inputs: Hkv 8, g 5, D 128: 25 tokens a CTA), at
 Minitron's (chip_smoke.minitron_inputs: Hkv 8, g 4, D 128: 32 tokens a
-CTA) and at StableLM's (chip_smoke.stablelm_inputs: Hkv 32, g 1, D 64: 128
-tokens a CTA) in f32 and bf16, and prints one JSON object of SHA-256 prefixes of their
-outputs (prefill: the rows its runs cover).  It reads only the checkout
+CTA), at StableLM's (chip_smoke.stablelm_inputs: Hkv 32, g 1, D 64: 128
+tokens a CTA) and at Chameleon's (chip_smoke.chameleon_inputs: Hkv 8, g 8,
+D 128: 16 tokens a CTA) in f32 and bf16, and prints one JSON object of
+SHA-256 prefixes of their outputs (prefill: the rows its runs cover).  It reads only the checkout
 it lies in: to check that a change keeps these bits, copy it into a
 ``git archive`` of the parent commit and run it in both trees; the two
 objects are equal when the bits are (a parent without a key, or without
@@ -77,7 +78,7 @@ def hashes(device) -> dict:
         out[f"sfc_flash_prefill mha {str(dtype)[6:]}"] = digest(t)
         del pre, t
     for tag, inputs, seed in (("g5", "qwen_inputs", 36), ("g4", "minitron_inputs", 38),
-                              ("mha_d64", "stablelm_inputs", 38)):
+                              ("mha_d64", "stablelm_inputs", 38), ("g8_d128", "chameleon_inputs", 39)):
         if not hasattr(cs, inputs):
             continue
         for dtype in (torch.float32, torch.bfloat16):
