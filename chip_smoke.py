@@ -196,7 +196,8 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    ``use_hilbert_kernels``, its 16 ``sfc_flash_attention`` launches counted
    apart, all on wgmma (wall time, the logits' difference from the plain
    forward reported); (c) ``check serving olmoe gate:``: the model in f32
-   at full depth (27.68 GB), 4 requests (prompts of 64-192 tokens, every
+   at 8 of its 16 layers (OLMOE_GATE_LAYERS; 27.68 GB at full depth), 4
+   requests (prompts of 64-192 tokens, every
    other one behind a shared 128-token prefix, 16-32 new tokens) through
    the paged flash engine and the dense-cache engine
    (``gqa_decode`` on ``_sdpa``, independent of rows 21-22): each
@@ -204,8 +205,8 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    band (GATE_BAND), or behind a routing flip of the two engines that is a
    near-tie (ROUTER_GATE_BAND; both engines' routing is logged by (request,
    position, layer)); one decode step flash vs "xla"; the f32 forward of 1
-   x 2048 tokens through row 20 (16 launches on tiled) against the plain
-   forward at STEP_TOL up to its first routing flip; (d) ``time ...
+   x 2048 tokens through row 20 (a launch a layer, on tiled) against the
+   plain forward at STEP_TOL up to its first routing flip; (d) ``time ...
    mha`` / ``time sfc_flash_attention d128``: ms (row 21 also its device
    time), bound, plain ms, the library call (page gather + SDPA for rows
    21-22, SDPA with is_causal for row 20) and the core, bf16 and f32; row
@@ -317,16 +318,15 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    train recovery:`` the reference's exact-recovery case on the card (a
    ``SimulatedFailure`` at step 9 of 16: one restart, steps 12-15's
    losses rel 1e-5 of the uninterrupted run's); (c) ``train tinyllama:``
-   TinyLlama-1.1B at full size in bf16 through the launcher's code path
+   TinyLlama-1.1B at full size in bf16 through the launcher's configs
    (``repro_torch.launch.train``: 2 x 2048 tokens x 2 micro-batches, 6
    steps, lr 3e-4, warm-up 2): each step's loss, grad norm, lr and
    seconds, the median wall of the 4 warm steps, a profiled step's device time
    and busy share, tokens/s, the step against its bound (the dry run's
    compute term of one micro-batch step, phase 11 (c), times the
-   micro-batches), peak memory, the
-   start-of-run checkpoint save's seconds and GB, and one restore's
-   (sha256 checked on every leaf, the restored state equal to the saved
-   one, re-made from the seed); every loss and grad norm finite.
+   micro-batches), peak memory; every loss and grad norm finite (its
+   steps run without checkpoints: an 11 GB save and restore took 60-70
+   s).
 10. The schedule autotuner (``autotune_path``), the tuning cache in a
    temporary file: ``autotune.autotune_app`` for each tunable entry point
    at phase 3's shapes and inputs (f32 matmul 8192³, SIFT1M Lloyd, the
@@ -349,17 +349,16 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
 11. The dry run against the card (``dryrun_path``): for (a) Mamba2-2.7B
    x ``decode_32k`` (128 slots, a 32,768 state cache), (b) Zamba2-2.7B x
    ``long_500k`` (1 x 524,288 positions), (c) TinyLlama-1.1B training
-   at one micro-batch of 2 x 2,048 (AdamW), (d) HuBERT-xlarge x prefill at
-   1 x 32,768 frames (the last frame's logits) and (e) HuBERT-xlarge
-   training at one micro-batch of 4 x 4,096 frames (AdamW; both batches
-   of seeded f32 frame embeddings), the one-card dry run
+   at one micro-batch of 2 x 2,048 (AdamW) and (d) HuBERT-xlarge
+   training at one micro-batch of 4 x 4,096 frames (AdamW; seeded f32
+   frame embeddings), the one-card dry run
    (``repro_torch.launch.dryrun.run_cell`` on ``make_one_card_mesh``,
    traced on the host) logs its prediction (``dryrun predict``: peak
    bytes, the roofline terms, FLOPs by dtype).  Then the cell is built
    from seeded weights on the card, the peak reset before its first
    input, and one cold and one warm step of the dry run's own step
-   function run (``dryrun <cell>:``; (d) and (e) run their profiled step
-   alone as both, ``DRY_ONE_STEP``): the measured peak within 0.5 GiB
+   function run (``dryrun <cell>:``; (d) runs its profiled step alone as
+   both, ``DRY_ONE_STEP``): the measured peak within 0.5 GiB
    plus 1 % of the prediction (DRY_TOL), the warm step against
    max(t_compute, t_memory), its fraction of the roofline, and against
    the arguments' bytes read once at the HBM rate (a floor that the
@@ -367,6 +366,30 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    cache); one more warm step under torch.profiler gives the device's
    busy share.  (b) runs only where the prediction leaves 4 GiB of the
    card free, and says so otherwise.
+12. Training, MoE expert parallelism and a decode cell on a ("data",
+   "model") ``DeviceMesh`` of the one card, its devices repeated
+   (``mesh_path``; a program a data shard, single-controller): (a)
+   TinyLlama-1.1B at full size in bf16, one ``Trainer`` step of 4 x 512
+   tokens on a (2, 4) mesh of ``cuda:0`` x 8 from the same state and
+   batch as the one-card Trainer's, loss, grad norm and every leaf's
+   gathered grads within MESH_TOL; a warm step of each, timed (wall and
+   CUDA events), the mesh step's ``VolumeLedger``; ``reshard`` to (4, 2)
+   and (8, 1), every parameter and moment to the bit, a step on each; the
+   same comparison in f32 at 2 layers (``check mesh train f32 gate:``);
+   (b) OLMoE-1B-7B at full width, 2 of its 16 layers (64 experts, top-8,
+   16 a rank): the f32 EP forward (capacity factor 64) against the
+   forward with no mesh within 1e-5 of the logits' scale, the aux within
+   1e-6, and a bf16 train cell's step on the mesh (EP at the default
+   capacity): a finite loss, every model rank's expert moments moved; (c)
+   TinyLlama-1.1B f32: the decode ``CellStep`` against the one-card one
+   over 4 steps, the paged prefill and decode steps (rows 22 and 21) as
+   each data shard's program on its slots, the prefill ``CellStep`` with
+   the flash forward (row 20): logits and pools within 1e-4, tokens equal
+   outside the 1e-3 argmax band, each data shard's launches of rows 20-22
+   read from ``LAUNCHES.scoped_counts()``; (d) the ``mesh:`` line: the card, the
+   warm steps, the ledger by primitive, the peak against
+   MESH_PEAK_PREDICTED.  With every position on one card these are the
+   single-controller layout's costs, not NVLink's.
 
 The second-to-last line of output is one JSON object ``{"kernels": [...]}``,
 the last ``{"ok": true, "device": {...}}``.  ``--quick`` runs phases 1-2
@@ -562,8 +585,11 @@ OLMOE_ARCH = "olmoe-1b-7b"
 # shared only across cohorts, so 8 requests in one would share no page)
 OLMOE_REQUESTS = 10
 OLMOE_NEW = (16, 64)
-# its f32 gate at full depth (27.68 GB): 4 requests in one cohort, the
+# its f32 gate at 8 of the 16 layers (at full depth, 27.68 GB, it took
+# 49-51 s of the script: the dense engine prefills a token a step through
+# every layer's expert loop): 4 requests in one cohort, the
 # prompts of GATE_PREFIX
+OLMOE_GATE_LAYERS = 8
 OLMOE_GATE_REQUESTS = 4
 OLMOE_GATE_PROMPT = (64, 192)
 OLMOE_GATE_NEW = (16, 32)
@@ -637,9 +663,7 @@ HUBERT_PARAMS = 944_487_680  # param_count_analytic: 1.89 GB in bf16, 3.78 GB in
 HUBERT_BATCH = (16, 1500)  # utterances, frames
 HUBERT_LABEL_MASK = 0.1  # share of the f32 gate's cluster labels set to -1
 HUBERT_LOSS_TOL = 1e-4  # the f32 gate's losses, kernel against plain, relative
-# phase 11's HuBERT cells, cut from the assigned shapes' global batches
-# (prefill_32k's 32, train_4k's 256): B, S
-HUBERT_PREFILL = (1, 32_768)
+# phase 11's HuBERT train cell, cut from train_4k's global batch of 256: B, S
 HUBERT_TRAIN = (4, 4096)
 # the sharded phase: shards of its meshes, all on the one card
 SHARDS = 4
@@ -659,6 +683,31 @@ TRAIN_CHECK_LR = 3e-4
 TRAIN_GRAD_FLOOR = 1e-3
 TRAIN_PARAM_TOL = 1e-3
 TRAIN_FULL = (2, 2048, 2, 6, 3e-4, 2)
+# the mesh phase: a ("data", "model") DeviceMesh of the one card, its
+# devices repeated.  (a) TinyLlama-1.1B's Trainer step on MESH_SHAPE (B x S)
+# against the one-card step, then reshards; the f32 gate at 2 layers.
+# Tolerances (loss rel, grad norm rel, each leaf's ‖Δg‖ / ‖g‖): bf16 runs
+# each data shard's products on half the rows, rounding its grads to bf16
+# apart before the f32 sum; f32 differs only in the sums' order.
+MESH_SHAPE = (2, 4)
+MESH_RESHARDS = ((4, 2), (8, 1))
+MESH_TRAIN = (4, 512)
+MESH_GATE_LAYERS = 2
+MESH_TOL = {"bfloat16": (2e-3, 1e-2, 2e-2), "float32": (1e-5, 1e-5, 1e-4)}
+TRAIN_PARAMS = 1_100_048_384  # TinyLlama-1.1B, param_count_analytic
+# the one-card and the mesh state (bf16 parameters, f32 moments: 10 bytes
+# a parameter each), the one-card grads kept for the comparison (2), the
+# gathered parameters (2), two data shards' bf16 grads (4), and 4 GiB of
+# one step's activations over 4 x 512 tokens
+MESH_PEAK_PREDICTED = 28 * TRAIN_PARAMS + 2 ** 32
+# (b) OLMoE-1B-7B at full width, 2 of its 16 layers: 16 experts a rank
+MESH_OLMOE_LAYERS = 2
+MESH_OLMOE_BATCH = (4, 128)
+# (c) the decode cell: slots, cache positions, steps; the paged steps'
+# prompt width (each slot's prompt 32-128 tokens); the prefill cell's tokens
+MESH_DECODE = (8, 512, 4)
+MESH_PAGED_PROMPT = 128
+MESH_PREFILL = 256
 # the autotuner phase: the curves each app's candidates are drawn from (its
 # default first).  A curve whose cover is the square of the grid's long side
 # takes the host minutes on a ragged grid, so the k-means grid (7,813 x 8)
@@ -738,30 +787,38 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
-def kernel_stats(fn, reps: int) -> dict:
+PROFILE_ATTEMPTS = 6  # windows kernel_stats profiles before it gives up
+
+
+def kernel_stats(fn, reps: int, need: tuple = ()) -> dict:
     """(total device ms, launches recorded) of each kernel that ``fn()``
     launches over ``reps`` calls under torch.profiler, after one warm-up
-    call, by its full name (empty only if three windows recorded none)."""
+    call, by its full name (empty, or without a kernel whose name holds a
+    string of ``need``, only if PROFILE_ATTEMPTS windows recorded none or
+    lacked it)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     # CUPTI now and then records no kernel of a whole window (none of row 21
-    # latent's 10 calls, once): such a window is profiled again, and logged
-    for attempt in range(1, 4):
+    # latent's 10 calls, once; three windows of row 21 g = 4 in a row,
+    # once), or none of one of a call's kernels (row 21 MHA's split kernel,
+    # once): such a window is profiled again, and logged
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
         if attempt > 1:
             caller = sys._getframe(1)
             while caller.f_code.co_name == "kernel_ms":
                 caller = caller.f_back
-            log(f"profile window empty: {caller.f_code.co_name} profiles it again (attempt {attempt} of 3)")
+            log(f"profile window empty: {caller.f_code.co_name} profiles it again "
+                f"(attempt {attempt} of {PROFILE_ATTEMPTS})")
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
         out = {e.key: (1e-3 * e.self_device_time_total, e.count) for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0}
-        if out:
+        if out and all(any(n in k for k in out) for n in need):
             break
     return out
 
@@ -3362,7 +3419,7 @@ def decode_device_time(prog, args, library, device) -> dict:
     from repro_torch.kernels import launch
     from repro_torch.kernels import attention as katt
 
-    stats = kernel_stats(lambda: launch(prog, *args), 10)
+    stats = kernel_stats(lambda: launch(prog, *args), 10, need=("decode_kernel", "merge_kernel"))
     kern = {k: total / count for k, (total, count) in stats.items()}
     dev_ms = sum(kern.values())
     check(dev_ms > 0 and any("decode_kernel" in k for k in kern) and any("merge_kernel" in k for k in kern),
@@ -3977,16 +4034,16 @@ def compare_mha(rng, device) -> tuple[dict, dict]:
 
 
 def olmoe_gate(rng, device, seed: int) -> dict:
-    """(c) the f32 gate at full depth: :func:`engine_gate` over
-    OLMOE_GATE_REQUESTS requests (the flash engine's decode on split,
+    """(c) the f32 gate at OLMOE_GATE_LAYERS layers: :func:`engine_gate`
+    over OLMOE_GATE_REQUESTS requests (the flash engine's decode on split,
     prefill on ``prefill_core``'s core; the dense engine's ``gqa_decode``
     on ``_sdpa``), then the f32 forward of 1 x 2048 tokens through row 20
-    (16 launches on tiled) against the plain forward, both with the
+    (a launch a layer, on tiled) against the plain forward, both with the
     routing compared (ROUTER_GATE_BAND)."""
     import torch
     from repro_torch.models import init_params
 
-    cfg32 = _olmoe_cfg("float32")
+    cfg32 = dataclasses.replace(_olmoe_cfg("float32"), num_layers=OLMOE_GATE_LAYERS)
     params32 = init_params(seed + 1, cfg32, device=device)
     requests = make_requests(rng, cfg32.vocab_size, OLMOE_GATE_REQUESTS, OLMOE_GATE_NEW, OLMOE_GATE_PROMPT,
                              GATE_PREFIX)
@@ -4069,7 +4126,7 @@ def time_cohort(rng, device, errs, launches: dict, inputs, cfg, tags: dict, att_
             if prog.name == "sfc_flash_decode":
                 # split + merge, each once a call: the mean over the launches
                 # the profiler recorded (it drops some), with their count
-                stats = kernel_stats(lambda: launch(prog, *args), 10)
+                stats = kernel_stats(lambda: launch(prog, *args), 10, need=("split_kernel", "merge_kernel"))
                 kern = {k: total / count for k, (total, count) in stats.items()}
                 check(any("split_kernel" in k for k in kern) and any("merge_kernel" in k for k in kern),
                       f"sfc_flash_decode {tags[prog.name]} {dtype}: no device time of its split and merge kernels "
@@ -5078,8 +5135,9 @@ def train_bound(dry: dict, accum: int) -> dict:
 
 
 def train_full(device, seed: int, tmp: str, dry: dict) -> dict:
-    """(c) TinyLlama-1.1B at full size in bf16 through the launcher;
-    ``dry``: the dry run's record of one of its micro-batch steps."""
+    """(c) TinyLlama-1.1B at full size in bf16 through the launcher's
+    configs, ``Trainer.step`` by step (no checkpoint); ``dry``: the dry
+    run's record of one of its micro-batch steps."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -5092,13 +5150,19 @@ def train_full(device, seed: int, tmp: str, dry: dict) -> dict:
                                 "--grad-accum", str(accum), "--lr", str(lr), "--ckpt-dir", tmp,
                                 "--device", str(device)])
     cfg, tcfg = launcher.build(args)
-    # warm-up 2 (the launcher's steps // 10 is 1); only the start-of-run save
-    # (a save is ~11 GB: parameters and both moments)
-    tcfg = dataclasses.replace(tcfg, warmup_steps=warmup, ckpt_every=steps + 1, seed=seed)
+    # warm-up 2 (the launcher's steps // 10 is 1); the steps of ``run``
+    # without its checkpoints (an ~11 GB save and restore took 60-70 s of
+    # the script; phase 9 (b) and the cuda tests restore on the card)
+    tcfg = dataclasses.replace(tcfg, warmup_steps=warmup, seed=seed)
     trainer = Trainer(cfg, tcfg, device=device)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    state, hist = trainer.run(steps)
+    state, hist = trainer.init_state(tcfg.seed), []
+    for step in range(steps):
+        batch = trainer.batch_at(step)
+        t = time.perf_counter()
+        state, met = trainer.step(state, batch)
+        hist.append({"step": step, **{k: float(v) for k, v in met.items()}, "seconds": time.perf_counter() - t})
     peak = torch.cuda.max_memory_allocated()
     for h in hist:
         log("train tinyllama step: " + json.dumps(h))
@@ -5120,18 +5184,6 @@ def train_full(device, seed: int, tmp: str, dry: dict) -> dict:
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
 
     bound = train_bound(dry, accum)
-    save = dict(trainer.ckpt.last_save)
-    # restore the start-of-run checkpoint into the trained state and hold
-    # it against the start state made again from the seed
-    t = time.perf_counter()
-    step0 = trainer.restore(state)
-    torch.cuda.synchronize()
-    restore_s = time.perf_counter() - t
-    fresh = trainer.init_state(tcfg.seed)
-    same = (step0 == 0 and int(state["opt"].step) == 0
-            and all(torch.equal(a, b) for a, b in zip(state["params"].parameters(), fresh["params"].parameters()))
-            and all(torch.equal(state["opt"].m[n], fresh["opt"].m[n]) and torch.equal(state["opt"].v[n], fresh["opt"].v[n])
-                    for n in fresh["opt"].m))
     tokens = B * S * accum
     out = {
         "config": {"layers": cfg.num_layers, "d_model": cfg.d_model, "vocab": cfg.vocab_size,
@@ -5146,13 +5198,8 @@ def train_full(device, seed: int, tmp: str, dry: dict) -> dict:
                           "busy_share": dev_ms / 1e3 / wall if dev_ms else "not measured",
                           "top": [[e.key[:60], 1e-3 * e.self_device_time_total, e.count] for e in top]},
         "peak_memory_gb": peak / 1e9,
-        "ckpt_save": {"step": save["step"], "seconds": save["seconds"], "gb": save["bytes"] / 1e9},
-        "ckpt_restore": {"step": step0, "seconds": restore_s,
-                         "read_and_hash_s": trainer.ckpt.last_restore["seconds"],
-                         "gb": trainer.ckpt.last_restore["bytes"] / 1e9, "equal_to_saved": same},
     }
     log("train tinyllama: " + json.dumps(out))
-    check(same, "train tinyllama: the restored state differs from the saved one")
     return out
 
 
@@ -5401,17 +5448,16 @@ def autotune_path(device, seed: int, ctx: dict) -> dict:
 def dry_cells():
     """(a) Mamba2-2.7B x decode_32k and (b) Zamba2-2.7B x long_500k at
     their full shapes, (c) TinyLlama-1.1B training at one micro-batch of
-    TRAIN_FULL's B x S, (d) HuBERT-xlarge x prefill at HUBERT_PREFILL's B x
-    S (prefill_32k's sequence, its batch cut from 32) and (e) HuBERT-xlarge
-    training at one micro-batch of HUBERT_TRAIN's (train_4k's sequence, its
-    batch cut from 256)."""
+    TRAIN_FULL's B x S and (d) HuBERT-xlarge training at one micro-batch
+    of HUBERT_TRAIN's (train_4k's sequence, its batch cut from 256).  The
+    HuBERT prefill cell (1 x 32,768, ~44 s of the script) is left out to
+    make room for phase 12; PERF.md keeps its earlier record."""
     from repro_torch.configs import SHAPES, ShapeSpec
 
     B, S = TRAIN_FULL[:2]
-    (pb, ps), (tb, ts) = HUBERT_PREFILL, HUBERT_TRAIN
+    tb, ts = HUBERT_TRAIN
     return (("mamba2-2.7b", SHAPES["decode_32k"]), (SSM_HYBRID, SHAPES["long_500k"]),
             (TRAIN_ARCH, ShapeSpec(f"train_{B}x{S}", S, B, "train")),
-            (HUBERT_ARCH, ShapeSpec(f"prefill_{pb}x{ps}", ps, pb, "prefill")),
             (HUBERT_ARCH, ShapeSpec(f"train_{tb}x{ts}", ts, tb, "train")))
 
 
@@ -5478,10 +5524,10 @@ DRY_TOL = 0.01
 DRY_TOL_BYTES = 2 ** 29
 DRY_SPARE = 4 * 2 ** 30  # cell (b) runs only where the prediction leaves this free
 # the cells (arch, mode) that run one step, under the profiler, as their
-# cold and warm step: HuBERT's prefill and train steps take ~16 s and ~3.6
-# s on the device (busy 0.997 and 0.94), their cold and warm steps agreed
-# within 1 % on the H100, and the profiler's cost is within a few per cent
-DRY_ONE_STEP = ((HUBERT_ARCH, "prefill"), (HUBERT_ARCH, "train"))
+# cold and warm step: HuBERT's train step takes ~3.6 s on the device (busy
+# 0.94), its cold and warm steps agreed within 1 % on the H100, and the
+# profiler's cost is within a few per cent
+DRY_ONE_STEP = ((HUBERT_ARCH, "train"),)
 
 
 def dry_cell(arch: str, shape, rec: dict, device, seed: int) -> dict:
@@ -5572,6 +5618,388 @@ def dryrun_path(device, seed: int, records: dict) -> dict:
               f"predicted {got['predicted_peak_gib']:.3f} GiB (tol {got['tol_gib']:.3f})")
     log(f"dryrun phase: {time.perf_counter() - t_phase:.1f} s")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: training, MoE expert parallelism and a decode cell on a
+# ("data", "model") DeviceMesh of the one card, its devices repeated
+# ---------------------------------------------------------------------------
+
+def _mesh(shape, device):
+    from repro_torch.launch.mesh import make_mesh
+
+    return make_mesh(shape, ("data", "model"), devices=[device])
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def grads_against(mesh_grads: dict, one: dict, device) -> float:
+    """(the largest ‖g_mesh − g_one‖ / ‖g_one‖ over the leaves, its
+    leaf), the mesh's f32 shards gathered on the card."""
+    import torch
+
+    from repro_torch.launch.steps import gather
+
+    worst = (0.0, None)
+    for n, g in one.items():
+        d = (gather(mesh_grads[n], device) - g.float()).norm() / torch.clamp(g.float().norm(), min=1e-30)
+        worst = max(worst, (float(d), n), key=lambda w: w[0])
+    return worst
+
+
+def timed_step(trainer, state, batch) -> tuple:
+    """One warm step: (state, metrics, wall s, CUDA-event ms)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t = time.perf_counter()
+    start.record()
+    state, met = trainer.step(state, batch)
+    end.record()
+    torch.cuda.synchronize()
+    return state, met, time.perf_counter() - t, start.elapsed_time(end)
+
+
+def step_breakdown(trainer, state, batch) -> tuple:
+    """One more mesh step with the wall seconds of its parts (each part's
+    device work synchronised at its ends): the parameters' gathers, each
+    leaf's grad reduction, the clip, AdamW; the rest of the step is the
+    programs' forward and the backward.  Returns (state, {part: s})."""
+    import torch
+
+    from repro_torch.launch import spmd
+
+    parts = {"gather_params": 0.0, "reduce_grads": 0.0, "mesh_clip": 0.0, "mesh_adamw": 0.0}
+    names = {"gather_params": "gather_params", "reduce_grads": "_reduce_grads", "mesh_clip": "mesh_clip",
+             "mesh_adamw": "mesh_adamw"}
+    saved = {k: getattr(spmd, v) for k, v in names.items()}
+
+    def timed(key, fn):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            parts[key] += time.perf_counter() - t
+            return out
+
+        return wrapper
+
+    for k, v in names.items():
+        setattr(spmd, v, timed(k, saved[k]))
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, _ = trainer.step(state, batch)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t
+    finally:
+        for k, v in names.items():
+            setattr(spmd, v, saved[k])
+    parts["forward_backward_and_rest"] = total - sum(parts.values())
+    return state, {"step_s": total, **parts}
+
+
+def mesh_train_check(device, seed: int, dtype: str, layers: int | None, tmp: str) -> dict:
+    """(a) One Trainer step on MESH_SHAPE from the same state and batch as
+    the one-card Trainer's: loss, grad norm and every leaf's grads held
+    at MESH_TOL[dtype]; with ``layers`` None (full depth, bf16) also a
+    warm step of each timed, the mesh step's ledger, and the reshards of
+    MESH_RESHARDS, every parameter and moment to the bit and a step on
+    each."""
+    import torch
+
+    from repro_torch.launch import spmd
+    from repro_torch.launch.steps import gather
+    from repro_torch.models import loss_and_grads
+    from repro_torch.train import Trainer, TrainerConfig
+
+    cfg = _train_cfg(layers, dtype)
+    B, S = MESH_TRAIN
+    tcfg = TrainerConfig(lr=TRAIN_CHECK_LR, warmup_steps=0, micro_batch=B, seq_len=S, seed=seed, ckpt_dir=tmp)
+    mesh = _mesh(MESH_SHAPE, device)
+    one, tr = Trainer(cfg, tcfg, device=device), Trainer(cfg, tcfg, mesh=mesh)
+    s1 = one.init_state(seed)
+    s2 = tr.place_state(s1)
+    batch = one.batch_at(0)
+    _, _, g1 = loss_and_grads(s1["params"], batch, cfg, tcfg.aux_weight)
+    _, _, g2 = spmd.mesh_grads(cfg, mesh, s2["params"], batch, aux_weight=tcfg.aux_weight)
+    grad_err, grad_leaf = grads_against(g2, g1, device)
+    del g1, g2
+    s1, m1 = one.step(s1, batch)
+    s2, m2 = tr.step(s2, batch)
+    loss_tol, norm_tol, grad_tol = MESH_TOL[dtype]
+    out = {"dtype": dtype, "layers": cfg.num_layers, "mesh": list(MESH_SHAPE), "B": B, "S": S,
+           "loss": float(m1["loss"]), "rel_loss": _rel(float(m2["loss"]), float(m1["loss"])),
+           "rel_grad_norm": _rel(float(m2["grad_norm"]), float(m1["grad_norm"])),
+           "max_grad_rel_norm": grad_err, "max_grad_rel_norm_leaf": grad_leaf, "tol": {"loss": loss_tol, "grad_norm": norm_tol, "grads": grad_tol}}
+    check(out["rel_loss"] <= loss_tol, f"mesh train {dtype}: loss rel {out['rel_loss']:.2e} > {loss_tol}")
+    check(out["rel_grad_norm"] <= norm_tol, f"mesh train {dtype}: grad norm rel {out['rel_grad_norm']:.2e}")
+    check(grad_err <= grad_tol, f"mesh train {dtype}: a leaf's grads differ by {grad_err:.2e} of its norm")
+    if layers is not None:
+        return out
+    # a warm step each, timed; the mesh step's collectives
+    _, _, one_wall, one_ms = timed_step(one, s1, one.batch_at(1))
+    del s1
+    free_cuda()
+    with mesh.recording() as ledger:
+        s2, _, mesh_wall, mesh_ms = timed_step(tr, s2, tr.batch_at(1))
+    out["warm_step"] = {"one_card_wall_s": one_wall, "one_card_event_ms": one_ms, "mesh_wall_s": mesh_wall,
+                        "mesh_event_ms": mesh_ms, "wall_ratio": mesh_wall / one_wall,
+                        "event_ratio": mesh_ms / one_ms}
+    out["ledger"] = ledger.as_dict()
+    s2, out["warm_step_parts_s"] = step_breakdown(tr, s2, tr.batch_at(2))
+    # reshard: every parameter and moment keeps its bits; a step on each
+    out["reshards"] = []
+    for shape in MESH_RESHARDS:
+        new_mesh = _mesh(shape, device)
+        t = time.perf_counter()
+        new = tr.reshard(s2, new_mesh)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        same = all(torch.equal(gather(a, device), gather(b, device))
+                   for old_d, new_d in ((s2["params"], new["params"]), (s2["opt"].m, new["opt"].m),
+                                        (s2["opt"].v, new["opt"].v))
+                   for a, b in ((old_d[n], new_d[n]) for n in old_d))
+        same = same and torch.equal(gather(s2["opt"].step, device), gather(new["opt"].step, device))
+        s2 = new
+        free_cuda()
+        s2, met, wall, ms = timed_step(tr, s2, tr.batch_at(3))
+        rec = {"mesh": list(shape), "reshard_s": secs, "bits_equal": same, "loss": float(met["loss"]),
+               "step_wall_s": wall, "step_event_ms": ms}
+        out["reshards"].append(rec)
+        check(same, f"mesh reshard to {shape}: a parameter or moment changed")
+        check(bool(np.isfinite(rec["loss"])), f"mesh reshard to {shape}: the next step's loss is not finite")
+    return out
+
+
+def _olmoe_mesh_cfg(dtype: str, **overrides):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(OLMOE_ARCH)
+    return dataclasses.replace(cfg, num_layers=MESH_OLMOE_LAYERS, dtype=dtype, **overrides)
+
+
+def mesh_moe_check(device, seed: int) -> dict:
+    """(b) OLMoE-1B-7B at full width, MESH_OLMOE_LAYERS layers: the f32
+    EP forward on MESH_SHAPE (capacity factor 64: no drop) against the
+    forward with no mesh; then a bf16 train cell's step on the mesh (EP at
+    the default capacity): a finite loss and every model rank's expert
+    moments moved."""
+    import torch
+
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import spmd
+    from repro_torch.launch.steps import jit_for_cell
+    from repro_torch.models import forward, init_params
+    from repro_torch.models.moe import expert_parallel
+    from repro_torch.models.sharding import activation_mesh
+    from repro_torch.train import Trainer
+
+    mesh = _mesh(MESH_SHAPE, device)
+    B, S = MESH_OLMOE_BATCH
+    cfg32 = _olmoe_mesh_cfg("float32", capacity_factor=64.0)
+    check(expert_parallel(cfg32, mesh) == MESH_SHAPE[1], "mesh moe: the EP branch does not apply")
+    g = torch.Generator(device=device).manual_seed(seed)
+    tokens = torch.randint(0, cfg32.vocab_size, (B, S), generator=g, device=device, dtype=torch.int32)
+    params = init_params(seed, cfg32, device=device)
+    t = time.perf_counter()
+    want, aux = forward(params, {"tokens": tokens}, cfg32)
+    with mesh.recording() as ledger, activation_mesh(mesh, ("data",)):
+        got, aux_ep = forward(params, {"tokens": tokens}, cfg32)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    out = {"layers": cfg32.num_layers, "experts": cfg32.num_experts, "top_k": cfg32.top_k,
+           "experts_a_rank": cfg32.num_experts // MESH_SHAPE[1], "B": B, "S": S,
+           "f32_forward_max_abs_diff": err, "logits_max_abs": scale,
+           "aux_abs_diff": abs(float(aux_ep) - float(aux)), "forward_ledger": ledger.as_dict(), "forwards_s": fwd_s}
+    del params, want, got
+    free_cuda()
+    check(err <= 1e-5 * max(1.0, scale), f"mesh moe: the f32 EP forward differs by {err:.2e}")
+    check(out["aux_abs_diff"] <= 1e-6, f"mesh moe: the EP aux differs by {out['aux_abs_diff']:.2e}")
+    cfg16 = _olmoe_mesh_cfg("bfloat16")
+    step = jit_for_cell(cfg16, ShapeSpec(f"train_{B}x{S}", S, B, "train"), mesh)
+    state = spmd.place_state(cfg16, Trainer.state_from_params(init_params(seed + 1, cfg16, device=device)), mesh)
+    labels = torch.randint(0, cfg16.vocab_size, (B, S), generator=g, device=device, dtype=torch.int32)
+    t = time.perf_counter()
+    with mesh.recording() as ledger:
+        state, met = step(state, {"tokens": tokens, "labels": labels})
+    torch.cuda.synchronize()
+    moved = {r: all(float(m.parts[0, r].abs().sum()) > 0 for n, m in state["opt"].m.items()
+                    if n.endswith(("ffn.w_gate", "ffn.w_up", "ffn.w_down")))
+             for r in range(MESH_SHAPE[1])}
+    out.update({"bf16_step_loss": float(met["loss"]), "bf16_step_grad_norm": float(met["grad_norm"]),
+                "bf16_step_s": time.perf_counter() - t, "expert_moments_moved_by_rank": moved,
+                "step_ledger": ledger.as_dict()})
+    del state
+    free_cuda()
+    check(bool(np.isfinite(out["bf16_step_loss"])), "mesh moe: the bf16 step's loss is not finite")
+    check(all(moved.values()), f"mesh moe: a model rank's expert grads are zero: {moved}")
+    return out
+
+
+def _band_equal(got, want, band: float) -> tuple[int, int]:
+    """(positions, positions in the band): the argmaxes must agree outside
+    the top-2 margin band."""
+    import torch
+
+    top2 = torch.topk(want, 2, dim=-1).values
+    near = (top2[:, 0] - top2[:, 1]) <= band
+    differ = got.argmax(-1) != want.argmax(-1)
+    check(not bool((differ & ~near).any()), "mesh decode: a token differs outside the argmax band")
+    return int(want.shape[0]), int(near.sum())
+
+
+def mesh_decode_check(device, seed: int) -> dict:
+    """(c) TinyLlama-1.1B f32 on MESH_SHAPE: the decode CellStep (dense
+    cache) against the one-card CellStep over MESH_DECODE's steps; the
+    paged prefill (row 22) and decode step (row 21) run as each data
+    shard's program on its slots against the one-card steps on all; the
+    prefill CellStep with the flash forward (row 20) on the mesh against
+    the one-card one.  Logits and pools within 1e-4, tokens equal outside
+    the 1e-3 argmax band; each data shard's launches read from
+    ``LAUNCHES.scoped_counts()``."""
+    import torch
+
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.kernels._build import LAUNCHES
+    from repro_torch.launch import spmd
+    from repro_torch.launch.mesh import make_one_card_mesh
+    from repro_torch.launch.steps import jit_for_cell
+    from repro_torch.models import decode_step_paged, init_cache, init_paged_cache, init_params, prefill_paged
+
+    B, S, steps = MESH_DECODE
+    cfg = _train_cfg(None, "float32")
+    mesh, one = _mesh(MESH_SHAPE, device), make_one_card_mesh(device)
+    params = init_params(seed, cfg, device=device)
+    placed = spmd.place_params(cfg, params, mesh)
+    g = torch.Generator(device=device).manual_seed(seed)
+    pos = torch.randint(0, S - steps - 1, (B,), generator=g, device=device, dtype=torch.int32)
+    tok = torch.randint(0, cfg.vocab_size, (B, 1), generator=g, device=device, dtype=torch.int32)
+    shape = ShapeSpec(f"decode_{B}x{S}", S, B, "decode")
+    cell1, cellm = jit_for_cell(cfg, shape, one), jit_for_cell(cfg, shape, mesh)
+    c1, cm = init_cache(cfg, B, S, device=device), init_cache(cfg, B, S, device=device)
+    diff, checked, in_band = 0.0, 0, 0
+    for _ in range(steps):
+        want, c1 = cell1(params, tok, c1, pos)
+        got, cm = cellm(placed, tok, cm, pos)
+        diff = max(diff, float((got - want).abs().max()))
+        n, near = _band_equal(got, want, GATE_BAND)
+        checked, in_band = checked + n, in_band + near
+        tok, pos = want.argmax(-1, keepdim=True).to(torch.int32), pos + 1
+    cache_diff = max(float((a - b).abs().max()) for a, b in zip(c1["blocks"].values(), cm["blocks"].values()))
+    out = {"cell": {"B": B, "S": S, "steps": steps, "max_abs_diff": diff, "cache_max_abs_diff": cache_diff,
+                    "tokens": checked, "in_band": in_band}}
+    check(diff <= 1e-4, f"mesh decode cell: logits differ by {diff:.2e}")
+    check(cache_diff <= 1e-4, f"mesh decode cell: caches differ by {cache_diff:.2e}")
+    del c1, cm
+    # the paged steps (rows 22 and 21): each data shard's program prefills
+    # its slots' prompts, then decodes a token, over its slots' pages of one
+    # pool (a slot's pages are its own)
+    ps, T = 16, MESH_PAGED_PROMPT
+    mp = S // ps
+    n_new = torch.randint(T // 4, T + 1, (B,), generator=g, device=device, dtype=torch.int32)
+    prompt = torch.randint(0, cfg.vocab_size, (B, T), generator=g, device=device, dtype=torch.int32)
+    pos0 = torch.zeros(B, dtype=torch.int32, device=device)
+    table = (1 + torch.arange(B * mp, device=device, dtype=torch.int32)).reshape(B, mp)
+    nxt = prompt.gather(1, (n_new.long() - 1)[:, None])
+    pool, pool_m = init_paged_cache(cfg, 1 + B * mp, ps, device=device), init_paged_cache(cfg, 1 + B * mp, ps,
+                                                                                          device=device)
+    prefill_paged(params, prompt, pool, pos0, n_new, table, cfg, attn_impl="flash")
+    want, _ = decode_step_paged(params, nxt, pool, n_new, table, cfg, attn_impl="flash")
+    axes = ("data",)
+    coords, devices = spmd.programs(mesh, axes)
+    lms = [spmd.program_lm(cfg, nd) for nd in spmd.gather_params(cfg, placed, mesh, axes)]
+    n = len(coords)
+    rows = lambda t, i: t[i * (B // n):(i + 1) * (B // n)]  # noqa: E731
+
+    def paged(p, tk, pz, nn, tb, nx):
+        prefill_paged(p, tk, pool_m, pz, nn, tb, cfg, attn_impl="flash")
+        return decode_step_paged(p, nx, pool_m, nn, tb, cfg, attn_impl="flash")[0]
+
+    outs = mesh.run(paged, [(lms[i], rows(prompt, i), rows(pos0, i), rows(n_new, i), rows(table, i), rows(nxt, i))
+                            for i in range(n)], axes)
+    got = torch.cat(outs)
+    pdiff = float((got - want).abs().max())
+    # page 0 is the trash page: pad tokens' writes land there in any order
+    pool_diff = max(float((a[:, 1:] - b[:, 1:]).abs().max())
+                    for a, b in zip(pool["blocks"].values(), pool_m["blocks"].values()))
+    pn, pnear = _band_equal(got, want, GATE_BAND)
+    out["paged"] = {"page_size": ps, "prompt": T, "new_tokens": n_new.tolist(), "max_abs_diff": pdiff,
+                    "pool_max_abs_diff": pool_diff, "tokens": pn, "in_band": pnear}
+    check(pdiff <= 1e-4 and pool_diff <= 1e-4, f"mesh paged prefill + decode: logits {pdiff:.2e}, pools {pool_diff:.2e}")
+    del pool, pool_m, lms
+    # the prefill cell with the flash forward (row 20) on every data shard
+    cfgk = dataclasses.replace(cfg, use_hilbert_kernels=True)
+    pshape = ShapeSpec(f"prefill_{B}x{MESH_PREFILL}", MESH_PREFILL, B, "prefill")
+    ptok = torch.randint(0, cfg.vocab_size, (B, MESH_PREFILL), generator=g, device=device, dtype=torch.int32)
+    pw = jit_for_cell(cfgk, pshape, one)(params, {"tokens": ptok})
+    pg = jit_for_cell(cfgk, pshape, mesh)(placed, {"tokens": ptok})
+    fdiff = float((pg - pw).abs().max())
+    fn, fnear = _band_equal(pg, pw, GATE_BAND)
+    out["prefill"] = {"B": B, "S": MESH_PREFILL, "max_abs_diff": fdiff, "tokens": fn, "in_band": fnear}
+    check(fdiff <= 1e-4, f"mesh prefill cell: logits differ by {fdiff:.2e}")
+    scoped = {",".join(f"{a}={c}" for a, c in key): counts for key, counts in LAUNCHES.scoped_counts().items()}
+    rows_launched = ("sfc_flash_prefill", "sfc_flash_decode", "sfc_flash_attention")
+    out["launches_by_data_shard"] = {k: {name: n for name, n in v.items() if name.startswith(rows_launched)}
+                                     for k, v in scoped.items()}
+    for c in coords:
+        k = ",".join(f"{a}={i}" for a, i in zip(axes, c))
+        got_l = out["launches_by_data_shard"].get(k, {})
+        check(all(got_l.get(name, 0) > 0 for name in rows_launched),
+              f"mesh: data shard {k} did not launch each of rows 22, 21, 20: {got_l}")
+    del params, placed
+    free_cuda()
+    return out
+
+
+def mesh_path(device, seed: int) -> dict:
+    """Phase 12: (a) TinyLlama-1.1B's Trainer step on a MESH_SHAPE mesh of
+    the one card against the one-card Trainer (bf16 at full size, and the
+    f32 gate at MESH_GATE_LAYERS layers), the reshards; (b) OLMoE's EP
+    forward and a bf16 step; (c) the decode and prefill cells; (d) the
+    times, ledger and peak, beside the card's name and power limit.  With
+    every position on one card these are the cost of the single-controller
+    layout, not NVLink's."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels._build import LAUNCHES
+
+    t_phase = time.perf_counter()
+    free_cuda()
+    LAUNCHES.reset()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        train = mesh_train_check(device, seed, "bfloat16", None, tmp)
+        free_cuda()
+        peak_a = torch.cuda.max_memory_allocated() - held
+        log("mesh train tinyllama: " + json.dumps({**train, "peak_allocated_bytes": peak_a,
+                                                   "peak_predicted_bytes": MESH_PEAK_PREDICTED}))
+        gate = mesh_train_check(device, seed, "float32", MESH_GATE_LAYERS, tmp)
+        free_cuda()
+        log("check mesh train f32 gate: " + json.dumps(gate))
+    moe = mesh_moe_check(device, seed)
+    log("mesh moe olmoe: " + json.dumps(moe))
+    dec = mesh_decode_check(device, seed)
+    log("mesh decode tinyllama: " + json.dumps(dec))
+    out = {"card": card_line(), "layout": "one card, its devices repeated: the single-controller layout's "
+                                          "cost, not NVLink's",
+           "warm_step": train["warm_step"], "warm_step_parts_s": train["warm_step_parts_s"],
+           "ledger_by_primitive": train["ledger"],
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated() - held, "train_peak_bytes": peak_a,
+           "peak_predicted_bytes": MESH_PEAK_PREDICTED, "held_before_bytes": held,
+           "launches_by_data_shard": dec["launches_by_data_shard"]}
+    log("mesh: " + json.dumps(out))
+    log(f"mesh phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"train": train, "gate": gate, "moe": moe, "decode": dec, **out}
 
 
 def cholesky_errors(a, L) -> dict:
@@ -5937,6 +6365,7 @@ def main() -> int:
     autotune_path(device, args.seed, ctx)
     del ctx
     dryrun_path(device, args.seed, {cell_name(*train_cell): train_rec})
+    mesh_path(device, args.seed)
     log(f"chip_smoke: {time.perf_counter() - t0:.1f} s, the build included")
     log("slowest waits between log lines (s, the line that ended each): " + json.dumps(TIMELINE.slowest(40)))
     log(json.dumps(result))

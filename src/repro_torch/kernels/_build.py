@@ -17,6 +17,7 @@ and counts the launch.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -24,6 +25,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -114,19 +116,46 @@ class LaunchCounter:
 
     ``reset()`` before a run, read ``counts()`` (per entry point) and
     ``cores()`` (``"sfc_matmul.wgmma"``, ...) after it: a kernel with a
-    count of 0 did not run on the device.
+    count of 0 did not run on the device.  Launches made inside
+    ``scoped(key)`` (a thread's block: a mesh program's) are also counted
+    under ``key`` (``scoped_counts()``).  Thread-safe: the programs of a
+    mesh launch from threads of their own.
     """
 
     def __init__(self):
         self._n: collections.Counter = collections.Counter()
+        self._scoped: dict = {}
+        self._lock = threading.Lock()
+        self._local = threading.local()
 
     def add(self, name: str, core: str | None = None) -> None:
-        self._n[name] += 1
-        if core is not None:
-            self._n[f"{name}.{core}"] += 1
+        keys = [name] if core is None else [name, f"{name}.{core}"]
+        scope = getattr(self._local, "key", None)
+        with self._lock:
+            self._n.update(keys)
+            if scope is not None:
+                self._scoped.setdefault(scope, collections.Counter()).update(keys)
+
+    @contextlib.contextmanager
+    def scoped(self, key):
+        """Count this thread's launches in the block under ``key`` too."""
+        old = getattr(self._local, "key", None)
+        self._local.key = key
+        try:
+            yield
+        finally:
+            self._local.key = old
+
+    def scoped_counts(self) -> dict:
+        """{key: {name or "name.core": launches}} of the scopes since the
+        last reset."""
+        with self._lock:
+            return {k: dict(c) for k, c in self._scoped.items()}
 
     def reset(self) -> None:
-        self._n.clear()
+        with self._lock:
+            self._n.clear()
+            self._scoped.clear()
 
     def counts(self) -> dict[str, int]:
         return {name: int(self._n[name]) for name in SIGNATURES}

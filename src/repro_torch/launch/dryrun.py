@@ -34,8 +34,9 @@ the state's per-device bytes are exact, from the shard shapes of
 over the dp axes that ``resolve_spec`` keeps); the compute term divides
 its FLOPs by the "model" axis where the policy shards matrices over it,
 and its temporaries are not split over "model" (an upper bound); the
-collective term is ``None``: no process group exists to record one
-(ROADMAP.md's Queue A item 10).  Nothing here imports JAX or sets
+collective term is ``None``: the trace on ``meta`` runs one device's step
+and records no collective (pricing the mesh step's collectives is
+ROADMAP.md's Queue A item 10).  Nothing here imports JAX or sets
 ``XLA_FLAGS``.
 """
 from __future__ import annotations
@@ -57,7 +58,6 @@ from torch.utils.flop_counter import flop_registry
 from repro_torch.configs import ARCHS, SHAPES, ShapeSpec, get_config, skip_reason
 from repro_torch.launch.mesh import make_one_card_mesh, make_production_mesh
 from repro_torch.launch.steps import (
-    _MULTI_CARD,
     _axis_sizes,
     _tensors,
     batch_specs,
@@ -72,6 +72,9 @@ __all__ = ["StepTrace", "main", "run_cell"]
 
 ALLOC_GRANULE = 512  # bytes: the CUDA caching allocator rounds each block up to this
 _NO_WRITE = frozenset({"empty", "empty_like", "empty_strided", "new_empty", "new_empty_strided"})
+
+_NO_COLLECTIVES = ("the trace records no collective; the mesh step's collectives are not priced here yet "
+                   "(ROADMAP.md's Queue A item 10)")
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -200,7 +203,7 @@ def _production_trace(cfg, shape: ShapeSpec, mesh, policy: str) -> tuple[dict, l
         f"step traced at the local batch {local.global_batch} of {shape.global_batch}; its FLOPs over "
         f"the model axis ({split})",
         f"temporaries ({temporaries / 2**30:.2f} GiB) not split over 'model': an upper bound",
-        f"collective term None: {_MULTI_CARD}",
+        f"collective term None: {_NO_COLLECTIVES}",
     ]
     return {**tr, "flops": sum(flops.values()), "flops_by_dtype": flops,
             "peak_bytes": shard_bytes + temporaries, "argument_bytes": shard_bytes,

@@ -24,28 +24,50 @@ a ring all-reduce, twice the operand), plus what a caller replicates
 with :meth:`AppMesh.broadcast` — the counterpart of a ``P(None, None)``
 operand, which moves bytes without a collective.
 
+A :class:`DeviceMesh` is the counterpart of ``jax.make_mesh(shape,
+axes)`` for training and serving steps: named axes over an object array
+of ``torch.device``\\ s (``make_mesh``; a device may repeat, so a
+("data", "model") mesh of ``[cuda:0] * 8`` runs on one card and
+``["cpu"] * 8`` on the CPU).  A tensor on it is a
+:class:`~repro_torch.launch.steps.Placed`: one part per position.  Its
+collectives run over one or more named axes (``all_gather``, ``psum``,
+``psum_scatter``, ``pmax``) on such parts, and :meth:`DeviceMesh.run`
+runs one program per position along the batch axes, each in a thread,
+meeting at the collectives of
+:func:`~repro_torch.models.sharding.program_psum` and its kin.  A
+``psum_scatter`` is priced as the reduce-scatter half of the ring,
+(n - 1)/n of the operand, and entered as JAX's ``reduce_scatter``
+primitive; ``pmax`` as an all-reduce.  A collective over axes of size 1
+moves nothing and is not entered.  The same code runs a mesh of several
+cards; one process per card over NCCL is not needed to compute what the
+JAX package's single-controller mesh computes.
+
 ``hilbert_grid_permutation`` and ``mesh_axis_sizes`` are the JAX
 module's numpy helpers.  ``make_production_mesh`` describes the JAX
 package's 16 x 16 ("data", "model") and 2 x 16 x 16 ("pod", "data",
 "model") meshes as a :class:`LogicalMesh` of ranks: 256 or 512 H100s
-described, not opened (no process group; a mesh across cards is
-ROADMAP.md's Queue A item 10).  ``make_one_card_mesh`` is the same axes
-shaped (1, 1) on one card: the mesh the dry run measures the card on.
+described, not opened, for the dry run's traces (``make_mesh`` with the
+same shape and axes opens one over the cards present, repeated).
+``make_one_card_mesh`` is the same axes shaped (1, 1) on one card: the
+mesh the dry run measures the card on.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 
 import numpy as np
 import torch
 
 __all__ = [
     "AppMesh",
+    "DeviceMesh",
     "LogicalMesh",
     "VolumeLedger",
     "hilbert_grid_permutation",
     "make_app_mesh",
+    "make_mesh",
     "make_one_card_mesh",
     "make_production_mesh",
     "mesh_axis_sizes",
@@ -261,3 +283,207 @@ def make_app_mesh(num_devices: int | None = None, *, axis: str = "shards", devic
     if n <= 0 or n > len(devs):
         raise ValueError(f"num_devices={num_devices} out of range (have {len(devs)})")
     return AppMesh(tuple(devs[:n]), axis)
+
+
+# ---------------------------------------------------------------------------
+# the device mesh of training and serving steps
+# ---------------------------------------------------------------------------
+
+def _axes(axes) -> tuple:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+@dataclasses.dataclass(eq=False)
+class DeviceMesh:
+    """Named axes over an object array of ``torch.device``\\ s (a device
+    may repeat), and the ledger of its collectives.
+
+    A collective takes ``parts``, an object array of the mesh's shape with
+    one tensor per position on that position's device, and returns such an
+    array.  Its groups are the positions that differ only along ``axes``,
+    ordered row-major along them in the order given.  A result equal for
+    several positions on one device is one tensor (made once)."""
+
+    axis_names: tuple
+    devices: np.ndarray
+    volume: VolumeLedger = dataclasses.field(default_factory=VolumeLedger)
+
+    @property
+    def shape(self) -> tuple:
+        return tuple(self.devices.shape)
+
+    @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+    def axis_size(self, axes) -> int:
+        sizes = mesh_axis_sizes(self)
+        return int(np.prod([sizes[a] for a in _axes(axes)], dtype=np.int64))
+
+    @contextlib.contextmanager
+    def recording(self):
+        """A fresh :class:`VolumeLedger` for the calls inside the block."""
+        outer, self.volume = self.volume, VolumeLedger()
+        try:
+            yield self.volume
+        finally:
+            self.volume = outer
+
+    def positions(self) -> list[tuple]:
+        return list(np.ndindex(*self.shape))
+
+    def index_along(self, pos: tuple, axes) -> int:
+        """The row-major index of position ``pos`` along ``axes``."""
+        sizes, idx = mesh_axis_sizes(self), 0
+        for a in _axes(axes):
+            idx = idx * sizes[a] + pos[self.axis_names.index(a)]
+        return idx
+
+    def position(self, axes, coord) -> tuple:
+        """The position at ``coord`` along ``axes``, index 0 on the others."""
+        pos = [0] * len(self.shape)
+        for a, c in zip(_axes(axes), coord):
+            pos[self.axis_names.index(a)] = int(c)
+        return tuple(pos)
+
+    def groups(self, axes) -> list[list[tuple]]:
+        """The positions grouped by their coordinates off ``axes``, each
+        group ordered row-major along ``axes``."""
+        axes = _axes(axes)
+        out: dict = {}
+        for pos in self.positions():
+            key = tuple(c for a, c in zip(self.axis_names, pos) if a not in axes)
+            out.setdefault(key, []).append(pos)
+        return [sorted(g, key=lambda p: self.index_along(p, axes)) for g in out.values()]
+
+    def _collective(self, parts, axes, prim: str, price, combine, scatter: bool = False) -> np.ndarray:
+        """``combine(values, j, device)`` for member ``j`` of each group,
+        made once per (operands, device) and, for a scatter, member."""
+        axes = _axes(axes)
+        n = self.axis_size(axes)
+        out = np.empty(self.shape, dtype=object)
+        made: dict = {}
+        for group in self.groups(axes):
+            vals = [parts[p] for p in group]
+            for j, p in enumerate(group):
+                dev = self.devices[p]
+                key = (tuple(map(id, vals)), j if scatter else None, dev)
+                if key not in made:
+                    made[key] = combine(vals, j, dev)
+                out[p] = made[key]
+        if n > 1:
+            first = parts[self.positions()[0]]
+            self.volume.add(prim, price(n, _nbytes(first)))
+        return out
+
+    def all_gather(self, parts, axes, dim: int = 0) -> np.ndarray:
+        """Every member's part concatenated along ``dim`` in member order.
+        Priced as what a position receives: (n - 1) parts."""
+        return self._collective(parts, axes, "all_gather", lambda n, b: (n - 1) * b,
+                                lambda vals, j, dev: torch.cat([v.to(dev) for v in vals], dim))
+
+    def psum(self, parts, axes) -> np.ndarray:
+        """The members' sum, added in member order.  A ring all-reduce:
+        twice the operand."""
+        return self._collective(parts, axes, "psum", lambda n, b: 2 * b, _sum)
+
+    def pmax(self, parts, axes) -> np.ndarray:
+        """The members' elementwise max (an all-reduce: twice the operand)."""
+        return self._collective(parts, axes, "pmax", lambda n, b: 2 * b, _max)
+
+    def psum_scatter(self, parts, axes, dim: int = 0) -> np.ndarray:
+        """The members' sum (in member order) cut along ``dim`` into n
+        equal blocks, member ``j`` keeping block ``j``: JAX's
+        ``psum_scatter(..., tiled=True)``, priced as its ``reduce_scatter``
+        primitive, (n - 1)/n of the operand."""
+        totals: dict = {}
+
+        def block(vals, j, dev):
+            key = (tuple(map(id, vals)), dev)
+            if key not in totals:
+                totals[key] = _sum(vals, j, dev)
+            total, n = totals[key], len(vals)
+            if total.shape[dim] % n:
+                raise ValueError(f"psum_scatter: dim {dim} ({total.shape[dim]}) is not a multiple of {n}")
+            size = total.shape[dim] // n
+            return total.narrow(dim, j * size, size).clone(memory_format=torch.contiguous_format)
+
+        return self._collective(parts, axes, "reduce_scatter", lambda n, b: (n - 1) * b // n, block,
+                                scatter=True)
+
+    def run(self, fn, args: list, axes) -> list:
+        """``fn(*args[i])`` once per position along ``axes`` (row-major;
+        index 0 on the other axes), on that position's device, each call a
+        program of one :class:`~repro_torch.models.sharding.ProgramGroup`:
+        a thread of its own when there are several, with this thread's grad
+        mode.  Returns the results in program order; if a program raises,
+        the others are woken from their collectives and the first error is
+        raised here."""
+        from repro_torch.kernels._build import LAUNCHES
+        from repro_torch.models.sharding import ProgramGroup, in_program
+
+        axes = _axes(axes)
+        coords = list(np.ndindex(*[self.axis_size(a) for a in axes]))
+        if len(args) != len(coords):
+            raise ValueError(f"{len(args)} argument tuples for {len(coords)} programs along {axes}")
+        devices = [self.devices[self.position(axes, c)] for c in coords]
+        group = ProgramGroup(self, axes, coords)
+        grad = torch.is_grad_enabled()
+        results: list = [None] * len(coords)
+        errors: list = [None] * len(coords)
+
+        def work(i: int) -> None:
+            dev = devices[i]
+            on_card = torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+            try:
+                with torch.set_grad_enabled(grad), on_card, in_program(group, i), \
+                        LAUNCHES.scoped(tuple(zip(axes, coords[i]))):
+                    results[i] = fn(*args[i])
+            except BaseException as e:  # noqa: BLE001 - re-raised below, in the caller's thread
+                errors[i] = e
+                group.abort()
+
+        if len(coords) == 1:
+            work(0)
+        else:
+            threads = [threading.Thread(target=work, args=(i,), name=f"program-{i}")
+                       for i in range(len(coords))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+        failed = [e for e in errors if e is not None]
+        if failed:
+            first = [e for e in failed if not isinstance(e, threading.BrokenBarrierError)]
+            raise (first or failed)[0]
+        return results
+
+
+def _sum(vals, j, dev):
+    total = vals[0].to(dev)
+    for v in vals[1:]:
+        total = total + v.to(dev)
+    return total
+
+
+def _max(vals, j, dev):
+    total = vals[0].to(dev)
+    for v in vals[1:]:
+        total = torch.maximum(total, v.to(dev))
+    return total
+
+
+def make_mesh(shape, axes, devices=None) -> DeviceMesh:
+    """The counterpart of ``jax.make_mesh(shape, axes)``: a
+    :class:`DeviceMesh` of ``shape`` over ``devices`` (default: the visible
+    cards), taken round-robin, so that a list shorter than the mesh
+    repeats (eight positions on one card, 256 on the CPU from
+    ``["cpu"]``)."""
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"shape {shape} and axes {axes} differ in length")
+    devs = _visible_devices() if devices is None else [_device(d) for d in devices]
+    if not devs:
+        raise RuntimeError("make_mesh: no CUDA device is visible; pass devices= (e.g. ['cpu'] * 8)")
+    n = int(np.prod(shape))
+    return DeviceMesh(axes, _object_array([devs[i % len(devs)] for i in range(n)], shape))

@@ -5,8 +5,10 @@ The twin of ``python -m repro.launch.train`` (the same flags, plus
 ``--device``): trains a reduced config (the default) or, with ``--full``,
 the published one from seeded random weights on the deterministic
 synthetic stream, with checkpoints, and prints the loss curve.  Runs on
-``--device`` (default ``cuda``).  ``--mesh single|multi`` (a mesh across
-cards) is ROADMAP.md's Queue A item 10.
+``--device`` (default ``cuda``).  ``--mesh single|multi`` trains on the
+JAX package's production mesh shape, 16 x 16 ("data", "model") or 2 x 16
+x 16 ("pod", "data", "model"), opened as a ``DeviceMesh`` over the cards
+present (``--device cuda``), repeated, or over the CPU (``--device cpu``).
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import os
 import tempfile
 
 from repro_torch.configs import ARCHS, get_config, get_reduced
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import param_count_analytic
 from repro_torch.train import Trainer, TrainerConfig
 
@@ -37,10 +40,21 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
+def build_mesh(args: argparse.Namespace):
+    """The ``DeviceMesh`` of ``--mesh`` (None for ``none``): the production
+    shape over ``--device``'s devices (the visible cards for ``cuda``),
+    repeated round-robin."""
+    if args.mesh == "none":
+        return None
+    multi = args.mesh == "multi"
+    shape = (2, 16, 16) if multi else (16, 16)
+    axes = ("pod", "data", "model") if multi else ("data", "model")
+    return make_mesh(shape, axes, devices=None if args.device.startswith("cuda") and ":" not in args.device
+                     else [args.device])
+
+
 def build(args: argparse.Namespace):
     """(model config, trainer config) of the parsed flags."""
-    if args.mesh != "none":
-        raise NotImplementedError("--mesh: a mesh across cards is ROADMAP.md's Queue A item 10")
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     tcfg = TrainerConfig(
         lr=args.lr, warmup_steps=max(args.steps // 10, 1),
@@ -55,9 +69,11 @@ def build(args: argparse.Namespace):
 def main(argv=None) -> None:
     args = parse_args(argv)
     cfg, tcfg = build(args)
+    mesh = build_mesh(args)
+    where = args.device if mesh is None else f"mesh {'x'.join(map(str, mesh.shape))} of {args.device}"
     print(f"{args.arch}: {param_count_analytic(cfg)/1e6:.1f}M params "
-          f"({'reduced' if args.reduced else 'FULL'}) on {args.device}")
-    trainer = Trainer(cfg, tcfg, device=args.device)
+          f"({'reduced' if args.reduced else 'FULL'}) on {where}")
+    trainer = Trainer(cfg, tcfg, mesh=mesh, device=args.device)
     _, hist = trainer.run(args.steps)
     for h in hist[:: max(len(hist) // 10, 1)]:
         print(f"step {h['step']:5d}  loss {h['loss']:.4f}  "

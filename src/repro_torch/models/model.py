@@ -40,7 +40,7 @@ from . import attention as attn
 from . import transformer as tfm
 from .config import ModelConfig
 from .layers import Embed, RMSNorm, embed, rms_norm, specs_embed, specs_rmsnorm, unembed
-from .sharding import shard_batch, shard_logits
+from .sharding import current_program, program_psum, shard_batch, shard_logits
 
 __all__ = [
     "LM",
@@ -290,7 +290,9 @@ def forward(params: LM, batch: dict[str, Any], cfg: ModelConfig):
 def loss_fn(params: LM, batch: dict[str, Any], cfg: ModelConfig, aux_weight: float = 0.01):
     """The JAX package's loss: one-hot masked-sum cross entropy over the
     f32 logits (labels < 0 masked) plus ``aux_weight · aux``.  Returns
-    (loss, {"ce", "aux"}), f32 scalars."""
+    (loss, {"ce", "aux"}), f32 scalars.  Inside a data shard's program
+    (:mod:`.sharding`) both are the whole batch's: the masked sum and
+    count are psum'd over the programs."""
     logits, aux = forward(params, batch, cfg)
     logits = shard_logits(logits)
     labels = _on(batch["labels"], logits.device)
@@ -299,8 +301,14 @@ def loss_fn(params: LM, batch: dict[str, Any], cfg: ModelConfig, aux_weight: flo
     onehot = labels[..., None] == vocab_ids
     ll = torch.where(onehot, logp, torch.zeros((), dtype=logp.dtype, device=logp.device)).sum(dim=-1)
     mask = (labels >= 0).float()
+    num, den = (ll * mask).sum(), mask.sum()
+    if current_program() is not None:
+        # a data shard's program: the global batch's masked sum over its
+        # masked count (not a mean of the shards' means)
+        both = program_psum(torch.stack([num, den]))
+        num, den = both[0], both[1]
     # tensor by tensor, as XLA divides
-    ce = -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    ce = -num / torch.clamp(den, min=1.0)
     return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 

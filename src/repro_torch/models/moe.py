@@ -1,5 +1,5 @@
-"""Mixture-of-Experts with sort-based capacity dispatch (the JAX package's
-single-device path).
+"""Mixture-of-Experts with sort-based capacity dispatch, and its
+expert-parallel branch over a mesh's "model" axis.
 
 Top-k routing (OLMoE: 64 experts, top-8; DeepSeek-V2: 2 shared + 160
 routed, top-6) with the drop-on-overflow capacity discipline: the routed
@@ -18,10 +18,24 @@ meta kernel) and without a host read.
 
 The combine adds each token's kept contributions in f32 in ascending
 expert id (the order in which JAX's stable sort feeds its scatter-add),
-with no atomics: the same bits on every run.  The expert-parallel
-``shard_map`` branch of the JAX package needs a mesh over several cards
-and is not in this port: on one card the JAX function takes the branch
-ported here.
+with no atomics: the same bits on every run.
+
+On a mesh (:mod:`.sharding`'s ambient mesh) whose "model" axis divides E
+the JAX package takes its ``shard_map`` branch, and so does the port
+(:func:`expert_parallel`): for each data shard and each model rank r,
+:func:`_dispatch_compute_combine` over the shard's tokens and the rank's
+E / m experts (``e_offset = r · E / m``), the capacity from the shard's
+own token count; the ranks' partials cast to x's dtype and summed (the
+body's ``psum`` over "model"), then to f32 and back.  Inside a data
+shard's program (:class:`~repro_torch.launch.mesh.DeviceMesh`'s ``run``)
+the shard is the program's rows and its ranks run one after another; in
+the global view (a call under the ambient mesh outside a program) the
+batch is cut over the dp axes here.  The load-balance aux stays outside
+the branch and global: inside a program each expert's probability sum
+and top-1 count are ``program_psum``'d before the product.  Where the
+mesh has no "model" axis, or it does not divide E, JAX dispatches the
+whole batch's tokens with one capacity: a program gathers the layer's
+tokens from every program, dispatches them all and keeps its own rows.
 """
 from __future__ import annotations
 
@@ -34,9 +48,9 @@ from torch import nn
 
 from .config import ModelConfig
 from .layers import MLP, dense_init, matrix_spec, mlp, param, specs_mlp
-from .sharding import P
+from .sharding import P, ambient_mesh, current_program, program_all_gather, program_index, program_psum
 
-__all__ = ["MoE", "init_moe", "moe_forward", "specs_moe"]
+__all__ = ["MoE", "expert_parallel", "init_moe", "moe_forward", "specs_moe"]
 
 
 class MoE(nn.Module):
@@ -97,12 +111,21 @@ def _top_k(probs: torch.Tensor, k: int):
 
 def _router_aux(xt: torch.Tensor, router_w: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Switch-style load-balance loss over all T tokens (padding included,
-    as in the JAX package)."""
+    as in the JAX package).  Inside a data shard's program, over the whole
+    batch: each expert's probability sum and top-1 count psum'd over the
+    programs (one collective) before the product, T the programs' rows."""
     E = cfg.num_experts
     probs = torch.softmax(xt.float() @ router_w, dim=-1)
     _, top_e = _top_k(probs, cfg.top_k)
-    me = probs.mean(dim=0)
-    ce = F.one_hot(top_e[:, 0], E).float().mean(dim=0)
+    top1 = F.one_hot(top_e[:, 0], E).float()
+    prog = current_program()
+    if prog is None:
+        me = probs.mean(dim=0)
+        ce = top1.mean(dim=0)
+    else:
+        sums = program_psum(torch.cat([probs.sum(dim=0), top1.sum(dim=0)]))
+        T = xt.shape[0] * prog[0].n
+        me, ce = sums[:E] / T, sums[E:] / T
     return E * (me * ce).sum()
 
 
@@ -132,43 +155,53 @@ class DispatchPlan(NamedTuple):
 
 
 def _dispatch_plan(xt, router_w, cfg: ModelConfig, token_mask=None,
-                   lossless: bool = False) -> DispatchPlan:
-    """The JAX package's routing and drop rule: a softmax in f32, top-k
-    renormalised, the entries sorted stably by expert, an entry kept where
-    its rank in its expert's segment is below the capacity."""
+                   lossless: bool = False, e_offset: int = 0, E_local: int | None = None) -> DispatchPlan:
+    """The JAX package's routing and drop rule over the ``E_local`` experts
+    from ``e_offset`` (all E by default): a softmax in f32 over every
+    expert, top-k renormalised, the local entries sorted stably by local
+    expert id (the others, and masked tokens', after every segment), an
+    entry kept where its rank in its expert's segment is below the
+    capacity (of T tokens over all E experts)."""
     T = xt.shape[0]
     E, k = cfg.num_experts, cfg.top_k
+    E_local = E if E_local is None else E_local
     dev = xt.device
     probs = torch.softmax(xt.float() @ router_w, dim=-1)
     top_w, top_e = _top_k(probs, k)  # (T, k)
     top_w = top_w / top_w.sum(dim=-1, keepdim=True)
     cap = _capacity(T, cfg, lossless)
-    e_flat = top_e.reshape(-1)
+    e_flat = top_e.reshape(-1) - e_offset
     tok_flat = torch.arange(T, device=dev).repeat_interleave(k)
-    e_key = e_flat
+    local = None if E_local == E else (e_flat >= 0) & (e_flat < E_local)
     if token_mask is not None:
-        e_key = torch.where(token_mask[tok_flat], e_flat, torch.full_like(e_flat, E))
+        valid = token_mask[tok_flat]
+        local = valid if local is None else local & valid
+    e_key = e_flat if local is None else torch.where(local, e_flat, torch.full_like(e_flat, E_local))
     order = torch.argsort(e_key, stable=True)
     if dev.type == "meta":  # no values: the segments are cap rows each (below)
-        counts = e_key.new_empty(E + 1)
+        counts = e_key.new_empty(E_local + 1)
     else:
-        counts = torch.bincount(e_key, minlength=E + 1)
+        counts = torch.bincount(e_key, minlength=E_local + 1)
     seg_start = torch.cumsum(counts, 0) - counts
     e_sorted = e_key[order]
     rank = torch.arange(T * k, device=dev) - seg_start[e_sorted]
-    keep = (rank < cap) & (e_sorted < E)
+    keep = (rank < cap) & (e_sorted < E_local)
     return DispatchPlan(top_w, top_e, tok_flat, order, e_sorted, keep, seg_start, counts, cap)
 
 
 def _dispatch_compute_combine(xt, params: MoE, cfg: ModelConfig, token_mask=None,
-                              lossless: bool = False) -> torch.Tensor:
-    """The single-device MoE math.  xt: (T, d); token_mask: bool (T,) or
-    None (masked tokens sort past every expert: they take no capacity and
-    add nothing).  Returns (T, d) f32."""
+                              lossless: bool = False, e_offset: int = 0,
+                              E_local: int | None = None) -> torch.Tensor:
+    """The single-device MoE math over the ``E_local`` experts from
+    ``e_offset`` (all by default; one model rank's in the EP branch: the
+    other experts' entries add nothing here).  xt: (T, d); token_mask:
+    bool (T,) or None (masked tokens sort past every expert: they take no
+    capacity and add nothing).  Returns (T, d) f32."""
     T, d = xt.shape
-    E, k = cfg.num_experts, cfg.top_k
+    k = cfg.top_k
+    E_local = cfg.num_experts if E_local is None else E_local
     dev = xt.device
-    plan = _dispatch_plan(xt, params.router, cfg, token_mask, lossless)
+    plan = _dispatch_plan(xt, params.router, cfg, token_mask, lossless, e_offset, E_local)
     order, tok_flat = plan.order, plan.tok_flat
 
     # the expert products, one expert's kept segment of the sorted rows at
@@ -177,20 +210,21 @@ def _dispatch_compute_combine(xt, params: MoE, cfg: ModelConfig, token_mask=None
     if dev.type == "meta":
         # each expert a full segment of cap rows, gathered through an
         # (E·cap) index: the JAX package's (E, C, d) dispatch buffer
-        nrows = max(nrows, E * plan.cap)
-        starts, kept = [e * plan.cap for e in range(E)], [plan.cap] * E
-        seg = order.new_empty(E * plan.cap)
+        nrows = max(nrows, E_local * plan.cap)
+        starts, kept = [e * plan.cap for e in range(E_local)], [plan.cap] * E_local
+        seg = order.new_empty(E_local * plan.cap)
     else:
-        starts = plan.seg_start[:E].tolist()
-        kept = torch.clamp(plan.counts[:E], max=plan.cap).tolist()
+        starts = plan.seg_start[:E_local].tolist()
+        kept = torch.clamp(plan.counts[:E_local], max=plan.cap).tolist()
     y = torch.zeros((nrows, d), dtype=xt.dtype, device=dev)
-    for e in range(E):
+    for e in range(E_local):
         lo, n = starts[e], kept[e]
         if n == 0:
             continue
         h = xt[tok_flat[seg[lo:lo + n]]]
-        act = F.silu(h @ params.w_gate[e]) * (h @ params.w_up[e])
-        y[lo:lo + n] = act @ params.w_down[e]
+        g = e_offset + e
+        act = F.silu(h @ params.w_gate[g]) * (h @ params.w_up[g])
+        y[lo:lo + n] = act @ params.w_down[g]
     y = y[:T * k]
 
     # the combine: each entry's weighted output in xt's dtype (JAX's
@@ -208,6 +242,73 @@ def _dispatch_compute_combine(xt, params: MoE, cfg: ModelConfig, token_mask=None
     return out
 
 
+def expert_parallel(cfg: ModelConfig, mesh) -> int | None:
+    """The "model" axis size of ``mesh`` where the EP branch applies (the
+    axis exists and divides E), else None."""
+    if mesh is None or "model" not in mesh.axis_names:
+        return None
+    m = dict(zip(mesh.axis_names, mesh.devices.shape))["model"]
+    return m if cfg.num_experts % m == 0 else None
+
+
+def _record_psum(mesh, nbytes: int, ranks: int) -> None:
+    """The ranks' ``psum`` over "model", entered once in ``mesh``'s ledger
+    (by program 0 inside a program)."""
+    prog = current_program()
+    if ranks > 1 and hasattr(mesh, "volume") and (prog is None or prog[1] == 0):
+        mesh.volume.add("psum", 2 * nbytes)
+
+
+def _ep_dispatch(xt, params: MoE, cfg: ModelConfig, mask, lossless: bool, mesh, m: int,
+                 record: bool = True) -> torch.Tensor:
+    """One data shard's EP output (T, d) in f32: each model rank's
+    partial in xt's dtype, summed over the ranks (the body's psum, in
+    x.dtype), then to f32.  Where the programs run along "model" too (the
+    batch over it, "fsdp"), a program is one rank: it gathers its data
+    shard's tokens over "model", and the partials meet in a psum."""
+    E_local = cfg.num_experts // m
+    prog = current_program()
+    if prog is not None and "model" in prog[0].axes:
+        r, n = program_index(("model",))
+        T = xt.shape[0]
+        xg = program_all_gather(xt, axes=("model",))
+        mg = None if mask is None else program_all_gather(mask, axes=("model",))
+        part = _dispatch_compute_combine(xg, params, cfg, mg, lossless, r * E_local, E_local)
+        total = program_psum(part.to(xt.dtype), axes=("model",))
+        return total[r * T:(r + 1) * T].float()
+    total = None
+    for r in range(m):
+        part = _dispatch_compute_combine(xt, params, cfg, mask, lossless, r * E_local, E_local).to(xt.dtype)
+        total = part if total is None else total + part
+    if record:
+        _record_psum(mesh, total.numel() * total.element_size(), m)
+    return total.float()
+
+
+def _gathered_dispatch(xt, params: MoE, cfg: ModelConfig, mask, lossless: bool) -> torch.Tensor:
+    """Inside a program on a mesh without EP: the layer's tokens of every
+    program dispatched with one capacity (JAX's global dispatch), this
+    program's rows kept.  Each program computes every token's experts: the
+    price of the global capacity without a collective in the expert loop."""
+    T = xt.shape[0]
+    xg = program_all_gather(xt)
+    mg = None if mask is None else program_all_gather(mask)
+    i, _ = program_index(current_program()[0].axes)
+    return _dispatch_compute_combine(xg, params, cfg, mg, lossless)[i * T:(i + 1) * T]
+
+
+def _dp_parts(mesh, dp, rows: int) -> int:
+    """The data shards of the global view: the product of the dp axes
+    other than "model" (the ``shard_map``'s x spec), 1 where it does not
+    divide ``rows``."""
+    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+    n = 1
+    for a in dp:
+        if a != "model" and a in sizes:
+            n *= sizes[a]
+    return n if rows % n == 0 else 1
+
+
 def moe_forward(params: MoE, x: torch.Tensor, cfg: ModelConfig, token_mask=None,
                 lossless: bool = False):
     """x: (B, S, d) -> ((B, S, d) in x's dtype, aux f32 scalar).
@@ -215,12 +316,25 @@ def moe_forward(params: MoE, x: torch.Tensor, cfg: ModelConfig, token_mask=None,
     ``token_mask`` (bool (B, S), optional): the valid tokens (prefill pads
     are kept out of expert capacity).  ``lossless`` drops no token (the
     serving setting: a token's expert output then does not depend on the
-    dispatch's shape)."""
+    dispatch's shape).  Under an ambient mesh (module docstring): the EP
+    branch where :func:`expert_parallel` applies, else inside a program the
+    gathered tokens' dispatch."""
     B, S, d = x.shape
     xt = x.reshape(B * S, d)
     aux = _router_aux(xt, params.router, cfg)
     mask = None if token_mask is None else token_mask.reshape(B * S)
-    out = _dispatch_compute_combine(xt, params, cfg, mask, lossless).to(x.dtype)
+    mesh, dp = ambient_mesh()
+    m = None if x.device.type == "meta" else expert_parallel(cfg, mesh)
+    if m is not None:
+        n = 1 if current_program() is not None else _dp_parts(mesh, dp, B)
+        rows = [slice(i * (B * S // n), (i + 1) * (B * S // n)) for i in range(n)]
+        out = torch.cat([_ep_dispatch(xt[r], params, cfg, None if mask is None else mask[r], lossless, mesh, m,
+                                      record=i == 0) for i, r in enumerate(rows)])
+    elif current_program() is not None:
+        out = _gathered_dispatch(xt, params, cfg, mask, lossless)
+    else:
+        out = _dispatch_compute_combine(xt, params, cfg, mask, lossless)
+    out = out.to(x.dtype)
     if cfg.num_shared_experts:
         out = out + mlp(xt, params.shared, "swiglu")
     return out.reshape(B, S, d), aux

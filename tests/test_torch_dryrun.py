@@ -319,7 +319,9 @@ def test_moe_meta_route(arch):
 def test_production_mesh_cell(policy):
     """On the 16 x 16 mesh: the state's bytes from the shard shapes, the
     step traced at the local batch, its FLOPs over the model axis, no
-    collective term; running the step there on real tensors raises."""
+    collective term; running the step there on real tensors needs the mesh
+    opened over devices (``make_mesh``), where it matches the one-card
+    step."""
     cfg = get_reduced("tinyllama-1.1b")
     mesh = make_production_mesh()
     shape = ShapeSpec("t", 64, 32, "train")
@@ -337,12 +339,20 @@ def test_production_mesh_cell(policy):
     assert dryrun._local_batch(cfg, dataclasses.replace(shape, global_batch=256), mesh) == 1
     policy("2d")
     step = tsteps.jit_for_cell(cfg, ShapeSpec("d", 16, 32, "decode"), mesh)
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import init_cache, init_params
 
     params = init_params(0, cfg, device="cpu")
-    cache = init_cache(cfg, 32, 16, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        step(params, torch.zeros((32, 1), dtype=torch.int32), cache, torch.zeros(32, dtype=torch.int32))
+    tok, pos = torch.zeros((32, 1), dtype=torch.int32), torch.arange(32, dtype=torch.int32) % 16
+    with pytest.raises(TypeError, match="DeviceMesh"):  # a logical mesh of ranks holds no device
+        step(params, tok, init_cache(cfg, 32, 16, device="cpu"), pos)
+    # the same shape opened over the CPU: 16 data shards of 2 rows each
+    cpu_mesh = make_mesh((16, 16), ("data", "model"), devices=["cpu"])
+    got, _ = tsteps.jit_for_cell(cfg, ShapeSpec("d", 16, 32, "decode"), cpu_mesh)(
+        params, tok, init_cache(cfg, 32, 16, device="cpu"), pos)
+    want, _ = tsteps.jit_for_cell(cfg, ShapeSpec("d", 16, 32, "decode"), make_one_card_mesh("cpu"))(
+        params, tok, init_cache(cfg, 32, 16, device="cpu"), pos)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
 def test_one_card_step_runs_on_real_tensors():

@@ -121,8 +121,15 @@ def test_anchors_are_identities_without_a_mesh():
     assert ts.shard_heads(x.reshape(2, 5, 2, 4), head_axis=2).shape == (2, 5, 2, 4)
     with ts.activation_mesh(None, ("data",)):
         assert ts.shard_batch(x) is x
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ts.set_activation_mesh(object(), ("data",))
+    # under a device mesh too: a data shard's program holds only its rows
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((2, 2), ("data", "model"), devices=["cpu"])
+    with ts.activation_mesh(mesh, ("data",)):
+        assert ts.ambient_mesh() == (mesh, ("data",))
+        assert ts.shard_batch(x) is x and ts.shard_logits(x) is x and ts.shard_moe_buffer(x) is x
+        assert mesh.run(lambda t: ts.shard_batch(t) is t, [(x[:1],), (x[1:],)], ("data",)) == [True, True]
+    assert ts.ambient_mesh() == (None, ())
 
 
 @pytest.mark.parametrize("arch", sorted(ARCHS))

@@ -310,12 +310,24 @@ def test_trainer_matches_jax_over_8_steps(tmp_path, arch, accum):
 
 
 def test_trainer_refuses_a_mesh(tmp_path):
+    """A mesh is a ``DeviceMesh`` (``make_mesh``; the mesh step itself is
+    held to JAX in ``test_torch_mesh_train.py``): anything else is refused,
+    by the constructor and by ``reshard``; a one-card state reshards onto
+    a mesh bit for bit."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import gather
+
     cfg = get_reduced("tinyllama-1.1b", **TINY)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         Trainer(cfg, TrainerConfig(ckpt_dir=str(tmp_path)), mesh=object(), device="cpu")
     tr = Trainer(cfg, TrainerConfig(ckpt_dir=str(tmp_path)), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tr.reshard({}, object())
+    state = tr.init_state(0)
+    placed = tr.reshard(state, make_mesh((2, 2), ("data", "model"), devices=["cpu"]))
+    assert tr.mesh.shape == (2, 2) and tr.device == torch.device("cpu")
+    for n, p in state["params"].named_parameters():
+        assert torch.equal(gather(placed["params"][n], "cpu"), p)
 
 
 class TestTrainer:
@@ -423,8 +435,17 @@ def test_step_functions_match_jax():
         state, met = tsteps.make_train_step(tcfg)(state, batch)
         assert float(met["loss"]) == pytest.approx(float(jmet["loss"]), rel=1e-4)
         assert float(met["grad_norm"]) == pytest.approx(float(jmet["grad_norm"]), rel=1e-4)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tsteps.make_train_step(tcfg, param_shardings={})
+    # param_shardings on a (2, 2) mesh of the CPU: the step runs there, the
+    # grads reduced onto the parameters' shards, and continues JAX's run
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((2, 2), ("data", "model"), devices=["cpu"])
+    shardings = tsteps.state_shardings(tcfg, mesh)["params"]
+    jstate, jmet = jsteps.make_train_step(jcfg)(jstate, jbatch)
+    state, met = tsteps.make_train_step(tcfg, param_shardings=shardings)(state, batch)
+    assert float(met["loss"]) == pytest.approx(float(jmet["loss"]), rel=1e-4)
+    assert float(met["grad_norm"]) == pytest.approx(float(jmet["grad_norm"]), rel=1e-4)
+    assert int(state["opt"].step) == 3 and mesh.volume.counts["reduce_scatter"] > 0
 
 
 def test_train_launcher_runs_on_the_cpu(tmp_path):
