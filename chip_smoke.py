@@ -388,8 +388,13 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    outside the 1e-3 argmax band, each data shard's launches of rows 20-22
    read from ``LAUNCHES.scoped_counts()``; (d) the ``mesh:`` line: the card, the
    warm steps, the ledger by primitive, the peak against
-   MESH_PEAK_PREDICTED.  With every position on one card these are the
-   single-controller layout's costs, not NVLink's.
+   MESH_PEAK_PREDICTED; (e) the dry run's trace of (a)'s and (b)'s steps
+   on ``meta`` meshes of the same shape (``launch.dryrun.mesh_trace``),
+   each ledger equal to the card's step's, calls and bytes per primitive,
+   and the ``mesh dryrun:`` line: (a)'s collective term at NVLink's 450
+   GB/s (a data-sheet prediction), the trace seconds, the card.  With
+   every position on one card these are the single-controller layout's
+   costs, not NVLink's.
 
 The second-to-last line of output is one JSON object ``{"kernels": [...]}``,
 the last ``{"ok": true, "device": {...}}``.  ``--quick`` runs phases 1-2
@@ -5843,6 +5848,41 @@ def mesh_moe_check(device, seed: int) -> dict:
     return out
 
 
+def mesh_dryrun_check(train: dict, moe: dict) -> dict:
+    """(e) The dry run's trace (``launch.dryrun.mesh_trace``: the cell's
+    step on a mesh of ``meta`` devices, program 0 standing for the others)
+    of (a)'s TinyLlama step and (b)'s OLMoE step on MESH_SHAPE: each
+    ledger equal to the one the card's step recorded, calls and bytes per
+    primitive, exactly; and the collective term of (a)'s step at NVLink's
+    450 GB/s, a prediction from the data sheet (nothing crosses cards on
+    this machine), beside the card's name and power limit."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import LogicalMesh
+    from repro_torch.roofline.analysis import LINK_BW, collective_bytes
+
+    logical = LogicalMesh(("data", "model"), np.arange(int(np.prod(MESH_SHAPE))).reshape(MESH_SHAPE))
+    out = {"mesh": list(MESH_SHAPE), "card": card_line(),
+           "prediction": f"data sheet: NVLink 4 at {LINK_BW / 1e9:.0f} GB/s a direction; nothing crosses "
+                         "cards on this machine"}
+    (B, S), (ob, os_) = MESH_TRAIN, MESH_OLMOE_BATCH
+    cells = (("tinyllama", _train_cfg(None, "bfloat16"), ShapeSpec(f"train_{B}x{S}", S, B, "train"), train["ledger"]),
+             ("olmoe", _olmoe_mesh_cfg("bfloat16"), ShapeSpec(f"train_{ob}x{os_}", os_, ob, "train"),
+              moe["step_ledger"]))
+    for name, cfg, shape, card in cells:
+        rec, _ = dryrun.mesh_trace(cfg, shape, logical)
+        ledger, hlo = rec["ledger"], collective_bytes(rec["collectives"])
+        ring = sum(ledger["bytes"].values())
+        out[name] = {"counts": ledger["counts"], "bytes": ledger["bytes"], "ring_bytes": ring,
+                     "ring_ms": 1e3 * ring / LINK_BW, "hlo_bytes": hlo["total"],
+                     "t_collective_ms": 1e3 * hlo["total"] / LINK_BW, "trace_s": rec["trace_s"],
+                     "mesh_trace_s": rec["mesh_trace_s"],
+                     "equal_to_card": ledger["counts"] == card["counts"] and ledger["bytes"] == card["bytes"]}
+        check(out[name]["equal_to_card"], f"mesh dryrun {name}: the meta ledger {ledger['counts']} "
+              f"{ledger['bytes']} differs from the card's {card['counts']} {card['bytes']}")
+    return out
+
+
 def _band_equal(got, want, band: float) -> tuple[int, int]:
     """(positions, positions in the band): the argmaxes must agree outside
     the top-2 margin band."""
@@ -5962,7 +6002,8 @@ def mesh_path(device, seed: int) -> dict:
     """Phase 12: (a) TinyLlama-1.1B's Trainer step on a MESH_SHAPE mesh of
     the one card against the one-card Trainer (bf16 at full size, and the
     f32 gate at MESH_GATE_LAYERS layers), the reshards; (b) OLMoE's EP
-    forward and a bf16 step; (c) the decode and prefill cells; (d) the
+    forward and a bf16 step; (e) the dry run's ledgers of (a)'s and (b)'s
+    steps against the card's; (c) the decode and prefill cells; (d) the
     times, ledger and peak, beside the card's name and power limit.  With
     every position on one card these are the cost of the single-controller
     layout, not NVLink's."""
@@ -5988,6 +6029,8 @@ def mesh_path(device, seed: int) -> dict:
         log("check mesh train f32 gate: " + json.dumps(gate))
     moe = mesh_moe_check(device, seed)
     log("mesh moe olmoe: " + json.dumps(moe))
+    dry = mesh_dryrun_check(train, moe)
+    log("mesh dryrun: " + json.dumps(dry))
     dec = mesh_decode_check(device, seed)
     log("mesh decode tinyllama: " + json.dumps(dec))
     out = {"card": card_line(), "layout": "one card, its devices repeated: the single-controller layout's "
@@ -5999,7 +6042,7 @@ def mesh_path(device, seed: int) -> dict:
            "launches_by_data_shard": dec["launches_by_data_shard"]}
     log("mesh: " + json.dumps(out))
     log(f"mesh phase: {time.perf_counter() - t_phase:.1f} s")
-    return {"train": train, "gate": gate, "moe": moe, "decode": dec, **out}
+    return {"train": train, "gate": gate, "moe": moe, "dryrun": dry, "decode": dec, **out}
 
 
 def cholesky_errors(a, L) -> dict:

@@ -29,15 +29,20 @@ says so.  No depth extrapolation is needed (no scan hides a layer).
 On the one-card mesh (``--one-card``: ("data", "model") shaped (1, 1))
 every number is the trace's and the collective term is 0.  On the
 production meshes (16 x 16, 2 x 16 x 16 of H100s, described, not opened)
-the state's per-device bytes are exact, from the shard shapes of
-``shard_tree``; the step is traced at the local batch (the global batch
-over the dp axes that ``resolve_spec`` keeps); the compute term divides
-its FLOPs by the "model" axis where the policy shards matrices over it,
-and its temporaries are not split over "model" (an upper bound); the
-collective term is ``None``: the trace on ``meta`` runs one device's step
-and records no collective (pricing the mesh step's collectives is
-ROADMAP.md's Queue A item 10).  Nothing here imports JAX or sets
-``XLA_FLAGS``.
+the record prices the port's one mesh program (``launch/spmd.py``): the
+cell's step runs through ``spmd.run_cell`` on a ``DeviceMesh`` of
+``meta`` devices of the production shape (:func:`mesh_trace`), where
+``DeviceMesh.run`` runs program 0 alone for all of them.  Each program
+is one data shard's rows at model index 0, on the parameters gathered
+whole onto its device; a train step reduce-scatters the grads onto the
+shards.  The compute term is a program's FLOPs (nothing of a matrix is
+split over "model"; the MoE's EP branch splits the experts where the
+programs run along "model"), the peak is the position's shards, the
+program's rows, the gathered parameters and the program's temporaries,
+and the collective term is the mesh's ``VolumeLedger`` (``records``: each
+call as the HLO collective the JAX package parses, at NVLink's 450 GB/s).
+AdamW moves nothing between positions and is left out of the traced
+step.  Nothing here imports JAX or sets ``XLA_FLAGS``.
 """
 from __future__ import annotations
 
@@ -52,13 +57,15 @@ import weakref
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_leaves
+from torch.utils._pytree import tree_leaves, tree_map
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.configs import ARCHS, SHAPES, ShapeSpec, get_config, skip_reason
-from repro_torch.launch.mesh import make_one_card_mesh, make_production_mesh
+from repro_torch.launch import spmd
+from repro_torch.launch.mesh import make_mesh, make_one_card_mesh, make_production_mesh
 from repro_torch.launch.steps import (
     _axis_sizes,
+    _dp_axes,
     _tensors,
     batch_specs,
     input_specs,
@@ -66,15 +73,22 @@ from repro_torch.launch.steps import (
     resolve_spec,
     shard_leaves,
 )
-from repro_torch.roofline.analysis import HBM_BW, analyze_cell, cost_record, roofline_report
+from repro_torch.models import named_params
+from repro_torch.models.moe import expert_parallel
+from repro_torch.models.sharding import current_program
+from repro_torch.roofline.analysis import (
+    HBM_BW,
+    LINK_BW,
+    analyze_cell,
+    collective_bytes,
+    cost_record,
+    roofline_report,
+)
 
-__all__ = ["StepTrace", "main", "run_cell"]
+__all__ = ["StepTrace", "main", "mesh_trace", "run_cell"]
 
 ALLOC_GRANULE = 512  # bytes: the CUDA caching allocator rounds each block up to this
 _NO_WRITE = frozenset({"empty", "empty_like", "empty_strided", "new_empty", "new_empty_strided"})
-
-_NO_COLLECTIVES = ("the trace records no collective; the mesh step's collectives are not priced here yet "
-                   "(ROADMAP.md's Queue A item 10)")
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -85,11 +99,44 @@ def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
 
+class _Made(tuple):
+    """(shape, stride, dtype) of a ``meta`` output, to make it again."""
+
+
+def _meta_key(x):
+    """The part of an op's argument that a ``meta`` kernel's result
+    depends on: a tensor's dtype, shape, strides, offset and whether it is
+    on ``meta``; any other value with its type (1 and 1.0 differ)."""
+    if isinstance(x, torch.Tensor):
+        return (x.dtype, x.shape, x.stride(), x.storage_offset(), x.is_meta)
+    if isinstance(x, (list, tuple)):
+        return (type(x), tuple(_meta_key(v) for v in x))
+    if isinstance(x, dict):
+        return (dict, tuple((k, _meta_key(v)) for k, v in x.items()))
+    return (type(x), x)
+
+
+def _remake(x):
+    return torch.empty_strided(x[0], x[1], dtype=x[2], device="meta") if isinstance(x, _Made) else x
+
+
 class StepTrace(TorchDispatchMode):
     """Every aten op run on ``device`` inside the block: FLOPs of the
     products by operand dtype, bytes accessed, and live bytes by storage
     with their peak.  :meth:`hold` counts tensors made before the block
-    (the step's arguments) as live."""
+    (the step's arguments) as live.
+
+    The ops of a mesh program (run inside one: ``models.sharding.
+    current_program``) and of the backward are also counted apart, in
+    ``program_flops_by_dtype``, ``program_bytes``, ``program_live`` and
+    ``program_peak`` (the storages such an op makes, until they are
+    freed): on ``meta`` a mesh runs its program 0 alone
+    (``DeviceMesh.run``), so these are one program's device's.
+
+    On ``meta`` the result of an op that neither writes nor aliases its
+    inputs is made from the metadata that the same op gave for inputs of
+    the same metadata before: torch's ``meta`` kernels are Python, and a
+    mesh step's controller runs its ops on every position's parts."""
 
     def __init__(self, device="meta"):
         super().__init__()
@@ -99,18 +146,24 @@ class StepTrace(TorchDispatchMode):
         self.ops = 0
         self.live = 0
         self.peak = 0
+        self.program_flops_by_dtype: dict[str, int] = {}
+        self.program_bytes = 0
+        self.program_live = 0
+        self.program_peak = 0
         self._storages: dict[int, weakref.ref] = {}
+        self._memo: dict = {}
+        self._functional: dict = {}
 
     def hold(self, tree) -> int:
         """Count the tensors of ``tree`` (dicts, lists, tuples, modules)
         as live; returns their bytes."""
         before = self.live
         for t in _tensors(tree):
-            self._track(t)
+            self._track(t, False)
         self.peak = max(self.peak, self.live)
         return self.live - before
 
-    def _track(self, t: torch.Tensor) -> None:
+    def _track(self, t: torch.Tensor, program: bool) -> None:
         if t.device != self.device:
             return
         st = t.untyped_storage()
@@ -119,32 +172,69 @@ class StepTrace(TorchDispatchMode):
             return
         n = -(-st.nbytes() // ALLOC_GRANULE) * ALLOC_GRANULE
         self.live += n
-        self._storages[key] = weakref.ref(st, functools.partial(self._free, key, n))
+        if program:
+            self.program_live += n
+        self._storages[key] = weakref.ref(st, functools.partial(self._free, key, n, program))
 
-    def _free(self, key: int, n: int, _ref) -> None:
+    def _free(self, key: int, n: int, program: bool, _ref) -> None:
         self.live -= n
+        if program:
+            self.program_live -= n
         self._storages.pop(key, None)
+
+    def _run(self, func, args, kwargs):
+        """``func(*args, **kwargs)``, or on ``meta`` its remembered result."""
+        functional = self._functional.get(func)
+        if functional is None:
+            schema = func._schema
+            functional = self._functional[func] = not schema.is_mutable and all(
+                r.alias_info is None for r in schema.returns)
+        if not functional or self.device.type != "meta":
+            return func(*args, **kwargs)
+        try:
+            key = (func, _meta_key(args), _meta_key(kwargs))
+            made = self._memo.get(key)
+        except TypeError:  # an unhashable argument
+            return func(*args, **kwargs)
+        if made is not None:
+            return tree_map(_remake, made)
+        out = func(*args, **kwargs)
+        outs = tree_leaves(out)
+        ins = {t.untyped_storage()._cdata for t in tree_leaves((args, kwargs)) if isinstance(t, torch.Tensor)}
+        if any(isinstance(t, torch.Tensor) and t.untyped_storage()._cdata in ins for t in outs):
+            self._functional[func] = False  # an alias its schema does not declare (``_unsafe_view``)
+        elif all(t is None or isinstance(t, torch.Tensor) and t.is_meta for t in outs):
+            self._memo[key] = tree_map(
+                lambda t: _Made((t.shape, t.stride(), t.dtype)) if isinstance(t, torch.Tensor) else t, out)
+        return out
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        out = func(*args, **kwargs)
+        out = self._run(func, args, kwargs)
         ins = [t for t in tree_leaves((args, kwargs)) if isinstance(t, torch.Tensor)]
         outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
         if not any(t.device == self.device for t in ins + outs):
             return out
+        program = current_program() is not None or torch._C._current_graph_task_id() != -1
         self.ops += 1
         packet = func._overloadpacket
         if packet in flop_registry:
             dt = _dtype_name(next(t for t in ins if t.is_floating_point()).dtype)
-            self.flops_by_dtype[dt] = self.flops_by_dtype.get(dt, 0) + int(
-                flop_registry[packet](*args, **kwargs, out_val=out))
+            flops = int(flop_registry[packet](*args, **kwargs, out_val=out))
+            self.flops_by_dtype[dt] = self.flops_by_dtype.get(dt, 0) + flops
+            if program:
+                self.program_flops_by_dtype[dt] = self.program_flops_by_dtype.get(dt, 0) + flops
         if not func.is_view:
             here = [t for t in ins if t.device == self.device]
             written = 0 if packet.__name__ in _NO_WRITE else sum(_nbytes(t) for t in outs if t.device == self.device)
-            self.bytes += sum(map(_nbytes, here)) + written
+            nbytes = sum(map(_nbytes, here)) + written
+            self.bytes += nbytes
+            if program:
+                self.program_bytes += nbytes
         for t in outs:
-            self._track(t)
+            self._track(t, program)
         self.peak = max(self.peak, self.live)
+        self.program_peak = max(self.program_peak, self.program_live)
         return out
 
 
@@ -188,26 +278,95 @@ def _local_batch(cfg, shape: ShapeSpec, mesh) -> int:
     return shape.global_batch // split
 
 
-def _production_trace(cfg, shape: ShapeSpec, mesh, policy: str) -> tuple[dict, list[str]]:
-    """One device's record on a production mesh: the state's shard bytes
-    exact, the step traced at the local batch, its FLOPs over the "model"
-    axis where the policy shards matrices over it."""
-    shard_bytes = sum(s.nbytes for s in shard_leaves(jit_for_cell(cfg, shape, mesh).in_shardings))
-    local = dataclasses.replace(shape, global_batch=_local_batch(cfg, shape, mesh))
-    tr = _trace_cell(cfg, local, mesh)
-    split = _axis_sizes(mesh)["model"] if policy in ("2d", "tp_only") else 1
-    flops = {dt: f / split for dt, f in tr["flops_by_dtype"].items()}
-    temporaries = tr["peak_bytes"] - tr["argument_bytes"]
+def _work_split(cfg, mesh, axes: tuple) -> str:
+    """What of the step the port's programs along ``axes`` split, beyond
+    the batch's rows: nothing of a matrix over "model"; MoE experts by the
+    EP branch's rule (``models/moe.py``)."""
+    if cfg.block_kind != "moe":
+        return "no matrix is split over 'model': each program runs whole parameters"
+    if expert_parallel(cfg, mesh) is None:
+        return ("no matrix is split over 'model'; without expert parallelism each program dispatches every "
+                "program's tokens (the global capacity): the MoE's work repeated in each")
+    m = mesh.axis_size("model")
+    if "model" in axes:
+        return (f"no dense matrix is split over 'model'; the EP branch splits the experts: a program computes "
+                f"{cfg.num_experts // m} of {cfg.num_experts} on its data shard's tokens gathered over 'model'")
+    return (f"no matrix is split over 'model'; the EP branch's {m} ranks' experts all run in each program, "
+            "each rank's partial on its rows")
+
+
+def mesh_trace(cfg, shape: ShapeSpec, logical) -> tuple[dict, list[str]]:
+    """The record of the port's mesh program on a production mesh: the
+    cell's step (``spmd.run_cell``, under the active sharding policy) on a
+    ``DeviceMesh`` of ``meta`` devices of the shape and axes of
+    ``logical`` (any mesh: a ``LogicalMesh`` of ranks, or a ``DeviceMesh``
+    whose step is to be predicted), under :class:`StepTrace`, AdamW left
+    out (part by part: no collective, no product).  Program 0 runs for all
+    (``DeviceMesh.run``), so the trace's program ops are one program's
+    device's: its FLOPs are the compute term and its bytes accessed the
+    bytes; the mesh's ledger gives the collectives.  The peak is the
+    position's shards, the program's rows of the batch and cache, the
+    parameters gathered whole (one copy a device) and the program's
+    temporaries (its live bytes' peak: activations, saved tensors, its
+    grads).  ``mesh_trace_s``: placing the state on the mesh and the step;
+    ``trace_s``: the step."""
+    t0 = time.perf_counter()
+    train = shape.mode == "train"
+    mesh = make_mesh(logical.shape, logical.axis_names, devices=["meta"])
+    step = jit_for_cell(cfg, shape, mesh)
+    args = input_specs(cfg, shape)
+    params = args[0]["params"] if train else args[0]
+    shard_bytes = sum(s.nbytes for s in shard_leaves(step.in_shardings[0]))
+    gathered = sum(map(_nbytes, named_params(params).values()))
+    local = _local_batch(cfg, shape, logical)
+    programs = shape.global_batch // local
+    axes = spmd.batch_axes(mesh, _dp_axes(mesh), shape.global_batch)
+    row_bytes = sum(map(_nbytes, _tensors(args[1:]))) // programs
+    placed = spmd.place_state(cfg, args[0], mesh) if train else spmd.place_params(cfg, params, mesh)
+    tr = StepTrace("meta")
+    t1 = time.perf_counter()
+    with tr, mesh.recording() as ledger:
+        out = spmd.run_cell(step, placed, *args[1:], update=False)
+    step_s = time.perf_counter() - t1
+    del out, placed
+    flops = dict(tr.program_flops_by_dtype)
+    arguments = shard_bytes + row_bytes
+    ring = sum(ledger.bytes.values())
+    hlo = collective_bytes(ledger.records)
     notes = [
-        f"state, batch and cache bytes exact from the shard shapes ({shard_bytes / 2**30:.2f} GiB a device)",
-        f"step traced at the local batch {local.global_batch} of {shape.global_batch}; its FLOPs over "
-        f"the model axis ({split})",
-        f"temporaries ({temporaries / 2**30:.2f} GiB) not split over 'model': an upper bound",
-        f"collective term None: {_NO_COLLECTIVES}",
+        f"the port's mesh program priced: {programs} program(s), one a data shard along {axes}, each on "
+        f"{local} of the {shape.global_batch} rows at model index 0, the parameters gathered whole onto each"
+        f"{', its grads reduce-scattered onto the shards' if train else ''}; traced on a "
+        f"{'x'.join(map(str, logical.shape))} mesh of meta devices, program 0 standing for the others",
+        f"compute term: a program's FLOPs (its {'forward and backward' if train else 'step'}); "
+        f"{_work_split(cfg, mesh, axes)}",
+        f"memory term: the JAX package's analytic lower bound over the mesh's {mesh.size} cards, verbatim; a "
+        "program's own bytes accessed are hlo_bytes_per_device",
+        f"collective term: the mesh step's ledger as HLO records ({hlo['count']} calls, {hlo['total']:.0f} B "
+        f"a device); ring-priced {ring} B ({json.dumps(ledger.counts)} calls), {1e3 * ring / LINK_BW:.3f} ms at "
+        f"{LINK_BW / 1e9:.0f} GB/s",
+        f"peak: the position's shards ({shard_bytes / 2**30:.2f} GiB), the program's rows of the batch and cache "
+        f"({row_bytes / 2**30:.2f} GiB), the parameters gathered whole ({gathered / 2**30:.2f} GiB) and the "
+        f"program's temporaries ({tr.program_peak / 2**30:.2f} GiB)",
     ]
-    return {**tr, "flops": sum(flops.values()), "flops_by_dtype": flops,
-            "peak_bytes": shard_bytes + temporaries, "argument_bytes": shard_bytes,
-            "local_batch": local.global_batch}, notes
+    if train:
+        notes.append("AdamW (part by part: no collective, no product) left out of the trace: the bytes accessed "
+                     "are a program's forward and backward")
+    return {
+        "flops": sum(flops.values()),
+        "flops_by_dtype": flops,
+        "bytes": tr.program_bytes,
+        "argument_bytes": arguments,
+        "peak_bytes": arguments + gathered + tr.program_peak,
+        "ops": tr.ops,
+        "trace_s": step_s,
+        "mesh_trace_s": time.perf_counter() - t0,
+        "collectives": list(ledger.records),
+        "ledger": ledger.as_dict(),
+        "local_batch": local,
+        "programs": programs,
+        "gathered_bytes": gathered,
+    }, notes
 
 
 def run_cell(arch: str, shape_name, *, multi_pod: bool = False,
@@ -246,14 +405,17 @@ def run_cell(arch: str, shape_name, *, multi_pod: bool = False,
     if mesh.size == 1:
         trace = _trace_cell(cfg, shape, mesh)
     else:
-        trace, more = _production_trace(cfg, shape, mesh, policy)
+        trace, more = mesh_trace(cfg, shape, mesh)
         notes += more
 
+    on_mesh = {k: trace[k] for k in ("ledger", "programs", "local_batch", "gathered_bytes") if k in trace}
+    if "mesh_trace_s" in trace:
+        on_mesh["mesh_trace_s"] = round(trace["mesh_trace_s"], 1)
     if skip_cost:
         return {
             "arch": arch, "shape": shape_name, "multi_pod": multi_pod, "mesh": mesh_name,
             "trace_s": round(trace["trace_s"], 1),
-            "memory_per_device_bytes": int(trace["peak_bytes"]),
+            "memory_per_device_bytes": int(trace["peak_bytes"]), **on_mesh,
         }
 
     if shape.mode == "decode" and cfg.hybrid_attn_every:
@@ -274,10 +436,12 @@ def run_cell(arch: str, shape_name, *, multi_pod: bool = False,
         argument_bytes=int(trace["argument_bytes"]),
         aten_ops=trace["ops"],
         notes=notes,
+        **on_mesh,
     )
     if verbose:
         print(f"== {arch} × {shape_name} ({mesh_name}) ==")
-        print(f"   trace: {trace['ops']} aten ops in {trace['trace_s']:.1f} s, peak "
+        mesh_s = f" (the mesh trace {trace['mesh_trace_s']:.1f} s)" if "mesh_trace_s" in trace else ""
+        print(f"   trace: {trace['ops']} aten ops in {trace['trace_s']:.1f} s{mesh_s}, peak "
               f"{trace['peak_bytes'] / 2**30:.2f} GiB (arguments {trace['argument_bytes'] / 2**30:.2f} GiB), "
               f"TFLOP by dtype {json.dumps({k: round(v / 1e12, 3) for k, v in trace['flops_by_dtype'].items()})}")
         print(roofline_report(record))

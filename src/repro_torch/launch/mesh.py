@@ -22,7 +22,9 @@ primitive and bytes per shard, priced as the JAX package's
 ``all_gather``: what a shard receives, output minus operand; ``psum``:
 a ring all-reduce, twice the operand), plus what a caller replicates
 with :meth:`AppMesh.broadcast` — the counterpart of a ``P(None, None)``
-operand, which moves bytes without a collective.
+operand, which moves bytes without a collective.  Its ``records`` keep
+each call as the compiled HLO shows it, ``(kind, per-device result
+bytes)``, the input of the roofline's collective term.
 
 A :class:`DeviceMesh` is the counterpart of ``jax.make_mesh(shape,
 axes)`` for training and serving steps: named axes over an object array
@@ -34,7 +36,8 @@ collectives run over one or more named axes (``all_gather``, ``psum``,
 ``psum_scatter``, ``pmax``) on such parts, and :meth:`DeviceMesh.run`
 runs one program per position along the batch axes, each in a thread,
 meeting at the collectives of
-:func:`~repro_torch.models.sharding.program_psum` and its kin.  A
+:func:`~repro_torch.models.sharding.program_psum` and its kin (on
+``meta`` devices, the dry run's, program 0 alone stands for them).  A
 ``psum_scatter`` is priced as the reduce-scatter half of the ring,
 (n - 1)/n of the operand, and entered as JAX's ``reduce_scatter``
 primitive; ``pmax`` as an all-reduce.  A collective over axes of size 1
@@ -142,17 +145,29 @@ def mesh_axis_sizes(mesh) -> dict[str, int]:
     return dict(zip(mesh.axis_names, mesh.shape))
 
 
+# the HLO collective that each primitive compiles to
+_HLO_KINDS = {"all_gather": "all-gather", "psum": "all-reduce", "pmax": "all-reduce",
+             "reduce_scatter": "reduce-scatter", "ppermute": "collective-permute"}
+
+
 @dataclasses.dataclass
 class VolumeLedger:
-    """Collective calls and per-shard bytes, by primitive."""
+    """Collective calls and per-shard bytes, by primitive; and ``records``,
+    each call as the HLO the JAX package parses would show it: ``(kind,
+    per-device result bytes)`` (``roofline.analysis.collective_bytes``'
+    input)."""
 
     counts: dict = dataclasses.field(default_factory=dict)
     bytes: dict = dataclasses.field(default_factory=dict)
     replicated_bytes: int = 0
+    records: list = dataclasses.field(default_factory=list)
 
-    def add(self, prim: str, nbytes: int) -> None:
+    def add(self, prim: str, nbytes: int, result_bytes: int) -> None:
+        """One call of ``prim``: ``nbytes`` a shard at its ring price, and
+        the per-device bytes of its result."""
         self.counts[prim] = self.counts.get(prim, 0) + 1
         self.bytes[prim] = self.bytes.get(prim, 0) + int(nbytes)
+        self.records.append((_HLO_KINDS[prim], int(result_bytes)))
 
     def as_dict(self) -> dict:
         """The JAX package's ``collective_volume`` record: ``counts``,
@@ -227,14 +242,14 @@ class AppMesh:
     def all_gather(self, parts: list) -> list:
         """Every shard's part, concatenated along dim 0 in shard order."""
         self._check(parts)
-        self.volume.add("all_gather", (self.size - 1) * _nbytes(parts[0]))
+        self.volume.add("all_gather", (self.size - 1) * _nbytes(parts[0]), self.size * _nbytes(parts[0]))
         return self.per_device(lambda s: torch.cat([p.to(self.devices[s]) for p in parts]))
 
     def ppermute(self, parts: list, perm) -> list:
         """Shard ``dst`` receives ``parts[src]`` for each ``(src, dst)``;
         a shard that receives nothing gets zeros (``jax.lax.ppermute``)."""
         self._check(parts)
-        self.volume.add("ppermute", _nbytes(parts[0]))
+        self.volume.add("ppermute", _nbytes(parts[0]), _nbytes(parts[0]))
         src_of = {int(dst): int(src) for src, dst in perm}
         return [parts[src_of[s]].to(d) if s in src_of else torch.zeros_like(parts[s])
                 for s, d in enumerate(self.devices)]
@@ -243,7 +258,7 @@ class AppMesh:
         """The sum over shards, added in shard order 0..S-1 (one fixed
         association), on every shard."""
         self._check(parts)
-        self.volume.add("psum", 2 * _nbytes(parts[0]))
+        self.volume.add("psum", 2 * _nbytes(parts[0]), _nbytes(parts[0]))
         total = parts[0]
         for p in parts[1:]:
             total = total + p.to(total.device)
@@ -356,9 +371,11 @@ class DeviceMesh:
             out.setdefault(key, []).append(pos)
         return [sorted(g, key=lambda p: self.index_along(p, axes)) for g in out.values()]
 
-    def _collective(self, parts, axes, prim: str, price, combine, scatter: bool = False) -> np.ndarray:
+    def _collective(self, parts, axes, prim: str, price, result, combine, scatter: bool = False) -> np.ndarray:
         """``combine(values, j, device)`` for member ``j`` of each group,
-        made once per (operands, device) and, for a scatter, member."""
+        made once per (operands, device) and, for a scatter, member;
+        entered as ``price(n, b)`` and ``result(n, b)`` bytes of an operand
+        of ``b`` bytes over ``n`` members."""
         axes = _axes(axes)
         n = self.axis_size(axes)
         out = np.empty(self.shape, dtype=object)
@@ -372,24 +389,24 @@ class DeviceMesh:
                     made[key] = combine(vals, j, dev)
                 out[p] = made[key]
         if n > 1:
-            first = parts[self.positions()[0]]
-            self.volume.add(prim, price(n, _nbytes(first)))
+            b = _nbytes(parts[self.positions()[0]])
+            self.volume.add(prim, price(n, b), result(n, b))
         return out
 
     def all_gather(self, parts, axes, dim: int = 0) -> np.ndarray:
         """Every member's part concatenated along ``dim`` in member order.
         Priced as what a position receives: (n - 1) parts."""
-        return self._collective(parts, axes, "all_gather", lambda n, b: (n - 1) * b,
+        return self._collective(parts, axes, "all_gather", lambda n, b: (n - 1) * b, lambda n, b: n * b,
                                 lambda vals, j, dev: torch.cat([v.to(dev) for v in vals], dim))
 
     def psum(self, parts, axes) -> np.ndarray:
         """The members' sum, added in member order.  A ring all-reduce:
         twice the operand."""
-        return self._collective(parts, axes, "psum", lambda n, b: 2 * b, _sum)
+        return self._collective(parts, axes, "psum", lambda n, b: 2 * b, lambda n, b: b, _sum)
 
     def pmax(self, parts, axes) -> np.ndarray:
         """The members' elementwise max (an all-reduce: twice the operand)."""
-        return self._collective(parts, axes, "pmax", lambda n, b: 2 * b, _max)
+        return self._collective(parts, axes, "pmax", lambda n, b: 2 * b, lambda n, b: b, _max)
 
     def psum_scatter(self, parts, axes, dim: int = 0) -> np.ndarray:
         """The members' sum (in member order) cut along ``dim`` into n
@@ -408,8 +425,8 @@ class DeviceMesh:
             size = total.shape[dim] // n
             return total.narrow(dim, j * size, size).clone(memory_format=torch.contiguous_format)
 
-        return self._collective(parts, axes, "reduce_scatter", lambda n, b: (n - 1) * b // n, block,
-                                scatter=True)
+        return self._collective(parts, axes, "reduce_scatter", lambda n, b: (n - 1) * b // n,
+                                lambda n, b: b // n, block, scatter=True)
 
     def run(self, fn, args: list, axes) -> list:
         """``fn(*args[i])`` once per position along ``axes`` (row-major;
@@ -418,7 +435,13 @@ class DeviceMesh:
         a thread of its own when there are several, with this thread's grad
         mode.  Returns the results in program order; if a program raises,
         the others are woken from their collectives and the first error is
-        raised here."""
+        raised here.
+
+        On ``meta`` devices (the dry run: shapes, no values) the programs
+        are alike, each on rows of the same shapes: program 0 runs alone,
+        in this thread, its collectives meeting copies of its own value,
+        and its result stands for every program's.  The ledger is the
+        same, since program 0 enters every in-program collective."""
         from repro_torch.kernels._build import LAUNCHES
         from repro_torch.models.sharding import ProgramGroup, in_program
 
@@ -427,7 +450,8 @@ class DeviceMesh:
         if len(args) != len(coords):
             raise ValueError(f"{len(args)} argument tuples for {len(coords)} programs along {axes}")
         devices = [self.devices[self.position(axes, c)] for c in coords]
-        group = ProgramGroup(self, axes, coords)
+        alike = all(d.type == "meta" for d in devices)
+        group = ProgramGroup(self, axes, coords, alike=alike)
         grad = torch.is_grad_enabled()
         results: list = [None] * len(coords)
         errors: list = [None] * len(coords)
@@ -443,8 +467,9 @@ class DeviceMesh:
                 errors[i] = e
                 group.abort()
 
-        if len(coords) == 1:
+        if len(coords) == 1 or alike:
             work(0)
+            results[1:] = results[:1] * (len(coords) - 1)
         else:
             threads = [threading.Thread(target=work, args=(i,), name=f"program-{i}")
                        for i in range(len(coords))]

@@ -348,12 +348,14 @@ def mesh_adamw(mesh: DeviceMesh, grads: dict[str, Placed], opt: AdamWState, para
 
 def mesh_train_step(cfg: ModelConfig, mesh: DeviceMesh, state: dict, batch: dict, *, lr_fn, clip: float,
                     axes: tuple = ("pod", "data"), aux_weight: float = 0.01, grad_accum: int = 1,
-                    compress_grads: bool = False, weight_decay: float = 0.1):
+                    compress_grads: bool = False, weight_decay: float = 0.1, update: bool = True):
     """One optimizer step of a placed state (:func:`place_state`), in
     place: grads averaged in f32 over ``grad_accum`` micro-batches (batch
     leaves (accum, micro, ...)), optionally int8-compressed, clipped, then
-    AdamW at ``lr_fn(step)``.  Returns (state, {"loss", "grad_norm",
-    "lr"}), the trainer's step on the mesh."""
+    AdamW at ``lr_fn(step)`` (``update=False`` stops before it: the dry
+    run's trace, which prices what moves between positions, and AdamW
+    moves nothing).  Returns (state, {"loss", "grad_norm", "lr"}), the
+    trainer's step on the mesh."""
     params = state["params"]
     if grad_accum > 1:
         loss, grads = None, None
@@ -374,7 +376,8 @@ def mesh_train_step(cfg: ModelConfig, mesh: DeviceMesh, state: dict, batch: dict
         grads = mesh_compress(mesh, grads, param_paths(LM(cfg, "meta")))
     grads, gnorm = mesh_clip(mesh, grads, clip)
     lr = lr_fn(state["opt"].step.parts.flat[0])
-    state["opt"] = mesh_adamw(mesh, grads, state["opt"], params, lr, weight_decay=weight_decay)
+    if update:
+        state["opt"] = mesh_adamw(mesh, grads, state["opt"], params, lr, weight_decay=weight_decay)
     return state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
 
 
@@ -394,16 +397,18 @@ def _write_back(cfg: ModelConfig, state: dict, placed: dict) -> None:
     state["opt"] = AdamWState(step=gather(placed["opt"].step, opt.step.device), m=opt.m, v=opt.v)
 
 
-def make_mesh_train_step(cfg: ModelConfig, mesh: DeviceMesh, *, lr: float = 3e-4, clip: float = 1.0):
+def make_mesh_train_step(cfg: ModelConfig, mesh: DeviceMesh, *, lr: float = 3e-4, clip: float = 1.0,
+                         update: bool = True):
     """``make_train_step``'s step on ``mesh``: the batch over its dp axes
     (the active policy's), no accumulation, aux weight 0.01.  A placed
     state is updated in place; a one-card state is placed for the step
-    and written back."""
+    and written back.  ``update``: :func:`mesh_train_step`'s."""
     lr_fn = cosine_schedule(lr, 100, 10_000)
 
     def train_step(state, batch):
         placed = state if _is_placed(state) else place_state(cfg, state, mesh)
-        placed, met = mesh_train_step(cfg, mesh, placed, batch, lr_fn=lr_fn, clip=clip, axes=_dp_axes(mesh))
+        placed, met = mesh_train_step(cfg, mesh, placed, batch, lr_fn=lr_fn, clip=clip, axes=_dp_axes(mesh),
+                                      update=update)
         if placed is not state:
             _write_back(cfg, state, placed)
         return state, {"loss": met["loss"], "grad_norm": met["grad_norm"]}
@@ -464,14 +469,16 @@ def _decode(cfg, mesh, dp, fn, params, tokens, cache, pos):
     return torch.cat([o[0].to(devices[0]) for o in outs]), cache
 
 
-def run_cell(step, *args) -> Any:
+def run_cell(step, *args, update: bool = True) -> Any:
     """A :class:`~repro_torch.launch.steps.CellStep` on real tensors on a
     ``DeviceMesh`` of several positions, under the ambient mesh (the MoE's
     EP branch reads it).  train: ``(state, batch)`` as
-    ``make_train_step``'s step; prefill ``(params, batch)`` and decode
-    ``(params, tokens, cache, pos)``: the one-card step of each data shard
-    on its rows; ``params`` an :class:`LM` or :func:`place_params`'
-    dict."""
+    ``make_train_step``'s step (``update``: :func:`mesh_train_step`'s);
+    prefill ``(params, batch)`` and decode ``(params, tokens, cache,
+    pos)``: the one-card step of each data shard on its rows; ``params``
+    an :class:`LM` or :func:`place_params`' dict.  On a mesh of ``meta``
+    devices the step runs as the dry run traces it (``DeviceMesh.run``:
+    program 0 stands for the others)."""
     mesh, cfg = step.mesh, step.cfg
     if not isinstance(mesh, DeviceMesh):
         raise TypeError(f"{type(mesh).__name__} describes ranks, not devices: run a cell on a DeviceMesh "
@@ -479,7 +486,7 @@ def run_cell(step, *args) -> Any:
     dp = _dp_axes(mesh)
     with activation_mesh(mesh, dp):
         if step.mode == "train":
-            return make_mesh_train_step(cfg, mesh)(*args)
+            return make_mesh_train_step(cfg, mesh, update=update)(*args)
         if step.mode == "prefill":
             return _prefill(cfg, mesh, dp, step.fn, *args)
         if step.mode == "decode":

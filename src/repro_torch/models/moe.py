@@ -256,7 +256,7 @@ def _record_psum(mesh, nbytes: int, ranks: int) -> None:
     (by program 0 inside a program)."""
     prog = current_program()
     if ranks > 1 and hasattr(mesh, "volume") and (prog is None or prog[1] == 0):
-        mesh.volume.add("psum", 2 * nbytes)
+        mesh.volume.add("psum", 2 * nbytes, nbytes)
 
 
 def _ep_dispatch(xt, params: MoE, cfg: ModelConfig, mask, lossless: bool, mesh, m: int,
@@ -324,7 +324,7 @@ def moe_forward(params: MoE, x: torch.Tensor, cfg: ModelConfig, token_mask=None,
     aux = _router_aux(xt, params.router, cfg)
     mask = None if token_mask is None else token_mask.reshape(B * S)
     mesh, dp = ambient_mesh()
-    m = None if x.device.type == "meta" else expert_parallel(cfg, mesh)
+    m = expert_parallel(cfg, mesh)
     if m is not None:
         n = 1 if current_program() is not None else _dp_parts(mesh, dp, B)
         rows = [slice(i * (B * S // n), (i + 1) * (B * S // n)) for i in range(n)]

@@ -19,7 +19,9 @@ collectives inside a step can meet: :func:`program_psum` and
 run (the loss's global sums, the MoE's gathered tokens).  Outside a
 program they return their input.  Each is added once to the mesh's
 ``VolumeLedger`` (by program 0), priced as the JAX package's
-``collective_volume`` prices the primitive.
+``collective_volume`` prices the primitive; so is a gather's backward,
+as JAX transposes it: a ``reduce_scatter`` of the gathered gradient (a
+``psum``'s replicated result transposes to no collective).
 
 :class:`P` stands in for ``jax.sharding.PartitionSpec``: a tuple of mesh
 axis names (a name, a tuple of names, or None a dimension).  The
@@ -29,6 +31,7 @@ keyed as the parameter and cache trees are.
 from __future__ import annotations
 
 import contextlib
+import functools
 import threading
 
 import torch
@@ -129,10 +132,12 @@ class ProgramGroup:
     ``coords[i]`` along them (row-major).  The programs run in threads of
     one process and meet at every collective (:meth:`exchange`); all of
     them call the same collectives in the same order, as the programs of a
-    ``shard_map`` do."""
+    ``shard_map`` do.  ``alike``: program 0 runs alone and stands for
+    the others (``DeviceMesh.run`` on ``meta``): an exchange returns its
+    value for every program."""
 
-    def __init__(self, mesh, axes: tuple, coords: list):
-        self.mesh, self.axes, self.coords = mesh, tuple(axes), list(coords)
+    def __init__(self, mesh, axes: tuple, coords: list, alike: bool = False):
+        self.mesh, self.axes, self.coords, self.alike = mesh, tuple(axes), list(coords), alike
         # a program that waits this long at a collective raises
         # BrokenBarrierError: the programs did not call the same collectives
         self._barrier = threading.Barrier(len(self.coords), timeout=600)
@@ -145,8 +150,8 @@ class ProgramGroup:
     def exchange(self, i: int, value) -> list:
         """Every program's ``value``, in program order (a barrier before
         and after the read, so that the slots can be used again)."""
-        if self.n == 1:
-            return [value]
+        if self.n == 1 or self.alike:
+            return [value] * self.n
         self._slots[i] = value
         self._barrier.wait()
         values = list(self._slots)
@@ -190,15 +195,28 @@ def _nbytes(x: torch.Tensor) -> int:
     return x.numel() * x.element_size()
 
 
-def _meet(x: torch.Tensor, axes, prim: str, price):
+def _meet(x: torch.Tensor, axes, prim: str, price, result):
     """The values of ``x`` of the programs along ``axes`` (all by default),
-    in program order; program 0 adds the call to the mesh's ledger."""
+    in program order; program 0 adds the call to the mesh's ledger
+    (``price(n, b)`` and ``result(n, b)`` bytes of ``b`` bytes over ``n``
+    programs, as ``DeviceMesh``'s collectives enter theirs)."""
     group, i = current_program()
     values = group.exchange(i, x)
     members = group.members(i, axes)
     if i == 0 and len(members) > 1:
-        group.mesh.volume.add(prim, price(len(members), _nbytes(x)))
+        group.mesh.volume.add(prim, price(len(members), _nbytes(x)), result(len(members), _nbytes(x)))
     return [values[j] for j in members]
+
+
+def _enter_transpose(group: ProgramGroup, n: int, grad: torch.Tensor) -> None:
+    """The backward of a gather over ``n`` programs, entered as JAX
+    transposes ``all_gather(tiled=True)``: a ``reduce_scatter`` of the
+    gathered gradient over the same axes, priced as
+    ``DeviceMesh.psum_scatter`` prices it.  The gradient itself flows
+    through ``torch.cat``'s backward into each program's ``x``,
+    untouched."""
+    b = _nbytes(grad)
+    group.mesh.volume.add("reduce_scatter", (n - 1) * b // n, b // n)
 
 
 def program_psum(x: torch.Tensor, axes=None) -> torch.Tensor:
@@ -208,7 +226,7 @@ def program_psum(x: torch.Tensor, axes=None) -> torch.Tensor:
     program."""
     if current_program() is None:
         return x
-    parts = _meet(x, axes, "psum", lambda n, b: 2 * b)
+    parts = _meet(x, axes, "psum", lambda n, b: 2 * b, lambda n, b: b)
     total = parts[0].to(x.device)
     for p in parts[1:]:
         total = total + p.to(x.device)
@@ -217,12 +235,17 @@ def program_psum(x: torch.Tensor, axes=None) -> torch.Tensor:
 
 def program_all_gather(x: torch.Tensor, axes=None, dim: int = 0) -> torch.Tensor:
     """The programs' ``x`` along ``axes`` concatenated along ``dim`` in
-    program order, on this program's device.  Differentiable; ``x`` itself
+    program order, on this program's device.  Differentiable (program 0
+    enters the backward's ``reduce_scatter`` when it runs); ``x`` itself
     outside a program."""
-    if current_program() is None:
+    prog = current_program()
+    if prog is None:
         return x
-    parts = _meet(x, axes, "all_gather", lambda n, b: (n - 1) * b)
-    return torch.cat([p.to(x.device) for p in parts], dim)
+    parts = _meet(x, axes, "all_gather", lambda n, b: (n - 1) * b, lambda n, b: n * b)
+    out = torch.cat([p.to(x.device) for p in parts], dim)
+    if out.requires_grad and prog[1] == 0 and len(parts) > 1:
+        out.register_hook(functools.partial(_enter_transpose, prog[0], len(parts)))
+    return out
 
 
 def program_index(axes) -> tuple[int, int]:

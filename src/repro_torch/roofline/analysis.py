@@ -29,8 +29,9 @@ Methodology (the JAX package's notes, as they carry over):
   package the bottleneck call uses the analytic lower bound instead.
 * There is no HLO in the port: collectives come as ``(kind, per-device
   result bytes)`` records, priced by the JAX package's rules
-  (:func:`collective_bytes`, all-reduce doubled for the ring).  A term
-  that cannot be had (``None``) is left out of the bottleneck.
+  (:func:`collective_bytes`, all-reduce doubled for the ring): the
+  ``VolumeLedger.records`` of the mesh step's run on a mesh of ``meta``
+  devices of the production shape, none on one card.
 """
 from __future__ import annotations
 
@@ -76,14 +77,9 @@ def collective_bytes(records: Iterable[tuple[str, float]]) -> dict[str, float]:
 
 def cost_record(trace: dict) -> dict[str, float]:
     """Raw per-device cost numbers of one traced step (the JAX package's
-    keys).  ``trace``: :func:`repro_torch.launch.dryrun._trace_cell`'s
-    record; its ``collectives`` (``None`` where no process group exists to
-    record them) give the ``coll_*`` keys."""
-    records = trace.get("collectives")
-    if records is None:
-        return {"flops": float(trace["flops"]), "bytes": float(trace["bytes"]),
-                "coll_total": None, "coll_detail": None, "coll_count": None}
-    coll = collective_bytes(records)
+    keys).  ``trace``: a record of :mod:`repro_torch.launch.dryrun`'s; its
+    ``collectives`` records give the ``coll_*`` keys."""
+    coll = collective_bytes(trace["collectives"])
     return {
         "flops": float(trace["flops"]),
         "bytes": float(trace["bytes"]),
@@ -176,9 +172,7 @@ def compute_seconds(flops_by_dtype: dict[str, float]) -> float:
 def analyze_cell(trace: dict, cost: dict, cfg, shape, mesh) -> dict[str, Any]:
     """The JAX package's record of one cell, from the port's per-device
     trace (``flops_by_dtype``, ``peak_bytes``) and its cost record;
-    ``fits_hbm_80g`` in place of ``fits_hbm_16g``.  A collective term of
-    ``None`` (no process group to record it) stays ``None`` and out of the
-    bottleneck."""
+    ``fits_hbm_80g`` in place of ``fits_hbm_16g``."""
     chips = int(np.prod(mesh.devices.shape))
     flops_dev = cost["flops"]
     bytes_dev_hlo = cost["bytes"]
@@ -189,9 +183,8 @@ def analyze_cell(trace: dict, cost: dict, cfg, shape, mesh) -> dict[str, Any]:
     t_compute = compute_seconds(trace["flops_by_dtype"])
     t_mem_hlo = bytes_dev_hlo / HBM_BW
     t_mem = bytes_dev_analytic / HBM_BW
-    t_coll = None if coll_dev is None else coll_dev / LINK_BW
+    t_coll = coll_dev / LINK_BW
     terms = {"compute": t_compute, "memory": t_mem, "collective": t_coll}
-    terms = {k: v for k, v in terms.items() if v is not None}
     bottleneck = max(terms, key=terms.get)
     step_time = max(terms.values())
     mfu = (mf / chips / PEAK_FLOPS) / step_time if step_time > 0 else 0.0
@@ -218,7 +211,7 @@ def analyze_cell(trace: dict, cost: dict, cfg, shape, mesh) -> dict[str, Any]:
 
 
 def _ms(t) -> str:
-    return "n/a" if t is None else f"{t*1e3:.2f}ms"
+    return f"{t*1e3:.2f}ms"
 
 
 def roofline_report(rec: dict[str, Any]) -> str:

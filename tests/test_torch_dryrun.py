@@ -317,28 +317,43 @@ def test_moe_meta_route(arch):
 
 
 def test_production_mesh_cell(policy):
-    """On the 16 x 16 mesh: the state's bytes from the shard shapes, the
-    step traced at the local batch, its FLOPs over the model axis, no
-    collective term; running the step there on real tensors needs the mesh
-    opened over devices (``make_mesh``), where it matches the one-card
-    step."""
+    """On the 16 x 16 mesh the record is the port's mesh program's: the
+    step runs on a mesh of ``meta`` devices, one program a data shard at
+    the local batch on whole parameters.  Its FLOPs are a program's, not
+    divided by the model axis (a dense program's equal the bare step's at
+    the local batch); the peak adds the parameters gathered whole to the
+    position's shards and the program's temporaries (those of the bare
+    step less the update's); the collectives are the mesh's ledger, the
+    same as that of the step run on the CPU over a mesh of that shape.
+    Running the step there on real tensors needs the mesh opened over
+    devices (``make_mesh``), where it matches the one-card step."""
+    from repro_torch.models import LM, named_params
+
     cfg = get_reduced("tinyllama-1.1b")
     mesh = make_production_mesh()
     shape = ShapeSpec("t", 64, 32, "train")
     assert dryrun._local_batch(cfg, shape, mesh) == 2
-    rec, notes = dryrun._production_trace(cfg, shape, mesh, "2d")
+    rec, notes = dryrun.mesh_trace(cfg, shape, mesh)
     local = dryrun._trace_cell(cfg, dataclasses.replace(shape, global_batch=2), mesh)
-    assert rec["local_batch"] == 2 and rec["collectives"] is None
-    assert rec["flops"] == local["flops"] / 16
+    assert rec["local_batch"] == 2 and rec["programs"] == 16
+    assert rec["flops"] == local["flops"] and rec["flops_by_dtype"] == local["flops_by_dtype"]
     shards = tsteps.jit_for_cell(cfg, shape, mesh).in_shardings
-    assert rec["argument_bytes"] == sum(s.nbytes for s in tsteps.shard_leaves(shards))
-    assert rec["peak_bytes"] == rec["argument_bytes"] + local["peak_bytes"] - local["argument_bytes"]
-    assert any("upper bound" in n for n in notes) and any("item 10" in n for n in notes)
+    rows = sum(t.numel() * t.element_size() for t in tsteps._tensors(tsteps.input_specs(cfg, shape)[1])) // 16
+    assert rec["argument_bytes"] == sum(s.nbytes for s in tsteps.shard_leaves(shards[0])) + rows
+    gathered = sum(t.numel() * t.element_size() for t in named_params(LM(cfg, "meta")).values())
+    assert rec["gathered_bytes"] == gathered
+    temporaries = rec["peak_bytes"] - rec["argument_bytes"] - gathered
+    assert 0 < temporaries < local["peak_bytes"] - local["argument_bytes"]
+    counts = rec["ledger"]["counts"]
+    assert counts["all_gather"] > 0 and counts["reduce_scatter"] > 0
+    assert len(rec["collectives"]) == sum(counts.values())
+    assert any("mesh program priced" in n for n in notes) and any("ring-priced" in n for n in notes)
     policy("fsdp")  # the batch over data x model: 32 does not divide into 256, so it is replicated
     assert dryrun._local_batch(cfg, shape, mesh) == 32
     assert dryrun._local_batch(cfg, dataclasses.replace(shape, global_batch=256), mesh) == 1
     policy("2d")
-    step = tsteps.jit_for_cell(cfg, ShapeSpec("d", 16, 32, "decode"), mesh)
+    dshape = ShapeSpec("d", 16, 32, "decode")
+    step = tsteps.jit_for_cell(cfg, dshape, mesh)
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import init_cache, init_params
 
@@ -346,13 +361,119 @@ def test_production_mesh_cell(policy):
     tok, pos = torch.zeros((32, 1), dtype=torch.int32), torch.arange(32, dtype=torch.int32) % 16
     with pytest.raises(TypeError, match="DeviceMesh"):  # a logical mesh of ranks holds no device
         step(params, tok, init_cache(cfg, 32, 16, device="cpu"), pos)
-    # the same shape opened over the CPU: 16 data shards of 2 rows each
+    # the same shape opened over the CPU: 16 data shards of 2 rows each,
+    # with the ledger of the dry run's trace of that cell
     cpu_mesh = make_mesh((16, 16), ("data", "model"), devices=["cpu"])
-    got, _ = tsteps.jit_for_cell(cfg, ShapeSpec("d", 16, 32, "decode"), cpu_mesh)(
-        params, tok, init_cache(cfg, 32, 16, device="cpu"), pos)
-    want, _ = tsteps.jit_for_cell(cfg, ShapeSpec("d", 16, 32, "decode"), make_one_card_mesh("cpu"))(
+    with cpu_mesh.recording() as ledger:
+        got, _ = tsteps.jit_for_cell(cfg, dshape, cpu_mesh)(params, tok, init_cache(cfg, 32, 16, device="cpu"), pos)
+    want, _ = tsteps.jit_for_cell(cfg, dshape, make_one_card_mesh("cpu"))(
         params, tok, init_cache(cfg, 32, 16, device="cpu"), pos)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    drec, _ = dryrun.mesh_trace(cfg, dshape, mesh)
+    assert drec["collectives"] == ledger.records and drec["ledger"] == ledger.as_dict()
+
+
+_LEDGER_CASES = [("tinyllama-1.1b", "2d", mode, mesh) for mode in ("train", "prefill", "decode")
+                 for mesh in ((4, 4), (2, 2, 2))] + [("olmoe-1b-7b", p, "train", (2, 2)) for p in ("2d", "fsdp")]
+
+
+def _cell_args(cfg, shape, device):
+    """The cell's step arguments: ``input_specs`` on ``meta``, seeded real
+    tensors on the CPU."""
+    if device == "meta":
+        return tsteps.input_specs(cfg, shape)
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.train import Trainer
+
+    B, S = shape.global_batch, shape.seq_len
+    params = init_params(0, cfg, device="cpu")
+    tok = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S)).astype(np.int32))
+    if shape.mode == "train":
+        return Trainer.state_from_params(params), {"tokens": tok, "labels": tok}
+    if shape.mode == "prefill":
+        return params, {"tokens": tok}
+    return params, tok[:, :1], init_cache(cfg, B, S, device="cpu"), torch.arange(B, dtype=torch.int32) % S
+
+
+@pytest.mark.parametrize("arch,pol,mode,shape", _LEDGER_CASES,
+                         ids=[f"{a.split('-')[0]}-{p}-{m}-{'x'.join(map(str, s))}" for a, p, m, s in _LEDGER_CASES])
+def test_meta_mesh_ledger_equals_cpu_mesh(policy, arch, pol, mode, shape):
+    """The step on a mesh of ``meta`` devices (program 0 standing for the
+    others) enters the same ledger, calls, ring bytes and HLO records, as
+    on a CPU mesh of the same shape whose programs all run."""
+    from repro_torch.launch import spmd
+    from repro_torch.launch.mesh import make_mesh
+
+    policy(pol)
+    cfg = get_reduced(arch)
+    cell = ShapeSpec(mode, 32, 8 if arch.startswith("tiny") else 4, mode)
+    axes = ("pod", "data", "model") if len(shape) == 3 else ("data", "model")
+    ledgers = []
+    for device in ("meta", "cpu"):
+        mesh = make_mesh(shape, axes, devices=[device])
+        with mesh.recording() as ledger:
+            spmd.run_cell(tsteps.jit_for_cell(cfg, cell, mesh), *_cell_args(cfg, cell, device))
+        ledgers.append(ledger)
+    assert ledgers[0].as_dict() == ledgers[1].as_dict() and ledgers[0].records == ledgers[1].records
+    assert ledgers[0].counts.get("all_gather", 0) > 0
+
+
+@pytest.mark.parametrize("multi_pod", [False, True], ids=["16x16", "2x16x16"])
+@pytest.mark.parametrize("pol", ["2d", "tp_only", "fsdp", "arch-default"])
+def test_mesh_trace_runs_every_mode_and_policy(policy, pol, multi_pod):
+    """Reduced OLMoE's train, prefill and decode cells priced on both
+    production meshes under every policy: a record with its programs,
+    HLO records as many as the ledger's calls, and a collective term."""
+    cfg = get_reduced("olmoe-1b-7b")
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    for mode in ("train", "prefill", "decode"):
+        policy(cfg.sharding_policy if pol == "arch-default" and mode == "train" else
+               "2d" if pol == "arch-default" else pol)
+        shape = ShapeSpec(mode, 32, 512, mode)
+        rec, notes = dryrun.mesh_trace(cfg, shape, mesh)
+        assert rec["programs"] * rec["local_batch"] == 512 and rec["flops"] > 0
+        assert len(rec["collectives"]) == sum(rec["ledger"]["counts"].values()) > 0
+        assert rec["peak_bytes"] > rec["argument_bytes"] + rec["gathered_bytes"]
+        assert any("mesh program priced" in n for n in notes)
+
+
+def test_update_free_trace_ledger_equals_full_step():
+    """The dry run traces the train step without AdamW (``update=False``):
+    on a 16 x 16 mesh of ``meta`` devices (under ``StepTrace``, as the dry
+    run traces) its ledger equals the full step's."""
+    from repro_torch.launch import spmd
+    from repro_torch.launch.mesh import make_mesh
+
+    cfg = get_reduced("tinyllama-1.1b")
+    cell = ShapeSpec("t", 32, 32, "train")
+    mesh = make_mesh((16, 16), ("data", "model"), devices=["meta"])
+    step = tsteps.jit_for_cell(cfg, cell, mesh)
+    ledgers = []
+    for update in (True, False):
+        state, batch = tsteps.input_specs(cfg, cell)
+        placed = spmd.place_state(cfg, state, mesh)
+        with dryrun.StepTrace("meta"), mesh.recording() as ledger:
+            spmd.run_cell(step, placed, batch, update=update)
+        ledgers.append(ledger)
+    assert ledgers[0].as_dict() == ledgers[1].as_dict() and ledgers[0].records == ledgers[1].records
+    assert ledgers[0].counts["reduce_scatter"] > 0
+
+
+def test_production_collective_term_priced_by_hand():
+    """TinyLlama-1.1B x ``decode_32k`` on 16 x 16: the record's collective
+    term is its ledger's HLO records priced by hand (all-reduce doubled)
+    over NVLink's 450 GB/s, and it enters the bottleneck."""
+    from repro_torch.roofline.analysis import LINK_BW
+
+    rec = dryrun.run_cell("tinyllama-1.1b", "decode_32k", verbose=False)
+    trace, _ = dryrun.mesh_trace(get_config("tinyllama-1.1b"), SHAPES["decode_32k"], make_production_mesh())
+    by_hand = sum(2 * b if kind == "all-reduce" else b for kind, b in trace["collectives"])
+    assert rec["collective_bytes_per_device"] == by_hand
+    assert rec["t_collective_s"] == by_hand / LINK_BW == pytest.approx(by_hand / 450e9)
+    assert rec["collectives"]["all-gather"] > 0
+    terms = {"compute": rec["t_compute_s"], "memory": rec["t_memory_s"], "collective": rec["t_collective_s"]}
+    assert rec["bottleneck"] == max(terms, key=terms.get)
+    assert rec["ledger"]["counts"] == {"all_gather": 312} and rec["mesh_trace_s"] >= rec["trace_s"]
 
 
 def test_one_card_step_runs_on_real_tensors():
@@ -386,6 +507,7 @@ def test_dryrun_cli():
         out, err = p.communicate(timeout=300)
         assert p.returncode == 0, err
         assert f"tinyllama-1.1b × train_4k ({mesh})" in out and "1/1 cells OK" in out
+        assert "collective=n/a" not in out and "collective=" in out
 
 
 # ---------------------------------------------------------------------------

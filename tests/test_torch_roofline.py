@@ -80,9 +80,11 @@ def test_cost_record_equals_jax():
     trace = {"flops": 1.5e12, "bytes": 3.25e9, "flops_by_dtype": {"bfloat16": 1.5e12},
              "collectives": RECORDS}
     assert ta.cost_record(trace) == ja.cost_record(Compiled())
-    # no process group: the collective keys are None, not 0
-    none = ta.cost_record({**trace, "collectives": None})
-    assert none["coll_total"] is None and none["flops"] == 1.5e12
+    # every trace has its records (none on one card): a trace without them
+    # is refused, not priced as None
+    assert ta.cost_record({**trace, "collectives": []})["coll_total"] == 0.0
+    with pytest.raises(TypeError):
+        ta.cost_record({**trace, "collectives": None})
 
 
 @pytest.mark.parametrize("L", [1, 24, 64])
@@ -143,12 +145,12 @@ def test_analyze_cell_terms_equal_jax(arch, shape, v5e_constants):
 
 
 def test_analyze_cell_prices_f32_on_the_fp32_pipes():
-    cost = {"flops": 2e12, "bytes": 0.0, "coll_total": None, "coll_detail": None, "coll_count": None}
+    cost = ta.cost_record({"flops": 2e12, "bytes": 0.0, "collectives": []})
     trace = {"flops_by_dtype": {"bfloat16": 989e9, "float32": 1.011e12}, "peak_bytes": 2 ** 30}
     rec = ta.analyze_cell(trace, cost, get_config("tinyllama-1.1b"), SHAPES["decode_32k"], MESHES[1])
     assert rec["t_compute_s"] == pytest.approx(1e-3 + 1.011e12 / 67e12, rel=1e-12)
-    assert rec["t_collective_s"] is None and rec["bottleneck"] in ("compute", "memory")
-    assert "n/a" in ta.roofline_report(rec)
+    assert rec["t_collective_s"] == 0.0 and rec["bottleneck"] in ("compute", "memory")
+    assert "collective=0.00ms" in ta.roofline_report(rec)
 
 
 def _record(**kw):
